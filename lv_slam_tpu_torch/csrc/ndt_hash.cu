@@ -1,0 +1,272 @@
+// Kernels 3 and 4: the bucket-pair hash table of an NDT voxel map and the NDT
+// derivative pass over it.
+//
+// Kernel 3 replaces lv_slam_tpu/ops/ndt_hash.py:53 `to_hash`.
+//   Bound on the card: once per keyframe it touches leaf_cap leaves and
+//   B = 4 * leaf_cap buckets of 128 bytes (16 MB of table at leaf_cap 32768):
+//   pure memory traffic, a few microseconds of HBM time, so the launches'
+//   latency is what shows.
+//   Design: the reference's two scatter-min passes become atomicMin passes on
+//   int32 bucket heads (slot 0 = lowest leaf index, slot 1 = lowest of the
+//   rest), a third pass counts the dropped leaves, and a last pass writes each
+//   bucket's 32-float row. atomicMin of indices is order-independent, so the
+//   table is deterministic and bit-exact with the plain version. Keys are
+//   written as int32 bits through an int alias, never through float math.
+//
+// Kernel 4 replaces lv_slam_tpu/ops/ndt_hash.py:132 `ndt_derivatives_hash`
+// with lv_slam_tpu/ops/ndt_soa.py:59 `accumulate_ndt_terms` as its body.
+//   Bound on the card: per call it reads N points (12 B each, N = 65536 or
+//   32768 on the coarse phase) and one random 128-byte table row per point
+//   and offset; the table (16 MB) stays in the 50 MB L2 across the Newton
+//   iterations. About 300 flops per hit, so the kernel is bound by the
+//   dependent row load and by the 43-wide reduction, not by arithmetic.
+//   Design: one thread per point loops over the K offsets and keeps the 43
+//   sums (score, gradient 6, Hessian 36: the T2 block is not symmetric, so no
+//   triangle is mirrored) in registers; lanes that miss or fail the gate are
+//   skipped, never multiplied by 0 (a sentinel lane's terms can be inf). Warp
+//   shuffles and shared memory reduce each block to one partial row; a second
+//   one-block kernel sums the partial rows in a fixed order, so the result is
+//   deterministic run to run.
+#include "common.cuh"
+
+namespace {
+
+constexpr unsigned kFib = 2654435769u;  // 2^32 / golden ratio
+constexpr int kTerms = 43;
+constexpr int kWarps = lvs::kThreads / 32;
+
+__device__ __forceinline__ int bucket_of(int key, int b_bits) {
+  return static_cast<int>((static_cast<unsigned>(key) * kFib) >> (32 - b_bits));
+}
+
+// (rel0 * e + rel1) * e + rel2 with int32 wrap-around, as the reference's
+// int32 arithmetic, without signed-overflow UB
+__device__ __forceinline__ int flat_key(int r0, int r1, int r2, int e) {
+  unsigned k = (static_cast<unsigned>(r0) * e + static_cast<unsigned>(r1)) * e + static_cast<unsigned>(r2);
+  return static_cast<int>(k);
+}
+
+// ---------------------------------------------------------------- kernel 3
+
+__global__ void hash_init(int n_buckets, int sentinel, int* first, int* second, int* n_dropped) {
+  int b = blockIdx.x * blockDim.x + threadIdx.x;
+  if (b == 0) *n_dropped = 0;
+  if (b < n_buckets) {
+    first[b] = sentinel;
+    second[b] = sentinel;
+  }
+}
+
+__device__ __forceinline__ int leaf_key(const float* means, const int* origin, float inv_res, int e,
+                                        int l) {
+  int c0 = static_cast<int>(floorf(means[3 * l + 0] * inv_res)) - origin[0];
+  int c1 = static_cast<int>(floorf(means[3 * l + 1] * inv_res)) - origin[1];
+  int c2 = static_cast<int>(floorf(means[3 * l + 2] * inv_res)) - origin[2];
+  return flat_key(c0, c1, c2, e);
+}
+
+__global__ void hash_slot0(const float* means, const bool* valid, const int* origin, float inv_res,
+                           int e, int leaf_cap, int b_bits, int* first) {
+  int l = blockIdx.x * blockDim.x + threadIdx.x;
+  if (l >= leaf_cap || !valid[l]) return;
+  atomicMin(&first[bucket_of(leaf_key(means, origin, inv_res, e, l), b_bits)], l);
+}
+
+__global__ void hash_slot1(const float* means, const bool* valid, const int* origin, float inv_res,
+                           int e, int leaf_cap, int b_bits, const int* first, int* second) {
+  int l = blockIdx.x * blockDim.x + threadIdx.x;
+  if (l >= leaf_cap || !valid[l]) return;
+  int h = bucket_of(leaf_key(means, origin, inv_res, e, l), b_bits);
+  if (first[h] != l) atomicMin(&second[h], l);
+}
+
+__global__ void hash_dropped(const float* means, const bool* valid, const int* origin,
+                             float inv_res, int e, int leaf_cap, int b_bits, const int* first,
+                             const int* second, int* n_dropped) {
+  int l = blockIdx.x * blockDim.x + threadIdx.x;
+  if (l >= leaf_cap || !valid[l]) return;
+  int h = bucket_of(leaf_key(means, origin, inv_res, e, l), b_bits);
+  if (first[h] != l && second[h] != l) atomicAdd(n_dropped, 1);
+}
+
+// row of bucket b: [key bits, mu(3), c00 c01 c02 c11 c12 c22, w, 0 x 5] x 2 slots
+__global__ void hash_rows(const float* means, const float* icovs, const float* weights,
+                          const int* origin, float inv_res, int e, int leaf_cap, int n_buckets,
+                          const int* first, const int* second, float* table) {
+  int b = blockIdx.x * blockDim.x + threadIdx.x;
+  if (b >= n_buckets) return;
+  for (int s = 0; s < 2; ++s) {
+    int l = s == 0 ? first[b] : second[b];
+    float* row = table + 32 * static_cast<long long>(b) + 16 * s;
+    int* row_bits = reinterpret_cast<int*>(row);
+    for (int c = 1; c < 16; ++c) row[c] = 0.0f;
+    if (l >= leaf_cap) {
+      row_bits[0] = -1;  // empty slot: never equals a valid (>= 0) query key
+      continue;
+    }
+    row_bits[0] = leaf_key(means, origin, inv_res, e, l);
+    row[1] = means[3 * l + 0];
+    row[2] = means[3 * l + 1];
+    row[3] = means[3 * l + 2];
+    const float* c = icovs + 9 * l;
+    row[4] = c[0]; row[5] = c[1]; row[6] = c[2];
+    row[7] = c[4]; row[8] = c[5]; row[9] = c[8];
+    row[10] = weights[l];
+  }
+}
+
+// ---------------------------------------------------------------- kernel 4
+
+__device__ __forceinline__ float warp_sum(float v) {
+  for (int off = 16; off > 0; off >>= 1) v += __shfl_down_sync(0xffffffffu, v, off);
+  return v;
+}
+
+__global__ void __launch_bounds__(lvs::kThreads)
+ndt_partials(const float* __restrict__ table, int b_bits, const int* __restrict__ origin,
+             float inv_res, int e, const float* __restrict__ xs, int n,
+             const bool* __restrict__ mask, const float* __restrict__ T, float d1, float d2,
+             const int* __restrict__ offsets, int k, int weighted, float* __restrict__ partials) {
+  __shared__ float smem[kWarps][kTerms];
+  float acc[kTerms];
+#pragma unroll
+  for (int v = 0; v < kTerms; ++v) acc[v] = 0.0f;
+
+  int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i < n && mask[i]) {
+    float x0 = xs[i], x1 = xs[n + i], x2 = xs[2 * n + i];
+    float y[3];
+#pragma unroll
+    for (int r = 0; r < 3; ++r) y[r] = T[4 * r + 0] * x0 + T[4 * r + 1] * x1 + T[4 * r + 2] * x2 + T[4 * r + 3];
+    int cell[3];
+#pragma unroll
+    for (int r = 0; r < 3; ++r) cell[r] = static_cast<int>(floorf(y[r] * inv_res)) - origin[r];
+    const float d1d2 = d1 * d2;
+    for (int o = 0; o < k; ++o) {
+      int r0 = cell[0] + offsets[3 * o + 0];
+      int r1 = cell[1] + offsets[3 * o + 1];
+      int r2 = cell[2] + offsets[3 * o + 2];
+      if (r0 < 0 || r0 >= e || r1 < 0 || r1 >= e || r2 < 0 || r2 >= e) continue;
+      int key = flat_key(r0, r1, r2, e);
+      const float* row = table + 32 * static_cast<long long>(bucket_of(key, b_bits));
+      // columns 0-11 of both slots, all inside one 128-byte row; the slot is
+      // chosen by value so everything stays in registers
+      const float4* row4 = reinterpret_cast<const float4*>(row);
+      float4 a0 = __ldg(row4 + 0), b0 = __ldg(row4 + 1), c0 = __ldg(row4 + 2);
+      float4 a1 = __ldg(row4 + 4), b1 = __ldg(row4 + 5), c1 = __ldg(row4 + 6);
+      bool m0 = __float_as_int(a0.x) == key;
+      if (!m0 && __float_as_int(a1.x) != key) continue;
+      float4 head = m0 ? a0 : a1;  // key, mu0, mu1, mu2
+      float4 cov = m0 ? b0 : b1;   // c00, c01, c02, c11
+      float4 tail = m0 ? c0 : c1;  // c12, c22, w, pad
+
+      float c00 = cov.x, c01 = cov.y, c02 = cov.z, c11 = cov.w, c12 = tail.x, c22 = tail.y;
+      float dd0 = y[0] - head.y, dd1 = y[1] - head.z, dd2 = y[2] - head.w;
+      float q0 = c00 * dd0 + c01 * dd1 + c02 * dd2;
+      float q1 = c01 * dd0 + c11 * dd1 + c12 * dd2;
+      float q2 = c02 * dd0 + c12 * dd1 + c22 * dd2;
+      float md = dd0 * q0 + dd1 * q1 + dd2 * q2;
+      float eterm = expf(-0.5f * d2 * md);
+      float gate = d2 * eterm;
+      if (!(gate <= 1.0f && gate >= 0.0f && isfinite(gate))) continue;
+      float w = weighted ? tail.z : 1.0f;
+      float f = w * (d1d2 * eterm);
+      acc[0] += w * (-d1 * eterm);
+
+      float g[6] = {q0, q1, q2, y[1] * q2 - y[2] * q1, y[2] * q0 - y[0] * q2, y[0] * q1 - y[1] * q0};
+#pragma unroll
+      for (int a = 0; a < 6; ++a) acc[1 + a] += f * g[a];
+
+      // CS: cs[i][j] = (C S)_ij with S = skew(y); SC = -(CS)^T; SCS from SC
+      float C[3][3] = {{c00, c01, c02}, {c01, c11, c12}, {c02, c12, c22}};
+      float cs[3][3], sc[3][3], scs[3][3];
+      for (int a = 0; a < 3; ++a) {
+        cs[a][0] = C[a][1] * y[2] - C[a][2] * y[1];
+        cs[a][1] = C[a][2] * y[0] - C[a][0] * y[2];
+        cs[a][2] = C[a][0] * y[1] - C[a][1] * y[0];
+      }
+      for (int a = 0; a < 3; ++a)
+        for (int b = 0; b < 3; ++b) sc[a][b] = -cs[b][a];
+      for (int a = 0; a < 3; ++a) {
+        scs[a][0] = sc[a][1] * y[2] - sc[a][2] * y[1];
+        scs[a][1] = sc[a][2] * y[0] - sc[a][0] * y[2];
+        scs[a][2] = sc[a][0] * y[1] - sc[a][1] * y[0];
+      }
+      float qy = q0 * y[0] + q1 * y[1] + q2 * y[2];
+      float q[3] = {q0, q1, q2};
+      float h1 = -d2 * f;
+#pragma unroll
+      for (int a = 0; a < 6; ++a) {
+#pragma unroll
+        for (int b = 0; b < 6; ++b) {
+          float h = h1 * g[a] * g[b];
+          if (a < 3 && b < 3) {
+            h += f * C[a][b];
+          } else if (a < 3) {
+            h += -(f * cs[a][b - 3]);
+          } else if (b < 3) {
+            h += -(f * cs[b][a - 3]);
+          } else {
+            h += f * y[a - 3] * q[b - 3] - (a == b ? f * qy : 0.0f);  // T2
+            h += -(f * scs[a - 3][b - 3]);
+          }
+          acc[7 + 6 * a + b] += h;
+        }
+      }
+    }
+  }
+
+  int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+#pragma unroll
+  for (int v = 0; v < kTerms; ++v) {
+    float s = warp_sum(acc[v]);
+    if (lane == 0) smem[warp][v] = s;
+  }
+  __syncthreads();
+  if (threadIdx.x < kTerms) {
+    float s = 0.0f;
+    for (int w = 0; w < kWarps; ++w) s += smem[w][threadIdx.x];
+    partials[kTerms * blockIdx.x + threadIdx.x] = s;
+  }
+}
+
+__global__ void ndt_finish(const float* __restrict__ partials, int n_blocks, float* __restrict__ out) {
+  int v = threadIdx.x;
+  if (v >= kTerms) return;
+  float s = 0.0f;
+  for (int b = 0; b < n_blocks; ++b) s += partials[kTerms * b + v];
+  out[v] = s;
+}
+
+}  // namespace
+
+extern "C" int lvs_to_hash(const float* means, const float* icovs, const float* weights,
+                           const bool* valid, const int* origin, float inv_res, int e,
+                           int leaf_cap, int b_bits, int* first, int* second, float* table,
+                           int* n_dropped, cudaStream_t stream) {
+  int n_buckets = 1 << b_bits;
+  int bb = lvs::blocks_for(n_buckets), bl = lvs::blocks_for(leaf_cap);
+  hash_init<<<bb, lvs::kThreads, 0, stream>>>(n_buckets, leaf_cap, first, second, n_dropped);
+  if (leaf_cap > 0) {
+    hash_slot0<<<bl, lvs::kThreads, 0, stream>>>(means, valid, origin, inv_res, e, leaf_cap, b_bits, first);
+    hash_slot1<<<bl, lvs::kThreads, 0, stream>>>(means, valid, origin, inv_res, e, leaf_cap, b_bits,
+                                                 first, second);
+    hash_dropped<<<bl, lvs::kThreads, 0, stream>>>(means, valid, origin, inv_res, e, leaf_cap,
+                                                   b_bits, first, second, n_dropped);
+  }
+  hash_rows<<<bb, lvs::kThreads, 0, stream>>>(means, icovs, weights, origin, inv_res, e, leaf_cap,
+                                              n_buckets, first, second, table);
+  LVS_RETURN_LAST_ERROR();
+}
+
+extern "C" int lvs_ndt_hash_derivatives(const float* table, int b_bits, const int* origin,
+                                        float inv_res, int e, const float* xs, int n,
+                                        const bool* mask, const float* T, float d1, float d2,
+                                        const int* offsets, int k, int weighted, float* partials,
+                                        int n_blocks, float* out, cudaStream_t stream) {
+  ndt_partials<<<n_blocks, lvs::kThreads, 0, stream>>>(table, b_bits, origin, inv_res, e, xs, n,
+                                                       mask, T, d1, d2, offsets, k, weighted,
+                                                       partials);
+  ndt_finish<<<1, 64, 0, stream>>>(partials, n_blocks, out);
+  LVS_RETURN_LAST_ERROR();
+}

@@ -1,0 +1,61 @@
+"""The port's own configuration, synthetic scans and devkit metric against
+the reference's (`lv_slam_tpu.config`, `lv_slam_tpu.io`): the port keeps
+copies so that it imports nothing of the JAX package."""
+
+import dataclasses
+
+import numpy as np
+import pytest
+
+pytest.importorskip("torch")
+
+from lv_slam_tpu import config as ref_config  # noqa: E402
+from lv_slam_tpu.io import kitti as ref_kitti, synthetic as ref_synthetic  # noqa: E402
+from lv_slam_tpu_torch import config  # noqa: E402
+from lv_slam_tpu_torch.io import kitti, synthetic  # noqa: E402
+
+
+@pytest.mark.parametrize("name", ["PrefilterConfig", "NDTConfig", "OdometryConfig"])
+def test_config_matches_reference(name):
+    """Each of the port's fields has the reference's default, in the stage
+    config and in the flagship configuration."""
+
+    def same(port, ref):
+        port, ref = dataclasses.asdict(port), dataclasses.asdict(ref)
+        assert port == {k: ref[k] for k in port}
+
+    same(getattr(config, name)(), getattr(ref_config, name)())
+    port, ref = config.kitti_flagship_config(), ref_config.kitti_flagship_config()
+    same(port.prefilter, ref.prefilter)
+    same(port.odometry, ref.odometry)
+
+
+@pytest.mark.parametrize("seed", [5, 41])
+def test_synthetic_scan_matches_reference(seed):
+    """World, rays, trajectory and scan are bit-identical."""
+    world, ref_world = synthetic.make_world(seed=seed), ref_synthetic.make_world(seed=seed)
+    np.testing.assert_array_equal(world.boxes, ref_world.boxes)
+    rays = synthetic.hdl64_rays(16, 300)
+    np.testing.assert_array_equal(rays, ref_synthetic.hdl64_rays(16, 300))
+    gt = synthetic.circle_trajectory(12, step=1.0)
+    np.testing.assert_array_equal(gt, ref_synthetic.circle_trajectory(12, step=1.0))
+    for i in (0, 11):
+        np.testing.assert_array_equal(
+            synthetic.simulate_scan(world, gt[i], rays, seed=seed + i),
+            ref_synthetic.simulate_scan(ref_world, gt[i], rays, seed=seed + i),
+        )
+
+
+@pytest.mark.parametrize("lengths", [None, (5.0, 10.0, 15.0)])
+def test_kitti_seq_error_matches_reference(lengths):
+    rng = np.random.default_rng(7)
+    gt = ref_synthetic.circle_trajectory(40, step=1.0).astype(np.float64)
+    est = gt.copy()
+    est[:, :3, 3] += np.cumsum(rng.normal(0.0, 0.01, (40, 3)), axis=0)
+    if lengths is None:  # the devkit's 100-800 m segments need a longer drive
+        gt[:, :3, 3] *= 20.0
+        est[:, :3, 3] *= 20.0
+    got = kitti.kitti_seq_error(gt, est, step=5, lengths=lengths)
+    want = ref_kitti.kitti_seq_error(gt, est, step=5, lengths=lengths)
+    assert np.isfinite(got).all()
+    assert got == want
