@@ -7,18 +7,34 @@ Phases, each of which raises on failure:
 1. The card, the software, and the build of the hand-written kernels
    (`lv_slam_tpu_torch/csrc/*.cu`, compiled by nvcc at first use).
 2. Every kernel against its plain PyTorch version on the card, at the shapes
-   the odometry's main path gives it (one KITTI-density scan of 131072
-   lanes, a 65536-lane scan-matching cloud, a 32768-leaf keyframe map), with
-   the median time of each over 20 runs.
-3. The slice end to end: 64 simulated KITTI-density scans through
+   the main path gives it: for the odometry one KITTI-density scan of 131072
+   lanes, a 65536-lane scan-matching cloud and a 32768-leaf keyframe map; for
+   the LFA raw scan 1's features, world maps filled with the features of
+   scans 0-3 at their true poses, and scan 4's features as queries. Masks,
+   picks and tables must be identical; fitted floats and the GN pose agree
+   to the stated tolerances. Each kernel's time is device-only, the median
+   over the whole calls among 20 in a torch.profiler trace, each call
+   bounded by a marker kernel (`whole_calls`): its own launches (`ms`) and the
+   plain version's whole device work (`plain_ms`); `bound_ms` is the larger of
+   its inputs and outputs moved once at 3.35 TB/s (for the cell tables, only
+   the rows and slots this call's data touches) and its operations at the
+   67 TFLOP/s float32 CUDA-core peak (NVIDIA's H100 SXM data sheet).
+3. The odometry slice: 64 simulated KITTI-density scans through
    `run_sequence_fused` under `kitti_flagship_config()`, in two chunks of 32
-   carried by `init_state` / `return_state`, with `return_filtered`. Every
-   kernel must have been launched; the trajectory must pass the reference
+   carried by `init_state` / `return_state`, with `return_filtered`. Its
+   kernels must have been launched; the trajectory must pass the reference
    benchmark's accuracy gates (devkit relative translation error <= 0.010,
    final drift under 2 % of the distance); its first four scans must agree
    with the plain path run on the CPU to 1e-4 m and 1e-4. A second, warm
    pass is timed, its host syncs are counted, and a profiled pass splits the
    device time.
+4. The main path, the dlo -> LFA chain: the same 64 scans through
+   `run_sequence_chain`, chunked and carried the same way. Every kernel must
+   have been launched; the odometry must equal phase 3's poses to 1e-6; the
+   refined trajectory must pass the same gates; its first four poses must
+   agree with the plain path on the CPU to 1e-4; the LFA stage must add no
+   host sync to the odometry's. A warm pass is timed, the device's idle
+   share and the peak device memory are measured.
 
 The last lines are the kernels' JSON record, the card's name and power
 limit, and `{"ok": true, "device": {...}}`. Without a CUDA device the script
@@ -43,7 +59,6 @@ CHUNK = 32
 SEED = 5  # the reference benchmark's world and noise seeds
 ROOT = Path(__file__).resolve().parent
 CACHE = ROOT / "_cache" / "chip_smoke"  # git-ignored: scan cache and the profile table
-
 
 
 def log(*args) -> None:
@@ -98,26 +113,129 @@ def devkit_t_err(gt_rel: np.ndarray, est: np.ndarray) -> float:
 
 # ----------------------------------------------------------------- phase 2
 
+REPS = 20  # profiled calls per kernel timing
+WARM = 3   # unprofiled calls before them
+PEAK_BYTES_PER_S = 3.35e12  # H100 SXM HBM3 (NVIDIA data sheet)
+PEAK_F32_PER_S = 67e12      # H100 SXM float32 outside the tensor cores
 
-def cuda_ms(torch, fn, reps: int = 20, warmup: int = 3) -> float:
-    """Median milliseconds of `fn` on the current stream (CUDA events)."""
-    for _ in range(warmup):
+# each kernel's own device functions (csrc/), for reading its device time
+# out of the profiler: everything else a wrapper launches is torch glue
+DEVICE_FUNCTIONS = {
+    "voxel_downsample": ("mark_runs", "reduce_runs"),
+    "build_voxel_map": ("mark_leaves", "build_leaves"),
+    "to_hash": ("hash_init", "hash_slot0", "hash_slot1", "hash_dropped", "hash_rows"),
+    "ndt_derivatives_hash": ("ndt_partials", "ndt_finish"),
+    "extract_features": ("fill_best", "project", "rows", "compact"),
+    "insert_cell_table": ("insert_keys", "insert_keep", "insert_place"),
+    "crop_cell_table": ("crop",),
+    "lines_from_fit": ("lines",),
+    "planes_from_fit": ("planes",),
+    "gn_solve": ("gn",),
+}
+
+
+def _is_function(key: str, fn: str) -> bool:
+    """Whether a profiler kernel name (demangled or Itanium-mangled) is `fn`."""
+    return f"::{fn}(" in key or key.startswith(f"{fn}(") or f"{len(fn)}{fn}E" in key
+
+
+MARKER = "spin_kernel"  # the device function of torch.cuda._sleep, launched between timed calls
+
+
+def whole_calls(names):
+    """Indices of the device events of each whole call, from the
+    time-ordered event names of a trace in which a marker precedes every call
+    and follows the last. The trace may lack records (one on the card lost
+    12 of 40 kernels of 20 calls), so a call counts only if its device work
+    reads as most calls' does; a lost marker merges two calls, which then
+    read as no single call does."""
+    calls, current = [], None
+    for i, name in enumerate(names):
+        if MARKER in name:
+            if current is not None:
+                calls.append(current)
+            current = []
+        elif current is not None:
+            current.append(i)
+    if not calls:
+        return []
+    shapes = [tuple(names[i] for i in call) for call in calls]
+    common = max(set(shapes), key=shapes.count)
+    return [call for call, shape in zip(calls, shapes) if shape == common]
+
+
+def device_ms(torch, fn, functions=(), reps: int = REPS):
+    """(ms of the named device functions, ms of all device work, calls
+    counted) per call of `fn`: medians over the whole calls among `reps`
+    after a warm-up, from torch.profiler. A trace with whole calls for at
+    most half of `reps` is taken again, twice at most."""
+    from torch.profiler import ProfilerActivity, profile as torch_profile
+
+    for _ in range(WARM):
         fn()
     torch.cuda.synchronize()
-    times = []
-    for _ in range(reps):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        fn()
-        end.record()
-        end.synchronize()
-        times.append(start.elapsed_time(end))
-    return float(np.median(times))
+    for _ in range(3):
+        with torch_profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                torch.cuda._sleep(1000)
+                fn()
+            torch.cuda._sleep(1000)
+            torch.cuda.synchronize()
+        events = sorted(
+            (e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA),
+            key=lambda e: e.time_range.start,
+        )
+        calls = whole_calls([e.name for e in events])
+        if 2 * len(calls) > reps:
+            break
+    else:
+        raise AssertionError(f"three traces held whole device work for at most {reps // 2} of {reps} calls")
+    own = [[events[i] for i in call if any(_is_function(events[i].name, f) for f in functions)] for call in calls]
+    if functions and not own[0]:
+        raise AssertionError(f"the profiler saw no device time of {functions}")
+
+    def median_ms(groups) -> float:
+        return float(np.median([sum(e.time_range.elapsed_us() for e in g) for g in groups])) / 1e3
+
+    return median_ms(own), median_ms([[events[i] for i in call] for call in calls]), len(calls)
+
+
+def bound(n_bytes: float, n_ops: float):
+    """(least ms, what bounds it) for moving `n_bytes` and doing `n_ops`."""
+    t_bytes, t_ops = n_bytes / PEAK_BYTES_PER_S * 1e3, n_ops / PEAK_F32_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def nbytes(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def on_copies(table, fn):
+    """A `device_ms` callable that runs `fn` on its own copy of the cell
+    table `table` at each call, so every timed call does the same work. The
+    copies are made here, before the timing."""
+    from lv_slam_tpu_torch.ops.knn import CellTable
+
+    copies = iter([CellTable(table.table.clone(), table.cell_size) for _ in range(WARM + REPS)])
+    return lambda: fn(next(copies))
+
+
+def measure(torch, records, name, kernel_fn, plain_fn, err, n_bytes, n_ops):
+    """Times `name` device-only and records it beside its bound."""
+    ms, wrapper_ms, n_kernel = device_ms(torch, kernel_fn, DEVICE_FUNCTIONS[name])
+    _, plain_ms, n_plain = device_ms(torch, plain_fn)
+    bound_ms, bound_by = bound(n_bytes, n_ops)
+    records[name] = dict(
+        max_abs_err=float(err), ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
+        library_ms=None, wrapper_device_ms=wrapper_ms,
+    )
+    log(f"    {name}: kernel {ms:.4f} ms (wrapper with its torch glue {wrapper_ms:.4f} ms), "
+        f"plain {plain_ms:.4f} ms, bound {bound_ms:.5f} ms ({bound_by}) [device-only, median of "
+        f"{n_kernel} / {n_plain} whole calls of {REPS}]")
 
 
 def check_kernels(torch, scans, gt, dev):
-    """Phase 2: each kernel vs its plain version at main-path shapes."""
+    """Phase 2a: the odometry's kernels vs their plain versions at main-path shapes."""
     from lv_slam_tpu_torch import kitti_flagship_config
     from lv_slam_tpu_torch.core.cloud import PointCloud
     from lv_slam_tpu_torch.ops import ndt_hash, prefilter, voxel_map
@@ -142,9 +260,12 @@ def check_kernels(torch, scans, gt, dev):
     err = max(float((got.xyz - want.xyz).abs().max()), float((got.intensity - want.intensity).abs().max()))
     if err > 1e-5:
         raise AssertionError(f"voxel_downsample: max abs err {err} > 1e-5")
-    records["voxel_downsample"] = dict(max_abs_err=err, ms=cuda_ms(torch, k1), plain_ms=cuda_ms(torch, p1))
     log(f"  voxel_downsample: {int(got.mask.sum())} voxels of {int(band.mask.sum())} returns, "
         f"mask and lane order identical, max abs err {err:.3g} (tol 1e-5)")
+    n_in, n_vox = int(band.mask.sum()), int(got.mask.sum())
+    measure(torch, records, "voxel_downsample", k1, p1, err,
+            nbytes(band.xyz, band.intensity, band.mask, got.xyz, got.intensity, got.mask),
+            4 * n_in + 4 * n_vox)  # 4 adds per point, 4 divisions per voxel
 
     # kernel 2: 65536 scan-matching lanes -> 32768 weighted leaves
     filtered = prefilter.stride_subsample(got, cfg.odometry.scan_matching_cap)
@@ -171,10 +292,14 @@ def check_kernels(torch, scans, gt, dev):
     w_tol = 1e-4 * float(vm_ref.weights[v].abs().max())
     if err_mean > 1e-5 or err_icov > icov_tol or err_w > w_tol:
         raise AssertionError(f"build_voxel_map: errors mean {err_mean} icov {err_icov} weight {err_w}")
-    records["build_voxel_map"] = dict(max_abs_err=err_icov, ms=cuda_ms(torch, k2), plain_ms=cuda_ms(torch, p2))
     log(f"  build_voxel_map: {int(vm.n_leaves)} valid leaves, validity identical; "
         f"max abs err mean {err_mean:.3g} (tol 1e-5), icov {err_icov:.3g} (tol {icov_tol:.3g}), "
         f"weight {err_w:.3g} (tol {w_tol:.3g})")
+    n_pts = int(filtered.mask.sum())
+    n_occupied = int(torch.unique(voxel_map._leaf_sort(filtered, ndt.resolution, ndt.lut_extent)[0]).numel())
+    measure(torch, records, "build_voxel_map", k2, p2, err_icov,
+            nbytes(filtered.xyz, filtered.mask, vm.means, vm.icovs, vm.weights, vm.normals, vm.valid),
+            25 * n_pts + 300 * n_occupied)  # centered moments per point; eigh + inverse per leaf
 
     # kernel 3: the same VoxelMap -> 131072 x 32 table, bit-exact
     k3 = lambda: ndt_hash.to_hash(vm, ndt.hash_buckets_per_leaf)  # noqa: E731
@@ -184,8 +309,9 @@ def check_kernels(torch, scans, gt, dev):
         raise AssertionError("to_hash: table is not bit-identical to the plain version")
     if int(hm.n_dropped) != int(hm_ref.n_dropped):
         raise AssertionError("to_hash: n_dropped differs")
-    records["to_hash"] = dict(max_abs_err=0.0, ms=cuda_ms(torch, k3), plain_ms=cuda_ms(torch, p3))
     log(f"  to_hash: table {tuple(hm.table.shape)} bit-identical, n_dropped {int(hm.n_dropped)}")
+    measure(torch, records, "to_hash", k3, p3, 0.0,
+            nbytes(vm.means, vm.icovs, vm.weights, vm.valid, hm.table), 20 * int(vm.n_leaves))
 
     # kernel 4: scan 1's 65536 lanes against scan 0's map, at the true pose
     src_mid = prefilter.voxel_downsample(clouds(1), pf.downsample_resolution, pf.out_cap)
@@ -193,11 +319,11 @@ def check_kernels(torch, scans, gt, dev):
     xs = src.masked_xyz().T.contiguous()
     rel = torch.from_numpy((np.linalg.inv(gt[0]) @ gt[1]).astype(np.float32)).to(dev)
     gauss = make_gauss_params(ndt.resolution, ndt.outlier_ratio)
-    err4, times = 0.0, {}
+    err4, fns = 0.0, {}
     for hood, weighted in (("DIRECT1", True), ("DIRECT7", False)):
         args = (hm, xs, src.mask.contiguous(), rel, gauss, voxel_map.neighborhood_offsets(hood, dev), weighted)
-        k4 = lambda: ndt_hash.ndt_derivatives_hash(*args)  # noqa: E731
-        p4 = lambda: ndt_hash.ndt_derivatives_hash_ref(*args)  # noqa: E731
+        k4 = lambda args=args: ndt_hash.ndt_derivatives_hash(*args)  # noqa: E731
+        p4 = lambda args=args: ndt_hash.ndt_derivatives_hash_ref(*args)  # noqa: E731
         (s1, g1, h1), (s2, g2, h2) = k4(), p4()
         es = abs(float(s1) - float(s2))
         eg, eh = float((g1 - g2).abs().max()), float((h1 - h2).abs().max())
@@ -205,19 +331,181 @@ def check_kernels(torch, scans, gt, dev):
         if es > 1e-4 * abs(float(s2)) or eg > tg or eh > th:
             raise AssertionError(f"ndt_derivatives_hash {hood}: errors score {es} grad {eg} hess {eh}")
         err4 = max(err4, eg, eh)
-        times[hood] = (cuda_ms(torch, k4), cuda_ms(torch, p4))
+        fns[hood] = (k4, p4)
         log(f"  ndt_derivatives_hash {hood} weighted={weighted}: score {float(s2):.1f}, "
             f"errors score {es:.3g} (tol {1e-4 * abs(float(s2)):.3g}), grad {eg:.3g} (tol {tg:.3g}), "
-            f"hess {eh:.3g} (tol {th:.3g}); {times[hood][0]:.4f} ms vs plain {times[hood][1]:.4f} ms")
-    records["ndt_derivatives_hash"] = dict(
-        max_abs_err=err4, ms=times["DIRECT1"][0], plain_ms=times["DIRECT1"][1]
-    )
-    for name, r in records.items():
-        log(f"  time {name}: kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms (median of 20)")
+            f"hess {eh:.3g} (tol {th:.3g})")
+    n_src = int(src.mask.sum())
+    # the whole table is an input; ~330 operations per lane and offset (DIRECT1)
+    measure(torch, records, "ndt_derivatives_hash", *fns["DIRECT1"], err4,
+            nbytes(hm.table, xs, src.mask) + 43 * 4, 330 * n_src)
+    return records
+
+
+def check_lfa_kernels(torch, scans, gt, dev):
+    """Phase 2b: the LFA's kernels vs their plain versions at main-path shapes."""
+    from lv_slam_tpu_torch import kitti_flagship_config
+    from lv_slam_tpu_torch.core import se3
+    from lv_slam_tpu_torch.core.cloud import PointCloud
+    from lv_slam_tpu_torch.lfa import features, registration
+    from lv_slam_tpu_torch.lfa.fused import _GRID_CELL, _n_buckets
+    from lv_slam_tpu_torch.ops import knn
+
+    full = kitti_flagship_config()
+    cfg = full.lfa
+    gt_rel = np.einsum("ij,njk->nik", np.linalg.inv(gt[0]), gt).astype(np.float32)
+    poses = [torch.from_numpy(p).to(dev) for p in gt_rel[:5]]
+    raw = [PointCloud.from_numpy(scans[i], cap=full.prefilter.raw_cap, device=dev) for i in range(5)]
+    records = {}
+
+    def identical(a, b) -> bool:
+        return all(torch.equal(x.view(torch.int32) if x.dtype == torch.float32 else x,
+                               y.view(torch.int32) if y.dtype == torch.float32 else y)
+                   for x, y in zip(a, b) if isinstance(x, torch.Tensor))
+
+    # kernel 8: raw scan 1 -> the four feature clouds
+    k8 = lambda: features.extract_features(raw[1], cfg)  # noqa: E731
+    p8 = lambda: features.extract_features_ref(raw[1], cfg)  # noqa: E731
+    got, want = k8(), p8()
+    if not identical(got, want):
+        raise AssertionError("extract_features: feature clouds differ from the plain version")
+    counts = [int(m.sum()) for m in got[1::2]]
+    log(f"  extract_features: sharp / less sharp / flat / less flat {counts} of lanes "
+        f"{[m.numel() for m in got[1::2]]}, masks and points bit-identical")
+    n_valid = int(raw[1].mask.sum())
+    cells = cfg.scan_line * features.N_AZIMUTH
+    k_ls, k_lf = features._picks(cfg)
+    measure(torch, records, "extract_features", k8, p8, 0.0,
+            nbytes(raw[1].xyz, raw[1].mask, *got),
+            # projection ~50 per lane; window, extrema ~70 per cell; each top-k round scans its sector
+            50 * n_valid + 70 * cells + (k_ls + k_lf) * cells)
+
+    # kernel 9a: the world maps from scans 0-3's features at their true poses
+    feats = [features.extract_features(c, cfg) for c in raw]
+    res = (cfg.mapping_line_resolution, cfg.mapping_plane_resolution)
+
+    def empty():
+        return [
+            knn.empty_cell_table(_n_buckets(cfg, cfg.map_edge_cap), cfg.knn_slots, _GRID_CELL, dev),
+            knn.empty_cell_table(_n_buckets(cfg, cfg.map_planar_cap), cfg.knn_slots, _GRID_CELL, dev),
+        ]
+
+    def world(f, pose):
+        return (
+            (se3.transform_points(pose, f.less_sharp), f.less_sharp_mask),
+            (se3.transform_points(pose, f.less_flat), f.less_flat_mask),
+        )
+
+    def stored(t) -> int:
+        return int((t.table.view(-1, 4)[:, 3] > 0.5).sum())
+
+    tables = {"kernel": empty(), "plain": empty()}
+    for i in range(4):
+        for j, (pts, m) in enumerate(world(feats[i], poses[i])):
+            knn.insert_cell_table_(tables["kernel"][j], pts, m, res[j])
+            knn.insert_cell_table_ref_(tables["plain"][j], pts, m, res[j])
+    for j, name in enumerate(("edge", "surf")):
+        if not identical(tables["kernel"][j], tables["plain"][j]):
+            raise AssertionError(f"insert_cell_table: the {name} map differs from the plain version")
+    edge, surf = tables["kernel"]  # the maps of scans 0-3
+    n_stored = [stored(edge), stored(surf)]
+    # the timed insert: scan 4's surf batch into the map of scans 0-3, as the chain's step inserts it
+    pts4, m4 = world(feats[4], poses[4])[1]
+    grown = {route: knn.CellTable(t[1].table.clone(), t[1].cell_size) for route, t in tables.items()}
+    knn.insert_cell_table_(grown["kernel"], pts4, m4, res[1])
+    knn.insert_cell_table_ref_(grown["plain"], pts4, m4, res[1])
+    if not identical(grown["kernel"], grown["plain"]):
+        raise AssertionError("insert_cell_table: scan 4's insert differs from the plain version")
+    n_kept = stored(grown["kernel"]) - n_stored[1]
+    log(f"  insert_cell_table: edge / surf maps {tuple(edge.table.shape)} / {tuple(surf.table.shape)} "
+        f"after scans 0-3 hold {n_stored} points, scan 4 adds {n_kept} of its {int(m4.sum())} surf "
+        f"points; every map bit-identical to the plain version")
+    # bytes it must move: the batch, one bucket row per distinct bucket it
+    # touches, one 16-byte slot per point it stores
+    khi, _ = knn._insert_keys_ref(pts4, m4, surf.table.shape[0], res[1], surf.cell_size)
+    b4 = khi >> 32
+    n_rows = int(torch.unique(b4[b4 < surf.table.shape[0]]).numel())
+    k9 = on_copies(surf, lambda t: knn.insert_cell_table_(t, pts4, m4, res[1]))
+    p9 = on_copies(surf, lambda t: knn.insert_cell_table_ref_(t, pts4, m4, res[1]))
+    measure(torch, records, "insert_cell_table", k9, p9, 0.0,
+            nbytes(pts4, m4) + n_rows * surf.table.shape[1] * 4 + 16 * n_kept, 20 * pts4.shape[0])
+
+    # kernel 9b: crop the surf map around scan 4's pose, gate open
+    center = poses[4][:3, 3].contiguous()
+    last = center + 1e6
+    crop_k = knn.CellTable(surf.table.clone(), surf.cell_size)
+    crop_p = knn.CellTable(surf.table.clone(), surf.cell_size)
+    ck = knn.crop_cell_table_(crop_k, center, cfg.crop_radius, last, cfg.crop_interval)
+    cp = knn.crop_cell_table_ref_(crop_p, center, cfg.crop_radius, last, cfg.crop_interval)
+    if not identical((ck, crop_k.table), (cp, crop_p.table)):
+        raise AssertionError("crop_cell_table: table or crop center differs from the plain version")
+    n_dropped = n_stored[1] - stored(crop_k)
+    log(f"  crop_cell_table: {stored(crop_k)} of {n_stored[1]} surf points within {cfg.crop_radius} m, "
+        f"table and crop center bit-identical")
+    # bytes it must move: one read of the table and the centers, one 4-byte
+    # flag per slot it frees, the new crop center
+    k9b = on_copies(surf, lambda t: knn.crop_cell_table_(t, center, cfg.crop_radius, last, cfg.crop_interval))
+    p9b = on_copies(surf, lambda t: knn.crop_cell_table_ref_(t, center, cfg.crop_radius, last, cfg.crop_interval))
+    measure(torch, records, "crop_cell_table", k9b, p9b, 0.0,
+            nbytes(surf.table, center, last) + 4 * n_dropped + 12, 10 * surf.table.numel() // 4)
+
+    # kernel 10: scan 4's features at its true pose against the maps
+    f4 = feats[4]
+    ye = se3.transform_points(poses[4], f4.less_sharp)
+    ys = se3.transform_points(poses[4], f4.less_flat)
+    fields = {}
+    for name, fn, ref, y, m, table in (
+        ("lines_from_fit", registration.lines_from_fit, registration.lines_from_fit_ref, ye,
+         f4.less_sharp_mask, edge),
+        ("planes_from_fit", registration.planes_from_fit, registration.planes_from_fit_ref, ys,
+         f4.less_flat_mask, surf),
+    ):
+        k10 = lambda fn=fn, y=y, m=m, table=table: fn(y, m, table, k=cfg.knn_k)  # noqa: E731
+        p10 = lambda ref=ref, y=y, m=m, table=table: ref(y, m, table, k=cfg.knn_k)  # noqa: E731
+        got, want = k10(), p10()
+        if not torch.equal(got.valid, want.valid):
+            raise AssertionError(f"{name}: {int((got.valid != want.valid).sum())} accept decisions differ")
+        # gn_solve reads every lane, a rejected one with weight 0, and 0 * NaN
+        # is NaN: the fitted floats must be finite on every lane. They are
+        # compared on accepted queries: a rejected fit may be a degenerate
+        # eigenvector, which the two routes may pick differently
+        if not all(bool(torch.isfinite(a).all()) for a in got[:2]):
+            raise AssertionError(f"{name}: non-finite fitted floats")
+        v = want.valid
+        err = max(float((a[v] - b[v]).abs().max()) for a, b in zip(got[:2], want[:2]))
+        if err > 1e-5:
+            raise AssertionError(f"{name}: max abs err {err} > 1e-5")
+        fields[name] = got
+        log(f"  {name}: {int(got.valid.sum())} of {int(m.sum())} queries accepted, decisions identical, "
+            f"fitted floats finite on every lane, max abs err {err:.3g} on accepted ones (tol 1e-5)")
+        measure(torch, records, name, k10, p10, err, nbytes(y, m, table.table, *got),
+                1500 * y.shape[0])  # 8 x 6 candidates ~25 each, one eigh ~300
+
+    # kernel 11: GN from those fields, seeded 0.3 m off the true pose
+    seed = poses[4].clone()
+    seed[0, 3] += 0.3
+    lines, planes = fields["lines_from_fit"], fields["planes_from_fit"]
+    gn_args = (seed, f4.less_sharp, lines, f4.less_flat, planes, cfg.mapping_max_iterations)
+    k11 = lambda: registration.gn_solve(*gn_args)  # noqa: E731
+    p11 = lambda: registration.gn_solve_ref(*gn_args)  # noqa: E731
+    got, want = k11(), p11()
+    err = float((got - want).abs().max())
+    if not bool(torch.isfinite(got).all()) or err > 1e-4:
+        raise AssertionError(f"gn_solve: max abs err {err} > 1e-4")
+    moved = float(torch.linalg.vector_norm(got[:3, 3] - poses[4][:3, 3]))
+    log(f"  gn_solve: {cfg.mapping_max_iterations} iterations over {lines.valid.numel()} + "
+        f"{planes.valid.numel()} lanes, max abs err {err:.3g} (tol 1e-4); the 0.3 m seed "
+        f"ends {moved:.4f} m from the true pose")
+    ne, ns = lines.valid.numel(), planes.valid.numel()
+    measure(torch, records, "gn_solve", k11, p11, err,
+            nbytes(seed, f4.less_sharp, *lines, f4.less_flat, *planes) + 64,
+            cfg.mapping_max_iterations * (150 * ne + 90 * ns))
     return records
 
 
 # ----------------------------------------------------------------- phase 3
+
+ODOMETRY_KERNELS = ("voxel_downsample", "build_voxel_map", "to_hash", "ndt_derivatives_hash")
 
 
 def run_chunks(torch, run, xyz, mask, stamps, inten, cfg):
@@ -228,6 +516,7 @@ def run_chunks(torch, run, xyz, mask, stamps, inten, cfg):
         (p, it, sw, f), state = run(
             xyz[sl], mask[sl], stamps[sl], cfg.odometry, cfg.prefilter, with_stats=True,
             init_state=state, return_state=True, inten=inten[sl], return_filtered=True,
+            device=xyz.device,
         )
         poses.append(p)
         iters.append(it)
@@ -239,53 +528,78 @@ def run_chunks(torch, run, xyz, mask, stamps, inten, cfg):
     )
 
 
+def stack_scans(torch, scans, cap, dev):
+    from lv_slam_tpu_torch.core.cloud import PointCloud
+
+    clouds = [PointCloud.from_numpy(s, cap=cap, device=dev) for s in scans]
+    xyz = torch.stack([c.xyz for c in clouds])
+    mask = torch.stack([c.mask for c in clouds])
+    inten = torch.stack([c.intensity for c in clouds])
+    stamps = (torch.arange(len(scans), dtype=torch.float32) * 0.1).to(dev)
+    torch.cuda.synchronize()
+    return xyz, mask, stamps, inten
+
+
+def accuracy(est: np.ndarray, gt: np.ndarray, what: str, n: int) -> tuple:
+    """(devkit_t_err, final drift m) of `est` against the ground truth;
+    raises unless both pass the reference benchmark's gates."""
+    if est.shape != (n, 4, 4) or not np.isfinite(est).all():
+        raise AssertionError(f"{what}: shape {est.shape}, finite {np.isfinite(est).all()}")
+    gt_rel = np.einsum("ij,njk->nik", np.linalg.inv(gt[0]), gt)
+    t_err = devkit_t_err(gt_rel, est)
+    drift = float(np.linalg.norm(est[-1, :3, 3] - gt_rel[-1, :3, 3]))
+    distance = float(np.linalg.norm(gt_rel[1:, :3, 3] - gt_rel[:-1, :3, 3], axis=1).sum())
+    log(f"  {what}: devkit_t_err {t_err:.6f} (gate 0.010), final drift {drift:.4f} m "
+        f"(gate {0.02 * distance:.2f} m, 2 % of {distance:.1f} m)")
+    if not (t_err <= 0.010 and drift < 0.02 * distance):
+        raise AssertionError(f"{what} fails the accuracy gates")
+    return t_err, drift
+
+
+def count_syncs(torch, fn) -> int:
+    """Host syncs of `fn` (torch warns at each synchronizing call)."""
+    torch.cuda.set_sync_debug_mode("warn")
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            fn()
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    return sum("synchroniz" in str(w.message) for w in caught)
+
+
 def run_slice(torch, scans, gt, dev, card):
     from lv_slam_tpu_torch import kitti_flagship_config
-    from lv_slam_tpu_torch.core.cloud import PointCloud
     from lv_slam_tpu_torch.kernels import KERNELS, reset_launches
     from lv_slam_tpu_torch.odometry.fused import run_sequence_fused
 
     cfg = kitti_flagship_config()
-    cap = cfg.prefilter.raw_cap
-    clouds = [PointCloud.from_numpy(s, cap=cap) for s in scans]
-    xyz = torch.stack([c.xyz for c in clouds]).to(dev)
-    mask = torch.stack([c.mask for c in clouds]).to(dev)
-    inten = torch.stack([c.intensity for c in clouds]).to(dev)
-    stamps = (torch.arange(len(scans), dtype=torch.float32) * 0.1).to(dev)
-    torch.cuda.synchronize()
+    xyz, mask, stamps, inten = stack_scans(torch, scans, cfg.prefilter.raw_cap, dev)
 
     reset_launches()
     poses, iters, switches, filt = run_chunks(torch, run_sequence_fused, xyz, mask, stamps, inten, cfg)
     torch.cuda.synchronize()
     launches = {name: k.launches for name, k in KERNELS.items()}
-    log(f"  launches on the main path: {launches}")
-    missing = [name for name, n in launches.items() if n == 0]
+    log(f"  launches on the odometry path: {launches}")
+    missing = [name for name in ODOMETRY_KERNELS if launches[name] == 0]
     if missing:
-        raise AssertionError(f"kernels never launched on the main path: {missing}")
+        raise AssertionError(f"kernels never launched on the odometry path: {missing}")
 
     est = poses.cpu().numpy().astype(np.float64)
     n = len(scans)
-    if est.shape != (n, 4, 4) or not np.isfinite(est).all():
-        raise AssertionError(f"poses: shape {est.shape}, finite {np.isfinite(est).all()}")
     fx, fi, fm = filt
     if tuple(fx.shape) != (n, 3, cfg.prefilter.out_cap) or tuple(fm.shape) != (n, cfg.prefilter.out_cap):
         raise AssertionError(f"filtered product shape {tuple(fx.shape)}")
     if not bool(torch.isfinite(fx.transpose(1, 2)[fm]).all()):
         raise AssertionError("filtered product has non-finite valid lanes")
-    gt_rel = np.einsum("ij,njk->nik", np.linalg.inv(gt[0]), gt)
-    t_err = devkit_t_err(gt_rel, est)
-    drift = float(np.linalg.norm(est[-1, :3, 3] - gt_rel[-1, :3, 3]))
-    log(f"  {n} scans tracked: devkit_t_err {t_err:.6f} (gate 0.010), final drift {drift:.4f} m "
-        f"(gate {0.02 * n:.2f} m), keyframes {int(switches.sum())}, "
-        f"mean Newton iterations/scan {float(iters[1:].float().mean()):.2f}")
-    if not (t_err <= 0.010 and drift < 0.02 * max(1.0, n)):
-        raise AssertionError("the trajectory fails the accuracy gates")
+    t_err, drift = accuracy(est, gt, f"odometry, {n} scans", n)
+    log(f"  keyframes {int(switches.sum())}, mean Newton iterations/scan {float(iters[1:].float().mean()):.2f}")
 
     # the same first four scans through the plain path on the CPU
     k = 4
     ref = run_sequence_fused(
         xyz[:k].cpu(), mask[:k].cpu(), stamps[:k].cpu(), cfg.odometry, cfg.prefilter,
-        inten=inten[:k].cpu(),
+        inten=inten[:k].cpu(), device="cpu",
     ).numpy()
     dev_t = float(np.abs(ref[:, :3, 3] - est[:k, :3, 3]).max())
     dev_r = float(np.abs(ref[:, :3, :3] - est[:k, :3, :3]).max())
@@ -302,37 +616,33 @@ def run_slice(torch, scans, gt, dev, card):
     elapsed = time.perf_counter() - t0
     log(f"  warm pass: {n} scans in {elapsed:.3f} s = {n / elapsed:.2f} scans/s ({card})")
 
-    # host syncs of one chunk (torch warns at each synchronizing call)
-    torch.cuda.set_sync_debug_mode("warn")
-    try:
-        with warnings.catch_warnings(record=True) as caught:
-            warnings.simplefilter("always")
-            run_sequence_fused(xyz[:CHUNK], mask[:CHUNK], stamps[:CHUNK], cfg.odometry, cfg.prefilter,
-                               inten=inten[:CHUNK])
-    finally:
-        torch.cuda.set_sync_debug_mode("default")
-    syncs = sum("synchroniz" in str(w.message) for w in caught)
-    log(f"  host syncs: {syncs} in {CHUNK} scans = {syncs / CHUNK:.1f} per scan")
+    syncs = count_syncs(torch, lambda: run_sequence_fused(
+        xyz[:CHUNK], mask[:CHUNK], stamps[:CHUNK], cfg.odometry, cfg.prefilter, inten=inten[:CHUNK],
+        device=dev,
+    ))
+    log(f"  host syncs: {syncs} in {CHUNK} scans = {syncs / CHUNK:.2f} per scan")
 
-    idle = profile(torch, run_sequence_fused, xyz, mask, stamps, inten, cfg)
+    def window():
+        run_sequence_fused(xyz[:8], mask[:8], stamps[:8], cfg.odometry, cfg.prefilter,
+                           inten=inten[:8], device=dev)
+
+    idle = profile(torch, window, "odometry")
     summary = dict(
         scans_per_s=n / elapsed, devkit_t_err=t_err, drift_m=drift, syncs_per_scan=syncs / CHUNK,
         idle_share=idle,
     )
-    return summary, launches
+    return summary, poses, syncs
 
 
-def profile(torch, run, xyz, mask, stamps, inten, cfg) -> float:
-    """Device time by kernel over one 8-scan window, from the profiler, and
-    the device's idle share: 1 - summed kernel time / the wall time of the
-    same window run without the profiler (median of 3). The full table goes
-    to _cache/chip_smoke/profile.txt."""
+def profile(torch, run, what: str) -> float:
+    """Device time by kernel over one 8-scan window `run`, from the profiler,
+    and the device's idle share: 1 - summed kernel time / the wall time of
+    the same window run without the profiler (median of 3). The full table
+    goes to _cache/chip_smoke/profile_<what>.txt."""
     from torch.profiler import ProfilerActivity, profile as torch_profile
 
-    k = 8
-
     def window():
-        run(xyz[:k], mask[:k], stamps[:k], cfg.odometry, cfg.prefilter, inten=inten[:k])
+        run()
         torch.cuda.synchronize()
 
     window()
@@ -352,15 +662,105 @@ def profile(torch, run, xyz, mask, stamps, inten, cfg) -> float:
     dev_time = [(getattr(e, attr), e.key, e.count) for e in kernels]
     busy = sum(t for t, _, _ in dev_time)
     CACHE.mkdir(parents=True, exist_ok=True)
-    (CACHE / "profile.txt").write_text(events.table(sort_by=attr, row_limit=200))
+    (CACHE / f"profile_{what}.txt").write_text(events.table(sort_by=attr, row_limit=200))
     if busy <= 0:
         log("  profile: no device time recorded (device split not measured)")
         return float("nan")
-    log(f"  profile of {k} scans: wall {wall_us / 1e3:.2f} ms unprofiled ({profiled_us / 1e3:.2f} ms "
+    log(f"  profile of 8 scans ({what}): wall {wall_us / 1e3:.2f} ms unprofiled ({profiled_us / 1e3:.2f} ms "
         f"profiled), device busy {busy / 1e3:.2f} ms, idle share {1 - busy / wall_us:.3f}")
     for t, key, count in sorted(dev_time, reverse=True)[:12]:
         log(f"    {t / 1e3:9.3f} ms  {count:6d} x  {key[:90]}")
     return 1 - busy / wall_us
+
+
+# ----------------------------------------------------------------- phase 4
+
+def run_chain_chunks(torch, xyz, mask, stamps, inten, cfg):
+    from lv_slam_tpu_torch.pipeline.fused_chain import run_sequence_chain
+
+    state, odom, refined, filt = None, [], [], []
+    for s in range(0, xyz.shape[0], CHUNK):
+        sl = slice(s, s + CHUNK)
+        (o, r, f), state = run_sequence_chain(
+            xyz[sl], mask[sl], stamps[sl], cfg.odometry, cfg.prefilter, cfg.lfa,
+            init_state=state, return_state=True, inten=inten[sl], return_filtered=True,
+            device=xyz.device,
+        )
+        odom.append(o)
+        refined.append(r)
+        filt.append(f)
+    return torch.cat(odom), torch.cat(refined), tuple(torch.cat(col) for col in zip(*filt))
+
+
+def run_main_path(torch, scans, gt, dev, card, odometry_poses, odometry_syncs):
+    from lv_slam_tpu_torch import kitti_flagship_config
+    from lv_slam_tpu_torch.kernels import KERNELS, reset_launches
+    from lv_slam_tpu_torch.pipeline.fused_chain import run_sequence_chain
+
+    cfg = kitti_flagship_config()
+    xyz, mask, stamps, inten = stack_scans(torch, scans, cfg.prefilter.raw_cap, dev)
+    n = len(scans)
+
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    odom, refined, filt = run_chain_chunks(torch, xyz, mask, stamps, inten, cfg)
+    torch.cuda.synchronize()
+    launches = {name: k.launches for name, k in KERNELS.items()}
+    peak = torch.cuda.max_memory_allocated()
+    log(f"  launches on the main path ({n} scans): {launches}")
+    missing = [name for name, count in launches.items() if count == 0]
+    if missing:
+        raise AssertionError(f"kernels never launched on the main path: {missing}")
+    if tuple(filt[0].shape) != (n, 3, cfg.prefilter.out_cap):
+        raise AssertionError(f"filtered product shape {tuple(filt[0].shape)}")
+
+    d_odom = float((odom - odometry_poses).abs().max())
+    log(f"  chain odometry vs phase 3's poses: max difference {d_odom:.3g} (tol 1e-6)")
+    if d_odom > 1e-6:
+        raise AssertionError("the chain's odometry departs from the odometry path's")
+    est = refined.cpu().numpy().astype(np.float64)
+    t_err, drift = accuracy(est, gt, f"refined (LFA), {n} scans", n)
+
+    k = 4
+    _, ref = run_sequence_chain(
+        xyz[:k].cpu(), mask[:k].cpu(), stamps[:k].cpu(), cfg.odometry, cfg.prefilter, cfg.lfa,
+        inten=inten[:k].cpu(), device="cpu",
+    )
+    ref = ref.numpy()
+    dev_t = float(np.abs(ref[:, :3, 3] - est[:k, :3, 3]).max())
+    dev_r = float(np.abs(ref[:, :3, :3] - est[:k, :3, :3]).max())
+    log(f"  first {k} refined poses vs the plain path on the CPU: max difference translation "
+        f"{dev_t:.3g} m, rotation {dev_r:.3g} (tol 1e-4 each)")
+    if dev_t > 1e-4 or dev_r > 1e-4:
+        raise AssertionError("the card's refined trajectory departs from the plain path's")
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    run_chain_chunks(torch, xyz, mask, stamps, inten, cfg)
+    torch.cuda.synchronize()
+    elapsed = time.perf_counter() - t0
+    log(f"  warm pass: {n} scans in {elapsed:.3f} s = {n / elapsed:.2f} scans/s ({card})")
+
+    syncs = count_syncs(torch, lambda: run_sequence_chain(
+        xyz[:CHUNK], mask[:CHUNK], stamps[:CHUNK], cfg.odometry, cfg.prefilter, cfg.lfa,
+        inten=inten[:CHUNK], device=dev,
+    ))
+    log(f"  host syncs: chain {syncs}, odometry alone {odometry_syncs} in {CHUNK} scans "
+        f"= {syncs / CHUNK:.2f} vs {odometry_syncs / CHUNK:.2f} per scan")
+    if syncs != odometry_syncs:
+        raise AssertionError("the LFA stage adds host syncs to the odometry's")
+
+    def window():
+        run_sequence_chain(xyz[:8], mask[:8], stamps[:8], cfg.odometry, cfg.prefilter, cfg.lfa,
+                           inten=inten[:8], device=dev)
+
+    idle = profile(torch, window, "chain")
+    log(f"  peak device memory of the chunked run: {peak / 2**20:.1f} MiB")
+    summary = dict(
+        scans_per_s=n / elapsed, devkit_t_err=t_err, drift_m=drift, syncs_per_scan=syncs / CHUNK,
+        idle_share=idle, peak_mib=peak / 2**20,
+    )
+    return summary, launches
 
 
 # ----------------------------------------------------------------- main
@@ -376,6 +776,7 @@ def main() -> int:
     dev = torch.device("cuda", 0)
 
     from lv_slam_tpu_torch.kernels import KERNELS, LIBRARY
+    import lv_slam_tpu_torch.pipeline.fused_chain  # noqa: F401  (registers every kernel)
 
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -392,21 +793,29 @@ def main() -> int:
         for line in build_log.read_text().splitlines():
             if "Used" in line or "spill" in line:
                 log(f"    ptxas: {line.strip()}")
+    if set(KERNELS) != set(DEVICE_FUNCTIONS):
+        raise AssertionError(f"kernel registry {sorted(KERNELS)} != {sorted(DEVICE_FUNCTIONS)}")
 
     scans, gt = load_scans(N_SCANS)
     log(f"  workload: {N_SCANS} scans, mean {np.mean([s.shape[0] for s in scans]):.0f} returns/scan")
 
-    log("phase 2: kernels vs plain versions at main-path shapes")
+    log(f"phase 2: kernels vs plain versions at main-path shapes ({card})")
     records = check_kernels(torch, scans, gt, dev)
+    records.update(check_lfa_kernels(torch, scans, gt, dev))
 
     log("phase 3: the odometry slice end to end")
-    summary, launches = run_slice(torch, scans, gt, dev, card)
+    summary, odometry_poses, odometry_syncs = run_slice(torch, scans, gt, dev, card)
     log(f"  summary ({card}): {json.dumps(summary)}")
 
+    log("phase 4: the main path, the dlo -> LFA chain, end to end")
+    summary, launches = run_main_path(torch, scans, gt, dev, card, odometry_poses, odometry_syncs)
+    log(f"  summary ({card}): {json.dumps(summary)}")
+
+    keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     kernels = [
         dict(
             name=name, route="cuda", source=k.source, replaces=k.replaces,
-            launches=launches[name], **records[name],
+            launches=launches[name], **{key: records[name][key] for key in keys},
         )
         for name, k in KERNELS.items()
     ]

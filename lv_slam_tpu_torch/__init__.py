@@ -14,6 +14,7 @@ The port imports nothing of `jax` or of the reference package.
 __version__ = "0.1.0"
 
 from lv_slam_tpu_torch.config import (  # noqa: F401
+    LfaConfig,
     NDTConfig,
     OdometryConfig,
     PipelineConfig,

@@ -4,7 +4,7 @@ Field names and defaults are those of the reference's `lv_slam_tpu.config`
 (the `dlo_lfa_ggo_kitti.launch` parameter surface), which explains each
 field; `tests/test_torch_io.py` holds the two equal. The port keeps its own
 copy, of the fields its stages read, so that it and `chip_smoke.py` import
-nothing of the JAX package. The LFA, loop-detector and pose-graph
+nothing of the JAX package. The loop-detector and pose-graph
 configurations come with their stages.
 
 The `*_cap` fields are static capacities: every cloud and map is a
@@ -66,11 +66,45 @@ class OdometryConfig:
 
 
 @dataclasses.dataclass(frozen=True)
+class LfaConfig:
+    """LOAM-style feature mapping stage (the reference launches the external
+    A-LOAM package; params `launch/dlo_lfa_ggo_kitti.launch:56-61`). Every
+    field of the reference's `LfaConfig`, including those of the standalone
+    feature odometry, which the port does not run yet."""
+
+    scan_line: int = 64
+    minimum_range: float = 5.0
+    mapping_line_resolution: float = 0.4
+    mapping_plane_resolution: float = 0.8
+    mapping_skip_frame: int = 1  # A-LOAM's skipFrameNum: map every N-th scan
+    min_elev_deg: float = -24.8  # HDL-64 vertical field of view
+    max_elev_deg: float = 2.0
+    n_sectors: int = 6  # feature picks per ring sector
+    sharp_per_sector: int = 2
+    less_sharp_per_sector: int = 20
+    flat_per_sector: int = 4
+    odom_corr_rounds: int = 2
+    mapping_corr_rounds: int = 1
+    knn_slots: int = 6  # cell-table slots per bucket
+    knn_k: int = 5  # points a line / plane fit needs within 1 m
+    knn_table_density: float = 0.5  # buckets ~ density * map capacity
+    crop_radius: float = 150.0  # world maps are cropped to this radius
+    crop_interval: float = 10.0  # m the pose moves between crops; 0 crops every scan
+    edge_cap: int = 4096
+    planar_cap: int = 8192
+    map_edge_cap: int = 32768
+    map_planar_cap: int = 65536
+    odom_max_iterations: int = 8
+    mapping_max_iterations: int = 8
+
+
+@dataclasses.dataclass(frozen=True)
 class PipelineConfig:
     """The ported stages of the `dlo_lfa_ggo` pipeline."""
 
     prefilter: PrefilterConfig = dataclasses.field(default_factory=PrefilterConfig)
     odometry: OdometryConfig = dataclasses.field(default_factory=OdometryConfig)
+    lfa: LfaConfig = dataclasses.field(default_factory=LfaConfig)
 
 
 def kitti_flagship_config() -> PipelineConfig:

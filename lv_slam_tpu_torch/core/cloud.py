@@ -24,8 +24,9 @@ class PointCloud(NamedTuple):
     mask: torch.Tensor
 
     @classmethod
-    def from_numpy(cls, points, cap: int, device="cpu", intensity=None) -> "PointCloud":
-        """Build from a host `(n, 3)` or `(n, 4)` array, padding/truncating to cap."""
+    def from_numpy(cls, points, cap: int, device="cuda", intensity=None) -> "PointCloud":
+        """Build from a host `(n, 3)` or `(n, 4)` array, padding/truncating to
+        cap, on the card unless the caller asks for another device."""
         points = np.asarray(points, dtype=np.float32)
         if points.ndim != 2:
             raise ValueError(f"points must be (n,3|4), got {points.shape}")

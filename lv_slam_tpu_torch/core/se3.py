@@ -73,7 +73,9 @@ def make_transform(rot: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
     rot = rot.expand(batch + (3, 3))
     t = t.expand(batch + (3,))
     top = torch.cat([rot, t[..., :, None]], dim=-1)
-    bottom = torch.tensor([0.0, 0.0, 0.0, 1.0], dtype=rot.dtype, device=rot.device)
+    # built on the device: a tensor made from a Python list is a blocking
+    # host-to-device copy, one host sync per transform on a card
+    bottom = torch.eye(4, dtype=rot.dtype, device=rot.device)[3]
     return torch.cat([top, bottom.expand(batch + (1, 4))], dim=-2)
 
 
@@ -86,10 +88,14 @@ def inverse(transform: torch.Tensor) -> torch.Tensor:
 
 
 def transform_points(transform: torch.Tensor, points: torch.Tensor) -> torch.Tensor:
-    """Apply [...,4,4] to points [...,N,3]."""
-    rot = transform[..., :3, :3]
-    t = transform[..., :3, 3]
-    return points @ rot.transpose(-1, -2) + t[..., None, :]
+    """Apply [...,4,4] to points [...,N,3]: ((x R[:,0] + y R[:,1]) + z R[:,2]) + t,
+    one rounding per product and per sum, so the CPU, the card and the
+    kernels that transform points themselves agree bit for bit (a matrix
+    product's summation order and FMA use are the library's)."""
+    rot = transform[..., None, :3, :3]
+    t = transform[..., None, :3, 3]
+    x, y, z = points[..., 0:1], points[..., 1:2], points[..., 2:3]
+    return ((x * rot[..., 0] + y * rot[..., 1]) + z * rot[..., 2]) + t
 
 
 def orthonormalize(transform: torch.Tensor) -> torch.Tensor:

@@ -1,10 +1,12 @@
 """Builds the hand-written CUDA kernels at first use and binds them with ctypes.
 
-All `csrc/*.cu` files compile in ONE `nvcc` call into one shared library
-with a plain C interface (no PyTorch headers, so the build takes seconds):
+Each `csrc/*.cu` file compiles in its own `nvcc` process, all started
+together, and one more `nvcc` links the objects into one shared library with
+a plain C interface (no PyTorch headers, so the build takes seconds):
 
     nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 --fmad=false
-         -shared -Xcompiler -fPIC -Xptxas -v -o _build/liblvs_<hash>.so csrc/*.cu
+         -Xcompiler -fPIC -Xptxas -v -c -o _build/<src>.o csrc/<src>.cu   (per source)
+    nvcc -gencode arch=compute_90a,code=sm_90a -shared -o _build/liblvs_<hash>.so _build/*.o
 
 The library lands in `lv_slam_tpu_torch/_build/` (git-ignored), named by a
 hash of the sources and flags, so an edit rebuilds and a rerun reuses it.
@@ -35,10 +37,8 @@ import torch
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
-NVCC_FLAGS = [
-    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3", "--fmad=false",
-    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
-]
+ARCH = ["-gencode", "arch=compute_90a,code=sm_90a"]
+NVCC_FLAGS = [*ARCH, "-std=c++17", "-O3", "--fmad=false", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 KERNELS: Dict[str, "Kernel"] = {}
 
@@ -82,19 +82,41 @@ def _nvcc_path() -> str:
     return os.path.join(CUDA_HOME, "bin", "nvcc")
 
 
+def _run(cmds: List[List[str]]) -> str:
+    """Runs the commands in parallel; returns their logs, raises if one fails."""
+    procs = [subprocess.Popen(c, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True) for c in cmds]
+    logs, failed = [], []
+    for cmd, proc in zip(cmds, procs):
+        out, _ = proc.communicate()
+        logs.append(" ".join(cmd) + "\n" + out)
+        if proc.returncode != 0:
+            failed.append(f"{' '.join(cmd)}\n{out[-8000:]}")
+    if failed:
+        raise RuntimeError("nvcc failed:\n" + "\n".join(failed))
+    return "".join(logs)
+
+
 def _nvcc(sources: List[Path], out: Path) -> float:
     """Compile `sources` into `out`; returns the build's wall seconds."""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [_nvcc_path(), *NVCC_FLAGS, "-I", str(CSRC), "-o", str(tmp), *map(str, sources)]
+    tag = f"{out.stem}.{os.getpid()}"
+    objs = [BUILD_DIR / f"{tag}.{src.stem}.o" for src in sources]
+    nvcc = _nvcc_path()
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    seconds = time.perf_counter() - t0
-    (BUILD_DIR / "build.log").write_text(" ".join(cmd) + "\n" + proc.stdout + proc.stderr)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stderr[-8000:]}")
+    log = ""
+    try:
+        log = _run([
+            [nvcc, *NVCC_FLAGS, "-I", str(CSRC), "-c", "-o", str(obj), str(src)]
+            for src, obj in zip(sources, objs)
+        ])
+        tmp = out.with_suffix(f".{os.getpid()}.tmp")
+        log += _run([[nvcc, *ARCH, "-shared", "-o", str(tmp), *map(str, objs)]])
+    finally:
+        (BUILD_DIR / "build.log").write_text(log)
+        for obj in objs:
+            obj.unlink(missing_ok=True)
     os.replace(tmp, out)  # atomic: a concurrent loader never sees a partial file
-    return seconds
+    return time.perf_counter() - t0
 
 
 class Kernel:

@@ -7,7 +7,7 @@ rebuild. The reference traces this once and runs it under `lax.scan` with
 each branch on a bool read back from the device. Per scan that costs the
 Newton loops' reads (one per iteration plus one per align), one for the
 retry gate and one for the keyframe gate. The state and every tensor stay
-on the inputs' device.
+on the run's device: the card unless the caller passes `device="cpu"`.
 """
 
 from __future__ import annotations
@@ -244,10 +244,13 @@ def run_sequence_fused(
     return_state: bool = False,
     inten: Optional[torch.Tensor] = None,
     return_filtered: bool = False,
+    device="cuda",
 ):
-    """(N,cap,3), (N,cap), (N,) -> (N,4,4) poses, on the inputs' device.
+    """(N,cap,3), (N,cap), (N,) -> (N,4,4) poses, on `device`.
 
-    Same arguments and outputs as the reference. `use_scan` selects between
+    The inputs move to `device` (the card unless the caller asks for the
+    CPU); `init_state` must already lie there. Otherwise the same arguments
+    and outputs as the reference. `use_scan` selects between
     the reference's two compiled forms; the port has one Python loop, so it
     only keeps the reference's rule that `return_filtered` needs the scan
     form. Without `init_state`, scan 0 builds the first keyframe map and gets
@@ -261,10 +264,12 @@ def run_sequence_fused(
         raise ValueError("return_filtered requires the lax.scan path")
     if return_filtered and prefilter_cfg is None:
         raise ValueError("return_filtered requires a prefilter_cfg")
-    dev = xyz.device
+    dev = torch.device(device)
+    xyz, mask, stamps = xyz.to(dev), mask.to(dev), stamps.to(dev)
     n = xyz.shape[0]
     if inten is None:
         inten = torch.zeros(xyz.shape[:2], dtype=torch.float32, device=dev)
+    inten = inten.to(dev)
     init, step = make_fused_step(cfg, prefilter_cfg, return_filtered)
 
     poses, iters, switches, filt = [], [], [], []

@@ -71,7 +71,7 @@ def _offsets(name: str, device: str) -> torch.Tensor:
     return torch.tensor(off, dtype=torch.int32, device=device)
 
 
-def neighborhood_offsets(name: str, device="cpu") -> torch.Tensor:
+def neighborhood_offsets(name: str, device) -> torch.Tensor:
     """DIRECT1 / DIRECT7 / DIRECT26 cell offsets, (K,3) int32, in the
     reference's order. Cached per device: the odometry asks for them every
     align, and a fresh host-to-device copy would wait for the stream."""

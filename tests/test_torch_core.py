@@ -78,7 +78,7 @@ def test_cloud_from_numpy_and_compact():
     pts[::7, 1] = np.nan  # non-finite returns are masked out
     for cap in (256, 512):
         j = JCloud.from_numpy(pts, cap=cap)
-        t = TCloud.from_numpy(pts, cap=cap)
+        t = TCloud.from_numpy(pts, cap=cap, device="cpu")
         for a, b in ((t.xyz, j.xyz), (t.intensity, j.intensity), (t.mask, j.mask)):
             np.testing.assert_array_equal(a.numpy(), np.asarray(b))
         for out_cap in (None, 128, cap):

@@ -15,7 +15,7 @@ from lv_slam_tpu_torch import config  # noqa: E402
 from lv_slam_tpu_torch.io import kitti, synthetic  # noqa: E402
 
 
-@pytest.mark.parametrize("name", ["PrefilterConfig", "NDTConfig", "OdometryConfig"])
+@pytest.mark.parametrize("name", ["PrefilterConfig", "NDTConfig", "OdometryConfig", "LfaConfig"])
 def test_config_matches_reference(name):
     """Each of the port's fields has the reference's default, in the stage
     config and in the flagship configuration."""
@@ -28,6 +28,7 @@ def test_config_matches_reference(name):
     port, ref = config.kitti_flagship_config(), ref_config.kitti_flagship_config()
     same(port.prefilter, ref.prefilter)
     same(port.odometry, ref.odometry)
+    same(port.lfa, ref.lfa)
 
 
 @pytest.mark.parametrize("seed", [5, 41])

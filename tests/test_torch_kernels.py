@@ -14,12 +14,16 @@ import pytest
 torch = pytest.importorskip("torch")
 
 from lv_slam_tpu.io import synthetic  # noqa: E402
+from lv_slam_tpu_torch.config import LfaConfig  # noqa: E402
+from lv_slam_tpu_torch.core import se3  # noqa: E402
 from lv_slam_tpu_torch.core.cloud import PointCloud  # noqa: E402
 from lv_slam_tpu_torch.kernels import KERNELS, reset_launches  # noqa: E402
-from lv_slam_tpu_torch.ops import ndt_hash, prefilter, voxel_map  # noqa: E402
+from lv_slam_tpu_torch.lfa import features, registration  # noqa: E402
+from lv_slam_tpu_torch.ops import knn, ndt_hash, prefilter, voxel_map  # noqa: E402
 from lv_slam_tpu_torch.ops.ndt import make_gauss_params  # noqa: E402
 
 REPO = Path(__file__).resolve().parents[1]
+LFA = LfaConfig(scan_line=32, edge_cap=2048, planar_cap=4096, map_edge_cap=8192, map_planar_cap=16384)
 
 
 @pytest.fixture(scope="module")
@@ -33,6 +37,11 @@ def scans():
 def _calls(device, scans):
     """Every wrapper once, on `device`, at small shapes: (name, wrapper output,
     plain output) for each kernel."""
+    return _odometry_calls(device, scans) + _lfa_calls(device, scans)
+
+
+def _odometry_calls(device, scans):
+    """K1, K3, K5, K6 once each."""
     (s0, s1), rel = scans
     cloud = prefilter.distance_filter(PointCloud.from_numpy(s0, cap=16384, device=device), 0.5, 100.0)
     out = [(
@@ -59,8 +68,46 @@ def _calls(device, scans):
     return out
 
 
+def _lfa_calls(device, scans):
+    """K8-K11 once each: scan 0's features fill the maps at the identity,
+    scan 1's features are the queries at the true relative pose."""
+    (s0, s1), rel = scans
+    c0, c1 = (PointCloud.from_numpy(s, cap=16384, device=device) for s in (s0, s1))
+    f0 = features.extract_features(c0, LFA)
+    out = [("extract_features", f0, features.extract_features_ref(c0, LFA))]
+    f1 = features.extract_features(c1, LFA)
+    edge = knn.empty_cell_table(4096, LFA.knn_slots, 2.0, device)
+    surf, surf_plain = (knn.empty_cell_table(8192, LFA.knn_slots, 2.0, device) for _ in range(2))
+    batch = (f0.less_flat, f0.less_flat_mask, LFA.mapping_plane_resolution)
+    knn.insert_cell_table_(surf, *batch)
+    knn.insert_cell_table_ref_(surf_plain, *batch)
+    out.append(("insert_cell_table", surf, surf_plain))
+    knn.insert_cell_table_(edge, f0.less_sharp, f0.less_sharp_mask, LFA.mapping_line_resolution)
+    center = torch.tensor([3.0, -2.0, 0.5], device=device)
+    last = torch.tensor([-20.0, 1.0, 0.0], device=device)
+    cropped = [knn.CellTable(surf.table.clone(), surf.cell_size) for _ in range(2)]
+    out.append((
+        "crop_cell_table",
+        (knn.crop_cell_table_(cropped[0], center, 20.0, last, 10.0), cropped[0].table),
+        (knn.crop_cell_table_ref_(cropped[1], center, 20.0, last, 10.0), cropped[1].table),
+    ))
+    t = torch.from_numpy(rel.astype(np.float32)).to(device)
+    ye = se3.transform_points(t, f1.less_sharp)
+    ys = se3.transform_points(t, f1.less_flat)
+    lines = registration.lines_from_fit(ye, f1.less_sharp_mask, edge)
+    out.append(("lines_from_fit", lines, registration.lines_from_fit_ref(ye, f1.less_sharp_mask, edge)))
+    planes = registration.planes_from_fit(ys, f1.less_flat_mask, surf)
+    out.append(("planes_from_fit", planes, registration.planes_from_fit_ref(ys, f1.less_flat_mask, surf)))
+    gn = (t, f1.less_sharp, lines, f1.less_flat, planes, LFA.mapping_max_iterations)
+    out.append(("gn_solve", (registration.gn_solve(*gn),), (registration.gn_solve_ref(*gn),)))
+    return out
+
+
 def test_registry_names_sources_and_replaced_functions():
-    assert set(KERNELS) == {"voxel_downsample", "build_voxel_map", "to_hash", "ndt_derivatives_hash"}
+    assert set(KERNELS) == {
+        "voxel_downsample", "build_voxel_map", "to_hash", "ndt_derivatives_hash", "extract_features",
+        "insert_cell_table", "crop_cell_table", "lines_from_fit", "planes_from_fit", "gn_solve",
+    }
     for name, k in KERNELS.items():
         assert (REPO / k.source).is_file(), k.source
         path, line = k.replaces.split(":")
@@ -71,6 +118,7 @@ def test_registry_names_sources_and_replaced_functions():
 def test_cpu_tensors_use_the_plain_versions(scans):
     reset_launches()
     for name, got, want in _calls("cpu", scans):
+        assert len(got) == len(want), name
         for a, b in zip(got, want):
             if isinstance(a, torch.Tensor):
                 np.testing.assert_array_equal(a.numpy(), b.numpy(), err_msg=name)
@@ -89,9 +137,9 @@ def cuda():
 @pytest.mark.gpu
 def test_kernels_match_plain_versions_on_the_card(cuda, scans):
     reset_launches()
-    results = {name: (got, want) for name, got, want in _calls(cuda, scans)}
+    results = {name: (got, want) for name, got, want in _odometry_calls(cuda, scans)}
     torch.cuda.synchronize()
-    assert all(k.launches == 1 for k in KERNELS.values())
+    assert {name: k.launches for name, k in KERNELS.items() if k.launches} == dict.fromkeys(results, 1)
 
     got, want = results["voxel_downsample"]
     assert torch.equal(got.mask, want.mask)  # lane order and mask identical
@@ -113,3 +161,34 @@ def test_kernels_match_plain_versions_on_the_card(cuda, scans):
     torch.testing.assert_close(s1, s2, rtol=1e-4, atol=0)
     torch.testing.assert_close(g1, g2, rtol=0, atol=2e-5 * float(g2.abs().max()))
     torch.testing.assert_close(h1, h2, rtol=0, atol=2e-5 * float(h2.abs().max()))
+
+
+@pytest.mark.gpu
+def test_lfa_kernels_match_plain_versions_on_the_card(cuda, scans):
+    reset_launches()
+    results = {name: (got, want) for name, got, want in _lfa_calls(cuda, scans)}
+    torch.cuda.synchronize()
+    want = dict(dict.fromkeys(results, 1), extract_features=2, insert_cell_table=2)
+    assert {name: k.launches for name, k in KERNELS.items() if k.launches} == want
+
+    # K8, K9: masks, picks and tables identical (both round alike on the card)
+    for name in ("extract_features", "insert_cell_table", "crop_cell_table"):
+        got, want = results[name]
+        for a, b in zip(got, want):
+            if isinstance(a, torch.Tensor):
+                assert torch.equal(a, b), name
+    # K10: identical accept decisions; fitted floats finite on every lane
+    # (gn_solve reads a rejected lane with weight 0, and 0 * NaN is NaN) and
+    # within 1e-5 on accepted lanes (a rejected fit may be a degenerate
+    # eigenvector, which the two routes may pick differently)
+    for name in ("lines_from_fit", "planes_from_fit"):
+        got, want = results[name]
+        assert torch.equal(got.valid, want.valid), name
+        v = want.valid
+        assert int(v.sum()) > 0, name
+        for a, b in zip(got[:2], want[:2]):
+            assert bool(torch.isfinite(a).all()), name
+            torch.testing.assert_close(a[v], b[v], rtol=0, atol=1e-5)
+    # K11: the solved pose to 1e-4 (the 6x6 sums run in another order)
+    (got,), (want,) = results["gn_solve"]
+    torch.testing.assert_close(got, want, rtol=0, atol=1e-4)

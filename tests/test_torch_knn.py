@@ -1,0 +1,136 @@
+"""The port's LFA world-map tables (kernel 9's plain twins on the CPU)
+against lv_slam_tpu.ops.knn: insert and crop are exact, slot for slot.
+
+The features of the conftest `small_sequence` go into empty tables at the
+true poses, scan after scan, as the LFA's maps grow. The reference's insert
+runs under jit with the resolution a compiled-in constant, as in its LFA
+step, so XLA multiplies by the float32 reciprocal of the resolution; the
+port does the same (`ops.prefilter.inv_resolution`)."""
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+import jax  # noqa: E402
+import jax.numpy as jnp  # noqa: E402
+
+from lv_slam_tpu.config import LfaConfig as JLfa  # noqa: E402
+from lv_slam_tpu.core import se3 as jse3  # noqa: E402
+from lv_slam_tpu.core.cloud import PointCloud as JCloud  # noqa: E402
+from lv_slam_tpu.lfa.features import extract_features  # noqa: E402
+from lv_slam_tpu.ops import knn as jk  # noqa: E402
+from lv_slam_tpu_torch.ops import knn as tk  # noqa: E402
+
+KW = dict(scan_line=32, edge_cap=2048, planar_cap=4096, map_edge_cap=8192, map_planar_cap=16384)
+
+
+@pytest.fixture(scope="module")
+def batches(small_sequence):
+    """Per scan: (world-frame less-sharp points, mask, world less-flat, mask)."""
+    scans, gt, _ = small_sequence
+    gt_rel = np.einsum("ij,njk->nik", np.linalg.inv(gt[0]), gt).astype(np.float32)
+    cfg = JLfa(**KW)
+    out = []
+    for s, pose in zip(scans, gt_rel):
+        f = extract_features(JCloud.from_numpy(s, cap=32768), cfg)
+        t = jnp.asarray(pose)
+        out.append(tuple(np.array(a) for a in (
+            jse3.transform_points(t, f.less_sharp), f.less_sharp_mask,
+            jse3.transform_points(t, f.less_flat), f.less_flat_mask,
+        )))
+    return out, gt_rel
+
+
+def _insert_both(batches, n_buckets, res, col):
+    """Four scans into empty tables; returns the JAX and port tables after each."""
+    ins = jax.jit(lambda t, x, m: jk.insert_cell_table(t, x, m, res))
+    jt, tt, out = jk.empty_cell_table(n_buckets, 6, 2.0), tk.empty_cell_table(n_buckets, 6, 2.0, "cpu"), []
+    for b in batches[:4]:
+        jt = ins(jt, jnp.asarray(b[col]), jnp.asarray(b[col + 1]))
+        tk.insert_cell_table_(tt, torch.from_numpy(b[col]), torch.from_numpy(b[col + 1]), res)
+        out.append((np.asarray(jt.table), tt.table.numpy().copy()))
+    return out, jt, tt
+
+
+@pytest.mark.parametrize("col,res,n_buckets", [(0, 0.4, 4096), (2, 0.8, 8192), (2, 0.8, 4096)])
+def test_insert_matches_slot_for_slot(batches, col, res, n_buckets):
+    """Edge and surf maps (and a crowded surf table, where full buckets drop
+    points) equal the reference's after every scan, bit for bit."""
+    steps, _, _ = _insert_both(batches[0], n_buckets, res, col)
+    for want, got in steps:
+        np.testing.assert_array_equal(got.view(np.int32), want.view(np.int32))
+    stored = (steps[-1][1].reshape(-1, 4)[:, 3] > 0.5).sum()
+    assert stored > steps[0][1].reshape(-1, 4)[:, 3].sum() > 100
+
+
+def _copy(t):
+    return tk.CellTable(t.table.clone(), t.cell_size)
+
+
+def test_crop_matches(batches):
+    _, jt, tt = _insert_both(batches[0], 4096, 0.8, 2)
+    center = batches[1][4][:3, 3]
+    for radius in (5.0, 12.0, 150.0):
+        want = np.asarray(jk.crop_cell_table(jt, jnp.asarray(center), radius).table)
+        cropped = _copy(tt)
+        tk.crop_cell_table_(cropped, torch.from_numpy(center.copy()), radius)
+        got = cropped.table.numpy()
+        np.testing.assert_array_equal(got.view(np.int32), want.view(np.int32))
+    assert (got.reshape(-1, 4)[:, 3] > 0.5).sum() > 0
+
+
+def test_cell_table_points_match(batches):
+    _, jt, tt = _insert_both(batches[0], 4096, 0.8, 2)
+    pj, mj = (np.asarray(a) for a in jk.cell_table_points(jt))
+    pt, mt = (a.numpy() for a in tk.cell_table_points(tt))
+    np.testing.assert_array_equal(mt, mj)
+    np.testing.assert_array_equal(pt, pj)
+    assert mt.sum() > 100
+
+
+def test_crop_gate_decided_on_the_device(batches):
+    """With a last crop center the crop runs only once the center has moved
+    more than the interval, and returns the new last center."""
+    _, _, tt = _insert_both(batches[0], 4096, 0.8, 2)
+    center = torch.tensor([1.0, 2.0, 0.0])
+    before = tt.table.clone()
+    near = center + torch.tensor([3.0, 0.0, 0.0])
+    kept = tk.crop_cell_table_(tt, center, 5.0, last_center=near, interval=10.0)
+    assert torch.equal(tt.table, before) and torch.equal(kept, near)
+    far = center + torch.tensor([30.0, 0.0, 0.0])
+    moved = tk.crop_cell_table_(tt, center, 5.0, last_center=far, interval=10.0)
+    assert torch.equal(moved, center)
+    want = tk.CellTable(before, 2.0)
+    tk.crop_cell_table_(want, center, 5.0)
+    assert torch.equal(tt.table, want.table)
+
+
+def test_duplicate_voxels_keep_the_first_in_batch_order():
+    """Rows with one (bucket, voxel) key keep the reference's stable order:
+    the first in the batch is stored, and a stored voxel wins over a later
+    batch."""
+    pts = np.array([[0.30, 0.30, 0.30], [0.35, 0.31, 0.32], [0.31, 0.39, 0.30],
+                    [5.0, 5.0, 5.0], [0.36, 0.33, 0.35]], np.float32)
+    mask = np.ones(5, bool)
+    jt = jax.jit(lambda t, x, m: jk.insert_cell_table(t, x, m, 0.4))(
+        jk.empty_cell_table(4096, 6, 2.0), jnp.asarray(pts), jnp.asarray(mask))
+    tt = tk.empty_cell_table(4096, 6, 2.0, "cpu")
+    tk.insert_cell_table_(tt, torch.from_numpy(pts), torch.from_numpy(mask), 0.4)
+    np.testing.assert_array_equal(tt.table.numpy(), np.asarray(jt.table))
+    rows = tt.table.numpy().reshape(-1, 4)
+    stored = rows[rows[:, 3] > 0.5, :3]
+    assert len(stored) == 2 and any((stored == pts[0]).all(axis=1))
+    again = _copy(tt)
+    tk.insert_cell_table_(again, torch.from_numpy(pts[::-1].copy()), torch.from_numpy(mask), 0.4)
+    assert torch.equal(again.table, tt.table)
+
+
+def test_candidates_match(batches):
+    _, jt, tt = _insert_both(batches[0], 4096, 0.8, 2)
+    q = batches[0][4][2]
+    pj, oj = (np.asarray(a) for a in jax.jit(jk.candidates_cell)(jt, jnp.asarray(q)))
+    pt, ot = (a.numpy() for a in tk.candidates_cell(tt, torch.from_numpy(q)))
+    np.testing.assert_array_equal(ot, oj)
+    np.testing.assert_array_equal(pt[ot], pj[oj])
+    assert ot.any()

@@ -1,0 +1,130 @@
+"""The port's scan-to-map correspondences and Gauss-Newton (kernels 10 and
+11's plain twins on the CPU) against lv_slam_tpu.lfa.registration.
+
+The world maps are built by the reference (its features of the conftest
+`small_sequence` scans 0-3 inserted at the true poses) and handed to both
+sides as the same table; the queries are scan 4's features at its true
+pose, and `gn_solve` starts 0.3 m off that pose from the same fields.
+
+Tolerances: accept decisions identical (measured: none differs); fitted
+means, directions, normals and offsets of accepted queries to 2e-5 (XLA
+sums the 48 candidates and the 3x3 products in its own order, with FMAs;
+measured max 7.6e-6); the solved pose to 1e-5 (measured 4.8e-7).
+"""
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+import jax  # noqa: E402
+import jax.numpy as jnp  # noqa: E402
+
+from lv_slam_tpu.config import LfaConfig as JLfa  # noqa: E402
+from lv_slam_tpu.core import se3 as jse3  # noqa: E402
+from lv_slam_tpu.core.cloud import PointCloud as JCloud  # noqa: E402
+from lv_slam_tpu.lfa import registration as jr  # noqa: E402
+from lv_slam_tpu.lfa.features import extract_features  # noqa: E402
+from lv_slam_tpu.ops import knn as jk  # noqa: E402
+from lv_slam_tpu_torch.lfa import registration as tr  # noqa: E402
+from lv_slam_tpu_torch.ops.knn import CellTable  # noqa: E402
+
+KW = dict(scan_line=32, edge_cap=2048, planar_cap=4096, map_edge_cap=8192, map_planar_cap=16384)
+FIT_ATOL = 2e-5
+POSE_ATOL = 1e-5
+
+
+@pytest.fixture(scope="module")
+def setup(small_sequence):
+    scans, gt, _ = small_sequence
+    gt_rel = np.einsum("ij,njk->nik", np.linalg.inv(gt[0]), gt).astype(np.float32)
+    cfg = JLfa(**KW)
+    feats = [extract_features(JCloud.from_numpy(s, cap=32768), cfg) for s in scans[:5]]
+    tables = [jk.empty_cell_table(4096, 6, 2.0), jk.empty_cell_table(8192, 6, 2.0)]
+    ins = [jax.jit(lambda t, x, m, r=r: jk.insert_cell_table(t, x, m, r)) for r in (0.4, 0.8)]
+    for f, pose in zip(feats[:4], gt_rel):
+        t = jnp.asarray(pose)
+        tables[0] = ins[0](tables[0], jse3.transform_points(t, f.less_sharp), f.less_sharp_mask)
+        tables[1] = ins[1](tables[1], jse3.transform_points(t, f.less_flat), f.less_flat_mask)
+    f4, pose4 = feats[4], jnp.asarray(gt_rel[4])
+    queries = {
+        "edge": (np.array(jse3.transform_points(pose4, f4.less_sharp)), np.array(f4.less_sharp_mask)),
+        "surf": (np.array(jse3.transform_points(pose4, f4.less_flat)), np.array(f4.less_flat_mask)),
+    }
+    pts = {"edge": np.array(f4.less_sharp), "surf": np.array(f4.less_flat)}
+    return tables, queries, pts, gt_rel[4]
+
+
+def _t(a):
+    return torch.from_numpy(np.array(a))
+
+
+def _tables(setup):
+    return [CellTable(_t(t.table), float(t.cell_size)) for t in setup[0]]
+
+
+@pytest.mark.parametrize("kind", ["lines", "planes"])
+def test_fits_match(setup, kind):
+    tables, queries, _, _ = setup
+    i, q = (0, "edge") if kind == "lines" else (1, "surf")
+    y, m = queries[q]
+    j_fn = jr.lines_from_fit if kind == "lines" else jr.planes_from_fit
+    t_fn = tr.lines_from_fit if kind == "lines" else tr.planes_from_fit
+    want = [np.asarray(a) for a in jax.jit(j_fn)(jnp.asarray(y), jnp.asarray(m), tables[i])]
+    got = [a.numpy() for a in t_fn(_t(y), _t(m), _tables(setup)[i])]
+    np.testing.assert_array_equal(got[2], want[2])
+    v = want[2]
+    assert v.sum() > 20, v.sum()
+    for a, b in zip(got[:2], want[:2]):
+        err = float(np.abs(a[v] - b[v]).max())
+        print(f"{kind}: {int(v.sum())} accepted, max abs err {err:.3g} (tolerance {FIT_ATOL})")
+        assert err <= FIT_ATOL
+    if kind == "planes":  # rejected planes are zeroed
+        assert (got[0][~v] == 0).all() and (got[1][~v] == 0).all()
+
+
+def test_gn_solve_matches(setup):
+    tables, queries, pts, truth = setup
+    lines = jr.lines_from_fit(jnp.asarray(queries["edge"][0]), jnp.asarray(queries["edge"][1]), tables[0])
+    planes = jr.planes_from_fit(jnp.asarray(queries["surf"][0]), jnp.asarray(queries["surf"][1]), tables[1])
+    seed = truth.copy()
+    seed[0, 3] += 0.3
+    want = np.asarray(jax.jit(jr.gn_solve, static_argnums=5)(
+        jnp.asarray(seed), jnp.asarray(pts["edge"]), lines, jnp.asarray(pts["surf"]), planes, 8))
+    got = tr.gn_solve(
+        _t(seed), _t(pts["edge"]), tr.LineField(*map(_t, lines)), _t(pts["surf"]),
+        tr.PlaneField(*map(_t, planes)), 8,
+    ).numpy()
+    err = float(np.abs(got - want).max())
+    print(f"gn_solve: max abs err {err:.3g} (tolerance {POSE_ATOL})")
+    assert err <= POSE_ATOL
+    assert np.linalg.norm(got[:3, 3] - truth[:3, 3]) < 0.05  # pulled back from the 0.3 m seed
+    nl, npl = tr.match_counts(tr.LineField(*map(_t, lines)), tr.PlaneField(*map(_t, planes)))
+    assert (int(nl), int(npl)) == tuple(int(c) for c in jr.match_counts(lines, planes))
+
+
+def test_gn_solve_ignores_invalid_sentinel_lanes():
+    """Invalid sentinel lanes (1e6) cost nothing: their points and line
+    means are zeroed before any nonlinear op (their directions are used as
+    they are, in the reference too, so they must be finite)."""
+    rng = np.random.default_rng(0)
+    n = 64
+    pts = rng.uniform(-5, 5, (n, 3)).astype(np.float32)
+    normal = np.tile(np.array([0.0, 0.0, 1.0], np.float32), (n, 1))
+    planes = tr.PlaneField(_t(normal), _t(-pts[:, 2]), torch.ones(n, dtype=torch.bool))
+    lines = tr.LineField(torch.full((n, 3), 1e6), torch.full((n, 3), 0.5), torch.zeros(n, dtype=torch.bool))
+    edges = torch.full((n, 3), 1e6)
+    seed = torch.eye(4)
+    seed[2, 3] = 0.05
+    out = tr.gn_solve(seed, edges, lines, _t(pts), planes, 8)
+    assert torch.isfinite(out).all()
+    assert abs(float(out[2, 3])) < 1e-4
+
+
+def test_standalone_branches_not_ported():
+    with pytest.raises(NotImplementedError):
+        tr.lines_from_fit(torch.zeros(4, 3), torch.ones(4, dtype=torch.bool), object())
+    with pytest.raises(NotImplementedError):
+        tr.lines_from_2nn()
+    with pytest.raises(NotImplementedError):
+        tr.planes_from_3nn()

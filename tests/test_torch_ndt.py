@@ -61,10 +61,10 @@ def test_derivatives(setup, neighborhood, weighted):
             jmap, jsrc.masked_xyz().T, jsrc.mask, T, j_gauss(1.0), j_offsets(neighborhood), weighted
         )
     )(jnp.asarray(transform))
-    tsrc = TCloud.from_numpy(src, cap=16384)
+    tsrc = TCloud.from_numpy(src, cap=16384, device="cpu")
     s2, g2, h2 = th.ndt_derivatives_hash(
         tmap, tsrc.masked_xyz().T.contiguous(), tsrc.mask, torch.from_numpy(transform),
-        t_gauss(1.0), t_offsets(neighborhood), weighted,
+        t_gauss(1.0), t_offsets(neighborhood, "cpu"), weighted,
     )
     assert float(s1) > 0.0  # real hits: the mixture score is positive
     np.testing.assert_allclose(float(s2), float(s1), rtol=1e-4)
@@ -86,7 +86,7 @@ def test_align(setup, coarse_subsample):
     want = jax.jit(functools.partial(jh.ndt_align_hash_table, **kw))(
         jmap, JCloud.from_numpy(src, cap=16384), jnp.asarray(guess)
     )
-    got = th.ndt_align_hash_table(tmap, TCloud.from_numpy(src, cap=16384), torch.from_numpy(guess), **kw)
+    got = th.ndt_align_hash_table(tmap, TCloud.from_numpy(src, cap=16384, device="cpu"), torch.from_numpy(guess), **kw)
     np.testing.assert_allclose(got.transform.numpy(), np.asarray(want.transform), atol=1e-4)
     assert got.iterations == int(want.iterations)
     assert got.converged == bool(want.converged)

@@ -73,7 +73,7 @@ def test_run_sequence_fused_matches_jax(inputs, jax_run):
     want_poses, want_switches, want_filt = jax_run
     (poses, iters, switches, filt) = t_run(
         torch.from_numpy(xyz), torch.from_numpy(mask), torch.from_numpy(stamps), CFG, PF,
-        with_stats=True, inten=torch.from_numpy(inten), return_filtered=True,
+        with_stats=True, inten=torch.from_numpy(inten), return_filtered=True, device="cpu",
     )
     _assert_poses_close(poses.numpy(), want_poses, np.maximum(TRANS_ATOL, REF_SPREAD))
     np.testing.assert_array_equal(switches.numpy(), want_switches)
@@ -107,6 +107,7 @@ def test_state_carried_from_jax(inputs, jax_run):
     poses, state2 = t_run(
         torch.from_numpy(xyz[k:]), torch.from_numpy(mask[k:]), torch.from_numpy(stamps[k:]),
         CFG, PF, init_state=state, return_state=True, inten=torch.from_numpy(inten[k:]),
+        device="cpu",
     )
     _assert_poses_close(poses.numpy(), want_poses[k:], TRANS_ATOL)
     assert state2.scan_idx == state.scan_idx + xyz.shape[0] - k
@@ -128,16 +129,45 @@ def _is_reference(module: str) -> bool:
 
 def test_port_never_imports_jax():
     """Neither the port nor chip_smoke.py imports JAX or the JAX package:
-    no import statement names them, and importing the port's modules loads
-    none of them."""
+    no import statement names them (chip_smoke's phases import inside their
+    functions, which the walk covers), and importing the port's modules,
+    the LFA and the chain included, loads none of them."""
     root = Path(__file__).resolve().parents[1]
-    for path in [root / "chip_smoke.py", *sorted((root / "lv_slam_tpu_torch").rglob("*.py"))]:
+    paths = [root / "chip_smoke.py", *sorted((root / "lv_slam_tpu_torch").rglob("*.py"))]
+    assert {"lfa", "pipeline", "odometry", "ops"} <= {p.parent.name for p in paths}
+    for path in paths:
         bad = sorted(m for m in _imported_modules(path) if _is_reference(m))
         assert not bad, (path, bad)
+    smoke = _imported_modules(root / "chip_smoke.py")
+    assert "lv_slam_tpu_torch.pipeline.fused_chain" in smoke  # phase 4's imports are scanned
     code = (
         "import sys, chip_smoke, lv_slam_tpu_torch.odometry.fused, lv_slam_tpu_torch.convert, "
+        "lv_slam_tpu_torch.lfa.fused, lv_slam_tpu_torch.pipeline.fused_chain, "
         "lv_slam_tpu_torch.io.synthetic, lv_slam_tpu_torch.io.kitti; "
         "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'lv_slam_tpu')]; "
         "assert not bad, bad"
     )
     subprocess.run([sys.executable, "-c", code], check=True, timeout=120, cwd=root)
+
+
+def test_entry_points_default_to_the_card(inputs):
+    """Without `device="cpu"` the entry points put their work on the card:
+    with no CUDA device they raise instead of quietly running on the CPU."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the default device works")
+    from lv_slam_tpu_torch.config import LfaConfig
+    from lv_slam_tpu_torch.core.cloud import PointCloud as TCloud
+    from lv_slam_tpu_torch.lfa.fused import run_sequence_lfa
+    from lv_slam_tpu_torch.pipeline.fused_chain import run_sequence_chain
+
+    xyz, mask, stamps, inten, _ = inputs
+    assert TCloud.from_numpy(xyz[0], cap=CAP, device="cpu").xyz.device.type == "cpu"
+    with pytest.raises((RuntimeError, AssertionError)):
+        TCloud.from_numpy(xyz[0], cap=CAP)
+    x, m, t = torch.from_numpy(xyz[:2]), torch.from_numpy(mask[:2]), torch.from_numpy(stamps[:2])
+    with pytest.raises((RuntimeError, AssertionError)):
+        t_run(x, m, t, CFG, PF)
+    with pytest.raises((RuntimeError, AssertionError)):
+        run_sequence_lfa(x, m, LfaConfig(), odom_poses=torch.eye(4).expand(2, 4, 4))
+    with pytest.raises((RuntimeError, AssertionError)):
+        run_sequence_chain(x, m, t, CFG, PF, LfaConfig())

@@ -48,7 +48,7 @@ def _assert_same_cloud(t: TCloud, j: JCloud):
 def test_voxel_downsample(method, cap, out_cap):
     pts = _scan_points()
     j_in = jpf.distance_filter(JCloud.from_numpy(pts, cap=cap), 0.5, 100.0)
-    t_in = tpf.distance_filter(TCloud.from_numpy(pts, cap=cap), 0.5, 100.0)
+    t_in = tpf.distance_filter(TCloud.from_numpy(pts, cap=cap, device="cpu"), 0.5, 100.0)
     want = jax.jit(
         functools.partial(jpf.voxel_downsample, resolution=0.1, out_cap=out_cap, method=method)
     )(j_in)
@@ -64,7 +64,7 @@ def test_voxel_downsample(method, cap, out_cap):
 def test_distance_filter_and_stride_subsample():
     pts = _scan_points(seed=8)
     j = jpf.distance_filter(JCloud.from_numpy(pts, cap=32768), 0.5, 40.0)
-    t = tpf.distance_filter(TCloud.from_numpy(pts, cap=32768), 0.5, 40.0)
+    t = tpf.distance_filter(TCloud.from_numpy(pts, cap=32768, device="cpu"), 0.5, 40.0)
     for a, b in ((t.xyz, j.xyz), (t.intensity, j.intensity), (t.mask, j.mask)):
         np.testing.assert_array_equal(a.numpy(), np.asarray(b))
     for out_cap in (16384, 8192, 32768):
@@ -78,7 +78,7 @@ def test_distance_filter_and_stride_subsample():
 def test_uniform_subsample():
     pts = _scan_points(seed=9)
     j = JCloud.from_numpy(pts, cap=32768).compact()
-    t = TCloud.from_numpy(pts, cap=32768).compact()
+    t = TCloud.from_numpy(pts, cap=32768, device="cpu").compact()
     js, ts = jpf.uniform_subsample(j, 8192), tpf.uniform_subsample(t, 8192)
     for a, b in ((ts.xyz, js.xyz), (ts.intensity, js.intensity), (ts.mask, js.mask)):
         np.testing.assert_array_equal(a.numpy(), np.asarray(b))

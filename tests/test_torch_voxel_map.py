@@ -88,7 +88,7 @@ def test_build_voxel_map(target_scan, weighted):
     rounding noise (NOISY_RATIO, MAX_FLIP_SHARE); means to 1e-5, icovs and
     weights to 1e-4 of the max entry on the leaves valid in both."""
     want = _jax_map(target_scan, weighted)
-    cloud = TCloud.from_numpy(target_scan, cap=16384)
+    cloud = TCloud.from_numpy(target_scan, cap=16384, device="cpu")
     got = t_build(cloud, 1.0, leaf_cap=LEAF_CAP, lut_extent=256, weighted=weighted)
     vj, vt = np.asarray(want.valid), got.valid.numpy()
     assert vj.sum() > 100
