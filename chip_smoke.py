@@ -35,6 +35,24 @@ Phases, each of which raises on failure:
    agree with the plain path on the CPU to 1e-4; the LFA stage must add no
    host sync to the odometry's. A warm pass is timed, the device's idle
    share and the peak device memory are measured.
+5. The full main path, dlo -> LFA -> ggo, in the pure-lidar configuration:
+   170 scans (the reference benchmark's whole circle, so the drive closes
+   its loop) through `run_sequence_chain` in chunks of 32, each chunk's
+   filtered product and refined poses fed to
+   `AsyncBackend(GlobalGraph(...))` with the benchmark's `make_backend`
+   settings and no images (`bench.py:257-425`): `add_scan_batch(filtered=
+   True)` per chunk, `optimize()` every 100 scans, then `finish()` and
+   `drain()`. Every kernel must have been launched; the refined trajectory
+   must pass the gates; at least one loop must close and the keyframes must
+   number the reference record's 19; the final graph re-solved by the plain
+   path on the CPU must agree to 1e-4. A warm pass is timed, host syncs are
+   counted on the synchronous backend, and the device's idle share and peak
+   memory are measured.
+
+Phase 2 holds every kernel, those of the backend too (2c: the window dedup
+K1b/K2, the batched NDT pass K13, the centroid grid K14 and the pose-graph
+normal equations K15), against its plain version at the shapes phase 5
+gives it.
 
 The last lines are the kernels' JSON record, the card's name and power
 limit, and `{"ok": true, "device": {...}}`. Without a CUDA device the script
@@ -54,7 +72,8 @@ from pathlib import Path
 
 import numpy as np
 
-N_SCANS = 64
+N_SCANS = 64     # phases 3-4: the first 64 scans of the circle
+N_FULL = 170     # phase 5: the whole circle, as the reference benchmark drives it
 CHUNK = 32
 SEED = 5  # the reference benchmark's world and noise seeds
 ROOT = Path(__file__).resolve().parent
@@ -131,6 +150,12 @@ DEVICE_FUNCTIONS = {
     "lines_from_fit": ("lines",),
     "planes_from_fit": ("planes",),
     "gn_solve": ("gn",),
+    "voxel_dedup_first": ("dedup_keys", "dedup_mark", "dedup_compact"),
+    "window_group_filtered_fn": ("window_keys", "dedup_mark", "dedup_compact"),
+    "_fused_verify_fn": ("ndt_partials", "ndt_finish"),
+    "build_centroid_grid": ("grid_mark", "grid_reduce"),
+    "nn_sq_dists": ("grid_query", "grid_finish"),
+    "_chi2_and_normal": ("se3_edges", "chi2_sum"),
 }
 
 
@@ -503,9 +528,209 @@ def check_lfa_kernels(torch, scans, gt, dev):
     return records
 
 
+def check_backend_kernels(torch, scans, gt, dev):
+    """Phase 2c: the backend's kernels vs their plain versions at the shapes
+    phase 5 gives them: a 16-scan window group of filtered KITTI-density
+    scans (2.1 M rows in, 131072 out), the merge of two partials, 8 loop
+    candidates of 131072 lanes against the 1 m map of that keyframe cloud,
+    its 0.25 m centroid grid, and a 64-node, 128-edge pose graph."""
+    from lv_slam_tpu_torch import kitti_flagship_config
+    from lv_slam_tpu_torch.core import se3
+    from lv_slam_tpu_torch.core.cloud import PointCloud
+    from lv_slam_tpu_torch.graph import pose_graph
+    from lv_slam_tpu_torch.ops import ndt_hash, nn, prefilter, voxel_map
+    from lv_slam_tpu_torch.ops.ndt import make_gauss_params
+    from lv_slam_tpu_torch.pipeline import window
+
+    pf = kitti_flagship_config().prefilter
+    res, kf_cap = pf.downsample_resolution, 131072
+    records = {}
+
+    def filtered(i):
+        raw = PointCloud.from_numpy(scans[i], cap=pf.raw_cap, device=dev)
+        band = prefilter.distance_filter(raw, pf.distance_near_thresh, pf.distance_far_thresh)
+        return prefilter.voxel_downsample(band, pf.downsample_resolution, pf.out_cap)
+
+    def identical(a, b) -> bool:
+        return all(torch.equal(x, y) for x, y in zip(a, b))
+
+    rel = np.einsum("ij,njk->nik", np.linalg.inv(gt[0]), gt).astype(np.float32)
+    scans_f = [filtered(i) for i in range(24)]
+
+    def group(first, length):
+        rows = scans_f[first:first + length]
+        chunk = (torch.stack([c.xyz.T for c in rows]).contiguous(), torch.stack([c.intensity for c in rows]),
+                 torch.stack([c.mask for c in rows]))
+        rels = torch.from_numpy(rel[first:first + length]).to(dev)
+        return (*chunk, 0, rels, torch.ones(length, dtype=torch.bool, device=dev), res, kf_cap)
+
+    # kernel 2: scans 0-15 moved into scan 0's frame, first point per voxel
+    g16 = group(0, 16)
+    k2 = lambda: window.window_group_filtered(*g16)  # noqa: E731
+    p2 = lambda: window.window_group_filtered_ref(*g16)  # noqa: E731
+    keyframe, want = k2(), p2()
+    if not identical(keyframe, want):
+        raise AssertionError("window_group_filtered_fn: kept lanes differ from the plain version")
+    n_in, n_kept = int(g16[2].sum()), int(keyframe.mask.sum())
+    log(f"  window_group_filtered_fn: 16 x {g16[0].shape[2]} rows, {n_in} valid -> {n_kept} voxels "
+        f"in {keyframe.cap} lanes, identical to the plain version")
+    measure(torch, records, "window_group_filtered_fn", k2, p2, 0.0,
+            nbytes(*g16[:3], g16[4], g16[5]) + 17 * keyframe.cap, 20 * g16[2].numel())
+
+    # kernel 1b: that partial merged with scans 16-23's (a window across chunks)
+    part2 = window.window_group_filtered(*group(16, 8))
+    both = PointCloud(*(torch.cat([a, b]) for a, b in zip(keyframe, part2)))
+    k1b = lambda: prefilter.voxel_dedup_first(both, res, kf_cap)  # noqa: E731
+    p1b = lambda: prefilter.voxel_dedup_first_ref(both, res, kf_cap)  # noqa: E731
+    got, want = k1b(), p1b()
+    if not identical(got, want):
+        raise AssertionError("voxel_dedup_first: kept lanes differ from the plain version")
+    log(f"  voxel_dedup_first: {both.cap} rows, {int(both.mask.sum())} valid -> {int(got.mask.sum())} voxels, "
+        f"identical to the plain version")
+    measure(torch, records, "voxel_dedup_first", k1b, p1b, 0.0, nbytes(*both) + 17 * got.cap,
+            10 * both.cap)
+
+    # kernel 13: 8 candidates (scans 2, 4, .., 16, 0.2 m off their true
+    # pose) against the keyframe cloud's 1 m map, and the 4 m rung's
+    # strided lanes
+    cands = [scans_f[i] for i in range(2, 18, 2)]
+    guesses = torch.from_numpy(rel[2:18:2].copy()).to(dev)
+    guesses[:, 0, 3] += 0.2
+    offsets = voxel_map.neighborhood_offsets("DIRECT7", dev)
+    err13 = 0.0
+    for r, stride in ((4.0, 4), (1.0, 1)):
+        hm = ndt_hash.to_hash(voxel_map.build_voxel_map(keyframe, r, leaf_cap=16384, lut_extent=256))
+        xs = torch.stack([c.masked_xyz().T[:, ::stride] for c in cands]).contiguous()
+        mask = torch.stack([c.mask[::stride] for c in cands]).contiguous()
+        args = (hm, xs, mask, guesses, make_gauss_params(r), offsets, False)
+        k13 = lambda args=args: ndt_hash.ndt_derivatives_hash_batched(*args)  # noqa: E731
+        p13 = lambda args=args: ndt_hash.ndt_derivatives_hash_batched_ref(*args)  # noqa: E731
+        (s1, g1, h1), (s2, g2, h2) = k13(), p13()
+        es = float((s1 - s2).abs().max())
+        eg, eh = float((g1 - g2).abs().max()), float((h1 - h2).abs().max())
+        # partial sums over up to 8 x 131072 lanes x 7 offsets in another
+        # order than the plain pass's; near the optimum the gradient is a
+        # cancelling sum (on an H100: 2.41 against a largest entry of 1.2e5)
+        ts, tg, th = 1e-4 * float(s2.abs().max()), 1e-4 * float(g2.abs().max()), 2e-5 * float(h2.abs().max())
+        if es > ts or eg > tg or eh > th:
+            raise AssertionError(f"_fused_verify_fn at {r} m: errors score {es} grad {eg} hess {eh}")
+        err13 = max(err13, eg, eh)
+        log(f"  _fused_verify_fn (batched K6, DIRECT7) at {r} m: {len(cands)} x {xs.shape[2]} lanes, "
+            f"errors score {es:.3g} (tol {ts:.3g}), grad {eg:.3g} (tol {tg:.3g}), hess {eh:.3g} (tol {th:.3g})")
+    n_lanes = int(mask.sum())
+    # the table is an input; per lane 7 probes (~40 operations) and ~330 per hit
+    measure(torch, records, "_fused_verify_fn", k13, p13, err13, nbytes(hm.table, xs, mask, guesses),
+            (7 * 40 + 330) * n_lanes)
+
+    # kernel 14: the keyframe cloud's 0.25 m grid, then the 8 candidates'
+    # fitness at their guesses
+    k14 = lambda: nn.build_centroid_grid(keyframe, 0.25)  # noqa: E731
+    p14 = lambda: nn.build_centroid_grid_ref(keyframe, 0.25)  # noqa: E731
+    grid, want = k14(), p14()
+    if not (torch.equal(grid.keys, want.keys) and torch.equal(grid.counts, want.counts)):
+        raise AssertionError("build_centroid_grid: keys or counts differ from the plain version")
+    v = want.counts > 0
+    err = float(((grid.centroids[v] - want.centroids[v]).abs() / want.centroids[v].abs().clamp(min=1.0)).max())
+    if err > 1e-6:
+        raise AssertionError(f"build_centroid_grid: centroid error {err} > 1e-6")
+    log(f"  build_centroid_grid: {n_kept} points -> {int(v.sum())} of {grid.keys.shape[0]} leaves, keys and "
+        f"counts identical, centroids within {err:.3g} (tol 1e-6 relative)")
+    measure(torch, records, "build_centroid_grid", k14, p14, err,
+            nbytes(keyframe.xyz, keyframe.mask, grid.keys, grid.centroids, grid.counts), 4 * n_kept)
+
+    batch = PointCloud(torch.stack([c.xyz for c in cands]), torch.stack([c.intensity for c in cands]),
+                       torch.stack([c.mask for c in cands]))
+    moved = cands[0].transformed(guesses[0])
+    d2, d2_ref = nn.nn_sq_dists(grid, moved.masked_xyz(), moved.mask), nn.nn_sq_dists_ref(
+        grid, moved.masked_xyz(), moved.mask)
+    hit = torch.isfinite(d2_ref)
+    if not torch.equal(torch.isfinite(d2), hit):
+        raise AssertionError("nn_sq_dists: the hit set differs from the plain version")
+    err_d2 = float(((d2[hit] - d2_ref[hit]).abs() / d2_ref[hit].clamp(min=1e-12)).max())
+    kq = lambda: nn.fitness_batch(grid, batch, guesses)  # noqa: E731
+    pq = lambda: nn.fitness_batch_ref(grid, batch, guesses)  # noqa: E731
+    fit, fit_ref = kq(), pq()
+    err_fit = float(((fit - fit_ref).abs() / fit_ref.abs()).max())
+    if err_d2 > 1e-6 or err_fit > 1e-5:
+        raise AssertionError(f"nn_sq_dists: d2 error {err_d2} (tol 1e-6), fitness error {err_fit} (tol 1e-5)")
+    log(f"  nn_sq_dists: hit set identical ({int(hit.sum())} of {int(moved.mask.sum())} lanes), d2 within "
+        f"{err_d2:.3g} (tol 1e-6 relative); fitness of {len(cands)} candidates {fit.tolist()} within "
+        f"{err_fit:.3g} (tol 1e-5 relative)")
+    n_q = int(batch.mask.sum())
+    measure(torch, records, "nn_sq_dists", kq, pq, err_fit,
+            nbytes(batch.xyz, batch.mask, guesses, grid.keys, grid.centroids, fit), 27 * 60 * n_q)
+
+    # kernel 15: 64 keyframes (every other pose of the circle, 0.05 m / 0.01
+    # rad of noise), 63 odometry edges and loops from the last 16 to the first
+    rng = np.random.default_rng(SEED)
+    g = pose_graph.empty_graph(64, 128, 16, 8, 8, 16)
+    kf = rel[::2][:64].astype(np.float64)
+    info = np.diag([2.0] * 3 + [10.0] * 3)
+
+    def noise(scale_t, scale_r):
+        d = np.r_[rng.normal(0, scale_t, 3), rng.normal(0, scale_r, 3)].astype(np.float32)
+        return se3.exp_se3(torch.from_numpy(d)).double().numpy()
+
+    for i in range(64):
+        pose_graph.add_node(g, i, kf[i] @ noise(0.05, 0.01))
+    n_edges = 0
+    for i in range(1, 64):
+        pose_graph.add_se3_edge(g, n_edges, i, i - 1, np.linalg.inv(kf[i]) @ kf[i - 1] @ noise(0.01, 0.002),
+                                info, huber=1.0)
+        n_edges += 1
+    for i in range(48, 64, 2):
+        pose_graph.add_se3_edge(g, n_edges, i, (i - 48) // 2, np.linalg.inv(kf[i]) @ kf[(i - 48) // 2], info,
+                                huber=1.0)
+        n_edges += 1
+    dg = pose_graph.to_device(g, dev)
+    k15 = lambda: pose_graph._chi2_and_normal(dg, dg.poses, True)  # noqa: E731
+    p15 = lambda: pose_graph._chi2_and_normal_ref(dg, dg.poses, True)  # noqa: E731
+    (c1, h1, b1), (c2, h2, b2) = k15(), p15()
+    # the judge is the plain version in float64: residuals are centimetres
+    # left from ~50 m coordinates, so float32 rounding alone moves b by
+    # ~3e-5 of its scale. The kernel's error may be twice the float32 plain
+    # version's, plus 1e-6 of the scale (atomicAdd order)
+    dg64 = dg._replace(poses=dg.poses.double(), e_meas=dg.e_meas.double(), e_info=dg.e_info.double(),
+                       e_huber=dg.e_huber.double())
+    c64, h64, b64 = pose_graph._chi2_and_normal_ref(dg64, dg64.poses, True)
+
+    def errs(c, hh, bb):
+        return (abs(float(c) - float(c64)), float((hh.double() - h64).abs().max()),
+                float((bb.double() - b64).abs().max()))
+
+    got_e, plain_e = errs(c1, h1, b1), errs(c2, h2, b2)
+    scale = (abs(float(c64)), float(h64.abs().max()), float(b64.abs().max()))
+    tols = [2 * p + 1e-6 * sc for p, sc in zip(plain_e, scale)]
+    if any(g_ > t_ for g_, t_ in zip(got_e, tols)):
+        raise AssertionError(f"_chi2_and_normal: errors vs float64 (chi2, H, b) {got_e}, tolerances {tols}")
+    ec, eh, eb = got_e
+    n = h1.shape[0]
+    log(f"  _chi2_and_normal: {n_edges} edges, H {n} x {n}; errors against the float64 plain version: chi2 "
+        f"{ec:.3g} (float32 plain {plain_e[0]:.3g}, tol {tols[0]:.3g}), H {eh:.3g} ({plain_e[1]:.3g}, tol "
+        f"{tols[1]:.3g}), b {eb:.3g} ({plain_e[2]:.3g}, tol {tols[2]:.3g}); scales {scale}")
+    measure(torch, records, "_chi2_and_normal", k15, p15, max(eh, eb),
+            nbytes(dg.poses, dg.e_i, dg.e_j, dg.e_meas, dg.e_info, dg.e_huber, dg.e_valid, h1, b1),
+            3000 * n_edges)
+    hg, bg = pose_graph._apply_gauge(h1, b1, dg)
+    damped = hg + 1e-4 * torch.diag(torch.clamp(torch.diagonal(hg), min=1e-6))
+
+    def solve():
+        chol, _ = torch.linalg.cholesky_ex(damped)
+        return torch.cholesky_solve(-bg[:, None], chol)
+
+    _, chol_ms, _ = device_ms(torch, solve)
+    records["_chi2_and_normal"]["cholesky_ms"] = chol_ms
+    log(f"    the LM's dense solve (cholesky_ex + cholesky_solve, a library call) on the {n} x {n} system: "
+        f"{chol_ms:.4f} ms device-only")
+    return records
+
+
 # ----------------------------------------------------------------- phase 3
 
 ODOMETRY_KERNELS = ("voxel_downsample", "build_voxel_map", "to_hash", "ndt_derivatives_hash")
+CHAIN_KERNELS = ODOMETRY_KERNELS + (
+    "extract_features", "insert_cell_table", "crop_cell_table", "lines_from_fit", "planes_from_fit", "gn_solve",
+)
 
 
 def run_chunks(torch, run, xyz, mask, stamps, inten, cfg):
@@ -707,10 +932,10 @@ def run_main_path(torch, scans, gt, dev, card, odometry_poses, odometry_syncs):
     torch.cuda.synchronize()
     launches = {name: k.launches for name, k in KERNELS.items()}
     peak = torch.cuda.max_memory_allocated()
-    log(f"  launches on the main path ({n} scans): {launches}")
-    missing = [name for name, count in launches.items() if count == 0]
+    log(f"  launches on the dlo -> LFA chain ({n} scans): {launches}")
+    missing = [name for name in CHAIN_KERNELS if launches[name] == 0]
     if missing:
-        raise AssertionError(f"kernels never launched on the main path: {missing}")
+        raise AssertionError(f"kernels never launched on the dlo -> LFA chain: {missing}")
     if tuple(filt[0].shape) != (n, 3, cfg.prefilter.out_cap):
         raise AssertionError(f"filtered product shape {tuple(filt[0].shape)}")
 
@@ -763,6 +988,170 @@ def run_main_path(torch, scans, gt, dev, card, odometry_poses, odometry_syncs):
     return summary, launches
 
 
+# ----------------------------------------------------------------- phase 5
+
+REFERENCE_KEYFRAMES = 19  # the reference's CPU accuracy records of this circle (BENCH_r05_cpu_accuracy_*.json)
+
+
+def make_backend(dev, asynchronous: bool):
+    """The reference benchmark's `make_backend` (`bench.py:257-313`) in the
+    pure-lidar configuration: no vocabulary, no images."""
+    from lv_slam_tpu_torch import kitti_flagship_config
+    from lv_slam_tpu_torch.config import GraphConfig, LoopDetectorConfig
+    from lv_slam_tpu_torch.pipeline.async_backend import AsyncBackend
+    from lv_slam_tpu_torch.pipeline.backend import GlobalGraph
+
+    backend = GlobalGraph(
+        GraphConfig(keyframe_cap=64, edge_cap=256, prior_cap=16, solver_num_iterations=64),
+        LoopDetectorConfig(), prefilter_cfg=kitti_flagship_config().prefilter, device=dev,
+    )
+    return AsyncBackend(backend) if asynchronous else backend
+
+
+def run_full(torch, xyz, mask, stamps, inten, cfg, backend):
+    """One pass of the full path, as the reference benchmark's `run_chain`:
+    chunk k's chain is launched before chunk k-1's refined poses are read
+    and fed, with its filtered product, to the backend (on the backend's
+    worker when it is an AsyncBackend); `optimize()` every 100 scans, then
+    `finish()` and `drain()`. Returns (refined poses, the GlobalGraph)."""
+    from lv_slam_tpu_torch.core.cloud import PointCloud
+    from lv_slam_tpu_torch.pipeline.fused_chain import run_sequence_chain
+
+    n = xyz.shape[0]
+    stamps_np = (np.arange(n, dtype=np.float32) * 0.1).astype(np.float64)
+    graph = getattr(backend, "graph_backend", backend)
+    parts = {}
+
+    def feed(s, e, refined, cloud):
+        poses = refined.cpu().numpy()  # the chunk's read
+        parts[s] = poses
+        graph.add_scan_batch(s, stamps_np[s:e], poses, cloud, filtered=True)
+        if any((i + 1) % 100 == 0 for i in range(s, e)):
+            graph.optimize()
+
+    def hand_over(p):
+        if graph is backend:
+            feed(*p)
+        else:
+            backend.submit(feed, *p)
+
+    state, pending = None, None
+    for s in range(0, n, CHUNK):
+        e = min(s + CHUNK, n)
+        (_, refined, filt), state = run_sequence_chain(
+            xyz[s:e], mask[s:e], stamps[s:e], cfg.odometry, cfg.prefilter, cfg.lfa,
+            init_state=state, return_state=True, inten=inten[s:e], return_filtered=True, device=xyz.device,
+        )
+        if pending is not None:
+            hand_over(pending)
+        pending = (s, e, refined, PointCloud(*filt))
+    hand_over(pending)
+    backend.finish()
+    backend.drain()
+    return np.concatenate([parts[k] for k in sorted(parts)]).astype(np.float64), graph
+
+
+def run_full_path(torch, scans, gt, dev, card):
+    """Phase 5: the full pure-lidar path over the whole circle."""
+    from torch.profiler import ProfilerActivity, profile as torch_profile
+
+    import lv_slam_tpu_torch.pipeline.backend as backend_module
+    from lv_slam_tpu_torch import kitti_flagship_config
+    from lv_slam_tpu_torch.graph import pose_graph
+    from lv_slam_tpu_torch.kernels import KERNELS, reset_launches
+
+    cfg = kitti_flagship_config()
+    xyz, mask, stamps, inten = stack_scans(torch, scans, cfg.prefilter.raw_cap, dev)
+    n = len(scans)
+
+    # record each LM's input graph and result, to re-solve the last one on the CPU
+    solves, solve = [], backend_module.pg.optimize_pose_graph
+
+    def recording(graph, num_iterations, device):
+        frozen = pose_graph.PoseGraph(*(np.array(a) for a in graph))
+        result = solve(frozen, num_iterations, device=device)
+        solves.append((frozen, num_iterations, result))
+        return result
+
+    backend_module.pg.optimize_pose_graph = recording
+    try:
+        torch.cuda.reset_peak_memory_stats()
+        reset_launches()
+        est, graph = run_full(torch, xyz, mask, stamps, inten, cfg, make_backend(dev, asynchronous=True))
+        torch.cuda.synchronize()
+    finally:
+        backend_module.pg.optimize_pose_graph = solve
+    peak = torch.cuda.max_memory_allocated()
+    launches = {name: k.launches for name, k in KERNELS.items()}
+    log(f"  launches on the full path ({n} scans): {launches}")
+    missing = [name for name, count in launches.items() if count == 0]
+    if missing:
+        raise AssertionError(f"kernels never launched on the full path: {missing}")
+    t_err, drift = accuracy(est, gt, f"refined (LFA) poses of the full path, {n} scans", n)
+
+    loops = [(lp.key1.seq, lp.key2.seq, round(lp.fitness, 6)) for lp in graph.loops]
+    stats = dict(graph.loop_detector.stats)
+    log(f"  keyframes {len(graph.keyframes)} (reference record {REFERENCE_KEYFRAMES}), loops "
+        f"(new seq, old seq, fitness) {loops}, loop_rejections {stats}, LM solves {len(solves)} "
+        f"(iterations {[r.iterations for _, _, r in solves]})")
+    if len(graph.keyframes) != REFERENCE_KEYFRAMES or not loops:
+        raise AssertionError("the full path must give the reference's 19 keyframes and close a loop")
+    gt_rel = np.einsum("ij,njk->nik", np.linalg.inv(gt[0]), gt)
+    kf_err = [float(np.linalg.norm(k.estimate[:3, 3] - gt_rel[k.seq][:3, 3])) for k in graph.keyframes]
+    odo_err = [float(np.linalg.norm(k.odom[:3, 3] - gt_rel[k.seq][:3, 3])) for k in graph.keyframes]
+    log(f"  keyframe position error vs ground truth: odometry max {max(odo_err):.4f} m, optimized graph "
+        f"max {max(kf_err):.4f} m")
+
+    frozen, iters, result = solves[-1]
+    ref = pose_graph.optimize_pose_graph(frozen, iters, device="cpu")
+    n_nodes = int(frozen.node_valid.sum())
+    d_graph = float(np.abs(result.poses.cpu().numpy()[:n_nodes] - ref.poses.numpy()[:n_nodes]).max())
+    log(f"  the last LM ({n_nodes} nodes, {int(frozen.e_valid.sum())} edges) re-solved by the plain path on "
+        f"the CPU: max pose difference {d_graph:.3g} (tol 1e-4); chi2 {float(result.chi2_before):.4f} -> "
+        f"{float(result.chi2_after):.4f} on the card, {float(ref.chi2_after):.4f} on the CPU, iterations "
+        f"{result.iterations} / {ref.iterations}")
+    if d_graph > 1e-4:
+        raise AssertionError("the card's pose graph departs from the plain path's")
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    est2, graph2 = run_full(torch, xyz, mask, stamps, inten, cfg, make_backend(dev, asynchronous=True))
+    torch.cuda.synchronize()
+    elapsed = time.perf_counter() - t0
+    if [k.seq for k in graph2.keyframes] != [k.seq for k in graph.keyframes] or len(graph2.loops) != len(loops):
+        raise AssertionError("the warm pass's keyframes or loops differ from the first pass's")
+    phase_ms = {k: (v if k == "opt_cycles" else v / n * 1e3) for k, v in sorted(graph2.timings.items())}
+    log(f"  warm pass: {n} scans in {elapsed:.3f} s = {n / elapsed:.2f} scans/s ({card}); "
+        f"backend_phase_ms_per_scan {json.dumps(phase_ms)}")
+
+    syncs = count_syncs(torch, lambda: run_full(
+        torch, xyz, mask, stamps, inten, cfg, make_backend(dev, asynchronous=False)))
+    log(f"  host syncs, synchronous backend: {syncs} in {n} scans = {syncs / n:.2f} per scan")
+
+    with torch_profile(activities=[ProfilerActivity.CUDA]) as prof:
+        run_full(torch, xyz, mask, stamps, inten, cfg, make_backend(dev, asynchronous=True))
+        torch.cuda.synchronize()
+    events = prof.key_averages()
+    attr = "self_device_time_total" if hasattr(torch.autograd.profiler_util.FunctionEventAvg(),
+                                               "self_device_time_total") else "self_cuda_time_total"
+    kernels = sorted(((getattr(e, attr), e.key, e.count) for e in events
+                      if e.device_type == torch.autograd.DeviceType.CUDA), reverse=True)
+    busy_us = sum(t for t, _, _ in kernels)
+    CACHE.mkdir(parents=True, exist_ok=True)
+    (CACHE / "profile_full.txt").write_text(events.table(sort_by=attr, row_limit=200))
+    idle = 1 - busy_us / 1e6 / elapsed
+    log(f"  device busy {busy_us / 1e3:.1f} ms over the {n}-scan pass (profiled), against the warm pass's "
+        f"{elapsed * 1e3:.1f} ms wall: idle share {idle:.3f}; peak device memory {peak / 2**20:.1f} MiB")
+    for t, key, count in kernels[:12]:
+        log(f"    {t / 1e3:9.3f} ms  {count:6d} x  {key[:90]}")
+    summary = dict(
+        scans_per_s=n / elapsed, devkit_t_err=t_err, drift_m=drift, keyframes=len(graph.keyframes),
+        n_loops=len(loops), loops=loops, loop_rejections=stats, backend_phase_ms_per_scan=phase_ms,
+        syncs_per_scan=syncs / n, idle_share=idle, peak_mib=peak / 2**20,
+    )
+    return summary, launches
+
+
 # ----------------------------------------------------------------- main
 
 
@@ -776,7 +1165,8 @@ def main() -> int:
     dev = torch.device("cuda", 0)
 
     from lv_slam_tpu_torch.kernels import KERNELS, LIBRARY
-    import lv_slam_tpu_torch.pipeline.fused_chain  # noqa: F401  (registers every kernel)
+    import lv_slam_tpu_torch.pipeline.async_backend  # noqa: F401  (registers every kernel)
+    import lv_slam_tpu_torch.pipeline.fused_chain  # noqa: F401
 
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -796,19 +1186,26 @@ def main() -> int:
     if set(KERNELS) != set(DEVICE_FUNCTIONS):
         raise AssertionError(f"kernel registry {sorted(KERNELS)} != {sorted(DEVICE_FUNCTIONS)}")
 
-    scans, gt = load_scans(N_SCANS)
-    log(f"  workload: {N_SCANS} scans, mean {np.mean([s.shape[0] for s in scans]):.0f} returns/scan")
+    scans_all, gt_all = load_scans(N_FULL)
+    scans, gt = scans_all[:N_SCANS], gt_all[:N_SCANS]
+    log(f"  workload: {N_FULL} scans, mean {np.mean([s.shape[0] for s in scans_all]):.0f} returns/scan")
 
     log(f"phase 2: kernels vs plain versions at main-path shapes ({card})")
     records = check_kernels(torch, scans, gt, dev)
     records.update(check_lfa_kernels(torch, scans, gt, dev))
+    log("phase 2c: the backend's kernels")
+    records.update(check_backend_kernels(torch, scans_all, gt_all, dev))
 
     log("phase 3: the odometry slice end to end")
     summary, odometry_poses, odometry_syncs = run_slice(torch, scans, gt, dev, card)
     log(f"  summary ({card}): {json.dumps(summary)}")
 
-    log("phase 4: the main path, the dlo -> LFA chain, end to end")
-    summary, launches = run_main_path(torch, scans, gt, dev, card, odometry_poses, odometry_syncs)
+    log("phase 4: the dlo -> LFA chain end to end")
+    summary, _ = run_main_path(torch, scans, gt, dev, card, odometry_poses, odometry_syncs)
+    log(f"  summary ({card}): {json.dumps(summary)}")
+
+    log("phase 5: the main path, dlo -> LFA -> ggo (pure lidar), end to end")
+    summary, launches = run_full_path(torch, scans_all, gt_all, dev, card)
     log(f"  summary ({card}): {json.dumps(summary)}")
 
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
@@ -816,6 +1213,7 @@ def main() -> int:
         dict(
             name=name, route="cuda", source=k.source, replaces=k.replaces,
             launches=launches[name], **{key: records[name][key] for key in keys},
+            **({"cholesky_ms": records[name]["cholesky_ms"]} if "cholesky_ms" in records[name] else {}),
         )
         for name, k in KERNELS.items()
     ]

@@ -4,8 +4,7 @@ Field names and defaults are those of the reference's `lv_slam_tpu.config`
 (the `dlo_lfa_ggo_kitti.launch` parameter surface), which explains each
 field; `tests/test_torch_io.py` holds the two equal. The port keeps its own
 copy, of the fields its stages read, so that it and `chip_smoke.py` import
-nothing of the JAX package. The loop-detector and pose-graph
-configurations come with their stages.
+nothing of the JAX package.
 
 The `*_cap` fields are static capacities: every cloud and map is a
 fixed-capacity tensor with a validity mask.
@@ -14,6 +13,7 @@ fixed-capacity tensor with a validity mask.
 from __future__ import annotations
 
 import dataclasses
+from typing import Tuple
 
 
 @dataclasses.dataclass(frozen=True)
@@ -23,7 +23,7 @@ class PrefilterConfig:
     use_distance_filter: bool = True
     distance_near_thresh: float = 0.5
     distance_far_thresh: float = 100.0
-    downsample_method: str = "VOXELGRID"  # NONE | VOXELGRID | APPROX_VOXELGRID (DEDUP not ported)
+    downsample_method: str = "VOXELGRID"  # NONE | VOXELGRID | APPROX_VOXELGRID | DEDUP
     downsample_resolution: float = 0.1
     raw_cap: int = 131072  # raw points per scan (KITTI HDL-64 ~130k)
     out_cap: int = 131072  # points after filtering
@@ -99,12 +99,89 @@ class LfaConfig:
 
 
 @dataclasses.dataclass(frozen=True)
+class LoopDetectorConfig:
+    """Loop detection gates and NDT verification
+    (`include/global_graph/loop_detector.hpp:51-71`,
+    `launch/dlo_lfa_ggo_kitti.launch:104-113`). The ladder `multiscale` +
+    `ndt_resolution` runs 8/8/16 Newton iterations, the coarse rungs on at
+    most `verify_coarse_points` strided lanes. The BoW fields are read once
+    the ORB slice lands; without descriptors candidates are ranked by order."""
+
+    distance_thresh: float = 20.0
+    accum_distance_thresh: float = 100.0
+    min_edge_interval: float = 50.0
+    fitness_score_thresh: float = 2.0
+    bow_score_thresh: float = 0.04
+    registration_method: str = "NDT_OMP"
+    ndt_resolution: float = 1.0
+    ndt_neighborhood: str = "DIRECT7"
+    multiscale: Tuple[float, ...] = (4.0, 2.0)
+    multiscale_max_iterations: int = 8
+    verify_max_iterations: int = 16
+    verify_coarse_points: int = 32768
+    max_guess_correction_trans: float = 5.0
+    max_guess_correction_rot: float = 0.5
+    candidates_cap: int = 8
+    descriptor_cap: int = 512
+    auto_train_vocab: bool = True
+    vocab_min_keyframes: int = 10
+    vocab_words: int = 512
+
+
+@dataclasses.dataclass(frozen=True)
+class GraphConfig:
+    """Pose-graph backend (`global_graph_nodelet.cpp:72-146`,
+    `launch/dlo_lfa_ggo_kitti.launch:95-146`). The information matrix is
+    `information_matrix_calculator.cpp:9-21`'s: constant (the flagship) or
+    fitness-adaptive."""
+
+    solver_num_iterations: int = 1024
+    keyframe_delta_trans: float = 10.0
+    keyframe_delta_angle: float = 0.17
+    max_keyframes_per_update: int = 20
+    graph_update_interval: float = 10.0
+    map_cloud_resolution: float = 0.5
+    use_const_inf_matrix: bool = True
+    const_stddev_x: float = 0.5
+    const_stddev_q: float = 0.1
+    var_gain_a: float = 20.0
+    min_stddev_x: float = 0.1
+    max_stddev_x: float = 5.0
+    min_stddev_q: float = 0.05
+    max_stddev_q: float = 0.2
+    fitness_score_max_range: float = float("inf")
+    odometry_edge_robust_kernel: str = "Huber"
+    odometry_edge_robust_kernel_size: float = 1.0
+    loop_closure_edge_robust_kernel: str = "Huber"
+    loop_closure_edge_robust_kernel_size: float = 1.0
+    floor_edge_robust_kernel: str = "NONE"
+    floor_edge_robust_kernel_size: float = 1.0
+    fix_first_node: bool = False  # anchor keyframe 0 through a fixed helper node
+    enable_gps: bool = False  # the priors below wait for their factors
+    enable_imu_acceleration: bool = False
+    enable_imu_orientation: bool = False
+    gps_edge_stddev_xy: float = 20.0
+    gps_edge_stddev_z: float = 5.0
+    imu_orientation_edge_stddev: float = 1.0
+    imu_acceleration_edge_stddev: float = 1.0
+    floor_edge_stddev: float = 100.0
+    keyframe_cap: int = 1024
+    edge_cap: int = 4096
+    prior_cap: int = 256
+    plane_cap: int = 8
+    sp_edge_cap: int = 64
+    plane_edge_cap: int = 16
+
+
+@dataclasses.dataclass(frozen=True)
 class PipelineConfig:
-    """The ported stages of the `dlo_lfa_ggo` pipeline."""
+    """The `dlo_lfa_ggo` pipeline's stages."""
 
     prefilter: PrefilterConfig = dataclasses.field(default_factory=PrefilterConfig)
     odometry: OdometryConfig = dataclasses.field(default_factory=OdometryConfig)
     lfa: LfaConfig = dataclasses.field(default_factory=LfaConfig)
+    loop: LoopDetectorConfig = dataclasses.field(default_factory=LoopDetectorConfig)
+    graph: GraphConfig = dataclasses.field(default_factory=GraphConfig)
 
 
 def kitti_flagship_config() -> PipelineConfig:

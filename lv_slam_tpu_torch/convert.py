@@ -1,4 +1,5 @@
-"""The odometry and chain states carried across from the JAX reference and back.
+"""The states carried across from the JAX reference and back: the odometry
+and chain states, the pose graph and the backend's keyframes.
 
 This system has no weights; the state a run carries (the keyframe hash map,
 the LFA world maps, the poses and the stamps) plays their role. It crosses
@@ -15,6 +16,9 @@ from typing import Dict
 import numpy as np
 import torch
 
+from lv_slam_tpu_torch.core.cloud import PointCloud
+from lv_slam_tpu_torch.graph.keyframe import KeyFrame
+from lv_slam_tpu_torch.graph.pose_graph import PoseGraph, to_device
 from lv_slam_tpu_torch.lfa.fused import LfaFusedState
 from lv_slam_tpu_torch.odometry.fused import FusedState
 from lv_slam_tpu_torch.ops.knn import CellTable
@@ -109,3 +113,28 @@ def chain_state_to_numpy(state: ChainState) -> Dict[str, np.ndarray]:
     out = {f"odo.{k}": v for k, v in fused_state_to_numpy(state.odo).items()}
     out.update({f"lfa.{k}": v for k, v in _lfa_state_to_numpy(state.lfa).items()})
     return out
+
+
+def pose_graph_from_numpy(graph, device) -> PoseGraph:
+    """The port's PoseGraph, as tensors on `device`, from the reference's
+    (its `empty_graph` arrays are host numpy; a dict of its fields works too)."""
+    leaves = graph if isinstance(graph, dict) else graph._asdict()
+    return to_device(PoseGraph(**{name: np.asarray(leaves[name]) for name in PoseGraph._fields}), device)
+
+
+def pose_graph_to_numpy(graph: PoseGraph) -> Dict[str, np.ndarray]:
+    """The graph's fields as host numpy arrays, keyed by field name."""
+    return {name: np.asarray(a.cpu().numpy() if isinstance(a, torch.Tensor) else a)
+            for name, a in graph._asdict().items()}
+
+
+def keyframe_from_numpy(kf, device) -> KeyFrame:
+    """The port's KeyFrame from the reference's (or any object with its
+    fields): host fields copied, the cloud's arrays moved to `device`."""
+    xyz, inten, mask = (np.asarray(a) for a in (kf.cloud.xyz, kf.cloud.intensity, kf.cloud.mask))
+    cloud = PointCloud(*(torch.from_numpy(np.array(a, order="C")).to(device) for a in (xyz, inten, mask)))
+    return KeyFrame(
+        stamp=float(kf.stamp), seq=int(kf.seq), odom=np.array(kf.odom, np.float64),
+        accum_distance=float(kf.accum_distance), cloud=cloud, node_id=int(kf.node_id),
+        estimate=None if kf.estimate is None else np.array(kf.estimate, np.float64),
+    )

@@ -55,6 +55,13 @@ class PointCloud(NamedTuple):
     def to(self, device) -> "PointCloud":
         return PointCloud(self.xyz.to(device), self.intensity.to(device), self.mask.to(device))
 
+    def transformed(self, transform: torch.Tensor) -> "PointCloud":
+        """The cloud moved by a (4,4) transform, invalid lanes at the sentinel."""
+        from lv_slam_tpu_torch.core import se3
+
+        xyz = se3.transform_points_fma(transform, self.xyz)
+        return PointCloud(torch.where(self.mask[:, None], xyz, SENTINEL), self.intensity, self.mask)
+
     def masked_xyz(self) -> torch.Tensor:
         """Positions with invalid lanes pinned to the sentinel."""
         return torch.where(self.mask[:, None], self.xyz, SENTINEL)

@@ -98,6 +98,21 @@ def transform_points(transform: torch.Tensor, points: torch.Tensor) -> torch.Ten
     return ((x * rot[..., 0] + y * rot[..., 1]) + z * rot[..., 2]) + t
 
 
+def transform_points_fma(transform: torch.Tensor, points: torch.Tensor) -> torch.Tensor:
+    """Apply [...,4,4] to points [...,N,3] as the reference's compiled
+    programs do on the CPU: XLA contracts `points @ R^T + t` (and the window
+    einsum) into `fma(z, R2, fma(y, R1, x * R0)) + t`. Each fused step is
+    taken in float64, where the product is exact, and rounded once to
+    float32; the kernels that transform points use `fmaf`."""
+    rot = transform[..., None, :3, :3].double()
+    t = transform[..., None, :3, 3]
+    x, y, z = points[..., 0:1], points[..., 1:2], points[..., 2:3]
+    acc = x * transform[..., None, :3, 0]
+    acc = (y.double() * rot[..., 1] + acc.double()).to(points.dtype)
+    acc = (z.double() * rot[..., 2] + acc.double()).to(points.dtype)
+    return acc + t
+
+
 def orthonormalize(transform: torch.Tensor) -> torch.Tensor:
     """Project the rotation block back onto SO(3) via the quaternion: float32
     feedback loops that compose their own outputs (the odometry warm start)

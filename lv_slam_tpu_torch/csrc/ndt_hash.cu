@@ -27,6 +27,13 @@
 //   shuffles and shared memory reduce each block to one partial row; a second
 //   one-block kernel sums the partial rows in a fixed order, so the result is
 //   deterministic run to run.
+//
+// Kernel 13's derivative pass (lv_slam_tpu/graph/loop_detector.py:69
+// `_fused_verify_fn`, the vmapped `ndt_align_hash_table` over the loop
+// candidates) is the same pass with a candidate grid axis: block (b, c)
+// reads candidate c's points, mask and transform and writes its own partial
+// row; `ndt_finish` runs one block per candidate. One launch serves every
+// candidate of a Newton iteration.
 #include "common.cuh"
 
 namespace {
@@ -128,6 +135,11 @@ ndt_partials(const float* __restrict__ table, int b_bits, const int* __restrict_
              const bool* __restrict__ mask, const float* __restrict__ T, float d1, float d2,
              const int* __restrict__ offsets, int k, int weighted, float* __restrict__ partials) {
   __shared__ float smem[kWarps][kTerms];
+  // candidate blockIdx.y: its own points, mask, transform and partial rows
+  xs += 3LL * n * blockIdx.y;
+  mask += static_cast<long long>(n) * blockIdx.y;
+  T += 16 * blockIdx.y;
+  partials += static_cast<long long>(kTerms) * gridDim.x * blockIdx.y;
   float acc[kTerms];
 #pragma unroll
   for (int v = 0; v < kTerms; ++v) acc[v] = 0.0f;
@@ -233,6 +245,8 @@ ndt_partials(const float* __restrict__ table, int b_bits, const int* __restrict_
 __global__ void ndt_finish(const float* __restrict__ partials, int n_blocks, float* __restrict__ out) {
   int v = threadIdx.x;
   if (v >= kTerms) return;
+  partials += static_cast<long long>(kTerms) * n_blocks * blockIdx.x;  // candidate blockIdx.x
+  out += kTerms * blockIdx.x;
   float s = 0.0f;
   for (int b = 0; b < n_blocks; ++b) s += partials[kTerms * b + v];
   out[v] = s;
@@ -268,5 +282,21 @@ extern "C" int lvs_ndt_hash_derivatives(const float* table, int b_bits, const in
                                                        mask, T, d1, d2, offsets, k, weighted,
                                                        partials);
   ndt_finish<<<1, 64, 0, stream>>>(partials, n_blocks, out);
+  LVS_RETURN_LAST_ERROR();
+}
+
+// n_cand candidates: xs (n_cand, 3, n), mask (n_cand, n), T (n_cand, 4, 4),
+// partials (n_cand, n_blocks, 43), out (n_cand, 43)
+extern "C" int lvs_ndt_hash_derivatives_batched(const float* table, int b_bits, const int* origin,
+                                                float inv_res, int e, const float* xs, int n,
+                                                const bool* mask, const float* T, int n_cand,
+                                                float d1, float d2, const int* offsets, int k,
+                                                int weighted, float* partials, int n_blocks,
+                                                float* out, cudaStream_t stream) {
+  if (n_cand > 0) {
+    ndt_partials<<<dim3(n_blocks, n_cand), lvs::kThreads, 0, stream>>>(
+        table, b_bits, origin, inv_res, e, xs, n, mask, T, d1, d2, offsets, k, weighted, partials);
+    ndt_finish<<<n_cand, 64, 0, stream>>>(partials, n_blocks, out);
+  }
   LVS_RETURN_LAST_ERROR();
 }

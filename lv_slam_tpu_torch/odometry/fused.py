@@ -31,6 +31,7 @@ from lv_slam_tpu_torch.ops.prefilter import (
     distance_filter,
     stride_subsample,
     uniform_subsample,
+    voxel_dedup_first,
     voxel_downsample,
 )
 from lv_slam_tpu_torch.ops.voxel_map import build_voxel_map, neighborhood_offsets
@@ -59,7 +60,7 @@ def _prefilter_mid(
     if method in ("VOXELGRID", "APPROX_VOXELGRID"):
         out = voxel_downsample(out, cfg.downsample_resolution, cfg.out_cap, method)
     elif method == "DEDUP":
-        raise NotImplementedError("downsample_method='DEDUP' (voxel_dedup_first) is not ported yet")
+        out = voxel_dedup_first(out, cfg.downsample_resolution, cfg.out_cap)
     elif stride_consumer and cfg.out_cap >= out.cap:
         pass  # holes tolerated: stride_subsample slices lanes, mask and all
     else:

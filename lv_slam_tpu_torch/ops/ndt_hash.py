@@ -9,19 +9,22 @@ compare resolves in registers.
   `to_hash_ref` on CPU tensors. It is deterministic: bit-exact parity.
 - `ndt_derivatives_hash` is kernel 4 (same file) on CUDA tensors and
   `ndt_derivatives_hash_ref` (over `accumulate_ndt_terms`) on CPU tensors.
+- `ndt_derivatives_hash_batched` is the same pass for k candidates in one
+  launch (kernel 13's derivative pass, the reference's vmap over loop
+  candidates), and `ndt_align_hash_table_batched` the vmapped align.
 """
 
 from __future__ import annotations
 
-from typing import NamedTuple, Tuple
+from typing import List, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
 
-from lv_slam_tpu_torch.core.cloud import PointCloud
+from lv_slam_tpu_torch.core.cloud import SENTINEL, PointCloud
 from lv_slam_tpu_torch.kernels._build import F32, I32, PTR, Kernel, check_cuda, check_dtype, ptr
 from lv_slam_tpu_torch.ops.ndt import GaussParams, NDTResult, make_gauss_params
-from lv_slam_tpu_torch.ops.ndt_soa import _newton_loop, accumulate_ndt_terms
+from lv_slam_tpu_torch.ops.ndt_soa import _newton_loop, _newton_loop_batched, accumulate_ndt_terms
 from lv_slam_tpu_torch.ops.prefilter import cell_coords, inv_resolution
 from lv_slam_tpu_torch.ops.voxel_map import VoxelMap, neighborhood_offsets
 
@@ -45,6 +48,17 @@ DERIVATIVES_KERNEL = Kernel(
     entries={
         "lvs_ndt_hash_derivatives": [
             PTR, I32, PTR, F32, I32, PTR, I32, PTR, PTR, F32, F32, PTR, I32, I32, PTR, I32, PTR,
+        ],
+    },
+)
+
+BATCHED_KERNEL = Kernel(
+    "_fused_verify_fn",
+    source="lv_slam_tpu_torch/csrc/ndt_hash.cu",
+    replaces="lv_slam_tpu/graph/loop_detector.py:69",
+    entries={
+        "lvs_ndt_hash_derivatives_batched": [
+            PTR, I32, PTR, F32, I32, PTR, I32, PTR, PTR, I32, F32, F32, PTR, I32, I32, PTR, I32, PTR,
         ],
     },
 )
@@ -312,3 +326,86 @@ def ndt_align_hash_table(
         hessian=hess,
         trans_probability=score / n_pts,
     )
+
+
+def ndt_derivatives_hash_batched(
+    hmap: HashVoxelMap,
+    xs: torch.Tensor,          # (k, 3, N)
+    mask: torch.Tensor,        # (k, N)
+    transforms: torch.Tensor,  # (k, 4, 4)
+    gauss: GaussParams,
+    offsets: torch.Tensor,     # (K, 3) int32
+    weighted: bool,
+    active: Optional[List[bool]] = None,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """`ndt_derivatives_hash` for k candidates against one map: (k,), (k, 6),
+    (k, 6, 6). One launch of kernel 13's pass on CUDA; on CPU the plain
+    version per candidate, skipping those `active` marks done (their rows
+    are zeros, which the batched Newton loop never reads)."""
+    k, _, n = xs.shape
+    if xs.device.type == "cpu":
+        return ndt_derivatives_hash_batched_ref(hmap, xs, mask, transforms, gauss, offsets, weighted, active)
+    n_buckets = hmap.table.shape[0]
+    n_off = offsets.shape[0]
+    check_cuda("ndt_derivatives_hash_batched", hmap.table, hmap.origin_cell, xs, mask, transforms, offsets)
+    check_dtype("ndt_derivatives_hash_batched", hmap.table, torch.float32, (n_buckets, 32))
+    check_dtype("ndt_derivatives_hash_batched", xs, torch.float32, (k, 3, n))
+    check_dtype("ndt_derivatives_hash_batched", mask, torch.bool, (k, n))
+    check_dtype("ndt_derivatives_hash_batched", transforms, torch.float32, (k, 4, 4))
+    check_dtype("ndt_derivatives_hash_batched", offsets, torch.int32, (n_off, 3))
+    if n_buckets & (n_buckets - 1):
+        raise ValueError(f"ndt_derivatives_hash_batched: bucket count {n_buckets} is not a power of two")
+    n_blocks = max(1, -(-n // _BLOCK))
+    partials = torch.empty((k, n_blocks, _N_TERMS), dtype=torch.float32, device=xs.device)
+    out = torch.empty((k, _N_TERMS), dtype=torch.float32, device=xs.device)
+    BATCHED_KERNEL.call(
+        "lvs_ndt_hash_derivatives_batched",
+        ptr(hmap.table), n_buckets.bit_length() - 1, ptr(hmap.origin_cell),
+        inv_resolution(hmap.resolution), hmap.extent, ptr(xs), n, ptr(mask), ptr(transforms), k,
+        float(np.float32(gauss.d1)), float(np.float32(gauss.d2)), ptr(offsets), n_off, int(weighted),
+        ptr(partials), n_blocks, ptr(out),
+    )
+    BATCHED_KERNEL.launches += 1
+    return out[:, 0], out[:, 1:7], out[:, 7:].reshape(k, 6, 6)
+
+
+def ndt_derivatives_hash_batched_ref(hmap, xs, mask, transforms, gauss, offsets, weighted,
+                                     active: Optional[List[bool]] = None):
+    """Plain PyTorch version of `ndt_derivatives_hash_batched`: the plain
+    pass per candidate (zeros for the candidates `active` marks done)."""
+    zero = tuple(torch.zeros(shape, dtype=torch.float32, device=xs.device) for shape in ((), (6,), (6, 6)))
+    rows = [
+        ndt_derivatives_hash_ref(hmap, xs[c], mask[c], transforms[c], gauss, offsets, weighted)
+        if active is None or active[c] else zero
+        for c in range(xs.shape[0])
+    ]
+    return tuple(torch.stack(col) for col in zip(*rows))
+
+
+def ndt_align_hash_table_batched(
+    hmap: HashVoxelMap,
+    sources: PointCloud,       # xyz (k, N, 3), intensity and mask (k, N)
+    guesses: torch.Tensor,     # (k, 4, 4)
+    *,
+    resolution: float,
+    outlier_ratio: float = 0.55,
+    step_size: float = 0.1,
+    transformation_epsilon: float = 0.01,
+    max_iterations: int = 35,
+    neighborhood: str = "DIRECT1",
+    weighted: bool = False,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """`ndt_align_hash_table` vmapped over k sources sharing one map, as the
+    reference's loop verification runs it: (transforms (k, 4, 4), scores
+    (k,), iterations (k,))."""
+    gauss = make_gauss_params(resolution, outlier_ratio)
+    offsets = neighborhood_offsets(neighborhood, guesses.device)
+    mask = sources.mask.contiguous()
+    xs = torch.where(mask[..., None], sources.xyz, SENTINEL).transpose(1, 2).contiguous()
+
+    def derivs(transforms, active):
+        return ndt_derivatives_hash_batched(
+            hmap, xs, mask, transforms.contiguous(), gauss, offsets, weighted, active
+        )
+
+    return _newton_loop_batched(derivs, guesses, transformation_epsilon, step_size, max_iterations)

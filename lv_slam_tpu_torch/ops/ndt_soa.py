@@ -129,3 +129,51 @@ def _newton_loop(derivs, guess: torch.Tensor, eps: float, step_max: float, max_i
         stop = bad | (accept & (alpha < eps)) | shrunk_out
         converged = it > max_iterations or bool(stop)
     return transform, score, grad, hess, cap, it, converged
+
+
+def _newton_loop_batched(derivs, guesses: torch.Tensor, eps: float, step_max: float, max_iterations: int):
+    """`_newton_loop` over k lanes at once, as the reference's vmapped
+    `lax.while_loop` runs it: every lane steps until all are done, and a
+    done lane keeps its state, so each lane ends where its own loop would.
+    `derivs(transforms, active)` returns the (k,), (k, 6), (k, 6, 6)
+    derivatives at (k, 4, 4) transforms; `active` is the host list of lanes
+    still running (a lane's result is ignored once it is done). Each
+    iteration reads the k done flags back once. Returns (transforms, scores,
+    iterations (k,) int64)."""
+    eps32 = np.float32(eps)
+    step_min = float(eps32 / np.float32(2.0))
+    eps = float(eps32)
+    step_max = float(np.float32(step_max))
+    k = guesses.shape[0]
+    score, grad, hess = derivs(guesses, [True] * k)
+    transform = guesses
+    eye6 = torch.eye(6, dtype=hess.dtype, device=hess.device)
+    cap = torch.full((k,), step_max, dtype=hess.dtype, device=hess.device)
+    it = torch.zeros((k,), dtype=torch.int64, device=hess.device)
+    done = torch.isnan(score)
+    active = [not d for d in done.tolist()]
+    while any(active):
+        run = ~done
+        ridge = 1e-6 * torch.abs(hess).diagonal(dim1=-2, dim2=-1).sum(-1) / 6.0 + 1e-12
+        delta, info = torch.linalg.solve_ex(hess + ridge[:, None, None] * eye6, -grad)
+        norm = torch.sqrt(torch.sum(delta * delta, dim=-1))
+        bad = (norm == 0.0) | ~torch.isfinite(norm) | (info != 0)
+        direction = delta / torch.where(bad, 1.0, norm)[:, None]
+        dphi0 = -torch.sum(grad * direction, dim=-1)
+        direction = torch.where((dphi0 > 0)[:, None], -direction, direction)
+        alpha = torch.minimum(torch.clamp(norm, min=step_min), cap)
+        new_transform = se3.exp_se3(alpha[:, None] * direction) @ transform
+        new_score, new_grad, new_hess = derivs(new_transform, active)
+        accept = ~bad & (new_score >= score)
+        take = run & accept
+        transform = torch.where(take[:, None, None], new_transform, transform)
+        score = torch.where(take, new_score, score)
+        grad = torch.where(take[:, None], new_grad, grad)
+        hess = torch.where(take[:, None, None], new_hess, hess)
+        cap = torch.where(run, torch.where(accept, step_max, torch.clamp(cap * 0.5, min=step_min)), cap)
+        it = it + run.to(torch.int64)
+        shrunk_out = ~accept & (alpha <= step_min)
+        stop = bad | (it > max_iterations) | (accept & (alpha < eps)) | shrunk_out
+        done = done | (run & stop)
+        active = [not d for d in done.tolist()]
+    return transform, score, it

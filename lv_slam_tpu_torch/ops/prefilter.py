@@ -5,6 +5,9 @@
 and `voxel_downsample_ref`, its plain twin, on CPU tensors. Both sort the
 same 64-bit voxel key with `torch.sort`; the hand kernel does everything
 after the sort: run detection and the per-voxel reduction.
+`voxel_dedup_first` is kernel 1b (`csrc/voxel_dedup.cu`) and
+`voxel_dedup_first_ref` likewise: the same key and sort, then the first lane
+of each voxel, compacted in key order.
 """
 
 from __future__ import annotations
@@ -80,6 +83,18 @@ def _voxel_sort(cloud: PointCloud, resolution: float):
     key = kx.to(torch.int64) * (1 << 31) + kyz.to(torch.int64)
     skey, order = torch.sort(key, stable=True)
     return skey, order, xyz
+
+
+DEDUP_KERNEL = Kernel(
+    "voxel_dedup_first",
+    source="lv_slam_tpu_torch/csrc/voxel_dedup.cu",
+    replaces="lv_slam_tpu/ops/prefilter.py:203",
+    entries={
+        "lvs_dedup_keys": [PTR, PTR, I32, F32, PTR],
+        "lvs_dedup_mark": [PTR, I32, PTR],
+        "lvs_dedup_compact": [PTR, PTR, PTR, I32, PTR, PTR, I32, PTR, PTR, PTR],
+    },
+)
 
 
 def _is_approx(method: str) -> bool:
@@ -174,6 +189,63 @@ def voxel_downsample_ref(
             torch.cat([out.mask, out.mask.new_zeros(pad)]),
         )
     return out
+
+
+def voxel_dedup_first(cloud: PointCloud, resolution: float, out_cap: int) -> PointCloud:
+    """The first input lane of each occupied voxel, front-compacted in
+    voxel-key order into min(cap, out_cap) lanes (the reference's slice).
+    Ties in the stable key sort keep the lower input index. Kernel 1b on
+    CUDA, the plain version on CPU."""
+    if cloud.xyz.device.type == "cpu":
+        return voxel_dedup_first_ref(cloud, resolution, out_cap)
+    if cloud.xyz.dtype != torch.float32 or cloud.intensity.dtype != torch.float32:
+        raise ValueError("voxel_dedup_first: expected float32 xyz and intensity")
+    n = cloud.cap
+    xyz, inten, mask = cloud.xyz.contiguous(), cloud.intensity.contiguous(), cloud.mask.contiguous()
+    check_cuda("voxel_dedup_first", xyz, inten, mask)
+    key = torch.empty((n,), dtype=torch.int64, device=xyz.device)
+    DEDUP_KERNEL.call("lvs_dedup_keys", ptr(xyz), ptr(mask), n, inv_resolution(resolution), ptr(key))
+    out = dedup_compact(DEDUP_KERNEL, key, xyz, inten, out_cap)
+    DEDUP_KERNEL.launches += 1
+    return out
+
+
+def dedup_compact(kernel: Kernel, key: torch.Tensor, xyz: torch.Tensor, inten: torch.Tensor,
+                  out_cap: int) -> PointCloud:
+    """The stable key sort (torch glue) and the run-start compaction of
+    `csrc/voxel_dedup.cu`, launched for `kernel` (K1b, or K2 after its
+    gather + transform pass)."""
+    n = key.shape[0]
+    out_cap = min(n, out_cap)
+    dev = key.device
+    skey, order = torch.sort(key, stable=True)
+    flag = torch.empty((n,), dtype=torch.int32, device=dev)
+    out_xyz = torch.empty((out_cap, 3), dtype=torch.float32, device=dev)
+    out_int = torch.empty((out_cap,), dtype=torch.float32, device=dev)
+    out_mask = torch.empty((out_cap,), dtype=torch.bool, device=dev)
+    kernel.call("lvs_dedup_mark", ptr(skey), n, ptr(flag))
+    cum = torch.cumsum(flag, dim=0, dtype=torch.int32)  # run index + 1 at each run start
+    kernel.call(
+        "lvs_dedup_compact", ptr(order), ptr(flag), ptr(cum), n, ptr(xyz), ptr(inten), out_cap,
+        ptr(out_xyz), ptr(out_int), ptr(out_mask),
+    )
+    return PointCloud(out_xyz, out_int, out_mask)
+
+
+def voxel_dedup_first_ref(cloud: PointCloud, resolution: float, out_cap: int) -> PointCloud:
+    """Plain PyTorch version of `voxel_dedup_first`, line for line with the
+    reference: stable key sort, run starts, a stable argsort that moves the
+    winners to the front."""
+    skey, order, xyz = _voxel_sort(cloud, resolution)
+    new_seg = torch.ones_like(skey, dtype=torch.bool)
+    new_seg[1:] = skey[1:] != skey[:-1]
+    winner = new_seg & (skey // (1 << 31) < _BIG)
+    sel = torch.argsort((~winner).to(torch.uint8), stable=True)[:out_cap]
+    src = order[sel]
+    ok = winner[sel]
+    return PointCloud(
+        torch.where(ok[:, None], xyz[src], SENTINEL), torch.where(ok, cloud.intensity[src], 0.0), ok
+    )
 
 
 def stride_subsample(cloud: PointCloud, out_cap: int) -> PointCloud:

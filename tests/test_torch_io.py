@@ -15,20 +15,29 @@ from lv_slam_tpu_torch import config  # noqa: E402
 from lv_slam_tpu_torch.io import kitti, synthetic  # noqa: E402
 
 
-@pytest.mark.parametrize("name", ["PrefilterConfig", "NDTConfig", "OdometryConfig", "LfaConfig"])
+@pytest.mark.parametrize(
+    "name",
+    ["PrefilterConfig", "NDTConfig", "OdometryConfig", "LfaConfig", "LoopDetectorConfig", "GraphConfig"],
+)
 def test_config_matches_reference(name):
     """Each of the port's fields has the reference's default, in the stage
-    config and in the flagship configuration."""
+    config and in the flagship configuration; the loop-detector and graph
+    configs copy every field, field by field."""
 
     def same(port, ref):
         port, ref = dataclasses.asdict(port), dataclasses.asdict(ref)
         assert port == {k: ref[k] for k in port}
 
     same(getattr(config, name)(), getattr(ref_config, name)())
+    if name in ("LoopDetectorConfig", "GraphConfig"):
+        fields = [f.name for f in dataclasses.fields(getattr(config, name))]
+        assert fields == [f.name for f in dataclasses.fields(getattr(ref_config, name))]
     port, ref = config.kitti_flagship_config(), ref_config.kitti_flagship_config()
     same(port.prefilter, ref.prefilter)
     same(port.odometry, ref.odometry)
     same(port.lfa, ref.lfa)
+    same(port.loop, ref.loop)
+    same(port.graph, ref.graph)
 
 
 @pytest.mark.parametrize("seed", [5, 41])

@@ -18,8 +18,10 @@ from lv_slam_tpu_torch.config import LfaConfig  # noqa: E402
 from lv_slam_tpu_torch.core import se3  # noqa: E402
 from lv_slam_tpu_torch.core.cloud import PointCloud  # noqa: E402
 from lv_slam_tpu_torch.kernels import KERNELS, reset_launches  # noqa: E402
+from lv_slam_tpu_torch.graph import pose_graph  # noqa: E402
 from lv_slam_tpu_torch.lfa import features, registration  # noqa: E402
-from lv_slam_tpu_torch.ops import knn, ndt_hash, prefilter, voxel_map  # noqa: E402
+from lv_slam_tpu_torch.ops import knn, ndt_hash, nn, prefilter, voxel_map  # noqa: E402
+from lv_slam_tpu_torch.pipeline import window  # noqa: E402
 from lv_slam_tpu_torch.ops.ndt import make_gauss_params  # noqa: E402
 
 REPO = Path(__file__).resolve().parents[1]
@@ -37,7 +39,7 @@ def scans():
 def _calls(device, scans):
     """Every wrapper once, on `device`, at small shapes: (name, wrapper output,
     plain output) for each kernel."""
-    return _odometry_calls(device, scans) + _lfa_calls(device, scans)
+    return _odometry_calls(device, scans) + _lfa_calls(device, scans) + _backend_calls(device, scans)
 
 
 def _odometry_calls(device, scans):
@@ -103,10 +105,66 @@ def _lfa_calls(device, scans):
     return out
 
 
+def _backend_calls(device, scans):
+    """K1b, K2, K13's batched pass, K14 (build, query) and K15 once each:
+    scans 0 and 1 as a window, two loop candidates against scan 0's map, a
+    3-node graph."""
+    (s0, s1), rel = scans
+    c0, c1 = (PointCloud.from_numpy(s, cap=16384, device=device) for s in (s0, s1))
+    out = [(
+        "voxel_dedup_first",
+        prefilter.voxel_dedup_first(c0, 0.1, 8192),
+        prefilter.voxel_dedup_first_ref(c0, 0.1, 8192),
+    )]
+    t = torch.from_numpy(rel.astype(np.float32)).to(device)
+    chunk = (torch.stack([c0.xyz.T, c1.xyz.T]).contiguous(), torch.stack([c0.intensity, c1.intensity]),
+             torch.stack([c0.mask, c1.mask]))
+    group = (*chunk, 0, torch.stack([torch.eye(4, device=device), t]), torch.ones(2, dtype=torch.bool, device=device),
+             0.1, 32768)
+    out.append((
+        "window_group_filtered_fn", window.window_group_filtered(*group), window.window_group_filtered_ref(*group),
+    ))
+    hm = ndt_hash.to_hash_ref(voxel_map.build_voxel_map_ref(c0, 1.0, leaf_cap=8192))
+    t2 = t.clone()
+    t2[0, 3] += 0.3
+    args = (
+        hm, torch.stack([c1.masked_xyz().T, c1.masked_xyz().T]).contiguous(), torch.stack([c1.mask, c1.mask]),
+        torch.stack([t, t2]), make_gauss_params(1.0), voxel_map.neighborhood_offsets("DIRECT7", device), False,
+    )
+    out.append((
+        "_fused_verify_fn",
+        ndt_hash.ndt_derivatives_hash_batched(*args),
+        ndt_hash.ndt_derivatives_hash_batched_ref(*args),
+    ))
+    grid = nn.build_centroid_grid(c0, 0.25, leaf_cap=16384)
+    out.append(("build_centroid_grid", grid, nn.build_centroid_grid_ref(c0, 0.25, leaf_cap=16384)))
+    moved = c1.transformed(t)
+    out.append((
+        "nn_sq_dists",
+        (nn.nn_sq_dists(grid, moved.masked_xyz(), moved.mask),),
+        (nn.nn_sq_dists_ref(grid, moved.masked_xyz(), moved.mask),),
+    ))
+    g = pose_graph.empty_graph(8, 8, 8, 8, 8, 8)
+    for i in range(3):
+        pose_graph.add_node(g, i, np.linalg.matrix_power(rel, i))
+    pose_graph.add_se3_edge(g, 0, 1, 0, np.linalg.inv(rel), np.eye(6), huber=1.0)
+    pose_graph.add_se3_edge(g, 1, 2, 1, np.linalg.inv(rel) @ np.diag([1.0, 1.0, 1.0, 1.0]), 2 * np.eye(6))
+    pose_graph.add_se3_edge(g, 2, 2, 0, np.linalg.inv(rel @ rel) + 0.01, np.eye(6), huber=0.1)
+    dg = pose_graph.to_device(g, device)
+    out.append((
+        "_chi2_and_normal",
+        pose_graph._chi2_and_normal(dg, dg.poses, True),
+        pose_graph._chi2_and_normal_ref(dg, dg.poses, True),
+    ))
+    return out
+
+
 def test_registry_names_sources_and_replaced_functions():
     assert set(KERNELS) == {
         "voxel_downsample", "build_voxel_map", "to_hash", "ndt_derivatives_hash", "extract_features",
         "insert_cell_table", "crop_cell_table", "lines_from_fit", "planes_from_fit", "gn_solve",
+        "voxel_dedup_first", "window_group_filtered_fn", "_fused_verify_fn", "build_centroid_grid",
+        "nn_sq_dists", "_chi2_and_normal",
     }
     for name, k in KERNELS.items():
         assert (REPO / k.source).is_file(), k.source
@@ -192,3 +250,37 @@ def test_lfa_kernels_match_plain_versions_on_the_card(cuda, scans):
     # K11: the solved pose to 1e-4 (the 6x6 sums run in another order)
     (got,), (want,) = results["gn_solve"]
     torch.testing.assert_close(got, want, rtol=0, atol=1e-4)
+
+
+@pytest.mark.gpu
+def test_backend_kernels_match_plain_versions_on_the_card(cuda, scans):
+    reset_launches()
+    results = {name: (got, want) for name, got, want in _backend_calls(cuda, scans)}
+    torch.cuda.synchronize()
+    assert {name: k.launches for name, k in KERNELS.items() if k.launches} == dict.fromkeys(results, 1)
+
+    # K1b, K2: the kept lanes, their order and their points identical (the
+    # window's fma chain rounds as the plain twin's float64 emulation)
+    for name in ("voxel_dedup_first", "window_group_filtered_fn"):
+        got, want = results[name]
+        for a, b in zip(got, want):
+            assert torch.equal(a, b), name
+    # K13: per candidate as K6 (partial sums in another order)
+    (s1, g1, h1), (s2, g2, h2) = results["_fused_verify_fn"]
+    torch.testing.assert_close(s1, s2, rtol=1e-4, atol=0)
+    torch.testing.assert_close(g1, g2, rtol=0, atol=2e-5 * float(g2.abs().max()))
+    torch.testing.assert_close(h1, h2, rtol=0, atol=2e-5 * float(h2.abs().max()))
+    # K14: keys, counts and hits identical; centroids and distances to 1e-6
+    got, want = results["build_centroid_grid"]
+    assert torch.equal(got.keys, want.keys) and torch.equal(got.counts, want.counts)
+    v = want.counts > 0
+    torch.testing.assert_close(got.centroids[v], want.centroids[v], rtol=1e-6, atol=0)
+    (got,), (want,) = results["nn_sq_dists"]
+    hit = torch.isfinite(want)
+    assert torch.equal(torch.isfinite(got), hit) and int(hit.sum()) > 0
+    torch.testing.assert_close(got[hit], want[hit], rtol=1e-6, atol=1e-12)
+    # K15: chi2 to 1e-6, H and b to 1e-5 of their scale (atomicAdd order)
+    (c1, hh1, b1), (c2, hh2, b2) = results["_chi2_and_normal"]
+    torch.testing.assert_close(c1, c2, rtol=1e-6, atol=0)
+    torch.testing.assert_close(hh1, hh2, rtol=0, atol=1e-5 * float(hh2.abs().max()))
+    torch.testing.assert_close(b1, b2, rtol=0, atol=1e-5 * float(b2.abs().max()))

@@ -134,16 +134,20 @@ def test_port_never_imports_jax():
     the LFA and the chain included, loads none of them."""
     root = Path(__file__).resolve().parents[1]
     paths = [root / "chip_smoke.py", *sorted((root / "lv_slam_tpu_torch").rglob("*.py"))]
-    assert {"lfa", "pipeline", "odometry", "ops"} <= {p.parent.name for p in paths}
+    assert {"lfa", "pipeline", "odometry", "ops", "graph"} <= {p.parent.name for p in paths}
     for path in paths:
         bad = sorted(m for m in _imported_modules(path) if _is_reference(m))
         assert not bad, (path, bad)
     smoke = _imported_modules(root / "chip_smoke.py")
     assert "lv_slam_tpu_torch.pipeline.fused_chain" in smoke  # phase 4's imports are scanned
+    assert "lv_slam_tpu_torch.pipeline.async_backend" in smoke  # and phase 5's
     code = (
         "import sys, chip_smoke, lv_slam_tpu_torch.odometry.fused, lv_slam_tpu_torch.convert, "
         "lv_slam_tpu_torch.lfa.fused, lv_slam_tpu_torch.pipeline.fused_chain, "
-        "lv_slam_tpu_torch.io.synthetic, lv_slam_tpu_torch.io.kitti; "
+        "lv_slam_tpu_torch.io.synthetic, lv_slam_tpu_torch.io.kitti, lv_slam_tpu_torch.pipeline.backend, "
+        "lv_slam_tpu_torch.pipeline.async_backend, lv_slam_tpu_torch.pipeline.window, "
+        "lv_slam_tpu_torch.graph.loop_detector, lv_slam_tpu_torch.graph.pose_graph, "
+        "lv_slam_tpu_torch.graph.information_matrix, lv_slam_tpu_torch.ops.nn; "
         "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'lv_slam_tpu')]; "
         "assert not bad, bad"
     )

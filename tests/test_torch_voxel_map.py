@@ -32,7 +32,7 @@ NOISY_RATIO = 1e-5
 MAX_FLIP_SHARE = 0.12
 
 
-def _matrices(kind: str) -> np.ndarray:
+def _spectra_and_frames(kind: str):
     rng = np.random.default_rng({"spd": 11, "isotropic": 12, "repeated": 13}[kind])
     q, _ = np.linalg.qr(rng.normal(size=(256, 3, 3)))
     if kind == "spd":
@@ -43,7 +43,24 @@ def _matrices(kind: str) -> np.ndarray:
         lam = rng.uniform(1e-3, 2.0, (256, 3))
         lam[:128, 1] = lam[:128, 0]
         lam[128:, 2] = lam[128:, 1]
+    return lam, q
+
+
+def _spectra(kind: str) -> np.ndarray:
+    return _spectra_and_frames(kind)[0]
+
+
+def _matrices(kind: str) -> np.ndarray:
+    lam, q = _spectra_and_frames(kind)
     return np.einsum("nij,nj,nkj->nik", q, lam, q).astype(np.float32)
+
+
+# A float32 Cardano eigenvalue of an exactly repeated pair is sqrt(eps)-
+# conditioned: the JAX and port pair values differ by up to 1.55e-4 * lambda_max
+# over seeds 13-44 on one CPU and by 0 on another (the host's XLA codegen
+# moves it; `scripts/reference_spread.py eigh`), so each paired eigenvalue is
+# held to 2 sqrt(eps_f32) lambda_max = 6.9e-4 lambda_max.
+PAIR_TOL = 2.0 * float(np.sqrt(np.finfo(np.float32).eps))
 
 
 @pytest.mark.parametrize("kind", ["spd", "isotropic", "repeated"])
@@ -52,18 +69,47 @@ def test_eigh3x3(kind):
     reconstructs A to 1e-5 * |A| beyond the reference's own reconstruction
     error. That error is large for an exactly repeated pair in float32: the
     double-cross-product column of the pair is rounding noise, and the port
-    reproduces the reference's noise (ROADMAP, faults in the reference)."""
+    reproduces the reference's noise (ROADMAP, faults in the reference).
+
+    For a repeated pair the pair's mean and the isolated eigenvalue keep the
+    1e-5 tolerance and each paired eigenvalue is held to PAIR_TOL; the
+    isolated eigenvector agrees to |v_port . v_jax| >= 1 - 1e-4 where the
+    reference forms it from its own product (the pair above it, column 0).
+    Under a low pair the reference re-orthogonalizes column 2 against the
+    noise column 0, so neither package's column 2 is an eigenvector there."""
     a = _matrices(kind)
     ev_j, vec_j = (np.asarray(x) for x in j_eigh(jnp.asarray(a)))
     ev_t, vec_t = (x.numpy() for x in t_eigh(torch.from_numpy(a)))
     lam_max = np.abs(ev_j).max(axis=1, keepdims=True)
-    assert (np.abs(ev_t - ev_j) <= 1e-5 * np.abs(ev_j) + 1e-6 * lam_max).all()
+    tol = 1e-5 * np.abs(ev_j) + 1e-6 * lam_max
+    if kind == "repeated":
+        lam = np.sort(_spectra(kind), axis=1)
+        low = np.isclose(lam[:, 0], lam[:, 1])  # the pair is (0, 1), else (1, 2)
+        n = np.arange(a.shape[0])
+        pair = np.where(low[:, None], [0, 1], [1, 2])
+        iso = np.where(low, 2, 0)
+        mean_j, mean_t = ev_j[n[:, None], pair].mean(1), ev_t[n[:, None], pair].mean(1)
+        assert (np.abs(mean_t - mean_j) <= tol[n, pair[:, 0]]).all()
+        assert (np.abs(ev_t[n, iso] - ev_j[n, iso]) <= tol[n, iso]).all()
+        assert (np.abs(ev_t[n[:, None], pair] - ev_j[n[:, None], pair]) <= PAIR_TOL * lam_max).all()
+        dots = np.abs(np.einsum("ni,ni->n", vec_t[~low, :, 0], vec_j[~low, :, 0]))
+        assert (~low).sum() > 100 and (dots >= 1 - 1e-4).all()
+    else:
+        low = np.zeros(a.shape[0], bool)
+        assert (np.abs(ev_t - ev_j) <= tol).all()
 
     def recon_err(ev, vec):
         return np.abs(np.einsum("nij,nj,nkj->nik", vec, ev, vec) - a).max(axis=(1, 2))
 
+    # Under a low pair both packages' reconstructions are rounding noise (up
+    # to 0.9 |A| here) that the pair's eigenvalue spread reshuffles; there the
+    # port's frame is held to be orthonormal. Elsewhere the reconstruction
+    # may exceed the reference's by what the paired eigenvalues may differ.
     norm = np.linalg.norm(a, axis=(1, 2))
-    assert (recon_err(ev_t, vec_t) <= recon_err(ev_j, vec_j) + 1e-5 * norm).all()
+    slack = 1e-5 * norm + (PAIR_TOL * lam_max[:, 0] if kind == "repeated" else 0.0)
+    assert (recon_err(ev_t, vec_t) <= recon_err(ev_j, vec_j) + slack)[~low].all()
+    gram = np.einsum("nki,nkj->nij", vec_t[low], vec_t[low])
+    assert np.abs(gram - np.eye(3)).max(initial=0.0) <= 1e-5
 
 
 @pytest.fixture(scope="module")
