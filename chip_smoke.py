@@ -48,15 +48,31 @@ Phases, each of which raises on failure:
    path on the CPU must agree to 1e-4. A warm pass is timed, host syncs are
    counted on the synchronous backend, and the device's idle share and peak
    memory are measured.
+6. The full main path as the reference benchmark runs it, with the camera:
+   the same 170 scans and chain, each chunk's camera images (the circle's
+   `render_camera_image(world, gt[i], seed=5)`, `bench.py:183-186`) uploaded
+   as a uint8 (32, 128, 256) device stack and fed with the chunk, and the
+   backend given the shipped 512-word vocabulary from the port's own asset
+   (`bench.py:256-315`): ORB (K12) for the keyframes each chunk opens in one
+   call, candidates ranked by BoW and gated at 0.04, then verified. Gates:
+   the refined trajectory's, the reference records' 19 keyframes, every one
+   described, at least one loop, each with a visual score >= 0.04, BoW
+   active, K12 launched. A warm pass is timed and a profiled pass gives the
+   idle share. 6b runs the path once more without a vocabulary and without
+   auto-training, the reference's raw ranking mode, which is where K12b
+   (descriptor matching) runs: it must launch.
 
 Phase 2 holds every kernel, those of the backend too (2c: the window dedup
 K1b/K2, the batched NDT pass K13, the centroid grid K14 and the pose-graph
-normal equations K15), against its plain version at the shapes phase 5
-gives it.
+normal equations K15; 2d: ORB K12 on four keyframe images of the circle and
+the descriptor matching K12b of one keyframe against eight), against its
+plain version at the shapes phases 5-6 give it.
 
-The last lines are the kernels' JSON record, the card's name and power
-limit, and `{"ok": true, "device": {...}}`. Without a CUDA device the script
-exits non-zero before it prints any result.
+The last lines are the kernels' JSON record (each kernel's launches are
+counted on the run of the path that drives it: phase 5 for the lidar
+kernels, 6 for K12, 6b for K12b, named under `launch_phase`), the card's
+name and power limit, and `{"ok": true, "device": {...}}`. Without a CUDA
+device the script exits non-zero before it prints any result.
 """
 
 from __future__ import annotations
@@ -156,6 +172,8 @@ DEVICE_FUNCTIONS = {
     "build_centroid_grid": ("grid_mark", "grid_reduce"),
     "nn_sq_dists": ("grid_query", "grid_finish"),
     "_chi2_and_normal": ("se3_edges", "chi2_sum"),
+    "_detect_pyramid_batch": ("orb_level0", "orb_halve", "orb_pixels", "orb_keys", "orb_describe"),
+    "match_scores_batch": ("orb_match",),
 }
 
 
@@ -725,6 +743,93 @@ def check_backend_kernels(torch, scans, gt, dev):
     return records
 
 
+def keyframe_openers(gt, n: int):
+    """The first `n` scans that open a keyframe window on the ground-truth
+    drive, under the backend's default keyframe gate."""
+    from lv_slam_tpu_torch.config import GraphConfig
+    from lv_slam_tpu_torch.graph.keyframe import KeyframeUpdater
+
+    cfg = GraphConfig()
+    updater = KeyframeUpdater(cfg.keyframe_delta_trans, cfg.keyframe_delta_angle)
+    gt_rel = np.einsum("ij,njk->nik", np.linalg.inv(gt[0]), gt).astype(np.float64)
+    return [i for i in range(len(gt)) if updater.update(gt_rel[i])][:n]
+
+
+def render_images(gt, indices):
+    """The reference benchmark's camera images of scans `indices`: uint8 (n, 128, 256)."""
+    from lv_slam_tpu_torch.io import synthetic
+
+    world = synthetic.make_world(seed=SEED)
+    return np.stack([synthetic.render_camera_image(world, gt[i], seed=SEED) for i in indices]).astype(np.uint8)
+
+
+def check_orb_kernels(torch, gt, dev):
+    """Phase 2d: ORB (K12) on four keyframe images of the circle, as one
+    chunk's batch, and the matching (K12b) of the first keyframe's
+    descriptors against eight sets from that output, padded to the
+    descriptor cap as the loop detector pads them."""
+    from lv_slam_tpu_torch.config import LoopDetectorConfig
+    from lv_slam_tpu_torch.ops import orb
+
+    cap = LoopDetectorConfig().descriptor_cap
+    openers = keyframe_openers(gt, 4)
+    images = torch.from_numpy(render_images(gt, openers)).to(dev)
+    k_levels = orb.OrbExtractor(max_features=cap)._k_levels(*images.shape[1:])
+    records = {}
+
+    k12 = lambda: orb.detect_pyramid_batch(images, k_levels)  # noqa: E731
+    p12 = lambda: orb.detect_pyramid_batch_ref(images, k_levels)  # noqa: E731
+    got, want = k12(), p12()
+    cpu = orb.detect_pyramid_batch_ref(images.cpu(), k_levels)
+    torch.cuda.synchronize()
+    if not torch.equal(got, want):
+        rows = (got != want).any(dim=2)
+        raise AssertionError(f"_detect_pyramid_batch: {int(rows.sum())} of {rows.numel()} rows differ from the "
+                             f"plain version (keypoints, valid flags or descriptor bits)")
+    if not torch.equal(got.cpu(), cpu):
+        raise AssertionError("_detect_pyramid_batch: the card's rows differ from the plain version on the CPU")
+    valid = got[:, :, 36].bool()
+    per_level, start = [], 0
+    for k in k_levels:
+        per_level.append(valid[:, start:start + k].sum(dim=1).tolist())
+        start += k
+    log(f"  _detect_pyramid_batch: scans {openers}, {tuple(images.shape)} uint8 -> {tuple(got.shape)} rows "
+        f"(levels {k_levels}), valid per level and image {per_level}; keypoints, valid flags and every "
+        f"descriptor bit identical to the plain version on the card and on the CPU")
+    n_pixels = sum(images.shape[0] * (images.shape[1] >> lv) * (images.shape[2] >> lv) for lv in range(len(k_levels)))
+    # per pixel ~110 (16-point circle, run test, score, suppression, blur);
+    # per row ~9400 (the 709-pixel disc moments, 256 rotated, rounded pairs)
+    measure(torch, records, "_detect_pyramid_batch", k12, p12, 0.0, nbytes(images, got),
+            110 * n_pixels + 9400 * got.shape[0] * got.shape[1])
+
+    sets = [d for d, _ in orb.unpack_rows(got.cpu().numpy(), cap)]
+    padded = [orb._padded(d, cap) for d in sets]
+    a, a_mask = (torch.from_numpy(v).to(dev) for v in padded[0])
+    order = [(1 + i) % len(sets) for i in range(8)]  # the other keyframes first, then the query's own
+    bs = torch.from_numpy(np.stack([padded[i][0] for i in order])).to(dev)
+    b_masks = torch.from_numpy(np.stack([padded[i][1] for i in order])).to(dev)
+    k12b = lambda: orb.match_scores_masked(a, a_mask, bs, b_masks)  # noqa: E731
+    p12b = lambda: orb.match_scores_masked_ref(a, a_mask, bs, b_masks)  # noqa: E731
+    got_s, want_s = k12b(), p12b()
+    torch.cuda.synchronize()
+    if not torch.equal(got_s, want_s):
+        raise AssertionError(f"match_scores_batch: scores {got_s.tolist()} differ from the plain version's "
+                             f"{want_s.tolist()}")
+    log(f"  match_scores_batch: {int(a_mask.sum())} query descriptors against {len(order)} candidates of "
+        f"{b_masks.sum(dim=1).tolist()} (cap {cap}); scores {[round(v, 6) for v in got_s.tolist()]} "
+        f"identical to the plain version")
+    pairs = int(a_mask.sum()) * int(b_masks.sum())
+    # per valid pair: 8 xor, 8 popcounts, 8 adds for the distance, 2 compares
+    measure(torch, records, "match_scores_batch", k12b, p12b, 0.0, nbytes(a, a_mask, bs, b_masks, got_s), 26 * pairs)
+    pm_a = orb._unpack_bits(a).float() * 2 - 1
+    pm_b = orb._unpack_bits(bs).float() * 2 - 1
+    _, lib_ms, _ = device_ms(torch, lambda: torch.matmul(pm_a, pm_b.transpose(1, 2)))
+    records["match_scores_batch"]["library_ms"] = lib_ms
+    log(f"    the reference's +-1 distance matmul alone (torch.matmul, a library call) on the same sets: "
+        f"{lib_ms:.4f} ms device-only")
+    return records
+
+
 # ----------------------------------------------------------------- phase 3
 
 ODOMETRY_KERNELS = ("voxel_downsample", "build_voxel_map", "to_hash", "ndt_derivatives_hash")
@@ -991,11 +1096,16 @@ def run_main_path(torch, scans, gt, dev, card, odometry_poses, odometry_syncs):
 # ----------------------------------------------------------------- phase 5
 
 REFERENCE_KEYFRAMES = 19  # the reference's CPU accuracy records of this circle (BENCH_r05_cpu_accuracy_*.json)
+CAMERA_KERNELS = ("_detect_pyramid_batch", "match_scores_batch")  # ORB (K12) and matching (K12b)
+# loop_rejections of the reference's BoW-ranked CPU records of this circle
+# (BENCH_r05_cpu_accuracy_dedup_stride.json, _refvocab.json)
+REFERENCE_REJECTIONS = {"verified": 1, "bow_rejected": 0, "guess_rejected": 0, "fitness_rejected": 0}
 
 
-def make_backend(dev, asynchronous: bool):
-    """The reference benchmark's `make_backend` (`bench.py:257-313`) in the
-    pure-lidar configuration: no vocabulary, no images."""
+def make_backend(dev, asynchronous: bool, vocabulary=None, loop_cfg=None):
+    """The reference benchmark's `make_backend` (`bench.py:257-313`): its
+    graph settings, the given vocabulary (phase 5 has none: the pure-lidar
+    configuration) and loop configuration."""
     from lv_slam_tpu_torch import kitti_flagship_config
     from lv_slam_tpu_torch.config import GraphConfig, LoopDetectorConfig
     from lv_slam_tpu_torch.pipeline.async_backend import AsyncBackend
@@ -1003,16 +1113,18 @@ def make_backend(dev, asynchronous: bool):
 
     backend = GlobalGraph(
         GraphConfig(keyframe_cap=64, edge_cap=256, prior_cap=16, solver_num_iterations=64),
-        LoopDetectorConfig(), prefilter_cfg=kitti_flagship_config().prefilter, device=dev,
+        loop_cfg or LoopDetectorConfig(), prefilter_cfg=kitti_flagship_config().prefilter, device=dev,
+        vocabulary=vocabulary,
     )
     return AsyncBackend(backend) if asynchronous else backend
 
 
-def run_full(torch, xyz, mask, stamps, inten, cfg, backend):
+def run_full(torch, xyz, mask, stamps, inten, cfg, backend, image_chunks=None):
     """One pass of the full path, as the reference benchmark's `run_chain`:
     chunk k's chain is launched before chunk k-1's refined poses are read
-    and fed, with its filtered product, to the backend (on the backend's
-    worker when it is an AsyncBackend); `optimize()` every 100 scans, then
+    and fed, with its filtered product (and its device image stack from
+    `image_chunks`, when given), to the backend (on the backend's worker
+    when it is an AsyncBackend); `optimize()` every 100 scans, then
     `finish()` and `drain()`. Returns (refined poses, the GlobalGraph)."""
     from lv_slam_tpu_torch.core.cloud import PointCloud
     from lv_slam_tpu_torch.pipeline.fused_chain import run_sequence_chain
@@ -1025,7 +1137,8 @@ def run_full(torch, xyz, mask, stamps, inten, cfg, backend):
     def feed(s, e, refined, cloud):
         poses = refined.cpu().numpy()  # the chunk's read
         parts[s] = poses
-        graph.add_scan_batch(s, stamps_np[s:e], poses, cloud, filtered=True)
+        images = None if image_chunks is None else image_chunks[s // CHUNK]
+        graph.add_scan_batch(s, stamps_np[s:e], poses, cloud, images=images, filtered=True)
         if any((i + 1) % 100 == 0 for i in range(s, e)):
             graph.optimize()
 
@@ -1084,9 +1197,11 @@ def run_full_path(torch, scans, gt, dev, card):
     peak = torch.cuda.max_memory_allocated()
     launches = {name: k.launches for name, k in KERNELS.items()}
     log(f"  launches on the full path ({n} scans): {launches}")
-    missing = [name for name, count in launches.items() if count == 0]
+    missing = [name for name, count in launches.items() if count == 0 and name not in CAMERA_KERNELS]
     if missing:
         raise AssertionError(f"kernels never launched on the full path: {missing}")
+    log(f"  exempt from the launch check here (no images in this configuration; phases 6 and 6b drive "
+        f"them): {list(CAMERA_KERNELS)}")
     t_err, drift = accuracy(est, gt, f"refined (LFA) poses of the full path, {n} scans", n)
 
     loops = [(lp.key1.seq, lp.key2.seq, round(lp.fitness, 6)) for lp in graph.loops]
@@ -1152,6 +1267,111 @@ def run_full_path(torch, scans, gt, dev, card):
     return summary, launches
 
 
+# ----------------------------------------------------------------- phase 6
+
+
+def run_camera_path(torch, scans, gt, dev, card, lidar_loops):
+    """Phase 6: the full path with camera images and the shipped vocabulary,
+    as the reference benchmark runs it; 6b: the raw ranking mode (no
+    vocabulary), which runs K12b. Returns (summary, launches of K12 in 6 and
+    of K12b in 6b)."""
+    from torch.profiler import ProfilerActivity, profile as torch_profile
+
+    from lv_slam_tpu_torch import kitti_flagship_config
+    from lv_slam_tpu_torch.config import LoopDetectorConfig
+    from lv_slam_tpu_torch.graph.bow import VOCABULARY_ASSET, Vocabulary
+    from lv_slam_tpu_torch.kernels import KERNELS, reset_launches
+
+    cfg = kitti_flagship_config()
+    xyz, mask, stamps, inten = stack_scans(torch, scans, cfg.prefilter.raw_cap, dev)
+    n = len(scans)
+    t0 = time.perf_counter()
+    images = render_images(gt, range(n))
+    # uploaded once per chunk before the passes, as the benchmark pre-uploads
+    image_chunks = [torch.from_numpy(images[s:s + CHUNK]).to(dev) for s in range(0, n, CHUNK)]
+    torch.cuda.synchronize()
+    vocab = Vocabulary.load(str(VOCABULARY_ASSET))
+    log(f"  {n} camera images {images.shape[1:]} rendered and uploaded in {time.perf_counter() - t0:.1f} s; "
+        f"vocabulary {VOCABULARY_ASSET.relative_to(ROOT)}: {vocab.n_words} words, baseline {vocab.baseline:.4f}")
+
+    def camera_backend(asynchronous=True):
+        return make_backend(dev, asynchronous, vocabulary=Vocabulary.load(str(VOCABULARY_ASSET)))
+
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    est, graph = run_full(torch, xyz, mask, stamps, inten, cfg, camera_backend(), image_chunks)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    launches = {name: k.launches for name, k in KERNELS.items()}
+    log(f"  launches on the camera path ({n} scans): {launches}")
+    if launches["_detect_pyramid_batch"] == 0:
+        raise AssertionError("ORB (K12) was never launched on the camera path")
+    t_err, drift = accuracy(est, gt, f"refined (LFA) poses of the camera path, {n} scans", n)
+    loops = [(lp.key1.seq, lp.key2.seq, round(lp.fitness, 6), round(lp.visual_score, 6)) for lp in graph.loops]
+    stats = dict(graph.loop_detector.stats)
+    n_desc = [0 if k.descriptor is None else int(k.descriptor.shape[0]) for k in graph.keyframes]
+    bow_active = graph.loop_detector.vocabulary is not None
+    log(f"  keyframes {len(graph.keyframes)} (reference record {REFERENCE_KEYFRAMES}), descriptors per keyframe "
+        f"{n_desc}; loops (new seq, old seq, fitness, visual score) {loops} (phase 5, no images: {lidar_loops}); "
+        f"loop_rejections {stats} (reference record {REFERENCE_REJECTIONS}); bow_active {bow_active}")
+    if len(graph.keyframes) != REFERENCE_KEYFRAMES or min(n_desc) == 0:
+        raise AssertionError("the camera path must give the reference's 19 keyframes, each described")
+    if not loops or any(v < 0.04 for *_, v in loops) or not bow_active:
+        raise AssertionError("the camera path must close a loop past the 0.04 visual gate with BoW active")
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    _, graph2 = run_full(torch, xyz, mask, stamps, inten, cfg, camera_backend(), image_chunks)
+    torch.cuda.synchronize()
+    elapsed = time.perf_counter() - t0
+    if [k.seq for k in graph2.keyframes] != [k.seq for k in graph.keyframes] or len(graph2.loops) != len(loops):
+        raise AssertionError("the warm pass's keyframes or loops differ from the first pass's")
+    phase_ms = {k: (v if k == "opt_cycles" else v / n * 1e3) for k, v in sorted(graph2.timings.items())}
+    log(f"  warm pass: {n} scans in {elapsed:.3f} s = {n / elapsed:.2f} scans/s ({card}); "
+        f"backend_phase_ms_per_scan {json.dumps(phase_ms)}")
+
+    with torch_profile(activities=[ProfilerActivity.CUDA]) as prof:
+        run_full(torch, xyz, mask, stamps, inten, cfg, camera_backend(), image_chunks)
+        torch.cuda.synchronize()
+    events = prof.key_averages()
+    attr = "self_device_time_total" if hasattr(torch.autograd.profiler_util.FunctionEventAvg(),
+                                               "self_device_time_total") else "self_cuda_time_total"
+    kernels = [(getattr(e, attr), e.key, e.count) for e in events if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy_us = sum(t for t, _, _ in kernels)
+    orb_us = sum(t for t, key, _ in kernels
+                 if any(_is_function(key, f) for f in DEVICE_FUNCTIONS["_detect_pyramid_batch"]))
+    CACHE.mkdir(parents=True, exist_ok=True)
+    (CACHE / "profile_camera.txt").write_text(events.table(sort_by=attr, row_limit=200))
+    idle = 1 - busy_us / 1e6 / elapsed
+    log(f"  device busy {busy_us / 1e3:.1f} ms over the {n}-scan pass (profiled; K12's own kernels "
+        f"{orb_us / 1e3:.3f} ms), against the warm pass's {elapsed * 1e3:.1f} ms wall: idle share {idle:.3f}; "
+        f"peak device memory {peak / 2**20:.1f} MiB")
+
+    log("phase 6b: the raw ranking mode (no vocabulary, no auto-training), which runs K12b")
+    reset_launches()
+    raw_cfg = LoopDetectorConfig(auto_train_vocab=False)
+    est_raw, graph_raw = run_full(torch, xyz, mask, stamps, inten, cfg,
+                                  make_backend(dev, True, loop_cfg=raw_cfg), image_chunks)
+    torch.cuda.synchronize()
+    raw_launches = {name: k.launches for name, k in KERNELS.items()}
+    log(f"  launches on the raw-ranking path: {raw_launches}")
+    if raw_launches["match_scores_batch"] == 0 or raw_launches["_detect_pyramid_batch"] == 0:
+        raise AssertionError("descriptor matching (K12b) or ORB (K12) was never launched in the raw ranking mode")
+    raw_loops = [(lp.key1.seq, lp.key2.seq, round(lp.fitness, 6), round(lp.visual_score, 6))
+                 for lp in graph_raw.loops]
+    t_raw, _ = accuracy(est_raw, gt, f"refined poses of the raw-ranking path, {n} scans", n)
+    log(f"  raw ranking: keyframes {len(graph_raw.keyframes)}, loops {raw_loops}, loop_rejections "
+        f"{dict(graph_raw.loop_detector.stats)}, vocabulary trained {graph_raw.loop_detector.vocabulary is not None}")
+    summary = dict(
+        scans_per_s=n / elapsed, devkit_t_err=t_err, drift_m=drift, keyframes=len(graph.keyframes),
+        n_loops=len(loops), loops=loops, loop_rejections=stats, bow_active=bow_active,
+        backend_phase_ms_per_scan=phase_ms, idle_share=idle, peak_mib=peak / 2**20,
+        raw_ranking=dict(loops=raw_loops, loop_rejections=dict(graph_raw.loop_detector.stats), devkit_t_err=t_raw),
+    )
+    return summary, {"_detect_pyramid_batch": launches["_detect_pyramid_batch"],
+                     "match_scores_batch": raw_launches["match_scores_batch"]}
+
+
 # ----------------------------------------------------------------- main
 
 
@@ -1195,6 +1415,8 @@ def main() -> int:
     records.update(check_lfa_kernels(torch, scans, gt, dev))
     log("phase 2c: the backend's kernels")
     records.update(check_backend_kernels(torch, scans_all, gt_all, dev))
+    log("phase 2d: the camera kernels (ORB, descriptor matching)")
+    records.update(check_orb_kernels(torch, gt_all, dev))
 
     log("phase 3: the odometry slice end to end")
     summary, odometry_poses, odometry_syncs = run_slice(torch, scans, gt, dev, card)
@@ -1207,12 +1429,20 @@ def main() -> int:
     log("phase 5: the main path, dlo -> LFA -> ggo (pure lidar), end to end")
     summary, launches = run_full_path(torch, scans_all, gt_all, dev, card)
     log(f"  summary ({card}): {json.dumps(summary)}")
+    launch_phase = dict.fromkeys(launches, "5")
+
+    log("phase 6: the main path as the benchmark runs it, with camera images and BoW ranking, end to end")
+    summary, camera_launches = run_camera_path(torch, scans_all, gt_all, dev, card,
+                                               [(a, b) for a, b, _ in summary["loops"]])
+    log(f"  summary ({card}): {json.dumps(summary)}")
+    launches.update(camera_launches)
+    launch_phase.update(_detect_pyramid_batch="6", match_scores_batch="6b")
 
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     kernels = [
         dict(
             name=name, route="cuda", source=k.source, replaces=k.replaces,
-            launches=launches[name], **{key: records[name][key] for key in keys},
+            launches=launches[name], launch_phase=launch_phase[name], **{key: records[name][key] for key in keys},
             **({"cholesky_ms": records[name]["cholesky_ms"]} if "cholesky_ms" in records[name] else {}),
         )
         for name, k in KERNELS.items()

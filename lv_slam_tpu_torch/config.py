@@ -104,8 +104,10 @@ class LoopDetectorConfig:
     (`include/global_graph/loop_detector.hpp:51-71`,
     `launch/dlo_lfa_ggo_kitti.launch:104-113`). The ladder `multiscale` +
     `ndt_resolution` runs 8/8/16 Newton iterations, the coarse rungs on at
-    most `verify_coarse_points` strided lanes. The BoW fields are read once
-    the ORB slice lands; without descriptors candidates are ranked by order."""
+    most `verify_coarse_points` strided lanes. Without descriptors
+    candidates are ranked by order; with them by a BoW vocabulary (given, or
+    trained on `vocab_min_keyframes` keyframes when `auto_train_vocab`), or
+    by raw matching of up to `descriptor_cap` descriptors before one exists."""
 
     distance_thresh: float = 20.0
     accum_distance_thresh: float = 100.0

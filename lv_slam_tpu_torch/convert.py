@@ -130,11 +130,15 @@ def pose_graph_to_numpy(graph: PoseGraph) -> Dict[str, np.ndarray]:
 
 def keyframe_from_numpy(kf, device) -> KeyFrame:
     """The port's KeyFrame from the reference's (or any object with its
-    fields): host fields copied, the cloud's arrays moved to `device`."""
+    fields): host fields (descriptors and keypoints too) copied, the cloud's
+    arrays moved to `device`."""
     xyz, inten, mask = (np.asarray(a) for a in (kf.cloud.xyz, kf.cloud.intensity, kf.cloud.mask))
     cloud = PointCloud(*(torch.from_numpy(np.array(a, order="C")).to(device) for a in (xyz, inten, mask)))
+    desc, kpts = getattr(kf, "descriptor", None), getattr(kf, "keypoints", None)
     return KeyFrame(
         stamp=float(kf.stamp), seq=int(kf.seq), odom=np.array(kf.odom, np.float64),
-        accum_distance=float(kf.accum_distance), cloud=cloud, node_id=int(kf.node_id),
+        accum_distance=float(kf.accum_distance), cloud=cloud,
+        descriptor=None if desc is None else np.array(desc, np.uint8),
+        keypoints=None if kpts is None else np.array(kpts, np.int32), node_id=int(kf.node_id),
         estimate=None if kf.estimate is None else np.array(kf.estimate, np.float64),
     )

@@ -2,9 +2,9 @@
 `lv_slam_tpu.graph.keyframe`, host-side numpy as in the reference).
 
 `KeyFrame` mirrors the reference payload (`include/global_graph/keyframe.hpp:
-25-83`) but for the keypoints and the sensor fields, which come with the
-ORB slice and the priors (ROADMAP items 6 and 9); its cloud is a port
-`PointCloud` on the card. `KeyframeUpdater`
+25-83`) but for the sensor fields, which come with the priors (ROADMAP item
+9); its cloud is a port `PointCloud` on the card. The loop detector caches
+a keyframe's BoW vector on it as the attribute `bow_vector`. `KeyframeUpdater`
 (`include/global_graph/keyframe_updater.hpp:37-61`) registers a frame when
 `|dt| >= delta_trans` or `acos(q_w) >= delta_angle` (acos, not 2 acos: the
 backend gate differs from the odometry's) and tracks the travelled distance.
@@ -27,7 +27,8 @@ class KeyFrame:
     odom: np.ndarray                 # (4,4) odometry pose at creation
     accum_distance: float
     cloud: PointCloud                # windowed, deduplicated cloud
-    descriptor: Optional[np.ndarray] = None   # (D,32) uint8 ORB descriptors (the ORB slice)
+    descriptor: Optional[np.ndarray] = None   # (D,32) uint8 ORB descriptors
+    keypoints: Optional[np.ndarray] = None    # (D,2) pixel coords
     node_id: int = -1                # index into the PoseGraph
     estimate: Optional[np.ndarray] = None     # optimized pose (4,4)
 

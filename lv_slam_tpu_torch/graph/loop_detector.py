@@ -8,8 +8,13 @@
    estimated XY position lies within `distance_thresh`.
 2. `rank_candidates`: without ORB descriptors every candidate scores 1.0 and
    the first `candidates_cap` are kept (the reference's non-BoW `matching()`
-   fallback, the pure-lidar configuration). The descriptor and vocabulary
-   branches come with the ORB slice and raise `NotImplementedError` here.
+   fallback, the pure-lidar configuration). With descriptors, candidates are
+   scored by BoW when a vocabulary exists (tf-idf vectors cached on the
+   keyframes, host numpy; an inverted file past 16 candidates), otherwise by
+   raw mutual-best descriptor matching (`ops/orb.match_scores_batch`, kernel
+   12b), ranked, cut to `candidates_cap` and gated at `bow_score_thresh`.
+   `maybe_train_vocabulary` trains one on the map's descriptors once
+   `vocab_min_keyframes` keyframes carry them (`auto_train_vocab`).
 3. `dispatch_one` runs the verification of one new keyframe against its
    candidates (kernel 13, `fused_verify`): NDT maps of the new keyframe at
    4, 2 and 1 m, a DIRECT7 unweighted align of all candidates at once per
@@ -31,9 +36,11 @@ import torch
 
 from lv_slam_tpu_torch.config import LoopDetectorConfig
 from lv_slam_tpu_torch.core.cloud import PointCloud
+from lv_slam_tpu_torch.graph.bow import InvertedIndex, Vocabulary
 from lv_slam_tpu_torch.graph.keyframe import KeyFrame
 from lv_slam_tpu_torch.ops.ndt_hash import ndt_align_hash_table_batched, to_hash
 from lv_slam_tpu_torch.ops.nn import build_centroid_grid, fitness_batch
+from lv_slam_tpu_torch.ops.orb import match_scores_batch
 from lv_slam_tpu_torch.ops.voxel_map import build_voxel_map
 
 
@@ -83,10 +90,10 @@ def fused_verify(new_cloud: PointCloud, cands: PointCloud, guesses: torch.Tensor
 class LoopDetector:
     def __init__(self, cfg: Optional[LoopDetectorConfig] = None, vocabulary=None,
                  leaf_cap: int = 16384, lut_extent: int = 256):
-        if vocabulary is not None:
-            raise NotImplementedError("BoW ranking comes with the ORB slice; run without a vocabulary")
         self.cfg = cfg or LoopDetectorConfig()
-        self.vocabulary = None
+        self.vocabulary = vocabulary  # optional graph/bow.Vocabulary
+        self._index = None            # lazy InvertedIndex over keyframes
+        self._indexed: set = set()
         self.last_edge_accum_distance = 0.0
         # how many verified candidates each gate discarded (the reference's
         # loop pipeline drops these silently, `loop_detector.hpp:241-269`)
@@ -114,22 +121,86 @@ class LoopDetector:
         return out
 
     # -- ranking --------------------------------------------------------------
+    def _bow_vector(self, kf: KeyFrame) -> np.ndarray:
+        """tf-idf vector, computed once per keyframe and cached on it."""
+        vec = getattr(kf, "bow_vector", None)
+        if vec is None:
+            vec = self.vocabulary.transform(kf.descriptor)
+            kf.bow_vector = vec
+        return vec
+
     def maybe_train_vocabulary(self, keyframes: Sequence[KeyFrame]) -> None:
-        """The reference trains a BoW vocabulary once enough keyframes carry
-        ORB descriptors; without descriptors there is nothing to train."""
-        if any(k.descriptor is not None for k in keyframes):
-            raise NotImplementedError("ORB descriptors and BoW training come with the ORB slice")
+        """BoW by default: lacking a shipped vocabulary, train one on the
+        mapped sequence once enough described keyframes exist (the reference
+        loads a pretrained DBoW3 one, `loop_detector.hpp:51-71`)."""
+        c = self.cfg
+        if self.vocabulary is not None or not c.auto_train_vocab:
+            return
+        described = [k.descriptor for k in keyframes if k.descriptor is not None and k.descriptor.shape[0] > 0]
+        if len(described) < c.vocab_min_keyframes:
+            return
+        self.vocabulary = Vocabulary.train(described, n_words=c.vocab_words)
+        for k in keyframes:  # drop vectors cached under no vocabulary
+            if hasattr(k, "bow_vector"):
+                del k.bow_vector
+        self._index, self._indexed = None, set()
 
     def rank_candidates(self, candidates: List[KeyFrame], new_kf: KeyFrame):
-        """(the first `candidates_cap` candidates, score 1.0 each) when no
-        keyframe carries a descriptor."""
+        """(ranked candidates, scores), best first, cut to `candidates_cap`
+        and gated at `bow_score_thresh`. Without descriptors every candidate
+        scores 1.0 (ranking by recency, the reference's non-BoW fallback)."""
         if new_kf.descriptor is None or not any(c.descriptor is not None for c in candidates):
             cap = self.cfg.candidates_cap
             return candidates[:cap], [1.0] * min(len(candidates), cap)
-        raise NotImplementedError("descriptor ranking (match_scores_batch, BoW) comes with the ORB slice")
+        if self.vocabulary is not None:
+            va = self._bow_vector(new_kf)
+            if len(candidates) > 16:
+                # large candidate sets: the inverted file, whose cost scales
+                # with the query's posting lists, not the candidate count
+                got = self._query_index(va, candidates)
+                raw = [got.get(self._kf_key(c), 0.0) for c in candidates]
+            else:
+                raw = [
+                    0.0 if c.descriptor is None
+                    else float(1.0 - 0.5 * np.abs(va - self._bow_vector(c)).sum())
+                    for c in candidates
+                ]
+            # baseline-adjusted scale (bow.Vocabulary.adjust; 0 for pretrained)
+            scores = [max(0.0, self.vocabulary.adjust(s)) for s in raw]
+        else:
+            idx = [i for i, c in enumerate(candidates) if c.descriptor is not None]
+            batch = match_scores_batch(
+                new_kf.descriptor, [candidates[i].descriptor for i in idx], cap=self.cfg.descriptor_cap,
+                device=new_kf.cloud.xyz.device,
+            )
+            scores = [0.0] * len(candidates)
+            for j, i in enumerate(idx):
+                scores[i] = float(batch[j])
+        order = np.argsort(scores)[::-1][: self.cfg.candidates_cap]
+        ranked = [candidates[i] for i in order]
+        rscores = [scores[i] for i in order]
+        # BoW accept gate (loop_detector.hpp:244)
+        keep = [i for i, s in enumerate(rscores) if s >= self.cfg.bow_score_thresh]
+        self.stats["bow_rejected"] += len(rscores) - len(keep)
+        return [ranked[i] for i in keep], [rscores[i] for i in keep]
 
-    def _query_index(self, query_vec, candidates):
-        raise NotImplementedError("the BoW inverted index comes with the ORB slice")
+    @staticmethod
+    def _kf_key(kf: KeyFrame):
+        """Index key: `seq` is unique and stable per keyframe (an `id()` may
+        be reused after garbage collection)."""
+        return kf.seq
+
+    def _query_index(self, query_vec: np.ndarray, candidates: List[KeyFrame]) -> dict:
+        """Score candidates through the inverted file, indexing each
+        keyframe's vector the first time it is a candidate."""
+        if self._index is None:
+            self._index = InvertedIndex(self.vocabulary.n_words)
+        for c in candidates:
+            key = self._kf_key(c)
+            if c.descriptor is not None and key not in self._indexed:
+                self._index.add(key, self._bow_vector(c))
+                self._indexed.add(key)
+        return self._index.query(query_vec, subset={self._kf_key(c) for c in candidates})
 
     # -- verification -----------------------------------------------------------
     def dispatch_one(self, candidates: List[KeyFrame], scores, new_kf: KeyFrame

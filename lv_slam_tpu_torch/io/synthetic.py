@@ -4,7 +4,9 @@ parts of `lv_slam_tpu.io.synthetic` that drive the odometry workload.
 A procedural urban world (ground plane, building boxes, poles) is ray-cast
 with an HDL-64-like pattern along a circular drive with known ground truth.
 At 64 rings x 2000 azimuths a scan holds about 125k returns, the density of a
-KITTI Velodyne scan. `tests/test_torch_io.py` holds the scans equal to the
+KITTI Velodyne scan. `render_camera_image` splats the same world into the
+forward camera's 8-bit image, the input of the loop detector's ORB.
+`tests/test_torch_io.py` holds the scans and the images equal to the
 reference's.
 """
 
@@ -127,3 +129,49 @@ def circle_trajectory(n_poses: int, step: float = 1.0, z: float = 1.73, radius: 
             np.float32,
         )
     return poses
+
+
+def render_camera_image(
+    world: World,
+    pose: np.ndarray,
+    width: int = 256,
+    height: int = 128,
+    fov_deg: float = 90.0,
+    seed: int = 0,
+    points_per_box: int = 400,
+) -> np.ndarray:
+    """Crude textured splat renderer: a forward-facing pinhole camera sees
+    points sampled on world surfaces (fixed per world seed, so the same place
+    renders the same texture), z-buffered into an (H,W) uint8 image."""
+    rng = np.random.default_rng(seed)
+    pts = []
+    intens = []
+    for box in world.boxes:
+        lo, hi = box[:3], box[3:]
+        p = rng.uniform(lo, hi, size=(points_per_box, 3)).astype(np.float32)
+        # push samples to the box surface on a random axis
+        axis = rng.integers(0, 3, points_per_box)
+        side = rng.integers(0, 2, points_per_box)
+        p[np.arange(points_per_box), axis] = np.where(side == 0, lo[axis], hi[axis])
+        pts.append(p)
+        intens.append(rng.uniform(60, 255, size=points_per_box).astype(np.float32))
+    pts = np.concatenate(pts)
+    intens = np.concatenate(intens)
+
+    rot, t = pose[:3, :3], pose[:3, 3]
+    local = (pts - t) @ rot  # world -> sensor frame (x forward)
+    # camera looks along +x; image x right (-y), image y down (-z)
+    z = local[:, 0]
+    vis = z > 0.5
+    f = (width / 2.0) / np.tan(np.deg2rad(fov_deg) / 2.0)
+    # a safe denominator for points at or behind the camera plane (masked
+    # out below), whose projection would be inf / NaN before the int cast
+    zs = np.where(vis, z, 1.0)
+    u = (-local[:, 1] / zs * f + width / 2.0).astype(np.int32)
+    v = (-local[:, 2] / zs * f + height / 2.0).astype(np.int32)
+    vis &= (u >= 0) & (u < width) & (v >= 0) & (v < height)
+    img = np.full((height, width), 30.0, np.float32)
+    ui, vi, zi, ii = u[vis], v[vis], z[vis], intens[vis]
+    order = np.argsort(-zi)  # far first, near overwrites
+    img[vi[order], ui[order]] = ii[order]
+    return img.astype(np.uint8)

@@ -5,17 +5,20 @@
 - `add_scan` / `add_scan_batch` = `cloud_callback` (:154-245): every scan's
   odometry is recorded; scans between keyframe triggers are moved into the
   open window's frame and deduplicated at 0.1 m (`pipeline/window.py`,
-  kernels 2 and 1b); a trigger flushes the window into a queued KeyFrame.
+  kernels 2 and 1b); a trigger flushes the window into a queued KeyFrame,
+  with the ORB descriptors of the window's first image when images come
+  (kernel 12: per keyframe from a host image, or for every keyframe a
+  chunk opens in one batched call on a device image stack).
 - `optimize` = `optimization_timer_callback` (:670-764): harvest the loop
   verifications dispatched earlier, flush queued keyframes into the graph
   (node + odometry edge), dispatch their verifications, add the accepted
   loop edges, run the LM (kernel 15), re-anchor to keyframe 0 and refresh
   `trans_odom2map`.
 
-This slice is the pure-lidar configuration: `images` must be None (ORB and
-BoW are the next slice), and the dump / save_map / sensor-prior services
-wait for ROADMAP item 9. Everything the reference keeps on the host stays on
-the host; clouds and verifications live on `device`.
+The dump / save_map / sensor-prior services wait for ROADMAP item 9.
+Everything the reference keeps on the host stays on the host (descriptors,
+BoW vectors, the graph's arrays); clouds, images and verifications live on
+`device`.
 """
 
 from __future__ import annotations
@@ -32,6 +35,7 @@ from lv_slam_tpu_torch.graph import pose_graph as pg
 from lv_slam_tpu_torch.graph.information_matrix import calc_information_matrix
 from lv_slam_tpu_torch.graph.keyframe import KeyFrame, KeyframeUpdater
 from lv_slam_tpu_torch.graph.loop_detector import Loop, LoopDetector
+from lv_slam_tpu_torch.ops.orb import OrbExtractor
 from lv_slam_tpu_torch.pipeline.window import merge_partials, window_flush, window_group_filtered
 
 _GROUP_CAP = 16  # scans per window group (bounds the group's L * cap rows)
@@ -84,6 +88,7 @@ class GlobalGraph:
         # cumulative host seconds per backend phase ("feed_*", "opt_*"); a
         # phase that reads from the device includes the device work it waits on
         self.timings: Dict[str, float] = {}
+        self._orb = OrbExtractor(max_features=self.loop_cfg.descriptor_cap, device=self.device)
 
         self._w_parts: List[tuple] = []       # per-scan path: (PointCloud, (4,4) rel)
         self._w_partials: List[PointCloud] = []  # batch path: deduplicated groups
@@ -91,6 +96,8 @@ class GlobalGraph:
         self._w_seq = -1
         self._w_stamp = 0.0
         self._w_accum = 0.0
+        self._w_image: Optional[np.ndarray] = None  # per-scan path: the window's first image
+        self._w_orb: Optional[tuple] = None         # batch path: its (descriptors, keypoints)
 
     def _resolution(self) -> float:
         pf = self.prefilter_cfg
@@ -102,7 +109,8 @@ class GlobalGraph:
         return now
 
     # ------------------------------------------------------------------ scans
-    def _open_window(self, seq: int, stamp: float, odom: np.ndarray, accum: float) -> None:
+    def _open_window(self, seq: int, stamp: float, odom: np.ndarray, accum: float, image=None,
+                     orb=None) -> None:
         if self._w_odom is not None:
             self._flush_window()
         self._w_parts, self._w_partials = [], []
@@ -110,16 +118,18 @@ class GlobalGraph:
         self._w_seq = seq
         self._w_stamp = float(stamp)
         self._w_accum = accum
+        self._w_image = image
+        self._w_orb = orb
 
     def add_scan(self, seq: int, stamp: float, odom: np.ndarray, cloud: PointCloud,
                  image: Optional[np.ndarray] = None) -> None:
-        """One filtered scan with its odometry pose."""
-        if image is not None:
-            raise NotImplementedError("camera images (ORB, BoW) come with the ORB slice")
+        """One filtered scan with its odometry pose and, optionally, its
+        camera image (H, W) in [0, 255]: a keyframe's descriptors come from
+        the image of the scan that opens its window."""
         odom = np.asarray(odom, np.float64)
         self.odoms[seq] = odom
         if self.updater.update(odom):
-            self._open_window(seq, stamp, odom, self.updater.accum_distance)
+            self._open_window(seq, stamp, odom, self.updater.accum_distance, image=image)
             self._w_parts = [(cloud, np.eye(4))]
         elif self._w_odom is not None:
             self._w_parts.append((cloud, np.linalg.inv(self._w_odom) @ odom))
@@ -149,8 +159,14 @@ class GlobalGraph:
         )
 
     def _flush_window(self) -> None:
-        kf = KeyFrame(stamp=self._w_stamp, seq=self._w_seq, odom=self._w_odom,
-                      accum_distance=self._w_accum, cloud=self._window_cloud())
+        cloud = self._window_cloud()
+        descriptor = keypoints = None
+        if self._w_orb is not None:
+            descriptor, keypoints = self._w_orb
+        elif self._w_image is not None:
+            descriptor, keypoints = self._orb.detect_and_compute(self._w_image)
+        kf = KeyFrame(stamp=self._w_stamp, seq=self._w_seq, odom=self._w_odom, accum_distance=self._w_accum,
+                      cloud=cloud, descriptor=descriptor, keypoints=keypoints)
         self.keyframe_queue.append(kf)
 
     def add_scan_batch(self, seq0: int, stamps: np.ndarray, odoms: np.ndarray, chunk: PointCloud,
@@ -160,11 +176,16 @@ class GlobalGraph:
         product (`return_filtered=True`): xyz transposed (C, 3, cap),
         intensity and mask (C, cap). Each window group is one kernel 2 call;
         a window spanning chunks keeps one partial per chunk and merges them
-        at its flush."""
+        at its flush.
+
+        `images` is a host list (one optional (H, W) image per scan) or a
+        (C, H, W) tensor stack, uint8 on the device in the main path: a
+        stack runs ORB for every window-opening scan of the chunk in one
+        kernel 12 call, the batch padded to a power of two with repeats."""
         if not filtered:
             raise NotImplementedError("add_scan_batch takes the filtered chunk (filtered=True)")
-        if images is not None or sensors is not None:
-            raise NotImplementedError("images (ORB) and sensor priors come with later slices")
+        if sensors is not None:
+            raise NotImplementedError("sensor priors are ROADMAP item 9")
         odoms = np.asarray(odoms, np.float64)
         stamps = np.asarray(stamps, np.float64)
         c = odoms.shape[0]
@@ -174,11 +195,22 @@ class GlobalGraph:
             triggers.append(self.updater.update(odoms[i]))
             accums.append(self.updater.accum_distance)
 
+        stack = isinstance(images, torch.Tensor)
+        orb_batch = {}
+        opened = [i for i in range(c) if triggers[i]]
+        if stack and opened:
+            t0 = time.perf_counter()
+            idx = opened + [opened[0]] * (_pow2(len(opened)) - len(opened))
+            results = self._orb.detect_and_compute_batch(images[idx])
+            orb_batch = dict(zip(opened, results))
+            self._tick("feed_orb", t0)
+
         t0 = time.perf_counter()
         i = 0
         while i < c:
             if triggers[i]:
-                self._open_window(seq0 + i, stamps[i], odoms[i], accums[i])
+                image = None if stack or images is None else images[i]
+                self._open_window(seq0 + i, stamps[i], odoms[i], accums[i], image=image, orb=orb_batch.get(i))
             j = i + 1
             while j < c and not triggers[j] and j - i < _GROUP_CAP:
                 j += 1

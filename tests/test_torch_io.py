@@ -69,3 +69,19 @@ def test_kitti_seq_error_matches_reference(lengths):
     want = ref_kitti.kitti_seq_error(gt, est, step=5, lengths=lengths)
     assert np.isfinite(got).all()
     assert got == want
+
+
+@pytest.mark.parametrize("seed,world_seed", [(5, 5), (9, 9), (13, 13)])
+def test_camera_image_matches_reference(seed, world_seed):
+    """The camera renderer is bit-identical, at the circle's poses and a
+    yawed one off it."""
+    world, ref_world = synthetic.make_world(seed=world_seed), ref_synthetic.make_world(seed=world_seed)
+    poses = list(synthetic.circle_trajectory(170, step=1.0)[::40])
+    yawed = np.eye(4)
+    yawed[:3, :3] = [[0.0, -1.0, 0.0], [1.0, 0.0, 0.0], [0.0, 0.0, 1.0]]
+    yawed[:3, 3] = [12.0, -3.0, 1.6]
+    for pose in poses + [yawed]:
+        got = synthetic.render_camera_image(world, pose, seed=seed)
+        want = ref_synthetic.render_camera_image(ref_world, pose, seed=seed)
+        assert got.dtype == np.uint8 and got.shape == (128, 256)
+        np.testing.assert_array_equal(got, want)

@@ -20,7 +20,7 @@ from lv_slam_tpu_torch.core.cloud import PointCloud  # noqa: E402
 from lv_slam_tpu_torch.kernels import KERNELS, reset_launches  # noqa: E402
 from lv_slam_tpu_torch.graph import pose_graph  # noqa: E402
 from lv_slam_tpu_torch.lfa import features, registration  # noqa: E402
-from lv_slam_tpu_torch.ops import knn, ndt_hash, nn, prefilter, voxel_map  # noqa: E402
+from lv_slam_tpu_torch.ops import knn, ndt_hash, nn, orb, prefilter, voxel_map  # noqa: E402
 from lv_slam_tpu_torch.pipeline import window  # noqa: E402
 from lv_slam_tpu_torch.ops.ndt import make_gauss_params  # noqa: E402
 
@@ -39,7 +39,8 @@ def scans():
 def _calls(device, scans):
     """Every wrapper once, on `device`, at small shapes: (name, wrapper output,
     plain output) for each kernel."""
-    return _odometry_calls(device, scans) + _lfa_calls(device, scans) + _backend_calls(device, scans)
+    return (_odometry_calls(device, scans) + _lfa_calls(device, scans) + _backend_calls(device, scans)
+            + _camera_calls(device))
 
 
 def _odometry_calls(device, scans):
@@ -159,12 +160,35 @@ def _backend_calls(device, scans):
     return out
 
 
+def _camera_calls(device):
+    """K12 on two camera images of a small world (a uint8 stack, the main
+    path's 128 x 256 and level budgets) and K12b of the first image's
+    descriptors against both, padded to 512."""
+    world = synthetic.make_world(seed=13, n_buildings=80, n_poles=100)
+    gt = synthetic.circle_trajectory(40, step=1.0)
+    images = torch.from_numpy(np.stack([synthetic.render_camera_image(world, gt[i], seed=13) for i in (0, 20)]))
+    images = images.to(device)
+    k_levels = orb.OrbExtractor(512)._k_levels(128, 256)
+    rows = orb.detect_pyramid_batch(images, k_levels)
+    out = [("_detect_pyramid_batch", (rows,), (orb.detect_pyramid_batch_ref(images, k_levels),))]
+    sets = [orb._padded(d, 512) for d, _ in orb.unpack_rows(rows.cpu().numpy(), 512)]
+    a, a_mask = (torch.from_numpy(v).to(device) for v in sets[0])
+    bs = torch.from_numpy(np.stack([v for v, _ in sets])).to(device)
+    b_masks = torch.from_numpy(np.stack([m for _, m in sets])).to(device)
+    out.append((
+        "match_scores_batch",
+        (orb.match_scores_masked(a, a_mask, bs, b_masks),),
+        (orb.match_scores_masked_ref(a, a_mask, bs, b_masks),),
+    ))
+    return out
+
+
 def test_registry_names_sources_and_replaced_functions():
     assert set(KERNELS) == {
         "voxel_downsample", "build_voxel_map", "to_hash", "ndt_derivatives_hash", "extract_features",
         "insert_cell_table", "crop_cell_table", "lines_from_fit", "planes_from_fit", "gn_solve",
         "voxel_dedup_first", "window_group_filtered_fn", "_fused_verify_fn", "build_centroid_grid",
-        "nn_sq_dists", "_chi2_and_normal",
+        "nn_sq_dists", "_chi2_and_normal", "_detect_pyramid_batch", "match_scores_batch",
     }
     for name, k in KERNELS.items():
         assert (REPO / k.source).is_file(), k.source
@@ -284,3 +308,18 @@ def test_backend_kernels_match_plain_versions_on_the_card(cuda, scans):
     torch.testing.assert_close(c1, c2, rtol=1e-6, atol=0)
     torch.testing.assert_close(hh1, hh2, rtol=0, atol=1e-5 * float(hh2.abs().max()))
     torch.testing.assert_close(b1, b2, rtol=0, atol=1e-5 * float(b2.abs().max()))
+
+
+@pytest.mark.gpu
+def test_camera_kernels_match_plain_versions_on_the_card(cuda):
+    reset_launches()
+    results = {name: (got, want) for name, got, want in _camera_calls(cuda)}
+    torch.cuda.synchronize()
+    assert {name: k.launches for name, k in KERNELS.items() if k.launches} == dict.fromkeys(results, 1)
+    # K12: every row byte (keypoints, flags, descriptor bits) and K12b's
+    # scores identical: both round alike (exact sums, float64 sample
+    # positions, the same float32 division)
+    (got,), (want,) = results["_detect_pyramid_batch"]
+    assert torch.equal(got, want) and int(got[:, :, 36].sum()) > 100
+    (got,), (want,) = results["match_scores_batch"]
+    assert torch.equal(got, want) and float(got[0]) == 1.0

@@ -1,9 +1,10 @@
-"""The port's loop detector (gates, descriptor-free ranking, the batched
-verification over kernel 13 and kernel 14's plain twins, harvest) against
-`lv_slam_tpu.graph.loop_detector` (CPU), on keyframes fed to both through
-`convert.keyframe_from_numpy`.
+"""The port's loop detector (gates, ranking without descriptors, by BoW
+vectors, through the inverted file and by raw descriptor matching, the
+vocabulary's auto-training, the batched verification over kernel 13 and
+kernel 14's plain twins, harvest) against `lv_slam_tpu.graph.loop_detector`
+(CPU), on keyframes fed to both through `convert.keyframe_from_numpy`.
 
-Gate and ranking decisions, accept / reject and `stats` are equal. The
+Gate and ranking decisions, scores, accept / reject and `stats` are equal. The
 verified transforms and fitness are held to the reference's own rounding
 spread: the largest change one-ulp noise on every cloud coordinate makes to
 the reference's result (six perturbations), doubled, or 1e-5 where that is
@@ -21,11 +22,14 @@ torch = pytest.importorskip("torch")
 import jax.numpy as jnp  # noqa: E402
 
 from lv_slam_tpu.config import LoopDetectorConfig as JLoopCfg  # noqa: E402
+from lv_slam_tpu.graph import bow as jbow  # noqa: E402
 from lv_slam_tpu.core.cloud import PointCloud as JCloud  # noqa: E402
 from lv_slam_tpu.graph.keyframe import KeyFrame as JKeyFrame  # noqa: E402
 from lv_slam_tpu.graph.loop_detector import LoopDetector as JDetector  # noqa: E402
 from lv_slam_tpu.io import synthetic  # noqa: E402
+from lv_slam_tpu.ops.orb import OrbExtractor  # noqa: E402
 from lv_slam_tpu_torch.config import LoopDetectorConfig  # noqa: E402
+from lv_slam_tpu_torch.graph import bow  # noqa: E402
 from lv_slam_tpu_torch.convert import keyframe_from_numpy  # noqa: E402
 from lv_slam_tpu_torch.graph.loop_detector import LoopDetector  # noqa: E402
 
@@ -116,3 +120,77 @@ def test_dispatch_and_harvest(keyframes):
     assert td.last_edge_accum_distance == jd.last_edge_accum_distance
     # a packet the interval gate skips at harvest is dropped uncounted
     assert td.harvest([pt]) == [] and td.stats == jd.stats
+
+
+@pytest.fixture(scope="module")
+def described():
+    """22 keyframes with ORB descriptors of camera images around a circle of
+    world 21 (and empty clouds: ranking reads only descriptors); keyframe 3
+    carries none."""
+    world = synthetic.make_world(seed=21, n_buildings=100, n_poles=140)
+    gt = synthetic.circle_trajectory(22, step=4.0, radius=14.0)
+    orb = OrbExtractor(max_features=256)
+    kfs = []
+    for i, pose in enumerate(gt):
+        desc, kpts = orb.detect_and_compute(synthetic.render_camera_image(world, pose, seed=21))
+        kfs.append(JKeyFrame(stamp=0.1 * i, seq=i, odom=np.asarray(pose, np.float64), accum_distance=4.0 * i,
+                             cloud=JCloud.from_numpy(np.zeros((1, 4), np.float32), cap=8),
+                             descriptor=None if i == 3 else desc, keypoints=None if i == 3 else kpts, node_id=i))
+    return kfs
+
+
+def _rank_both(jd, td, kfs, n_cands):
+    """Rank candidates 1 .. n_cands for keyframe 0 in both detectors."""
+    port = _port(kfs)
+    rj, sj = jd.rank_candidates(kfs[1:1 + n_cands], kfs[0])
+    rt, st = td.rank_candidates(port[1:1 + n_cands], port[0])
+    print(f"{n_cands} candidates ranked {[k.seq for k in rj]}, scores {np.round(sj, 4).tolist()}")
+    assert [k.seq for k in rt] == [k.seq for k in rj] and st == sj
+    assert td.stats == jd.stats
+    return rj, sj
+
+
+@pytest.mark.parametrize("n_cands", [8, 21])
+def test_ranking_by_vocabulary(described, n_cands):
+    """Direct vector scores (up to 16 candidates) and the inverted file (more),
+    on a vocabulary each package trains from the same descriptors, the
+    baseline-adjusted scale and the 0.04 gate."""
+    sets = [k.descriptor for k in described if k.descriptor is not None]
+    kw = dict(candidates_cap=8)
+    jd = JDetector(JLoopCfg(**kw), vocabulary=jbow.Vocabulary.train(sets, n_words=128))
+    td = LoopDetector(LoopDetectorConfig(**kw), vocabulary=bow.Vocabulary.train(sets, n_words=128))
+    ranked, scores = _rank_both(jd, td, described, n_cands)
+    assert ranked and min(scores) >= 0.04
+    if n_cands > 16:
+        assert td._indexed == jd._indexed == {k.seq for k in described[1:] if k.descriptor is not None}
+    assert jd.stats["bow_rejected"] > 0  # the gate binds
+
+
+def test_ranking_by_raw_descriptor_matching(described):
+    """No vocabulary and no training: one batched mutual-best match of the
+    new keyframe against every candidate (`match_scores_batch`)."""
+    kw = dict(candidates_cap=8, auto_train_vocab=False)
+    jd, td = JDetector(JLoopCfg(**kw)), LoopDetector(LoopDetectorConfig(**kw))
+    td.maybe_train_vocabulary(_port(described))
+    assert td.vocabulary is None
+    ranked, scores = _rank_both(jd, td, described, 12)
+    assert ranked and scores == sorted(scores, reverse=True)
+
+
+def test_vocabulary_auto_training(described):
+    """`maybe_train_vocabulary` trains once `vocab_min_keyframes` keyframes
+    are described, drops the vectors cached before, and ranks by it after."""
+    jd, td = JDetector(JLoopCfg(candidates_cap=8)), LoopDetector(LoopDetectorConfig(candidates_cap=8))
+    port = _port(described)
+    td.maybe_train_vocabulary(port[:10])  # keyframe 3 has no descriptor: 9 described
+    jd.maybe_train_vocabulary(described[:10])
+    assert td.vocabulary is None and jd.vocabulary is None
+    port[0].bow_vector = np.ones(4)  # a stale cache
+    td.maybe_train_vocabulary(port)
+    jd.maybe_train_vocabulary(described)
+    assert not hasattr(port[0], "bow_vector")
+    for name in ("centers", "idf", "baseline"):
+        np.testing.assert_array_equal(getattr(td.vocabulary, name), getattr(jd.vocabulary, name))
+    (rj, sj), (rt, st) = jd.rank_candidates(described[1:13], described[0]), td.rank_candidates(port[1:13], port[0])
+    assert [k.seq for k in rt] == [k.seq for k in rj] and st == sj and rt
+    assert port[0].bow_vector.shape == (td.vocabulary.n_words,)
