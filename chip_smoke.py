@@ -61,18 +61,34 @@ Phases, each of which raises on failure:
    idle share. 6b runs the path once more without a vocabulary and without
    auto-training, the reference's raw ranking mode, which is where K12b
    (descriptor matching) runs: it must launch.
+7. Standalone LFA, the reference's own `lfa_kitti` path (A-LOAM's
+   scan-to-scan feature odometry feeding its mapping, no NDT frontend), on
+   the whole 170-scan circle. 7a: the device-resident
+   `run_sequence_lfa(xyz, mask, LfaConfig())` without odometry, in chunks of
+   32 carried by `init_state`; gates: the accuracy gates, the first four
+   poses equal to the plain path's on the CPU to 1e-4, K9g and K9k launched,
+   no host sync inside a step; a warm pass is timed, the idle share and
+   peak memory measured. 7b: the per-scan orchestrator
+   `LvSlam(kitti_flagship_config(), use_dlo=False, vocabulary=<the port's
+   asset>)`, each scan with its camera image, then `finalize()`; gates: the
+   LFA poses' accuracy, the reference record's 19 keyframes, a loop, K9c
+   launched. Both print the JAX reference's CPU records of the same runs
+   beside their results.
 
 Phase 2 holds every kernel, those of the backend too (2c: the window dedup
 K1b/K2, the batched NDT pass K13, the centroid grid K14 and the pose-graph
 normal equations K15; 2d: ORB K12 on four keyframe images of the circle and
-the descriptor matching K12b of one keyframe against eight), against its
-plain version at the shapes phases 5-6 give it.
+the descriptor matching K12b of one keyframe against eight; 2e: standalone
+LFA's grid build K9g, its 2-point lines / 3-point planes K9k and the host
+mapping's table build K9c), against its plain version at the shapes phases
+5-7 give it.
 
 The last lines are the kernels' JSON record (each kernel's launches are
 counted on the run of the path that drives it: phase 5 for the lidar
-kernels, 6 for K12, 6b for K12b, named under `launch_phase`), the card's
-name and power limit, and `{"ok": true, "device": {...}}`. Without a CUDA
-device the script exits non-zero before it prints any result.
+kernels, 6 for K12, 6b for K12b, 7a for K9g and K9k, 7b for K9c, named
+under `launch_phase`), the card's name and power limit, and
+`{"ok": true, "device": {...}}`. Without a CUDA device the script exits
+non-zero before it prints any result.
 """
 
 from __future__ import annotations
@@ -174,6 +190,9 @@ DEVICE_FUNCTIONS = {
     "_chi2_and_normal": ("se3_edges", "chi2_sum"),
     "_detect_pyramid_batch": ("orb_level0", "orb_halve", "orb_pixels", "orb_keys", "orb_describe"),
     "match_scores_batch": ("orb_match",),
+    "build_grid": ("knn_grid_init", "knn_grid_cells", "knn_grid_keys", "knn_grid_gather"),
+    "knn": ("knn_query", "knn_lines", "knn_planes"),
+    "build_cell_table": ("table_keys", "table_zero", "table_place"),
 }
 
 
@@ -830,6 +849,97 @@ def check_orb_kernels(torch, gt, dev):
     return records
 
 
+def check_standalone_kernels(torch, scans, dev):
+    """Phase 2e: standalone LFA's kernels vs their plain versions at the
+    shapes phase 7 gives them: K9g on scan 0's less-sharp (4096 lanes) and
+    less-flat (8064) features; K9k's line and plane entries with scan 1's
+    sharp (768) and flat (1536) features at the scan-to-scan solve's first
+    guess (the identity: scan 0 leaves no motion to warm-start from) as
+    queries against those grids, and its k-NN entry on the flat ones; K9c on
+    the host mapping's edge and surf buffers (32768 and 65536 rows) after
+    scans 0-3 of the host pipeline."""
+    from lv_slam_tpu_torch import kitti_flagship_config
+    from lv_slam_tpu_torch.core import se3
+    from lv_slam_tpu_torch.core.cloud import PointCloud
+    from lv_slam_tpu_torch.lfa import LfaPipeline, features, registration
+    from lv_slam_tpu_torch.lfa.fused import _GRID_CELL, _n_buckets
+    from lv_slam_tpu_torch.ops import knn
+
+    full = kitti_flagship_config()
+    cfg = full.lfa
+    raw = [PointCloud.from_numpy(scans[i], cap=full.prefilter.raw_cap, device=dev) for i in range(4)]
+    f0, f1 = (features.extract_features(c, cfg) for c in raw[:2])
+    records = {}
+
+    def identical(a, b) -> bool:
+        return all(torch.equal(x, y) if isinstance(x, torch.Tensor) else x == y for x, y in zip(a, b))
+
+    # kernel 9g: the previous scan's grids
+    grids = {}
+    for name, pts, m in (("edge", f0.less_sharp, f0.less_sharp_mask), ("surf", f0.less_flat, f0.less_flat_mask)):
+        got, want = knn.build_grid(pts, m, _GRID_CELL), knn.build_grid_ref(pts, m, _GRID_CELL)
+        torch.cuda.synchronize()
+        if not identical(got, want):
+            raise AssertionError(f"build_grid: the {name} grid differs from the plain version")
+        grids[name] = got
+        log(f"  build_grid: {name} grid of {int(m.sum())} valid of {m.numel()} lanes, origin "
+            f"{got.origin_cell.tolist()}, {int(torch.unique(got.keys).numel()) - 1} occupied cells; keys, "
+            f"point order and origin identical to the plain version")
+    pts, m, grid = f0.less_flat, f0.less_flat_mask, grids["surf"]
+    measure(torch, records, "build_grid", lambda: knn.build_grid(pts, m, _GRID_CELL),
+            lambda: knn.build_grid_ref(pts, m, _GRID_CELL), 0.0,
+            nbytes(pts, m, grid.keys, grid.xyz, grid.origin_cell), 15 * pts.shape[0])
+
+    # kernel 9k: one scan-to-scan round's lines and planes, and the k-NN entry
+    guess = torch.eye(4, dtype=torch.float32, device=dev)
+    ye, ys = se3.transform_points(guess, f1.sharp), se3.transform_points(guess, f1.flat)
+    k9k = lambda: (registration.lines_from_2nn(ye, f1.sharp_mask, grids["edge"]),  # noqa: E731
+                   registration.planes_from_3nn(ys, f1.flat_mask, grids["surf"]))
+    p9k = lambda: (registration.lines_from_2nn_ref(ye, f1.sharp_mask, grids["edge"]),  # noqa: E731
+                   registration.planes_from_3nn_ref(ys, f1.flat_mask, grids["surf"]))
+    (lines, planes), (lines_p, planes_p) = k9k(), p9k()
+    got_nn, want_nn = knn.knn(grids["surf"], ys, 3), knn.knn_ref(grids["surf"], ys, 3)
+    torch.cuda.synchronize()
+    for name, a, b in (("lines_from_2nn", lines, lines_p), ("planes_from_3nn", planes, planes_p),
+                       ("knn (k = 3)", got_nn, want_nn)):
+        if not identical(a, b):
+            raise AssertionError(f"{name}: fields differ from the plain version")
+    log(f"  knn: lines_from_2nn {int(lines.valid.sum())} of {int(f1.sharp_mask.sum())} sharp queries accepted, "
+        f"planes_from_3nn {int(planes.valid.sum())} of {int(f1.flat_mask.sum())} flat ones, 3-NN of the flat "
+        f"queries valid {int(got_nn[2].sum())} of {got_nn[2].numel()}; every field identical to the plain version")
+    # operations this data needs: per query 27 binary searches (3 per step),
+    # 2 per candidate slot, 9 per hit's squared distance, ~30 for the fit
+    n_ops = 0
+    for grid, y in ((grids["edge"], ye), (grids["surf"], ys)):
+        steps = int(np.ceil(np.log2(grid.keys.shape[0] + 1)))
+        n_hits = int(knn.knn_candidates(grid, y)[1].sum())
+        n_ops += y.shape[0] * (27 * 3 * steps + 27 * 8 * 2 + 30) + 9 * n_hits
+    measure(torch, records, "knn", k9k, p9k, 0.0,
+            nbytes(*grids["edge"][:3], *grids["surf"][:3], ye, f1.sharp_mask, ys, f1.flat_mask, *lines, *planes),
+            n_ops)
+
+    # kernel 9c: the host mapping's tables, rebuilt from its buffers each scan
+    pipe = LfaPipeline(cfg, device=dev)
+    for c in raw:
+        pipe.process(c)
+    mapping = pipe.mapping
+    for name, xyz, m, cap in (("edge", mapping._edge_map, mapping._edge_mask, cfg.map_edge_cap),
+                              ("surf", mapping._surf_map, mapping._surf_mask, cfg.map_planar_cap)):
+        nb = _n_buckets(cfg, cap)
+        got = knn.build_cell_table(xyz, m, _GRID_CELL, nb, cfg.knn_slots)
+        want = knn.build_cell_table_ref(xyz, m, _GRID_CELL, nb, cfg.knn_slots)
+        torch.cuda.synchronize()
+        if not torch.equal(got.table.view(torch.int32), want.table.view(torch.int32)):
+            raise AssertionError(f"build_cell_table: the {name} table differs from the plain version")
+        stored = int((got.table.view(-1, 4)[:, 3] > 0.5).sum())
+        log(f"  build_cell_table: {name} map {int(m.sum())} of {m.numel()} rows -> table {tuple(got.table.shape)} "
+            f"holding {stored}; bit-identical to the plain version, slot for slot")
+    k9c = lambda: knn.build_cell_table(xyz, m, _GRID_CELL, nb, cfg.knn_slots)  # noqa: E731
+    p9c = lambda: knn.build_cell_table_ref(xyz, m, _GRID_CELL, nb, cfg.knn_slots)  # noqa: E731
+    measure(torch, records, "build_cell_table", k9c, p9c, 0.0, nbytes(xyz, m, got.table), 20 * xyz.shape[0])
+    return records
+
+
 # ----------------------------------------------------------------- phase 3
 
 ODOMETRY_KERNELS = ("voxel_downsample", "build_voxel_map", "to_hash", "ndt_derivatives_hash")
@@ -1097,6 +1207,7 @@ def run_main_path(torch, scans, gt, dev, card, odometry_poses, odometry_syncs):
 
 REFERENCE_KEYFRAMES = 19  # the reference's CPU accuracy records of this circle (BENCH_r05_cpu_accuracy_*.json)
 CAMERA_KERNELS = ("_detect_pyramid_batch", "match_scores_batch")  # ORB (K12) and matching (K12b)
+STANDALONE_KERNELS = ("build_grid", "knn", "build_cell_table")  # K9g, K9k, K9c: standalone LFA only
 # loop_rejections of the reference's BoW-ranked CPU records of this circle
 # (BENCH_r05_cpu_accuracy_dedup_stride.json, _refvocab.json)
 REFERENCE_REJECTIONS = {"verified": 1, "bow_rejected": 0, "guess_rejected": 0, "fitness_rejected": 0}
@@ -1197,11 +1308,12 @@ def run_full_path(torch, scans, gt, dev, card):
     peak = torch.cuda.max_memory_allocated()
     launches = {name: k.launches for name, k in KERNELS.items()}
     log(f"  launches on the full path ({n} scans): {launches}")
-    missing = [name for name, count in launches.items() if count == 0 and name not in CAMERA_KERNELS]
+    missing = [name for name, count in launches.items()
+               if count == 0 and name not in CAMERA_KERNELS + STANDALONE_KERNELS]
     if missing:
         raise AssertionError(f"kernels never launched on the full path: {missing}")
-    log(f"  exempt from the launch check here (no images in this configuration; phases 6 and 6b drive "
-        f"them): {list(CAMERA_KERNELS)}")
+    log(f"  exempt from the launch check here: {list(CAMERA_KERNELS)} (no images in this configuration; "
+        f"phases 6 and 6b drive them), {list(STANDALONE_KERNELS)} (standalone LFA; phase 7 drives them)")
     t_err, drift = accuracy(est, gt, f"refined (LFA) poses of the full path, {n} scans", n)
 
     loops = [(lp.key1.seq, lp.key2.seq, round(lp.fitness, 6)) for lp in graph.loops]
@@ -1372,6 +1484,147 @@ def run_camera_path(torch, scans, gt, dev, card, lidar_loops):
                      "match_scores_batch": raw_launches["match_scores_batch"]}
 
 
+# ----------------------------------------------------------------- phase 7
+
+# The JAX reference's records of phase 7's runs (its CPU runs of the same
+# circle at full width; `scripts/reference_circle.py` makes them): the fused
+# standalone run, and the host pipeline that LvSlam(use_dlo=False) runs (its
+# LFA poses equal the host pipeline's)
+JAX_FUSED_LFA = dict(devkit_t_err=0.00130, drift_m=0.707)
+JAX_LVSLAM = dict(devkit_t_err=0.00127, drift_m=0.774, keyframes=list(range(0, 163, 9)), loops=[(135, 0)],
+                  max_keyframe_err_m=0.833)
+LFA_KERNELS = ("extract_features", "insert_cell_table", "crop_cell_table", "lines_from_fit", "planes_from_fit",
+               "gn_solve")
+
+
+def run_lfa_chunks(torch, xyz, mask, cfg):
+    """Standalone `run_sequence_lfa` in chunks of 32 carried by init_state."""
+    from lv_slam_tpu_torch.lfa.fused import run_sequence_lfa
+
+    state, poses = None, []
+    for s in range(0, xyz.shape[0], CHUNK):
+        p, state = run_sequence_lfa(xyz[s:s + CHUNK], mask[s:s + CHUNK], cfg, init_state=state, return_state=True,
+                                    device=xyz.device)
+        poses.append(p)
+    return torch.cat(poses)
+
+
+def run_standalone_lfa(torch, scans, gt, dev, card):
+    """Phase 7a: the device-resident standalone LFA over the whole circle."""
+    from lv_slam_tpu_torch import kitti_flagship_config
+    from lv_slam_tpu_torch.kernels import KERNELS, reset_launches
+    from lv_slam_tpu_torch.lfa.fused import run_sequence_lfa
+
+    full = kitti_flagship_config()
+    cfg = full.lfa
+    xyz, mask, _, _ = stack_scans(torch, scans, full.prefilter.raw_cap, dev)
+    n = len(scans)
+
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    poses = run_lfa_chunks(torch, xyz, mask, cfg)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    launches = {name: k.launches for name, k in KERNELS.items()}
+    log(f"  launches on standalone LFA ({n} scans): {launches}")
+    missing = [name for name in ("build_grid", "knn") + LFA_KERNELS if launches[name] == 0]
+    if missing:
+        raise AssertionError(f"kernels never launched on standalone LFA: {missing}")
+    est = poses.cpu().numpy().astype(np.float64)
+    t_err, drift = accuracy(est, gt, f"standalone LFA, {n} scans", n)
+    log(f"  the JAX reference's record of this run (CPU): devkit_t_err {JAX_FUSED_LFA['devkit_t_err']}, final "
+        f"drift {JAX_FUSED_LFA['drift_m']} m")
+    gt_rel = np.einsum("ij,njk->nik", np.linalg.inv(gt[0]), gt)
+    rel_est = np.linalg.inv(est[:-1]) @ est[1:]
+    rel_gt = np.linalg.inv(gt_rel[:-1]) @ gt_rel[1:]
+    steps = np.linalg.norm((np.linalg.inv(rel_est) @ rel_gt)[:, :3, 3], axis=1)
+    log(f"  relative-step translation error: worst {steps.max():.4f} m at step {int(steps.argmax()) + 1}, median "
+        f"{np.median(steps):.4f} m (the JAX record: 0.697 m at step 1, median 0.012 m)")
+
+    k = 4
+    ref = run_sequence_lfa(xyz[:k].cpu(), mask[:k].cpu(), cfg, device="cpu").numpy()
+    dev_t = float(np.abs(ref[:, :3, 3] - est[:k, :3, 3]).max())
+    dev_r = float(np.abs(ref[:, :3, :3] - est[:k, :3, :3]).max())
+    log(f"  first {k} poses vs the plain path on the CPU: max difference translation {dev_t:.3g} m, "
+        f"rotation {dev_r:.3g} (tol 1e-4 each)")
+    if dev_t > 1e-4 or dev_r > 1e-4:
+        raise AssertionError("the card's standalone trajectory departs from the plain path's")
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    run_lfa_chunks(torch, xyz, mask, cfg)
+    torch.cuda.synchronize()
+    elapsed = time.perf_counter() - t0
+    log(f"  warm pass: {n} scans in {elapsed:.3f} s = {n / elapsed:.2f} scans/s ({card})")
+
+    # steps only: a chunk carried from scan 0's state
+    _, state = run_sequence_lfa(xyz[:1], mask[:1], cfg, return_state=True, device=dev)
+    syncs = count_syncs(torch, lambda: run_sequence_lfa(
+        xyz[1:1 + CHUNK], mask[1:1 + CHUNK], cfg, init_state=state, device=dev))
+    log(f"  host syncs inside the step: {syncs} in {CHUNK} steps")
+    if syncs:
+        raise AssertionError("the standalone LFA step reads back from the device")
+
+    idle = profile(torch, lambda: run_sequence_lfa(xyz[:8], mask[:8], cfg, device=dev), "lfa")
+    log(f"  peak device memory of the chunked run: {peak / 2**20:.1f} MiB")
+    summary = dict(scans_per_s=n / elapsed, devkit_t_err=t_err, drift_m=drift, worst_step_m=float(steps.max()),
+                   syncs_per_step=syncs / CHUNK, idle_share=idle, peak_mib=peak / 2**20,
+                   jax_record=JAX_FUSED_LFA)
+    return summary, launches
+
+
+def run_lvslam(torch, scans, gt, dev, card):
+    """Phase 7b: LvSlam(use_dlo=False) per scan with camera images, then finalize."""
+    from lv_slam_tpu_torch import kitti_flagship_config
+    from lv_slam_tpu_torch.graph.bow import VOCABULARY_ASSET, Vocabulary
+    from lv_slam_tpu_torch.kernels import KERNELS, reset_launches
+    from lv_slam_tpu_torch.pipeline.slam import LvSlam
+
+    n = len(scans)
+    t0 = time.perf_counter()
+    images = render_images(gt, range(n))
+    log(f"  {n} camera images rendered in {time.perf_counter() - t0:.1f} s")
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    slam = LvSlam(kitti_flagship_config(), use_dlo=False, vocabulary=Vocabulary.load(str(VOCABULARY_ASSET)),
+                  device=dev)
+    for i, scan in enumerate(scans):
+        slam.process(scan, 0.1 * i, image=images[i])
+    slam.finalize()
+    torch.cuda.synchronize()
+    elapsed = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    launches = {name: k.launches for name, k in KERNELS.items()}
+    log(f"  launches on LvSlam(use_dlo=False) ({n} scans): {launches}")
+    missing = [name for name in STANDALONE_KERNELS + ("_detect_pyramid_batch",) if launches[name] == 0]
+    if missing:
+        raise AssertionError(f"kernels never launched by LvSlam(use_dlo=False): {missing}")
+    est = np.stack(slam.lfa_poses)
+    t_err, drift = accuracy(est, gt, f"LvSlam's LFA poses, {n} scans", n)
+    backend = slam.backend
+    keyframes = [k.seq for k in backend.keyframes]
+    loops = [(lp.key1.seq, lp.key2.seq, round(lp.fitness, 6), round(lp.visual_score, 6)) for lp in backend.loops]
+    gt_rel = np.einsum("ij,njk->nik", np.linalg.inv(gt[0]), gt)
+    traj = slam.trajectory()
+    kf_err = [float(np.linalg.norm(p[:3, 3] - gt_rel[s][:3, 3])) for p, s in zip(traj, keyframes)]
+    log(f"  keyframes {keyframes} ({len(keyframes)}; reference record {REFERENCE_KEYFRAMES}), loops (new seq, old "
+        f"seq, fitness, visual score) {loops}, loop_rejections {dict(backend.loop_detector.stats)}; optimized "
+        f"keyframe error max {max(kf_err):.4f} m, last {kf_err[-1]:.4f} m")
+    log(f"  the JAX reference's record of this run (CPU): LFA devkit_t_err {JAX_LVSLAM['devkit_t_err']}, final "
+        f"drift {JAX_LVSLAM['drift_m']} m, keyframes {JAX_LVSLAM['keyframes']}, loops {JAX_LVSLAM['loops']}, "
+        f"largest keyframe error {JAX_LVSLAM['max_keyframe_err_m']} m")
+    log(f"  one pass: {n} scans in {elapsed:.3f} s = {n / elapsed:.2f} scans/s ({card}), peak device memory "
+        f"{peak / 2**20:.1f} MiB")
+    if len(keyframes) != REFERENCE_KEYFRAMES or not loops:
+        raise AssertionError("LvSlam(use_dlo=False) must give the reference's 19 keyframes and close a loop")
+    summary = dict(scans_per_s=n / elapsed, devkit_t_err=t_err, drift_m=drift, keyframes=keyframes, loops=loops,
+                   max_keyframe_err_m=max(kf_err), last_keyframe_err_m=kf_err[-1], peak_mib=peak / 2**20,
+                   jax_record=JAX_LVSLAM)
+    return summary, launches
+
+
 # ----------------------------------------------------------------- main
 
 
@@ -1417,6 +1670,8 @@ def main() -> int:
     records.update(check_backend_kernels(torch, scans_all, gt_all, dev))
     log("phase 2d: the camera kernels (ORB, descriptor matching)")
     records.update(check_orb_kernels(torch, gt_all, dev))
+    log("phase 2e: standalone LFA's kernels (grid build, 2-NN lines / 3-NN planes, host table build)")
+    records.update(check_standalone_kernels(torch, scans_all, dev))
 
     log("phase 3: the odometry slice end to end")
     summary, odometry_poses, odometry_syncs = run_slice(torch, scans, gt, dev, card)
@@ -1437,6 +1692,16 @@ def main() -> int:
     log(f"  summary ({card}): {json.dumps(summary)}")
     launches.update(camera_launches)
     launch_phase.update(_detect_pyramid_batch="6", match_scores_batch="6b")
+
+    log("phase 7a: standalone LFA (device-resident, no odometry given), end to end")
+    summary, lfa_launches = run_standalone_lfa(torch, scans_all, gt_all, dev, card)
+    log(f"  summary ({card}): {json.dumps(summary)}")
+    log("phase 7b: LvSlam(use_dlo=False), the per-scan lfa -> ggo stack with camera images, end to end")
+    summary, slam_launches = run_lvslam(torch, scans_all, gt_all, dev, card)
+    log(f"  summary ({card}): {json.dumps(summary)}")
+    launches.update(build_grid=lfa_launches["build_grid"], knn=lfa_launches["knn"],
+                    build_cell_table=slam_launches["build_cell_table"])
+    launch_phase.update(build_grid="7a", knn="7a", build_cell_table="7b")
 
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     kernels = [

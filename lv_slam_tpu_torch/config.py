@@ -1,4 +1,4 @@
-"""Configuration of the ported stages: the scan prefilter and the DLO odometry.
+"""Configuration of the ported stages.
 
 Field names and defaults are those of the reference's `lv_slam_tpu.config`
 (the `dlo_lfa_ggo_kitti.launch` parameter surface), which explains each
@@ -13,7 +13,7 @@ fixed-capacity tensor with a validity mask.
 from __future__ import annotations
 
 import dataclasses
-from typing import Tuple
+from typing import Optional, Tuple
 
 
 @dataclasses.dataclass(frozen=True)
@@ -70,7 +70,7 @@ class LfaConfig:
     """LOAM-style feature mapping stage (the reference launches the external
     A-LOAM package; params `launch/dlo_lfa_ggo_kitti.launch:56-61`). Every
     field of the reference's `LfaConfig`, including those of the standalone
-    feature odometry, which the port does not run yet."""
+    feature odometry."""
 
     scan_line: int = 64
     minimum_range: float = 5.0
@@ -177,13 +177,16 @@ class GraphConfig:
 
 @dataclasses.dataclass(frozen=True)
 class PipelineConfig:
-    """The `dlo_lfa_ggo` pipeline's stages."""
+    """The `dlo_lfa_ggo` pipeline's stages (`lfa=None` runs without the LFA
+    stage), and the camera->lidar calibration: KITTI calib.txt's 3x4
+    row-major "Tr", identity when absent."""
 
     prefilter: PrefilterConfig = dataclasses.field(default_factory=PrefilterConfig)
     odometry: OdometryConfig = dataclasses.field(default_factory=OdometryConfig)
-    lfa: LfaConfig = dataclasses.field(default_factory=LfaConfig)
+    lfa: Optional[LfaConfig] = dataclasses.field(default_factory=LfaConfig)
     loop: LoopDetectorConfig = dataclasses.field(default_factory=LoopDetectorConfig)
     graph: GraphConfig = dataclasses.field(default_factory=GraphConfig)
+    calib_tr: Optional[Tuple[float, ...]] = None
 
 
 def kitti_flagship_config() -> PipelineConfig:

@@ -1,5 +1,5 @@
-"""The states carried across from the JAX reference and back: the odometry
-and chain states, the pose graph and the backend's keyframes.
+"""The states carried across from the JAX reference and back: the odometry,
+LFA and chain states, the pose graph and the backend's keyframes.
 
 This system has no weights; the state a run carries (the keyframe hash map,
 the LFA world maps, the poses and the stamps) plays their role. It crosses
@@ -21,12 +21,13 @@ from lv_slam_tpu_torch.graph.keyframe import KeyFrame
 from lv_slam_tpu_torch.graph.pose_graph import PoseGraph, to_device
 from lv_slam_tpu_torch.lfa.fused import LfaFusedState
 from lv_slam_tpu_torch.odometry.fused import FusedState
-from lv_slam_tpu_torch.ops.knn import CellTable
+from lv_slam_tpu_torch.ops.knn import CellTable, KnnGrid
 from lv_slam_tpu_torch.ops.ndt_hash import HashVoxelMap
 from lv_slam_tpu_torch.pipeline.fused_chain import ChainState
 
 _POSES = ("key_pose", "tf_s2k", "pre_tf_s2k", "guess")
 _LFA_POSES = ("odom_pose", "last_rel", "map_pose", "last_odom")
+_LFA_GRIDS = ("prev_edge_grid", "prev_surf_grid")
 
 
 def fused_state_from_numpy(leaves: Dict[str, np.ndarray], device) -> FusedState:
@@ -65,23 +66,38 @@ def fused_state_to_numpy(state: FusedState) -> Dict[str, np.ndarray]:
     return out
 
 
-def _lfa_state_from_numpy(leaves: Dict[str, np.ndarray], device) -> LfaFusedState:
-    def f32(name):
-        return torch.from_numpy(np.array(leaves[name], dtype=np.float32, order="C")).to(device)
+def lfa_state_from_numpy(leaves: Dict[str, np.ndarray], device) -> LfaFusedState:
+    """The LFA state from leaves keyed by its fields: tables as
+    `edge_table.table` ((B, S*4) float32) and `edge_table.cell_size`, the
+    previous scan's grids (standalone LFA) as `prev_edge_grid.keys` (int32),
+    `.xyz`, `.origin_cell` (int32) and `.cell_size`. Without grid leaves the
+    grids are None, as on the external-odometry path."""
+
+    def arr(name, dtype):
+        return torch.from_numpy(np.array(leaves[name], dtype=dtype, order="C")).to(device)
 
     def table(name):
-        return CellTable(table=f32(f"{name}.table"), cell_size=float(np.float32(leaves[f"{name}.cell_size"])))
+        return CellTable(table=arr(f"{name}.table", np.float32),
+                         cell_size=float(np.float32(leaves[f"{name}.cell_size"])))
+
+    def grid(name):
+        if f"{name}.keys" not in leaves:
+            return None
+        return KnnGrid(keys=arr(f"{name}.keys", np.int32), xyz=arr(f"{name}.xyz", np.float32),
+                       origin_cell=arr(f"{name}.origin_cell", np.int32),
+                       cell_size=float(np.float32(leaves[f"{name}.cell_size"])))
 
     return LfaFusedState(
-        **{name: f32(name) for name in _LFA_POSES},
+        **{name: arr(name, np.float32) for name in _LFA_POSES},
         edge_table=table("edge_table"),
         surf_table=table("surf_table"),
         scan_idx=int(leaves["scan_idx"]),
-        crop_center=f32("crop_center"),
+        crop_center=arr("crop_center", np.float32),
+        **{name: grid(name) for name in _LFA_GRIDS},
     )
 
 
-def _lfa_state_to_numpy(state: LfaFusedState) -> Dict[str, np.ndarray]:
+def lfa_state_to_numpy(state: LfaFusedState) -> Dict[str, np.ndarray]:
     out = {name: getattr(state, name).cpu().numpy() for name in _LFA_POSES}
     for name in ("edge_table", "surf_table"):
         tab = getattr(state, name)
@@ -89,15 +105,20 @@ def _lfa_state_to_numpy(state: LfaFusedState) -> Dict[str, np.ndarray]:
         out[f"{name}.cell_size"] = np.float32(tab.cell_size)
     out["scan_idx"] = np.int32(state.scan_idx)
     out["crop_center"] = state.crop_center.cpu().numpy()
+    for name in _LFA_GRIDS:
+        grid = getattr(state, name)
+        if grid is not None:
+            for field in ("keys", "xyz", "origin_cell"):
+                out[f"{name}.{field}"] = getattr(grid, field).cpu().numpy()
+            out[f"{name}.cell_size"] = np.float32(grid.cell_size)
     return out
 
 
 def chain_state_from_numpy(leaves: Dict[str, np.ndarray], device) -> ChainState:
     """The chain's state from leaves keyed `odo.<FusedState leaf>` and
-    `lfa.<LfaFusedState leaf>` (tables as `lfa.edge_table.table`, (B, S*4)
-    float32, and `lfa.edge_table.cell_size`). The reference's
-    `prev_edge_grid` / `prev_surf_grid` are not read: the external-odometry
-    path never uses them."""
+    `lfa.<LfaFusedState leaf>` (as `lfa_state_from_numpy` reads them). The
+    external-odometry path never reads the reference's `prev_edge_grid` /
+    `prev_surf_grid`, so their leaves may be left out."""
 
     def sub(prefix):
         n = len(prefix) + 1
@@ -105,13 +126,13 @@ def chain_state_from_numpy(leaves: Dict[str, np.ndarray], device) -> ChainState:
 
     return ChainState(
         odo=fused_state_from_numpy(sub("odo"), device),
-        lfa=_lfa_state_from_numpy(sub("lfa"), device),
+        lfa=lfa_state_from_numpy(sub("lfa"), device),
     )
 
 
 def chain_state_to_numpy(state: ChainState) -> Dict[str, np.ndarray]:
     out = {f"odo.{k}": v for k, v in fused_state_to_numpy(state.odo).items()}
-    out.update({f"lfa.{k}": v for k, v in _lfa_state_to_numpy(state.lfa).items()})
+    out.update({f"lfa.{k}": v for k, v in lfa_state_to_numpy(state.lfa).items()})
     return out
 
 

@@ -1,7 +1,9 @@
-// Kernel 9: the LFA world maps' hashed cell tables, batch insert and crop.
+// Kernel 9: the LFA world maps' hashed cell tables: batch insert (9a), crop
+// (9b) and the whole-table build of the host mapping (9c).
 //
-// Replaces: lv_slam_tpu/ops/knn.py:139 `insert_cell_table` and :218
-// `crop_cell_table`. A table is (B, S*4) float32: S slots of [x, y, z, valid]
+// Replaces: lv_slam_tpu/ops/knn.py:139 `insert_cell_table`, :218
+// `crop_cell_table` and :93 `build_cell_table`. A table is (B, S*4) float32:
+// S slots of [x, y, z, valid]
 // per bucket; a 2 m cell hashes to bucket ((c0*H1) ^ (c1*H2) ^ (c2*H3)) mod B
 // in uint32 arithmetic (the reference's wrapping int32 products, taken as
 // uint32).
@@ -23,6 +25,17 @@
 // in its bucket run and writes the point into the rank-th free slot: crop
 // leaves holes, so the free slots are not a prefix. Kept rows of one bucket
 // get distinct ranks, so no two threads write one slot: deterministic.
+//
+// Build design (9c): `table_keys` writes each row's bucket (its cell is
+// floor(x * (1/cell)), as XLA compiles the reference's division by a
+// constant), B for masked rows; the wrapper sorts the buckets stably (torch
+// glue), so each bucket's rows form one run in input order. `table_zero`
+// clears the table, then `table_place` runs one thread per sorted row: a
+// binary search finds the start of its bucket run, and the row is written
+// to slot rank = row - start when rank < S. Slots are distinct, so the table
+// is deterministic slot for slot. What bounds it: the table's clear and
+// write (3 MB for the surf map's 2^15 x 6 slots, ~1 us of HBM time) and the
+// 65536-row sort; the binary searches stay in L2.
 //
 // Crop design: one elementwise pass over the slots, in place. With a last
 // crop center it first decides the crop_interval gate itself, from device
@@ -151,7 +164,61 @@ __global__ void crop(float* __restrict__ table, int n_slots, const float* __rest
   p[3] = valid ? 1.0f : 0.0f;
 }
 
+__global__ void table_keys(const float* __restrict__ xyz, const bool* __restrict__ mask, int n,
+                           int n_buckets, float inv_cell, int* __restrict__ bucket) {
+  int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= n) return;
+  bucket[i] = mask[i] ? bucket_of(static_cast<int>(floorf(xyz[3 * i + 0] * inv_cell)),
+                                  static_cast<int>(floorf(xyz[3 * i + 1] * inv_cell)),
+                                  static_cast<int>(floorf(xyz[3 * i + 2] * inv_cell)), n_buckets)
+                      : n_buckets;
+}
+
+__global__ void table_zero(float4* __restrict__ table, long long n_slots) {
+  long long i = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
+  if (i < n_slots) table[i] = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+}
+
+__global__ void table_place(const int* __restrict__ sb, const long long* __restrict__ order,
+                            const float* __restrict__ xyz, int n, int n_buckets, int slots,
+                            float* __restrict__ table) {
+  int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= n) return;
+  int b = sb[i];
+  if (b >= n_buckets) return;
+  int lo = 0, hi = i;  // the first row of b's run: a lower bound in [0, i]
+  while (lo < hi) {
+    int mid = (lo + hi) >> 1;
+    if (sb[mid] < b) lo = mid + 1; else hi = mid;
+  }
+  int rank = i - lo;
+  if (rank >= slots) return;
+  long long src = order[i];
+  float* dst = table + (static_cast<long long>(b) * slots + rank) * 4;
+  dst[0] = xyz[3 * src + 0];
+  dst[1] = xyz[3 * src + 1];
+  dst[2] = xyz[3 * src + 2];
+  dst[3] = 1.0f;
+}
+
 }  // namespace
+
+extern "C" int lvs_table_keys(const float* xyz, const bool* mask, int n, int n_buckets, float inv_cell,
+                              int* bucket, cudaStream_t stream) {
+  if (n > 0)
+    table_keys<<<lvs::blocks_for(n), lvs::kThreads, 0, stream>>>(xyz, mask, n, n_buckets, inv_cell, bucket);
+  LVS_RETURN_LAST_ERROR();
+}
+
+extern "C" int lvs_table_build(const int* sb, const long long* order, const float* xyz, int n, int n_buckets,
+                               int slots, float* table, cudaStream_t stream) {
+  long long n_slots = static_cast<long long>(n_buckets) * slots;
+  if (n_slots > 0)
+    table_zero<<<lvs::blocks_for(n_slots), lvs::kThreads, 0, stream>>>(reinterpret_cast<float4*>(table), n_slots);
+  if (n > 0)
+    table_place<<<lvs::blocks_for(n), lvs::kThreads, 0, stream>>>(sb, order, xyz, n, n_buckets, slots, table);
+  LVS_RETURN_LAST_ERROR();
+}
 
 extern "C" int lvs_insert_keys(const float* xyz, const bool* mask, int n, int n_buckets,
                                float inv_res, float cell_size, long long* khi, int* vyz,

@@ -1,0 +1,279 @@
+// Kernels 9g and 9k: standalone LFA's sorted k-NN grid, its build and its
+// queries (the k nearest, and the 2-point lines / 3-point planes of the
+// scan-to-scan odometry).
+//
+// Replaces: lv_slam_tpu/ops/knn.py:39 `build_grid` (9g) and :280 `knn` (9k),
+// with lv_slam_tpu/lfa/registration.py:41 `lines_from_2nn` and :94
+// `planes_from_3nn` built on the same search.
+//
+// What bounds it on the card: latency. A build moves 4096 or 8064 points
+// (~100 KB); a query batch is 768 or 1536 queries, each doing 27 binary
+// searches of ~13 dependent steps over the keys and reading up to 216
+// candidate points, all of it L2-resident. Neither comes near HBM's rate or
+// the card's arithmetic; the dependent loads do.
+//
+// Build design (9g): `knn_grid_init` sets the per-axis minimum to 2^30,
+// `knn_grid_cells` takes each valid lane's cell, floor(x * (1/cell)) as XLA
+// compiles the reference's division by a constant, into an atomicMin per
+// axis (order-free, so deterministic), and `knn_grid_keys` writes each lane's
+// flat key ((rx * 1024 + ry) * 1024 + rz, or INT32_MAX outside the 1024^3
+// extent or for masked lanes), the origin 0 when no lane is valid. The
+// wrapper sorts the keys stably (torch glue, as for kernel 1); equal keys
+// keep input order. `knn_grid_gather` writes the points in key order.
+//
+// Query design (9k): one thread per query. For each of the 27 neighbour
+// cells in the reference's `_OFF27` order (i outermost) a binary search
+// (`searchsorted`, side left, also for out-of-extent cells, whose key is
+// INT32_MAX) gives the start row; the `slots` candidates are the rows
+// start .. start + slots - 1, each clamped to the last row as the reference
+// clamps them (so a run ending at the last row repeats that row), and a
+// candidate hits when its row holds that cell. Its squared distance is the
+// fma chain XLA makes of `jnp.sum(d ** 2, -1)` on the CPU,
+// fma(dz, dz, fma(dy, dy, dx * dx)), each fma taken in float64 (the product
+// is exact) and rounded to float32 as the plain twin rounds it; misses are
+// +inf. An insertion list keeps the k best by (d2, candidate index):
+// candidates come in index order and a new one goes behind every equal
+// distance, which is `lax.top_k`'s tie order, misses included. The lines and
+// planes entries then form the line (a, (b - a) / |b - a|) or the plane
+// through the 3 points in place, with the reference's gates, rounding its
+// norms, cross product and offset as XLA's CPU fma chains do.
+#include "common.cuh"
+
+#include <math.h>
+
+namespace {
+
+constexpr int kExtent = 1024;
+constexpr int kKeyMax = 2147483647;  // INT32_MAX
+constexpr int kBig = 1 << 30;
+constexpr int kMaxK = 8;
+
+__global__ void knn_grid_init(int* __restrict__ low) {
+  if (threadIdx.x < 3) low[threadIdx.x] = kBig;
+}
+
+__device__ __forceinline__ int cell_of(float x, float inv_cell) {
+  return static_cast<int>(floorf(x * inv_cell));
+}
+
+__global__ void knn_grid_cells(const float* __restrict__ xyz, const bool* __restrict__ mask, int n,
+                               float inv_cell, int* __restrict__ low) {
+  int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= n || !mask[i]) return;
+  for (int a = 0; a < 3; ++a) atomicMin(low + a, cell_of(xyz[3 * i + a], inv_cell));
+}
+
+__global__ void knn_grid_keys(const float* __restrict__ xyz, const bool* __restrict__ mask, int n,
+                              float inv_cell, const int* __restrict__ low, int* __restrict__ origin,
+                              int* __restrict__ keys) {
+  int i = blockIdx.x * blockDim.x + threadIdx.x;
+  int o[3];
+  for (int a = 0; a < 3; ++a) o[a] = low[a] == kBig ? 0 : low[a];
+  if (i == 0) {
+    for (int a = 0; a < 3; ++a) origin[a] = o[a];
+  }
+  if (i >= n) return;
+  bool ok = mask[i];
+  int r[3];
+  for (int a = 0; a < 3; ++a) {
+    long long rel = static_cast<long long>(cell_of(xyz[3 * i + a], inv_cell)) - o[a];
+    ok = ok && rel >= 0 && rel < kExtent;
+    r[a] = static_cast<int>(rel);
+  }
+  keys[i] = ok ? (r[0] * kExtent + r[1]) * kExtent + r[2] : kKeyMax;
+}
+
+__global__ void knn_grid_gather(const long long* __restrict__ order, const float* __restrict__ xyz, int n,
+                                float* __restrict__ out) {
+  int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= n) return;
+  long long src = order[i];
+  out[3 * i + 0] = xyz[3 * src + 0];
+  out[3 * i + 1] = xyz[3 * src + 1];
+  out[3 * i + 2] = xyz[3 * src + 2];
+}
+
+// float32 fma(a, b, c) as the plain twin computes it: the float64 product is
+// exact, the sum rounds to float64, then to float32
+__device__ __forceinline__ float fma64(float a, float b, float c) {
+  return __double2float_rn(__dadd_rn(__dmul_rn(static_cast<double>(a), static_cast<double>(b)),
+                                     static_cast<double>(c)));
+}
+
+__device__ __forceinline__ float dot3(float a0, float a1, float a2, float b0, float b1, float b2) {
+  return fma64(a2, b2, fma64(a1, b1, __fmul_rn(a0, b0)));
+}
+
+// first index of `keys` (ascending, length m) holding a value >= q
+__device__ __forceinline__ int lower_bound(const int* __restrict__ keys, int m, int q) {
+  int lo = 0, hi = m;
+  while (lo < hi) {
+    int mid = (lo + hi) >> 1;
+    if (__ldg(keys + mid) < q) lo = mid + 1; else hi = mid;
+  }
+  return lo;
+}
+
+// The k best candidates of query (qx, qy, qz): squared distances ascending
+// in d2[0..k) (+inf for misses) and their grid rows in row[0..k).
+__device__ void k_nearest(const int* __restrict__ keys, const float* __restrict__ xyz, int n,
+                          const int* __restrict__ origin, float cell, float qx, float qy, float qz,
+                          int k, int slots, float* d2, int* row) {
+  int c[3] = {static_cast<int>(floorf(qx / cell)), static_cast<int>(floorf(qy / cell)),
+              static_cast<int>(floorf(qz / cell))};
+  int o[3] = {__ldg(origin + 0), __ldg(origin + 1), __ldg(origin + 2)};
+  int filled = 0;
+  for (int cell27 = 0; cell27 < 27; ++cell27) {
+    int off[3] = {cell27 / 9 - 1, (cell27 / 3) % 3 - 1, cell27 % 3 - 1};
+    bool in_extent = true;
+    int r[3];
+    for (int a = 0; a < 3; ++a) {
+      long long rel = static_cast<long long>(c[a]) - o[a] + off[a];
+      in_extent = in_extent && rel >= 0 && rel < kExtent;
+      r[a] = static_cast<int>(rel);
+    }
+    int key = in_extent ? (r[0] * kExtent + r[1]) * kExtent + r[2] : kKeyMax;
+    int start = lower_bound(keys, n, key);
+    for (int s = 0; s < slots; ++s) {
+      int idx = min(start + s, n - 1);
+      float d = INFINITY;
+      if (in_extent && __ldg(keys + idx) == key) {
+        float dx = qx - __ldg(xyz + 3 * idx + 0);
+        float dy = qy - __ldg(xyz + 3 * idx + 1);
+        float dz = qz - __ldg(xyz + 3 * idx + 2);
+        d = dot3(dx, dy, dz, dx, dy, dz);
+      }
+      // behind every equal distance: the lower candidate index wins ties
+      if (filled == k && !(d < d2[k - 1])) continue;
+      int j = filled < k ? filled++ : k - 1;
+      while (j > 0 && d < d2[j - 1]) {
+        d2[j] = d2[j - 1];
+        row[j] = row[j - 1];
+        --j;
+      }
+      d2[j] = d;
+      row[j] = idx;
+    }
+  }
+}
+
+__global__ void __launch_bounds__(lvs::kThreads)
+knn_query(const int* __restrict__ keys, const float* __restrict__ xyz, int n, const int* __restrict__ origin,
+          float cell, const float* __restrict__ queries, int q, int k, int slots, float* __restrict__ dists,
+          float* __restrict__ points, bool* __restrict__ valid) {
+  int t = blockIdx.x * blockDim.x + threadIdx.x;
+  if (t >= q) return;
+  float d2[kMaxK];
+  int row[kMaxK];
+  k_nearest(keys, xyz, n, origin, cell, queries[3 * t + 0], queries[3 * t + 1], queries[3 * t + 2], k, slots,
+            d2, row);
+  for (int j = 0; j < k; ++j) {
+    float d = sqrtf(fmaxf(d2[j], 0.0f));
+    dists[t * k + j] = d;
+    valid[t * k + j] = isfinite(d);
+    for (int a = 0; a < 3; ++a) points[(t * k + j) * 3 + a] = __ldg(xyz + 3 * row[j] + a);
+  }
+}
+
+__global__ void __launch_bounds__(lvs::kThreads)
+knn_lines(const int* __restrict__ keys, const float* __restrict__ xyz, int n, const int* __restrict__ origin,
+          float cell, const float* __restrict__ queries, const bool* __restrict__ mask, int q,
+          float* __restrict__ mu, float* __restrict__ v, bool* __restrict__ valid) {
+  int t = blockIdx.x * blockDim.x + threadIdx.x;
+  if (t >= q) return;
+  float d2[2];
+  int row[2];
+  k_nearest(keys, xyz, n, origin, cell, queries[3 * t + 0], queries[3 * t + 1], queries[3 * t + 2], 2, 8,
+            d2, row);
+  float a[3], ab[3];
+  for (int i = 0; i < 3; ++i) {
+    a[i] = __ldg(xyz + 3 * row[0] + i);
+    ab[i] = __ldg(xyz + 3 * row[1] + i) - a[i];
+  }
+  float d0 = sqrtf(fmaxf(d2[0], 0.0f)), d1 = sqrtf(fmaxf(d2[1], 0.0f));
+  float norm = sqrtf(dot3(ab[0], ab[1], ab[2], ab[0], ab[1], ab[2]));
+  valid[t] = mask[t] && isfinite(d0) && isfinite(d1) && d0 * d0 < 25.0f && norm > 1e-3f;
+  float den = fmaxf(norm, 1e-9f);
+  for (int i = 0; i < 3; ++i) {
+    mu[3 * t + i] = a[i];
+    v[3 * t + i] = ab[i] / den;
+  }
+}
+
+__global__ void __launch_bounds__(lvs::kThreads)
+knn_planes(const int* __restrict__ keys, const float* __restrict__ xyz, int n, const int* __restrict__ origin,
+           float cell, const float* __restrict__ queries, const bool* __restrict__ mask, int q,
+           float* __restrict__ normal, float* __restrict__ offset, bool* __restrict__ valid) {
+  int t = blockIdx.x * blockDim.x + threadIdx.x;
+  if (t >= q) return;
+  float d2[3];
+  int row[3];
+  k_nearest(keys, xyz, n, origin, cell, queries[3 * t + 0], queries[3 * t + 1], queries[3 * t + 2], 3, 8,
+            d2, row);
+  float a[3], u[3], w[3];
+  for (int i = 0; i < 3; ++i) {
+    a[i] = __ldg(xyz + 3 * row[0] + i);
+    u[i] = __ldg(xyz + 3 * row[1] + i) - a[i];
+    w[i] = __ldg(xyz + 3 * row[2] + i) - a[i];
+  }
+  // jnp.cross as XLA contracts it: fma(u1, w2, -(u2 * w1)), ...
+  float nv[3] = {fma64(u[1], w[2], -__fmul_rn(u[2], w[1])), fma64(u[2], w[0], -__fmul_rn(u[0], w[2])),
+                 fma64(u[0], w[1], -__fmul_rn(u[1], w[0]))};
+  float norm = sqrtf(dot3(nv[0], nv[1], nv[2], nv[0], nv[1], nv[2]));
+  bool all_valid = true;
+  for (int j = 0; j < 3; ++j) all_valid = all_valid && isfinite(sqrtf(fmaxf(d2[j], 0.0f)));
+  float d0 = sqrtf(fmaxf(d2[0], 0.0f));
+  valid[t] = mask[t] && all_valid && d0 * d0 < 25.0f && norm > 1e-3f;
+  float den = fmaxf(norm, 1e-9f);
+  float nh[3] = {nv[0] / den, nv[1] / den, nv[2] / den};
+  for (int i = 0; i < 3; ++i) normal[3 * t + i] = nh[i];
+  offset[t] = -dot3(nh[0], nh[1], nh[2], a[0], a[1], a[2]);
+}
+
+}  // namespace
+
+extern "C" int lvs_knn_grid_keys(const float* xyz, const bool* mask, int n, float inv_cell, int* low,
+                                 int* origin, int* keys, cudaStream_t stream) {
+  knn_grid_init<<<1, 32, 0, stream>>>(low);
+  if (n > 0) knn_grid_cells<<<lvs::blocks_for(n), lvs::kThreads, 0, stream>>>(xyz, mask, n, inv_cell, low);
+  int threads = n > 1 ? n : 1;  // thread 0 writes the origin
+  knn_grid_keys<<<lvs::blocks_for(threads), lvs::kThreads, 0, stream>>>(xyz, mask, n, inv_cell, low, origin,
+                                                                         keys);
+  LVS_RETURN_LAST_ERROR();
+}
+
+extern "C" int lvs_knn_grid_gather(const long long* order, const float* xyz, int n, float* out,
+                                   cudaStream_t stream) {
+  if (n > 0) knn_grid_gather<<<lvs::blocks_for(n), lvs::kThreads, 0, stream>>>(order, xyz, n, out);
+  LVS_RETURN_LAST_ERROR();
+}
+
+extern "C" int lvs_knn(const int* keys, const float* xyz, int n, const int* origin, float cell,
+                       const float* queries, int q, int k, int slots, float* dists, float* points, bool* valid,
+                       cudaStream_t stream) {
+  if (k < 1 || k > kMaxK || n < 1) return static_cast<int>(cudaErrorInvalidValue);
+  if (q > 0)
+    knn_query<<<lvs::blocks_for(q), lvs::kThreads, 0, stream>>>(keys, xyz, n, origin, cell, queries, q, k, slots,
+                                                                dists, points, valid);
+  LVS_RETURN_LAST_ERROR();
+}
+
+extern "C" int lvs_lines_from_2nn(const int* keys, const float* xyz, int n, const int* origin, float cell,
+                                  const float* queries, const bool* mask, int q, float* mu, float* v,
+                                  bool* valid, cudaStream_t stream) {
+  if (n < 1) return static_cast<int>(cudaErrorInvalidValue);
+  if (q > 0)
+    knn_lines<<<lvs::blocks_for(q), lvs::kThreads, 0, stream>>>(keys, xyz, n, origin, cell, queries, mask, q, mu,
+                                                                v, valid);
+  LVS_RETURN_LAST_ERROR();
+}
+
+extern "C" int lvs_planes_from_3nn(const int* keys, const float* xyz, int n, const int* origin, float cell,
+                                   const float* queries, const bool* mask, int q, float* normal, float* offset,
+                                   bool* valid, cudaStream_t stream) {
+  if (n < 1) return static_cast<int>(cudaErrorInvalidValue);
+  if (q > 0)
+    knn_planes<<<lvs::blocks_for(q), lvs::kThreads, 0, stream>>>(keys, xyz, n, origin, cell, queries, mask, q,
+                                                                 normal, offset, valid);
+  LVS_RETURN_LAST_ERROR();
+}

@@ -1,6 +1,13 @@
 """Feature registration: point-to-line / point-to-plane Gauss-Newton (port of
-`lv_slam_tpu.lfa.registration`, the scan-to-map part).
+`lv_slam_tpu.lfa.registration`).
 
+- `lines_from_2nn` / `planes_from_3nn` (the scan-to-scan odometry's
+  correspondences: the line through the 2 nearest, the plane through the 3
+  nearest of the previous scan's features in a `KnnGrid`) are kernel 9k's
+  line and plane entries (`csrc/knn_grid.cu`) on CUDA tensors and
+  `lines_from_2nn_ref` / `planes_from_3nn_ref` on CPU tensors. Both round
+  the norms, the cross product and the plane offset as XLA's CPU fma chains
+  round the reference's (`ops.linalg3.fma32`).
 - `lines_from_fit` / `planes_from_fit` are kernel 10 (`csrc/lfa_fit.cu`) on
   CUDA tensors and `lines_from_fit_ref` / `planes_from_fit_ref` on CPU
   tensors: radius-gated eigen fits over the 8-cell probe of a `CellTable`.
@@ -9,8 +16,8 @@
 - `gn_solve` is kernel 11 (`csrc/lfa_gn.cu`) on CUDA tensors and
   `gn_solve_ref` on CPU tensors: all iterations in one launch.
 
-The KnnGrid branches and `lines_from_2nn` / `planes_from_3nn` serve only
-standalone feature odometry and raise `NotImplementedError` here.
+The fits' `KnnGrid` branches (5-NN fits on a sorted grid) have no caller in
+the reference and raise `NotImplementedError` here.
 """
 
 from __future__ import annotations
@@ -22,8 +29,10 @@ import torch
 from lv_slam_tpu_torch.core import se3
 from lv_slam_tpu_torch.kernels._build import F32, I32, PTR, Kernel, check_cuda, check_dtype, ptr
 from lv_slam_tpu_torch.lfa.features import _sum3
-from lv_slam_tpu_torch.ops.knn import CellTable, candidates_cell
-from lv_slam_tpu_torch.ops.linalg3 import eigh3x3
+from lv_slam_tpu_torch.ops.knn import KNN_KERNEL, CellTable, KnnGrid, candidates_cell, check_grid, knn_ref
+from lv_slam_tpu_torch.ops.linalg3 import dot3_fma, eigh3x3, fma32, sqrt32
+
+_DIST_SQ_THRESH = 25.0  # correspondence gate, A-LOAM's 25 m^2
 
 LINES_KERNEL = Kernel(
     "lines_from_fit",
@@ -64,7 +73,7 @@ class PlaneField(NamedTuple):
 def _require_table(grid) -> CellTable:
     if not isinstance(grid, CellTable):
         raise NotImplementedError(
-            "only the CellTable branch is ported (the sorted KnnGrid serves standalone LFA)"
+            "only the CellTable branch is ported (no caller fits on a sorted KnnGrid)"
         )
     return grid
 
@@ -158,12 +167,83 @@ def planes_from_fit(y: torch.Tensor, mask: torch.Tensor, grid, k: int = 5) -> Pl
     return PlaneField(n=n, d=d, valid=valid)
 
 
-def lines_from_2nn(*args, **kwargs):
-    raise NotImplementedError("lines_from_2nn serves standalone feature odometry: not ported yet")
+def lines_from_2nn_ref(y: torch.Tensor, mask: torch.Tensor, grid: KnnGrid) -> LineField:
+    """Plain PyTorch version of `lines_from_2nn`."""
+    dists, pts, valid = knn_ref(grid, y, 2)
+    a = pts[:, 0]
+    ab = pts[:, 1] - a
+    norm = sqrt32(dot3_fma(ab, ab))
+    ok = (
+        mask & valid[:, 0] & valid[:, 1]
+        & (dists[:, 0] * dists[:, 0] < _DIST_SQ_THRESH) & (norm > 1e-3)
+    )
+    return LineField(mu=a, v=ab / torch.clamp(norm, min=1e-9)[:, None], valid=ok)
 
 
-def planes_from_3nn(*args, **kwargs):
-    raise NotImplementedError("planes_from_3nn serves standalone feature odometry: not ported yet")
+def _cross_fma(u: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """u x w as XLA contracts `jnp.cross` on the CPU: fma(u1, w2, -(u2 w1)), ..."""
+    return torch.stack(
+        [
+            fma32(u[:, 1], w[:, 2], -(u[:, 2] * w[:, 1])),
+            fma32(u[:, 2], w[:, 0], -(u[:, 0] * w[:, 2])),
+            fma32(u[:, 0], w[:, 1], -(u[:, 1] * w[:, 0])),
+        ],
+        dim=1,
+    )
+
+
+def planes_from_3nn_ref(y: torch.Tensor, mask: torch.Tensor, grid: KnnGrid) -> PlaneField:
+    """Plain PyTorch version of `planes_from_3nn`."""
+    dists, pts, valid = knn_ref(grid, y, 3)
+    a = pts[:, 0]
+    n = _cross_fma(pts[:, 1] - a, pts[:, 2] - a)
+    norm = sqrt32(dot3_fma(n, n))
+    ok = (
+        mask & torch.all(valid, dim=1)
+        & (dists[:, 0] * dists[:, 0] < _DIST_SQ_THRESH) & (norm > 1e-3)
+    )
+    n_hat = n / torch.clamp(norm, min=1e-9)[:, None]
+    return PlaneField(n=n_hat, d=-dot3_fma(n_hat, a), valid=ok)
+
+
+def _nn_kernel(entry: str, second: tuple, y: torch.Tensor, mask: torch.Tensor, grid: KnnGrid):
+    """Launches a kernel-9k correspondence entry; returns (Q,3) floats,
+    `second`-shaped floats, valid."""
+    q = y.shape[0]
+    y, mask = y.contiguous(), mask.contiguous()
+    check_grid(entry, grid, y, mask)
+    check_dtype(entry, y, torch.float32, (q, 3))
+    check_dtype(entry, mask, torch.bool, (q,))
+    out3 = torch.empty((q, 3), dtype=torch.float32, device=y.device)
+    second = torch.empty((q, *second), dtype=torch.float32, device=y.device)
+    valid = torch.empty((q,), dtype=torch.bool, device=y.device)
+    KNN_KERNEL.call(
+        entry, ptr(grid.keys), ptr(grid.xyz), grid.keys.shape[0], ptr(grid.origin_cell), grid.cell_size,
+        ptr(y), ptr(mask), q, ptr(out3), ptr(second), ptr(valid),
+    )
+    KNN_KERNEL.launches += 1
+    return out3, second, valid
+
+
+def lines_from_2nn(y: torch.Tensor, mask: torch.Tensor, grid: KnnGrid) -> LineField:
+    """Odometry-style: the 2 nearest target edge points span the line;
+    accepted when both exist, the nearest within 5 m and the two more than
+    1 mm apart. Kernel 9k on CUDA, the plain version on CPU."""
+    if y.device.type == "cpu":
+        return lines_from_2nn_ref(y, mask, grid)
+    mu, v, valid = _nn_kernel("lvs_lines_from_2nn", (3,), y, mask, grid)
+    return LineField(mu=mu, v=v, valid=valid)
+
+
+def planes_from_3nn(y: torch.Tensor, mask: torch.Tensor, grid: KnnGrid) -> PlaneField:
+    """Odometry-style: the plane through the 3 nearest target surf points;
+    accepted when all three exist, the nearest within 5 m and the normal's
+    cross product longer than 1e-3. Kernel 9k on CUDA, the plain version on
+    CPU."""
+    if y.device.type == "cpu":
+        return planes_from_3nn_ref(y, mask, grid)
+    n, d, valid = _nn_kernel("lvs_planes_from_3nn", (), y, mask, grid)
+    return PlaneField(n=n, d=d, valid=valid)
 
 
 def _cross(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:

@@ -1,13 +1,29 @@
-"""Hashed cell tables: the LFA world maps (port of the cell-table part of
+"""Grid-bucketed k-nearest neighbours and hashed cell tables (port of
 `lv_slam_tpu.ops.knn`).
+
+The sorted grid (`KnnGrid`) serves standalone LFA's scan-to-scan odometry:
+the previous scan's less-sharp / less-flat features bucketed into 2 m cells
+and sorted by flat cell key, so a query finds each of its 27 neighbouring
+cells by binary search and takes the first `slots_per_cell` points of each
+as candidates (`knn`; the 2-point lines and 3-point planes of
+`lfa/registration.py` run on the same search).
+
+- `build_grid` is kernel 9g (`csrc/knn_grid.cu`) on CUDA tensors and
+  `build_grid_ref` on CPU tensors: cell keys, the per-axis minimum origin
+  over valid lanes, a stable `torch.sort` of the keys as glue, a gather.
+- `knn` is kernel 9k (same file) on CUDA tensors and `knn_ref` on CPU
+  tensors: the k nearest of the 27 x 8 candidates, ties to the lower
+  candidate index, as `lax.top_k` orders them.
 
 A `CellTable` stores the first S points of each 2 m cell directly in a
 hashed (B, S*4) table of [x, y, z, valid] slots, so a query batch reads the
-8 cells around each query with one row gather (`candidates_cell`). The maps
-grow by one bounded feature batch per scan (`insert_cell_table_`: dedup-first
-at the mapping resolution, the map wins; a full bucket drops the overflow)
-and shrink by a radius crop (`crop_cell_table_`), which frees slots. Both
-update the table in place: the caller owns the table it passes.
+8 cells around each query with one row gather (`candidates_cell`). The
+device-resident LFA's maps grow by one bounded feature batch per scan
+(`insert_cell_table_`: dedup-first at the mapping resolution, the map wins;
+a full bucket drops the overflow) and shrink by a radius crop
+(`crop_cell_table_`), which frees slots. Both update the table in place:
+the caller owns the table it passes. The host mapping instead rebuilds its
+tables from its map buffers every scan (`build_cell_table`).
 
 - `insert_cell_table_` is kernel 9a (`csrc/cell_table.cu`) on CUDA tensors
   and `insert_cell_table_ref_` on CPU tensors; both sort with the same two
@@ -15,9 +31,18 @@ update the table in place: the caller owns the table it passes.
 - `crop_cell_table_` is kernel 9b (same file) on CUDA tensors and
   `crop_cell_table_ref_` on CPU tensors. It can gate itself on the LFA's
   `crop_interval` without a host read.
+- `build_cell_table` is kernel 9c (same file) on CUDA tensors and
+  `build_cell_table_ref` on CPU tensors: bucket keys, a stable `torch.sort`
+  as glue, each bucket run's first S rows written to their slots.
 
-The sorted-grid k-NN (`build_grid`, `knn`) and `build_cell_table` /
-`knn_cell` serve only standalone LFA and are not ported yet.
+`knn_cell` (the 8-cell k-NN on a cell table) has no caller on a ported path
+and is not ported yet.
+
+Rounding: a cell coordinate of a build is `floor(x * (1/cell))`, as XLA
+compiles the reference's division by a constant; a query's is a true
+division by the grid's carried cell size (both exact for the 2 m cell).
+Squared distances are the fma chain XLA makes of the reference's
+`jnp.sum(d ** 2, -1)` on the CPU (`ops.linalg3.dot3_fma`).
 """
 
 from __future__ import annotations
@@ -28,12 +53,47 @@ import numpy as np
 import torch
 
 from lv_slam_tpu_torch.kernels._build import F32, I32, PTR, Kernel, check_cuda, check_dtype, ptr
-from lv_slam_tpu_torch.ops.linalg3 import _div
+from lv_slam_tpu_torch.ops.linalg3 import _div, dot3_fma, sqrt32
 from lv_slam_tpu_torch.ops.prefilter import _pack_yz, _unpack_yz, cell_coords, inv_resolution
 
 _H1, _H2, _H3 = 73856093, 19349669, 83492791  # classic spatial-hash primes
 _U32 = 0xFFFFFFFF
 _BIG = 1 << 30
+_EXTENT = 1024        # cells per axis of a KnnGrid: 1024^3 flat keys fit int32
+_KEY_MAX = 2**31 - 1  # key of masked lanes and of cells out of the extent
+MAX_K = 8             # neighbours a `knn` query may ask for
+
+GRID_KERNEL = Kernel(
+    "build_grid",
+    source="lv_slam_tpu_torch/csrc/knn_grid.cu",
+    replaces="lv_slam_tpu/ops/knn.py:39",
+    entries={
+        "lvs_knn_grid_keys": [PTR, PTR, I32, F32, PTR, PTR, PTR],
+        "lvs_knn_grid_gather": [PTR, PTR, I32, PTR],
+    },
+)
+KNN_KERNEL = Kernel(
+    "knn",
+    source="lv_slam_tpu_torch/csrc/knn_grid.cu",
+    replaces="lv_slam_tpu/ops/knn.py:280",
+    entries={
+        # keys, xyz, n, origin, cell, queries, q, k, slots -> dists, points, valid
+        "lvs_knn": [PTR, PTR, I32, PTR, F32, PTR, I32, I32, I32, PTR, PTR, PTR],
+        # keys, xyz, n, origin, cell, queries, mask, q -> mu, v, valid
+        "lvs_lines_from_2nn": [PTR, PTR, I32, PTR, F32, PTR, PTR, I32, PTR, PTR, PTR],
+        # keys, xyz, n, origin, cell, queries, mask, q -> n, d, valid
+        "lvs_planes_from_3nn": [PTR, PTR, I32, PTR, F32, PTR, PTR, I32, PTR, PTR, PTR],
+    },
+)
+BUILD_TABLE_KERNEL = Kernel(
+    "build_cell_table",
+    source="lv_slam_tpu_torch/csrc/cell_table.cu",
+    replaces="lv_slam_tpu/ops/knn.py:93",
+    entries={
+        "lvs_table_keys": [PTR, PTR, I32, I32, F32, PTR],
+        "lvs_table_build": [PTR, PTR, PTR, I32, I32, I32, PTR],
+    },
+)
 
 INSERT_KERNEL = Kernel(
     "insert_cell_table",
@@ -246,3 +306,192 @@ def candidates_cell(table: CellTable, queries: torch.Tensor) -> Tuple[torch.Tens
     cand = table.table[b].reshape(q, 8, s, 4)
     ok = (cand[..., 3] > 0.5) & ~dup[:, :, None]
     return cand[..., :3].reshape(q, 8 * s, 3), ok.reshape(q, 8 * s)
+
+
+def _default_buckets(n: int) -> int:
+    """The reference's default table size: ~2N buckets, in [2^12, 2^18]."""
+    return 1 << max(12, min(18, (2 * n - 1).bit_length()))
+
+
+def _table_keys_ref(xyz: torch.Tensor, mask: torch.Tensor, cell_size: float, n_buckets: int) -> torch.Tensor:
+    """int32 bucket of each row's cell; B for masked rows."""
+    return torch.where(mask, _bucket(cell_coords(xyz, cell_size), n_buckets), n_buckets).to(torch.int32)
+
+
+def build_cell_table_ref(
+    xyz: torch.Tensor, mask: torch.Tensor, cell_size: float, n_buckets: Optional[int] = None, slots: int = 8
+) -> CellTable:
+    """Plain PyTorch version of `build_cell_table`, line for line with the
+    reference: stable bucket sort, each row's rank in its bucket run, one
+    scatter of the rows ranked below `slots`."""
+    n = xyz.shape[0]
+    n_buckets = n_buckets or _default_buckets(n)
+    sb, order = torch.sort(_table_keys_ref(xyz, mask, cell_size, n_buckets), stable=True)
+    idx = torch.arange(n, device=xyz.device)
+    new_seg = torch.ones((n,), dtype=torch.bool, device=xyz.device)
+    new_seg[1:] = sb[1:] != sb[:-1]
+    rank = idx - torch.cummax(torch.where(new_seg, idx, 0), dim=0).values
+    ok = mask[order] & (rank < slots) & (sb < n_buckets)
+    rows = torch.cat([xyz[order], torch.ones_like(xyz[:, :1])], dim=1)
+    table = torch.zeros((n_buckets * slots, 4), dtype=torch.float32, device=xyz.device)
+    table[(sb.to(torch.int64) * slots + rank)[ok]] = rows[ok]  # the targets are distinct
+    return CellTable(table=table.view(n_buckets, slots * 4), cell_size=float(np.float32(cell_size)))
+
+
+def build_cell_table(
+    xyz: torch.Tensor, mask: torch.Tensor, cell_size: float, n_buckets: Optional[int] = None, slots: int = 8
+) -> CellTable:
+    """xyz (N,3), mask (N,) -> a hashed (B, S*4) table holding the first
+    `slots` points of each bucket in input order. `n_buckets` defaults to
+    ~2N. Kernel 9c on CUDA, the plain version on CPU."""
+    if xyz.device.type == "cpu":
+        return build_cell_table_ref(xyz, mask, cell_size, n_buckets, slots)
+    n = xyz.shape[0]
+    n_buckets = n_buckets or _default_buckets(n)
+    xyz, mask = xyz.contiguous(), mask.contiguous()
+    check_cuda("build_cell_table", xyz, mask)
+    check_dtype("build_cell_table", xyz, torch.float32, (n, 3))
+    check_dtype("build_cell_table", mask, torch.bool, (n,))
+    b = torch.empty((n,), dtype=torch.int32, device=xyz.device)
+    BUILD_TABLE_KERNEL.call(
+        "lvs_table_keys", ptr(xyz), ptr(mask), n, n_buckets, inv_resolution(cell_size), ptr(b)
+    )
+    sb, order = torch.sort(b, stable=True)
+    table = torch.empty((n_buckets, slots * 4), dtype=torch.float32, device=xyz.device)
+    BUILD_TABLE_KERNEL.call(
+        "lvs_table_build", ptr(sb), ptr(order), ptr(xyz), n, n_buckets, slots, ptr(table)
+    )
+    BUILD_TABLE_KERNEL.launches += 1
+    return CellTable(table=table, cell_size=float(np.float32(cell_size)))
+
+
+# ---------------------------------------------------------------- sorted grid
+
+
+class KnnGrid(NamedTuple):
+    keys: torch.Tensor         # (N,) int32 ascending flat cell keys (pad: INT32_MAX)
+    xyz: torch.Tensor          # (N, 3) points sorted by key
+    origin_cell: torch.Tensor  # (3,) int32
+    cell_size: float
+
+
+def _grid_keys_ref(xyz: torch.Tensor, mask: torch.Tensor, cell_size: float):
+    """(int32 flat keys, INT32_MAX for masked lanes and out of the extent;
+    int32 origin: the per-axis minimum cell over valid lanes, 0 without one)."""
+    coords = cell_coords(xyz, cell_size).to(torch.int64)
+    origin = torch.where(mask[:, None], coords, _BIG).amin(dim=0)
+    origin = torch.where(origin == _BIG, 0, origin)
+    rel = coords - origin
+    e = _EXTENT
+    ok = torch.all((rel >= 0) & (rel < e), dim=1) & mask
+    flat = (rel[:, 0] * e + rel[:, 1]) * e + rel[:, 2]
+    return torch.where(ok, flat, _KEY_MAX).to(torch.int32), origin.to(torch.int32)
+
+
+def build_grid_ref(xyz: torch.Tensor, mask: torch.Tensor, cell_size: float) -> KnnGrid:
+    """Plain PyTorch version of `build_grid`."""
+    keys, origin = _grid_keys_ref(xyz, mask, cell_size)
+    skeys, order = torch.sort(keys, stable=True)
+    return KnnGrid(keys=skeys, xyz=xyz[order], origin_cell=origin, cell_size=float(np.float32(cell_size)))
+
+
+def build_grid(xyz: torch.Tensor, mask: torch.Tensor, cell_size: float) -> KnnGrid:
+    """xyz (N,3), mask (N,) -> the points sorted by cell key; equal keys keep
+    input order. Kernel 9g on CUDA, the plain version on CPU."""
+    if xyz.device.type == "cpu":
+        return build_grid_ref(xyz, mask, cell_size)
+    n = xyz.shape[0]
+    xyz, mask = xyz.contiguous(), mask.contiguous()
+    check_cuda("build_grid", xyz, mask)
+    check_dtype("build_grid", xyz, torch.float32, (n, 3))
+    check_dtype("build_grid", mask, torch.bool, (n,))
+    dev = xyz.device
+    keys = torch.empty((n,), dtype=torch.int32, device=dev)
+    low = torch.empty((3,), dtype=torch.int32, device=dev)  # scratch: the atomicMin target
+    origin = torch.empty((3,), dtype=torch.int32, device=dev)
+    GRID_KERNEL.call(
+        "lvs_knn_grid_keys", ptr(xyz), ptr(mask), n, inv_resolution(cell_size), ptr(low), ptr(origin), ptr(keys)
+    )
+    skeys, order = torch.sort(keys, stable=True)
+    out = torch.empty((n, 3), dtype=torch.float32, device=dev)
+    GRID_KERNEL.call("lvs_knn_grid_gather", ptr(order), ptr(xyz), n, ptr(out))
+    GRID_KERNEL.launches += 1
+    return KnnGrid(keys=skeys, xyz=out, origin_cell=origin, cell_size=float(np.float32(cell_size)))
+
+
+def _off27(device) -> torch.Tensor:
+    """The 27 neighbour offsets (i, j, k), i outermost: the reference's `_OFF27`."""
+    p = torch.arange(27, dtype=torch.int64, device=device)
+    return torch.stack([p // 9, (p // 3) % 3, p % 3], dim=1) - 1
+
+
+def knn_candidates(grid: KnnGrid, queries: torch.Tensor, slots_per_cell: int = 8):
+    """(points (Q, 27*S, 3), hit (Q, 27*S)): the first S rows at or after each
+    neighbour cell's binary-search start, the index clamped to the last row,
+    in the reference's order (cell-major, `_OFF27` order). A candidate hits
+    when its row holds that cell; cells out of the extent never hit."""
+    e = _EXTENT
+    coords = torch.floor(_div(queries, grid.cell_size)).to(torch.int32).to(torch.int64)
+    rel = coords[:, None, :] - grid.origin_cell.to(torch.int64) + _off27(queries.device)
+    in_extent = torch.all((rel >= 0) & (rel < e), dim=-1)
+    flat = (rel[..., 0] * e + rel[..., 1]) * e + rel[..., 2]
+    cell_key = torch.where(in_extent, flat, _KEY_MAX).to(torch.int32)
+    start = torch.searchsorted(grid.keys, cell_key)  # side "left"
+    slot = torch.arange(slots_per_cell, device=queries.device)
+    idx = torch.clamp(start[..., None] + slot, max=grid.keys.shape[0] - 1)
+    hit = (grid.keys[idx] == cell_key[..., None]) & in_extent[..., None]
+    q = queries.shape[0]
+    return grid.xyz[idx].reshape(q, -1, 3), hit.reshape(q, -1)
+
+
+def knn_ref(
+    grid: KnnGrid, queries: torch.Tensor, k: int, slots_per_cell: int = 8
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Plain PyTorch version of `knn`: a stable ascending sort of the
+    candidates' squared distances (misses at +inf) is `lax.top_k`'s order."""
+    cand, hit = knn_candidates(grid, queries, slots_per_cell)
+    d = queries[:, None, :] - cand
+    d2 = torch.where(hit, dot3_fma(d, d), torch.inf)
+    d2, top = torch.sort(d2, dim=1, stable=True)
+    dists = sqrt32(torch.clamp(d2[:, :k], min=0.0))
+    points = torch.gather(cand, 1, top[:, :k, None].expand(-1, -1, 3))
+    return dists, points, torch.isfinite(dists)
+
+
+def check_grid(name: str, grid: KnnGrid, *tensors: torch.Tensor) -> None:
+    """The grid and the query tensors are contiguous CUDA tensors of the kernels' types."""
+    n = grid.keys.shape[0]
+    check_cuda(name, grid.keys, grid.xyz, grid.origin_cell, *tensors)
+    check_dtype(name, grid.keys, torch.int32, (n,))
+    check_dtype(name, grid.xyz, torch.float32, (n, 3))
+    check_dtype(name, grid.origin_cell, torch.int32, (3,))
+    if n == 0:
+        raise ValueError(f"{name}: empty grid")
+
+
+def knn(
+    grid: KnnGrid, queries: torch.Tensor, k: int, slots_per_cell: int = 8
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """For each query (Q,3): (dists (Q,k), points (Q,k,3), valid (Q,k)), the
+    k nearest of the first `slots_per_cell` stored points of the 27 cells
+    around it, ascending, ties to the lower candidate index; misses have
+    dist +inf and valid False. Kernel 9k on CUDA (k <= 8), the plain version
+    on CPU."""
+    if queries.device.type == "cpu":
+        return knn_ref(grid, queries, k, slots_per_cell)
+    if not 1 <= k <= MAX_K:
+        raise ValueError(f"knn: k must be in [1, {MAX_K}], got {k}")
+    q = queries.shape[0]
+    queries = queries.contiguous()
+    check_grid("knn", grid, queries)
+    check_dtype("knn", queries, torch.float32, (q, 3))
+    dev = queries.device
+    dists = torch.empty((q, k), dtype=torch.float32, device=dev)
+    points = torch.empty((q, k, 3), dtype=torch.float32, device=dev)
+    valid = torch.empty((q, k), dtype=torch.bool, device=dev)
+    KNN_KERNEL.call(
+        "lvs_knn", ptr(grid.keys), ptr(grid.xyz), grid.keys.shape[0], ptr(grid.origin_cell), grid.cell_size,
+        ptr(queries), q, k, slots_per_cell, ptr(dists), ptr(points), ptr(valid),
+    )
+    KNN_KERNEL.launches += 1
+    return dists, points, valid

@@ -24,6 +24,27 @@ def _div(x: torch.Tensor, c: float) -> torch.Tensor:
     return x / x.new_full((), c)
 
 
+def fma32(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
+    """float32 fma(a, b, c), the form XLA's CPU backend contracts a float32
+    product and sum into: the float64 product is exact, and the sum is
+    rounded to float64, then to float32 (the kernels round the same way)."""
+    return (a.double() * b.double() + c.double()).to(a.dtype)
+
+
+def sqrt32(x: torch.Tensor) -> torch.Tensor:
+    """The correctly rounded float32 square root (torch's vectorized float32
+    `sqrt` on the CPU is not: it differs from XLA's and CUDA's `sqrtf` by an
+    ulp now and then); the float64 root rounded to float32 is."""
+    return torch.sqrt(x.double()).to(x.dtype)
+
+
+def dot3_fma(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """fma(a2, b2, fma(a1, b1, a0 * b0)) over the last axis: how the
+    reference's compiled programs sum three float32 products on the CPU
+    (`jnp.sum(x * y, -1)`, `jnp.linalg.norm`)."""
+    return fma32(a[..., 2], b[..., 2], fma32(a[..., 1], b[..., 1], a[..., 0] * b[..., 0]))
+
+
 def eigh3x3(a: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     """a: (..., 3, 3) symmetric -> (evals (..., 3) ascending, evecs (..., 3, 3)),
     evecs columns matching evals."""

@@ -61,9 +61,13 @@ class GlobalGraph:
         vocabulary=None,
         prefilter_cfg: Optional[PrefilterConfig] = None,
         device="cuda",
+        calib_tr: Optional[np.ndarray] = None,
     ):
         self.cfg = cfg or GraphConfig()
         self.loop_cfg = loop_cfg or LoopDetectorConfig()
+        # camera->lidar calibration (4,4), for the camera-frame pose files of
+        # the dump / save_pose services (ROADMAP item 9)
+        self.tr = np.eye(4) if calib_tr is None else np.asarray(calib_tr, np.float64)
         self.keyframe_cloud_cap = keyframe_cloud_cap
         self.prefilter_cfg = prefilter_cfg or PrefilterConfig()
         self.device = torch.device(device)

@@ -4,6 +4,9 @@ hold the port to it (CPU; needs JAX):
 
     JAX_PLATFORMS=cpu python scripts/reference_spread.py eigh      # ~10 s
     JAX_PLATFORMS=cpu python scripts/reference_spread.py backend   # ~2 min
+    JAX_PLATFORMS=cpu python scripts/reference_spread.py lfa       # ~1 min
+    JAX_PLATFORMS=cpu python scripts/reference_spread.py lfa_host  # ~2 min
+    JAX_PLATFORMS=cpu python scripts/reference_spread.py slam      # ~2 min
 
 `eigh`: JAX's and the port's `eigh3x3` on matrices with an exactly repeated
 eigenvalue pair (seeds 13-44, `tests/test_torch_voxel_map.py`'s generator):
@@ -15,6 +18,20 @@ isolated one over the test's 1e-5 tolerance.
 same run with every filtered coordinate moved by at most one ulp (4
 perturbations each): keyframes and loop pairs of each perturbed run, and,
 where those stay, the largest move of a keyframe estimate.
+
+`lfa`: standalone `run_sequence_lfa` (no odometry) on the conftest
+`small_sequence`, in `tests/test_torch_lfa_fused.py`'s default and
+`crop_every_scan` variants, against the same run with every valid input
+coordinate moved by at most one ulp (8 perturbations): per scan, the
+largest move of the refined translation, and of a rotation entry.
+
+`lfa_host`: the host `LfaPipeline` on `tests/test_lfa.py`'s 8-scan figure-8
+(32 rings x 900), the same 8 perturbations of the raw scans: per scan, the
+largest move of the odometry and of the refined pose.
+
+`slam`: `LvSlam(use_dlo=False)` on `small_sequence` with
+`tests/test_slam_pipeline.py`'s small configuration, 8 perturbations: per
+scan, the largest move of the LFA pose; keyframes and loops of each run.
 """
 
 from __future__ import annotations
@@ -88,5 +105,88 @@ def backend() -> None:
                   f"a rotation entry by {rot:.3g}")
 
 
+def _nudge(xyz: np.ndarray, valid: np.ndarray, seed: int) -> np.ndarray:
+    """Every valid float32 coordinate moved by -1, 0 or +1 ulp."""
+    rng = np.random.default_rng(seed)
+    step = rng.integers(-1, 2, xyz.shape)
+    moved = np.where(step > 0, np.nextafter(xyz, np.float32(np.inf)),
+                     np.where(step < 0, np.nextafter(xyz, np.float32(-np.inf)), xyz))
+    return np.where(valid[..., None], moved, xyz).astype(np.float32)
+
+
+def _spread(runs):
+    """(per-scan largest translation move, largest rotation-entry move) of
+    runs[1:] against runs[0], each (N, 4, 4)."""
+    base = runs[0]
+    dt = np.max([np.abs(r[:, :3, 3] - base[:, :3, 3]).max(axis=1) for r in runs[1:]], axis=0)
+    rot = max(float(np.abs(r[:, :3, :3] - base[:, :3, :3]).max()) for r in runs[1:])
+    return np.array2string(dt, formatter={"float_kind": lambda x: f"{x:.3g}"}), f"{rot:.3g}"
+
+
+def lfa() -> None:
+    import jax.numpy as jnp
+
+    import conftest
+    import test_torch_lfa_fused as t
+    from lv_slam_tpu.config import LfaConfig
+    from lv_slam_tpu.core.cloud import PointCloud
+    from lv_slam_tpu.lfa.fused import run_sequence_lfa
+
+    scans, _, _ = conftest.small_sequence.__wrapped__()
+    clouds = [PointCloud.from_numpy(s, cap=t.CAP) for s in scans]
+    xyz = np.stack([np.asarray(c.xyz) for c in clouds])
+    mask = np.stack([np.asarray(c.mask) for c in clouds])
+    for variant in ("default", "crop_every_scan"):
+        cfg = LfaConfig(**t.KW, **t.VARIANTS[variant])
+        runs = [np.asarray(run_sequence_lfa(jnp.asarray(x), jnp.asarray(mask), cfg))
+                for x in [xyz] + [_nudge(xyz, mask, seed) for seed in range(8)]]
+        dt, rot = _spread(runs)
+        print(f"{variant}: refined translation moves per scan {dt} m, rotation entries up to {rot}")
+
+
+def lfa_host() -> None:
+    import test_lfa as t
+    from lv_slam_tpu.lfa.pipeline import LfaPipeline
+
+    scans, _ = t.lfa_sequence.__wrapped__()
+    odom_runs, refined_runs = [], []
+    for seed in [None] + list(range(8)):
+        pipe = LfaPipeline(t._CFG)
+        odoms, refined = [], []
+        for s in scans:
+            s = np.asarray(s, np.float32)
+            if seed is not None:
+                s = np.concatenate([_nudge(s[:, :3], np.ones(len(s), bool), seed), s[:, 3:]], axis=1)
+            refined.append(pipe.process_numpy(s, cap=32768))
+            odoms.append(pipe.odometry._pose.copy())
+        odom_runs.append(np.stack(odoms))
+        refined_runs.append(np.stack(refined))
+    for name, runs in (("odometry", odom_runs), ("refined", refined_runs)):
+        dt, rot = _spread(runs)
+        print(f"{name}: translation moves per scan {dt} m, rotation entries up to {rot}")
+
+
+def slam() -> None:
+    import conftest
+    import test_slam_pipeline as t
+    from lv_slam_tpu.pipeline.slam import LvSlam
+
+    scans, _, _ = conftest.small_sequence.__wrapped__()
+    runs = []
+    for seed in [None] + list(range(8)):
+        slam_ = LvSlam(t._small_cfg(), use_dlo=False, optimize_every=4, scan_cap=32768)
+        for i, s in enumerate(scans):
+            s = np.asarray(s, np.float32)
+            if seed is not None:
+                s = np.concatenate([_nudge(s[:, :3], np.ones(len(s), bool), seed), s[:, 3:]], axis=1)
+            slam_.process(s, i * 0.1)
+        slam_.finalize()
+        runs.append(np.stack(slam_.lfa_poses))
+        print(f"run {seed}: keyframes {[k.seq for k in slam_.backend.keyframes]}, loops "
+              f"{[(lp.key1.seq, lp.key2.seq) for lp in slam_.backend.loops]}")
+    dt, rot = _spread(runs)
+    print(f"LFA poses: translation moves per scan {dt} m, rotation entries up to {rot}")
+
+
 if __name__ == "__main__":
-    {"eigh": eigh, "backend": backend}[sys.argv[1]]()
+    {"eigh": eigh, "backend": backend, "lfa": lfa, "lfa_host": lfa_host, "slam": slam}[sys.argv[1]]()

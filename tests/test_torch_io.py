@@ -17,19 +17,28 @@ from lv_slam_tpu_torch.io import kitti, synthetic  # noqa: E402
 
 @pytest.mark.parametrize(
     "name",
-    ["PrefilterConfig", "NDTConfig", "OdometryConfig", "LfaConfig", "LoopDetectorConfig", "GraphConfig"],
+    ["PrefilterConfig", "NDTConfig", "OdometryConfig", "LfaConfig", "LoopDetectorConfig", "GraphConfig",
+     "PipelineConfig"],
 )
 def test_config_matches_reference(name):
     """Each of the port's fields has the reference's default, in the stage
-    config and in the flagship configuration; the loop-detector and graph
-    configs copy every field, field by field."""
+    config and in the flagship configuration; the LFA, loop-detector, graph
+    and pipeline configs copy every field, field by field (the pipeline's
+    stages as the stage configs, its calibration as it is)."""
 
     def same(port, ref):
         port, ref = dataclasses.asdict(port), dataclasses.asdict(ref)
         assert port == {k: ref[k] for k in port}
 
-    same(getattr(config, name)(), getattr(ref_config, name)())
-    if name in ("LoopDetectorConfig", "GraphConfig"):
+    if name == "PipelineConfig":
+        port, ref = config.PipelineConfig(), ref_config.PipelineConfig()
+        assert [f.name for f in dataclasses.fields(port)] == [f.name for f in dataclasses.fields(ref)]
+        assert port.calib_tr == ref.calib_tr
+        for stage in ("prefilter", "odometry", "lfa", "loop", "graph"):
+            same(getattr(port, stage), getattr(ref, stage))
+    else:
+        same(getattr(config, name)(), getattr(ref_config, name)())
+    if name in ("LfaConfig", "LoopDetectorConfig", "GraphConfig"):
         fields = [f.name for f in dataclasses.fields(getattr(config, name))]
         assert fields == [f.name for f in dataclasses.fields(getattr(ref_config, name))]
     port, ref = config.kitti_flagship_config(), ref_config.kitti_flagship_config()

@@ -12,6 +12,7 @@ import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+torch.set_num_threads(1)  # small CPU ops: more threads per xdist worker only oversubscribe the cores
 
 from lv_slam_tpu.io import synthetic  # noqa: E402
 from lv_slam_tpu_torch.config import LfaConfig  # noqa: E402
@@ -40,7 +41,7 @@ def _calls(device, scans):
     """Every wrapper once, on `device`, at small shapes: (name, wrapper output,
     plain output) for each kernel."""
     return (_odometry_calls(device, scans) + _lfa_calls(device, scans) + _backend_calls(device, scans)
-            + _camera_calls(device))
+            + _camera_calls(device) + _standalone_calls(device, scans))
 
 
 def _odometry_calls(device, scans):
@@ -183,12 +184,35 @@ def _camera_calls(device):
     return out
 
 
+def _standalone_calls(device, scans):
+    """K9g on scan 0's less-sharp and less-flat features, K9k's three
+    entries with scan 1's features at the true relative pose as queries,
+    and K9c on scan 0's less-flat features, 1024 buckets (some overflow)."""
+    (s0, s1), rel = scans
+    c0, c1 = (PointCloud.from_numpy(s, cap=16384, device=device) for s in (s0, s1))
+    f0, f1 = features.extract_features_ref(c0, LFA), features.extract_features_ref(c1, LFA)
+    edge = knn.build_grid(f0.less_sharp, f0.less_sharp_mask, 2.0)
+    out = [("build_grid", edge, knn.build_grid_ref(f0.less_sharp, f0.less_sharp_mask, 2.0))]
+    surf = knn.build_grid(f0.less_flat, f0.less_flat_mask, 2.0)
+    t = torch.from_numpy(rel.astype(np.float32)).to(device)
+    ye, ys = se3.transform_points(t, f1.sharp), se3.transform_points(t, f1.flat)
+    out.append(("knn", knn.knn(surf, ys, 5), knn.knn_ref(surf, ys, 5)))
+    out.append(("lines_from_2nn", registration.lines_from_2nn(ye, f1.sharp_mask, edge),
+                registration.lines_from_2nn_ref(ye, f1.sharp_mask, edge)))
+    out.append(("planes_from_3nn", registration.planes_from_3nn(ys, f1.flat_mask, surf),
+                registration.planes_from_3nn_ref(ys, f1.flat_mask, surf)))
+    args = (f0.less_flat, f0.less_flat_mask, 2.0, 1024, LFA.knn_slots)
+    out.append(("build_cell_table", knn.build_cell_table(*args), knn.build_cell_table_ref(*args)))
+    return out
+
+
 def test_registry_names_sources_and_replaced_functions():
     assert set(KERNELS) == {
         "voxel_downsample", "build_voxel_map", "to_hash", "ndt_derivatives_hash", "extract_features",
         "insert_cell_table", "crop_cell_table", "lines_from_fit", "planes_from_fit", "gn_solve",
         "voxel_dedup_first", "window_group_filtered_fn", "_fused_verify_fn", "build_centroid_grid",
         "nn_sq_dists", "_chi2_and_normal", "_detect_pyramid_batch", "match_scores_batch",
+        "build_grid", "knn", "build_cell_table",
     }
     for name, k in KERNELS.items():
         assert (REPO / k.source).is_file(), k.source
@@ -323,3 +347,22 @@ def test_camera_kernels_match_plain_versions_on_the_card(cuda):
     assert torch.equal(got, want) and int(got[:, :, 36].sum()) > 100
     (got,), (want,) = results["match_scores_batch"]
     assert torch.equal(got, want) and float(got[0]) == 1.0
+
+
+@pytest.mark.gpu
+def test_standalone_lfa_kernels_match_plain_versions_on_the_card(cuda, scans):
+    reset_launches()
+    results = {name: (got, want) for name, got, want in _standalone_calls(cuda, scans)}
+    torch.cuda.synchronize()
+    assert {name: k.launches for name, k in KERNELS.items() if k.launches} == {
+        "build_grid": 2, "knn": 3, "build_cell_table": 1,
+    }
+    # K9g, K9k, K9c: grids, neighbours, lines, planes and tables identical
+    # (both round the distances as the same float64 fma chain)
+    for name, (got, want) in results.items():
+        for a, b in zip(got, want):
+            if isinstance(a, torch.Tensor):
+                assert torch.equal(a, b), name
+            else:
+                assert a == b, name
+    assert int(results["lines_from_2nn"][0].valid.sum()) > 0 and int(results["planes_from_3nn"][0].valid.sum()) > 0

@@ -1,16 +1,26 @@
-"""The port's LFA world-map tables (kernel 9's plain twins on the CPU)
-against lv_slam_tpu.ops.knn: insert and crop are exact, slot for slot.
+"""The port's LFA world-map tables and sorted k-NN grid (kernel 9's plain
+twins on the CPU) against lv_slam_tpu.ops.knn: insert, crop and the
+whole-table build are exact, slot for slot; the grid build is identical
+(keys, point order, origin) and the k-NN results are identical (distances,
+points, valid flags).
 
 The features of the conftest `small_sequence` go into empty tables at the
 true poses, scan after scan, as the LFA's maps grow. The reference's insert
 runs under jit with the resolution a compiled-in constant, as in its LFA
 step, so XLA multiplies by the float32 reciprocal of the resolution; the
-port does the same (`ops.prefilter.inv_resolution`)."""
+port does the same (`ops.prefilter.inv_resolution`). The k-NN squared
+distances are the fma chain XLA's CPU backend makes of the reference's
+sum of squares, which the port rounds alike (`ops.linalg3.dot3_fma`): the
+two agree bit for bit on every query here (no tie of near-equal candidates
+swaps), so the tests demand identity."""
+
+import functools
 
 import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+torch.set_num_threads(1)  # small CPU ops: more threads per xdist worker only oversubscribe the cores
 
 import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
@@ -134,3 +144,83 @@ def test_candidates_match(batches):
     np.testing.assert_array_equal(ot, oj)
     np.testing.assert_array_equal(pt[ot], pj[oj])
     assert ot.any()
+
+
+def _jit_build_grid(xyz, mask):
+    """The reference's grid build as its callers compile it: the 2 m cell a constant."""
+    return jax.jit(functools.partial(jk.build_grid, cell_size=2.0))(jnp.asarray(xyz), jnp.asarray(mask))
+
+
+def _grid_inputs(batches, case):
+    """(xyz, mask) of scan 0's world-frame less-sharp features: as extracted
+    (padded lanes at the end), only the valid lanes, or all lanes masked."""
+    xyz, mask = batches[0][0][0], batches[0][0][1]
+    if case == "all_valid":
+        return xyz[mask].copy(), np.ones(int(mask.sum()), bool)
+    if case == "all_invalid":
+        return xyz, np.zeros_like(mask)
+    return xyz, mask
+
+
+def _same(got, want, name):
+    for field, a, b in zip(("keys", "xyz", "origin_cell"), got, want):
+        np.testing.assert_array_equal(a.numpy(), np.asarray(b), err_msg=f"{name}.{field}")
+
+
+@pytest.mark.parametrize("case", ["padded", "all_valid", "all_invalid"])
+def test_build_grid_matches(batches, case):
+    """Keys, point order and origin identical: the origin is the minimum
+    cell over valid lanes (0 with none), masked lanes key INT32_MAX and sort
+    last, equal keys keep input order."""
+    xyz, mask = _grid_inputs(batches, case)
+    want = _jit_build_grid(xyz, mask)
+    got = tk.build_grid(torch.from_numpy(xyz), torch.from_numpy(mask), 2.0)
+    _same(got, want, case)
+    assert got.cell_size == float(want.cell_size) == 2.0
+    n_valid = int(mask.sum())
+    assert (got.keys.numpy()[n_valid:] == 2**31 - 1).all()
+    if case == "all_invalid":
+        assert (got.origin_cell.numpy() == 0).all()
+
+
+def _queries(batches, grid_xyz):
+    """Scan 1's world-frame less-sharp features, a point far outside the
+    grid's 2 km extent, a sentinel, and the last grid row itself (in an
+    all-valid grid its cell run ends at the last row, so the clamped slots
+    repeat it)."""
+    q = batches[0][1][0][batches[0][1][1]]
+    extra = np.array([[5000.0, 0.0, 0.0], [1e6, 1e6, 1e6]], np.float32)
+    return np.concatenate([q, extra, grid_xyz[-1:]]).astype(np.float32)
+
+
+@pytest.mark.parametrize("k", [2, 3, 5])
+def test_knn_matches(batches, k):
+    xyz, mask = _grid_inputs(batches, "all_valid")
+    jgrid = _jit_build_grid(xyz, mask)
+    grid = tk.build_grid(torch.from_numpy(xyz), torch.from_numpy(mask), 2.0)
+    q = _queries(batches, np.asarray(jgrid.xyz))
+    want = [np.asarray(a) for a in jax.jit(jk.knn, static_argnums=2)(jgrid, jnp.asarray(q), k)]
+    got = [a.numpy() for a in tk.knn(grid, torch.from_numpy(q), k)]
+    for name, a, b in zip(("dists", "points", "valid"), got, want):
+        np.testing.assert_array_equal(a, b, err_msg=name)
+    dists, points, valid = got
+    assert valid[:-3].any(axis=1).mean() > 0.5
+    assert not valid[-3:-1].any() and np.isinf(dists[-3:-1]).all()  # out of the extent: misses
+    # the last row's run ends at the last row: the clamp repeats it, both hit at distance 0
+    assert valid[-1, :2].all() and (dists[-1, :2] == 0).all() and (points[-1, 0] == points[-1, 1]).all()
+
+
+@pytest.mark.parametrize("n_buckets", [None, 1024])
+def test_build_cell_table_matches_slot_for_slot(batches, n_buckets):
+    """The world-frame surf features of scans 0-3 stacked as one map buffer
+    with its padded lanes; at 1024 buckets many overflow their 6 slots."""
+    xyz = np.concatenate([b[2] for b in batches[0][:4]])
+    mask = np.concatenate([b[3] for b in batches[0][:4]])
+    build = functools.partial(jk.build_cell_table, cell_size=2.0, n_buckets=n_buckets, slots=6)
+    want = np.asarray(jax.jit(build)(jnp.asarray(xyz), jnp.asarray(mask)).table)
+    got = tk.build_cell_table(torch.from_numpy(xyz), torch.from_numpy(mask), 2.0, n_buckets, 6)
+    np.testing.assert_array_equal(got.table.numpy().view(np.int32), want.view(np.int32))
+    stored = int((got.table.numpy().reshape(-1, 4)[:, 3] > 0.5).sum())
+    assert 100 < stored <= int(mask.sum())
+    if n_buckets == 1024:
+        assert stored < int(mask.sum())  # full buckets dropped rows

@@ -1,5 +1,15 @@
-"""The port's scan-to-map correspondences and Gauss-Newton (kernels 10 and
-11's plain twins on the CPU) against lv_slam_tpu.lfa.registration.
+"""The port's correspondences and Gauss-Newton (the plain twins of kernels
+9k, 10 and 11 on the CPU) against lv_slam_tpu.lfa.registration.
+
+Scan-to-scan (`lines_from_2nn`, `planes_from_3nn`): for each pair of
+consecutive `small_sequence` scans, the first scan's less-sharp / less-flat
+features as the sorted grids, the second's sharp / flat features moved by
+the true relative pose as queries. Every field is identical to the
+reference's (measured: no query differs, as the port rounds the distances,
+norms, cross products and offsets as XLA's CPU fma chains do, so no tie of
+near-equal candidates swaps).
+
+Scan-to-map:
 
 The world maps are built by the reference (its features of the conftest
 `small_sequence` scans 0-3 inserted at the true poses) and handed to both
@@ -16,6 +26,7 @@ import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+torch.set_num_threads(1)  # small CPU ops: more threads per xdist worker only oversubscribe the cores
 
 import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
@@ -27,7 +38,7 @@ from lv_slam_tpu.lfa import registration as jr  # noqa: E402
 from lv_slam_tpu.lfa.features import extract_features  # noqa: E402
 from lv_slam_tpu.ops import knn as jk  # noqa: E402
 from lv_slam_tpu_torch.lfa import registration as tr  # noqa: E402
-from lv_slam_tpu_torch.ops.knn import CellTable  # noqa: E402
+from lv_slam_tpu_torch.ops.knn import CellTable, build_grid  # noqa: E402
 
 KW = dict(scan_line=32, edge_cap=2048, planar_cap=4096, map_edge_cap=8192, map_planar_cap=16384)
 FIT_ATOL = 2e-5
@@ -122,9 +133,48 @@ def test_gn_solve_ignores_invalid_sentinel_lanes():
 
 
 def test_standalone_branches_not_ported():
+    """The fits' sorted-grid branches (5-NN fits on a KnnGrid), which no
+    caller reaches, still raise."""
+    y, m = torch.zeros(4, 3), torch.ones(4, dtype=torch.bool)
+    grid = build_grid(torch.rand(16, 3), torch.ones(16, dtype=torch.bool), 2.0)
     with pytest.raises(NotImplementedError):
-        tr.lines_from_fit(torch.zeros(4, 3), torch.ones(4, dtype=torch.bool), object())
+        tr.lines_from_fit(y, m, grid)
     with pytest.raises(NotImplementedError):
-        tr.lines_from_2nn()
-    with pytest.raises(NotImplementedError):
-        tr.planes_from_3nn()
+        tr.planes_from_fit(y, m, grid)
+
+
+@pytest.fixture(scope="module")
+def pairs(small_sequence):
+    """Per consecutive scan pair: (less-sharp, mask, less-flat, mask of the
+    first; sharp queries, mask, flat queries, mask of the second at the true
+    relative pose)."""
+    scans, gt, _ = small_sequence
+    cfg = JLfa(**KW)
+    feats = [extract_features(JCloud.from_numpy(s, cap=32768), cfg) for s in scans]
+    out = []
+    for i in range(len(scans) - 1):
+        rel = jnp.asarray((np.linalg.inv(gt[i]) @ gt[i + 1]).astype(np.float32))
+        f0, f1 = feats[i], feats[i + 1]
+        out.append(tuple(np.array(a) for a in (
+            f0.less_sharp, f0.less_sharp_mask, f0.less_flat, f0.less_flat_mask,
+            jse3.transform_points(rel, f1.sharp), f1.sharp_mask, jse3.transform_points(rel, f1.flat), f1.flat_mask,
+        )))
+    return out
+
+
+@pytest.mark.parametrize("kind", ["lines_from_2nn", "planes_from_3nn"])
+def test_scan_to_scan_correspondences_match(pairs, kind):
+    col = 0 if kind == "lines_from_2nn" else 2
+    accepted = 0
+    for p in pairs:
+        jgrid = jax.jit(lambda x, m: jk.build_grid(x, m, 2.0))(jnp.asarray(p[col]), jnp.asarray(p[col + 1]))
+        grid = build_grid(_t(p[col]), _t(p[col + 1]), 2.0)
+        y, m = p[4 + col], p[5 + col]
+        want = [np.asarray(a) for a in jax.jit(getattr(jr, kind))(jnp.asarray(y), jnp.asarray(m), jgrid)]
+        got = [a.numpy() for a in getattr(tr, kind)(_t(y), _t(m), grid)]
+        for a, b in zip(got, want):
+            np.testing.assert_array_equal(a, b)
+            assert np.isfinite(a).all()  # gn_solve reads rejected lanes' floats at weight 0
+        accepted += int(got[2].sum())
+    print(f"{kind}: {accepted} accepted over {len(pairs)} scan pairs, every field identical")
+    assert accepted > 50 * len(pairs)

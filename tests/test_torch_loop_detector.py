@@ -18,6 +18,7 @@ import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+torch.set_num_threads(1)  # small CPU ops: more threads per xdist worker only oversubscribe the cores
 
 import jax.numpy as jnp  # noqa: E402
 

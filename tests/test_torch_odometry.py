@@ -10,6 +10,7 @@ import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+torch.set_num_threads(1)  # small CPU ops: more threads per xdist worker only oversubscribe the cores
 
 import jax.numpy as jnp  # noqa: E402
 
@@ -147,7 +148,8 @@ def test_port_never_imports_jax():
         "lv_slam_tpu_torch.io.synthetic, lv_slam_tpu_torch.io.kitti, lv_slam_tpu_torch.pipeline.backend, "
         "lv_slam_tpu_torch.pipeline.async_backend, lv_slam_tpu_torch.pipeline.window, "
         "lv_slam_tpu_torch.graph.loop_detector, lv_slam_tpu_torch.graph.pose_graph, "
-        "lv_slam_tpu_torch.graph.information_matrix, lv_slam_tpu_torch.ops.nn; "
+        "lv_slam_tpu_torch.graph.information_matrix, lv_slam_tpu_torch.ops.nn, lv_slam_tpu_torch.lfa, "
+        "lv_slam_tpu_torch.pipeline.slam; "
         "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'lv_slam_tpu')]; "
         "assert not bad, bad"
     )
@@ -161,8 +163,10 @@ def test_entry_points_default_to_the_card(inputs):
         pytest.skip("a CUDA device is present: the default device works")
     from lv_slam_tpu_torch.config import LfaConfig
     from lv_slam_tpu_torch.core.cloud import PointCloud as TCloud
+    from lv_slam_tpu_torch.lfa import LfaPipeline
     from lv_slam_tpu_torch.lfa.fused import run_sequence_lfa
     from lv_slam_tpu_torch.pipeline.fused_chain import run_sequence_chain
+    from lv_slam_tpu_torch.pipeline.slam import LvSlam
 
     xyz, mask, stamps, inten, _ = inputs
     assert TCloud.from_numpy(xyz[0], cap=CAP, device="cpu").xyz.device.type == "cpu"
@@ -175,3 +179,9 @@ def test_entry_points_default_to_the_card(inputs):
         run_sequence_lfa(x, m, LfaConfig(), odom_poses=torch.eye(4).expand(2, 4, 4))
     with pytest.raises((RuntimeError, AssertionError)):
         run_sequence_chain(x, m, t, CFG, PF, LfaConfig())
+    with pytest.raises((RuntimeError, AssertionError)):
+        run_sequence_lfa(x, m, LfaConfig())
+    with pytest.raises((RuntimeError, AssertionError)):
+        LfaPipeline(LfaConfig()).process_numpy(xyz[0][mask[0]], cap=CAP)
+    with pytest.raises((RuntimeError, AssertionError)):
+        LvSlam(use_dlo=False).process(xyz[0][mask[0]], 0.0)
