@@ -25,6 +25,14 @@ class PrefilterConfig:
     distance_far_thresh: float = 100.0
     downsample_method: str = "VOXELGRID"  # NONE | VOXELGRID | APPROX_VOXELGRID | DEDUP
     downsample_resolution: float = 0.1
+    outlier_removal_method: str = "NONE"  # NONE | RADIUS | STATISTICAL (the latter two: ROADMAP item 6)
+    statistical_mean_k: int = 30
+    statistical_stddev: float = 1.2
+    radius_radius: float = 0.5
+    radius_min_neighbors: int = 5
+    use_angle_calibration: bool = False  # ROADMAP item 6
+    angle_base: float = 0.11  # degrees, vertical-angle calibration rotation
+    voxel_reduce: str = "scatter"  # scatter | scan: two TPU forms of one centroid, kernel 1 serves both
     raw_cap: int = 131072  # raw points per scan (KITTI HDL-64 ~130k)
     out_cap: int = 131072  # points after filtering
 
@@ -46,7 +54,7 @@ class NDTConfig:
     coarse_subsample: int = 2  # Newton approach phase on every k-th lane
     min_points_per_voxel: int = 6
     min_covar_eigvalue_mult: float = 0.01
-    table: str = "hash"  # the port has the hash table only
+    table: str = "hash"  # hash | lut: the bucket-pair hash table or the dense voxel->leaf LUT
     hash_buckets_per_leaf: int = 4
     leaf_cap: int = 32768  # occupied voxels per map
     lut_extent: int = 256  # cells per axis of the flat voxel key

@@ -1,5 +1,6 @@
 """The states carried across from the JAX reference and back: the odometry,
-LFA and chain states, the pose graph and the backend's keyframes.
+LFA and chain states, the NDT voxel map with its LUT, the pose graph and the
+backend's keyframes.
 
 This system has no weights; the state a run carries (the keyframe hash map,
 the LFA world maps, the poses and the stamps) plays their role. It crosses
@@ -23,6 +24,7 @@ from lv_slam_tpu_torch.lfa.fused import LfaFusedState
 from lv_slam_tpu_torch.odometry.fused import FusedState
 from lv_slam_tpu_torch.ops.knn import CellTable, KnnGrid
 from lv_slam_tpu_torch.ops.ndt_hash import HashVoxelMap
+from lv_slam_tpu_torch.ops.voxel_map import LutMap, VoxelMap
 from lv_slam_tpu_torch.pipeline.fused_chain import ChainState
 
 _POSES = ("key_pose", "tf_s2k", "pre_tf_s2k", "guess")
@@ -30,19 +32,66 @@ _LFA_POSES = ("odom_pose", "last_rel", "map_pose", "last_odom")
 _LFA_GRIDS = ("prev_edge_grid", "prev_surf_grid")
 
 
+_VOXEL_MAP = ("means", "icovs", "weights", "normals", "valid", "lut", "origin_cell", "resolution", "n_leaves")
+
+
+def voxel_map_from_numpy(leaves, device) -> LutMap:
+    """The port's map and LUT from the reference's `VoxelMap` (or a dict of
+    its fields, as `np.asarray` fetches them). The reference keeps no leaf
+    keys, so each valid leaf's key is read back from the LUT; the other
+    leaves get -1 (only valid leaves reach a LUT)."""
+    leaves = leaves if isinstance(leaves, dict) else leaves._asdict()
+
+    def arr(name, dtype):
+        return torch.from_numpy(np.array(leaves[name], dtype=dtype, order="C")).to(device)
+
+    lut = np.asarray(leaves["lut"], np.int32)
+    extent = round(lut.shape[0] ** (1.0 / 3.0))
+    if extent ** 3 != lut.shape[0]:
+        raise ValueError(f"LUT of {lut.shape[0]} entries is not a cube")
+    means = arr("means", np.float32)
+    keys = np.full((means.shape[0],), -1, np.int32)
+    flat = np.flatnonzero(lut >= 0)
+    keys[lut[flat]] = flat
+    vmap_ = VoxelMap(
+        means=means, icovs=arr("icovs", np.float32), weights=arr("weights", np.float32),
+        normals=arr("normals", np.float32), valid=arr("valid", np.bool_),
+        keys=torch.from_numpy(keys).to(device), origin_cell=arr("origin_cell", np.int32),
+        resolution=float(np.float32(leaves["resolution"])), n_leaves=arr("n_leaves", np.int32).reshape(()),
+        extent=extent,
+    )
+    return LutMap(vmap_, torch.from_numpy(lut.copy()).to(device))
+
+
+def voxel_map_to_numpy(key_map: LutMap) -> Dict[str, np.ndarray]:
+    """The map and its LUT under the reference's `VoxelMap` field names."""
+    vmap_, lut = key_map
+    out = {name: getattr(vmap_, name).cpu().numpy() for name in _VOXEL_MAP if name not in ("lut", "resolution")}
+    out["lut"] = lut.cpu().numpy()
+    out["resolution"] = np.float32(vmap_.resolution)
+    return out
+
+
 def fused_state_from_numpy(leaves: Dict[str, np.ndarray], device) -> FusedState:
+    """The odometry state from leaves keyed by its fields, the key map's
+    under `key_map.`: a hash table's (`table`, ...) or, for `table="lut"`,
+    a voxel map's with its LUT (`voxel_map_from_numpy`'s)."""
+
     def f32(name):
         return torch.from_numpy(np.array(leaves[name], dtype=np.float32, order="C")).to(device)
 
-    key_map = HashVoxelMap(
-        table=f32("key_map.table"),
-        origin_cell=torch.from_numpy(
-            np.array(leaves["key_map.origin_cell"], dtype=np.int32, order="C")
-        ).to(device),
-        resolution=float(leaves["key_map.resolution"]),
-        extent=int(leaves["key_map.extent"]),
-        n_dropped=torch.tensor(int(leaves["key_map.n_dropped"]), dtype=torch.int32).to(device),
-    )
+    if "key_map.table" in leaves:
+        key_map = HashVoxelMap(
+            table=f32("key_map.table"),
+            origin_cell=torch.from_numpy(
+                np.array(leaves["key_map.origin_cell"], dtype=np.int32, order="C")
+            ).to(device),
+            resolution=float(leaves["key_map.resolution"]),
+            extent=int(leaves["key_map.extent"]),
+            n_dropped=torch.tensor(int(leaves["key_map.n_dropped"]), dtype=torch.int32).to(device),
+        )
+    else:
+        key_map = voxel_map_from_numpy({name: leaves[f"key_map.{name}"] for name in _VOXEL_MAP}, device)
     return FusedState(
         key_map=key_map,
         **{name: f32(name) for name in _POSES},
@@ -53,15 +102,18 @@ def fused_state_from_numpy(leaves: Dict[str, np.ndarray], device) -> FusedState:
 
 def fused_state_to_numpy(state: FusedState) -> Dict[str, np.ndarray]:
     km = state.key_map
-    out = {
-        "key_map.table": km.table.cpu().numpy(),
-        "key_map.origin_cell": km.origin_cell.cpu().numpy(),
-        "key_map.resolution": np.float32(km.resolution),
-        "key_map.extent": np.int64(km.extent),
-        "key_map.n_dropped": km.n_dropped.cpu().numpy(),
-        "keyframe_stamp": state.keyframe_stamp.cpu().numpy(),
-        "scan_idx": np.int32(state.scan_idx),
-    }
+    if isinstance(km, HashVoxelMap):
+        out = {
+            "key_map.table": km.table.cpu().numpy(),
+            "key_map.origin_cell": km.origin_cell.cpu().numpy(),
+            "key_map.resolution": np.float32(km.resolution),
+            "key_map.extent": np.int64(km.extent),
+            "key_map.n_dropped": km.n_dropped.cpu().numpy(),
+        }
+    else:
+        out = {f"key_map.{k}": v for k, v in voxel_map_to_numpy(km).items()}
+    out["keyframe_stamp"] = state.keyframe_stamp.cpu().numpy()
+    out["scan_idx"] = np.int32(state.scan_idx)
     out.update({name: getattr(state, name).cpu().numpy() for name in _POSES})
     return out
 

@@ -34,23 +34,17 @@
 // reads candidate c's points, mask and transform and writes its own partial
 // row; `ndt_finish` runs one block per candidate. One launch serves every
 // candidate of a Newton iteration.
-#include "common.cuh"
+#include "ndt_terms.cuh"
 
 namespace {
 
+using lvs::flat_key;
+
 constexpr unsigned kFib = 2654435769u;  // 2^32 / golden ratio
-constexpr int kTerms = 43;
-constexpr int kWarps = lvs::kThreads / 32;
+constexpr int kTerms = lvs::kNdtTerms;
 
 __device__ __forceinline__ int bucket_of(int key, int b_bits) {
   return static_cast<int>((static_cast<unsigned>(key) * kFib) >> (32 - b_bits));
-}
-
-// (rel0 * e + rel1) * e + rel2 with int32 wrap-around, as the reference's
-// int32 arithmetic, without signed-overflow UB
-__device__ __forceinline__ int flat_key(int r0, int r1, int r2, int e) {
-  unsigned k = (static_cast<unsigned>(r0) * e + static_cast<unsigned>(r1)) * e + static_cast<unsigned>(r2);
-  return static_cast<int>(k);
 }
 
 // ---------------------------------------------------------------- kernel 3
@@ -124,17 +118,11 @@ __global__ void hash_rows(const float* means, const float* icovs, const float* w
 
 // ---------------------------------------------------------------- kernel 4
 
-__device__ __forceinline__ float warp_sum(float v) {
-  for (int off = 16; off > 0; off >>= 1) v += __shfl_down_sync(0xffffffffu, v, off);
-  return v;
-}
-
 __global__ void __launch_bounds__(lvs::kThreads)
 ndt_partials(const float* __restrict__ table, int b_bits, const int* __restrict__ origin,
              float inv_res, int e, const float* __restrict__ xs, int n,
              const bool* __restrict__ mask, const float* __restrict__ T, float d1, float d2,
              const int* __restrict__ offsets, int k, int weighted, float* __restrict__ partials) {
-  __shared__ float smem[kWarps][kTerms];
   // candidate blockIdx.y: its own points, mask, transform and partial rows
   xs += 3LL * n * blockIdx.y;
   mask += static_cast<long long>(n) * blockIdx.y;
@@ -153,7 +141,6 @@ ndt_partials(const float* __restrict__ table, int b_bits, const int* __restrict_
     int cell[3];
 #pragma unroll
     for (int r = 0; r < 3; ++r) cell[r] = static_cast<int>(floorf(y[r] * inv_res)) - origin[r];
-    const float d1d2 = d1 * d2;
     for (int o = 0; o < k; ++o) {
       int r0 = cell[0] + offsets[3 * o + 0];
       int r1 = cell[1] + offsets[3 * o + 1];
@@ -171,85 +158,11 @@ ndt_partials(const float* __restrict__ table, int b_bits, const int* __restrict_
       float4 head = m0 ? a0 : a1;  // key, mu0, mu1, mu2
       float4 cov = m0 ? b0 : b1;   // c00, c01, c02, c11
       float4 tail = m0 ? c0 : c1;  // c12, c22, w, pad
-
-      float c00 = cov.x, c01 = cov.y, c02 = cov.z, c11 = cov.w, c12 = tail.x, c22 = tail.y;
-      float dd0 = y[0] - head.y, dd1 = y[1] - head.z, dd2 = y[2] - head.w;
-      float q0 = c00 * dd0 + c01 * dd1 + c02 * dd2;
-      float q1 = c01 * dd0 + c11 * dd1 + c12 * dd2;
-      float q2 = c02 * dd0 + c12 * dd1 + c22 * dd2;
-      float md = dd0 * q0 + dd1 * q1 + dd2 * q2;
-      float eterm = expf(-0.5f * d2 * md);
-      float gate = d2 * eterm;
-      if (!(gate <= 1.0f && gate >= 0.0f && isfinite(gate))) continue;
-      float w = weighted ? tail.z : 1.0f;
-      float f = w * (d1d2 * eterm);
-      acc[0] += w * (-d1 * eterm);
-
-      float g[6] = {q0, q1, q2, y[1] * q2 - y[2] * q1, y[2] * q0 - y[0] * q2, y[0] * q1 - y[1] * q0};
-#pragma unroll
-      for (int a = 0; a < 6; ++a) acc[1 + a] += f * g[a];
-
-      // CS: cs[i][j] = (C S)_ij with S = skew(y); SC = -(CS)^T; SCS from SC
-      float C[3][3] = {{c00, c01, c02}, {c01, c11, c12}, {c02, c12, c22}};
-      float cs[3][3], sc[3][3], scs[3][3];
-      for (int a = 0; a < 3; ++a) {
-        cs[a][0] = C[a][1] * y[2] - C[a][2] * y[1];
-        cs[a][1] = C[a][2] * y[0] - C[a][0] * y[2];
-        cs[a][2] = C[a][0] * y[1] - C[a][1] * y[0];
-      }
-      for (int a = 0; a < 3; ++a)
-        for (int b = 0; b < 3; ++b) sc[a][b] = -cs[b][a];
-      for (int a = 0; a < 3; ++a) {
-        scs[a][0] = sc[a][1] * y[2] - sc[a][2] * y[1];
-        scs[a][1] = sc[a][2] * y[0] - sc[a][0] * y[2];
-        scs[a][2] = sc[a][0] * y[1] - sc[a][1] * y[0];
-      }
-      float qy = q0 * y[0] + q1 * y[1] + q2 * y[2];
-      float q[3] = {q0, q1, q2};
-      float h1 = -d2 * f;
-#pragma unroll
-      for (int a = 0; a < 6; ++a) {
-#pragma unroll
-        for (int b = 0; b < 6; ++b) {
-          float h = h1 * g[a] * g[b];
-          if (a < 3 && b < 3) {
-            h += f * C[a][b];
-          } else if (a < 3) {
-            h += -(f * cs[a][b - 3]);
-          } else if (b < 3) {
-            h += -(f * cs[b][a - 3]);
-          } else {
-            h += f * y[a - 3] * q[b - 3] - (a == b ? f * qy : 0.0f);  // T2
-            h += -(f * scs[a - 3][b - 3]);
-          }
-          acc[7 + 6 * a + b] += h;
-        }
-      }
+      lvs::ndt_point_terms(y, head.y, head.z, head.w, cov.x, cov.y, cov.z, cov.w, tail.x, tail.y, tail.z,
+                           d1, d2, weighted, acc);
     }
   }
-
-  int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-#pragma unroll
-  for (int v = 0; v < kTerms; ++v) {
-    float s = warp_sum(acc[v]);
-    if (lane == 0) smem[warp][v] = s;
-  }
-  __syncthreads();
-  if (threadIdx.x < kTerms) {
-    float s = 0.0f;
-    for (int w = 0; w < kWarps; ++w) s += smem[w][threadIdx.x];
-    partials[kTerms * blockIdx.x + threadIdx.x] = s;
-  }
-}
-
-__global__ void ndt_finish(const float* __restrict__ partials, int n_blocks, float* __restrict__ out) {
-  int v = threadIdx.x;
-  if (v >= kTerms) return;
-  partials += static_cast<long long>(kTerms) * n_blocks * blockIdx.x;  // candidate blockIdx.x
-  out += kTerms * blockIdx.x;
-  float s = 0.0f;
-  for (int b = 0; b < n_blocks; ++b) s += partials[kTerms * b + v];
-  out[v] = s;
+  lvs::block_partials(acc, partials + kTerms * blockIdx.x);
 }
 
 }  // namespace

@@ -18,8 +18,19 @@
 // walks the run sequentially (the reference's in-order segment_sum order, no
 // atomics), and writes the whole leaf row; the same launch zeroes the rows
 // no run reaches. Runs at or past leaf_cap are dropped, as the reference's
-// scratch bucket drops them. No dense voxel->leaf LUT is built: the hash path
-// never reads it.
+// scratch bucket drops them. Each leaf's flat key is written beside it, so
+// that kernel K3L can scatter the dense LUT for the callers that probe one.
+//
+// Kernel K3L replaces lv_slam_tpu/ops/voxel_map.py:177-181, the dense LUT
+// scatter inside `build_voxel_map`: an (E^3,) int32 table of -1 with each
+// valid leaf's row at its flat key.
+//   Bound on the card: at E = 256 the table is 64 MiB, written once per
+//   keyframe: about 20 us at 3.35 TB/s; the leaves' keys and flags (160 KB)
+//   are noise beside it.
+//   Design: `lut_fill` writes -1 with 16-byte stores over a grid-stride loop,
+//   then `lut_scatter` runs one thread per leaf and writes its row where the
+//   leaf is valid. Valid leaves have distinct keys, so every entry has at
+//   most one writer and the table is deterministic.
 #include "common.cuh"
 #include "linalg3.cuh"
 
@@ -40,7 +51,8 @@ __global__ void mark_leaves(const int* __restrict__ skey, int n, int overflow_ke
 }
 
 __device__ void zero_leaf(int l, float* means, float* icovs, float* weights, float* normals,
-                          bool* valid) {
+                          bool* valid, int* keys, int key) {
+  keys[l] = key;
   for (int c = 0; c < 3; ++c) means[3 * l + c] = 0.0f;
   for (int c = 0; c < 9; ++c) icovs[9 * l + c] = 0.0f;
   for (int c = 0; c < 3; ++c) normals[3 * l + c] = 0.0f;
@@ -54,10 +66,11 @@ __global__ void build_leaves(const int* __restrict__ skey, const long long* __re
                              float res, float inv_res, int e, int leaf_cap, int min_points,
                              float eig_mult, int weighted, float* __restrict__ means,
                              float* __restrict__ icovs, float* __restrict__ weights,
-                             float* __restrict__ normals, bool* __restrict__ valid) {
+                             float* __restrict__ normals, bool* __restrict__ valid,
+                             int* __restrict__ keys) {
   int t = blockIdx.x * blockDim.x + threadIdx.x;
   int n_runs = n > 0 ? cum[n - 1] : 0;
-  if (t < leaf_cap && t >= n_runs) zero_leaf(t, means, icovs, weights, normals, valid);
+  if (t < leaf_cap && t >= n_runs) zero_leaf(t, means, icovs, weights, normals, valid, keys, -1);
   if (t >= n || !flag[t]) return;
   int leaf = cum[t] - 1;
   if (leaf >= leaf_cap) return;
@@ -123,7 +136,7 @@ __global__ void build_leaves(const int* __restrict__ skey, const long long* __re
   }
   bool ok = occupied && pos_def && finite;
   if (!ok) {
-    zero_leaf(leaf, means, icovs, weights, normals, valid);
+    zero_leaf(leaf, means, icovs, weights, normals, valid, keys, key);
     return;
   }
   float w = 1.0f;
@@ -145,6 +158,24 @@ __global__ void build_leaves(const int* __restrict__ skey, const long long* __re
   normals[3 * leaf + 2] = vec[0].z;
   weights[leaf] = w;
   valid[leaf] = true;
+  keys[leaf] = key;
+}
+
+// ---------------------------------------------------------------- kernel K3L
+
+__global__ void lut_fill(int4* __restrict__ lut4, long long n4) {
+  const int4 empty = make_int4(-1, -1, -1, -1);
+  for (long long i = blockIdx.x * static_cast<long long>(blockDim.x) + threadIdx.x; i < n4;
+       i += static_cast<long long>(gridDim.x) * blockDim.x)
+    lut4[i] = empty;
+}
+
+__global__ void lut_scatter(const int* __restrict__ keys, const bool* __restrict__ valid, int leaf_cap,
+                            int e3, int* __restrict__ lut) {
+  int l = blockIdx.x * blockDim.x + threadIdx.x;
+  if (l >= leaf_cap || !valid[l]) return;
+  int k = keys[l];
+  if (k >= 0 && k < e3) lut[k] = l;
 }
 
 }  // namespace
@@ -159,12 +190,28 @@ extern "C" int lvs_voxel_map_build(const int* skey, const long long* order, cons
                                    const int* cum, int n, const float* xyz, const int* origin,
                                    float res, float inv_res, int e, int leaf_cap, int min_points,
                                    float eig_mult, int weighted, float* means, float* icovs,
-                                   float* weights, float* normals, bool* valid,
+                                   float* weights, float* normals, bool* valid, int* keys,
                                    cudaStream_t stream) {
   int threads = n > leaf_cap ? n : leaf_cap;
   if (threads > 0)
     build_leaves<<<lvs::blocks_for(threads), lvs::kThreads, 0, stream>>>(
         skey, order, flag, cum, n, xyz, origin, res, inv_res, e, leaf_cap, min_points, eig_mult,
-        weighted, means, icovs, weights, normals, valid);
+        weighted, means, icovs, weights, normals, valid, keys);
+  LVS_RETURN_LAST_ERROR();
+}
+
+// lut: (e3,) int32, e3 = extent^3; torch's allocations are 512-byte aligned,
+// so the int4 view is aligned; the e3 % 4 tail is filled by the last thread
+extern "C" int lvs_voxel_map_lut(const int* keys, const bool* valid, int leaf_cap, int e3, int* lut,
+                                 cudaStream_t stream) {
+  long long n4 = e3 / 4;
+  if (n4 > 0) {
+    long long blocks = (n4 + lvs::kThreads - 1) / lvs::kThreads;
+    lut_fill<<<static_cast<int>(blocks < 4096 ? blocks : 4096), lvs::kThreads, 0, stream>>>(
+        reinterpret_cast<int4*>(lut), n4);
+  }
+  if (e3 % 4) cudaMemsetAsync(lut + 4 * n4, 0xFF, (e3 % 4) * sizeof(int), stream);
+  if (leaf_cap > 0)
+    lut_scatter<<<lvs::blocks_for(leaf_cap), lvs::kThreads, 0, stream>>>(keys, valid, leaf_cap, e3, lut);
   LVS_RETURN_LAST_ERROR();
 }

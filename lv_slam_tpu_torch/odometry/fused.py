@@ -13,7 +13,7 @@ on the run's device: the card unless the caller passes `device="cpu"`.
 from __future__ import annotations
 
 import functools
-from typing import NamedTuple, Optional, Tuple
+from typing import NamedTuple, Optional, Tuple, Union
 
 import torch
 
@@ -27,6 +27,7 @@ from lv_slam_tpu_torch.ops.ndt_hash import (
     ndt_derivatives_hash,
     to_hash,
 )
+from lv_slam_tpu_torch.ops.ndt_soa import ndt_align_soa, ndt_derivatives_soa, to_soa
 from lv_slam_tpu_torch.ops.prefilter import (
     distance_filter,
     stride_subsample,
@@ -34,11 +35,11 @@ from lv_slam_tpu_torch.ops.prefilter import (
     voxel_dedup_first,
     voxel_downsample,
 )
-from lv_slam_tpu_torch.ops.voxel_map import build_voxel_map, neighborhood_offsets
+from lv_slam_tpu_torch.ops.voxel_map import LutMap, build_lut, build_voxel_map, neighborhood_offsets
 
 
 class FusedState(NamedTuple):
-    key_map: HashVoxelMap
+    key_map: Union[HashVoxelMap, LutMap]  # by NDTConfig.table
     key_pose: torch.Tensor        # (4,4)
     tf_s2k: torch.Tensor          # (4,4)
     pre_tf_s2k: torch.Tensor      # (4,4)
@@ -100,15 +101,15 @@ def _prefilter(
 
 
 def _make_ops(cfg: OdometryConfig, prefilter_cfg: Optional[PrefilterConfig]):
-    """Map build, align, retry align and score closures of one configuration."""
+    """Map build, align, retry align and score closures of one configuration:
+    over the bucket-pair hash table (`table="hash"`) or the dense LUT with
+    packed rows (`table="lut"`, the reference's `ndt_align_soa` path)."""
     ndt = cfg.ndt
-    if ndt.table.lower() != "hash":
-        raise NotImplementedError(
-            f"NDTConfig.table={ndt.table!r}: only the hash table is ported (the LUT "
-            "path exists for TPU gather costs)"
-        )
+    table = ndt.table.lower()
+    if table not in ("hash", "lut"):
+        raise ValueError(f"NDTConfig.table must be 'hash' or 'lut', got {ndt.table!r}")
 
-    def build(cloud: PointCloud) -> HashVoxelMap:
+    def build(cloud: PointCloud):
         vmap_ = build_voxel_map(
             cloud,
             ndt.resolution,
@@ -118,6 +119,8 @@ def _make_ops(cfg: OdometryConfig, prefilter_cfg: Optional[PrefilterConfig]):
             min_covar_eigvalue_mult=ndt.min_covar_eigvalue_mult,
             weighted=ndt.weighted,
         )
+        if table == "lut":
+            return LutMap(vmap_, build_lut(vmap_))
         return to_hash(vmap_, ndt.hash_buckets_per_leaf)
 
     common = dict(
@@ -128,20 +131,24 @@ def _make_ops(cfg: OdometryConfig, prefilter_cfg: Optional[PrefilterConfig]):
         max_iterations=ndt.max_iterations,
         weighted=ndt.weighted,
     )
+    if table == "lut":
+        def align_fn(key_map: LutMap, source, guess, **kw):
+            return ndt_align_soa(key_map.vmap, key_map.lut, source, guess, **kw)
+    else:
+        align_fn = ndt_align_hash_table
     align = functools.partial(
-        ndt_align_hash_table, neighborhood=ndt.neighborhood,
-        coarse_subsample=ndt.coarse_subsample, **common,
+        align_fn, neighborhood=ndt.neighborhood, coarse_subsample=ndt.coarse_subsample, **common,
     )
-    align_retry = functools.partial(
-        ndt_align_hash_table, neighborhood=ndt.retry_neighborhood, **common
-    )
+    align_retry = functools.partial(align_fn, neighborhood=ndt.retry_neighborhood, **common)
     gauss = make_gauss_params(ndt.resolution, ndt.outlier_ratio)
 
-    def score_at(key_map: HashVoxelMap, cloud: PointCloud, transform: torch.Tensor):
-        s, _, _ = ndt_derivatives_hash(
-            key_map, cloud.masked_xyz().T.contiguous(), cloud.mask.contiguous(), transform, gauss,
-            neighborhood_offsets(ndt.neighborhood, transform.device), ndt.weighted,
-        )
+    def score_at(key_map, cloud: PointCloud, transform: torch.Tensor):
+        args = (cloud.masked_xyz().T.contiguous(), cloud.mask.contiguous(), transform, gauss,
+                neighborhood_offsets(ndt.neighborhood, transform.device), ndt.weighted)
+        if table == "lut":
+            s, _, _ = ndt_derivatives_soa(to_soa(key_map.vmap, key_map.lut), *args)
+        else:
+            s, _, _ = ndt_derivatives_hash(key_map, *args)
         return s
 
     return build, align, align_retry, score_at

@@ -23,15 +23,15 @@ import torch
 
 from lv_slam_tpu_torch.core.cloud import SENTINEL, PointCloud
 from lv_slam_tpu_torch.kernels._build import F32, I32, PTR, Kernel, check_cuda, check_dtype, ptr
-from lv_slam_tpu_torch.ops.ndt import GaussParams, NDTResult, make_gauss_params
-from lv_slam_tpu_torch.ops.ndt_soa import _newton_loop, _newton_loop_batched, accumulate_ndt_terms
+from lv_slam_tpu_torch.ops.ndt import (
+    BLOCK, N_TERMS, GaussParams, NDTResult, _newton_loop, _newton_loop_batched, make_gauss_params,
+)
+from lv_slam_tpu_torch.ops.ndt_soa import accumulate_ndt_terms
 from lv_slam_tpu_torch.ops.prefilter import cell_coords, inv_resolution
 from lv_slam_tpu_torch.ops.voxel_map import VoxelMap, neighborhood_offsets
 
 _FIB = 2654435769  # 2^32 / golden ratio (Fibonacci hashing)
 _EMPTY_KEY = -1
-_N_TERMS = 43      # score (1) + grad (6) + hess (36, not symmetric)
-_BLOCK = 256       # kernel 4's threads per block (csrc/ndt_hash.cu kThreads)
 
 TO_HASH_KERNEL = Kernel(
     "to_hash",
@@ -215,9 +215,9 @@ def ndt_derivatives_hash(
     check_dtype("ndt_derivatives_hash", offsets, torch.int32, (k, 3))
     if n_buckets & (n_buckets - 1):
         raise ValueError(f"ndt_derivatives_hash: bucket count {n_buckets} is not a power of two")
-    n_blocks = max(1, -(-n // _BLOCK))
-    partials = torch.empty((n_blocks, _N_TERMS), dtype=torch.float32, device=xs.device)
-    out = torch.empty((_N_TERMS,), dtype=torch.float32, device=xs.device)
+    n_blocks = max(1, -(-n // BLOCK))
+    partials = torch.empty((n_blocks, N_TERMS), dtype=torch.float32, device=xs.device)
+    out = torch.empty((N_TERMS,), dtype=torch.float32, device=xs.device)
     DERIVATIVES_KERNEL.call(
         "lvs_ndt_hash_derivatives",
         ptr(hmap.table), n_buckets.bit_length() - 1, ptr(hmap.origin_cell),
@@ -355,9 +355,9 @@ def ndt_derivatives_hash_batched(
     check_dtype("ndt_derivatives_hash_batched", offsets, torch.int32, (n_off, 3))
     if n_buckets & (n_buckets - 1):
         raise ValueError(f"ndt_derivatives_hash_batched: bucket count {n_buckets} is not a power of two")
-    n_blocks = max(1, -(-n // _BLOCK))
-    partials = torch.empty((k, n_blocks, _N_TERMS), dtype=torch.float32, device=xs.device)
-    out = torch.empty((k, _N_TERMS), dtype=torch.float32, device=xs.device)
+    n_blocks = max(1, -(-n // BLOCK))
+    partials = torch.empty((k, n_blocks, N_TERMS), dtype=torch.float32, device=xs.device)
+    out = torch.empty((k, N_TERMS), dtype=torch.float32, device=xs.device)
     BATCHED_KERNEL.call(
         "lvs_ndt_hash_derivatives_batched",
         ptr(hmap.table), n_buckets.bit_length() - 1, ptr(hmap.origin_cell),

@@ -1,17 +1,65 @@
-"""The NDT pieces the hash-table path shares with the reference's LUT/SoA pass
-(port of `lv_slam_tpu.ops.ndt_soa`): the per-offset derivative terms and the
-damped Newton loop. The LUT/SoA pass itself exists only for TPU gather
-costs and is not ported."""
+"""The LUT/SoA NDT pass (port of `lv_slam_tpu.ops.ndt_soa`): leaves packed
+into (L, 16) rows [mu(3), upper inverse covariance (6), weight, pad(6)], one
+LUT probe and one row read per point and DIRECT offset.
+
+- `accumulate_ndt_terms` is the per-offset body that the hash-table pass
+  (kernel 4) shares; its plain form is here.
+- `ndt_derivatives_soa` is kernel K6L (`csrc/ndt_lut.cu`) on CUDA tensors
+  and `ndt_derivatives_soa_ref` on CPU tensors.
+- `ndt_align_soa` is the Newton loop (`ops/ndt._newton_loop`, K7) over it,
+  with the reference's optional coarse phase; the host DLO and the fused
+  odometry's `table="lut"` align with it.
+"""
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import NamedTuple, Tuple
 
 import numpy as np
 import torch
 
 from lv_slam_tpu_torch.core import se3
-from lv_slam_tpu_torch.ops.ndt import GaussParams
+from lv_slam_tpu_torch.core.cloud import PointCloud
+from lv_slam_tpu_torch.kernels._build import F32, I32, PTR, Kernel, check_cuda, check_dtype, ptr
+from lv_slam_tpu_torch.ops.ndt import (
+    BLOCK, N_TERMS, GaussParams, NDTResult, _newton_loop, make_gauss_params,
+)
+from lv_slam_tpu_torch.ops.voxel_map import VoxelMap, neighborhood_offsets, probe_cells
+
+KERNEL = Kernel(
+    "ndt_derivatives_soa",
+    source="lv_slam_tpu_torch/csrc/ndt_lut.cu",
+    replaces="lv_slam_tpu/ops/ndt_soa.py:134",
+    entries={
+        "lvs_ndt_lut_derivatives": [
+            PTR, PTR, PTR, F32, I32, PTR, I32, PTR, PTR, F32, F32, PTR, I32, I32, PTR, I32, PTR,
+        ],
+    },
+)
+
+
+class VoxelMapSOA(NamedTuple):
+    packed: torch.Tensor       # (L, 16): mu0..2, c00, c01, c02, c11, c12, c22, w, pad
+    lut: torch.Tensor          # (E^3,) int32
+    origin_cell: torch.Tensor  # (3,) int32
+    resolution: float
+    extent: int
+
+
+def to_soa(vmap_: VoxelMap, lut: torch.Tensor) -> VoxelMapSOA:
+    """Pack the map's leaves into the reference's (L, 16) rows (layout glue)."""
+    c = vmap_.icovs
+    packed = torch.cat(
+        [
+            vmap_.means,                                  # 0:3
+            c[:, 0, 0:1], c[:, 0, 1:2], c[:, 0, 2:3],     # 3,4,5
+            c[:, 1, 1:2], c[:, 1, 2:3], c[:, 2, 2:3],     # 6,7,8
+            vmap_.weights[:, None],                       # 9
+            c.new_zeros((vmap_.leaf_cap, 6)),
+        ],
+        dim=1,
+    )
+    return VoxelMapSOA(packed, lut, vmap_.origin_cell, vmap_.resolution, vmap_.extent)
 
 
 def accumulate_ndt_terms(
@@ -90,90 +138,117 @@ def accumulate_ndt_terms(
     return score, grad, h1 + h2 + h3
 
 
-def _newton_loop(derivs, guess: torch.Tensor, eps: float, step_max: float, max_iterations: int):
-    """Monotone-guarded damped-Newton ascent on the NDT score.
-
-    The reference's `lax.while_loop` becomes a Python loop: each iteration
-    reads one bool (`converged`) back from the device, and the start reads
-    whether the first score is NaN. Everything else stays on the device.
-    Returns (transform, score, grad, hess, cap, iterations, converged)."""
-    eps32 = np.float32(eps)
-    step_min = float(eps32 / np.float32(2.0))
-    eps = float(eps32)
-    step_max = float(np.float32(step_max))
-    score, grad, hess = derivs(guess)
-    transform = guess
-    eye6 = torch.eye(6, dtype=hess.dtype, device=hess.device)
-    cap = torch.full((), step_max, dtype=hess.dtype, device=hess.device)
-    it = 0
-    converged = bool(torch.isnan(score))
-    while not converged:
-        ridge = 1e-6 * torch.trace(torch.abs(hess)) / 6.0 + 1e-12
-        delta, info = torch.linalg.solve_ex(hess + ridge * eye6, -grad)
-        norm = torch.sqrt(torch.sum(delta * delta))
-        bad = (norm == 0.0) | ~torch.isfinite(norm) | (info != 0)
-        direction = delta / torch.where(bad, 1.0, norm)
-        dphi0 = -torch.dot(grad, direction)
-        direction = torch.where(dphi0 > 0, -direction, direction)
-        alpha = torch.minimum(torch.clamp(norm, min=step_min), cap)
-        new_transform = se3.exp_se3(alpha * direction) @ transform
-        new_score, new_grad, new_hess = derivs(new_transform)
-        accept = ~bad & (new_score >= score)
-        transform = torch.where(accept, new_transform, transform)
-        score = torch.where(accept, new_score, score)
-        grad = torch.where(accept, new_grad, grad)
-        hess = torch.where(accept, new_hess, hess)
-        cap = torch.where(accept, step_max, torch.clamp(cap * 0.5, min=step_min))
-        it += 1
-        shrunk_out = ~accept & (alpha <= step_min)
-        stop = bad | (accept & (alpha < eps)) | shrunk_out
-        converged = it > max_iterations or bool(stop)
-    return transform, score, grad, hess, cap, it, converged
 
 
-def _newton_loop_batched(derivs, guesses: torch.Tensor, eps: float, step_max: float, max_iterations: int):
-    """`_newton_loop` over k lanes at once, as the reference's vmapped
-    `lax.while_loop` runs it: every lane steps until all are done, and a
-    done lane keeps its state, so each lane ends where its own loop would.
-    `derivs(transforms, active)` returns the (k,), (k, 6), (k, 6, 6)
-    derivatives at (k, 4, 4) transforms; `active` is the host list of lanes
-    still running (a lane's result is ignored once it is done). Each
-    iteration reads the k done flags back once. Returns (transforms, scores,
-    iterations (k,) int64)."""
-    eps32 = np.float32(eps)
-    step_min = float(eps32 / np.float32(2.0))
-    eps = float(eps32)
-    step_max = float(np.float32(step_max))
-    k = guesses.shape[0]
-    score, grad, hess = derivs(guesses, [True] * k)
-    transform = guesses
-    eye6 = torch.eye(6, dtype=hess.dtype, device=hess.device)
-    cap = torch.full((k,), step_max, dtype=hess.dtype, device=hess.device)
-    it = torch.zeros((k,), dtype=torch.int64, device=hess.device)
-    done = torch.isnan(score)
-    active = [not d for d in done.tolist()]
-    while any(active):
-        run = ~done
-        ridge = 1e-6 * torch.abs(hess).diagonal(dim1=-2, dim2=-1).sum(-1) / 6.0 + 1e-12
-        delta, info = torch.linalg.solve_ex(hess + ridge[:, None, None] * eye6, -grad)
-        norm = torch.sqrt(torch.sum(delta * delta, dim=-1))
-        bad = (norm == 0.0) | ~torch.isfinite(norm) | (info != 0)
-        direction = delta / torch.where(bad, 1.0, norm)[:, None]
-        dphi0 = -torch.sum(grad * direction, dim=-1)
-        direction = torch.where((dphi0 > 0)[:, None], -direction, direction)
-        alpha = torch.minimum(torch.clamp(norm, min=step_min), cap)
-        new_transform = se3.exp_se3(alpha[:, None] * direction) @ transform
-        new_score, new_grad, new_hess = derivs(new_transform, active)
-        accept = ~bad & (new_score >= score)
-        take = run & accept
-        transform = torch.where(take[:, None, None], new_transform, transform)
-        score = torch.where(take, new_score, score)
-        grad = torch.where(take[:, None], new_grad, grad)
-        hess = torch.where(take[:, None, None], new_hess, hess)
-        cap = torch.where(run, torch.where(accept, step_max, torch.clamp(cap * 0.5, min=step_min)), cap)
-        it = it + run.to(torch.int64)
-        shrunk_out = ~accept & (alpha <= step_min)
-        stop = bad | (it > max_iterations) | (accept & (alpha < eps)) | shrunk_out
-        done = done | (run & stop)
-        active = [not d for d in done.tolist()]
-    return transform, score, it
+def ndt_derivatives_soa(
+    soa: VoxelMapSOA,
+    xs: torch.Tensor,          # (3, N)
+    mask: torch.Tensor,        # (N,)
+    transform: torch.Tensor,   # (4, 4)
+    gauss: GaussParams,
+    offsets: torch.Tensor,     # (K, 3) int32
+    weighted: bool,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Fused score / gradient / Hessian over every point and DIRECT offset,
+    one LUT probe and one packed row per hit. Kernel K6L on CUDA, the plain
+    version on CPU."""
+    if xs.device.type == "cpu":
+        return ndt_derivatives_soa_ref(soa, xs, mask, transform, gauss, offsets, weighted)
+    n, k = xs.shape[1], offsets.shape[0]
+    name = "ndt_derivatives_soa"
+    check_cuda(name, soa.packed, soa.lut, soa.origin_cell, xs, mask, transform, offsets)
+    check_dtype(name, soa.packed, torch.float32, (soa.packed.shape[0], 16))
+    check_dtype(name, soa.lut, torch.int32, (soa.extent ** 3,))
+    check_dtype(name, soa.origin_cell, torch.int32, (3,))
+    check_dtype(name, xs, torch.float32, (3, n))
+    check_dtype(name, mask, torch.bool, (n,))
+    check_dtype(name, transform, torch.float32, (4, 4))
+    check_dtype(name, offsets, torch.int32, (k, 3))
+    n_blocks = max(1, -(-n // BLOCK))
+    partials = torch.empty((n_blocks, N_TERMS), dtype=torch.float32, device=xs.device)
+    out = torch.empty((N_TERMS,), dtype=torch.float32, device=xs.device)
+    KERNEL.call(
+        "lvs_ndt_lut_derivatives",
+        ptr(soa.packed), ptr(soa.lut), ptr(soa.origin_cell), float(np.float32(soa.resolution)), soa.extent,
+        ptr(xs), n, ptr(mask), ptr(transform), float(np.float32(gauss.d1)), float(np.float32(gauss.d2)),
+        ptr(offsets), k, int(weighted), ptr(partials), n_blocks, ptr(out),
+    )
+    KERNEL.launches += 1
+    return out[0], out[1:7], out[7:].view(6, 6)
+
+
+def ndt_derivatives_soa_ref(soa, xs, mask, transform, gauss, offsets, weighted):
+    """Plain PyTorch version of `ndt_derivatives_soa`: per offset, the LUT
+    gather, the packed-row gather, then `accumulate_ndt_terms`. The points
+    move as XLA compiles the reference's einsum on the CPU (the fma chain of
+    `se3.transform_points_fma`, bit for bit), and as the kernel moves them,
+    so all three put a point within an ulp of a cell face in one cell."""
+    e = soa.extent
+    y = se3.transform_points_fma(transform, xs.T).T
+    coords = probe_cells(y.T, soa.origin_cell, soa.resolution).T       # (3,N) relative cells
+    score = torch.zeros((), dtype=torch.float32, device=xs.device)
+    grad = torch.zeros((6,), dtype=torch.float32, device=xs.device)
+    hess = torch.zeros((6, 6), dtype=torch.float32, device=xs.device)
+    for ki in range(offsets.shape[0]):
+        rel = coords + offsets[ki][:, None]
+        in_extent = torch.all((rel >= 0) & (rel < e), dim=0)
+        flat = (rel[0] * e + rel[1]) * e + rel[2]
+        leaf = soa.lut[torch.where(in_extent, flat, 0).to(torch.int64)]
+        hit = in_extent & (leaf >= 0) & mask
+        row = soa.packed[torch.where(hit, leaf, 0).to(torch.int64)]
+        s, g, h = accumulate_ndt_terms(y, row, hit, gauss, weighted)
+        score, grad, hess = score + s, grad + g, hess + h
+    return score, grad, hess
+
+
+def ndt_align_soa(vmap_: VoxelMap, lut: torch.Tensor, source: PointCloud, guess: torch.Tensor,
+                  **kwargs) -> NDTResult:
+    """`ndt_align_soa_table` on the map's freshly packed rows."""
+    return ndt_align_soa_table(to_soa(vmap_, lut), source, guess, **kwargs)
+
+
+def ndt_align_soa_table(
+    soa: VoxelMapSOA,
+    source: PointCloud,
+    guess: torch.Tensor,
+    *,
+    resolution: float,
+    outlier_ratio: float = 0.55,
+    step_size: float = 0.1,
+    transformation_epsilon: float = 0.01,
+    max_iterations: int = 35,
+    neighborhood: str = "DIRECT1",
+    weighted: bool = False,
+    coarse_subsample: int = 1,
+) -> NDTResult:
+    """Align `source` against packed rows. `coarse_subsample > 1` first runs
+    Newton on every k-th lane at 2x eps, then polishes on all lanes."""
+    gauss = make_gauss_params(resolution, outlier_ratio)
+    offsets = neighborhood_offsets(neighborhood, guess.device)
+    xs = source.masked_xyz().T.contiguous()
+    mask = source.mask.contiguous()
+    eps = np.float32(transformation_epsilon)
+
+    def derivs(transform):
+        return ndt_derivatives_soa(soa, xs, mask, transform.contiguous(), gauss, offsets, weighted)
+
+    start = guess
+    coarse_iters = 0
+    if coarse_subsample > 1:
+        # lane i*k of the mask is the reference's `mask & (i % k == 0)` slice
+        xs_c = xs[:, ::coarse_subsample].contiguous()
+        mask_c = mask[::coarse_subsample].contiguous()
+
+        def derivs_coarse(transform):
+            return ndt_derivatives_soa(soa, xs_c, mask_c, transform.contiguous(), gauss, offsets, weighted)
+
+        start, _, _, _, _, coarse_iters, _ = _newton_loop(
+            derivs_coarse, guess, eps * np.float32(2.0), step_size, max_iterations
+        )
+
+    transform, score, _, hess, _, it, converged = _newton_loop(derivs, start, eps, step_size, max_iterations)
+    n_pts = torch.clamp(torch.sum(mask.to(torch.float32)), min=1.0)
+    return NDTResult(
+        transform=transform, score=score, iterations=it + coarse_iters, converged=converged, hessian=hess,
+        trans_probability=score / n_pts,
+    )

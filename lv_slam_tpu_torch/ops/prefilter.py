@@ -1,5 +1,6 @@
 """Scan prefiltering: distance band, voxel downsampling, lane subsampling
-(port of `lv_slam_tpu.ops.prefilter`, the parts the fused odometry runs).
+and the `prefilter` chain (port of `lv_slam_tpu.ops.prefilter`; the outlier
+removals and the vertical-angle calibration are not ported yet).
 
 `voxel_downsample` is kernel 1 (`csrc/voxel_downsample.cu`) on CUDA tensors
 and `voxel_downsample_ref`, its plain twin, on CPU tensors. Both sort the
@@ -17,8 +18,10 @@ from typing import Tuple
 import numpy as np
 import torch
 
+from lv_slam_tpu_torch.config import PrefilterConfig
 from lv_slam_tpu_torch.core.cloud import SENTINEL, PointCloud
 from lv_slam_tpu_torch.kernels._build import F32, I32, PTR, Kernel, check_cuda, ptr
+from lv_slam_tpu_torch.ops.linalg3 import dot3_fma, sqrt32
 
 _BIG = 1 << 30  # kx of invalid lanes: sorts them behind every voxel
 _YZ_OFF = 1 << 14
@@ -53,7 +56,11 @@ def cell_coords(xyz: torch.Tensor, resolution: float) -> torch.Tensor:
 
 
 def distance_filter(cloud: PointCloud, near: float, far: float) -> PointCloud:
-    dist = torch.sqrt(torch.sum(cloud.xyz * cloud.xyz, dim=1))
+    """Keep `near < |p| < far`. |p| rounds as the reference's compiled
+    `jnp.linalg.norm` on the CPU: the fma chain fma(z, z, fma(y, y, x * x))
+    under a correctly rounded root (a separately rounded sum, or torch's CPU
+    float32 `sqrt`, flips lanes within an ulp of either band edge)."""
+    dist = sqrt32(dot3_fma(cloud.xyz, cloud.xyz))
     keep = cloud.mask & (dist > near) & (dist < far)
     xyz = torch.where(keep[:, None], cloud.xyz, SENTINEL)
     return PointCloud(xyz, cloud.intensity, keep)
@@ -278,3 +285,28 @@ def uniform_subsample(cloud: PointCloud, out_cap: int) -> PointCloud:
         torch.where(ok, cloud.intensity[idx], 0.0),
         ok & cloud.mask[idx],
     )
+
+
+def prefilter(cloud: PointCloud, cfg: PrefilterConfig) -> PointCloud:
+    """The prefiltering chain (`prefiltering_nodelet.cpp:92-135`): the
+    distance band, then VOXELGRID / APPROX_VOXELGRID (kernel 1), DEDUP
+    (kernel 1b) or, for NONE, a front compaction to `out_cap` lanes.
+    `voxel_reduce` picks between two TPU implementations of the same
+    centroid ("scatter", "scan"), so kernel 1 serves both."""
+    if cfg.use_angle_calibration:
+        raise NotImplementedError("the vertical-angle calibration is ROADMAP item 6")
+    if cfg.outlier_removal_method.upper() != "NONE":
+        raise NotImplementedError(
+            f"outlier_removal_method={cfg.outlier_removal_method!r}: the outlier removals are ROADMAP item 6"
+        )
+    if cfg.voxel_reduce not in ("scatter", "scan"):
+        raise ValueError(f"voxel_reduce must be 'scatter' or 'scan', got {cfg.voxel_reduce!r}")
+    out = cloud
+    if cfg.use_distance_filter:
+        out = distance_filter(out, cfg.distance_near_thresh, cfg.distance_far_thresh)
+    method = cfg.downsample_method.upper()
+    if method in ("VOXELGRID", "APPROX_VOXELGRID"):
+        return voxel_downsample(out, cfg.downsample_resolution, cfg.out_cap, method)
+    if method == "DEDUP":
+        return voxel_dedup_first(out, cfg.downsample_resolution, cfg.out_cap)
+    return out.compact(cfg.out_cap)

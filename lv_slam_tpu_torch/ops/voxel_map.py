@@ -1,13 +1,18 @@
-"""Voxel-Gaussian NDT map build (port of `lv_slam_tpu.ops.voxel_map`).
+"""Voxel-Gaussian NDT map build, its dense voxel->leaf LUT and the DIRECT
+neighbourhood lookup (port of `lv_slam_tpu.ops.voxel_map`).
 
 `build_voxel_map` is kernel 2 (`csrc/voxel_map.cu`, with the 3x3 eigh of
 `csrc/linalg3.cuh`) on CUDA tensors and `build_voxel_map_ref`, its plain
 twin, on CPU tensors. Both sort the same flat voxel key with `torch.sort`;
 the hand kernel does the per-leaf work after the sort.
 
-The port's `VoxelMap` carries the key extent instead of the reference's
-dense voxel->leaf LUT: only the hash-table path is ported, and it never
-reads the LUT (the reference's compiled odometry drops it too).
+The reference builds the dense LUT inside every map build. The port's
+`VoxelMap` carries each leaf's flat key instead, and `build_lut` (kernel
+K3L, same file) scatters the E^3 table only for the callers that probe it
+(the host DLO and the fused odometry's `table="lut"`): the hash-table path
+and the loop detector's per-candidate maps never read a LUT, and at the
+flagship's E = 256 it is 64 MiB. `lookup_leaves` is the LUT probe of the
+generic derivative pass, in plain PyTorch.
 """
 
 from __future__ import annotations
@@ -19,12 +24,18 @@ import numpy as np
 import torch
 
 from lv_slam_tpu_torch.core.cloud import PointCloud
-from lv_slam_tpu_torch.kernels._build import F32, I32, PTR, Kernel, check_cuda, ptr
+from lv_slam_tpu_torch.kernels._build import F32, I32, PTR, Kernel, check_cuda, check_dtype, ptr
 from lv_slam_tpu_torch.ops.linalg3 import eigh3x3
 from lv_slam_tpu_torch.ops.prefilter import cell_coords, inv_resolution
 
 _BIG = 1 << 30
 
+LUT_KERNEL = Kernel(
+    "build_lut",
+    source="lv_slam_tpu_torch/csrc/voxel_map.cu",
+    replaces="lv_slam_tpu/ops/voxel_map.py:177",
+    entries={"lvs_voxel_map_lut": [PTR, PTR, I32, I32, PTR]},
+)
 KERNEL = Kernel(
     "build_voxel_map",
     source="lv_slam_tpu_torch/csrc/voxel_map.cu",
@@ -33,7 +44,7 @@ KERNEL = Kernel(
         "lvs_voxel_map_mark": [PTR, I32, I32, PTR],
         "lvs_voxel_map_build": [
             PTR, PTR, PTR, PTR, I32, PTR, PTR, F32, F32, I32, I32, I32, F32, I32,
-            PTR, PTR, PTR, PTR, PTR,
+            PTR, PTR, PTR, PTR, PTR, PTR,
         ],
     },
 )
@@ -47,6 +58,7 @@ class VoxelMap(NamedTuple):
     weights: torch.Tensor      # (L,) PCA dimension weight (1.0 if unweighted)
     normals: torch.Tensor      # (L, 3) min-eigenvalue direction
     valid: torch.Tensor        # (L,) bool
+    keys: torch.Tensor         # (L,) int32 flat key of each leaf's voxel, -1 where no voxel reached the leaf
     origin_cell: torch.Tensor  # (3,) int32 cell of key (0,0,0)
     resolution: float
     n_leaves: torch.Tensor     # () int32
@@ -55,6 +67,13 @@ class VoxelMap(NamedTuple):
     @property
     def leaf_cap(self) -> int:
         return self.means.shape[0]
+
+
+class LutMap(NamedTuple):
+    """A map with its dense LUT, as the LUT paths carry a keyframe map."""
+
+    vmap: VoxelMap
+    lut: torch.Tensor  # (E^3,) int32
 
 
 @functools.lru_cache(maxsize=None)
@@ -123,6 +142,7 @@ def build_voxel_map(
     weights = torch.empty((leaf_cap,), dtype=torch.float32, device=dev)
     normals = torch.empty((leaf_cap, 3), dtype=torch.float32, device=dev)
     valid = torch.empty((leaf_cap,), dtype=torch.bool, device=dev)
+    keys = torch.empty((leaf_cap,), dtype=torch.int32, device=dev)
     KERNEL.call("lvs_voxel_map_mark", ptr(skeys), n, e * e * e, ptr(flag))
     cum = torch.cumsum(flag, dim=0, dtype=torch.int32)  # leaf index + 1 at each run start
     KERNEL.call(
@@ -130,11 +150,11 @@ def build_voxel_map(
         ptr(skeys), ptr(order), ptr(flag), ptr(cum), n, ptr(xyz), ptr(origin),
         float(np.float32(resolution)), inv_resolution(resolution), e, leaf_cap,
         min_points_per_voxel, float(np.float32(min_covar_eigvalue_mult)), int(weighted),
-        ptr(means), ptr(icovs), ptr(weights), ptr(normals), ptr(valid),
+        ptr(means), ptr(icovs), ptr(weights), ptr(normals), ptr(valid), ptr(keys),
     )
     KERNEL.launches += 1
     return VoxelMap(
-        means=means, icovs=icovs, weights=weights, normals=normals, valid=valid,
+        means=means, icovs=icovs, weights=weights, normals=normals, valid=valid, keys=keys,
         origin_cell=origin, resolution=float(resolution),
         n_leaves=torch.sum(valid.to(torch.int32)), extent=e,
     )
@@ -228,11 +248,62 @@ def build_voxel_map_ref(
         weights=weights,
         normals=torch.where(valid[:, None], evecs[:, :, 0], 0.0),
         valid=valid,
+        keys=seg_key,
         origin_cell=origin,
         resolution=float(resolution),
         n_leaves=torch.sum(valid.to(torch.int32)),
         extent=e,
     )
+
+
+def build_lut(vmap_: VoxelMap) -> torch.Tensor:
+    """The dense (E^3,) int32 voxel->leaf table: -1 everywhere, the row of
+    each valid leaf at its flat key (the reference's scatter inside
+    `build_voxel_map`). Keys are unique, so the table is deterministic.
+    Kernel K3L on CUDA, the plain version on CPU."""
+    if vmap_.keys.device.type == "cpu":
+        return build_lut_ref(vmap_)
+    e3 = vmap_.extent ** 3
+    check_cuda("build_lut", vmap_.keys, vmap_.valid)
+    check_dtype("build_lut", vmap_.keys, torch.int32, (vmap_.leaf_cap,))
+    check_dtype("build_lut", vmap_.valid, torch.bool, (vmap_.leaf_cap,))
+    lut = torch.empty((e3,), dtype=torch.int32, device=vmap_.keys.device)
+    LUT_KERNEL.call("lvs_voxel_map_lut", ptr(vmap_.keys), ptr(vmap_.valid), vmap_.leaf_cap, e3, ptr(lut))
+    LUT_KERNEL.launches += 1
+    return lut
+
+
+def build_lut_ref(vmap_: VoxelMap) -> torch.Tensor:
+    """Plain PyTorch version of `build_lut`."""
+    dev = vmap_.keys.device
+    lut = torch.full((vmap_.extent ** 3,), -1, dtype=torch.int32, device=dev)
+    rows = torch.arange(vmap_.leaf_cap, dtype=torch.int32, device=dev)
+    lut[vmap_.keys[vmap_.valid].to(torch.int64)] = rows[vmap_.valid]
+    return lut
+
+
+def probe_cells(points: torch.Tensor, origin_cell: torch.Tensor, resolution: float) -> torch.Tensor:
+    """(..., 3) int32 cells of `points` relative to the map origin, as the
+    reference's LUT probes compute them: `floor(points / res)` by a true
+    float32 division, since the resolution is an array there (the map build
+    multiplies by the reciprocal; at a non-power-of-two resolution the two
+    differ within an ulp of a cell face)."""
+    res = torch.full((), resolution, dtype=torch.float32, device=points.device)
+    return torch.floor(points / res).to(torch.int32) - origin_cell
+
+
+def lookup_leaves(vmap_: VoxelMap, lut: torch.Tensor, points: torch.Tensor, offsets: torch.Tensor):
+    """Leaf Gaussians at each point's DIRECT-K neighbourhood through the LUT:
+    points (N, 3), offsets (K, 3) int32 -> (means (N, K, 3), icovs
+    (N, K, 3, 3), weights (N, K), hit (N, K)); a miss reads leaf 0."""
+    e = vmap_.extent
+    rel = probe_cells(points, vmap_.origin_cell, vmap_.resolution)[:, None, :] + offsets[None, :, :]
+    in_extent = torch.all((rel >= 0) & (rel < e), dim=-1)
+    flat = (rel[..., 0] * e + rel[..., 1]) * e + rel[..., 2]
+    leaf = lut[torch.where(in_extent, flat, 0).to(torch.int64)]
+    hit = in_extent & (leaf >= 0)
+    leaf = torch.where(hit, leaf, 0).to(torch.int64)
+    return vmap_.means[leaf], vmap_.icovs[leaf], vmap_.weights[leaf], hit
 
 
 def leaf_eigen_ratio(

@@ -1,16 +1,19 @@
-"""The per-scan SLAM orchestrator (port of `lv_slam_tpu.pipeline.slam`).
+"""The per-scan SLAM orchestrator (port of `lv_slam_tpu.pipeline.slam`), the
+reference's `dlo_lfa_ggo` stack.
 
-`LvSlam(use_dlo=False)` is the reference's pure `lfa` stack: each raw scan
-goes through the LFA (feature extraction, the scan-to-scan feature odometry
-and the scan-to-map refinement, `lfa/{odometry,mapping}.py`), and the
-refined pose with the raw cloud (and the camera image, when one comes) feeds
-`GlobalGraph.add_scan`, which runs loop closure and the pose-graph LM every
-`optimize_every` scans. With `use_lfa=False` too, the backend receives
-identity odometry, as in the reference.
+By default (`use_dlo=True`) each raw scan goes through the host DLO frontend
+(`odometry/dlo.DirectLidarOdometry`: prefilter, LUT NDT scan-to-keyframe
+align), whose pose seeds the LFA's scan-to-map refinement
+(`lfa/mapping.py`), and the refined pose with the prefiltered cloud (and the
+camera image, when one comes) feeds `GlobalGraph.add_scan`, which runs loop
+closure and the pose-graph LM every `optimize_every` scans.
+`use_dlo=False` is the pure `lfa` stack: the LFA's own scan-to-scan feature
+odometry seeds the mapping, and the backend receives the raw cloud. With
+`use_lfa=False` the backend receives the DLO pose (or, without the DLO
+too, identity odometry), as in the reference.
 
-Not ported yet: the host DLO frontend (`use_dlo=True`, the reference's
-default, `odometry/dlo.py` over the LUT NDT path; the next slice), and the
-GPS / IMU / floor priors (ROADMAP item 9): they raise `NotImplementedError`.
+Not ported yet: the GPS / IMU / floor priors (ROADMAP item 6); they raise
+`NotImplementedError`.
 """
 
 from __future__ import annotations
@@ -25,6 +28,7 @@ from lv_slam_tpu_torch.core.cloud import PointCloud
 from lv_slam_tpu_torch.lfa.features import extract_features
 from lv_slam_tpu_torch.lfa.mapping import FeatureMapping
 from lv_slam_tpu_torch.lfa.odometry import FeatureOdometry
+from lv_slam_tpu_torch.odometry.dlo import DirectLidarOdometry
 from lv_slam_tpu_torch.pipeline.backend import GlobalGraph
 
 
@@ -39,11 +43,6 @@ class LvSlam:
         vocabulary=None,
         device="cuda",
     ):
-        if use_dlo:
-            raise NotImplementedError(
-                "the host DLO frontend (odometry/dlo.py over the LUT NDT path) is the next slice of the "
-                "port; pass use_dlo=False for the pure LFA stack"
-            )
         self.cfg = cfg or PipelineConfig()
         self.device = torch.device(device)
         self.use_dlo = use_dlo
@@ -51,8 +50,11 @@ class LvSlam:
         self.optimize_every = optimize_every
         self.scan_cap = scan_cap
 
+        self.dlo = (
+            DirectLidarOdometry(self.cfg.odometry, self.cfg.prefilter, device=self.device) if use_dlo else None
+        )
         if self.use_lfa:
-            self.feature_odometry = FeatureOdometry(self.cfg.lfa, device=self.device)
+            self.feature_odometry = None if use_dlo else FeatureOdometry(self.cfg.lfa, device=self.device)
             self.mapping = FeatureMapping(self.cfg.lfa, device=self.device)
         tr = None
         if self.cfg.calib_tr is not None:
@@ -83,15 +85,24 @@ class LvSlam:
         cloud = PointCloud.from_numpy(scan, cap=self.scan_cap, device=self.device)
 
         odom = np.eye(4)
+        if self.dlo is not None:
+            odom = self.dlo.process(cloud, stamp)
+            self.dlo_poses.append(odom)
+
         if self.use_lfa:
             feats = extract_features(cloud, self.cfg.lfa)
-            odom = self.feature_odometry.process(feats)
+            if self.feature_odometry is not None:
+                odom = self.feature_odometry.process(feats)
             refined = self.mapping.process(feats, odom)
             self.lfa_poses.append(refined)
             odom = refined
 
-        # without the DLO prefilter the backend receives the raw cloud
-        self.backend.add_scan(self._seq, stamp, odom, cloud, image=image)
+        # the backend receives the prefiltered cloud, like /filtered_points
+        # (the reference prefilters the raw cloud once more here; the DLO's
+        # product of this scan is the same tensor content, `prefilter` being
+        # deterministic, so it is reused), else the raw cloud
+        filtered = self.dlo.filtered if (self.dlo is not None and self.dlo._prefilter is not None) else cloud
+        self.backend.add_scan(self._seq, stamp, odom, filtered, image=image)
         self._seq += 1
         if self._seq % self.optimize_every == 0:
             self.backend.optimize()

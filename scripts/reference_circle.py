@@ -1,11 +1,13 @@
 #!/usr/bin/env python3
-"""The JAX reference's records of standalone LFA on the benchmark circle,
-which `chip_smoke.py` phase 7 prints beside the port's results (CPU; needs
+"""The JAX reference's records on the benchmark circle, which
+`chip_smoke.py` phases 7 and 8 print beside the port's results (CPU; needs
 JAX):
 
     JAX_PLATFORMS=cpu python scripts/reference_circle.py fused
     JAX_PLATFORMS=cpu python scripts/reference_circle.py host
     JAX_PLATFORMS=cpu python scripts/reference_circle.py slam
+    JAX_PLATFORMS=cpu python scripts/reference_circle.py dlo
+    JAX_PLATFORMS=cpu python scripts/reference_circle.py slam_dlo
 
 The workload is the reference benchmark's circle (`bench.py:156-194`: world
 seed 5, `circle_trajectory(170, step=1.0)`, `hdl64_rays(64, 2000)`,
@@ -18,6 +20,13 @@ seed 5, `circle_trajectory(170, step=1.0)`, `hdl64_rays(64, 2000)`,
   512 words>)`, each scan with `render_camera_image(world, gt[i], seed=5)`:
   the LFA poses' devkit_t_err, keyframes, loops, the optimized keyframes'
   largest and last position errors.
+- `dlo`: the host `DirectLidarOdometry(PipelineConfig().odometry,
+  .prefilter)` per scan, as `bench.py`'s host cell drives it:
+  devkit_t_err, final drift, keyframes, retries, Newton iterations.
+- `slam_dlo`: `LvSlam(PipelineConfig(), vocabulary=<the shipped 512
+  words>)` at its defaults (the host DLO seeding the LFA mapping), each scan
+  with its camera image: both pose sets' devkit_t_err, the DLO's and the
+  backend's keyframes, loops, the optimized keyframes' errors.
 
 These are full-size runs: they need a machine with tens of GB of memory to
 spare and take tens of minutes of CPU each.
@@ -106,5 +115,43 @@ def slam() -> None:
           f"last {err[-1]:.3f} m")
 
 
+def dlo() -> None:
+    from lv_slam_tpu.config import PipelineConfig
+    from lv_slam_tpu.core.cloud import PointCloud
+    from lv_slam_tpu.odometry.dlo import DirectLidarOdometry
+
+    _, scans, gt = _workload()
+    cfg = PipelineConfig()
+    odo = DirectLidarOdometry(cfg.odometry, cfg.prefilter)
+    for i, s in enumerate(scans):
+        odo.process(PointCloud.from_numpy(s, cap=CAP), 0.1 * i)
+    _accuracy(np.stack(odo.poses), gt, "host DirectLidarOdometry")
+    st = odo.stats
+    print(f"keyframes {odo.keyframe_indices} ({st.keyframe_count}), retries {st.retries}, Newton iterations "
+          f"{st.total_iterations}")
+
+
+def slam_dlo() -> None:
+    from lv_slam_tpu.config import PipelineConfig
+    from lv_slam_tpu.graph.bow import Vocabulary
+    from lv_slam_tpu.io import synthetic
+    from lv_slam_tpu.pipeline.slam import LvSlam
+
+    world, scans, gt = _workload()
+    vocab = Vocabulary.load(str(_ROOT / "lv_slam_tpu" / "assets" / "vocab_synthetic_512.npz"))
+    run = LvSlam(PipelineConfig(), scan_cap=CAP, vocabulary=vocab)
+    for i, s in enumerate(scans):
+        run.process(s, 0.1 * i, image=synthetic.render_camera_image(world, gt[i], seed=SEED))
+    run.finalize()
+    _accuracy(np.stack(run.dlo_poses), gt, "LvSlam() DLO poses")
+    _accuracy(np.stack(run.lfa_poses), gt, "LvSlam() LFA poses")
+    gt_rel = np.einsum("ij,njk->nik", np.linalg.inv(gt[0]), gt)
+    seqs = [k.seq for k in run.backend.keyframes]
+    err = [float(np.linalg.norm(p[:3, 3] - gt_rel[s][:3, 3])) for p, s in zip(run.trajectory(), seqs)]
+    loops = [(lp.key1.seq, lp.key2.seq) for lp in run.backend.loops]
+    print(f"DLO keyframes {run.dlo.keyframe_indices}, retries {run.dlo.stats.retries}; backend keyframes {seqs} "
+          f"({len(seqs)}), loops {loops}; optimized keyframe error largest {max(err):.3f} m, last {err[-1]:.3f} m")
+
+
 if __name__ == "__main__":
-    {"fused": fused, "host": host, "slam": slam}[sys.argv[1]]()
+    {"fused": fused, "host": host, "slam": slam, "dlo": dlo, "slam_dlo": slam_dlo}[sys.argv[1]]()

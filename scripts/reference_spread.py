@@ -7,6 +7,9 @@ hold the port to it (CPU; needs JAX):
     JAX_PLATFORMS=cpu python scripts/reference_spread.py lfa       # ~1 min
     JAX_PLATFORMS=cpu python scripts/reference_spread.py lfa_host  # ~2 min
     JAX_PLATFORMS=cpu python scripts/reference_spread.py slam      # ~2 min
+    JAX_PLATFORMS=cpu python scripts/reference_spread.py dlo       # ~2 min
+    JAX_PLATFORMS=cpu python scripts/reference_spread.py slam_dlo  # ~3 min
+    JAX_PLATFORMS=cpu python scripts/reference_spread.py fused_lut # ~1 min
 
 `eigh`: JAX's and the port's `eigh3x3` on matrices with an exactly repeated
 eigenvalue pair (seeds 13-44, `tests/test_torch_voxel_map.py`'s generator):
@@ -32,6 +35,21 @@ largest move of the odometry and of the refined pose.
 `slam`: `LvSlam(use_dlo=False)` on `small_sequence` with
 `tests/test_slam_pipeline.py`'s small configuration, 8 perturbations: per
 scan, the largest move of the LFA pose; keyframes and loops of each run.
+
+`dlo`: the host `DirectLidarOdometry` on `small_sequence` in
+`tests/test_torch_dlo.py`'s configurations (`NDTConfig(leaf_cap=16384)`
+without and with the prefilter, and with a 1 mm retry threshold), 8
+perturbations: per scan, the largest move of the pose; the keyframes and
+the scans whose retry was kept, of each run.
+
+`fused_lut`: `run_sequence_fused` with `NDTConfig(table="lut")` on
+`small_sequence` in `tests/test_torch_odometry.py`'s configuration, 16
+perturbations (as that file's hash-table spread): per scan, the largest
+move of the pose.
+
+`slam_dlo`: `LvSlam()` at its default (`use_dlo=True`) with the small
+configuration, 8 perturbations: per scan, the largest move of the DLO and
+of the LFA pose; keyframes and loops of each run.
 """
 
 from __future__ import annotations
@@ -188,5 +206,79 @@ def slam() -> None:
     print(f"LFA poses: translation moves per scan {dt} m, rotation entries up to {rot}")
 
 
+def _nudged_scans(scans, seed):
+    if seed is None:
+        return [np.asarray(s, np.float32) for s in scans]
+    return [np.concatenate([_nudge(np.asarray(s, np.float32)[:, :3], np.ones(len(s), bool), seed),
+                            np.asarray(s, np.float32)[:, 3:]], axis=1) for s in scans]
+
+
+def dlo() -> None:
+    import conftest
+    import test_torch_dlo as t
+    from lv_slam_tpu.odometry.dlo import DirectLidarOdometry
+
+    scans, _, _ = conftest.small_sequence.__wrapped__()
+    for variant, (cfg, pf) in t.reference_configs().items():
+        runs = []
+        for seed in [None] + list(range(8)):
+            odo = DirectLidarOdometry(cfg, pf)
+            poses, retried = [], []
+            for i, s in enumerate(_nudged_scans(scans, seed)):
+                before = odo.stats.retries
+                poses.append(odo.process_numpy(s, 0.1 * i, cap=t.CAP))
+                if odo.stats.retries > before:
+                    retried.append(i)
+            runs.append(np.stack(poses))
+            print(f"{variant} run {seed}: keyframes {odo.keyframe_indices}, retries kept at scans {retried}")
+        dt, rot = _spread(runs)
+        print(f"{variant}: translation moves per scan {dt} m, rotation entries up to {rot}")
+
+
+def fused_lut() -> None:
+    import dataclasses
+
+    import jax.numpy as jnp
+
+    import conftest
+    import test_torch_odometry as t
+    from lv_slam_tpu.core.cloud import PointCloud
+    from lv_slam_tpu.odometry.fused import run_sequence_fused
+
+    scans, _, _ = conftest.small_sequence.__wrapped__()
+    cfg = dataclasses.replace(t.CFG, ndt=dataclasses.replace(t.CFG.ndt, table="lut"))
+    clouds = [PointCloud.from_numpy(s, cap=t.CAP) for s in scans]
+    xyz = np.stack([np.asarray(c.xyz) for c in clouds])
+    mask = np.stack([np.asarray(c.mask) for c in clouds])
+    stamps = jnp.arange(len(scans), dtype=jnp.float32) * 0.1
+    runs = [np.asarray(run_sequence_fused(jnp.asarray(x), jnp.asarray(mask), stamps, cfg, t.PF))
+            for x in [xyz] + [_nudge(xyz, mask, seed) for seed in range(16)]]
+    dt, rot = _spread(runs)
+    print(f"fused LUT odometry: translation moves per scan {dt} m, rotation entries up to {rot}")
+
+
+def slam_dlo() -> None:
+    import conftest
+    import test_slam_pipeline as t
+    from lv_slam_tpu.pipeline.slam import LvSlam
+
+    scans, _, _ = conftest.small_sequence.__wrapped__()
+    dlo_runs, lfa_runs = [], []
+    for seed in [None] + list(range(8)):
+        slam_ = LvSlam(t._small_cfg(), optimize_every=4, scan_cap=32768)
+        for i, s in enumerate(_nudged_scans(scans, seed)):
+            slam_.process(s, i * 0.1)
+        slam_.finalize()
+        dlo_runs.append(np.stack(slam_.dlo_poses))
+        lfa_runs.append(np.stack(slam_.lfa_poses))
+        print(f"run {seed}: DLO keyframes {slam_.dlo.keyframe_indices}, backend keyframes "
+              f"{[k.seq for k in slam_.backend.keyframes]}, loops "
+              f"{[(lp.key1.seq, lp.key2.seq) for lp in slam_.backend.loops]}")
+    for name, runs in (("DLO", dlo_runs), ("LFA", lfa_runs)):
+        dt, rot = _spread(runs)
+        print(f"{name} poses: translation moves per scan {dt} m, rotation entries up to {rot}")
+
+
 if __name__ == "__main__":
-    {"eigh": eigh, "backend": backend, "lfa": lfa, "lfa_host": lfa_host, "slam": slam}[sys.argv[1]]()
+    {"eigh": eigh, "backend": backend, "lfa": lfa, "lfa_host": lfa_host, "slam": slam, "dlo": dlo,
+     "slam_dlo": slam_dlo, "fused_lut": fused_lut}[sys.argv[1]]()

@@ -22,9 +22,9 @@ from lv_slam_tpu_torch.io import kitti, synthetic  # noqa: E402
 )
 def test_config_matches_reference(name):
     """Each of the port's fields has the reference's default, in the stage
-    config and in the flagship configuration; the LFA, loop-detector, graph
-    and pipeline configs copy every field, field by field (the pipeline's
-    stages as the stage configs, its calibration as it is)."""
+    config and in the flagship configuration; every stage config copies
+    every field, field by field, and the pipeline config its stages and its
+    calibration."""
 
     def same(port, ref):
         port, ref = dataclasses.asdict(port), dataclasses.asdict(ref)
@@ -38,7 +38,7 @@ def test_config_matches_reference(name):
             same(getattr(port, stage), getattr(ref, stage))
     else:
         same(getattr(config, name)(), getattr(ref_config, name)())
-    if name in ("LfaConfig", "LoopDetectorConfig", "GraphConfig"):
+    if name != "PipelineConfig":
         fields = [f.name for f in dataclasses.fields(getattr(config, name))]
         assert fields == [f.name for f in dataclasses.fields(getattr(ref_config, name))]
     port, ref = config.kitti_flagship_config(), ref_config.kitti_flagship_config()

@@ -21,7 +21,7 @@ from lv_slam_tpu_torch.core.cloud import PointCloud  # noqa: E402
 from lv_slam_tpu_torch.kernels import KERNELS, reset_launches  # noqa: E402
 from lv_slam_tpu_torch.graph import pose_graph  # noqa: E402
 from lv_slam_tpu_torch.lfa import features, registration  # noqa: E402
-from lv_slam_tpu_torch.ops import knn, ndt_hash, nn, orb, prefilter, voxel_map  # noqa: E402
+from lv_slam_tpu_torch.ops import knn, ndt, ndt_hash, ndt_soa, nn, orb, prefilter, voxel_map  # noqa: E402
 from lv_slam_tpu_torch.pipeline import window  # noqa: E402
 from lv_slam_tpu_torch.ops.ndt import make_gauss_params  # noqa: E402
 
@@ -41,7 +41,7 @@ def _calls(device, scans):
     """Every wrapper once, on `device`, at small shapes: (name, wrapper output,
     plain output) for each kernel."""
     return (_odometry_calls(device, scans) + _lfa_calls(device, scans) + _backend_calls(device, scans)
-            + _camera_calls(device) + _standalone_calls(device, scans))
+            + _camera_calls(device) + _standalone_calls(device, scans) + _lut_calls(device, scans))
 
 
 def _odometry_calls(device, scans):
@@ -206,19 +206,49 @@ def _standalone_calls(device, scans):
     return out
 
 
+def _lut_calls(device, scans):
+    """K3L on scan 0's map at 0.7 m (a resolution whose probe must divide),
+    then K6L (DIRECT1 weighted, DIRECT7) and K6G (DIRECT1 weighted) of scan
+    1's points at the true relative pose."""
+    (s0, s1), rel = scans
+    c0, c1 = (PointCloud.from_numpy(s, cap=16384, device=device) for s in (s0, s1))
+    vm = voxel_map.build_voxel_map_ref(c0, 0.7, leaf_cap=8192, lut_extent=256, weighted=True)
+    lut = voxel_map.build_lut(vm)
+    out = [("build_lut", (lut,), (voxel_map.build_lut_ref(vm),))]
+    soa = ndt_soa.to_soa(vm, lut)
+    t = torch.from_numpy(rel.astype(np.float32)).to(device)
+    gauss = make_gauss_params(0.7)
+    xs = c1.masked_xyz().T.contiguous()
+    for hood, weighted in (("DIRECT1", True), ("DIRECT7", False)):
+        args = (soa, xs, c1.mask, t, gauss, voxel_map.neighborhood_offsets(hood, device), weighted)
+        out.append(("ndt_derivatives_soa", ndt_soa.ndt_derivatives_soa(*args), ndt_soa.ndt_derivatives_soa_ref(*args)))
+    args = (vm, lut, c1.masked_xyz().contiguous(), c1.mask, t, gauss, voxel_map.neighborhood_offsets("DIRECT1", device),
+            True)
+    out.append(("ndt_derivatives", ndt.ndt_derivatives(*args), ndt.ndt_derivatives_ref(*args)))
+    return out
+
+
+# kernels that replace a block inside a reference function: the text their
+# replaced line must hold
+INLINE_BLOCKS = {"build_lut": "# Dense LUT scatter"}
+
+
 def test_registry_names_sources_and_replaced_functions():
     assert set(KERNELS) == {
         "voxel_downsample", "build_voxel_map", "to_hash", "ndt_derivatives_hash", "extract_features",
         "insert_cell_table", "crop_cell_table", "lines_from_fit", "planes_from_fit", "gn_solve",
         "voxel_dedup_first", "window_group_filtered_fn", "_fused_verify_fn", "build_centroid_grid",
         "nn_sq_dists", "_chi2_and_normal", "_detect_pyramid_batch", "match_scores_batch",
-        "build_grid", "knn", "build_cell_table",
+        "build_grid", "knn", "build_cell_table", "build_lut", "ndt_derivatives_soa", "ndt_derivatives",
     }
     for name, k in KERNELS.items():
         assert (REPO / k.source).is_file(), k.source
         path, line = k.replaces.split(":")
         text = (REPO / path).read_text().splitlines()[int(line) - 1]
-        assert re.match(rf"def {name}\(", text), (k.replaces, text)
+        if name in INLINE_BLOCKS:
+            assert INLINE_BLOCKS[name] in text, (k.replaces, text)
+        else:
+            assert re.match(rf"def {name}\(", text), (k.replaces, text)
 
 
 def test_cpu_tensors_use_the_plain_versions(scans):
@@ -366,3 +396,22 @@ def test_standalone_lfa_kernels_match_plain_versions_on_the_card(cuda, scans):
             else:
                 assert a == b, name
     assert int(results["lines_from_2nn"][0].valid.sum()) > 0 and int(results["planes_from_3nn"][0].valid.sum()) > 0
+
+
+@pytest.mark.gpu
+def test_lut_kernels_match_plain_versions_on_the_card(cuda, scans):
+    reset_launches()
+    results = _lut_calls(cuda, scans)
+    torch.cuda.synchronize()
+    assert {name: k.launches for name, k in KERNELS.items() if k.launches} == {
+        "build_lut": 1, "ndt_derivatives_soa": 2, "ndt_derivatives": 1,
+    }
+    # K3L: identical table (one writer per entry)
+    (got,), (want,) = results[0][1:]
+    assert torch.equal(got, want) and int((want >= 0).sum()) > 100
+    # K6L, K6G: as K6 (partial sums in another order)
+    for name, (s1, g1, h1), (s2, g2, h2) in results[1:]:
+        assert float(s2) > 0.0, name
+        torch.testing.assert_close(s1, s2, rtol=1e-4, atol=0)
+        torch.testing.assert_close(g1, g2, rtol=0, atol=2e-5 * float(g2.abs().max()))
+        torch.testing.assert_close(h1, h2, rtol=0, atol=2e-5 * float(h2.abs().max()))

@@ -2,6 +2,7 @@
 lv_slam_tpu.odometry.fused on the conftest `small_sequence` (CPU)."""
 
 import ast
+import dataclasses
 import subprocess
 import sys
 from pathlib import Path
@@ -35,6 +36,11 @@ TRANS_ATOL = 2e-3  # m
 # below 6.6e-4, under ROT_ATOL.
 REF_SPREAD = np.array([0.0, 4.0e-3, 1.8e-3, 2.7e-3, 4.9e-3, 6.8e-3])
 ROT_ATOL = 1e-3
+# NDTConfig(table="lut"): the dense LUT and packed rows (kernels K3L, K6L).
+# The reference's spread on it over the same 16 perturbations
+# (`scripts/reference_spread.py fused_lut`) equals REF_SPREAD to the
+# micrometre, rotation 6.5e-4.
+CFG_LUT = dataclasses.replace(CFG, ndt=dataclasses.replace(CFG.ndt, table="lut"))
 
 
 @pytest.fixture(scope="module")
@@ -114,6 +120,57 @@ def test_state_carried_from_jax(inputs, jax_run):
     assert state2.scan_idx == state.scan_idx + xyz.shape[0] - k
 
 
+def _port_cfg(cfg):
+    from lv_slam_tpu_torch import config as tc
+
+    return tc.OdometryConfig(
+        **{f.name: getattr(cfg, f.name) for f in dataclasses.fields(cfg) if f.name != "ndt"},
+        ndt=tc.NDTConfig(**dataclasses.asdict(cfg.ndt)),
+    )
+
+
+def test_run_sequence_fused_lut_matches_jax(inputs):
+    """`table="lut"` against JAX's LUT run: poses within
+    max(TRANS_ATOL, REF_SPREAD) / ROT_ATOL, keyframe switches identical."""
+    xyz, mask, stamps, inten, gt = inputs
+    want_poses, _, want_switches = (np.asarray(a) for a in j_run(
+        jnp.asarray(xyz), jnp.asarray(mask), jnp.asarray(stamps), CFG_LUT, PF, with_stats=True,
+        inten=jnp.asarray(inten)))
+    poses, _, switches = t_run(
+        torch.from_numpy(xyz), torch.from_numpy(mask), torch.from_numpy(stamps), _port_cfg(CFG_LUT), PF,
+        with_stats=True, inten=torch.from_numpy(inten), device="cpu",
+    )
+    _assert_poses_close(poses.numpy(), want_poses, np.maximum(TRANS_ATOL, REF_SPREAD))
+    np.testing.assert_array_equal(switches.numpy(), want_switches)
+    gt_rel = np.einsum("ij,njk->nik", np.linalg.inv(gt[0]), gt)
+    assert np.linalg.norm(poses.numpy()[-1, :3, 3] - gt_rel[-1, :3, 3]) < 0.25
+
+
+def test_lut_state_carried_from_jax(inputs):
+    """JAX's LUT-mode state (its VoxelMap with the LUT) crosses into the
+    port and back unchanged, and the port continues from it on the second
+    half within TRANS_ATOL of JAX's unchunked run."""
+    xyz, mask, stamps, inten, _ = inputs
+    k = xyz.shape[0] // 2
+    want_poses = np.asarray(j_run(jnp.asarray(xyz), jnp.asarray(mask), jnp.asarray(stamps), CFG_LUT, PF,
+                                  inten=jnp.asarray(inten)))
+    _, jstate = j_run(
+        jnp.asarray(xyz[:k]), jnp.asarray(mask[:k]), jnp.asarray(stamps[:k]), CFG_LUT, PF,
+        return_state=True, inten=jnp.asarray(inten[:k]),
+    )
+    leaves = {f"key_map.{f}": np.asarray(v) for f, v in jstate.key_map._asdict().items()}
+    leaves.update({f: np.asarray(v) for f, v in jstate._asdict().items() if f != "key_map"})
+    state = fused_state_from_numpy(leaves, "cpu")
+    back = fused_state_to_numpy(state)
+    for name, value in leaves.items():
+        np.testing.assert_array_equal(back[name], value, err_msg=name)
+    poses = t_run(
+        torch.from_numpy(xyz[k:]), torch.from_numpy(mask[k:]), torch.from_numpy(stamps[k:]),
+        _port_cfg(CFG_LUT), PF, init_state=state, inten=torch.from_numpy(inten[k:]), device="cpu",
+    )
+    _assert_poses_close(poses.numpy(), want_poses[k:], TRANS_ATOL)
+
+
 def _imported_modules(path: Path) -> set:
     names = set()
     for node in ast.walk(ast.parse(path.read_text())):
@@ -149,7 +206,7 @@ def test_port_never_imports_jax():
         "lv_slam_tpu_torch.pipeline.async_backend, lv_slam_tpu_torch.pipeline.window, "
         "lv_slam_tpu_torch.graph.loop_detector, lv_slam_tpu_torch.graph.pose_graph, "
         "lv_slam_tpu_torch.graph.information_matrix, lv_slam_tpu_torch.ops.nn, lv_slam_tpu_torch.lfa, "
-        "lv_slam_tpu_torch.pipeline.slam; "
+        "lv_slam_tpu_torch.pipeline.slam, lv_slam_tpu_torch.odometry.dlo; "
         "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'lv_slam_tpu')]; "
         "assert not bad, bad"
     )
@@ -185,3 +242,11 @@ def test_entry_points_default_to_the_card(inputs):
         LfaPipeline(LfaConfig()).process_numpy(xyz[0][mask[0]], cap=CAP)
     with pytest.raises((RuntimeError, AssertionError)):
         LvSlam(use_dlo=False).process(xyz[0][mask[0]], 0.0)
+    with pytest.raises((RuntimeError, AssertionError)):
+        LvSlam().process(xyz[0][mask[0]], 0.0)
+    from lv_slam_tpu_torch.odometry.dlo import DirectLidarOdometry, run_sequence
+
+    with pytest.raises((RuntimeError, AssertionError)):
+        DirectLidarOdometry().process_numpy(xyz[0][mask[0]], 0.0, cap=CAP)
+    with pytest.raises((RuntimeError, AssertionError)):
+        run_sequence([xyz[0][mask[0]]], cap=CAP)

@@ -1,8 +1,19 @@
-"""The port's per-scan orchestrator `LvSlam(use_dlo=False)` (the pure LFA
-stack: host feature odometry and mapping, then `GlobalGraph.add_scan` with
-the raw cloud; kernels through their plain twins on the CPU) against
-lv_slam_tpu.pipeline.slam on the conftest `small_sequence` with
-`tests/test_slam_pipeline.py`'s small configuration.
+"""The port's per-scan orchestrator `LvSlam` (kernels through their plain
+twins on the CPU) against lv_slam_tpu.pipeline.slam on the conftest
+`small_sequence` with `tests/test_slam_pipeline.py`'s small configuration:
+at its default (the host DLO seeding the LFA mapping, the prefiltered cloud
+to `GlobalGraph.add_scan`), with `use_lfa=False`, and as the pure LFA stack
+(`use_dlo=False`: host feature odometry and mapping, the raw cloud to the
+backend).
+
+The default's tolerances are the reference's own one-ulp spread
+(`scripts/reference_spread.py slam_dlo`, 8 perturbations): per scan, the
+DLO pose within the larger of 2e-3 m and DLO_SPREAD, the LFA pose within
+the larger of 2e-3 m and LFA_SPREAD, rotation entries within 1e-3; the
+DLO's and the backend's keyframes and the loops equal (the perturbed
+reference runs keep them all).
+
+`use_dlo=False`:
 
 Tolerance: each LFA pose within 1e-4 m and 1e-4 of the reference's (moving
 every raw coordinate by one ulp moves the reference's LFA poses by up to
@@ -28,6 +39,9 @@ from lv_slam_tpu_torch.pipeline.slam import LvSlam  # noqa: E402
 from test_slam_pipeline import _small_cfg  # noqa: E402
 
 LFA_SPREAD = np.array([0.0, 1.5e-6, 1e-6, 1.7e-4, 1.8e-4, 2.2e-4])  # per scan, m
+DEFAULT_ATOL, DEFAULT_ROT_ATOL = 2e-3, 1e-3
+DLO_SPREAD = np.array([0.0, 6.0e-3, 2.9e-3, 2.8e-3, 1.6e-3, 7.8e-3])  # per scan, m (rotation <= 8.0e-4)
+DEFAULT_LFA_SPREAD = np.array([0.0, 2.3e-4, 2.0e-3, 1.7e-3, 6.8e-3, 1.15e-2])  # (rotation <= 7.0e-4)
 TRANS_ATOL = 1e-4  # m
 ROT_ATOL = 1e-4
 
@@ -103,12 +117,13 @@ def test_lvslam_without_lfa_feeds_identity_odometry(small_sequence):
 
 
 def test_lvslam_unported_options_raise(small_sequence):
-    """The host DLO frontend (the reference's default) and the sensor priors
-    are not ported: they raise instead of running something else. The
-    calibration reaches the backend."""
+    """The host DLO frontend (the reference's default) now constructs; the
+    sensor priors are not ported: they raise instead of running something
+    else. The calibration reaches the backend."""
     cfg = _port_config(_small_cfg())
-    with pytest.raises(NotImplementedError, match="DLO"):
-        LvSlam(cfg, device="cpu")
+    default = LvSlam(cfg, device="cpu")
+    assert default.dlo is not None and default.feature_odometry is None
+    assert default.dlo.prefilter_cfg == cfg.prefilter and default.dlo.device == torch.device("cpu")
     slam = LvSlam(dataclasses.replace(cfg, calib_tr=tuple(float(v) for v in range(12))), use_dlo=False,
                   scan_cap=32768, device="cpu")
     np.testing.assert_array_equal(slam.backend.tr[:3, :4], np.arange(12.0).reshape(3, 4))
@@ -117,3 +132,55 @@ def test_lvslam_unported_options_raise(small_sequence):
         slam.process(scan, 0.0, detect_floor=True)
     with pytest.raises(NotImplementedError):
         slam.process(scan, 0.0, gps_xyz=np.zeros(3))
+
+
+def _assert_close(got, want, spread, what):
+    err_t = np.abs(got[:, :3, 3] - want[:, :3, 3]).max(axis=1)
+    err_r = float(np.abs(got[:, :3, :3] - want[:, :3, :3]).max())
+    tol = np.maximum(DEFAULT_ATOL, spread)
+    print(f"{what}: translation error {np.array2string(err_t, precision=6)} m (tolerance {tol}), rotation "
+          f"{err_r:.3g} (tolerance {DEFAULT_ROT_ATOL})")
+    assert (err_t <= tol).all() and err_r <= DEFAULT_ROT_ATOL
+
+
+@pytest.fixture(scope="module")
+def default_runs(small_sequence):
+    scans, gt, _ = small_sequence
+    want = _run(JSlam(_small_cfg(), optimize_every=4, scan_cap=32768), scans)
+    got = _run(LvSlam(_port_config(_small_cfg()), optimize_every=4, scan_cap=32768, device="cpu"), scans)
+    return got, want, gt
+
+
+def test_lvslam_default_matches_jax(default_runs):
+    """`LvSlam()` at its default (`tests/test_slam_pipeline.py:30`): DLO and
+    LFA poses within the reference's spread, the DLO's and the backend's
+    keyframes and the loops equal, the prefiltered cloud in the backend."""
+    got, want, gt = default_runs
+    assert len(got.dlo_poses) == len(got.lfa_poses) == len(want.dlo_poses)
+    _assert_close(np.stack(got.dlo_poses), np.stack(want.dlo_poses), DLO_SPREAD, "DLO poses")
+    _assert_close(np.stack(got.lfa_poses), np.stack(want.lfa_poses), DEFAULT_LFA_SPREAD, "LFA poses")
+    assert got.dlo.keyframe_indices == want.dlo.keyframe_indices
+    assert [k.seq for k in got.backend.keyframes] == [k.seq for k in want.backend.keyframes]
+    assert [(lp.key1.seq, lp.key2.seq) for lp in got.backend.loops] == [
+        (lp.key1.seq, lp.key2.seq) for lp in want.backend.loops]
+    np.testing.assert_allclose(got.trajectory(), want.trajectory(), rtol=0, atol=DEFAULT_LFA_SPREAD.max())
+    # the backend got the prefiltered cloud: the keyframe window's voxel cloud
+    assert got.backend.keyframes[0].cloud.cap == want.backend.keyframes[0].cloud.xyz.shape[0]
+    gt_rel = np.einsum("ij,njk->nik", np.linalg.inv(gt[0]), gt)
+    final = got.lfa_poses[-1]
+    assert np.linalg.norm(final[:3, 3] - gt_rel[len(got.lfa_poses) - 1][:3, 3]) < 0.3
+
+
+def test_lvslam_dlo_only_matches_jax(small_sequence):
+    """`use_lfa=False` (`tests/test_slam_pipeline.py:50`): the backend gets
+    the DLO poses; they match JAX's within the spread, the keyframes equal,
+    and the last pose is within the reference test's 0.2 m."""
+    scans, gt, _ = small_sequence
+    want = _run(JSlam(_small_cfg(), use_lfa=False, optimize_every=4, scan_cap=32768), scans)
+    got = _run(LvSlam(_port_config(_small_cfg()), use_lfa=False, optimize_every=4, scan_cap=32768,
+                      device="cpu"), scans)
+    assert got.lfa_poses == []
+    _assert_close(np.stack(got.dlo_poses), np.stack(want.dlo_poses), DLO_SPREAD, "DLO poses")
+    assert [k.seq for k in got.backend.keyframes] == [k.seq for k in want.backend.keyframes]
+    gt_rel = np.einsum("ij,njk->nik", np.linalg.inv(gt[0]), gt)
+    assert np.linalg.norm(got.dlo_poses[-1][:3, 3] - gt_rel[len(scans) - 1][:3, 3]) < 0.2

@@ -1,5 +1,6 @@
-"""The port's eigh3x3, voxel-map build (kernel 2's plain twin) and hash
-re-index (kernel 3's plain twin) against lv_slam_tpu.ops (CPU)."""
+"""The port's eigh3x3, voxel-map build (kernel 2's plain twin), dense LUT
+(kernel K3L's plain twin), LUT lookup and hash re-index (kernel 3's plain
+twin) against lv_slam_tpu.ops (CPU)."""
 
 import functools
 
@@ -17,11 +18,14 @@ from lv_slam_tpu.io import synthetic  # noqa: E402
 from lv_slam_tpu.ops.linalg3 import eigh3x3 as j_eigh  # noqa: E402
 from lv_slam_tpu.ops.ndt_hash import to_hash as j_to_hash  # noqa: E402
 from lv_slam_tpu.ops.voxel_map import build_voxel_map as j_build  # noqa: E402
+from lv_slam_tpu.ops.voxel_map import lookup_leaves as j_lookup, neighborhood_offsets as j_offsets  # noqa: E402
+from lv_slam_tpu_torch.convert import voxel_map_from_numpy  # noqa: E402
 from lv_slam_tpu_torch.core.cloud import PointCloud as TCloud  # noqa: E402
 from lv_slam_tpu_torch.ops.linalg3 import eigh3x3 as t_eigh  # noqa: E402
 from lv_slam_tpu_torch.ops.ndt_hash import to_hash as t_to_hash  # noqa: E402
-from lv_slam_tpu_torch.ops.voxel_map import VoxelMap, leaf_eigen_ratio  # noqa: E402
+from lv_slam_tpu_torch.ops.voxel_map import build_lut, leaf_eigen_ratio, lookup_leaves  # noqa: E402
 from lv_slam_tpu_torch.ops.voxel_map import build_voxel_map as t_build  # noqa: E402
+from lv_slam_tpu_torch.ops.voxel_map import neighborhood_offsets as t_offsets  # noqa: E402
 
 LEAF_CAP = 16384
 # Leaves whose validity may differ between the reference's float32 eigh and
@@ -121,12 +125,16 @@ def target_scan():
     return scans[0]
 
 
-def _jax_map(points, weighted):
+def _jax_map(points, weighted, resolution=1.0):
     cloud = JCloud.from_numpy(points, cap=16384)
     build = functools.partial(
-        j_build, resolution=1.0, leaf_cap=LEAF_CAP, lut_extent=256, weighted=weighted
+        j_build, resolution=resolution, leaf_cap=LEAF_CAP, lut_extent=256, weighted=weighted
     )
     return jax.jit(build)(cloud)
+
+
+def _numpy_leaves(vm):
+    return {name: np.asarray(v) for name, v in vm._asdict().items()}
 
 
 @pytest.mark.parametrize("weighted", [True, False])
@@ -161,20 +169,97 @@ def test_to_hash_bit_exact(target_scan):
     """Fed the same VoxelMap arrays, the port's table is bit-identical."""
     vm = _jax_map(target_scan, weighted=True)
     want = jax.jit(j_to_hash)(vm)
-    tvm = VoxelMap(
-        means=torch.from_numpy(np.array(vm.means)),
-        icovs=torch.from_numpy(np.array(vm.icovs)),
-        weights=torch.from_numpy(np.array(vm.weights)),
-        normals=torch.from_numpy(np.array(vm.normals)),
-        valid=torch.from_numpy(np.array(vm.valid)),
-        origin_cell=torch.from_numpy(np.array(vm.origin_cell)),
-        resolution=float(vm.resolution),
-        n_leaves=torch.tensor(int(vm.n_leaves)),
-        extent=256,
-    )
+    tvm = voxel_map_from_numpy(_numpy_leaves(vm), "cpu").vmap
     got = t_to_hash(tvm)
     np.testing.assert_array_equal(
         got.table.numpy().view(np.int32), np.asarray(want.table).view(np.int32)
     )
     assert int(got.n_dropped) == int(want.n_dropped)
     assert got.extent == int(want.extent)
+
+
+@pytest.mark.parametrize("resolution", [1.0, 0.7])
+def test_build_lut(target_scan, resolution):
+    """The dense LUT equals the reference's entry for entry, except at the
+    keys of leaves whose validity is rounding noise (as in
+    test_build_voxel_map); leaf rows are the same in both (key order)."""
+    want = _jax_map(target_scan, True, resolution)
+    cloud = TCloud.from_numpy(target_scan, cap=16384, device="cpu")
+    vm = t_build(cloud, resolution, leaf_cap=LEAF_CAP, lut_extent=256, weighted=True)
+    got = build_lut(vm).numpy()
+    lut = np.asarray(want.lut)
+    assert got.shape == lut.shape == (256 ** 3,) and got.dtype == np.int32
+    vj, vt = np.asarray(want.valid), vm.valid.numpy()
+    flipped = np.flatnonzero(vj != vt)
+    differ = np.flatnonzero(got != lut)
+    print(f"resolution {resolution}: {int((lut >= 0).sum())} LUT entries, {differ.size} differ, "
+          f"{flipped.size} leaves flip validity")
+    assert (lut >= 0).sum() == vj.sum() and (got >= 0).sum() == vt.sum() > 100
+    assert set(np.maximum(got[differ], lut[differ]).tolist()) <= set(flipped.tolist())
+    ratio = leaf_eigen_ratio(cloud, resolution, LEAF_CAP, 256).numpy()
+    assert (ratio[flipped] < NOISY_RATIO).all() and flipped.size <= MAX_FLIP_SHARE * vj.sum()
+    # each valid leaf sits at its own key
+    keys = vm.keys.numpy()
+    assert (got[keys[vt]] == np.flatnonzero(vt)).all()
+
+
+def _cell_cloud(centers, n_per=50, seed=0):
+    rng = np.random.default_rng(seed)
+    return np.concatenate([rng.multivariate_normal(c, np.eye(3) * 0.005, size=n_per) for c in centers]).astype(np.float32)
+
+
+def _lookup_both(points, queries, hood, cap, leaf_cap, extent, resolution=1.0):
+    """The reference's and the port's lookup on their own builds of `points`."""
+    jvm = jax.jit(functools.partial(j_build, resolution=resolution, leaf_cap=leaf_cap, lut_extent=extent))(
+        JCloud.from_numpy(points, cap=cap))
+    want = jax.jit(j_lookup)(jvm, jnp.asarray(queries), j_offsets(hood))
+    tvm = t_build(TCloud.from_numpy(points, cap=cap, device="cpu"), resolution, leaf_cap=leaf_cap, lut_extent=extent)
+    got = lookup_leaves(tvm, build_lut(tvm), torch.from_numpy(queries), t_offsets(hood, "cpu"))
+    return [np.asarray(a) for a in want], [a.numpy() for a in got]
+
+
+def test_lookup_leaves_direct7():
+    """`tests/test_voxel_map.py::test_lookup_direct7`: three occupied cells,
+    DIRECT7 finds the centre and two face neighbours, DIRECT1 the centre;
+    the gathered leaves equal the reference's."""
+    points = _cell_cloud([(0.5, 0.5, 0.5), (1.5, 0.5, 0.5), (0.5, 1.5, 0.5)])
+    queries = np.array([[0.5, 0.5, 0.5]], np.float32)
+    want, got = _lookup_both(points, queries, "DIRECT7", points.shape[0], 32, 8)
+    assert int(got[3].sum()) == 3
+    np.testing.assert_array_equal(got[3], want[3])
+    hit = want[3]
+    np.testing.assert_allclose(got[0][hit], want[0][hit], rtol=0, atol=1e-6)
+    np.testing.assert_allclose(got[1][hit], want[1][hit], rtol=1e-4, atol=1e-4)
+    _, got1 = _lookup_both(points, queries, "DIRECT1", points.shape[0], 32, 8)
+    assert int(got1[3].sum()) == 1
+
+
+def test_lookup_leaves_miss():
+    """`tests/test_voxel_map.py::test_lookup_miss`: points outside the
+    extent or in empty cells hit nothing."""
+    points = _cell_cloud([(0.5, 0.5, 0.5)])
+    queries = np.array([[100.0, 100.0, 100.0], [-5.0, 0.0, 0.0]], np.float32)
+    want, got = _lookup_both(points, queries, "DIRECT7", points.shape[0], 16, 8)
+    assert not got[3].any() and not want[3].any()
+
+
+def test_lookup_leaves_divides_by_the_resolution(target_scan):
+    """At 0.7 m, queries within an ulp of cell faces find the reference's
+    leaves: the probe divides by the resolution (a true float32 division),
+    where the map build multiplies by its reciprocal. The map is the
+    reference's, carried across."""
+    res = np.float32(0.7)
+    vm = _jax_map(target_scan, True, float(res))
+    tmap = voxel_map_from_numpy(_numpy_leaves(vm), "cpu")
+    pts = np.asarray(JCloud.from_numpy(target_scan, cap=16384).xyz)[:4096]
+    faces = (np.round(pts / res) * res).astype(np.float32)  # coordinates on cell faces
+    queries = np.concatenate([faces, np.nextafter(faces, np.float32(np.inf)), np.nextafter(faces, np.float32(-np.inf))])
+    # XLA's CPU code flushes subnormals (the neighbours of a 0 face) to 0
+    queries = queries[~((queries != 0) & (np.abs(queries) < np.finfo(np.float32).tiny)).any(axis=1)]
+    mults = queries / res
+    assert (np.floor(mults) != np.floor(queries.astype(np.float32) * np.float32(1.0 / res))).any()
+    want = jax.jit(j_lookup)(vm, jnp.asarray(queries), j_offsets("DIRECT7"))
+    got = lookup_leaves(tmap.vmap, tmap.lut, torch.from_numpy(queries), t_offsets("DIRECT7", "cpu"))
+    np.testing.assert_array_equal(got[3].numpy(), np.asarray(want[3]))
+    assert int(got[3].sum()) > 1000
+    np.testing.assert_array_equal(got[0].numpy(), np.asarray(want[0]))
