@@ -96,6 +96,34 @@ Phases, each of which raises on failure:
    converged, equal to the run with K3L's and K6G's twins on the card to
    1e-4 (and to the CPU plain path's within 1e-2), K6G launched.
 
+9. The backend's other inputs and outputs. 9a: the main path of phase 6
+   (camera images, the shipped vocabulary) with the backend's default feed,
+   the raw chunk (`add_scan_batch(filtered=False)`: K2r per window group),
+   and GPS (truth + [500, 300, 0] + 0.2 m noise), the IMU orientation and
+   acceleration on the keyframes' scans, with `enable_gps` and
+   `enable_imu_*`; gates: phase 6's keyframes, the loop (135, 0), three
+   priors per keyframe, the last LM equal to the plain path's re-solve on
+   the CPU to 1e-4, and, run again with exact GPS, the largest optimized
+   keyframe error within 0.1 m of phase 6's; scans/s, idle share, peak
+   memory, K2r's launches. 9b: `LvSlam()` with images, `detect_floor=True`
+   on every scan and the same readings on its keyframes' scans; gates: the
+   floor found on every scan 1.73 m (within 0.1 m) below the sensor, one
+   shared fixed floor plane that stays where it is, one floor edge and
+   three priors per keyframe, 19 keyframes and the loop (135, 0), the last
+   LM equal to the plain path's re-solve on the CPU to 1e-4, and that graph
+   re-solved on the CPU with exact GPS and without the floor edges within
+   0.1 m of phase 8b's largest keyframe error (with exact GPS and the floor,
+   and with noisy GPS without it, printed beside). 9c:
+   9b's backend dumped, resumed by `load_dump` (its chi2 at the dumped
+   estimates within 1e-4 of the dumped graph's), re-optimized (poses within
+   1e-3 of the dumped estimates and of the dumped graph solved once more),
+   its map saved at 0.05 m (kernel 1 at the map's shape timed
+   against its twin) and its pose files written. 9d: `tests/test_multi_loop.py`'s 160-scan VLP-16 double
+   circle with drifting odometry through the raw feed: three or more loops
+   spaced by the interval gate, more than twice as many verified, the tail
+   error shrunk below 0.6 of the odometry's, and the JAX reference's record
+   of the same run: its keyframe count, loop pairs and loop counters.
+
 Phase 2 holds every kernel, those of the backend too (2c: the window dedup
 K1b/K2, the batched NDT pass K13, the centroid grid K14 and the pose-graph
 normal equations K15; 2d: ORB K12 on four keyframe images of the circle and
@@ -103,13 +131,16 @@ the descriptor matching K12b of one keyframe against eight; 2e: standalone
 LFA's grid build K9g, its 2-point lines / 3-point planes K9k and the host
 mapping's table build K9c; 2f: the dense LUT K3L, the LUT/SoA derivative
 pass K6L and the generic one K6G on the host DLO's 32768-leaf keyframe map
-and 65536-lane subsample, at the true pose and one 0.3 m off), against its
-plain version at the shapes phases 5-8 give it.
+and 65536-lane subsample, at the true pose and one 0.3 m off; 2g: the raw
+window group K2r at 16 x 131072 raw lanes, K15 with 192 priors, 64
+SE3-plane edges and a fixed floor plane, and floor detection K16 on a
+filtered scan), against its plain version at the shapes phases 5-9 give it.
 
 The last lines are the kernels' JSON record (each kernel's launches are
 counted on the run of the path that drives it: phase 5 for the lidar
 kernels, 6 for K12, 6b for K12b, 7a for K9g and K9k, 7b for K9c, 8a for
-K3L and K6L, 8d for K6G, named under `launch_phase`), the card's name and power limit, and
+K3L and K6L, 8d for K6G, 9a for K2r, 9b for K16, named under
+`launch_phase`), the card's name and power limit, and
 `{"ok": true, "device": {...}}`. Without a CUDA device the script exits
 non-zero before it prints any result.
 """
@@ -210,7 +241,7 @@ DEVICE_FUNCTIONS = {
     "_fused_verify_fn": ("ndt_partials", "ndt_finish"),
     "build_centroid_grid": ("grid_mark", "grid_reduce"),
     "nn_sq_dists": ("grid_query", "grid_finish"),
-    "_chi2_and_normal": ("se3_edges", "chi2_sum"),
+    "_chi2_and_normal": ("se3_edges", "priors", "se3_planes", "plane_edges", "chi2_sum"),
     "_detect_pyramid_batch": ("orb_level0", "orb_halve", "orb_pixels", "orb_keys", "orb_describe"),
     "match_scores_batch": ("orb_match",),
     "build_grid": ("knn_grid_init", "knn_grid_cells", "knn_grid_keys", "knn_grid_gather"),
@@ -219,6 +250,8 @@ DEVICE_FUNCTIONS = {
     "build_lut": ("lut_fill", "lut_scatter"),
     "ndt_derivatives_soa": ("ndt_lut_partials", "ndt_finish"),
     "ndt_derivatives": ("ndt_generic_partials", "ndt_finish"),
+    "window_group_fn": ("window_raw_keys", "mark_runs", "reduce_runs"),
+    "detect_floor": ("floor_hypotheses", "floor_count", "floor_finish"),
 }
 
 
@@ -256,13 +289,13 @@ def device_ms(torch, fn, functions=(), reps: int = REPS):
     """(ms of the named device functions, ms of all device work, calls
     counted) per call of `fn`: medians over the whole calls among `reps`
     after a warm-up, from torch.profiler. A trace with whole calls for at
-    most half of `reps` is taken again, twice at most."""
+    most half of `reps` is taken again, four times at most."""
     from torch.profiler import ProfilerActivity, profile as torch_profile
 
     for _ in range(WARM):
         fn()
     torch.cuda.synchronize()
-    for _ in range(3):
+    for _ in range(5):
         with torch_profile(activities=[ProfilerActivity.CUDA]) as prof:
             for _ in range(reps):
                 torch.cuda._sleep(1000)
@@ -277,7 +310,7 @@ def device_ms(torch, fn, functions=(), reps: int = REPS):
         if 2 * len(calls) > reps:
             break
     else:
-        raise AssertionError(f"three traces held whole device work for at most {reps // 2} of {reps} calls")
+        raise AssertionError(f"five traces held whole device work for at most {reps // 2} of {reps} calls")
     own = [[events[i] for i in call if any(_is_function(events[i].name, f) for f in functions)] for call in calls]
     if functions and not own[0]:
         raise AssertionError(f"the profiler saw no device time of {functions}")
@@ -785,6 +818,148 @@ def check_backend_kernels(torch, scans, gt, dev):
     records["_chi2_and_normal"]["cholesky_ms"] = chol_ms
     log(f"    the LM's dense solve (cholesky_ex + cholesky_solve, a library call) on the {n} x {n} system: "
         f"{chol_ms:.4f} ms device-only")
+    return records
+
+
+def check_graph_input_kernels(torch, scans, gt, dev):
+    """Phase 2g: the raw window group K2r at the flagship raw group (scans
+    0-15 of the circle, 16 x 131072 raw lanes, moved into scan 0's frame,
+    the distance band, 0.1 m centroids into 131072 lanes), kernel 15 on a
+    graph with every factor the sensors bring (phase 2c's 64 keyframes and
+    128 edges, GPS / IMU orientation / gravity priors on each, a fixed floor
+    plane and an SE3-plane edge from each keyframe), and floor detection K16
+    on a filtered KITTI-density scan."""
+    from lv_slam_tpu_torch import kitti_flagship_config
+    from lv_slam_tpu_torch.core import se3
+    from lv_slam_tpu_torch.core.cloud import PointCloud
+    from lv_slam_tpu_torch.graph import pose_graph
+    from lv_slam_tpu_torch.ops import floor, prefilter
+    from lv_slam_tpu_torch.pipeline import window
+
+    pf = kitti_flagship_config().prefilter
+    res, kf_cap = pf.downsample_resolution, 131072
+    records = {}
+    rel = np.einsum("ij,njk->nik", np.linalg.inv(gt[0]), gt).astype(np.float32)
+
+    # K2r: identical voxels in identical order; the centroids as K1's (the
+    # plain twin's `index_add_` sums with atomics on the card)
+    raw = [PointCloud.from_numpy(scans[i], cap=pf.raw_cap, device=dev) for i in range(16)]
+    group = (torch.stack([c.xyz for c in raw]), torch.stack([c.intensity for c in raw]),
+             torch.stack([c.mask for c in raw]), 0, torch.from_numpy(rel[:16].copy()).to(dev),
+             torch.ones(16, dtype=torch.bool, device=dev), pf.distance_near_thresh, pf.distance_far_thresh, res,
+             kf_cap)
+    k2r = lambda: window.window_group(*group)  # noqa: E731
+    p2r = lambda: window.window_group_ref(*group)  # noqa: E731
+    got, want = k2r(), p2r()
+    if not torch.equal(got.mask, want.mask):
+        raise AssertionError("window_group_fn: the kept voxels or their order differ from the plain version")
+    err = max(float((got.xyz - want.xyz).abs().max()), float((got.intensity - want.intensity).abs().max()))
+    tol = 1e-5 + 1e-6 * float(want.xyz[want.mask].abs().max())
+    if err > tol:
+        raise AssertionError(f"window_group_fn: centroid error {err} > {tol}")
+    n_in = int(group[2].sum())
+    log(f"  window_group_fn: 16 x {pf.raw_cap} raw lanes, {n_in} valid -> {int(got.mask.sum())} voxels in "
+        f"{got.cap} lanes, identical voxels and order, centroids within {err:.3g} (tol {tol:.3g})")
+    # what this group's data needs: each valid point read once (12 + 4 bytes),
+    # one mask byte per lane, the poses, each output lane written once (17
+    # bytes); ~30 operations per valid point
+    measure(torch, records, "window_group_fn", k2r, p2r, err,
+            16 * n_in + nbytes(group[2], group[4], group[5]) + 17 * got.cap, 30 * n_in)
+
+    # K15 with the sensor factors, against the float64 plain version as in 2c
+    rng = np.random.default_rng(SEED)
+    g = pose_graph.empty_graph(64, 128, 256, 8, 64, 16)
+    kf = rel[::2][:64].astype(np.float64)
+    info = np.diag([2.0] * 3 + [10.0] * 3)
+
+    def noise(scale_t, scale_r):
+        d = np.r_[rng.normal(0, scale_t, 3), rng.normal(0, scale_r, 3)].astype(np.float32)
+        return se3.exp_se3(torch.from_numpy(d)).double().numpy()
+
+    for i in range(64):
+        pose_graph.add_node(g, i, kf[i] @ noise(0.05, 0.01))
+    n_edges = 0
+    for i in range(1, 64):
+        pose_graph.add_se3_edge(g, n_edges, i, i - 1, np.linalg.inv(kf[i]) @ kf[i - 1] @ noise(0.01, 0.002),
+                                info, huber=1.0)
+        n_edges += 1
+    for i in range(48, 64, 2):
+        pose_graph.add_se3_edge(g, n_edges, i, (i - 48) // 2, np.linalg.inv(kf[i]) @ kf[(i - 48) // 2], info,
+                                huber=1.0)
+        n_edges += 1
+    pose_graph.add_plane_node(g, 0, [0.0, 0.0, 1.0, 0.0], fixed=True)
+    for i in range(64):
+        rot = kf[i][:3, :3]
+        quat = se3.quat_from_matrix(torch.from_numpy(rot.astype(np.float32))).double().numpy()
+        pose_graph.add_prior(g, 3 * i, i, pose_graph.PRIOR_XYZ, kf[i][:3, 3] + rng.normal(0, 0.2, 3),
+                             np.diag([1 / 20.0, 1 / 20.0, 1 / 5.0]), huber=1.0)
+        pose_graph.add_prior(g, 3 * i + 1, i, pose_graph.PRIOR_QUAT, quat, np.eye(3), huber=1.0)
+        pose_graph.add_prior(g, 3 * i + 2, i, pose_graph.PRIOR_VEC, np.r_[0.0, 0.0, 1.0, rot.T @ [0.0, 0.0, 1.0]],
+                             np.eye(3), huber=1.0)
+        pose_graph.add_se3_plane_edge(g, i, i, 0, np.r_[rng.normal(0, 0.01, 2), 1.0, 1.73], np.eye(3) / 100.0)
+    dg = pose_graph.to_device(g, dev)
+    k15 = lambda: pose_graph._chi2_and_normal(dg, dg.poses, True)  # noqa: E731
+    p15 = lambda: pose_graph._chi2_and_normal_ref(dg, dg.poses, True)  # noqa: E731
+    (c1, h1, b1), (c2, h2, b2) = k15(), p15()
+    float_fields = ("poses", "e_meas", "e_info", "e_huber", "p_meas", "p_info", "p_huber", "planes", "sp_meas",
+                    "sp_info", "sp_huber", "q_meas", "q_info", "q_huber")
+    dg64 = dg._replace(**{f: getattr(dg, f).double() for f in float_fields})
+    c64, h64, b64 = pose_graph._chi2_and_normal_ref(dg64, dg64.poses, True)
+
+    def errs(c, hh, bb):
+        return (abs(float(c) - float(c64)), float((hh.double() - h64).abs().max()),
+                float((bb.double() - b64).abs().max()))
+
+    got_e, plain_e = errs(c1, h1, b1), errs(c2, h2, b2)
+    scale = (abs(float(c64)), float(h64.abs().max()), float(b64.abs().max()))
+    tols = [2 * p + 1e-6 * sc for p, sc in zip(plain_e, scale)]
+    if any(g_ > t_ for g_, t_ in zip(got_e, tols)):
+        raise AssertionError(f"_chi2_and_normal (priors, planes): errors vs float64 (chi2, H, b) {got_e}, "
+                             f"tolerances {tols}")
+    n_p, n_s = int(dg.p_valid.sum()), int(dg.sp_valid.sum())
+    log(f"  _chi2_and_normal with {n_edges} edges, {n_p} priors, {n_s} SE3-plane edges and a fixed floor plane, H "
+        f"{h1.shape[0]} x {h1.shape[0]}; errors against the float64 plain version: chi2 {got_e[0]:.3g} (float32 "
+        f"plain {plain_e[0]:.3g}, tol {tols[0]:.3g}), H {got_e[1]:.3g} ({plain_e[1]:.3g}, tol {tols[1]:.3g}), b "
+        f"{got_e[2]:.3g} ({plain_e[2]:.3g}, tol {tols[2]:.3g})")
+    sensors_ms, sensors_wrapper_ms, _ = device_ms(torch, k15, DEVICE_FUNCTIONS["_chi2_and_normal"])
+    _, sensors_plain_ms, _ = device_ms(torch, p15)
+    # each family's valid rows read once (the share of its arrays they fill),
+    # H and b written once
+    valid_of = dict(e_=dg.e_valid, p_=dg.p_valid, sp_=dg.sp_valid, q_=dg.q_valid, plane=dg.plane_valid)
+    read = sum(a.numel() * a.element_size() * float(valid.float().mean())
+               for name, a in dg._asdict().items()
+               for valid in [next((v for k, v in valid_of.items() if name.startswith(k)), dg.node_valid)])
+    sensors_bound, sensors_by = bound(read + nbytes(h1, b1), 3000 * n_edges + 2500 * n_p + 4000 * n_s)
+    log(f"    _chi2_and_normal (all families): kernel {sensors_ms:.4f} ms (wrapper {sensors_wrapper_ms:.4f} ms), "
+        f"plain {sensors_plain_ms:.4f} ms, bound {sensors_bound:.5f} ms ({sensors_by})")
+    records["_chi2_and_normal_sensors"] = dict(
+        max_abs_err=max(got_e[1:]), ms=sensors_ms, plain_ms=sensors_plain_ms, bound_ms=sensors_bound,
+        bound_by=sensors_by, library_ms=None, wrapper_device_ms=sensors_wrapper_ms)
+
+    # K16: the filtered scan 0 (distance band, 0.1 m centroids)
+    band = prefilter.distance_filter(PointCloud.from_numpy(scans[0], cap=pf.raw_cap, device=dev),
+                                     pf.distance_near_thresh, pf.distance_far_thresh)
+    cloud = prefilter.voxel_downsample(band, res, pf.out_cap)
+    k16 = lambda: floor.detect_floor(cloud)  # noqa: E731
+    p16 = lambda: floor.detect_floor_ref(cloud)  # noqa: E731
+    got, want = k16(), p16()
+    same = (bool(got.found) == bool(want.found) and int(got.best) == int(want.best)
+            and int(got.n_inliers) == int(want.n_inliers))
+    err = float((got.coeffs - want.coeffs).abs().max())
+    if not (same and bool(want.found)) or err > 1e-5:
+        raise AssertionError(f"detect_floor: found {bool(got.found)}/{bool(want.found)}, best {int(got.best)}/"
+                             f"{int(want.best)}, inliers {int(got.n_inliers)}/{int(want.n_inliers)}, coeffs "
+                             f"error {err} (tol 1e-5)")
+    n_pts = int(cloud.mask.sum())
+    # the z band `detect_floor_ref` tests (the default sensor height and clip)
+    n_band = int((cloud.mask & ((cloud.xyz[:, 2] + 1.73).abs() < 1.0)).sum())
+    log(f"  detect_floor: {n_pts} filtered points in {cloud.cap} lanes ({n_band} in the z band), 256 hypotheses: "
+        f"found, best {int(got.best)}, "
+        f"{int(got.n_inliers)} inliers (equal to the plain version), coeffs {got.coeffs.tolist()} within {err:.3g} "
+        f"(tol 1e-5)")
+    # what this scan needs: each valid point read once (12 bytes), one mask
+    # byte per lane; 7 operations per band point and hypothesis
+    measure(torch, records, "detect_floor", k16, p16, err, 12 * n_pts + cloud.cap, 7 * 256 * n_band)
     return records
 
 
@@ -1323,35 +1498,38 @@ REFERENCE_KEYFRAMES = 19  # the reference's CPU accuracy records of this circle 
 CAMERA_KERNELS = ("_detect_pyramid_batch", "match_scores_batch")  # ORB (K12) and matching (K12b)
 STANDALONE_KERNELS = ("build_grid", "knn", "build_cell_table")  # K9g, K9k, K9c: standalone LFA only
 LUT_KERNELS = ("build_lut", "ndt_derivatives_soa", "ndt_derivatives")  # K3L, K6L, K6G: the LUT paths (phase 8)
+INPUT_KERNELS = ("window_group_fn", "detect_floor")  # K2r, K16: the raw feed and floor detection (phase 9)
 # loop_rejections of the reference's BoW-ranked CPU records of this circle
 # (BENCH_r05_cpu_accuracy_dedup_stride.json, _refvocab.json)
 REFERENCE_REJECTIONS = {"verified": 1, "bow_rejected": 0, "guess_rejected": 0, "fitness_rejected": 0}
 
 
-def make_backend(dev, asynchronous: bool, vocabulary=None, loop_cfg=None):
+def make_backend(dev, asynchronous: bool, vocabulary=None, loop_cfg=None, **graph):
     """The reference benchmark's `make_backend` (`bench.py:257-313`): its
-    graph settings, the given vocabulary (phase 5 has none: the pure-lidar
-    configuration) and loop configuration."""
+    graph settings (`graph` overrides some), the given vocabulary (phase 5
+    has none: the pure-lidar configuration) and loop configuration."""
     from lv_slam_tpu_torch import kitti_flagship_config
     from lv_slam_tpu_torch.config import GraphConfig, LoopDetectorConfig
     from lv_slam_tpu_torch.pipeline.async_backend import AsyncBackend
     from lv_slam_tpu_torch.pipeline.backend import GlobalGraph
 
     backend = GlobalGraph(
-        GraphConfig(keyframe_cap=64, edge_cap=256, prior_cap=16, solver_num_iterations=64),
+        GraphConfig(**{**dict(keyframe_cap=64, edge_cap=256, prior_cap=16, solver_num_iterations=64), **graph}),
         loop_cfg or LoopDetectorConfig(), prefilter_cfg=kitti_flagship_config().prefilter, device=dev,
         vocabulary=vocabulary,
     )
     return AsyncBackend(backend) if asynchronous else backend
 
 
-def run_full(torch, xyz, mask, stamps, inten, cfg, backend, image_chunks=None):
+def run_full(torch, xyz, mask, stamps, inten, cfg, backend, image_chunks=None, raw=False, sensors=None):
     """One pass of the full path, as the reference benchmark's `run_chain`:
     chunk k's chain is launched before chunk k-1's refined poses are read
-    and fed, with its filtered product (and its device image stack from
-    `image_chunks`, when given), to the backend (on the backend's worker
-    when it is an AsyncBackend); `optimize()` every 100 scans, then
-    `finish()` and `drain()`. Returns (refined poses, the GlobalGraph)."""
+    and fed, with its filtered product (with `raw`, the raw chunk: the
+    backend's default feed) and its device image stack from `image_chunks`
+    and its scans' sensor readings from `sensors`, when given, to the
+    backend (on the backend's worker when it is an AsyncBackend);
+    `optimize()` every 100 scans, then `finish()` and `drain()`. Returns
+    (refined poses, the GlobalGraph)."""
     from lv_slam_tpu_torch.core.cloud import PointCloud
     from lv_slam_tpu_torch.pipeline.fused_chain import run_sequence_chain
 
@@ -1364,7 +1542,8 @@ def run_full(torch, xyz, mask, stamps, inten, cfg, backend, image_chunks=None):
         poses = refined.cpu().numpy()  # the chunk's read
         parts[s] = poses
         images = None if image_chunks is None else image_chunks[s // CHUNK]
-        graph.add_scan_batch(s, stamps_np[s:e], poses, cloud, images=images, filtered=True)
+        graph.add_scan_batch(s, stamps_np[s:e], poses, cloud, images=images,
+                             sensors=None if sensors is None else sensors[s:e], filtered=not raw)
         if any((i + 1) % 100 == 0 for i in range(s, e)):
             graph.optimize()
 
@@ -1377,17 +1556,24 @@ def run_full(torch, xyz, mask, stamps, inten, cfg, backend, image_chunks=None):
     state, pending = None, None
     for s in range(0, n, CHUNK):
         e = min(s + CHUNK, n)
-        (_, refined, filt), state = run_sequence_chain(
+        out, state = run_sequence_chain(
             xyz[s:e], mask[s:e], stamps[s:e], cfg.odometry, cfg.prefilter, cfg.lfa,
-            init_state=state, return_state=True, inten=inten[s:e], return_filtered=True, device=xyz.device,
+            init_state=state, return_state=True, inten=inten[s:e], return_filtered=not raw, device=xyz.device,
         )
         if pending is not None:
             hand_over(pending)
-        pending = (s, e, refined, PointCloud(*filt))
+        cloud = PointCloud(xyz[s:e], inten[s:e], mask[s:e]) if raw else PointCloud(*out[2])
+        pending = (s, e, out[1], cloud)
     hand_over(pending)
     backend.finish()
     backend.drain()
     return np.concatenate([parts[k] for k in sorted(parts)]).astype(np.float64), graph
+
+
+def keyframe_errors(graph, gt):
+    """Each keyframe's optimized position error against the ground truth (m)."""
+    gt_rel = np.einsum("ij,njk->nik", np.linalg.inv(gt[0]), gt)
+    return [float(np.linalg.norm(k.estimate[:3, 3] - gt_rel[k.seq][:3, 3])) for k in graph.keyframes]
 
 
 def run_full_path(torch, scans, gt, dev, card):
@@ -1424,12 +1610,13 @@ def run_full_path(torch, scans, gt, dev, card):
     launches = {name: k.launches for name, k in KERNELS.items()}
     log(f"  launches on the full path ({n} scans): {launches}")
     missing = [name for name, count in launches.items()
-               if count == 0 and name not in CAMERA_KERNELS + STANDALONE_KERNELS + LUT_KERNELS]
+               if count == 0 and name not in CAMERA_KERNELS + STANDALONE_KERNELS + LUT_KERNELS + INPUT_KERNELS]
     if missing:
         raise AssertionError(f"kernels never launched on the full path: {missing}")
     log(f"  exempt from the launch check here: {list(CAMERA_KERNELS)} (no images in this configuration; "
         f"phases 6 and 6b drive them), {list(STANDALONE_KERNELS)} (standalone LFA; phase 7 drives them), "
-        f"{list(LUT_KERNELS)} (the LUT paths; phase 8 drives them)")
+        f"{list(LUT_KERNELS)} (the LUT paths; phase 8 drives them), {list(INPUT_KERNELS)} (the raw feed and "
+        f"floor detection; phase 9 drives them)")
     t_err, drift = accuracy(est, gt, f"refined (LFA) poses of the full path, {n} scans", n)
 
     loops = [(lp.key1.seq, lp.key2.seq, round(lp.fitness, 6)) for lp in graph.loops]
@@ -1543,6 +1730,8 @@ def run_camera_path(torch, scans, gt, dev, card, lidar_loops, images):
         f"loop_rejections {stats} (reference record {REFERENCE_REJECTIONS}); bow_active {bow_active}")
     if len(graph.keyframes) != REFERENCE_KEYFRAMES or min(n_desc) == 0:
         raise AssertionError("the camera path must give the reference's 19 keyframes, each described")
+    kf_err = keyframe_errors(graph, gt)
+    log(f"  optimized keyframe position error vs ground truth: max {max(kf_err):.4f} m")
     if not loops or any(v < 0.04 for *_, v in loops) or not bow_active:
         raise AssertionError("the camera path must close a loop past the 0.04 visual gate with BoW active")
 
@@ -1591,6 +1780,7 @@ def run_camera_path(torch, scans, gt, dev, card, lidar_loops, images):
         f"{dict(graph_raw.loop_detector.stats)}, vocabulary trained {graph_raw.loop_detector.vocabulary is not None}")
     summary = dict(
         scans_per_s=n / elapsed, devkit_t_err=t_err, drift_m=drift, keyframes=len(graph.keyframes),
+        keyframe_seqs=[k.seq for k in graph.keyframes], max_keyframe_err_m=max(kf_err),
         n_loops=len(loops), loops=loops, loop_rejections=stats, bow_active=bow_active,
         backend_phase_ms_per_scan=phase_ms, idle_share=idle, peak_mib=peak / 2**20,
         raw_ranking=dict(loops=raw_loops, loop_rejections=dict(graph_raw.loop_detector.stats), devkit_t_err=t_raw),
@@ -2051,6 +2241,420 @@ def run_generic_align(torch, scans, gt, dev, card):
 # ----------------------------------------------------------------- main
 
 
+# ----------------------------------------------------------------- phase 9
+
+SENSOR_GRAPH = dict(enable_gps=True, enable_imu_orientation=True, enable_imu_acceleration=True)
+
+
+def circle_sensors(gt, at, gps_noise: float = 0.2):
+    """Per scan, the readings a GPS and an IMU would give on the circle, in
+    the odometry's frame (gt[0]^-1 gt: the backend anchors keyframe 0 at the
+    identity and takes GPS relative to its first fix): GPS = truth + [500,
+    300, 0] + N(0, `gps_noise` m) (numpy seed 7), the orientation quaternion of the
+    truth and the local acceleration R^T [0, 0, 9.81]; None for the scans
+    not in `at`. The backend gives a keyframe the latest reading of its
+    window (the reference's rule), so readings on the keyframes' own scans
+    stand for the reference nodelet's association of the message nearest
+    the keyframe's stamp."""
+    import torch
+
+    from lv_slam_tpu_torch.core import se3
+
+    gt_rel = np.einsum("ij,njk->nik", np.linalg.inv(gt[0]), gt).astype(np.float64)
+    rng = np.random.default_rng(7)
+    quats = se3.quat_from_matrix(torch.from_numpy(gt_rel[:, :3, :3].astype(np.float32))).double().numpy()
+    at = set(at)
+    readings = [dict(gps=g[:3, 3] + [500.0, 300.0, 0.0] + gps_noise * rng.normal(0, 1.0, 3), imu_quat=q,
+                     imu_acc=g[:3, :3].T @ [0.0, 0.0, 9.81]) for g, q in zip(gt_rel, quats)]
+    return [r if i in at else None for i, r in enumerate(readings)]
+
+
+def resolve_on_cpu(graph, phase: str) -> float:
+    """Re-solves the backend's last LM (`GlobalGraph.last_solve`) with the
+    plain path on the CPU and fails unless the card's poses agree to 1e-4;
+    writes the graph and the card's solution to `chiprun_out/graph_<phase>
+    .npz` for `scripts/resolve_graph.py` (the JAX reference's LM on the same
+    graph, where JAX runs). Returns the largest pose difference."""
+    from lv_slam_tpu_torch.graph import pose_graph
+
+    frozen, iters, result = graph.last_solve
+    ref = pose_graph.optimize_pose_graph(frozen, iters, device="cpu")
+    n_nodes = int(frozen.node_valid.sum())
+    d_graph = float(np.abs(result.poses.cpu().numpy()[:n_nodes] - ref.poses.numpy()[:n_nodes]).max())
+    log(f"  the last LM ({n_nodes} nodes, {int(frozen.e_valid.sum())} edges, {int(frozen.p_valid.sum())} priors, "
+        f"{int(frozen.sp_valid.sum())} SE3-plane edges) re-solved by the plain path on the CPU: max pose difference "
+        f"{d_graph:.3g} (tol 1e-4)")
+    if d_graph > 1e-4:
+        raise AssertionError(f"phase {phase}: the card's pose graph with priors departs from the plain path's")
+    (ROOT / "chiprun_out").mkdir(exist_ok=True)
+    np.savez(ROOT / "chiprun_out" / f"graph_{phase}.npz", iters=iters, card_poses=result.poses.cpu().numpy(),
+             **{name: np.asarray(a) for name, a in frozen._asdict().items()})
+    return d_graph
+
+
+def run_raw_path(torch, scans, gt, dev, card, images, camera):
+    """Phase 9a: the main path with the backend's default feed, the raw
+    chunk (`add_scan_batch(filtered=False)`, K2r per window group), camera
+    images, the shipped vocabulary and GPS / IMU readings on phase 6's
+    keyframe scans; then, for comparison, with exact GPS. The reference
+    takes GPS information as 1/sigma (0.05 at its 20 m) against odometry
+    edges of information ~2, so the priors carry the GPS noise into the
+    graph: the noise-free run holds the graph to phase 6's, and the noisy
+    run's last LM is re-solved by the plain path on the CPU."""
+    from torch.profiler import ProfilerActivity, profile as torch_profile
+
+    from lv_slam_tpu_torch import kitti_flagship_config
+    from lv_slam_tpu_torch.graph.bow import VOCABULARY_ASSET, Vocabulary
+    from lv_slam_tpu_torch.kernels import KERNELS, reset_launches
+
+    cfg = kitti_flagship_config()
+    xyz, mask, stamps, inten = stack_scans(torch, scans, cfg.prefilter.raw_cap, dev)
+    n = len(scans)
+    image_chunks = [torch.from_numpy(images[s:s + CHUNK]).to(dev) for s in range(0, n, CHUNK)]
+    sensors = circle_sensors(gt, camera["keyframe_seqs"])
+
+    def backend():
+        return make_backend(dev, True, vocabulary=Vocabulary.load(str(VOCABULARY_ASSET)), prior_cap=64,
+                            **SENSOR_GRAPH)
+
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    est, graph = run_full(torch, xyz, mask, stamps, inten, cfg, backend(), image_chunks, raw=True, sensors=sensors)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    launches = {name: k.launches for name, k in KERNELS.items()}
+    log(f"  launches on the raw-chunk path ({n} scans): {launches}")
+    missing = [name for name in ("window_group_fn", "_detect_pyramid_batch", "_fused_verify_fn", "_chi2_and_normal")
+               if launches[name] == 0]
+    if missing:
+        raise AssertionError(f"kernels never launched on the raw-chunk path: {missing}")
+    if launches["window_group_filtered_fn"]:
+        raise AssertionError("the raw-chunk path ran the filtered window group")
+    accuracy(est, gt, f"refined (LFA) poses of the raw-chunk path, {n} scans", n)
+    seqs = [k.seq for k in graph.keyframes]
+    loops = [(lp.key1.seq, lp.key2.seq, round(lp.fitness, 6), round(lp.visual_score, 6)) for lp in graph.loops]
+    kf_err = keyframe_errors(graph, gt)
+    priors = graph._n_priors
+    log(f"  keyframes {seqs} (phase 6: {camera['keyframe_seqs']}), loops (new seq, old seq, fitness, visual score) "
+        f"{loops}, loop_rejections {dict(graph.loop_detector.stats)}; {priors} priors on {len(seqs)} keyframes, "
+        f"zero_utm {graph.zero_utm.tolist()}; optimized keyframe error max {max(kf_err):.4f} m (phase 6: "
+        f"{camera['max_keyframe_err_m']:.4f} m)")
+    if seqs != camera["keyframe_seqs"] or [lp[:2] for lp in loops] != [(135, 0)]:
+        raise AssertionError("the raw-chunk path must give phase 6's keyframes and the loop (135, 0)")
+    if priors != 3 * len(seqs) or graph.graph.p_valid.sum() != priors:
+        raise AssertionError(f"the raw-chunk path must attach three priors per keyframe, got {priors}")
+    d_graph = resolve_on_cpu(graph, "9a")
+    # the same path with exact GPS: the priors must not pull the graph off
+    _, exact = run_full(torch, xyz, mask, stamps, inten, cfg, backend(), image_chunks, raw=True,
+                        sensors=circle_sensors(gt, camera["keyframe_seqs"], gps_noise=0.0))
+    exact_err = keyframe_errors(exact, gt)
+    log(f"  optimized keyframe error max: GPS with 0.2 m noise {max(kf_err):.4f} m, exact GPS "
+        f"{max(exact_err):.4f} m (gate: within 0.1 m of phase 6's {camera['max_keyframe_err_m']:.4f} m)")
+    if abs(max(exact_err) - camera["max_keyframe_err_m"]) > 0.1:
+        raise AssertionError("exact GPS / IMU priors pulled the graph more than 0.1 m off phase 6's")
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    _, graph2 = run_full(torch, xyz, mask, stamps, inten, cfg, backend(), image_chunks, raw=True, sensors=sensors)
+    torch.cuda.synchronize()
+    elapsed = time.perf_counter() - t0
+    if [k.seq for k in graph2.keyframes] != seqs or len(graph2.loops) != len(loops):
+        raise AssertionError("the warm pass's keyframes or loops differ from the first pass's")
+    phase_ms = {k: (v if k == "opt_cycles" else v / n * 1e3) for k, v in sorted(graph2.timings.items())}
+    log(f"  warm pass: {n} scans in {elapsed:.3f} s = {n / elapsed:.2f} scans/s ({card}); "
+        f"backend_phase_ms_per_scan {json.dumps(phase_ms)}")
+    with torch_profile(activities=[ProfilerActivity.CUDA]) as prof:
+        run_full(torch, xyz, mask, stamps, inten, cfg, backend(), image_chunks, raw=True, sensors=sensors)
+        torch.cuda.synchronize()
+    events = prof.key_averages()
+    attr = "self_device_time_total" if hasattr(torch.autograd.profiler_util.FunctionEventAvg(),
+                                               "self_device_time_total") else "self_cuda_time_total"
+    kernels = [(getattr(e, attr), e.key) for e in events if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy_us = sum(t for t, _ in kernels)
+    k2r_us = sum(t for t, key in kernels if any(_is_function(key, f) for f in DEVICE_FUNCTIONS["window_group_fn"]))
+    CACHE.mkdir(parents=True, exist_ok=True)
+    (CACHE / "profile_raw.txt").write_text(events.table(sort_by=attr, row_limit=200))
+    idle = 1 - busy_us / 1e6 / elapsed
+    log(f"  device busy {busy_us / 1e3:.1f} ms over the {n}-scan pass (profiled; K2r's own kernels and K1's run "
+        f"reduction {k2r_us / 1e3:.3f} ms), against the warm pass's {elapsed * 1e3:.1f} ms wall: idle share "
+        f"{idle:.3f}; peak device memory {peak / 2**20:.1f} MiB; K2r launches {launches['window_group_fn']}")
+    summary = dict(scans_per_s=n / elapsed, keyframes=seqs, loops=loops, priors=priors, max_keyframe_err_m=max(kf_err),
+                   exact_gps_max_keyframe_err_m=max(exact_err),
+                   lm_vs_cpu=d_graph, backend_phase_ms_per_scan=phase_ms, idle_share=idle, peak_mib=peak / 2**20,
+                   window_group_launches=launches["window_group_fn"])
+    return summary, launches
+
+
+def run_lvslam_sensors(torch, scans, gt, dev, card, images, default_err):
+    """Phase 9b: LvSlam() at its default with camera images, `detect_floor=
+    True` on every scan and the GPS / IMU readings on its keyframes' scans
+    (the JAX record's 0, 9, ..., 162). Its last LM is re-solved by the plain
+    path on the CPU, and again with exact GPS and without the floor edges, to
+    tell the GPS noise's pull from the floor prior's. `default_err` is phase
+    8b's largest keyframe error. Returns (summary, K16's launches, the
+    LvSlam)."""
+    import dataclasses
+
+    from lv_slam_tpu_torch import kitti_flagship_config
+    from lv_slam_tpu_torch.graph import pose_graph
+    from lv_slam_tpu_torch.graph.bow import VOCABULARY_ASSET, Vocabulary
+    from lv_slam_tpu_torch.kernels import KERNELS, reset_launches
+    from lv_slam_tpu_torch.pipeline.slam import LvSlam
+
+    n = len(scans)
+    cfg = kitti_flagship_config()
+    cfg = dataclasses.replace(cfg, graph=dataclasses.replace(cfg.graph, **SENSOR_GRAPH))
+    sensors = circle_sensors(gt, JAX_LVSLAM_DLO["keyframes"])
+    floors = []
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    slam = LvSlam(cfg, vocabulary=Vocabulary.load(str(VOCABULARY_ASSET)), device=dev)
+    for i, scan in enumerate(scans):
+        s = sensors[i] or dict(gps=None, imu_quat=None, imu_acc=None)
+        slam.process(scan, 0.1 * i, image=images[i], gps_xyz=s["gps"], imu_quat_wxyz=s["imu_quat"],
+                     imu_acceleration=s["imu_acc"], detect_floor=True)
+        floors.append(slam.last_floor)
+    slam.finalize()
+    torch.cuda.synchronize()
+    elapsed = time.perf_counter() - t0
+    launches = {name: k.launches for name, k in KERNELS.items()}
+    log(f"  launches on LvSlam() with sensors and floor detection ({n} scans): {launches}")
+    if launches["detect_floor"] != n:
+        raise AssertionError(f"floor detection (K16) launched {launches['detect_floor']} times for {n} scans")
+    found = [bool(r.found) for r in floors]
+    heights = np.array([-float(r.coeffs[3]) / float(r.coeffs[2]) for r in floors])
+    backend = slam.backend
+    keyframes = [k.seq for k in backend.keyframes]
+    loops = [(lp.key1.seq, lp.key2.seq, round(lp.fitness, 6), round(lp.visual_score, 6)) for lp in backend.loops]
+    plane = backend.graph.planes[0].tolist()
+    kf_err = keyframe_errors(backend, gt)
+    g = backend.graph
+    sp = g.sp_valid
+    sp_heights = g.sp_meas[sp, 3] / g.sp_meas[sp, 2]
+    log(f"  floor found on {sum(found)} of {n} scans; floor height -d/n_z {heights.min():.4f} .. {heights.max():.4f} m "
+        f"(expected -1.73); planes {backend._n_planes} (floor node {backend.floor_plane_node_id}, after the graph "
+        f"{plane}), SE3-plane edges {backend._n_sp_edges} (measured -d/n_z {-sp_heights.max():.4f} .. "
+        f"{-sp_heights.min():.4f} m, on nodes {sorted(g.sp_i[sp].tolist())}), priors {backend._n_priors}")
+    log(f"  keyframes {keyframes} ({len(keyframes)}), loops {loops}, optimized keyframe error max {max(kf_err):.4f} m; "
+        f"one pass {n / elapsed:.2f} scans/s ({card}); K16 launches {launches['detect_floor']}")
+    if not all(found) or np.abs(heights + 1.73).max() > 0.1:
+        raise AssertionError("the floor must be found on every scan, 1.73 m below the sensor")
+    if backend._n_planes != 1 or backend.floor_plane_node_id != 0 or plane != [0.0, 0.0, 1.0, 0.0]:
+        raise AssertionError("the floor must be one shared, fixed plane that does not move")
+    if len(keyframes) != REFERENCE_KEYFRAMES or [lp[:2] for lp in loops] != [(135, 0)]:
+        raise AssertionError("LvSlam() with sensors must give 19 keyframes and the loop (135, 0)")
+    nodes = sorted(k.node_id for k in backend.keyframes)
+    if (sorted(g.sp_i[sp].tolist()) != nodes or np.any(g.sp_plane[sp] != 0)
+            or np.abs(sp_heights - 1.73).max() > 0.1 or backend._n_priors != 3 * len(keyframes)):
+        raise AssertionError("LvSlam() must attach one floor edge (1.73 m) to the floor plane and three priors per "
+                             "keyframe")
+    d_graph = resolve_on_cpu(backend, "9b")
+
+    # the split: the same last graph re-solved on the CPU with exact GPS
+    # (each GPS prior at its keyframe's true position: what the noise-free
+    # readings give, the first fix being the truth) and without the floor
+    # edges, from the card's solution
+    frozen, iters, _ = backend.last_solve
+    gt_rel = np.einsum("ij,njk->nik", np.linalg.inv(gt[0]), gt)
+    seq_of = {k.node_id: k.seq for k in backend.keyframes}
+    exact_meas = frozen.p_meas.copy()
+    for i in np.flatnonzero(frozen.p_valid & (frozen.p_type == pose_graph.PRIOR_XYZ)):
+        exact_meas[i, :3] = gt_rel[seq_of[int(frozen.p_node[i])]][:3, 3]
+
+    def split_err(exact_gps: bool, with_floor: bool) -> float:
+        graph = frozen._replace(p_meas=exact_meas if exact_gps else frozen.p_meas,
+                                sp_valid=frozen.sp_valid & with_floor)
+        poses = pose_graph.optimize_pose_graph(graph, iters, device="cpu").poses.numpy()
+        return max(float(np.linalg.norm(poses[k.node_id][:3, 3] - gt_rel[k.seq][:3, 3])) for k in backend.keyframes)
+
+    split = {"noisy GPS, no floor": split_err(False, False), "exact GPS, floor": split_err(True, True),
+             "exact GPS, no floor": split_err(True, False)}
+    log(f"  largest keyframe error of the last graph re-solved on the CPU: noisy GPS and floor (the card's) "
+        f"{max(kf_err):.4f} m, " + ", ".join(f"{k} {v:.4f} m" for k, v in split.items())
+        + f" (gate: exact GPS without the floor within 0.1 m of phase 8b's {default_err:.4f} m)")
+    if abs(split["exact GPS, no floor"] - default_err) > 0.1:
+        raise AssertionError("exact GPS / IMU priors pulled LvSlam's graph more than 0.1 m off phase 8b's")
+    summary = dict(scans_per_s=n / elapsed, floor_found=sum(found), floor_height_m=[heights.min(), heights.max()],
+                   keyframes=keyframes, loops=loops, max_keyframe_err_m=max(kf_err), lm_vs_cpu=d_graph,
+                   max_keyframe_err_split_m=split, sp_edges=backend._n_sp_edges, priors=backend._n_priors,
+                   detect_floor_launches=launches["detect_floor"])
+    return summary, launches, slam
+
+
+def run_services(torch, slam, dev, card):
+    """Phase 9c: phase 9b's backend dumped, resumed by `load_dump`,
+    re-optimized, its map saved and its pose files written."""
+    import shutil
+
+    from lv_slam_tpu_torch.graph import map_cloud
+    from lv_slam_tpu_torch.io import kitti, pcd
+    from lv_slam_tpu_torch.ops import prefilter
+    from lv_slam_tpu_torch.pipeline.backend import load_dump
+
+    backend = slam.backend
+    out = CACHE / "services"  # git-ignored; the dump's keyframe clouds are tens of MB
+    shutil.rmtree(out, ignore_errors=True)
+    t0 = time.perf_counter()
+    backend.dump(str(out / "dump"))
+    t_dump = time.perf_counter() - t0
+    files = sorted(p.name for p in (out / "dump").iterdir())
+    expected = {"graph.g2o", "graph.g2o.kernels", "special_nodes.csv", "zero_utm", "ggo_kf_odom.txt",
+                "ggo_wf_odom.txt", *(f"{i:06d}" for i in range(len(backend.keyframes)))}
+    if set(files) != expected:
+        raise AssertionError(f"dump wrote {files}")
+    t0 = time.perf_counter()
+    loaded = load_dump(str(out / "dump"), backend.cfg, device=dev)
+    t_load = time.perf_counter() - t0
+    same = ([(k.seq, k.node_id, int(k.cloud.mask.sum())) for k in loaded.keyframes]
+            == [(k.seq, k.node_id, int(k.cloud.mask.sum())) for k in backend.keyframes])
+    if not same or loaded._n_priors != backend._n_priors or loaded.floor_plane_node_id != 0:
+        raise AssertionError("load_dump did not resume the dumped keyframes and factors")
+    before = np.stack([k.estimate for k in backend.keyframes])
+    loaded._graph_dirty = True
+    t0 = time.perf_counter()
+    result = loaded.optimize()
+    t_opt = time.perf_counter() - t0
+    after = np.stack([k.estimate for k in loaded.keyframes])
+    moved = float(np.abs(after - before).max())
+    # the same second solve on the graph that was dumped. The text file keeps
+    # 9 digits and each measurement's rotation as a quaternion (re-made
+    # orthonormal), and the weak GPS priors leave a flat valley, so both
+    # solves move on from the first one's stop; their start must see the
+    # same factors (chi2 at the dumped estimates)
+    backend._graph_dirty = True
+    orig = backend.optimize()
+    same = float(np.abs(after - np.stack([k.estimate for k in backend.keyframes])).max())
+    d_chi2 = abs(float(result.chi2_before) - float(orig.chi2_before)) / float(orig.chi2_before)
+    t0 = time.perf_counter()
+    if not backend.save_map(str(out / "map.pcd"), utm=True):
+        raise AssertionError("save_map wrote nothing")
+    t_map = time.perf_counter() - t0
+    points = pcd.read_pcd(str(out / "map.pcd"))
+    # kernel 1 at the map's shape (the union of the keyframe clouds, padded
+    # to a power of two, 0.05 m), against its twin
+    union = map_cloud.map_union([k.cloud for k in backend.keyframes], [k.estimate for k in backend.keyframes])
+    map_cap = min(1 << 20, union.cap)
+    k1 = lambda: prefilter.voxel_downsample(union, 0.05, map_cap)  # noqa: E731
+    p1 = lambda: prefilter.voxel_downsample_ref(union, 0.05, map_cap)  # noqa: E731
+    got, want = k1(), p1()
+    err = float((got.xyz - want.xyz).abs().max())
+    if not torch.equal(got.mask, want.mask) or err > 1e-5 + 1e-6 * float(want.xyz[want.mask].abs().max()):
+        raise AssertionError(f"voxel_downsample at the map's shape: masks differ or error {err}")
+    map_records = {}
+    n_union = int(union.mask.sum())
+    # each valid point read once (12 + 4 bytes), one mask byte per lane, each
+    # output lane written once (17 bytes); ~8 operations per valid point
+    measure(torch, map_records, "voxel_downsample", k1, p1, err, 16 * n_union + union.cap + 17 * map_cap,
+            8 * n_union)
+    log(f"  voxel_downsample at the map's shape: {n_union} points in {union.cap} lanes -> "
+        f"{int(got.mask.sum())} voxels, identical voxels and order, centroids within {err:.3g}")
+    backend.save_pose(str(out))
+    kf_rows = kitti.read_pose_file(str(out / "ggo_kf_odom.txt")).shape[0]
+    wf_rows = kitti.read_pose_file(str(out / "ggo_wf_odom.txt")).shape[0]
+    log(f"  dump {len(files)} entries in {t_dump:.2f} s; load_dump {len(loaded.keyframes)} keyframes in "
+        f"{t_load:.2f} s; "
+        f"re-optimized in {result.iterations} iterations ({t_opt:.2f} s, chi2 {float(result.chi2_before):.4f} -> "
+        f"{float(result.chi2_after):.4f}; the dumped graph's chi2 there {float(orig.chi2_before):.6g}, relative "
+        f"difference {d_chi2:.3g}, tol 1e-4), largest pose change {moved:.3g} from the dumped estimates (tol 1e-3), "
+        f"{same:.3g} from the dumped graph solved again (tol 1e-3); map {points.shape[0]} points "
+        f"at 0.05 m in {t_map:.2f} s (cap {1 << 20}), offset by zero_utm; pose files {kf_rows} keyframe and "
+        f"{wf_rows} scan rows ({card})")
+    if d_chi2 > 1e-4 or same > 1e-3 or moved > 1e-3:
+        raise AssertionError("the resumed graph's factors or re-optimized poses depart from the dumped graph's")
+    if not 0 < points.shape[0] <= 1 << 20 or kf_rows != len(backend.keyframes) or wf_rows != len(backend.odoms):
+        raise AssertionError("save_map or save_pose wrote the wrong number of rows")
+    return dict(dump_s=t_dump, load_s=t_load, reoptimize_iterations=result.iterations, max_pose_change=moved,
+                vs_dumped_graph_resolved=same, chi2_rel_diff=d_chi2,
+                map_points=int(points.shape[0]), map_s=t_map, pose_rows=[kf_rows, wf_rows],
+                map_voxel_downsample=map_records["voxel_downsample"])
+
+
+DOUBLE_N = 160  # tests/test_multi_loop.py's double circle: 160 VLP-16 scans, two 80 m laps
+# The JAX reference's record of phase 9d's run (its CPU run of the same feed;
+# `scripts/reference_circle.py double` makes it)
+JAX_DOUBLE = dict(keyframes=54, loops=[(66, 0), (87, 6), (108, 27), (129, 48), (150, 69)],
+                  loop_rejections=dict(verified=33, bow_rejected=0, guess_rejected=0, fitness_rejected=0),
+                  tail_err_odom_m=0.7669, tail_err_graph_m=0.0551)
+
+
+def _simulate_double(i: int) -> np.ndarray:
+    from lv_slam_tpu_torch.io import synthetic
+
+    gt = synthetic.circle_trajectory(DOUBLE_N, step=1.0, laps=2)
+    return synthetic.simulate_scan(synthetic.make_world(seed=9), gt[i], synthetic.vlp16_rays(16, 600), seed=9 + i)
+
+
+def run_double_circle(torch, dev, card):
+    """Phase 9d: `tests/test_multi_loop.py`'s double circle through the raw
+    feed on the card (drifting odometry, chunks of 16, an optimize after
+    each), held to the JAX reference's record of the same run."""
+    from lv_slam_tpu_torch.config import GraphConfig, LoopDetectorConfig, PrefilterConfig
+    from lv_slam_tpu_torch.core.cloud import PointCloud
+    from lv_slam_tpu_torch.io import synthetic
+    from lv_slam_tpu_torch.kernels import KERNELS, reset_launches
+    from lv_slam_tpu_torch.pipeline.backend import GlobalGraph
+
+    gt = synthetic.circle_trajectory(DOUBLE_N, step=1.0, laps=2)
+    t0 = time.perf_counter()
+    with multiprocessing.get_context("spawn").Pool(min(8, os.cpu_count() or 1)) as pool:
+        scans = pool.map(_simulate_double, range(DOUBLE_N))
+    log(f"  simulated {DOUBLE_N} VLP-16 scans in {time.perf_counter() - t0:.1f} s")
+    gt_rel = np.einsum("ij,njk->nik", np.linalg.inv(gt[0]), gt).astype(np.float64)
+    rels = np.einsum("nij,njk->nik", np.linalg.inv(gt_rel[:-1]), gt_rel[1:])
+    c, s_ = np.cos(5e-4), np.sin(5e-4)
+    bias = np.array([[c, -s_, 0, 0], [s_, c, 0, 0], [0, 0, 1, 0], [0, 0, 0, 1]])
+    odom = [np.eye(4)]
+    for r in rels:
+        r = r.copy()
+        r[:3, 3] *= 1.004
+        odom.append(odom[-1] @ (bias @ r))
+    odom = np.stack(odom)
+    loop_cfg = LoopDetectorConfig(distance_thresh=15.0, accum_distance_thresh=60.0, min_edge_interval=20.0,
+                                  fitness_score_thresh=0.5, auto_train_vocab=False)
+
+    reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    card_run = GlobalGraph(GraphConfig(keyframe_cap=64, edge_cap=256, prior_cap=16, keyframe_delta_trans=3.0,
+                                       solver_num_iterations=32), loop_cfg, keyframe_cloud_cap=16384,
+                           prefilter_cfg=PrefilterConfig(raw_cap=8192, out_cap=8192), device=dev)
+    clouds = [PointCloud.from_numpy(sc, cap=8192, device=dev) for sc in scans]
+    for s in range(0, DOUBLE_N, 16):
+        e = min(s + 16, DOUBLE_N)
+        chunk = PointCloud(*(torch.stack([getattr(cl, f) for cl in clouds[s:e]])
+                             for f in ("xyz", "intensity", "mask")))
+        card_run.add_scan_batch(s, np.arange(s, e) * 0.1, odom[s:e], chunk)
+        card_run.optimize()
+    card_run.finish()
+    card_run.drain()
+    torch.cuda.synchronize()
+    elapsed = time.perf_counter() - t0
+    launches = KERNELS["window_group_fn"].launches
+    loops = [(lp.key1.seq, lp.key2.seq) for lp in card_run.loops]
+    stats = dict(card_run.loop_detector.stats)
+    accums = sorted(lp.key1.accum_distance for lp in card_run.loops)
+    truth = np.stack([gt_rel[k.seq][:3, 3] for k in card_run.keyframes])
+    err_odom = np.linalg.norm(np.stack([k.odom[:3, 3] for k in card_run.keyframes]) - truth, axis=1)
+    err_est = np.linalg.norm(np.stack([k.estimate[:3, 3] for k in card_run.keyframes]) - truth, axis=1)
+    tail = slice(len(err_odom) // 2, None)
+    log(f"  card: {len(card_run.keyframes)} keyframes, loops {loops}, loop_rejections {stats}, tail error "
+        f"odometry {err_odom[tail].mean():.4f} m -> graph {err_est[tail].mean():.4f} m; {DOUBLE_N} scans in "
+        f"{elapsed:.2f} s ({card}), K2r launches {launches}")
+    log(f"  the JAX reference's record of this run (CPU): {JAX_DOUBLE}")
+    if len(loops) < 3 or any(b - a < loop_cfg.min_edge_interval - 1e-6 for a, b in zip(accums, accums[1:])):
+        raise AssertionError("the double circle must close three or more loops spaced by the interval gate")
+    if stats["verified"] <= 2 * len(loops) or not err_est[tail].mean() < 0.6 * err_odom[tail].mean():
+        raise AssertionError("the double circle's verifications or its tail error fail the reference test's gates")
+    if len(card_run.keyframes) != JAX_DOUBLE["keyframes"] or loops != JAX_DOUBLE["loops"] \
+            or stats != JAX_DOUBLE["loop_rejections"]:
+        raise AssertionError("the double circle's keyframes, loops or loop counters differ from the JAX record's")
+    return dict(keyframes=len(card_run.keyframes), loops=loops, loop_rejections=stats,
+                tail_err_odom_m=err_odom[tail].mean(), tail_err_graph_m=err_est[tail].mean(), seconds=elapsed,
+                window_group_launches=launches)
+
+
 def main() -> int:
     import torch
 
@@ -2063,6 +2667,7 @@ def main() -> int:
     from lv_slam_tpu_torch.kernels import KERNELS, LIBRARY
     import lv_slam_tpu_torch.pipeline.async_backend  # noqa: F401  (registers every kernel)
     import lv_slam_tpu_torch.pipeline.fused_chain  # noqa: F401
+    import lv_slam_tpu_torch.pipeline.slam  # noqa: F401  (floor detection)
 
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -2098,6 +2703,11 @@ def main() -> int:
     log("phase 2f: the LUT paths' kernels (dense LUT, LUT/SoA derivative pass, generic derivative pass)")
     records.update(check_lut_kernels(torch, scans_all, gt_all, dev))
 
+    log("phase 2g: the backend's input kernels (raw window group, the sensor factors, floor detection)")
+    graph_records = check_graph_input_kernels(torch, scans_all, gt_all, dev)
+    records["_chi2_and_normal"]["with_sensor_factors"] = graph_records.pop("_chi2_and_normal_sensors")
+    records.update(graph_records)
+
     log("phase 3: the odometry slice end to end")
     summary, odometry_poses, odometry_syncs = run_slice(torch, scans, gt, dev, card)
     log(f"  summary ({card}): {json.dumps(summary)}")
@@ -2118,6 +2728,7 @@ def main() -> int:
     summary, camera_launches = run_camera_path(torch, scans_all, gt_all, dev, card,
                                                [(a, b) for a, b, _ in summary["loops"]], images)
     log(f"  summary ({card}): {json.dumps(summary)}")
+    camera_summary = summary
     launches.update(camera_launches)
     launch_phase.update(_detect_pyramid_batch="6", match_scores_batch="6b")
 
@@ -2136,6 +2747,7 @@ def main() -> int:
     log(f"  summary ({card}): {json.dumps(summary)}")
     log("phase 8b: LvSlam() at its default, host DLO -> LFA -> ggo with camera images, end to end")
     summary, _ = run_lvslam_default(torch, scans_all, gt_all, dev, card, images)
+    lvslam_err = summary["max_keyframe_err_m"]
     log(f"  summary ({card}): {json.dumps(summary)}")
     log("phase 8c: the fused odometry with table=\"lut\"")
     summary = run_fused_lut(torch, scans, gt, dev, card)
@@ -2147,12 +2759,28 @@ def main() -> int:
                     ndt_derivatives=align_launches["ndt_derivatives"])
     launch_phase.update(build_lut="8a", ndt_derivatives_soa="8a", ndt_derivatives="8d")
 
+    log("phase 9a: the main path with the backend's default raw-chunk feed, camera images and GPS / IMU priors")
+    summary, raw_launches = run_raw_path(torch, scans_all, gt_all, dev, card, images, camera_summary)
+    log(f"  summary ({card}): {json.dumps(summary)}")
+    log("phase 9b: LvSlam() with GPS / IMU readings and floor detection, end to end")
+    summary, floor_launches, slam = run_lvslam_sensors(torch, scans_all, gt_all, dev, card, images, lvslam_err)
+    log(f"  summary ({card}): {json.dumps(summary)}")
+    log("phase 9c: the services on phase 9b's backend: dump, load_dump, re-optimize, save_map, save_pose")
+    summary = run_services(torch, slam, dev, card)
+    log(f"  summary ({card}): {json.dumps(summary)}")
+    log("phase 9d: tests/test_multi_loop.py's double circle through the raw feed")
+    summary = run_double_circle(torch, dev, card)
+    log(f"  summary ({card}): {json.dumps(summary)}")
+    launches.update(window_group_fn=raw_launches["window_group_fn"], detect_floor=floor_launches["detect_floor"])
+    launch_phase.update(window_group_fn="9a", detect_floor="9b")
+
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     kernels = [
         dict(
             name=name, route="cuda", source=k.source, replaces=k.replaces,
             launches=launches[name], launch_phase=launch_phase[name], **{key: records[name][key] for key in keys},
-            **({"cholesky_ms": records[name]["cholesky_ms"]} if "cholesky_ms" in records[name] else {}),
+            **{extra: records[name][extra] for extra in ("cholesky_ms", "with_sensor_factors")
+               if extra in records[name]},
         )
         for name, k in KERNELS.items()
     ]

@@ -167,7 +167,7 @@ class GraphConfig:
     floor_edge_robust_kernel: str = "NONE"
     floor_edge_robust_kernel_size: float = 1.0
     fix_first_node: bool = False  # anchor keyframe 0 through a fixed helper node
-    enable_gps: bool = False  # the priors below wait for their factors
+    enable_gps: bool = False  # GPS / IMU priors of the keyframes that carry readings
     enable_imu_acceleration: bool = False
     enable_imu_orientation: bool = False
     gps_edge_stddev_xy: float = 20.0

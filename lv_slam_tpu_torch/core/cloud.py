@@ -66,6 +66,10 @@ class PointCloud(NamedTuple):
         """Positions with invalid lanes pinned to the sentinel."""
         return torch.where(self.mask[:, None], self.xyz, SENTINEL)
 
+    def to_numpy(self) -> np.ndarray:
+        """Host `(n, 4)` float32 array [x y z intensity] of the valid points."""
+        return torch.cat([self.xyz[self.mask], self.intensity[self.mask, None]], dim=1).cpu().numpy()
+
     def compact(self, out_cap: Optional[int] = None) -> "PointCloud":
         """Stable-move valid lanes to the front and keep the first `out_cap`
         lanes (the reference's slice: the result has min(cap, out_cap) lanes)."""

@@ -10,6 +10,7 @@ from __future__ import annotations
 
 import torch
 
+_EPS = 1e-8
 _SMALL_ANGLE = 1e-4
 
 
@@ -53,6 +54,12 @@ def exp_so3(phi: torch.Tensor) -> torch.Tensor:
     return _eye3_like(k) + a[..., None, None] * k + b[..., None, None] * (k @ k)
 
 
+def log_so3(rot: torch.Tensor) -> torch.Tensor:
+    """Rotation matrix [...,3,3] -> angle-axis [...,3], through the
+    quaternion (stable near pi)."""
+    return quat_log(quat_from_matrix(rot))
+
+
 def exp_se3(tangent: torch.Tensor) -> torch.Tensor:
     """se(3) tangent [...,6] = [rho, phi] -> homogeneous transform [...,4,4]."""
     rho, phi = tangent[..., :3], tangent[..., 3:]
@@ -65,6 +72,26 @@ def exp_se3(tangent: torch.Tensor) -> torch.Tensor:
     v = eye + b[..., None, None] * k + c[..., None, None] * k2
     t = torch.einsum("...ij,...j->...i", v, rho)
     return make_transform(rot, t)
+
+
+def log_se3(transform: torch.Tensor) -> torch.Tensor:
+    """Homogeneous transform [...,4,4] -> se(3) tangent [...,6] = [rho, phi],
+    with V^-1 = I - k/2 + (1/theta^2)(1 - A/(2B)) k^2 (Taylor-guarded)."""
+    t = transform[..., :3, 3]
+    phi = log_so3(transform[..., :3, :3])
+    theta_sq = torch.sum(phi * phi, dim=-1)
+    a, b, _ = _sinc_factors(theta_sq)
+    k = skew(phi)
+    small = theta_sq < _SMALL_ANGLE * _SMALL_ANGLE
+    safe_tsq = torch.where(small, 1.0, theta_sq)
+    coef = torch.where(small, 1.0 / 12.0 + theta_sq / 720.0, (1.0 - a / (2.0 * b)) / safe_tsq)
+    v_inv = _eye3_like(k) - 0.5 * k + coef[..., None, None] * (k @ k)
+    rho = torch.einsum("...ij,...j->...i", v_inv, t)
+    return torch.cat([rho, phi], dim=-1)
+
+
+def identity(dtype=torch.float32, device="cpu") -> torch.Tensor:
+    return torch.eye(4, dtype=dtype, device=device)
 
 
 def make_transform(rot: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
@@ -155,6 +182,18 @@ def quat_to_matrix(q: torch.Tensor) -> torch.Tensor:
     row1 = torch.stack([2 * (x * y + w * z), 1 - 2 * (x * x + z * z), 2 * (y * z - w * x)], -1)
     row2 = torch.stack([2 * (x * z - w * y), 2 * (y * z + w * x), 1 - 2 * (x * x + y * y)], -1)
     return torch.stack([row0, row1, row2], dim=-2)
+
+
+def quat_log(q: torch.Tensor) -> torch.Tensor:
+    """Unit quaternion [...,4] (w,x,y,z) -> angle-axis [...,3]."""
+    w = torch.clamp(q[..., 0], -1.0, 1.0)
+    vec = q[..., 1:]
+    vec_norm = torch.linalg.norm(vec, dim=-1)
+    angle = 2.0 * torch.atan2(vec_norm, w)
+    small = vec_norm < _EPS
+    scale = torch.where(small, 2.0 / torch.where(torch.abs(w) < _EPS, 1.0, w),
+                        angle / torch.where(small, 1.0, vec_norm))
+    return vec * scale[..., None]
 
 
 def rotation_angle(rot: torch.Tensor) -> torch.Tensor:

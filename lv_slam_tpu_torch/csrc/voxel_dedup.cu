@@ -1,9 +1,12 @@
-// Kernels 1b and 2: first-point-per-voxel dedup, and the keyframe window's
-// gather + motion-compose in front of it.
+// Kernels 1b, 2 and 2r: first-point-per-voxel dedup, and the keyframe
+// window's gather + motion-compose in front of it (of filtered scans for K2,
+// of raw scans with the distance band for K2r).
 //
-// Replaces: lv_slam_tpu/ops/prefilter.py:203 `voxel_dedup_first` (K1b) and
+// Replaces: lv_slam_tpu/ops/prefilter.py:203 `voxel_dedup_first` (K1b),
 // lv_slam_tpu/utils/jit_cache.py:127 `window_group_filtered_fn` (K2; the
-// flush :44 and the partial merge :185 are K1b over a concatenation).
+// flush :44 and the partial merge :185 are K1b over a concatenation) and
+// :78 `window_group_fn` (K2r: `window_raw_keys` here, then kernel 1's run
+// reduction, csrc/voxel_downsample.cu, over the sorted keys).
 //
 // What bounds it on the card: memory traffic. A window group reads up to
 // 16 x 131072 filtered lanes (16 bytes each), writes their moved positions
@@ -22,6 +25,16 @@
 // a prefix sum numbers the runs, and `dedup_compact` writes run r's first
 // lane to row r: the output is front-compacted in key order with no atomics,
 // so it is deterministic and equal to the plain twin lane for lane.
+//
+// K2r: `window_raw_keys` runs one thread per lane of L raw (cap, 3) rows. It
+// ANDs the row's `valid` flag into the mask, keeps near < |p| < far with |p|
+// taken as the reference's compiled `jnp.linalg.norm` rounds it on the CPU
+// (sqrtf(fma(z, z, fma(y, y, x * x))), correctly rounded), moves the lane by
+// the same fma chain as K2, pins masked lanes to the sentinel and writes the
+// same packed key. A raw window group reads up to 16 x 131072 lanes (20
+// bytes each) and writes 24 bytes per lane; the wrapper then sorts the keys
+// (the 64-bit radix sort is the largest part of the group's device time) and
+// kernel 1 reduces each run to its centroid in key order.
 #include "common.cuh"
 
 namespace {
@@ -83,6 +96,39 @@ __global__ void window_keys(const float* __restrict__ xyz_t, const float* __rest
   key[i] = voxel_key(moved[0], moved[1], moved[2], m, inv_res);
 }
 
+// lane i = l * cap + p: raw point p of chunk row clamp(start + l), banded,
+// moved by rels[l]
+__global__ void window_raw_keys(const float* __restrict__ xyz, const float* __restrict__ inten,
+                                const bool* __restrict__ mask, int n_rows, int cap, int start, int length,
+                                const float* __restrict__ rels, const bool* __restrict__ valid, float near,
+                                float far, float inv_res, float* __restrict__ out_xyz,
+                                float* __restrict__ out_int, long long* __restrict__ key) {
+  long long i = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
+  if (i >= static_cast<long long>(length) * cap) return;
+  int l = static_cast<int>(i / cap), p = static_cast<int>(i % cap);
+  int row = clampi(start + l, 0, n_rows - 1);
+  long long lane = static_cast<long long>(row) * cap + p;
+  bool m = mask[lane] && valid[l];
+  float x = xyz[3 * lane + 0], y = xyz[3 * lane + 1], z = xyz[3 * lane + 2];
+  float mx = m ? x : 0.0f, my = m ? y : 0.0f, mz = m ? z : 0.0f;
+  float dist = sqrtf(fmaf(mz, mz, fmaf(my, my, mx * mx)));
+  m = m && dist > near && dist < far;
+  const float* T = rels + 16 * l;
+  float moved[3];
+#pragma unroll
+  for (int r = 0; r < 3; ++r) {
+    float acc = x * T[4 * r + 0];
+    acc = fmaf(y, T[4 * r + 1], acc);
+    acc = fmaf(z, T[4 * r + 2], acc);
+    moved[r] = m ? acc + T[4 * r + 3] : lvs::kSentinel;
+  }
+  out_xyz[3 * i + 0] = moved[0];
+  out_xyz[3 * i + 1] = moved[1];
+  out_xyz[3 * i + 2] = moved[2];
+  out_int[i] = inten[lane];
+  key[i] = voxel_key(moved[0], moved[1], moved[2], m, inv_res);
+}
+
 __global__ void dedup_mark(const long long* __restrict__ skey, int n, int* __restrict__ flag) {
   int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= n) return;
@@ -130,6 +176,17 @@ extern "C" int lvs_window_keys(const float* xyz_t, const float* inten, const boo
   if (n > 0)
     window_keys<<<lvs::blocks_for(n), lvs::kThreads, 0, stream>>>(
         xyz_t, inten, mask, n_rows, cap, start, length, rels, valid, inv_res, out_xyz, out_int, key);
+  LVS_RETURN_LAST_ERROR();
+}
+
+extern "C" int lvs_window_raw_keys(const float* xyz, const float* inten, const bool* mask, int n_rows, int cap,
+                                   int start, int length, const float* rels, const bool* valid, float near,
+                                   float far, float inv_res, float* out_xyz, float* out_int, long long* key,
+                                   cudaStream_t stream) {
+  long long n = static_cast<long long>(length) * cap;
+  if (n > 0)
+    window_raw_keys<<<lvs::blocks_for(n), lvs::kThreads, 0, stream>>>(
+        xyz, inten, mask, n_rows, cap, start, length, rels, valid, near, far, inv_res, out_xyz, out_int, key);
   LVS_RETURN_LAST_ERROR();
 }
 

@@ -2,8 +2,8 @@
 `lv_slam_tpu.graph.keyframe`, host-side numpy as in the reference).
 
 `KeyFrame` mirrors the reference payload (`include/global_graph/keyframe.hpp:
-25-83`) but for the sensor fields, which come with the priors (ROADMAP item
-9); its cloud is a port `PointCloud` on the card. The loop detector caches
+25-83`), the sensor readings the backend turned into priors included; its
+cloud is a port `PointCloud` on the card. The loop detector caches
 a keyframe's BoW vector on it as the attribute `bow_vector`. `KeyframeUpdater`
 (`include/global_graph/keyframe_updater.hpp:37-61`) registers a frame when
 `|dt| >= delta_trans` or `acos(q_w) >= delta_angle` (acos, not 2 acos: the
@@ -31,6 +31,10 @@ class KeyFrame:
     keypoints: Optional[np.ndarray] = None    # (D,2) pixel coords
     node_id: int = -1                # index into the PoseGraph
     estimate: Optional[np.ndarray] = None     # optimized pose (4,4)
+    utm_coord: Optional[np.ndarray] = None
+    acceleration: Optional[np.ndarray] = None
+    orientation: Optional[np.ndarray] = None
+    floor_coeffs: Optional[np.ndarray] = None
 
 
 class KeyframeUpdater:

@@ -1,10 +1,41 @@
-"""The KITTI odometry devkit's relative translation/rotation error
-(`evaluate_odometry_seq`), as `lv_slam_tpu.io.kitti.kitti_seq_error`
-computes it (numpy)."""
+"""KITTI pose files and the odometry devkit's relative translation/rotation
+error (`evaluate_odometry_seq`), as `lv_slam_tpu.io.kitti` writes and
+computes them (numpy).
+
+Pose files hold 12-value rows written with `%le` formatting, like the
+backend's kf/wf dumps (`global_graph_nodelet.cpp:1089-1148`); odometry poses
+are conjugated into the camera frame with the calibration `Tr` (velo->cam):
+`pose_cam = Tr @ pose_velo @ Tr^-1`.
+"""
 
 from __future__ import annotations
 
+import os
+
 import numpy as np
+
+
+def write_pose_file(path: str, poses: np.ndarray) -> None:
+    """Write (N,4,4) poses as KITTI rows with `%le` formatting."""
+    os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
+    with open(path, "w") as f:
+        for pose in poses:
+            row = pose[:3, :4].reshape(-1)
+            f.write(" ".join(f"{v:e}" for v in row) + "\n")
+
+
+def read_pose_file(path: str) -> np.ndarray:
+    """Read a KITTI pose file -> (N,4,4)."""
+    rows = np.loadtxt(path, dtype=np.float64).reshape(-1, 3, 4)
+    out = np.tile(np.eye(4, dtype=np.float64), (rows.shape[0], 1, 1))
+    out[:, :3, :4] = rows
+    return out
+
+
+def velo_to_cam_poses(poses_velo: np.ndarray, tr: np.ndarray) -> np.ndarray:
+    """pose_cam = Tr @ pose_velo @ Tr^-1 (scan_matching_odom_nodelet.cpp:156-160)."""
+    tr_inv = np.linalg.inv(tr)
+    return np.einsum("ij,njk,kl->nil", tr, poses_velo, tr_inv)
 
 _LENGTHS = (100.0, 200.0, 300.0, 400.0, 500.0, 600.0, 700.0, 800.0)
 

@@ -64,6 +64,11 @@ def hdl64_rays(n_rings: int = 64, n_azimuth: int = 900) -> np.ndarray:
     return lidar_rays(n_rings, n_azimuth, 2.0, -24.8)
 
 
+def vlp16_rays(n_rings: int = 16, n_azimuth: int = 900) -> np.ndarray:
+    """VLP-16 vertical field: +-15 degrees."""
+    return lidar_rays(n_rings, n_azimuth, 15.0, -15.0)
+
+
 def _raycast(origins: np.ndarray, dirs: np.ndarray, world: World, max_range: float) -> np.ndarray:
     """Hit distance of each ray (inf where it hits nothing)."""
     n = dirs.shape[0]
@@ -117,8 +122,13 @@ def simulate_scan(
     return np.concatenate([pts_sensor.astype(np.float32), inten], axis=1)
 
 
-def circle_trajectory(n_poses: int, step: float = 1.0, z: float = 1.73, radius: float = 24.5) -> np.ndarray:
-    """(n,4,4) circular drive, yaw along the tangent, `step` m between poses."""
+def circle_trajectory(n_poses: int, step: float = 1.0, z: float = 1.73, radius: float = 24.5,
+                      laps: int = 1) -> np.ndarray:
+    """(n,4,4) circular drive, yaw along the tangent, `step` m between poses;
+    `laps > 1` shrinks the radius so the same travel goes round `laps` times
+    (the multi-loop workload)."""
+    if laps > 1:
+        radius = n_poses * step / (2.0 * np.pi * laps)
     ang = np.arange(n_poses) * step / radius
     poses = np.zeros((n_poses, 4, 4), np.float32)
     for i, a in enumerate(ang):

@@ -122,23 +122,33 @@ def voxel_downsample(
         return voxel_downsample_ref(cloud, resolution, out_cap, method)
     if cloud.xyz.dtype != torch.float32 or cloud.intensity.dtype != torch.float32:
         raise ValueError("voxel_downsample: expected float32 xyz and intensity")
-    n = cloud.cap
     skey, order, xyz = _voxel_sort(cloud, resolution)
     check_cuda("voxel_downsample", skey, order, xyz, cloud.intensity)
-    dev = cloud.xyz.device
+    out = reduce_runs(KERNEL, skey, order, xyz, cloud.intensity, resolution, approx, out_cap)
+    KERNEL.launches += 1
+    return out
+
+
+def reduce_runs(kernel: Kernel, skey: torch.Tensor, order: torch.Tensor, xyz: torch.Tensor, inten: torch.Tensor,
+                resolution: float, approx: bool, out_cap: int) -> PointCloud:
+    """Kernel 1's part after the key sort (`csrc/voxel_downsample.cu`): run
+    starts, their prefix sum (torch glue) and one centroid (or cell center)
+    per run into `out_cap` lanes in key order, launched for `kernel` (K1, or
+    K2r after its gather + band + transform pass)."""
+    n = skey.shape[0]
+    dev = skey.device
     flag = torch.empty((n,), dtype=torch.int32, device=dev)
     out_xyz = torch.empty((out_cap, 3), dtype=torch.float32, device=dev)
     out_int = torch.empty((out_cap,), dtype=torch.float32, device=dev)
     out_mask = torch.empty((out_cap,), dtype=torch.bool, device=dev)
-    KERNEL.call("lvs_voxel_mark_runs", ptr(skey), n, ptr(flag))
+    kernel.call("lvs_voxel_mark_runs", ptr(skey), n, ptr(flag))
     cum = torch.cumsum(flag, dim=0, dtype=torch.int32)  # run index + 1 at each run start
-    KERNEL.call(
+    kernel.call(
         "lvs_voxel_reduce_runs",
-        ptr(skey), ptr(order), ptr(flag), ptr(cum), n, ptr(xyz), ptr(cloud.intensity),
+        ptr(skey), ptr(order), ptr(flag), ptr(cum), n, ptr(xyz), ptr(inten),
         float(np.float32(resolution)), int(approx), out_cap,
         ptr(out_xyz), ptr(out_int), ptr(out_mask),
     )
-    KERNEL.launches += 1
     return PointCloud(out_xyz, out_int, out_mask)
 
 

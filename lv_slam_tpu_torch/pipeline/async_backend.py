@@ -9,7 +9,9 @@ the verification and LM reads) overlaps the producer's kernel launches.
 Results equal the synchronous backend's: one consumer runs the calls in
 order, and after the first enqueue only the worker touches the graph.
 `join()` is the one synchronization point and re-raises what the worker
-raised.
+raised; after it the services (`dump`, `save_map`, `save_pose`) and every
+read of the graph go to the wrapped `GlobalGraph` through `__getattr__`, as
+in the reference.
 
 CUDA work from two threads: both use the device's default stream (torch's
 current stream is per thread, and neither thread changes it), so the

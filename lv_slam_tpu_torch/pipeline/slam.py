@@ -10,10 +10,10 @@ closure and the pose-graph LM every `optimize_every` scans.
 `use_dlo=False` is the pure `lfa` stack: the LFA's own scan-to-scan feature
 odometry seeds the mapping, and the backend receives the raw cloud. With
 `use_lfa=False` the backend receives the DLO pose (or, without the DLO
-too, identity odometry), as in the reference.
-
-Not ported yet: the GPS / IMU / floor priors (ROADMAP item 6); they raise
-`NotImplementedError`.
+too, identity odometry), as in the reference. GPS, IMU and floor readings
+(`detect_floor=True` fits the floor on the cloud the backend receives,
+kernel 16) go with the scan to the backend, which turns them into priors of
+the keyframe the scan belongs to.
 """
 
 from __future__ import annotations
@@ -29,6 +29,7 @@ from lv_slam_tpu_torch.lfa.features import extract_features
 from lv_slam_tpu_torch.lfa.mapping import FeatureMapping
 from lv_slam_tpu_torch.lfa.odometry import FeatureOdometry
 from lv_slam_tpu_torch.odometry.dlo import DirectLidarOdometry
+from lv_slam_tpu_torch.ops import floor
 from lv_slam_tpu_torch.pipeline.backend import GlobalGraph
 
 
@@ -64,6 +65,7 @@ class LvSlam:
                                    device=self.device)
 
         self._seq = 0
+        self.last_floor: Optional[floor.FloorResult] = None  # the last scan's floor fit, with `detect_floor`
         self.dlo_poses: List[np.ndarray] = []
         self.lfa_poses: List[np.ndarray] = []
 
@@ -79,9 +81,10 @@ class LvSlam:
     ) -> np.ndarray:
         """One raw (M,3|4) scan in -> current odometry pose out. `image` is
         the scan's camera image (H, W) in [0, 255]; a keyframe's descriptors
-        come from the image of the scan that opens its window."""
-        if detect_floor or gps_xyz is not None or imu_quat_wxyz is not None or imu_acceleration is not None:
-            raise NotImplementedError("the GPS / IMU / floor priors of the backend are ROADMAP item 9")
+        come from the image of the scan that opens its window. The sensor
+        readings (`global_graph_nodelet.cpp:314-627`) and, with
+        `detect_floor`, the floor found on the backend's cloud become priors
+        of the keyframe this scan belongs to."""
         cloud = PointCloud.from_numpy(scan, cap=self.scan_cap, device=self.device)
 
         odom = np.eye(4)
@@ -102,7 +105,14 @@ class LvSlam:
         # product of this scan is the same tensor content, `prefilter` being
         # deterministic, so it is reused), else the raw cloud
         filtered = self.dlo.filtered if (self.dlo is not None and self.dlo._prefilter is not None) else cloud
-        self.backend.add_scan(self._seq, stamp, odom, filtered, image=image)
+        floor_coeffs = None
+        if detect_floor:
+            self.last_floor = floor.detect_floor(filtered)
+            if bool(self.last_floor.found):
+                floor_coeffs = self.last_floor.coeffs.cpu().numpy()
+        self.backend.add_scan(self._seq, stamp, odom, filtered, image=image, gps_xyz=gps_xyz,
+                              imu_quat_wxyz=imu_quat_wxyz, imu_acceleration=imu_acceleration,
+                              floor_coeffs=floor_coeffs)
         self._seq += 1
         if self._seq % self.optimize_every == 0:
             self.backend.optimize()

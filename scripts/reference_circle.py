@@ -1,13 +1,14 @@
 #!/usr/bin/env python3
 """The JAX reference's records on the benchmark circle, which
-`chip_smoke.py` phases 7 and 8 print beside the port's results (CPU; needs
-JAX):
+`chip_smoke.py` phases 7, 8 and 9d print beside the port's results (CPU;
+needs JAX):
 
     JAX_PLATFORMS=cpu python scripts/reference_circle.py fused
     JAX_PLATFORMS=cpu python scripts/reference_circle.py host
     JAX_PLATFORMS=cpu python scripts/reference_circle.py slam
     JAX_PLATFORMS=cpu python scripts/reference_circle.py dlo
     JAX_PLATFORMS=cpu python scripts/reference_circle.py slam_dlo
+    JAX_PLATFORMS=cpu python scripts/reference_circle.py double
 
 The workload is the reference benchmark's circle (`bench.py:156-194`: world
 seed 5, `circle_trajectory(170, step=1.0)`, `hdl64_rays(64, 2000)`,
@@ -28,7 +29,14 @@ seed 5, `circle_trajectory(170, step=1.0)`, `hdl64_rays(64, 2000)`,
   with its camera image: both pose sets' devkit_t_err, the DLO's and the
   backend's keyframes, loops, the optimized keyframes' errors.
 
-These are full-size runs: they need a machine with tens of GB of memory to
+- `double`: not the benchmark circle but `tests/test_multi_loop.py`'s
+  double circle (world seed 9, `circle_trajectory(160, step=1.0, laps=2)`,
+  `vlp16_rays(16, 600)`, 8192-lane clouds, the test's drifted odometry and
+  loop gates) fed raw in chunks of 16 to `GlobalGraph`, an optimize after
+  each: keyframes, loops, the loop detector's counters and the tail's mean
+  errors. It takes about a minute.
+
+The others are full-size runs: they need a machine with tens of GB of memory to
 spare and take tens of minutes of CPU each.
 """
 
@@ -153,5 +161,50 @@ def slam_dlo() -> None:
           f"({len(seqs)}), loops {loops}; optimized keyframe error largest {max(err):.3f} m, last {err[-1]:.3f} m")
 
 
+def double() -> None:
+    import jax.numpy as jnp
+
+    from lv_slam_tpu.config import GraphConfig, LoopDetectorConfig, PrefilterConfig
+    from lv_slam_tpu.core.cloud import PointCloud
+    from lv_slam_tpu.io import synthetic
+    from lv_slam_tpu.pipeline.backend import GlobalGraph
+
+    n, cap = 160, 8192
+    world = synthetic.make_world(seed=9)
+    gt = synthetic.circle_trajectory(n, step=1.0, laps=2)
+    rays = synthetic.vlp16_rays(16, 600)
+    clouds = [PointCloud.from_numpy(synthetic.simulate_scan(world, gt[i], rays, seed=9 + i), cap=cap)
+              for i in range(n)]
+    gt_rel = np.einsum("ij,njk->nik", np.linalg.inv(gt[0]), gt).astype(np.float64)
+    rels = np.einsum("nij,njk->nik", np.linalg.inv(gt_rel[:-1]), gt_rel[1:])
+    c, s_ = np.cos(5e-4), np.sin(5e-4)
+    bias = np.array([[c, -s_, 0, 0], [s_, c, 0, 0], [0, 0, 1, 0], [0, 0, 0, 1]])
+    odom = [np.eye(4)]
+    for r in rels:
+        r = r.copy()
+        r[:3, 3] *= 1.004
+        odom.append(odom[-1] @ (bias @ r))
+    odom = np.stack(odom)
+    backend = GlobalGraph(
+        GraphConfig(keyframe_cap=64, edge_cap=256, prior_cap=16, keyframe_delta_trans=3.0, solver_num_iterations=32),
+        LoopDetectorConfig(distance_thresh=15.0, accum_distance_thresh=60.0, min_edge_interval=20.0,
+                           fitness_score_thresh=0.5, auto_train_vocab=False),
+        keyframe_cloud_cap=16384, prefilter_cfg=PrefilterConfig(raw_cap=cap, out_cap=cap))
+    for s in range(0, n, 16):
+        e = min(s + 16, n)
+        chunk = PointCloud(*(jnp.stack([getattr(cl, f) for cl in clouds[s:e]]) for f in ("xyz", "intensity", "mask")))
+        backend.add_scan_batch(s, np.arange(s, e) * 0.1, odom[s:e], chunk)
+        backend.optimize()
+    backend.finish()
+    backend.drain()
+    truth = np.stack([gt_rel[k.seq][:3, 3] for k in backend.keyframes])
+    err_odom = np.linalg.norm(np.stack([k.odom[:3, 3] for k in backend.keyframes]) - truth, axis=1)
+    err_est = np.linalg.norm(np.stack([k.estimate[:3, 3] for k in backend.keyframes]) - truth, axis=1)
+    tail = slice(len(err_odom) // 2, None)
+    print(f"keyframes {len(backend.keyframes)}, loops {[(lp.key1.seq, lp.key2.seq) for lp in backend.loops]}, "
+          f"loop_rejections {dict(backend.loop_detector.stats)}; tail error odometry {err_odom[tail].mean():.4f} m "
+          f"-> graph {err_est[tail].mean():.4f} m")
+
+
 if __name__ == "__main__":
-    {"fused": fused, "host": host, "slam": slam, "dlo": dlo, "slam_dlo": slam_dlo}[sys.argv[1]]()
+    {"fused": fused, "host": host, "slam": slam, "dlo": dlo, "slam_dlo": slam_dlo, "double": double}[sys.argv[1]]()

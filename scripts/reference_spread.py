@@ -10,6 +10,7 @@ hold the port to it (CPU; needs JAX):
     JAX_PLATFORMS=cpu python scripts/reference_spread.py dlo       # ~2 min
     JAX_PLATFORMS=cpu python scripts/reference_spread.py slam_dlo  # ~3 min
     JAX_PLATFORMS=cpu python scripts/reference_spread.py fused_lut # ~1 min
+    JAX_PLATFORMS=cpu python scripts/reference_spread.py raw_backend  # ~6 min
 
 `eigh`: JAX's and the port's `eigh3x3` on matrices with an exactly repeated
 eigenvalue pair (seeds 13-44, `tests/test_torch_voxel_map.py`'s generator):
@@ -50,6 +51,13 @@ move of the pose.
 `slam_dlo`: `LvSlam()` at its default (`use_dlo=True`) with the small
 configuration, 8 perturbations: per scan, the largest move of the DLO and
 of the LFA pose; keyframes and loops of each run.
+
+`raw_backend`: the reference's `GlobalGraph` fed raw chunks
+(`add_scan_batch(filtered=False)`) on `tests/test_torch_raw_backend.py`'s
+circle and `tests/test_torch_multi_loop.py`'s double circle, against the
+same runs with every valid raw coordinate moved by at most one ulp (4
+perturbations each): keyframes, loop pairs and counters of each run, and
+the largest move of a keyframe estimate.
 """
 
 from __future__ import annotations
@@ -279,6 +287,44 @@ def slam_dlo() -> None:
         print(f"{name} poses: translation moves per scan {dt} m, rotation entries up to {rot}")
 
 
+def raw_backend() -> None:
+    import test_torch_multi_loop as m
+    import test_torch_raw_backend as t
+    from lv_slam_tpu.config import GraphConfig, LoopDetectorConfig, PrefilterConfig
+    from lv_slam_tpu.io import synthetic
+    from lv_slam_tpu.pipeline.backend import GlobalGraph
+
+    circle_gt = synthetic.circle_trajectory(t.CIRCLE_N, step=1.0, radius=t.CIRCLE_N / (2 * np.pi))
+    double_gt = synthetic.circle_trajectory(m.DOUBLE_N, step=1.0, laps=2)
+    double_rel = np.einsum("ij,njk->nik", np.linalg.inv(double_gt[0]), double_gt).astype(np.float64)
+    feeds = (
+        ("circle", t._scans(t.CIRCLE_N, 11, circle_gt, synthetic.vlp16_rays(16, 500)),
+         np.einsum("ij,njk->nik", np.linalg.inv(circle_gt[0]), circle_gt).astype(np.float64),
+         t.CIRCLE_GRAPH, t.CIRCLE_LOOP, False),
+        ("double circle", m._scans(m.DOUBLE_N, 9, double_gt, synthetic.vlp16_rays(16, 600)),
+         m._drifted_odometry(double_rel), m.DOUBLE_GRAPH, m.DOUBLE_LOOP, True),
+    )
+    for name, scans, odom, graph, loop, every_chunk in feeds:
+        def run(scans_):
+            backend = GlobalGraph(GraphConfig(**graph), LoopDetectorConfig(**loop), keyframe_cloud_cap=16384,
+                                  prefilter_cfg=PrefilterConfig(raw_cap=t.CAP, out_cap=t.CAP))
+            return t._summary(t._run(backend, scans_, odom, 16, every_chunk, t._jax_stack))
+
+        base = run(scans)
+        print(f"{name}: keyframes {len(base['seqs'])}, loops {base['loops']}, stats {base['stats']}")
+        for seed in range(4):
+            nudged = [np.c_[_nudge(s[:, :3], np.ones(len(s), bool), seed * 1000 + i), s[:, 3:]]
+                      for i, s in enumerate(scans)]
+            r = run(nudged)
+            if r["seqs"] != base["seqs"] or r["loops"] != base["loops"]:
+                print(f"  perturbation {seed}: keyframes {r['seqs']}, loops {r['loops']}, stats {r['stats']}")
+                continue
+            dt = np.linalg.norm(r["estimates"][:, :3, 3] - base["estimates"][:, :3, 3], axis=1).max()
+            rot = np.abs(r["estimates"][:, :3, :3] - base["estimates"][:, :3, :3]).max()
+            print(f"  perturbation {seed}: same keyframes and loops, stats {r['stats']}; estimates move by up to "
+                  f"{dt:.4g} m, a rotation entry by {rot:.3g}")
+
+
 if __name__ == "__main__":
     {"eigh": eigh, "backend": backend, "lfa": lfa, "lfa_host": lfa_host, "slam": slam, "dlo": dlo,
-     "slam_dlo": slam_dlo, "fused_lut": fused_lut}[sys.argv[1]]()
+     "slam_dlo": slam_dlo, "fused_lut": fused_lut, "raw_backend": raw_backend}[sys.argv[1]]()

@@ -206,8 +206,8 @@ def test_async_backend_equals_sync(circle, port_batch):
     np.testing.assert_array_equal(got["estimates"], port_batch["estimates"])
 
     backend = AsyncBackend(_port_backend())
-    backend.add_scan_batch(0, np.zeros(1), np.eye(4)[None], None, filtered=False)  # raises on the worker
-    with pytest.raises(NotImplementedError):
+    backend.add_scan_batch(0, np.zeros(1), np.eye(4)[None], None, filtered=False)  # a malformed feed raises on the worker
+    with pytest.raises(AttributeError):
         backend.join()
 
 
@@ -267,12 +267,26 @@ def test_backend_loop_closure(circle, raw_scans, images):
     np.testing.assert_allclose((before, after), REF_LOOP_CLOSURE_ERR, rtol=0, atol=EST_ATOL)
 
 
-def test_unported_inputs_raise(circle):
+def test_unported_inputs_raise(circle, tmp_path):
+    """The two calls that were refused before this backend's sensors and
+    services were ported, made in both packages: a one-scan filtered chunk
+    with an empty sensor reading, then the dump. The dumps hold the same
+    keyframe, graph and files."""
     filt, odoms = circle
     backend = _port_backend()
     cloud = TCloud(torch.stack([torch.from_numpy(filt[0][0].T.copy())]), torch.from_numpy(filt[0][1])[None],
                    torch.from_numpy(filt[0][2])[None])
-    with pytest.raises(NotImplementedError):
-        backend.add_scan_batch(0, np.zeros(1), odoms[:1], cloud, sensors=[{}], filtered=True)
-    with pytest.raises(NotImplementedError):
-        backend.dump("unused")
+    backend.add_scan_batch(0, np.zeros(1), odoms[:1], cloud, sensors=[{}], filtered=True)
+    backend.finish()
+    backend.drain()
+    assert backend.dump(str(tmp_path / "port"))
+    ref = JGraph(JGraphCfg(**GRAPH), JLoopCfg(**LOOP), keyframe_cloud_cap=65536, prefilter_cfg=PF)
+    ref.add_scan_batch(0, np.zeros(1), odoms[:1], JCloud(*(jnp.asarray(a)[None] for a in (filt[0][0].T, *filt[0][1:]))),
+                       sensors=[{}], filtered=True)
+    ref.finish()
+    ref.drain()
+    ref.dump(str(tmp_path / "jax"))
+    assert backend._n_priors == ref._n_priors == 0 and len(backend.keyframes) == len(ref.keyframes) == 1
+    for name in ("graph.g2o", "special_nodes.csv", "ggo_kf_odom.txt", "ggo_wf_odom.txt", "000000/data",
+                 "000000/cloud.pcd"):
+        assert (tmp_path / "port" / name).read_bytes() == (tmp_path / "jax" / name).read_bytes(), name

@@ -1,6 +1,8 @@
-"""The port's own configuration, synthetic scans and devkit metric against
-the reference's (`lv_slam_tpu.config`, `lv_slam_tpu.io`): the port keeps
-copies so that it imports nothing of the JAX package."""
+"""The port's own configuration, synthetic scans, devkit metric, PCD and
+KITTI pose files, g2o graph files and SE(3) logarithms against the
+reference's (`lv_slam_tpu.config`, `lv_slam_tpu.io`, `lv_slam_tpu.graph.
+g2o_io`, `lv_slam_tpu.core.se3`): the port keeps copies so that it imports
+nothing of the JAX package."""
 
 import dataclasses
 
@@ -12,7 +14,7 @@ pytest.importorskip("torch")
 from lv_slam_tpu import config as ref_config  # noqa: E402
 from lv_slam_tpu.io import kitti as ref_kitti, synthetic as ref_synthetic  # noqa: E402
 from lv_slam_tpu_torch import config  # noqa: E402
-from lv_slam_tpu_torch.io import kitti, synthetic  # noqa: E402
+from lv_slam_tpu_torch.io import kitti, pcd, synthetic  # noqa: E402
 
 
 @pytest.mark.parametrize(
@@ -94,3 +96,88 @@ def test_camera_image_matches_reference(seed, world_seed):
         want = ref_synthetic.render_camera_image(ref_world, pose, seed=seed)
         assert got.dtype == np.uint8 and got.shape == (128, 256)
         np.testing.assert_array_equal(got, want)
+
+
+@pytest.mark.parametrize("binary", [True, False])
+@pytest.mark.parametrize("width", [3, 4])
+def test_pcd_copy_matches_reference(tmp_path, binary, width):
+    """The same bytes written, the same points read back."""
+    from lv_slam_tpu.io import pcd as ref_pcd
+
+    pts = np.random.default_rng(width).normal(0, 20, (1000, width)).astype(np.float32)
+    pcd.write_pcd(str(tmp_path / "port.pcd"), pts, binary=binary)
+    ref_pcd.write_pcd(str(tmp_path / "ref.pcd"), pts, binary=binary)
+    assert (tmp_path / "port.pcd").read_bytes() == (tmp_path / "ref.pcd").read_bytes()
+    np.testing.assert_array_equal(pcd.read_pcd(str(tmp_path / "ref.pcd")),
+                                  ref_pcd.read_pcd(str(tmp_path / "ref.pcd")))
+
+
+def test_kitti_pose_writers_match_reference(tmp_path):
+    rng = np.random.default_rng(2)
+    poses = np.tile(np.eye(4), (7, 1, 1))
+    poses[:, :3, :4] = rng.normal(0, 3, (7, 3, 4))
+    tr = ref_kitti.tr_to_matrix(rng.normal(0, 1, (3, 4)))
+    np.testing.assert_array_equal(kitti.velo_to_cam_poses(poses, tr), ref_kitti.velo_to_cam_poses(poses, tr))
+    kitti.write_pose_file(str(tmp_path / "port.txt"), poses)
+    ref_kitti.write_pose_file(str(tmp_path / "ref.txt"), poses)
+    assert (tmp_path / "port.txt").read_bytes() == (tmp_path / "ref.txt").read_bytes()
+    np.testing.assert_array_equal(kitti.read_pose_file(str(tmp_path / "ref.txt")),
+                                  ref_kitti.read_pose_file(str(tmp_path / "ref.txt")))
+
+
+def test_g2o_io_copy_matches_reference(tmp_path):
+    """A graph with every factor family: the port's save_graph writes the
+    reference's text and sidecar, and load_graph rebuilds the same arrays
+    from it."""
+    from lv_slam_tpu.graph import g2o_io as ref_g2o, pose_graph as ref_pg
+    from lv_slam_tpu_torch.graph import g2o_io, pose_graph
+
+    rng = np.random.default_rng(3)
+    g = ref_pg.empty_graph(16, 32, 16, 4, 8, 8)
+    for i in range(6):
+        pose = np.eye(4)
+        pose[:3, 3] = rng.normal(0, 5, 3)
+        ref_pg.add_node(g, i, pose)
+    ref_pg.set_node_fixed(g, 5)
+    for e in range(5):
+        ref_pg.add_se3_edge(g, e, e + 1, e, np.eye(4), np.eye(6) * (e + 1), huber=1.0 if e % 2 else 0.0)
+    for slot, kind in enumerate(range(5)):
+        ref_pg.add_prior(g, slot, slot, kind, rng.normal(0, 1, 6), np.eye(4) * 2, huber=0.5 * (slot % 2))
+    ref_pg.add_plane_node(g, 0, [0, 0, 1, 0], fixed=True)
+    ref_pg.add_plane_node(g, 1, [0.1, 0, 1, 0.3])
+    ref_pg.add_se3_plane_edge(g, 0, 2, 0, [0, 0, 1, 0.1], np.eye(3) * 8.0, huber=1.0)
+    for kind in range(5):
+        ref_pg.add_plane_edge(g, kind, 1, 0 if kind < 3 else 1, kind, rng.normal(0, 0.1, 4), np.eye(4) * 5.0)
+    port_graph = pose_graph.PoseGraph(*(np.array(a) for a in g))
+    g2o_io.save_graph(str(tmp_path / "port.g2o"), port_graph)
+    ref_g2o.save_graph(str(tmp_path / "ref.g2o"), g)
+    for suffix in ("", ".kernels"):
+        assert (tmp_path / f"port.g2o{suffix}").read_text() == (tmp_path / f"ref.g2o{suffix}").read_text()
+    got = g2o_io.load_graph(str(tmp_path / "ref.g2o"), 16, 32, 16, 4, 8, 8)
+    want = ref_g2o.load_graph(str(tmp_path / "ref.g2o"), 16, 32, 16, 4, 8, 8)
+    for name in pose_graph.PoseGraph._fields:
+        np.testing.assert_array_equal(getattr(got, name), np.asarray(getattr(want, name)), err_msg=name)
+
+
+def test_se3_logs_match_reference():
+    """log_so3, log_se3 (Taylor branch, generic angles, angles near pi),
+    quat_log and identity."""
+    import jax.numpy as jnp
+    import torch
+
+    from lv_slam_tpu.core import se3 as ref_se3
+    from lv_slam_tpu_torch.core import se3
+
+    rng = np.random.default_rng(4)
+    v = rng.normal(0, 1, (60, 6)).astype(np.float32)
+    v[:10, 3:] *= 1e-6
+    v[10:20, 3:] *= 3.1 / np.linalg.norm(v[10:20, 3:], axis=1, keepdims=True)
+    m = np.array(ref_se3.exp_se3(jnp.asarray(v)))
+    np.testing.assert_allclose(se3.log_se3(torch.from_numpy(m)).numpy(), np.asarray(ref_se3.log_se3(jnp.asarray(m))),
+                               rtol=0, atol=1e-5)
+    np.testing.assert_allclose(se3.log_so3(torch.from_numpy(m[:, :3, :3])).numpy(),
+                               np.asarray(ref_se3.log_so3(jnp.asarray(m[:, :3, :3]))), rtol=0, atol=1e-6)
+    q = np.array(ref_se3.quat_from_matrix(jnp.asarray(m[:, :3, :3])))
+    np.testing.assert_allclose(se3.quat_log(torch.from_numpy(q)).numpy(), np.asarray(ref_se3.quat_log(jnp.asarray(q))),
+                               rtol=0, atol=1e-6)
+    np.testing.assert_array_equal(se3.identity().numpy(), np.asarray(ref_se3.identity()))

@@ -21,7 +21,7 @@ from lv_slam_tpu_torch.core.cloud import PointCloud  # noqa: E402
 from lv_slam_tpu_torch.kernels import KERNELS, reset_launches  # noqa: E402
 from lv_slam_tpu_torch.graph import pose_graph  # noqa: E402
 from lv_slam_tpu_torch.lfa import features, registration  # noqa: E402
-from lv_slam_tpu_torch.ops import knn, ndt, ndt_hash, ndt_soa, nn, orb, prefilter, voxel_map  # noqa: E402
+from lv_slam_tpu_torch.ops import floor, knn, ndt, ndt_hash, ndt_soa, nn, orb, prefilter, voxel_map  # noqa: E402
 from lv_slam_tpu_torch.pipeline import window  # noqa: E402
 from lv_slam_tpu_torch.ops.ndt import make_gauss_params  # noqa: E402
 
@@ -108,9 +108,11 @@ def _lfa_calls(device, scans):
 
 
 def _backend_calls(device, scans):
-    """K1b, K2, K13's batched pass, K14 (build, query) and K15 once each:
-    scans 0 and 1 as a window, two loop candidates against scan 0's map, a
-    3-node graph."""
+    """K1b, K2, K2r, K13's batched pass, K14 (build, query), K15 and K16
+    once each: scans 0 and 1 as a window (filtered, and raw with the
+    distance band), two loop candidates against scan 0's map, a 3-node graph
+    with priors of every type, a floor plane, SE3-plane and plane-plane
+    edges, and the floor of scan 0."""
     (s0, s1), rel = scans
     c0, c1 = (PointCloud.from_numpy(s, cap=16384, device=device) for s in (s0, s1))
     out = [(
@@ -126,6 +128,8 @@ def _backend_calls(device, scans):
     out.append((
         "window_group_filtered_fn", window.window_group_filtered(*group), window.window_group_filtered_ref(*group),
     ))
+    raw = (torch.stack([c0.xyz, c1.xyz]), *chunk[1:], 0, *group[4:6], 0.5, 100.0, 0.1, 32768)
+    out.append(("window_group_fn", window.window_group(*raw), window.window_group_ref(*raw)))
     hm = ndt_hash.to_hash_ref(voxel_map.build_voxel_map_ref(c0, 1.0, leaf_cap=8192))
     t2 = t.clone()
     t2[0, 3] += 0.3
@@ -152,12 +156,27 @@ def _backend_calls(device, scans):
     pose_graph.add_se3_edge(g, 0, 1, 0, np.linalg.inv(rel), np.eye(6), huber=1.0)
     pose_graph.add_se3_edge(g, 1, 2, 1, np.linalg.inv(rel) @ np.diag([1.0, 1.0, 1.0, 1.0]), 2 * np.eye(6))
     pose_graph.add_se3_edge(g, 2, 2, 0, np.linalg.inv(rel @ rel) + 0.01, np.eye(6), huber=0.1)
+    priors = ((pose_graph.PRIOR_XYZ, [0.1, -0.2, 1.8]), (pose_graph.PRIOR_XY, [0.3, 0.1]),
+              (pose_graph.PRIOR_QUAT, [0.999, 0.01, -0.02, 0.03]), (pose_graph.PRIOR_VEC, [0, 0, 1, 0.01, 0.02, 1.0]),
+              (pose_graph.PRIOR_PLANE, [0.01, 0.02, 1.0, 1.7]))
+    for slot, (kind, meas) in enumerate(priors):
+        pose_graph.add_prior(g, slot, slot % 3, kind, meas, np.eye(4)[:len(meas), :len(meas)] * 2, huber=1.0)
+    pose_graph.add_plane_node(g, 0, [0.0, 0.0, 1.0, 0.0], fixed=True)
+    pose_graph.add_plane_node(g, 1, [0.05, 0.02, 1.0, -2.0])
+    for slot in range(3):
+        pose_graph.add_se3_plane_edge(g, slot, slot, slot % 2, [0.01, -0.02, 1.0, 1.73 + 0.1 * slot], 10 * np.eye(3),
+                                      huber=1.0)
+    for kind in range(5):
+        pose_graph.add_plane_edge(g, kind, 1, 0 if kind < 3 else 1, kind, [0.05, 0.02, -0.01, 0.1], 2 * np.eye(4),
+                                  huber=1.0)
     dg = pose_graph.to_device(g, device)
     out.append((
         "_chi2_and_normal",
         pose_graph._chi2_and_normal(dg, dg.poses, True),
         pose_graph._chi2_and_normal_ref(dg, dg.poses, True),
     ))
+    band = prefilter.distance_filter(c0, 0.5, 100.0)
+    out.append(("detect_floor", floor.detect_floor(band), floor.detect_floor_ref(band)))
     return out
 
 
@@ -240,6 +259,7 @@ def test_registry_names_sources_and_replaced_functions():
         "voxel_dedup_first", "window_group_filtered_fn", "_fused_verify_fn", "build_centroid_grid",
         "nn_sq_dists", "_chi2_and_normal", "_detect_pyramid_batch", "match_scores_batch",
         "build_grid", "knn", "build_cell_table", "build_lut", "ndt_derivatives_soa", "ndt_derivatives",
+        "window_group_fn", "detect_floor",
     }
     for name, k in KERNELS.items():
         assert (REPO / k.source).is_file(), k.source
@@ -343,6 +363,13 @@ def test_backend_kernels_match_plain_versions_on_the_card(cuda, scans):
         got, want = results[name]
         for a, b in zip(got, want):
             assert torch.equal(a, b), name
+    # K2r: the kept voxels and their order identical (the band's norm and the
+    # fma chain round as the twin's emulation); the centroids as K1's, since
+    # the plain twin's `index_add_` sums with atomics on the card
+    got, want = results["window_group_fn"]
+    assert torch.equal(got.mask, want.mask) and int(want.mask.sum()) > 0
+    torch.testing.assert_close(got.xyz, want.xyz, rtol=1e-6, atol=1e-5)
+    torch.testing.assert_close(got.intensity, want.intensity, rtol=1e-6, atol=1e-5)
     # K13: per candidate as K6 (partial sums in another order)
     (s1, g1, h1), (s2, g2, h2) = results["_fused_verify_fn"]
     torch.testing.assert_close(s1, s2, rtol=1e-4, atol=0)
@@ -362,6 +389,12 @@ def test_backend_kernels_match_plain_versions_on_the_card(cuda, scans):
     torch.testing.assert_close(c1, c2, rtol=1e-6, atol=0)
     torch.testing.assert_close(hh1, hh2, rtol=0, atol=1e-5 * float(hh2.abs().max()))
     torch.testing.assert_close(b1, b2, rtol=0, atol=1e-5 * float(b2.abs().max()))
+    # K16: counts are integers, so the best hypothesis, its count and the
+    # verdict are identical; the refit's sums run in another order
+    got, want = results["detect_floor"]
+    assert bool(want.found) and bool(got.found)
+    assert int(got.best) == int(want.best) and int(got.n_inliers) == int(want.n_inliers)
+    torch.testing.assert_close(got.coeffs, want.coeffs, rtol=0, atol=1e-5)
 
 
 @pytest.mark.gpu

@@ -117,9 +117,13 @@ def test_lvslam_without_lfa_feeds_identity_odometry(small_sequence):
 
 
 def test_lvslam_unported_options_raise(small_sequence):
-    """The host DLO frontend (the reference's default) now constructs; the
-    sensor priors are not ported: they raise instead of running something
-    else. The calibration reaches the backend."""
+    """The host DLO frontend (the reference's default) constructs and the
+    calibration reaches the backend. The options this test once found
+    refused, the GPS / IMU readings and `detect_floor=True`, now run: the
+    pure LFA stack fed them per scan in both packages gives the same
+    keyframes, the same priors with the same sensor fields on each keyframe
+    (the floor found on every scan, its coefficients within 1e-5), the same
+    `zero_utm`, and the trajectory within the LFA tolerance."""
     cfg = _port_config(_small_cfg())
     default = LvSlam(cfg, device="cpu")
     assert default.dlo is not None and default.feature_odometry is None
@@ -127,11 +131,42 @@ def test_lvslam_unported_options_raise(small_sequence):
     slam = LvSlam(dataclasses.replace(cfg, calib_tr=tuple(float(v) for v in range(12))), use_dlo=False,
                   scan_cap=32768, device="cpu")
     np.testing.assert_array_equal(slam.backend.tr[:3, :4], np.arange(12.0).reshape(3, 4))
-    scan = small_sequence[0][0]
-    with pytest.raises(NotImplementedError):
-        slam.process(scan, 0.0, detect_floor=True)
-    with pytest.raises(NotImplementedError):
-        slam.process(scan, 0.0, gps_xyz=np.zeros(3))
+
+    scans, gt, _ = small_sequence
+    gt_rel = np.einsum("ij,njk->nik", np.linalg.inv(gt[0]), gt)
+    rng = np.random.default_rng(7)
+    gps = [p[:3, 3] + [500.0, 300.0, 0.0] + rng.normal(0, 0.2, 3) for p in gt_rel]
+    sensors = dict(enable_gps=True, enable_imu_orientation=True, enable_imu_acceleration=True)
+    ref_cfg = _small_cfg()
+    ref_cfg = dataclasses.replace(ref_cfg, graph=dataclasses.replace(ref_cfg.graph, **sensors))
+
+    def run(s):
+        for i, scan in enumerate(scans):
+            rot = gt_rel[i][:3, :3]
+            w = np.sqrt(max(0.0, 1.0 + np.trace(rot))) / 2.0
+            quat = np.r_[w, (rot[2, 1] - rot[1, 2]) / (4 * w), (rot[0, 2] - rot[2, 0]) / (4 * w),
+                         (rot[1, 0] - rot[0, 1]) / (4 * w)]
+            s.process(scan, i * 0.1, gps_xyz=gps[i], imu_quat_wxyz=quat, imu_acceleration=rot.T @ [0, 0, 9.81],
+                      detect_floor=True)
+        s.finalize()
+        return s
+
+    want = run(JSlam(ref_cfg, use_dlo=False, optimize_every=4, scan_cap=32768))
+    got = run(LvSlam(_port_config(ref_cfg), use_dlo=False, optimize_every=4, scan_cap=32768, device="cpu"))
+    gb, wb = got.backend, want.backend
+    assert [k.seq for k in gb.keyframes] == [k.seq for k in wb.keyframes]
+    assert gb._n_priors == wb._n_priors == 3 * len(gb.keyframes) and gb._n_sp_edges == wb._n_sp_edges
+    assert bool(got.last_floor.found)  # the last scan's fit, which its keyframe took
+    np.testing.assert_array_equal(got.last_floor.coeffs.numpy(), gb.keyframes[-1].floor_coeffs)
+    np.testing.assert_array_equal(gb.zero_utm, wb.zero_utm)
+    for a, b in zip(gb.keyframes, wb.keyframes):
+        assert a.floor_coeffs is not None and b.floor_coeffs is not None
+        np.testing.assert_allclose(a.floor_coeffs, b.floor_coeffs, rtol=0, atol=1e-5)
+        for name in ("utm_coord", "orientation", "acceleration"):
+            np.testing.assert_array_equal(getattr(a, name), getattr(b, name))
+    lfa_err = np.abs(np.stack(got.lfa_poses)[:, :3, 3] - np.stack(want.lfa_poses)[:, :3, 3]).max(axis=1)
+    assert (lfa_err <= np.maximum(TRANS_ATOL, LFA_SPREAD)).all()
+    np.testing.assert_allclose(got.trajectory(), want.trajectory(), rtol=0, atol=max(TRANS_ATOL, LFA_SPREAD.max()))
 
 
 def _assert_close(got, want, spread, what):

@@ -1,11 +1,15 @@
 """The port's first-point voxel dedup (kernel 1b's plain twin) and the
-backend's window programs (kernel 2's) against `lv_slam_tpu.ops.prefilter.
-voxel_dedup_first` and `lv_slam_tpu.utils.jit_cache`'s window programs (CPU).
+backend's window programs (kernels 2's and 2r's) against `lv_slam_tpu.ops.
+prefilter.voxel_dedup_first` and `lv_slam_tpu.utils.jit_cache`'s window
+programs (CPU).
 
 The dedup copies input points, so masks, lane order and kept points are
 identical, bit for bit. The window programs move points first: the port
 takes the same fma chain XLA makes of the reference's einsum on the CPU
-(`se3.transform_points_fma`), so there too every lane is identical."""
+(`se3.transform_points_fma`), so there too every lane is identical. The raw
+group's distance band takes |p| as the reference's compiled norm rounds it
+(`sqrt32(dot3_fma(p, p))`), so points within 4 ulps of either band edge are
+kept or dropped alike, and its voxel centroids sum in the same order."""
 
 import functools
 
@@ -128,3 +132,47 @@ def test_window_flush_and_merge():
         0.1, 8192,
     )
     _assert_identical(got, want)
+
+
+def _raw_chunk(n_scans: int, cap: int, near: float, far: float, seed: int = 5):
+    """A raw chunk (C, cap, 3): a quarter of each scan within 4 ulps of the
+    near edge, a quarter within 4 ulps of the far edge, half on 0.1 m cell
+    faces and clusters; some lanes masked."""
+    rng = np.random.default_rng(seed)
+
+    def shell(n, r):
+        d = rng.normal(size=(n, 3))
+        p = (d / np.linalg.norm(d, axis=1, keepdims=True) * r).astype(np.float32)
+        for _ in range(4):
+            s = rng.integers(-1, 2, p.shape)
+            p = np.where(s > 0, np.nextafter(p, np.float32(np.inf)),
+                         np.where(s < 0, np.nextafter(p, np.float32(-np.inf)), p))
+        return p
+
+    q = cap // 4
+    xyz = np.stack([np.concatenate([shell(q, near), shell(q, far), _points(seed + i, cap - 2 * q)[:, :3]])
+                    for i in range(n_scans)]).astype(np.float32)
+    inten = rng.uniform(0.0, 1.0, (n_scans, cap)).astype(np.float32)
+    mask = rng.uniform(size=(n_scans, cap)) > 0.05
+    return xyz, inten, mask
+
+
+@pytest.mark.parametrize("length,start,n_valid", [(1, 0, 1), (4, 2, 3), (8, 5, 8), (16, 0, 11)])
+def test_window_group(length, start, n_valid):
+    """`window_group_fn` (the raw chunk's group, kernel 2r's twin): the
+    band's edges, cell faces, clipped rows and padding rows; every lane
+    identical, the centroids bit for bit."""
+    near, far = 0.5, 40.0
+    xyz, inten, mask = _raw_chunk(12, 4096, near, far)
+    rels = _rels(length, seed=length)
+    valid = np.arange(length) < n_valid
+    fn = jit_cache.window_group_fn(near, far, 0.1, 32768, length)
+    want = fn(jnp.asarray(xyz), jnp.asarray(inten), jnp.asarray(mask), jnp.int32(start), jnp.asarray(rels),
+              jnp.asarray(valid))
+    got = window.window_group(
+        torch.from_numpy(xyz), torch.from_numpy(inten), torch.from_numpy(mask), start, torch.from_numpy(rels),
+        torch.from_numpy(valid), near, far, 0.1, 32768,
+    )
+    assert got.cap == 32768
+    _assert_identical(got, want)
+    assert 0 < int(got.mask.sum()) < int(mask.sum())
