@@ -123,6 +123,24 @@ Phases, each of which raises on failure:
    spaced by the interval gate, more than twice as many verified, the tail
    error shrunk below 0.6 of the odometry's, and the JAX reference's record
    of the same run: its keyframe count, loop pairs and loop counters.
+10. The registrations and the prefilter's last branches. 10a: the
+   registration factory (`select_registration_method`, reference
+   `registrations.cpp`) on scans 40 -> 41 of the circle through the flagship
+   prefilter (131072 lanes), from tests/test_registrations.py's perturbed
+   guess, with `max_iterations=40`: NDT_OMP (DIRECT7), NDT_PCA (DIRECT1),
+   ICP and GICP; gates: that test's translation bounds (0.06, 0.06, 0.25,
+   0.10 m), fitness < 0.5, the transform within the stated tolerance of the
+   plain path on the card, ICP launching K17 41 times and GICP K19a 21 and
+   K19b 20 times; each method's warm ms per align. 10b: `ndt_ground_align`
+   of scan 41 onto scan 40's 10 m map from a 0.5 m z error; gates: x and y
+   within 5e-3 m, |z| < 0.4 m, K20 and K6G launched, equal to the plain path
+   on the card to 1e-4. 10c: the host DLO (flagship config) over the 170
+   scans with `outlier_removal_method="STATISTICAL"` and
+   `use_angle_calibration=True`, then with `"RADIUS"`; gates: the accuracy
+   gates, K18 (and K0a) launched once per scan, the first four poses equal
+   to the plain path's on the card to 1e-4 and within the reference's
+   one-ulp spread (1e-2) of the CPU plain path's (as phase 8a); scans/s and
+   the lanes each removal dropped per scan.
 
 Phase 2 holds every kernel, those of the backend too (2c: the window dedup
 K1b/K2, the batched NDT pass K13, the centroid grid K14 and the pose-graph
@@ -134,13 +152,19 @@ pass K6L and the generic one K6G on the host DLO's 32768-leaf keyframe map
 and 65536-lane subsample, at the true pose and one 0.3 m off; 2g: the raw
 window group K2r at 16 x 131072 raw lanes, K15 with 192 priors, 64
 SE3-plane edges and a fixed floor plane, and floor detection K16 on a
-filtered scan), against its plain version at the shapes phases 5-9 give it.
+filtered scan; 2h: K17's nearest centroids and one ICP iteration, K19a's
+covariances and K19b's normal equations on scan 41's 131072 lanes against
+scan 40 at phase 10's guess, K18's two removals and K20 on scan 40, K0a on
+raw scan 40), against its plain version at the shapes phases 5-10 give it.
+Phase 2c also times the LM loop (`optimize_pose_graph`) and 2f K7 (the
+host DLO's Newton loop) and `uniform_subsample`, plain torch around the
+kernels, device and wall, printed as the "host loops" line.
 
 The last lines are the kernels' JSON record (each kernel's launches are
 counted on the run of the path that drives it: phase 5 for the lidar
 kernels, 6 for K12, 6b for K12b, 7a for K9g and K9k, 7b for K9c, 8a for
-K3L and K6L, 8d for K6G, 9a for K2r, 9b for K16, named under
-`launch_phase`), the card's name and power limit, and
+K3L and K6L, 8d for K6G, 9a for K2r, 9b for K16, 10a for K17, K19a
+and K19b, 10b for K20, 10c for K18 and K0a, named under `launch_phase`), the card's name and power limit, and
 `{"ok": true, "device": {...}}`. Without a CUDA device the script exits
 non-zero before it prints any result.
 """
@@ -252,6 +276,13 @@ DEVICE_FUNCTIONS = {
     "ndt_derivatives": ("ndt_generic_partials", "ndt_finish"),
     "window_group_fn": ("window_raw_keys", "mark_runs", "reduce_runs"),
     "detect_floor": ("floor_hypotheses", "floor_count", "floor_finish"),
+    "nn_points": ("nn_points_kernel", "icp_match", "icp_means", "icp_cov", "icp_update"),
+    "radius_outlier_removal": ("outlier_radius",),
+    "statistical_outlier_removal": ("stat_dist", "stat_mean", "stat_var", "stat_thresh", "stat_keep"),
+    "vertical_angle_calibration": ("angle_calibration",),
+    "_plane_covariances": ("plane_cov",),
+    "gicp_align": ("gicp_normal", "gicp_finish"),
+    "filter_ground_leaves": ("ground_filter",),
 }
 
 
@@ -818,6 +849,26 @@ def check_backend_kernels(torch, scans, gt, dev):
     records["_chi2_and_normal"]["cholesky_ms"] = chol_ms
     log(f"    the LM's dense solve (cholesky_ex + cholesky_solve, a library call) on the {n} x {n} system: "
         f"{chol_ms:.4f} ms device-only")
+
+    # the LM loop around K15 and the solve (a host read per iteration), whole
+    # `optimize_pose_graph` calls on this graph, and with K15's twin swapped in
+    lm = lambda: pose_graph.optimize_pose_graph(g, 64, device=dev)  # noqa: E731
+    it = lm().iterations
+    lm_dev, lm_wall = loop_ms(torch, lm, reps=3)
+    kernel = pose_graph._chi2_and_normal
+    pose_graph._chi2_and_normal = pose_graph._chi2_and_normal_ref
+    try:
+        plain_dev, plain_wall = loop_ms(torch, lm, reps=1)  # the twin's forward-mode passes: seconds per call
+    finally:
+        pose_graph._chi2_and_normal = kernel
+    # per iteration two K15 launches (build and the accept test) and the
+    # Cholesky factor and solve (n^3 / 3 + 2 n^2 operations)
+    step_bound = 2 * records["_chi2_and_normal"]["bound_ms"] + bound(0, n ** 3 / 3 + 2 * n * n)[0]
+    records["_lm_loop"] = dict(iterations=it, device_ms=lm_dev, wall_ms=lm_wall, plain_device_ms=plain_dev,
+                               plain_wall_ms=plain_wall, bound_ms=it * step_bound + records["_chi2_and_normal"]["bound_ms"])
+    log(f"    the LM loop (optimize_pose_graph, {it} iterations): device {lm_dev:.3f} ms, wall {lm_wall:.3f} ms per "
+        f"optimize; with K15's twin device {plain_dev:.3f} ms, wall {plain_wall:.3f} ms; bound "
+        f"{records['_lm_loop']['bound_ms']:.5f} ms")
     return records
 
 
@@ -1226,6 +1277,36 @@ def check_lut_kernels(torch, scans, gt, dev):
         pts = nbytes(xs, mask)
         measure(torch, records, name, k6, p6, errs[name], pts + 4 * n_probed + row_bytes * n_leaves + 43 * 4,
                 ops * hits)
+
+    # the host DLO's plain-torch work around them: `uniform_subsample` (one
+    # count, one gather) and K7, the damped Newton loop of its align (a host
+    # read per step), scan 1 from a warm start's guess (the true step moved
+    # by 5 cm and 0.005 rad, where phase 8a's aligns start)
+    filtered = prefilter.prefilter(PointCloud.from_numpy(scans[1], cap=pf.raw_cap, device=dev), pf)
+    k = cfg.odometry.scan_matching_cap
+    _, sub_ms, _ = device_ms(torch, lambda: prefilter.uniform_subsample(filtered, k))
+    # bytes: the mask read once, the chosen rows (17 bytes) read and written once
+    sub_bound, sub_by = bound(filtered.cap + 2 * 17 * k, 0)
+    records["_uniform_subsample"] = dict(ms=sub_ms, bound_ms=sub_bound, bound_by=sub_by)
+    log(f"    uniform_subsample: {int(filtered.mask.sum())} points -> {k} lanes, {sub_ms:.4f} ms device-only, bound "
+        f"{sub_bound:.5f} ms ({sub_by})")
+    warm = se3.exp_se3(torch.tensor([0.05, -0.03, 0.01, 0.0, 0.0, 0.005], device=dev))
+    guess = (warm @ rel).contiguous()
+    align = lambda: ndt_soa.ndt_align_soa_table(  # noqa: E731
+        soa, sub1, guess, resolution=ndt_cfg.resolution, outlier_ratio=ndt_cfg.outlier_ratio,
+        step_size=ndt_cfg.step_size, transformation_epsilon=ndt_cfg.transformation_epsilon,
+        max_iterations=ndt_cfg.max_iterations, neighborhood=ndt_cfg.neighborhood, weighted=ndt_cfg.weighted)
+    it = align().iterations
+    k7_dev, k7_wall = loop_ms(torch, align)
+    with plain_twins():
+        plain_dev, plain_wall = loop_ms(torch, align)
+    # per step one K6L pass (its bound above) and the 6 x 6 solve (~500 operations)
+    step_bound = records["ndt_derivatives_soa"]["bound_ms"] + bound(0, 500)[0]
+    records["_newton_loop"] = dict(iterations=it, device_ms=k7_dev, wall_ms=k7_wall, plain_device_ms=plain_dev,
+                                   plain_wall_ms=plain_wall, bound_ms=(it + 1) * step_bound)
+    log(f"    the Newton loop (K7, ndt_align_soa_table, {it} steps): device {k7_dev:.3f} ms, wall {k7_wall:.3f} ms "
+        f"per align ({k7_dev / it:.4f} / {k7_wall / it:.4f} ms per step); with K6L's twin device "
+        f"{plain_dev:.3f} ms, wall {plain_wall:.3f} ms; bound {(it + 1) * step_bound:.5f} ms")
     return records
 
 
@@ -1499,6 +1580,10 @@ CAMERA_KERNELS = ("_detect_pyramid_batch", "match_scores_batch")  # ORB (K12) an
 STANDALONE_KERNELS = ("build_grid", "knn", "build_cell_table")  # K9g, K9k, K9c: standalone LFA only
 LUT_KERNELS = ("build_lut", "ndt_derivatives_soa", "ndt_derivatives")  # K3L, K6L, K6G: the LUT paths (phase 8)
 INPUT_KERNELS = ("window_group_fn", "detect_floor")  # K2r, K16: the raw feed and floor detection (phase 9)
+# K17, K19a, K19b, K20 (the registrations), K18 and K0a (the prefilter's
+# last branches): phase 10
+OFF_PATH_KERNELS = ("nn_points", "_plane_covariances", "gicp_align", "filter_ground_leaves", "radius_outlier_removal",
+                    "statistical_outlier_removal", "vertical_angle_calibration")
 # loop_rejections of the reference's BoW-ranked CPU records of this circle
 # (BENCH_r05_cpu_accuracy_dedup_stride.json, _refvocab.json)
 REFERENCE_REJECTIONS = {"verified": 1, "bow_rejected": 0, "guess_rejected": 0, "fitness_rejected": 0}
@@ -1610,13 +1695,15 @@ def run_full_path(torch, scans, gt, dev, card):
     launches = {name: k.launches for name, k in KERNELS.items()}
     log(f"  launches on the full path ({n} scans): {launches}")
     missing = [name for name, count in launches.items()
-               if count == 0 and name not in CAMERA_KERNELS + STANDALONE_KERNELS + LUT_KERNELS + INPUT_KERNELS]
+               if count == 0
+               and name not in CAMERA_KERNELS + STANDALONE_KERNELS + LUT_KERNELS + INPUT_KERNELS + OFF_PATH_KERNELS]
     if missing:
         raise AssertionError(f"kernels never launched on the full path: {missing}")
     log(f"  exempt from the launch check here: {list(CAMERA_KERNELS)} (no images in this configuration; "
         f"phases 6 and 6b drive them), {list(STANDALONE_KERNELS)} (standalone LFA; phase 7 drives them), "
         f"{list(LUT_KERNELS)} (the LUT paths; phase 8 drives them), {list(INPUT_KERNELS)} (the raw feed and "
-        f"floor detection; phase 9 drives them)")
+        f"floor detection; phase 9 drives them), {list(OFF_PATH_KERNELS)} (the registrations and the prefilter's "
+        f"last branches; phase 10 drives them)")
     t_err, drift = accuracy(est, gt, f"refined (LFA) poses of the full path, {n} scans", n)
 
     loops = [(lp.key1.seq, lp.key2.seq, round(lp.fitness, 6)) for lp in graph.loops]
@@ -1975,12 +2062,13 @@ CPU_SPREAD_M = 1e-2
 
 class plain_twins:
     """Within the block, the LUT paths call K3L's, K6L's and K6G's plain
-    twins on the card (the harness swaps the functions in; no wrapper falls
-    back)."""
+    twins on the card, and the registrations and the prefilter's branches
+    those of K17-K20 and K0a (the harness swaps the functions in; no wrapper
+    falls back)."""
 
     def __enter__(self):
         from lv_slam_tpu_torch.odometry import dlo
-        from lv_slam_tpu_torch.ops import ndt, ndt_soa, voxel_map
+        from lv_slam_tpu_torch.ops import gicp, icp, ndt, ndt_ground, ndt_soa, nn, prefilter, voxel_map
 
         self.saved = [
             (dlo, "build_lut", voxel_map.build_lut_ref),
@@ -1988,6 +2076,14 @@ class plain_twins:
             (dlo, "ndt_derivatives", ndt.ndt_derivatives_ref),
             (ndt_soa, "ndt_derivatives_soa", ndt_soa.ndt_derivatives_soa_ref),
             (ndt, "ndt_derivatives", ndt.ndt_derivatives_ref),
+            (icp, "icp_step", icp.icp_step_ref),
+            (icp, "icp_fitness", icp.icp_fitness_ref),
+            (gicp, "regularized_covariances", gicp.regularized_covariances_ref),
+            (gicp, "gicp_normal_equations", gicp.gicp_normal_equations_ref),
+            (ndt_ground, "filter_ground_leaves", ndt_ground.filter_ground_leaves_ref),
+            (nn, "radius_outlier_removal", nn.radius_outlier_removal_ref),
+            (nn, "statistical_outlier_removal", nn.statistical_outlier_removal_ref),
+            (prefilter, "vertical_angle_calibration", prefilter.vertical_angle_calibration_ref),
         ]
         self.saved = [(mod, name, getattr(mod, name), twin) for mod, name, twin in self.saved]
         for mod, name, _, twin in self.saved:
@@ -2025,6 +2121,11 @@ def run_host_dlo(torch, scans, gt, dev, card):
         return odo_score(cloud, transform)
 
     odo._score = logged_score
+    aligns = []  # one entry per align: the K7 loops of this run
+    odo_align, odo_retry = odo._align, odo._align_retry
+    odo._align = lambda *a, **kw: aligns.append(1) or odo_align(*a, **kw)
+    if odo_retry is not None:
+        odo._align_retry = lambda *a, **kw: aligns.append(1) or odo_retry(*a, **kw)
 
     def track(i):
         before = odo.stats.retries
@@ -2052,7 +2153,8 @@ def run_host_dlo(torch, scans, gt, dev, card):
     steps = step_errors(est, gt)
     stats = odo.stats
     log(f"  keyframes {odo.keyframe_indices} ({stats.keyframe_count}), retries {stats.retries}, Newton "
-        f"iterations {stats.total_iterations}; relative-step error worst {steps.max():.4f} m at step "
+        f"iterations {stats.total_iterations} in {len(aligns)} aligns (K7 loops); relative-step error worst "
+        f"{steps.max():.4f} m at step "
         f"{int(steps.argmax()) + 1}, median {np.median(steps):.4f} m")
     log(f"  the retry ran at scans {retried} and was kept at {kept}; the JAX record keeps "
         f"{JAX_HOST_DLO['retries']}")
@@ -2089,6 +2191,7 @@ def run_host_dlo(torch, scans, gt, dev, card):
     idle = profile(torch, window, "host_dlo")
     summary = dict(scans_per_s=(n - WARM_SCANS) / elapsed, devkit_t_err=t_err, drift_m=drift,
                    keyframes=stats.keyframe_count, retries=stats.retries, newton_iterations=stats.total_iterations,
+                   aligns=len(aligns),
                    worst_step_m=float(steps.max()), syncs_per_scan=syncs / CHUNK, idle_share=idle,
                    peak_mib=peak / 2**20, jax_record=JAX_HOST_DLO)
     return summary, launches
@@ -2236,9 +2339,6 @@ def run_generic_align(torch, scans, gt, dev, card):
     first_poses_vs_cpu(got[None], ref.transform.numpy()[None].astype(np.float64), "generic-align transform",
                        tol=CPU_SPREAD_M)
     return dict(t_err_m=t_err, r_err_rad=r_err, iterations=res.iterations, seconds=elapsed), launches
-
-
-# ----------------------------------------------------------------- main
 
 
 # ----------------------------------------------------------------- phase 9
@@ -2655,6 +2755,352 @@ def run_double_circle(torch, dev, card):
                 window_group_launches=launches)
 
 
+# ----------------------------------------------------------------- phase 2h and phase 10
+
+PAIR = (40, 41)  # phase 10's consecutive circle scans
+PAIR_PERTURBATION = [0.12, -0.08, 0.03, 0.01, -0.01, 0.02]  # tests/test_registrations.py's guess, on the true step
+# tests/test_registrations.py's methods and translation bounds
+FACTORY = (("NDT_OMP", "DIRECT7", 0.06), ("NDT_PCA", "DIRECT1", 0.06), ("ICP", "DIRECT7", 0.25),
+           ("GICP", "DIRECT7", 0.10))
+# the factory's card results held to the plain path on the card: the NDT
+# methods run deterministic kernels (K3, K3L) and K6G, whose sums run in
+# another order: DIRECT7 unweighted to 1e-4 (as phase 8d), DIRECT1 weighted
+# to phase 8's CPU_SPREAD_M (its Newton steps near the optimum are accepted
+# or rejected on the score's last bits: 2.07e-3 m apart on the H100; the
+# reference's own one-ulp spread of NDT_PCA on tests/test_registrations.py's
+# pair is 15.7 mm). ICP's 40 and GICP's 20
+# iterations carry their block sums' last bits and ICP's float64 Kabsch SVD
+# against the twin's float32 one (the reference's own one-ulp spread on the
+# tests' pair: 0.33 mm and 2.5 mm, `scripts/reference_spread.py icp|gicp`)
+FACTORY_TOL = {"NDT_OMP": 1e-4, "NDT_PCA": 1e-2, "ICP": 1e-3, "GICP": 3e-3}
+REGISTRATION_KERNELS = ("nn_points", "_plane_covariances", "gicp_align")  # K17, K19a, K19b (phase 10a)
+BRANCH_KERNELS = ("radius_outlier_removal", "statistical_outlier_removal", "vertical_angle_calibration")  # 10c
+
+
+def registration_pair(torch, scans, gt, dev):
+    """Phase 10's pair on `dev`: scans 40 and 41 through the flagship
+    prefilter (131072 lanes), their true relative pose and
+    tests/test_registrations.py's perturbed guess on it."""
+    from lv_slam_tpu_torch import kitti_flagship_config
+    from lv_slam_tpu_torch.core import se3
+    from lv_slam_tpu_torch.core.cloud import PointCloud
+    from lv_slam_tpu_torch.ops import prefilter
+
+    pf = kitti_flagship_config().prefilter
+    target, source = (prefilter.prefilter(PointCloud.from_numpy(scans[i], cap=pf.raw_cap, device=dev), pf)
+                      for i in PAIR)
+    rel = np.linalg.inv(gt[PAIR[0]]) @ gt[PAIR[1]]
+    pert = se3.exp_se3(torch.tensor(PAIR_PERTURBATION, dtype=torch.float32, device=dev))
+    guess = (pert @ torch.from_numpy(rel.astype(np.float32)).to(dev)).contiguous()
+    return target, source, rel, guess
+
+
+def check_registration_kernels(torch, scans, gt, dev):
+    """Phase 2h: kernels 17-20 and 0a vs their plain versions at phase 10's
+    shapes: K17 (nn_points, one ICP iteration) and K19a / K19b (the source's
+    covariances, one GICP normal-equation pass) on scan 41's 131072 lanes
+    against scan 40 at the guess, K18 (both removals) and K20 on scan 40
+    (filtered; its 10 m map with a 64^3 LUT), K0a on raw scan 40."""
+    from lv_slam_tpu_torch import kitti_flagship_config
+    from lv_slam_tpu_torch.core import se3
+    from lv_slam_tpu_torch.core.cloud import PointCloud
+    from lv_slam_tpu_torch.ops import gicp, icp, knn, ndt_ground, nn, prefilter, voxel_map
+
+    pf = kitti_flagship_config().prefilter
+    target, source, _, guess = registration_pair(torch, scans, gt, dev)
+    records = {}
+    src, mask = source.masked_xyz().contiguous(), source.mask.contiguous()
+    n_src = int(mask.sum())
+    y = se3.transform_points_fma(guess, src)
+
+    # kernel 17: the nearest centroids of the moved source, then one ICP
+    # iteration (the match, the sums, the Kabsch update)
+    grid = nn.build_centroid_grid(target, 0.25)
+    got, want = nn.nn_points(grid, y, mask), nn.nn_points_ref(grid, y, mask)
+    torch.cuda.synchronize()
+    if not all(torch.equal(a, b) for a, b in zip(got, want)):
+        raise AssertionError("nn_points: distances, matches or validity differ from the plain version")
+    hit, leaf = nn._probe27(grid, y)
+    n_touched = int(torch.unique(leaf[hit & mask[:, None]]).numel())
+    steps = int(np.ceil(np.log2(grid.keys.shape[0] + 1)))
+    log(f"  nn_points: {int(want[2].sum())} of {n_src} source points matched among {int((grid.counts > 0).sum())} "
+        f"leaves ({n_touched} touched); distances, matches and validity identical to the plain version")
+    k17 = lambda: icp.icp_step(grid, src, mask, guess, 4.0)  # noqa: E731
+    p17 = lambda: icp.icp_step_ref(grid, src, mask, guess, 4.0)  # noqa: E731
+    t_k, t_p = k17(), p17()
+    (fit_k, n_k), (fit_p, n_p) = icp.icp_fitness(grid, src, mask, guess, 4.0), icp.icp_fitness_ref(
+        grid, src, mask, guess, 4.0)
+    err = float((t_k - t_p).abs().max())
+    err_fit = abs(float(fit_k) - float(fit_p)) / abs(float(fit_p))
+    log(f"  one ICP iteration: transform within {err:.3g} of the plain version (tol 1e-5), fitness within "
+        f"{err_fit:.3g} (tol 1e-5 relative), matches {int(n_k)} / {int(n_p)}")
+    if err > 1e-5 or err_fit > 1e-5 or int(n_k) != int(n_p):
+        raise AssertionError("the ICP iteration departs from its plain version")
+    # bytes: the mask of every lane, the masked-in source points, each touched
+    # leaf's key and centroid, the transforms; operations per masked-in lane:
+    # 27 binary searches (3 per step), 10 per probe's hit test and distance,
+    # ~60 for the move, the sums and the centred second pass
+    measure(torch, records, "nn_points", k17, p17, err, nbytes(mask, guess) + 12 * n_src + 16 * n_touched + 64,
+            n_src * (27 * 3 * steps + 27 * 10 + 60))
+
+    # kernel 18: both removals on the filtered target, one leaf per lane
+    for name, args, ops in (("radius_outlier_removal", (pf.radius_radius, pf.radius_min_neighbors), 10),
+                            ("statistical_outlier_removal", (pf.statistical_mean_k, pf.statistical_stddev), 40)):
+        kernel, plain = getattr(nn, name), getattr(nn, f"{name}_ref")
+        got, want = kernel(target, *args), plain(target, *args)
+        torch.cuda.synchronize()
+        if not (torch.equal(got.mask, want.mask) and torch.equal(got.xyz, want.xyz)):
+            raise AssertionError(f"{name}: {int((got.mask != want.mask).sum())} lanes differ from the plain version")
+        n_in, n_kept = int(target.mask.sum()), int(got.mask.sum())
+        log(f"  {name}: {n_in} points -> {n_kept} kept ({n_in - n_kept} dropped), mask and points identical")
+        # bytes: the mask of every lane, the masked-in points, 8 bytes of the
+        # grid per masked-in point, the cloud out
+        measure(torch, records, name, lambda k=kernel, a=args: k(target, *a), lambda p=plain, a=args: p(target, *a),
+                0.0, nbytes(target.mask, got.xyz, got.mask) + 20 * n_in,
+                n_in * (27 * 3 * int(np.ceil(np.log2(target.cap + 1))) + 27 * 3 + ops))
+
+    # kernel 0a: the calibration of the raw scan
+    raw = PointCloud.from_numpy(scans[PAIR[0]], cap=pf.raw_cap, device=dev)
+    k0 = lambda: prefilter.vertical_angle_calibration(raw, pf.angle_base)  # noqa: E731
+    p0 = lambda: prefilter.vertical_angle_calibration_ref(raw, pf.angle_base)  # noqa: E731
+    got, want = k0(), p0()
+    err = float((got.xyz - want.xyz).abs().max())
+    n_diff = int((got.xyz != want.xyz).sum())
+    log(f"  vertical_angle_calibration: {int(raw.mask.sum())} raw points at {pf.angle_base} degrees, {n_diff} "
+        f"coordinates differ from the plain version, by at most {err:.3g} (tol 1e-5)")
+    if err > 1e-5 or not torch.equal(got.mask, want.mask):
+        raise AssertionError("vertical_angle_calibration departs from its plain version")
+    n_raw = int(raw.mask.sum())  # bytes: the mask of every lane, the masked-in points, the points out
+    measure(torch, records, "vertical_angle_calibration", k0, p0, err, nbytes(raw.mask, got.xyz) + 12 * n_raw,
+            80 * n_raw)
+
+    # kernel 19a: the source's covariances from its 8 grid neighbours
+    _, pts, valid = knn.knn(knn.build_grid(src, mask, 1.0), src, 8)
+    k19a = lambda: gicp.regularized_covariances(pts, valid, mask)  # noqa: E731
+    p19a = lambda: gicp.regularized_covariances_ref(pts, valid, mask)  # noqa: E731
+    (cov_k, ok_k), (cov_p, ok_p) = k19a(), p19a()
+    if not torch.equal(ok_k, ok_p):
+        raise AssertionError("_plane_covariances: the ok flags differ from the plain version")
+    e = gicp.plane_covariance_error(cov_k, cov_p, pts, valid, ok_p)
+    err = e.max_diff
+    log(f"  _plane_covariances: ok identical ({int(ok_p.sum())} of {n_src}); {e.n_gap} lanes with a relative "
+        f"eigen-gap above sqrt(eps) within {err:.3g}, {e.n_identical} identical, largest difference "
+        f"times the gap {e.envelope:.3g} (tol {gicp.PLANE_ENVELOPE}); {e.n_repeated} repeated-pair lanes keep the "
+        f"plane shape to {e.shape_err:.3g} (tol {gicp.SHAPE_TOL})")
+    if not e.ok:
+        raise AssertionError("_plane_covariances departs from its plain version")
+    # bytes: the mask of every lane, the 8 flags and the valid neighbours of a
+    # masked-in lane, the covariances and flags out
+    n_nbrs = int(valid[mask].sum())
+    measure(torch, records, "_plane_covariances", k19a, p19a, err,
+            nbytes(mask, cov_k, ok_k) + 8 * n_src + 12 * n_nbrs, 600 * n_src)
+
+    # kernel 19b: one normal-equation pass at the guess, the target's matches
+    tgt_grid = knn.build_grid(target.masked_xyz(), target.mask, 1.0)
+    dists, nn_pts, nn_valid = knn.knn(tgt_grid, y, 1)
+    _, nbrs, nbr_valid = knn.knn(tgt_grid, nn_pts[:, 0], 8)
+    cov_b, _ = gicp.regularized_covariances(nbrs, nbr_valid)
+    args = (src, mask & ok_k, cov_k, guess, nn_pts[:, 0].contiguous(), dists[:, 0].contiguous(),
+            nn_valid[:, 0].contiguous(), cov_b, 2.0)
+    k19b = lambda: gicp.gicp_normal_equations(*args)  # noqa: E731
+    p19b = lambda: gicp.gicp_normal_equations_ref(*args)  # noqa: E731
+    (h_k, g_k), (h_p, g_p) = k19b(), p19b()
+    eh = float((h_k - h_p).abs().max()) / float(h_p.abs().max())
+    eg = float((g_k - g_p).abs().max()) / float(g_p.abs().max())
+    n_src_ok, n_nn = int(args[1].sum()), int((args[1] & args[6]).sum())
+    n_ok = int((args[1] & args[6] & (args[5] < 2.0)).sum())
+    log(f"  gicp_align (normal equations): {n_ok} matched lanes; H within {eh:.3g} and g within {eg:.3g} of their "
+        f"scale (tol 1e-5)")
+    if eh > 1e-5 or eg > 1e-5:
+        raise AssertionError("gicp_align's normal equations depart from the plain version")
+    # bytes: the ok flag of every lane, the match's flag where ok and its
+    # distance where matched, 96 bytes of a lane within the distance (its
+    # point, its match, both covariances), the transform's 3x4, H and g out
+    measure(torch, records, "gicp_align", k19b, p19b, max(eh, eg),
+            nbytes(args[1]) + n_src_ok + 4 * n_nn + 96 * n_ok + 48 + 42 * 4, 350 * n_ok)
+
+    # kernel 20: the ground filter of the target's 10 m map (64^3 LUT)
+    vm = voxel_map.build_voxel_map(target, 10.0, leaf_cap=4096, lut_extent=64)
+    lut = voxel_map.build_lut(vm)
+    k20 = lambda: ndt_ground.filter_ground_leaves(vm, lut)  # noqa: E731
+    p20 = lambda: ndt_ground.filter_ground_leaves_ref(vm, lut)  # noqa: E731
+    (gm, gl), (wm, wl) = k20(), p20()
+    if not (torch.equal(gl, wl) and torch.equal(gm.valid, wm.valid)):
+        raise AssertionError("filter_ground_leaves: the LUT or the flags differ from the plain version")
+    log(f"  filter_ground_leaves: {int(vm.valid.sum())} valid leaves -> {int(gm.valid.sum())} ground; LUT "
+        f"({lut.numel()}) and flags identical")
+    measure(torch, records, "filter_ground_leaves", k20, p20, 0.0,
+            nbytes(lut, vm.valid, vm.normals, gl, gm.valid), 3 * lut.numel())
+    return records
+
+
+def run_factory(torch, scans, gt, dev, card):
+    """Phase 10a: `select_registration_method`'s four methods on phase 10's
+    pair at full width (tests/test_registrations.py's case at KITTI
+    density), each against its plain path on the card, and warm-timed."""
+    from lv_slam_tpu_torch.kernels import KERNELS, reset_launches
+    from lv_slam_tpu_torch.ops.registrations import RegistrationParams, select_registration_method
+
+    target, source, rel, guess = registration_pair(torch, scans, gt, dev)
+    summary, launches = {}, {}
+    for method, search, bound_m in FACTORY:
+        reg = select_registration_method(
+            RegistrationParams(registration_method=method, max_iterations=40, ndt_nn_search_method=search))
+        reset_launches()
+        res = reg(target, source, guess)
+        torch.cuda.synchronize()
+        counts = {name: k.launches for name, k in KERNELS.items() if k.launches}
+        launches[method] = counts
+        got = res.transform.cpu().numpy().astype(np.float64)
+        t_err = float(np.linalg.norm(got[:3, 3] - rel[:3, 3]))
+        fitness = float(res.fitness)
+        walls = []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            reg(target, source, guess)
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t0)
+        with plain_twins():
+            twin = reg(target, source, guess).transform.cpu().numpy().astype(np.float64)
+        dev_twin = float(np.abs(got - twin).max())
+        log(f"  {method} ({search}): translation error {t_err:.4f} m (gate {bound_m}), fitness {fitness:.5f} (gate "
+            f"0.5); vs the plain path on the card {dev_twin:.3g} (tol {FACTORY_TOL[method]:g}); warm "
+            f"{np.median(walls) * 1e3:.2f} ms per align ({card}); launches {counts}")
+        if not (t_err < bound_m and fitness < 0.5):
+            raise AssertionError(f"{method} misses tests/test_registrations.py's gates at KITTI density")
+        if dev_twin > FACTORY_TOL[method]:
+            raise AssertionError(f"{method}: the card's transform departs from the plain path's")
+        summary[method] = dict(t_err_m=t_err, fitness=fitness, ms_per_align=float(np.median(walls)) * 1e3,
+                               vs_plain=dev_twin)
+    if launches["ICP"].get("nn_points", 0) != 41:
+        raise AssertionError(f"ICP must launch K17 41 times (40 iterations and the fitness): {launches['ICP']}")
+    if launches["GICP"].get("gicp_align", 0) != 20 or launches["GICP"].get("_plane_covariances", 0) != 21:
+        raise AssertionError(f"GICP must launch K19b 20 and K19a 21 times: {launches['GICP']}")
+    return summary, dict(nn_points=launches["ICP"]["nn_points"],
+                         _plane_covariances=launches["GICP"]["_plane_covariances"],
+                         gicp_align=launches["GICP"]["gicp_align"])
+
+
+def run_ground_ndt(torch, scans, gt, dev, card):
+    """Phase 10b: `ndt_ground_align` of scan 41 onto scan 40's 10 m map from
+    a 0.5 m z error (tests/test_registrations.py's ground case)."""
+    from lv_slam_tpu_torch.kernels import KERNELS, reset_launches
+    from lv_slam_tpu_torch.ops import ndt_ground, voxel_map
+
+    target, source, _, _ = registration_pair(torch, scans, gt, dev)
+    guess = torch.eye(4, dtype=torch.float32, device=dev)
+    guess[2, 3] = 0.5
+    reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    vm = voxel_map.build_voxel_map(target, 10.0, leaf_cap=4096, lut_extent=64)
+    res = ndt_ground.ndt_ground_align(vm, voxel_map.build_lut(vm), source, guess, resolution=10.0,
+                                      max_iterations=16)
+    got = res.transform.cpu().numpy()
+    elapsed = time.perf_counter() - t0
+    launches = {name: k.launches for name, k in KERNELS.items() if k.launches}
+    log(f"  ground NDT: t = {got[:3, 3].round(5).tolist()} (gates |x|, |y| < 5e-3, |z| < 0.4), {res.iterations} Newton "
+        f"iterations, {elapsed * 1e3:.1f} ms map build and align included ({card}); launches {launches}")
+    if not (abs(got[0, 3]) < 5e-3 and abs(got[1, 3]) < 5e-3 and abs(got[2, 3]) < 0.4):
+        raise AssertionError("the ground NDT misses tests/test_registrations.py's gates")
+    if not (launches.get("filter_ground_leaves") and launches.get("ndt_derivatives")):
+        raise AssertionError("the ground NDT must launch K20 and K6G")
+    with plain_twins():
+        twin = ndt_ground.ndt_ground_align(vm, voxel_map.build_lut(vm), source, guess, resolution=10.0,
+                                           max_iterations=16).transform.cpu().numpy()
+    first_poses_vs_cpu(got[None].astype(np.float64), twin[None].astype(np.float64), "ground-NDT transform",
+                       "on the card")
+    return dict(t=got[:3, 3].tolist(), iterations=res.iterations, ms=elapsed * 1e3), launches["filter_ground_leaves"]
+
+
+def run_dlo_branches(torch, scans, gt, dev, card):
+    """Phase 10c: the host DLO (flagship config) over the whole circle with
+    the prefilter's last branches: STATISTICAL with the angle calibration,
+    then RADIUS."""
+    import dataclasses
+
+    from lv_slam_tpu_torch import kitti_flagship_config
+    from lv_slam_tpu_torch.core.cloud import PointCloud
+    from lv_slam_tpu_torch.kernels import KERNELS, reset_launches
+    from lv_slam_tpu_torch.odometry.dlo import DirectLidarOdometry, run_sequence
+    from lv_slam_tpu_torch.ops.prefilter import prefilter
+
+    cfg = kitti_flagship_config()
+    n = len(scans)
+    summary, launches = {}, {}
+    for name, branches, kernels in (
+        ("statistical", dict(outlier_removal_method="STATISTICAL", use_angle_calibration=True),
+         ("statistical_outlier_removal", "vertical_angle_calibration")),
+        ("radius", dict(outlier_removal_method="RADIUS"), ("radius_outlier_removal",)),
+    ):
+        pf = dataclasses.replace(cfg.prefilter, **branches)
+
+        def cloud(i, device=dev):
+            return PointCloud.from_numpy(scans[i], cap=pf.raw_cap, device=device)
+
+        reset_launches()
+        odo = DirectLidarOdometry(cfg.odometry, pf, device=dev)
+        for i in range(WARM_SCANS):
+            odo.process(cloud(i), i * 0.1)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for i in range(WARM_SCANS, n):
+            odo.process(cloud(i), i * 0.1)
+        torch.cuda.synchronize()
+        elapsed = time.perf_counter() - t0
+        counts = {k: KERNELS[k].launches for k in kernels}
+        log(f"  {name}: launches {counts} on {n} scans (one per scan)")
+        if any(c != n for c in counts.values()):
+            raise AssertionError(f"{name}: each branch kernel must launch once per scan")
+        launches.update(counts)
+        est = np.stack(odo.poses)
+        t_err, drift = accuracy(est, gt, f"host DLO poses with {name}, {n} scans", n)
+        with plain_twins():
+            twin = DirectLidarOdometry(cfg.odometry, pf, device=dev)
+            for i in range(4):
+                twin.process(cloud(i), i * 0.1)
+        first_poses_vs_cpu(est, np.stack(twin.poses), f"host DLO poses with {name}", "on the card")
+        ref, _ = run_sequence(scans[:4], cfg=cfg.odometry, prefilter_cfg=pf, cap=pf.raw_cap, device="cpu")
+        first_poses_vs_cpu(est, ref, f"host DLO poses with {name}", tol=CPU_SPREAD_M)
+        none = dataclasses.replace(pf, outlier_removal_method="NONE")
+        dropped = np.array([int(prefilter(c, none).mask.sum()) - int(prefilter(c, pf).mask.sum())
+                            for c in (cloud(i) for i in range(n))])
+        log(f"  {name}: keyframes {odo.stats.keyframe_count}, retries {odo.stats.retries}; lanes the removal dropped "
+            f"per scan: mean {dropped.mean():.1f}, min {dropped.min()}, max {dropped.max()}; timed "
+            f"{n - WARM_SCANS} scans in {elapsed:.3f} s = {(n - WARM_SCANS) / elapsed:.2f} scans/s ({card})")
+        summary[name] = dict(scans_per_s=(n - WARM_SCANS) / elapsed, devkit_t_err=t_err, drift_m=drift,
+                             keyframes=odo.stats.keyframe_count, dropped_per_scan=float(dropped.mean()))
+    return summary, launches
+
+
+def loop_ms(torch, fn, reps: int = 5):
+    """(device ms, wall ms) per call of a host loop `fn` (one that reads the
+    host inside its loop): the device work summed over a torch.profiler
+    trace of `reps` calls, and the median host-clock wall of as many
+    unprofiled calls, each ending in a synchronize."""
+    from torch.profiler import ProfilerActivity, profile as torch_profile
+
+    fn()
+    torch.cuda.synchronize()
+    walls = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t0) * 1e3)
+    with torch_profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    busy = sum(e.time_range.elapsed_us() for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA)
+    if busy <= 0:
+        raise AssertionError("the profiler saw no device time")
+    return busy / 1e3 / reps, float(np.median(walls))
+
+
+# ----------------------------------------------------------------- main
+
+
 def main() -> int:
     import torch
 
@@ -2668,6 +3114,8 @@ def main() -> int:
     import lv_slam_tpu_torch.pipeline.async_backend  # noqa: F401  (registers every kernel)
     import lv_slam_tpu_torch.pipeline.fused_chain  # noqa: F401
     import lv_slam_tpu_torch.pipeline.slam  # noqa: F401  (floor detection)
+    import lv_slam_tpu_torch.ops.ndt_ground  # noqa: F401  (K20)
+    import lv_slam_tpu_torch.ops.registrations  # noqa: F401  (K17's ICP, K19a, K19b)
 
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -2707,6 +3155,8 @@ def main() -> int:
     graph_records = check_graph_input_kernels(torch, scans_all, gt_all, dev)
     records["_chi2_and_normal"]["with_sensor_factors"] = graph_records.pop("_chi2_and_normal_sensors")
     records.update(graph_records)
+    log("phase 2h: the registrations' and the prefilter branches' kernels (K17-K20, K0a)")
+    records.update(check_registration_kernels(torch, scans_all, gt_all, dev))
 
     log("phase 3: the odometry slice end to end")
     summary, odometry_poses, odometry_syncs = run_slice(torch, scans, gt, dev, card)
@@ -2773,6 +3223,21 @@ def main() -> int:
     log(f"  summary ({card}): {json.dumps(summary)}")
     launches.update(window_group_fn=raw_launches["window_group_fn"], detect_floor=floor_launches["detect_floor"])
     launch_phase.update(window_group_fn="9a", detect_floor="9b")
+
+    log("phase 10a: the registration factory (NDT_OMP, NDT_PCA, ICP, GICP) on scans 40 -> 41 at full width")
+    summary, factory_launches = run_factory(torch, scans_all, gt_all, dev, card)
+    log(f"  summary ({card}): {json.dumps(summary)}")
+    log("phase 10b: the ground-constrained NDT")
+    summary, ground_launches = run_ground_ndt(torch, scans_all, gt_all, dev, card)
+    log(f"  summary ({card}): {json.dumps(summary)}")
+    log("phase 10c: the host DLO with the prefilter's last branches (STATISTICAL + calibration, RADIUS)")
+    summary, branch_launches = run_dlo_branches(torch, scans_all, gt_all, dev, card)
+    log(f"  summary ({card}): {json.dumps(summary)}")
+    launches.update(factory_launches, filter_ground_leaves=ground_launches, **branch_launches)
+    launch_phase.update(dict.fromkeys(factory_launches, "10a"), filter_ground_leaves="10b",
+                        **dict.fromkeys(branch_launches, "10c"))
+    host_loops = {key: records.pop(key) for key in ("_newton_loop", "_lm_loop", "_uniform_subsample")}
+    log(f"  host loops ({card}): {json.dumps(host_loops)}")
 
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     kernels = [

@@ -25,12 +25,12 @@ class PrefilterConfig:
     distance_far_thresh: float = 100.0
     downsample_method: str = "VOXELGRID"  # NONE | VOXELGRID | APPROX_VOXELGRID | DEDUP
     downsample_resolution: float = 0.1
-    outlier_removal_method: str = "NONE"  # NONE | RADIUS | STATISTICAL (the latter two: ROADMAP item 6)
+    outlier_removal_method: str = "NONE"  # NONE | RADIUS | STATISTICAL
     statistical_mean_k: int = 30
     statistical_stddev: float = 1.2
     radius_radius: float = 0.5
     radius_min_neighbors: int = 5
-    use_angle_calibration: bool = False  # ROADMAP item 6
+    use_angle_calibration: bool = False
     angle_base: float = 0.11  # degrees, vertical-angle calibration rotation
     voxel_reduce: str = "scatter"  # scatter | scan: two TPU forms of one centroid, kernel 1 serves both
     raw_cap: int = 131072  # raw points per scan (KITTI HDL-64 ~130k)

@@ -1,9 +1,12 @@
 // Kernel 14: the 0.25 m centroid grid of the fitness score, and its
-// nearest-centroid queries.
+// nearest-centroid queries; kernels 17 and 18, the other queries of the grid.
 //
 // Replaces: lv_slam_tpu/ops/nn.py:42 `build_centroid_grid` and :86
 // `nn_sq_dists` (with the masked mean of :129 `fitness_score` and of the
-// loop verification's `fit_one`, lv_slam_tpu/graph/loop_detector.py:109).
+// loop verification's `fit_one`, lv_slam_tpu/graph/loop_detector.py:109);
+// K17: :107 `nn_points` with the fixed-trip body of lv_slam_tpu/ops/icp.py:29
+// `icp_align`; K18: :151 `radius_outlier_removal` and :174
+// `statistical_outlier_removal`.
 //
 // What bounds it on the card: the build reads one sorted run of 131072
 // points and writes 65536 leaves, a few MB: memory latency. The query does
@@ -24,6 +27,31 @@
 // centroid (+inf on a miss), and reduces (sum of finite d2 within range,
 // their count) per block; `grid_finish` adds a candidate's block partials
 // in a fixed order and writes its mean, +inf when nothing was in range.
+//
+// K17 and K18 reuse that probe (`probe_cell`: the same cells, the same binary
+// search, so the hit sets are identical). `nn_probe` keeps the argmin
+// centroid (the first in `_OFF27` order, as `jnp.argmin`; leaf 0's centroid
+// on a miss, as the reference's `where(hit, idx, 0)` gather), its squared
+// distance the fma chain XLA makes of `jnp.sum(d ** 2, -1)` on the CPU.
+// One ICP iteration is `icp_match` (move each source point by the transform
+// as XLA's fma chain, `nn_probe`, the weight w = valid & d2 < max_d2, block
+// partials of w, w y, w nn and w d2), `icp_means` (the partials in a fixed
+// order: count, the two means, the fitness), `icp_cov` (block partials of
+// the centred cross-covariance (y - mu_y) w (nn - mu_n)^T: the second pass
+// keeps the digits a one-pass uncentred float32 sum loses at tens of metres)
+// and `icp_update`: one thread takes the Kabsch rotation from the 3x3 SVD in
+// float64 (Jacobi eigenvectors V of C^T C, U's first two columns C v / |C v|,
+// the third their cross product, R = V diag(1, 1, det V) U^T, which is the
+// reference's V diag(1, 1, sign det(V U^T)) U^T whatever the sign of U's
+// third column) and composes the update on the device: no host read in the
+// loop. `outlier_radius` sums the counts of the hit cells and keeps
+// count - 1 >= min_neighbors; `stat_dist` turns the same sum into the
+// isolation distance cbrt(k (1.5 m)^3 / max(density, 1)) (the root in
+// float64, rounded), and `stat_mean` / `stat_var` / `stat_keep` threshold it
+// at mean + m std over the masked lanes, each sum a float64 one (block
+// partials added in a fixed order) rounded to float32 once, so that the
+// plain twin's float64 sums give the same threshold. Only masked-in lanes
+// are probed; dropped lanes take the sentinel; nothing is compacted.
 #include "common.cuh"
 
 namespace {
@@ -80,9 +108,23 @@ __device__ __forceinline__ int lower_bound(const int* __restrict__ keys, int m, 
   return lo;
 }
 
-__device__ __forceinline__ float warp_sum(float v) {
-  for (int off = 16; off > 0; off >>= 1) v += __shfl_down_sync(0xffffffffu, v, off);
-  return v;
+using lvs::warp_sum;
+
+// Index of the leaf holding the cell (r0, r1, r2) relative to the grid's
+// origin, -1 when the cell is out of the extent or empty: the reference's
+// `searchsorted` over the sorted keys, clamped to the last leaf.
+__device__ __forceinline__ int probe_cell(const int* __restrict__ keys, int leaf_cap, int e, int r0, int r1,
+                                          int r2) {
+  if (r0 < 0 || r0 >= e || r1 < 0 || r1 >= e || r2 < 0 || r2 >= e) return -1;
+  int q = (r0 * e + r1) * e + r2;
+  int idx = lower_bound(keys, leaf_cap, q);
+  if (idx >= leaf_cap) idx = leaf_cap - 1;
+  return __ldg(keys + idx) == q ? idx : -1;
+}
+
+__device__ __forceinline__ void cell_of(const float* y, float inv_res, const int* __restrict__ origin, int cell[3]) {
+#pragma unroll
+  for (int r = 0; r < 3; ++r) cell[r] = static_cast<int>(floorf(y[r] * inv_res)) - origin[r];
 }
 
 // grid (n_blocks, k): block b of candidate c covers its points b*256 ..
@@ -109,15 +151,10 @@ grid_query(const int* __restrict__ keys, const float* __restrict__ centroids, in
       }
     }
     int cell[3];
-#pragma unroll
-    for (int r = 0; r < 3; ++r) cell[r] = static_cast<int>(floorf(y[r] * inv_res)) - origin[r];
+    cell_of(y, inv_res, origin, cell);
     for (int o = 0; o < 27; ++o) {
-      int r0 = cell[0] + o / 9 - 1, r1 = cell[1] + (o / 3) % 3 - 1, r2 = cell[2] + o % 3 - 1;
-      if (r0 < 0 || r0 >= e || r1 < 0 || r1 >= e || r2 < 0 || r2 >= e) continue;
-      int q = (r0 * e + r1) * e + r2;
-      int idx = lower_bound(keys, leaf_cap, q);
-      if (idx >= leaf_cap) idx = leaf_cap - 1;
-      if (__ldg(keys + idx) != q) continue;
+      int idx = probe_cell(keys, leaf_cap, e, cell[0] + o / 9 - 1, cell[1] + (o / 3) % 3 - 1, cell[2] + o % 3 - 1);
+      if (idx < 0) continue;
       float dx = y[0] - centroids[3 * idx + 0];
       float dy = y[1] - centroids[3 * idx + 1];
       float dz = y[2] - centroids[3 * idx + 2];
@@ -154,6 +191,300 @@ __global__ void grid_finish(const float* __restrict__ partials, int n_blocks, in
   out[c] = cnt > 0.0f ? total / cnt : INFINITY;
 }
 
+// The nearest hit centroid of y among the 27 cells: its squared distance
+// (+inf on a miss) and its leaf (0 on a miss, the reference's gather).
+__device__ __forceinline__ float nn_probe(const int* __restrict__ keys, const float* __restrict__ centroids,
+                                          int leaf_cap, const int* __restrict__ origin, float inv_res, int e,
+                                          const float* y, int* leaf) {
+  int cell[3];
+  cell_of(y, inv_res, origin, cell);
+  float best = INFINITY;
+  int best_idx = 0;
+  for (int o = 0; o < 27; ++o) {
+    int idx = probe_cell(keys, leaf_cap, e, cell[0] + o / 9 - 1, cell[1] + (o / 3) % 3 - 1, cell[2] + o % 3 - 1);
+    if (idx < 0) continue;
+    float dx = y[0] - centroids[3 * idx + 0];
+    float dy = y[1] - centroids[3 * idx + 1];
+    float dz = y[2] - centroids[3 * idx + 2];
+    float d2 = lvs::dot3_fma(dx, dy, dz, dx, dy, dz);
+    if (d2 < best) {
+      best = d2;
+      best_idx = idx;
+    }
+  }
+  *leaf = best_idx;
+  return best;
+}
+
+__global__ void __launch_bounds__(lvs::kThreads)
+nn_points_kernel(const int* __restrict__ keys, const float* __restrict__ centroids, int leaf_cap,
+                 const int* __restrict__ origin, float inv_res, int e, const float* __restrict__ pts,
+                 const bool* __restrict__ mask, int n, float* __restrict__ d2_out, float* __restrict__ nn_out,
+                 bool* __restrict__ valid_out) {
+  int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= n) return;
+  float y[3] = {pts[3 * i + 0], pts[3 * i + 1], pts[3 * i + 2]};
+  int leaf;
+  float d2 = nn_probe(keys, centroids, leaf_cap, origin, inv_res, e, y, &leaf);
+  bool valid = mask[i] && isfinite(d2);
+  d2_out[i] = valid ? d2 : INFINITY;
+  valid_out[i] = valid;
+  for (int r = 0; r < 3; ++r) nn_out[3 * i + r] = centroids[3 * leaf + r];
+}
+
+// ICP pass 1: y = T src (XLA's fma chain), the match, and block partials of
+// (w, w y, w nn, w d2); y, nn and w are kept for pass 2
+__global__ void __launch_bounds__(lvs::kThreads)
+icp_match(const int* __restrict__ keys, const float* __restrict__ centroids, int leaf_cap,
+          const int* __restrict__ origin, float inv_res, int e, const float* __restrict__ src,
+          const bool* __restrict__ mask, int n, const float* __restrict__ T, float max_d2, float* __restrict__ y_out,
+          float* __restrict__ nn_out, float* __restrict__ w_out, float* __restrict__ partials) {
+  int i = blockIdx.x * blockDim.x + threadIdx.x;
+  float v[8] = {0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f};
+  if (i < n) {
+    float p[3] = {src[3 * i + 0], src[3 * i + 1], src[3 * i + 2]};
+    float y[3];
+#pragma unroll
+    for (int r = 0; r < 3; ++r)
+      y[r] = lvs::fma64(p[2], T[4 * r + 2], lvs::fma64(p[1], T[4 * r + 1], p[0] * T[4 * r + 0])) + T[4 * r + 3];
+    int leaf;
+    float d2 = nn_probe(keys, centroids, leaf_cap, origin, inv_res, e, y, &leaf);
+    float nn[3] = {centroids[3 * leaf + 0], centroids[3 * leaf + 1], centroids[3 * leaf + 2]};
+    bool w = mask[i] && isfinite(d2) && d2 < max_d2;
+    for (int r = 0; r < 3; ++r) {
+      y_out[3 * i + r] = y[r];
+      nn_out[3 * i + r] = nn[r];
+    }
+    w_out[i] = w ? 1.0f : 0.0f;
+    if (w) {
+      v[0] = 1.0f;
+      for (int r = 0; r < 3; ++r) {
+        v[1 + r] = y[r];
+        v[4 + r] = nn[r];
+      }
+      v[7] = d2;
+    }
+  }
+  lvs::block_sums<8>(v, partials + 8 * static_cast<long long>(blockIdx.x));
+}
+
+// stats = [count, mu_y (3), mu_n (3), fitness]: the reference's
+// max(sum w, 1) divisions
+__global__ void icp_means(const float* __restrict__ partials, int n_blocks, float* __restrict__ stats) {
+  __shared__ float s[8];
+  if (threadIdx.x < 8) s[threadIdx.x] = lvs::column_sum(partials, n_blocks, 8, threadIdx.x);
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    float wsum = fmaxf(s[0], 1.0f);
+    stats[0] = s[0];
+    for (int r = 1; r < 7; ++r) stats[r] = s[r] / wsum;
+    stats[7] = s[7] / wsum;
+  }
+}
+
+// ICP pass 2: block partials of (y - mu_y) w (nn - mu_n)^T, row-major
+__global__ void __launch_bounds__(lvs::kThreads)
+icp_cov(const float* __restrict__ y, const float* __restrict__ nn, const float* __restrict__ w, int n,
+        const float* __restrict__ stats, float* __restrict__ partials) {
+  int i = blockIdx.x * blockDim.x + threadIdx.x;
+  float v[9] = {0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f};
+  if (i < n && w[i] != 0.0f) {
+    for (int a = 0; a < 3; ++a) {
+      float yc = (y[3 * i + a] - stats[1 + a]) * w[i];
+      for (int b = 0; b < 3; ++b) v[3 * a + b] = yc * (nn[3 * i + b] - stats[4 + b]);
+    }
+  }
+  lvs::block_sums<9>(v, partials + 9 * static_cast<long long>(blockIdx.x));
+}
+
+// Eigenvectors (columns of v) and eigenvalues of a symmetric 3x3 by cyclic Jacobi.
+__device__ void jacobi3(double a[3][3], double v[3][3]) {
+  for (int r = 0; r < 3; ++r)
+    for (int c = 0; c < 3; ++c) v[r][c] = r == c ? 1.0 : 0.0;
+  for (int sweep = 0; sweep < 32; ++sweep) {
+    double off = a[0][1] * a[0][1] + a[0][2] * a[0][2] + a[1][2] * a[1][2];
+    double diag = a[0][0] * a[0][0] + a[1][1] * a[1][1] + a[2][2] * a[2][2];
+    if (off <= 1e-30 * diag || off == 0.0) break;
+    for (int p = 0; p < 2; ++p) {
+      for (int q = p + 1; q < 3; ++q) {
+        if (a[p][q] == 0.0) continue;
+        double theta = (a[q][q] - a[p][p]) / (2.0 * a[p][q]);
+        double t = (theta >= 0.0 ? 1.0 : -1.0) / (fabs(theta) + sqrt(theta * theta + 1.0));
+        double c = 1.0 / sqrt(t * t + 1.0), s = t * c;
+        for (int k = 0; k < 3; ++k) {  // A <- A J (columns p, q)
+          double akp = a[k][p], akq = a[k][q];
+          a[k][p] = c * akp - s * akq;
+          a[k][q] = s * akp + c * akq;
+        }
+        for (int k = 0; k < 3; ++k) {  // A <- J^T A (rows p, q)
+          double apk = a[p][k], aqk = a[q][k];
+          a[p][k] = c * apk - s * aqk;
+          a[q][k] = s * apk + c * aqk;
+        }
+        for (int k = 0; k < 3; ++k) {
+          double vkp = v[k][p], vkq = v[k][q];
+          v[k][p] = c * vkp - s * vkq;
+          v[k][q] = s * vkp + c * vkq;
+        }
+      }
+    }
+  }
+}
+
+// The Kabsch step: cov from its partials, R from its SVD (float64), t =
+// mu_n - R mu_y, and T_out = [R t] T (float32, as the reference composes)
+__global__ void icp_update(const float* __restrict__ partials, int n_blocks, const float* __restrict__ stats,
+                           const float* __restrict__ T, float* __restrict__ T_out) {
+  __shared__ float cov[9];
+  if (threadIdx.x < 9) cov[threadIdx.x] = lvs::column_sum(partials, n_blocks, 9, threadIdx.x);
+  __syncthreads();
+  if (threadIdx.x != 0) return;
+  double c[3][3], ctc[3][3], v[3][3];
+  for (int r = 0; r < 3; ++r)
+    for (int k = 0; k < 3; ++k) c[r][k] = cov[3 * r + k];
+  for (int r = 0; r < 3; ++r)
+    for (int k = 0; k < 3; ++k) ctc[r][k] = c[0][r] * c[0][k] + c[1][r] * c[1][k] + c[2][r] * c[2][k];
+  jacobi3(ctc, v);
+  int order[3] = {0, 1, 2};  // eigenvalues descending: the singular values' order
+  for (int a = 0; a < 3; ++a)
+    for (int b = a + 1; b < 3; ++b)
+      if (ctc[order[b]][order[b]] > ctc[order[a]][order[a]]) {
+        int tmp = order[a];
+        order[a] = order[b];
+        order[b] = tmp;
+      }
+  double vs[3][3], u[3][3];
+  for (int k = 0; k < 3; ++k)
+    for (int r = 0; r < 3; ++r) vs[r][k] = v[r][order[k]];
+  for (int k = 0; k < 2; ++k) {  // u_k = C v_k, orthonormalized; v_k where C v_k vanishes
+    for (int pass = 0; pass < 2; ++pass) {
+      for (int r = 0; r < 3; ++r)
+        u[r][k] = pass == 0 ? c[r][0] * vs[0][k] + c[r][1] * vs[1][k] + c[r][2] * vs[2][k] : vs[r][k];
+      if (k == 1) {
+        double d = u[0][0] * u[0][1] + u[1][0] * u[1][1] + u[2][0] * u[2][1];
+        for (int r = 0; r < 3; ++r) u[r][1] -= d * u[r][0];
+      }
+      double nrm = sqrt(u[0][k] * u[0][k] + u[1][k] * u[1][k] + u[2][k] * u[2][k]);
+      if (nrm > 1e-150) {
+        for (int r = 0; r < 3; ++r) u[r][k] /= nrm;
+        break;
+      }
+    }
+  }
+  u[0][2] = u[1][0] * u[2][1] - u[2][0] * u[1][1];
+  u[1][2] = u[2][0] * u[0][1] - u[0][0] * u[2][1];
+  u[2][2] = u[0][0] * u[1][1] - u[1][0] * u[0][1];
+  double det_v = vs[0][0] * (vs[1][1] * vs[2][2] - vs[1][2] * vs[2][1]) -
+                 vs[0][1] * (vs[1][0] * vs[2][2] - vs[1][2] * vs[2][0]) +
+                 vs[0][2] * (vs[1][0] * vs[2][1] - vs[1][1] * vs[2][0]);
+  double sv[3] = {1.0, 1.0, det_v < 0.0 ? -1.0 : 1.0};
+  float R[3][3], t[3];
+  for (int r = 0; r < 3; ++r)
+    for (int k = 0; k < 3; ++k)
+      R[r][k] = static_cast<float>(vs[r][0] * u[k][0] * sv[0] + vs[r][1] * u[k][1] * sv[1] +
+                                   vs[r][2] * u[k][2] * sv[2]);
+  for (int r = 0; r < 3; ++r)
+    t[r] = stats[4 + r] - ((R[r][0] * stats[1] + R[r][1] * stats[2]) + R[r][2] * stats[3]);
+  for (int r = 0; r < 3; ++r)
+    for (int k = 0; k < 4; ++k)
+      T_out[4 * r + k] = ((R[r][0] * T[k] + R[r][1] * T[4 + k]) + R[r][2] * T[8 + k]) + (k == 3 ? t[r] : 0.0f);
+  for (int k = 0; k < 4; ++k) T_out[12 + k] = T[12 + k];
+}
+
+// Sum of the counts of the hit cells around each lane's cell (0 for
+// masked lanes, whose sentinel cells are out of the extent)
+__device__ __forceinline__ float neighbour_count(const int* __restrict__ keys, const float* __restrict__ counts,
+                                                 int leaf_cap, const int* __restrict__ origin, float inv_res, int e,
+                                                 const float* y) {
+  int cell[3];
+  cell_of(y, inv_res, origin, cell);
+  float sum = 0.0f;
+  for (int o = 0; o < 27; ++o) {
+    int idx = probe_cell(keys, leaf_cap, e, cell[0] + o / 9 - 1, cell[1] + (o / 3) % 3 - 1, cell[2] + o % 3 - 1);
+    if (idx >= 0) sum += counts[idx];
+  }
+  return sum;
+}
+
+__device__ __forceinline__ void write_kept(const float* __restrict__ xyz, int i, bool keep, float* __restrict__ out_xyz,
+                                           bool* __restrict__ out_mask) {
+  for (int r = 0; r < 3; ++r) out_xyz[3 * i + r] = keep ? xyz[3 * i + r] : lvs::kSentinel;
+  out_mask[i] = keep;
+}
+
+__global__ void __launch_bounds__(lvs::kThreads)
+outlier_radius(const int* __restrict__ keys, const float* __restrict__ counts, int leaf_cap,
+               const int* __restrict__ origin, float inv_res, int e, const float* __restrict__ xyz,
+               const bool* __restrict__ mask, int n, float min_neighbors, float* __restrict__ out_xyz,
+               bool* __restrict__ out_mask) {
+  int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= n) return;
+  bool keep = mask[i];  // a masked-out lane is dropped without its probe
+  if (keep) {
+    const float y[3] = {xyz[3 * i + 0], xyz[3 * i + 1], xyz[3 * i + 2]};
+    keep = neighbour_count(keys, counts, leaf_cap, origin, inv_res, e, y) - 1.0f >= min_neighbors;
+  }
+  write_kept(xyz, i, keep, out_xyz, out_mask);
+}
+
+__global__ void __launch_bounds__(lvs::kThreads)
+stat_dist(const int* __restrict__ keys, const float* __restrict__ counts, int leaf_cap,
+          const int* __restrict__ origin, float inv_res, int e, const float* __restrict__ xyz,
+          const bool* __restrict__ mask, int n, float k_vol, float* __restrict__ dist, double* __restrict__ partials) {
+  int i = blockIdx.x * blockDim.x + threadIdx.x;
+  double v[2] = {0.0, 0.0};
+  if (i < n && mask[i]) {  // stat_var and stat_keep read dist only where masked in
+    const float y[3] = {xyz[3 * i + 0], xyz[3 * i + 1], xyz[3 * i + 2]};
+    float density = neighbour_count(keys, counts, leaf_cap, origin, inv_res, e, y);
+    float d = __double2float_rn(pow(static_cast<double>(k_vol / fmaxf(density, 1.0f)), 1.0 / 3.0));
+    dist[i] = d;
+    v[0] = d;
+    v[1] = 1.0;
+  }
+  lvs::block_sums<2>(v, partials + 2 * static_cast<long long>(blockIdx.x));
+}
+
+// stats = [mean, n]; the sums are float64, rounded to float32 once
+__global__ void stat_mean(const double* __restrict__ partials, int n_blocks, float* __restrict__ stats) {
+  __shared__ double s[2];
+  if (threadIdx.x < 2) s[threadIdx.x] = lvs::column_sum(partials, n_blocks, 2, threadIdx.x);
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    float cnt = fmaxf(__double2float_rn(s[1]), 1.0f);
+    stats[0] = __double2float_rn(s[0]) / cnt;
+    stats[1] = cnt;
+  }
+}
+
+__global__ void __launch_bounds__(lvs::kThreads)
+stat_var(const float* __restrict__ dist, const bool* __restrict__ mask, int n, const float* __restrict__ stats,
+         double* __restrict__ partials) {
+  int i = blockIdx.x * blockDim.x + threadIdx.x;
+  double v[1] = {0.0};
+  if (i < n && mask[i]) {
+    float d = dist[i] - stats[0];
+    v[0] = d * d;
+  }
+  lvs::block_sums<1>(v, partials + static_cast<long long>(blockIdx.x));
+}
+
+// stats[2] = mean + stddev_mult * sqrt(var)
+__global__ void stat_thresh(const double* __restrict__ partials, int n_blocks, float stddev_mult,
+                            float* __restrict__ stats) {
+  if (threadIdx.x == 0) {
+    float var = __double2float_rn(lvs::column_sum(partials, n_blocks, 1, 0)) / stats[1];
+    stats[2] = stats[0] + stddev_mult * sqrtf(var);
+  }
+}
+
+__global__ void __launch_bounds__(lvs::kThreads)
+stat_keep(const float* __restrict__ xyz, const bool* __restrict__ mask, const float* __restrict__ dist, int n,
+          const float* __restrict__ stats, float* __restrict__ out_xyz, bool* __restrict__ out_mask) {
+  int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= n) return;
+  write_kept(xyz, i, mask[i] && dist[i] <= stats[2], out_xyz, out_mask);
+}
+
 }  // namespace
 
 extern "C" int lvs_grid_mark(const int* skey, int n, int* flag, cudaStream_t stream) {
@@ -181,5 +512,59 @@ extern "C" int lvs_grid_query(const int* keys, const float* centroids, int leaf_
         partials);
     grid_finish<<<lvs::blocks_for(k), lvs::kThreads, 0, stream>>>(partials, n_blocks, k, out);
   }
+  LVS_RETURN_LAST_ERROR();
+}
+
+extern "C" int lvs_nn_points(const int* keys, const float* centroids, int leaf_cap, const int* origin, float inv_res,
+                             int e, const float* pts, const bool* mask, int n, float* d2, float* nn, bool* valid,
+                             cudaStream_t stream) {
+  if (n > 0)
+    nn_points_kernel<<<lvs::blocks_for(n), lvs::kThreads, 0, stream>>>(keys, centroids, leaf_cap, origin, inv_res, e,
+                                                                       pts, mask, n, d2, nn, valid);
+  LVS_RETURN_LAST_ERROR();
+}
+
+// One ICP match: `stats` <- [count, mu_y, mu_n, fitness]; y, nn, w scratch (n)
+extern "C" int lvs_icp_match(const int* keys, const float* centroids, int leaf_cap, const int* origin,
+                             float inv_res, int e, const float* src, const bool* mask, int n, const float* T,
+                             float max_d2, float* y, float* nn, float* w, float* partials, int n_blocks,
+                             float* stats, cudaStream_t stream) {
+  if (n_blocks < 1) return static_cast<int>(cudaErrorInvalidValue);
+  icp_match<<<n_blocks, lvs::kThreads, 0, stream>>>(keys, centroids, leaf_cap, origin, inv_res, e, src, mask, n, T,
+                                                    max_d2, y, nn, w, partials);
+  icp_means<<<1, 32, 0, stream>>>(partials, n_blocks, stats);
+  LVS_RETURN_LAST_ERROR();
+}
+
+// The rest of the ICP iteration after `lvs_icp_match`: T_out = Kabsch update @ T
+extern "C" int lvs_icp_update(const float* y, const float* nn, const float* w, int n, const float* stats,
+                              float* partials, int n_blocks, const float* T, float* T_out, cudaStream_t stream) {
+  if (n_blocks < 1) return static_cast<int>(cudaErrorInvalidValue);
+  icp_cov<<<n_blocks, lvs::kThreads, 0, stream>>>(y, nn, w, n, stats, partials);
+  icp_update<<<1, 32, 0, stream>>>(partials, n_blocks, stats, T, T_out);
+  LVS_RETURN_LAST_ERROR();
+}
+
+extern "C" int lvs_outlier_radius(const int* keys, const float* counts, int leaf_cap, const int* origin,
+                                  float inv_res, int e, const float* xyz, const bool* mask, int n,
+                                  float min_neighbors, float* out_xyz, bool* out_mask, cudaStream_t stream) {
+  if (n > 0)
+    outlier_radius<<<lvs::blocks_for(n), lvs::kThreads, 0, stream>>>(keys, counts, leaf_cap, origin, inv_res, e, xyz,
+                                                                     mask, n, min_neighbors, out_xyz, out_mask);
+  LVS_RETURN_LAST_ERROR();
+}
+
+// dist (n) and the float64 partials (n_blocks * 2) are scratch; stats (3) = [mean, n, thresh]
+extern "C" int lvs_outlier_statistical(const int* keys, const float* counts, int leaf_cap, const int* origin,
+                                       float inv_res, int e, const float* xyz, const bool* mask, int n, float k_vol,
+                                       float stddev_mult, float* dist, double* partials, int n_blocks, float* stats,
+                                       float* out_xyz, bool* out_mask, cudaStream_t stream) {
+  if (n_blocks < 1) return static_cast<int>(cudaErrorInvalidValue);
+  stat_dist<<<n_blocks, lvs::kThreads, 0, stream>>>(keys, counts, leaf_cap, origin, inv_res, e, xyz, mask, n, k_vol,
+                                                    dist, partials);
+  stat_mean<<<1, 32, 0, stream>>>(partials, n_blocks, stats);
+  stat_var<<<n_blocks, lvs::kThreads, 0, stream>>>(dist, mask, n, stats, partials);
+  stat_thresh<<<1, 32, 0, stream>>>(partials, n_blocks, stddev_mult, stats);
+  stat_keep<<<n_blocks, lvs::kThreads, 0, stream>>>(xyz, mask, dist, n, stats, out_xyz, out_mask);
   LVS_RETURN_LAST_ERROR();
 }

@@ -93,16 +93,8 @@ __global__ void knn_grid_gather(const long long* __restrict__ order, const float
   out[3 * i + 2] = xyz[3 * src + 2];
 }
 
-// float32 fma(a, b, c) as the plain twin computes it: the float64 product is
-// exact, the sum rounds to float64, then to float32
-__device__ __forceinline__ float fma64(float a, float b, float c) {
-  return __double2float_rn(__dadd_rn(__dmul_rn(static_cast<double>(a), static_cast<double>(b)),
-                                     static_cast<double>(c)));
-}
-
-__device__ __forceinline__ float dot3(float a0, float a1, float a2, float b0, float b1, float b2) {
-  return fma64(a2, b2, fma64(a1, b1, __fmul_rn(a0, b0)));
-}
+using lvs::fma64;  // float32 fma as the plain twin computes it
+using lvs::dot3_fma;
 
 // first index of `keys` (ascending, length m) holding a value >= q
 __device__ __forceinline__ int lower_bound(const int* __restrict__ keys, int m, int q) {
@@ -141,7 +133,7 @@ __device__ void k_nearest(const int* __restrict__ keys, const float* __restrict_
         float dx = qx - __ldg(xyz + 3 * idx + 0);
         float dy = qy - __ldg(xyz + 3 * idx + 1);
         float dz = qz - __ldg(xyz + 3 * idx + 2);
-        d = dot3(dx, dy, dz, dx, dy, dz);
+        d = dot3_fma(dx, dy, dz, dx, dy, dz);
       }
       // behind every equal distance: the lower candidate index wins ties
       if (filled == k && !(d < d2[k - 1])) continue;
@@ -191,7 +183,7 @@ knn_lines(const int* __restrict__ keys, const float* __restrict__ xyz, int n, co
     ab[i] = __ldg(xyz + 3 * row[1] + i) - a[i];
   }
   float d0 = sqrtf(fmaxf(d2[0], 0.0f)), d1 = sqrtf(fmaxf(d2[1], 0.0f));
-  float norm = sqrtf(dot3(ab[0], ab[1], ab[2], ab[0], ab[1], ab[2]));
+  float norm = sqrtf(dot3_fma(ab[0], ab[1], ab[2], ab[0], ab[1], ab[2]));
   valid[t] = mask[t] && isfinite(d0) && isfinite(d1) && d0 * d0 < 25.0f && norm > 1e-3f;
   float den = fmaxf(norm, 1e-9f);
   for (int i = 0; i < 3; ++i) {
@@ -219,7 +211,7 @@ knn_planes(const int* __restrict__ keys, const float* __restrict__ xyz, int n, c
   // jnp.cross as XLA contracts it: fma(u1, w2, -(u2 * w1)), ...
   float nv[3] = {fma64(u[1], w[2], -__fmul_rn(u[2], w[1])), fma64(u[2], w[0], -__fmul_rn(u[0], w[2])),
                  fma64(u[0], w[1], -__fmul_rn(u[1], w[0]))};
-  float norm = sqrtf(dot3(nv[0], nv[1], nv[2], nv[0], nv[1], nv[2]));
+  float norm = sqrtf(dot3_fma(nv[0], nv[1], nv[2], nv[0], nv[1], nv[2]));
   bool all_valid = true;
   for (int j = 0; j < 3; ++j) all_valid = all_valid && isfinite(sqrtf(fmaxf(d2[j], 0.0f)));
   float d0 = sqrtf(fmaxf(d2[0], 0.0f));
@@ -227,7 +219,7 @@ knn_planes(const int* __restrict__ keys, const float* __restrict__ xyz, int n, c
   float den = fmaxf(norm, 1e-9f);
   float nh[3] = {nv[0] / den, nv[1] / den, nv[2] / den};
   for (int i = 0; i < 3; ++i) normal[3 * t + i] = nh[i];
-  offset[t] = -dot3(nh[0], nh[1], nh[2], a[0], a[1], a[2]);
+  offset[t] = -dot3_fma(nh[0], nh[1], nh[2], a[0], a[1], a[2]);
 }
 
 }  // namespace

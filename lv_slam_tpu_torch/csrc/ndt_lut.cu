@@ -38,12 +38,7 @@ namespace {
 
 constexpr int kTerms = lvs::kNdtTerms;
 
-// float32 fma(a, b, c) as the plain twin's `fma32` computes it: the float64
-// product is exact, the sum rounds to float64, then to float32
-__device__ __forceinline__ float fma64(float a, float b, float c) {
-  return static_cast<float>(__dadd_rn(__dmul_rn(static_cast<double>(a), static_cast<double>(b)),
-                                      static_cast<double>(c)));
-}
+using lvs::fma64;  // float32 fma as the plain twin's `fma32` computes it
 
 __global__ void __launch_bounds__(lvs::kThreads)
 ndt_lut_partials(const float* __restrict__ packed, const int* __restrict__ lut,

@@ -83,11 +83,6 @@ __device__ __forceinline__ void ndt_point_terms(const float y[3], float mu0, flo
   }
 }
 
-__device__ __forceinline__ float warp_sum(float v) {
-  for (int off = 16; off > 0; off >>= 1) v += __shfl_down_sync(0xffffffffu, v, off);
-  return v;
-}
-
 // Sums the block's acc rows (warp shuffles, then the warps in order) into its
 // partial row partials[0..42]. Every thread of the block must call it.
 __device__ __forceinline__ void block_partials(const float acc[kNdtTerms], float* __restrict__ partials) {

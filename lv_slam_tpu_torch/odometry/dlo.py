@@ -97,11 +97,13 @@ class DirectLidarOdometry:
         self._prefilter = _prefilter_cache(prefilter_cfg) if prefilter_cfg is not None else None
         sm = self.cfg.scan_matching_cap
         if prefilter_cfg is not None and sm and sm < prefilter_cfg.out_cap:
-            # `prefilter` front-compacts (it raises on the outlier removals,
-            # which would re-hole the mask), as `uniform_subsample` needs
             self._subsample = _subsample_cache(sm)
+            # `uniform_subsample` needs a front-compacted cloud; an outlier
+            # removal re-holes the mask after `prefilter`'s compaction
+            self._compact_before_subsample = prefilter_cfg.outlier_removal_method.upper() != "NONE"
         else:
             self._subsample = None
+            self._compact_before_subsample = False
         self.reset()
 
     def reset(self):
@@ -149,6 +151,8 @@ class DirectLidarOdometry:
             cloud = self._prefilter(cloud)
         self.filtered = cloud
         if self._subsample is not None:
+            if self._compact_before_subsample:
+                cloud = cloud.compact(cloud.cap)
             cloud = self._subsample(cloud)
 
         if self.stats.scan_count == 0:

@@ -54,7 +54,8 @@ import torch
 
 from lv_slam_tpu_torch.kernels._build import F32, I32, PTR, Kernel, check_cuda, check_dtype, ptr
 from lv_slam_tpu_torch.ops.linalg3 import _div, dot3_fma, sqrt32
-from lv_slam_tpu_torch.ops.prefilter import _pack_yz, _unpack_yz, cell_coords, inv_resolution
+from lv_slam_tpu_torch.ops.cells import cell_coords, inv_resolution
+from lv_slam_tpu_torch.ops.prefilter import _pack_yz, _unpack_yz
 
 _H1, _H2, _H3 = 73856093, 19349669, 83492791  # classic spatial-hash primes
 _U32 = 0xFFFFFFFF

@@ -27,7 +27,7 @@ from lv_slam_tpu_torch.ops.ndt import (
     BLOCK, N_TERMS, GaussParams, NDTResult, _newton_loop, _newton_loop_batched, make_gauss_params,
 )
 from lv_slam_tpu_torch.ops.ndt_soa import accumulate_ndt_terms
-from lv_slam_tpu_torch.ops.prefilter import cell_coords, inv_resolution
+from lv_slam_tpu_torch.ops.cells import cell_coords, inv_resolution
 from lv_slam_tpu_torch.ops.voxel_map import VoxelMap, neighborhood_offsets
 
 _FIB = 2654435769  # 2^32 / golden ratio (Fibonacci hashing)

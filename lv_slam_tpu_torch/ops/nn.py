@@ -1,13 +1,17 @@
 """Nearest-centroid queries on a fine centroid grid (port of
 `lv_slam_tpu.ops.nn`: `build_centroid_grid` :42, `nn_sq_dists` :86,
-`fitness_score` :129).
+`nn_points` :107, `fitness_score` :129, `radius_outlier_removal` :151,
+`statistical_outlier_removal` :174).
 
 The reference scores a loop alignment with the mean squared distance of
 the moved candidate cloud to the new keyframe's cloud; the nearest point is
 approximated by the nearest centroid among the 27 cells (0.25 m) around the
 query, found by binary search over the sorted cell keys. Kernel 14
 (`csrc/centroid_grid.cu`) builds the grid and answers the queries on CUDA
-tensors; `*_ref` are the plain twins, which CPU tensors take.
+tensors; `*_ref` are the plain twins, which CPU tensors take. The same
+probe serves kernel 17 (`nn_points`: the matched centroid itself, ICP's
+correspondences) and kernel 18 (the outlier removals: the sum of the point
+counts of the 27 cells, on a grid at the removal's radius).
 """
 
 from __future__ import annotations
@@ -20,7 +24,8 @@ import torch
 
 from lv_slam_tpu_torch.core.cloud import SENTINEL, PointCloud
 from lv_slam_tpu_torch.kernels._build import F32, I32, PTR, Kernel, check_cuda, check_dtype, ptr
-from lv_slam_tpu_torch.ops.prefilter import cell_coords, inv_resolution
+from lv_slam_tpu_torch.ops.linalg3 import dot3_fma, sqrt32
+from lv_slam_tpu_torch.ops.cells import cell_coords, inv_resolution
 
 _EXTENT = 1024       # cells per axis: 1024^3 flat keys fit int32
 _KEY_MAX = 2**31 - 1  # key of cells out of the extent and of empty leaves
@@ -44,6 +49,34 @@ QUERY_KERNEL = Kernel(
         "lvs_grid_query": [PTR, PTR, I32, PTR, F32, I32, PTR, PTR, I32, I32, PTR, F32, PTR, PTR, I32, PTR],
     },
 )
+# grid: keys, centroids or counts, leaf_cap, origin, 1/res, extent
+_GRID_ARGS = [PTR, PTR, I32, PTR, F32, I32]
+NN_POINTS_KERNEL = Kernel(
+    "nn_points",
+    source="lv_slam_tpu_torch/csrc/centroid_grid.cu",
+    replaces="lv_slam_tpu/ops/nn.py:107",
+    entries={
+        # grid, points, mask, n -> d2, nn, valid
+        "lvs_nn_points": [*_GRID_ARGS, PTR, PTR, I32, PTR, PTR, PTR],
+        # grid, src, mask, n, T, max_d2 -> y, nn, w, partials, n_blocks, stats (ops/icp.py)
+        "lvs_icp_match": [*_GRID_ARGS, PTR, PTR, I32, PTR, F32, PTR, PTR, PTR, PTR, I32, PTR],
+        # y, nn, w, n, stats, partials, n_blocks, T -> T_out
+        "lvs_icp_update": [PTR, PTR, PTR, I32, PTR, PTR, I32, PTR, PTR],
+    },
+)
+RADIUS_KERNEL = Kernel(
+    "radius_outlier_removal",
+    source="lv_slam_tpu_torch/csrc/centroid_grid.cu",
+    replaces="lv_slam_tpu/ops/nn.py:151",
+    entries={"lvs_outlier_radius": [*_GRID_ARGS, PTR, PTR, I32, F32, PTR, PTR]},
+)
+STATISTICAL_KERNEL = Kernel(
+    "statistical_outlier_removal",
+    source="lv_slam_tpu_torch/csrc/centroid_grid.cu",
+    replaces="lv_slam_tpu/ops/nn.py:174",
+    entries={"lvs_outlier_statistical": [*_GRID_ARGS, PTR, PTR, I32, F32, F32, PTR, PTR, I32, PTR, PTR, PTR]},
+)
+_STAT_RADIUS = 0.5  # the statistical removal's density cells (m)
 
 
 class CentroidGrid(NamedTuple):
@@ -166,8 +199,10 @@ def nn_sq_dists(grid: CentroidGrid, points: torch.Tensor, mask: torch.Tensor) ->
 _OFF27 = [(i, j, k) for i in (-1, 0, 1) for j in (-1, 0, 1) for k in (-1, 0, 1)]
 
 
-def nn_sq_dists_ref(grid: CentroidGrid, points: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
-    """Plain PyTorch version of `nn_sq_dists`, line for line with the reference."""
+def _probe27(grid: CentroidGrid, points: torch.Tensor):
+    """(hit (N, 27), leaf (N, 27)): the 27 cells around each point looked up
+    by binary search over the sorted keys, in `_OFF27` order; a miss reads
+    leaf 0, as the reference's `where(hit, idx, 0)` gather."""
     e = _EXTENT
     off = torch.tensor(_OFF27, dtype=torch.int32, device=points.device)
     rel = cell_coords(points, grid.resolution)[:, None, :] - grid.origin_cell + off[None]
@@ -177,7 +212,13 @@ def nn_sq_dists_ref(grid: CentroidGrid, points: torch.Tensor, mask: torch.Tensor
     idx = torch.searchsorted(grid.keys, query.reshape(-1)).reshape(query.shape)
     idx = torch.clamp(idx, max=grid.keys.shape[0] - 1)
     hit = in_extent & (grid.keys[idx] == query)
-    cent = grid.centroids[torch.where(hit, idx, 0)]  # (N, 27, 3)
+    return hit, torch.where(hit, idx, 0)
+
+
+def nn_sq_dists_ref(grid: CentroidGrid, points: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+    """Plain PyTorch version of `nn_sq_dists`, line for line with the reference."""
+    hit, leaf = _probe27(grid, points)
+    cent = grid.centroids[leaf]  # (N, 27, 3)
     diff = points[:, None, :] - cent
     d2 = (diff[..., 0] * diff[..., 0] + diff[..., 1] * diff[..., 1]) + diff[..., 2] * diff[..., 2]
     d2 = torch.where(hit, d2, torch.inf).amin(dim=1)
@@ -223,3 +264,152 @@ def fitness_score(target: PointCloud, source: PointCloud, transform: torch.Tenso
     grid = build_centroid_grid(target, grid_resolution)
     batch = PointCloud(source.xyz[None], source.intensity[None], source.mask[None])
     return fitness_batch(grid, batch, transform[None], max_range)[0]
+
+
+def _check_grid(name: str, grid: CentroidGrid, values: torch.Tensor, *tensors: torch.Tensor) -> int:
+    """The grid (keys and `values`, its centroids or counts) and the point
+    tensors are contiguous CUDA tensors of the kernels' types; returns leaf_cap."""
+    leaf_cap = grid.keys.shape[0]
+    check_cuda(name, grid.keys, values, grid.origin_cell, *tensors)
+    check_dtype(name, grid.keys, torch.int32, (leaf_cap,))
+    check_dtype(name, grid.origin_cell, torch.int32, (3,))
+    if values.dtype != torch.float32 or values.shape[0] != leaf_cap:
+        raise ValueError(f"{name}: expected float32 grid values of {leaf_cap} leaves, got {values.dtype} {values.shape}")
+    return leaf_cap
+
+
+def _grid_args(grid: CentroidGrid, values: torch.Tensor, leaf_cap: int) -> tuple:
+    return (ptr(grid.keys), ptr(values), leaf_cap, ptr(grid.origin_cell), inv_resolution(grid.resolution), _EXTENT)
+
+
+def nn_points(grid: CentroidGrid, points: torch.Tensor, mask: torch.Tensor):
+    """(d2 (N,), nn (N, 3), valid (N,)): each point's nearest hit centroid
+    among its 27 cells (the first in `_OFF27` order on a tie), its squared
+    distance (+inf where not valid) and whether the lane is valid (masked
+    in and hit). A miss returns leaf 0's centroid. Kernel 17 on CUDA, the
+    plain version on CPU."""
+    if points.device.type == "cpu":
+        return nn_points_ref(grid, points, mask)
+    n = points.shape[0]
+    points, mask = points.contiguous(), mask.contiguous()
+    leaf_cap = _check_grid("nn_points", grid, grid.centroids, points, mask)
+    check_dtype("nn_points", points, torch.float32, (n, 3))
+    check_dtype("nn_points", mask, torch.bool, (n,))
+    dev = points.device
+    d2 = torch.empty((n,), dtype=torch.float32, device=dev)
+    nn = torch.empty((n, 3), dtype=torch.float32, device=dev)
+    valid = torch.empty((n,), dtype=torch.bool, device=dev)
+    NN_POINTS_KERNEL.call(
+        "lvs_nn_points", *_grid_args(grid, grid.centroids, leaf_cap), ptr(points), ptr(mask), n,
+        ptr(d2), ptr(nn), ptr(valid),
+    )
+    NN_POINTS_KERNEL.launches += 1
+    return d2, nn, valid
+
+
+def nn_points_ref(grid: CentroidGrid, points: torch.Tensor, mask: torch.Tensor):
+    """Plain PyTorch version of `nn_points`, line for line with the
+    reference; the squared distances are XLA's CPU fma chain."""
+    hit, leaf = _probe27(grid, points)
+    cent = grid.centroids[leaf]  # (N, 27, 3)
+    d = points[:, None, :] - cent
+    d2 = torch.where(hit, dot3_fma(d, d), torch.inf)
+    best = torch.argmin(d2, dim=1)  # the first of equal minima
+    rows = torch.arange(points.shape[0], device=points.device)
+    d2_best = d2[rows, best]
+    valid = mask & torch.isfinite(d2_best)
+    return torch.where(valid, d2_best, torch.inf), cent[rows, best], valid
+
+
+def neighbour_counts_ref(grid: CentroidGrid, points: torch.Tensor) -> torch.Tensor:
+    """(N,) the sum of the point counts of the hit cells among each point's 27."""
+    hit, leaf = _probe27(grid, points)
+    return torch.sum(torch.where(hit, grid.counts[leaf], 0.0), dim=1)
+
+
+def _kept(cloud: PointCloud, keep: torch.Tensor) -> PointCloud:
+    return PointCloud(torch.where(keep[:, None], cloud.xyz, SENTINEL), cloud.intensity, keep)
+
+
+def _removal_out(name: str, grid: CentroidGrid, cloud: PointCloud):
+    """(leaf_cap, xyz, mask, out xyz, out mask) of a removal's launch."""
+    xyz, mask = cloud.xyz.contiguous(), cloud.mask.contiguous()
+    leaf_cap = _check_grid(name, grid, grid.counts, xyz, mask)
+    check_dtype(name, xyz, torch.float32, (cloud.cap, 3))
+    check_dtype(name, mask, torch.bool, (cloud.cap,))
+    return leaf_cap, xyz, mask, torch.empty_like(xyz), torch.empty_like(mask)
+
+
+def radius_outlier_removal(cloud: PointCloud, radius: float, min_neighbors: int) -> PointCloud:
+    """Keep the points whose 27 cells (cell size `radius`) hold at least
+    `min_neighbors` other points; dropped lanes take the sentinel, nothing is
+    compacted. The grid is kernel 14's build (one leaf per lane), the count
+    and the keep kernel 18, on CUDA; the plain version on CPU."""
+    if cloud.xyz.device.type == "cpu":
+        return radius_outlier_removal_ref(cloud, radius, min_neighbors)
+    grid = build_centroid_grid(cloud, radius, leaf_cap=cloud.cap)
+    leaf_cap, xyz, mask, out_xyz, out_mask = _removal_out("radius_outlier_removal", grid, cloud)
+    RADIUS_KERNEL.call(
+        "lvs_outlier_radius", *_grid_args(grid, grid.counts, leaf_cap), ptr(xyz), ptr(mask), cloud.cap,
+        float(min_neighbors), ptr(out_xyz), ptr(out_mask),
+    )
+    RADIUS_KERNEL.launches += 1
+    return PointCloud(out_xyz, cloud.intensity, out_mask)
+
+
+def radius_outlier_removal_ref(cloud: PointCloud, radius: float, min_neighbors: int) -> PointCloud:
+    """Plain PyTorch version of `radius_outlier_removal`."""
+    grid = build_centroid_grid_ref(cloud, radius, leaf_cap=cloud.cap)
+    count = neighbour_counts_ref(grid, cloud.masked_xyz())
+    return _kept(cloud, cloud.mask & (count - 1 >= min_neighbors))
+
+
+def _k_vol(mean_k: int) -> float:
+    """float32(mean_k) * (3 * 0.5 m)^3, as the reference rounds it."""
+    return float(np.float32(mean_k) * np.float32((3.0 * _STAT_RADIUS) ** 3))
+
+
+def statistical_outlier_removal(cloud: PointCloud, mean_k: int = 30, stddev_mult: float = 1.2) -> PointCloud:
+    """Keep the points whose isolation distance cbrt(mean_k (1.5 m)^3 /
+    max(density, 1)), the density summed over the 27 cells of a 0.5 m grid,
+    is at most mean + stddev_mult * std over the masked lanes. The cube root
+    is taken in float64 and rounded (the reference's float32 `cbrt` is off
+    by up to 1.5 ulp), and the two sums are float64 sums rounded once, so
+    the kernel and its twin agree on the threshold whatever their order.
+    Kernel 14's build and kernel 18 on CUDA, the plain version on CPU."""
+    if cloud.xyz.device.type == "cpu":
+        return statistical_outlier_removal_ref(cloud, mean_k, stddev_mult)
+    grid = build_centroid_grid(cloud, _STAT_RADIUS, leaf_cap=cloud.cap)
+    leaf_cap, xyz, mask, out_xyz, out_mask = _removal_out("statistical_outlier_removal", grid, cloud)
+    n = cloud.cap
+    n_blocks = max(1, -(-n // _BLOCK))
+    dev = xyz.device
+    dist = torch.empty((n,), dtype=torch.float32, device=dev)
+    partials = torch.empty((n_blocks, 2), dtype=torch.float64, device=dev)
+    stats = torch.empty((3,), dtype=torch.float32, device=dev)
+    STATISTICAL_KERNEL.call(
+        "lvs_outlier_statistical", *_grid_args(grid, grid.counts, leaf_cap), ptr(xyz), ptr(mask), n,
+        _k_vol(mean_k), float(np.float32(stddev_mult)), ptr(dist), ptr(partials), n_blocks, ptr(stats),
+        ptr(out_xyz), ptr(out_mask),
+    )
+    STATISTICAL_KERNEL.launches += 1
+    return PointCloud(out_xyz, cloud.intensity, out_mask)
+
+
+def statistical_outlier_removal_ref(cloud: PointCloud, mean_k: int = 30, stddev_mult: float = 1.2) -> PointCloud:
+    """Plain PyTorch version of `statistical_outlier_removal`."""
+    grid = build_centroid_grid_ref(cloud, _STAT_RADIUS, leaf_cap=cloud.cap)
+    density = neighbour_counts_ref(grid, cloud.masked_xyz())
+    # a tensor numerator: a Python one would multiply by the reciprocal on the card
+    q = torch.full_like(density, _k_vol(mean_k)) / torch.clamp(density, min=1.0)
+    knn_dist = torch.pow(q.double(), 1.0 / 3.0).to(torch.float32)
+    mask = cloud.mask
+
+    def sum32(x):  # a float64 sum rounded once
+        return torch.sum(torch.where(mask, x, 0.0).double()).to(torch.float32)
+
+    n = torch.clamp(sum32(torch.ones_like(knn_dist)), min=1.0)
+    mean = sum32(knn_dist) / n
+    var = sum32((knn_dist - mean) ** 2) / n
+    thresh = mean + stddev_mult * sqrt32(var)
+    return _kept(cloud, mask & (knn_dist <= thresh))

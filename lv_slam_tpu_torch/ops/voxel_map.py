@@ -26,7 +26,7 @@ import torch
 from lv_slam_tpu_torch.core.cloud import PointCloud
 from lv_slam_tpu_torch.kernels._build import F32, I32, PTR, Kernel, check_cuda, check_dtype, ptr
 from lv_slam_tpu_torch.ops.linalg3 import eigh3x3
-from lv_slam_tpu_torch.ops.prefilter import cell_coords, inv_resolution
+from lv_slam_tpu_torch.ops.cells import cell_coords, inv_resolution
 
 _BIG = 1 << 30
 

@@ -23,10 +23,10 @@ import torch
 from lv_slam_tpu_torch.core import se3
 from lv_slam_tpu_torch.core.cloud import SENTINEL, PointCloud
 from lv_slam_tpu_torch.kernels._build import F32, I32, PTR, Kernel, check_cuda, check_dtype, ptr
+from lv_slam_tpu_torch.ops.cells import inv_resolution
 from lv_slam_tpu_torch.ops.linalg3 import dot3_fma, sqrt32
 from lv_slam_tpu_torch.ops.prefilter import (
     dedup_compact,
-    inv_resolution,
     reduce_runs,
     voxel_dedup_first,
     voxel_dedup_first_ref,

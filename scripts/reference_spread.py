@@ -11,6 +11,9 @@ hold the port to it (CPU; needs JAX):
     JAX_PLATFORMS=cpu python scripts/reference_spread.py slam_dlo  # ~3 min
     JAX_PLATFORMS=cpu python scripts/reference_spread.py fused_lut # ~1 min
     JAX_PLATFORMS=cpu python scripts/reference_spread.py raw_backend  # ~6 min
+    JAX_PLATFORMS=cpu python scripts/reference_spread.py icp       # ~1 min
+    JAX_PLATFORMS=cpu python scripts/reference_spread.py gicp      # ~2 min
+    JAX_PLATFORMS=cpu python scripts/reference_spread.py registrations  # ~2 min
 
 `eigh`: JAX's and the port's `eigh3x3` on matrices with an exactly repeated
 eigenvalue pair (seeds 13-44, `tests/test_torch_voxel_map.py`'s generator):
@@ -58,6 +61,25 @@ circle and `tests/test_torch_multi_loop.py`'s double circle, against the
 same runs with every valid raw coordinate moved by at most one ulp (4
 perturbations each): keyframes, loop pairs and counters of each run, and
 the largest move of a keyframe estimate.
+
+`icp`, `gicp`, `registrations`: `tests/test_registrations.py`'s figure-8
+pair at cap 16384 and its perturbed guess, every valid coordinate of both
+clouds moved by at most one ulp (32 perturbations: NDT_PCA's spread grows
+from 8.2 mm over 8 to 15.7 mm over 32): `icp` the largest move
+of the transform after one ICP iteration and after 40; `gicp` the same for
+20 GICP iterations, and of each source lane's plane covariance, as the
+largest move times the lane's relative eigen-gap (lambda1 - lambda0) /
+lambda2 over the lanes whose gap exceeds sqrt(eps); `registrations` each
+factory method's transform (`tests/test_torch_registrations.py`'s
+methods) and the ground NDT's from its 0.5 m z error.
+
+The `dlo` mode also runs the prefilter-branch variants of
+`tests/test_torch_dlo.py` (STATISTICAL with the angle calibration, RADIUS),
+with 16 perturbations each, and prints their spread also over the
+perturbed runs that keep tracking (`tests/test_dlo.py`'s gate: every
+relative step within 0.12 m of the truth's): one-ulp input noise sends 2 of
+the 16 STATISTICAL runs 0.12-0.54 m off, and the parity test holds the port
+to the runs that track.
 """
 
 from __future__ import annotations
@@ -221,15 +243,19 @@ def _nudged_scans(scans, seed):
                             np.asarray(s, np.float32)[:, 3:]], axis=1) for s in scans]
 
 
+BRANCH_VARIANTS = ("statistical", "calibration", "radius")  # the prefilter-branch variants: 16 perturbations
+
+
 def dlo() -> None:
     import conftest
     import test_torch_dlo as t
     from lv_slam_tpu.odometry.dlo import DirectLidarOdometry
 
-    scans, _, _ = conftest.small_sequence.__wrapped__()
+    scans, gt, _ = conftest.small_sequence.__wrapped__()
+    gt_rel = np.einsum("ij,njk->nik", np.linalg.inv(gt[0]), gt)
     for variant, (cfg, pf) in t.reference_configs().items():
         runs = []
-        for seed in [None] + list(range(8)):
+        for seed in [None] + list(range(16 if variant in BRANCH_VARIANTS else 8)):
             odo = DirectLidarOdometry(cfg, pf)
             poses, retried = [], []
             for i, s in enumerate(_nudged_scans(scans, seed)):
@@ -241,6 +267,13 @@ def dlo() -> None:
             print(f"{variant} run {seed}: keyframes {odo.keyframe_indices}, retries kept at scans {retried}")
         dt, rot = _spread(runs)
         print(f"{variant}: translation moves per scan {dt} m, rotation entries up to {rot}")
+        if variant in BRANCH_VARIANTS:
+            # the runs that keep tracking: tests/test_dlo.py's gate, every
+            # relative step within 0.12 m of the truth's
+            tracking = [r for r in runs if t._relative_errors(gt_rel, r).max() < 0.12]
+            dt, rot = _spread(tracking)
+            print(f"{variant}, the {len(tracking) - 1} perturbed runs that keep tracking: translation moves per "
+                  f"scan {dt} m, rotation entries up to {rot}")
 
 
 def fused_lut() -> None:
@@ -325,6 +358,94 @@ def raw_backend() -> None:
                   f"{dt:.4g} m, a rotation entry by {rot:.3g}")
 
 
+def _reg_pair():
+    import jax.numpy as jnp
+
+    import test_torch_registrations as t
+    from lv_slam_tpu.core.cloud import PointCloud
+
+    target, source, gt, guess = t.reg_pair.__wrapped__()
+    runs = []
+    for seed in [None] + list(range(32)):
+        tgt, src = target[:, :3], source[:, :3]
+        if seed is not None:
+            tgt, src = _nudge(tgt, np.ones(len(tgt), bool), seed), _nudge(src, np.ones(len(src), bool), seed + 100)
+        runs.append((PointCloud.from_numpy(tgt, cap=t.CAP), PointCloud.from_numpy(src, cap=t.CAP)))
+    return runs, jnp.asarray(guess)
+
+
+def _transform_spread(transforms) -> str:
+    base = transforms[0]
+    dt = max(float(np.abs(t[:3, 3] - base[:3, 3]).max()) for t in transforms[1:])
+    dr = max(float(np.abs(t[:3, :3] - base[:3, :3]).max()) for t in transforms[1:])
+    return f"translation entries move by up to {dt:.3g} m, rotation entries by up to {dr:.3g}"
+
+
+def icp() -> None:
+    import jax
+
+    from lv_slam_tpu.ops.icp import icp_align
+
+    runs, guess = _reg_pair()
+    for iters in (1, 40):
+        f = jax.jit(lambda t, s, g, iters=iters: icp_align(t, s, g, max_iterations=iters).transform)
+        print(f"ICP, {iters} iteration(s): " + _transform_spread([np.asarray(f(t, s, guess)) for t, s in runs]))
+
+
+def gicp() -> None:
+    import jax
+
+    from lv_slam_tpu.ops import gicp as g
+    from lv_slam_tpu.ops.knn import build_grid
+    from lv_slam_tpu_torch.ops.gicp import GAP_SPLIT
+
+    runs, guess = _reg_pair()
+    f = jax.jit(lambda t, s, gs: g.gicp_align(t, s, gs, max_iterations=20).transform)
+    print("GICP, 20 iterations: " + _transform_spread([np.asarray(f(t, s, guess)) for t, s in runs]))
+    cov = jax.jit(lambda x, m: g._plane_covariances(x, m, build_grid(x, m, 1.0), 8))
+    covs = [[np.asarray(a) for a in cov(s.masked_xyz(), s.mask)] for _, s in runs]
+    src = np.asarray(runs[0][1].masked_xyz(), np.float64)
+    gap = _eigen_gap(src, np.asarray(runs[0][1].mask))
+    sel = covs[0][1] & (gap > GAP_SPLIT)
+    env = max(float((np.abs(c - covs[0][0]).max(axis=(1, 2)) * gap)[sel & (ok == covs[0][1])].max())
+              for c, ok in covs[1:])
+    print(f"plane covariances: {int(sel.sum())} lanes with a relative eigen-gap g > sqrt(eps); the largest "
+          f"move times g {env:.3g}")
+
+
+def _eigen_gap(xyz: np.ndarray, mask: np.ndarray) -> np.ndarray:
+    """(lambda1 - lambda0) / lambda2 of each lane's 8-neighbour covariance
+    (the port's grid k-NN, in float64)."""
+    import torch
+
+    from lv_slam_tpu_torch.ops import gicp, knn
+
+    x, m = torch.from_numpy(xyz.astype(np.float32)), torch.from_numpy(mask)
+    _, pts, valid = knn.knn_ref(knn.build_grid_ref(x, m, 1.0), x, 8)
+    return gicp.eigen_gap(pts, valid).numpy()
+
+
+def registrations() -> None:
+    import jax
+    import jax.numpy as jnp
+
+    import test_torch_registrations as t
+    from lv_slam_tpu.ops.ndt_ground import ndt_ground_align
+    from lv_slam_tpu.ops.registrations import RegistrationParams, select_registration_method
+    from lv_slam_tpu.ops.voxel_map import build_voxel_map
+
+    runs, guess = _reg_pair()
+    for method, search, _ in t.METHODS:
+        reg = select_registration_method(RegistrationParams(registration_method=method, max_iterations=40,
+                                                            ndt_nn_search_method=search))
+        print(f"{method}: " + _transform_spread([np.asarray(reg(tg, s, guess).transform) for tg, s in runs]))
+    ground = jax.jit(lambda tg, s: ndt_ground_align(
+        build_voxel_map(tg, 10.0, leaf_cap=4096, lut_extent=64), s, jnp.asarray(t.GROUND_GUESS), resolution=10.0,
+        max_iterations=16).transform)
+    print("ground NDT: " + _transform_spread([np.asarray(ground(tg, s)) for tg, s in runs]))
+
+
 if __name__ == "__main__":
     {"eigh": eigh, "backend": backend, "lfa": lfa, "lfa_host": lfa_host, "slam": slam, "dlo": dlo,
-     "slam_dlo": slam_dlo, "fused_lut": fused_lut, "raw_backend": raw_backend}[sys.argv[1]]()
+     "slam_dlo": slam_dlo, "fused_lut": fused_lut, "raw_backend": raw_backend, "icp": icp, "gicp": gicp,
+     "registrations": registrations}[sys.argv[1]]()

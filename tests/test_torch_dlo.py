@@ -13,6 +13,11 @@ test_torch_voxel_map), and the Newton loop's iteration count near
 convergence is rounding noise too (on the same map, JAX 17 and the port 12
 iterations on scan 1, 2.8e-5 apart).
 
+The prefilter-branch variants (STATISTICAL, the angle calibration,
+RADIUS) are held to the reference's spread over the perturbed runs that
+keep tracking (`scripts/reference_spread.py dlo`, 16 perturbations each):
+one-ulp input noise sends 2 of the 16 STATISTICAL runs 0.12-0.54 m off.
+
 Whether the retry is kept is rounding noise as well: it compares two scores
 of nearly the same pose, and with a 1 mm threshold the one-ulp runs of the
 reference kept it on 0 to 5 of the 5 scans ([2, 3, 4, 5] unperturbed; [],
@@ -32,6 +37,7 @@ torch.set_num_threads(1)  # small CPU ops: more threads per xdist worker only ov
 
 from lv_slam_tpu.config import NDTConfig, OdometryConfig, PrefilterConfig  # noqa: E402
 from lv_slam_tpu.odometry.dlo import DirectLidarOdometry as JDlo  # noqa: E402
+from lv_slam_tpu.ops import nn as _jnn  # noqa: E402,F401  (imported outside any trace: ROADMAP queue 3)
 from lv_slam_tpu_torch import config as tc  # noqa: E402
 from lv_slam_tpu_torch.odometry.dlo import DirectLidarOdometry, run_sequence  # noqa: E402
 
@@ -44,20 +50,37 @@ REF_SPREAD = {
     "default": np.array([0.0, 8.7e-3, 2.8e-3, 5.3e-3, 4.1e-3, 3.1e-3]),
     "prefilter": np.array([0.0, 4.7e-3, 4.1e-3, 5.7e-3, 5.5e-3, 1.1e-3]),
     "retry": np.array([0.0, 7.3e-3, 3.8e-3, 2.9e-3, 2.8e-3, 4.7e-3]),
+    # over the perturbed runs that keep tracking (see the module docstring)
+    "statistical": np.array([0.0, 5.2e-3, 3.4e-3, 8.1e-3, 8.8e-3, 9.6e-3]),
+    "calibration": np.array([0.0, 3.8e-3, 4.3e-3, 8.2e-3, 1.3e-2, 8.5e-2]),
+    "radius": np.array([0.0, 5.1e-3, 6.8e-3, 3.1e-3, 3.5e-3, 1.2e-2]),
 }
-REF_ROT_SPREAD = {"default": 1.3e-3, "prefilter": 5.4e-4, "retry": 4.6e-4}
+# variants whose kept retries are rounding noise too: the reference's own
+# one-ulp runs keep one at scan 5 (1 of 16 STATISTICAL runs) and at scan 4
+# (4 of 16 calibration runs); their retried scans are logged, not compared
+NOISY_RETRIES = ("statistical", "calibration")
+REF_ROT_SPREAD = {"default": 1.3e-3, "prefilter": 5.4e-4, "retry": 4.6e-4, "statistical": 1.9e-3,
+                  "calibration": 1.7e-3, "radius": 2.5e-3}
 
 
 def reference_configs():
     """The reference's configurations of these tests: `tests/test_dlo.py`'s
     NDTConfig, without a prefilter, with the prefilter chain (and a
-    scan-matching cap below the cloud's, so the uniform subsample runs), and
-    with a 1 mm retry threshold, so that the retry fires on most scans."""
+    scan-matching cap below the cloud's, so the uniform subsample runs),
+    with a 1 mm retry threshold, so that the retry fires on most scans, and
+    with the chain's STATISTICAL removal, its angle calibration or its
+    RADIUS removal."""
     ndt = NDTConfig(leaf_cap=16384, lut_extent=256)
     return {
         "default": (OdometryConfig(ndt=ndt), None),
         "prefilter": (OdometryConfig(ndt=ndt, scan_matching_cap=8192), PrefilterConfig(raw_cap=CAP, out_cap=CAP)),
         "retry": (OdometryConfig(ndt=dataclasses.replace(ndt, retry_deviation_thresh=0.001)), None),
+        # the prefilter's last branches (the removals with the compaction
+        # they force before the uniform subsample)
+        **{name: (OdometryConfig(ndt=ndt, scan_matching_cap=8192), PrefilterConfig(raw_cap=CAP, out_cap=CAP, **kw))
+           for name, kw in (("statistical", dict(outlier_removal_method="STATISTICAL")),
+                            ("calibration", dict(use_angle_calibration=True)),
+                            ("radius", dict(outlier_removal_method="RADIUS")))},
     }
 
 
@@ -104,7 +127,7 @@ def test_dlo_matches_jax(runs):
     assert stats.scan_count == j_stats.scan_count and stats.keyframe_count == j_stats.keyframe_count
     if variant == "retry":
         assert stats.retries > 0 and j_stats.retries > 0  # the retry and its arbiter really ran
-    else:
+    elif variant not in NOISY_RETRIES:
         assert retried == j_retried == []
 
 

@@ -51,6 +51,17 @@ def test_config_matches_reference(name):
     same(port.graph, ref.graph)
 
 
+def test_registration_params_match_reference():
+    """The factory's frozen `RegistrationParams` copy: the reference's fields,
+    in its order, with its defaults."""
+    from lv_slam_tpu.ops.registrations import RegistrationParams as Ref
+    from lv_slam_tpu_torch.ops.registrations import RegistrationParams
+
+    assert [f.name for f in dataclasses.fields(RegistrationParams)] == [f.name for f in dataclasses.fields(Ref)]
+    assert dataclasses.asdict(RegistrationParams()) == dataclasses.asdict(Ref())
+    assert RegistrationParams.__dataclass_params__.frozen
+
+
 @pytest.mark.parametrize("seed", [5, 41])
 def test_synthetic_scan_matches_reference(seed):
     """World, rays, trajectory and scan are bit-identical."""

@@ -21,7 +21,9 @@ from lv_slam_tpu_torch.core.cloud import PointCloud  # noqa: E402
 from lv_slam_tpu_torch.kernels import KERNELS, reset_launches  # noqa: E402
 from lv_slam_tpu_torch.graph import pose_graph  # noqa: E402
 from lv_slam_tpu_torch.lfa import features, registration  # noqa: E402
-from lv_slam_tpu_torch.ops import floor, knn, ndt, ndt_hash, ndt_soa, nn, orb, prefilter, voxel_map  # noqa: E402
+from lv_slam_tpu_torch.ops import (  # noqa: E402
+    floor, gicp, icp, knn, ndt, ndt_ground, ndt_hash, ndt_soa, nn, orb, prefilter, voxel_map,
+)
 from lv_slam_tpu_torch.pipeline import window  # noqa: E402
 from lv_slam_tpu_torch.ops.ndt import make_gauss_params  # noqa: E402
 
@@ -41,7 +43,8 @@ def _calls(device, scans):
     """Every wrapper once, on `device`, at small shapes: (name, wrapper output,
     plain output) for each kernel."""
     return (_odometry_calls(device, scans) + _lfa_calls(device, scans) + _backend_calls(device, scans)
-            + _camera_calls(device) + _standalone_calls(device, scans) + _lut_calls(device, scans))
+            + _camera_calls(device) + _standalone_calls(device, scans) + _lut_calls(device, scans)
+            + _registration_calls(device, scans))
 
 
 def _odometry_calls(device, scans):
@@ -247,6 +250,53 @@ def _lut_calls(device, scans):
     return out
 
 
+def _registration_calls(device, scans):
+    """K17 (a nearest-centroid query and one ICP iteration, scan 1 0.1 m off
+    the true relative pose against scan 0's 0.25 m grid), K18 (both removals
+    on scan 0's band), K0a (0.11 degrees), K19a (scan 1's 8 grid neighbours,
+    with and without the mask), K19b (the normal equations at that pose)
+    and K20 (scan 0's map at 10 m, 64^3 LUT)."""
+    (s0, s1), rel = scans
+    c0, c1 = (PointCloud.from_numpy(s, cap=16384, device=device) for s in (s0, s1))
+    t = torch.from_numpy(rel.astype(np.float32)).to(device)
+    t[0, 3] += 0.1
+    grid = nn.build_centroid_grid_ref(c0, 0.25)
+    y = c1.transformed(t).masked_xyz()
+    out = [("nn_points", nn.nn_points(grid, y, c1.mask), nn.nn_points_ref(grid, y, c1.mask))]
+    args = (grid, c1.masked_xyz(), c1.mask, t, 4.0)
+    out.append(("nn_points", (icp.icp_step(*args), *icp.icp_fitness(*args)),
+                (icp.icp_step_ref(*args), *icp.icp_fitness_ref(*args))))
+    band = prefilter.distance_filter(c0, 0.5, 100.0)
+    out.append(("radius_outlier_removal", nn.radius_outlier_removal(band, 0.5, 5),
+                nn.radius_outlier_removal_ref(band, 0.5, 5)))
+    for mean_k in (30, 300):  # the threshold's variance far from 1 in one of them: std and variance differ
+        out.append(("statistical_outlier_removal", nn.statistical_outlier_removal(band, mean_k, 1.2),
+                    nn.statistical_outlier_removal_ref(band, mean_k, 1.2)))
+    out.append(("vertical_angle_calibration", prefilter.vertical_angle_calibration(c0, 0.11),
+                prefilter.vertical_angle_calibration_ref(c0, 0.11)))
+    kgrid = knn.build_grid_ref(c1.masked_xyz(), c1.mask, 1.0)
+    _, pts, valid = knn.knn_ref(kgrid, c1.masked_xyz(), 8)
+    for mask in (c1.mask, None):
+        out.append(("_plane_covariances", gicp.regularized_covariances(pts, valid, mask),
+                    gicp.regularized_covariances_ref(pts, valid, mask)))
+    cov_a, ok = gicp.regularized_covariances_ref(pts, valid, c1.mask)
+    tgrid = knn.build_grid_ref(c0.masked_xyz(), c0.mask, 1.0)
+    dists, nn_pts, nn_valid = knn.knn_ref(tgrid, c1.transformed(t).masked_xyz(), 1)
+    _, nbrs, nbr_valid = knn.knn_ref(tgrid, nn_pts[:, 0], 8)
+    cov_b, _ = gicp.regularized_covariances_ref(nbrs, nbr_valid)
+    args = (c1.masked_xyz(), c1.mask & ok, cov_a, t, nn_pts[:, 0].contiguous(), dists[:, 0].contiguous(),
+            nn_valid[:, 0].contiguous(), cov_b, 2.0)
+    out.append(("gicp_align", gicp.gicp_normal_equations(*args), gicp.gicp_normal_equations_ref(*args)))
+    vm = voxel_map.build_voxel_map_ref(c0, 10.0, leaf_cap=4096, lut_extent=64)
+    lut = voxel_map.build_lut_ref(vm)
+    # and with every other leaf's normal flipped (a normal's sign is arbitrary)
+    sign = 1.0 - 2.0 * (torch.arange(vm.leaf_cap, device=device) % 2)[:, None].to(torch.float32)
+    for m in (vm, vm._replace(normals=vm.normals * sign)):
+        got, want = ndt_ground.filter_ground_leaves(m, lut), ndt_ground.filter_ground_leaves_ref(m, lut)
+        out.append(("filter_ground_leaves", (got[0].valid, got[1]), (want[0].valid, want[1])))
+    return out
+
+
 # kernels that replace a block inside a reference function: the text their
 # replaced line must hold
 INLINE_BLOCKS = {"build_lut": "# Dense LUT scatter"}
@@ -259,7 +309,8 @@ def test_registry_names_sources_and_replaced_functions():
         "voxel_dedup_first", "window_group_filtered_fn", "_fused_verify_fn", "build_centroid_grid",
         "nn_sq_dists", "_chi2_and_normal", "_detect_pyramid_batch", "match_scores_batch",
         "build_grid", "knn", "build_cell_table", "build_lut", "ndt_derivatives_soa", "ndt_derivatives",
-        "window_group_fn", "detect_floor",
+        "window_group_fn", "detect_floor", "nn_points", "radius_outlier_removal", "statistical_outlier_removal",
+        "vertical_angle_calibration", "_plane_covariances", "gicp_align", "filter_ground_leaves",
     }
     for name, k in KERNELS.items():
         assert (REPO / k.source).is_file(), k.source
@@ -448,3 +499,98 @@ def test_lut_kernels_match_plain_versions_on_the_card(cuda, scans):
         torch.testing.assert_close(s1, s2, rtol=1e-4, atol=0)
         torch.testing.assert_close(g1, g2, rtol=0, atol=2e-5 * float(g2.abs().max()))
         torch.testing.assert_close(h1, h2, rtol=0, atol=2e-5 * float(h2.abs().max()))
+
+
+# launches of `_registration_calls` on the card
+REGISTRATION_LAUNCHES = {
+    "nn_points": 3, "build_centroid_grid": 3, "radius_outlier_removal": 1, "statistical_outlier_removal": 2,
+    "vertical_angle_calibration": 1, "_plane_covariances": 2, "gicp_align": 1, "filter_ground_leaves": 2,
+}
+
+
+@pytest.fixture(scope="module")
+def registration_results(scans):
+    """`_registration_calls` once on the card: ({kernel: [(got, want)]}, launches)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU and nvcc: the hand kernels run only on the card")
+    reset_launches()
+    results = _registration_calls(torch.device("cuda"), scans)
+    torch.cuda.synchronize()
+    by_name = {}
+    for name, got, want in results:
+        by_name.setdefault(name, []).append((got, want))
+    return by_name, {name: k.launches for name, k in KERNELS.items() if k.launches}
+
+
+def _check_nn_points(pairs, scans):
+    """K17: hits, argmins and distances identical (the same probe and fma
+    chain); the ICP iteration to 1e-5 (the sums run in another order, the
+    Kabsch SVD in float64 against the twin's float32), its count exactly."""
+    (got, want), (step, step_ref) = pairs
+    assert torch.equal(got[2], want[2]) and int(want[2].sum()) > 1000
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    torch.testing.assert_close(step[0], step_ref[0], rtol=0, atol=1e-5)
+    torch.testing.assert_close(step[1], step_ref[1], rtol=1e-5, atol=0)
+    assert int(step[2]) == int(step_ref[2]) > 1000
+
+
+def _check_removal(pairs, scans):
+    """K18: integer counts and a float64-summed threshold: masks identical."""
+    n_band = int(prefilter.distance_filter(PointCloud.from_numpy(scans[0][0], cap=16384, device="cuda"), 0.5,
+                                           100.0).mask.sum())
+    for got, want in pairs:
+        assert torch.equal(got.mask, want.mask) and torch.equal(got.xyz, want.xyz)
+        assert 0 < int(want.mask.sum()) < n_band
+
+
+def _check_calibration(pairs, scans):
+    """K0a: the same fma chain and float32 sin / cos on both sides."""
+    ((got, want),) = pairs
+    assert torch.equal(got.mask, want.mask)
+    torch.testing.assert_close(got.xyz, want.xyz, rtol=0, atol=1e-5)
+
+
+def _check_plane_covariances(pairs, scans):
+    """K19a: ok identical; the covariances as the CPU test holds them to
+    JAX: where the neighbourhood's relative eigen-gap g exceeds sqrt(eps),
+    to gicp.PLANE_ENVELOPE / g (the reference's own one-ulp envelope), elsewhere
+    (the normal is rounding noise) to the plane shape (1e-3, 1, 1)."""
+    c1 = PointCloud.from_numpy(scans[0][1], cap=16384, device="cuda")
+    _, nbr_pts, nbr_valid = knn.knn_ref(knn.build_grid_ref(c1.masked_xyz(), c1.mask, 1.0), c1.masked_xyz(), 8)
+    for got, want in pairs:
+        if want[1] is not None:
+            assert torch.equal(got[1], want[1])
+        e = gicp.plane_covariance_error(got[0], want[0], nbr_pts, nbr_valid, want[1])
+        assert e.ok, e
+
+
+def _check_normal_equations(pairs, scans):
+    """K19b: H and g to 1e-5 of their scale (block sums in another order)."""
+    ((got, want),) = pairs
+    for a, b in zip(got, want):
+        torch.testing.assert_close(a, b, rtol=0, atol=1e-5 * float(b.abs().max()))
+
+
+def _check_ground_filter(pairs, scans):
+    """K20: the LUT and the valid flags identical (one writer each), also
+    with flipped normals."""
+    for got, want in pairs:
+        assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1]) and int(want[0].sum()) > 0
+
+
+REGISTRATION_CHECKS = {
+    "nn_points": _check_nn_points, "radius_outlier_removal": _check_removal,
+    "statistical_outlier_removal": _check_removal, "vertical_angle_calibration": _check_calibration,
+    "_plane_covariances": _check_plane_covariances, "gicp_align": _check_normal_equations,
+    "filter_ground_leaves": _check_ground_filter,
+}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", list(REGISTRATION_CHECKS))
+def test_registration_kernels_match_plain_versions_on_the_card(registration_results, scans, name):
+    """Each of K17-K20 and K0a against its plain version on the card (the
+    calls made once per module)."""
+    by_name, launches = registration_results
+    assert launches == REGISTRATION_LAUNCHES
+    REGISTRATION_CHECKS[name](by_name[name], scans)

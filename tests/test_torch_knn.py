@@ -8,7 +8,7 @@ The features of the conftest `small_sequence` go into empty tables at the
 true poses, scan after scan, as the LFA's maps grow. The reference's insert
 runs under jit with the resolution a compiled-in constant, as in its LFA
 step, so XLA multiplies by the float32 reciprocal of the resolution; the
-port does the same (`ops.prefilter.inv_resolution`). The k-NN squared
+port does the same (`ops.cells.inv_resolution`). The k-NN squared
 distances are the fma chain XLA's CPU backend makes of the reference's
 sum of squares, which the port rounds alike (`ops.linalg3.dot3_fma`): the
 two agree bit for bit on every query here (no tie of near-equal candidates

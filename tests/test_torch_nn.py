@@ -6,7 +6,10 @@ Cell keys, counts, origin and the set of hits (which query lanes find a
 centroid) are identical; centroids and squared distances agree to 1e-6
 relative (the sums run in the same order, the distance's three squares may
 be contracted differently by XLA); the fitness to 1e-5 relative (a mean
-over ~20k lanes summed in another order)."""
+over ~20k lanes summed in another order). `nn_points` (kernel 17's twin)
+takes the distance as XLA's fma chain, so its distances, matches and
+validity equal JAX's bit for bit; the outlier removals (kernel 18's twins)
+count integers, so their masks are identical."""
 
 import functools
 
@@ -113,3 +116,73 @@ def test_calc_information_matrix(scans, const):
     else:
         assert not np.allclose(want, j_info(None, None, t, JGraphCfg()))  # the fitness moved the weights
         np.testing.assert_allclose(got, want, rtol=1e-5)
+
+
+def _with_faces(pts: np.ndarray, cell: float, seed: int, n: int = 3000) -> np.ndarray:
+    """`pts` with points on cell faces appended: n of its points with every
+    coordinate moved to the nearest multiple of `cell`, and the same points
+    one ulp either side (but 0, whose neighbours are subnormal: XLA's CPU
+    code flushes those to 0, a case real returns never reach)."""
+    rng = np.random.default_rng(seed)
+    base = pts[rng.choice(len(pts), n, replace=False), :3]
+    faces = (np.round(base / cell) * cell).astype(np.float32)
+    up, down = (np.where(faces == 0, faces, np.nextafter(faces, np.float32(d))) for d in (np.inf, -np.inf))
+    extra = np.concatenate([faces, up, down])
+    extra = np.concatenate([extra, np.zeros((len(extra), pts.shape[1] - 3), np.float32)], axis=1)
+    return np.concatenate([pts, extra]).astype(np.float32)
+
+
+def test_nn_points(scans, grids):
+    """Scan 1 0.1 m off the true pose, with points on the 0.25 m cell faces:
+    valid identical, and on every lane the squared distance and the matched
+    centroid bit for bit (a miss matches leaf 0, as the reference's gather)."""
+    (_, s1), rel = scans
+    want_grid, got_grid = grids
+    t = rel.copy()
+    t[0, 3] += 0.1
+    pts = _with_faces(s1, 0.25, seed=3)
+    src = JCloud.from_numpy(pts, cap=CAP).transformed(jnp.asarray(t))
+    want = [np.asarray(x) for x in jax.jit(jnn.nn_points)(want_grid, src.masked_xyz(), src.mask)]
+    tsrc = TCloud.from_numpy(pts, cap=CAP, device="cpu").transformed(torch.from_numpy(t))
+    got = [x.numpy() for x in tnn.nn_points(got_grid, tsrc.masked_xyz(), tsrc.mask)]
+    assert want[2].sum() > 5000 and (~want[2]).sum() > 1000  # hits, and misses or masked lanes
+    for a, b in zip(got, want):
+        np.testing.assert_array_equal(a, b)
+
+
+# masks that differ from JAX's at the statistical threshold: measured 0 on
+# every case below (the twin's float64-rounded cube root is off JAX's float32
+# `cbrt` by up to 1.5 ulp, and its sums run in another order, but the
+# isolation distances take one value per integer density, none of them
+# within those ulps of the threshold)
+STATISTICAL_FLIPS = 0
+
+
+@pytest.mark.parametrize("method,kw", [
+    ("radius", dict(radius=0.5, min_neighbors=5)),
+    ("radius", dict(radius=0.3, min_neighbors=2)),
+    ("statistical", dict(mean_k=30, stddev_mult=1.2)),
+    ("statistical", dict(mean_k=10, stddev_mult=0.5)),
+])
+def test_outlier_removal(scans, method, kw):
+    """Both scans through the reference's band and 0.1 m voxels (JAX's
+    prefilter), with points on the removal's cell faces: the kept lanes
+    equal JAX's (STATISTICAL within the measured threshold flips), dropped
+    lanes at the sentinel, nothing compacted."""
+    from lv_slam_tpu.config import PrefilterConfig
+    from lv_slam_tpu.ops import prefilter as jpf
+
+    cell = kw.get("radius", 0.5)
+    jfn, tfn = getattr(jnn, f"{method}_outlier_removal"), getattr(tnn, f"{method}_outlier_removal")
+    for i, s in enumerate(scans[0]):
+        cfg = PrefilterConfig(raw_cap=CAP, out_cap=CAP)
+        cloud = jax.jit(functools.partial(jpf.prefilter, cfg=cfg))(JCloud.from_numpy(s, cap=CAP))
+        pts = _with_faces(np.asarray(cloud.xyz)[np.asarray(cloud.mask)], cell, seed=i, n=1000)
+        want = jax.jit(functools.partial(jfn, **kw))(JCloud.from_numpy(pts, cap=CAP))
+        got = tfn(TCloud.from_numpy(pts, cap=CAP, device="cpu"), **kw)
+        keep = np.asarray(want.mask)
+        flips = int((got.mask.numpy() != keep).sum())
+        assert flips <= (STATISTICAL_FLIPS if method == "statistical" else 0), flips
+        same = got.mask.numpy() == keep
+        np.testing.assert_array_equal(got.xyz.numpy()[same], np.asarray(want.xyz)[same])
+        assert 1000 < keep.sum() < len(pts) - 500  # the removal dropped lanes

@@ -16,6 +16,7 @@ import jax  # noqa: E402
 
 from lv_slam_tpu.config import PrefilterConfig  # noqa: E402
 from lv_slam_tpu.core.cloud import PointCloud as JCloud  # noqa: E402
+from lv_slam_tpu.ops import nn as _jnn  # noqa: E402,F401  (imported outside any trace: ROADMAP queue 3)
 from lv_slam_tpu.ops import prefilter as jpf  # noqa: E402
 from lv_slam_tpu_torch import config as tc  # noqa: E402
 from lv_slam_tpu_torch.core.cloud import PointCloud as TCloud  # noqa: E402
@@ -159,15 +160,88 @@ def test_host_chain_compacts_before_the_subsample():
     assert (hist > 0).all()
 
 
+def _calibration_points(seed: int, n: int = 60000) -> np.ndarray:
+    """Lidar-range points, points on the z axis (no rotation axis), points
+    within a millimetre of it, flat far returns and a NaN row (masked)."""
+    rng = np.random.default_rng(seed)
+    pts = np.concatenate([
+        rng.uniform(-60.0, 60.0, (n, 3)),
+        rng.normal(0.0, 1.0, (500, 3)) * [0.0, 0.0, 1.0],
+        rng.uniform(-1.0, 1.0, (500, 3)) * 1e-3,
+        rng.uniform(-80.0, 80.0, (n // 2, 3)) * [1.0, 1.0, 0.05],
+        [[np.nan, 1.0, 2.0]],
+    ]).astype(np.float32)
+    return pts[rng.permutation(len(pts))]
+
+
+@pytest.mark.parametrize("angle", [0.11, 1.7, 45.0])
+def test_vertical_angle_calibration(angle):
+    """Kernel 0a's twin equals JAX bit for bit at the reference's 0.11
+    degrees and at 1.7 and 45 (measured: 0 of 3 x 270k coordinates differ),
+    on the z axis, near it and on masked lanes (padding and a NaN row): the
+    cross product, norm, `exp_so3` and einsum round as XLA's CPU fma chains,
+    and torch's float32 `sin` / `cos` equal XLA's on these angles."""
+    pts = _calibration_points(seed=12)
+    cap = len(pts) + 100
+    want = jax.jit(functools.partial(jpf.vertical_angle_calibration, angle_base_deg=angle))(
+        JCloud.from_numpy(pts, cap=cap))
+    got = tpf.vertical_angle_calibration(TCloud.from_numpy(pts, cap=cap, device="cpu"), angle)
+    np.testing.assert_array_equal(got.mask.numpy(), np.asarray(want.mask))
+    np.testing.assert_array_equal(got.xyz.numpy(), np.asarray(want.xyz))
+    assert int((~got.mask).sum()) == 101
+
+
+def test_angle_calibration_rotates_up():
+    """`tests/test_io.py:69` on the port: range kept, elevation up 0.11 degrees."""
+    pts = np.array([[10.0, 0.0, 0.0], [0.0, 10.0, -1.0]], np.float32)
+    moved = tpf.vertical_angle_calibration(TCloud.from_numpy(pts, cap=4, device="cpu"), 0.11).xyz.numpy()[:2]
+    np.testing.assert_allclose(np.linalg.norm(moved, axis=1), np.linalg.norm(pts, axis=1), rtol=1e-5)
+    elev_before = np.arcsin(pts[:, 2] / np.linalg.norm(pts, axis=1))
+    elev_after = np.arcsin(moved[:, 2] / np.linalg.norm(moved, axis=1))
+    np.testing.assert_allclose(np.rad2deg(elev_after - elev_before), [0.11, 0.11], atol=1e-3)
+
+
+@pytest.mark.parametrize("branches", [
+    dict(outlier_removal_method="STATISTICAL"),
+    dict(outlier_removal_method="RADIUS"),
+    dict(use_angle_calibration=True),
+    dict(use_angle_calibration=True, outlier_removal_method="STATISTICAL", downsample_method="DEDUP"),
+    dict(outlier_removal_method="RADIUS", downsample_method="NONE", radius_radius=0.3, radius_min_neighbors=2),
+])
+def test_prefilter_chain_branches(branches, small_sequence):
+    """The chain's last branches in the reference's order (calibration, band,
+    downsample, removal) on a small_sequence scan: mask, lane order and
+    points equal to JAX's; a removal drops lanes without compacting."""
+    pts = np.asarray(small_sequence[0][1], np.float32)
+    cfg = PrefilterConfig(raw_cap=16384, out_cap=16384, **branches)
+    want = jax.jit(functools.partial(jpf.prefilter, cfg=cfg))(JCloud.from_numpy(pts, cap=16384))
+    got = tpf.prefilter(TCloud.from_numpy(pts, cap=16384, device="cpu"), tc.PrefilterConfig(**dataclasses.asdict(cfg)))
+    np.testing.assert_array_equal(got.mask.numpy(), np.asarray(want.mask))
+    np.testing.assert_array_equal(got.xyz.numpy(), np.asarray(want.xyz))
+    np.testing.assert_array_equal(got.intensity.numpy(), np.asarray(want.intensity))
+    if "outlier_removal_method" in branches:
+        base = tpf.prefilter(TCloud.from_numpy(pts, cap=16384, device="cpu"), tc.PrefilterConfig(**dataclasses.asdict(
+            dataclasses.replace(cfg, outlier_removal_method="NONE"))))
+        n = int(got.mask.sum())
+        assert 1000 < n < int(base.mask.sum()) and not bool(got.mask[:n].all())
+
+
 def test_prefilter_unported_branches_raise():
-    """The outlier removals and the angle calibration (ROADMAP item 6) raise
-    instead of running something else; `voxel_reduce` takes the reference's
-    two values, both served by kernel 1."""
-    cloud = TCloud.from_numpy(_scan_points(seed=11)[:1000], cap=1024, device="cpu")
+    """The branches that raised before they were ported (the outlier
+    removals, the angle calibration) now run and give JAX's cloud; what the
+    port does not take still raises (a `voxel_reduce` other than the
+    reference's two values, both served by kernel 1: scan == scatter)."""
+    pts = _scan_points(seed=11)[:1000]
+    cloud = TCloud.from_numpy(pts, cap=1024, device="cpu")
     for kw in (dict(outlier_removal_method="RADIUS"), dict(outlier_removal_method="STATISTICAL"),
                dict(use_angle_calibration=True)):
-        with pytest.raises(NotImplementedError):
-            tpf.prefilter(cloud, tc.PrefilterConfig(raw_cap=1024, out_cap=1024, **kw))
+        cfg = PrefilterConfig(raw_cap=1024, out_cap=1024, **kw)
+        want = jax.jit(functools.partial(jpf.prefilter, cfg=cfg))(JCloud.from_numpy(pts, cap=1024))
+        got = tpf.prefilter(cloud, tc.PrefilterConfig(**dataclasses.asdict(cfg)))
+        np.testing.assert_array_equal(got.mask.numpy(), np.asarray(want.mask))
+        np.testing.assert_array_equal(got.xyz.numpy(), np.asarray(want.xyz))
+    with pytest.raises(ValueError):
+        tpf.prefilter(cloud, tc.PrefilterConfig(raw_cap=1024, out_cap=1024, voxel_reduce="sort"))
     scan = tpf.prefilter(cloud, tc.PrefilterConfig(raw_cap=1024, out_cap=1024, voxel_reduce="scan"))
     scatter = tpf.prefilter(cloud, tc.PrefilterConfig(raw_cap=1024, out_cap=1024))
     assert torch.equal(scan.xyz, scatter.xyz)
