@@ -156,15 +156,27 @@ filtered scan; 2h: K17's nearest centroids and one ICP iteration, K19a's
 covariances and K19b's normal equations on scan 41's 131072 lanes against
 scan 40 at phase 10's guess, K18's two removals and K20 on scan 40, K0a on
 raw scan 40), against its plain version at the shapes phases 5-10 give it.
-Phase 2c also times the LM loop (`optimize_pose_graph`) and 2f K7 (the
-host DLO's Newton loop) and `uniform_subsample`, plain torch around the
-kernels, device and wall, printed as the "host loops" line.
+Phase 2f also times `uniform_subsample` (plain torch), printed as the
+"plain torch" line. Phase 2i holds the device-side loops against their
+twins: K7's `newton_step` (the Newton step of every align, with the
+derivative passes gated on the loop's `done` flag) step by step from
+identical states, on 2f's map and 65536-lane subsample from three starts
+and on K13's batch of 8 x 131072 lanes at the 1 m rung (2c's), then whole
+aligns and the rung, timed device and wall against the twins' loop, with
+their host reads counted (at most ceil((iterations + 1) / NEWTON_GROUP)
+per align, none per rung, none in a whole `dispatch_one`); and the LM's
+kernels (`lm_damp`, `lm_update`, `lm_accept` around K15 and the library
+Cholesky) on 2c's and 2g's graphs: one iteration from identical states,
+whole optimizes against the twin's loop on the card, the reads of `done`
+and the wasted solves (iterations launched after done) per optimize.
 
 The last lines are the kernels' JSON record (each kernel's launches are
 counted on the run of the path that drives it: phase 5 for the lidar
-kernels, 6 for K12, 6b for K12b, 7a for K9g and K9k, 7b for K9c, 8a for
-K3L and K6L, 8d for K6G, 9a for K2r, 9b for K16, 10a for K17, K19a
-and K19b, 10b for K20, 10c for K18 and K0a, named under `launch_phase`), the card's name and power limit, and
+kernels and the LM's, 3 for K7's `newton_step` (with its launches on 8a,
+on 5 over K13's pass and on 10b under `launches_by_phase`), 6 for K12, 6b
+for K12b, 7a for K9g and K9k, 7b for K9c, 8a for K3L and K6L, 8d for K6G,
+9a for K2r, 9b for K16, 10a for K17, K19a and K19b, 10b for K20, 10c for
+K18 and K0a, named under `launch_phase`), the card's name and power limit, and
 `{"ok": true, "device": {...}}`. Without a CUDA device the script exits
 non-zero before it prints any result.
 """
@@ -283,6 +295,8 @@ DEVICE_FUNCTIONS = {
     "_plane_covariances": ("plane_cov",),
     "gicp_align": ("gicp_normal", "gicp_finish"),
     "filter_ground_leaves": ("ground_filter",),
+    "newton_step": ("newton_step",),
+    "optimize_pose_graph": ("lm_damp", "lm_update", "lm_accept"),
 }
 
 
@@ -655,6 +669,50 @@ def check_lfa_kernels(torch, scans, gt, dev):
     return records
 
 
+def backend_graph(torch, rel: np.ndarray, sensors: bool):
+    """(graph, SE3 edges): phase 2c's 64 keyframes (every other pose of the
+    circle `rel`, 0.05 m / 0.01 rad of noise), 63 odometry edges and 8
+    loops from the last 16 keyframes to the first; with `sensors`, phase
+    2g's: GPS / IMU orientation / gravity priors on each keyframe, a fixed
+    floor plane and an SE3-plane edge from each."""
+    from lv_slam_tpu_torch.core import se3
+    from lv_slam_tpu_torch.graph import pose_graph
+
+    rng = np.random.default_rng(SEED)
+    g = pose_graph.empty_graph(64, 128, 256, 8, 64, 16) if sensors else pose_graph.empty_graph(64, 128, 16, 8, 8, 16)
+    kf = rel[::2][:64].astype(np.float64)
+    info = np.diag([2.0] * 3 + [10.0] * 3)
+
+    def noise(scale_t, scale_r):
+        d = np.r_[rng.normal(0, scale_t, 3), rng.normal(0, scale_r, 3)].astype(np.float32)
+        return se3.exp_se3(torch.from_numpy(d)).double().numpy()
+
+    for i in range(64):
+        pose_graph.add_node(g, i, kf[i] @ noise(0.05, 0.01))
+    n_edges = 0
+    for i in range(1, 64):
+        pose_graph.add_se3_edge(g, n_edges, i, i - 1, np.linalg.inv(kf[i]) @ kf[i - 1] @ noise(0.01, 0.002),
+                                info, huber=1.0)
+        n_edges += 1
+    for i in range(48, 64, 2):
+        pose_graph.add_se3_edge(g, n_edges, i, (i - 48) // 2, np.linalg.inv(kf[i]) @ kf[(i - 48) // 2], info,
+                                huber=1.0)
+        n_edges += 1
+    if not sensors:
+        return g, n_edges
+    pose_graph.add_plane_node(g, 0, [0.0, 0.0, 1.0, 0.0], fixed=True)
+    for i in range(64):
+        rot = kf[i][:3, :3]
+        quat = se3.quat_from_matrix(torch.from_numpy(rot.astype(np.float32))).double().numpy()
+        pose_graph.add_prior(g, 3 * i, i, pose_graph.PRIOR_XYZ, kf[i][:3, 3] + rng.normal(0, 0.2, 3),
+                             np.diag([1 / 20.0, 1 / 20.0, 1 / 5.0]), huber=1.0)
+        pose_graph.add_prior(g, 3 * i + 1, i, pose_graph.PRIOR_QUAT, quat, np.eye(3), huber=1.0)
+        pose_graph.add_prior(g, 3 * i + 2, i, pose_graph.PRIOR_VEC, np.r_[0.0, 0.0, 1.0, rot.T @ [0.0, 0.0, 1.0]],
+                             np.eye(3), huber=1.0)
+        pose_graph.add_se3_plane_edge(g, i, i, 0, np.r_[rng.normal(0, 0.01, 2), 1.0, 1.73], np.eye(3) / 100.0)
+    return g, n_edges
+
+
 def check_backend_kernels(torch, scans, gt, dev):
     """Phase 2c: the backend's kernels vs their plain versions at the shapes
     phase 5 gives them: a 16-scan window group of filtered KITTI-density
@@ -662,7 +720,6 @@ def check_backend_kernels(torch, scans, gt, dev):
     candidates of 131072 lanes against the 1 m map of that keyframe cloud,
     its 0.25 m centroid grid, and a 64-node, 128-edge pose graph."""
     from lv_slam_tpu_torch import kitti_flagship_config
-    from lv_slam_tpu_torch.core import se3
     from lv_slam_tpu_torch.core.cloud import PointCloud
     from lv_slam_tpu_torch.graph import pose_graph
     from lv_slam_tpu_torch.ops import ndt_hash, nn, prefilter, voxel_map
@@ -789,26 +846,7 @@ def check_backend_kernels(torch, scans, gt, dev):
 
     # kernel 15: 64 keyframes (every other pose of the circle, 0.05 m / 0.01
     # rad of noise), 63 odometry edges and loops from the last 16 to the first
-    rng = np.random.default_rng(SEED)
-    g = pose_graph.empty_graph(64, 128, 16, 8, 8, 16)
-    kf = rel[::2][:64].astype(np.float64)
-    info = np.diag([2.0] * 3 + [10.0] * 3)
-
-    def noise(scale_t, scale_r):
-        d = np.r_[rng.normal(0, scale_t, 3), rng.normal(0, scale_r, 3)].astype(np.float32)
-        return se3.exp_se3(torch.from_numpy(d)).double().numpy()
-
-    for i in range(64):
-        pose_graph.add_node(g, i, kf[i] @ noise(0.05, 0.01))
-    n_edges = 0
-    for i in range(1, 64):
-        pose_graph.add_se3_edge(g, n_edges, i, i - 1, np.linalg.inv(kf[i]) @ kf[i - 1] @ noise(0.01, 0.002),
-                                info, huber=1.0)
-        n_edges += 1
-    for i in range(48, 64, 2):
-        pose_graph.add_se3_edge(g, n_edges, i, (i - 48) // 2, np.linalg.inv(kf[i]) @ kf[(i - 48) // 2], info,
-                                huber=1.0)
-        n_edges += 1
+    g, n_edges = backend_graph(torch, rel, sensors=False)
     dg = pose_graph.to_device(g, dev)
     k15 = lambda: pose_graph._chi2_and_normal(dg, dg.poses, True)  # noqa: E731
     p15 = lambda: pose_graph._chi2_and_normal_ref(dg, dg.poses, True)  # noqa: E731
@@ -850,25 +888,6 @@ def check_backend_kernels(torch, scans, gt, dev):
     log(f"    the LM's dense solve (cholesky_ex + cholesky_solve, a library call) on the {n} x {n} system: "
         f"{chol_ms:.4f} ms device-only")
 
-    # the LM loop around K15 and the solve (a host read per iteration), whole
-    # `optimize_pose_graph` calls on this graph, and with K15's twin swapped in
-    lm = lambda: pose_graph.optimize_pose_graph(g, 64, device=dev)  # noqa: E731
-    it = lm().iterations
-    lm_dev, lm_wall = loop_ms(torch, lm, reps=3)
-    kernel = pose_graph._chi2_and_normal
-    pose_graph._chi2_and_normal = pose_graph._chi2_and_normal_ref
-    try:
-        plain_dev, plain_wall = loop_ms(torch, lm, reps=1)  # the twin's forward-mode passes: seconds per call
-    finally:
-        pose_graph._chi2_and_normal = kernel
-    # per iteration two K15 launches (build and the accept test) and the
-    # Cholesky factor and solve (n^3 / 3 + 2 n^2 operations)
-    step_bound = 2 * records["_chi2_and_normal"]["bound_ms"] + bound(0, n ** 3 / 3 + 2 * n * n)[0]
-    records["_lm_loop"] = dict(iterations=it, device_ms=lm_dev, wall_ms=lm_wall, plain_device_ms=plain_dev,
-                               plain_wall_ms=plain_wall, bound_ms=it * step_bound + records["_chi2_and_normal"]["bound_ms"])
-    log(f"    the LM loop (optimize_pose_graph, {it} iterations): device {lm_dev:.3f} ms, wall {lm_wall:.3f} ms per "
-        f"optimize; with K15's twin device {plain_dev:.3f} ms, wall {plain_wall:.3f} ms; bound "
-        f"{records['_lm_loop']['bound_ms']:.5f} ms")
     return records
 
 
@@ -881,7 +900,6 @@ def check_graph_input_kernels(torch, scans, gt, dev):
     plane and an SE3-plane edge from each keyframe), and floor detection K16
     on a filtered KITTI-density scan."""
     from lv_slam_tpu_torch import kitti_flagship_config
-    from lv_slam_tpu_torch.core import se3
     from lv_slam_tpu_torch.core.cloud import PointCloud
     from lv_slam_tpu_torch.graph import pose_graph
     from lv_slam_tpu_torch.ops import floor, prefilter
@@ -918,36 +936,7 @@ def check_graph_input_kernels(torch, scans, gt, dev):
             16 * n_in + nbytes(group[2], group[4], group[5]) + 17 * got.cap, 30 * n_in)
 
     # K15 with the sensor factors, against the float64 plain version as in 2c
-    rng = np.random.default_rng(SEED)
-    g = pose_graph.empty_graph(64, 128, 256, 8, 64, 16)
-    kf = rel[::2][:64].astype(np.float64)
-    info = np.diag([2.0] * 3 + [10.0] * 3)
-
-    def noise(scale_t, scale_r):
-        d = np.r_[rng.normal(0, scale_t, 3), rng.normal(0, scale_r, 3)].astype(np.float32)
-        return se3.exp_se3(torch.from_numpy(d)).double().numpy()
-
-    for i in range(64):
-        pose_graph.add_node(g, i, kf[i] @ noise(0.05, 0.01))
-    n_edges = 0
-    for i in range(1, 64):
-        pose_graph.add_se3_edge(g, n_edges, i, i - 1, np.linalg.inv(kf[i]) @ kf[i - 1] @ noise(0.01, 0.002),
-                                info, huber=1.0)
-        n_edges += 1
-    for i in range(48, 64, 2):
-        pose_graph.add_se3_edge(g, n_edges, i, (i - 48) // 2, np.linalg.inv(kf[i]) @ kf[(i - 48) // 2], info,
-                                huber=1.0)
-        n_edges += 1
-    pose_graph.add_plane_node(g, 0, [0.0, 0.0, 1.0, 0.0], fixed=True)
-    for i in range(64):
-        rot = kf[i][:3, :3]
-        quat = se3.quat_from_matrix(torch.from_numpy(rot.astype(np.float32))).double().numpy()
-        pose_graph.add_prior(g, 3 * i, i, pose_graph.PRIOR_XYZ, kf[i][:3, 3] + rng.normal(0, 0.2, 3),
-                             np.diag([1 / 20.0, 1 / 20.0, 1 / 5.0]), huber=1.0)
-        pose_graph.add_prior(g, 3 * i + 1, i, pose_graph.PRIOR_QUAT, quat, np.eye(3), huber=1.0)
-        pose_graph.add_prior(g, 3 * i + 2, i, pose_graph.PRIOR_VEC, np.r_[0.0, 0.0, 1.0, rot.T @ [0.0, 0.0, 1.0]],
-                             np.eye(3), huber=1.0)
-        pose_graph.add_se3_plane_edge(g, i, i, 0, np.r_[rng.normal(0, 0.01, 2), 1.0, 1.73], np.eye(3) / 100.0)
+    g, n_edges = backend_graph(torch, rel, sensors=True)
     dg = pose_graph.to_device(g, dev)
     k15 = lambda: pose_graph._chi2_and_normal(dg, dg.poses, True)  # noqa: E731
     p15 = lambda: pose_graph._chi2_and_normal_ref(dg, dg.poses, True)  # noqa: E731
@@ -1279,9 +1268,7 @@ def check_lut_kernels(torch, scans, gt, dev):
                 ops * hits)
 
     # the host DLO's plain-torch work around them: `uniform_subsample` (one
-    # count, one gather) and K7, the damped Newton loop of its align (a host
-    # read per step), scan 1 from a warm start's guess (the true step moved
-    # by 5 cm and 0.005 rad, where phase 8a's aligns start)
+    # count, one gather; phase 2i takes K7 on this map)
     filtered = prefilter.prefilter(PointCloud.from_numpy(scans[1], cap=pf.raw_cap, device=dev), pf)
     k = cfg.odometry.scan_matching_cap
     _, sub_ms, _ = device_ms(torch, lambda: prefilter.uniform_subsample(filtered, k))
@@ -1290,29 +1277,12 @@ def check_lut_kernels(torch, scans, gt, dev):
     records["_uniform_subsample"] = dict(ms=sub_ms, bound_ms=sub_bound, bound_by=sub_by)
     log(f"    uniform_subsample: {int(filtered.mask.sum())} points -> {k} lanes, {sub_ms:.4f} ms device-only, bound "
         f"{sub_bound:.5f} ms ({sub_by})")
-    warm = se3.exp_se3(torch.tensor([0.05, -0.03, 0.01, 0.0, 0.0, 0.005], device=dev))
-    guess = (warm @ rel).contiguous()
-    align = lambda: ndt_soa.ndt_align_soa_table(  # noqa: E731
-        soa, sub1, guess, resolution=ndt_cfg.resolution, outlier_ratio=ndt_cfg.outlier_ratio,
-        step_size=ndt_cfg.step_size, transformation_epsilon=ndt_cfg.transformation_epsilon,
-        max_iterations=ndt_cfg.max_iterations, neighborhood=ndt_cfg.neighborhood, weighted=ndt_cfg.weighted)
-    it = align().iterations
-    k7_dev, k7_wall = loop_ms(torch, align)
-    with plain_twins():
-        plain_dev, plain_wall = loop_ms(torch, align)
-    # per step one K6L pass (its bound above) and the 6 x 6 solve (~500 operations)
-    step_bound = records["ndt_derivatives_soa"]["bound_ms"] + bound(0, 500)[0]
-    records["_newton_loop"] = dict(iterations=it, device_ms=k7_dev, wall_ms=k7_wall, plain_device_ms=plain_dev,
-                                   plain_wall_ms=plain_wall, bound_ms=(it + 1) * step_bound)
-    log(f"    the Newton loop (K7, ndt_align_soa_table, {it} steps): device {k7_dev:.3f} ms, wall {k7_wall:.3f} ms "
-        f"per align ({k7_dev / it:.4f} / {k7_wall / it:.4f} ms per step); with K6L's twin device "
-        f"{plain_dev:.3f} ms, wall {plain_wall:.3f} ms; bound {(it + 1) * step_bound:.5f} ms")
     return records
 
 
 # ----------------------------------------------------------------- phase 3
 
-ODOMETRY_KERNELS = ("voxel_downsample", "build_voxel_map", "to_hash", "ndt_derivatives_hash")
+ODOMETRY_KERNELS = ("voxel_downsample", "build_voxel_map", "to_hash", "ndt_derivatives_hash", "newton_step")
 CHAIN_KERNELS = ODOMETRY_KERNELS + (
     "extract_features", "insert_cell_table", "crop_cell_table", "lines_from_fit", "planes_from_fit", "gn_solve",
 )
@@ -1441,7 +1411,7 @@ def run_slice(torch, scans, gt, dev, card):
         scans_per_s=n / elapsed, devkit_t_err=t_err, drift_m=drift, syncs_per_scan=syncs / CHUNK,
         idle_share=idle,
     )
-    return summary, poses, syncs
+    return summary, poses, syncs, launches
 
 
 def profile(torch, run, what: str) -> float:
@@ -1710,7 +1680,7 @@ def run_full_path(torch, scans, gt, dev, card):
     stats = dict(graph.loop_detector.stats)
     log(f"  keyframes {len(graph.keyframes)} (reference record {REFERENCE_KEYFRAMES}), loops "
         f"(new seq, old seq, fitness) {loops}, loop_rejections {stats}, LM solves {len(solves)} "
-        f"(iterations {[r.iterations for _, _, r in solves]})")
+        f"(iterations {[int(r.iterations) for _, _, r in solves]})")
     if len(graph.keyframes) != REFERENCE_KEYFRAMES or not loops:
         raise AssertionError("the full path must give the reference's 19 keyframes and close a loop")
     gt_rel = np.einsum("ij,njk->nik", np.linalg.inv(gt[0]), gt)
@@ -1726,7 +1696,7 @@ def run_full_path(torch, scans, gt, dev, card):
     log(f"  the last LM ({n_nodes} nodes, {int(frozen.e_valid.sum())} edges) re-solved by the plain path on "
         f"the CPU: max pose difference {d_graph:.3g} (tol 1e-4); chi2 {float(result.chi2_before):.4f} -> "
         f"{float(result.chi2_after):.4f} on the card, {float(ref.chi2_after):.4f} on the CPU, iterations "
-        f"{result.iterations} / {ref.iterations}")
+        f"{int(result.iterations)} / {int(ref.iterations)}")
     if d_graph > 1e-4:
         raise AssertionError("the card's pose graph departs from the plain path's")
 
@@ -2058,13 +2028,26 @@ def first_poses_vs_cpu(est: np.ndarray, ref: np.ndarray, what: str, where: str =
 # own one-ulp spread of the host DLO (8.6 mm on tests/test_torch_dlo.py's
 # sequence), rounded up.
 CPU_SPREAD_M = 1e-2
+# a whole LM on the card against its twin's loop on the card: poses (m),
+# planes, chi2 (relative), tests/test_torch_pose_graph.py's LM tolerances
+# where the iteration counts may differ (K15 sums with atomics, so two runs
+# of either differ in H's last bits, and near the optimum a step that moves
+# chi2 by less than its rounding is taken or not: 2c's graph ran 29
+# iterations and ended 1.4e-4 m from the twin's)
+LM_TOL = (1e-3, 1e-4, 1e-3)
+# a whole Newton loop against its twins' on the card, the same iterations: a
+# tenth of its transformation_epsilon (the twin's float32 6x6 solve errs by
+# cond(H) x 2^-23, ~1e-4 of a 0.1 m step at these maps' cond ~1e4); an
+# iteration apart, the last step (< eps) may be taken or not: CPU_SPREAD_M
+NDT_LOOP_TOL = 1e-3
 
 
 class plain_twins:
     """Within the block, the LUT paths call K3L's, K6L's and K6G's plain
-    twins on the card, and the registrations and the prefilter's branches
-    those of K17-K20 and K0a (the harness swaps the functions in; no wrapper
-    falls back)."""
+    twins on the card and run the Newton loop (K7) with `newton_step_ref`,
+    and the registrations and the prefilter's branches call those of
+    K17-K20 and K0a (the harness swaps the functions in; no wrapper falls
+    back)."""
 
     def __enter__(self):
         from lv_slam_tpu_torch.odometry import dlo
@@ -2084,6 +2067,8 @@ class plain_twins:
             (nn, "radius_outlier_removal", nn.radius_outlier_removal_ref),
             (nn, "statistical_outlier_removal", nn.statistical_outlier_removal_ref),
             (prefilter, "vertical_angle_calibration", prefilter.vertical_angle_calibration_ref),
+            (ndt, "_newton_loop", ndt._newton_loop_plain),
+            (ndt_soa, "_newton_loop", ndt._newton_loop_plain),
         ]
         self.saved = [(mod, name, getattr(mod, name), twin) for mod, name, twin in self.saved]
         for mod, name, _, twin in self.saved:
@@ -2144,8 +2129,8 @@ def run_host_dlo(torch, scans, gt, dev, card):
     peak = torch.cuda.max_memory_allocated()
     launches = {name: k.launches for name, k in KERNELS.items()}
     log(f"  launches on the host DLO ({n} scans): {launches}")
-    missing = [name for name in ("voxel_downsample", "build_voxel_map", "build_lut", "ndt_derivatives_soa")
-               if launches[name] == 0]
+    missing = [name for name in ("voxel_downsample", "build_voxel_map", "build_lut", "ndt_derivatives_soa",
+                                 "newton_step") if launches[name] == 0]
     if missing:
         raise AssertionError(f"kernels never launched on the host DLO: {missing}")
     est = np.stack(odo.poses)
@@ -2327,9 +2312,9 @@ def run_generic_align(torch, scans, gt, dev, card):
     t_err = float(np.linalg.norm(got[:3, 3] - gt_rel[:3, 3]))
     r_err = float(se3.rotation_angle(torch.from_numpy(np.linalg.inv(gt_rel) @ got)[:3, :3]))
     log(f"  recovered scan 1 -> scan 0: translation error {t_err:.4f} m (gate 0.05), rotation error {r_err:.4f} rad "
-        f"(gate 0.02), converged {res.converged} in {res.iterations} Newton iterations, {elapsed:.3f} s "
+        f"(gate 0.02), converged {bool(res.converged)} in {int(res.iterations)} Newton iterations, {elapsed:.3f} s "
         f"map build and align included ({card})")
-    if not (t_err < 0.05 and r_err < 0.02 and res.converged):
+    if not (t_err < 0.05 and r_err < 0.02 and bool(res.converged)):
         raise AssertionError("the generic align misses tests/test_ndt.py's gates")
     with plain_twins():
         twin = align(dev)
@@ -2338,7 +2323,7 @@ def run_generic_align(torch, scans, gt, dev, card):
     ref = align("cpu")
     first_poses_vs_cpu(got[None], ref.transform.numpy()[None].astype(np.float64), "generic-align transform",
                        tol=CPU_SPREAD_M)
-    return dict(t_err_m=t_err, r_err_rad=r_err, iterations=res.iterations, seconds=elapsed), launches
+    return dict(t_err_m=t_err, r_err_rad=r_err, iterations=int(res.iterations), seconds=elapsed), launches
 
 
 # ----------------------------------------------------------------- phase 9
@@ -2655,7 +2640,7 @@ def run_services(torch, slam, dev, card):
     wf_rows = kitti.read_pose_file(str(out / "ggo_wf_odom.txt")).shape[0]
     log(f"  dump {len(files)} entries in {t_dump:.2f} s; load_dump {len(loaded.keyframes)} keyframes in "
         f"{t_load:.2f} s; "
-        f"re-optimized in {result.iterations} iterations ({t_opt:.2f} s, chi2 {float(result.chi2_before):.4f} -> "
+        f"re-optimized in {int(result.iterations)} iterations ({t_opt:.2f} s, chi2 {float(result.chi2_before):.4f} -> "
         f"{float(result.chi2_after):.4f}; the dumped graph's chi2 there {float(orig.chi2_before):.6g}, relative "
         f"difference {d_chi2:.3g}, tol 1e-4), largest pose change {moved:.3g} from the dumped estimates (tol 1e-3), "
         f"{same:.3g} from the dumped graph solved again (tol 1e-3); map {points.shape[0]} points "
@@ -2665,7 +2650,7 @@ def run_services(torch, slam, dev, card):
         raise AssertionError("the resumed graph's factors or re-optimized poses depart from the dumped graph's")
     if not 0 < points.shape[0] <= 1 << 20 or kf_rows != len(backend.keyframes) or wf_rows != len(backend.odoms):
         raise AssertionError("save_map or save_pose wrote the wrong number of rows")
-    return dict(dump_s=t_dump, load_s=t_load, reoptimize_iterations=result.iterations, max_pose_change=moved,
+    return dict(dump_s=t_dump, load_s=t_load, reoptimize_iterations=int(result.iterations), max_pose_change=moved,
                 vs_dumped_graph_resolved=same, chi2_rel_diff=d_chi2,
                 map_points=int(points.shape[0]), map_s=t_map, pose_rows=[kf_rows, wf_rows],
                 map_voxel_downsample=map_records["voxel_downsample"])
@@ -2934,6 +2919,391 @@ def check_registration_kernels(torch, scans, gt, dev):
     return records
 
 
+def _alpha64(ndt, state, lane: int, step_min: float):
+    """Lane `lane`'s next step length from its state after a step, solved in
+    float64 on the host (the 6x6 system rounded to float32 first, as the
+    kernel takes it), and the system's condition number."""
+    f = state.f[lane].double().cpu().numpy()
+    g, h = f[ndt.F_GRAD:ndt.F_GRAD + 6], f[ndt.F_HESS:ndt.F_HESS + 36].reshape(6, 6)
+    ridge = np.float32(1e-6) * np.float32(np.abs(np.diag(h)).sum()) / np.float32(6.0) + np.float32(1e-12)
+    a = (h + ridge * np.eye(6)).astype(np.float32).astype(np.float64)
+    norm = float(np.linalg.norm(np.linalg.solve(a, -g)))
+    return min(max(norm, step_min), float(f[ndt.F_CAP])), float(np.linalg.cond(a))
+
+
+def newton_steps(torch, ndt, state, pass_, sums_at, p):
+    """Steps `state` to done one kernel iteration at a time; before each
+    step a copy takes `newton_step_ref` with the same derivative sums
+    (`sums_at(candidates)`: the pass and `ndt_finish`, the order
+    `newton_step` sums in). Per lane the iteration count, the accepted
+    transform, score, gradient, Hessian and cap must be identical; `done`
+    and `bad` too, except where alpha lies within the solves' rounding of
+    eps or eps / 2 (counted); a running lane's step length alpha within
+    1e-5 (relative) of the step solved in float64 (`_alpha64`), and its
+    candidate within 1e-6 plus the twin's float32 solve error (2^-23 times
+    the condition number times alpha) of the twin's. (A float64 candidate
+    is no yardstick: the reference's float32 exp_se3 takes (1 - cos t) / t^2,
+    which one ulp of cos moves by 6e-8 / t^2, up to ~1e-5 of the step at
+    t ~ 1e-3 rad; kernel and twin share CUDA's cosf.) Returns (steps, flag
+    flips, largest candidate difference to the twin, largest relative alpha
+    difference to float64)."""
+    steps = flips = 0
+    worst_twin = worst64 = 0.0
+    same_cols = ((ndt.F_T, ndt.F_T + 16), (ndt.F_SCORE, ndt.F_HESS + 36), (ndt.F_CAP, ndt.F_CAP + 1))
+    while not state.all_done():
+        twin = state.clone()
+        running = (state.s[:, ndt.S_DONE] == 0).tolist()
+        sums = sums_at(twin.f[:, ndt.F_CAND:ndt.F_CAND + 16].reshape(state.k, 4, 4).contiguous())
+        pass_.launch(state)
+        ndt.newton_step(state, pass_.n_blocks, p)
+        ndt.newton_step_ref(twin, *sums, p)
+        steps += 1
+        if not torch.equal(state.s[:, ndt.S_IT], twin.s[:, ndt.S_IT]):
+            raise AssertionError(f"newton_step: iteration counts {state.s[:, ndt.S_IT].tolist()} vs the twin's "
+                                 f"{twin.s[:, ndt.S_IT].tolist()}")
+        for lo, hi in same_cols:
+            if not torch.equal(state.f[:, lo:hi], twin.f[:, lo:hi]):
+                raise AssertionError(f"newton_step: state columns {lo}:{hi} differ from the twin's")
+        for c in range(state.k):
+            if not running[c]:
+                continue
+            flags, twin_flags = state.s[c, [ndt.S_DONE, ndt.S_BAD]].tolist(), twin.s[c, [ndt.S_DONE, ndt.S_BAD]].tolist()
+            alpha = float(state.f[c, ndt.F_ALPHA])
+            if flags != twin_flags:
+                near = min(abs(alpha - p.eps) / p.eps, abs(alpha - p.step_min) / p.step_min)
+                if near > 1e-5:
+                    raise AssertionError(f"newton_step: done / bad {flags} vs the twin's {twin_flags}, alpha {alpha}")
+                flips += 1
+                continue
+            if any(flags):
+                continue
+            cand = state.f[c, ndt.F_CAND:ndt.F_CAND + 16]
+            twin_cand = twin.f[c, ndt.F_CAND:ndt.F_CAND + 16]
+            alpha64, cond = _alpha64(ndt, state, c, p.step_min)
+            e64, et = abs(alpha - alpha64) / alpha64, float((cand - twin_cand).abs().max())
+            if e64 > 1e-5 or et > 1e-6 + 2.0**-23 * cond * alpha64:
+                raise AssertionError(f"newton_step: alpha {e64} from float64's (tol 1e-5), candidate {et} from the "
+                                     f"twin's (condition number {cond:.3g})")
+            worst64, worst_twin = max(worst64, e64), max(worst_twin, et)
+    return steps, flips, worst_twin, worst64
+
+
+def check_loop_kernels(torch, scans, gt, dev, prior):
+    """Phase 2i: the device-side loops against their twins at the main
+    path's shapes. K7 (`newton_step`, with the derivative passes gated on
+    `done`): every step of the host DLO's align of scan 1's 65536-lane
+    subsample onto scan 0's keyframe map (phase 2f's), from its warm
+    start, from the first scan's x = +1.5 m guess and from 0.3 m and 0.02
+    rad off, each from identical states; then whole aligns, timed against
+    the twins' loop on the card, with their host reads counted; K13's batch
+    of 8 candidates x 131072 lanes at the 1 m rung (phase 2c's) step by step
+    and whole, and the whole `dispatch_one` of that batch (no synchronizing
+    call). The LM (`optimize_pose_graph`: `lm_damp`, `lm_update`,
+    `lm_accept` around K15 and the Cholesky) on phase 2c's 64-keyframe graph
+    and 2g's with priors: one iteration from identical states, whole
+    optimizes against the twin's on the card, reads and wasted solves
+    counted. `prior`: the records of phases 2c and 2f (K6L's, K13's and
+    K15's bounds, the Cholesky's time)."""
+    import lv_slam_tpu_torch.graph.pose_graph as pose_graph
+    from lv_slam_tpu_torch import kitti_flagship_config
+    from lv_slam_tpu_torch.config import LoopDetectorConfig
+    from lv_slam_tpu_torch.core import se3
+    from lv_slam_tpu_torch.core.cloud import SENTINEL, PointCloud
+    from lv_slam_tpu_torch.graph.keyframe import KeyFrame
+    from lv_slam_tpu_torch.graph.loop_detector import LoopDetector
+    from lv_slam_tpu_torch.kernels import KERNELS, reset_launches
+    from lv_slam_tpu_torch.ops import ndt, ndt_hash, ndt_soa, prefilter, voxel_map
+    from lv_slam_tpu_torch.pipeline import window
+
+    cfg = kitti_flagship_config()
+    pf, ndt_cfg = cfg.prefilter, cfg.odometry.ndt
+    records = {}
+
+    # K7 on phase 2f's map
+    def subsample(i):
+        raw = PointCloud.from_numpy(scans[i], cap=pf.raw_cap, device=dev)
+        return prefilter.uniform_subsample(prefilter.prefilter(raw, pf), cfg.odometry.scan_matching_cap)
+
+    sub0, sub1 = subsample(0), subsample(1)
+    vm = voxel_map.build_voxel_map(
+        sub0, ndt_cfg.resolution, leaf_cap=ndt_cfg.leaf_cap, lut_extent=ndt_cfg.lut_extent,
+        min_points_per_voxel=ndt_cfg.min_points_per_voxel, min_covar_eigvalue_mult=ndt_cfg.min_covar_eigvalue_mult,
+        weighted=ndt_cfg.weighted,
+    )
+    soa = ndt_soa.to_soa(vm, voxel_map.build_lut(vm))
+    xs, mask = sub1.masked_xyz().T.contiguous(), sub1.mask.contiguous()
+    gauss = ndt.make_gauss_params(ndt_cfg.resolution, ndt_cfg.outlier_ratio)
+    offsets = voxel_map.neighborhood_offsets(ndt_cfg.neighborhood, dev)
+    pass_ = ndt_soa.soa_pass(soa, xs, mask, gauss, offsets, ndt_cfg.weighted)
+    p = ndt.loop_params(np.float32(ndt_cfg.transformation_epsilon), ndt_cfg.step_size, ndt_cfg.max_iterations)
+
+    def sums_at(cands):
+        return ndt_soa.ndt_derivatives_soa(soa, xs, mask, cands[0], gauss, offsets, ndt_cfg.weighted)
+
+    rel = torch.from_numpy((np.linalg.inv(gt[0]) @ gt[1]).astype(np.float32)).to(dev)
+    first = torch.eye(4, device=dev)
+    first[0, 3] = cfg.odometry.initial_guess_x
+    starts = {
+        "warm start": (se3.exp_se3(torch.tensor([0.05, -0.03, 0.01, 0.0, 0.0, 0.005], device=dev)) @ rel).contiguous(),
+        "x = +1.5 m": first,
+        "0.3 m and 0.02 rad off": (se3.exp_se3(torch.tensor([0.3, 0.0, 0.0, 0.0, 0.0, 0.02], device=dev)) @ rel
+                                   ).contiguous(),
+    }
+    total = [0, 0, 0.0, 0.0]
+    for name, guess in starts.items():
+        state = ndt.NewtonState(guess[None])
+        state.partials = torch.empty((pass_.n_blocks * ndt.N_TERMS,), dtype=torch.float32, device=dev)
+        steps, flips, et, e64 = newton_steps(torch, ndt, state, pass_, sums_at, p)
+        total = [total[0] + steps, total[1] + flips, max(total[2], et), max(total[3], e64)]
+        log(f"  newton_step from {name}: {steps} steps ({int(state.s[0, ndt.S_IT])} iterations) from identical "
+            f"states, {flips} done / bad flags decided by rounding, candidates within {et:.3g} of the twin's and "
+            f"alpha within {e64:.3g} of float64's (tol 1e-5)")
+
+    # one step's time: from the state after the first step, at its candidate
+    state = ndt.NewtonState(starts["x = +1.5 m"][None])
+    state.partials = torch.empty((pass_.n_blocks * ndt.N_TERMS,), dtype=torch.float32, device=dev)
+    pass_.launch(state)
+    ndt.newton_step(state, pass_.n_blocks, p)
+    pass_.launch(state)
+    sums = sums_at(state.f[:, ndt.F_CAND:ndt.F_CAND + 16].reshape(1, 4, 4).contiguous())
+    f0, s0 = state.f.clone(), state.s.clone()
+    twin = state.clone()
+
+    def k7():
+        state.f.copy_(f0)
+        state.s.copy_(s0)
+        ndt.newton_step(state, pass_.n_blocks, p)
+
+    def p7():
+        twin.f.copy_(f0)
+        twin.s.copy_(s0)
+        ndt.newton_step_ref(twin, *sums, p)
+
+    # bytes: the partial rows and the state row read once, the state written
+    # once; operations: the rows' sums, the 6x6 LU (~150 in float64), the
+    # exponential and the 4x4 product (~250)
+    measure(torch, records, "newton_step", k7, p7, total[2],
+            4 * pass_.n_blocks * ndt.N_TERMS + 2 * (4 * ndt.F_WIDTH + 4 * ndt.S_WIDTH),
+            pass_.n_blocks * ndt.N_TERMS + 400)
+    step_bound = records["newton_step"]["bound_ms"]
+
+    # whole aligns: the host DLO's from its warm start, the kernels against
+    # the twins' loop on the card
+    align = lambda: ndt_soa.ndt_align_soa_table(  # noqa: E731
+        soa, sub1, starts["warm start"], resolution=ndt_cfg.resolution, outlier_ratio=ndt_cfg.outlier_ratio,
+        step_size=ndt_cfg.step_size, transformation_epsilon=ndt_cfg.transformation_epsilon,
+        max_iterations=ndt_cfg.max_iterations, neighborhood=ndt_cfg.neighborhood, weighted=ndt_cfg.weighted)
+    aligns = {}
+    for name, guess in starts.items():
+        run = lambda guess=guess: ndt_soa.ndt_align_soa_table(  # noqa: E731
+            soa, sub1, guess, resolution=ndt_cfg.resolution, outlier_ratio=ndt_cfg.outlier_ratio,
+            step_size=ndt_cfg.step_size, transformation_epsilon=ndt_cfg.transformation_epsilon,
+            max_iterations=ndt_cfg.max_iterations, neighborhood=ndt_cfg.neighborhood, weighted=ndt_cfg.weighted)
+        runs = []
+        reads = count_syncs(torch, lambda run=run: runs.append(run()))
+        got = runs[0]
+        it = int(got.iterations)
+        if reads > -(-(it + 1) // ndt.NEWTON_GROUP):
+            raise AssertionError(f"K7 from {name}: {reads} host reads for {it} iterations (NEWTON_GROUP "
+                                 f"{ndt.NEWTON_GROUP})")
+        saved = ndt_soa._newton_loop
+        ndt_soa._newton_loop = ndt._newton_loop_plain
+        try:
+            want = run()
+        finally:
+            ndt_soa._newton_loop = saved
+        err = float((got.transform - want.transform).abs().max())
+        tol = NDT_LOOP_TOL if it == int(want.iterations) else CPU_SPREAD_M
+        if err > tol:
+            raise AssertionError(f"K7 from {name}: the align departs from the twins' loop on the card by {err} "
+                                 f"(tol {tol})")
+        aligns[name] = dict(iterations=it, twin_iterations=int(want.iterations), reads=reads, max_abs_err=err)
+        log(f"  K7 align from {name}: {it} iterations ({int(want.iterations)} with the twins), {reads} host reads "
+            f"(at most ceil((it + 1) / {ndt.NEWTON_GROUP})), transform within {err:.3g} of the twins' loop on the card "
+            f"(tol {tol})")
+    it = aligns["warm start"]["iterations"]
+    dev_ms, wall_ms = loop_ms(torch, align)
+    saved = ndt_soa._newton_loop
+    ndt_soa._newton_loop = ndt._newton_loop_plain
+    try:
+        plain_dev, plain_wall = loop_ms(torch, align)
+    finally:
+        ndt_soa._newton_loop = saved
+    align_bound = (it + 1) * (prior["ndt_derivatives_soa"]["bound_ms"] + step_bound)
+    records["newton_step"]["align"] = dict(
+        iterations=it, device_ms=dev_ms, wall_ms=wall_ms, plain_device_ms=plain_dev, plain_wall_ms=plain_wall,
+        bound_ms=align_bound, reads=aligns["warm start"]["reads"], starts=aligns)
+    log(f"    the host DLO's align (K7 over K6L, {it} iterations): device {dev_ms:.3f} ms, wall {wall_ms:.3f} ms per "
+        f"align; the twins' loop (K6L's twin, newton_step_ref) device {plain_dev:.3f} ms, wall {plain_wall:.3f} ms; "
+        f"bound {align_bound:.5f} ms")
+
+    # K13's batch at the 1 m rung (phase 2c's keyframe and candidates)
+    res, kf_cap = pf.downsample_resolution, 131072
+    rel_all = np.einsum("ij,njk->nik", np.linalg.inv(gt[0]), gt).astype(np.float32)
+
+    def filtered(i):
+        raw = PointCloud.from_numpy(scans[i], cap=pf.raw_cap, device=dev)
+        band = prefilter.distance_filter(raw, pf.distance_near_thresh, pf.distance_far_thresh)
+        return prefilter.voxel_downsample(band, res, pf.out_cap)
+
+    scans_f = [filtered(i) for i in range(17)]
+    rows = scans_f[:16]
+    keyframe = window.window_group_filtered(
+        torch.stack([c.xyz.T for c in rows]).contiguous(), torch.stack([c.intensity for c in rows]),
+        torch.stack([c.mask for c in rows]), 0, torch.from_numpy(rel_all[:16].copy()).to(dev),
+        torch.ones(16, dtype=torch.bool, device=dev), res, kf_cap)
+    cands = [scans_f[i] for i in range(2, 18, 2)]
+    guesses = torch.from_numpy(rel_all[2:18:2].copy()).to(dev)
+    guesses[:, 0, 3] += 0.2
+    hm = ndt_hash.to_hash(voxel_map.build_voxel_map(keyframe, 1.0, leaf_cap=16384, lut_extent=256))
+    batch = PointCloud(torch.stack([c.xyz for c in cands]), torch.stack([c.intensity for c in cands]),
+                       torch.stack([c.mask for c in cands]))
+    bmask = batch.mask.contiguous()
+    bxs = torch.where(bmask[..., None], batch.xyz, SENTINEL).transpose(1, 2).contiguous()
+    offsets7 = voxel_map.neighborhood_offsets("DIRECT7", dev)
+    gauss1 = ndt.make_gauss_params(1.0)
+    iters = kitti_flagship_config().loop.verify_max_iterations
+    bpass = ndt_hash.hash_pass(hm, bxs, bmask, gauss1, offsets7, False)
+    bp = ndt.loop_params(0.01, 0.1, iters)
+    state = ndt.NewtonState(guesses, batched=True)
+    state.partials = torch.empty((8 * bpass.n_blocks * ndt.N_TERMS,), dtype=torch.float32, device=dev)
+    steps, flips, et, e64 = newton_steps(
+        torch, ndt, state, bpass,
+        lambda c: ndt_hash.ndt_derivatives_hash_batched(hm, bxs, bmask, c, gauss1, offsets7, False), bp)
+    total = [total[0] + steps, total[1] + flips, max(total[2], et), max(total[3], e64)]
+    log(f"  newton_step over K13's batch (8 x {bxs.shape[2]} lanes, 1 m, DIRECT7): {steps} steps from identical "
+        f"states, iterations {state.s[:, ndt.S_IT].tolist()}, {flips} flags decided by rounding, candidates within "
+        f"{et:.3g} of the twin's, alpha within {e64:.3g} of float64's (tol 1e-5)")
+    verify = lambda: ndt_hash.ndt_align_hash_table_batched(  # noqa: E731
+        hm, batch, guesses, resolution=1.0, transformation_epsilon=0.01, max_iterations=iters, neighborhood="DIRECT7")
+    runs = []
+    reset_launches()
+    reads = count_syncs(torch, lambda: runs.append(verify()))
+    got_t, _, got_it = runs[0]
+    launched = KERNELS["newton_step"].launches
+    if reads or launched != iters + 2:
+        raise AssertionError(f"K13's loop: {reads} host reads, {launched} steps launched (expected 0 and {iters + 2})")
+    if not bool(torch.isfinite(got_t).all()) or not torch.equal(got_it, state.s[:, ndt.S_IT]):
+        raise AssertionError(f"K13's loop: iterations {got_it.tolist()} against the step-by-step run's "
+                             f"{state.s[:, ndt.S_IT].tolist()}")
+    k13_dev, k13_wall = loop_ms(torch, verify)
+    k13_bound = (iters + 2) * (prior["_fused_verify_fn"]["bound_ms"] + 8 * step_bound)
+    records["newton_step"]["k13_rung"] = dict(
+        iterations=got_it.tolist(), launched=launched, reads=reads, device_ms=k13_dev, wall_ms=k13_wall,
+        bound_ms=k13_bound)
+    log(f"    K13's 1 m rung (8 candidates, {iters + 2} gated iterations launched, no host read): device "
+        f"{k13_dev:.3f} ms, wall {k13_wall:.3f} ms per rung; bound {k13_bound:.5f} ms (the iterations it needs)")
+    # the whole verification as the backend dispatches it: the new keyframe
+    # (2c's window cloud) against the 8 candidates, the 4 / 2 / 1 m rungs
+    # and the fitness; it must make no synchronizing call
+    new_kf = KeyFrame(stamp=10.0, seq=100, odom=np.eye(4), accum_distance=200.0, cloud=keyframe, node_id=50)
+    cand_kfs = []
+    for i, cloud in zip(range(2, 18, 2), cands):
+        odom = rel_all[i].astype(np.float64)
+        odom[0, 3] += 0.2
+        cand_kfs.append(KeyFrame(stamp=0.1 * i, seq=i, odom=odom, accum_distance=float(i), cloud=cloud, node_id=i))
+    detector = LoopDetector(LoopDetectorConfig())
+    detector.dispatch_one(cand_kfs, [1.0] * 8, new_kf)
+    torch.cuda.synchronize()
+    pending = []
+    dispatch_syncs = count_syncs(torch, lambda: pending.append(detector.dispatch_one(cand_kfs, [1.0] * 8, new_kf)))
+    if dispatch_syncs or not bool(torch.isfinite(pending[0].packed).all()):
+        raise AssertionError(f"dispatch_one: {dispatch_syncs} synchronizing calls (expected none)")
+    records["newton_step"]["dispatch_one_syncs"] = dispatch_syncs
+    log(f"  dispatch_one (8 candidates x {bxs.shape[2]} lanes, rungs {detector._resolutions} m): {dispatch_syncs} "
+        f"synchronizing calls")
+    log(f"  newton_step: {total[0]} steps checked, {total[1]} flags decided by rounding; kernel "
+        f"{records['newton_step']['ms']:.4f} ms per step")
+
+    # the LM on phase 2c's and 2g's graphs
+    lm_records = {}
+    for name, sensors in (("2c", False), ("2g", True)):
+        graph, _ = backend_graph(torch, rel_all, sensors)
+        g = pose_graph.to_device(graph, dev)
+        chi2_0, _, _ = pose_graph._chi2_and_normal(g, g.poses, False, g.planes)
+        a = pose_graph.LMState(g, chi2_0)
+        b = a.clone()
+        pose_graph._lm_iteration(g, a, 64)
+        pose_graph._lm_iteration_ref(g, b, 64)
+        err1 = max(float((a.poses - b.poses).abs().max()), float((a.planes - b.planes).abs().max()))
+        if err1 > 1e-5 or not torch.equal(a.lmi, b.lmi):
+            raise AssertionError(f"the LM kernels' iteration on {name}'s graph: poses {err1} from the twin's "
+                                 f"(tol 1e-5), flags {a.lmi.tolist()} vs {b.lmi.tolist()}")
+        optimize = lambda graph=graph: pose_graph.optimize_pose_graph(graph, 1024, device=dev)  # noqa: E731
+        copies = count_syncs(torch, lambda graph=graph: pose_graph.to_device(graph, dev))
+        # the reads and the launches of one run, held to that run's iterations
+        # (K15's atomics can move a run's count by one between runs)
+        runs = []
+        reset_launches()
+        reads = count_syncs(torch, lambda: runs.append(optimize())) - copies
+        got = runs[0]
+        it = int(got.iterations)
+        launched = KERNELS["optimize_pose_graph"].launches
+        saved = pose_graph._lm_iteration
+        pose_graph._lm_iteration = pose_graph._lm_iteration_ref
+        try:
+            want = optimize()
+            plain_dev, plain_wall = loop_ms(torch, optimize, reps=3)
+        finally:
+            pose_graph._lm_iteration = saved
+        err = float((got.poses - want.poses).abs().max())
+        err_planes = float((got.planes - want.planes).abs().max())
+        err_chi2 = abs(float(got.chi2_after) - float(want.chi2_after)) / abs(float(want.chi2_after))
+        if any(e > t for e, t in zip((err, err_planes, err_chi2), LM_TOL)):
+            raise AssertionError(f"the LM on {name}'s graph: poses {err}, planes {err_planes}, chi2 {err_chi2} "
+                                 f"(relative) from the twin's loop, tolerances {LM_TOL}")
+        if reads > -(-it // pose_graph.LM_GROUP):
+            raise AssertionError(f"the LM on {name}'s graph: {reads} reads for {it} iterations")
+        dev_ms, wall_ms = loop_ms(torch, optimize, reps=3)
+        lm_records[name] = dict(iterations=it, twin_iterations=int(want.iterations), launched=launched,
+                                wasted_solves=launched - it, reads=reads, graph_copies=copies, device_ms=dev_ms,
+                                wall_ms=wall_ms, plain_device_ms=plain_dev, plain_wall_ms=plain_wall, max_abs_err=err,
+                                first_iteration_err=err1)
+        log(f"  the LM on {name}'s graph: {it} iterations ({int(want.iterations)} with the twin), {launched} "
+            f"launched ({launched - it} wasted solves), {reads} host reads of done (+{copies} for the graph's "
+            f"copies to the card); poses within {err:.3g}, planes {err_planes:.3g}, chi2 {err_chi2:.3g} of the twin's "
+            f"loop (tol {LM_TOL}), the first iteration within {err1:.3g} (tol 1e-5); device {dev_ms:.3f} ms, wall "
+            f"{wall_ms:.3f} ms per optimize; the twin's "
+            f"loop device {plain_dev:.3f} ms, wall {plain_wall:.3f} ms")
+
+    # the LM kernels' time per iteration on 2c's graph, from one fixed state
+    graph, n_edges = backend_graph(torch, rel_all, False)
+    g = pose_graph.to_device(graph, dev)
+    chi2_0, _, _ = pose_graph._chi2_and_normal(g, g.poses, False, g.planes)
+    st0 = pose_graph.LMState(g, chi2_0)
+    st, st_twin = st0.clone(), st0.clone()
+
+    def restore(dst):
+        for key, v in st0.__dict__.items():
+            getattr(dst, key).copy_(v)
+
+    def klm():
+        restore(st)
+        pose_graph._lm_iteration(g, st, 1024)
+
+    def plm():
+        restore(st_twin)
+        pose_graph._lm_iteration_ref(g, st_twin, 1024)
+
+    n, k = pose_graph._n_dofs(g), g.node_cap
+    # bytes: H read and cleared, the damped system written, b, rhs and the
+    # solve read, the poses and planes read and their candidates written and
+    # read once more; operations: the damping, ~300 per node
+    measure(torch, records, "optimize_pose_graph", klm, plm, max(r["max_abs_err"] for r in lm_records.values()),
+            4 * (3 * n * n + 4 * n) + 3 * nbytes(g.poses, g.planes), n * n + 300 * k)
+    records["optimize_pose_graph"]["library_ms"] = prior["_chi2_and_normal"]["cholesky_ms"]
+    records["optimize_pose_graph"]["optimize"] = lm_records
+    per_it = records["optimize_pose_graph"]["bound_ms"] + 2 * prior["_chi2_and_normal"]["bound_ms"] + bound(
+        0, n ** 3 / 3 + 2 * n * n)[0]
+    for r in lm_records.values():
+        r["bound_ms"] = r["iterations"] * per_it + prior["_chi2_and_normal"]["bound_ms"]
+    log(f"    per iteration: the LM kernels {records['optimize_pose_graph']['ms']:.4f} ms, the whole iteration "
+        f"{records['optimize_pose_graph']['wrapper_device_ms']:.4f} ms device (K15 twice, the Cholesky "
+        f"{prior['_chi2_and_normal']['cholesky_ms']:.4f} ms); bound per optimize (2c) "
+        f"{lm_records['2c']['bound_ms']:.5f} ms")
+    return records
+
+
 def run_factory(torch, scans, gt, dev, card):
     """Phase 10a: `select_registration_method`'s four methods on phase 10's
     pair at full width (tests/test_registrations.py's case at KITTI
@@ -2999,18 +3369,18 @@ def run_ground_ndt(torch, scans, gt, dev, card):
     got = res.transform.cpu().numpy()
     elapsed = time.perf_counter() - t0
     launches = {name: k.launches for name, k in KERNELS.items() if k.launches}
-    log(f"  ground NDT: t = {got[:3, 3].round(5).tolist()} (gates |x|, |y| < 5e-3, |z| < 0.4), {res.iterations} Newton "
+    log(f"  ground NDT: t = {got[:3, 3].round(5).tolist()} (gates |x|, |y| < 5e-3, |z| < 0.4), {int(res.iterations)} Newton "
         f"iterations, {elapsed * 1e3:.1f} ms map build and align included ({card}); launches {launches}")
     if not (abs(got[0, 3]) < 5e-3 and abs(got[1, 3]) < 5e-3 and abs(got[2, 3]) < 0.4):
         raise AssertionError("the ground NDT misses tests/test_registrations.py's gates")
-    if not (launches.get("filter_ground_leaves") and launches.get("ndt_derivatives")):
-        raise AssertionError("the ground NDT must launch K20 and K6G")
+    if not (launches.get("filter_ground_leaves") and launches.get("ndt_derivatives") and launches.get("newton_step")):
+        raise AssertionError("the ground NDT must launch K20, K6G and K7")
     with plain_twins():
         twin = ndt_ground.ndt_ground_align(vm, voxel_map.build_lut(vm), source, guess, resolution=10.0,
                                            max_iterations=16).transform.cpu().numpy()
     first_poses_vs_cpu(got[None].astype(np.float64), twin[None].astype(np.float64), "ground-NDT transform",
                        "on the card")
-    return dict(t=got[:3, 3].tolist(), iterations=res.iterations, ms=elapsed * 1e3), launches["filter_ground_leaves"]
+    return dict(t=got[:3, 3].tolist(), iterations=int(res.iterations), ms=elapsed * 1e3), launches
 
 
 def run_dlo_branches(torch, scans, gt, dev, card):
@@ -3157,9 +3527,11 @@ def main() -> int:
     records.update(graph_records)
     log("phase 2h: the registrations' and the prefilter branches' kernels (K17-K20, K0a)")
     records.update(check_registration_kernels(torch, scans_all, gt_all, dev))
+    log("phase 2i: the device-side loops (K7's newton_step over K6L and K13's pass, the LM's kernels around K15)")
+    records.update(check_loop_kernels(torch, scans_all, gt_all, dev, records))
 
     log("phase 3: the odometry slice end to end")
-    summary, odometry_poses, odometry_syncs = run_slice(torch, scans, gt, dev, card)
+    summary, odometry_poses, odometry_syncs, slice_launches = run_slice(torch, scans, gt, dev, card)
     log(f"  summary ({card}): {json.dumps(summary)}")
 
     log("phase 4: the dlo -> LFA chain end to end")
@@ -3233,18 +3605,24 @@ def main() -> int:
     log("phase 10c: the host DLO with the prefilter's last branches (STATISTICAL + calibration, RADIUS)")
     summary, branch_launches = run_dlo_branches(torch, scans_all, gt_all, dev, card)
     log(f"  summary ({card}): {json.dumps(summary)}")
-    launches.update(factory_launches, filter_ground_leaves=ground_launches, **branch_launches)
+    # K7's steps on the phase of each path: the hash pass (3), K6L's (8a),
+    # K13's (5: one step per batched pass) and the `dof` form (10b)
+    newton_by_phase = {"3": slice_launches["newton_step"], "8a": dlo_launches["newton_step"],
+                       "5 (K13)": launches["_fused_verify_fn"], "10b": ground_launches["newton_step"]}
+    log(f"  newton_step launches by phase: {newton_by_phase}")
+    launches.update(factory_launches, filter_ground_leaves=ground_launches["filter_ground_leaves"], **branch_launches,
+                    newton_step=slice_launches["newton_step"])
     launch_phase.update(dict.fromkeys(factory_launches, "10a"), filter_ground_leaves="10b",
-                        **dict.fromkeys(branch_launches, "10c"))
-    host_loops = {key: records.pop(key) for key in ("_newton_loop", "_lm_loop", "_uniform_subsample")}
-    log(f"  host loops ({card}): {json.dumps(host_loops)}")
+                        **dict.fromkeys(branch_launches, "10c"), newton_step="3")
+    records["newton_step"]["launches_by_phase"] = newton_by_phase
+    log(f"  plain torch ({card}): {json.dumps({'_uniform_subsample': records.pop('_uniform_subsample')})}")
 
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     kernels = [
         dict(
             name=name, route="cuda", source=k.source, replaces=k.replaces,
             launches=launches[name], launch_phase=launch_phase[name], **{key: records[name][key] for key in keys},
-            **{extra: records[name][extra] for extra in ("cholesky_ms", "with_sensor_factors")
+            **{extra: records[name][extra] for extra in ("cholesky_ms", "with_sensor_factors", "launches_by_phase")
                if extra in records[name]},
         )
         for name, k in KERNELS.items()

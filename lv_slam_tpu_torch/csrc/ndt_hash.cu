@@ -121,12 +121,15 @@ __global__ void hash_rows(const float* means, const float* icovs, const float* w
 __global__ void __launch_bounds__(lvs::kThreads)
 ndt_partials(const float* __restrict__ table, int b_bits, const int* __restrict__ origin,
              float inv_res, int e, const float* __restrict__ xs, int n,
-             const bool* __restrict__ mask, const float* __restrict__ T, float d1, float d2,
-             const int* __restrict__ offsets, int k, int weighted, float* __restrict__ partials) {
+             const bool* __restrict__ mask, const float* __restrict__ T, int t_stride, const int* __restrict__ done,
+             int done_stride, float d1, float d2, const int* __restrict__ offsets, int k, int weighted,
+             float* __restrict__ partials) {
+  // the Newton loop's gate: a finished candidate's block returns at once
+  if (done != nullptr && done[done_stride * blockIdx.y]) return;
   // candidate blockIdx.y: its own points, mask, transform and partial rows
   xs += 3LL * n * blockIdx.y;
   mask += static_cast<long long>(n) * blockIdx.y;
-  T += 16 * blockIdx.y;
+  T += static_cast<long long>(t_stride) * blockIdx.y;
   partials += static_cast<long long>(kTerms) * gridDim.x * blockIdx.y;
   float acc[kTerms];
 #pragma unroll
@@ -192,8 +195,8 @@ extern "C" int lvs_ndt_hash_derivatives(const float* table, int b_bits, const in
                                         const int* offsets, int k, int weighted, float* partials,
                                         int n_blocks, float* out, cudaStream_t stream) {
   ndt_partials<<<n_blocks, lvs::kThreads, 0, stream>>>(table, b_bits, origin, inv_res, e, xs, n,
-                                                       mask, T, d1, d2, offsets, k, weighted,
-                                                       partials);
+                                                       mask, T, 16, nullptr, 0, d1, d2, offsets, k,
+                                                       weighted, partials);
   ndt_finish<<<1, 64, 0, stream>>>(partials, n_blocks, out);
   LVS_RETURN_LAST_ERROR();
 }
@@ -208,8 +211,25 @@ extern "C" int lvs_ndt_hash_derivatives_batched(const float* table, int b_bits, 
                                                 float* out, cudaStream_t stream) {
   if (n_cand > 0) {
     ndt_partials<<<dim3(n_blocks, n_cand), lvs::kThreads, 0, stream>>>(
-        table, b_bits, origin, inv_res, e, xs, n, mask, T, d1, d2, offsets, k, weighted, partials);
+        table, b_bits, origin, inv_res, e, xs, n, mask, T, 16, nullptr, 0, d1, d2, offsets, k, weighted,
+        partials);
     ndt_finish<<<n_cand, 64, 0, stream>>>(partials, n_blocks, out);
   }
+  LVS_RETURN_LAST_ERROR();
+}
+
+// The Newton loop's pass (K6 with n_cand 1, K13's with the candidates):
+// candidate c's transform at T + t_stride * c and its gate at done +
+// done_stride * c, both in the loop's state buffers; the partial rows only
+// (`newton_step` sums them).
+extern "C" int lvs_ndt_hash_partials(const float* table, int b_bits, const int* origin, float inv_res, int e,
+                                     const float* xs, int n, const bool* mask, const float* T, int t_stride,
+                                     const int* done, int done_stride, int n_cand, float d1, float d2,
+                                     const int* offsets, int k, int weighted, float* partials, int n_blocks,
+                                     cudaStream_t stream) {
+  if (n_cand > 0)
+    ndt_partials<<<dim3(n_blocks, n_cand), lvs::kThreads, 0, stream>>>(
+        table, b_bits, origin, inv_res, e, xs, n, mask, T, t_stride, done, done_stride, d1, d2, offsets, k,
+        weighted, partials);
   LVS_RETURN_LAST_ERROR();
 }

@@ -43,8 +43,10 @@ using lvs::fma64;  // float32 fma as the plain twin's `fma32` computes it
 __global__ void __launch_bounds__(lvs::kThreads)
 ndt_lut_partials(const float* __restrict__ packed, const int* __restrict__ lut,
                  const int* __restrict__ origin, float res, int e, const float* __restrict__ xs, int n,
-                 const bool* __restrict__ mask, const float* __restrict__ T, float d1, float d2,
-                 const int* __restrict__ offsets, int k, int weighted, float* __restrict__ partials) {
+                 const bool* __restrict__ mask, const float* __restrict__ T, const int* __restrict__ done,
+                 float d1, float d2, const int* __restrict__ offsets, int k, int weighted,
+                 float* __restrict__ partials) {
+  if (done != nullptr && *done) return;  // the Newton loop's gate
   float acc[kTerms];
 #pragma unroll
   for (int v = 0; v < kTerms; ++v) acc[v] = 0.0f;
@@ -139,9 +141,10 @@ __global__ void __launch_bounds__(lvs::kThreads)
 ndt_generic_partials(const float* __restrict__ means, const float* __restrict__ icovs,
                      const float* __restrict__ weights, const int* __restrict__ lut,
                      const int* __restrict__ origin, float res, int e, const float* __restrict__ xyz,
-                     int n, const bool* __restrict__ mask, const float* __restrict__ T, float d1,
-                     float d2, const int* __restrict__ offsets, int k, int weighted,
-                     float* __restrict__ partials) {
+                     int n, const bool* __restrict__ mask, const float* __restrict__ T,
+                     const int* __restrict__ done, float d1, float d2, const int* __restrict__ offsets, int k,
+                     int weighted, float* __restrict__ partials) {
+  if (done != nullptr && *done) return;  // the Newton loop's gate
   float acc[kTerms];
 #pragma unroll
   for (int v = 0; v < kTerms; ++v) acc[v] = 0.0f;
@@ -184,8 +187,8 @@ extern "C" int lvs_ndt_lut_derivatives(const float* packed, const int* lut, cons
                                        int e, const float* xs, int n, const bool* mask, const float* T,
                                        float d1, float d2, const int* offsets, int k, int weighted,
                                        float* partials, int n_blocks, float* out, cudaStream_t stream) {
-  ndt_lut_partials<<<n_blocks, lvs::kThreads, 0, stream>>>(packed, lut, origin, res, e, xs, n, mask, T, d1, d2,
-                                                           offsets, k, weighted, partials);
+  ndt_lut_partials<<<n_blocks, lvs::kThreads, 0, stream>>>(packed, lut, origin, res, e, xs, n, mask, T, nullptr,
+                                                           d1, d2, offsets, k, weighted, partials);
   ndt_finish<<<1, 64, 0, stream>>>(partials, n_blocks, out);
   LVS_RETURN_LAST_ERROR();
 }
@@ -197,7 +200,31 @@ extern "C" int lvs_ndt_generic_derivatives(const float* means, const float* icov
                                            float d1, float d2, const int* offsets, int k, int weighted,
                                            float* partials, int n_blocks, float* out, cudaStream_t stream) {
   ndt_generic_partials<<<n_blocks, lvs::kThreads, 0, stream>>>(means, icovs, weights, lut, origin, res, e, xyz, n,
-                                                               mask, T, d1, d2, offsets, k, weighted, partials);
+                                                               mask, T, nullptr, d1, d2, offsets, k, weighted,
+                                                               partials);
   ndt_finish<<<1, 64, 0, stream>>>(partials, n_blocks, out);
+  LVS_RETURN_LAST_ERROR();
+}
+
+// The Newton loop's passes (K7, csrc/newton.cu): the transform is the
+// candidate in the loop's state, the pass is skipped once `*done` is set,
+// and only the partial rows are written (`newton_step` sums them).
+extern "C" int lvs_ndt_lut_partials(const float* packed, const int* lut, const int* origin, float res, int e,
+                                    const float* xs, int n, const bool* mask, const float* T, const int* done,
+                                    float d1, float d2, const int* offsets, int k, int weighted, float* partials,
+                                    int n_blocks, cudaStream_t stream) {
+  ndt_lut_partials<<<n_blocks, lvs::kThreads, 0, stream>>>(packed, lut, origin, res, e, xs, n, mask, T, done, d1,
+                                                           d2, offsets, k, weighted, partials);
+  LVS_RETURN_LAST_ERROR();
+}
+
+extern "C" int lvs_ndt_generic_partials(const float* means, const float* icovs, const float* weights, const int* lut,
+                                        const int* origin, float res, int e, const float* xyz, int n,
+                                        const bool* mask, const float* T, const int* done, float d1, float d2,
+                                        const int* offsets, int k, int weighted, float* partials, int n_blocks,
+                                        cudaStream_t stream) {
+  ndt_generic_partials<<<n_blocks, lvs::kThreads, 0, stream>>>(means, icovs, weights, lut, origin, res, e, xyz, n,
+                                                               mask, T, done, d1, d2, offsets, k, weighted,
+                                                               partials);
   LVS_RETURN_LAST_ERROR();
 }

@@ -10,7 +10,7 @@
 // edges, 256 priors, 64 SE3-plane and 16 plane-plane factors and a dense H of
 // at most 408 x 408 floats (666 KB). Each factor costs a few thousand flops
 // and up to 156 scattered adds; the launches are latency, and the LM's
-// Cholesky (a library call) and its host loop cost more.
+// Cholesky (a library call) costs more.
 //
 // Design: one thread per factor, one kernel per family. An edge thread forms
 // delta = Z^-1 Ti^-1 Tj, the residual [t, 2 q_xyz] (Shepperd's quaternion:
@@ -33,6 +33,8 @@
 // run). Each factor writes its chi2 term to its own slot; `chi2_sum` adds
 // all slots in a fixed order, so the trial step's accept test is
 // deterministic. `build = 0` is the chi2-only variant of the trial step.
+// Inside the device-side LM loop (csrc/lm.cu) every launch takes the loop's
+// `done` flag (null outside it) and returns at once when it is set.
 #include "common.cuh"
 
 namespace {
@@ -92,7 +94,9 @@ __global__ void se3_edges(const float* __restrict__ poses, const int* __restrict
                           const int* __restrict__ e_j, const float* __restrict__ meas,
                           const float* __restrict__ info, const float* __restrict__ huber,
                           const bool* __restrict__ valid, int n_edges, int n, int build,
-                          float* __restrict__ rho_out, float* __restrict__ H, float* __restrict__ b) {
+                          float* __restrict__ rho_out, float* __restrict__ H, float* __restrict__ b,
+                          const int* __restrict__ done) {
+  if (done != nullptr && *done) return;  // the LM loop's gate
   int e = blockIdx.x * blockDim.x + threadIdx.x;
   if (e >= n_edges) return;
   if (!valid[e]) {
@@ -379,7 +383,9 @@ __device__ void prior_residual(const float* t, int dir, int type, const float* m
 __global__ void priors(const float* __restrict__ poses, const int* __restrict__ node, const int* __restrict__ type,
                        const float* __restrict__ meas, const float* __restrict__ info,
                        const float* __restrict__ huber, const bool* __restrict__ valid, int n_priors, int n,
-                       int build, float* __restrict__ rho_out, float* __restrict__ H, float* __restrict__ b) {
+                       int build, float* __restrict__ rho_out, float* __restrict__ H, float* __restrict__ b,
+                       const int* __restrict__ done) {
+  if (done != nullptr && *done) return;
   int f = blockIdx.x * blockDim.x + threadIdx.x;
   if (f >= n_priors) return;
   if (!valid[f]) {
@@ -426,7 +432,8 @@ __global__ void se3_planes(const float* __restrict__ poses, const float* __restr
                            const float* __restrict__ meas, const float* __restrict__ info,
                            const float* __restrict__ huber, const bool* __restrict__ valid, int n_sp, int n_nodes,
                            int n, int build, float* __restrict__ rho_out, float* __restrict__ H,
-                           float* __restrict__ b) {
+                           float* __restrict__ b, const int* __restrict__ done) {
+  if (done != nullptr && *done) return;
   int f = blockIdx.x * blockDim.x + threadIdx.x;
   if (f >= n_sp) return;
   if (!valid[f]) {
@@ -481,7 +488,8 @@ __global__ void plane_edges(const float* __restrict__ planes, const int* __restr
                             const float* __restrict__ meas, const float* __restrict__ info,
                             const float* __restrict__ huber, const bool* __restrict__ valid, int n_q, int n_nodes,
                             int n, int build, float* __restrict__ rho_out, float* __restrict__ H,
-                            float* __restrict__ b) {
+                            float* __restrict__ b, const int* __restrict__ done) {
+  if (done != nullptr && *done) return;
   int f = blockIdx.x * blockDim.x + threadIdx.x;
   if (f >= n_q) return;
   if (!valid[f]) {
@@ -508,7 +516,9 @@ __global__ void plane_edges(const float* __restrict__ planes, const int* __restr
 }
 
 // one block: a fixed-order sum of the factors' chi2 terms
-__global__ void chi2_sum(const float* __restrict__ rho, int n_edges, float* __restrict__ out) {
+__global__ void chi2_sum(const float* __restrict__ rho, int n_edges, float* __restrict__ out,
+                         const int* __restrict__ done) {
+  if (done != nullptr && *done) return;  // uniform over the block
   __shared__ float part[lvs::kThreads];
   float s = 0.0f;
   for (int e = threadIdx.x; e < n_edges; e += blockDim.x) s += rho[e];
@@ -525,43 +535,47 @@ __global__ void chi2_sum(const float* __restrict__ rho, int n_edges, float* __re
 
 extern "C" int lvs_pose_graph_edges(const float* poses, const int* e_i, const int* e_j, const float* meas,
                                     const float* info, const float* huber, const bool* valid, int n_edges,
-                                    int n, int build, float* rho, float* H, float* b, cudaStream_t stream) {
+                                    int n, int build, float* rho, float* H, float* b, const int* done,
+                                    cudaStream_t stream) {
   if (n_edges > 0)
     se3_edges<<<lvs::blocks_for(n_edges), lvs::kThreads, 0, stream>>>(
-        poses, e_i, e_j, meas, info, huber, valid, n_edges, n, build, rho, H, b);
+        poses, e_i, e_j, meas, info, huber, valid, n_edges, n, build, rho, H, b, done);
   LVS_RETURN_LAST_ERROR();
 }
 
 extern "C" int lvs_pose_graph_priors(const float* poses, const int* node, const int* type, const float* meas,
                                      const float* info, const float* huber, const bool* valid, int n_priors,
-                                     int n, int build, float* rho, float* H, float* b, cudaStream_t stream) {
+                                     int n, int build, float* rho, float* H, float* b, const int* done,
+                                     cudaStream_t stream) {
   if (n_priors > 0)
     priors<<<lvs::blocks_for(n_priors), lvs::kThreads, 0, stream>>>(
-        poses, node, type, meas, info, huber, valid, n_priors, n, build, rho, H, b);
+        poses, node, type, meas, info, huber, valid, n_priors, n, build, rho, H, b, done);
   LVS_RETURN_LAST_ERROR();
 }
 
 extern "C" int lvs_pose_graph_se3_planes(const float* poses, const float* planes, const int* sp_i,
                                          const int* sp_plane, const float* meas, const float* info,
                                          const float* huber, const bool* valid, int n_sp, int n_nodes, int n,
-                                         int build, float* rho, float* H, float* b, cudaStream_t stream) {
+                                         int build, float* rho, float* H, float* b, const int* done,
+                                         cudaStream_t stream) {
   if (n_sp > 0)
     se3_planes<<<lvs::blocks_for(n_sp), lvs::kThreads, 0, stream>>>(
-        poses, planes, sp_i, sp_plane, meas, info, huber, valid, n_sp, n_nodes, n, build, rho, H, b);
+        poses, planes, sp_i, sp_plane, meas, info, huber, valid, n_sp, n_nodes, n, build, rho, H, b, done);
   LVS_RETURN_LAST_ERROR();
 }
 
 extern "C" int lvs_pose_graph_plane_edges(const float* planes, const int* q_i, const int* q_j, const int* type,
                                           const float* meas, const float* info, const float* huber,
                                           const bool* valid, int n_q, int n_nodes, int n, int build, float* rho,
-                                          float* H, float* b, cudaStream_t stream) {
+                                          float* H, float* b, const int* done, cudaStream_t stream) {
   if (n_q > 0)
     plane_edges<<<lvs::blocks_for(n_q), lvs::kThreads, 0, stream>>>(
-        planes, q_i, q_j, type, meas, info, huber, valid, n_q, n_nodes, n, build, rho, H, b);
+        planes, q_i, q_j, type, meas, info, huber, valid, n_q, n_nodes, n, build, rho, H, b, done);
   LVS_RETURN_LAST_ERROR();
 }
 
-extern "C" int lvs_pose_graph_chi2(const float* rho, int n_terms, float* chi2, cudaStream_t stream) {
-  chi2_sum<<<1, lvs::kThreads, 0, stream>>>(rho, n_terms, chi2);
+extern "C" int lvs_pose_graph_chi2(const float* rho, int n_terms, float* chi2, const int* done,
+                                   cudaStream_t stream) {
+  chi2_sum<<<1, lvs::kThreads, 0, stream>>>(rho, n_terms, chi2, done);
   LVS_RETURN_LAST_ERROR();
 }

@@ -235,8 +235,11 @@ class LoopDetector:
         cap = int(cands.xyz.shape[1])
         stride = max(1, cap // budget) if budget > 0 else 1
         dev = new_kf.cloud.xyz.device
+        guesses_t = torch.from_numpy(np.stack(pad).astype(np.float32))
+        if dev.type == "cuda":  # a pinned, asynchronous copy: a pageable one waits for the stream
+            guesses_t = guesses_t.pin_memory().to(dev, non_blocking=True)
         packed = fused_verify(
-            new_kf.cloud, cands, torch.from_numpy(np.stack(pad).astype(np.float32)).to(dev),
+            new_kf.cloud, cands, guesses_t,
             self._resolutions, self._iter_schedule, c.ndt_neighborhood, self._leaf_cap, self._lut_extent,
             0.25, stride,
         )

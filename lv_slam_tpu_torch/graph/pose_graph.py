@@ -16,11 +16,14 @@ of every factor family are kernel 15 (`csrc/pose_graph.cu`) on CUDA and
 `_chi2_and_normal_ref` (`torch.func.jvp`, as the reference's `jax.jacfwd`)
 on CPU. The dense solve is `torch.linalg.cholesky_ex` + `cholesky_solve`, a
 library call, as the reference leaves it to `jax.scipy.linalg.solve`. The
-LM loop is a host loop with one read per iteration.
+LM loop keeps its state on the device (`LMState`); on CUDA its body around
+kernel 15 and the solve is `csrc/lm.cu`, every launch gated on the loop's
+`done` flag, which the host reads once per `LM_GROUP` iterations.
 """
 
 from __future__ import annotations
 
+import ctypes
 from typing import NamedTuple, Optional
 
 import numpy as np
@@ -35,12 +38,23 @@ KERNEL = Kernel(
     source="lv_slam_tpu_torch/csrc/pose_graph.cu",
     replaces="lv_slam_tpu/graph/pose_graph.py:240",
     entries={
-        "lvs_pose_graph_edges": [PTR, PTR, PTR, PTR, PTR, PTR, PTR, I32, I32, I32, PTR, PTR, PTR],
-        "lvs_pose_graph_priors": [PTR, PTR, PTR, PTR, PTR, PTR, PTR, I32, I32, I32, PTR, PTR, PTR],
-        "lvs_pose_graph_se3_planes": [PTR, PTR, PTR, PTR, PTR, PTR, PTR, PTR, I32, I32, I32, I32, PTR, PTR, PTR],
+        "lvs_pose_graph_edges": [PTR, PTR, PTR, PTR, PTR, PTR, PTR, I32, I32, I32, PTR, PTR, PTR, PTR],
+        "lvs_pose_graph_priors": [PTR, PTR, PTR, PTR, PTR, PTR, PTR, I32, I32, I32, PTR, PTR, PTR, PTR],
+        "lvs_pose_graph_se3_planes": [PTR, PTR, PTR, PTR, PTR, PTR, PTR, PTR, I32, I32, I32, I32, PTR, PTR, PTR,
+                                      PTR],
         "lvs_pose_graph_plane_edges": [PTR, PTR, PTR, PTR, PTR, PTR, PTR, PTR, I32, I32, I32, I32, PTR, PTR,
-                                       PTR],
-        "lvs_pose_graph_chi2": [PTR, I32, PTR],
+                                       PTR, PTR],
+        "lvs_pose_graph_chi2": [PTR, I32, PTR, PTR],
+    },
+)
+LM_KERNEL = Kernel(
+    "optimize_pose_graph",
+    source="lv_slam_tpu_torch/csrc/lm.cu",
+    replaces="lv_slam_tpu/graph/pose_graph.py:381",
+    entries={
+        "lvs_lm_damp": [PTR, PTR, PTR, PTR, PTR, PTR, I32, I32, PTR, PTR, PTR, PTR],
+        "lvs_lm_update": [PTR, PTR, PTR, PTR, PTR, PTR, I32, I32, I32, PTR],
+        "lvs_lm_accept": [PTR, PTR, PTR, PTR, I32, I32, PTR, PTR, I32],
     },
 )
 
@@ -240,18 +254,11 @@ def _n_dofs(graph: PoseGraph) -> int:
     return 6 * graph.node_cap + 3 * graph.plane_cap
 
 
-def _chi2_and_normal(graph: PoseGraph, poses: torch.Tensor, build: bool, planes: Optional[torch.Tensor] = None):
-    """chi2 (+ the dense H (n, n) and b (n,) when `build`) of every factor
-    at `poses` and `planes` (default: the graph's), over the state [6K se(3)
-    dofs | 3Q plane dofs]. Kernel 15 on CUDA, the plain version on CPU."""
-    planes = graph.planes if planes is None else planes
-    if poses.device.type == "cpu":
-        return _chi2_and_normal_ref(graph, poses, build, planes)
-    g = graph
-    n = _n_dofs(g)
+def _check_graph(g: PoseGraph, poses: torch.Tensor, planes: torch.Tensor) -> None:
+    """Kernel 15's arguments: contiguous CUDA tensors of the graph's dtypes
+    and shapes (checked once per LM loop: they do not change inside it)."""
     k, q = g.node_cap, g.plane_cap
     n_e, n_p, n_s, n_r = g.edge_cap, g.p_node.shape[0], g.sp_i.shape[0], g.q_i.shape[0]
-    poses, planes = poses.contiguous(), planes.contiguous()
     name = "_chi2_and_normal"
     check_cuda(name, poses, planes, *g)
     check_dtype(name, poses, torch.float32, (k, 4, 4))
@@ -268,22 +275,49 @@ def _chi2_and_normal(graph: PoseGraph, poses: torch.Tensor, build: bool, planes:
         ("q_huber", torch.float32, (n_r,)), ("q_valid", torch.bool, (n_r,)),
     ):
         check_dtype(name, getattr(g, field), dtype, shape)
+
+
+def _k15(g: PoseGraph, poses, planes, build: bool, rho, h, b, chi2, done) -> None:
+    """Kernel 15's launches on checked arguments: every factor family's
+    rho terms (and, with `build`, H and b), then their sum into the pointer
+    `chi2` unless it is None. `done`: the LM loop's gate (None outside it)."""
+    n, k = _n_dofs(g), g.node_cap
+    n_e, n_p, n_s, n_r = g.edge_cap, g.p_node.shape[0], g.sp_i.shape[0], g.q_i.shape[0]
+    rho_p, rho_s, rho_r = rho[n_e:], rho[n_e + n_p:], rho[n_e + n_p + n_s:]
+    out = (ptr(h), ptr(b), done)
+    KERNEL.call("lvs_pose_graph_edges", ptr(poses), ptr(g.e_i), ptr(g.e_j), ptr(g.e_meas), ptr(g.e_info),
+                ptr(g.e_huber), ptr(g.e_valid), n_e, n, int(build), ptr(rho), *out)
+    KERNEL.call("lvs_pose_graph_priors", ptr(poses), ptr(g.p_node), ptr(g.p_type), ptr(g.p_meas), ptr(g.p_info),
+                ptr(g.p_huber), ptr(g.p_valid), n_p, n, int(build), ptr(rho_p), *out)
+    KERNEL.call("lvs_pose_graph_se3_planes", ptr(poses), ptr(planes), ptr(g.sp_i), ptr(g.sp_plane), ptr(g.sp_meas),
+                ptr(g.sp_info), ptr(g.sp_huber), ptr(g.sp_valid), n_s, k, n, int(build), ptr(rho_s), *out)
+    KERNEL.call("lvs_pose_graph_plane_edges", ptr(planes), ptr(g.q_i), ptr(g.q_j), ptr(g.q_type), ptr(g.q_meas),
+                ptr(g.q_info), ptr(g.q_huber), ptr(g.q_valid), n_r, k, n, int(build), ptr(rho_r), *out)
+    if chi2 is not None:
+        KERNEL.call("lvs_pose_graph_chi2", ptr(rho), rho.shape[0], chi2, done)
+    KERNEL.launches += 1
+
+
+def _n_terms(g: PoseGraph) -> int:
+    return g.edge_cap + g.p_node.shape[0] + g.sp_i.shape[0] + g.q_i.shape[0]
+
+
+def _chi2_and_normal(graph: PoseGraph, poses: torch.Tensor, build: bool, planes: Optional[torch.Tensor] = None):
+    """chi2 (+ the dense H (n, n) and b (n,) when `build`) of every factor
+    at `poses` and `planes` (default: the graph's), over the state [6K se(3)
+    dofs | 3Q plane dofs]. Kernel 15 on CUDA, the plain version on CPU."""
+    planes = graph.planes if planes is None else planes
+    if poses.device.type == "cpu":
+        return _chi2_and_normal_ref(graph, poses, build, planes)
+    n = _n_dofs(graph)
+    poses, planes = poses.contiguous(), planes.contiguous()
+    _check_graph(graph, poses, planes)
     dev = poses.device
-    rho = torch.empty((n_e + n_p + n_s + n_r,), dtype=torch.float32, device=dev)
+    rho = torch.empty((_n_terms(graph),), dtype=torch.float32, device=dev)
     chi2 = torch.empty((), dtype=torch.float32, device=dev)
     h = torch.zeros((n, n) if build else (1, 1), dtype=torch.float32, device=dev)
     b = torch.zeros((n,) if build else (1,), dtype=torch.float32, device=dev)
-    rho_p, rho_s, rho_r = rho[n_e:], rho[n_e + n_p:], rho[n_e + n_p + n_s:]
-    KERNEL.call("lvs_pose_graph_edges", ptr(poses), ptr(g.e_i), ptr(g.e_j), ptr(g.e_meas), ptr(g.e_info),
-                ptr(g.e_huber), ptr(g.e_valid), n_e, n, int(build), ptr(rho), ptr(h), ptr(b))
-    KERNEL.call("lvs_pose_graph_priors", ptr(poses), ptr(g.p_node), ptr(g.p_type), ptr(g.p_meas), ptr(g.p_info),
-                ptr(g.p_huber), ptr(g.p_valid), n_p, n, int(build), ptr(rho_p), ptr(h), ptr(b))
-    KERNEL.call("lvs_pose_graph_se3_planes", ptr(poses), ptr(planes), ptr(g.sp_i), ptr(g.sp_plane), ptr(g.sp_meas),
-                ptr(g.sp_info), ptr(g.sp_huber), ptr(g.sp_valid), n_s, k, n, int(build), ptr(rho_s), ptr(h), ptr(b))
-    KERNEL.call("lvs_pose_graph_plane_edges", ptr(planes), ptr(g.q_i), ptr(g.q_j), ptr(g.q_type), ptr(g.q_meas),
-                ptr(g.q_info), ptr(g.q_huber), ptr(g.q_valid), n_r, k, n, int(build), ptr(rho_r), ptr(h), ptr(b))
-    KERNEL.call("lvs_pose_graph_chi2", ptr(rho), rho.shape[0], ptr(chi2))
-    KERNEL.launches += 1
+    _k15(graph, poses, planes, build, rho, h, b, ptr(chi2), None)
     return (chi2, h, b) if build else (chi2, None, None)
 
 
@@ -362,46 +396,130 @@ class OptimizeResult(NamedTuple):
     poses: torch.Tensor
     chi2_before: torch.Tensor
     chi2_after: torch.Tensor
-    iterations: int
+    iterations: torch.Tensor  # () int32, on the graph's device
     planes: torch.Tensor
+
+
+# LM iterations launched between two host reads of the loop's `done` flag:
+# the backend's solves take 12 to 22 iterations on the flagship circle
+# (`chip_smoke.py` phase 5 on an H100), so 4 reads them in 3 to 6 reads
+# with at most 3 iterations launched after done
+LM_GROUP = 4
+
+# the loop's scalars (csrc/lm.cu): floats ...
+L_LAM, L_CHI2, L_NEW_CHI2 = 0, 1, 2
+# ... and ints
+M_DONE, M_IT, M_OK, M_SMALL = 0, 1, 2, 3
+
+
+class LMState:
+    """The LM loop's state on the graph's device: the current and candidate
+    poses and planes, `lmf` float32 [lam, chi2, candidate chi2, pad] and
+    `lmi` int32 [done, it, ok, small]; on CUDA also the kernels' buffers
+    (H and b, which K15 accumulates into and `lm_damp` clears, the damped
+    system and its right-hand side, the factors' chi2 terms)."""
+
+    def __init__(self, g: PoseGraph, chi2_0: torch.Tensor):
+        dev = g.poses.device
+        self.poses, self.planes = g.poses.clone(), g.planes.clone()
+        self.cand_poses, self.cand_planes = torch.empty_like(self.poses), torch.empty_like(self.planes)
+        self.lmf = torch.full((4,), 1e-4, dtype=torch.float32, device=dev)  # a fill: no host-to-device copy
+        self.lmf[L_CHI2] = chi2_0
+        self.lmi = torch.zeros((4,), dtype=torch.int32, device=dev)
+        if dev.type == "cuda":
+            n = _n_dofs(g)
+            self.h = torch.zeros((n, n), dtype=torch.float32, device=dev)
+            self.b = torch.zeros((n,), dtype=torch.float32, device=dev)
+            self.damped = torch.empty((n, n), dtype=torch.float32, device=dev)
+            self.rhs = torch.empty((n, 1), dtype=torch.float32, device=dev)
+            self.rho = torch.empty((_n_terms(g),), dtype=torch.float32, device=dev)
+
+    def clone(self) -> "LMState":
+        """A copy with its own buffers."""
+        out = LMState.__new__(LMState)
+        out.__dict__.update({key: v.clone() for key, v in self.__dict__.items()})
+        return out
+
+    def done_ptr(self):
+        return ctypes.c_void_p(self.lmi.data_ptr() + 4 * M_DONE)
 
 
 def optimize_pose_graph(graph: PoseGraph, num_iterations: int = 128, device="cuda") -> OptimizeResult:
     """The reference's LM loop (accept/reject, lambda schedule, convergence
-    tests) with one host read per iteration; returns re-anchored poses and
-    the planes."""
+    tests); returns re-anchored poses and the planes, left on the device.
+    On CUDA an iteration is kernel 15, `lm_damp`, the Cholesky factor and
+    solve, `lm_update`, kernel 15's chi2 and `lm_accept`, every launch but
+    the factorization gated on `done`; iterations go in groups of `LM_GROUP`
+    with one host read of `done` after each group but the last. On CPU the
+    twin (`_lm_iteration_ref`) runs in the same loop."""
     g = to_device(graph, device)
-    k = g.node_cap
-    dev = g.poses.device
-    chi2_0, _, _ = _chi2_and_normal(g, g.poses, False, g.planes)
-    poses, planes, chi2 = g.poses, g.planes, chi2_0
-    lam = torch.tensor(1e-4, dtype=torch.float32, device=dev)
-    it = 0
-    while True:
-        _, h, b = _chi2_and_normal(g, poses, True, planes)
-        h, b = _apply_gauge(h, b, g)
-        damped = h + lam * torch.diag(torch.clamp(torch.diagonal(h), min=1e-6))
-        chol, info = torch.linalg.cholesky_ex(damped)
-        delta = torch.cholesky_solve(-b[:, None], chol)[:, 0]
-        ok = (info == 0) & torch.all(torch.isfinite(delta))
-        delta = torch.where(ok, delta, 0.0)
-        new_poses = se3.exp_se3(delta[: 6 * k].reshape(k, 6)) @ poses
-        new_planes = factors.plane_oplus(planes, delta[6 * k:].reshape(g.plane_cap, 3))
-        new_chi2, _, _ = _chi2_and_normal(g, new_poses, False, new_planes)
-        accept = ok & (new_chi2 <= chi2)
-        poses = torch.where(accept, new_poses, poses)
-        planes = torch.where(accept, new_planes, planes)
-        chi2_next = torch.where(accept, new_chi2, chi2)
-        lam = torch.where(accept, torch.clamp(lam * 0.5, min=1e-9), torch.clamp(lam * 4.0, max=1e6))
-        it += 1
-        small = torch.max(torch.abs(delta)) < 1e-6
-        rel_ok = accept & ((chi2 - chi2_next) < 1e-8 * (chi2 + 1e-12))
-        chi2 = chi2_next
-        if it >= num_iterations or bool(small | rel_ok):
+    chi2_0, _, _ = _chi2_and_normal(g, g.poses, False, g.planes)  # checks K15's arguments once
+    st = LMState(g, chi2_0)
+    step = _lm_iteration if g.poses.device.type == "cuda" else _lm_iteration_ref
+    bound = max(num_iterations, 1)  # the reference's loop body runs at least once
+    launched = 0
+    while launched < bound:
+        for _ in range(min(LM_GROUP, bound - launched)):
+            step(g, st, num_iterations)
+            launched += 1
+        if launched < bound and bool(st.lmi[M_DONE]):
             break
-    anchor = g.poses[0] @ se3.inverse(poses[0])
-    poses = torch.einsum("ij,njk->nik", anchor, poses)
-    return OptimizeResult(poses=poses, chi2_before=chi2_0, chi2_after=chi2, iterations=it, planes=planes)
+    anchor = g.poses[0] @ se3.inverse(st.poses[0])
+    poses = torch.einsum("ij,njk->nik", anchor, st.poses)
+    return OptimizeResult(poses=poses, chi2_before=chi2_0, chi2_after=st.lmf[L_CHI2], iterations=st.lmi[M_IT],
+                          planes=st.planes)
+
+
+def _lm_iteration(g: PoseGraph, st: LMState, num_iterations: int) -> None:
+    """One gated LM iteration on the card (csrc/lm.cu around kernel 15)."""
+    k, q, n = g.node_cap, g.plane_cap, _n_dofs(g)
+    done = st.done_ptr()
+    _k15(g, st.poses, st.planes, True, st.rho, st.h, st.b, None, done)
+    LM_KERNEL.call("lvs_lm_damp", ptr(st.h), ptr(st.b), ptr(g.node_valid), ptr(g.node_fixed), ptr(g.plane_valid),
+                   ptr(g.plane_fixed), k, n, ptr(st.lmf), ptr(st.lmi), ptr(st.damped), ptr(st.rhs))
+    chol, info = torch.linalg.cholesky_ex(st.damped)
+    delta = torch.cholesky_solve(st.rhs, chol)
+    LM_KERNEL.call("lvs_lm_update", ptr(delta), ptr(info), ptr(st.poses), ptr(st.planes), ptr(st.cand_poses),
+                   ptr(st.cand_planes), k, q, n, ptr(st.lmi))
+    _k15(g, st.cand_poses, st.cand_planes, False, st.rho, st.h, st.b,
+         ctypes.c_void_p(st.lmf.data_ptr() + 4 * L_NEW_CHI2), done)
+    LM_KERNEL.call("lvs_lm_accept", ptr(st.poses), ptr(st.planes), ptr(st.cand_poses), ptr(st.cand_planes), k, q,
+                   ptr(st.lmf), ptr(st.lmi), num_iterations)
+    LM_KERNEL.launches += 1
+
+
+def _lm_iteration_ref(g: PoseGraph, st: LMState, num_iterations: int) -> None:
+    """Plain PyTorch version of `_lm_iteration`: the reference's loop body
+    with today's operations, on the state read into fresh tensors and
+    written back in place; nothing once `done` is set."""
+    if bool(st.lmi[M_DONE]):
+        return
+    k = g.node_cap
+    poses, planes = st.poses.clone(), st.planes.clone()
+    lam, chi2 = st.lmf[L_LAM].clone(), st.lmf[L_CHI2].clone()
+    _, h, b = _chi2_and_normal(g, poses, True, planes)
+    h, b = _apply_gauge(h, b, g)
+    damped = h + lam * torch.diag(torch.clamp(torch.diagonal(h), min=1e-6))
+    chol, info = torch.linalg.cholesky_ex(damped)
+    delta = torch.cholesky_solve(-b[:, None], chol)[:, 0]
+    ok = (info == 0) & torch.all(torch.isfinite(delta))
+    delta = torch.where(ok, delta, 0.0)
+    new_poses = se3.exp_se3(delta[: 6 * k].reshape(k, 6)) @ poses
+    new_planes = factors.plane_oplus(planes, delta[6 * k:].reshape(g.plane_cap, 3))
+    new_chi2, _, _ = _chi2_and_normal(g, new_poses, False, new_planes)
+    accept = ok & (new_chi2 <= chi2)
+    st.poses.copy_(torch.where(accept, new_poses, poses))
+    st.planes.copy_(torch.where(accept, new_planes, planes))
+    chi2_next = torch.where(accept, new_chi2, chi2)
+    st.lmf[L_LAM] = torch.where(accept, torch.clamp(lam * 0.5, min=1e-9), torch.clamp(lam * 4.0, max=1e6))
+    st.lmf[L_NEW_CHI2] = new_chi2
+    st.lmi[M_IT] += 1
+    small = torch.max(torch.abs(delta)) < 1e-6
+    rel_ok = accept & ((chi2 - chi2_next) < 1e-8 * (chi2 + 1e-12))
+    st.lmf[L_CHI2] = chi2_next
+    st.lmi[M_OK] = ok.to(torch.int32)
+    st.lmi[M_SMALL] = small.to(torch.int32)
+    st.lmi[M_DONE] = ((st.lmi[M_IT] >= num_iterations) | small | rel_ok).to(torch.int32)
 
 
 # ---------------------------------------------------------------- host-side building

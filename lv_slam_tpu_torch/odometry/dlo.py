@@ -20,7 +20,8 @@ The keyframe map lives on the run's device as a `VoxelMap` with its dense
 LUT (kernels 2 and K3L) and packed rows; each align is `ndt_align_soa`
 (kernel K6L in the Newton loop), single-phase as in the reference's host
 path. The host state (poses, guesses, the keyframe gate) is float64 numpy,
-as in the reference; each align reads its transform and score back.
+as in the reference; each align reads its transform and iteration count
+back in one copy (and its score where the retry runs).
 """
 
 from __future__ import annotations
@@ -28,7 +29,7 @@ from __future__ import annotations
 import dataclasses
 import functools
 import time
-from typing import List, Optional
+from typing import List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -63,6 +64,14 @@ class OdometryStats:
     def mean_align_time(self) -> float:
         n = max(self.scan_count - 1, 1)
         return self.total_align_time / n
+
+
+def _read_align(result) -> Tuple[np.ndarray, int]:
+    """An align's transform (float64) and Newton iteration count, read back
+    in one copy (the count, a small integer, rides along in float32)."""
+    packed = torch.cat([result.transform.reshape(16), result.iterations.to(torch.float32).reshape(1)])
+    host = packed.cpu().numpy()
+    return host[:16].reshape(4, 4).astype(np.float64), int(host[16])
 
 
 class DirectLidarOdometry:
@@ -169,11 +178,11 @@ class DirectLidarOdometry:
         t0 = time.perf_counter()
         guess_t = self._to_device(self._guess)
         result = self._align(self._key_soa, cloud, guess_t)
-        tf_s2k = result.transform.cpu().numpy().astype(np.float64)
+        tf_s2k, iterations = _read_align(result)
         if self.stats.scan_count == 1:
             # the reference aligns scan 1 twice
             result = self._align(self._key_soa, cloud, self._to_device(tf_s2k))
-            tf_s2k = result.transform.cpu().numpy().astype(np.float64)
+            tf_s2k, iterations = _read_align(result)
         # deviation-triggered wide-basin retry (NDTConfig.retry_*)
         if (
             self._align_retry is not None
@@ -182,10 +191,10 @@ class DirectLidarOdometry:
             retry = self._align_retry(self._key_soa, cloud, guess_t)
             if self._score(cloud, retry.transform) > float(result.score):
                 result = retry
-                tf_s2k = retry.transform.cpu().numpy().astype(np.float64)
+                tf_s2k, iterations = _read_align(retry)
                 self.stats.retries += 1
         self.stats.total_align_time += time.perf_counter() - t0
-        self.stats.total_iterations += int(result.iterations)
+        self.stats.total_iterations += iterations
 
         tf_s2s = np.linalg.inv(self._pre_tf_s2k) @ tf_s2k
         odom = self._key_pose @ tf_s2k

@@ -5,9 +5,11 @@ scan 1) -> deviation-triggered wide-basin retry -> keyframe gate -> map
 rebuild. The reference traces this once and runs it under `lax.scan` with
 `lax.cond` branches; the port runs a Python loop over the scans and takes
 each branch on a bool read back from the device. Per scan that costs the
-Newton loops' reads (one per iteration plus one per align), one for the
-retry gate and one for the keyframe gate. The state and every tensor stay
-on the run's device: the card unless the caller passes `device="cpu"`.
+Newton loops' reads (K7 runs on the device and reads `done` once per
+`ops/ndt.NEWTON_GROUP` iterations: one read per phase at the usual one or
+two iterations), one for the retry gate and one for the keyframe gate. The
+state and every tensor stay on the run's device: the card unless the caller
+passes `device="cpu"`; the per-scan iteration counts stay there too.
 """
 
 from __future__ import annotations
@@ -287,7 +289,7 @@ def run_sequence_fused(
         cloud0 = PointCloud(xyz[0], inten[0], mask[0])
         state = init(cloud0, stamps[0])
         poses.append(torch.eye(4, dtype=torch.float32, device=dev))
-        iters.append(0)
+        iters.append(torch.zeros((), dtype=torch.int32, device=dev))
         switches.append(False)
         if return_filtered:
             mid0 = _prefilter_mid(
@@ -310,7 +312,7 @@ def run_sequence_fused(
     if with_stats:
         result: Tuple = (
             out_poses,
-            torch.tensor(iters, dtype=torch.int32).to(dev),
+            torch.stack(iters).to(torch.int32),  # device counts: no read
             torch.tensor(switches, dtype=torch.bool).to(dev),
         )
     else:

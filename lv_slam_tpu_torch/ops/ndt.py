@@ -7,12 +7,25 @@ and the generic derivative pass over the dense LUT with its align (port of
 `lookup_leaves`, the full 3x3 inverse covariance of each leaf. The host DLO
 scores its retry with it, and `ndt_align` (the generic align, with
 `dof_mask`) runs the Newton loop over it.
+
+The Newton loop (`_newton_loop`, the reference's `lax.while_loop`) keeps its
+state on the lanes' device (`NewtonState`: one row per align, or per loop
+candidate) and runs each iteration as a derivative pass and one step. On
+CUDA tensors both are kernels gated on the state's `done` flag (the pass
+reads its transform from the state; `newton_step` is K7, `csrc/newton.cu`),
+launched in groups of `NEWTON_GROUP` iterations with one host read of
+`done` after each group: a launch after done is a no-op, so the result does
+not depend on the group. On CPU tensors the same loop runs the plain twins
+(`newton_step_ref`, today's operations with `torch.linalg.solve_ex`), which
+skip the passes of finished lanes.
 """
 
 from __future__ import annotations
 
+import ctypes
+import functools
 import math
-from typing import NamedTuple, Optional, Tuple
+from typing import Callable, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -34,8 +47,29 @@ KERNEL = Kernel(
         "lvs_ndt_generic_derivatives": [
             PTR, PTR, PTR, PTR, PTR, F32, I32, PTR, I32, PTR, PTR, F32, F32, PTR, I32, I32, PTR, I32, PTR,
         ],
+        "lvs_ndt_generic_partials": [
+            PTR, PTR, PTR, PTR, PTR, F32, I32, PTR, I32, PTR, PTR, PTR, F32, F32, PTR, I32, I32, PTR, I32,
+        ],
     },
 )
+NEWTON_KERNEL = Kernel(
+    "newton_step",
+    source="lv_slam_tpu_torch/csrc/newton.cu",
+    replaces="lv_slam_tpu/ops/ndt_soa.py:167",
+    entries={"lvs_newton_step": [PTR, I32, PTR, PTR, I32, F32, F32, F32, I32, I32]},
+)
+
+# iterations launched between two host reads of the loop's `done` flag. The
+# flagship runs stop after ~1 iteration per phase (`chip_smoke.py` on an
+# H100: 2.22 per scan over the coarse and fine phases of the fused odometry,
+# 191 in 171 host-DLO aligns), i.e. 2 launches of the pass and the step
+# with the first: one read per phase, and no launch after done
+NEWTON_GROUP = 2
+
+# the state row of a lane (csrc/newton.cu): floats ...
+F_WIDTH, F_T, F_SCORE, F_GRAD, F_HESS, F_CAND, F_CAP, F_ALPHA = 80, 0, 16, 17, 23, 59, 75, 76
+# ... and ints
+S_WIDTH, S_DONE, S_IT, S_STARTED, S_BAD = 4, 0, 1, 2, 3
 
 
 class GaussParams(NamedTuple):
@@ -63,10 +97,30 @@ def make_gauss_params(resolution: float, outlier_ratio: float = 0.55) -> GaussPa
 class NDTResult(NamedTuple):
     transform: torch.Tensor          # (4,4) final source->target transform
     score: torch.Tensor              # () summed mixture score at the final pose
-    iterations: int                  # Newton iterations, coarse phase included
-    converged: bool
+    iterations: torch.Tensor         # () int32 Newton iterations, coarse phase included
+    converged: torch.Tensor          # () bool
     hessian: torch.Tensor            # (6,6) at the final pose
     trans_probability: torch.Tensor  # () score / n_points
+
+
+def _generic_args(vmap_: VoxelMap, lut, src_xyz, src_mask, gauss: GaussParams, offsets, weighted: bool):
+    """K6G's arguments before and after the transform, checked once (they
+    do not change inside a Newton loop), and its block count."""
+    n, k, leaf_cap = src_xyz.shape[0], offsets.shape[0], vmap_.leaf_cap
+    name = "ndt_derivatives"
+    check_cuda(name, vmap_.means, vmap_.icovs, vmap_.weights, lut, vmap_.origin_cell, src_xyz, src_mask, offsets)
+    check_dtype(name, vmap_.means, torch.float32, (leaf_cap, 3))
+    check_dtype(name, vmap_.icovs, torch.float32, (leaf_cap, 3, 3))
+    check_dtype(name, vmap_.weights, torch.float32, (leaf_cap,))
+    check_dtype(name, lut, torch.int32, (vmap_.extent ** 3,))
+    check_dtype(name, vmap_.origin_cell, torch.int32, (3,))
+    check_dtype(name, src_xyz, torch.float32, (n, 3))
+    check_dtype(name, src_mask, torch.bool, (n,))
+    check_dtype(name, offsets, torch.int32, (k, 3))
+    head = (ptr(vmap_.means), ptr(vmap_.icovs), ptr(vmap_.weights), ptr(lut), ptr(vmap_.origin_cell),
+            float(np.float32(vmap_.resolution)), vmap_.extent, ptr(src_xyz), n, ptr(src_mask))
+    tail = (float(np.float32(gauss.d1)), float(np.float32(gauss.d2)), ptr(offsets), k, int(weighted))
+    return head, tail, max(1, -(-n // BLOCK))
 
 
 def ndt_derivatives(
@@ -83,31 +137,34 @@ def ndt_derivatives(
     by the generic formulas. Kernel K6G on CUDA, the plain version on CPU."""
     if src_xyz.device.type == "cpu":
         return ndt_derivatives_ref(vmap_, lut, src_xyz, src_mask, transform, gauss, offsets, weighted)
-    n, k, leaf_cap = src_xyz.shape[0], offsets.shape[0], vmap_.leaf_cap
-    name = "ndt_derivatives"
-    check_cuda(name, vmap_.means, vmap_.icovs, vmap_.weights, lut, vmap_.origin_cell, src_xyz, src_mask,
-               transform, offsets)
-    check_dtype(name, vmap_.means, torch.float32, (leaf_cap, 3))
-    check_dtype(name, vmap_.icovs, torch.float32, (leaf_cap, 3, 3))
-    check_dtype(name, vmap_.weights, torch.float32, (leaf_cap,))
-    check_dtype(name, lut, torch.int32, (vmap_.extent ** 3,))
-    check_dtype(name, vmap_.origin_cell, torch.int32, (3,))
-    check_dtype(name, src_xyz, torch.float32, (n, 3))
-    check_dtype(name, src_mask, torch.bool, (n,))
-    check_dtype(name, transform, torch.float32, (4, 4))
-    check_dtype(name, offsets, torch.int32, (k, 3))
-    n_blocks = max(1, -(-n // BLOCK))
+    head, tail, n_blocks = _generic_args(vmap_, lut, src_xyz, src_mask, gauss, offsets, weighted)
+    check_cuda("ndt_derivatives", src_xyz, transform)
+    check_dtype("ndt_derivatives", transform, torch.float32, (4, 4))
     partials = torch.empty((n_blocks, N_TERMS), dtype=torch.float32, device=src_xyz.device)
     out = torch.empty((N_TERMS,), dtype=torch.float32, device=src_xyz.device)
-    KERNEL.call(
-        "lvs_ndt_generic_derivatives",
-        ptr(vmap_.means), ptr(vmap_.icovs), ptr(vmap_.weights), ptr(lut), ptr(vmap_.origin_cell),
-        float(np.float32(vmap_.resolution)), vmap_.extent, ptr(src_xyz), n, ptr(src_mask), ptr(transform),
-        float(np.float32(gauss.d1)), float(np.float32(gauss.d2)), ptr(offsets), k, int(weighted),
-        ptr(partials), n_blocks, ptr(out),
-    )
+    KERNEL.call("lvs_ndt_generic_derivatives", *head, ptr(transform), *tail, ptr(partials), n_blocks, ptr(out))
     KERNEL.launches += 1
     return out[0], out[1:7], out[7:].view(6, 6)
+
+
+def generic_pass(vmap_: VoxelMap, lut, src_xyz, src_mask, gauss: GaussParams, offsets, weighted: bool
+                 ) -> "DerivativePass":
+    """`ndt_derivatives` as the Newton loop's pass: K6G's gated launch at
+    the state's candidate on CUDA, the plain version on CPU."""
+
+    def plain(transforms, active):
+        return ndt_derivatives_ref(vmap_, lut, src_xyz, src_mask, transforms[0], gauss, offsets, weighted)
+
+    if src_xyz.device.type == "cpu":
+        return DerivativePass(plain, None, 0)
+    head, tail, n_blocks = _generic_args(vmap_, lut, src_xyz, src_mask, gauss, offsets, weighted)
+
+    def launch(state: "NewtonState") -> None:
+        KERNEL.call("lvs_ndt_generic_partials", *head, state.cand_ptr(), state.done_ptr(), *tail,
+                    ptr(state.partials), n_blocks)
+        KERNEL.launches += 1
+
+    return DerivativePass(plain, launch, n_blocks)
 
 
 def _cross_fma(u: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
@@ -179,116 +236,293 @@ def ndt_align(
     ground-constrained NDT)."""
     gauss = make_gauss_params(resolution, outlier_ratio)
     offsets = neighborhood_offsets(neighborhood, guess.device)
-    dof = None if dof_mask is None else torch.tensor(dof_mask, dtype=torch.float32).to(guess.device)
     src_xyz = source.masked_xyz().contiguous()
     src_mask = source.mask.contiguous()
-
-    def derivs(transform):
-        return ndt_derivatives(vmap_, lut, src_xyz, src_mask, transform.contiguous(), gauss, offsets, weighted)
-
-    transform, score, _, hess, _, it, converged = _newton_loop(
-        derivs, guess, np.float32(transformation_epsilon), step_size, max_iterations, dof=dof,
-    )
-    n_pts = torch.clamp(torch.sum(src_mask.to(torch.float32)), min=1.0)
-    return NDTResult(
-        transform=transform, score=score, iterations=it, converged=converged, hessian=hess,
-        trans_probability=score / n_pts,
-    )
+    pass_ = generic_pass(vmap_, lut, src_xyz, src_mask, gauss, offsets, weighted)
+    state = NewtonState(guess[None])
+    _newton_loop(pass_, state, transformation_epsilon, step_size, max_iterations, dof_mask=dof_mask)
+    return state.result(src_mask)
 
 
-def _newton_loop(derivs, guess: torch.Tensor, eps: float, step_max: float, max_iterations: int,
-                 dof: Optional[torch.Tensor] = None):
-    """Monotone-guarded damped-Newton ascent on the NDT score (the
-    reference's `ndt_soa._newton_loop`, and `ndt_align`'s loop with
-    `dof`: a (6,) 0/1 float mask whose 0 dims are frozen by zeroing their
-    rows and columns of the normal equations and pinning their diagonal).
+class DerivativePass(NamedTuple):
+    """One derivative pass bound to its map and points, checked once:
+    `plain(transforms (k, 4, 4), active)` the twin's (score, grad, hess) of
+    the lanes `active` marks (a host list; other rows are zeros), and on
+    CUDA `launch(state)` the kernel's gated pass at the state's candidates
+    into `state.partials`, `n_blocks` partial rows per lane."""
 
-    The reference's `lax.while_loop` becomes a Python loop: each iteration
-    reads one bool (`converged`) back from the device, and the start reads
-    whether the first score is NaN (the reference's `ndt_align` runs one
-    iteration on a NaN start, which changes nothing but its count).
-    Everything else stays on the device. Returns (transform, score, grad,
-    hess, cap, iterations, converged)."""
+    plain: Callable
+    launch: Optional[Callable]
+    n_blocks: int
+
+
+class LoopParams(NamedTuple):
+    """The loop's constants, rounded through float32 as the reference's."""
+
+    eps: float
+    step_min: float
+    step_max: float
+    max_iterations: int
+    dof: Optional[torch.Tensor]  # (6,) 0/1 float mask, frozen dims 0 (the twin's)
+    dof_bits: int                # the same mask as bits, -1 for none (the kernel's)
+
+
+@functools.lru_cache(maxsize=None)
+def _dof_tensor(dof_mask: Tuple[bool, ...], device: str) -> torch.Tensor:
+    """The mask as a float tensor, made once per device: a host-to-device
+    copy each align would wait for the stream."""
+    return torch.tensor(dof_mask, dtype=torch.float32).to(device)
+
+
+def loop_params(eps, step_max, max_iterations: int, dof_mask=None, device="cpu") -> LoopParams:
     eps32 = np.float32(eps)
-    step_min = float(eps32 / np.float32(2.0))
-    eps = float(eps32)
-    step_max = float(np.float32(step_max))
-    score, grad, hess = derivs(guess)
-    transform = guess
-    eye6 = torch.eye(6, dtype=hess.dtype, device=hess.device)
-    cap = torch.full((), step_max, dtype=hess.dtype, device=hess.device)
-    it = 0
-    converged = bool(torch.isnan(score))
-    while not converged:
-        ridge = 1e-6 * torch.trace(torch.abs(hess)) / 6.0 + 1e-12
-        if dof is not None:
-            grad = grad * dof
-            hess = hess * dof[:, None] * dof[None, :] - (1.0 - dof) * eye6
-        delta, info = torch.linalg.solve_ex(hess + ridge * eye6, -grad)
-        norm = torch.sqrt(torch.sum(delta * delta))
-        bad = (norm == 0.0) | ~torch.isfinite(norm) | (info != 0)
-        direction = delta / torch.where(bad, 1.0, norm)
-        dphi0 = -torch.dot(grad, direction)
-        direction = torch.where(dphi0 > 0, -direction, direction)
-        alpha = torch.minimum(torch.clamp(norm, min=step_min), cap)
-        new_transform = se3.exp_se3(alpha * direction) @ transform
-        new_score, new_grad, new_hess = derivs(new_transform)
+    dof = None if dof_mask is None else _dof_tensor(tuple(dof_mask), str(torch.device(device)))
+    bits = -1 if dof_mask is None else sum(1 << i for i, free in enumerate(dof_mask) if free)
+    return LoopParams(float(eps32), float(eps32 / np.float32(2.0)), float(np.float32(step_max)), int(max_iterations),
+                      dof, bits)
+
+
+class NewtonState:
+    """The Newton loop's state of k lanes on their device: `f` (k, 80)
+    float32 rows [transform (16), score, grad (6), hess (36), candidate
+    (16), cap, alpha, pad] and `s` (k, 4) int32 rows [done, it, started,
+    bad]; `partials` the derivative pass's rows. `batched`: the lanes are
+    K13's loop candidates (the twin then runs the reference's vmapped
+    loop's operations)."""
+
+    def __init__(self, guesses: torch.Tensor, batched: bool = False):
+        k = guesses.shape[0]
+        self.k, self.batched = k, batched
+        self.f = torch.zeros((k, F_WIDTH), dtype=torch.float32, device=guesses.device)
+        self.f[:, F_T:F_T + 16] = guesses.reshape(k, 16)
+        self.f[:, F_CAND:F_CAND + 16] = guesses.reshape(k, 16)
+        self.s = torch.zeros((k, S_WIDTH), dtype=torch.int32, device=guesses.device)
+        self.partials: Optional[torch.Tensor] = None
+
+    def clone(self) -> "NewtonState":
+        """A copy with its own state rows (the partial rows shared)."""
+        out = NewtonState.__new__(NewtonState)
+        out.__dict__.update(self.__dict__)
+        out.f, out.s = self.f.clone(), self.s.clone()
+        return out
+
+    def restart(self) -> None:
+        """A second run from the first's result (the fine phase after the
+        coarse one): its iteration count starts again from 0."""
+        self.f[:, F_CAND:F_CAND + 16] = self.f[:, F_T:F_T + 16]
+        self.s.zero_()
+
+    def cand_ptr(self):
+        return ctypes.c_void_p(self.f.data_ptr() + 4 * F_CAND)
+
+    def done_ptr(self):
+        return ctypes.c_void_p(self.s.data_ptr() + 4 * S_DONE)
+
+    def all_done(self) -> bool:
+        """The loop's one host read (per group of iterations on CUDA)."""
+        return bool(torch.all(self.s[:, S_DONE] != 0))
+
+    @property
+    def transforms(self) -> torch.Tensor:
+        return self.f[:, F_T:F_T + 16].reshape(self.k, 4, 4)
+
+    @property
+    def scores(self) -> torch.Tensor:
+        return self.f[:, F_SCORE]
+
+    @property
+    def iterations(self) -> torch.Tensor:
+        return self.s[:, S_IT]
+
+    def result(self, mask: torch.Tensor, coarse_iterations: Optional[torch.Tensor] = None) -> NDTResult:
+        """Lane 0 as an `NDTResult`, left on the device."""
+        it = self.s[0, S_IT] if coarse_iterations is None else self.s[0, S_IT] + coarse_iterations
+        score = self.f[0, F_SCORE]
+        n_pts = torch.clamp(torch.sum(mask.to(torch.float32)), min=1.0)
+        return NDTResult(
+            transform=self.f[0, F_T:F_T + 16].view(4, 4), score=score, iterations=it,
+            converged=self.s[0, S_DONE] != 0, hessian=self.f[0, F_HESS:F_HESS + 36].view(6, 6),
+            trans_probability=score / n_pts,
+        )
+
+
+def _newton_loop(pass_: DerivativePass, state: NewtonState, eps, step_max, max_iterations: int,
+                 dof_mask=None, read: bool = True) -> NewtonState:
+    """Monotone-guarded damped-Newton ascent on the NDT score from the
+    state's candidates (the reference's `ndt_soa._newton_loop`, vmapped over
+    the lanes; and `ndt_align`'s loop with `dof_mask`, whose frozen dims'
+    rows and columns of the normal equations are zeroed and their diagonal
+    pinned).
+
+    An iteration is one pass at the candidates and one step; the first
+    takes the guess's derivatives, and a NaN start stops there. A lane stops
+    after at most `max_iterations + 1` steps, so `max_iterations + 2`
+    iterations finish every lane. On CUDA they are launched in groups of
+    `NEWTON_GROUP` with one read of `done` after each group but the last
+    (`read=False`: no read at all, every iteration launched); on CPU the
+    twins run, reading `done` freely and skipping finished lanes' passes."""
+    return _drive(pass_, state, eps, step_max, max_iterations, dof_mask, read)
+
+
+def _newton_loop_plain(pass_: DerivativePass, state: NewtonState, eps, step_max, max_iterations: int,
+                       dof_mask=None, read: bool = True) -> NewtonState:
+    """`_newton_loop` with the twins on any device (the harness's plain path
+    on the card; each iteration reads `done`)."""
+    return _drive(pass_._replace(launch=None), state, eps, step_max, max_iterations, dof_mask, read)
+
+
+def _drive(pass_: DerivativePass, state: NewtonState, eps, step_max, max_iterations: int, dof_mask,
+           read: bool) -> NewtonState:
+    p = loop_params(eps, step_max, max_iterations, dof_mask, state.f.device)
+    kernel = pass_.launch is not None
+    if kernel:
+        check_cuda("newton_step", state.f, state.s)
+        rows = state.k * pass_.n_blocks * N_TERMS
+        if state.partials is None or state.partials.numel() < rows:
+            state.partials = torch.empty((rows,), dtype=torch.float32, device=state.f.device)
+    bound = max_iterations + 2
+    launched = 0
+    while launched < bound:
+        for _ in range(min(NEWTON_GROUP, bound - launched)):
+            if kernel:
+                pass_.launch(state)
+                newton_step(state, pass_.n_blocks, p)
+            else:
+                _twin_iteration(pass_, state, p)
+            launched += 1
+        if launched < bound and (read or not kernel) and state.all_done():
+            break
+    return state
+
+
+def newton_step(state: NewtonState, n_blocks: int, p: LoopParams) -> None:
+    """K7: one gated Newton step of every lane from the pass's partial rows."""
+    NEWTON_KERNEL.call("lvs_newton_step", ptr(state.partials), n_blocks, ptr(state.f), ptr(state.s), state.k, p.eps,
+                       p.step_min, p.step_max, p.max_iterations, p.dof_bits)
+    NEWTON_KERNEL.launches += 1
+
+
+def _twin_iteration(pass_: DerivativePass, state: NewtonState, p: LoopParams) -> None:
+    """One iteration with the plain twins: the pass for the running lanes
+    (none once all are done), then `newton_step_ref`."""
+    active = (state.s[:, S_DONE] == 0).tolist()
+    if not any(active):
+        return
+    cands = state.f[:, F_CAND:F_CAND + 16].reshape(state.k, 4, 4).clone()
+    score, grad, hess = pass_.plain(cands, active)
+    newton_step_ref(state, score, grad, hess, p)
+
+
+def newton_step_ref(state: NewtonState, score, grad, hess, p: LoopParams) -> None:
+    """Plain PyTorch version of `newton_step`: the derivatives at the
+    candidates ((k,), (k, 6), (k, 6, 6), or unbatched for one lane) taken
+    in, then the reference's accept test and next proposal, with today's
+    operations (`torch.linalg.solve_ex` for the 6x6 solve). The state is
+    read into fresh tensors and written back in place."""
+    if state.batched:
+        _step_batched(state, score, grad, hess, p)
+    else:
+        _step_single(state, score.reshape(()), grad.reshape(6), hess.reshape(6, 6), p)
+
+
+def _step_single(state: NewtonState, new_score, new_grad, new_hess, p: LoopParams) -> None:
+    f, s = state.f[0], state.s[0]
+    if not bool(s[S_STARTED]):
+        f[F_SCORE] = new_score
+        f[F_GRAD:F_GRAD + 6] = new_grad
+        f[F_HESS:F_HESS + 36] = new_hess.reshape(36)
+        f[F_CAP] = p.step_max
+        s[S_STARTED] = 1
+        done = bool(torch.isnan(new_score))
+    else:
+        score = f[F_SCORE].clone()
+        bad = s[S_BAD] != 0
+        alpha = f[F_ALPHA].clone()
+        cap = f[F_CAP].clone()
         accept = ~bad & (new_score >= score)
-        transform = torch.where(accept, new_transform, transform)
-        score = torch.where(accept, new_score, score)
-        grad = torch.where(accept, new_grad, grad)
-        hess = torch.where(accept, new_hess, hess)
-        cap = torch.where(accept, step_max, torch.clamp(cap * 0.5, min=step_min))
-        it += 1
-        shrunk_out = ~accept & (alpha <= step_min)
-        stop = bad | (accept & (alpha < eps)) | shrunk_out
-        converged = it > max_iterations or bool(stop)
-    return transform, score, grad, hess, cap, it, converged
-
-
-def _newton_loop_batched(derivs, guesses: torch.Tensor, eps: float, step_max: float, max_iterations: int):
-    """`_newton_loop` over k lanes at once, as the reference's vmapped
-    `lax.while_loop` runs it: every lane steps until all are done, and a
-    done lane keeps its state, so each lane ends where its own loop would.
-    `derivs(transforms, active)` returns the (k,), (k, 6), (k, 6, 6)
-    derivatives at (k, 4, 4) transforms; `active` is the host list of lanes
-    still running (a lane's result is ignored once it is done). Each
-    iteration reads the k done flags back once. Returns (transforms, scores,
-    iterations (k,) int64)."""
-    eps32 = np.float32(eps)
-    step_min = float(eps32 / np.float32(2.0))
-    eps = float(eps32)
-    step_max = float(np.float32(step_max))
-    k = guesses.shape[0]
-    score, grad, hess = derivs(guesses, [True] * k)
-    transform = guesses
+        f[F_T:F_T + 16] = torch.where(accept, f[F_CAND:F_CAND + 16], f[F_T:F_T + 16])
+        f[F_SCORE] = torch.where(accept, new_score, score)
+        f[F_GRAD:F_GRAD + 6] = torch.where(accept, new_grad, f[F_GRAD:F_GRAD + 6])
+        f[F_HESS:F_HESS + 36] = torch.where(accept, new_hess.reshape(36), f[F_HESS:F_HESS + 36])
+        f[F_CAP] = torch.where(accept, p.step_max, torch.clamp(cap * 0.5, min=p.step_min))
+        s[S_IT] += 1
+        shrunk_out = ~accept & (alpha <= p.step_min)
+        stop = bad | (accept & (alpha < p.eps)) | shrunk_out
+        done = int(s[S_IT]) > p.max_iterations or bool(stop)
+    s[S_DONE] = int(done)
+    if done:
+        return
+    # the next candidate: the top of the reference's loop body
+    transform = f[F_T:F_T + 16].view(4, 4).clone()
+    grad = f[F_GRAD:F_GRAD + 6].clone()
+    hess = f[F_HESS:F_HESS + 36].view(6, 6).clone()
+    cap = f[F_CAP].clone()
     eye6 = torch.eye(6, dtype=hess.dtype, device=hess.device)
-    cap = torch.full((k,), step_max, dtype=hess.dtype, device=hess.device)
-    it = torch.zeros((k,), dtype=torch.int64, device=hess.device)
-    done = torch.isnan(score)
-    active = [not d for d in done.tolist()]
-    while any(active):
+    ridge = 1e-6 * torch.trace(torch.abs(hess)) / 6.0 + 1e-12
+    if p.dof is not None:
+        grad = grad * p.dof
+        hess = hess * p.dof[:, None] * p.dof[None, :] - (1.0 - p.dof) * eye6
+        f[F_GRAD:F_GRAD + 6] = grad
+        f[F_HESS:F_HESS + 36] = hess.reshape(36)
+    delta, info = torch.linalg.solve_ex(hess + ridge * eye6, -grad)
+    norm = torch.sqrt(torch.sum(delta * delta))
+    bad = (norm == 0.0) | ~torch.isfinite(norm) | (info != 0)
+    direction = delta / torch.where(bad, 1.0, norm)
+    dphi0 = -torch.dot(grad, direction)
+    direction = torch.where(dphi0 > 0, -direction, direction)
+    alpha = torch.minimum(torch.clamp(norm, min=p.step_min), cap)
+    f[F_CAND:F_CAND + 16] = (se3.exp_se3(alpha * direction) @ transform).reshape(16)
+    f[F_ALPHA] = alpha
+    s[S_BAD] = bad.to(torch.int32)
+
+
+def _step_batched(state: NewtonState, new_score, new_grad, new_hess, p: LoopParams) -> None:
+    """The vmapped loop's step over every lane: a finished lane keeps its
+    state (`run` masks every update), and the next candidates are proposed
+    for all lanes while any runs."""
+    f, s, k = state.f, state.s, state.k
+    if not bool(s[0, S_STARTED]):
+        f[:, F_SCORE] = new_score
+        f[:, F_GRAD:F_GRAD + 6] = new_grad
+        f[:, F_HESS:F_HESS + 36] = new_hess.reshape(k, 36)
+        f[:, F_CAP] = p.step_max
+        s[:, S_STARTED] = 1
+        s[:, S_DONE] = torch.isnan(new_score).to(torch.int32)
+    else:
+        done = s[:, S_DONE] != 0
         run = ~done
-        ridge = 1e-6 * torch.abs(hess).diagonal(dim1=-2, dim2=-1).sum(-1) / 6.0 + 1e-12
-        delta, info = torch.linalg.solve_ex(hess + ridge[:, None, None] * eye6, -grad)
-        norm = torch.sqrt(torch.sum(delta * delta, dim=-1))
-        bad = (norm == 0.0) | ~torch.isfinite(norm) | (info != 0)
-        direction = delta / torch.where(bad, 1.0, norm)[:, None]
-        dphi0 = -torch.sum(grad * direction, dim=-1)
-        direction = torch.where((dphi0 > 0)[:, None], -direction, direction)
-        alpha = torch.minimum(torch.clamp(norm, min=step_min), cap)
-        new_transform = se3.exp_se3(alpha[:, None] * direction) @ transform
-        new_score, new_grad, new_hess = derivs(new_transform, active)
+        score = f[:, F_SCORE].clone()
+        bad = s[:, S_BAD] != 0
+        alpha = f[:, F_ALPHA].clone()
+        cap = f[:, F_CAP].clone()
+        it = s[:, S_IT].to(torch.int64)
         accept = ~bad & (new_score >= score)
         take = run & accept
-        transform = torch.where(take[:, None, None], new_transform, transform)
-        score = torch.where(take, new_score, score)
-        grad = torch.where(take[:, None], new_grad, grad)
-        hess = torch.where(take[:, None, None], new_hess, hess)
-        cap = torch.where(run, torch.where(accept, step_max, torch.clamp(cap * 0.5, min=step_min)), cap)
+        f[:, F_T:F_T + 16] = torch.where(take[:, None], f[:, F_CAND:F_CAND + 16], f[:, F_T:F_T + 16])
+        f[:, F_SCORE] = torch.where(take, new_score, score)
+        f[:, F_GRAD:F_GRAD + 6] = torch.where(take[:, None], new_grad, f[:, F_GRAD:F_GRAD + 6])
+        f[:, F_HESS:F_HESS + 36] = torch.where(take[:, None], new_hess.reshape(k, 36), f[:, F_HESS:F_HESS + 36])
+        f[:, F_CAP] = torch.where(run, torch.where(accept, p.step_max, torch.clamp(cap * 0.5, min=p.step_min)), cap)
         it = it + run.to(torch.int64)
-        shrunk_out = ~accept & (alpha <= step_min)
-        stop = bad | (it > max_iterations) | (accept & (alpha < eps)) | shrunk_out
-        done = done | (run & stop)
-        active = [not d for d in done.tolist()]
-    return transform, score, it
+        s[:, S_IT] = it.to(torch.int32)
+        shrunk_out = ~accept & (alpha <= p.step_min)
+        stop = bad | (it > p.max_iterations) | (accept & (alpha < p.eps)) | shrunk_out
+        s[:, S_DONE] = (done | (run & stop)).to(torch.int32)
+    if bool(torch.all(s[:, S_DONE] != 0)):
+        return
+    transform = f[:, F_T:F_T + 16].reshape(k, 4, 4).clone()
+    grad = f[:, F_GRAD:F_GRAD + 6].clone()
+    hess = f[:, F_HESS:F_HESS + 36].reshape(k, 6, 6).clone()
+    cap = f[:, F_CAP].clone()
+    eye6 = torch.eye(6, dtype=hess.dtype, device=hess.device)
+    ridge = 1e-6 * torch.abs(hess).diagonal(dim1=-2, dim2=-1).sum(-1) / 6.0 + 1e-12
+    delta, info = torch.linalg.solve_ex(hess + ridge[:, None, None] * eye6, -grad)
+    norm = torch.sqrt(torch.sum(delta * delta, dim=-1))
+    bad = (norm == 0.0) | ~torch.isfinite(norm) | (info != 0)
+    direction = delta / torch.where(bad, 1.0, norm)[:, None]
+    dphi0 = -torch.sum(grad * direction, dim=-1)
+    direction = torch.where((dphi0 > 0)[:, None], -direction, direction)
+    alpha = torch.minimum(torch.clamp(norm, min=p.step_min), cap)
+    f[:, F_CAND:F_CAND + 16] = (se3.exp_se3(alpha[:, None] * direction) @ transform).reshape(k, 16)
+    f[:, F_ALPHA] = alpha
+    s[:, S_BAD] = bad.to(torch.int32)

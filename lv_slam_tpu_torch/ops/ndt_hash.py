@@ -12,6 +12,8 @@ compare resolves in registers.
 - `ndt_derivatives_hash_batched` is the same pass for k candidates in one
   launch (kernel 13's derivative pass, the reference's vmap over loop
   candidates), and `ndt_align_hash_table_batched` the vmapped align.
+- `hash_pass` is either pass inside the Newton loop (K7, `ops/ndt.py`):
+  each lane's transform read from the loop's state, gated on its `done`.
 """
 
 from __future__ import annotations
@@ -24,7 +26,8 @@ import torch
 from lv_slam_tpu_torch.core.cloud import SENTINEL, PointCloud
 from lv_slam_tpu_torch.kernels._build import F32, I32, PTR, Kernel, check_cuda, check_dtype, ptr
 from lv_slam_tpu_torch.ops.ndt import (
-    BLOCK, N_TERMS, GaussParams, NDTResult, _newton_loop, _newton_loop_batched, make_gauss_params,
+    BLOCK, F_WIDTH, N_TERMS, S_WIDTH, DerivativePass, GaussParams, NDTResult, NewtonState, _newton_loop,
+    make_gauss_params,
 )
 from lv_slam_tpu_torch.ops.ndt_soa import accumulate_ndt_terms
 from lv_slam_tpu_torch.ops.cells import cell_coords, inv_resolution
@@ -41,6 +44,8 @@ TO_HASH_KERNEL = Kernel(
         "lvs_to_hash": [PTR, PTR, PTR, PTR, PTR, F32, I32, I32, I32, PTR, PTR, PTR, PTR],
     },
 )
+# the Newton loop's gated pass (one candidate for kernel 4, k for kernel 13)
+_PARTIALS_ARGS = [PTR, I32, PTR, F32, I32, PTR, I32, PTR, PTR, I32, PTR, I32, I32, F32, F32, PTR, I32, I32, PTR, I32]
 DERIVATIVES_KERNEL = Kernel(
     "ndt_derivatives_hash",
     source="lv_slam_tpu_torch/csrc/ndt_hash.cu",
@@ -49,6 +54,7 @@ DERIVATIVES_KERNEL = Kernel(
         "lvs_ndt_hash_derivatives": [
             PTR, I32, PTR, F32, I32, PTR, I32, PTR, PTR, F32, F32, PTR, I32, I32, PTR, I32, PTR,
         ],
+        "lvs_ndt_hash_partials": _PARTIALS_ARGS,
     },
 )
 
@@ -60,6 +66,7 @@ BATCHED_KERNEL = Kernel(
         "lvs_ndt_hash_derivatives_batched": [
             PTR, I32, PTR, F32, I32, PTR, I32, PTR, PTR, I32, F32, F32, PTR, I32, I32, PTR, I32, PTR,
         ],
+        "lvs_ndt_hash_partials": _PARTIALS_ARGS,
     },
 )
 
@@ -190,6 +197,27 @@ def to_hash_ref(vmap_: VoxelMap, buckets_per_leaf: int = 4) -> HashVoxelMap:
     )
 
 
+def _hash_args(name: str, hmap: HashVoxelMap, xs, mask, gauss: GaussParams, offsets, weighted: bool):
+    """Kernel 4's (and 13's) arguments before and after the transform for
+    points xs (3, N) or (k, 3, N), checked once (they do not change inside a
+    Newton loop), and the block count per candidate."""
+    n = xs.shape[-1]
+    n_off = offsets.shape[0]
+    n_buckets = hmap.table.shape[0]
+    check_cuda(name, hmap.table, hmap.origin_cell, xs, mask, offsets)
+    check_dtype(name, hmap.table, torch.float32, (n_buckets, 32))
+    check_dtype(name, hmap.origin_cell, torch.int32, (3,))
+    check_dtype(name, xs, torch.float32, (*xs.shape[:-2], 3, n))
+    check_dtype(name, mask, torch.bool, (*xs.shape[:-2], n))
+    check_dtype(name, offsets, torch.int32, (n_off, 3))
+    if n_buckets & (n_buckets - 1):
+        raise ValueError(f"{name}: bucket count {n_buckets} is not a power of two")
+    head = (ptr(hmap.table), n_buckets.bit_length() - 1, ptr(hmap.origin_cell), inv_resolution(hmap.resolution),
+            hmap.extent, ptr(xs), n, ptr(mask))
+    tail = (float(np.float32(gauss.d1)), float(np.float32(gauss.d2)), ptr(offsets), n_off, int(weighted))
+    return head, tail, max(1, -(-n // BLOCK))
+
+
 def ndt_derivatives_hash(
     hmap: HashVoxelMap,
     xs: torch.Tensor,          # (3, N)
@@ -203,30 +231,41 @@ def ndt_derivatives_hash(
     Kernel 4 on CUDA, the plain version on CPU."""
     if xs.device.type == "cpu":
         return ndt_derivatives_hash_ref(hmap, xs, mask, transform, gauss, offsets, weighted)
-    n = xs.shape[1]
-    k = offsets.shape[0]
-    n_buckets = hmap.table.shape[0]
-    check_cuda("ndt_derivatives_hash", hmap.table, hmap.origin_cell, xs, mask, transform, offsets)
-    check_dtype("ndt_derivatives_hash", hmap.table, torch.float32, (n_buckets, 32))
-    check_dtype("ndt_derivatives_hash", hmap.origin_cell, torch.int32, (3,))
-    check_dtype("ndt_derivatives_hash", xs, torch.float32, (3, n))
-    check_dtype("ndt_derivatives_hash", mask, torch.bool, (n,))
+    head, tail, n_blocks = _hash_args("ndt_derivatives_hash", hmap, xs, mask, gauss, offsets, weighted)
+    check_cuda("ndt_derivatives_hash", xs, transform)
     check_dtype("ndt_derivatives_hash", transform, torch.float32, (4, 4))
-    check_dtype("ndt_derivatives_hash", offsets, torch.int32, (k, 3))
-    if n_buckets & (n_buckets - 1):
-        raise ValueError(f"ndt_derivatives_hash: bucket count {n_buckets} is not a power of two")
-    n_blocks = max(1, -(-n // BLOCK))
     partials = torch.empty((n_blocks, N_TERMS), dtype=torch.float32, device=xs.device)
     out = torch.empty((N_TERMS,), dtype=torch.float32, device=xs.device)
-    DERIVATIVES_KERNEL.call(
-        "lvs_ndt_hash_derivatives",
-        ptr(hmap.table), n_buckets.bit_length() - 1, ptr(hmap.origin_cell),
-        inv_resolution(hmap.resolution), hmap.extent, ptr(xs), n, ptr(mask), ptr(transform),
-        float(np.float32(gauss.d1)), float(np.float32(gauss.d2)), ptr(offsets), k, int(weighted),
-        ptr(partials), n_blocks, ptr(out),
-    )
+    DERIVATIVES_KERNEL.call("lvs_ndt_hash_derivatives", *head, ptr(transform), *tail, ptr(partials), n_blocks,
+                            ptr(out))
     DERIVATIVES_KERNEL.launches += 1
     return out[0], out[1:7], out[7:].view(6, 6)
+
+
+def hash_pass(hmap: HashVoxelMap, xs, mask, gauss: GaussParams, offsets, weighted: bool) -> DerivativePass:
+    """The Newton loop's pass over the hash table: points xs (3, N) for one
+    align (kernel 4) or (k, 3, N) for K13's k candidates, each lane's
+    transform the state's candidate, gated on its `done` flag, on CUDA; the
+    plain version on CPU."""
+    batched = xs.dim() == 3
+    kernel = BATCHED_KERNEL if batched else DERIVATIVES_KERNEL
+
+    def plain(transforms, active):
+        if batched:
+            return ndt_derivatives_hash_batched_ref(hmap, xs, mask, transforms, gauss, offsets, weighted, active)
+        return ndt_derivatives_hash_ref(hmap, xs, mask, transforms[0], gauss, offsets, weighted)
+
+    if xs.device.type == "cpu":
+        return DerivativePass(plain, None, 0)
+    head, tail, n_blocks = _hash_args(kernel.name, hmap, xs, mask, gauss, offsets, weighted)
+    n_cand = xs.shape[0] if batched else 1
+
+    def launch(state: NewtonState) -> None:
+        kernel.call("lvs_ndt_hash_partials", *head, state.cand_ptr(), F_WIDTH, state.done_ptr(), S_WIDTH, n_cand,
+                    *tail, ptr(state.partials), n_blocks)
+        kernel.launches += 1
+
+    return DerivativePass(plain, launch, n_blocks)
 
 
 def ndt_derivatives_hash_ref(
@@ -296,36 +335,18 @@ def ndt_align_hash_table(
     xs = source.masked_xyz().T.contiguous()
     mask = source.mask.contiguous()
     eps = np.float32(transformation_epsilon)
-
-    def derivs(transform):
-        return ndt_derivatives_hash(hmap, xs, mask, transform, gauss, offsets, weighted)
-
-    start = guess
-    coarse_iters = 0
+    state = NewtonState(guess[None])
+    coarse_iters = None
     if coarse_subsample > 1:
         # lane i*k of the mask is the reference's `mask & (i % k == 0)` slice
         xs_c = xs[:, ::coarse_subsample].contiguous()
         mask_c = mask[::coarse_subsample].contiguous()
-
-        def derivs_coarse(transform):
-            return ndt_derivatives_hash(hmap, xs_c, mask_c, transform, gauss, offsets, weighted)
-
-        start, _, _, _, _, coarse_iters, _ = _newton_loop(
-            derivs_coarse, guess, eps * np.float32(2.0), step_size, max_iterations
-        )
-
-    transform, score, grad, hess, _, it, converged = _newton_loop(
-        derivs, start, eps, step_size, max_iterations
-    )
-    n_pts = torch.clamp(torch.sum(mask.to(torch.float32)), min=1.0)
-    return NDTResult(
-        transform=transform,
-        score=score,
-        iterations=it + coarse_iters,
-        converged=converged,
-        hessian=hess,
-        trans_probability=score / n_pts,
-    )
+        _newton_loop(hash_pass(hmap, xs_c, mask_c, gauss, offsets, weighted), state, eps * np.float32(2.0), step_size,
+                     max_iterations)
+        coarse_iters = state.iterations[0].clone()
+        state.restart()
+    _newton_loop(hash_pass(hmap, xs, mask, gauss, offsets, weighted), state, eps, step_size, max_iterations)
+    return state.result(mask, coarse_iters)
 
 
 def ndt_derivatives_hash_batched(
@@ -342,29 +363,17 @@ def ndt_derivatives_hash_batched(
     (k, 6, 6). One launch of kernel 13's pass on CUDA; on CPU the plain
     version per candidate, skipping those `active` marks done (their rows
     are zeros, which the batched Newton loop never reads)."""
-    k, _, n = xs.shape
+    k = xs.shape[0]
     if xs.device.type == "cpu":
         return ndt_derivatives_hash_batched_ref(hmap, xs, mask, transforms, gauss, offsets, weighted, active)
-    n_buckets = hmap.table.shape[0]
-    n_off = offsets.shape[0]
-    check_cuda("ndt_derivatives_hash_batched", hmap.table, hmap.origin_cell, xs, mask, transforms, offsets)
-    check_dtype("ndt_derivatives_hash_batched", hmap.table, torch.float32, (n_buckets, 32))
-    check_dtype("ndt_derivatives_hash_batched", xs, torch.float32, (k, 3, n))
-    check_dtype("ndt_derivatives_hash_batched", mask, torch.bool, (k, n))
+    head, tail, n_blocks = _hash_args("ndt_derivatives_hash_batched", hmap, xs, mask, gauss, offsets, weighted)
+    check_cuda("ndt_derivatives_hash_batched", xs, transforms)
     check_dtype("ndt_derivatives_hash_batched", transforms, torch.float32, (k, 4, 4))
-    check_dtype("ndt_derivatives_hash_batched", offsets, torch.int32, (n_off, 3))
-    if n_buckets & (n_buckets - 1):
-        raise ValueError(f"ndt_derivatives_hash_batched: bucket count {n_buckets} is not a power of two")
-    n_blocks = max(1, -(-n // BLOCK))
     partials = torch.empty((k, n_blocks, N_TERMS), dtype=torch.float32, device=xs.device)
     out = torch.empty((k, N_TERMS), dtype=torch.float32, device=xs.device)
-    BATCHED_KERNEL.call(
-        "lvs_ndt_hash_derivatives_batched",
-        ptr(hmap.table), n_buckets.bit_length() - 1, ptr(hmap.origin_cell),
-        inv_resolution(hmap.resolution), hmap.extent, ptr(xs), n, ptr(mask), ptr(transforms), k,
-        float(np.float32(gauss.d1)), float(np.float32(gauss.d2)), ptr(offsets), n_off, int(weighted),
-        ptr(partials), n_blocks, ptr(out),
-    )
+    d1, d2, *rest = tail
+    BATCHED_KERNEL.call("lvs_ndt_hash_derivatives_batched", *head, ptr(transforms), k, d1, d2, *rest, ptr(partials),
+                        n_blocks, ptr(out))
     BATCHED_KERNEL.launches += 1
     return out[:, 0], out[:, 1:7], out[:, 7:].reshape(k, 6, 6)
 
@@ -402,10 +411,9 @@ def ndt_align_hash_table_batched(
     offsets = neighborhood_offsets(neighborhood, guesses.device)
     mask = sources.mask.contiguous()
     xs = torch.where(mask[..., None], sources.xyz, SENTINEL).transpose(1, 2).contiguous()
-
-    def derivs(transforms, active):
-        return ndt_derivatives_hash_batched(
-            hmap, xs, mask, transforms.contiguous(), gauss, offsets, weighted, active
-        )
-
-    return _newton_loop_batched(derivs, guesses, transformation_epsilon, step_size, max_iterations)
+    state = NewtonState(guesses, batched=True)
+    # no host read: the loop runs its bound of iterations (launches after a
+    # candidate is done are no-ops), as the reference's program reads nothing
+    _newton_loop(hash_pass(hmap, xs, mask, gauss, offsets, weighted), state, transformation_epsilon, step_size,
+                 max_iterations, read=False)
+    return state.transforms.contiguous(), state.scores, state.iterations

@@ -6,9 +6,10 @@ LUT probe and one row read per point and DIRECT offset.
   (kernel 4) shares; its plain form is here.
 - `ndt_derivatives_soa` is kernel K6L (`csrc/ndt_lut.cu`) on CUDA tensors
   and `ndt_derivatives_soa_ref` on CPU tensors.
-- `ndt_align_soa` is the Newton loop (`ops/ndt._newton_loop`, K7) over it,
-  with the reference's optional coarse phase; the host DLO and the fused
-  odometry's `table="lut"` align with it.
+- `ndt_align_soa` is the Newton loop (`ops/ndt._newton_loop`, K7) over it
+  (`soa_pass`: K6L gated on the loop's state), with the reference's
+  optional coarse phase as a second run on the same state; the host DLO
+  and the fused odometry's `table="lut"` align with it.
 """
 
 from __future__ import annotations
@@ -22,7 +23,7 @@ from lv_slam_tpu_torch.core import se3
 from lv_slam_tpu_torch.core.cloud import PointCloud
 from lv_slam_tpu_torch.kernels._build import F32, I32, PTR, Kernel, check_cuda, check_dtype, ptr
 from lv_slam_tpu_torch.ops.ndt import (
-    BLOCK, N_TERMS, GaussParams, NDTResult, _newton_loop, make_gauss_params,
+    BLOCK, N_TERMS, DerivativePass, GaussParams, NDTResult, NewtonState, _newton_loop, make_gauss_params,
 )
 from lv_slam_tpu_torch.ops.voxel_map import VoxelMap, neighborhood_offsets, probe_cells
 
@@ -34,6 +35,7 @@ KERNEL = Kernel(
         "lvs_ndt_lut_derivatives": [
             PTR, PTR, PTR, F32, I32, PTR, I32, PTR, PTR, F32, F32, PTR, I32, I32, PTR, I32, PTR,
         ],
+        "lvs_ndt_lut_partials": [PTR, PTR, PTR, F32, I32, PTR, I32, PTR, PTR, PTR, F32, F32, PTR, I32, I32, PTR, I32],
     },
 )
 
@@ -140,6 +142,24 @@ def accumulate_ndt_terms(
 
 
 
+def _soa_args(soa: VoxelMapSOA, xs, mask, gauss: GaussParams, offsets, weighted: bool):
+    """K6L's arguments before and after the transform, checked once (they
+    do not change inside a Newton loop), and its block count."""
+    n, k = xs.shape[1], offsets.shape[0]
+    name = "ndt_derivatives_soa"
+    check_cuda(name, soa.packed, soa.lut, soa.origin_cell, xs, mask, offsets)
+    check_dtype(name, soa.packed, torch.float32, (soa.packed.shape[0], 16))
+    check_dtype(name, soa.lut, torch.int32, (soa.extent ** 3,))
+    check_dtype(name, soa.origin_cell, torch.int32, (3,))
+    check_dtype(name, xs, torch.float32, (3, n))
+    check_dtype(name, mask, torch.bool, (n,))
+    check_dtype(name, offsets, torch.int32, (k, 3))
+    head = (ptr(soa.packed), ptr(soa.lut), ptr(soa.origin_cell), float(np.float32(soa.resolution)), soa.extent,
+            ptr(xs), n, ptr(mask))
+    tail = (float(np.float32(gauss.d1)), float(np.float32(gauss.d2)), ptr(offsets), k, int(weighted))
+    return head, tail, max(1, -(-n // BLOCK))
+
+
 def ndt_derivatives_soa(
     soa: VoxelMapSOA,
     xs: torch.Tensor,          # (3, N)
@@ -154,27 +174,33 @@ def ndt_derivatives_soa(
     version on CPU."""
     if xs.device.type == "cpu":
         return ndt_derivatives_soa_ref(soa, xs, mask, transform, gauss, offsets, weighted)
-    n, k = xs.shape[1], offsets.shape[0]
-    name = "ndt_derivatives_soa"
-    check_cuda(name, soa.packed, soa.lut, soa.origin_cell, xs, mask, transform, offsets)
-    check_dtype(name, soa.packed, torch.float32, (soa.packed.shape[0], 16))
-    check_dtype(name, soa.lut, torch.int32, (soa.extent ** 3,))
-    check_dtype(name, soa.origin_cell, torch.int32, (3,))
-    check_dtype(name, xs, torch.float32, (3, n))
-    check_dtype(name, mask, torch.bool, (n,))
-    check_dtype(name, transform, torch.float32, (4, 4))
-    check_dtype(name, offsets, torch.int32, (k, 3))
-    n_blocks = max(1, -(-n // BLOCK))
+    head, tail, n_blocks = _soa_args(soa, xs, mask, gauss, offsets, weighted)
+    check_cuda("ndt_derivatives_soa", xs, transform)
+    check_dtype("ndt_derivatives_soa", transform, torch.float32, (4, 4))
     partials = torch.empty((n_blocks, N_TERMS), dtype=torch.float32, device=xs.device)
     out = torch.empty((N_TERMS,), dtype=torch.float32, device=xs.device)
-    KERNEL.call(
-        "lvs_ndt_lut_derivatives",
-        ptr(soa.packed), ptr(soa.lut), ptr(soa.origin_cell), float(np.float32(soa.resolution)), soa.extent,
-        ptr(xs), n, ptr(mask), ptr(transform), float(np.float32(gauss.d1)), float(np.float32(gauss.d2)),
-        ptr(offsets), k, int(weighted), ptr(partials), n_blocks, ptr(out),
-    )
+    KERNEL.call("lvs_ndt_lut_derivatives", *head, ptr(transform), *tail, ptr(partials), n_blocks, ptr(out))
     KERNEL.launches += 1
     return out[0], out[1:7], out[7:].view(6, 6)
+
+
+def soa_pass(soa: VoxelMapSOA, xs, mask, gauss: GaussParams, offsets, weighted: bool) -> DerivativePass:
+    """`ndt_derivatives_soa` as the Newton loop's pass: K6L's gated launch
+    at the state's candidate on CUDA, the plain version on CPU."""
+
+    def plain(transforms, active):
+        return ndt_derivatives_soa_ref(soa, xs, mask, transforms[0], gauss, offsets, weighted)
+
+    if xs.device.type == "cpu":
+        return DerivativePass(plain, None, 0)
+    head, tail, n_blocks = _soa_args(soa, xs, mask, gauss, offsets, weighted)
+
+    def launch(state: NewtonState) -> None:
+        KERNEL.call("lvs_ndt_lut_partials", *head, state.cand_ptr(), state.done_ptr(), *tail, ptr(state.partials),
+                    n_blocks)
+        KERNEL.launches += 1
+
+    return DerivativePass(plain, launch, n_blocks)
 
 
 def ndt_derivatives_soa_ref(soa, xs, mask, transform, gauss, offsets, weighted):
@@ -228,27 +254,15 @@ def ndt_align_soa_table(
     xs = source.masked_xyz().T.contiguous()
     mask = source.mask.contiguous()
     eps = np.float32(transformation_epsilon)
-
-    def derivs(transform):
-        return ndt_derivatives_soa(soa, xs, mask, transform.contiguous(), gauss, offsets, weighted)
-
-    start = guess
-    coarse_iters = 0
+    state = NewtonState(guess[None])
+    coarse_iters = None
     if coarse_subsample > 1:
         # lane i*k of the mask is the reference's `mask & (i % k == 0)` slice
         xs_c = xs[:, ::coarse_subsample].contiguous()
         mask_c = mask[::coarse_subsample].contiguous()
-
-        def derivs_coarse(transform):
-            return ndt_derivatives_soa(soa, xs_c, mask_c, transform.contiguous(), gauss, offsets, weighted)
-
-        start, _, _, _, _, coarse_iters, _ = _newton_loop(
-            derivs_coarse, guess, eps * np.float32(2.0), step_size, max_iterations
-        )
-
-    transform, score, _, hess, _, it, converged = _newton_loop(derivs, start, eps, step_size, max_iterations)
-    n_pts = torch.clamp(torch.sum(mask.to(torch.float32)), min=1.0)
-    return NDTResult(
-        transform=transform, score=score, iterations=it + coarse_iters, converged=converged, hessian=hess,
-        trans_probability=score / n_pts,
-    )
+        _newton_loop(soa_pass(soa, xs_c, mask_c, gauss, offsets, weighted), state, eps * np.float32(2.0), step_size,
+                     max_iterations)
+        coarse_iters = state.iterations[0].clone()
+        state.restart()
+    _newton_loop(soa_pass(soa, xs, mask, gauss, offsets, weighted), state, eps, step_size, max_iterations)
+    return state.result(mask, coarse_iters)

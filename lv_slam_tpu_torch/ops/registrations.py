@@ -6,8 +6,9 @@ the reference's `src/global_graph/registrations.cpp`).
 reference accepts: ICP, GICP, GICP_OMP, NDT, NDT_OMP, and NDT_PCA (the
 weighted odometry matcher); any other name raises `ValueError`. The NDT
 methods build the target's voxel map (kernel 2) and its LUT (K3L), align
-with the generic `ndt_align` (K6G in the Newton loop: one host read per
-iteration) and score with `fitness_score` (K14). ICP runs kernel 17's
+with the generic `ndt_align` (K6G in the device-side Newton loop K7: one
+host read per `NEWTON_GROUP` iterations) and score with `fitness_score`
+(K14). ICP runs kernel 17's
 iterations and GICP kernels 19a/19b, both fixed-trip loops with no host
 read. The callables run on the device of their inputs.
 """

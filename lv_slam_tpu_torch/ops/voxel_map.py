@@ -94,7 +94,10 @@ def neighborhood_offsets(name: str, device) -> torch.Tensor:
     """DIRECT1 / DIRECT7 / DIRECT26 cell offsets, (K,3) int32, in the
     reference's order. Cached per device: the odometry asks for them every
     align, and a fresh host-to-device copy would wait for the stream."""
-    return _offsets(name, str(torch.device(device)))
+    dev = torch.device(device)
+    if dev.type == "cuda" and dev.index is None:  # one cache entry for "cuda" and "cuda:<current>"
+        dev = torch.device("cuda", torch.cuda.current_device())
+    return _offsets(name, str(dev))
 
 
 def _leaf_sort(cloud: PointCloud, resolution: float, e: int):

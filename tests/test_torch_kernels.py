@@ -5,7 +5,9 @@ This file imports no JAX, so the card tests also run where JAX is absent:
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_kernels.py -m gpu
 """
 
+import math
 import re
+import warnings
 from pathlib import Path
 
 import numpy as np
@@ -17,7 +19,7 @@ torch.set_num_threads(1)  # small CPU ops: more threads per xdist worker only ov
 from lv_slam_tpu.io import synthetic  # noqa: E402
 from lv_slam_tpu_torch.config import LfaConfig  # noqa: E402
 from lv_slam_tpu_torch.core import se3  # noqa: E402
-from lv_slam_tpu_torch.core.cloud import PointCloud  # noqa: E402
+from lv_slam_tpu_torch.core.cloud import SENTINEL, PointCloud  # noqa: E402
 from lv_slam_tpu_torch.kernels import KERNELS, reset_launches  # noqa: E402
 from lv_slam_tpu_torch.graph import pose_graph  # noqa: E402
 from lv_slam_tpu_torch.lfa import features, registration  # noqa: E402
@@ -299,7 +301,7 @@ def _registration_calls(device, scans):
 
 # kernels that replace a block inside a reference function: the text their
 # replaced line must hold
-INLINE_BLOCKS = {"build_lut": "# Dense LUT scatter"}
+INLINE_BLOCKS = {"build_lut": "# Dense LUT scatter", "newton_step": "def _newton_loop("}
 
 
 def test_registry_names_sources_and_replaced_functions():
@@ -311,6 +313,7 @@ def test_registry_names_sources_and_replaced_functions():
         "build_grid", "knn", "build_cell_table", "build_lut", "ndt_derivatives_soa", "ndt_derivatives",
         "window_group_fn", "detect_floor", "nn_points", "radius_outlier_removal", "statistical_outlier_removal",
         "vertical_angle_calibration", "_plane_covariances", "gicp_align", "filter_ground_leaves",
+        "newton_step", "optimize_pose_graph",
     }
     for name, k in KERNELS.items():
         assert (REPO / k.source).is_file(), k.source
@@ -594,3 +597,284 @@ def test_registration_kernels_match_plain_versions_on_the_card(registration_resu
     by_name, launches = registration_results
     assert launches == REGISTRATION_LAUNCHES
     REGISTRATION_CHECKS[name](by_name[name], scans)
+
+
+# ------------------------------------------------------------ the device-side loops (K7, the LM)
+
+
+def _count_syncs(fn):
+    """(fn's result, the synchronizing calls it made): torch warns at each."""
+    torch.cuda.set_sync_debug_mode("warn")
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            out = fn()
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    return out, sum("synchroniz" in str(w.message) for w in caught)
+
+
+def _lut_align_inputs(device, scans):
+    """Scan 0's weighted 1 m map (its LUT and packed rows) and scan 1."""
+    (s0, s1), rel = scans
+    c0 = PointCloud.from_numpy(s0, cap=16384, device=device)
+    c1 = PointCloud.from_numpy(s1, cap=16384, device=device)
+    vm = voxel_map.build_voxel_map(c0, 1.0, leaf_cap=8192, lut_extent=256, weighted=True)
+    lut = voxel_map.build_lut(vm)
+    return vm, lut, ndt_soa.to_soa(vm, lut), c1, torch.from_numpy(rel.astype(np.float32)).to(device)
+
+
+def _guesses(rel, device):
+    """Starts around the true step: 0.4 m and 0.05 rad off, 1.2 m off (the
+    first scan's x = +1.5 m guess), on it."""
+    out = []
+    for xi in ([0.4, -0.2, 0.1, 0.0, 0.0, 0.05], [-1.2, 0.3, 0.0, 0.01, -0.01, 0.0], [0.0] * 6):
+        out.append((se3.exp_se3(torch.tensor(xi, dtype=torch.float32, device=device)) @ rel).contiguous())
+    return out
+
+
+def _alpha64(state, p, ridge_h):
+    """A lane's next step length from its state after the step, solved in
+    float64 on the host, and the system's condition number. `ridge_h`: the
+    Hessian the ridge is taken from (before the `dof` projection)."""
+    f = state.f[0].double().cpu().numpy()
+    g, h = f[ndt.F_GRAD:ndt.F_GRAD + 6], f[ndt.F_HESS:ndt.F_HESS + 36].reshape(6, 6)
+    ridge = np.float32(1e-6) * np.float32(np.abs(np.diag(ridge_h)).sum()) / np.float32(6.0) + np.float32(1e-12)
+    a = (h + ridge * np.eye(6)).astype(np.float32).astype(np.float64)
+    norm = float(np.linalg.norm(np.linalg.solve(a, -g)))
+    return min(max(norm, p.step_min), float(f[ndt.F_CAP])), np.linalg.cond(a)
+
+
+@pytest.mark.gpu
+def test_newton_step_matches_its_twin_on_the_card(cuda, scans):
+    """K7: from identical states (every step of three aligns of scan 1 onto
+    scan 0's LUT map, and of the ground NDT's `dof` form), one `newton_step`
+    and one `newton_step_ref` given the same derivative sums: the iteration
+    count, the accepted transform, score, gradient, Hessian and cap
+    identical; `done` and `bad` identical except where alpha lies within
+    the two solves' rounding of eps or eps / 2 (counted and printed); the
+    step length alpha within 1e-5 (relative) of the step solved in float64,
+    and the proposed candidate within 1e-6 plus the twin's float32 solve
+    error (the condition number times 2^-23 times alpha) of the twin's. (A
+    float64 candidate is no yardstick: the reference's float32 exp_se3 takes
+    (1 - cos t) / t^2, which one ulp of cos moves by 6e-8 / t^2; kernel and
+    twin share CUDA's cosf.) A NaN first score stops the lane before any
+    step."""
+    vm, lut, soa, c1, rel = _lut_align_inputs(cuda, scans)
+    xs, xyz, mask = c1.masked_xyz().T.contiguous(), c1.masked_xyz().contiguous(), c1.mask.contiguous()
+    gauss = make_gauss_params(1.0)
+    d1 = voxel_map.neighborhood_offsets("DIRECT1", cuda)
+    runs = [(ndt_soa.soa_pass(soa, xs, mask, gauss, d1, True), None,
+             lambda t: ndt_soa.ndt_derivatives_soa(soa, xs, mask, t, gauss, d1, True))]
+    runs.append((ndt.generic_pass(vm, lut, xyz, mask, gauss, d1, False), ndt_ground.GROUND_DOF,
+                 lambda t: ndt.ndt_derivatives(vm, lut, xyz, mask, t, gauss, d1, False)))
+    steps = flips = 0
+    worst = 0.0
+    for pass_, dof, derivs in runs:
+        p = ndt.loop_params(np.float32(0.01), 0.1, 64, dof, cuda)
+        for guess in _guesses(rel, cuda):
+            state = ndt.NewtonState(guess[None])
+            state.partials = torch.empty((pass_.n_blocks * ndt.N_TERMS,), dtype=torch.float32, device=cuda)
+            while not state.all_done():
+                twin = state.clone()
+                pre_f, pre_s = state.f[0].clone(), state.s[0].clone()
+                sums = derivs(twin.f[0, ndt.F_CAND:ndt.F_CAND + 16].reshape(4, 4).contiguous())
+                pass_.launch(state)
+                ndt.newton_step(state, pass_.n_blocks, p)
+                ndt.newton_step_ref(twin, *sums, p)
+                steps += 1
+                assert int(state.s[0, ndt.S_IT]) == int(twin.s[0, ndt.S_IT])
+                for lo, hi in ((ndt.F_T, ndt.F_T + 16), (ndt.F_SCORE, ndt.F_HESS + 36), (ndt.F_CAP, ndt.F_CAP + 1)):
+                    assert torch.equal(state.f[0, lo:hi], twin.f[0, lo:hi]), (lo, hi)
+                if not torch.equal(state.s[0], twin.s[0]):
+                    alpha = float(state.f[0, ndt.F_ALPHA])
+                    near = min(abs(alpha - p.eps) / p.eps, abs(alpha - p.step_min) / p.step_min)
+                    assert near < 1e-5, (state.s[0], twin.s[0], alpha)
+                    flips += 1
+                    continue
+                if int(state.s[0, ndt.S_DONE]) or int(state.s[0, ndt.S_BAD]):
+                    continue
+                accepted = not int(pre_s[ndt.S_STARTED]) or (
+                    not int(pre_s[ndt.S_BAD]) and float(sums[0]) >= float(pre_f[ndt.F_SCORE]))
+                ridge_h = (sums[2] if accepted else pre_f[ndt.F_HESS:ndt.F_HESS + 36]).reshape(6, 6)
+                alpha64, cond = _alpha64(state, p, ridge_h.double().cpu().numpy())
+                err = abs(float(state.f[0, ndt.F_ALPHA]) - alpha64) / alpha64
+                worst = max(worst, err)
+                assert err < 1e-5, err
+                cand, twin_cand = state.f[0, ndt.F_CAND:ndt.F_CAND + 16], twin.f[0, ndt.F_CAND:ndt.F_CAND + 16]
+                assert float((cand - twin_cand).abs().max()) <= 1e-6 + 2.0**-23 * cond * alpha64
+    print(f"newton_step: {steps} steps from identical states, {flips} done / bad flags decided by rounding, "
+          f"step lengths within {worst:.3g} of float64's")
+    assert steps > 10
+    # a NaN first score: done at once, no iteration counted, nothing proposed
+    state = ndt.NewtonState(rel[None])
+    state.partials = torch.full((3 * ndt.N_TERMS,), float("nan"), dtype=torch.float32, device=cuda)
+    ndt.newton_step(state, 3, p)
+    assert state.s[0].tolist() == [1, 0, 1, 0]
+    assert torch.equal(state.f[0, ndt.F_CAND:ndt.F_CAND + 16], state.f[0, ndt.F_T:ndt.F_T + 16])
+
+
+@pytest.mark.gpu
+def test_batched_newton_step_keeps_finished_lanes(cuda, scans):
+    """K13's loop on the card: four candidates that stop at different
+    iterations, stepped by the kernels; each lane's state, once done, stays
+    bit for bit while the others run on; the whole loop launches its bound
+    of iterations without a read, and agrees with the twins' loop on the
+    card."""
+    (s0, s1), rel = scans
+    c0 = PointCloud.from_numpy(s0, cap=16384, device=cuda)
+    c1 = PointCloud.from_numpy(s1, cap=16384, device=cuda)
+    hm = ndt_hash.to_hash(voxel_map.build_voxel_map(c0, 1.0, leaf_cap=8192, weighted=True))
+    t = torch.from_numpy(rel.astype(np.float32)).to(cuda)
+    guesses = torch.stack([*_guesses(t, cuda), (se3.exp_se3(torch.tensor([0.1, 0, 0, 0, 0, 0.0], device=cuda)) @ t)])
+    batch = PointCloud(*(torch.stack([a] * 4) for a in c1))
+    mask = batch.mask.contiguous()
+    xs = torch.where(mask[..., None], batch.xyz, SENTINEL).transpose(1, 2).contiguous()
+    pass_ = ndt_hash.hash_pass(hm, xs, mask, make_gauss_params(1.0), voxel_map.neighborhood_offsets("DIRECT1", cuda),
+                               True)
+    p = ndt.loop_params(0.01, 0.1, 16)
+    state = ndt.NewtonState(guesses, batched=True)
+    state.partials = torch.empty((4 * pass_.n_blocks * ndt.N_TERMS,), dtype=torch.float32, device=cuda)
+    frozen = {}
+    for _ in range(18):
+        pass_.launch(state)
+        ndt.newton_step(state, pass_.n_blocks, p)
+        for c in range(4):
+            if c not in frozen and int(state.s[c, ndt.S_DONE]):
+                frozen[c] = (state.f[c].clone(), state.s[c].clone())
+    assert sorted(frozen) == [0, 1, 2, 3]
+    for c, (f, s) in frozen.items():
+        assert torch.equal(state.f[c].view(torch.int32), f.view(torch.int32)) and torch.equal(state.s[c], s), c
+    kw = dict(resolution=1.0, transformation_epsilon=0.01, max_iterations=16, neighborhood="DIRECT1", weighted=True)
+    reset_launches()
+    (got_t, got_s, got_it), syncs = _count_syncs(
+        lambda: ndt_hash.ndt_align_hash_table_batched(hm, batch, guesses, **kw))
+    assert syncs == 0 and KERNELS["newton_step"].launches == 18 == KERNELS["_fused_verify_fn"].launches
+    assert torch.equal(got_it, state.s[:, ndt.S_IT]) and len(set(got_it.tolist())) >= 3
+    saved = ndt_hash._newton_loop
+    ndt_hash._newton_loop = ndt._newton_loop_plain
+    try:
+        want_t, want_s, want_it = ndt_hash.ndt_align_hash_table_batched(hm, batch, guesses, **kw)
+    finally:
+        ndt_hash._newton_loop = saved
+    # the whole loops: a tenth of eps where the iterations agree (the twin's
+    # float32 solve errs by cond(H) x 2^-23, ~1e-4 of a 0.1 m step), the
+    # reference's one-ulp spread (1e-2) where they are one apart (the last
+    # step, below eps, taken or not)
+    diff = (got_it - want_it).abs()
+    assert int(diff.max()) <= 1, (got_it, want_it)
+    err = (got_t - want_t).abs().amax(dim=(1, 2))
+    assert bool((err <= torch.where(diff == 0, 1e-3, 1e-2)).all()), err
+
+
+@pytest.mark.gpu
+def test_align_reads_once_per_group_on_the_card(cuda, scans):
+    """A whole align makes at most ceil((iterations + 1) / NEWTON_GROUP)
+    synchronizing calls (the group reads), for the LUT, hash and generic
+    passes."""
+    vm, lut, soa, c1, rel = _lut_align_inputs(cuda, scans)
+    hm = ndt_hash.to_hash(vm)
+    kw = dict(resolution=1.0, transformation_epsilon=0.01, max_iterations=64)
+    for guess in _guesses(rel, cuda):
+        for name, align in (
+            ("lut", lambda: ndt_soa.ndt_align_soa_table(soa, c1, guess, weighted=True, **kw)),
+            ("hash", lambda: ndt_hash.ndt_align_hash_table(hm, c1, guess, weighted=True, **kw)),
+            ("generic", lambda: ndt.ndt_align(vm, lut, c1, guess, neighborhood="DIRECT1", **kw)),
+        ):
+            align()
+            torch.cuda.synchronize()
+            res, syncs = _count_syncs(align)
+            it = int(res.iterations)
+            print(f"{name}: {it} iterations, {syncs} synchronizing calls")
+            assert 1 <= syncs <= math.ceil((it + 1) / ndt.NEWTON_GROUP), (name, it, syncs)
+
+
+@pytest.mark.gpu
+def test_dispatch_one_reads_nothing_on_the_card(cuda, scans):
+    """The loop verification (three multiscale rungs of K13's batched loop,
+    the centroid grid and the fitness) makes no synchronizing call."""
+    from lv_slam_tpu_torch.config import LoopDetectorConfig
+    from lv_slam_tpu_torch.graph.keyframe import KeyFrame
+    from lv_slam_tpu_torch.graph.loop_detector import LoopDetector
+
+    (s0, s1), rel = scans
+    kfs = [KeyFrame(stamp=0.1 * i, seq=i, odom=pose, accum_distance=4.0 * i, node_id=i, estimate=pose,
+                    cloud=PointCloud.from_numpy(s, cap=16384, device=cuda))
+           for i, (s, pose) in enumerate(((s0, np.eye(4)), (s1, rel)))]
+    det = LoopDetector(LoopDetectorConfig(distance_thresh=10.0, accum_distance_thresh=3.0, min_edge_interval=1.0))
+    det.dispatch_one([kfs[0]], [1.0], kfs[1])
+    torch.cuda.synchronize()
+    pending, syncs = _count_syncs(lambda: det.dispatch_one([kfs[0]], [1.0], kfs[1]))
+    assert syncs == 0
+    packed = pending.packed.cpu()
+    assert bool(torch.isfinite(packed).all())
+    rel_est = packed[0, :16].reshape(4, 4).double().numpy()
+    assert np.abs(rel_est[:3, 3] - np.linalg.inv(rel)[:3, 3]).max() < 0.05
+
+
+def _lm_graph():
+    """A noisy 24-node chain with two loops, a fixed floor plane and an
+    SE3-plane edge per node (every K15 family but the priors' kinds)."""
+    rng = np.random.default_rng(7)
+    g = pose_graph.empty_graph(32, 64, 32, 8, 32, 8)
+    poses = [np.eye(4)]
+    for _ in range(23):
+        step = se3.exp_se3(torch.tensor(np.r_[1.0, 0.0, 0.0, 0.0, 0.0, 0.1] + rng.normal(0, 0.01, 6),
+                                        dtype=torch.float32)).double().numpy()
+        poses.append(poses[-1] @ step)
+    noisy = lambda: se3.exp_se3(torch.tensor(rng.normal(0, 0.02, 6), dtype=torch.float32)).double().numpy()  # noqa
+    for i, pose in enumerate(poses):
+        pose_graph.add_node(g, i, pose @ noisy())
+    e = 0
+    for i in range(1, 24):
+        pose_graph.add_se3_edge(g, e, i, i - 1, np.linalg.inv(poses[i]) @ poses[i - 1], np.eye(6) * 10, huber=1.0)
+        e += 1
+    for i, j in ((20, 2), (23, 5)):
+        pose_graph.add_se3_edge(g, e, i, j, np.linalg.inv(poses[i]) @ poses[j], np.eye(6) * 10, huber=1.0)
+        e += 1
+    pose_graph.add_plane_node(g, 0, [0.0, 0.0, 1.0, 0.0], fixed=True)
+    for i in range(24):
+        pose_graph.add_se3_plane_edge(g, i, i, 0, [0.0, 0.0, 1.0, 1.7 + poses[i][2, 3]], np.eye(3) * 10)
+    pose_graph.add_prior(g, 0, 3, pose_graph.PRIOR_XYZ, poses[3][:3, 3], np.eye(3))
+    return g
+
+
+@pytest.mark.gpu
+def test_lm_kernels_match_their_twin_on_the_card(cuda):
+    """The LM on the card (csrc/lm.cu around K15 and the Cholesky) against
+    its twin on the card: one iteration from identical states to 1e-5 (K15
+    sums with atomics, so H differs in its last bits); a whole optimize as
+    tests/test_torch_pose_graph.py holds LMs whose iteration counts may
+    differ: poses to 1e-3, planes to 1e-4, chi2 to 1e-3 relative. The
+    launches after done are counted, and the reads are one per group."""
+    g = pose_graph.to_device(_lm_graph(), cuda)
+    chi2_0, _, _ = pose_graph._chi2_and_normal(g, g.poses, False, g.planes)
+    a = pose_graph.LMState(g, chi2_0)
+    b = a.clone()
+    pose_graph._lm_iteration(g, a, 64)
+    pose_graph._lm_iteration_ref(g, b, 64)
+    torch.testing.assert_close(a.poses, b.poses, rtol=0, atol=1e-5)
+    torch.testing.assert_close(a.planes, b.planes, rtol=0, atol=1e-5)
+    assert torch.equal(a.lmi, b.lmi)
+    torch.testing.assert_close(a.lmf[:2], b.lmf[:2], rtol=1e-5, atol=0)
+
+    reset_launches()
+    graph = _lm_graph()
+    got, syncs = _count_syncs(lambda: pose_graph.optimize_pose_graph(graph, 64, device=cuda))
+    it = int(got.iterations)
+    launched = KERNELS["optimize_pose_graph"].launches
+    assert launched == min(64, math.ceil(it / pose_graph.LM_GROUP) * pose_graph.LM_GROUP)
+    saved = pose_graph._lm_iteration
+    pose_graph._lm_iteration = pose_graph._lm_iteration_ref
+    try:
+        want = pose_graph.optimize_pose_graph(graph, 64, device=cuda)
+    finally:
+        pose_graph._lm_iteration = saved
+    print(f"LM: {it} iterations on the card ({launched} launched), {int(want.iterations)} with the twin; "
+          f"{syncs} synchronizing calls (the graph's host-to-device copies included)")
+    torch.testing.assert_close(got.poses, want.poses, rtol=0, atol=1e-3)
+    torch.testing.assert_close(got.planes, want.planes, rtol=0, atol=1e-4)
+    torch.testing.assert_close(got.chi2_after, want.chi2_after, rtol=1e-3, atol=0)
+    assert float(got.chi2_after) < 0.5 * float(got.chi2_before)
+    copies = len(pose_graph.PoseGraph._fields)  # the graph's arrays, each a pageable copy to the card
+    assert syncs - copies <= math.ceil(it / pose_graph.LM_GROUP)

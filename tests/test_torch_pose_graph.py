@@ -28,6 +28,7 @@ from lv_slam_tpu.core import se3 as jse3  # noqa: E402
 from lv_slam_tpu.graph import factors as jfactors  # noqa: E402
 from lv_slam_tpu.graph import pose_graph as jpg  # noqa: E402
 from lv_slam_tpu_torch.convert import pose_graph_from_numpy, pose_graph_to_numpy  # noqa: E402
+from lv_slam_tpu_torch.core import se3 as tse3  # noqa: E402
 from lv_slam_tpu_torch.graph import factors, pose_graph as tpg  # noqa: E402
 
 K = 16
@@ -355,3 +356,88 @@ def test_optimize_with_priors_and_planes(which):
     np.testing.assert_allclose(got.planes.numpy(), np.asarray(want.planes), rtol=0, atol=1e-4)
     if which == "floor":  # the fixed floor vertex stays where it is
         np.testing.assert_array_equal(got.planes.numpy()[0], [0.0, 0.0, 1.0, 0.0])
+
+
+# ------------------------------------------------------------ the device-form LM loop
+
+
+def _old_optimize(graph, num_iterations):
+    """The host LM loop the device form replaced (one read per iteration),
+    kept verbatim as the oracle of the device-form loop's CPU path."""
+    g = tpg.to_device(graph, "cpu")
+    k = g.node_cap
+    chi2_0, _, _ = tpg._chi2_and_normal(g, g.poses, False, g.planes)
+    poses, planes, chi2 = g.poses, g.planes, chi2_0
+    lam = torch.tensor(1e-4, dtype=torch.float32)
+    it = 0
+    while True:
+        _, h, b = tpg._chi2_and_normal(g, poses, True, planes)
+        h, b = tpg._apply_gauge(h, b, g)
+        damped = h + lam * torch.diag(torch.clamp(torch.diagonal(h), min=1e-6))
+        chol, info = torch.linalg.cholesky_ex(damped)
+        delta = torch.cholesky_solve(-b[:, None], chol)[:, 0]
+        ok = (info == 0) & torch.all(torch.isfinite(delta))
+        delta = torch.where(ok, delta, 0.0)
+        new_poses = tse3.exp_se3(delta[: 6 * k].reshape(k, 6)) @ poses
+        new_planes = factors.plane_oplus(planes, delta[6 * k:].reshape(g.plane_cap, 3))
+        new_chi2, _, _ = tpg._chi2_and_normal(g, new_poses, False, new_planes)
+        accept = ok & (new_chi2 <= chi2)
+        poses = torch.where(accept, new_poses, poses)
+        planes = torch.where(accept, new_planes, planes)
+        chi2_next = torch.where(accept, new_chi2, chi2)
+        lam = torch.where(accept, torch.clamp(lam * 0.5, min=1e-9), torch.clamp(lam * 4.0, max=1e6))
+        it += 1
+        small = torch.max(torch.abs(delta)) < 1e-6
+        rel_ok = accept & ((chi2 - chi2_next) < 1e-8 * (chi2 + 1e-12))
+        chi2 = chi2_next
+        if it >= num_iterations or bool(small | rel_ok):
+            break
+    anchor = g.poses[0] @ tse3.inverse(poses[0])
+    poses = torch.einsum("ij,njk->nik", anchor, poses)
+    return tpg.OptimizeResult(poses=poses, chi2_before=chi2_0, chi2_after=chi2, iterations=it, planes=planes)
+
+
+def _lm_graph(which):
+    if which == "chain":
+        return _graph()
+    if which == "prior_on":  # test_unported_factors_raise's graph, stopped by num_iterations
+        g = jax.tree_util.tree_map(np.array, _graph())
+        g.p_valid[0] = True
+        return g
+    rng = np.random.default_rng(0)
+    return {"gps": _gps_graph, "floor": _floor_graph}.get(which, lambda r: _plane_graph(r, which[6:]))(rng)
+
+
+# (graph, num_iterations): the chain converges in the reference's spread of
+# iterations, `prior_on` stops at its 4, the others converge well inside 64
+LM_RUNS = [("chain", 64), ("prior_on", 4), ("gps", 64), ("floor", 64), ("plane_identity", 64)]
+
+
+@pytest.mark.parametrize("which,num_iterations", LM_RUNS)
+def test_lm_device_loop_equals_the_host_loop(monkeypatch, which, num_iterations):
+    """The device-form LM loop on the CPU (the twin in groups of
+    `LM_GROUP` iterations: 1, below every run's iteration count, and 100,
+    above it and above `num_iterations`; the default 4 runs in the tests
+    above) equals the replaced host loop bit for bit, and JAX's LM as this
+    file holds it: the iteration count equal where it asserts one
+    (`prior_on`: 4), poses to 1e-3, planes to 1e-4 and chi2 to 1e-3
+    relative."""
+    graph = _lm_graph(which)
+    old = _old_optimize(tpg.PoseGraph(*graph), num_iterations)
+    for group in (1, 100):
+        monkeypatch.setattr(tpg, "LM_GROUP", group)
+        got = tpg.optimize_pose_graph(tpg.PoseGraph(*graph), num_iterations, device="cpu")
+        for name in tpg.OptimizeResult._fields:
+            a, b = torch.as_tensor(getattr(got, name)), torch.as_tensor(getattr(old, name))
+            assert torch.equal(a.view(torch.int32) if a.is_floating_point() else a.long(),
+                               b.view(torch.int32) if b.is_floating_point() else b.long()), (group, name)
+        assert got.iterations.dtype == torch.int32 and got.iterations.dim() == 0
+    print(f"{which}: {old.iterations} iterations")
+    want = jax.jit(jpg.optimize_pose_graph, static_argnums=(1,))(jax.tree_util.tree_map(jnp.asarray, graph),
+                                                                 num_iterations)
+    if which == "prior_on":
+        assert int(got.iterations) == int(want.iterations) == 4
+    n = int(np.asarray(graph.node_valid).sum())
+    np.testing.assert_allclose(float(got.chi2_after), float(want.chi2_after), rtol=1e-3, atol=1e-6)
+    np.testing.assert_allclose(got.poses.numpy()[:n], np.asarray(want.poses)[:n], rtol=0, atol=1e-3)
+    np.testing.assert_allclose(got.planes.numpy(), np.asarray(want.planes), rtol=0, atol=1e-4)
