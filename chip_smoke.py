@@ -141,6 +141,26 @@ Phases, each of which raises on failure:
    to the plain path's on the card to 1e-4 and within the reference's
    one-ulp spread (1e-2) of the CPU plain path's (as phase 8a); scans/s and
    the lanes each removal dropped per scan.
+11. Several sequences and several ranks (`lv_slam_tpu_torch.parallel`).
+   11a: `run_fleet_odometry` without a mesh, as bench.py's `BENCH_FLEET`
+   runs the reference's (scans 0-39 at 65536 lanes, the flagship odometry
+   and LFA, 1 and 4 lanes of 32 scans, lane i from scan 2i, best of two
+   warm passes); gates: every lane of the 4-lane pass equal to its
+   single-sequence run (`run_sequence_fused` -> `run_sequence_lfa`) bit for
+   bit and inside the accuracy gates; fleet_scans_per_sec_per_lane_b4,
+   fleet_throughput_retention_b4 and the 4-lane pass's idle share. 11b: in
+   a single-process NCCL world of one rank, mesh (1, 1): `ndt_align_sharded`
+   on K13's batch at the 1 m rung (8 x 131072 lanes, DIRECT7) equal to
+   `ndt_align_soa` of each pair bit for bit (its launches counted: K6L,
+   `newton_sums` and K7 once per iteration), `optimize_pose_graph_sharded`
+   on phase 2c's graph equal to `optimize_pose_graph` to LM_TOL (K15's
+   atomics); then a spawned gloo world of two ranks on the same card (NCCL
+   refuses two ranks on one GPU), meshes (1, 2) and (2, 1), through
+   `lv_slam_tpu_torch.parallel.check` (the CPU tests' rank body): the
+   sharded derivatives, two aligns and the LM within its TOLERANCES of the
+   unsharded port, both ranks bit-identical. 11c (in the
+   NCCL world): `entry()`'s odometry step against the CPU plain path's
+   within 1e-2 and `dryrun_multichip(1)`.
 
 Phase 2 holds every kernel, those of the backend too (2c: the window dedup
 K1b/K2, the batched NDT pass K13, the centroid grid K14 and the pose-graph
@@ -161,14 +181,22 @@ Phase 2f also times `uniform_subsample` (plain torch), printed as the
 twins: K7's `newton_step` (the Newton step of every align, with the
 derivative passes gated on the loop's `done` flag) step by step from
 identical states, on 2f's map and 65536-lane subsample from three starts
-and on K13's batch of 8 x 131072 lanes at the 1 m rung (2c's), then whole
+and on K13's batch of 8 x 131072 lanes at the 1 m rung (2c's), the
+sharded align's per-lane sums (`newton_sums`) on that batch's partial rows
+bit for bit against the plain block-by-block adds, then whole
 aligns and the rung, timed device and wall against the twins' loop, with
 their host reads counted (at most ceil((iterations + 1) / NEWTON_GROUP)
 per align, none per rung, none in a whole `dispatch_one`); and the LM's
 kernels (`lm_damp`, `lm_update`, `lm_accept` around K15 and the library
 Cholesky) on 2c's and 2g's graphs: one iteration from identical states,
 whole optimizes against the twin's loop on the card, the reads of `done`
-and the wasted solves (iterations launched after done) per optimize.
+and the wasted solves (iterations launched after done) per optimize. Phase
+2j holds K9n (`knn_cell`, the k nearest of a cell table's 8-cell probe) on
+the flagship LFA's world maps with scan 4's sharp and flat features, and
+K10g (the line / plane fits' KnnGrid branch) on scan 3's grids with the
+same queries, against their plain versions: K9n identical, K10g's
+decisions identical and its fitted floats judged as `ops/gicp.py` judges
+plane covariances (`registration.grid_fit_error`).
 
 The last lines are the kernels' JSON record (each kernel's launches are
 counted on the run of the path that drives it: phase 5 for the lidar
@@ -176,7 +204,9 @@ kernels and the LM's, 3 for K7's `newton_step` (with its launches on 8a,
 on 5 over K13's pass and on 10b under `launches_by_phase`), 6 for K12, 6b
 for K12b, 7a for K9g and K9k, 7b for K9c, 8a for K3L and K6L, 8d for K6G,
 9a for K2r, 9b for K16, 10a for K17, K19a and K19b, 10b for K20, 10c for
-K18 and K0a, named under `launch_phase`), the card's name and power limit, and
+K18 and K0a, 11b for `newton_sums` (the sharded align's), and 2j's own
+checks for K9n and K10g, which no path calls,
+named under `launch_phase`), the card's name and power limit, and
 `{"ok": true, "device": {...}}`. Without a CUDA device the script exits
 non-zero before it prints any result.
 """
@@ -296,7 +326,10 @@ DEVICE_FUNCTIONS = {
     "gicp_align": ("gicp_normal", "gicp_finish"),
     "filter_ground_leaves": ("ground_filter",),
     "newton_step": ("newton_step",),
+    "newton_sums": ("newton_sums",),
     "optimize_pose_graph": ("lm_damp", "lm_update", "lm_accept"),
+    "knn_cell": ("knn_cell_query",),
+    "grid_fits": ("grid_lines", "grid_planes"),
 }
 
 
@@ -1181,6 +1214,110 @@ def check_standalone_kernels(torch, scans, dev):
     return records
 
 
+def check_cell_knn_kernels(torch, scans, gt, dev):
+    """Phase 2j: K9n (`knn_cell`, the k nearest of a cell table's 8-cell
+    probe) and K10g (the line / plane fits' KnnGrid branch) vs their plain
+    versions. K9n on the flagship LFA's world maps (phase 2's: scans 0-3's
+    features inserted at their true poses, the edge map 2^14 x 6 and the
+    surf map 2^15 x 6) with scan 4's sharp (768) and flat (1536) features at
+    its true pose as queries, k = `knn_k` (5); K10g on standalone LFA's grids
+    (K9g's shape: scan 3's 4096 less-sharp and 8064 less-flat features at
+    its true pose) with the same queries. No path of either package calls
+    them, so their launches are this phase's checks (the timed calls
+    excluded). Returns (records, launches)."""
+    from lv_slam_tpu_torch import kitti_flagship_config
+    from lv_slam_tpu_torch.core import se3
+    from lv_slam_tpu_torch.core.cloud import PointCloud
+    from lv_slam_tpu_torch.kernels import KERNELS, reset_launches
+    from lv_slam_tpu_torch.lfa import features, registration
+    from lv_slam_tpu_torch.lfa.fused import _GRID_CELL, _n_buckets
+    from lv_slam_tpu_torch.ops import knn
+    from lv_slam_tpu_torch.ops.gicp import PLANE_ENVELOPE
+
+    full = kitti_flagship_config()
+    cfg = full.lfa
+    gt_rel = np.einsum("ij,njk->nik", np.linalg.inv(gt[0]), gt).astype(np.float32)
+    poses = [torch.from_numpy(p).to(dev) for p in gt_rel[:5]]
+    feats = [features.extract_features(PointCloud.from_numpy(scans[i], cap=full.prefilter.raw_cap, device=dev), cfg)
+             for i in range(5)]
+    edge = knn.empty_cell_table(_n_buckets(cfg, cfg.map_edge_cap), cfg.knn_slots, _GRID_CELL, dev)
+    surf = knn.empty_cell_table(_n_buckets(cfg, cfg.map_planar_cap), cfg.knn_slots, _GRID_CELL, dev)
+    for f, pose in zip(feats[:4], poses):
+        knn.insert_cell_table_(edge, se3.transform_points(pose, f.less_sharp), f.less_sharp_mask,
+                               cfg.mapping_line_resolution)
+        knn.insert_cell_table_(surf, se3.transform_points(pose, f.less_flat), f.less_flat_mask,
+                               cfg.mapping_plane_resolution)
+    f3, f4 = feats[3], feats[4]
+    ye, ys = se3.transform_points(poses[4], f4.sharp), se3.transform_points(poses[4], f4.flat)
+    k = cfg.knn_k
+    records = {}
+
+    reset_launches()
+    for name, table, y in (("edge", edge, ye), ("surf", surf, ys)):
+        got, want = knn.knn_cell(table, y, k), knn.knn_cell_ref(table, y, k)
+        torch.cuda.synchronize()
+        if not all(torch.equal(a, b) for a, b in zip(got, want)):
+            raise AssertionError(f"knn_cell: the {name} map's neighbours differ from the plain version")
+        log(f"  knn_cell: {name} map {tuple(table.table.shape)}, {y.shape[0]} queries, k = {k}: "
+            f"{int(got[2].sum())} of {got[2].numel()} neighbours valid; distances, points (invalid slots too) "
+            f"and valid flags identical to the plain version")
+    grids = {}
+    for name, pts, m in (("edge", f3.less_sharp, f3.less_sharp_mask), ("surf", f3.less_flat, f3.less_flat_mask)):
+        grids[name] = knn.build_grid_ref(se3.transform_points(poses[3], pts), m, _GRID_CELL)
+    fits = {}
+    for name, fn, ref, y, m, grid in (
+        ("lines", registration.lines_from_fit, registration.lines_from_fit_ref, ye, f4.sharp_mask, grids["edge"]),
+        ("planes", registration.planes_from_fit, registration.planes_from_fit_ref, ys, f4.flat_mask, grids["surf"]),
+    ):
+        got, want = fn(y, m, grid, k), ref(y, m, grid, k)
+        torch.cuda.synchronize()
+        if not torch.equal(got.valid, want.valid):
+            raise AssertionError(f"grid fits ({name}): {int((got.valid != want.valid).sum())} decisions differ")
+        if not all(bool(torch.isfinite(a).all()) for a in got[:2]):
+            raise AssertionError(f"grid fits ({name}): non-finite fitted floats")
+        diff, envelope, n, n_split = registration.grid_fit_error(got, want, y, grid, k)
+        same = int((torch.stack([(a == b).reshape(y.shape[0], -1).all(1) for a, b in zip(got[:2], want[:2])])
+                    .all(0) & want.valid).sum())
+        log(f"  grid fits, {name}: {int(got.valid.sum())} of {int(m.sum())} queries accepted, decisions identical, "
+            f"fitted floats finite on every lane, {same} accepted ones bit-identical; over the {n} with an eigen gap "
+            f"above the split ({n_split} at it) max diff {diff:.3g}, times the gap {envelope:.3g} "
+            f"(tol {PLANE_ENVELOPE})")
+        if envelope > PLANE_ENVELOPE:
+            raise AssertionError(f"grid fits ({name}): difference x gap {envelope} > {PLANE_ENVELOPE}")
+        fits[name] = (got, diff)
+    launches = {name: KERNELS[name].launches for name in ("knn_cell", "grid_fits")}
+    log(f"  launches of the checks: {launches}")
+
+    # K9n timed on the surf map: the queries, each bucket row that some
+    # query probes read once (the batch's distinct buckets; a row that
+    # several queries share, or a duplicate probe, is read once), the
+    # outputs; 9 operations per candidate's distance and a log2(k + 1)
+    # insertion per candidate
+    n_rows = int(torch.unique(knn.probe_buckets(surf, ys)).numel())
+    slots = 8 * surf.slots
+    dists, points, valid = knn.knn_cell(surf, ys, k)
+    measure(torch, records, "knn_cell", lambda: knn.knn_cell(surf, ys, k), lambda: knn.knn_cell_ref(surf, ys, k), 0.0,
+            nbytes(ys, dists, points, valid) + n_rows * surf.table.shape[1] * 4,
+            ys.shape[0] * slots * (9 + int(np.ceil(np.log2(k + 1)))))
+
+    # K10g timed on both grids, one lines and one planes call: per query
+    # 27 binary searches (3 operations per step), 2 per candidate slot, 9 per
+    # hit's squared distance, ~30 per kept neighbour and ~300 for the eigh
+    n_ops, n_bytes = 0, 0
+    for (name, (got, _)), grid, y, m in zip(fits.items(), (grids["edge"], grids["surf"]), (ye, ys),
+                                            (f4.sharp_mask, f4.flat_mask)):
+        steps = int(np.ceil(np.log2(grid.keys.shape[0] + 1)))
+        n_hits = int(knn.knn_candidates(grid, y)[1].sum())
+        n_ops += y.shape[0] * (27 * 3 * steps + 27 * 8 * 2 + 30 * k + 300) + 9 * n_hits
+        n_bytes += nbytes(*grid[:3], y, m, *got)
+    k10g = lambda: (registration.lines_from_fit(ye, f4.sharp_mask, grids["edge"], k),  # noqa: E731
+                    registration.planes_from_fit(ys, f4.flat_mask, grids["surf"], k))
+    p10g = lambda: (registration.lines_from_fit_ref(ye, f4.sharp_mask, grids["edge"], k),  # noqa: E731
+                    registration.planes_from_fit_ref(ys, f4.flat_mask, grids["surf"], k))
+    measure(torch, records, "grid_fits", k10g, p10g, max(d for _, d in fits.values()), n_bytes, n_ops)
+    return records, launches
+
+
 def check_lut_kernels(torch, scans, gt, dev):
     """Phase 2f: the LUT paths' kernels vs their plain versions at the
     shapes the host DLO gives them: K3L on the 32768-leaf keyframe map built
@@ -1414,8 +1551,8 @@ def run_slice(torch, scans, gt, dev, card):
     return summary, poses, syncs, launches
 
 
-def profile(torch, run, what: str) -> float:
-    """Device time by kernel over one 8-scan window `run`, from the profiler,
+def profile(torch, run, what: str, span: str = "8 scans") -> float:
+    """Device time by kernel over one `span` (8 scans) `run`, from the profiler,
     and the device's idle share: 1 - summed kernel time / the wall time of
     the same window run without the profiler (median of 3). The full table
     goes to _cache/chip_smoke/profile_<what>.txt."""
@@ -1446,7 +1583,7 @@ def profile(torch, run, what: str) -> float:
     if busy <= 0:
         log("  profile: no device time recorded (device split not measured)")
         return float("nan")
-    log(f"  profile of 8 scans ({what}): wall {wall_us / 1e3:.2f} ms unprofiled ({profiled_us / 1e3:.2f} ms "
+    log(f"  profile of {span} ({what}): wall {wall_us / 1e3:.2f} ms unprofiled ({profiled_us / 1e3:.2f} ms "
         f"profiled), device busy {busy / 1e3:.2f} ms, idle share {1 - busy / wall_us:.3f}")
     for t, key, count in sorted(dev_time, reverse=True)[:12]:
         log(f"    {t / 1e3:9.3f} ms  {count:6d} x  {key[:90]}")
@@ -1554,6 +1691,8 @@ INPUT_KERNELS = ("window_group_fn", "detect_floor")  # K2r, K16: the raw feed an
 # last branches): phase 10
 OFF_PATH_KERNELS = ("nn_points", "_plane_covariances", "gicp_align", "filter_ground_leaves", "radius_outlier_removal",
                     "statistical_outlier_removal", "vertical_angle_calibration")
+CELL_KNN_KERNELS = ("knn_cell", "grid_fits")  # K9n, K10g: no path of either package calls them (phase 2j)
+MESH_KERNELS = ("newton_sums",)  # the sharded align's sums: phase 11b
 # loop_rejections of the reference's BoW-ranked CPU records of this circle
 # (BENCH_r05_cpu_accuracy_dedup_stride.json, _refvocab.json)
 REFERENCE_REJECTIONS = {"verified": 1, "bow_rejected": 0, "guess_rejected": 0, "fitness_rejected": 0}
@@ -1666,14 +1805,16 @@ def run_full_path(torch, scans, gt, dev, card):
     log(f"  launches on the full path ({n} scans): {launches}")
     missing = [name for name, count in launches.items()
                if count == 0
-               and name not in CAMERA_KERNELS + STANDALONE_KERNELS + LUT_KERNELS + INPUT_KERNELS + OFF_PATH_KERNELS]
+               and name not in CAMERA_KERNELS + STANDALONE_KERNELS + LUT_KERNELS + INPUT_KERNELS + OFF_PATH_KERNELS
+               + CELL_KNN_KERNELS + MESH_KERNELS]
     if missing:
         raise AssertionError(f"kernels never launched on the full path: {missing}")
     log(f"  exempt from the launch check here: {list(CAMERA_KERNELS)} (no images in this configuration; "
         f"phases 6 and 6b drive them), {list(STANDALONE_KERNELS)} (standalone LFA; phase 7 drives them), "
         f"{list(LUT_KERNELS)} (the LUT paths; phase 8 drives them), {list(INPUT_KERNELS)} (the raw feed and "
         f"floor detection; phase 9 drives them), {list(OFF_PATH_KERNELS)} (the registrations and the prefilter's "
-        f"last branches; phase 10 drives them)")
+        f"last branches; phase 10 drives them), {list(CELL_KNN_KERNELS)} (no path calls them; phase 2j checks them), "
+        f"{list(MESH_KERNELS)} (the sharded align; phase 11b drives it)")
     t_err, drift = accuracy(est, gt, f"refined (LFA) poses of the full path, {n} scans", n)
 
     loops = [(lp.key1.seq, lp.key2.seq, round(lp.fitness, 6)) for lp in graph.loops]
@@ -2988,6 +3129,36 @@ def newton_steps(torch, ndt, state, pass_, sums_at, p):
     return steps, flips, worst_twin, worst64
 
 
+def loop_batch(torch, scans, gt, dev):
+    """(keyframe, candidates, guesses): K13's batch at the 1 m rung, as phase
+    2c gives it: the 131072-lane keyframe of the window group of scans 0-15
+    (filtered at the flagship prefilter's resolution), the filtered scans
+    2, 4, ..., 16 as the 8 candidates, their true poses 0.2 m off in x."""
+    from lv_slam_tpu_torch import kitti_flagship_config
+    from lv_slam_tpu_torch.core.cloud import PointCloud
+    from lv_slam_tpu_torch.ops import prefilter
+    from lv_slam_tpu_torch.pipeline import window
+
+    pf = kitti_flagship_config().prefilter
+    res, kf_cap = pf.downsample_resolution, 131072
+    rel_all = np.einsum("ij,njk->nik", np.linalg.inv(gt[0]), gt).astype(np.float32)
+
+    def filtered(i):
+        raw = PointCloud.from_numpy(scans[i], cap=pf.raw_cap, device=dev)
+        band = prefilter.distance_filter(raw, pf.distance_near_thresh, pf.distance_far_thresh)
+        return prefilter.voxel_downsample(band, res, pf.out_cap)
+
+    scans_f = [filtered(i) for i in range(17)]
+    rows = scans_f[:16]
+    keyframe = window.window_group_filtered(
+        torch.stack([c.xyz.T for c in rows]).contiguous(), torch.stack([c.intensity for c in rows]),
+        torch.stack([c.mask for c in rows]), 0, torch.from_numpy(rel_all[:16].copy()).to(dev),
+        torch.ones(16, dtype=torch.bool, device=dev), res, kf_cap)
+    guesses = torch.from_numpy(rel_all[2:18:2].copy()).to(dev)
+    guesses[:, 0, 3] += 0.2
+    return keyframe, [scans_f[i] for i in range(2, 18, 2)], guesses
+
+
 def check_loop_kernels(torch, scans, gt, dev, prior):
     """Phase 2i: the device-side loops against their twins at the main
     path's shapes. K7 (`newton_step`, with the derivative passes gated on
@@ -3013,7 +3184,6 @@ def check_loop_kernels(torch, scans, gt, dev, prior):
     from lv_slam_tpu_torch.graph.loop_detector import LoopDetector
     from lv_slam_tpu_torch.kernels import KERNELS, reset_launches
     from lv_slam_tpu_torch.ops import ndt, ndt_hash, ndt_soa, prefilter, voxel_map
-    from lv_slam_tpu_torch.pipeline import window
 
     cfg = kitti_flagship_config()
     pf, ndt_cfg = cfg.prefilter, cfg.odometry.ndt
@@ -3138,23 +3308,8 @@ def check_loop_kernels(torch, scans, gt, dev, prior):
         f"bound {align_bound:.5f} ms")
 
     # K13's batch at the 1 m rung (phase 2c's keyframe and candidates)
-    res, kf_cap = pf.downsample_resolution, 131072
     rel_all = np.einsum("ij,njk->nik", np.linalg.inv(gt[0]), gt).astype(np.float32)
-
-    def filtered(i):
-        raw = PointCloud.from_numpy(scans[i], cap=pf.raw_cap, device=dev)
-        band = prefilter.distance_filter(raw, pf.distance_near_thresh, pf.distance_far_thresh)
-        return prefilter.voxel_downsample(band, res, pf.out_cap)
-
-    scans_f = [filtered(i) for i in range(17)]
-    rows = scans_f[:16]
-    keyframe = window.window_group_filtered(
-        torch.stack([c.xyz.T for c in rows]).contiguous(), torch.stack([c.intensity for c in rows]),
-        torch.stack([c.mask for c in rows]), 0, torch.from_numpy(rel_all[:16].copy()).to(dev),
-        torch.ones(16, dtype=torch.bool, device=dev), res, kf_cap)
-    cands = [scans_f[i] for i in range(2, 18, 2)]
-    guesses = torch.from_numpy(rel_all[2:18:2].copy()).to(dev)
-    guesses[:, 0, 3] += 0.2
+    keyframe, cands, guesses = loop_batch(torch, scans, gt, dev)
     hm = ndt_hash.to_hash(voxel_map.build_voxel_map(keyframe, 1.0, leaf_cap=16384, lut_extent=256))
     batch = PointCloud(torch.stack([c.xyz for c in cands]), torch.stack([c.intensity for c in cands]),
                        torch.stack([c.mask for c in cands]))
@@ -3174,6 +3329,29 @@ def check_loop_kernels(torch, scans, gt, dev, prior):
     log(f"  newton_step over K13's batch (8 x {bxs.shape[2]} lanes, 1 m, DIRECT7): {steps} steps from identical "
         f"states, iterations {state.s[:, ndt.S_IT].tolist()}, {flips} flags decided by rounding, candidates within "
         f"{et:.3g} of the twin's, alpha within {e64:.3g} of float64's (tol 1e-5)")
+    # the sharded align's per-lane sums (`newton_sums`) on K13's batch: the
+    # pass's partial rows at the guesses, lanes 1 and 5 finished; bit for bit
+    # against the plain block-by-block adds, zeros for the finished lanes
+    sums_state = ndt.NewtonState(guesses, batched=True)
+    sums_state.partials = torch.empty_like(state.partials)
+    bpass.launch(sums_state)
+    sums_state.s[[1, 5], ndt.S_DONE] = 1
+    got = ndt.newton_sums(sums_state, bpass.n_blocks).clone()
+    if not torch.equal(got, ndt.newton_sums_ref(sums_state, bpass.n_blocks)) or bool(got[[1, 5]].any()):
+        raise AssertionError("newton_sums: the lanes' sums differ from the plain version")
+    log(f"  newton_sums over K13's batch (8 lanes x {bpass.n_blocks} blocks, lanes 1 and 5 finished): identical to "
+        f"the plain block-by-block float32 adds, zeros for the finished lanes")
+    # bytes: the running lanes' partial rows, a done flag per lane, the sums;
+    # one add per running lane's partial float
+    n_running = int((sums_state.s[:, ndt.S_DONE] == 0).sum())
+    sums_in = n_running * bpass.n_blocks * ndt.N_TERMS
+    measure(torch, records, "newton_sums", lambda: ndt.newton_sums(sums_state, bpass.n_blocks),
+            lambda: ndt.newton_sums_ref(sums_state, bpass.n_blocks), 0.0,
+            4 * sums_in + 4 * 8 + nbytes(got), sums_in)
+    rows = sums_state.partials[:8 * bpass.n_blocks * ndt.N_TERMS].view(8, bpass.n_blocks, ndt.N_TERMS)
+    _, lib_ms, _ = device_ms(torch, lambda: torch.sum(rows, dim=1))
+    records["newton_sums"]["library_ms"] = lib_ms
+    log(f"    the same sums by torch.sum over the blocks (a library call, every lane): {lib_ms:.4f} ms device-only")
     verify = lambda: ndt_hash.ndt_align_hash_table_batched(  # noqa: E731
         hm, batch, guesses, resolution=1.0, transformation_epsilon=0.01, max_iterations=iters, neighborhood="DIRECT7")
     runs = []
@@ -3468,6 +3646,218 @@ def loop_ms(torch, fn, reps: int = 5):
     return busy / 1e3 / reps, float(np.median(walls))
 
 
+# ----------------------------------------------------------------- phase 11
+
+FLEET_CAP, FLEET_SCANS = 65536, 32  # bench.py:498-524: lanes at 65536 lanes, 32 scans each, lane i from scan 2i
+
+
+def run_fleet(torch, scans, gt, dev, card):
+    """Phase 11a: `run_fleet_odometry` without a mesh on the card, as
+    bench.py's `BENCH_FLEET` runs the reference's (scans 0-39 of the circle
+    at 65536 lanes, the flagship odometry and LFA, 1 and 4 lanes of 32 scans,
+    lane i from scan 2i): a warm pass, then the best of two timed passes per
+    lane count. Gates: every lane of the 4-lane pass equal to the
+    single-sequence port run of its scans (`run_sequence_fused`, then
+    `run_sequence_lfa` fed its poses) bit for bit, and its refined poses
+    inside the accuracy gates. A profiled 4-lane pass gives the idle share."""
+    import dataclasses
+
+    from lv_slam_tpu_torch import kitti_flagship_config
+    from lv_slam_tpu_torch.core.cloud import PointCloud
+    from lv_slam_tpu_torch.kernels import KERNELS, reset_launches
+    from lv_slam_tpu_torch.lfa.fused import run_sequence_lfa
+    from lv_slam_tpu_torch.odometry.fused import run_sequence_fused
+    from lv_slam_tpu_torch.parallel.fleet import run_fleet_odometry
+
+    cfg = kitti_flagship_config()
+    pf = dataclasses.replace(cfg.prefilter, raw_cap=FLEET_CAP, out_cap=FLEET_CAP)
+    clouds = [PointCloud.from_numpy(s, cap=FLEET_CAP, device=dev) for s in scans[:40]]
+    fx, fm = torch.stack([c.xyz for c in clouds]), torch.stack([c.mask for c in clouds])
+    stamps = torch.arange(FLEET_SCANS, dtype=torch.float32, device=dev) * 0.1
+
+    def lanes_of(n):
+        return (torch.stack([fx[2 * i:2 * i + FLEET_SCANS] for i in range(n)]),
+                torch.stack([fm[2 * i:2 * i + FLEET_SCANS] for i in range(n)]), stamps.expand(n, FLEET_SCANS))
+
+    def fleet(n):
+        return run_fleet_odometry(None, *lanes_of(n), cfg.odometry, cfg.lfa, pf, device=dev)
+
+    rate, poses = {}, None
+    for n in (1, 4):
+        reset_launches()
+        poses = fleet(n)  # warm
+        torch.cuda.synchronize()
+        launches = {name: k.launches for name, k in KERNELS.items() if k.launches}
+        best = np.inf
+        for _ in range(2):
+            t0 = time.perf_counter()
+            fleet(n)
+            torch.cuda.synchronize()
+            best = min(best, time.perf_counter() - t0)
+        rate[n] = n * FLEET_SCANS / best
+        log(f"  {n} lane(s) x {FLEET_SCANS} scans: best of 2 passes {best:.3f} s = {rate[n]:.2f} scans/s in all "
+            f"({card}); launches of the warm pass {launches}")
+    errs = []
+    for i in range(4):
+        x, m = fx[2 * i:2 * i + FLEET_SCANS], fm[2 * i:2 * i + FLEET_SCANS]
+        odom = run_sequence_fused(x, m, stamps, cfg.odometry, pf, device=dev)
+        single = run_sequence_lfa(x, m, cfg.lfa, odom_poses=odom, device=dev)
+        if not torch.equal(poses[i], single):
+            raise AssertionError(f"fleet lane {i}: poses differ from the single-sequence run "
+                                 f"(max {float((poses[i] - single).abs().max()):.3g})")
+        errs.append(accuracy(poses[i].cpu().numpy().astype(np.float64), gt[2 * i:2 * i + FLEET_SCANS],
+                             f"fleet lane {i} (scans {2 * i}-{2 * i + FLEET_SCANS - 1}), refined poses", FLEET_SCANS))
+    log("  every lane of the 4-lane pass equals its single-sequence run (run_sequence_fused -> run_sequence_lfa) "
+        "bit for bit")
+    idle = profile(torch, lambda: fleet(4), "fleet_b4", span="the 4-lane fleet pass (128 scans)")
+    summary = dict(fleet_scans_per_sec_per_lane_b4=rate[4] / 4, fleet_throughput_retention_b4=rate[4] / rate[1],
+                   idle_share_b4=idle, scans_per_sec_b1=rate[1], scans_per_sec_b4=rate[4],
+                   devkit_t_err_max=max(e[0] for e in errs), drift_m_max=max(e[1] for e in errs))
+    log(f"  fleet_scans_per_sec_per_lane_b4 {summary['fleet_scans_per_sec_per_lane_b4']:.2f}, "
+        f"fleet_throughput_retention_b4 {summary['fleet_throughput_retention_b4']:.3f}, idle share of the 4-lane "
+        f"pass {idle:.3f} ({card})")
+    return summary
+
+
+MESH_ALIGN = dict(resolution=1.0, transformation_epsilon=0.01, neighborhood="DIRECT7", weighted=False)  # K13's 1 m rung
+MESH_LM_ITERATIONS = 64
+
+
+def mesh_inputs(vm, lut, cands, guesses, graph, iterations, meshes):
+    """`lv_slam_tpu_torch.parallel.check`'s inputs (host arrays) for K13's
+    batch at the 1 m rung and phase 2c's graph: the derivatives of pair 0 at
+    its guess, the aligns of the pairs, the LM, on `meshes`, on the card."""
+    return dict(
+        map={k: v.cpu().numpy() if hasattr(v, "cpu") else v for k, v in vm._asdict().items()}, lut=lut.cpu().numpy(),
+        xyz=np.stack([c.masked_xyz().cpu().numpy() for c in cands]),
+        mask=np.stack([c.mask.cpu().numpy() for c in cands]), guesses=guesses.cpu().numpy(),
+        T=guesses[0].cpu().numpy(), graph={k: np.asarray(v) for k, v in graph._asdict().items()}, meshes=meshes,
+        align=dict(MESH_ALIGN, max_iterations=iterations), lm_iterations=MESH_LM_ITERATIONS, device="cuda",
+    )
+
+
+def run_mesh(torch, scans, gt, dev, card):
+    """Phase 11b: the mesh. In a single-process NCCL world of one rank, mesh
+    (1, 1) on the card: `ndt_align_sharded` on K13's batch at the 1 m rung (8
+    pairs x 131072 lanes, DIRECT7) equal to `ndt_align_soa` of each pair bit
+    for bit, and `optimize_pose_graph_sharded` on phase 2c's graph equal to
+    `optimize_pose_graph` to the LM's tolerances (LM_TOL: K15 sums with
+    atomics). Then phase 11c in the same world. Then a spawned 2-rank gloo
+    world on the same card, meshes (1, 2) and (2, 1), held to the unsharded
+    port on the card at `parallel.check.TOLERANCES` (the CPU tests'). The
+    sharded align's launches (`newton_sums` among them) are counted from 0
+    in the NCCL world's align."""
+    import torch.distributed as dist
+
+    import lv_slam_tpu_torch.graph.pose_graph as pose_graph
+    from lv_slam_tpu_torch import kitti_flagship_config
+    from lv_slam_tpu_torch.kernels import KERNELS, reset_launches
+    from lv_slam_tpu_torch.ops import ndt_soa, voxel_map
+    from lv_slam_tpu_torch.parallel import check as pcheck, mesh as pmesh
+
+    iters = kitti_flagship_config().loop.verify_max_iterations
+    keyframe, cands, guesses = loop_batch(torch, scans, gt, dev)
+    vm = voxel_map.build_voxel_map(keyframe, 1.0, leaf_cap=16384, lut_extent=256)
+    lut = voxel_map.build_lut(vm)
+    b = len(cands)
+    xyz = torch.stack([c.masked_xyz() for c in cands])
+    mask = torch.stack([c.mask for c in cands])
+    rel_all = np.einsum("ij,njk->nik", np.linalg.inv(gt[0]), gt).astype(np.float32)
+    graph, _ = backend_graph(torch, rel_all, False)
+    summary = {}
+
+    store = CACHE / "mesh" / "nccl_store"
+    store.parent.mkdir(parents=True, exist_ok=True)
+    store.unlink(missing_ok=True)
+    dist.init_process_group("nccl", store=dist.FileStore(str(store), 1), rank=0, world_size=1)
+    try:
+        mesh = pmesh.make_mesh(1, 1)
+        log(f"  NCCL world of 1 on {torch.cuda.get_device_name(0)}: mesh {tuple(mesh.mesh.shape)} "
+            f"{mesh.mesh_dim_names}")
+        reset_launches()
+        t0 = time.perf_counter()
+        t, s, it = pmesh.ndt_align_sharded(mesh, pmesh.stack_maps([vm] * b), torch.stack([lut] * b), xyz, mask,
+                                           guesses, max_iterations=iters, **MESH_ALIGN)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = {name: k.launches for name, k in KERNELS.items() if k.launches}
+        log(f"  launches of the sharded align: {launches}")
+        if not launches.get("newton_sums") or launches.get("newton_sums") != launches.get("newton_step"):
+            raise AssertionError(f"the sharded align launched newton_sums {launches.get('newton_sums', 0)} times, "
+                                 f"newton_step {launches.get('newton_step', 0)} times (expected as many, and some)")
+        aligns = [ndt_soa.ndt_align_soa(vm, lut, c, guesses[j], max_iterations=iters, **MESH_ALIGN)
+                  for j, c in enumerate(cands)]
+        for j, want in enumerate(aligns):
+            if not (torch.equal(t[j], want.transform) and torch.equal(s[j], want.score)
+                    and int(it[j]) == int(want.iterations)):
+                raise AssertionError(f"sharded align, pair {j}: differs from ndt_align_soa "
+                                     f"(max {float((t[j] - want.transform).abs().max()):.3g})")
+        log(f"  ndt_align_sharded, {b} pairs x {xyz.shape[1]} lanes (DIRECT7, 1 m): iterations {it.tolist()}, "
+            f"{wall * 1e3:.1f} ms wall; transforms, scores and iterations equal to ndt_align_soa's bit for bit")
+        got = pmesh.optimize_pose_graph_sharded(mesh, graph, MESH_LM_ITERATIONS)
+        want = pose_graph.optimize_pose_graph(graph, MESH_LM_ITERATIONS, device=dev)
+        d_pose = float((got.poses - want.poses).abs().max())
+        d_plane = float((got.planes - want.planes).abs().max())
+        d_chi2 = abs(float(got.chi2_after) - float(want.chi2_after)) / max(float(want.chi2_after), 1e-30)
+        log(f"  optimize_pose_graph_sharded on phase 2c's graph: {int(got.iterations)} iterations "
+            f"({int(want.iterations)} unsharded), chi2 {float(got.chi2_before):.3f} -> {float(got.chi2_after):.3f}; "
+            f"poses within {d_pose:.3g}, planes {d_plane:.3g}, chi2 {d_chi2:.3g} relative (tol {LM_TOL})")
+        if d_pose > LM_TOL[0] or d_plane > LM_TOL[1] or d_chi2 > LM_TOL[2] \
+                or float(got.chi2_before) != float(want.chi2_before):
+            raise AssertionError("the sharded LM on a mesh of one rank departs from optimize_pose_graph")
+        summary["nccl_world_1"] = dict(align_ms=wall * 1e3, align_iterations=it.tolist(),
+                                       lm_iterations=int(got.iterations), launches=launches)
+        log("phase 11c: the port's entry points")
+        summary["entry"] = run_entry(torch, dev, card)
+    finally:
+        dist.destroy_process_group()
+
+    log("  NCCL refuses two ranks on one GPU (a communicator of duplicate devices), so the 2-rank check runs gloo "
+        "on the same card; it exists to run the collectives with more than one rank, and is no fallback")
+    inputs = mesh_inputs(vm, lut, cands[:2], guesses[:2], graph, iters, [(1, 2), (2, 1)])
+    t0 = time.perf_counter()
+    ranks = pcheck.spawn(2, "sharded_cases", inputs, CACHE / "mesh" / "gloo")
+    wall = time.perf_counter() - t0
+    pcheck.check_same_bits(ranks)
+    unsharded = pcheck.unsharded_cases(inputs)
+    for shape, res in ranks[0].items():
+        pcheck.check(res, unsharded)
+        log(f"  gloo mesh {shape} on the card: derivatives, 2 aligns (iterations {res['iterations'].tolist()}) and "
+            f"the LM ({float(res['chi2_before']):.3f} -> {float(res['chi2_after']):.3f}) within "
+            f"parallel.check.TOLERANCES {pcheck.TOLERANCES} of the unsharded port, both ranks bit-identical")
+    summary["gloo_world_2_s"] = wall
+    log(f"  the 2-rank gloo world took {wall:.1f} s with its spawn ({card})")
+    return summary
+
+
+def run_entry(torch, dev, card):
+    """Phase 11c: `entry()`'s odometry step on the card, held to the same
+    step with the plain versions on the CPU within the reference's one-ulp
+    spread (CPU_SPREAD_M, phase 8's), and `dryrun_multichip(1)` in the
+    caller's NCCL world of one rank."""
+    from lv_slam_tpu_torch import entry
+
+    fn, args = entry.entry(device=dev)
+    t, s, it = fn(*args)
+    t0 = time.perf_counter()
+    t, s, it = fn(*args)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    cpu_fn, cpu_args = entry.entry(device="cpu")
+    t_cpu = cpu_fn(*cpu_args)[0]
+    d = float((t.cpu() - t_cpu).abs().max())
+    log(f"  entry(): step {wall * 1e3:.2f} ms warm, score {float(s):.2f}, {int(it)} iterations, transform within "
+        f"{d:.3g} of the CPU plain path's (tol {CPU_SPREAD_M}) ({card})")
+    if not bool(torch.isfinite(t).all()) or d > CPU_SPREAD_M:
+        raise AssertionError("entry(): the card's step departs from the CPU plain path's")
+    t0 = time.perf_counter()
+    entry.dryrun_multichip(1)
+    torch.cuda.synchronize()
+    log(f"  dryrun_multichip(1): the sharded align, the sharded LM and the fleet with and without LFA ran in "
+        f"{time.perf_counter() - t0:.2f} s")
+    return dict(step_ms=wall * 1e3, iterations=int(it), cpu_diff=d)
+
+
 # ----------------------------------------------------------------- main
 
 
@@ -3529,6 +3919,9 @@ def main() -> int:
     records.update(check_registration_kernels(torch, scans_all, gt_all, dev))
     log("phase 2i: the device-side loops (K7's newton_step over K6L and K13's pass, the LM's kernels around K15)")
     records.update(check_loop_kernels(torch, scans_all, gt_all, dev, records))
+    log("phase 2j: the 8-cell k-NN of a cell table (K9n) and the fits' KnnGrid branch (K10g)")
+    cell_records, cell_launches = check_cell_knn_kernels(torch, scans_all, gt_all, dev)
+    records.update(cell_records)
 
     log("phase 3: the odometry slice end to end")
     summary, odometry_poses, odometry_syncs, slice_launches = run_slice(torch, scans, gt, dev, card)
@@ -3615,6 +4008,17 @@ def main() -> int:
     launch_phase.update(dict.fromkeys(factory_launches, "10a"), filter_ground_leaves="10b",
                         **dict.fromkeys(branch_launches, "10c"), newton_step="3")
     records["newton_step"]["launches_by_phase"] = newton_by_phase
+    launches.update(cell_launches)
+    launch_phase.update(dict.fromkeys(cell_launches, "2j"))
+
+    log("phase 11a: the fleet, 1 and 4 lanes of the dlo -> LFA chain on the card (bench.py's BENCH_FLEET shape)")
+    summary = run_fleet(torch, scans_all, gt_all, dev, card)
+    log(f"  summary ({card}): {json.dumps(summary)}")
+    log("phase 11b: the mesh over torch.distributed (an NCCL world of 1, then a gloo world of 2 on the card)")
+    summary = run_mesh(torch, scans_all, gt_all, dev, card)
+    log(f"  summary ({card}): {json.dumps(summary)}")
+    launches["newton_sums"] = summary["nccl_world_1"]["launches"]["newton_sums"]
+    launch_phase["newton_sums"] = "11b"
     log(f"  plain torch ({card}): {json.dumps({'_uniform_subsample': records.pop('_uniform_subsample')})}")
 
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")

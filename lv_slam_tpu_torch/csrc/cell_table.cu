@@ -1,8 +1,9 @@
 // Kernel 9: the LFA world maps' hashed cell tables: batch insert (9a), crop
-// (9b) and the whole-table build of the host mapping (9c).
+// (9b), the whole-table build of the host mapping (9c) and the 8-cell k-NN
+// (9n).
 //
 // Replaces: lv_slam_tpu/ops/knn.py:139 `insert_cell_table`, :218
-// `crop_cell_table` and :93 `build_cell_table`. A table is (B, S*4) float32:
+// `crop_cell_table`, :93 `build_cell_table` and :264 `knn_cell`. A table is (B, S*4) float32:
 // S slots of [x, y, z, valid]
 // per bucket; a 2 m cell hashes to bucket ((c0*H1) ^ (c1*H2) ^ (c2*H3)) mod B
 // in uint32 arithmetic (the reference's wrapping int32 products, taken as
@@ -42,6 +43,22 @@
 // memory (moved^2 > interval^2), and returns at once when it is closed, so
 // the LFA step reads nothing back to the host; one thread writes the new crop
 // center.
+//
+// k-NN design (9n): one warp per query. Lanes 0-7 hash the 2x2x2 cell block
+// around (q - cs/2) / cs (`candidates_cell`'s probe) and mark a probe whose
+// bucket an earlier probe holds (the later of two is dropped); then the
+// lanes take the 8 x S candidates c = o * S + s in turn, a candidate's key
+// the bits of its squared distance (the fma chain of the reference's sum of
+// squares, rounded as the plain twin rounds it; +inf for an invalid slot or
+// a dropped probe), kept in shared memory. Each candidate's rank is the
+// number of candidates before it in (key, index) order, `lax.top_k`'s order
+// of -d2: ties to the lower index, misses in index order; the keys of
+// non-negative floats, +inf and NaN order as the floats do (NaN last, as
+// the twin's stable sort puts it). A candidate of rank < k writes output
+// slot `rank`: its distance, its table row's point (an invalid slot's too,
+// as the reference returns it) and whether the distance is finite. Ranks are
+// distinct, so every slot has one writer. What bounds it: latency (8 row
+// reads of 96 bytes per query and (8 S)^2 comparisons in shared memory).
 #include "common.cuh"
 
 #include <math.h>
@@ -201,6 +218,63 @@ __global__ void table_place(const int* __restrict__ sb, const long long* __restr
   dst[3] = 1.0f;
 }
 
+constexpr int kWarps = lvs::kThreads / 32;  // queries per block of knn_cell_query
+
+__global__ void __launch_bounds__(lvs::kThreads)
+knn_cell_query(const float* __restrict__ table, int n_buckets, int slots, float cs,
+               const float* __restrict__ queries, int q, int k, float* __restrict__ dists,
+               float* __restrict__ points, bool* __restrict__ valid) {
+  __shared__ unsigned s_key[kWarps][8 * kMaxSlots];
+  __shared__ int s_bucket[kWarps][8];
+  __shared__ bool s_dup[kWarps][8];
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int t = blockIdx.x * kWarps + warp;
+  if (t >= q) return;  // the whole warp: no block-wide barrier follows
+  const float qx = queries[3 * t + 0], qy = queries[3 * t + 1], qz = queries[3 * t + 2];
+  if (lane < 8) {
+    const float half = cs / 2.0f;
+    s_bucket[warp][lane] = bucket_of(static_cast<int>(floorf((qx - half) / cs)) + (lane >> 2),
+                                     static_cast<int>(floorf((qy - half) / cs)) + ((lane >> 1) & 1),
+                                     static_cast<int>(floorf((qz - half) / cs)) + (lane & 1), n_buckets);
+  }
+  __syncwarp();
+  if (lane < 8) {
+    bool dup = false;
+    for (int e = 0; e < lane; ++e) dup |= s_bucket[warp][e] == s_bucket[warp][lane];
+    s_dup[warp][lane] = dup;
+  }
+  __syncwarp();
+  const int m = 8 * slots;
+  for (int c = lane; c < m; c += 32) {
+    const int o = c / slots;
+    const float* row = table + (static_cast<long long>(s_bucket[warp][o]) * slots + (c - o * slots)) * 4;
+    float d2 = INFINITY;
+    if (!s_dup[warp][o] && row[3] > 0.5f) {
+      const float dx = qx - row[0], dy = qy - row[1], dz = qz - row[2];
+      d2 = lvs::dot3_fma(dx, dy, dz, dx, dy, dz);
+    }
+    s_key[warp][c] = __float_as_uint(d2);
+  }
+  __syncwarp();
+  for (int c = lane; c < m; c += 32) {
+    const unsigned key = s_key[warp][c];
+    int rank = 0;
+    for (int j = 0; j < m; ++j) {
+      const unsigned kj = s_key[warp][j];
+      rank += kj < key || (kj == key && j < c);
+    }
+    if (rank >= k) continue;
+    const int o = c / slots;
+    const float* row = table + (static_cast<long long>(s_bucket[warp][o]) * slots + (c - o * slots)) * 4;
+    const float d2 = __uint_as_float(key);
+    const float d = sqrtf(d2 < 0.0f ? 0.0f : d2);  // clamp(min=0), NaN kept
+    const long long out = static_cast<long long>(t) * k + rank;
+    dists[out] = d;
+    valid[out] = isfinite(d);
+    for (int a = 0; a < 3; ++a) points[3 * out + a] = row[a];
+  }
+}
+
 }  // namespace
 
 extern "C" int lvs_table_keys(const float* xyz, const bool* mask, int n, int n_buckets, float inv_cell,
@@ -248,5 +322,14 @@ extern "C" int lvs_crop_cell_table(float* table, int n_slots, const float* cente
   int threads = n_slots > 1 ? n_slots : 1;
   crop<<<lvs::blocks_for(threads), lvs::kThreads, 0, stream>>>(table, n_slots, center, last_center,
                                                                interval2, radius2, center_out);
+  LVS_RETURN_LAST_ERROR();
+}
+
+extern "C" int lvs_knn_cell(const float* table, int n_buckets, int slots, float cs, const float* queries, int q,
+                            int k, float* dists, float* points, bool* valid, cudaStream_t stream) {
+  if (slots > kMaxSlots || k < 1 || k > 8 * slots) return static_cast<int>(cudaErrorInvalidValue);
+  if (q > 0)
+    knn_cell_query<<<(q + kWarps - 1) / kWarps, lvs::kThreads, 0, stream>>>(table, n_buckets, slots, cs, queries,
+                                                                           q, k, dists, points, valid);
   LVS_RETURN_LAST_ERROR();
 }

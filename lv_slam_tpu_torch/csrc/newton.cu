@@ -28,6 +28,12 @@
 // the `bad` test, the ascent flip, the clamp to [eps/2, cap] and
 // exp_se3(alpha * direction) @ transform. A lane whose `done` is set returns
 // at once, so a launch after done is an exact no-op.
+//
+// The point-sharded align (parallel/mesh.py) needs the lane's sums before
+// the step, to all-reduce them over the ranks that hold its points:
+// `newton_sums` writes each lane's 43 sums in the same order (zeros for a
+// finished lane), and `newton_step` then takes the reduced rows as a pass of
+// one block (0 + x is x), so one rank's sharded step equals the unsharded one.
 #include "common.cuh"
 #include "ndt_terms.cuh"
 #include "se3.cuh"
@@ -169,7 +175,24 @@ __global__ void newton_step(const float* __restrict__ partials, int n_blocks, fl
   if (!done) propose(st, si, step_min, dof_bits);
 }
 
+// Each lane's summed derivative rows (n_lanes, 43), zeros for a finished lane.
+__global__ void newton_sums(const float* __restrict__ partials, int n_blocks, const int* __restrict__ s,
+                            float* __restrict__ sums) {
+  const int c = blockIdx.x;
+  if (threadIdx.x >= lvs::kNdtTerms) return;
+  sums[lvs::kNdtTerms * c + threadIdx.x] =
+      s[kS * c + S_DONE] ? 0.0f
+                         : lvs::column_sum(partials + static_cast<long long>(lvs::kNdtTerms) * n_blocks * c,
+                                           n_blocks, lvs::kNdtTerms, threadIdx.x);
+}
+
 }  // namespace
+
+extern "C" int lvs_newton_sums(const float* partials, int n_blocks, const int* s, int n_lanes, float* sums,
+                               cudaStream_t stream) {
+  if (n_lanes > 0) newton_sums<<<n_lanes, 64, 0, stream>>>(partials, n_blocks, s, sums);
+  LVS_RETURN_LAST_ERROR();
+}
 
 extern "C" int lvs_newton_step(const float* partials, int n_blocks, float* f, int* s, int n_lanes, float eps,
                                float step_min, float step_max, int max_iterations, int dof_bits,

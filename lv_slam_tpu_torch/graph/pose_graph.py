@@ -24,7 +24,7 @@ kernel 15 and the solve is `csrc/lm.cu`, every launch gated on the loop's
 from __future__ import annotations
 
 import ctypes
-from typing import NamedTuple, Optional
+from typing import Callable, NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -444,23 +444,32 @@ class LMState:
         return ctypes.c_void_p(self.lmi.data_ptr() + 4 * M_DONE)
 
 
-def optimize_pose_graph(graph: PoseGraph, num_iterations: int = 128, device="cuda") -> OptimizeResult:
+def optimize_pose_graph(graph: PoseGraph, num_iterations: int = 128, device="cuda",
+                        reduce: Optional[Callable] = None) -> OptimizeResult:
     """The reference's LM loop (accept/reject, lambda schedule, convergence
     tests); returns re-anchored poses and the planes, left on the device.
     On CUDA an iteration is kernel 15, `lm_damp`, the Cholesky factor and
     solve, `lm_update`, kernel 15's chi2 and `lm_accept`, every launch but
     the factorization gated on `done`; iterations go in groups of `LM_GROUP`
     with one host read of `done` after each group but the last. On CPU the
-    twin (`_lm_iteration_ref`) runs in the same loop."""
+    twin (`_lm_iteration_ref`) runs in the same loop.
+
+    `reduce(t)`, when given, sums a tensor in place across the ranks that
+    hold the graph's other factors (the sharded LM, `parallel/mesh.py`):
+    chi2 at the start, H and b after kernel 15's build (before the gauge),
+    and the candidate's chi2. Every rank then takes the same step and reads
+    the same `done`, so all make the same collectives."""
     g = to_device(graph, device)
     chi2_0, _, _ = _chi2_and_normal(g, g.poses, False, g.planes)  # checks K15's arguments once
+    if reduce is not None:
+        reduce(chi2_0.view(1))
     st = LMState(g, chi2_0)
     step = _lm_iteration if g.poses.device.type == "cuda" else _lm_iteration_ref
     bound = max(num_iterations, 1)  # the reference's loop body runs at least once
     launched = 0
     while launched < bound:
         for _ in range(min(LM_GROUP, bound - launched)):
-            step(g, st, num_iterations)
+            step(g, st, num_iterations, reduce)
             launched += 1
         if launched < bound and bool(st.lmi[M_DONE]):
             break
@@ -470,11 +479,15 @@ def optimize_pose_graph(graph: PoseGraph, num_iterations: int = 128, device="cud
                           planes=st.planes)
 
 
-def _lm_iteration(g: PoseGraph, st: LMState, num_iterations: int) -> None:
-    """One gated LM iteration on the card (csrc/lm.cu around kernel 15)."""
+def _lm_iteration(g: PoseGraph, st: LMState, num_iterations: int, reduce: Optional[Callable] = None) -> None:
+    """One gated LM iteration on the card (csrc/lm.cu around kernel 15); a
+    finished loop's H and b stay cleared, so its collectives reduce zeros."""
     k, q, n = g.node_cap, g.plane_cap, _n_dofs(g)
     done = st.done_ptr()
     _k15(g, st.poses, st.planes, True, st.rho, st.h, st.b, None, done)
+    if reduce is not None:
+        reduce(st.h)
+        reduce(st.b)
     LM_KERNEL.call("lvs_lm_damp", ptr(st.h), ptr(st.b), ptr(g.node_valid), ptr(g.node_fixed), ptr(g.plane_valid),
                    ptr(g.plane_fixed), k, n, ptr(st.lmf), ptr(st.lmi), ptr(st.damped), ptr(st.rhs))
     chol, info = torch.linalg.cholesky_ex(st.damped)
@@ -483,12 +496,14 @@ def _lm_iteration(g: PoseGraph, st: LMState, num_iterations: int) -> None:
                    ptr(st.cand_planes), k, q, n, ptr(st.lmi))
     _k15(g, st.cand_poses, st.cand_planes, False, st.rho, st.h, st.b,
          ctypes.c_void_p(st.lmf.data_ptr() + 4 * L_NEW_CHI2), done)
+    if reduce is not None:
+        reduce(st.lmf[L_NEW_CHI2:L_NEW_CHI2 + 1])
     LM_KERNEL.call("lvs_lm_accept", ptr(st.poses), ptr(st.planes), ptr(st.cand_poses), ptr(st.cand_planes), k, q,
                    ptr(st.lmf), ptr(st.lmi), num_iterations)
     LM_KERNEL.launches += 1
 
 
-def _lm_iteration_ref(g: PoseGraph, st: LMState, num_iterations: int) -> None:
+def _lm_iteration_ref(g: PoseGraph, st: LMState, num_iterations: int, reduce: Optional[Callable] = None) -> None:
     """Plain PyTorch version of `_lm_iteration`: the reference's loop body
     with today's operations, on the state read into fresh tensors and
     written back in place; nothing once `done` is set."""
@@ -498,6 +513,9 @@ def _lm_iteration_ref(g: PoseGraph, st: LMState, num_iterations: int) -> None:
     poses, planes = st.poses.clone(), st.planes.clone()
     lam, chi2 = st.lmf[L_LAM].clone(), st.lmf[L_CHI2].clone()
     _, h, b = _chi2_and_normal(g, poses, True, planes)
+    if reduce is not None:
+        reduce(h)
+        reduce(b)
     h, b = _apply_gauge(h, b, g)
     damped = h + lam * torch.diag(torch.clamp(torch.diagonal(h), min=1e-6))
     chol, info = torch.linalg.cholesky_ex(damped)
@@ -507,6 +525,8 @@ def _lm_iteration_ref(g: PoseGraph, st: LMState, num_iterations: int) -> None:
     new_poses = se3.exp_se3(delta[: 6 * k].reshape(k, 6)) @ poses
     new_planes = factors.plane_oplus(planes, delta[6 * k:].reshape(g.plane_cap, 3))
     new_chi2, _, _ = _chi2_and_normal(g, new_poses, False, new_planes)
+    if reduce is not None:
+        reduce(new_chi2.view(1))
     accept = ok & (new_chi2 <= chi2)
     st.poses.copy_(torch.where(accept, new_poses, poses))
     st.planes.copy_(torch.where(accept, new_planes, planes))

@@ -2,7 +2,9 @@
 parts of `lv_slam_tpu.io.synthetic` that drive the odometry workload.
 
 A procedural urban world (ground plane, building boxes, poles) is ray-cast
-with an HDL-64-like pattern along a circular drive with known ground truth.
+with an HDL-64-like pattern along a circular, figure-8 or straight drive
+with known ground truth (`make_sequence`: the fleet's and the entry's
+sequences).
 At 64 rings x 2000 azimuths a scan holds about 125k returns, the density of a
 KITTI Velodyne scan. `render_camera_image` splats the same world into the
 forward camera's 8-bit image, the input of the loop detector's ORB.
@@ -13,7 +15,7 @@ reference's.
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional
+from typing import List, Optional, Tuple
 
 import numpy as np
 
@@ -139,6 +141,54 @@ def circle_trajectory(n_poses: int, step: float = 1.0, z: float = 1.73, radius: 
             np.float32,
         )
     return poses
+
+
+def figure8_trajectory(n_poses: int, step: float = 1.0, z: float = 1.73,
+                       radius: Optional[float] = None) -> np.ndarray:
+    """(n,4,4) smooth figure-8-ish drive, yaw along the tangent, ~`step` m
+    between poses; the default radius keeps the peak yaw rate near 0.05 rad
+    per scan."""
+    if radius is None:
+        radius = max(n_poses * step / (4.0 * np.pi), 25.0)
+    s = np.arange(n_poses) * step / radius
+    x = radius * np.sin(s)
+    y = radius * np.sin(s) * np.cos(s)
+    yaw = np.arctan2(np.gradient(y), np.gradient(x))
+    poses = np.zeros((n_poses, 4, 4), np.float32)
+    for i in range(n_poses):
+        c, si = np.cos(yaw[i]), np.sin(yaw[i])
+        poses[i] = np.array([[c, -si, 0, x[i]], [si, c, 0, y[i]], [0, 0, 1, z], [0, 0, 0, 1]], np.float32)
+    return poses
+
+
+def straight_trajectory(n_poses: int, step: float = 1.0, z: float = 1.73) -> np.ndarray:
+    """(n,4,4) straight drive along +x, `step` m between poses."""
+    poses = np.tile(np.eye(4, dtype=np.float32), (n_poses, 1, 1))
+    poses[:, 0, 3] = np.arange(n_poses) * step
+    poses[:, 2, 3] = z
+    return poses
+
+
+def make_sequence(
+    n_scans: int,
+    seed: int = 0,
+    trajectory: str = "figure8",
+    step: float = 1.0,
+    n_rings: int = 64,
+    n_azimuth: int = 900,
+    noise_std: float = 0.01,
+    max_elev_deg: float = 2.0,
+    min_elev_deg: float = -24.8,
+) -> Tuple[List[np.ndarray], np.ndarray, World]:
+    """(scans [list of (M,4) sensor-frame], gt_poses (n,4,4), world)."""
+    world = make_world(seed)
+    trajectories = {"figure8": figure8_trajectory, "straight": straight_trajectory, "circle": circle_trajectory}
+    if trajectory not in trajectories:
+        raise ValueError(trajectory)
+    poses = trajectories[trajectory](n_scans, step)
+    rays = lidar_rays(n_rings, n_azimuth, max_elev_deg, min_elev_deg)
+    scans = [simulate_scan(world, poses[i], rays, noise_std=noise_std, seed=seed + i) for i in range(n_scans)]
+    return scans, poses, world
 
 
 def render_camera_image(

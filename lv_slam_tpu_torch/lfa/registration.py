@@ -8,16 +8,16 @@
   `lines_from_2nn_ref` / `planes_from_3nn_ref` on CPU tensors. Both round
   the norms, the cross product and the plane offset as XLA's CPU fma chains
   round the reference's (`ops.linalg3.fma32`).
-- `lines_from_fit` / `planes_from_fit` are kernel 10 (`csrc/lfa_fit.cu`) on
-  CUDA tensors and `lines_from_fit_ref` / `planes_from_fit_ref` on CPU
-  tensors: radius-gated eigen fits over the 8-cell probe of a `CellTable`.
-  The plain twins sum the 8*S candidates in slot order, as the kernel does,
-  so the two agree on every accept decision.
+- `lines_from_fit` / `planes_from_fit` are radius-gated eigen fits. On a
+  `CellTable` (the device-resident mapping's maps) they are kernel 10
+  (`csrc/lfa_fit.cu`) on CUDA tensors, over the 8-cell probe; on a sorted
+  `KnnGrid` kernel 10g (same file), over the k nearest of K9k's search,
+  each gated at a distance below 1 m. `lines_from_fit_ref` /
+  `planes_from_fit_ref` are the plain versions of both branches on CPU
+  tensors. The twins sum the candidates in candidate order, as the kernels
+  do, so the two agree on every accept decision.
 - `gn_solve` is kernel 11 (`csrc/lfa_gn.cu`) on CUDA tensors and
   `gn_solve_ref` on CPU tensors: all iterations in one launch.
-
-The fits' `KnnGrid` branches (5-NN fits on a sorted grid) have no caller in
-the reference and raise `NotImplementedError` here.
 """
 
 from __future__ import annotations
@@ -29,7 +29,7 @@ import torch
 from lv_slam_tpu_torch.core import se3
 from lv_slam_tpu_torch.kernels._build import F32, I32, PTR, Kernel, check_cuda, check_dtype, ptr
 from lv_slam_tpu_torch.lfa.features import _sum3
-from lv_slam_tpu_torch.ops.knn import KNN_KERNEL, CellTable, KnnGrid, candidates_cell, check_grid, knn_ref
+from lv_slam_tpu_torch.ops.knn import MAX_K, KNN_KERNEL, CellTable, KnnGrid, candidates_cell, check_grid, knn_ref
 from lv_slam_tpu_torch.ops.linalg3 import dot3_fma, eigh3x3, fma32, sqrt32
 
 _DIST_SQ_THRESH = 25.0  # correspondence gate, A-LOAM's 25 m^2
@@ -45,6 +45,16 @@ PLANES_KERNEL = Kernel(
     source="lv_slam_tpu_torch/csrc/lfa_fit.cu",
     replaces="lv_slam_tpu/lfa/registration.py:111",
     entries={"lvs_planes_from_fit": [PTR, PTR, I32, PTR, I32, I32, F32, I32, PTR, PTR, PTR]},
+)
+GRID_FITS_KERNEL = Kernel(
+    "grid_fits",
+    source="lv_slam_tpu_torch/csrc/lfa_fit.cu",
+    replaces="lv_slam_tpu/lfa/registration.py:73",
+    entries={
+        # keys, xyz, n, origin, cell, queries, mask, q, k -> (mu, v | n, d), valid
+        "lvs_grid_lines_from_fit": [PTR, PTR, I32, PTR, F32, PTR, PTR, I32, I32, PTR, PTR, PTR],
+        "lvs_grid_planes_from_fit": [PTR, PTR, I32, PTR, F32, PTR, PTR, I32, I32, PTR, PTR, PTR],
+    },
 )
 GN_KERNEL = Kernel(
     "gn_solve",
@@ -70,14 +80,6 @@ class PlaneField(NamedTuple):
     valid: torch.Tensor  # (N,)
 
 
-def _require_table(grid) -> CellTable:
-    if not isinstance(grid, CellTable):
-        raise NotImplementedError(
-            "only the CellTable branch is ported (no caller fits on a sorted KnnGrid)"
-        )
-    return grid
-
-
 def _ordered_sum(x: torch.Tensor) -> torch.Tensor:
     """Sum over dim 1 in index order from +0.0, the kernel's order."""
     acc = torch.zeros_like(x[:, 0])
@@ -86,12 +88,21 @@ def _ordered_sum(x: torch.Tensor) -> torch.Tensor:
     return acc
 
 
-def _fit(y: torch.Tensor, table: CellTable):
-    """(use (Q,K), n_use, pts zeroed outside the gate, mu, cov) over the
-    8-cell candidates, summed in candidate order."""
-    pts, cand_ok = candidates_cell(table, y)
-    d = y[:, None, :] - pts
-    use = cand_ok & (_sum3(d * d) < 1.0)
+def _candidates(y: torch.Tensor, grid, k: int):
+    """(points (Q,K,3), use (Q,K)): on a `CellTable` the 8-cell candidates
+    within 1 m (squared distance summed as kernel 10 sums it); on a
+    `KnnGrid` the k nearest within 1 m (the reference gates the distance)."""
+    if isinstance(grid, CellTable):
+        pts, cand_ok = candidates_cell(grid, y)
+        d = y[:, None, :] - pts
+        return pts, cand_ok & (_sum3(d * d) < 1.0)
+    dists, pts, valid = knn_ref(grid, y, k)
+    return pts, valid & (dists < 1.0)
+
+
+def _fit(pts: torch.Tensor, use: torch.Tensor):
+    """(n_use, pts zeroed outside the gate, mu, cov) over the candidates,
+    summed in candidate order."""
     w = use.to(torch.float32)
     n_use = _ordered_sum(w)
     cnt = torch.clamp(n_use, min=1.0)
@@ -99,13 +110,12 @@ def _fit(y: torch.Tensor, table: CellTable):
     mu = _ordered_sum(pts) / cnt[:, None]
     c = (pts - mu[:, None, :]) * w[..., None]
     cov = _ordered_sum(c[..., :, None] * c[..., None, :]) / cnt[:, None, None]
-    return use, n_use, pts, mu, cov
+    return n_use, pts, mu, cov
 
 
 def lines_from_fit_ref(y: torch.Tensor, mask: torch.Tensor, grid, k: int = 5) -> LineField:
     """Plain PyTorch version of `lines_from_fit`."""
-    table = _require_table(grid)
-    _, n_use, _, mu, cov = _fit(y, table)
+    n_use, _, mu, cov = _fit(*_candidates(y, grid, k))
     evals, evecs = eigh3x3(cov)
     ok = mask & (n_use >= k) & (evals[:, 2] > 3.0 * torch.clamp(evals[:, 1], min=1e-12))
     return LineField(mu=mu, v=evecs[:, :, 2], valid=ok)
@@ -113,8 +123,8 @@ def lines_from_fit_ref(y: torch.Tensor, mask: torch.Tensor, grid, k: int = 5) ->
 
 def planes_from_fit_ref(y: torch.Tensor, mask: torch.Tensor, grid, k: int = 5) -> PlaneField:
     """Plain PyTorch version of `planes_from_fit`."""
-    table = _require_table(grid)
-    use, n_use, pts, mu, cov = _fit(y, table)
+    pts, use = _candidates(y, grid, k)
+    n_use, pts, mu, cov = _fit(pts, use)
     eye = torch.eye(3, dtype=cov.dtype, device=cov.device)
     _, evecs = eigh3x3(cov + 1e-9 * eye)
     n_hat = evecs[:, :, 0]
@@ -128,43 +138,84 @@ def planes_from_fit_ref(y: torch.Tensor, mask: torch.Tensor, grid, k: int = 5) -
     return PlaneField(n=n_hat, d=d, valid=ok)
 
 
-def _fit_kernel(kernel: Kernel, entry: str, second: tuple, y, mask, grid, k: int):
-    """Launches a fit kernel; returns (Q,3) floats, `second`-shaped floats, valid."""
-    table = _require_table(grid)
+# kernel 10's (CellTable) and 10g's (KnnGrid) entry of each fit
+_FIT_ENTRIES = {
+    "lines": ((LINES_KERNEL, "lvs_lines_from_fit"), (GRID_FITS_KERNEL, "lvs_grid_lines_from_fit")),
+    "planes": ((PLANES_KERNEL, "lvs_planes_from_fit"), (GRID_FITS_KERNEL, "lvs_grid_planes_from_fit")),
+}
+
+
+def _fit_kernel(fit: str, second: tuple, y, mask, grid, k: int):
+    """Launches kernel 10 (on a `CellTable`) or 10g (on a `KnnGrid`) for
+    `fit`; returns (Q,3) floats, `second`-shaped floats, valid."""
     q = y.shape[0]
     y, mask = y.contiguous(), mask.contiguous()
-    check_cuda(kernel.name, y, mask, table.table)
+    table = isinstance(grid, CellTable)
+    kernel, entry = _FIT_ENTRIES[fit][0 if table else 1]
+    if table:
+        check_cuda(kernel.name, y, mask, grid.table)
+    else:
+        if not 1 <= k <= MAX_K:
+            raise ValueError(f"{kernel.name}: k must be in [1, {MAX_K}], got {k}")
+        check_grid(kernel.name, grid, y, mask)
     check_dtype(kernel.name, y, torch.float32, (q, 3))
     check_dtype(kernel.name, mask, torch.bool, (q,))
     out3 = torch.empty((q, 3), dtype=torch.float32, device=y.device)
     second = torch.empty((q, *second), dtype=torch.float32, device=y.device)
     valid = torch.empty((q,), dtype=torch.bool, device=y.device)
-    kernel.call(
-        entry, ptr(y), ptr(mask), q, ptr(table.table), table.table.shape[0], table.slots,
-        table.cell_size, k, ptr(out3), ptr(second), ptr(valid),
-    )
+    if table:
+        kernel.call(entry, ptr(y), ptr(mask), q, ptr(grid.table), grid.table.shape[0], grid.slots, grid.cell_size,
+                    k, ptr(out3), ptr(second), ptr(valid))
+    else:
+        kernel.call(entry, ptr(grid.keys), ptr(grid.xyz), grid.keys.shape[0], ptr(grid.origin_cell),
+                    grid.cell_size, ptr(y), ptr(mask), q, k, ptr(out3), ptr(second), ptr(valid))
     kernel.launches += 1
     return out3, second, valid
 
 
 def lines_from_fit(y: torch.Tensor, mask: torch.Tensor, grid, k: int = 5) -> LineField:
-    """Mapping-style line fit to the map edge points within 1 m of each query;
-    accepted with >= k of them and lambda2 > 3 lambda1. Kernel 10 on CUDA,
-    the plain version on CPU."""
+    """Mapping-style line fit to the map edge points within 1 m of each query
+    (every candidate of a `CellTable`'s probe, the k nearest on a
+    `KnnGrid`); accepted with >= k of them and lambda2 > 3 lambda1. Kernel
+    10 or 10g on CUDA, the plain version on CPU."""
     if y.device.type == "cpu":
         return lines_from_fit_ref(y, mask, grid, k)
-    mu, v, valid = _fit_kernel(LINES_KERNEL, "lvs_lines_from_fit", (3,), y, mask, grid, k)
+    mu, v, valid = _fit_kernel("lines", (3,), y, mask, grid, k)
     return LineField(mu=mu, v=v, valid=valid)
 
 
 def planes_from_fit(y: torch.Tensor, mask: torch.Tensor, grid, k: int = 5) -> PlaneField:
     """Mapping-style plane fit (smallest-eigenvalue normal of the map surf
-    points within 1 m); accepted with >= k of them, all within 0.2 m of the
-    plane. Kernel 10 on CUDA, the plain version on CPU."""
+    points within 1 m, as `lines_from_fit` takes them); accepted with >= k
+    of them, all within 0.2 m of the plane. Kernel 10 or 10g on CUDA, the
+    plain version on CPU."""
     if y.device.type == "cpu":
         return planes_from_fit_ref(y, mask, grid, k)
-    n, d, valid = _fit_kernel(PLANES_KERNEL, "lvs_planes_from_fit", (), y, mask, grid, k)
+    n, d, valid = _fit_kernel("planes", (), y, mask, grid, k)
     return PlaneField(n=n, d=d, valid=valid)
+
+
+def grid_fit_error(got, want, y: torch.Tensor, grid: KnnGrid, k: int = 5) -> Tuple[float, float, int, int]:
+    """Kernel 10g's fields `got` against its plain version's `want` (both
+    LineFields or both PlaneFields of queries y on `grid`), judged as
+    `ops.gicp` judges plane covariances: over the accepted queries whose k
+    nearest within 1 m have a relative eigen-gap g = (lambda1 - lambda0) /
+    lambda2 above GAP_SPLIT, the largest difference of the fitted floats and
+    its largest product with g (a frame moves as 1 / g); the accepted
+    queries at or below the split, whose frame is noise in every
+    implementation, are only counted. Returns (max difference, max
+    difference x g, queries compared, queries at the split)."""
+    from lv_slam_tpu_torch.ops.gicp import GAP_SPLIT, eigen_gap
+
+    dists, pts, valid = knn_ref(grid, y, k)
+    g = eigen_gap(pts, valid & (dists < 1.0))
+    ok = want.valid.cpu()
+    sel = ok & (g > GAP_SPLIT)
+    d = torch.maximum((got[0] - want[0]).abs().amax(dim=1), (got[1] - want[1]).abs().reshape(y.shape[0], -1)
+                      .amax(dim=1)).cpu().double()
+    n = int(sel.sum())
+    return (float(d[sel].max()) if n else 0.0, float((d * g)[sel].max()) if n else 0.0, n,
+            int((ok & ~sel).sum()))
 
 
 def lines_from_2nn_ref(y: torch.Tensor, mask: torch.Tensor, grid: KnnGrid) -> LineField:

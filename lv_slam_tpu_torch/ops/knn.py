@@ -34,9 +34,10 @@ tables from its map buffers every scan (`build_cell_table`).
 - `build_cell_table` is kernel 9c (same file) on CUDA tensors and
   `build_cell_table_ref` on CPU tensors: bucket keys, a stable `torch.sort`
   as glue, each bucket run's first S rows written to their slots.
-
-`knn_cell` (the 8-cell k-NN on a cell table) has no caller on a ported path
-and is not ported yet.
+- `knn_cell` (the k nearest of the 8-cell probe, duplicate probe buckets
+  dropped) is kernel 9n (same file) on CUDA tensors and `knn_cell_ref` on
+  CPU tensors; `lax.top_k`'s order, ties and misses included. Neither
+  package's LFA calls it (its fits take every candidate within 1 m).
 
 Rounding: a cell coordinate of a build is `floor(x * (1/cell))`, as XLA
 compiles the reference's division by a constant; a query's is a true
@@ -104,6 +105,13 @@ INSERT_KERNEL = Kernel(
         "lvs_insert_keys": [PTR, PTR, I32, I32, F32, F32, PTR, PTR],
         "lvs_insert_rows": [PTR, PTR, PTR, PTR, I32, I32, I32, F32, PTR, PTR, PTR],
     },
+)
+KNN_CELL_KERNEL = Kernel(
+    "knn_cell",
+    source="lv_slam_tpu_torch/csrc/cell_table.cu",
+    replaces="lv_slam_tpu/ops/knn.py:264",
+    # table, buckets, slots, cell, queries, q, k -> dists, points, valid
+    entries={"lvs_knn_cell": [PTR, I32, I32, F32, PTR, I32, I32, PTR, PTR, PTR]},
 )
 CROP_KERNEL = Kernel(
     "crop_cell_table",
@@ -291,22 +299,70 @@ def crop_cell_table_ref_(
     return torch.where(go, center, last_center)
 
 
+def probe_buckets(table: CellTable, queries: torch.Tensor) -> torch.Tensor:
+    """The buckets (Q,8) of the 2x2x2 cells around each query, offsets (i,
+    j, k) with i outermost, as int64."""
+    cs = table.cell_size
+    base = torch.floor(_div(queries - float(np.float32(cs / 2.0)), cs)).to(torch.int32)
+    p = torch.arange(8, dtype=torch.int32, device=queries.device)
+    off = torch.stack([p >> 2, (p >> 1) & 1, p & 1], dim=1)
+    return _bucket(base[:, None, :] + off[None], table.table.shape[0])
+
+
 def candidates_cell(table: CellTable, queries: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     """Raw candidate set per query: (points (Q,8*S,3), valid (Q,8*S)) from the
     8 cells around each query, duplicate probe buckets dropped (the later
     probe of two that share a bucket). The plain form of kernel 10's probe."""
-    n_buckets, s, q = table.table.shape[0], table.slots, queries.shape[0]
-    cs = table.cell_size
-    base = torch.floor(_div(queries - float(np.float32(cs / 2.0)), cs)).to(torch.int32)
-    # the 2x2x2 block's offsets (i, j, k), i outermost: bits of 0..7
-    p = torch.arange(8, dtype=torch.int32, device=queries.device)
-    off = torch.stack([p >> 2, (p >> 1) & 1, p & 1], dim=1)
-    b = _bucket(base[:, None, :] + off[None], n_buckets)  # (Q,8)
+    s, q = table.slots, queries.shape[0]
+    b = probe_buckets(table, queries)
     earlier = torch.tril(torch.ones((8, 8), dtype=torch.bool, device=queries.device), diagonal=-1)
     dup = torch.any((b[:, :, None] == b[:, None, :]) & earlier, dim=-1)
     cand = table.table[b].reshape(q, 8, s, 4)
     ok = (cand[..., 3] > 0.5) & ~dup[:, :, None]
     return cand[..., :3].reshape(q, 8 * s, 3), ok.reshape(q, 8 * s)
+
+
+def _top_k(queries: torch.Tensor, cand: torch.Tensor, hit: torch.Tensor, k: int):
+    """(dists (Q,k), points (Q,k,3), valid (Q,k)): the k best candidates by
+    squared distance, misses at +inf; a stable ascending sort is
+    `lax.top_k`'s order of -d2 (ties and misses to the lower index)."""
+    d = queries[:, None, :] - cand
+    d2 = torch.where(hit, dot3_fma(d, d), torch.inf)
+    d2, top = torch.sort(d2, dim=1, stable=True)
+    dists = sqrt32(torch.clamp(d2[:, :k], min=0.0))
+    points = torch.gather(cand, 1, top[:, :k, None].expand(-1, -1, 3))
+    return dists, points, torch.isfinite(dists)
+
+
+def knn_cell_ref(table: CellTable, queries: torch.Tensor, k: int):
+    """Plain PyTorch version of `knn_cell`."""
+    cand, ok = candidates_cell(table, queries)
+    return _top_k(queries, cand, ok, k)
+
+
+def knn_cell(table: CellTable, queries: torch.Tensor, k: int) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """For each query (Q,3): (dists (Q,k), points (Q,k,3), valid (Q,k)), the
+    k nearest of the 8-cell probe's candidates (duplicate probe buckets
+    dropped), complete within cell_size/2; a query with fewer than k valid
+    candidates returns its lowest-index invalid ones after them, at +inf.
+    Kernel 9n on CUDA, the plain version on CPU."""
+    if not 1 <= k <= 8 * table.slots:
+        raise ValueError(f"knn_cell: k must be in [1, {8 * table.slots}], got {k}")
+    if queries.device.type == "cpu":
+        return knn_cell_ref(table, queries, k)
+    q, n_buckets, s = queries.shape[0], table.table.shape[0], table.slots
+    queries = queries.contiguous()
+    check_cuda("knn_cell", table.table, queries)
+    check_dtype("knn_cell", table.table, torch.float32, (n_buckets, s * 4))
+    check_dtype("knn_cell", queries, torch.float32, (q, 3))
+    dev = queries.device
+    dists = torch.empty((q, k), dtype=torch.float32, device=dev)
+    points = torch.empty((q, k, 3), dtype=torch.float32, device=dev)
+    valid = torch.empty((q, k), dtype=torch.bool, device=dev)
+    KNN_CELL_KERNEL.call("lvs_knn_cell", ptr(table.table), n_buckets, s, table.cell_size, ptr(queries), q, k,
+                         ptr(dists), ptr(points), ptr(valid))
+    KNN_CELL_KERNEL.launches += 1
+    return dists, points, valid
 
 
 def _default_buckets(n: int) -> int:
@@ -448,15 +504,9 @@ def knn_candidates(grid: KnnGrid, queries: torch.Tensor, slots_per_cell: int = 8
 def knn_ref(
     grid: KnnGrid, queries: torch.Tensor, k: int, slots_per_cell: int = 8
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """Plain PyTorch version of `knn`: a stable ascending sort of the
-    candidates' squared distances (misses at +inf) is `lax.top_k`'s order."""
+    """Plain PyTorch version of `knn`."""
     cand, hit = knn_candidates(grid, queries, slots_per_cell)
-    d = queries[:, None, :] - cand
-    d2 = torch.where(hit, dot3_fma(d, d), torch.inf)
-    d2, top = torch.sort(d2, dim=1, stable=True)
-    dists = sqrt32(torch.clamp(d2[:, :k], min=0.0))
-    points = torch.gather(cand, 1, top[:, :k, None].expand(-1, -1, 3))
-    return dists, points, torch.isfinite(dists)
+    return _top_k(queries, cand, hit, k)
 
 
 def check_grid(name: str, grid: KnnGrid, *tensors: torch.Tensor) -> None:

@@ -56,7 +56,17 @@ NEWTON_KERNEL = Kernel(
     "newton_step",
     source="lv_slam_tpu_torch/csrc/newton.cu",
     replaces="lv_slam_tpu/ops/ndt_soa.py:167",
-    entries={"lvs_newton_step": [PTR, I32, PTR, PTR, I32, F32, F32, F32, I32, I32]},
+    entries={
+        "lvs_newton_step": [PTR, I32, PTR, PTR, I32, F32, F32, F32, I32, I32],
+    },
+)
+# the lanes' summed derivative rows before the step, for the sharded align's
+# all-reduce: the per-shard sum ahead of the reference's `psum`
+NEWTON_SUMS_KERNEL = Kernel(
+    "newton_sums",
+    source="lv_slam_tpu_torch/csrc/newton.cu",
+    replaces="lv_slam_tpu/parallel/mesh.py:118",
+    entries={"lvs_newton_sums": [PTR, I32, PTR, I32, PTR]},
 )
 
 # iterations launched between two host reads of the loop's `done` flag. The
@@ -298,6 +308,7 @@ class NewtonState:
         self.f[:, F_CAND:F_CAND + 16] = guesses.reshape(k, 16)
         self.s = torch.zeros((k, S_WIDTH), dtype=torch.int32, device=guesses.device)
         self.partials: Optional[torch.Tensor] = None
+        self.sums: Optional[torch.Tensor] = None  # (k, 43) reduced rows of a sharded loop
 
     def clone(self) -> "NewtonState":
         """A copy with its own state rows (the partial rows shared)."""
@@ -347,7 +358,7 @@ class NewtonState:
 
 
 def _newton_loop(pass_: DerivativePass, state: NewtonState, eps, step_max, max_iterations: int,
-                 dof_mask=None, read: bool = True) -> NewtonState:
+                 dof_mask=None, read: bool = True, reduce: Optional[Callable] = None) -> NewtonState:
     """Monotone-guarded damped-Newton ascent on the NDT score from the
     state's candidates (the reference's `ndt_soa._newton_loop`, vmapped over
     the lanes; and `ndt_align`'s loop with `dof_mask`, whose frozen dims'
@@ -360,8 +371,14 @@ def _newton_loop(pass_: DerivativePass, state: NewtonState, eps, step_max, max_i
     iterations finish every lane. On CUDA they are launched in groups of
     `NEWTON_GROUP` with one read of `done` after each group but the last
     (`read=False`: no read at all, every iteration launched); on CPU the
-    twins run, reading `done` freely and skipping finished lanes' passes."""
-    return _drive(pass_, state, eps, step_max, max_iterations, dof_mask, read)
+    twins run, reading `done` freely and skipping finished lanes' passes.
+
+    `reduce(t)`, when given, sums the lanes' (k, 43) derivative rows in
+    place across the ranks that hold the lanes' other points (the sharded
+    align's all-reduce, `parallel/mesh.py`) before each step. Every rank
+    then takes the same step and reaches the same `done` flags, so all make
+    the same collectives; a finished lane reduces zeros."""
+    return _drive(pass_, state, eps, step_max, max_iterations, dof_mask, read, reduce)
 
 
 def _newton_loop_plain(pass_: DerivativePass, state: NewtonState, eps, step_max, max_iterations: int,
@@ -372,7 +389,7 @@ def _newton_loop_plain(pass_: DerivativePass, state: NewtonState, eps, step_max,
 
 
 def _drive(pass_: DerivativePass, state: NewtonState, eps, step_max, max_iterations: int, dof_mask,
-           read: bool) -> NewtonState:
+           read: bool, reduce: Optional[Callable] = None) -> NewtonState:
     p = loop_params(eps, step_max, max_iterations, dof_mask, state.f.device)
     kernel = pass_.launch is not None
     if kernel:
@@ -386,30 +403,73 @@ def _drive(pass_: DerivativePass, state: NewtonState, eps, step_max, max_iterati
         for _ in range(min(NEWTON_GROUP, bound - launched)):
             if kernel:
                 pass_.launch(state)
-                newton_step(state, pass_.n_blocks, p)
+                if reduce is None:
+                    newton_step(state, pass_.n_blocks, p)
+                else:  # the lanes' sums, reduced over the ranks, as a pass of one block
+                    sums = newton_sums(state, pass_.n_blocks)
+                    reduce(sums)
+                    newton_step(state, 1, p, sums)
             else:
-                _twin_iteration(pass_, state, p)
+                _twin_iteration(pass_, state, p, reduce)
             launched += 1
         if launched < bound and (read or not kernel) and state.all_done():
             break
     return state
 
 
-def newton_step(state: NewtonState, n_blocks: int, p: LoopParams) -> None:
-    """K7: one gated Newton step of every lane from the pass's partial rows."""
-    NEWTON_KERNEL.call("lvs_newton_step", ptr(state.partials), n_blocks, ptr(state.f), ptr(state.s), state.k, p.eps,
+def newton_step(state: NewtonState, n_blocks: int, p: LoopParams, partials: Optional[torch.Tensor] = None) -> None:
+    """K7: one gated Newton step of every lane from the pass's partial rows
+    (or from `partials`, n_blocks rows per lane)."""
+    rows = state.partials if partials is None else partials
+    NEWTON_KERNEL.call("lvs_newton_step", ptr(rows), n_blocks, ptr(state.f), ptr(state.s), state.k, p.eps,
                        p.step_min, p.step_max, p.max_iterations, p.dof_bits)
     NEWTON_KERNEL.launches += 1
 
 
-def _twin_iteration(pass_: DerivativePass, state: NewtonState, p: LoopParams) -> None:
+def newton_sums(state: NewtonState, n_blocks: int) -> torch.Tensor:
+    """Each lane's 43 derivative sums (k, 43) from the pass's partial rows
+    (n_blocks per lane), summed block by block in `newton_step`'s order,
+    zeros for a finished lane; kept in `state.sums`. The plain version for
+    a state on the CPU."""
+    if state.f.device.type == "cpu":
+        return newton_sums_ref(state, n_blocks)
+    check_cuda("newton_sums", state.partials, state.s)
+    if state.partials.numel() < state.k * n_blocks * N_TERMS:
+        raise ValueError(f"newton_sums: {state.partials.numel()} partial floats for {state.k} lanes x {n_blocks} "
+                         f"blocks")
+    if state.sums is None:
+        state.sums = torch.empty((state.k, N_TERMS), dtype=torch.float32, device=state.f.device)
+    NEWTON_SUMS_KERNEL.call("lvs_newton_sums", ptr(state.partials), n_blocks, ptr(state.s), state.k, ptr(state.sums))
+    NEWTON_SUMS_KERNEL.launches += 1
+    return state.sums
+
+
+def newton_sums_ref(state: NewtonState, n_blocks: int) -> torch.Tensor:
+    """Plain PyTorch version of `newton_sums`: float32 adds from zero, one
+    block after another, as `csrc/common.cuh column_sum` runs them."""
+    rows = state.partials[:state.k * n_blocks * N_TERMS].view(state.k, n_blocks, N_TERMS)
+    sums = torch.zeros((state.k, N_TERMS), dtype=torch.float32, device=rows.device)
+    for b in range(n_blocks):
+        sums = sums + rows[:, b]
+    return torch.where((state.s[:, S_DONE] != 0)[:, None], 0.0, sums)
+
+
+def _twin_iteration(pass_: DerivativePass, state: NewtonState, p: LoopParams,
+                    reduce: Optional[Callable] = None) -> None:
     """One iteration with the plain twins: the pass for the running lanes
-    (none once all are done), then `newton_step_ref`."""
+    (none once all are done), its rows reduced when `reduce` is given, then
+    `newton_step_ref`."""
     active = (state.s[:, S_DONE] == 0).tolist()
     if not any(active):
         return
     cands = state.f[:, F_CAND:F_CAND + 16].reshape(state.k, 4, 4).clone()
     score, grad, hess = pass_.plain(cands, active)
+    if reduce is not None:
+        k = score.numel()
+        terms = torch.cat([score.reshape(k, 1), grad.reshape(k, 6), hess.reshape(k, 36)], dim=1)
+        reduce(terms)
+        score, grad, hess = terms[:, 0].reshape(score.shape), terms[:, 1:7].reshape(grad.shape), \
+            terms[:, 7:].reshape(hess.shape)
     newton_step_ref(state, score, grad, hess, p)
 
 

@@ -78,6 +78,18 @@ def test_synthetic_scan_matches_reference(seed):
         )
 
 
+@pytest.mark.parametrize("trajectory", ["figure8", "straight", "circle"])
+def test_make_sequence_matches_reference(trajectory):
+    """The fleet's and the entry's sequences: scans and poses bit-identical."""
+    kw = dict(seed=11, trajectory=trajectory, step=1.0, n_rings=16, n_azimuth=225)
+    scans, poses, world = synthetic.make_sequence(3, **kw)
+    ref_scans, ref_poses, ref_world = ref_synthetic.make_sequence(3, **kw)
+    np.testing.assert_array_equal(poses, ref_poses)
+    np.testing.assert_array_equal(world.boxes, ref_world.boxes)
+    for a, b in zip(scans, ref_scans):
+        np.testing.assert_array_equal(a, b)
+
+
 @pytest.mark.parametrize("lengths", [None, (5.0, 10.0, 15.0)])
 def test_kitti_seq_error_matches_reference(lengths):
     rng = np.random.default_rng(7)

@@ -46,7 +46,17 @@ def _calls(device, scans):
     plain output) for each kernel."""
     return (_odometry_calls(device, scans) + _lfa_calls(device, scans) + _backend_calls(device, scans)
             + _camera_calls(device) + _standalone_calls(device, scans) + _lut_calls(device, scans)
-            + _registration_calls(device, scans))
+            + _registration_calls(device, scans) + _cell_knn_calls(device, scans)[0] + _loop_calls(device))
+
+
+def _loop_calls(device):
+    """The sharded align's per-lane sums (`newton_sums`): three lanes of 5
+    blocks of seeded partial rows, lane 1 finished."""
+    rng = np.random.default_rng(5)
+    state = ndt.NewtonState(torch.eye(4, device=device).expand(3, 4, 4).contiguous(), batched=True)
+    state.partials = torch.from_numpy((rng.standard_normal(3 * 5 * ndt.N_TERMS) * 1e3).astype(np.float32)).to(device)
+    state.s[1, ndt.S_DONE] = 1
+    return [("newton_sums", (ndt.newton_sums(state, 5).clone(),), (ndt.newton_sums_ref(state, 5),))]
 
 
 def _odometry_calls(device, scans):
@@ -230,6 +240,27 @@ def _standalone_calls(device, scans):
     return out
 
 
+def _cell_knn_calls(device, scans):
+    """K9n on scan 0's less-flat features in a crowded 1024 x 6 table
+    (probes share buckets) with scan 1's flat features at the true pose as
+    queries, k = 5 and 48; K10g's lines and planes of scan 1's sharp / flat
+    features on scan 0's grids. The tables and grids are the twins'."""
+    (s0, s1), rel = scans
+    c0, c1 = (PointCloud.from_numpy(s, cap=16384, device=device) for s in (s0, s1))
+    f0, f1 = features.extract_features_ref(c0, LFA), features.extract_features_ref(c1, LFA)
+    table = knn.build_cell_table_ref(f0.less_flat, f0.less_flat_mask, 2.0, 1024, LFA.knn_slots)
+    t = torch.from_numpy(rel.astype(np.float32)).to(device)
+    ye, ys = se3.transform_points(t, f1.sharp), se3.transform_points(t, f1.flat)
+    out = [("knn_cell", knn.knn_cell(table, ys, k), knn.knn_cell_ref(table, ys, k)) for k in (5, 48)]
+    edge = knn.build_grid_ref(f0.less_sharp, f0.less_sharp_mask, 2.0)
+    surf = knn.build_grid_ref(f0.less_flat, f0.less_flat_mask, 2.0)
+    out.append(("grid_fits", registration.lines_from_fit(ye, f1.sharp_mask, edge),
+                registration.lines_from_fit_ref(ye, f1.sharp_mask, edge)))
+    out.append(("grid_fits", registration.planes_from_fit(ys, f1.flat_mask, surf),
+                registration.planes_from_fit_ref(ys, f1.flat_mask, surf)))
+    return out, (ye, edge), (ys, surf)
+
+
 def _lut_calls(device, scans):
     """K3L on scan 0's map at 0.7 m (a resolution whose probe must divide),
     then K6L (DIRECT1 weighted, DIRECT7) and K6G (DIRECT1 weighted) of scan
@@ -301,7 +332,8 @@ def _registration_calls(device, scans):
 
 # kernels that replace a block inside a reference function: the text their
 # replaced line must hold
-INLINE_BLOCKS = {"build_lut": "# Dense LUT scatter", "newton_step": "def _newton_loop("}
+INLINE_BLOCKS = {"build_lut": "# Dense LUT scatter", "newton_step": "def _newton_loop(",
+                 "grid_fits": "knn(grid, y, k=k)", "newton_sums": "def derivs(T):"}
 
 
 def test_registry_names_sources_and_replaced_functions():
@@ -313,7 +345,7 @@ def test_registry_names_sources_and_replaced_functions():
         "build_grid", "knn", "build_cell_table", "build_lut", "ndt_derivatives_soa", "ndt_derivatives",
         "window_group_fn", "detect_floor", "nn_points", "radius_outlier_removal", "statistical_outlier_removal",
         "vertical_angle_calibration", "_plane_covariances", "gicp_align", "filter_ground_leaves",
-        "newton_step", "optimize_pose_graph",
+        "newton_step", "optimize_pose_graph", "knn_cell", "grid_fits", "newton_sums",
     }
     for name, k in KERNELS.items():
         assert (REPO / k.source).is_file(), k.source
@@ -483,6 +515,33 @@ def test_standalone_lfa_kernels_match_plain_versions_on_the_card(cuda, scans):
             else:
                 assert a == b, name
     assert int(results["lines_from_2nn"][0].valid.sum()) > 0 and int(results["planes_from_3nn"][0].valid.sum()) > 0
+
+
+@pytest.mark.gpu
+def test_cell_knn_and_grid_fits_match_plain_versions_on_the_card(cuda, scans):
+    """K9n: distances, points (invalid slots too) and valid flags identical
+    (the same fma chain, a correctly rounded root, (d2, index) ranks).
+    K10g: accept decisions identical; fitted floats finite on every lane
+    and, over accepted queries whose eigen-gap is above the split, within
+    `ops.gicp.PLANE_ENVELOPE` once multiplied by the gap
+    (`registration.grid_fit_error`)."""
+    from lv_slam_tpu_torch.ops.gicp import PLANE_ENVELOPE
+
+    reset_launches()
+    results, lines_at, planes_at = _cell_knn_calls(cuda, scans)
+    torch.cuda.synchronize()
+    assert {name: k.launches for name, k in KERNELS.items() if k.launches} == {"knn_cell": 2, "grid_fits": 2}
+    for (name, got, want), at in zip(results, (None, None, lines_at, planes_at)):
+        if name == "knn_cell":
+            for a, b in zip(got, want):
+                assert torch.equal(a, b), name
+            assert bool(got[2][:, 0].any()) and (got[2].shape[1] < 48 or not bool(got[2].all()))
+            continue
+        assert torch.equal(got.valid, want.valid) and int(want.valid.sum()) > 0
+        assert all(bool(torch.isfinite(a).all()) for a in got[:2])
+        diff, envelope, n, n_split = registration.grid_fit_error(got, want, *at)
+        print(f"grid fits: max diff {diff:.3g}, times the gap {envelope:.3g} over {n} queries ({n_split} at the split)")
+        assert envelope <= PLANE_ENVELOPE
 
 
 @pytest.mark.gpu
@@ -715,6 +774,29 @@ def test_newton_step_matches_its_twin_on_the_card(cuda, scans):
 
 
 @pytest.mark.gpu
+def test_newton_sums_matches_its_twin_on_the_card(cuda, scans):
+    """The sharded align's per-lane sums, bit for bit against the twin's
+    block-by-block float32 adds: seeded rows of three lanes (one finished),
+    and K6L's partial rows of one align's pass, running and finished
+    (zeros)."""
+    reset_launches()
+    ((_, (got,), (want,)),) = _loop_calls(cuda)
+    assert torch.equal(got, want) and not bool(got[1].any())
+    vm, lut, soa, c1, rel = _lut_align_inputs(cuda, scans)
+    pass_ = ndt_soa.soa_pass(soa, c1.masked_xyz().T.contiguous(), c1.mask.contiguous(), make_gauss_params(1.0),
+                             voxel_map.neighborhood_offsets("DIRECT1", cuda), True)
+    state = ndt.NewtonState(rel[None])
+    state.partials = torch.empty((pass_.n_blocks * ndt.N_TERMS,), dtype=torch.float32, device=cuda)
+    pass_.launch(state)
+    for done in (0, 1):
+        state.s[0, ndt.S_DONE] = done
+        got = ndt.newton_sums(state, pass_.n_blocks).clone()
+        assert torch.equal(got, ndt.newton_sums_ref(state, pass_.n_blocks)), done
+        assert bool(got.any()) != bool(done)
+    assert KERNELS["newton_sums"].launches == 3
+
+
+@pytest.mark.gpu
 def test_batched_newton_step_keeps_finished_lanes(cuda, scans):
     """K13's loop on the card: four candidates that stop at different
     iterations, stepped by the kernels; each lane's state, once done, stays
@@ -878,3 +960,40 @@ def test_lm_kernels_match_their_twin_on_the_card(cuda):
     assert float(got.chi2_after) < 0.5 * float(got.chi2_before)
     copies = len(pose_graph.PoseGraph._fields)  # the graph's arrays, each a pageable copy to the card
     assert syncs - copies <= math.ceil(it / pose_graph.LM_GROUP)
+
+
+@pytest.mark.gpu
+def test_mesh_of_one_rank_equals_the_unsharded_port_on_the_card(cuda, scans, tmp_path):
+    """An NCCL world of one rank, mesh (1, 1): the sharded align of three
+    guesses (the coarse phase on, K6L and K7 with the all-reduce between)
+    equals `ndt_align_soa` of each bit for bit; the sharded LM equals
+    `optimize_pose_graph` to the LM's tolerances (K15 sums with atomics, so
+    two runs of either differ in H's last bits)."""
+    import torch.distributed as dist
+
+    from lv_slam_tpu_torch.parallel import mesh as pmesh
+
+    dist.init_process_group("nccl", store=dist.FileStore(str(tmp_path / "store"), 1), rank=0, world_size=1)
+    try:
+        m = pmesh.make_mesh(1, 1)
+        vm, lut, _, c1, rel = _lut_align_inputs(cuda, scans)
+        guesses = torch.stack(_guesses(rel, cuda))
+        b = guesses.shape[0]
+        kw = dict(resolution=1.0, max_iterations=35, transformation_epsilon=0.01, neighborhood="DIRECT1",
+                  weighted=True, coarse_subsample=2)
+        t, s, it = pmesh.ndt_align_sharded(m, pmesh.stack_maps([vm] * b), torch.stack([lut] * b),
+                                           torch.stack([c1.masked_xyz()] * b), torch.stack([c1.mask] * b), guesses,
+                                           **kw)
+        for j in range(b):
+            want = ndt_soa.ndt_align_soa(vm, lut, c1, guesses[j], **kw)
+            assert torch.equal(t[j], want.transform), j
+            assert torch.equal(s[j], want.score) and int(it[j]) == int(want.iterations), j
+        graph = _lm_graph()
+        got = pmesh.optimize_pose_graph_sharded(m, graph, 64)
+        want = pose_graph.optimize_pose_graph(graph, 64, device=cuda)
+        torch.testing.assert_close(got.chi2_before, want.chi2_before, rtol=1e-6, atol=0)
+        torch.testing.assert_close(got.poses, want.poses, rtol=0, atol=1e-3)
+        torch.testing.assert_close(got.planes, want.planes, rtol=0, atol=1e-4)
+        torch.testing.assert_close(got.chi2_after, want.chi2_after, rtol=1e-3, atol=0)
+    finally:
+        dist.destroy_process_group()

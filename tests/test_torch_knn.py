@@ -224,3 +224,60 @@ def test_build_cell_table_matches_slot_for_slot(batches, n_buckets):
     assert 100 < stored <= int(mask.sum())
     if n_buckets == 1024:
         assert stored < int(mask.sum())  # full buckets dropped rows
+
+
+def _same_knn(got, want, err_msg=""):
+    for name, a, b in zip(("dists", "points", "valid"), got, want):
+        np.testing.assert_array_equal(a.numpy(), np.asarray(b), err_msg=f"{err_msg} {name}")
+
+
+@pytest.mark.parametrize("k", [1, 5, 48])
+def test_knn_cell_matches(batches, k):
+    """The k nearest of the 8-cell probe on the surf map of scans 0-3, scan
+    4's world-frame surf features as queries: distances, points (the
+    invalid slots' too: the rows of the lowest-index invalid candidates)
+    and valid flags identical; k = 48 = 8 x 6 takes every candidate."""
+    _, jt, tt = _insert_both(batches[0], 4096, 0.8, 2)
+    q = batches[0][4][2]
+    want = jax.jit(jk.knn_cell, static_argnums=2)(jt, jnp.asarray(q), k)
+    got = tk.knn_cell(tt, torch.from_numpy(q), k)
+    _same_knn(got, want, f"k={k}")
+    valid = got[2].numpy()
+    assert valid[:, 0].mean() > 0.5
+    if k == 48:
+        assert (~valid).any()  # invalid slots compared too
+
+
+def test_knn_cell_constructed_cases():
+    """Points with negative cells and repeated points (equal distances:
+    ties to the lower candidate index) in a crowded table (8 buckets: the
+    probes of one query share buckets, the later one dropped) and in a
+    sparse one (4096 buckets); queries near the points, in a negative cell,
+    on a repeated point and far from every point (in the sparse table no
+    valid candidate: the empty slots' rows returned)."""
+    rng = np.random.default_rng(3)
+    base = rng.uniform(-6.0, 6.0, (40, 3)).astype(np.float32)
+    pts = np.concatenate([base, base[:10], base[:5]])
+    near = base[:12] + rng.normal(0.0, 0.05, (12, 3)).astype(np.float32)
+    q = np.concatenate([near, [[-3.3, -0.7, -5.1], base[0], base[3], [700.0, -300.0, 90.0]]]).astype(np.float32)
+    out = {}
+    for n_buckets in (8, 4096):
+        build = functools.partial(jk.build_cell_table, cell_size=2.0, n_buckets=n_buckets, slots=6)
+        jt = jax.jit(build)(jnp.asarray(pts), jnp.asarray(np.ones(len(pts), bool)))
+        tt = tk.CellTable(torch.from_numpy(np.array(jt.table)), 2.0)
+        for k in (1, 5, 48):
+            want = jax.jit(jk.knn_cell, static_argnums=2)(jt, jnp.asarray(q), k)
+            got = tk.knn_cell(tt, torch.from_numpy(q), k)
+            _same_knn(got, want, f"{n_buckets} buckets, k={k}")
+        out[n_buckets] = tt, [a.numpy() for a in got]
+    # the cases happen: dropped probes, ties between valid slots, a negative
+    # cell, a query without any valid candidate
+    tt, (dists, points, valid) = out[8]
+    _, ok = tk.candidates_cell(tt, torch.from_numpy(q))
+    assert (ok.numpy().reshape(len(q), 8, 6).sum(axis=2) == 0).any()
+    assert ((dists[:, 1:] == dists[:, :-1]) & valid[:, 1:]).any()
+    assert (np.floor(q[12] / 2.0) < 0).all() and valid[12, 0]
+    _, (dists, points, valid) = out[4096]
+    assert not valid[-1].any() and np.isinf(dists[-1]).all()
+    with pytest.raises(ValueError):
+        tk.knn_cell(tt, torch.from_numpy(q), 49)

@@ -192,7 +192,7 @@ def test_port_never_imports_jax():
     the LFA and the chain included, loads none of them."""
     root = Path(__file__).resolve().parents[1]
     paths = [root / "chip_smoke.py", *sorted((root / "lv_slam_tpu_torch").rglob("*.py"))]
-    assert {"lfa", "pipeline", "odometry", "ops", "graph"} <= {p.parent.name for p in paths}
+    assert {"lfa", "pipeline", "odometry", "ops", "graph", "parallel"} <= {p.parent.name for p in paths}
     for path in paths:
         bad = sorted(m for m in _imported_modules(path) if _is_reference(m))
         assert not bad, (path, bad)
@@ -206,7 +206,8 @@ def test_port_never_imports_jax():
         "lv_slam_tpu_torch.pipeline.async_backend, lv_slam_tpu_torch.pipeline.window, "
         "lv_slam_tpu_torch.graph.loop_detector, lv_slam_tpu_torch.graph.pose_graph, "
         "lv_slam_tpu_torch.graph.information_matrix, lv_slam_tpu_torch.ops.nn, lv_slam_tpu_torch.lfa, "
-        "lv_slam_tpu_torch.pipeline.slam, lv_slam_tpu_torch.odometry.dlo; "
+        "lv_slam_tpu_torch.pipeline.slam, lv_slam_tpu_torch.odometry.dlo, lv_slam_tpu_torch.parallel.fleet, "
+        "lv_slam_tpu_torch.parallel.mesh, lv_slam_tpu_torch.entry; "
         "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'lv_slam_tpu')]; "
         "assert not bad, bad"
     )
@@ -250,3 +251,10 @@ def test_entry_points_default_to_the_card(inputs):
         DirectLidarOdometry().process_numpy(xyz[0][mask[0]], 0.0, cap=CAP)
     with pytest.raises((RuntimeError, AssertionError)):
         run_sequence([xyz[0][mask[0]]], cap=CAP)
+    from lv_slam_tpu_torch import entry
+    from lv_slam_tpu_torch.parallel.fleet import run_fleet_odometry
+
+    with pytest.raises((RuntimeError, AssertionError)):
+        run_fleet_odometry(None, x[None], m[None], t[None], CFG, prefilter_cfg=PF)
+    with pytest.raises((RuntimeError, AssertionError)):
+        entry.entry()
