@@ -20,7 +20,7 @@
 // Design: `lm_damp` is elementwise over H and b (one thread per entry): the
 // gauge of `_apply_gauge` (node 0, fixed and invalid nodes and planes), the
 // damping h + lam * max(diag h, 1e-6) on the diagonal, rhs = -b, and it
-// clears H and b for the next build (K15 accumulates with atomics).
+// clears H and b for the next build (K15's `assemble` adds into them).
 // `lm_update` and `lm_accept` are one block each: `lm_update` tests the solve
 // (the factor's info and every entry finite), zeroes a failed step, takes
 // max |delta| for the `small` test, and moves each node by exp_se3 of its

@@ -9,8 +9,9 @@
 // What bounds it on the card: nothing large. The bench graph has at most 256
 // edges, 256 priors, 64 SE3-plane and 16 plane-plane factors and a dense H of
 // at most 408 x 408 floats (666 KB). Each factor costs a few thousand flops
-// and up to 156 scattered adds; the launches are latency, and the LM's
-// Cholesky (a library call) costs more.
+// and writes up to 156 floats; `assemble`'s warps each scan the factor lists
+// (one ballot per 32 factors) and add a few blocks. The launches
+// are latency, and the LM's Cholesky (a library call) costs more.
 //
 // Design: one thread per factor, one kernel per family. An edge thread forms
 // delta = Z^-1 Ti^-1 Tj, the residual [t, 2 q_xyz] (Shepperd's quaternion:
@@ -27,17 +28,28 @@
 // value and held for the derivative, as `jacfwd` holds a `jnp.where`'s
 // predicate; the prior types are selected per factor (the reference computes
 // all five and keeps one). Like the reference, these factors add their plain
-// chi2 (not the robust one) while taking Huber weights. Each factor's block
-// J^T (w Omega) J and vector J^T (w Omega) r are added into the dense H and
-// b with float atomicAdd (the order, hence the last bits, varies from run to
-// run). Each factor writes its chi2 term to its own slot; `chi2_sum` adds
-// all slots in a fixed order, so the trial step's accept test is
-// deterministic. `build = 0` is the chi2-only variant of the trial step.
+// chi2 (not the robust one) while taking Huber weights. Each factor writes
+// its block J^T (w Omega) J and vector J^T (w Omega) r to its own slot of a
+// scratch buffer; `assemble` then adds them into the dense H and b with one
+// warp per variable (node or plane), which owns that variable's rows: it
+// finds the factors on the variable with a ballot over 32 factors at a time
+// and adds their blocks in factor order, each entry by one lane (the
+// diagonal block and b in registers, written once at the end). Every sum
+// thus has a fixed order and H and b are the same bits on every run (float
+// atomicAdd would vary their last bits run to run, and the LM's accept tests
+// carry that to the poses). Each factor writes its chi2 term to its own
+// slot; `chi2_sum` adds all slots in a fixed order, so the trial step's
+// accept test is deterministic too. `build = 0` is the chi2-only
+// variant of the trial step (no blocks, no `assemble`).
 // Inside the device-side LM loop (csrc/lm.cu) every launch takes the loop's
 // `done` flag (null outside it) and returns at once when it is set.
 #include "common.cuh"
 
 namespace {
+
+// floats of one factor's block in the scratch: J^T (w Omega) J (nd x nd,
+// row-major), then J^T (w Omega) r (nd)
+__host__ __device__ constexpr int block_floats(int nd) { return nd * nd + nd; }
 
 __device__ __forceinline__ void matmul4(const float* a, const float* b, float* c) {
   for (int r = 0; r < 4; ++r)
@@ -93,9 +105,8 @@ __device__ __forceinline__ int quat_branch(const float* m) {
 __global__ void se3_edges(const float* __restrict__ poses, const int* __restrict__ e_i,
                           const int* __restrict__ e_j, const float* __restrict__ meas,
                           const float* __restrict__ info, const float* __restrict__ huber,
-                          const bool* __restrict__ valid, int n_edges, int n, int build,
-                          float* __restrict__ rho_out, float* __restrict__ H, float* __restrict__ b,
-                          const int* __restrict__ done) {
+                          const bool* __restrict__ valid, int n_edges, int build, float* __restrict__ rho_out,
+                          float* __restrict__ blk, const int* __restrict__ done) {
   if (done != nullptr && *done) return;  // the LM loop's gate
   int e = blockIdx.x * blockDim.x + threadIdx.x;
   if (e >= n_edges) return;
@@ -180,11 +191,6 @@ __global__ void se3_edges(const float* __restrict__ poses, const int* __restrict
     }
   }
 
-  int idx[12];
-  for (int c = 0; c < 6; ++c) {
-    idx[c] = 6 * e_i[e] + c;
-    idx[6 + c] = 6 * e_j[e] + c;
-  }
   float WJ[6][12];
   for (int i = 0; i < 6; ++i)
     for (int c = 0; c < 12; ++c) {
@@ -192,14 +198,15 @@ __global__ void se3_edges(const float* __restrict__ poses, const int* __restrict
       for (int j = 0; j < 6; ++j) s += (w * om[6 * i + j]) * J[j][c];
       WJ[i][c] = s;
     }
+  float* out = blk + static_cast<long long>(e) * block_floats(12);
   for (int p = 0; p < 12; ++p) {
     float bs = 0.0f;
     for (int i = 0; i < 6; ++i) bs += J[i][p] * (w * om_r[i]);
-    atomicAdd(b + idx[p], bs);
+    out[12 * 12 + p] = bs;
     for (int c = 0; c < 12; ++c) {
       float s = 0.0f;
       for (int i = 0; i < 6; ++i) s += J[i][p] * WJ[i][c];
-      atomicAdd(H + static_cast<long long>(idx[p]) * n + idx[c], s);
+      out[12 * p + c] = s;
     }
   }
 }
@@ -311,11 +318,11 @@ __device__ void plane_oplus_dual(const float* pf, int dir, D* out) {
   out[3] = p[3] + d2;
 }
 
-// the weighted chi2 of an m-dim residual, the Huber weight, and the block
-// J^T (w Omega) J, J^T (w Omega) r added at the dofs idx (nd of them)
+// the weighted chi2 of an m-dim residual, the Huber weight, and the factor's
+// block J^T (w Omega) J, J^T (w Omega) r (nd dofs) written to `out`
 template <int M, int ND>
-__device__ void accumulate(const float* r, float J[M][ND], const float* om, int om_stride, float hb, const int* idx,
-                           int n, int build, float* rho_out, float* H, float* b) {
+__device__ void accumulate(const float* r, float J[M][ND], const float* om, int om_stride, float hb, int build,
+                           float* rho_out, float* out) {
   float om_r[M];
   float chi2 = 0.0f;
   for (int i = 0; i < M; ++i) {
@@ -338,11 +345,11 @@ __device__ void accumulate(const float* r, float J[M][ND], const float* om, int 
   for (int p = 0; p < ND; ++p) {
     float bs = 0.0f;
     for (int i = 0; i < M; ++i) bs += J[i][p] * (w * om_r[i]);
-    atomicAdd(b + idx[p], bs);
+    out[ND * ND + p] = bs;
     for (int c = 0; c < ND; ++c) {
       float s = 0.0f;
       for (int i = 0; i < M; ++i) s += J[i][p] * WJ[i][c];
-      atomicAdd(H + static_cast<long long>(idx[p]) * n + idx[c], s);
+      out[ND * p + c] = s;
     }
   }
 }
@@ -382,9 +389,8 @@ __device__ void prior_residual(const float* t, int dir, int type, const float* m
 
 __global__ void priors(const float* __restrict__ poses, const int* __restrict__ node, const int* __restrict__ type,
                        const float* __restrict__ meas, const float* __restrict__ info,
-                       const float* __restrict__ huber, const bool* __restrict__ valid, int n_priors, int n,
-                       int build, float* __restrict__ rho_out, float* __restrict__ H, float* __restrict__ b,
-                       const int* __restrict__ done) {
+                       const float* __restrict__ huber, const bool* __restrict__ valid, int n_priors, int build,
+                       float* __restrict__ rho_out, float* __restrict__ blk, const int* __restrict__ done) {
   if (done != nullptr && *done) return;
   int f = blockIdx.x * blockDim.x + threadIdx.x;
   if (f >= n_priors) return;
@@ -402,9 +408,8 @@ __global__ void priors(const float* __restrict__ poses, const int* __restrict__ 
       prior_residual(t, k, type[f], meas + 8 * f, r);
       for (int i = 0; i < 4; ++i) J[i][k] = r[i].d;
     }
-  int idx[6];
-  for (int c = 0; c < 6; ++c) idx[c] = 6 * node[f] + c;
-  accumulate<4, 6>(rv, J, info + 16 * f, 4, huber[f], idx, n, build, rho_out + f, H, b);
+  accumulate<4, 6>(rv, J, info + 16 * f, 4, huber[f], build, rho_out + f,
+                   blk + static_cast<long long>(f) * block_floats(6));
 }
 
 // EdgeSE3Plane: plane_ominus(plane_transform(T, plane), meas), tangent along
@@ -430,9 +435,8 @@ __device__ void se3_plane_residual(const float* t, const float* plane, const flo
 __global__ void se3_planes(const float* __restrict__ poses, const float* __restrict__ planes,
                            const int* __restrict__ sp_i, const int* __restrict__ sp_plane,
                            const float* __restrict__ meas, const float* __restrict__ info,
-                           const float* __restrict__ huber, const bool* __restrict__ valid, int n_sp, int n_nodes,
-                           int n, int build, float* __restrict__ rho_out, float* __restrict__ H,
-                           float* __restrict__ b, const int* __restrict__ done) {
+                           const float* __restrict__ huber, const bool* __restrict__ valid, int n_sp, int build,
+                           float* __restrict__ rho_out, float* __restrict__ blk, const int* __restrict__ done) {
   if (done != nullptr && *done) return;
   int f = blockIdx.x * blockDim.x + threadIdx.x;
   if (f >= n_sp) return;
@@ -451,10 +455,8 @@ __global__ void se3_planes(const float* __restrict__ poses, const float* __restr
       se3_plane_residual(t, pl, meas + 4 * f, k, r);
       for (int i = 0; i < 3; ++i) J[i][k] = r[i].d;
     }
-  int idx[9];
-  for (int c = 0; c < 6; ++c) idx[c] = 6 * sp_i[f] + c;
-  for (int c = 0; c < 3; ++c) idx[6 + c] = 6 * n_nodes + 3 * sp_plane[f] + c;
-  accumulate<3, 9>(rv, J, info + 9 * f, 3, huber[f], idx, n, build, rho_out + f, H, b);
+  accumulate<3, 9>(rv, J, info + 9 * f, 3, huber[f], build, rho_out + f,
+                   blk + static_cast<long long>(f) * block_floats(9));
 }
 
 // the typed plane-plane / plane-prior residual, tangent along `dir` (0-2
@@ -486,9 +488,8 @@ __device__ void plane_edge_residual(const float* p1, const float* p2, int type, 
 __global__ void plane_edges(const float* __restrict__ planes, const int* __restrict__ q_i,
                             const int* __restrict__ q_j, const int* __restrict__ type,
                             const float* __restrict__ meas, const float* __restrict__ info,
-                            const float* __restrict__ huber, const bool* __restrict__ valid, int n_q, int n_nodes,
-                            int n, int build, float* __restrict__ rho_out, float* __restrict__ H,
-                            float* __restrict__ b, const int* __restrict__ done) {
+                            const float* __restrict__ huber, const bool* __restrict__ valid, int n_q, int build,
+                            float* __restrict__ rho_out, float* __restrict__ blk, const int* __restrict__ done) {
   if (done != nullptr && *done) return;
   int f = blockIdx.x * blockDim.x + threadIdx.x;
   if (f >= n_q) return;
@@ -507,12 +508,8 @@ __global__ void plane_edges(const float* __restrict__ planes, const int* __restr
       plane_edge_residual(p1, p2, type[f], meas + 4 * f, k, r);
       for (int i = 0; i < 4; ++i) J[i][k] = r[i].d;
     }
-  int idx[6];
-  for (int c = 0; c < 3; ++c) {
-    idx[c] = 6 * n_nodes + 3 * q_i[f] + c;
-    idx[3 + c] = 6 * n_nodes + 3 * q_j[f] + c;
-  }
-  accumulate<4, 6>(rv, J, info + 16 * f, 4, huber[f], idx, n, build, rho_out + f, H, b);
+  accumulate<4, 6>(rv, J, info + 16 * f, 4, huber[f], build, rho_out + f,
+                   blk + static_cast<long long>(f) * block_floats(6));
 }
 
 // one block: a fixed-order sum of the factors' chi2 terms
@@ -531,46 +528,151 @@ __global__ void chi2_sum(const float* __restrict__ rho, int n_edges, float* __re
   if (threadIdx.x == 0) *out = part[0];
 }
 
+// ---------------------------------------------------------------- assembly
+
+// one factor family's arrays for `assemble`: each factor's variables a and b
+// (b absent in a unary family) and its blocks
+struct Family {
+  const int* va;
+  const int* vb;
+  const bool* valid;
+  const float* blk;
+  int n_f;
+};
+
+// the first dof of a node (6 v) or a plane (6 K + 3 v) in the state
+__device__ __forceinline__ int dof_of(bool node, int v, int n_nodes) { return node ? 6 * v : 6 * n_nodes + 3 * v; }
+
+// One warp adds the blocks of `fam`'s factors that touch variable u (a node
+// when u_node, else a plane) to u's rows: the factors in slot order, within
+// a factor its variable pairs in order. Entry e of a du x d2 block belongs
+// to lane e % 32 (slot e / 32 of two: du x d2 <= 36), so every entry of H
+// and b is added by one lane, in that order. The diagonal block (u, u) and
+// b's rows add into the registers h0, h1 and hb, the other blocks into H.
+// A and B are whether slots a and b are nodes; NB is b's dofs (0: unary).
+template <bool A, bool B, int NB>
+__device__ void gather(const Family fam, int u, bool u_node, int n_nodes, int n, float* __restrict__ H, int lane,
+                       float& h0, float& h1, float& hb) {
+  constexpr int NA = A ? 6 : 3, ND = NA + NB, SLOTS = NB > 0 ? 2 : 1;
+  if (u_node ? !(A || (NB > 0 && B)) : (A && (NB == 0 || B))) return;  // no variable of u's kind
+  const int du = u_node ? 6 : 3, row0 = dof_of(u_node, u, n_nodes);
+  for (int f0 = 0; f0 < fam.n_f; f0 += 32) {  // uniform over the warp
+    const int f = f0 + lane;
+    bool hit = false;
+    if (f < fam.n_f) {
+      const bool valid = fam.valid[f];
+      const int a = fam.va[f], vb = NB > 0 ? fam.vb[f] : -1;
+      hit = valid && ((A == u_node && a == u) || (NB > 0 && B == u_node && vb == u));
+    }
+    unsigned m = __ballot_sync(0xffffffffu, hit);
+    while (m) {
+      const int g = f0 + __ffs(m) - 1;
+      m &= m - 1;
+      const float* blk = fam.blk + static_cast<long long>(g) * block_floats(ND);
+      const int var[2] = {fam.va[g], NB > 0 ? fam.vb[g] : 0};
+      for (int s = 0; s < SLOTS; ++s) {
+        if ((s == 0 ? A : B) != u_node || var[s] != u) continue;
+        const int off = s == 0 ? 0 : NA;
+        for (int s2 = 0; s2 < SLOTS; ++s2) {
+          const bool node2 = s2 == 0 ? A : B;
+          const int d2 = s2 == 0 ? NA : NB, cells = du * d2;
+          const float* src = blk + ND * off + (s2 == 0 ? 0 : NA);  // entry (r, c) at src[ND r + c]
+          const int e0 = lane, e1 = lane + 32;
+          const float v0 = e0 < cells ? src[ND * (e0 / d2) + e0 % d2] : 0.0f;
+          const float v1 = e1 < cells ? src[ND * (e1 / d2) + e1 % d2] : 0.0f;
+          if (node2 == u_node && var[s2] == u) {
+            h0 += v0;
+            h1 += v1;
+          } else {
+            float* dst = H + static_cast<long long>(row0) * n + dof_of(node2, var[s2], n_nodes);
+            if (e0 < cells) dst[static_cast<long long>(e0 / d2) * n + e0 % d2] += v0;
+            if (e1 < cells) dst[static_cast<long long>(e1 / d2) * n + e1 % d2] += v1;
+          }
+        }
+        if (lane < du) hb += blk[ND * ND + off + lane];
+      }
+    }
+  }
+}
+
+// one warp per variable (the nodes, then the planes): H's and b's rows of
+// that variable, added in the fixed order of `gather` over the families in
+// the order edges, priors, SE3-plane, plane-plane
+__global__ void assemble(const Family fe, const Family fp, const Family fs, const Family fq, int n_nodes,
+                         int n_planes, int n, float* __restrict__ H, float* __restrict__ b,
+                         const int* __restrict__ done) {
+  if (done != nullptr && *done) return;
+  const int lane = threadIdx.x & 31;
+  const int u = static_cast<int>((static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x) >> 5);
+  if (u >= n_nodes + n_planes) return;  // uniform over the warp
+  const bool u_node = u < n_nodes;
+  const int v = u_node ? u : u - n_nodes;
+  float h0 = 0.0f, h1 = 0.0f, hb = 0.0f;
+  gather<true, true, 6>(fe, v, u_node, n_nodes, n, H, lane, h0, h1, hb);   // SE3 edges: node, node
+  gather<true, false, 0>(fp, v, u_node, n_nodes, n, H, lane, h0, h1, hb);  // priors: node
+  gather<true, false, 3>(fs, v, u_node, n_nodes, n, H, lane, h0, h1, hb);  // SE3-plane: node, plane
+  gather<false, false, 3>(fq, v, u_node, n_nodes, n, H, lane, h0, h1, hb);  // plane-plane: plane, plane
+  const int du = u_node ? 6 : 3, row0 = dof_of(u_node, v, n_nodes);
+  float* diag = H + static_cast<long long>(row0) * n + row0;
+  if (lane < du * du) diag[static_cast<long long>(lane / du) * n + lane % du] += h0;
+  if (lane + 32 < du * du) diag[static_cast<long long>((lane + 32) / du) * n + (lane + 32) % du] += h1;
+  if (lane < du) b[row0 + lane] += hb;
+}
+
 }  // namespace
 
 extern "C" int lvs_pose_graph_edges(const float* poses, const int* e_i, const int* e_j, const float* meas,
                                     const float* info, const float* huber, const bool* valid, int n_edges,
-                                    int n, int build, float* rho, float* H, float* b, const int* done,
-                                    cudaStream_t stream) {
+                                    int build, float* rho, float* blk, const int* done, cudaStream_t stream) {
   if (n_edges > 0)
     se3_edges<<<lvs::blocks_for(n_edges), lvs::kThreads, 0, stream>>>(
-        poses, e_i, e_j, meas, info, huber, valid, n_edges, n, build, rho, H, b, done);
+        poses, e_i, e_j, meas, info, huber, valid, n_edges, build, rho, blk, done);
   LVS_RETURN_LAST_ERROR();
 }
 
 extern "C" int lvs_pose_graph_priors(const float* poses, const int* node, const int* type, const float* meas,
                                      const float* info, const float* huber, const bool* valid, int n_priors,
-                                     int n, int build, float* rho, float* H, float* b, const int* done,
-                                     cudaStream_t stream) {
+                                     int build, float* rho, float* blk, const int* done, cudaStream_t stream) {
   if (n_priors > 0)
     priors<<<lvs::blocks_for(n_priors), lvs::kThreads, 0, stream>>>(
-        poses, node, type, meas, info, huber, valid, n_priors, n, build, rho, H, b, done);
+        poses, node, type, meas, info, huber, valid, n_priors, build, rho, blk, done);
   LVS_RETURN_LAST_ERROR();
 }
 
 extern "C" int lvs_pose_graph_se3_planes(const float* poses, const float* planes, const int* sp_i,
                                          const int* sp_plane, const float* meas, const float* info,
-                                         const float* huber, const bool* valid, int n_sp, int n_nodes, int n,
-                                         int build, float* rho, float* H, float* b, const int* done,
-                                         cudaStream_t stream) {
+                                         const float* huber, const bool* valid, int n_sp, int build, float* rho,
+                                         float* blk, const int* done, cudaStream_t stream) {
   if (n_sp > 0)
     se3_planes<<<lvs::blocks_for(n_sp), lvs::kThreads, 0, stream>>>(
-        poses, planes, sp_i, sp_plane, meas, info, huber, valid, n_sp, n_nodes, n, build, rho, H, b, done);
+        poses, planes, sp_i, sp_plane, meas, info, huber, valid, n_sp, build, rho, blk, done);
   LVS_RETURN_LAST_ERROR();
 }
 
 extern "C" int lvs_pose_graph_plane_edges(const float* planes, const int* q_i, const int* q_j, const int* type,
                                           const float* meas, const float* info, const float* huber,
-                                          const bool* valid, int n_q, int n_nodes, int n, int build, float* rho,
-                                          float* H, float* b, const int* done, cudaStream_t stream) {
+                                          const bool* valid, int n_q, int build, float* rho, float* blk,
+                                          const int* done, cudaStream_t stream) {
   if (n_q > 0)
     plane_edges<<<lvs::blocks_for(n_q), lvs::kThreads, 0, stream>>>(
-        planes, q_i, q_j, type, meas, info, huber, valid, n_q, n_nodes, n, build, rho, H, b, done);
+        planes, q_i, q_j, type, meas, info, huber, valid, n_q, build, rho, blk, done);
+  LVS_RETURN_LAST_ERROR();
+}
+
+// the blocks of the four families (written by the calls above with build)
+// added into H and b, which hold zeros or the sums to add to
+extern "C" int lvs_pose_graph_assemble(const int* e_i, const int* e_j, const bool* e_valid, const float* e_blk,
+                                       int n_edges, const int* p_node, const bool* p_valid, const float* p_blk,
+                                       int n_priors, const int* sp_i, const int* sp_plane, const bool* sp_valid,
+                                       const float* sp_blk, int n_sp, const int* q_i, const int* q_j,
+                                       const bool* q_valid, const float* q_blk, int n_q, int n_nodes, int n_planes,
+                                       int n, float* H, float* b, const int* done, cudaStream_t stream) {
+  const long long threads = 32LL * (n_nodes + n_planes);
+  if (threads > 0)
+    assemble<<<lvs::blocks_for(threads), lvs::kThreads, 0, stream>>>(
+        Family{e_i, e_j, e_valid, e_blk, n_edges}, Family{p_node, nullptr, p_valid, p_blk, n_priors},
+        Family{sp_i, sp_plane, sp_valid, sp_blk, n_sp}, Family{q_i, q_j, q_valid, q_blk, n_q}, n_nodes, n_planes,
+        n, H, b, done);
   LVS_RETURN_LAST_ERROR();
 }
 

@@ -38,12 +38,12 @@ KERNEL = Kernel(
     source="lv_slam_tpu_torch/csrc/pose_graph.cu",
     replaces="lv_slam_tpu/graph/pose_graph.py:240",
     entries={
-        "lvs_pose_graph_edges": [PTR, PTR, PTR, PTR, PTR, PTR, PTR, I32, I32, I32, PTR, PTR, PTR, PTR],
-        "lvs_pose_graph_priors": [PTR, PTR, PTR, PTR, PTR, PTR, PTR, I32, I32, I32, PTR, PTR, PTR, PTR],
-        "lvs_pose_graph_se3_planes": [PTR, PTR, PTR, PTR, PTR, PTR, PTR, PTR, I32, I32, I32, I32, PTR, PTR, PTR,
-                                      PTR],
-        "lvs_pose_graph_plane_edges": [PTR, PTR, PTR, PTR, PTR, PTR, PTR, PTR, I32, I32, I32, I32, PTR, PTR,
-                                       PTR, PTR],
+        "lvs_pose_graph_edges": [PTR, PTR, PTR, PTR, PTR, PTR, PTR, I32, I32, PTR, PTR, PTR],
+        "lvs_pose_graph_priors": [PTR, PTR, PTR, PTR, PTR, PTR, PTR, I32, I32, PTR, PTR, PTR],
+        "lvs_pose_graph_se3_planes": [PTR, PTR, PTR, PTR, PTR, PTR, PTR, PTR, I32, I32, PTR, PTR, PTR],
+        "lvs_pose_graph_plane_edges": [PTR, PTR, PTR, PTR, PTR, PTR, PTR, PTR, I32, I32, PTR, PTR, PTR],
+        "lvs_pose_graph_assemble": [PTR, PTR, PTR, PTR, I32, PTR, PTR, PTR, I32, PTR, PTR, PTR, PTR, I32, PTR, PTR,
+                                    PTR, PTR, I32, I32, I32, I32, PTR, PTR, PTR],
         "lvs_pose_graph_chi2": [PTR, I32, PTR, PTR],
     },
 )
@@ -277,29 +277,59 @@ def _check_graph(g: PoseGraph, poses: torch.Tensor, planes: torch.Tensor) -> Non
         check_dtype(name, getattr(g, field), dtype, shape)
 
 
-def _k15(g: PoseGraph, poses, planes, build: bool, rho, h, b, chi2, done) -> None:
+def _k15(g: PoseGraph, poses, planes, build: bool, rho, blk, h, b, chi2, done) -> None:
     """Kernel 15's launches on checked arguments: every factor family's
-    rho terms (and, with `build`, H and b), then their sum into the pointer
-    `chi2` unless it is None. `done`: the LM loop's gate (None outside it)."""
-    n, k = _n_dofs(g), g.node_cap
-    n_e, n_p, n_s, n_r = g.edge_cap, g.p_node.shape[0], g.sp_i.shape[0], g.q_i.shape[0]
+    rho terms (and, with `build`, its blocks into the scratch `blk`, then
+    their ordered sum into H and b), then the rho terms' sum into the
+    pointer `chi2` unless it is None. `done`: the LM loop's gate (None
+    outside it)."""
+    n_e, n_p, n_s, n_r = _family_sizes(g)
     rho_p, rho_s, rho_r = rho[n_e:], rho[n_e + n_p:], rho[n_e + n_p + n_s:]
-    out = (ptr(h), ptr(b), done)
+    blk_e, blk_p, blk_s, blk_r = ([ctypes.c_void_p(blk.data_ptr() + 4 * o) for o in _block_offsets(g)[:4]]
+                                  if build else [None] * 4)
     KERNEL.call("lvs_pose_graph_edges", ptr(poses), ptr(g.e_i), ptr(g.e_j), ptr(g.e_meas), ptr(g.e_info),
-                ptr(g.e_huber), ptr(g.e_valid), n_e, n, int(build), ptr(rho), *out)
+                ptr(g.e_huber), ptr(g.e_valid), n_e, int(build), ptr(rho), blk_e, done)
     KERNEL.call("lvs_pose_graph_priors", ptr(poses), ptr(g.p_node), ptr(g.p_type), ptr(g.p_meas), ptr(g.p_info),
-                ptr(g.p_huber), ptr(g.p_valid), n_p, n, int(build), ptr(rho_p), *out)
+                ptr(g.p_huber), ptr(g.p_valid), n_p, int(build), ptr(rho_p), blk_p, done)
     KERNEL.call("lvs_pose_graph_se3_planes", ptr(poses), ptr(planes), ptr(g.sp_i), ptr(g.sp_plane), ptr(g.sp_meas),
-                ptr(g.sp_info), ptr(g.sp_huber), ptr(g.sp_valid), n_s, k, n, int(build), ptr(rho_s), *out)
+                ptr(g.sp_info), ptr(g.sp_huber), ptr(g.sp_valid), n_s, int(build), ptr(rho_s), blk_s, done)
     KERNEL.call("lvs_pose_graph_plane_edges", ptr(planes), ptr(g.q_i), ptr(g.q_j), ptr(g.q_type), ptr(g.q_meas),
-                ptr(g.q_info), ptr(g.q_huber), ptr(g.q_valid), n_r, k, n, int(build), ptr(rho_r), *out)
+                ptr(g.q_info), ptr(g.q_huber), ptr(g.q_valid), n_r, int(build), ptr(rho_r), blk_r, done)
+    if build:
+        KERNEL.call("lvs_pose_graph_assemble", ptr(g.e_i), ptr(g.e_j), ptr(g.e_valid), blk_e, n_e, ptr(g.p_node),
+                    ptr(g.p_valid), blk_p, n_p, ptr(g.sp_i), ptr(g.sp_plane), ptr(g.sp_valid), blk_s, n_s,
+                    ptr(g.q_i), ptr(g.q_j), ptr(g.q_valid), blk_r, n_r, g.node_cap, g.plane_cap, _n_dofs(g), ptr(h),
+                    ptr(b), done)
     if chi2 is not None:
         KERNEL.call("lvs_pose_graph_chi2", ptr(rho), rho.shape[0], chi2, done)
     KERNEL.launches += 1
 
 
+def _family_sizes(g: PoseGraph) -> tuple:
+    """The factor slots of the four families: edges, priors, SE3-plane,
+    plane-plane."""
+    return g.edge_cap, g.p_node.shape[0], g.sp_i.shape[0], g.q_i.shape[0]
+
+
 def _n_terms(g: PoseGraph) -> int:
-    return g.edge_cap + g.p_node.shape[0] + g.sp_i.shape[0] + g.q_i.shape[0]
+    return sum(_family_sizes(g))
+
+
+# dofs of one factor of each family (edges, priors, SE3-plane, plane-plane)
+_FAMILY_DOFS = (12, 6, 9, 6)
+
+
+def _block_offsets(g: PoseGraph) -> list:
+    """Each family's first float in K15's scratch of factor blocks (a
+    factor's J^T W J, nd x nd, then J^T W r, nd), and the total last."""
+    offsets = [0]
+    for count, nd in zip(_family_sizes(g), _FAMILY_DOFS):
+        offsets.append(offsets[-1] + count * (nd * nd + nd))
+    return offsets
+
+
+def _block_scratch(g: PoseGraph, device) -> torch.Tensor:
+    return torch.empty((_block_offsets(g)[-1],), dtype=torch.float32, device=device)
 
 
 def _chi2_and_normal(graph: PoseGraph, poses: torch.Tensor, build: bool, planes: Optional[torch.Tensor] = None):
@@ -317,7 +347,7 @@ def _chi2_and_normal(graph: PoseGraph, poses: torch.Tensor, build: bool, planes:
     chi2 = torch.empty((), dtype=torch.float32, device=dev)
     h = torch.zeros((n, n) if build else (1, 1), dtype=torch.float32, device=dev)
     b = torch.zeros((n,) if build else (1,), dtype=torch.float32, device=dev)
-    _k15(graph, poses, planes, build, rho, h, b, ptr(chi2), None)
+    _k15(graph, poses, planes, build, rho, _block_scratch(graph, dev) if build else None, h, b, ptr(chi2), None)
     return (chi2, h, b) if build else (chi2, None, None)
 
 
@@ -416,8 +446,9 @@ class LMState:
     """The LM loop's state on the graph's device: the current and candidate
     poses and planes, `lmf` float32 [lam, chi2, candidate chi2, pad] and
     `lmi` int32 [done, it, ok, small]; on CUDA also the kernels' buffers
-    (H and b, which K15 accumulates into and `lm_damp` clears, the damped
-    system and its right-hand side, the factors' chi2 terms)."""
+    (K15's factor blocks, H and b, which K15 adds the blocks into and
+    `lm_damp` clears, the damped system and its right-hand side, the
+    factors' chi2 terms)."""
 
     def __init__(self, g: PoseGraph, chi2_0: torch.Tensor):
         dev = g.poses.device
@@ -433,6 +464,7 @@ class LMState:
             self.damped = torch.empty((n, n), dtype=torch.float32, device=dev)
             self.rhs = torch.empty((n, 1), dtype=torch.float32, device=dev)
             self.rho = torch.empty((_n_terms(g),), dtype=torch.float32, device=dev)
+            self.blk = _block_scratch(g, dev)
 
     def clone(self) -> "LMState":
         """A copy with its own buffers."""
@@ -484,7 +516,7 @@ def _lm_iteration(g: PoseGraph, st: LMState, num_iterations: int, reduce: Option
     finished loop's H and b stay cleared, so its collectives reduce zeros."""
     k, q, n = g.node_cap, g.plane_cap, _n_dofs(g)
     done = st.done_ptr()
-    _k15(g, st.poses, st.planes, True, st.rho, st.h, st.b, None, done)
+    _k15(g, st.poses, st.planes, True, st.rho, st.blk, st.h, st.b, None, done)
     if reduce is not None:
         reduce(st.h)
         reduce(st.b)
@@ -494,7 +526,7 @@ def _lm_iteration(g: PoseGraph, st: LMState, num_iterations: int, reduce: Option
     delta = torch.cholesky_solve(st.rhs, chol)
     LM_KERNEL.call("lvs_lm_update", ptr(delta), ptr(info), ptr(st.poses), ptr(st.planes), ptr(st.cand_poses),
                    ptr(st.cand_planes), k, q, n, ptr(st.lmi))
-    _k15(g, st.cand_poses, st.cand_planes, False, st.rho, st.h, st.b,
+    _k15(g, st.cand_poses, st.cand_planes, False, st.rho, st.blk, st.h, st.b,
          ctypes.c_void_p(st.lmf.data_ptr() + 4 * L_NEW_CHI2), done)
     if reduce is not None:
         reduce(st.lmf[L_NEW_CHI2:L_NEW_CHI2 + 1])

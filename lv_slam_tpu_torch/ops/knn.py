@@ -26,8 +26,12 @@ the caller owns the table it passes. The host mapping instead rebuilds its
 tables from its map buffers every scan (`build_cell_table`).
 
 - `insert_cell_table_` is kernel 9a (`csrc/cell_table.cu`) on CUDA tensors
-  and `insert_cell_table_ref_` on CPU tensors; both sort with the same two
-  stable `torch.sort` passes, and the tables agree slot for slot.
+  and `insert_cell_table_ref_` on CPU tensors; the tables agree slot for
+  slot. A batch of at most `INSERT_BLOCK_ROWS` rows (the flagship's 4096
+  edge and 8064 surf rows) is one launch of one thread-block cluster that
+  sorts in registers and shared memory on the keys of `insert_sort_keys`;
+  a larger one sorts with the twin's two stable `torch.sort` passes
+  between two kernels.
 - `crop_cell_table_` is kernel 9b (same file) on CUDA tensors and
   `crop_cell_table_ref_` on CPU tensors. It can gate itself on the LFA's
   `crop_interval` without a host read.
@@ -102,10 +106,14 @@ INSERT_KERNEL = Kernel(
     source="lv_slam_tpu_torch/csrc/cell_table.cu",
     replaces="lv_slam_tpu/ops/knn.py:139",
     entries={
+        # xyz, mask, n, buckets, slots, 1/res, cell -> table (in place): one cluster, n <= INSERT_BLOCK_ROWS
+        "lvs_insert_cell_table": [PTR, PTR, I32, I32, I32, F32, F32, PTR],
+        # larger batches: keys, torch.sort glue, keep + place
         "lvs_insert_keys": [PTR, PTR, I32, I32, F32, F32, PTR, PTR],
         "lvs_insert_rows": [PTR, PTR, PTR, PTR, I32, I32, I32, F32, PTR, PTR, PTR],
     },
 )
+INSERT_BLOCK_ROWS = 8192  # the one-launch insert's batch cap: 8 blocks x 1024 rows (csrc/cell_table.cu kInsMaxRows)
 KNN_CELL_KERNEL = Kernel(
     "knn_cell",
     source="lv_slam_tpu_torch/csrc/cell_table.cu",
@@ -164,6 +172,56 @@ def _insert_keys_ref(xyz, mask, n_buckets, resolution, cell_size):
     return khi, _pack_yz(vox[:, 1], vox[:, 2])
 
 
+def _bit_length(lo: int, hi: int) -> int:
+    """Bits of hi - lo; 0 for an empty range (hi < lo)."""
+    return (hi - lo).bit_length() if hi >= lo else 0
+
+
+def _range(x: torch.Tensor, sel: torch.Tensor) -> Tuple[int, int]:
+    """(min, max) of x over sel; (2^31 - 1, -2^31) when sel is empty."""
+    if not bool(sel.any()):
+        return 2**31 - 1, -(2**31)
+    return int(x[sel].min()), int(x[sel].max())
+
+
+def insert_sort_keys(
+    xyz: torch.Tensor, mask: torch.Tensor, n_buckets: int, resolution: float, cell_size: float
+) -> Tuple[torch.Tensor, torch.Tensor, bool]:
+    """(hi, lo, narrow): int64 words per row whose lexicographic order is
+    the reference's sort on (bucket, vx, vyz) with the row index last, the
+    order of `_insert_order`. Kernel 9a's one-launch sort (`insert_cluster`
+    in `csrc/cell_table.cu`) builds the same keys. Narrow (`lo` all 0): the
+    fields offset by the batch's minima and packed into 63 bits, bucket,
+    vx, cy, cz, row from the top, where cy and cz are `_pack_yz`'s clamped
+    halves of vyz; the offsets are taken over all rows for the bucket, over
+    valid rows for vx, cy and cz, and over masked rows for theirs (masked
+    rows all sit in bucket B with vx 2^30, so only cy, cz and the row order
+    them, and valid rows never compare with them below the bucket). Wide,
+    when those widths pass 63 bits: hi = bucket * 2^32 + vx + 2^31, lo =
+    vyz * 2^32 + row."""
+    n = xyz.shape[0]
+    khi, vyz = _insert_keys_ref(xyz, mask, n_buckets, resolution, cell_size)
+    row = torch.arange(n, dtype=torch.int64, device=xyz.device)
+    b, vx = khi >> 32, (khi & _U32) - (1 << 31)
+    cy, cz = vyz.to(torch.int64) >> 15, vyz.to(torch.int64) & ((1 << 15) - 1)
+    valid = b < n_buckets
+    every = torch.ones_like(valid)
+    (b0, b1), (x0, x1) = _range(b, every), _range(vx, valid)
+    (y0, y1), (z0, z1) = _range(cy, valid), _range(cz, valid)
+    (my0, my1), (mz0, mz1) = _range(cy, ~valid), _range(cz, ~valid)
+    wx = _bit_length(x0, x1)
+    wy = max(_bit_length(y0, y1), _bit_length(my0, my1))
+    wz = max(_bit_length(z0, z1), _bit_length(mz0, mz1))
+    wi = max(n - 1, 0).bit_length()
+    if _bit_length(b0, b1) + wx + wy + wz + wi > 63:
+        return khi, vyz.to(torch.int64) * (1 << 32) + row, False
+    key = b - b0
+    key = key * (1 << wx) + torch.where(valid, vx - x0, 0)
+    key = key * (1 << wy) + cy - torch.where(valid, y0, my0)
+    key = key * (1 << wz) + cz - torch.where(valid, z0, mz0)
+    return key * (1 << wi) + row, torch.zeros_like(key), True
+
+
 def _insert_order(khi: torch.Tensor, vyz: torch.Tensor):
     """The reference's stable sort on (bucket, vx, vyz): two stable passes,
     the least significant key first. Returns (sorted khi, permutation)."""
@@ -186,10 +244,17 @@ def insert_cell_table_(
     check_dtype("insert_cell_table", xyz, torch.float32, (n, 3))
     check_dtype("insert_cell_table", mask, torch.bool, (n,))
     check_dtype("insert_cell_table", table.table, torch.float32, (n_buckets, s * 4))
+    inv_res = inv_resolution(resolution)
+    if n <= INSERT_BLOCK_ROWS:  # host-known: one launch, nothing else
+        INSERT_KERNEL.call(
+            "lvs_insert_cell_table", ptr(xyz), ptr(mask), n, n_buckets, s, inv_res, table.cell_size,
+            ptr(table.table),
+        )
+        INSERT_KERNEL.launches += 1
+        return
     dev = xyz.device
     khi = torch.empty((n,), dtype=torch.int64, device=dev)
     vyz = torch.empty((n,), dtype=torch.int32, device=dev)
-    inv_res = inv_resolution(resolution)
     INSERT_KERNEL.call(
         "lvs_insert_keys", ptr(xyz), ptr(mask), n, n_buckets, inv_res, table.cell_size,
         ptr(khi), ptr(vyz),

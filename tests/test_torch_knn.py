@@ -136,6 +136,62 @@ def test_duplicate_voxels_keep_the_first_in_batch_order():
     assert torch.equal(again.table, tt.table)
 
 
+@functools.partial(jax.jit, static_argnums=(2, 3))
+def _reference_order(xyz, mask, n_buckets, res, cs):
+    """The permutation of the reference insert's sort (`lv_slam_tpu/ops/knn.py`
+    `insert_cell_table`: its keys, then `lax.sort` on (bucket, vx, vyz) with
+    num_keys=3), the row index carried as the operand it sorts."""
+    from lv_slam_tpu.ops.prefilter import _pack_yz
+
+    vox = jnp.floor(xyz / res).astype(jnp.int32)
+    cell = jnp.floor(xyz / cs).astype(jnp.int32)
+    b = jnp.where(mask, jk._bucket(cell, n_buckets), jnp.int32(n_buckets))
+    vx = jnp.where(mask, vox[:, 0], jnp.int32(2**30))
+    vyz = _pack_yz(vox[:, 1], vox[:, 2])
+    row = jnp.arange(xyz.shape[0], dtype=jnp.int32)
+    return jax.lax.sort((b, vx, vyz, row), num_keys=3, is_stable=True)[3]
+
+
+SORT_CASES = {
+    # case: (seed, voxel span, masked share, buckets, one-word keys); the
+    # masked rows at the sentinel and elsewhere span cy and cz's 15 bits
+    "masked rows, some at the sentinel": (1, 50, 0.5, 4096, True),
+    "equal voxels": (2, 3, 0.1, 4096, True),
+    "equal buckets, different voxels": (3, 40, 0.1, 7, True),
+    "negative coordinates": (4, 400, 0.1, 32768, False),
+    "at the pack's +-16384 clamp": (5, 30, 0.1, 16384, True),
+    "fields past 63 bits": (6, 30, 0.1, 16384, False),
+}
+
+
+@pytest.mark.parametrize("case", list(SORT_CASES))
+def test_insert_sort_keys_order_rows_as_the_reference_sort(case):
+    """Kernel 9a's sort keys (`insert_sort_keys`, which `insert_block` in
+    `csrc/cell_table.cu` mirrors) order every row, masked ones too, as the
+    reference's three-key `lax.sort` with ties in row order. Points sit 0.2-0.8
+    of a voxel from its faces, so both sides floor them alike."""
+    seed, span, masked, n_buckets, one_word = SORT_CASES[case]
+    rng = np.random.default_rng(seed)
+    n, res, cs = 3000, 0.4, 2.0
+    vox = rng.integers(-span, span, (n, 3))
+    if case.startswith("negative"):
+        vox = -np.abs(vox) - 1
+    if case.startswith("at the pack"):  # y and z at, inside and beyond the clamp
+        edge = rng.choice([-20000, -16385, -16384, -16383, 16382, 16383, 16384, 20000], (n // 3, 2))
+        vox[: n // 3, 1:] = edge
+    if case.startswith("fields past"):  # vx over 2^21 voxels, y and z at the clamp
+        vox[:, 0] = rng.integers(-(2**20), 2**20, n)
+        vox[: n // 2, 1:] = rng.choice([-20000, 20000], (n // 2, 2))
+    xyz = ((vox + rng.uniform(0.2, 0.8, (n, 3))) * res).astype(np.float32)
+    mask = rng.random(n) >= masked
+    xyz[~mask & (rng.random(n) < 0.5)] = 1.0e6  # the sentinel, as masked feature lanes carry it
+    want = np.asarray(_reference_order(jnp.asarray(xyz), jnp.asarray(mask), n_buckets, res, jnp.float32(cs)))
+    hi, lo, narrow = tk.insert_sort_keys(torch.from_numpy(xyz), torch.from_numpy(mask), n_buckets, res, cs)
+    np.testing.assert_array_equal(np.lexsort((lo.numpy(), hi.numpy())), want)
+    assert narrow == one_word
+    assert len(np.unique(np.stack([hi.numpy(), lo.numpy()]), axis=1)[0]) == n  # every key distinct
+
+
 def test_candidates_match(batches):
     _, jt, tt = _insert_both(batches[0], 4096, 0.8, 2)
     q = batches[0][4][2]
