@@ -169,7 +169,9 @@ Phases, each of which raises on failure:
 Phase 2 holds every kernel, those of the backend too (2c: the window dedup
 K1b/K2, the batched NDT pass K13, the centroid grid K14 and the pose-graph
 normal equations K15; 2d: ORB K12 on four keyframe images of the circle and
-the descriptor matching K12b of one keyframe against eight; 2e: standalone
+the descriptor matching K12b of one keyframe against eight, then K12b bit
+for bit on `match_cases` (caps 1 to 1000, 1 to 32 candidates, masks with
+holes, ties, pairs at max_dist, all-masked sets, cap 4096); 2e: standalone
 LFA's grid build K9g, its 2-point lines / 3-point planes K9k and the host
 mapping's table build K9c; 2f: the dense LUT K3L, the LUT/SoA derivative
 pass K6L and the generic one K6G on the host DLO's 32768-leaf keyframe map
@@ -187,7 +189,8 @@ derivative passes gated on the loop's `done` flag) step by step from
 identical states, on 2f's map and 65536-lane subsample from three starts
 and on K13's batch of 8 x 131072 lanes at the 1 m rung (2c's), the
 sharded align's per-lane sums (`newton_sums`) on that batch's partial rows
-bit for bit against the plain block-by-block adds, then whole
+bit for bit against the plain block-by-block adds, and on `sums_cases`
+(1 to 2049 blocks, finished lanes, NaN and infinite rows), then whole
 aligns and the rung, timed device and wall against the twins' loop, with
 their host reads counted (at most ceil((iterations + 1) / NEWTON_GROUP)
 per align, none per rung, none in a whole `dispatch_one`); and the LM's
@@ -313,7 +316,7 @@ DEVICE_FUNCTIONS = {
     "nn_sq_dists": ("grid_query", "grid_finish"),
     "_chi2_and_normal": ("se3_edges", "priors", "se3_planes", "plane_edges", "assemble", "chi2_sum"),
     "_detect_pyramid_batch": ("orb_level0", "orb_halve", "orb_pixels", "orb_keys", "orb_describe"),
-    "match_scores_batch": ("orb_match",),
+    "match_scores_batch": ("match_cluster",),
     "build_grid": ("knn_grid_init", "knn_grid_cells", "knn_grid_keys", "knn_grid_gather"),
     "knn": ("knn_query", "knn_lines", "knn_planes"),
     "build_cell_table": ("table_keys", "table_zero", "table_place"),
@@ -1120,6 +1123,95 @@ def render_images(gt, indices):
     return np.stack([synthetic.render_camera_image(world, gt[i], seed=SEED) for i in indices]).astype(np.uint8)
 
 
+MATCH_CAPS = (1, 7, 300, 512, 1000)  # K12b's edge cases: below, at and past the cluster's 8 slices
+MATCH_KS = (1, 8, 32)  # one candidate (`match_score`), phase 2d's batch, the loop detector's padding
+
+
+def _flipped(rng, rows: np.ndarray, n_flips: np.ndarray) -> np.ndarray:
+    """`rows` (n, 32) uint8 with n_flips[r] distinct bits of row r flipped."""
+    ranks = np.argsort(np.argsort(rng.random((rows.shape[0], 256)), axis=1), axis=1)
+    return rows ^ np.packbits(ranks < n_flips[:, None], axis=1)
+
+
+def _with_copies(rng, rows: np.ndarray, share: float) -> np.ndarray:
+    """`rows` with a `share` of them overwritten by copies of others: argmin ties."""
+    rows = rows.copy()
+    dst = np.flatnonzero(rng.random(rows.shape[0]) < share)
+    rows[dst] = rows[rng.integers(0, rows.shape[0], dst.size)]
+    return rows
+
+
+def match_cases(seed: int = SEED):
+    """K12b's edge cases as numpy arrays: (name, a (cap, 32) uint8, a_mask
+    (cap,), bs (k, cap, 32), b_masks (k, cap), max_dist). For each cap and k:
+    a query with copied rows (ties in the column argmins) under a mask with
+    holes; each candidate the query's rows shuffled with 0-80 bits flipped
+    (exactly 64 and 65 among them: a pair at max_dist and one past it), a
+    fifth random, a tenth copies (ties in the row argmins), under its own
+    mask with holes; candidate 1 all masked. Then an all-masked query, the
+    loop detector's prefix masks, four distinct descriptors in all, a
+    max_dist of 1e9, at which masked pairs count, and a cap of 4096 (past
+    the first kernel's shared memory)."""
+    rng = np.random.default_rng(seed)
+
+    def candidates(a, k, keep=0.75):
+        cap = a.shape[0]
+        bs = np.empty((k, cap, 32), np.uint8)
+        for c in range(k):
+            flips = rng.integers(0, 81, cap)
+            flips[:2] = (64, 65)[:cap]
+            b = _flipped(rng, a[rng.permutation(cap)], flips)
+            rand = rng.random(cap) < 0.2
+            b[rand] = rng.integers(0, 256, (int(rand.sum()), 32), dtype=np.uint8)
+            bs[c] = _with_copies(rng, b, 0.1)
+        b_masks = rng.random((k, cap)) < keep
+        if k > 1:
+            b_masks[1] = False
+        return bs, b_masks
+
+    out = []
+    for cap in MATCH_CAPS:
+        for k in MATCH_KS:
+            a = _with_copies(rng, rng.integers(0, 256, (cap, 32), dtype=np.uint8), 0.1)
+            out.append((f"cap {cap}, k {k}", a, rng.random(cap) < 0.8, *candidates(a, k), 64.0))
+    a = rng.integers(0, 256, (512, 32), dtype=np.uint8)
+    out.append(("all-masked query", a, np.zeros(512, bool), *candidates(a, 8), 64.0))
+    bs, _ = candidates(a, 8)
+    prefix = np.arange(512)[None, :] < np.array([348, 0, 512, 1, 300, 348, 511, 7])[:, None]
+    out.append(("prefix masks", a, np.arange(512) < 348, bs, prefix, 64.0))
+    protos = rng.integers(0, 256, (4, 32), dtype=np.uint8)
+    a = protos[rng.integers(0, 4, 300)]
+    bs = protos[rng.integers(0, 4, (8, 300))]
+    out.append(("four distinct descriptors", a, rng.random(300) < 0.8, bs, rng.random((8, 300)) < 0.8, 64.0))
+    a = rng.integers(0, 256, (7, 32), dtype=np.uint8)
+    a_mask = np.array([True, False, True, True, False, True, True])
+    out.append(("max_dist 1e9", a, a_mask, *candidates(a, 8), 1e9))
+    a = rng.integers(0, 256, (4096, 32), dtype=np.uint8)
+    out.append(("cap 4096, k 2", a, rng.random(4096) < 0.8, *candidates(a, 2), 64.0))
+    return out
+
+
+def check_match_cases(torch, dev):
+    """K12b against its plain version on the card, bit for bit, on every
+    case of `match_cases`, one launch each; returns the number of cases."""
+    from lv_slam_tpu_torch.kernels import KERNELS
+    from lv_slam_tpu_torch.ops import orb
+
+    cases = match_cases()
+    for name, *arrays, max_dist in cases:
+        a, a_mask, bs, b_masks = (torch.from_numpy(v).to(dev) for v in arrays)
+        before = KERNELS["match_scores_batch"].launches
+        got = orb.match_scores_masked(a, a_mask, bs, b_masks, max_dist)
+        want = orb.match_scores_masked_ref(a, a_mask, bs, b_masks, max_dist)
+        torch.cuda.synchronize()
+        if KERNELS["match_scores_batch"].launches != before + 1:
+            raise AssertionError(f"match_scores_batch ({name}): not one launch")
+        if not torch.equal(got, want):
+            raise AssertionError(f"match_scores_batch ({name}): scores {got.tolist()} differ from the plain "
+                                 f"version's {want.tolist()}")
+    return len(cases)
+
+
 def check_orb_kernels(torch, gt, dev):
     """Phase 2d: ORB (K12) on four keyframe images of the circle, as one
     chunk's batch, and the matching (K12b) of the first keyframe's
@@ -1175,6 +1267,10 @@ def check_orb_kernels(torch, gt, dev):
     log(f"  match_scores_batch: {int(a_mask.sum())} query descriptors against {len(order)} candidates of "
         f"{b_masks.sum(dim=1).tolist()} (cap {cap}); scores {[round(v, 6) for v in got_s.tolist()]} "
         f"identical to the plain version")
+    n_cases = check_match_cases(torch, dev)
+    log(f"  match_scores_batch: {n_cases} edge cases (caps {MATCH_CAPS} x k {MATCH_KS} with holes, copies and pairs "
+        f"at max_dist; an all-masked query and candidates, prefix masks, four distinct descriptors, max_dist "
+        f"1e9, cap 4096) identical to the plain version, one launch each")
     pairs = int(a_mask.sum()) * int(b_masks.sum())
     # per valid pair: 8 xor, 8 popcounts, 8 adds for the distance, 2 compares
     measure(torch, records, "match_scores_batch", k12b, p12b, 0.0, nbytes(a, a_mask, bs, b_masks, got_s), 26 * pairs)
@@ -3223,6 +3319,48 @@ def loop_batch(torch, scans, gt, dev):
     return keyframe, [scans_f[i] for i in range(2, 18, 2)], guesses
 
 
+SUMS_BLOCKS = (1, 5, 256, 512, 700, 2049)  # K7s: 2049 is one row past a round in shared memory (csrc/newton.cu)
+
+
+def sums_cases(torch, ndt, dev, seed: int = SEED):
+    """K7s's edge cases: (name, state, n_blocks), 8 lanes of seeded partial
+    rows for each n_blocks of `SUMS_BLOCKS`, lanes 1 and 5 finished, a NaN in
+    a row of lane 2 and an infinity in lane 3."""
+    rng = np.random.default_rng(seed)
+    out = []
+    for n in SUMS_BLOCKS:
+        rows = (rng.standard_normal((8, n, ndt.N_TERMS)) * 1e3).astype(np.float32)
+        rows[2, n // 2, 7] = np.nan
+        rows[3, n - 1, 0] = np.inf
+        state = ndt.NewtonState(torch.eye(4, device=dev).expand(8, 4, 4).contiguous(), batched=True)
+        state.partials = torch.from_numpy(rows.reshape(-1)).to(dev)
+        state.s[[1, 5], ndt.S_DONE] = 1
+        out.append((f"{n} blocks", state, n))
+    return out
+
+
+def check_sums_cases(torch, dev):
+    """K7s against its plain version on the card, bit for bit (NaN's bits
+    too), on every case of `sums_cases`, one launch each; returns the number
+    of cases."""
+    from lv_slam_tpu_torch.kernels import KERNELS
+    from lv_slam_tpu_torch.ops import ndt
+
+    cases = sums_cases(torch, ndt, dev)
+    for name, state, n in cases:
+        before = KERNELS["newton_sums"].launches
+        got = ndt.newton_sums(state, n).clone()
+        want = ndt.newton_sums_ref(state, n)
+        torch.cuda.synchronize()
+        if KERNELS["newton_sums"].launches != before + 1:
+            raise AssertionError(f"newton_sums ({name}): not one launch")
+        if not torch.equal(got.view(torch.int32), want.view(torch.int32)):
+            raise AssertionError(f"newton_sums ({name}): the lanes' sums differ from the plain version")
+        if bool(got[[1, 5]].any()) or not bool(got[2, 7].isnan()) or float(got[3, 0]) != float("inf"):
+            raise AssertionError(f"newton_sums ({name}): finished lanes, the NaN or the infinity not as the adds give")
+    return len(cases)
+
+
 def check_loop_kernels(torch, scans, gt, dev, prior):
     """Phase 2i: the device-side loops against their twins at the main
     path's shapes. K7 (`newton_step`, with the derivative passes gated on
@@ -3405,6 +3543,9 @@ def check_loop_kernels(torch, scans, gt, dev, prior):
         raise AssertionError("newton_sums: the lanes' sums differ from the plain version")
     log(f"  newton_sums over K13's batch (8 lanes x {bpass.n_blocks} blocks, lanes 1 and 5 finished): identical to "
         f"the plain block-by-block float32 adds, zeros for the finished lanes")
+    n_cases = check_sums_cases(torch, dev)
+    log(f"  newton_sums: {n_cases} edge cases (8 lanes x {SUMS_BLOCKS} blocks, lanes 1 and 5 finished, a NaN row and "
+        f"an infinite one) identical to the plain version, one launch each")
     # bytes: the running lanes' partial rows, a done flag per lane, the sums;
     # one add per running lane's partial float
     n_running = int((sums_state.s[:, ndt.S_DONE] == 0).sum())

@@ -29,11 +29,44 @@
 // exp_se3(alpha * direction) @ transform. A lane whose `done` is set returns
 // at once, so a launch after done is an exact no-op.
 //
-// The point-sharded align (parallel/mesh.py) needs the lane's sums before
-// the step, to all-reduce them over the ranks that hold its points:
-// `newton_sums` writes each lane's 43 sums in the same order (zeros for a
-// finished lane), and `newton_step` then takes the reduced rows as a pass of
-// one block (0 + x is x), so one rank's sharded step equals the unsharded one.
+// K7s, `newton_sums` (replaces the per-shard sums before the `psum` of
+// lv_slam_tpu/parallel/mesh.py:118): the point-sharded align needs the
+// lane's sums before the step, to all-reduce them over the ranks that hold
+// its points. It writes each lane's 43 sums in `newton_step`'s order (zeros
+// for a finished lane), and `newton_step` then takes the reduced rows as a
+// pass of one block (0 + x is x), so one rank's sharded step equals the
+// unsharded one.
+//
+// What bounds K7s: a lane's rows are n_blocks x 172 contiguous bytes (88 KB
+// at K13's 512 blocks), under 0.2 us of the card's bandwidth for six lanes.
+// The order is the contract: column c is ((0 + r0) + r1) + ... in block
+// order, a chain of n_blocks dependent float adds that no split may
+// shorten (at best one add per ~4-cycle latency: ~1 us at 512), so the
+// chain and the wait for its first operand are the floor. The first
+// kernel (one 64-thread block per lane, 43 threads each walking
+// `column_sum` over global memory) put a load's latency on every add:
+// 0.0110 ms against torch.sum's 0.0038.
+//
+// Design: a block per lane and group of 4 columns (grid (lanes, 11)), 256
+// threads. All threads gather the group's 4 floats of every row with plain
+// loads, 16 in flight per thread (1024 rows a batch), into shared memory
+// column by column (a column's stride, 2056 floats, puts a warp's stores on
+// 32 distinct banks); after one barrier, thread c < 4 runs its column's
+// chain from shared memory, a float4 (4 rows) a load and 32 rows a step,
+// each add a plain `acc = acc + x` in order (no contraction: --fmad=false,
+// and nothing to fuse). A lane with more than 2048 rows takes them in
+// rounds of 2048, the chain's sum carried over. A finished lane writes its
+// zeros and returns.
+//
+// What was hard: the bytes had to be spread. A one-block-per-lane ring (TMA
+// bulk copies or 4-byte cp.async into shared memory, the chain consuming
+// slots behind mbarriers) ran no faster than torch.sum: all 88 KB of a lane
+// reach one SM, and each slot's barrier round trip stalls the chain. Split
+// by columns, each block gathers 8 KB, the 11 blocks of a lane load on 11
+// SMs at once, and the chain waits for one gather's latency. The chain
+// itself stalled while each step's shared-memory loads waited behind its
+// adds; float4 reads over a column-major layout take 4 rows a load, and 8
+// loads a step are in flight before its 32 adds.
 #include "common.cuh"
 #include "ndt_terms.cuh"
 #include "se3.cuh"
@@ -175,22 +208,75 @@ __global__ void newton_step(const float* __restrict__ partials, int n_blocks, fl
   if (!done) propose(st, si, step_min, dof_bits);
 }
 
-// Each lane's summed derivative rows (n_lanes, 43), zeros for a finished lane.
-__global__ void newton_sums(const float* __restrict__ partials, int n_blocks, const int* __restrict__ s,
-                            float* __restrict__ sums) {
-  const int c = blockIdx.x;
-  if (threadIdx.x >= lvs::kNdtTerms) return;
-  sums[lvs::kNdtTerms * c + threadIdx.x] =
-      s[kS * c + S_DONE] ? 0.0f
-                         : lvs::column_sum(partials + static_cast<long long>(lvs::kNdtTerms) * n_blocks * c,
-                                           n_blocks, lvs::kNdtTerms, threadIdx.x);
+constexpr int kSumCols = 4;  // columns a block sums
+constexpr int kSumGroups = (lvs::kNdtTerms + kSumCols - 1) / kSumCols;
+constexpr int kSumThreads = 256;
+constexpr int kSumLoads = 16;           // loads in flight per thread: 1024 rows a batch
+constexpr int kSumRound = 2048;         // rows held in shared memory at once
+constexpr int kSumPad = kSumRound + 8;  // a column's stride: a warp's stores fall on 32 banks
+
+// acc + col[0] + col[1] + ... + col[n - 1], in that order; col 16-byte aligned
+__device__ __forceinline__ float column_chain(const float* col, int n, float acc) {
+  const float4* col4 = reinterpret_cast<const float4*>(col);
+  int b = 0;
+  for (; b + 32 <= n; b += 32) {
+    float4 q[8];
+#pragma unroll
+    for (int u = 0; u < 8; ++u) q[u] = col4[b / 4 + u];
+#pragma unroll
+    for (int u = 0; u < 8; ++u) {
+      acc = acc + q[u].x;
+      acc = acc + q[u].y;
+      acc = acc + q[u].z;
+      acc = acc + q[u].w;
+    }
+  }
+  for (; b < n; ++b) acc = acc + col[b];
+  return acc;
+}
+
+// Each lane's summed derivative rows (n_lanes, 43), zeros for a finished
+// lane: block (c, g) writes columns [4g, 4g + 4) of lane c.
+__global__ void __launch_bounds__(kSumThreads)
+newton_sums(const float* __restrict__ partials, int n_blocks, const int* __restrict__ s, float* __restrict__ sums) {
+  const int c = blockIdx.x, c0 = blockIdx.y * kSumCols, tid = threadIdx.x;
+  const int w = min(kSumCols, lvs::kNdtTerms - c0);
+  float* out = sums + lvs::kNdtTerms * c + c0;
+  if (s[kS * c + S_DONE]) {
+    if (tid < w) out[tid] = 0.0f;
+    return;
+  }
+  __shared__ __align__(16) float cols[kSumCols * kSumPad];
+  const float* rows = partials + static_cast<long long>(lvs::kNdtTerms) * n_blocks * c + c0;
+  float acc = 0.0f;
+  for (int r0 = 0; r0 < n_blocks; r0 += kSumRound) {
+    const int nr = min(kSumRound, n_blocks - r0), n_el = nr * kSumCols;
+    const float* src = rows + static_cast<long long>(r0) * lvs::kNdtTerms;
+    for (int base = 0; base < n_el; base += kSumThreads * kSumLoads) {
+      float v[kSumLoads];
+#pragma unroll
+      for (int u = 0; u < kSumLoads; ++u) {
+        const int x = base + u * kSumThreads + tid, col = x % kSumCols;
+        v[u] = x < n_el && col < w ? src[(x / kSumCols) * lvs::kNdtTerms + col] : 0.0f;
+      }
+#pragma unroll
+      for (int u = 0; u < kSumLoads; ++u) {
+        const int x = base + u * kSumThreads + tid;
+        if (x < n_el) cols[(x % kSumCols) * kSumPad + x / kSumCols] = v[u];
+      }
+    }
+    __syncthreads();
+    if (tid < w) acc = column_chain(cols + tid * kSumPad, nr, acc);
+    __syncthreads();  // the chains have read this round before the next overwrites it
+  }
+  if (tid < w) out[tid] = acc;
 }
 
 }  // namespace
 
 extern "C" int lvs_newton_sums(const float* partials, int n_blocks, const int* s, int n_lanes, float* sums,
                                cudaStream_t stream) {
-  if (n_lanes > 0) newton_sums<<<n_lanes, 64, 0, stream>>>(partials, n_blocks, s, sums);
+  if (n_lanes > 0) newton_sums<<<dim3(n_lanes, kSumGroups), kSumThreads, 0, stream>>>(partials, n_blocks, s, sums);
   LVS_RETURN_LAST_ERROR();
 }
 

@@ -336,14 +336,14 @@ INLINE_BLOCKS = {"build_lut": "# Dense LUT scatter", "newton_step": "def _newton
                  "grid_fits": "knn(grid, y, k=k)", "newton_sums": "def derivs(T):"}
 
 
-def _device_functions():
-    """chip_smoke.py's DEVICE_FUNCTIONS: each kernel's own device functions."""
+def _chip_smoke():
+    """chip_smoke.py as a module (it imports numpy only at the top)."""
     import importlib.util
 
     spec = importlib.util.spec_from_file_location("_chip_smoke", REPO / "chip_smoke.py")
     module = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(module)
-    return module.DEVICE_FUNCTIONS
+    return module
 
 
 def test_registry_names_sources_and_replaced_functions():
@@ -367,10 +367,11 @@ def test_registry_names_sources_and_replaced_functions():
             assert re.match(rf"def {name}\(", text), (k.replaces, text)
     # the device functions chip_smoke.py times for each kernel are kernels of
     # its source (K9a's one-block insert and its over-cap route, K11's cluster)
-    functions = _device_functions()
+    functions = _chip_smoke().DEVICE_FUNCTIONS
     assert set(functions) == set(KERNELS)
     assert functions["insert_cell_table"] == ("insert_cluster", "insert_keys", "insert_keep", "insert_place")
     assert functions["gn_solve"] == ("gn_cluster",)
+    assert functions["match_scores_batch"] == ("match_cluster",)
     for name, k in KERNELS.items():
         source = "".join(p.read_text() for p in (REPO / k.source).parent.glob("*.cu*"))
         for fn in functions[name]:
@@ -647,6 +648,17 @@ def test_camera_kernels_match_plain_versions_on_the_card(cuda):
     assert torch.equal(got, want) and int(got[:, :, 36].sum()) > 100
     (got,), (want,) = results["match_scores_batch"]
     assert torch.equal(got, want) and float(got[0]) == 1.0
+
+
+@pytest.mark.gpu
+def test_match_scores_edge_cases_on_the_card(cuda):
+    """K12b bit for bit against its twin, one launch a call, on chip_smoke's
+    edge cases: caps 1, 7, 300, 512 and 1000 by k = 1, 8 and 32 with holes
+    in both masks, copied rows (both argmins tie), pairs at exactly
+    max_dist and one bit past it, all-masked candidates; an all-masked
+    query, prefix masks, four distinct descriptors, max_dist 1e9, cap 4096."""
+    cs = _chip_smoke()
+    assert cs.check_match_cases(torch, cuda) == len(cs.MATCH_CAPS) * len(cs.MATCH_KS) + 5
 
 
 @pytest.mark.gpu
@@ -945,6 +957,16 @@ def test_newton_sums_matches_its_twin_on_the_card(cuda, scans):
         assert torch.equal(got, ndt.newton_sums_ref(state, pass_.n_blocks)), done
         assert bool(got.any()) != bool(done)
     assert KERNELS["newton_sums"].launches == 3
+
+
+@pytest.mark.gpu
+def test_newton_sums_edge_cases_on_the_card(cuda):
+    """K7s bit for bit (NaN's bits too) against its twin, one launch a call:
+    8 lanes at n_blocks 1, 5, 256, 512, 700 and 2049 (one row past the
+    kernel's round of 2048 in shared memory), lanes 1 and 5 finished, a NaN
+    row and an infinite one."""
+    cs = _chip_smoke()
+    assert cs.check_sums_cases(torch, cuda) == len(cs.SUMS_BLOCKS)
 
 
 @pytest.mark.gpu

@@ -346,3 +346,21 @@ def test_batched_align_against_jax(setup):
     want = align(jnp.asarray(guesses.numpy()))
     np.testing.assert_allclose(got_t.numpy(), np.asarray(want.transform), rtol=0, atol=1e-4)
     assert got_it.tolist() == np.asarray(want.iterations).tolist()
+
+
+@pytest.mark.parametrize("n_blocks", [1, 5, 700])
+def test_newton_sums_twin_adds_in_block_order(n_blocks):
+    """`newton_sums_ref`, the yardstick of K7s on the card, is a float32 sum
+    from zero in block order: the last row of numpy's float32 cumulative sum
+    over the blocks, bit for bit, and zeros for a finished lane."""
+    rng = np.random.default_rng(n_blocks)
+    rows = (rng.standard_normal((3, n_blocks, tn.N_TERMS)) * np.logspace(-3, 6, tn.N_TERMS)).astype(np.float32)
+    state = tn.NewtonState(torch.eye(4).expand(3, 4, 4).contiguous(), batched=True)
+    state.partials = torch.from_numpy(rows.reshape(-1))
+    state.s[1, tn.S_DONE] = 1
+    want = np.cumsum(rows, axis=1, dtype=np.float32)[:, -1]
+    want[1] = 0.0
+    got = tn.newton_sums_ref(state, n_blocks).numpy()
+    np.testing.assert_array_equal(got.view(np.int32), want.view(np.int32))
+    if n_blocks > 1:  # the order shows: another order of the same adds gives other bits
+        assert not np.array_equal(np.sum(rows[:, ::-1], axis=1, dtype=np.float32)[0], want[0])

@@ -208,3 +208,30 @@ def test_match_scores_match_reference(circle_images):
     assert orb.match_scores_batch(np.zeros((0, 32), np.uint8), cands, device="cpu").tolist() == [0.0] * 6
     d = orb.hamming_matrix(torch.from_numpy(bits[:5]), torch.from_numpy(bits[:7])).numpy()
     np.testing.assert_array_equal(d, np.asarray(jorb.hamming_matrix(jnp.asarray(bits[:5]), jnp.asarray(bits[:7]))))
+
+
+def test_masked_match_twin_matches_reference_on_holes_and_ties():
+    """The card check's yardstick, `match_scores_masked_ref`, gives JAX's
+    `_match_scores_masked` scores exactly (through `unpack_descriptors`) on
+    the cases of chip_smoke's `match_cases` up to cap 300 and k = 8, and its
+    special ones: masks with holes, copied rows (both argmins tie), pairs at
+    exactly max_dist, all-masked candidates and query, prefix masks, four
+    distinct descriptors, max_dist 1e9."""
+    import importlib.util
+    from pathlib import Path
+
+    spec = importlib.util.spec_from_file_location("_chip_smoke", Path(__file__).resolve().parents[1] / "chip_smoke.py")
+    chip_smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(chip_smoke)
+    checked = 0
+    for name, a, a_mask, bs, b_masks, max_dist in chip_smoke.match_cases():
+        if a.shape[0] > 512 or bs.shape[0] > 8 or (name.startswith("cap") and a.shape[0] > 300):
+            continue
+        want = jorb._match_scores_masked(
+            jnp.asarray(jorb.unpack_descriptors(a)), jnp.asarray(a_mask),
+            jnp.asarray(np.stack([jorb.unpack_descriptors(b) for b in bs])), jnp.asarray(b_masks), max_dist)
+        got = orb.match_scores_masked_ref(torch.from_numpy(a), torch.from_numpy(a_mask), torch.from_numpy(bs),
+                                          torch.from_numpy(b_masks), max_dist)
+        np.testing.assert_array_equal(got.numpy(), np.asarray(want), err_msg=name)
+        checked += 1
+    assert checked == 10
