@@ -14,7 +14,10 @@ Phases, each of which raises on failure:
    also over its one-launch cap (scans 4 and 5's surf batches in one
    insert: the route with the sort glue, under `over_cap`) and K11 at
    standalone LFA's shape (scan 4's sharp / flat features on scan 3's
-   grids, under `standalone`). Masks,
+   grids, under `standalone`). K1 and K8 are also held bit for bit to
+   their twins run on a CPU copy, on their edge cases (`sort_cases`,
+   `feature_cases`), with no synchronizing call and no device work but
+   their own; `torch.sort` of K1's keys is timed beside K1. Masks,
    picks and tables must be identical; fitted floats and the GN pose agree
    to the stated tolerances. Each kernel's time is device-only, the median
    over the whole calls among 20 in a torch.profiler trace, each call
@@ -220,6 +223,7 @@ non-zero before it prints any result.
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import multiprocessing
 import os
@@ -299,11 +303,11 @@ PEAK_F32_PER_S = 67e12      # H100 SXM float32 outside the tensor cores
 # each kernel's own device functions (csrc/), for reading its device time
 # out of the profiler: everything else a wrapper launches is torch glue
 DEVICE_FUNCTIONS = {
-    "voxel_downsample": ("mark_runs", "reduce_runs"),
+    "voxel_downsample": ("voxel_ranges", "voxel_keys", "key_sort_pass", "voxel_runs"),
     "build_voxel_map": ("mark_leaves", "build_leaves"),
     "to_hash": ("hash_init", "hash_slot0", "hash_slot1", "hash_dropped", "hash_rows"),
     "ndt_derivatives_hash": ("ndt_partials", "ndt_finish"),
-    "extract_features": ("fill_best", "project", "rows", "compact"),
+    "extract_features": ("fill_best", "project", "select_sector"),
     "insert_cell_table": ("insert_cluster", "insert_keys", "insert_keep", "insert_place"),
     "crop_cell_table": ("crop",),
     "lines_from_fit": ("lines",),
@@ -418,6 +422,41 @@ def nbytes(*tensors) -> int:
     return sum(t.numel() * t.element_size() for t in tensors)
 
 
+def foreign_functions(torch, fn, functions, reps: int = 5):
+    """(names of the device work a call of `fn` launches besides
+    `functions`, the number of device launches of a call), from the calls
+    that a torch.profiler trace holds whole (`whole_calls`: the trace may
+    lack records); a trace with no whole call is taken again, five times at
+    most."""
+    from torch.profiler import ProfilerActivity, profile as torch_profile
+
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(5):
+        with torch_profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                torch.cuda._sleep(1000)
+                fn()
+            torch.cuda._sleep(1000)
+            torch.cuda.synchronize()
+        events = sorted((e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA),
+                        key=lambda e: e.time_range.start)
+        names = [e.name for e in events]
+        calls = [call for call in whole_calls(names) if call]
+        if calls:
+            break
+    else:
+        raise AssertionError(f"five traces held no whole call of {functions}")
+    others = {names[i] for call in calls for i in call if not any(_is_function(names[i], f) for f in functions)}
+    return sorted(others), len(calls[0])
+
+
+def on_cpu(cloud):
+    from lv_slam_tpu_torch.core.cloud import PointCloud
+
+    return PointCloud(cloud.xyz.cpu(), cloud.intensity.cpu(), cloud.mask.cpu())
+
+
 def on_copies(table, fn):
     """A `device_ms` callable that runs `fn` on its own copy of the cell
     table `table` at each call, so every timed call does the same work. The
@@ -447,6 +486,87 @@ def measure(torch, records, name, kernel_fn, plain_fn, err, n_bytes, n_ops):
     records[name] = timed(torch, name, kernel_fn, plain_fn, err, n_bytes, n_ops)
 
 
+SORT_LANES = 1 << 17  # K1's edge cases: phase 2's lane count
+SORT_CASE_NAMES = ("every lane masked", "one voxel holding every point", "clip range, both signs of kx",
+                   "out_cap below the runs", "APPROX_VOXELGRID", "out_cap above the lanes", "1025 lanes")
+
+
+def _voxel_scene(rng, n: int) -> np.ndarray:
+    """(n, 4) lidar-like points and intensities: spread over +-60 m with
+    both signs, clusters of 4 inside one 0.1 m cell, points on cell faces."""
+    centers = rng.uniform(-20.0, 20.0, (n // 8, 3))
+    near = np.repeat(centers, 4, axis=0) + rng.normal(0.0, 0.01, (4 * (n // 8), 3))
+    pts = np.concatenate([rng.uniform(-60.0, 60.0, (n - len(near), 3)), near])
+    pts[rng.integers(0, n, n // 64)] = np.round(rng.uniform(-30.0, 30.0, (n // 64, 3)), 1)  # on faces
+    return np.concatenate([pts, rng.uniform(0.0, 1.0, (n, 1))], axis=1).astype(np.float32)[rng.permutation(n)]
+
+
+def sort_cases(seed: int = SEED):
+    """K1's edge cases as numpy arrays: (name, points (n, 4) xyz and
+    intensity, mask (n,), resolution, out_cap, method). Every lane masked;
+    one 0.1 m voxel holding all 131072 points (a single run whose sum order
+    matters; the key has no bit, the sort one pass); coordinates over the
+    whole `_pack_yz` clip range and both signs of kx (every digit of a
+    ~61-bit key moves, 8 passes), with masked lanes holding NaN and
+    unmasked lanes at kx >= 2^30, which the twin's key counts as masked;
+    out_cap below the number of runs; APPROX_VOXELGRID; out_cap above the
+    lane count; a few lanes past a tile (1025)."""
+    rng = np.random.default_rng(seed)
+    n = SORT_LANES
+    out = [("every lane masked", _voxel_scene(rng, n), np.zeros(n, bool), 0.1, n, "VOXELGRID")]
+    one = np.empty((n, 4), np.float32)
+    one[:, :3] = rng.uniform(0.005, 0.095, (n, 3)) + np.array([12.3, -4.5, 0.7])
+    one[:, 3] = rng.uniform(0.0, 1.0, n)
+    out.append(("one voxel holding every point", one, np.ones(n, bool), 0.1, 8, "VOXELGRID"))
+    bases = np.stack([rng.uniform(-1.0e8, 1.0e8, n // 8), rng.uniform(-3000.0, 3000.0, n // 8),
+                      rng.uniform(-3000.0, 3000.0, n // 8)], axis=1)
+    wide = np.repeat(bases, 8, axis=0) + rng.normal(0.0, 0.01, (n, 3))
+    wide[: n // 256, 0] = rng.uniform(1.08e8, 2.0e8, n // 256)  # kx past 2^30
+    wide = np.concatenate([wide, rng.uniform(0.0, 1.0, (n, 1))], axis=1).astype(np.float32)[rng.permutation(n)]
+    mask = rng.random(n) >= 0.1
+    wide[~mask, :3] = np.nan
+    out.append(("clip range, both signs of kx", wide, mask, 0.1, n, "VOXELGRID"))
+    scene = _voxel_scene(rng, n)
+    out.append(("out_cap below the runs", scene, rng.random(n) >= 0.05, 0.1, 4096, "VOXELGRID"))
+    out.append(("APPROX_VOXELGRID", scene, rng.random(n) >= 0.05, 0.1, n, "APPROX_VOXELGRID"))
+    out.append(("out_cap above the lanes", _voxel_scene(rng, 16384), np.ones(16384, bool), 0.1, 32768,
+                "VOXELGRID"))
+    out.append(("1025 lanes", _voxel_scene(rng, 1025), np.ones(1025, bool), 0.05, 1025, "APPROX_VOXELGRID"))
+    assert tuple(name for name, *_ in out) == SORT_CASE_NAMES
+    return out
+
+
+def identical_clouds(torch, a, b) -> bool:
+    """Masks equal and every float bit equal (both on the CPU)."""
+    return torch.equal(a.mask, b.mask) and all(torch.equal(x.view(torch.int32), y.view(torch.int32))
+                                               for x, y in ((a.xyz, b.xyz), (a.intensity, b.intensity)))
+
+
+def check_sort_cases(torch, dev):
+    """K1 against its twin run on a CPU copy, bit for bit, on every case of
+    `sort_cases`, one launch each; returns the number of cases."""
+    from lv_slam_tpu_torch.core.cloud import PointCloud
+    from lv_slam_tpu_torch.kernels import KERNELS
+    from lv_slam_tpu_torch.ops import prefilter
+
+    cases = sort_cases()
+    for name, pts, mask, res, out_cap, method in cases:
+        cpu = PointCloud(torch.from_numpy(pts[:, :3].copy()), torch.from_numpy(pts[:, 3].copy()),
+                         torch.from_numpy(mask))
+        card = PointCloud(cpu.xyz.to(dev), cpu.intensity.to(dev), cpu.mask.to(dev))
+        before = KERNELS["voxel_downsample"].launches
+        got = prefilter.voxel_downsample(card, res, out_cap, method)
+        torch.cuda.synchronize()
+        if KERNELS["voxel_downsample"].launches != before + 1:
+            raise AssertionError(f"voxel_downsample ({name}): not one launch")
+        got = PointCloud(got.xyz.cpu(), got.intensity.cpu(), got.mask.cpu())
+        want = prefilter.voxel_downsample_ref(cpu, res, out_cap, method)
+        if not identical_clouds(torch, got, want):
+            raise AssertionError(f"voxel_downsample ({name}): {int(got.mask.sum())} voxels against the CPU "
+                                 f"twin's {int(want.mask.sum())}, not bit-identical")
+    return len(cases)
+
+
 def check_kernels(torch, scans, gt, dev):
     """Phase 2a: the odometry's kernels vs their plain versions at main-path shapes."""
     from lv_slam_tpu_torch import kitti_flagship_config
@@ -473,12 +593,28 @@ def check_kernels(torch, scans, gt, dev):
     err = max(float((got.xyz - want.xyz).abs().max()), float((got.intensity - want.intensity).abs().max()))
     if err > 1e-5:
         raise AssertionError(f"voxel_downsample: max abs err {err} > 1e-5")
+    # the card's twin sums with atomics; on the CPU it sums in lane order, as the kernel does
+    if not identical_clouds(torch, on_cpu(got), prefilter.voxel_downsample_ref(on_cpu(band), pf.downsample_resolution,
+                                                                                pf.out_cap)):
+        raise AssertionError("voxel_downsample: not bit-identical to the plain version run on a CPU copy")
+    syncs = count_syncs(torch, k1)
+    glue, n_launches = foreign_functions(torch, k1, DEVICE_FUNCTIONS["voxel_downsample"])
+    if syncs or glue:
+        raise AssertionError(f"voxel_downsample: {syncs} synchronizing calls, device work besides its own: {glue}")
+    n_cases = check_sort_cases(torch, dev)
     log(f"  voxel_downsample: {int(got.mask.sum())} voxels of {int(band.mask.sum())} returns, "
-        f"mask and lane order identical, max abs err {err:.3g} (tol 1e-5)")
+        f"mask and lane order identical, max abs err {err:.3g} against the card's twin (tol 1e-5), bit-identical "
+        f"to the twin on a CPU copy; {n_launches} launches of its own, no other device work, no synchronizing "
+        f"call; the {n_cases} sort_cases bit-identical to the CPU twin, one launch each")
     n_in, n_vox = int(band.mask.sum()), int(got.mask.sum())
     measure(torch, records, "voxel_downsample", k1, p1, err,
             nbytes(band.xyz, band.intensity, band.mask, got.xyz, got.intensity, got.mask),
             4 * n_in + 4 * n_vox)  # 4 adds per point, 4 divisions per voxel
+    # the glue the kernel's own sort replaced: torch.sort of the twin's int64 key over the same lanes
+    key, _ = prefilter._voxel_key(band, pf.downsample_resolution)
+    _, sort_ms, _ = device_ms(torch, lambda: torch.sort(key, stable=True))
+    records["voxel_downsample"]["torch_sort_ms"] = sort_ms
+    log(f"    torch.sort(stable=True) of the twin's {key.numel()} int64 keys: {sort_ms:.4f} ms device-only")
 
     # kernel 2: 65536 scan-matching lanes -> 32768 weighted leaves
     filtered = prefilter.stride_subsample(got, cfg.odometry.scan_matching_cap)
@@ -555,6 +691,99 @@ def check_kernels(torch, scans, gt, dev):
     return records
 
 
+def _ring_points(ranges: np.ndarray, min_elev_deg: float, max_elev_deg: float) -> np.ndarray:
+    """Points at the centers of a (rings, 1800) range image's cells (NaN
+    range: no return), as K8 projects them."""
+    rings, n_az = ranges.shape
+    elev = np.deg2rad(max_elev_deg - np.arange(rings) * (max_elev_deg - min_elev_deg) / (rings - 1))[:, None]
+    azim = (np.arange(n_az) + 0.5) * (2.0 * np.pi / n_az) - np.pi
+    pts = np.stack(np.broadcast_arrays(np.cos(elev) * np.cos(azim), np.cos(elev) * np.sin(azim), np.sin(elev)),
+                   axis=-1) * ranges[..., None]
+    return pts.reshape(-1, 3)[np.isfinite(ranges).reshape(-1)]
+
+
+def _room(rng, rings: int, min_elev_deg: float, max_elev_deg: float) -> np.ndarray:
+    """A dense scan of every cell: walls whose range steps every 45 columns
+    (edges), smooth stretches between (surfs), 1 cm of noise."""
+    az = np.arange(1800)
+    wall = 12.0 + 4.0 * np.sin(az * (2.0 * np.pi / 1800.0) * 3.0) + 1.5 * ((az // 45) % 3)
+    ranges = np.repeat(wall[None, :], rings, axis=0) + rng.normal(0.0, 0.01, (rings, 1800))
+    return _ring_points(ranges, min_elev_deg, max_elev_deg)
+
+
+def _line(ring_z: float, ks, bump_every: int = 0) -> np.ndarray:
+    """Points (10, k / 8, z) in one ring near the horizon: exact binary
+    coordinates, so interior curvatures tie exactly (0 on a straight line);
+    every `bump_every`-th point at x = 10.25 gives equal edge scores."""
+    x = np.full(len(ks), 10.0)
+    if bump_every:
+        x[np.arange(len(ks)) % bump_every == 0] = 10.25
+    return np.stack([x, np.asarray(ks, float) / 8.0, np.full(len(ks), ring_z)], axis=1)
+
+
+FEATURE_CAP = 1 << 17  # K8's edge cases: phase 2's lane count
+FEATURE_CASE_NAMES = ("every cell valid", "tied scores", "fewer than k good picks", "empty scan",
+                      "VLP-16, less-flat k 85")
+
+
+def feature_cases(seed: int = SEED):
+    """K8's edge cases as numpy arrays: (name, xyz (n, 3), mask (n,),
+    LfaConfig fields). A scan where every cell of every ring is valid (the
+    windows wrap around full rows); sectors with tied scores (a straight
+    line: equal surf scores; a line bumped every 6th point: equal edge
+    scores; each across a sector edge); a ring holding one 15-point line
+    (fewer than k good picks); an empty scan; VLP-16's 16 rings, where the
+    less-flat k is 85 (more than a warp's 32 picks)."""
+    rng = np.random.default_rng(seed)
+    hdl = dict(min_elev_deg=-24.8, max_elev_deg=2.0)
+    out = []
+    full = _room(rng, 64, **hdl)
+    out.append(("every cell valid", full, np.ones(len(full), bool), {}))
+    # ring 5 of 64 sits at -0.1270 degrees: z = -0.0222 at 10 m
+    ties = np.concatenate([_line(-0.0222, range(-24, 24), bump_every=6),
+                           _line(-0.0222 - 10.0 * np.tan(np.deg2rad(2 * 26.8 / 63)), range(-30, 30))])
+    out.append(("tied scores", ties, np.ones(len(ties), bool), {}))
+    few = _line(-0.0222, range(-7, 8))
+    out.append(("fewer than k good picks", few, np.ones(len(few), bool), {}))
+    out.append(("empty scan", full, np.zeros(len(full), bool), {}))
+    vlp = dict(min_elev_deg=-15.0, max_elev_deg=15.0)
+    room16 = _room(rng, 16, **vlp)
+    out.append(("VLP-16, less-flat k 85", room16, np.ones(len(room16), bool),
+                dict(scan_line=16, minimum_range=0.3, **vlp)))
+    assert tuple(name for name, *_ in out) == FEATURE_CASE_NAMES
+    return [(name, xyz.astype(np.float32), mask, kw) for name, xyz, mask, kw in out]
+
+
+def check_feature_cases(torch, dev):
+    """K8 against its twin run on a CPU copy, bit for bit (all four clouds),
+    on every case of `feature_cases`, one launch each; returns the number of
+    cases."""
+    from lv_slam_tpu_torch import kitti_flagship_config
+    from lv_slam_tpu_torch.core.cloud import PointCloud
+    from lv_slam_tpu_torch.kernels import KERNELS
+    from lv_slam_tpu_torch.lfa import features
+
+    cases = feature_cases()
+    for name, xyz, mask, kw in cases:
+        cfg = dataclasses.replace(kitti_flagship_config().lfa, **kw)
+        cpu = PointCloud.from_numpy(xyz, cap=FEATURE_CAP, device="cpu")
+        cpu.mask[: len(mask)] &= torch.from_numpy(mask)
+        card = PointCloud(cpu.xyz.to(dev), cpu.intensity.to(dev), cpu.mask.to(dev))
+        before = KERNELS["extract_features"].launches
+        got = features.extract_features(card, cfg)
+        torch.cuda.synchronize()
+        if KERNELS["extract_features"].launches != before + 1:
+            raise AssertionError(f"extract_features ({name}): not one launch")
+        want = features.extract_features_ref(cpu, cfg)
+        for field, a, b in zip(features.FeatureClouds._fields, got, want):
+            a = a.cpu()
+            if a.dtype == torch.float32:
+                a, b = a.view(torch.int32), b.view(torch.int32)
+            if not torch.equal(a, b):
+                raise AssertionError(f"extract_features ({name}): {field} differs from the CPU twin's")
+    return len(cases)
+
+
 def check_lfa_kernels(torch, scans, gt, dev):
     """Phase 2b: the LFA's kernels vs their plain versions at main-path shapes."""
     from lv_slam_tpu_torch import kitti_flagship_config
@@ -582,9 +811,19 @@ def check_lfa_kernels(torch, scans, gt, dev):
     got, want = k8(), p8()
     if not identical(got, want):
         raise AssertionError("extract_features: feature clouds differ from the plain version")
+    if not identical([t.cpu() for t in got], features.extract_features_ref(on_cpu(raw[1]), cfg)):
+        raise AssertionError("extract_features: feature clouds differ from the plain version run on a CPU copy")
+    syncs = count_syncs(torch, k8)
+    glue, n_launches = foreign_functions(torch, k8, DEVICE_FUNCTIONS["extract_features"])
+    if syncs or glue or n_launches > 3:
+        raise AssertionError(f"extract_features: {syncs} synchronizing calls, {n_launches} launches, device work "
+                             f"besides its own: {glue}")
+    n_cases = check_feature_cases(torch, dev)
     counts = [int(m.sum()) for m in got[1::2]]
     log(f"  extract_features: sharp / less sharp / flat / less flat {counts} of lanes "
-        f"{[m.numel() for m in got[1::2]]}, masks and points bit-identical")
+        f"{[m.numel() for m in got[1::2]]}, masks and points bit-identical to the twin on the card and on a CPU "
+        f"copy; {n_launches} launches, no other device work, no synchronizing call; the {n_cases} feature_cases "
+        f"bit-identical to the CPU twin, one launch each")
     n_valid = int(raw[1].mask.sum())
     cells = cfg.scan_line * features.N_AZIMUTH
     k_ls, k_lf = features._picks(cfg)
@@ -1745,8 +1984,13 @@ def profile(torch, run, what: str, span: str = "8 scans") -> float:
         return float("nan")
     log(f"  profile of {span} ({what}): wall {wall_us / 1e3:.2f} ms unprofiled ({profiled_us / 1e3:.2f} ms "
         f"profiled), device busy {busy / 1e3:.2f} ms, idle share {1 - busy / wall_us:.3f}")
-    for t, key, count in sorted(dev_time, reverse=True)[:12]:
+    top = sorted(dev_time, reverse=True)
+    for t, key, count in top[:12]:
         log(f"    {t / 1e3:9.3f} ms  {count:6d} x  {key[:90]}")
+    # the library sorts' glue and K1's own passes, wherever they rank
+    for t, key, count in top[12:]:
+        if "RadixSort" in key or "key_sort_pass" in key:
+            log(f"    {t / 1e3:9.3f} ms  {count:6d} x  {key[:90]}")
     return 1 - busy / wall_us
 
 
@@ -2928,6 +3172,8 @@ def run_services(torch, slam, dev, card):
     err = float((got.xyz - want.xyz).abs().max())
     if not torch.equal(got.mask, want.mask) or err > 1e-5 + 1e-6 * float(want.xyz[want.mask].abs().max()):
         raise AssertionError(f"voxel_downsample at the map's shape: masks differ or error {err}")
+    if not identical_clouds(torch, on_cpu(got), prefilter.voxel_downsample_ref(on_cpu(union), 0.05, map_cap)):
+        raise AssertionError("voxel_downsample at the map's shape: not bit-identical to the twin on a CPU copy")
     map_records = {}
     n_union = int(union.mask.sum())
     # each valid point read once (12 + 4 bytes), one mask byte per lane, each
@@ -2935,7 +3181,8 @@ def run_services(torch, slam, dev, card):
     measure(torch, map_records, "voxel_downsample", k1, p1, err, 16 * n_union + union.cap + 17 * map_cap,
             8 * n_union)
     log(f"  voxel_downsample at the map's shape: {n_union} points in {union.cap} lanes -> "
-        f"{int(got.mask.sum())} voxels, identical voxels and order, centroids within {err:.3g}")
+        f"{int(got.mask.sum())} voxels, identical voxels and order, centroids within {err:.3g} of the card's twin "
+        f"and bit-identical to the twin on a CPU copy")
     backend.save_pose(str(out))
     kf_rows = kitti.read_pose_file(str(out / "ggo_kf_odom.txt")).shape[0]
     wf_rows = kitti.read_pose_file(str(out / "ggo_wf_odom.txt")).shape[0]
@@ -4236,7 +4483,8 @@ def main() -> int:
             name=name, route="cuda", source=k.source, replaces=k.replaces,
             launches=launches[name], launch_phase=launch_phase[name], **{key: records[name][key] for key in keys},
             **{extra: records[name][extra]
-               for extra in ("cholesky_ms", "with_sensor_factors", "launches_by_phase", "over_cap", "standalone")
+               for extra in ("cholesky_ms", "with_sensor_factors", "launches_by_phase", "over_cap", "standalone",
+                             "torch_sort_ms")
                if extra in records[name]},
         )
         for name, k in KERNELS.items()

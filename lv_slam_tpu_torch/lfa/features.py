@@ -31,6 +31,7 @@ _INVALID = 1 << 30
 _LANE_BITS = 17
 _EDGE_THRESH = 0.1
 _SURF_THRESH = 0.1
+_MAX_SECTOR_WIDTH = 1024  # kernel 8 sorts a sector's columns in shared memory
 
 KERNEL = Kernel(
     "extract_features",
@@ -39,7 +40,7 @@ KERNEL = Kernel(
     entries={
         "lvs_extract_features": [
             PTR, PTR, I32, I32, I32, I32, F32, F32, F32, F32, F32, F32, I32, I32, I32, I32,
-            PTR, PTR, PTR, PTR, PTR,
+            PTR, PTR,
             PTR, PTR, I32, PTR, PTR, I32, PTR, PTR, I32, PTR, PTR, I32,
         ],
     },
@@ -261,17 +262,15 @@ def extract_features(cloud: PointCloud, cfg: LfaConfig) -> FeatureClouds:
         raise ValueError(f"point capacity {n} exceeds the 17-bit winner-index pack")
     if cloud.xyz.dtype != torch.float32 or tuple(cloud.xyz.shape) != (n, 3):
         raise ValueError("extract_features: expected float32 xyz of shape (cap, 3)")
-    if cfg.scan_line * cfg.n_sectors > 1024:
-        raise ValueError("extract_features: the kernel takes at most 1024 (ring, sector) cells")
+    if not 1 <= N_AZIMUTH // cfg.n_sectors <= _MAX_SECTOR_WIDTH:
+        raise ValueError(f"extract_features: the kernel sorts sectors of 1 to {_MAX_SECTOR_WIDTH} columns, "
+                         f"not {N_AZIMUTH // cfg.n_sectors}")
     xyz, mask = cloud.xyz.contiguous(), cloud.mask.contiguous()
     check_cuda("extract_features", xyz, mask)
     dev = xyz.device
     r, s = cfg.scan_line, cfg.n_sectors
     best = torch.empty((r * N_AZIMUTH,), dtype=torch.int32, device=dev)
-    pick_e = torch.empty((r * s * k_less_sharp * 3,), dtype=torch.float32, device=dev)
-    pick_g = torch.empty((r * s * k_less_flat * 3,), dtype=torch.float32, device=dev)
-    cnt_e = torch.empty((r * s,), dtype=torch.int32, device=dev)
-    cnt_g = torch.empty((r * s,), dtype=torch.int32, device=dev)
+    status = torch.empty((1 + 4 * r * s,), dtype=torch.int32, device=dev)  # a ticket, 4 look-back words a sector
     caps = feature_caps(cfg)
     outs = []
     for cap in caps:
@@ -290,7 +289,7 @@ def extract_features(cloud: PointCloud, cfg: LfaConfig) -> FeatureClouds:
         ptr(xyz), ptr(mask), n, r, N_AZIMUTH, s, _f32(cfg.minimum_range), _f32(cfg.max_elev_deg),
         ring_scale, col_scale, rad2deg, pi, k_less_sharp, k_less_flat,
         cfg.sharp_per_sector, cfg.flat_per_sector,
-        ptr(best), ptr(pick_e), ptr(cnt_e), ptr(pick_g), ptr(cnt_g), *clouds,
+        ptr(best), ptr(status), *clouds,
     )
     KERNEL.launches += 1
     return FeatureClouds(*outs)

@@ -2,10 +2,12 @@
 downsampling, lane subsampling and the `prefilter` chain with its outlier
 removals (port of `lv_slam_tpu.ops.prefilter`).
 
-`voxel_downsample` is kernel 1 (`csrc/voxel_downsample.cu`) on CUDA tensors
-and `voxel_downsample_ref`, its plain twin, on CPU tensors. Both sort the
-same 64-bit voxel key with `torch.sort`; the hand kernel does everything
-after the sort: run detection and the per-voxel reduction.
+`voxel_downsample` is kernel 1 (`csrc/voxel_downsample.cu`, with the key
+sort of `csrc/key_sort.cuh`) on CUDA tensors and `voxel_downsample_ref`, its
+plain twin, on CPU tensors. The twin sorts the 64-bit voxel key with
+`torch.sort`; the hand kernel sorts a key rebased into the fewest bits with
+its own radix passes and reduces the runs, with no torch op between its
+launches.
 `voxel_dedup_first` is kernel 1b (`csrc/voxel_dedup.cu`) and
 `voxel_dedup_first_ref` likewise: the same key and sort, then the first lane
 of each voxel, compacted in key order. `vertical_angle_calibration` is
@@ -15,6 +17,8 @@ likewise. The outlier removals are `ops.nn`'s kernel 18.
 
 from __future__ import annotations
 
+import ctypes
+import functools
 from typing import Tuple
 
 import numpy as np
@@ -22,7 +26,7 @@ import torch
 
 from lv_slam_tpu_torch.config import PrefilterConfig
 from lv_slam_tpu_torch.core.cloud import SENTINEL, PointCloud
-from lv_slam_tpu_torch.kernels._build import F32, I32, PTR, Kernel, check_cuda, ptr
+from lv_slam_tpu_torch.kernels._build import F32, I32, LIBRARY, PTR, Kernel, check_cuda, ptr
 from lv_slam_tpu_torch.ops import nn
 from lv_slam_tpu_torch.ops.cells import cell_coords, inv_resolution
 from lv_slam_tpu_torch.ops.linalg3 import dot3_fma, fma32, sqrt32
@@ -36,10 +40,10 @@ KERNEL = Kernel(
     source="lv_slam_tpu_torch/csrc/voxel_downsample.cu",
     replaces="lv_slam_tpu/ops/prefilter.py:74",
     entries={
-        "lvs_voxel_mark_runs": [PTR, I32, PTR],
-        "lvs_voxel_reduce_runs": [PTR, PTR, PTR, PTR, I32, PTR, PTR, F32, I32, I32, PTR, PTR, PTR],
+        "lvs_voxel_downsample": [PTR, PTR, PTR, I32, F32, F32, I32, I32, PTR, ctypes.c_longlong, PTR, PTR, PTR],
     },
 )
+_MAX_LANES = (1 << 27) - 1  # the sort's tile status words count below 2^27
 
 
 CALIBRATION_KERNEL = Kernel(
@@ -122,16 +126,21 @@ def _unpack_yz(kyz: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     return kyz // (1 << 15) - _YZ_OFF, kyz % (1 << 15) - _YZ_OFF
 
 
-def _voxel_sort(cloud: PointCloud, resolution: float):
-    """Sort lanes by voxel key: returns (sorted int64 keys, permutation,
-    masked xyz). The key `kx * 2^31 + kyz` orders lanes exactly as the
-    reference's two-key sort on (kx, packed kyz); invalid lanes carry
-    kx = 2^30 and sort behind every voxel."""
+def _voxel_key(cloud: PointCloud, resolution: float):
+    """(int64 voxel key, masked xyz). The key `kx * 2^31 + kyz` orders lanes
+    exactly as the reference's two-key sort on (kx, packed kyz); invalid
+    lanes carry kx = 2^30 and sort behind every voxel."""
     xyz = cloud.masked_xyz()
     coords = cell_coords(xyz, resolution)
     kx = torch.where(cloud.mask, coords[:, 0], _BIG)
     kyz = _pack_yz(coords[:, 1], coords[:, 2])
-    key = kx.to(torch.int64) * (1 << 31) + kyz.to(torch.int64)
+    return kx.to(torch.int64) * (1 << 31) + kyz.to(torch.int64), xyz
+
+
+def _voxel_sort(cloud: PointCloud, resolution: float):
+    """Sort lanes by voxel key: returns (sorted int64 keys, permutation,
+    masked xyz)."""
+    key, xyz = _voxel_key(cloud, resolution)
     skey, order = torch.sort(key, stable=True)
     return skey, order, xyz
 
@@ -166,19 +175,40 @@ def voxel_downsample(
         return voxel_downsample_ref(cloud, resolution, out_cap, method)
     if cloud.xyz.dtype != torch.float32 or cloud.intensity.dtype != torch.float32:
         raise ValueError("voxel_downsample: expected float32 xyz and intensity")
-    skey, order, xyz = _voxel_sort(cloud, resolution)
-    check_cuda("voxel_downsample", skey, order, xyz, cloud.intensity)
-    out = reduce_runs(KERNEL, skey, order, xyz, cloud.intensity, resolution, approx, out_cap)
+    n = cloud.cap
+    if n > _MAX_LANES:
+        raise ValueError(f"voxel_downsample: {n} lanes exceed the key sort's {_MAX_LANES}")
+    xyz, inten, mask = cloud.xyz.contiguous(), cloud.intensity.contiguous(), cloud.mask.contiguous()
+    check_cuda("voxel_downsample", xyz, inten, mask)
+    dev = xyz.device
+    scratch = torch.empty((_scratch_bytes(n),), dtype=torch.uint8, device=dev)
+    out_xyz = torch.empty((out_cap, 3), dtype=torch.float32, device=dev)
+    out_int = torch.empty((out_cap,), dtype=torch.float32, device=dev)
+    out_mask = torch.empty((out_cap,), dtype=torch.bool, device=dev)
+    KERNEL.call(
+        "lvs_voxel_downsample", ptr(xyz), ptr(inten), ptr(mask), n, inv_resolution(resolution),
+        float(np.float32(resolution)), int(approx), out_cap, ptr(scratch), scratch.numel(),
+        ptr(out_xyz), ptr(out_int), ptr(out_mask),
+    )
     KERNEL.launches += 1
-    return out
+    return PointCloud(out_xyz, out_int, out_mask)
+
+
+@functools.lru_cache(maxsize=64)
+def _scratch_bytes(n: int) -> int:
+    """Bytes of kernel 1's scratch for `n` lanes (the C side's layout)."""
+    fn = LIBRARY.load().lvs_voxel_scratch_bytes
+    fn.argtypes, fn.restype = [ctypes.c_int], ctypes.c_longlong
+    return int(fn(n))
 
 
 def reduce_runs(kernel: Kernel, skey: torch.Tensor, order: torch.Tensor, xyz: torch.Tensor, inten: torch.Tensor,
-                resolution: float, approx: bool, out_cap: int) -> PointCloud:
-    """Kernel 1's part after the key sort (`csrc/voxel_downsample.cu`): run
-    starts, their prefix sum (torch glue) and one centroid (or cell center)
-    per run into `out_cap` lanes in key order, launched for `kernel` (K1, or
-    K2r after its gather + band + transform pass)."""
+                out_cap: int) -> PointCloud:
+    """The centroid reduction after a torch.sort of int64 voxel keys
+    (`csrc/voxel_downsample.cu` `mark_runs` / `reduce_runs`): run starts,
+    their prefix sum (torch glue) and one centroid per run into `out_cap`
+    lanes in key order, launched for `kernel` (K2r, after its gather + band
+    + transform pass)."""
     n = skey.shape[0]
     dev = skey.device
     flag = torch.empty((n,), dtype=torch.int32, device=dev)
@@ -189,8 +219,7 @@ def reduce_runs(kernel: Kernel, skey: torch.Tensor, order: torch.Tensor, xyz: to
     cum = torch.cumsum(flag, dim=0, dtype=torch.int32)  # run index + 1 at each run start
     kernel.call(
         "lvs_voxel_reduce_runs",
-        ptr(skey), ptr(order), ptr(flag), ptr(cum), n, ptr(xyz), ptr(inten),
-        float(np.float32(resolution)), int(approx), out_cap,
+        ptr(skey), ptr(order), ptr(flag), ptr(cum), n, ptr(xyz), ptr(inten), out_cap,
         ptr(out_xyz), ptr(out_int), ptr(out_mask),
     )
     return PointCloud(out_xyz, out_int, out_mask)

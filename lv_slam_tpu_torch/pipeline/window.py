@@ -52,7 +52,7 @@ RAW_KERNEL = Kernel(
     entries={
         "lvs_window_raw_keys": [PTR, PTR, PTR, I32, I32, I32, I32, PTR, PTR, F32, F32, F32, PTR, PTR, PTR],
         "lvs_voxel_mark_runs": [PTR, I32, PTR],
-        "lvs_voxel_reduce_runs": [PTR, PTR, PTR, PTR, I32, PTR, PTR, F32, I32, I32, PTR, PTR, PTR],
+        "lvs_voxel_reduce_runs": [PTR, PTR, PTR, PTR, I32, PTR, PTR, I32, PTR, PTR, PTR],
     },
 )
 
@@ -94,7 +94,7 @@ def window_group(
         ptr(rels), ptr(valid), float(near), float(far), inv_resolution(resolution), ptr(xyz), ptr(inten), ptr(key),
     )
     skey, order = torch.sort(key, stable=True)
-    out = reduce_runs(RAW_KERNEL, skey, order, xyz, inten, resolution, False, out_cap)
+    out = reduce_runs(RAW_KERNEL, skey, order, xyz, inten, out_cap)
     RAW_KERNEL.launches += 1
     return out
 

@@ -662,6 +662,60 @@ def test_match_scores_edge_cases_on_the_card(cuda):
 
 
 @pytest.mark.gpu
+def test_voxel_downsample_edge_cases_on_the_card(cuda):
+    """K1 bit for bit against its twin run on a CPU copy (the card's twin
+    sums with atomics), one launch a call, on chip_smoke's sort_cases:
+    every lane masked, one voxel holding 131072 points, the whole clip range
+    with both signs of kx (8 digit passes) and NaN in masked lanes, out_cap
+    below the runs and above the lanes, APPROX_VOXELGRID, 1025 lanes."""
+    cs = _chip_smoke()
+    assert cs.check_sort_cases(torch, cuda) == len(cs.SORT_CASE_NAMES)
+
+
+@pytest.mark.gpu
+def test_extract_features_edge_cases_on_the_card(cuda):
+    """K8 bit for bit against its twin run on a CPU copy, one launch a call,
+    on chip_smoke's feature_cases: every cell valid, tied scores, fewer than
+    k good picks, an empty scan, VLP-16's less-flat k of 85."""
+    cs = _chip_smoke()
+    assert cs.check_feature_cases(torch, cuda) == len(cs.FEATURE_CASE_NAMES)
+
+
+@pytest.mark.gpu
+def test_voxel_downsample_at_the_map_shape_on_the_card(cuda):
+    """K1 at generate_map_cloud's shape (2.49 M points in 2^22 lanes at
+    0.05 m into 2^20 rows: 4096 tiles a pass), bit for bit against its twin
+    on a CPU copy; the voxels fill part of the rows, the rest is padding."""
+    rng = np.random.default_rng(3)
+    centers = np.repeat(rng.uniform(-80.0, 80.0, (311250, 3)) * np.array([1.0, 1.0, 0.05]), 8, axis=0)
+    pts = np.concatenate([centers + rng.normal(0.0, 0.01, centers.shape), rng.uniform(0.0, 1.0, (len(centers), 1))],
+                         axis=1)
+    union = PointCloud.from_numpy(pts, cap=1 << 22, device=cuda)
+    got = prefilter.voxel_downsample(union, 0.05, 1 << 20)
+    want = prefilter.voxel_downsample_ref(PointCloud(union.xyz.cpu(), union.intensity.cpu(), union.mask.cpu()),
+                                          0.05, 1 << 20)
+    n_voxels = int(want.mask.sum())
+    assert 311250 < n_voxels < 1 << 20
+    assert torch.equal(got.mask.cpu(), want.mask)
+    assert torch.equal(got.xyz.cpu().view(torch.int32), want.xyz.view(torch.int32))
+    assert torch.equal(got.intensity.cpu().view(torch.int32), want.intensity.view(torch.int32))
+
+
+@pytest.mark.gpu
+def test_voxel_downsample_and_features_read_nothing_on_the_card(cuda, scans):
+    """K1 and K8 make no synchronizing call: the pass count, the valid
+    count and the picks' offsets stay on the card."""
+    (s0, _), _ = scans
+    raw = PointCloud.from_numpy(s0, cap=16384, device=cuda)
+    cloud = prefilter.distance_filter(raw, 0.5, 100.0)
+    for fn in (lambda: prefilter.voxel_downsample(cloud, 0.1, 16384), lambda: features.extract_features(raw, LFA)):
+        fn()
+        torch.cuda.synchronize()
+        _, syncs = _count_syncs(fn)
+        assert syncs == 0
+
+
+@pytest.mark.gpu
 def test_standalone_lfa_kernels_match_plain_versions_on_the_card(cuda, scans):
     reset_launches()
     results = {name: (got, want) for name, got, want in _standalone_calls(cuda, scans)}

@@ -13,6 +13,8 @@ most 2 lanes; one-ulp perturbations of the reference move 131 less-sharp,
 10 flat and 948 less-flat lanes by more than 1e-4 m).
 """
 
+import dataclasses
+
 import numpy as np
 import pytest
 
@@ -30,6 +32,7 @@ from lv_slam_tpu_torch.core.cloud import PointCloud as TCloud  # noqa: E402
 from lv_slam_tpu_torch.lfa import features as tf  # noqa: E402
 
 CAP = 32768
+JLFA_FIELDS = {f.name for f in dataclasses.fields(JLfa)}
 KW = dict(scan_line=32, edge_cap=2048, planar_cap=4096, map_edge_cap=8192, map_planar_cap=16384)
 CURV_RTOL = 2e-3
 MAX_REORDERED = 4
@@ -95,6 +98,68 @@ def test_features_match(clouds, jax_features):
             for p in pts_t[differ]:  # every other pick is a return of the scan
                 assert (t.xyz.numpy() == p).all(axis=1).any(), name
         assert got[1].sum() > 20 and got[5].sum() > 100  # real sharp edges and flat surfs
+
+
+def _chip_smoke():
+    """chip_smoke.py as a module (it imports numpy only at the top): the
+    edge cases that the card's checks run."""
+    import importlib.util
+    from pathlib import Path
+
+    spec = importlib.util.spec_from_file_location("_chip_smoke", Path(__file__).resolve().parents[1] / "chip_smoke.py")
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+CHIP_SMOKE = _chip_smoke()
+
+
+@pytest.fixture(scope="module")
+def feature_cases():
+    return {name: case for name, *case in CHIP_SMOKE.feature_cases()}
+
+
+@pytest.mark.parametrize("name", CHIP_SMOKE.FEATURE_CASE_NAMES)
+def test_feature_edge_cases(feature_cases, name):
+    """Kernel 8's edge cases (`chip_smoke.feature_cases`, which the card
+    holds the kernel to bit for bit against this twin) against JAX: masks
+    identical; the tied, sparse and empty cases exact (binary coordinates,
+    measured); in the two dense scans (every cell valid, 1 cm of range
+    noise) hundreds of surf curvatures per sector lie within rounding of one
+    another, so a lane of a cloud may hold another return of the scan where
+    the reference itself moves that many lanes under a one-ulp perturbation
+    of its input (at least MAX_REORDERED)."""
+    from lv_slam_tpu_torch import kitti_flagship_config
+
+    xyz, mask, kw = feature_cases[name]
+    cfg = dataclasses.replace(kitti_flagship_config().lfa, **kw)
+    jcfg = JLfa(**{f.name: getattr(cfg, f.name) for f in dataclasses.fields(cfg) if f.name in JLFA_FIELDS})
+    t = TCloud.from_numpy(xyz, cap=CHIP_SMOKE.FEATURE_CAP, device="cpu")
+    t.mask[: len(mask)] &= torch.from_numpy(mask)
+    got = [a.numpy() for a in tf.extract_features(t, cfg)]
+    ext = jax.jit(lambda c: jf.extract_features(c, jcfg))
+    want = [np.asarray(a) for a in ext(JCloud(t.xyz.numpy(), t.intensity.numpy(), t.mask.numpy()))]
+    assert [a.shape for a in got] == [a.shape for a in want]
+    exact = name in ("tied scores", "fewer than k good picks", "empty scan")
+    if not exact:
+        nudged = np.nextafter(t.xyz.numpy(), np.float32(np.inf))
+        spread = [np.asarray(a) for a in ext(JCloud(nudged, t.intensity.numpy(), t.mask.numpy()))]
+    for k, field in enumerate(tf.FeatureClouds._fields[::2]):
+        np.testing.assert_array_equal(got[2 * k + 1], want[2 * k + 1], err_msg=field)
+        differ = (got[2 * k] != want[2 * k]).any(axis=1)
+        allowed = 0 if exact else max(MAX_REORDERED, int((np.abs(spread[2 * k] - want[2 * k]) > 1e-4).any(axis=1).sum()))
+        print(f"{name} {field}: {int(differ.sum())} lanes differ (allowed {allowed})")
+        assert int(differ.sum()) <= allowed, (field, int(differ.sum()), allowed)
+        for p in got[2 * k][differ]:  # every other pick is a return of the scan
+            assert (t.xyz.numpy() == p).all(axis=1).any(), field
+    counts = [int(m.sum()) for m in got[1::2]]
+    if name == "empty scan":
+        assert counts == [0, 0, 0, 0]
+    if name == "fewer than k good picks":
+        assert 0 < counts[3] < cfg.less_sharp_per_sector
+    if name == "VLP-16, less-flat k 85":
+        assert counts[3] > 32 * cfg.scan_line * cfg.n_sectors  # more than a warp's picks per sector
 
 
 def test_sector_topk_breaks_ties_by_column():

@@ -245,3 +245,45 @@ def test_prefilter_unported_branches_raise():
     scan = tpf.prefilter(cloud, tc.PrefilterConfig(raw_cap=1024, out_cap=1024, voxel_reduce="scan"))
     scatter = tpf.prefilter(cloud, tc.PrefilterConfig(raw_cap=1024, out_cap=1024))
     assert torch.equal(scan.xyz, scatter.xyz)
+
+
+def _chip_smoke():
+    """chip_smoke.py as a module (it imports numpy only at the top): the
+    edge cases that the card's checks run."""
+    import importlib.util
+    from pathlib import Path
+
+    spec = importlib.util.spec_from_file_location("_chip_smoke", Path(__file__).resolve().parents[1] / "chip_smoke.py")
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+CHIP_SMOKE = _chip_smoke()
+
+
+@pytest.fixture(scope="module")
+def sort_cases():
+    return {name: case for name, *case in CHIP_SMOKE.sort_cases()}
+
+
+@pytest.mark.parametrize("name", CHIP_SMOKE.SORT_CASE_NAMES)
+def test_voxel_downsample_edge_cases(sort_cases, name):
+    """Kernel 1's edge cases (`chip_smoke.sort_cases`, which the card holds
+    the kernel to bit for bit against this twin): the twin equals JAX bit
+    for bit (measured on every case), masked lanes holding NaN and
+    unmasked lanes at kx >= 2^30 included."""
+    pts, mask, res, out_cap, method = sort_cases[name]
+    t_in = TCloud(torch.from_numpy(pts[:, :3].copy()), torch.from_numpy(pts[:, 3].copy()), torch.from_numpy(mask))
+    want = jax.jit(functools.partial(jpf.voxel_downsample, resolution=res, out_cap=out_cap, method=method))(
+        JCloud(pts[:, :3], pts[:, 3], mask))
+    got = tpf.voxel_downsample(t_in, res, out_cap, method)
+    assert got.cap == out_cap
+    np.testing.assert_array_equal(got.mask.numpy(), np.asarray(want.mask))
+    np.testing.assert_array_equal(got.xyz.numpy().view(np.int32), np.asarray(want.xyz).view(np.int32))
+    np.testing.assert_array_equal(got.intensity.numpy().view(np.int32), np.asarray(want.intensity).view(np.int32))
+    n_voxels = int(got.mask.sum())
+    assert got.mask[:n_voxels].all()  # front-compacted
+    expected = {"every lane masked": 0, "one voxel holding every point": 1, "out_cap below the runs": out_cap}
+    if name in expected:
+        assert n_voxels == expected[name]
