@@ -17,7 +17,10 @@ Phases, each of which raises on failure:
    grids, under `standalone`). K1 and K8 are also held bit for bit to
    their twins run on a CPU copy, on their edge cases (`sort_cases`,
    `feature_cases`), with no synchronizing call and no device work but
-   their own; `torch.sort` of K1's keys is timed beside K1. Masks,
+   their own; `torch.sort` of K1's keys is timed beside K1. K10's fits
+   are held to the twin on a CPU copy too (decisions identical, the lines'
+   means bit-identical) there and on their edge cases (`fit_cases`), one
+   launch each and no synchronizing call. Masks,
    picks and tables must be identical; fitted floats and the GN pose agree
    to the stated tolerances. Each kernel's time is device-only, the median
    over the whole calls among 20 in a torch.profiler trace, each call
@@ -54,7 +57,8 @@ Phases, each of which raises on failure:
    number the reference record's 19; the final graph re-solved by the plain
    path on the CPU must agree to 1e-4. A warm pass is timed, host syncs are
    counted on the synchronous backend, and the device's idle share and peak
-   memory are measured.
+   memory are measured; the profile lists every hand kernel of `csrc/`
+   wherever it ranks, with its launches and ms per launch.
 6. The full main path as the reference benchmark runs it, with the camera:
    the same 170 scans and chain, each chunk's camera images (the circle's
    `render_camera_image(world, gt[i], seed=5)`, `bench.py:183-186`) uploaded
@@ -784,6 +788,140 @@ def check_feature_cases(torch, dev):
     return len(cases)
 
 
+FIT_CELL = 2.0  # the flagship's cell-table cell (lfa/odometry.py _GRID_CELL)
+FIT_CASE_NAMES = ("every query masked", "one bucket", "dense cluster, 48 candidates", "d^2 exactly 1",
+                  "k - 1 and k participants", "q = 1", "q = 1025", "q = 0", "S = 1", "S = 32")
+
+
+def fit_table(pts: np.ndarray, n_buckets: int, slots: int, cell: float = FIT_CELL) -> np.ndarray:
+    """(n_buckets, slots * 4) cell table of the float32 points in order: each
+    point in the first free slot of its cell's bucket (the cell floor(p /
+    cell), hashed as kernel 10 probes it), dropped when the bucket is full."""
+    table = np.zeros((n_buckets, slots, 4), np.float32)
+    filled = np.zeros(n_buckets, np.int64)
+    c = np.floor(pts / np.float32(cell)).astype(np.int64)
+    h = ((c[:, 0] * 73856093) ^ (c[:, 1] * 19349669) ^ (c[:, 2] * 83492791)) & 0xFFFFFFFF
+    for p, b in zip(pts, h % n_buckets):
+        if filled[b] < slots:
+            table[b, filled[b]] = (*p, 1.0)
+            filled[b] += 1
+    return table.reshape(n_buckets, slots * 4)
+
+
+def _strip(rng, center, n: int, half=(0.9, 0.3, 0.01)) -> np.ndarray:
+    """n points of a flat strip around `center`: long in x, narrow in y,
+    thin in z, so both fits accept them (a line along x, a plane normal to z)."""
+    return (np.asarray(center) + rng.uniform(-1.0, 1.0, (n, 3)) * np.asarray(half)).astype(np.float32)
+
+
+def _octants(rng, n: int) -> np.ndarray:
+    """n points in each of the 8 cells around (2, 2, 2) (cell 2.0), all
+    within 0.91 m of it, a strip long in x, narrow in y, thin in z."""
+    out = []
+    for o in range(8):
+        sign = np.array([1.0 if (o >> (2 - a)) & 1 else -1.0 for a in range(3)])
+        mag = np.stack([rng.uniform(0.3, 0.85, n), rng.uniform(0.05, 0.3, n), rng.uniform(0.002, 0.01, n)], axis=1)
+        out.append(2.0 + sign * mag)
+    return np.concatenate(out).astype(np.float32)
+
+
+def fit_cases(seed: int = SEED):
+    """Kernel 10's edge cases as numpy arrays: (name, table (B, S * 4),
+    queries (q, 3), mask (q,), k), each run by `lines_from_fit` and
+    `planes_from_fit` on cell tables of cell FIT_CELL. Every query masked
+    out, with sentinel (1e6) and NaN queries; one bucket, so the 8 probes
+    of a query hit it and only probe 0 reads it (k 6: its 6 slots); a dense
+    cluster whose 48 candidates all take part (k 48); a candidate at a
+    float32 d^2 of exactly 1 (out) beside one at 1 - 2^-23 (in) and 5
+    others (k 6); queries with exactly k - 1 and k participants and
+    points just past 1 m in their probes; one query; 1025 queries on a
+    map of a floor, a wall and upright boards; no query; one slot; 32 slots (256
+    candidates, slots past the registers read again)."""
+    rng = np.random.default_rng(seed)
+    out = []
+    strips = np.concatenate([_strip(rng, rng.uniform(-8.0, 8.0, 3), 30) for _ in range(12)])
+    near = strips[rng.integers(0, len(strips), 24)] + rng.normal(0.0, 0.05, (24, 3)).astype(np.float32)
+    queries = np.concatenate([near, np.full((8, 3), 1.0e6, np.float32), np.full((8, 3), np.nan, np.float32)])
+    out.append(("every query masked", fit_table(strips, 4096, 6), queries, np.zeros(len(queries), bool), 5))
+    row = _strip(rng, (0.5, 0.5, 0.5), 6, half=(0.45, 0.15, 0.005))
+    queries = row[:3] + np.float32(0.01)
+    out.append(("one bucket", fit_table(row, 1, 6), queries, np.ones(3, bool), 6))
+    dense = _octants(rng, 6)
+    at_dense = (2.0 + rng.uniform(-0.05, 0.05, (4, 3))).astype(np.float32)
+    out.append(("dense cluster, 48 candidates", fit_table(dense, 4096, 6), at_dense, np.ones(4, bool), 48))
+    gate = np.array([[-0.5, 0.1, 0.0], [-0.25, -0.1, 0.0], [0.25, 0.12, 0.0], [0.5, -0.08, 0.0], [-0.75, 0.05, 0.0],
+                     [1.0, 0.0, 0.0], [np.nextafter(np.float32(-1.0), np.float32(0.0)), 0.0, 0.0]], np.float32)
+    out.append(("d^2 exactly 1", fit_table(gate, 4096, 6), np.zeros((1, 3), np.float32), np.ones(1, bool), 6))
+    a, b = np.float32([10.0, 10.0, 10.0]), np.float32([-10.0, 10.0, 10.0])
+    beyond = np.array([[1.5, 0.0, 0.0], [0.0, 1.2, 0.3], [-1.1, -0.4, 0.0]], np.float32)
+    pts = np.concatenate([_strip(rng, a, 5, half=(0.6, 0.2, 0.005)), a + beyond,
+                          _strip(rng, b, 4, half=(0.6, 0.2, 0.005)), b + beyond])
+    out.append(("k - 1 and k participants", fit_table(pts, 4096, 6), np.stack([a, b]), np.ones(2, bool), 5))
+    out.append(("q = 1", fit_table(dense, 4096, 6), at_dense[:1], np.ones(1, bool), 5))
+    floor = np.concatenate([rng.uniform(-12.0, 12.0, (3000, 2)), rng.normal(0.0, 0.01, (3000, 1))], axis=1)
+    wall = np.concatenate([rng.normal(6.0, 0.01, (1500, 1)), rng.uniform(-12.0, 12.0, (1500, 1)),
+                           rng.uniform(0.0, 4.0, (1500, 1))], axis=1)
+    boards = np.repeat(rng.uniform(-10.0, 10.0, (20, 3)) * np.array([1.0, 1.0, 0.0]), 40, axis=0) + np.concatenate(
+        [rng.normal(0.0, 0.005, (800, 1)), rng.uniform(-1.0, 1.0, (800, 1)), rng.uniform(0.0, 2.0, (800, 1))], axis=1)
+    world = np.concatenate([floor, wall, boards]).astype(np.float32)[rng.permutation(5300)]
+    queries = (world[rng.integers(0, len(world), 1025)] + rng.normal(0.0, 0.1, (1025, 3))).astype(np.float32)
+    out.append(("q = 1025", fit_table(world, 8192, 6), queries, rng.random(1025) >= 0.1, 5))
+    out.append(("q = 0", fit_table(world, 8192, 6), np.zeros((0, 3), np.float32), np.zeros(0, bool), 5))
+    out.append(("S = 1", fit_table(dense, 4096, 1), at_dense, np.ones(4, bool), 5))
+    out.append(("S = 32", fit_table(_octants(rng, 32), 4096, 32), at_dense, np.ones(4, bool), 5))
+    assert tuple(name for name, *_ in out) == FIT_CASE_NAMES
+    return out
+
+
+def check_fit_cases(torch, dev):
+    """Kernel 10 (`lines_from_fit`, `planes_from_fit` on a cell table)
+    against its twin run on a CPU copy on every case of `fit_cases`, one
+    launch each and no synchronizing call: accept decisions identical, the
+    lines' means bit-identical, the other floats finite on every lane and
+    within 1e-5 on accepted queries; returns the number of cases."""
+    from lv_slam_tpu_torch.kernels import KERNELS
+    from lv_slam_tpu_torch.lfa import registration
+    from lv_slam_tpu_torch.ops.knn import CellTable
+
+    cases = fit_cases()
+    for name, table, y, mask, k in cases:
+        cpu = CellTable(torch.from_numpy(table), FIT_CELL), torch.from_numpy(y), torch.from_numpy(mask)
+        card = CellTable(cpu[0].table.to(dev), FIT_CELL), cpu[1].to(dev), cpu[2].to(dev)
+        for kind, fn in (("lines_from_fit", registration.lines_from_fit),
+                         ("planes_from_fit", registration.planes_from_fit)):
+            before = KERNELS[kind].launches
+            got = []
+            syncs = count_syncs(torch, lambda: got.append(fn(card[1], card[2], card[0], k=k)))
+            torch.cuda.synchronize()
+            if KERNELS[kind].launches != before + 1 or syncs:
+                raise AssertionError(f"{kind} ({name}): {KERNELS[kind].launches - before} launches, {syncs} syncs")
+            got = [t.cpu() for t in got[0]]
+            want = fn(cpu[1], cpu[2], cpu[0], k=k)
+            fit_agrees(torch, f"{kind} ({name})", got, want, kind == "lines_from_fit")
+    return len(cases)
+
+
+def fit_agrees(torch, what: str, got, want, bits: bool) -> float:
+    """Kernel 10's fields `got` against its twin's `want` (both on the CPU):
+    accept decisions identical, the fitted floats finite on every lane (gn_solve
+    reads every lane, a rejected one with weight 0, and 0 * NaN is NaN) and
+    within 1e-5 on accepted queries (a rejected fit may be a degenerate
+    eigenvector, which the two eigh may pick differently); with `bits`, the
+    first field (the lines' means: sums and one division, no libm)
+    bit-identical on every lane. Returns the max abs err."""
+    if not torch.equal(got[2], want[2]):
+        raise AssertionError(f"{what}: {int((got[2] != want[2]).sum())} accept decisions differ")
+    if not all(bool(torch.isfinite(a).all()) for a in got[:2]):
+        raise AssertionError(f"{what}: non-finite fitted floats")
+    if bits and not torch.equal(got[0].view(torch.int32), want[0].view(torch.int32)):
+        raise AssertionError(f"{what}: means not bit-identical to the twin's")
+    v = want[2]
+    err = max((float((a[v] - b[v]).abs().max()) if bool(v.any()) else 0.0) for a, b in zip(got[:2], want[:2]))
+    if err > 1e-5:
+        raise AssertionError(f"{what}: max abs err {err} > 1e-5")
+    return err
+
+
 def check_lfa_kernels(torch, scans, gt, dev):
     """Phase 2b: the LFA's kernels vs their plain versions at main-path shapes."""
     from lv_slam_tpu_torch import kitti_flagship_config
@@ -938,24 +1076,22 @@ def check_lfa_kernels(torch, scans, gt, dev):
     ):
         k10 = lambda fn=fn, y=y, m=m, table=table: fn(y, m, table, k=cfg.knn_k)  # noqa: E731
         p10 = lambda ref=ref, y=y, m=m, table=table: ref(y, m, table, k=cfg.knn_k)  # noqa: E731
-        got, want = k10(), p10()
-        if not torch.equal(got.valid, want.valid):
-            raise AssertionError(f"{name}: {int((got.valid != want.valid).sum())} accept decisions differ")
-        # gn_solve reads every lane, a rejected one with weight 0, and 0 * NaN
-        # is NaN: the fitted floats must be finite on every lane. They are
-        # compared on accepted queries: a rejected fit may be a degenerate
-        # eigenvector, which the two routes may pick differently
-        if not all(bool(torch.isfinite(a).all()) for a in got[:2]):
-            raise AssertionError(f"{name}: non-finite fitted floats")
-        v = want.valid
-        err = max(float((a[v] - b[v]).abs().max()) for a, b in zip(got[:2], want[:2]))
-        if err > 1e-5:
-            raise AssertionError(f"{name}: max abs err {err} > 1e-5")
+        got = k10()
+        err = fit_agrees(torch, name, [t.cpu() for t in got], [t.cpu() for t in p10()], False)
+        # and against the twin on a CPU copy, the lines' means bit for bit
+        fit_agrees(torch, f"{name} (CPU twin)", [t.cpu() for t in got],
+                   ref(y.cpu(), m.cpu(), knn.CellTable(table.table.cpu(), table.cell_size), k=cfg.knn_k),
+                   name == "lines_from_fit")
         fields[name] = got
         log(f"  {name}: {int(got.valid.sum())} of {int(m.sum())} queries accepted, decisions identical, "
-            f"fitted floats finite on every lane, max abs err {err:.3g} on accepted ones (tol 1e-5)")
+            f"fitted floats finite on every lane, max abs err {err:.3g} on accepted ones (tol 1e-5); the same "
+            f"against the twin on a CPU copy{', the means bit-identical' if name == 'lines_from_fit' else ''}")
         measure(torch, records, name, k10, p10, err, nbytes(y, m, table.table, *got),
                 1500 * y.shape[0])  # 8 x 6 candidates ~25 each, one eigh ~300
+
+    n_cases = check_fit_cases(torch, dev)
+    log(f"  lines_from_fit, planes_from_fit: the {n_cases} fit_cases against the twin on a CPU copy, one launch "
+        f"each and no synchronizing call: decisions identical, the lines' means bit-identical")
 
     # kernel 11: GN from those fields, seeded 0.3 m off the true pose
     seed = poses[4].clone()
@@ -1984,14 +2120,30 @@ def profile(torch, run, what: str, span: str = "8 scans") -> float:
         return float("nan")
     log(f"  profile of {span} ({what}): wall {wall_us / 1e3:.2f} ms unprofiled ({profiled_us / 1e3:.2f} ms "
         f"profiled), device busy {busy / 1e3:.2f} ms, idle share {1 - busy / wall_us:.3f}")
-    top = sorted(dev_time, reverse=True)
+    log_kernels(sorted(dev_time, reverse=True))
+    return 1 - busy / wall_us
+
+
+def log_kernels(top) -> None:
+    """Logs a profile's (device us, name, launches) rows, largest first: the
+    top 12, the library sorts' glue wherever it ranks, then every hand
+    kernel of csrc/ wherever it ranks, with its ms per launch."""
     for t, key, count in top[:12]:
         log(f"    {t / 1e3:9.3f} ms  {count:6d} x  {key[:90]}")
-    # the library sorts' glue and K1's own passes, wherever they rank
     for t, key, count in top[12:]:
-        if "RadixSort" in key or "key_sort_pass" in key:
+        if "RadixSort" in key:
             log(f"    {t / 1e3:9.3f} ms  {count:6d} x  {key[:90]}")
-    return 1 - busy / wall_us
+    log("    hand kernels (total ms, launches, ms per launch, rank):")
+    for rank, (t, key, count) in enumerate(top, 1):
+        if is_hand_kernel(key):
+            log(f"    {t / 1e3:9.3f} ms  {count:6d} x  {t / 1e3 / max(count, 1):.4f} ms  #{rank}  {key[:80]}")
+
+
+def is_hand_kernel(key: str) -> bool:
+    """Whether a profiler kernel name is one of csrc/'s: their kernels sit in
+    top-level anonymous namespaces or in lvs::, PyTorch's under at:: or c10::."""
+    name = key[5:] if key.startswith("void ") else key
+    return name.startswith(("(anonymous namespace)::", "lvs::"))
 
 
 # ----------------------------------------------------------------- phase 4
@@ -2274,8 +2426,7 @@ def run_full_path(torch, scans, gt, dev, card):
     idle = 1 - busy_us / 1e6 / elapsed
     log(f"  device busy {busy_us / 1e3:.1f} ms over the {n}-scan pass (profiled), against the warm pass's "
         f"{elapsed * 1e3:.1f} ms wall: idle share {idle:.3f}; peak device memory {peak / 2**20:.1f} MiB")
-    for t, key, count in kernels[:12]:
-        log(f"    {t / 1e3:9.3f} ms  {count:6d} x  {key[:90]}")
+    log_kernels(kernels)
     summary = dict(
         scans_per_s=n / elapsed, devkit_t_err=t_err, drift_m=drift, keyframes=len(graph.keyframes),
         n_loops=len(loops), loops=loops, loop_rejections=stats, backend_phase_ms_per_scan=phase_ms,

@@ -682,6 +682,19 @@ def test_extract_features_edge_cases_on_the_card(cuda):
 
 
 @pytest.mark.gpu
+def test_lfa_fits_edge_cases_on_the_card(cuda):
+    """K10 (`lines_from_fit` / `planes_from_fit` on a cell table) against
+    its twin run on a CPU copy, one launch a call and no synchronizing call,
+    on chip_smoke's fit_cases: every query masked (sentinel and NaN
+    queries), one bucket, 48 participants, a candidate at d^2 exactly 1,
+    k - 1 and k participants, 1, 1025 and 0 queries, 1 and 32 slots.
+    Decisions identical, the lines' means bit-identical, the other floats
+    finite and within 1e-5 on accepted queries."""
+    cs = _chip_smoke()
+    assert cs.check_fit_cases(torch, cuda) == len(cs.FIT_CASE_NAMES)
+
+
+@pytest.mark.gpu
 def test_voxel_downsample_at_the_map_shape_on_the_card(cuda):
     """K1 at generate_map_cloud's shape (2.49 M points in 2^22 lanes at
     0.05 m into 2^20 rows: 4096 tiles a pass), bit for bit against its twin

@@ -95,6 +95,44 @@ def test_fits_match(setup, kind):
         assert (got[0][~v] == 0).all() and (got[1][~v] == 0).all()
 
 
+def _chip_smoke():
+    """chip_smoke.py as a module (it imports numpy only at the top)."""
+    import importlib.util
+    from pathlib import Path
+
+    spec = importlib.util.spec_from_file_location("_chip_smoke", Path(__file__).resolve().parents[1] / "chip_smoke.py")
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+CS = _chip_smoke()
+# kernel 10's edge cases (chip_smoke.fit_cases) but the one on the 1 m gate,
+# which is held on the card only
+FIT_CASES = [name for name in CS.FIT_CASE_NAMES if name != "d^2 exactly 1"]
+
+
+@pytest.mark.parametrize("case", FIT_CASES)
+def test_fit_edge_cases(case):
+    """The CellTable branch's twins against JAX's `lines_from_fit` /
+    `planes_from_fit` on kernel 10's edge cases (chip_smoke.fit_cases, run
+    on the card against the same twins): accept decisions identical, the
+    fitted floats of accepted queries to FIT_ATOL, every float finite."""
+    (_, table, y, m, k), = [c for c in CS.fit_cases() if c[0] == case]
+    jtable = jk.CellTable(table=jnp.asarray(table), cell_size=jnp.float32(CS.FIT_CELL))
+    ttable = CellTable(_t(table), CS.FIT_CELL)
+    for j_fn, t_fn in ((jr.lines_from_fit, tr.lines_from_fit), (jr.planes_from_fit, tr.planes_from_fit)):
+        want = [np.asarray(a) for a in j_fn(jnp.asarray(y), jnp.asarray(m), jtable, k=k)]
+        got = [a.numpy() for a in t_fn(_t(y), _t(m), ttable, k=k)]
+        np.testing.assert_array_equal(got[2], want[2])
+        v = want[2]
+        for a, b in zip(got[:2], want[:2]):
+            assert np.isfinite(a).all()
+            err = float(np.abs(a[v] - b[v]).max(initial=0.0))
+            print(f"{case}, {t_fn.__name__}: {int(v.sum())} of {len(v)} accepted, max abs err {err:.3g}")
+            assert err <= FIT_ATOL
+
+
 def test_gn_solve_matches(setup):
     tables, queries, pts, truth = setup
     lines = jr.lines_from_fit(jnp.asarray(queries["edge"][0]), jnp.asarray(queries["edge"][1]), tables[0])
