@@ -17,7 +17,14 @@ Phases, each of which raises on failure:
    grids, under `standalone`). K1 and K8 are also held bit for bit to
    their twins run on a CPU copy, on their edge cases (`sort_cases`,
    `feature_cases`), with no synchronizing call and no device work but
-   their own; `torch.sort` of K1's keys is timed beside K1. K10's fits
+   their own; `torch.sort` of K1's keys is timed beside K1. K3 likewise
+   makes no synchronizing call and launches nothing but its own kernels,
+   agrees with its twin on the card (validity, keys, n_leaves and origin
+   identical) and on `map_cases` with the card's twin and the CPU twin
+   (`map_agrees`), and `torch.sort` of the twin's keys is timed beside it;
+   phase 2c does the same for K2 (`window_cases`) and K1b (`sort_cases`),
+   bit for bit against their CPU twins, and times K3 at the loop
+   detector's 4 m rung (under `rung_4m`). K10's fits
    are held to the twin on a CPU copy too (decisions identical, the lines'
    means bit-identical) there and on their edge cases (`fit_cases`), one
    launch each and no synchronizing call. Masks,
@@ -58,7 +65,8 @@ Phases, each of which raises on failure:
    path on the CPU must agree to 1e-4. A warm pass is timed, host syncs are
    counted on the synchronous backend, and the device's idle share and peak
    memory are measured; the profile lists every hand kernel of `csrc/`
-   wherever it ranks, with its launches and ms per launch.
+   wherever it ranks, with its launches and ms per launch, and counts the
+   library radix sort's launches left on the path.
 6. The full main path as the reference benchmark runs it, with the camera:
    the same 170 scans and chain, each chunk's camera images (the circle's
    `render_camera_image(world, gt[i], seed=5)`, `bench.py:183-186`) uploaded
@@ -308,7 +316,7 @@ PEAK_F32_PER_S = 67e12      # H100 SXM float32 outside the tensor cores
 # out of the profiler: everything else a wrapper launches is torch glue
 DEVICE_FUNCTIONS = {
     "voxel_downsample": ("voxel_ranges", "voxel_keys", "key_sort_pass", "voxel_runs"),
-    "build_voxel_map": ("mark_leaves", "build_leaves"),
+    "build_voxel_map": ("leaf_ranges", "leaf_keys", "key_sort_pass", "leaf_runs"),
     "to_hash": ("hash_init", "hash_slot0", "hash_slot1", "hash_dropped", "hash_rows"),
     "ndt_derivatives_hash": ("ndt_partials", "ndt_finish"),
     "extract_features": ("fill_best", "project", "select_sector"),
@@ -317,8 +325,8 @@ DEVICE_FUNCTIONS = {
     "lines_from_fit": ("lines",),
     "planes_from_fit": ("planes",),
     "gn_solve": ("gn_cluster",),
-    "voxel_dedup_first": ("dedup_keys", "dedup_mark", "dedup_compact"),
-    "window_group_filtered_fn": ("window_keys", "dedup_mark", "dedup_compact"),
+    "voxel_dedup_first": ("voxel_ranges", "voxel_keys", "key_sort_pass", "dedup_runs"),
+    "window_group_filtered_fn": ("window_ranges", "voxel_keys", "key_sort_pass", "dedup_runs"),
     "_fused_verify_fn": ("ndt_partials", "ndt_finish"),
     "build_centroid_grid": ("grid_mark", "grid_reduce"),
     "nn_sq_dists": ("grid_query", "grid_finish"),
@@ -571,6 +579,244 @@ def check_sort_cases(torch, dev):
     return len(cases)
 
 
+def check_dedup_cases(torch, dev):
+    """K1b (`voxel_dedup_first`) against its twin run on a CPU copy, bit for
+    bit, on every case of `sort_cases` (their out_cap; the method is K1's),
+    one launch and no synchronizing call each; returns the number of cases."""
+    from lv_slam_tpu_torch.core.cloud import PointCloud
+    from lv_slam_tpu_torch.kernels import KERNELS
+    from lv_slam_tpu_torch.ops import prefilter
+
+    cases = sort_cases()
+    for name, pts, mask, res, out_cap, _ in cases:
+        cpu = PointCloud(torch.from_numpy(pts[:, :3].copy()), torch.from_numpy(pts[:, 3].copy()),
+                         torch.from_numpy(mask))
+        card = PointCloud(cpu.xyz.to(dev), cpu.intensity.to(dev), cpu.mask.to(dev))
+        before = KERNELS["voxel_dedup_first"].launches
+        got = []
+        syncs = count_syncs(torch, lambda: got.append(prefilter.voxel_dedup_first(card, res, out_cap)))
+        torch.cuda.synchronize()
+        if KERNELS["voxel_dedup_first"].launches != before + 1 or syncs:
+            raise AssertionError(f"voxel_dedup_first ({name}): {KERNELS['voxel_dedup_first'].launches - before} "
+                                 f"launches, {syncs} synchronizing calls")
+        want = prefilter.voxel_dedup_first_ref(cpu, res, out_cap)
+        if not identical_clouds(torch, on_cpu(got[0]), want):
+            raise AssertionError(f"voxel_dedup_first ({name}): {int(got[0].mask.sum())} voxels against the CPU "
+                                 f"twin's {int(want.mask.sum())}, not bit-identical")
+    return len(cases)
+
+
+MAP_LANES = 1 << 14  # K3's edge cases
+MAP_CASE_NAMES = ("every lane masked", "one voxel holding every lane", "lanes out of extent",
+                  "more runs than leaf_cap", "min_points and min_points - 1", "collinear and coplanar voxels",
+                  "NaN on masked lanes", "weighted", "unweighted", "1025 lanes", "e = 64")
+
+
+def _blobs(rng, n: int, span: float, spread: float = 0.12) -> np.ndarray:
+    """(n, 3) points in round blobs of 24 about centers spread over +-span m
+    (both signs): each 1 m voxel a blob reaches holds a well-conditioned
+    covariance, so leaf validity is no rounding call."""
+    centers = rng.uniform(-span, span, (-(-n // 24), 3))
+    pts = np.repeat(centers, 24, axis=0)[:n] + rng.normal(0.0, spread, (n, 3))
+    return pts.astype(np.float32)[rng.permutation(n)]
+
+
+def map_cases(seed: int = SEED):
+    """Kernel 3's edge cases as numpy arrays: (name, points (n, 3), mask (n,),
+    resolution, leaf_cap, extent, weighted), min_points 6 and the eigenvalue
+    floor 0.01 throughout. Every lane masked; one 1 m voxel holding all
+    16384 lanes (one run across 16 tiles, one thread's chain; the key has no
+    bit); a scene over 600 cells, so that lanes lie past the 256-cell extent
+    (and some at 1e9 m, far beyond); ~1800 runs into a leaf_cap of 256; voxels of
+    exactly 6 and 5 points; points exactly on lines and on planes (a
+    degenerate pair and a zero eigenvalue, floored by the inflation);
+    masked lanes holding NaN; a weighted and an unweighted scene; 1025
+    lanes at 0.5 m; the 64-cell extent of `entry.py`'s maps."""
+    rng = np.random.default_rng(seed)
+    n = MAP_LANES
+    scene = _blobs(rng, n, 60.0)
+    out = [("every lane masked", scene, np.zeros(n, bool), 1.0, 4096, 256, True)]
+    one = (rng.uniform(0.02, 0.98, (n, 3)) + np.array([12.0, -5.0, 0.0])).astype(np.float32)
+    out.append(("one voxel holding every lane", one, np.ones(n, bool), 1.0, 16, 256, True))
+    wide = _blobs(rng, n, 300.0)
+    wide[: n // 64] = rng.uniform(1.0e9, 1.5e9, (n // 64, 3)).astype(np.float32)
+    out.append(("lanes out of extent", wide, np.ones(n, bool), 1.0, 8192, 256, True))
+    out.append(("more runs than leaf_cap", scene, rng.random(n) >= 0.05, 1.0, 256, 256, True))
+    counts = np.where(np.arange(n // 11) % 2 == 0, 6, 5)
+    cells = rng.choice(200 ** 3, size=len(counts), replace=False)
+    cells = np.stack([cells // 40000, (cells // 200) % 200, cells % 200], axis=1) - 100
+    sizes = np.repeat(cells, counts, axis=0) + 0.5 + rng.uniform(-0.3, 0.3, (counts.sum(), 3))
+    pad = np.full((n - len(sizes), 3), 1.0e6)
+    out.append(("min_points and min_points - 1", np.concatenate([sizes, pad]).astype(np.float32),
+                np.arange(n) < len(sizes), 1.0, 8192, 256, False))
+    base = np.repeat(rng.integers(-40, 40, (n // 16, 3)), 16, axis=0).astype(np.float64) + 0.5
+    t = rng.uniform(-0.45, 0.45, (n, 2))
+    flat = np.where(np.arange(n)[:, None] % 32 < 16,  # alternate runs: a line along x, a plane z = const
+                    np.stack([t[:, 0], np.full(n, 0.125), np.full(n, -0.25)], axis=1),
+                    np.stack([t[:, 0], t[:, 1], np.full(n, 0.375)], axis=1))
+    out.append(("collinear and coplanar voxels", (base + flat).astype(np.float32), np.ones(n, bool), 1.0, 4096,
+                256, True))
+    holes = scene.copy()
+    mask = rng.random(n) >= 0.1
+    holes[~mask] = np.nan
+    out.append(("NaN on masked lanes", holes, mask, 1.0, 4096, 256, True))
+    out.append(("weighted", scene, np.ones(n, bool), 1.0, 4096, 256, True))
+    out.append(("unweighted", scene, np.ones(n, bool), 1.0, 4096, 256, False))
+    out.append(("1025 lanes", _blobs(rng, 1025, 20.0, spread=0.06), np.ones(1025, bool), 0.5, 512, 256, True))
+    out.append(("e = 64", _blobs(rng, n, 50.0), np.ones(n, bool), 1.0, 4096, 64, True))
+    assert tuple(name for name, *_ in out) == MAP_CASE_NAMES
+    return out
+
+
+# A leaf whose float64 lambda0 / lambda2 is below this is flat or straight to
+# rounding: its validity and eigenvectors are a rounding call of the float32
+# Cardano eigh (acos near +-1), which the CPU's libm and the card's round
+# apart (tests/test_torch_voxel_map.py's NOISY_RATIO)
+NOISY_RATIO = 1e-5
+
+
+def map_agrees(torch, what: str, got, want, ratio=None):
+    """Kernel 3's map `got` against a twin's `want` (one device): keys and
+    origin_cell identical; validity and n_leaves identical, or with `ratio`
+    (each leaf's float64 lambda0 / lambda2, for a twin on another device)
+    differing only on leaves below NOISY_RATIO; on the leaves valid in both
+    (and, with `ratio`, not below it) means within 1e-5, icovs and weights
+    within 1e-4 of their largest entry. Returns (mean, icov, weight) max
+    abs errors."""
+    for field in ("keys", "origin_cell"):
+        if not torch.equal(getattr(got, field), getattr(want, field)):
+            raise AssertionError(f"{what}: {field} differs")
+    differ = got.valid != want.valid
+    noisy = ratio < NOISY_RATIO if ratio is not None else torch.zeros_like(differ)
+    if bool((differ & ~noisy).any()) or int(got.n_leaves) != int(got.valid.sum()) or (
+            ratio is None and int(got.n_leaves) != int(want.n_leaves)):
+        raise AssertionError(f"{what}: validity differs on {int(differ.sum())} leaves ({int((differ & noisy).sum())} "
+                             f"of them flat to rounding), n_leaves {int(got.n_leaves)} against {int(want.n_leaves)}")
+    both = got.valid & want.valid
+    if not bool(both.any()):
+        return 0.0, 0.0, 0.0
+    err_mean = float((got.means[both] - want.means[both]).abs().max())
+    v = both & ~noisy
+    if not bool(v.any()):
+        return err_mean, 0.0, 0.0
+    err_icov = float((got.icovs[v] - want.icovs[v]).abs().max())
+    err_w = float((got.weights[v] - want.weights[v]).abs().max())
+    icov_tol = 1e-4 * float(want.icovs[v].abs().max())
+    w_tol = 1e-4 * float(want.weights[v].abs().max())
+    if err_mean > 1e-5 or err_icov > icov_tol or err_w > w_tol:
+        raise AssertionError(f"{what}: errors mean {err_mean} (tol 1e-5) icov {err_icov} (tol {icov_tol}) "
+                             f"weight {err_w} (tol {w_tol})")
+    return err_mean, err_icov, err_w
+
+
+def check_map_cases(torch, dev):
+    """K3 (`build_voxel_map`) on every case of `map_cases`, one launch and no
+    synchronizing call each, against its twin on the card (`map_agrees`:
+    validity identical, both round alike) and against its twin run on a CPU
+    copy (keys and origin identical, validity but for leaves flat to
+    rounding); returns the number of cases."""
+    from lv_slam_tpu_torch.core.cloud import PointCloud
+    from lv_slam_tpu_torch.kernels import KERNELS
+    from lv_slam_tpu_torch.ops import voxel_map
+
+    cases = map_cases()
+    for name, pts, mask, res, leaf_cap, e, weighted in cases:
+        cpu = PointCloud(torch.from_numpy(pts), torch.zeros(len(pts)), torch.from_numpy(mask))
+        card = PointCloud(cpu.xyz.to(dev), cpu.intensity.to(dev), cpu.mask.to(dev))
+        kw = dict(leaf_cap=leaf_cap, lut_extent=e, weighted=weighted)
+        before = KERNELS["build_voxel_map"].launches
+        got = []
+        syncs = count_syncs(torch, lambda: got.append(voxel_map.build_voxel_map(card, res, **kw)))
+        torch.cuda.synchronize()
+        if KERNELS["build_voxel_map"].launches != before + 1 or syncs:
+            raise AssertionError(f"build_voxel_map ({name}): {KERNELS['build_voxel_map'].launches - before} "
+                                 f"launches, {syncs} synchronizing calls")
+        map_agrees(torch, f"build_voxel_map ({name})", got[0], voxel_map.build_voxel_map_ref(card, res, **kw))
+        got = voxel_map.VoxelMap(*(t.cpu() if isinstance(t, torch.Tensor) else t for t in got[0]))
+        map_agrees(torch, f"build_voxel_map ({name}, CPU twin)", got, voxel_map.build_voxel_map_ref(cpu, res, **kw),
+                   voxel_map.leaf_eigen_ratio(cpu, res, leaf_cap, e))
+    return len(cases)
+
+
+WINDOW_CAP = 8192  # K2's edge cases: lanes a scan
+WINDOW_CASE_NAMES = ("length 1", "length 16", "rows past the chunk clipped", "every row invalid",
+                     "moved past the yz clip range")
+
+
+def window_rels(rng, length: int) -> np.ndarray:
+    """(length, 4, 4) float32 window-relative transforms: yaw, small tilts,
+    a few metres of translation."""
+    out = np.tile(np.eye(4, dtype=np.float32), (length, 1, 1))
+    for i in range(length):
+        yaw = rng.uniform(-0.3, 0.3)
+        c, s = np.cos(yaw), np.sin(yaw)
+        out[i, :3, :3] = [[c, -s, 0.01], [s, c, -0.02], [-0.01, 0.02, 1.0]]
+        out[i, :3, 3] = rng.uniform(-3.0, 3.0, 3)
+    return out
+
+
+def window_cases(seed: int = SEED):
+    """Kernel 2's edge cases as numpy arrays: (name, chunk xyz (C, 3, cap)
+    transposed, intensity (C, cap), mask (C, cap), start, rels (L, 4, 4),
+    valid (L,), resolution, out_cap), filtered scans as the odometry returns
+    them (masked lanes at the sentinel) of WINDOW_CAP lanes with clusters
+    inside 0.1 m cells and points on cell faces. A group of one row; of 16;
+    rows past the chunk's end (clipped to its last row) with a padding row;
+    every row invalid; a transform that moves points 2 km in y and -3 km in
+    z, past the key's [-16384, 16383] cell clip, beside one that does not."""
+    rng = np.random.default_rng(seed)
+    cap = WINDOW_CAP
+
+    def chunk(rows):
+        xyz = np.empty((rows, 3, cap), np.float32)
+        mask = rng.random((rows, cap)) >= 0.1
+        for r in range(rows):
+            pts = _voxel_scene(rng, cap)[:, :3]
+            xyz[r] = np.where(mask[r][:, None], pts, 1.0e6).T
+        return xyz, rng.uniform(0.0, 1.0, (rows, cap)).astype(np.float32), mask
+
+    out = []
+    out.append(("length 1", *chunk(4), 2, window_rels(rng, 1), np.ones(1, bool), 0.1, 4096))
+    out.append(("length 16", *chunk(16), 0, window_rels(rng, 16), np.ones(16, bool), 0.1, 65536))
+    out.append(("rows past the chunk clipped", *chunk(6), 3, window_rels(rng, 8), np.arange(8) < 7, 0.1, 32768))
+    out.append(("every row invalid", *chunk(4), 0, window_rels(rng, 4), np.zeros(4, bool), 0.1, 32768))
+    far = window_rels(rng, 2)
+    far[0, :3, 3] = [0.0, 2000.0, -3000.0]
+    out.append(("moved past the yz clip range", *chunk(2), 0, far, np.ones(2, bool), 0.1, 16384))
+    assert tuple(name for name, *_ in out) == WINDOW_CASE_NAMES
+    return out
+
+
+def check_window_cases(torch, dev):
+    """K2 (`window_group_filtered`) against its twin run on a CPU copy, bit
+    for bit, on every case of `window_cases`, one launch and no
+    synchronizing call each; returns the number of cases."""
+    from lv_slam_tpu_torch.core.cloud import PointCloud
+    from lv_slam_tpu_torch.kernels import KERNELS
+    from lv_slam_tpu_torch.pipeline import window
+
+    cases = window_cases()
+    for name, xyz, inten, mask, start, rels, valid, res, out_cap in cases:
+        cpu = [torch.from_numpy(a) for a in (xyz, inten, mask)]
+        extra = [torch.from_numpy(rels), torch.from_numpy(valid)]
+        card = [a.to(dev) for a in cpu]
+        extra_card = [a.to(dev) for a in extra]
+        before = KERNELS["window_group_filtered_fn"].launches
+        got = []
+        syncs = count_syncs(torch, lambda: got.append(window.window_group_filtered(
+            *card, start, *extra_card, res, out_cap)))
+        torch.cuda.synchronize()
+        if KERNELS["window_group_filtered_fn"].launches != before + 1 or syncs:
+            raise AssertionError(f"window_group_filtered_fn ({name}): "
+                                 f"{KERNELS['window_group_filtered_fn'].launches - before} launches, {syncs} "
+                                 f"synchronizing calls")
+        want = window.window_group_filtered_ref(*cpu, start, *extra, res, out_cap)
+        if not identical_clouds(torch, on_cpu(PointCloud(*got[0])), want):
+            raise AssertionError(f"window_group_filtered_fn ({name}): {int(got[0].mask.sum())} voxels against the "
+                                 f"CPU twin's {int(want.mask.sum())}, not bit-identical")
+    return len(cases)
+
+
 def check_kernels(torch, scans, gt, dev):
     """Phase 2a: the odometry's kernels vs their plain versions at main-path shapes."""
     from lv_slam_tpu_torch import kitti_flagship_config
@@ -638,21 +884,30 @@ def check_kernels(torch, scans, gt, dev):
             f"(float64 lambda0/lambda2 there: {ratio[differ].sort().values.tolist()[-10:]})"
         )
     v = vm_ref.valid
-    err_mean = float((vm.means[v] - vm_ref.means[v]).abs().max())
-    err_icov = float((vm.icovs[v] - vm_ref.icovs[v]).abs().max())
-    err_w = float((vm.weights[v] - vm_ref.weights[v]).abs().max())
+    err_mean, err_icov, err_w = map_agrees(torch, "build_voxel_map", vm, vm_ref)
     icov_tol = 1e-4 * float(vm_ref.icovs[v].abs().max())
     w_tol = 1e-4 * float(vm_ref.weights[v].abs().max())
-    if err_mean > 1e-5 or err_icov > icov_tol or err_w > w_tol:
-        raise AssertionError(f"build_voxel_map: errors mean {err_mean} icov {err_icov} weight {err_w}")
-    log(f"  build_voxel_map: {int(vm.n_leaves)} valid leaves, validity identical; "
+    syncs = count_syncs(torch, k2)
+    glue, n_launches = foreign_functions(torch, k2, DEVICE_FUNCTIONS["build_voxel_map"])
+    if syncs or glue:
+        raise AssertionError(f"build_voxel_map: {syncs} synchronizing calls, device work besides its own: {glue}")
+    n_cases = check_map_cases(torch, dev)
+    log(f"  build_voxel_map: {int(vm.n_leaves)} valid leaves, validity, keys, n_leaves and origin identical; "
         f"max abs err mean {err_mean:.3g} (tol 1e-5), icov {err_icov:.3g} (tol {icov_tol:.3g}), "
-        f"weight {err_w:.3g} (tol {w_tol:.3g})")
+        f"weight {err_w:.3g} (tol {w_tol:.3g}); {n_launches} launches of its own, no other device work, no "
+        f"synchronizing call; the {n_cases} map_cases agree with the card's twin and the CPU twin, one launch each")
     n_pts = int(filtered.mask.sum())
-    n_occupied = int(torch.unique(voxel_map._leaf_sort(filtered, ndt.resolution, ndt.lut_extent)[0]).numel())
+    skeys, order, _, _ = voxel_map._leaf_sort(filtered, ndt.resolution, ndt.lut_extent)
+    n_occupied = int(torch.unique(skeys[skeys < ndt.lut_extent ** 3]).numel())
     measure(torch, records, "build_voxel_map", k2, p2, err_icov,
             nbytes(filtered.xyz, filtered.mask, vm.means, vm.icovs, vm.weights, vm.normals, vm.valid),
             25 * n_pts + 300 * n_occupied)  # centered moments per point; eigh + inverse per leaf
+    # the glue the kernel's own sort replaced: torch.sort of the twin's int32 flat keys
+    key = torch.empty_like(skeys)
+    key[order] = skeys
+    _, sort_ms, _ = device_ms(torch, lambda: torch.sort(key, stable=True))
+    records["build_voxel_map"]["torch_sort_ms"] = sort_ms
+    log(f"    torch.sort(stable=True) of the twin's {key.numel()} int32 keys: {sort_ms:.4f} ms device-only")
 
     # kernel 3: the same VoxelMap -> 131072 x 32 table, bit-exact
     k3 = lambda: ndt_hash.to_hash(vm, ndt.hash_buckets_per_leaf)  # noqa: E731
@@ -1191,6 +1446,7 @@ def check_backend_kernels(torch, scans, gt, dev):
     its 0.25 m centroid grid, and a 64-node, 128-edge pose graph."""
     from lv_slam_tpu_torch import kitti_flagship_config
     from lv_slam_tpu_torch.core.cloud import PointCloud
+    from lv_slam_tpu_torch.core import se3
     from lv_slam_tpu_torch.graph import pose_graph
     from lv_slam_tpu_torch.ops import ndt_hash, nn, prefilter, voxel_map
     from lv_slam_tpu_torch.ops.ndt import make_gauss_params
@@ -1218,6 +1474,22 @@ def check_backend_kernels(torch, scans, gt, dev):
         rels = torch.from_numpy(rel[first:first + length]).to(dev)
         return (*chunk, 0, rels, torch.ones(length, dtype=torch.bool, device=dev), res, kf_cap)
 
+    def one_call(name, fn):
+        """(launches of a call of `fn`): one C call, no synchronizing call,
+        no device work but the kernel's own."""
+        syncs = count_syncs(torch, fn)
+        glue, n_launches = foreign_functions(torch, fn, DEVICE_FUNCTIONS[name])
+        if syncs or glue:
+            raise AssertionError(f"{name}: {syncs} synchronizing calls, device work besides its own: {glue}")
+        return n_launches
+
+    def sort_ms(name, cloud):
+        """torch.sort of the twin's int64 voxel keys of `cloud`, the glue the kernel's own sort replaced."""
+        key, _ = prefilter._voxel_key(cloud, res)
+        _, ms, _ = device_ms(torch, lambda: torch.sort(key, stable=True))
+        records[name]["torch_sort_ms"] = ms
+        log(f"    torch.sort(stable=True) of the twin's {key.numel()} int64 keys: {ms:.4f} ms device-only")
+
     # kernel 2: scans 0-15 moved into scan 0's frame, first point per voxel
     g16 = group(0, 16)
     k2 = lambda: window.window_group_filtered(*g16)  # noqa: E731
@@ -1225,11 +1497,23 @@ def check_backend_kernels(torch, scans, gt, dev):
     keyframe, want = k2(), p2()
     if not identical(keyframe, want):
         raise AssertionError("window_group_filtered_fn: kept lanes differ from the plain version")
+    cpu_args = [a.cpu() if isinstance(a, torch.Tensor) else a for a in g16]
+    if not identical_clouds(torch, on_cpu(keyframe), window.window_group_filtered_ref(*cpu_args)):
+        raise AssertionError("window_group_filtered_fn: not bit-identical to the plain version run on a CPU copy")
+    n_launches = one_call("window_group_filtered_fn", k2)
+    n_cases = check_window_cases(torch, dev)
     n_in, n_kept = int(g16[2].sum()), int(keyframe.mask.sum())
     log(f"  window_group_filtered_fn: 16 x {g16[0].shape[2]} rows, {n_in} valid -> {n_kept} voxels "
-        f"in {keyframe.cap} lanes, identical to the plain version")
+        f"in {keyframe.cap} lanes, identical to the plain version on the card and on a CPU copy; {n_launches} "
+        f"launches of its own, no other device work, no synchronizing call; the {n_cases} window_cases "
+        f"bit-identical to the CPU twin, one launch each")
     measure(torch, records, "window_group_filtered_fn", k2, p2, 0.0,
             nbytes(*g16[:3], g16[4], g16[5]) + 17 * keyframe.cap, 20 * g16[2].numel())
+    idx = torch.arange(16, device=dev)  # the twin's moved cloud, as window_group_filtered_ref forms it
+    moved_mask = g16[2][idx] & g16[5][:, None]
+    moved = torch.where(moved_mask[..., None], se3.transform_points_fma(g16[4], g16[0][idx].transpose(1, 2)), 1.0e6)
+    sort_ms("window_group_filtered_fn",
+            PointCloud(moved.reshape(-1, 3), g16[1][idx].reshape(-1), moved_mask.reshape(-1)))
 
     # kernel 1b: that partial merged with scans 16-23's (a window across chunks)
     part2 = window.window_group_filtered(*group(16, 8))
@@ -1239,10 +1523,31 @@ def check_backend_kernels(torch, scans, gt, dev):
     got, want = k1b(), p1b()
     if not identical(got, want):
         raise AssertionError("voxel_dedup_first: kept lanes differ from the plain version")
+    if not identical_clouds(torch, on_cpu(got), prefilter.voxel_dedup_first_ref(on_cpu(both), res, kf_cap)):
+        raise AssertionError("voxel_dedup_first: not bit-identical to the plain version run on a CPU copy")
+    n_launches = one_call("voxel_dedup_first", k1b)
+    n_cases = check_dedup_cases(torch, dev)
     log(f"  voxel_dedup_first: {both.cap} rows, {int(both.mask.sum())} valid -> {int(got.mask.sum())} voxels, "
-        f"identical to the plain version")
+        f"identical to the plain version on the card and on a CPU copy; {n_launches} launches of its own, no other "
+        f"device work, no synchronizing call; the {n_cases} sort_cases bit-identical to the CPU twin, one launch each")
     measure(torch, records, "voxel_dedup_first", k1b, p1b, 0.0, nbytes(*both) + 17 * got.cap,
             10 * both.cap)
+    sort_ms("voxel_dedup_first", both)
+
+    # kernel 3 at the loop detector's 4 m rung over that keyframe cloud: runs of hundreds of points
+    k3 = lambda: voxel_map.build_voxel_map(keyframe, 4.0, leaf_cap=16384, lut_extent=256)  # noqa: E731
+    p3 = lambda: voxel_map.build_voxel_map_ref(keyframe, 4.0, leaf_cap=16384, lut_extent=256)  # noqa: E731
+    vm4 = k3()
+    err = map_agrees(torch, "build_voxel_map (4 m rung)", vm4, p3())
+    skeys = voxel_map._leaf_sort(keyframe, 4.0, 256)[0]
+    _, runs = torch.unique_consecutive(skeys[skeys < 256 ** 3], return_counts=True)
+    rung = timed(torch, "build_voxel_map", k3, p3, err[1],
+                 nbytes(keyframe.xyz, keyframe.mask, vm4.means, vm4.icovs, vm4.weights, vm4.normals, vm4.valid),
+                 25 * int(keyframe.mask.sum()) + 300 * runs.numel(), what=" (4 m rung)")
+    rung.update(runs=runs.numel(), longest_run=int(runs.max()), valid_leaves=int(vm4.n_leaves))
+    records["_build_voxel_map_4m"] = rung
+    log(f"  build_voxel_map at the 4 m rung: {runs.numel()} runs (longest {int(runs.max())} points), "
+        f"{int(vm4.n_leaves)} valid leaves, agreeing with the card's twin")
 
     # kernel 13: 8 candidates (scans 2, 4, .., 16, 0.2 m off their true
     # pose) against the keyframe cloud's 1 m map, and the 4 m rung's
@@ -2427,10 +2732,16 @@ def run_full_path(torch, scans, gt, dev, card):
     log(f"  device busy {busy_us / 1e3:.1f} ms over the {n}-scan pass (profiled), against the warm pass's "
         f"{elapsed * 1e3:.1f} ms wall: idle share {idle:.3f}; peak device memory {peak / 2**20:.1f} MiB")
     log_kernels(kernels)
+    # the library's radix sorts that remain on the path (K14's grid; torch.sort under any other wrapper)
+    cub = {kind: sum(count for _, key, count in kernels if f"DeviceRadixSort{kind}Kernel" in key)
+           for kind in ("Onesweep", "Histogram", "ExclusiveSum")}
+    log(f"  library radix-sort launches on the {n}-scan pass: onesweep {cub['Onesweep']}, histogram "
+        f"{cub['Histogram']}, exclusive sum {cub['ExclusiveSum']}")
     summary = dict(
         scans_per_s=n / elapsed, devkit_t_err=t_err, drift_m=drift, keyframes=len(graph.keyframes),
         n_loops=len(loops), loops=loops, loop_rejections=stats, backend_phase_ms_per_scan=phase_ms,
-        syncs_per_scan=syncs / n, idle_share=idle, peak_mib=peak / 2**20,
+        syncs_per_scan=syncs / n, idle_share=idle, peak_mib=peak / 2**20, busy_ms=busy_us / 1e3,
+        cub_sort_launches=cub,
     )
     return summary, launches
 
@@ -4511,6 +4822,7 @@ def main() -> int:
     records.update(check_lfa_kernels(torch, scans, gt, dev))
     log("phase 2c: the backend's kernels")
     records.update(check_backend_kernels(torch, scans_all, gt_all, dev))
+    records["build_voxel_map"]["rung_4m"] = records.pop("_build_voxel_map_4m")
     log("phase 2d: the camera kernels (ORB, descriptor matching)")
     records.update(check_orb_kernels(torch, gt_all, dev))
     log("phase 2e: standalone LFA's kernels (grid build, 2-NN lines / 3-NN planes, host table build)")
@@ -4635,7 +4947,7 @@ def main() -> int:
             launches=launches[name], launch_phase=launch_phase[name], **{key: records[name][key] for key in keys},
             **{extra: records[name][extra]
                for extra in ("cholesky_ms", "with_sensor_factors", "launches_by_phase", "over_cap", "standalone",
-                             "torch_sort_ms")
+                             "torch_sort_ms", "rung_4m")
                if extra in records[name]},
         )
         for name, k in KERNELS.items()

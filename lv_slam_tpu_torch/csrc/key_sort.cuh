@@ -4,10 +4,12 @@
 // tile's without a second launch.
 //
 // Used by kernel 1 (csrc/voxel_downsample.cu), whose keys are the voxel
-// coordinates rebased into the fewest bits, and by kernel 8's placement of
-// its picks (csrc/lfa_features.cu, the look-back only). It is written once,
-// for the next users of torch.sort's glue (K1b, K2, K2r and the backend's
-// sorts).
+// coordinates rebased into the fewest bits, by kernels 1b and 2 over kernel
+// 1's keys (csrc/voxel_dedup.cu, through csrc/voxel_keys.cuh), by kernel 3,
+// whose keys are the flat voxel keys packed into the fewest bits
+// (csrc/voxel_map.cu), and by kernel 8's placement of its picks
+// (csrc/lfa_features.cu, the look-back only). The next users of torch.sort's
+// glue are K2r and K14's grid.
 //
 // What a caller provides: a `Control` block and the tile status words,
 // zeroed by an earlier launch on the same stream; the global count of each
@@ -260,11 +262,14 @@ __global__ void __launch_bounds__(kThreads) key_sort_pass(int pass, int n_lanes,
 
 // The passes of one sort, launched back to back on `stream`: keys and
 // values end in (keys_a, vals_a) when n_passes is odd, else in (keys_b,
-// vals_b). Pass 0 reads keys_b (the caller's keys in lane order).
+// vals_b). Pass 0 reads keys_b (the caller's keys in lane order). A caller
+// whose keys are known on the host to hold at most 8 * max_passes bits
+// launches only max_passes passes.
 inline void launch_passes(int n_lanes, unsigned long long* keys_a, unsigned* vals_a, unsigned long long* keys_b,
-                          unsigned* vals_b, Control* ctl, unsigned* status, cudaStream_t stream) {
+                          unsigned* vals_b, Control* ctl, unsigned* status, cudaStream_t stream,
+                          int max_passes = kMaxPasses) {
   const int tiles = (n_lanes + kTile - 1) / kTile;
-  for (int p = 0; p < kMaxPasses; ++p) {
+  for (int p = 0; p < max_passes; ++p) {
     const bool to_a = (p & 1) == 0;
     key_sort_pass<<<tiles, kThreads, 0, stream>>>(p, n_lanes, to_a ? keys_b : keys_a, to_a ? vals_b : vals_a,
                                                   to_a ? keys_a : keys_b, to_a ? vals_a : vals_b, ctl, status);

@@ -1,0 +1,349 @@
+// Kernel 1's front end, shared by the callers that sort lanes by voxel:
+// kernel 1 (`csrc/voxel_downsample.cu`), kernels 1b and 2
+// (`csrc/voxel_dedup.cu`), and, for its partial rows, scratch layout and
+// run numbering, kernel 3 (`csrc/voxel_map.cu`).
+//
+// `voxel_ranges` (a grid of at most kRangeBlocks blocks, each thread a
+// stride of lanes) takes the voxel coordinates of each valid lane exactly
+// as `cells.cell_coords` and `_pack_yz` take them (floor(x * (1/res)) with
+// the folded float32 reciprocal, y and z clipped to [0, 2^15); a lane is a
+// voxel's where it is unmasked and kx < 2^30, the twins' rule) and writes
+// each block's minima, maxima and valid count to its own partial row (no
+// atomics, nothing to reset first). The same launch zeroes the sort's
+// control words and tile status words and writes the sentinel padding into
+// every output row.
+//
+// `voxel_keys`: every block reduces the partial rows, so every block knows
+// the ranges; the key is (kx - kx_min, cy - cy_min, cz - cz_min) packed into
+// the fewest bits, most significant first: order-preserving and
+// lexicographic, the twins' (kx, packed yz) two-key order. Masked lanes get
+// no key (kInvalidKey): the sort drops them. The block also counts each
+// pass's digits (integer atomics into the control block) and block 0 writes
+// the number of valid keys, of passes (at least 1) and the field offsets
+// and widths.
+//
+// Then a caller launches the kMaxPasses passes of `csrc/key_sort.cuh` and a
+// kernel of its own over the sorted tiles. Everything here sits in an
+// anonymous namespace: each source that includes the file has its own copy.
+#pragma once
+
+#include "common.cuh"
+#include "key_sort.cuh"
+
+#include <limits.h>
+
+#include <algorithm>
+
+namespace {
+
+namespace ks = lvs::keysort;
+
+constexpr int kYZOff = 1 << 14;
+constexpr int kYZLim = (1 << 15) - 1;
+constexpr int kRangeBlocks = 132;  // the ranges pass's grid cap: a block an SM
+constexpr int kKeyBlocks = 1056;   // the keys pass's grid cap: 8 blocks an SM
+constexpr int kParts = 8;          // a partial row: three minima and maxima, valid count, pad
+constexpr int kRunItems = 4;       // a run pass: sorted positions a thread
+constexpr int kRunTile = ks::kThreads * kRunItems;
+constexpr int kBigX = 1 << 30;     // kx of masked lanes in the twins' key: a lane at or past it is not a voxel
+
+struct VoxelControl {
+  ks::Control sort;
+  int kx_min, cy_min, cz_min;  // field offsets of the rebased key
+  int by, bz;                  // bit widths of the cy and cz fields
+};
+
+__device__ __forceinline__ int clampi(int v, int lo, int hi) { return v < lo ? lo : (v > hi ? hi : v); }
+
+// floor(x * (1/res)) as `cell_coords` takes it; cy and cz shifted and
+// clipped as `_pack_yz` packs them
+__device__ __forceinline__ void voxel_coords(float x, float y, float z, float inv, int& kx, int& cy, int& cz) {
+  kx = static_cast<int>(floorf(x * inv));
+  cy = clampi(static_cast<int>(floorf(y * inv)) + kYZOff, 0, kYZLim);
+  cz = clampi(static_cast<int>(floorf(z * inv)) + kYZOff, 0, kYZLim);
+}
+
+__device__ __forceinline__ void voxel_coords(const float* __restrict__ xyz, long long i, float inv, int& kx,
+                                             int& cy, int& cz) {
+  voxel_coords(xyz[3 * i + 0], xyz[3 * i + 1], xyz[3 * i + 2], inv, kx, cy, cz);
+}
+
+// The block's reduction of a partial row (minima at 0, 2, 4, maxima at 1, 3,
+// 5, the count at 6): threads 0..kParts-1 see the result in out.
+__device__ __forceinline__ void block_ranges(int (&v)[kParts], int* out) {
+  __shared__ int rows[32][kParts];
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5, n_warps = blockDim.x >> 5;
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) {
+#pragma unroll
+    for (int k = 0; k < 6; k += 2) {
+      v[k] = min(v[k], __shfl_down_sync(0xffffffffu, v[k], off));
+      v[k + 1] = max(v[k + 1], __shfl_down_sync(0xffffffffu, v[k + 1], off));
+    }
+    v[6] += __shfl_down_sync(0xffffffffu, v[6], off);
+  }
+  if (lane == 0) {
+#pragma unroll
+    for (int k = 0; k < kParts; ++k) rows[warp][k] = v[k];
+  }
+  __syncthreads();
+  if (threadIdx.x < kParts) {
+    const int k = threadIdx.x;
+    int r = rows[0][k];
+    for (int w = 1; w < n_warps; ++w) {
+      const int o = rows[w][k];
+      r = k == 6 ? r + o : ((k & 1) ? max(r, o) : min(r, o));
+    }
+    out[k] = r;
+  }
+  __syncthreads();
+}
+
+__device__ __forceinline__ void empty_ranges(int (&v)[kParts]) {
+#pragma unroll
+  for (int k = 0; k < 6; k += 2) {
+    v[k] = INT_MAX;
+    v[k + 1] = INT_MIN;
+  }
+  v[6] = 0;
+  v[7] = 0;
+}
+
+// Adds a valid lane's voxel to a thread's partial row.
+__device__ __forceinline__ void add_range(int (&v)[kParts], int kx, int cy, int cz) {
+  v[0] = min(v[0], kx);
+  v[1] = max(v[1], kx);
+  v[2] = min(v[2], cy);
+  v[3] = max(v[3], cy);
+  v[4] = min(v[4], cz);
+  v[5] = max(v[5], cz);
+  ++v[6];
+}
+
+// The tail of a ranges pass: the block's partial row, the zeroed words, the
+// padding of the output rows (a run pass overwrites the voxels' rows).
+__device__ __forceinline__ void finish_ranges(int (&v)[kParts], int* __restrict__ part, unsigned* __restrict__ zero,
+                                              long long n_zero, int out_cap, float* __restrict__ out_xyz,
+                                              float* __restrict__ out_int, bool* __restrict__ out_mask) {
+  __shared__ int row[kParts];
+  const long long stride = static_cast<long long>(gridDim.x) * blockDim.x;
+  const long long first = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
+  block_ranges(v, row);
+  if (threadIdx.x < kParts) part[blockIdx.x * kParts + threadIdx.x] = row[threadIdx.x];
+  for (long long i = first; i < n_zero; i += stride) zero[i] = 0u;
+  for (long long r = first; r < out_cap; r += stride) {
+    out_xyz[3 * r + 0] = lvs::kSentinel;
+    out_xyz[3 * r + 1] = lvs::kSentinel;
+    out_xyz[3 * r + 2] = lvs::kSentinel;
+    out_int[r] = 0.0f;
+    out_mask[r] = false;
+  }
+}
+
+__global__ void __launch_bounds__(lvs::kThreads) voxel_ranges(
+    const float* __restrict__ xyz, const bool* __restrict__ mask, int n, float inv, int* __restrict__ part,
+    unsigned* __restrict__ zero, long long n_zero, int out_cap, float* __restrict__ out_xyz,
+    float* __restrict__ out_int, bool* __restrict__ out_mask) {
+  const long long stride = static_cast<long long>(gridDim.x) * blockDim.x;
+  const long long first = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
+  int v[kParts];
+  empty_ranges(v);
+#pragma unroll 4
+  for (long long i = first; i < n; i += stride) {
+    if (!mask[i]) continue;
+    int kx, cy, cz;
+    voxel_coords(xyz, i, inv, kx, cy, cz);
+    if (kx >= kBigX) continue;
+    add_range(v, kx, cy, cz);
+  }
+  finish_ranges(v, part, zero, n_zero, out_cap, out_xyz, out_int, out_mask);
+}
+
+__device__ __forceinline__ int bit_width(unsigned r) { return r ? 32 - __clz(static_cast<int>(r)) : 0; }
+
+// Every block's reduction of the n_part partial rows, into v; also zeroes
+// the block's digit counts. Ends with a barrier.
+__device__ __forceinline__ void reduce_parts(const int* __restrict__ part, int n_part,
+                                             unsigned (*counts)[ks::kRadix], int* range) {
+  int v[kParts];
+  empty_ranges(v);
+  for (int b = threadIdx.x; b < n_part; b += blockDim.x) {
+    const int* p = part + b * kParts;
+#pragma unroll
+    for (int k = 0; k < 6; k += 2) {
+      v[k] = min(v[k], p[k]);
+      v[k + 1] = max(v[k + 1], p[k + 1]);
+    }
+    v[6] += p[6];
+  }
+  for (int i = threadIdx.x; i < ks::kMaxPasses * ks::kRadix; i += blockDim.x) (&counts[0][0])[i] = 0u;
+  block_ranges(v, range);
+}
+
+__global__ void __launch_bounds__(lvs::kThreads) voxel_keys(
+    const float* __restrict__ xyz, const bool* __restrict__ mask, int n, float inv, const int* __restrict__ part,
+    int n_part, VoxelControl* vc, unsigned long long* __restrict__ keys) {
+  __shared__ unsigned counts[ks::kMaxPasses][ks::kRadix];
+  __shared__ int range[kParts];
+  reduce_parts(part, n_part, counts, range);
+  const int n_valid = range[6];
+  const int kx_min = n_valid ? range[0] : 0, cy_min = n_valid ? range[2] : 0, cz_min = n_valid ? range[4] : 0;
+  const int bx = n_valid ? bit_width(static_cast<unsigned>(static_cast<long long>(range[1]) - kx_min)) : 0;
+  const int by = n_valid ? bit_width(static_cast<unsigned>(range[3] - cy_min)) : 0;
+  const int bz = n_valid ? bit_width(static_cast<unsigned>(range[5] - cz_min)) : 0;
+  const int n_passes = max(1, (bx + by + bz + ks::kDigitBits - 1) / ks::kDigitBits);
+  if (blockIdx.x == 0 && threadIdx.x == 0) {
+    vc->sort.n_valid = n_valid;
+    vc->sort.n_passes = n_passes;
+    vc->kx_min = kx_min;
+    vc->cy_min = cy_min;
+    vc->cz_min = cz_min;
+    vc->by = by;
+    vc->bz = bz;
+  }
+  const long long stride = static_cast<long long>(gridDim.x) * blockDim.x;
+  for (long long i = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x; i < n; i += stride) {
+    unsigned long long key = ks::kInvalidKey;
+    int kx, cy, cz;
+    if (mask[i] && (voxel_coords(xyz, i, inv, kx, cy, cz), kx < kBigX)) {
+      key = (static_cast<unsigned long long>(static_cast<unsigned>(static_cast<long long>(kx) - kx_min))
+             << (by + bz)) |
+            (static_cast<unsigned long long>(cy - cy_min) << bz) | static_cast<unsigned long long>(cz - cz_min);
+      ks::count_digits(counts, key, n_passes);
+    }
+    keys[i] = key;
+  }
+  __syncthreads();
+  ks::flush_digits(counts, n_passes, &vc->sort);
+}
+
+// A run pass's tile: the block's ticket, its kRunItems positions a thread
+// of the sorted keys, and which of them start a run (`load_run_tile`); then
+// `number_runs` gives `r`, the run index of the thread's first start (its
+// place after every earlier tile's runs, by decoupled look-back on
+// run_status). A caller issues its own loads for the tile between the two.
+struct RunTile {
+  int tile;
+  long long first;  // the tile's first sorted position
+  int n;            // keys in the tile
+  int mine0;        // the thread's first position in the tile
+  unsigned long long key[kRunItems];
+  bool in[kRunItems];
+  bool start[kRunItems];
+  unsigned starts;
+  unsigned r;
+};
+
+// `ticket` is the Control word the pass takes its tiles from. Returns false
+// for a block past the last key (the whole block).
+__device__ __forceinline__ bool load_run_tile(const unsigned long long* __restrict__ keys, int n, unsigned* ticket,
+                                              RunTile& t) {
+  __shared__ int tile_id;
+  if (threadIdx.x == 0) tile_id = static_cast<int>(atomicAdd(ticket, 1u));
+  __syncthreads();
+  t.tile = tile_id;
+  t.first = static_cast<long long>(t.tile) * kRunTile;
+  if (t.first >= n) return false;
+  t.n = static_cast<int>(min(static_cast<long long>(kRunTile), n - t.first));
+  t.mine0 = threadIdx.x * kRunItems;
+  const unsigned long long before = t.mine0 < t.n && t.first + t.mine0 > 0 ? keys[t.first + t.mine0 - 1] : ~0ull;
+#pragma unroll
+  for (int j = 0; j < kRunItems; ++j) {
+    t.in[j] = t.mine0 + j < t.n;
+    t.key[j] = t.in[j] ? keys[t.first + t.mine0 + j] : 0ull;
+  }
+  t.starts = 0;
+#pragma unroll
+  for (int j = 0; j < kRunItems; ++j) {
+    t.start[j] = t.in[j] && (t.first + t.mine0 + j == 0 || (j == 0 ? before : t.key[j - 1]) != t.key[j]);
+    t.starts += t.start[j];
+  }
+  return true;
+}
+
+__device__ __forceinline__ void number_runs(RunTile& t, unsigned* run_status) {
+  __shared__ unsigned tile_base;
+  unsigned tile_runs;
+  t.r = ks::block_exclusive_scan(t.starts, &tile_runs);
+  if (threadIdx.x < 32) {
+    const unsigned b = ks::warp_lookback(run_status, 1, t.tile, 1u, tile_runs);
+    if (threadIdx.x == 0) tile_base = b;
+  }
+  __syncthreads();
+  t.r += tile_base;
+}
+
+// The scratch of one call, in bytes from its start: the words that the
+// ranges pass zeroes first (control, pass status, run status), then
+// `part_rows` partial rows, two key and two value buffers, then `extra`
+// bytes of the caller's.
+struct Layout {
+  size_t status, run_status, zero_end, part, keys_a, keys_b, vals_a, vals_b, extra, total;
+};
+
+inline size_t up256(size_t x) { return (x + 255) / 256 * 256; }
+
+inline Layout layout(int n, size_t control_bytes = sizeof(VoxelControl), size_t extra_bytes = 0,
+                     int part_rows = kRangeBlocks) {
+  const size_t tiles = n > 0 ? (static_cast<size_t>(n) + ks::kTile - 1) / ks::kTile : 1;
+  const size_t run_tiles = n > 0 ? (static_cast<size_t>(n) + kRunTile - 1) / kRunTile : 1;
+  Layout l;
+  l.status = up256(control_bytes);
+  l.run_status = l.status + tiles * ks::kRadix * sizeof(unsigned);
+  l.zero_end = up256(l.run_status + run_tiles * sizeof(unsigned));
+  l.part = l.zero_end;
+  l.keys_a = up256(l.part + part_rows * kParts * sizeof(int));
+  l.keys_b = up256(l.keys_a + n * sizeof(unsigned long long));
+  l.vals_a = up256(l.keys_b + n * sizeof(unsigned long long));
+  l.vals_b = up256(l.vals_a + n * sizeof(unsigned));
+  l.extra = up256(l.vals_b + n * sizeof(unsigned));
+  l.total = up256(l.extra + extra_bytes);
+  return l;
+}
+
+// The pointers of a call's scratch.
+struct Scratch {
+  char* base;
+  unsigned* status;
+  unsigned* run_status;
+  int* part;
+  unsigned long long *keys_a, *keys_b;
+  unsigned *vals_a, *vals_b;
+  char* extra;
+  long long n_zero;  // words from `base` that the ranges pass zeroes
+};
+
+inline Scratch scratch_at(void* p, const Layout& l) {
+  char* base = static_cast<char*>(p);
+  return Scratch{base,
+                 reinterpret_cast<unsigned*>(base + l.status),
+                 reinterpret_cast<unsigned*>(base + l.run_status),
+                 reinterpret_cast<int*>(base + l.part),
+                 reinterpret_cast<unsigned long long*>(base + l.keys_a),
+                 reinterpret_cast<unsigned long long*>(base + l.keys_b),
+                 reinterpret_cast<unsigned*>(base + l.vals_a),
+                 reinterpret_cast<unsigned*>(base + l.vals_b),
+                 base + l.extra,
+                 static_cast<long long>(l.zero_end / sizeof(unsigned))};
+}
+
+// The ranges pass's grid: enough blocks for the larger of the lanes, the
+// output rows and the zeroed words, at most `cap` (the partial rows the
+// layout holds).
+inline int range_blocks_for(int n, long long out_rows, long long n_zero, int cap = kRangeBlocks) {
+  const long long work = std::max<long long>(n, std::max(out_rows, n_zero));
+  return std::max(1, std::min(lvs::blocks_for(work), cap));
+}
+
+// `voxel_keys` and the sort passes after a ranges pass of `range_blocks`
+// blocks: the sorted keys and lanes end in (keys_a, vals_a) when the pass
+// count is odd, else in (keys_b, vals_b).
+inline void launch_keys_and_sort(const float* xyz, const bool* mask, int n, float inv, int range_blocks,
+                                 const Scratch& s, cudaStream_t stream) {
+  auto* vc = reinterpret_cast<VoxelControl*>(s.base);
+  voxel_keys<<<std::min(lvs::blocks_for(n), kKeyBlocks), lvs::kThreads, 0, stream>>>(xyz, mask, n, inv, s.part,
+                                                                                      range_blocks, vc, s.keys_b);
+  ks::launch_passes(n, s.keys_a, s.vals_a, s.keys_b, s.vals_b, &vc->sort, s.status, stream);
+}
+
+}  // namespace

@@ -1,25 +1,61 @@
-// Kernel 2: NDT voxel-Gaussian map build, after the flat-key sort, with the
-// closed-form 3x3 eigh (linalg3.cuh) as a __device__ function.
+// Kernel 3: NDT voxel-Gaussian map build, the flat-key sort included, with
+// the closed-form 3x3 eigh (linalg3.cuh) as a __device__ function.
 //
-// Replaces: lv_slam_tpu/ops/voxel_map.py:66 `build_voxel_map` (the per-leaf
+// Replaces: lv_slam_tpu/ops/voxel_map.py:66 `build_voxel_map` (the voxel
+// keys relative to the masked minimum cell, the key sort, the per-leaf
 // moments, covariance, min-points rule, eigh, eq. 6.11 inflation, inverse
 // covariance and PCA weight) and lv_slam_tpu/ops/linalg3.py:25 `eigh3x3`.
 //
-// What bounds it on the card: per keyframe it reads 65536 sorted keys, the
-// permutation and the gathered points once and writes leaf_cap rows of
-// 3+9+1+3+1 values (about 2.3 MB at leaf_cap 32768): a few microseconds of
-// HBM traffic. The per-leaf math (a 28-float moment walk, one eigh, a 3x3
-// reconstruction) is a few hundred flops, so the kernel is latency-bound at
-// this size, and one thread per leaf keeps every leaf's math in registers.
+// What bounds it on the card: per keyframe it reads 65536 lanes of xyz and
+// mask once, sorts their keys and writes leaf_cap rows of 3+9+1+3+1 values
+// (about 2.3 MB at leaf_cap 32768): a few microseconds of HBM traffic. The
+// per-leaf math (a 28-float moment walk, one eigh, a 3x3 reconstruction) is
+// a few hundred flops, so the kernel is latency-bound at this size, and one
+// thread per leaf keeps every leaf's math in registers.
 //
-// Design: `mark_leaves` flags run starts of in-extent keys; the wrapper's
-// prefix sum turns them into leaf indices, so leaves come out in ascending key
-// order as in the reference. `build_leaves` runs one thread per run start,
-// walks the run sequentially (the reference's in-order segment_sum order, no
-// atomics), and writes the whole leaf row; the same launch zeroes the rows
-// no run reaches. Runs at or past leaf_cap are dropped, as the reference's
-// scratch bucket drops them. Each leaf's flat key is written beside it, so
-// that kernel K3L can scatter the dense LUT for the callers that probe one.
+// Design (`lvs_voxel_map`, one C call of 6 launches at e = 256, no host
+// read and no torch op between them; the shape of kernel 1's, with its
+// partial rows, scratch layout and run numbering from csrc/voxel_keys.cuh
+// and its passes from csrc/key_sort.cuh):
+// 1. `leaf_ranges` (at most 132 blocks, each thread a stride of lanes):
+//    the cell coordinates floor(x * (1/res)) of the unmasked lanes, as
+//    `ops/cells.cell_coords` takes them, each block's minima (masked lanes
+//    fold in 2^30, the twin's `where(mask, coords, BIG).amin`), maxima and
+//    unmasked count to its own partial row. The same launch zeroes the
+//    sort's words, `n_leaves` and every leaf row (key -1): a run pass
+//    overwrites the rows that runs reach.
+// 2. `leaf_keys`: every block reduces the partial rows. The origin is the
+//    masked minimum cell, 0 on an axis where it is 2^30 (no unmasked lane);
+//    block 0 writes it as `origin_cell`. An in-extent lane (unmasked, 0 <=
+//    rel < e on each axis) gets (rel0, rel1, rel2) packed most significant
+//    first, each field min(max - origin, e - 1) wide in bits: the flat key's
+//    order in <= 3 digit passes at e = 256 (torch.sort's int32 key took 4),
+//    fewer on a coarse map. Other lanes get kInvalidKey and are dropped (in
+//    the twin they sort behind every leaf and make none). The block counts
+//    each pass's digits and adds its in-extent lanes to the sort's count.
+// 3. ceil(3 * ceil(log2 e) / 8) launches of `key_sort_pass` (3 at e = 256
+//    and at e = 64): stable, so a voxel's points stay in input order; a pass
+//    past the key's width returns at once, on the device word.
+// 4. `leaf_runs`, a tile of sorted positions a block: run starts numbered
+//    by decoupled look-back give the leaf index; the tile's points are
+//    gathered into shared memory with every load issued at once; one
+//    thread per run start walks its run in sorted order there (a run that
+//    goes on past the tile: the block stages the following positions a
+//    tile at a time, every load at once, and the run's thread walks each
+//    staging), runs the per-leaf arithmetic (the moments centred on each
+//    point's cell centre, so |c| <= res/2 keeps the float32 second moments
+//    free of cancellation) and writes the whole leaf row with its flat key.
+//    Runs at or past leaf_cap are dropped, as the reference's scratch
+//    bucket drops them. The block adds its valid leaves to `n_leaves`
+//    (integer atomics: the total does not depend on the order).
+// Every leaf's sums keep the order and the arithmetic of the design this
+// replaced (`build_leaves`, one thread a run start after torch.sort), so the
+// outputs are bit for bit its outputs (`scripts/k3_parent.py` holds them so
+// on the card).
+//
+// Where the time goes: the longest run's thread. A voxel of the loop
+// detector's 4 m rung holds hundreds of points or more, and one voxel
+// holding every lane is one chain of n points: the sums must run in order.
 //
 // Kernel K3L replaces lv_slam_tpu/ops/voxel_map.py:177-181, the dense LUT
 // scatter inside `build_voxel_map`: an (E^3,) int32 table of -1 with each
@@ -32,7 +68,9 @@
 //   leaf is valid. Valid leaves have distinct keys, so every entry has at
 //   most one writer and the table is deterministic.
 #include "common.cuh"
+#include "key_sort.cuh"
 #include "linalg3.cuh"
+#include "voxel_keys.cuh"
 
 namespace {
 
@@ -41,14 +79,126 @@ __device__ __forceinline__ float jmax(float a, float b) {
   return (isnan(a) || isnan(b)) ? nanf("") : fmaxf(a, b);
 }
 
-__global__ void mark_leaves(const int* __restrict__ skey, int n, int overflow_key,
-                            int* __restrict__ flag) {
-  int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= n) return;
-  int k = skey[i];
-  bool start = (i == 0) || (k != skey[i - 1]);
-  flag[i] = (start && k < overflow_key) ? 1 : 0;
+struct MapControl {
+  ks::Control sort;
+  int origin[3];  // origin_cell
+  int b1, b2;     // bit widths of the rel1 and rel2 fields
+};
+
+__global__ void __launch_bounds__(lvs::kThreads) leaf_ranges(
+    const float* __restrict__ xyz, int xs, const bool* __restrict__ mask, int ms, int n, float inv,
+    int* __restrict__ part,
+    unsigned* __restrict__ zero, long long n_zero, int leaf_cap, float* __restrict__ means,
+    float* __restrict__ icovs, float* __restrict__ weights, float* __restrict__ normals, bool* __restrict__ valid,
+    int* __restrict__ keys, int* __restrict__ origin, int* __restrict__ n_leaves) {
+  __shared__ int row[kParts];
+  const long long stride = static_cast<long long>(gridDim.x) * blockDim.x;
+  const long long first = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
+  int v[kParts];
+  empty_ranges(v);
+#pragma unroll 4
+  for (long long i = first; i < n; i += stride) {
+    if (!mask[ms * i]) {
+      v[0] = min(v[0], kBigX);
+      v[2] = min(v[2], kBigX);
+      v[4] = min(v[4], kBigX);
+      continue;
+    }
+    const float* p = xyz + xs * i;
+    add_range(v, static_cast<int>(floorf(p[0] * inv)), static_cast<int>(floorf(p[1] * inv)),
+              static_cast<int>(floorf(p[2] * inv)));
+  }
+  block_ranges(v, row);
+  if (threadIdx.x < kParts) part[blockIdx.x * kParts + threadIdx.x] = row[threadIdx.x];
+  for (long long i = first; i < n_zero; i += stride) zero[i] = 0u;
+  for (long long i = first; i < 9ll * leaf_cap; i += stride) icovs[i] = 0.0f;
+  for (long long i = first; i < 3ll * leaf_cap; i += stride) {
+    means[i] = 0.0f;
+    normals[i] = 0.0f;
+  }
+  for (long long i = first; i < leaf_cap; i += stride) {
+    weights[i] = 0.0f;
+    valid[i] = false;
+    keys[i] = -1;
+  }
+  if (first == 0) {  // for n = 0, where no keys pass runs
+    origin[0] = origin[1] = origin[2] = 0;
+    *n_leaves = 0;
+  }
 }
+
+__global__ void __launch_bounds__(lvs::kThreads) leaf_keys(
+    const float* __restrict__ xyz, int xs, const bool* __restrict__ mask, int ms, int n, float inv, int e,
+    const int* __restrict__ part, int n_part, MapControl* mc, int* __restrict__ origin_cell,
+    unsigned long long* __restrict__ keys) {
+  __shared__ unsigned counts[ks::kMaxPasses][ks::kRadix];
+  __shared__ int range[kParts];
+  __shared__ unsigned block_valid;
+  if (threadIdx.x == 0) block_valid = 0u;
+  reduce_parts(part, n_part, counts, range);  // ends with a barrier
+  int o[3], w[3];
+#pragma unroll
+  for (int k = 0; k < 3; ++k) {
+    o[k] = range[2 * k] == kBigX ? 0 : range[2 * k];
+    const long long span = min(max(static_cast<long long>(range[2 * k + 1]) - o[k], 0ll),
+                               static_cast<long long>(e - 1));
+    w[k] = range[6] ? bit_width(static_cast<unsigned>(span)) : 0;
+  }
+  const int n_passes = max(1, (w[0] + w[1] + w[2] + ks::kDigitBits - 1) / ks::kDigitBits);
+  if (blockIdx.x == 0 && threadIdx.x == 0) {
+    mc->sort.n_passes = n_passes;
+    mc->b1 = w[1];
+    mc->b2 = w[2];
+#pragma unroll
+    for (int k = 0; k < 3; ++k) mc->origin[k] = origin_cell[k] = o[k];
+  }
+  unsigned mine = 0;
+  const long long stride = static_cast<long long>(gridDim.x) * blockDim.x;
+  for (long long i = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x; i < n; i += stride) {
+    unsigned long long key = ks::kInvalidKey;
+    if (mask[ms * i]) {
+      int rel[3];
+      bool in = true;
+#pragma unroll
+      for (int k = 0; k < 3; ++k) {  // int32 differences, wrapping as the twin's
+        rel[k] = static_cast<int>(static_cast<unsigned>(static_cast<int>(floorf(xyz[xs * i + k] * inv))) -
+                                  static_cast<unsigned>(o[k]));
+        in = in && rel[k] >= 0 && rel[k] < e;
+      }
+      if (in) {
+        key = (static_cast<unsigned long long>(rel[0]) << (w[1] + w[2])) |
+              (static_cast<unsigned long long>(rel[1]) << w[2]) | static_cast<unsigned long long>(rel[2]);
+        ks::count_digits(counts, key, n_passes);
+        ++mine;
+      }
+    }
+    keys[i] = key;
+  }
+  mine = lvs::warp_sum(mine);
+  if ((threadIdx.x & 31) == 0 && mine) atomicAdd(&block_valid, mine);
+  __syncthreads();
+  ks::flush_digits(counts, n_passes, &mc->sort);
+  if (threadIdx.x == 0 && block_valid) atomicAdd(reinterpret_cast<unsigned*>(&mc->sort.n_valid), block_valid);
+}
+
+// One voxel's sums, point by point in sorted order: moments centred on each
+// point's cell centre (|c| <= res/2 keeps the float32 second moments free
+// of cancellation).
+struct Sums {
+  float cnt = 0.0f, s0 = 0.0f, s1 = 0.0f, s2 = 0.0f;
+  float s00 = 0.0f, s01 = 0.0f, s02 = 0.0f, s11 = 0.0f, s12 = 0.0f, s22 = 0.0f;
+
+  __device__ __forceinline__ void add(float px, float py, float pz, float res, float inv_res) {
+    const float p[3] = {px, py, pz};
+    float c[3];
+#pragma unroll
+    for (int a = 0; a < 3; ++a) c[a] = p[a] - (floorf(p[a] * inv_res) + 0.5f) * res;
+    cnt += 1.0f;
+    s0 += c[0]; s1 += c[1]; s2 += c[2];
+    s00 += c[0] * c[0]; s01 += c[0] * c[1]; s02 += c[0] * c[2];
+    s11 += c[1] * c[1]; s12 += c[1] * c[2]; s22 += c[2] * c[2];
+  }
+};
 
 __device__ void zero_leaf(int l, float* means, float* icovs, float* weights, float* normals,
                           bool* valid, int* keys, int key) {
@@ -60,43 +210,17 @@ __device__ void zero_leaf(int l, float* means, float* icovs, float* weights, flo
   valid[l] = false;
 }
 
-__global__ void build_leaves(const int* __restrict__ skey, const long long* __restrict__ order,
-                             const int* __restrict__ flag, const int* __restrict__ cum, int n,
-                             const float* __restrict__ xyz, const int* __restrict__ origin,
-                             float res, float inv_res, int e, int leaf_cap, int min_points,
-                             float eig_mult, int weighted, float* __restrict__ means,
-                             float* __restrict__ icovs, float* __restrict__ weights,
-                             float* __restrict__ normals, bool* __restrict__ valid,
-                             int* __restrict__ keys) {
-  int t = blockIdx.x * blockDim.x + threadIdx.x;
-  int n_runs = n > 0 ? cum[n - 1] : 0;
-  if (t < leaf_cap && t >= n_runs) zero_leaf(t, means, icovs, weights, normals, valid, keys, -1);
-  if (t >= n || !flag[t]) return;
-  int leaf = cum[t] - 1;
-  if (leaf >= leaf_cap) return;
-  int key = skey[t];
-
-  // moments centered on each point's cell center: |c| <= res/2 keeps the
-  // float32 second moments free of cancellation
-  float cnt = 0.0f, s0 = 0.0f, s1 = 0.0f, s2 = 0.0f;
-  float s00 = 0.0f, s01 = 0.0f, s02 = 0.0f, s11 = 0.0f, s12 = 0.0f, s22 = 0.0f;
-  for (int j = t; j < n && skey[j] == key; ++j) {
-    long long src = order[j];
-    float p[3], c[3];
-    for (int a = 0; a < 3; ++a) {
-      p[a] = xyz[3 * src + a];
-      c[a] = p[a] - (floorf(p[a] * inv_res) + 0.5f) * res;
-    }
-    cnt += 1.0f;
-    s0 += c[0]; s1 += c[1]; s2 += c[2];
-    s00 += c[0] * c[0]; s01 += c[0] * c[1]; s02 += c[0] * c[2];
-    s11 += c[1] * c[1]; s12 += c[1] * c[2]; s22 += c[2] * c[2];
-  }
-  float m0 = s0 / cnt, m1 = s1 / cnt, m2 = s2 / cnt;
+// The leaf row of one voxel from its sums; returns whether the leaf is valid.
+__device__ __noinline__ bool write_leaf(Sums mo, int leaf, int key, const int* origin, float res, int e, int min_points,
+                           float eig_mult, int weighted, float* __restrict__ means, float* __restrict__ icovs,
+                           float* __restrict__ weights, float* __restrict__ normals, bool* __restrict__ valid,
+                           int* __restrict__ keys) {
+  const float cnt = mo.cnt;
+  float m0 = mo.s0 / cnt, m1 = mo.s1 / cnt, m2 = mo.s2 / cnt;
   float f = (cnt - 1.0f) / cnt;
-  float cv00 = (s00 / cnt - m0 * m0) * f, cv01 = (s01 / cnt - m0 * m1) * f;
-  float cv02 = (s02 / cnt - m0 * m2) * f, cv11 = (s11 / cnt - m1 * m1) * f;
-  float cv12 = (s12 / cnt - m1 * m2) * f, cv22 = (s22 / cnt - m2 * m2) * f;
+  float cv00 = (mo.s00 / cnt - m0 * m0) * f, cv01 = (mo.s01 / cnt - m0 * m1) * f;
+  float cv02 = (mo.s02 / cnt - m0 * m2) * f, cv11 = (mo.s11 / cnt - m1 * m1) * f;
+  float cv12 = (mo.s12 / cnt - m1 * m2) * f, cv22 = (mo.s22 / cnt - m2 * m2) * f;
 
   // world mean = leaf cell center + centered mean
   int kz = key % e, ky = (key / e) % e, kx = key / (e * e);
@@ -105,8 +229,9 @@ __global__ void build_leaves(const int* __restrict__ skey, const long long* __re
                    (static_cast<float>(kz + origin[2]) + 0.5f) * res + m2};
 
   bool occupied = cnt >= static_cast<float>(min_points);
-  if (!occupied) {  // the reference decomposes the identity here, then zeroes the leaf
-    cv00 = 1.0f; cv01 = 0.0f; cv02 = 0.0f; cv11 = 1.0f; cv12 = 0.0f; cv22 = 1.0f;
+  if (!occupied) {  // the reference decomposes the identity here, then zeroes the leaf: no eigh needed
+    zero_leaf(leaf, means, icovs, weights, normals, valid, keys, key);
+    return false;
   }
   float ev[3];
   lvs::Vec3 vec[3];
@@ -134,10 +259,10 @@ __global__ void build_leaves(const int* __restrict__ skey, const long long* __re
       finite = finite && isfinite(s);
     }
   }
-  bool ok = occupied && pos_def && finite;
+  bool ok = pos_def && finite;
   if (!ok) {
     zero_leaf(leaf, means, icovs, weights, normals, valid, keys, key);
-    return;
+    return false;
   }
   float w = 1.0f;
   if (weighted) {
@@ -159,6 +284,166 @@ __global__ void build_leaves(const int* __restrict__ skey, const long long* __re
   weights[leaf] = w;
   valid[leaf] = true;
   keys[leaf] = key;
+  return true;
+}
+
+// The flat key (rel0 * e + rel1) * e + rel2 of a packed key whose rel1 and
+// rel2 fields are b1 and b2 bits wide.
+__device__ __forceinline__ int flat_key(unsigned long long key, int b1, int b2, int e) {
+  const int rel0 = static_cast<int>(key >> (b1 + b2));
+  const int rel1 = static_cast<int>((key >> b2) & ((1ull << b1) - 1));
+  const int rel2 = static_cast<int>(key & ((1ull << b2) - 1));
+  return (rel0 * e + rel1) * e + rel2;
+}
+
+constexpr int kWalk = 4;  // positions a walk step adds at once
+
+// Adds the run of `key` to `mo` from staged position m on, in sorted order,
+// while positions below `end` hold it; returns the position past the run's
+// last. Staged positions are consecutive sorted ones and a run's positions
+// are contiguous, so where the kWalk-th position ahead holds the key, every
+// one before it does: those steps move kWalk points to the centred frame
+// independently, then add them in order (each sum's order is the run's),
+// with the next step's key and points read first. The last steps go one
+// position at a time, each reading the next position before it adds its
+// own.
+__device__ __forceinline__ int walk(const unsigned long long* tile_key, const float4* tile_point, int m, int end,
+                                    unsigned long long key, Sums& mo, float res, float inv_res) {
+  if (m + kWalk <= end && tile_key[m + kWalk - 1] == key) {
+    float4 p[kWalk];
+#pragma unroll
+    for (int q = 0; q < kWalk; ++q) p[q] = tile_point[m + q];
+    for (;;) {  // the next step's key and points are read before this step's adds
+      const int next = m + kWalk;
+      const bool more = next + kWalk <= end && tile_key[min(next + kWalk, end) - 1] == key;
+      float4 np[kWalk];
+#pragma unroll
+      for (int q = 0; q < kWalk; ++q) np[q] = tile_point[min(next + q, end - 1)];
+#pragma unroll
+      for (int q = 0; q < kWalk; ++q) mo.add(p[q].x, p[q].y, p[q].z, res, inv_res);
+      m = next;
+      if (!more) break;
+#pragma unroll
+      for (int q = 0; q < kWalk; ++q) p[q] = np[q];
+    }
+  }
+  if (m >= end) return m;
+  unsigned long long k = tile_key[m];
+  float4 p = tile_point[m];
+  while (k == key) {
+    const int next = m + 1 < end ? m + 1 : m;
+    const unsigned long long next_key = tile_key[next];
+    const float4 next_p = tile_point[next];
+    mo.add(p.x, p.y, p.z, res, inv_res);
+    ++m;
+    k = m < end ? next_key : ~key;
+    p = next_p;
+  }
+  return m;
+}
+
+// One tile of the sorted keys a block, kRunItems consecutive positions a
+// thread: run r's leaf into row r when r < leaf_cap. The tile's points are
+// gathered into shared memory at once, and each run start's thread walks
+// its run there. The tile's last run may go on past the tile (a voxel of
+// more points than a tile holds, or one that straddles two): then the block
+// stages the following positions kRunTile at a time (every thread's loads
+// at once) and that run's thread walks each staging in turn.
+__global__ void __launch_bounds__(ks::kThreads) leaf_runs(
+    const unsigned long long* __restrict__ keys_a, const unsigned* __restrict__ vals_a,
+    const unsigned long long* __restrict__ keys_b, const unsigned* __restrict__ vals_b, MapControl* mc,
+    unsigned* run_status, const float* __restrict__ xyz, int xs, float res, float inv_res, int e, int leaf_cap,
+    int min_points, float eig_mult, int weighted, float* __restrict__ means, float* __restrict__ icovs,
+    float* __restrict__ weights, float* __restrict__ normals, bool* __restrict__ valid, int* __restrict__ keys,
+    int* __restrict__ n_leaves) {
+  __shared__ unsigned long long tile_key[kRunTile];
+  __shared__ float4 tile_point[kRunTile];
+  __shared__ unsigned block_leaves;
+  __shared__ unsigned long long carry_key;  // the key of the run that goes on past the tile
+  __shared__ int carry;                     // 0: none, 1: the block stages for it, 2: it has ended
+  const int n = mc->sort.n_valid;
+  const bool in_a = (mc->sort.n_passes & 1) != 0;
+  const unsigned long long* __restrict__ skeys = in_a ? keys_a : keys_b;
+  const unsigned* __restrict__ vals = in_a ? vals_a : vals_b;
+  RunTile t;
+  if (!load_run_tile(skeys, n, &mc->sort.tickets[ks::kMaxPasses], t)) return;  // whole block
+  if (threadIdx.x == 0) {
+    block_leaves = 0u;
+    carry = 0;
+  }
+  unsigned src[kRunItems];
+#pragma unroll
+  for (int j = 0; j < kRunItems; ++j) src[j] = t.in[j] ? vals[t.first + t.mine0 + j] : 0u;
+#pragma unroll
+  for (int j = 0; j < kRunItems; ++j) {
+    if (t.in[j]) {
+      tile_key[t.mine0 + j] = t.key[j];
+      const float* p = xyz + static_cast<long long>(xs) * src[j];
+      tile_point[t.mine0 + j] = make_float4(p[0], p[1], p[2], 0.0f);
+    }
+  }
+  number_runs(t, run_status);  // ends with a barrier
+  unsigned r = t.r, mine = 0;
+  const int b1 = mc->b1, b2 = mc->b2;
+  bool carrier = false;  // this thread's last run goes on past the tile
+  Sums carried;
+  unsigned carried_row = 0;
+  unsigned long long carried_key = 0;
+
+#pragma unroll
+  for (int j = 0; j < kRunItems; ++j) {
+    if (!t.start[j]) continue;
+    const unsigned row = r++;
+    if (row >= static_cast<unsigned>(leaf_cap)) continue;
+    Sums mo;
+    const int m = walk(tile_key, tile_point, t.mine0 + j, t.n, t.key[j], mo, res, inv_res);
+    if (m == kRunTile && t.first + kRunTile < n) {
+      carrier = true;
+      carried = mo;
+      carried_row = row;
+      carried_key = t.key[j];
+      carry_key = t.key[j];
+      carry = 1;
+      continue;
+    }
+    mine += write_leaf(mo, static_cast<int>(row), flat_key(t.key[j], b1, b2, e), mc->origin, res, e, min_points,
+                       eig_mult, weighted, means, icovs, weights, normals, valid, keys);
+  }
+  __syncthreads();
+  if (carry == 1) {  // the whole block: every thread read carry after the barrier
+    const unsigned long long key = carry_key;
+    for (long long base = t.first + kRunTile;; base += kRunTile) {
+      const int count = static_cast<int>(min(static_cast<long long>(kRunTile), n - base));
+      unsigned long long k[kRunItems];
+      unsigned at[kRunItems];
+#pragma unroll
+      for (int j = 0; j < kRunItems; ++j) k[j] = t.mine0 + j < count ? skeys[base + t.mine0 + j] : ~key;
+#pragma unroll
+      for (int j = 0; j < kRunItems; ++j) at[j] = k[j] == key ? vals[base + t.mine0 + j] : 0u;
+#pragma unroll
+      for (int j = 0; j < kRunItems; ++j) {
+        tile_key[t.mine0 + j] = k[j];
+        if (k[j] == key) {
+          const float* p = xyz + static_cast<long long>(xs) * at[j];
+          tile_point[t.mine0 + j] = make_float4(p[0], p[1], p[2], 0.0f);
+        }
+      }
+      __syncthreads();
+      if (carrier) {
+        const int m = walk(tile_key, tile_point, 0, count, key, carried, res, inv_res);
+        if (m < count || base + kRunTile >= n) carry = 2;
+      }
+      __syncthreads();
+      if (carry == 2) break;
+    }
+    if (carrier)
+      mine += write_leaf(carried, static_cast<int>(carried_row), flat_key(carried_key, b1, b2, e), mc->origin, res,
+                         e, min_points, eig_mult, weighted, means, icovs, weights, normals, valid, keys);
+  }
+  mine = lvs::warp_sum(mine);
+  if ((threadIdx.x & 31) == 0 && mine) atomicAdd(&block_leaves, mine);
+  __syncthreads();
+  if (threadIdx.x == 0 && block_leaves) atomicAdd(n_leaves, static_cast<int>(block_leaves));
 }
 
 // ---------------------------------------------------------------- kernel K3L
@@ -180,23 +465,42 @@ __global__ void lut_scatter(const int* __restrict__ keys, const bool* __restrict
 
 }  // namespace
 
-extern "C" int lvs_voxel_map_mark(const int* skey, int n, int overflow_key, int* flag,
-                                  cudaStream_t stream) {
-  if (n > 0) mark_leaves<<<lvs::blocks_for(n), lvs::kThreads, 0, stream>>>(skey, n, overflow_key, flag);
-  LVS_RETURN_LAST_ERROR();
-}
+Layout map_layout(int n) { return layout(n, sizeof(MapControl)); }
 
-extern "C" int lvs_voxel_map_build(const int* skey, const long long* order, const int* flag,
-                                   const int* cum, int n, const float* xyz, const int* origin,
-                                   float res, float inv_res, int e, int leaf_cap, int min_points,
-                                   float eig_mult, int weighted, float* means, float* icovs,
-                                   float* weights, float* normals, bool* valid, int* keys,
-                                   cudaStream_t stream) {
-  int threads = n > leaf_cap ? n : leaf_cap;
-  if (threads > 0)
-    build_leaves<<<lvs::blocks_for(threads), lvs::kThreads, 0, stream>>>(
-        skey, order, flag, cum, n, xyz, origin, res, inv_res, e, leaf_cap, min_points, eig_mult,
-        weighted, means, icovs, weights, normals, valid, keys);
+extern "C" long long lvs_voxel_map_scratch_bytes(int n) { return static_cast<long long>(map_layout(n).total); }
+
+// xyz (n, 3) and mask (n,) of the cloud, lane i's point at xyz + xs * i and
+// its flag at mask + ms * i (a strided subsample is read in place);
+// outputs leaf_cap rows, origin (3,) and n_leaves (); scratch of
+// lvs_voxel_map_scratch_bytes(n) bytes. The flat key (rel0 * e + rel1) * e
+// + rel2 must fit an int: 1 <= e <= 1290.
+extern "C" int lvs_voxel_map(const float* xyz, int xs, const bool* mask, int ms, int n, float res, float inv_res,
+                             int e, int leaf_cap,
+                             int min_points, float eig_mult, int weighted, void* scratch, long long scratch_bytes,
+                             float* means, float* icovs, float* weights, float* normals, bool* valid, int* keys,
+                             int* origin, int* n_leaves, cudaStream_t stream) {
+  if (n < 0 || n > ks::kMaxKeys || leaf_cap < 0 || e < 1 || e > 1290 || xs < 3 || ms < 1)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const Layout l = map_layout(n);
+  if (scratch_bytes < static_cast<long long>(l.total)) return static_cast<int>(cudaErrorInvalidValue);
+  const Scratch s = scratch_at(scratch, l);
+  auto* mc = reinterpret_cast<MapControl*>(s.base);
+  const int range_blocks = range_blocks_for(n, 9ll * leaf_cap, s.n_zero);
+  leaf_ranges<<<range_blocks, lvs::kThreads, 0, stream>>>(xyz, xs, mask, ms, n, inv_res, s.part,
+                                                          reinterpret_cast<unsigned*>(s.base), s.n_zero, leaf_cap,
+                                                          means, icovs, weights, normals, valid, keys, origin,
+                                                          n_leaves);
+  if (n == 0) LVS_RETURN_LAST_ERROR();
+  leaf_keys<<<std::min(lvs::blocks_for(n), kKeyBlocks), lvs::kThreads, 0, stream>>>(
+      xyz, xs, mask, ms, n, inv_res, e, s.part, range_blocks, mc, origin, s.keys_b);
+  // each key field is at most bit_width(e - 1) wide: at e = 256, 24 bits in 3 passes
+  int field_bits = 0;
+  while ((1 << field_bits) < e) ++field_bits;
+  const int max_passes = std::max(1, (3 * field_bits + ks::kDigitBits - 1) / ks::kDigitBits);
+  ks::launch_passes(n, s.keys_a, s.vals_a, s.keys_b, s.vals_b, &mc->sort, s.status, stream, max_passes);
+  leaf_runs<<<(n + kRunTile - 1) / kRunTile, ks::kThreads, 0, stream>>>(
+      s.keys_a, s.vals_a, s.keys_b, s.vals_b, mc, s.run_status, xyz, xs, res, inv_res, e, leaf_cap, min_points,
+      eig_mult, weighted, means, icovs, weights, normals, valid, keys, n_leaves);
   LVS_RETURN_LAST_ERROR();
 }
 

@@ -25,6 +25,7 @@ its wrapper adds one where it launches, and nowhere else.
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
 import os
 import subprocess
@@ -148,17 +149,32 @@ class Kernel:
             raise RuntimeError(f"{self.name}: {entry} failed with CUDA error {err} ({msg})")
 
 
+MAX_SORT_LANES = (1 << 27) - 1  # csrc/key_sort.cuh: its tile status words count below 2^27
+
+
+@functools.lru_cache(maxsize=256)
+def scratch_bytes(entry: str, n: int) -> int:
+    """Bytes of scratch that a kernel's C side lays out for `n` lanes, from its
+    `lvs_*_scratch_bytes(n)` entry."""
+    fn = getattr(LIBRARY.load(), entry)
+    fn.argtypes, fn.restype = [ctypes.c_int], ctypes.c_longlong
+    return int(fn(n))
+
+
 def ptr(t: torch.Tensor) -> ctypes.c_void_p:
     return ctypes.c_void_p(t.data_ptr())
 
 
-def check_cuda(name: str, *tensors: torch.Tensor) -> None:
-    """The tensors a kernel reads or writes are contiguous CUDA tensors on one device."""
+def check_cuda(name: str, *tensors: torch.Tensor, lane_strided: bool = False) -> None:
+    """The tensors a kernel reads or writes are contiguous CUDA tensors on one
+    device; with `lane_strided`, rows (dimension 0) may lie any positive
+    stride apart, each row contiguous."""
     dev = tensors[0].device
     for t in tensors:
         if t.device.type != "cuda" or t.device != dev:
             raise ValueError(f"{name}: expected CUDA tensors on {dev}, got one on {t.device}")
-        if not t.is_contiguous():
+        rows_ok = lane_strided and t.dim() > 0 and t.stride(0) > 0 and t[:1].is_contiguous()
+        if not (t.is_contiguous() or rows_ok):
             raise ValueError(f"{name}: expected contiguous tensors, got strides {t.stride()}")
 
 

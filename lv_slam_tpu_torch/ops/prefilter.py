@@ -8,17 +8,17 @@ plain twin, on CPU tensors. The twin sorts the 64-bit voxel key with
 `torch.sort`; the hand kernel sorts a key rebased into the fewest bits with
 its own radix passes and reduces the runs, with no torch op between its
 launches.
-`voxel_dedup_first` is kernel 1b (`csrc/voxel_dedup.cu`) and
-`voxel_dedup_first_ref` likewise: the same key and sort, then the first lane
-of each voxel, compacted in key order. `vertical_angle_calibration` is
-kernel 0a (`csrc/angle_calibration.cu`) and `vertical_angle_calibration_ref`
-likewise. The outlier removals are `ops.nn`'s kernel 18.
+`voxel_dedup_first` is kernel 1b (`csrc/voxel_dedup.cu`, over kernel 1's key
+front end and sort) and `voxel_dedup_first_ref` likewise: the same key and
+sort, then the first lane of each voxel, compacted in key order.
+`vertical_angle_calibration` is kernel 0a (`csrc/angle_calibration.cu`) and
+`vertical_angle_calibration_ref` likewise. The outlier removals are
+`ops.nn`'s kernel 18.
 """
 
 from __future__ import annotations
 
 import ctypes
-import functools
 from typing import Tuple
 
 import numpy as np
@@ -26,7 +26,7 @@ import torch
 
 from lv_slam_tpu_torch.config import PrefilterConfig
 from lv_slam_tpu_torch.core.cloud import SENTINEL, PointCloud
-from lv_slam_tpu_torch.kernels._build import F32, I32, LIBRARY, PTR, Kernel, check_cuda, ptr
+from lv_slam_tpu_torch.kernels._build import F32, I32, MAX_SORT_LANES, PTR, Kernel, check_cuda, ptr, scratch_bytes
 from lv_slam_tpu_torch.ops import nn
 from lv_slam_tpu_torch.ops.cells import cell_coords, inv_resolution
 from lv_slam_tpu_torch.ops.linalg3 import dot3_fma, fma32, sqrt32
@@ -43,7 +43,6 @@ KERNEL = Kernel(
         "lvs_voxel_downsample": [PTR, PTR, PTR, I32, F32, F32, I32, I32, PTR, ctypes.c_longlong, PTR, PTR, PTR],
     },
 )
-_MAX_LANES = (1 << 27) - 1  # the sort's tile status words count below 2^27
 
 
 CALIBRATION_KERNEL = Kernel(
@@ -149,11 +148,7 @@ DEDUP_KERNEL = Kernel(
     "voxel_dedup_first",
     source="lv_slam_tpu_torch/csrc/voxel_dedup.cu",
     replaces="lv_slam_tpu/ops/prefilter.py:203",
-    entries={
-        "lvs_dedup_keys": [PTR, PTR, I32, F32, PTR],
-        "lvs_dedup_mark": [PTR, I32, PTR],
-        "lvs_dedup_compact": [PTR, PTR, PTR, I32, PTR, PTR, I32, PTR, PTR, PTR],
-    },
+    entries={"lvs_voxel_dedup": [PTR, PTR, PTR, I32, F32, I32, PTR, ctypes.c_longlong, PTR, PTR, PTR]},
 )
 
 
@@ -176,12 +171,12 @@ def voxel_downsample(
     if cloud.xyz.dtype != torch.float32 or cloud.intensity.dtype != torch.float32:
         raise ValueError("voxel_downsample: expected float32 xyz and intensity")
     n = cloud.cap
-    if n > _MAX_LANES:
-        raise ValueError(f"voxel_downsample: {n} lanes exceed the key sort's {_MAX_LANES}")
+    if n > MAX_SORT_LANES:
+        raise ValueError(f"voxel_downsample: {n} lanes exceed the key sort's {MAX_SORT_LANES}")
     xyz, inten, mask = cloud.xyz.contiguous(), cloud.intensity.contiguous(), cloud.mask.contiguous()
     check_cuda("voxel_downsample", xyz, inten, mask)
     dev = xyz.device
-    scratch = torch.empty((_scratch_bytes(n),), dtype=torch.uint8, device=dev)
+    scratch = torch.empty((scratch_bytes("lvs_voxel_scratch_bytes", n),), dtype=torch.uint8, device=dev)
     out_xyz = torch.empty((out_cap, 3), dtype=torch.float32, device=dev)
     out_int = torch.empty((out_cap,), dtype=torch.float32, device=dev)
     out_mask = torch.empty((out_cap,), dtype=torch.bool, device=dev)
@@ -192,14 +187,6 @@ def voxel_downsample(
     )
     KERNEL.launches += 1
     return PointCloud(out_xyz, out_int, out_mask)
-
-
-@functools.lru_cache(maxsize=64)
-def _scratch_bytes(n: int) -> int:
-    """Bytes of kernel 1's scratch for `n` lanes (the C side's layout)."""
-    fn = LIBRARY.load().lvs_voxel_scratch_bytes
-    fn.argtypes, fn.restype = [ctypes.c_int], ctypes.c_longlong
-    return int(fn(n))
 
 
 def reduce_runs(kernel: Kernel, skey: torch.Tensor, order: torch.Tensor, xyz: torch.Tensor, inten: torch.Tensor,
@@ -291,34 +278,21 @@ def voxel_dedup_first(cloud: PointCloud, resolution: float, out_cap: int) -> Poi
     if cloud.xyz.dtype != torch.float32 or cloud.intensity.dtype != torch.float32:
         raise ValueError("voxel_dedup_first: expected float32 xyz and intensity")
     n = cloud.cap
+    if n > MAX_SORT_LANES:
+        raise ValueError(f"voxel_dedup_first: {n} lanes exceed the key sort's {MAX_SORT_LANES}")
+    out_cap = min(n, out_cap)
     xyz, inten, mask = cloud.xyz.contiguous(), cloud.intensity.contiguous(), cloud.mask.contiguous()
     check_cuda("voxel_dedup_first", xyz, inten, mask)
-    key = torch.empty((n,), dtype=torch.int64, device=xyz.device)
-    DEDUP_KERNEL.call("lvs_dedup_keys", ptr(xyz), ptr(mask), n, inv_resolution(resolution), ptr(key))
-    out = dedup_compact(DEDUP_KERNEL, key, xyz, inten, out_cap)
-    DEDUP_KERNEL.launches += 1
-    return out
-
-
-def dedup_compact(kernel: Kernel, key: torch.Tensor, xyz: torch.Tensor, inten: torch.Tensor,
-                  out_cap: int) -> PointCloud:
-    """The stable key sort (torch glue) and the run-start compaction of
-    `csrc/voxel_dedup.cu`, launched for `kernel` (K1b, or K2 after its
-    gather + transform pass)."""
-    n = key.shape[0]
-    out_cap = min(n, out_cap)
-    dev = key.device
-    skey, order = torch.sort(key, stable=True)
-    flag = torch.empty((n,), dtype=torch.int32, device=dev)
+    dev = xyz.device
+    scratch = torch.empty((scratch_bytes("lvs_voxel_scratch_bytes", n),), dtype=torch.uint8, device=dev)
     out_xyz = torch.empty((out_cap, 3), dtype=torch.float32, device=dev)
     out_int = torch.empty((out_cap,), dtype=torch.float32, device=dev)
     out_mask = torch.empty((out_cap,), dtype=torch.bool, device=dev)
-    kernel.call("lvs_dedup_mark", ptr(skey), n, ptr(flag))
-    cum = torch.cumsum(flag, dim=0, dtype=torch.int32)  # run index + 1 at each run start
-    kernel.call(
-        "lvs_dedup_compact", ptr(order), ptr(flag), ptr(cum), n, ptr(xyz), ptr(inten), out_cap,
-        ptr(out_xyz), ptr(out_int), ptr(out_mask),
+    DEDUP_KERNEL.call(
+        "lvs_voxel_dedup", ptr(xyz), ptr(inten), ptr(mask), n, inv_resolution(resolution), out_cap, ptr(scratch),
+        scratch.numel(), ptr(out_xyz), ptr(out_int), ptr(out_mask),
     )
+    DEDUP_KERNEL.launches += 1
     return PointCloud(out_xyz, out_int, out_mask)
 
 

@@ -1,10 +1,12 @@
 """Voxel-Gaussian NDT map build, its dense voxel->leaf LUT and the DIRECT
 neighbourhood lookup (port of `lv_slam_tpu.ops.voxel_map`).
 
-`build_voxel_map` is kernel 2 (`csrc/voxel_map.cu`, with the 3x3 eigh of
+`build_voxel_map` is kernel 3 (`csrc/voxel_map.cu`, with the 3x3 eigh of
 `csrc/linalg3.cuh`) on CUDA tensors and `build_voxel_map_ref`, its plain
-twin, on CPU tensors. Both sort the same flat voxel key with `torch.sort`;
-the hand kernel does the per-leaf work after the sort.
+twin, on CPU tensors. The twin sorts the flat voxel key with `torch.sort`;
+the hand kernel sorts the same order in a key of the fewest bits with its
+own radix passes (`csrc/key_sort.cuh`) and builds the leaves, one C call
+with no torch op between its launches.
 
 The reference builds the dense LUT inside every map build. The port's
 `VoxelMap` carries each leaf's flat key instead, and `build_lut` (kernel
@@ -17,6 +19,7 @@ generic derivative pass, in plain PyTorch.
 
 from __future__ import annotations
 
+import ctypes
 import functools
 from typing import NamedTuple
 
@@ -24,11 +27,14 @@ import numpy as np
 import torch
 
 from lv_slam_tpu_torch.core.cloud import PointCloud
-from lv_slam_tpu_torch.kernels._build import F32, I32, PTR, Kernel, check_cuda, check_dtype, ptr
+from lv_slam_tpu_torch.kernels._build import (
+    F32, I32, MAX_SORT_LANES, PTR, Kernel, check_cuda, check_dtype, ptr, scratch_bytes,
+)
 from lv_slam_tpu_torch.ops.linalg3 import eigh3x3
 from lv_slam_tpu_torch.ops.cells import cell_coords, inv_resolution
 
 _BIG = 1 << 30
+_MAX_EXTENT = 1290  # the kernel's flat key (rel0 * e + rel1) * e + rel2 is an int32
 
 LUT_KERNEL = Kernel(
     "build_lut",
@@ -41,10 +47,9 @@ KERNEL = Kernel(
     source="lv_slam_tpu_torch/csrc/voxel_map.cu",
     replaces="lv_slam_tpu/ops/voxel_map.py:66",
     entries={
-        "lvs_voxel_map_mark": [PTR, I32, I32, PTR],
-        "lvs_voxel_map_build": [
-            PTR, PTR, PTR, PTR, I32, PTR, PTR, F32, F32, I32, I32, I32, F32, I32,
-            PTR, PTR, PTR, PTR, PTR, PTR,
+        "lvs_voxel_map": [
+            PTR, I32, PTR, I32, I32, F32, F32, I32, I32, I32, F32, I32, PTR, ctypes.c_longlong,
+            PTR, PTR, PTR, PTR, PTR, PTR, PTR, PTR,
         ],
     },
 )
@@ -136,30 +141,38 @@ def build_voxel_map(
         raise ValueError("build_voxel_map: expected float32 xyz")
     e = lut_extent
     n = cloud.cap
-    dev = cloud.xyz.device
-    skeys, order, xyz, origin = _leaf_sort(cloud, resolution, e)
-    check_cuda("build_voxel_map", skeys, order, xyz, origin)
-    flag = torch.empty((n,), dtype=torch.int32, device=dev)
+    if n > MAX_SORT_LANES:
+        raise ValueError(f"build_voxel_map: {n} lanes exceed the key sort's {MAX_SORT_LANES}")
+    if not 1 <= e <= _MAX_EXTENT:
+        raise ValueError(f"build_voxel_map: lut_extent {e} outside [1, {_MAX_EXTENT}]")
+    xyz, mask = cloud.xyz, cloud.mask  # a lane-strided subsample is read in place
+    if xyz.dim() != 2 or xyz.stride(1) != 1 or xyz.stride(0) < 3:
+        xyz = xyz.contiguous()
+    if mask.dim() != 1 or mask.stride(0) < 1:
+        mask = mask.contiguous()
+    check_cuda("build_voxel_map", xyz, mask, lane_strided=True)
+    check_dtype("build_voxel_map", xyz, torch.float32, (n, 3))
+    check_dtype("build_voxel_map", mask, torch.bool, (n,))
+    dev = xyz.device
+    scratch = torch.empty((scratch_bytes("lvs_voxel_map_scratch_bytes", n),), dtype=torch.uint8, device=dev)
     means = torch.empty((leaf_cap, 3), dtype=torch.float32, device=dev)
     icovs = torch.empty((leaf_cap, 3, 3), dtype=torch.float32, device=dev)
     weights = torch.empty((leaf_cap,), dtype=torch.float32, device=dev)
     normals = torch.empty((leaf_cap, 3), dtype=torch.float32, device=dev)
     valid = torch.empty((leaf_cap,), dtype=torch.bool, device=dev)
     keys = torch.empty((leaf_cap,), dtype=torch.int32, device=dev)
-    KERNEL.call("lvs_voxel_map_mark", ptr(skeys), n, e * e * e, ptr(flag))
-    cum = torch.cumsum(flag, dim=0, dtype=torch.int32)  # leaf index + 1 at each run start
+    origin = torch.empty((3,), dtype=torch.int32, device=dev)
+    n_leaves = torch.empty((), dtype=torch.int32, device=dev)
     KERNEL.call(
-        "lvs_voxel_map_build",
-        ptr(skeys), ptr(order), ptr(flag), ptr(cum), n, ptr(xyz), ptr(origin),
-        float(np.float32(resolution)), inv_resolution(resolution), e, leaf_cap,
-        min_points_per_voxel, float(np.float32(min_covar_eigvalue_mult)), int(weighted),
-        ptr(means), ptr(icovs), ptr(weights), ptr(normals), ptr(valid), ptr(keys),
+        "lvs_voxel_map", ptr(xyz), xyz.stride(0), ptr(mask), mask.stride(0), n, float(np.float32(resolution)),
+        inv_resolution(resolution), e, leaf_cap, min_points_per_voxel, float(np.float32(min_covar_eigvalue_mult)),
+        int(weighted), ptr(scratch), scratch.numel(), ptr(means), ptr(icovs), ptr(weights), ptr(normals), ptr(valid),
+        ptr(keys), ptr(origin), ptr(n_leaves),
     )
     KERNEL.launches += 1
     return VoxelMap(
         means=means, icovs=icovs, weights=weights, normals=normals, valid=valid, keys=keys,
-        origin_cell=origin, resolution=float(resolution),
-        n_leaves=torch.sum(valid.to(torch.int32)), extent=e,
+        origin_cell=origin, resolution=float(resolution), n_leaves=n_leaves, extent=e,
     )
 
 

@@ -6,9 +6,10 @@ compiles; here they are plain functions.
 
 A filtered window group gathers up to 16 scans of a filtered chunk, moves
 each into the window's frame and keeps the first point of each voxel
-(kernel 2, `csrc/voxel_dedup.cu`, then kernel 1b's compaction); the flush
-does the same over a list of scans, and the merge is kernel 1b over the
-concatenation of a window's partials. A raw window group (kernel 2r) takes
+(kernel 2, `csrc/voxel_dedup.cu`: the move, then kernel 1b's key sort and
+run compaction, in one C call); the flush does the same over a list of
+scans, and the merge is kernel 1b over the concatenation of a window's
+partials. A raw window group (kernel 2r) takes
 up to 16 raw scans, applies the prefilter's distance band, moves them and
 reduces the union to voxel centroids (kernel 1's reduction). CPU tensors
 take the plain twins.
@@ -16,17 +17,19 @@ take the plain twins.
 
 from __future__ import annotations
 
+import ctypes
 from typing import Sequence
 
 import torch
 
 from lv_slam_tpu_torch.core import se3
 from lv_slam_tpu_torch.core.cloud import SENTINEL, PointCloud
-from lv_slam_tpu_torch.kernels._build import F32, I32, PTR, Kernel, check_cuda, check_dtype, ptr
+from lv_slam_tpu_torch.kernels._build import (
+    F32, I32, MAX_SORT_LANES, PTR, Kernel, check_cuda, check_dtype, ptr, scratch_bytes,
+)
 from lv_slam_tpu_torch.ops.cells import inv_resolution
 from lv_slam_tpu_torch.ops.linalg3 import dot3_fma, sqrt32
 from lv_slam_tpu_torch.ops.prefilter import (
-    dedup_compact,
     reduce_runs,
     voxel_dedup_first,
     voxel_dedup_first_ref,
@@ -38,9 +41,9 @@ KERNEL = Kernel(
     source="lv_slam_tpu_torch/csrc/voxel_dedup.cu",
     replaces="lv_slam_tpu/utils/jit_cache.py:127",
     entries={
-        "lvs_window_keys": [PTR, PTR, PTR, I32, I32, I32, I32, PTR, PTR, F32, PTR, PTR, PTR],
-        "lvs_dedup_mark": [PTR, I32, PTR],
-        "lvs_dedup_compact": [PTR, PTR, PTR, I32, PTR, PTR, I32, PTR, PTR, PTR],
+        "lvs_window_dedup": [
+            PTR, PTR, PTR, I32, I32, I32, I32, PTR, PTR, F32, I32, PTR, ctypes.c_longlong, PTR, PTR, PTR,
+        ],
     },
 )
 
@@ -143,17 +146,21 @@ def window_group_filtered(
     check_dtype("window_group_filtered", rels, torch.float32, (length, 4, 4))
     check_dtype("window_group_filtered", valid, torch.bool, (length,))
     n = length * cap
+    if n > MAX_SORT_LANES:
+        raise ValueError(f"window_group_filtered: {n} lanes exceed the key sort's {MAX_SORT_LANES}")
+    out_cap = min(n, out_cap)
     dev = chunk_xyz_t.device
-    xyz = torch.empty((n, 3), dtype=torch.float32, device=dev)
-    inten = torch.empty((n,), dtype=torch.float32, device=dev)
-    key = torch.empty((n,), dtype=torch.int64, device=dev)
+    scratch = torch.empty((scratch_bytes("lvs_window_scratch_bytes", n),), dtype=torch.uint8, device=dev)
+    out_xyz = torch.empty((out_cap, 3), dtype=torch.float32, device=dev)
+    out_int = torch.empty((out_cap,), dtype=torch.float32, device=dev)
+    out_mask = torch.empty((out_cap,), dtype=torch.bool, device=dev)
     KERNEL.call(
-        "lvs_window_keys", ptr(chunk_xyz_t), ptr(chunk_inten), ptr(chunk_mask), n_rows, cap, int(start),
-        length, ptr(rels), ptr(valid), inv_resolution(resolution), ptr(xyz), ptr(inten), ptr(key),
+        "lvs_window_dedup", ptr(chunk_xyz_t), ptr(chunk_inten), ptr(chunk_mask), n_rows, cap, int(start), length,
+        ptr(rels), ptr(valid), inv_resolution(resolution), out_cap, ptr(scratch), scratch.numel(), ptr(out_xyz),
+        ptr(out_int), ptr(out_mask),
     )
-    out = dedup_compact(KERNEL, key, xyz, inten, out_cap)
     KERNEL.launches += 1
-    return out
+    return PointCloud(out_xyz, out_int, out_mask)
 
 
 def window_group_filtered_ref(chunk_xyz_t, chunk_inten, chunk_mask, start, rels, valid, resolution,

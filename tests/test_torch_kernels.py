@@ -729,6 +729,52 @@ def test_voxel_downsample_and_features_read_nothing_on_the_card(cuda, scans):
 
 
 @pytest.mark.gpu
+def test_voxel_map_edge_cases_on_the_card(cuda):
+    """K3 on chip_smoke's map_cases, one launch and no synchronizing call a
+    call: validity, keys, n_leaves and origin_cell identical to its twin on
+    the card (both round alike) and the floats within 1e-5 (means) and 1e-4
+    of the largest entry (icovs, weights); against its twin run on a CPU
+    copy, keys and origin identical and validity but for leaves flat to
+    rounding (every lane masked, one voxel holding every lane, lanes out of
+    extent, more runs than leaf_cap, voxels of min_points and one fewer,
+    collinear and coplanar voxels, NaN on masked lanes, weighted and
+    unweighted, 1025 lanes, e = 64)."""
+    cs = _chip_smoke()
+    assert cs.check_map_cases(torch, cuda) == len(cs.MAP_CASE_NAMES)
+
+
+@pytest.mark.gpu
+def test_window_and_dedup_edge_cases_on_the_card(cuda):
+    """K2 on chip_smoke's window_cases and K1b on its sort_cases, bit for bit
+    against their twins run on a CPU copy (masks, lane order, float bits),
+    one launch and no synchronizing call a call."""
+    cs = _chip_smoke()
+    assert cs.check_window_cases(torch, cuda) == len(cs.WINDOW_CASE_NAMES)
+    assert cs.check_dedup_cases(torch, cuda) == len(cs.SORT_CASE_NAMES)
+
+
+@pytest.mark.gpu
+def test_voxel_map_and_dedup_read_nothing_on_the_card(cuda, scans):
+    """K3, K1b and K2 are each one C call: no synchronizing call and no
+    device work but their own kernels (no torch.sort, no torch glue)."""
+    cs = _chip_smoke()
+    (s0, s1), rel = scans
+    c0, c1 = (PointCloud.from_numpy(s, cap=16384, device=cuda) for s in (s0, s1))
+    t = torch.from_numpy(rel.astype(np.float32)).to(cuda)
+    group = (torch.stack([c0.xyz.T, c1.xyz.T]).contiguous(), torch.stack([c0.intensity, c1.intensity]),
+             torch.stack([c0.mask, c1.mask]), 0, torch.stack([torch.eye(4, device=cuda), t]),
+             torch.ones(2, dtype=torch.bool, device=cuda), 0.1, 32768)
+    for name, fn in (("build_voxel_map", lambda: voxel_map.build_voxel_map(c0, 1.0, leaf_cap=8192, weighted=True)),
+                     ("voxel_dedup_first", lambda: prefilter.voxel_dedup_first(c0, 0.1, 8192)),
+                     ("window_group_filtered_fn", lambda: window.window_group_filtered(*group))):
+        fn()
+        torch.cuda.synchronize()
+        _, syncs = _count_syncs(fn)
+        glue, _ = cs.foreign_functions(torch, fn, cs.DEVICE_FUNCTIONS[name])
+        assert syncs == 0 and not glue, (name, syncs, glue)
+
+
+@pytest.mark.gpu
 def test_standalone_lfa_kernels_match_plain_versions_on_the_card(cuda, scans):
     reset_launches()
     results = {name: (got, want) for name, got, want in _standalone_calls(cuda, scans)}

@@ -165,6 +165,77 @@ def test_build_voxel_map(target_scan, weighted):
     np.testing.assert_allclose(got.weights.numpy()[both], w, rtol=0, atol=1e-4 * np.abs(w).max())
 
 
+def _chip_smoke():
+    """chip_smoke.py as a module (it imports numpy only at the top): the
+    edge cases that the card's checks run."""
+    import importlib.util
+    from pathlib import Path
+
+    spec = importlib.util.spec_from_file_location("_chip_smoke", Path(__file__).resolve().parents[1] / "chip_smoke.py")
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+CHIP_SMOKE = _chip_smoke()
+
+
+@pytest.fixture(scope="module")
+def map_cases():
+    return {name: case for name, *case in CHIP_SMOKE.map_cases()}
+
+
+@pytest.mark.parametrize("name", CHIP_SMOKE.MAP_CASE_NAMES)
+def test_build_voxel_map_edge_cases(map_cases, name):
+    """Kernel 3's twin on `chip_smoke.map_cases` (which the card holds the
+    kernel to against this twin) against JAX's build: origin_cell identical;
+    each valid leaf's key holds its row in JAX's LUT; validity identical but
+    on leaves flat or straight to rounding (float64 lambda0 / lambda2 below
+    NOISY_RATIO: there the float32 Cardano eigh's acos near +-1 decides
+    validity and the degenerate eigenvectors, and XLA's acos rounds otherwise
+    than torch's); on the leaves valid in both, means to 1e-5, and, away
+    from that noise, icovs and weights to 1e-4 of their largest entry."""
+    pts, mask, res, leaf_cap, e, weighted = map_cases[name]
+    want = jax.jit(functools.partial(j_build, resolution=res, leaf_cap=leaf_cap, lut_extent=e, weighted=weighted))(
+        JCloud(pts, np.zeros(len(pts), np.float32), mask))
+    cloud = TCloud(torch.from_numpy(pts), torch.zeros(len(pts)), torch.from_numpy(mask))
+    got = t_build(cloud, res, leaf_cap=leaf_cap, lut_extent=e, weighted=weighted)
+    np.testing.assert_array_equal(got.origin_cell.numpy(), np.asarray(want.origin_cell))
+    vj, vt = np.asarray(want.valid), got.valid.numpy()
+    assert int(want.n_leaves) == vj.sum() and int(got.n_leaves) == vt.sum()
+    noisy = leaf_eigen_ratio(cloud, res, leaf_cap, e).numpy() < NOISY_RATIO
+    assert not ((vj != vt) & ~noisy).any()
+    keys, lut = got.keys.numpy(), np.asarray(want.lut)
+    both = vj & vt
+    np.testing.assert_array_equal(lut[keys[both]], np.flatnonzero(both))
+    np.testing.assert_allclose(got.means.numpy()[both], np.asarray(want.means)[both], atol=1e-5, rtol=0)
+    steady = both & ~noisy
+    for field in ("icovs", "weights"):
+        w = np.asarray(getattr(want, field))[steady]
+        np.testing.assert_allclose(getattr(got, field).numpy()[steady], w, rtol=0,
+                                   atol=1e-4 * np.abs(w).max(initial=0.0))
+    runs = int((keys >= 0).sum())  # rows a run reached, in ascending key order
+    assert (np.diff(keys[:runs]) > 0).all() and (keys[runs:] == -1).all()
+    if name == "every lane masked":
+        assert runs == 0 and got.origin_cell.tolist() == [0, 0, 0]
+    elif name == "one voxel holding every lane":
+        assert runs == 1 and keys[0] == 0 and vt[0]
+    elif name == "more runs than leaf_cap":
+        assert runs == leaf_cap
+    elif name == "min_points and min_points - 1":
+        counts = np.bincount(np.searchsorted(np.sort(keys[:runs]), _flat_keys(pts[mask], res, e)), minlength=runs)
+        np.testing.assert_array_equal(vt[:runs], counts >= 6)
+    elif name == "collinear and coplanar voxels":
+        assert steady.sum() < both.sum()  # the degenerate leaves are there
+
+
+def _flat_keys(pts: np.ndarray, res: float, e: int) -> np.ndarray:
+    """Flat keys of unmasked points relative to their minimum cell (all in extent)."""
+    cells = np.floor(pts * np.float32(1.0 / res)).astype(np.int64)
+    rel = cells - cells.min(axis=0)
+    return (rel[:, 0] * e + rel[:, 1]) * e + rel[:, 2]
+
+
 def test_to_hash_bit_exact(target_scan):
     """Fed the same VoxelMap arrays, the port's table is bit-identical."""
     vm = _jax_map(target_scan, weighted=True)

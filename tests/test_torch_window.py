@@ -74,6 +74,38 @@ def _assert_identical(t: TCloud, j: JCloud):
         np.testing.assert_array_equal(a.numpy(), np.asarray(b))
 
 
+def _assert_bits(t: TCloud, j: JCloud):
+    """Masks, lane order and every float bit identical."""
+    np.testing.assert_array_equal(t.mask.numpy(), np.asarray(j.mask))
+    np.testing.assert_array_equal(t.xyz.numpy().view(np.int32), np.asarray(j.xyz).view(np.int32))
+    np.testing.assert_array_equal(t.intensity.numpy().view(np.int32), np.asarray(j.intensity).view(np.int32))
+
+
+def _chip_smoke():
+    """chip_smoke.py as a module (it imports numpy only at the top): the
+    edge cases that the card's checks run."""
+    import importlib.util
+    from pathlib import Path
+
+    spec = importlib.util.spec_from_file_location("_chip_smoke", Path(__file__).resolve().parents[1] / "chip_smoke.py")
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+CHIP_SMOKE = _chip_smoke()
+
+
+@pytest.fixture(scope="module")
+def sort_cases():
+    return {name: case for name, *case in CHIP_SMOKE.sort_cases()}
+
+
+@pytest.fixture(scope="module")
+def window_cases():
+    return {name: case for name, *case in CHIP_SMOKE.window_cases()}
+
+
 @pytest.mark.parametrize("cap,out_cap", [(32768, 32768), (32768, 8192), (16384, 65536)])
 def test_voxel_dedup_first(cap, out_cap):
     """First point per voxel in key order, ties to the lower input index;
@@ -105,6 +137,47 @@ def test_window_group_filtered(length, start, n_valid):
     )
     assert got.cap == min(length * 4096, 32768)
     _assert_identical(got, want)
+
+
+@pytest.mark.parametrize("name", CHIP_SMOKE.SORT_CASE_NAMES)
+def test_voxel_dedup_first_edge_cases(sort_cases, name):
+    """Kernel 1b's twin on kernel 1's edge cases (`chip_smoke.sort_cases`,
+    which the card holds the kernel to bit for bit against this twin): equal
+    to JAX bit for bit, masked lanes holding NaN and unmasked lanes at kx >=
+    2^30 included; out_cap clipped to the lanes."""
+    pts, mask, res, out_cap, _ = sort_cases[name]
+    want = jax.jit(functools.partial(jpf.voxel_dedup_first, resolution=res, out_cap=out_cap))(
+        JCloud(pts[:, :3], pts[:, 3], mask))
+    got = tpf.voxel_dedup_first(
+        TCloud(torch.from_numpy(pts[:, :3].copy()), torch.from_numpy(pts[:, 3].copy()), torch.from_numpy(mask)),
+        res, out_cap)
+    assert got.cap == min(len(pts), out_cap)
+    _assert_bits(got, want)
+    n_kept = int(got.mask.sum())
+    assert bool(got.mask[:n_kept].all())  # front-compacted
+    expected = {"every lane masked": 0, "one voxel holding every point": 1, "out_cap below the runs": out_cap}
+    if name in expected:
+        assert n_kept == expected[name]
+
+
+@pytest.mark.parametrize("name", CHIP_SMOKE.WINDOW_CASE_NAMES)
+def test_window_group_filtered_edge_cases(window_cases, name):
+    """Kernel 2's twin on `chip_smoke.window_cases` (which the card holds the
+    kernel to bit for bit against this twin): equal to JAX's
+    `window_group_filtered_fn` bit for bit, for a group of one row and of
+    16, rows clipped to the chunk, every row invalid, and points moved past
+    the key's yz clip range."""
+    xyz, inten, mask, start, rels, valid, res, out_cap = window_cases[name]
+    want = jit_cache.window_group_filtered_fn(res, out_cap, len(rels))(
+        jnp.asarray(xyz), jnp.asarray(inten), jnp.asarray(mask), jnp.int32(start), jnp.asarray(rels),
+        jnp.asarray(valid))
+    got = window.window_group_filtered(*(torch.from_numpy(a) for a in (xyz, inten, mask)), start,
+                                       torch.from_numpy(rels), torch.from_numpy(valid), res, out_cap)
+    assert got.cap == min(len(rels) * xyz.shape[2], out_cap)
+    _assert_bits(got, want)
+    n_kept = int(got.mask.sum())
+    assert bool(got.mask[:n_kept].all())
+    assert (n_kept == 0) == (name == "every row invalid")
 
 
 def test_window_flush_and_merge():
