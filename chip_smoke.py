@@ -24,7 +24,10 @@ Phases, each of which raises on failure:
    (`map_agrees`), and `torch.sort` of the twin's keys is timed beside it;
    phase 2c does the same for K2 (`window_cases`) and K1b (`sort_cases`),
    bit for bit against their CPU twins, and times K3 at the loop
-   detector's 4 m rung (under `rung_4m`). K10's fits
+   detector's 4 m rung (under `rung_4m`). K5 (`to_hash`) is one C call
+   with no synchronizing call and no device work but its own, its table
+   and n_dropped bit-identical to its twin on the card and on a CPU copy,
+   there and on its edge cases (`hash_cases`). K10's fits
    are held to the twin on a CPU copy too (decisions identical, the lines'
    means bit-identical) there and on their edge cases (`fit_cases`), one
    launch each and no synchronizing call. Masks,
@@ -183,8 +186,13 @@ Phases, each of which raises on failure:
 
 Phase 2 holds every kernel, those of the backend too (2c: the window dedup
 K1b/K2, the batched NDT pass K13, the centroid grid K14 and the pose-graph
-normal equations K15; 2d: ORB K12 on four keyframe images of the circle and
-the descriptor matching K12b of one keyframe against eight, then K12b bit
+normal equations K15; 2d: ORB K12 on four keyframe images of the circle,
+one C call with no synchronizing call and no device work but its own (no
+torch.topk), bit for bit against its twin on the card and on a CPU copy,
+there and on `orb_cases` (ties at the cut, a blank image, noise, a plateau
+of equal scores past the select's shared memory, batches of 1 and 32, an
+image whose k nears h x w), `torch.topk` of the twin's keys timed beside
+it, and the descriptor matching K12b of one keyframe against eight, then K12b bit
 for bit on `match_cases` (caps 1 to 1000, 1 to 32 candidates, masks with
 holes, ties, pairs at max_dist, all-masked sets, cap 4096); 2e: standalone
 LFA's grid build K9g, its 2-point lines / 3-point planes K9k and the host
@@ -317,7 +325,7 @@ PEAK_F32_PER_S = 67e12      # H100 SXM float32 outside the tensor cores
 DEVICE_FUNCTIONS = {
     "voxel_downsample": ("voxel_ranges", "voxel_keys", "key_sort_pass", "voxel_runs"),
     "build_voxel_map": ("leaf_ranges", "leaf_keys", "key_sort_pass", "leaf_runs"),
-    "to_hash": ("hash_init", "hash_slot0", "hash_slot1", "hash_dropped", "hash_rows"),
+    "to_hash": ("hash_init", "hash_slot0", "hash_slot1", "hash_rows"),
     "ndt_derivatives_hash": ("ndt_partials", "ndt_finish"),
     "extract_features": ("fill_best", "project", "select_sector"),
     "insert_cell_table": ("insert_cluster", "insert_keys", "insert_keep", "insert_place"),
@@ -331,7 +339,7 @@ DEVICE_FUNCTIONS = {
     "build_centroid_grid": ("grid_mark", "grid_reduce"),
     "nn_sq_dists": ("grid_query", "grid_finish"),
     "_chi2_and_normal": ("se3_edges", "priors", "se3_planes", "plane_edges", "assemble", "chi2_sum"),
-    "_detect_pyramid_batch": ("orb_level0", "orb_halve", "orb_pixels", "orb_keys", "orb_describe"),
+    "_detect_pyramid_batch": ("orb_level0", "orb_halve", "orb_pixels", "orb_keys", "orb_select", "orb_describe"),
     "match_scores_batch": ("match_cluster",),
     "build_grid": ("knn_grid_init", "knn_grid_cells", "knn_grid_keys", "knn_grid_gather"),
     "knn": ("knn_query", "knn_lines", "knn_planes"),
@@ -738,6 +746,126 @@ def check_map_cases(torch, dev):
     return len(cases)
 
 
+HASH_CASE_NAMES = ("no valid leaf", "every leaf in one bucket", "invalid leaves interleaved", "leaf_cap 3000",
+                   "buckets_per_leaf 1", "buckets_per_leaf 8", "the 4 m rung's map", "extent 1288")
+
+
+def _leaves(rng, cells: np.ndarray, res: float, origin: np.ndarray):
+    """Leaves in the cells `cells` (n, 3) of a map at `res` with origin cell
+    `origin`: (means (n, 3) well inside their cells, icovs (n, 3, 3), weights (n,))."""
+    n = len(cells)
+    means = ((origin + cells + rng.uniform(0.1, 0.9, (n, 3))) * res).astype(np.float32)
+    icovs = rng.normal(0.0, 50.0, (n, 3, 3)).astype(np.float32)
+    return means, icovs, rng.uniform(0.05, 1.0, n).astype(np.float32)
+
+
+def hash_cases(seed: int = SEED):
+    """Kernel 5's edge cases as numpy arrays: (name, means (L, 3), icovs (L,
+    3, 3), weights (L,), valid (L,), origin_cell (3,), resolution, extent,
+    buckets_per_leaf). No valid leaf; every valid leaf in one voxel, so one
+    bucket (all but two dropped); half the leaves invalid, interleaved, with
+    NaN in their fields; a leaf_cap of 3000 (16384 buckets); 1 and 8
+    buckets a leaf (many and few collisions); the loop detector's 4 m rung
+    (leaf_cap 16384, extent 256) over a +-60 m cloud, built by the plain
+    K3; extent 1288, whose keys reach 1288^3 - 1, just under the first NaN
+    pattern. Resolutions are powers of two, so the reference's division and
+    the port's reciprocal give the same cells."""
+    import torch
+
+    from lv_slam_tpu_torch.core.cloud import PointCloud
+    from lv_slam_tpu_torch.ops import voxel_map
+
+    rng = np.random.default_rng(seed)
+    e = 256
+    origin = np.array([-128, -128, -128], np.int32)
+
+    def cells(n, extent=e):
+        flat = rng.choice(extent ** 3, size=n, replace=False)
+        return np.stack([flat // extent ** 2, (flat // extent) % extent, flat % extent], axis=1)
+
+    out = []
+    means, icovs, weights = _leaves(rng, cells(4096), 1.0, origin)
+    out.append(("no valid leaf", means, icovs, weights, np.zeros(4096, bool), origin, 1.0, e, 4))
+    means, icovs, weights = _leaves(rng, np.repeat(cells(1), 4096, axis=0), 1.0, origin)
+    out.append(("every leaf in one bucket", means, icovs, weights, np.ones(4096, bool), origin, 1.0, e, 4))
+    means, icovs, weights = _leaves(rng, cells(32768), 1.0, origin)
+    valid = rng.random(32768) < 0.5
+    means[~valid], icovs[~valid], weights[~valid] = np.nan, np.nan, np.nan
+    out.append(("invalid leaves interleaved", means, icovs, weights, valid, origin, 1.0, e, 4))
+    means, icovs, weights = _leaves(rng, cells(3000), 0.5, origin)
+    out.append(("leaf_cap 3000", means, icovs, weights, rng.random(3000) < 0.9, origin, 0.5, e, 4))
+    for bpl in (1, 8):
+        means, icovs, weights = _leaves(rng, cells(8192), 1.0, origin)
+        out.append((f"buckets_per_leaf {bpl}", means, icovs, weights, rng.random(8192) < 0.9, origin, 1.0, e, bpl))
+    pts = torch.from_numpy(_blobs(rng, 1 << 16, 60.0, spread=1.5))
+    cloud = PointCloud(pts, torch.zeros(len(pts)), torch.ones(len(pts), dtype=torch.bool))
+    vm = voxel_map.build_voxel_map_ref(cloud, 4.0, leaf_cap=16384, lut_extent=e)
+    out.append(("the 4 m rung's map", vm.means.numpy(), vm.icovs.numpy(), vm.weights.numpy(), vm.valid.numpy(),
+                vm.origin_cell.numpy(), 4.0, e, 4))
+    big = 1288
+    corners = np.array([[0, 0, 0], [big - 1, big - 1, big - 1], [big - 1, 0, big - 1]])
+    means, icovs, weights = _leaves(rng, np.concatenate([corners, cells(8189, big)]), 1.0,
+                                    np.array([-644, -644, -644], np.int32))
+    out.append(("extent 1288", means, icovs, weights, rng.random(8192) < 0.95, np.array([-644, -644, -644], np.int32),
+                1.0, big, 4))
+    assert tuple(name for name, *_ in out) == HASH_CASE_NAMES
+    return out
+
+
+def hash_case_map(torch, case, dev):
+    """The port's VoxelMap of a `hash_cases` entry (without its name) on `dev`."""
+    from lv_slam_tpu_torch.ops.voxel_map import VoxelMap
+
+    means, icovs, weights, valid, origin, res, e, _ = case
+    t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)  # noqa: E731
+    return VoxelMap(means=t(means), icovs=t(icovs), weights=t(weights), normals=torch.zeros_like(t(means)),
+                    valid=t(valid), keys=torch.full((len(valid),), -1, dtype=torch.int32, device=dev),
+                    origin_cell=t(origin), resolution=res, n_leaves=t(np.array(valid.sum(), np.int32)), extent=e)
+
+
+def identical_hash(torch, got, want) -> bool:
+    """Tables bit-identical and n_dropped equal (one device)."""
+    return torch.equal(got.table.view(torch.int32), want.table.view(torch.int32)) and torch.equal(
+        got.n_dropped, want.n_dropped)
+
+
+def check_hash_twins(torch, what: str, got, vm, buckets_per_leaf: int = 4) -> None:
+    """K5's table `got` of the card's map `vm` against its twin on the card
+    and its twin run on a CPU copy, bit for bit."""
+    from lv_slam_tpu_torch.ops import ndt_hash, voxel_map
+
+    cpu = voxel_map.VoxelMap(*(t.cpu() if isinstance(t, torch.Tensor) else t for t in vm))
+    want = ndt_hash.to_hash_ref(cpu, buckets_per_leaf)
+    on_host = want._replace(table=got.table.cpu(), n_dropped=got.n_dropped.cpu())
+    if not identical_hash(torch, got, ndt_hash.to_hash_ref(vm, buckets_per_leaf)):
+        raise AssertionError(f"{what}: table or n_dropped not bit-identical to the plain version on the card")
+    if not identical_hash(torch, on_host, want):
+        raise AssertionError(f"{what}: n_dropped {int(got.n_dropped)} against the CPU twin's {int(want.n_dropped)}, "
+                             f"or the table, not bit-identical")
+
+
+def check_hash_cases(torch, dev):
+    """K5 (`to_hash`) on every case of `hash_cases`, one launch and no
+    synchronizing call each, bit for bit against its twin on the card and
+    against its twin run on a CPU copy; returns the number of cases."""
+    from lv_slam_tpu_torch.kernels import KERNELS
+    from lv_slam_tpu_torch.ops import ndt_hash
+
+    cases = hash_cases()
+    for name, *case in cases:
+        bpl = case[-1]
+        card = hash_case_map(torch, case, dev)
+        before = KERNELS["to_hash"].launches
+        got = []
+        syncs = count_syncs(torch, lambda: got.append(ndt_hash.to_hash(card, bpl)))
+        torch.cuda.synchronize()
+        if KERNELS["to_hash"].launches != before + 1 or syncs:
+            raise AssertionError(f"to_hash ({name}): {KERNELS['to_hash'].launches - before} launches, {syncs} "
+                                 f"synchronizing calls")
+        check_hash_twins(torch, f"to_hash ({name})", got[0], card, bpl)
+    return len(cases)
+
+
 WINDOW_CAP = 8192  # K2's edge cases: lanes a scan
 WINDOW_CASE_NAMES = ("length 1", "length 16", "rows past the chunk clipped", "every row invalid",
                      "moved past the yz clip range")
@@ -912,12 +1040,16 @@ def check_kernels(torch, scans, gt, dev):
     # kernel 3: the same VoxelMap -> 131072 x 32 table, bit-exact
     k3 = lambda: ndt_hash.to_hash(vm, ndt.hash_buckets_per_leaf)  # noqa: E731
     p3 = lambda: ndt_hash.to_hash_ref(vm, ndt.hash_buckets_per_leaf)  # noqa: E731
-    hm, hm_ref = k3(), p3()
-    if not torch.equal(hm.table.view(torch.int32), hm_ref.table.view(torch.int32)):
-        raise AssertionError("to_hash: table is not bit-identical to the plain version")
-    if int(hm.n_dropped) != int(hm_ref.n_dropped):
-        raise AssertionError("to_hash: n_dropped differs")
-    log(f"  to_hash: table {tuple(hm.table.shape)} bit-identical, n_dropped {int(hm.n_dropped)}")
+    hm = k3()
+    check_hash_twins(torch, "to_hash", hm, vm, ndt.hash_buckets_per_leaf)
+    syncs = count_syncs(torch, k3)
+    glue, n_launches = foreign_functions(torch, k3, DEVICE_FUNCTIONS["to_hash"])
+    if syncs or glue:
+        raise AssertionError(f"to_hash: {syncs} synchronizing calls, device work besides its own: {glue}")
+    n_cases = check_hash_cases(torch, dev)
+    log(f"  to_hash: table {tuple(hm.table.shape)} and n_dropped {int(hm.n_dropped)} bit-identical to the plain "
+        f"version on the card and on a CPU copy; {n_launches} launches of its own, no other device work, no "
+        f"synchronizing call; the {n_cases} hash_cases bit-identical to both twins, one launch each")
     measure(torch, records, "to_hash", k3, p3, 0.0,
             nbytes(vm.means, vm.icovs, vm.weights, vm.valid, hm.table), 20 * int(vm.n_leaves))
 
@@ -1548,6 +1680,11 @@ def check_backend_kernels(torch, scans, gt, dev):
     records["_build_voxel_map_4m"] = rung
     log(f"  build_voxel_map at the 4 m rung: {runs.numel()} runs (longest {int(runs.max())} points), "
         f"{int(vm4.n_leaves)} valid leaves, agreeing with the card's twin")
+    # kernel 5 on that rung's map, as the loop detector re-indexes it
+    hm4 = ndt_hash.to_hash(vm4)
+    check_hash_twins(torch, "to_hash (4 m rung)", hm4, vm4)
+    log(f"  to_hash at the 4 m rung: table {tuple(hm4.table.shape)}, n_dropped {int(hm4.n_dropped)}, bit-identical "
+        f"to the plain version on the card and on a CPU copy")
 
     # kernel 13: 8 candidates (scans 2, 4, .., 16, 0.2 m off their true
     # pose) against the keyframe cloud's 1 m map, and the 4 m rung's
@@ -1892,6 +2029,79 @@ def check_match_cases(torch, dev):
     return len(cases)
 
 
+ORB_K_LEVELS = (221, 166, 124)  # OrbExtractor(512)._k_levels(128, 256), the main path's
+ORB_CASE_NAMES = ("tiles (ties at the cut)", "blank image", "noise image", "plateau past the shared-memory cap",
+                  "batch of 1", "batch of 32", "tiny image, k near h x w")
+
+
+def _tiles(shift=(0, 0)) -> np.ndarray:
+    """A constant background with one bright pixel per 8 x 8 tile: hundreds
+    of corners with equal scores, so the top-K cut falls inside a tie."""
+    img = np.full((128, 256), 50, np.uint8)
+    img[4::8, 4::8] = 200
+    return np.roll(img, shift, axis=(0, 1))
+
+
+def orb_cases(seed: int = SEED):
+    """Kernel 12's edge cases as numpy arrays: (name, images (B, H, W)
+    uint8, k_levels), the main path's rows unless said. tests/test_torch_orb.py's
+    tiles (equal scores across the cut at levels 0 and 1); a blank image (no
+    kept pixel: every row by flat index); uniform noise (thousands of kept
+    pixels, corners on the border); 2 x 2 bright blocks every 5 pixels of a
+    256 x 256 image, each block four neighbouring corners of one score that
+    suppression keeps together, ~8000 equal keys at level 0 (past the
+    select's 4096 in shared memory, and 5000 rows: two rounds); a batch of 1
+    (that image, 300 rows: one round past the cap) and one of 32 (64 x 128
+    noise, every fourth image blank); a 33 x 35 image (h * w not a multiple
+    of 32) whose levels ask for 1150 of 1155 pixels and all 272."""
+    rng = np.random.default_rng(seed)
+    noise = lambda n, h=128, w=256: rng.integers(0, 256, (n, h, w)).astype(np.uint8)  # noqa: E731
+    tiles = np.stack([_tiles(), _tiles((3, 5))])
+    out = [("tiles (ties at the cut)", tiles, ORB_K_LEVELS)]
+    blank = np.full((2, 128, 256), 90, np.uint8)
+    out.append(("blank image", blank, ORB_K_LEVELS))
+    out.append(("noise image", noise(2), ORB_K_LEVELS))
+    plateau = np.full((2, 256, 256), 50, np.uint8)
+    for i, (dy, dx) in enumerate(((0, 0), (2, 3))):
+        for oy in (0, 1):
+            for ox in (0, 1):
+                plateau[i, dy + oy::5, dx + ox::5] = 200
+    out.append(("plateau past the shared-memory cap", plateau, (5000, 1200, 300)))
+    out.append(("batch of 1", plateau[1:], (300, 1200, 300)))
+    many = noise(32, 64, 128)
+    many[::4] = 90
+    out.append(("batch of 32", many, ORB_K_LEVELS))
+    out.append(("tiny image, k near h x w", noise(2, 33, 35), (1150, 272)))
+    assert tuple(name for name, *_ in out) == ORB_CASE_NAMES
+    return out
+
+
+def check_orb_cases(torch, dev):
+    """K12 (`detect_pyramid_batch`) on every case of `orb_cases`, one launch
+    and no synchronizing call each, bit for bit against its twin on the card
+    and against its twin run on a CPU copy; returns the number of cases."""
+    from lv_slam_tpu_torch.kernels import KERNELS
+    from lv_slam_tpu_torch.ops import orb
+
+    cases = orb_cases()
+    for name, images, k_levels in cases:
+        card = torch.from_numpy(images).to(dev)
+        before = KERNELS["_detect_pyramid_batch"].launches
+        got = []
+        syncs = count_syncs(torch, lambda: got.append(orb.detect_pyramid_batch(card, k_levels)))
+        torch.cuda.synchronize()
+        if KERNELS["_detect_pyramid_batch"].launches != before + 1 or syncs:
+            raise AssertionError(f"_detect_pyramid_batch ({name}): {KERNELS['_detect_pyramid_batch'].launches - before} "
+                                 f"launches, {syncs} synchronizing calls")
+        for where, want in (("on the card", orb.detect_pyramid_batch_ref(card, k_levels).cpu()),
+                            ("run on a CPU copy", orb.detect_pyramid_batch_ref(torch.from_numpy(images), k_levels))):
+            rows = (got[0].cpu() != want).any(dim=2)
+            if bool(rows.any()):
+                raise AssertionError(f"_detect_pyramid_batch ({name}): {int(rows.sum())} of {rows.numel()} rows differ "
+                                     f"from the plain version {where}")
+    return len(cases)
+
+
 def check_orb_kernels(torch, gt, dev):
     """Phase 2d: ORB (K12) on four keyframe images of the circle, as one
     chunk's batch, and the matching (K12b) of the first keyframe's
@@ -1917,6 +2127,15 @@ def check_orb_kernels(torch, gt, dev):
                              f"plain version (keypoints, valid flags or descriptor bits)")
     if not torch.equal(got.cpu(), cpu):
         raise AssertionError("_detect_pyramid_batch: the card's rows differ from the plain version on the CPU")
+    syncs = count_syncs(torch, k12)
+    glue, n_launches = foreign_functions(torch, k12, DEVICE_FUNCTIONS["_detect_pyramid_batch"])
+    if syncs or glue:
+        raise AssertionError(f"_detect_pyramid_batch: {syncs} synchronizing calls, device work besides its own: "
+                             f"{glue}")
+    n_cases = check_orb_cases(torch, dev)
+    log(f"  _detect_pyramid_batch: {n_launches} launches of its own, no other device work (no torch.topk), no "
+        f"synchronizing call; the {n_cases} orb_cases bit-identical to the plain version on the card and on a CPU "
+        f"copy, one launch each")
     valid = got[:, :, 36].bool()
     per_level, start = [], 0
     for k in k_levels:
@@ -1930,6 +2149,14 @@ def check_orb_kernels(torch, gt, dev):
     # per row ~9400 (the 709-pixel disc moments, 256 rotated, rounded pairs)
     measure(torch, records, "_detect_pyramid_batch", k12, p12, 0.0, nbytes(images, got),
             110 * n_pixels + 9400 * got.shape[0] * got.shape[1])
+    # the glue the kernel's own selection replaced: torch.topk of the twin's int64 keys, level by level
+    img, level_keys = images.float(), []
+    for k in k_levels:
+        level_keys.append((orb._keys(orb._fast_scores(img, 20.0)), k))
+        img = orb._halve(img)
+    _, topk_ms, _ = device_ms(torch, lambda: [torch.topk(keys, k, dim=1) for keys, k in level_keys])
+    records["_detect_pyramid_batch"]["torch_topk_ms"] = topk_ms
+    log(f"    torch.topk of the twin's int64 keys alone, one call a level: {topk_ms:.4f} ms device-only")
 
     sets = [d for d, _ in orb.unpack_rows(got.cpu().numpy(), cap)]
     padded = [orb._padded(d, cap) for d in sets]
@@ -4947,7 +5174,7 @@ def main() -> int:
             launches=launches[name], launch_phase=launch_phase[name], **{key: records[name][key] for key in keys},
             **{extra: records[name][extra]
                for extra in ("cholesky_ms", "with_sensor_factors", "launches_by_phase", "over_cap", "standalone",
-                             "torch_sort_ms", "rung_4m")
+                             "torch_sort_ms", "torch_topk_ms", "rung_4m")
                if extra in records[name]},
         )
         for name, k in KERNELS.items()

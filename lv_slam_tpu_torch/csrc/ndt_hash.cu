@@ -2,16 +2,22 @@
 // derivative pass over it.
 //
 // Kernel 3 replaces lv_slam_tpu/ops/ndt_hash.py:53 `to_hash`.
-//   Bound on the card: once per keyframe it touches leaf_cap leaves and
-//   B = 4 * leaf_cap buckets of 128 bytes (16 MB of table at leaf_cap 32768):
-//   pure memory traffic, a few microseconds of HBM time, so the launches'
-//   latency is what shows.
-//   Design: the reference's two scatter-min passes become atomicMin passes on
-//   int32 bucket heads (slot 0 = lowest leaf index, slot 1 = lowest of the
-//   rest), a third pass counts the dropped leaves, and a last pass writes each
-//   bucket's 32-float row. atomicMin of indices is order-independent, so the
-//   table is deterministic and bit-exact with the plain version. Keys are
-//   written as int32 bits through an int alias, never through float math.
+//   Bound on the card: once per keyframe it reads leaf_cap leaves (56 bytes
+//   each) and writes B = 4 * leaf_cap buckets of 128 bytes (16 MB of table at
+//   leaf_cap 32768): pure memory traffic, 5 microseconds of HBM time.
+//   Design, four launches in one C call: `hash_init` sets the int2 bucket
+//   heads (slot 0, slot 1) to the sentinel; `hash_slot0` computes each
+//   leaf's key once into a scratch word, takes slot 0 by atomicMin (the
+//   lowest leaf index) and adds the block's valid leaves to n_dropped;
+//   `hash_slot1` takes slot 1 (the lowest of the rest) from the stored keys;
+//   `hash_rows` writes the table with 8 lanes a bucket, lane j the j-th
+//   float4 of the 32-float row, so a warp stores four whole contiguous rows
+//   in one instruction and every float is stored once, and subtracts the
+//   block's filled slots from n_dropped (dropped = valid - filled; integer
+//   atomics, so the count does not depend on the order). atomicMin of
+//   indices is order-independent, so the table is deterministic and
+//   bit-exact with the plain version. Keys are moved as int32 bits, never
+//   through float math.
 //
 // Kernel 4 replaces lv_slam_tpu/ops/ndt_hash.py:132 `ndt_derivatives_hash`
 // with lv_slam_tpu/ops/ndt_soa.py:59 `accumulate_ndt_terms` as its body.
@@ -49,13 +55,10 @@ __device__ __forceinline__ int bucket_of(int key, int b_bits) {
 
 // ---------------------------------------------------------------- kernel 3
 
-__global__ void hash_init(int n_buckets, int sentinel, int* first, int* second, int* n_dropped) {
+__global__ void hash_init(int n_buckets, int sentinel, int2* heads, int* n_dropped) {
   int b = blockIdx.x * blockDim.x + threadIdx.x;
   if (b == 0) *n_dropped = 0;
-  if (b < n_buckets) {
-    first[b] = sentinel;
-    second[b] = sentinel;
-  }
+  if (b < n_buckets) heads[b] = make_int2(sentinel, sentinel);
 }
 
 __device__ __forceinline__ int leaf_key(const float* means, const int* origin, float inv_res, int e,
@@ -66,54 +69,62 @@ __device__ __forceinline__ int leaf_key(const float* means, const int* origin, f
   return flat_key(c0, c1, c2, e);
 }
 
-__global__ void hash_slot0(const float* means, const bool* valid, const int* origin, float inv_res,
-                           int e, int leaf_cap, int b_bits, int* first) {
+// each leaf's key, once, into keys[l]; slot 0 of its bucket; the block's
+// valid leaves added to n_dropped (`hash_rows` takes the filled slots off)
+__global__ void hash_slot0(const float* __restrict__ means, const bool* __restrict__ valid,
+                           const int* __restrict__ origin, float inv_res, int e, int leaf_cap, int b_bits,
+                           int* __restrict__ keys, int2* heads, int* n_dropped) {
   int l = blockIdx.x * blockDim.x + threadIdx.x;
-  if (l >= leaf_cap || !valid[l]) return;
-  atomicMin(&first[bucket_of(leaf_key(means, origin, inv_res, e, l), b_bits)], l);
-}
-
-__global__ void hash_slot1(const float* means, const bool* valid, const int* origin, float inv_res,
-                           int e, int leaf_cap, int b_bits, const int* first, int* second) {
-  int l = blockIdx.x * blockDim.x + threadIdx.x;
-  if (l >= leaf_cap || !valid[l]) return;
-  int h = bucket_of(leaf_key(means, origin, inv_res, e, l), b_bits);
-  if (first[h] != l) atomicMin(&second[h], l);
-}
-
-__global__ void hash_dropped(const float* means, const bool* valid, const int* origin,
-                             float inv_res, int e, int leaf_cap, int b_bits, const int* first,
-                             const int* second, int* n_dropped) {
-  int l = blockIdx.x * blockDim.x + threadIdx.x;
-  if (l >= leaf_cap || !valid[l]) return;
-  int h = bucket_of(leaf_key(means, origin, inv_res, e, l), b_bits);
-  if (first[h] != l && second[h] != l) atomicAdd(n_dropped, 1);
-}
-
-// row of bucket b: [key bits, mu(3), c00 c01 c02 c11 c12 c22, w, 0 x 5] x 2 slots
-__global__ void hash_rows(const float* means, const float* icovs, const float* weights,
-                          const int* origin, float inv_res, int e, int leaf_cap, int n_buckets,
-                          const int* first, const int* second, float* table) {
-  int b = blockIdx.x * blockDim.x + threadIdx.x;
-  if (b >= n_buckets) return;
-  for (int s = 0; s < 2; ++s) {
-    int l = s == 0 ? first[b] : second[b];
-    float* row = table + 32 * static_cast<long long>(b) + 16 * s;
-    int* row_bits = reinterpret_cast<int*>(row);
-    for (int c = 1; c < 16; ++c) row[c] = 0.0f;
-    if (l >= leaf_cap) {
-      row_bits[0] = -1;  // empty slot: never equals a valid (>= 0) query key
-      continue;
-    }
-    row_bits[0] = leaf_key(means, origin, inv_res, e, l);
-    row[1] = means[3 * l + 0];
-    row[2] = means[3 * l + 1];
-    row[3] = means[3 * l + 2];
-    const float* c = icovs + 9 * l;
-    row[4] = c[0]; row[5] = c[1]; row[6] = c[2];
-    row[7] = c[4]; row[8] = c[5]; row[9] = c[8];
-    row[10] = weights[l];
+  bool v = l < leaf_cap && valid[l];
+  if (v) {
+    int key = leaf_key(means, origin, inv_res, e, l);
+    keys[l] = key;
+    atomicMin(&heads[bucket_of(key, b_bits)].x, l);
   }
+  int n_valid = __syncthreads_count(v);
+  if (threadIdx.x == 0 && n_valid) atomicAdd(n_dropped, n_valid);
+}
+
+__global__ void hash_slot1(const bool* __restrict__ valid, const int* __restrict__ keys, int leaf_cap,
+                           int b_bits, int2* heads) {
+  int l = blockIdx.x * blockDim.x + threadIdx.x;
+  if (l >= leaf_cap || !valid[l]) return;
+  int2* head = &heads[bucket_of(keys[l], b_bits)];
+  if (head->x != l) atomicMin(&head->y, l);
+}
+
+// row of bucket b: [key bits, mu(3), c00 c01 c02 c11 c12 c22, w, 0 x 5] x 2
+// slots; thread t writes float4 t % 8 of bucket t / 8
+__global__ void hash_rows(const float* __restrict__ means, const float* __restrict__ icovs,
+                          const float* __restrict__ weights, const int* __restrict__ keys, int leaf_cap,
+                          int n_buckets, const int2* __restrict__ heads, float4* __restrict__ table,
+                          int* n_dropped) {
+  long long t = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
+  int b = static_cast<int>(t >> 3), part = static_cast<int>(t & 3);
+  bool filled = false;
+  if (b < n_buckets) {
+    int2 head = heads[b];
+    int l = (t & 4) ? head.y : head.x;
+    float4 v = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+    if (l < leaf_cap) {
+      const float* c = icovs + 9 * static_cast<long long>(l);
+      if (part == 0) {
+        v = make_float4(__int_as_float(keys[l]), means[3 * l + 0], means[3 * l + 1], means[3 * l + 2]);
+        filled = true;
+      } else if (part == 1) {
+        v = make_float4(c[0], c[1], c[2], c[4]);
+      } else if (part == 2) {
+        v.x = c[5];
+        v.y = c[8];
+        v.z = weights[l];
+      }
+    } else if (part == 0) {
+      v.x = __int_as_float(-1);  // empty slot: never equals a valid (>= 0) query key
+    }
+    table[t] = v;
+  }
+  int n_filled = __syncthreads_count(filled);
+  if (threadIdx.x == 0 && n_filled) atomicSub(n_dropped, n_filled);
 }
 
 // ---------------------------------------------------------------- kernel 4
@@ -170,22 +181,23 @@ ndt_partials(const float* __restrict__ table, int b_bits, const int* __restrict_
 
 }  // namespace
 
+// scratch: leaf_cap int32 keys, then n_buckets int2 heads (8-byte aligned)
 extern "C" int lvs_to_hash(const float* means, const float* icovs, const float* weights,
                            const bool* valid, const int* origin, float inv_res, int e,
-                           int leaf_cap, int b_bits, int* first, int* second, float* table,
+                           int leaf_cap, int b_bits, int* scratch, float* table,
                            int* n_dropped, cudaStream_t stream) {
   int n_buckets = 1 << b_bits;
-  int bb = lvs::blocks_for(n_buckets), bl = lvs::blocks_for(leaf_cap);
-  hash_init<<<bb, lvs::kThreads, 0, stream>>>(n_buckets, leaf_cap, first, second, n_dropped);
+  int* keys = scratch;
+  int2* heads = reinterpret_cast<int2*>(scratch + ((leaf_cap + 1) & ~1));
+  hash_init<<<lvs::blocks_for(n_buckets), lvs::kThreads, 0, stream>>>(n_buckets, leaf_cap, heads, n_dropped);
   if (leaf_cap > 0) {
-    hash_slot0<<<bl, lvs::kThreads, 0, stream>>>(means, valid, origin, inv_res, e, leaf_cap, b_bits, first);
-    hash_slot1<<<bl, lvs::kThreads, 0, stream>>>(means, valid, origin, inv_res, e, leaf_cap, b_bits,
-                                                 first, second);
-    hash_dropped<<<bl, lvs::kThreads, 0, stream>>>(means, valid, origin, inv_res, e, leaf_cap,
-                                                   b_bits, first, second, n_dropped);
+    int bl = lvs::blocks_for(leaf_cap);
+    hash_slot0<<<bl, lvs::kThreads, 0, stream>>>(means, valid, origin, inv_res, e, leaf_cap, b_bits, keys, heads,
+                                                 n_dropped);
+    hash_slot1<<<bl, lvs::kThreads, 0, stream>>>(valid, keys, leaf_cap, b_bits, heads);
   }
-  hash_rows<<<bb, lvs::kThreads, 0, stream>>>(means, icovs, weights, origin, inv_res, e, leaf_cap,
-                                              n_buckets, first, second, table);
+  hash_rows<<<lvs::blocks_for(8LL * n_buckets), lvs::kThreads, 0, stream>>>(
+      means, icovs, weights, keys, leaf_cap, n_buckets, heads, reinterpret_cast<float4*>(table), n_dropped);
   LVS_RETURN_LAST_ERROR();
 }
 

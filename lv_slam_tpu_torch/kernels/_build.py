@@ -153,12 +153,12 @@ MAX_SORT_LANES = (1 << 27) - 1  # csrc/key_sort.cuh: its tile status words count
 
 
 @functools.lru_cache(maxsize=256)
-def scratch_bytes(entry: str, n: int) -> int:
-    """Bytes of scratch that a kernel's C side lays out for `n` lanes, from its
-    `lvs_*_scratch_bytes(n)` entry."""
+def scratch_bytes(entry: str, *shape: int) -> int:
+    """Bytes of scratch that a kernel's C side lays out for `shape` (its
+    lanes, or its batch and sizes), from its `lvs_*_scratch_bytes(...)` entry."""
     fn = getattr(LIBRARY.load(), entry)
-    fn.argtypes, fn.restype = [ctypes.c_int], ctypes.c_longlong
-    return int(fn(n))
+    fn.argtypes, fn.restype = [ctypes.c_int] * len(shape), ctypes.c_longlong
+    return int(fn(*shape))
 
 
 def ptr(t: torch.Tensor) -> ctypes.c_void_p:

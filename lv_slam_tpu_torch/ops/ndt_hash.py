@@ -41,7 +41,7 @@ TO_HASH_KERNEL = Kernel(
     source="lv_slam_tpu_torch/csrc/ndt_hash.cu",
     replaces="lv_slam_tpu/ops/ndt_hash.py:53",
     entries={
-        "lvs_to_hash": [PTR, PTR, PTR, PTR, PTR, F32, I32, I32, I32, PTR, PTR, PTR, PTR],
+        "lvs_to_hash": [PTR, PTR, PTR, PTR, PTR, F32, I32, I32, I32, PTR, PTR, PTR],
     },
 )
 # the Newton loop's gated pass (one candidate for kernel 4, k for kernel 13)
@@ -125,15 +125,15 @@ def to_hash(vmap_: VoxelMap, buckets_per_leaf: int = 4) -> HashVoxelMap:
     check_dtype("to_hash", vmap_.valid, torch.bool, (leaf_cap,))
     check_dtype("to_hash", vmap_.origin_cell, torch.int32, (3,))
     dev = vmap_.means.device
-    first = torch.empty((n_buckets,), dtype=torch.int32, device=dev)
-    second = torch.empty((n_buckets,), dtype=torch.int32, device=dev)
+    # each leaf's key, then the (slot 0, slot 1) leaf index of each bucket
+    scratch = torch.empty(((leaf_cap + 1) // 2 * 2 + 2 * n_buckets,), dtype=torch.int32, device=dev)
     table = torch.empty((n_buckets, 32), dtype=torch.float32, device=dev)
     n_dropped = torch.empty((), dtype=torch.int32, device=dev)
     TO_HASH_KERNEL.call(
         "lvs_to_hash",
         ptr(vmap_.means), ptr(vmap_.icovs), ptr(vmap_.weights), ptr(vmap_.valid),
         ptr(vmap_.origin_cell), inv_resolution(vmap_.resolution), e, leaf_cap, b_bits,
-        ptr(first), ptr(second), ptr(table), ptr(n_dropped),
+        ptr(scratch), ptr(table), ptr(n_dropped),
     )
     TO_HASH_KERNEL.launches += 1
     return HashVoxelMap(table, vmap_.origin_cell, vmap_.resolution, e, n_dropped)

@@ -41,12 +41,13 @@ twin `match_scores_masked_ref` uses the reference's +-1 float matmul).
 
 from __future__ import annotations
 
+import ctypes
 from typing import Dict, List, Tuple
 
 import numpy as np
 import torch
 
-from lv_slam_tpu_torch.kernels._build import F32, I32, PTR, Kernel, check_cuda, check_dtype, ptr
+from lv_slam_tpu_torch.kernels._build import F32, I32, PTR, Kernel, check_cuda, check_dtype, ptr, scratch_bytes
 
 # FAST radius-3 Bresenham circle, clockwise from 12 o'clock: (row, col)
 _FAST_CIRCLE = np.array(
@@ -91,13 +92,12 @@ ORB_KERNEL = Kernel(
     source="lv_slam_tpu_torch/csrc/orb.cu",
     replaces="lv_slam_tpu/ops/orb.py:200",
     entries={
-        "lvs_orb_level0": [PTR, I32, PTR],
-        "lvs_orb_halve": [PTR, I32, I32, I32, PTR],
-        "lvs_orb_pixels": [PTR, I32, I32, I32, F32, PTR, PTR],
-        "lvs_orb_keys": [PTR, I32, I32, I32, I32, PTR],
-        "lvs_orb_describe": [PTR, PTR, PTR, PTR, I32, PTR, I32, I32, I32, I32, I32, I32, I32, PTR],
+        "lvs_orb_detect": [
+            PTR, I32, I32, I32, I32, PTR, I32, F32, I32, PTR, I32, PTR, PTR, ctypes.c_longlong, PTR,
+        ],
     },
 )
+MAX_LEVELS = 8  # csrc/orb.cu's scratch layout
 MATCH_KERNEL = Kernel(
     "match_scores_batch",
     source="lv_slam_tpu_torch/csrc/orb_match.cu",
@@ -271,35 +271,24 @@ def detect_pyramid_batch(images: torch.Tensor, k_levels: tuple, threshold: float
         raise ValueError(f"{name}: expected (B, H, W) uint8 or float32 images, got {images.dtype} "
                          f"{tuple(images.shape)}")
     b, h, w = images.shape
-    dev = images.device
-    disc, pattern = _device_tables(dev)
-    total = sum(k_levels)
-    out = torch.empty((b, total, ROW_BYTES), dtype=torch.uint8, device=dev)
-    img = images
-    if images.dtype == torch.uint8:
-        img = torch.empty((b, h, w), dtype=torch.float32, device=dev)
-        ORB_KERNEL.call("lvs_orb_level0", ptr(images), b * h * w, ptr(img))
-    thr = float(np.float32(threshold))
-    row0 = 0
+    if not 0 < len(k_levels) <= MAX_LEVELS:
+        raise ValueError(f"{name}: {len(k_levels)} levels, expected 1 to {MAX_LEVELS}")
     for level, k in enumerate(k_levels):
-        hl, wl = img.shape[1:]
+        hl, wl = h >> level, w >> level
         if not 0 < k <= hl * wl:
             raise ValueError(f"{name}: level {level} of {hl} x {wl} cannot give {k} keypoints")
-        score = torch.empty_like(img)
-        blur = torch.empty_like(img)
-        keys = torch.empty((b, hl * wl), dtype=torch.int64, device=dev)
-        ORB_KERNEL.call("lvs_orb_pixels", ptr(img), b, hl, wl, thr, ptr(score), ptr(blur))
-        ORB_KERNEL.call("lvs_orb_keys", ptr(score), b, hl, wl, _BORDER, ptr(keys))
-        top = torch.topk(keys, k, dim=1).values.contiguous()  # glue: exact on unique keys
-        ORB_KERNEL.call(
-            "lvs_orb_describe", ptr(img), ptr(blur), ptr(top), ptr(disc), disc.shape[0], ptr(pattern),
-            b, hl, wl, k, level, row0, total, ptr(out),
-        )
-        row0 += k
-        if level + 1 < len(k_levels):
-            half = torch.empty((b, hl // 2, wl // 2), dtype=torch.float32, device=dev)
-            ORB_KERNEL.call("lvs_orb_halve", ptr(img), b, hl, wl, ptr(half))
-            img = half
+    dev = images.device
+    disc, pattern = _device_tables(dev)
+    out = torch.empty((b, sum(k_levels), ROW_BYTES), dtype=torch.uint8, device=dev)
+    u8 = int(images.dtype == torch.uint8)
+    n_bytes = scratch_bytes("lvs_orb_scratch_bytes", b, h, w, len(k_levels), max(k_levels), u8)
+    scratch = torch.empty((n_bytes,), dtype=torch.uint8, device=dev)
+    ks = (ctypes.c_int * len(k_levels))(*k_levels)
+    ORB_KERNEL.call(
+        "lvs_orb_detect", ptr(images), u8, b, h, w, ctypes.cast(ks, ctypes.c_void_p), len(k_levels),
+        float(np.float32(threshold)), _BORDER, ptr(disc), disc.shape[0], ptr(pattern), ptr(scratch), n_bytes,
+        ptr(out),
+    )
     ORB_KERNEL.launches += 1
     return out
 

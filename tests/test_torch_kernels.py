@@ -775,6 +775,46 @@ def test_voxel_map_and_dedup_read_nothing_on_the_card(cuda, scans):
 
 
 @pytest.mark.gpu
+def test_to_hash_edge_cases_on_the_card(cuda):
+    """K5 on chip_smoke's hash_cases, one launch and no synchronizing call a
+    call, its table and n_dropped bit-identical to its twin on the card and
+    run on a CPU copy (no valid leaf, every leaf in one bucket, invalid
+    leaves interleaved, leaf_cap 3000, 1 and 8 buckets a leaf, the 4 m
+    rung's map, extent 1288)."""
+    cs = _chip_smoke()
+    assert cs.check_hash_cases(torch, cuda) == len(cs.HASH_CASE_NAMES)
+
+
+@pytest.mark.gpu
+def test_detect_pyramid_batch_edge_cases_on_the_card(cuda):
+    """K12 on chip_smoke's orb_cases, one launch and no synchronizing call a
+    call, its packed rows bit-identical to its twin on the card and run on a
+    CPU copy (ties at the cut, a blank image, noise, a plateau of equal keys
+    past the select's shared memory, batches of 1 and 32, a 33 x 35 image
+    whose k nears h x w)."""
+    cs = _chip_smoke()
+    assert cs.check_orb_cases(torch, cuda) == len(cs.ORB_CASE_NAMES)
+
+
+@pytest.mark.gpu
+def test_to_hash_and_orb_read_nothing_on_the_card(cuda, scans):
+    """K5 and K12 are each one C call: no synchronizing call and no device
+    work but their own kernels (no torch.topk, no torch glue)."""
+    cs = _chip_smoke()
+    (s0, _), _ = scans
+    cloud = PointCloud.from_numpy(s0, cap=16384, device=cuda)
+    vm = voxel_map.build_voxel_map(cloud, 1.0, leaf_cap=8192, weighted=True)
+    images = torch.from_numpy(cs.orb_cases()[2][1]).to(cuda)
+    for name, fn in (("to_hash", lambda: ndt_hash.to_hash(vm)),
+                     ("_detect_pyramid_batch", lambda: orb.detect_pyramid_batch(images, cs.ORB_K_LEVELS))):
+        fn()
+        torch.cuda.synchronize()
+        _, syncs = _count_syncs(fn)
+        glue, _ = cs.foreign_functions(torch, fn, cs.DEVICE_FUNCTIONS[name])
+        assert syncs == 0 and not glue, (name, syncs, glue)
+
+
+@pytest.mark.gpu
 def test_standalone_lfa_kernels_match_plain_versions_on_the_card(cuda, scans):
     reset_launches()
     results = {name: (got, want) for name, got, want in _standalone_calls(cuda, scans)}

@@ -169,6 +169,57 @@ def test_pyramid_batch_layout(circle_images):
     assert flips <= 1e-3 * valid.sum() * 256, flips
 
 
+def _chip_smoke():
+    """chip_smoke.py as a module (it imports numpy only at the top): the
+    edge cases that the card's checks run."""
+    import importlib.util
+    from pathlib import Path
+
+    spec = importlib.util.spec_from_file_location("_chip_smoke", Path(__file__).resolve().parents[1] / "chip_smoke.py")
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+CHIP_SMOKE = _chip_smoke()
+
+
+@pytest.fixture(scope="module")
+def orb_cases():
+    return {name: case for name, *case in CHIP_SMOKE.orb_cases()}
+
+
+@pytest.mark.parametrize("name", CHIP_SMOKE.ORB_CASE_NAMES)
+def test_pyramid_batch_edge_cases(orb_cases, name):
+    """Kernel 12's twin on `chip_smoke.orb_cases` (which the card holds the
+    kernel to, bit for bit, against this twin) against JAX's
+    `_detect_pyramid_batch`: every row's keypoint bytes and valid flag
+    identical, the kept rows first in the reference's order and then the
+    lowest-indexed other pixels; descriptor bits identical but at
+    half-integer samples, those under 0.1 % (ties at the cut, a blank image,
+    noise, a plateau of ~8000 equal keys past the select's shared memory,
+    batches of 1 and 32, a 33 x 35 image whose k nears h x w)."""
+    images, k_levels = orb_cases[name]
+    want = np.asarray(jorb._detect_pyramid_batch(jnp.asarray(images), k_levels, 20.0))
+    got = orb.detect_pyramid_batch(torch.from_numpy(images), k_levels).numpy()
+    assert got.shape == want.shape == (images.shape[0], sum(k_levels), 37)
+    np.testing.assert_array_equal(got[:, :, 32:], want[:, :, 32:])
+    level_imgs = images.astype(np.float32)
+    start, near = 0, np.zeros(got.shape[:2] + (256,), bool)
+    for level, k in enumerate(k_levels):
+        kpts = want[:, start:start + k, 32:36].copy().view(np.int16).astype(np.int64).reshape(-1, k, 2) >> level
+        near[:, start:start + k] = [_near_half(im, kp) for im, kp in zip(level_imgs, kpts)]
+        start += k
+        level_imgs = np.stack([np.asarray(jorb._halve(jnp.asarray(im))) for im in level_imgs])
+    got_bits, want_bits = np.unpackbits(got[:, :, :32], axis=2), np.unpackbits(want[:, :, :32], axis=2)
+    _assert_bits(got_bits.reshape(-1, 256), want_bits.reshape(-1, 256), near.reshape(-1, 256))
+    valid = want[:, :, 36].astype(bool)
+    if name == "blank image":
+        assert not valid.any()
+    if name == "plateau past the shared-memory cap":
+        assert valid[:, :k_levels[0]].all()
+
+
 def test_extractor_single_equals_batch(circle_images):
     """`OrbExtractor.detect_and_compute` per host image equals
     `detect_and_compute_batch` on the stack, and both the reference's."""

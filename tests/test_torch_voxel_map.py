@@ -17,6 +17,7 @@ from lv_slam_tpu.core.cloud import PointCloud as JCloud  # noqa: E402
 from lv_slam_tpu.io import synthetic  # noqa: E402
 from lv_slam_tpu.ops.linalg3 import eigh3x3 as j_eigh  # noqa: E402
 from lv_slam_tpu.ops.ndt_hash import to_hash as j_to_hash  # noqa: E402
+from lv_slam_tpu.ops.voxel_map import VoxelMap as JVoxelMap  # noqa: E402
 from lv_slam_tpu.ops.voxel_map import build_voxel_map as j_build  # noqa: E402
 from lv_slam_tpu.ops.voxel_map import lookup_leaves as j_lookup, neighborhood_offsets as j_offsets  # noqa: E402
 from lv_slam_tpu_torch.convert import voxel_map_from_numpy  # noqa: E402
@@ -247,6 +248,35 @@ def test_to_hash_bit_exact(target_scan):
     )
     assert int(got.n_dropped) == int(want.n_dropped)
     assert got.extent == int(want.extent)
+
+
+@pytest.fixture(scope="module")
+def hash_cases():
+    return {name: case for name, *case in CHIP_SMOKE.hash_cases()}
+
+
+@pytest.mark.parametrize("name", CHIP_SMOKE.HASH_CASE_NAMES)
+def test_to_hash_edge_cases(hash_cases, name):
+    """Kernel 5's twin on `chip_smoke.hash_cases` (which the card holds the
+    kernel to, bit for bit, against this twin) against JAX's `to_hash` fed
+    the same leaves: table bits and n_dropped identical (no valid leaf, every
+    leaf in one bucket, invalid leaves interleaved, leaf_cap 3000, 1 and 8
+    buckets a leaf, the 4 m rung's map, extent 1288). JAX reads only the
+    LUT's length (the extent), so the map carries a stand-in of that shape."""
+    case = hash_cases[name]
+    means, icovs, weights, valid, origin, res, e, bpl = case
+    lut = jax.ShapeDtypeStruct((e ** 3,), jnp.int32)  # a 1288^3 LUT would take 8.5 GB
+    want = jax.jit(lambda m, c, w, v, o: j_to_hash(
+        JVoxelMap(m, c, w, jnp.zeros_like(m), v, lut, o, jnp.float32(res), jnp.sum(v.astype(jnp.int32))), bpl))(
+        means, icovs, weights, valid, origin)
+    got = t_to_hash(CHIP_SMOKE.hash_case_map(torch, case, "cpu"), bpl)
+    np.testing.assert_array_equal(got.table.numpy().view(np.int32), np.asarray(want.table).view(np.int32))
+    assert int(got.n_dropped) == int(want.n_dropped)
+    assert got.extent == want.extent == e
+    if name == "every leaf in one bucket":
+        assert int(got.n_dropped) == len(valid) - 2
+    elif name == "no valid leaf":
+        assert int(got.n_dropped) == 0 and (got.table.numpy()[:, [0, 16]].view(np.int32) == -1).all()
 
 
 @pytest.mark.parametrize("resolution", [1.0, 0.7])
