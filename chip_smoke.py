@@ -252,6 +252,7 @@ import sys
 import time
 import warnings
 from pathlib import Path
+from typing import NamedTuple, Optional
 
 import numpy as np
 
@@ -470,6 +471,99 @@ def foreign_functions(torch, fn, functions, reps: int = 5):
     others = {names[i] for call in calls for i in call if not any(_is_function(names[i], f) for f in functions)}
     return sorted(others), len(calls[0])
 
+
+
+def loop_pass_checks(torch, name: str, fn, functions=None) -> dict:
+    """A Newton-loop wrapper's call `fn` (the gated pass, the step): one
+    launch of its own kernel, no other device work, no synchronizing call."""
+    functions = functions or LOOP_FUNCTIONS[name]
+    syncs = count_syncs(torch, fn)
+    glue, n_launches = foreign_functions(torch, fn, functions)
+    if syncs or glue or n_launches != 1:
+        raise AssertionError(f"{name}: {syncs} synchronizing calls, {n_launches} launches a call, device work besides "
+                             f"its own: {glue}")
+    log(f"  {name}'s Newton-loop wrapper: one launch of {functions[0]}, no other device work, no synchronizing call")
+    return dict(loop_launches=n_launches, loop_syncs=syncs)
+
+
+
+def same_twice(torch, name: str, launch, out) -> None:
+    """Two calls of `launch` write the same bits into `out` (the pass's
+    partial rows: a fixed order of sums, no float atomics)."""
+    launch()
+    first = out.clone()
+    out.fill_(float("nan"))
+    launch()
+    torch.cuda.synchronize()
+    if not torch.equal(first.view(torch.int32), out.view(torch.int32)):
+        raise AssertionError(f"{name}: two launches on the same inputs wrote other bits")
+    log(f"  {name}: two launches on the same inputs wrote the same bits")
+
+# the kernel each Newton-loop wrapper launches: the gated passes, the step
+LOOP_FUNCTIONS = {"ndt_derivatives_hash": ("ndt_partials",), "_fused_verify_fn": ("ndt_partials",),
+                  "newton_step": ("newton_step",)}
+
+
+def probe_sectors(torch, hm, xs, mask, transforms, offsets) -> dict:
+    """The hash pass's probes whose cell lies in the extent and their hits
+    (counted with the plain pass's keys, for candidates xs (k, 3, n)), and
+    the table's 32-byte sectors: those the probes fetch from L2, repeats
+    included (the earlier kernel 4 sectors (128 B) a probe; the shipped one
+    the two slots' key sectors a probe and the matching slot's tail sector a
+    hit, its head and covariance sharing its key's), and `needed_bytes`,
+    the distinct sectors that the probes need, each once: a probe's slot-0
+    key sector, slot 1's where slot 0 does not match, the hit slot's tail
+    sector. The hash pass's byte bound counts these."""
+    from lv_slam_tpu_torch.ops import ndt_hash
+    from lv_slam_tpu_torch.ops.cells import cell_coords
+
+    e, b_bits = hm.extent, hm.table.shape[0].bit_length() - 1
+    probes = hits = 0
+    needed = []
+    for c in range(xs.shape[0]):
+        y = torch.einsum("ij,jn->in", transforms[c, :3, :3], xs[c]) + transforms[c, :3, 3:]
+        cells = cell_coords(y.T, hm.resolution).T - hm.origin_cell[:, None]
+        for o in range(offsets.shape[0]):
+            rel = cells + offsets[o][:, None]
+            live = torch.all((rel >= 0) & (rel < e), dim=0) & mask[c]
+            key = ((rel[0] * e + rel[1]) * e + rel[2]).to(torch.int32)
+            bucket = ndt_hash._hash(torch.where(live, key, -1), b_bits).to(torch.int64)
+            row = hm.table[bucket]
+            slot0, slot1 = row[:, 0].contiguous().view(torch.int32), row[:, 16].contiguous().view(torch.int32)
+            hit0, hit1 = live & (slot0 == key), live & (slot0 != key) & (slot1 == key)
+            probes += int(live.sum())
+            hits += int((hit0 | hit1).sum())
+            needed += [4 * bucket[live], 4 * bucket[hit0] + 1, 4 * bucket[live & ~hit0] + 2, 4 * bucket[hit1] + 3]
+    n_needed = int(torch.unique(torch.cat(needed)).numel())
+    return dict(probes=probes, hits=hits, parent_bytes=128 * probes, kernel_bytes=32 * (2 * probes + hits),
+                needed_bytes=32 * n_needed)
+
+
+def log_sectors(name: str, rec: dict) -> None:
+    sec = rec["l2_sectors"]
+    log(f"    {name}: {sec['probes']} probes in the extent, {sec['hits']} hits; table sectors needed, each once "
+        f"{sec['needed_bytes'] / 1e6:.3f} MB (counted in the bound's {rec['bound_ms']:.5f} ms, {rec['bound_by']}); "
+        f"fetched from L2, repeats included, {sec['kernel_bytes'] / 1e6:.2f} MB "
+        f"({sec['kernel_bytes'] / PEAK_BYTES_PER_S * 1e3:.5f} ms at the HBM rate; the earlier kernel's whole rows "
+        f"{sec['parent_bytes'] / 1e6:.2f} MB)")
+
+
+def ptxas_usage(text: str, names=("newton_step", "newton_sums", "ndt_partials", "ndt_lut_partials",
+                                   "ndt_generic_partials")) -> dict:
+    """{mangled kernel: {registers, spills (store + load bytes), stack}} of
+    the kernels whose names hold one of `names`, from ptxas -v's lines."""
+    out, current = {}, None
+    for line in text.splitlines():
+        if "Compiling entry function" in line or "Function properties for" in line:
+            fn = line.split("'")[1] if "'" in line else line.split()[-1]
+            current = fn if any(n in fn for n in names) else None
+        elif current and "spill stores" in line:
+            nums = [int(w) for w in line.replace(",", " ").split() if w.isdigit()]
+            out.setdefault(current, {}).update(stack=nums[0], spills=nums[1] + nums[2])
+        elif current and "Used" in line and "registers" in line:
+            words = line.replace(",", " ").split()
+            out.setdefault(current, {})["registers"] = int(words[words.index("Used") + 1])
+    return out
 
 def on_cpu(cloud):
     from lv_slam_tpu_torch.core.cloud import PointCloud
@@ -866,6 +960,160 @@ def check_hash_cases(torch, dev):
     return len(cases)
 
 
+# The hash pass's edge cases (`probe_cases`, K6 / K13's `ndt_partials`)
+PROBE_CASE_NAMES = ("slot-1 keys and keys in neither slot, DIRECT1", "slot-1 keys and keys in neither slot, DIRECT7",
+                    "cells past the extent, DIRECT7", "masked, sentinel and gate-rejected lanes, DIRECT1",
+                    "1000 lanes, 3 candidates, one done, DIRECT7")
+
+
+def _pd_leaves(rng, cells: np.ndarray, res: float, origin: np.ndarray):
+    """`_leaves` with positive-definite inverse covariances (eigenvalues
+    0.5 to ~6): a point's terms stay finite against any leaf."""
+    means, _, weights = _leaves(rng, cells, res, origin)
+    b = rng.normal(0.0, 0.7, (len(cells), 3, 3))
+    icovs = (b @ b.transpose(0, 2, 1) + 0.5 * np.eye(3)).astype(np.float32)
+    return means, icovs, weights
+
+
+def _near(rng, means: np.ndarray, n: int, spread: float) -> np.ndarray:
+    """(n, 3) points around seeded picks of `means`."""
+    return (means[rng.integers(0, len(means), n)] + rng.normal(0.0, spread, (n, 3))).astype(np.float32)
+
+
+def probe_cases(seed: int = SEED):
+    """The hash pass's edge cases as dicts of numpy arrays: `leaves` (means,
+    icovs, weights, valid, origin_cell, resolution, extent,
+    buckets_per_leaf; `hash_case_map`'s tuple), points `xs` (k, 3, n),
+    `mask` (k, n), `transforms` (k, 4, 4), `neighborhood`, `weighted`,
+    `gauss` ((d1, d2) or None for the resolution's), `done` (k,). One
+    bucket a leaf: many buckets hold two leaves (the second in slot 1) or
+    more (the rest dropped, their keys in neither slot); an extent of 16
+    with leaves on its faces and points past them (some offsets' cells
+    outside [0, e)); masked lanes, lanes at the sentinel (masked and not),
+    and lanes the gate rejects (d2 = 1.5 puts d2 * exp(-d2 * md / 2) above 1
+    near a leaf's mean); 1000 lanes (not a multiple of 256) and three
+    candidates, the second done."""
+    rng = np.random.default_rng(seed)
+    e, origin = 256, np.array([-128, -128, -128], np.int32)
+
+    def cells(n, lo, hi):
+        flat = rng.choice((hi - lo) ** 3, size=n, replace=False)
+        return np.stack([flat // (hi - lo) ** 2, (flat // (hi - lo)) % (hi - lo), flat % (hi - lo)], 1) + lo - origin
+
+    def moved(k):
+        t = np.tile(np.eye(4, dtype=np.float32), (k, 1, 1))
+        t[:, :3, 3] = rng.uniform(-0.15, 0.15, (k, 3))
+        return t
+
+    def batch(pts_list):
+        return np.ascontiguousarray(np.stack([p.T for p in pts_list]).astype(np.float32))
+
+    out = []
+    means, icovs, weights = _pd_leaves(rng, cells(4096, -20, 20), 1.0, origin)
+    leaves = (means, icovs, weights, rng.random(4096) < 0.97, origin, 1.0, e, 1)
+    for name, k, hood, weighted in ((PROBE_CASE_NAMES[0], 1, "DIRECT1", True), (PROBE_CASE_NAMES[1], 2, "DIRECT7", False)):
+        pts = [np.concatenate([_near(rng, means, 3480, 0.2), rng.uniform(-20, 20, (616, 3)).astype(np.float32)])
+               for _ in range(k)]
+        out.append(dict(name=name, leaves=leaves, xs=batch(pts), mask=np.ones((k, 4096), bool), transforms=moved(k),
+                        neighborhood=hood, weighted=weighted, gauss=None, done=np.zeros(k, bool)))
+    # extent 16 from the origin: leaves on the faces and inside, points up to a cell past the faces
+    small = np.zeros(3, np.int32)
+    face = rng.integers(0, 16, (600, 3))
+    face[np.arange(600), rng.integers(0, 3, 600)] = rng.choice([0, 15], 600)
+    face = np.unique(face, axis=0)
+    means, icovs, weights = _pd_leaves(rng, face, 1.0, small)
+    pts = np.concatenate([_near(rng, means, 3000, 0.6), rng.uniform(-1.0, 17.0, (1096, 3)).astype(np.float32)])
+    out.append(dict(name=PROBE_CASE_NAMES[2], leaves=(means, icovs, weights, np.ones(len(face), bool), small, 1.0, 16, 4),
+                    xs=batch([pts]), mask=np.ones((1, 4096), bool), transforms=moved(1), neighborhood="DIRECT7",
+                    weighted=False, gauss=None, done=np.zeros(1, bool)))
+    # masked lanes, sentinel lanes (masked and not), lanes the gate rejects
+    means, icovs, weights = _pd_leaves(rng, cells(2048, -12, 12), 1.0, origin)
+    pts = _near(rng, means, 4096, 0.3)
+    mask = rng.random(4096) > 0.3
+    sentinel = rng.random(4096) < 0.15
+    pts[sentinel] = SENTINEL_XYZ
+    out.append(dict(name=PROBE_CASE_NAMES[3], leaves=(means, icovs, weights, np.ones(2048, bool), origin, 1.0, e, 4),
+                    xs=batch([pts]), mask=mask[None], transforms=moved(1), neighborhood="DIRECT1", weighted=True,
+                    gauss=(-1.0, 1.5), done=np.zeros(1, bool)))
+    # 1000 lanes, three candidates, the second done
+    means, icovs, weights = _pd_leaves(rng, cells(3000, -15, 15), 1.0, origin)
+    pts = [_near(rng, means, 1000, 0.3) for _ in range(3)]
+    out.append(dict(name=PROBE_CASE_NAMES[4], leaves=(means, icovs, weights, rng.random(3000) < 0.9, origin, 1.0, e, 4),
+                    xs=batch(pts), mask=rng.random((3, 1000)) > 0.1, transforms=moved(3), neighborhood="DIRECT7",
+                    weighted=False, gauss=None, done=np.array([False, True, False])))
+    assert tuple(c["name"] for c in out) == PROBE_CASE_NAMES
+    return out
+
+
+SENTINEL_XYZ = 1.0e6  # core/cloud.py SENTINEL: a masked lane's coordinates
+
+
+def probe_case_inputs(torch, case, dev):
+    """A `probe_cases` entry on `dev`: (hash map (the plain K5's table of its
+    leaves, built on the CPU), xs (k, 3, n), mask (k, n), transforms (k, 4, 4),
+    GaussParams, offsets, weighted, done (k,) bool)."""
+    from lv_slam_tpu_torch.ops import ndt, ndt_hash, voxel_map
+
+    bpl = case["leaves"][-1]
+    hm = ndt_hash.to_hash_ref(hash_case_map(torch, case["leaves"], "cpu"), bpl)
+    hm = hm._replace(table=hm.table.to(dev), origin_cell=hm.origin_cell.to(dev), n_dropped=hm.n_dropped.to(dev))
+    res = case["leaves"][5]
+    gauss = ndt.make_gauss_params(res) if case["gauss"] is None else ndt.GaussParams(*case["gauss"], 0.0)
+    t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)  # noqa: E731
+    return (hm, t(case["xs"]), t(case["mask"]), t(case["transforms"]), gauss,
+            voxel_map.neighborhood_offsets(case["neighborhood"], dev), case["weighted"], t(case["done"]))
+
+
+def probe_sums(torch, rows):
+    """(k, 43) sums of partial rows (k, n_blocks, 43) in block order (`ndt_finish`'s)."""
+    sums = torch.zeros_like(rows[:, 0])
+    for b in range(rows.shape[1]):
+        sums = sums + rows[:, b]
+    return sums
+
+
+def check_probe_cases(torch, dev):
+    """The hash pass (`ndt_partials`, K13's launch) on every case of
+    `probe_cases`, one launch and no synchronizing call a case: a finished
+    candidate's rows untouched, the others' rows, summed in block order,
+    against the plain pass on the card at phase 2's tolerances (score 1e-4
+    of its size, gradient and Hessian 2e-5 of their largest entry); returns
+    the number of cases."""
+    from lv_slam_tpu_torch.kernels import KERNELS
+    from lv_slam_tpu_torch.ops import ndt, ndt_hash
+
+    cases = probe_cases()
+    for case in cases:
+        name = case["name"]
+        hm, xs, mask, trans, gauss, offsets, weighted, done = probe_case_inputs(torch, case, dev)
+        k = xs.shape[0]
+        pass_ = ndt_hash.hash_pass(hm, xs, mask, gauss, offsets, weighted)
+        state = ndt.NewtonState(trans, batched=True)
+        state.s[:, ndt.S_DONE] = done.to(torch.int32)
+        state.partials = torch.full((k * pass_.n_blocks * ndt.N_TERMS,), float("nan"), dtype=torch.float32,
+                                    device=dev)
+        before = KERNELS["_fused_verify_fn"].launches
+        syncs = count_syncs(torch, lambda: pass_.launch(state))
+        torch.cuda.synchronize()
+        if KERNELS["_fused_verify_fn"].launches != before + 1 or syncs:
+            raise AssertionError(f"ndt_partials ({name}): {KERNELS['_fused_verify_fn'].launches - before} launches, "
+                                 f"{syncs} synchronizing calls")
+        rows = state.partials.view(k, pass_.n_blocks, ndt.N_TERMS)
+        active = (~done).tolist()
+        if not bool(torch.isnan(rows[done]).all()):
+            raise AssertionError(f"ndt_partials ({name}): a finished candidate's rows were written")
+        got = probe_sums(torch, rows[~done])
+        s2, g2, h2 = (a[~done] for a in ndt_hash.ndt_derivatives_hash_batched_ref(
+            hm, xs, mask, trans, gauss, offsets, weighted, active))
+        es = float((got[:, 0] - s2).abs().max())
+        eg, eh = float((got[:, 1:7] - g2).abs().max()), float((got[:, 7:] - h2.reshape(-1, 36)).abs().max())
+        ts, tg, th = 1e-4 * float(s2.abs().max()), 2e-5 * float(g2.abs().max()), 2e-5 * float(h2.abs().max())
+        if not bool(torch.isfinite(got).all()) or es > ts or eg > tg or eh > th:
+            raise AssertionError(f"ndt_partials ({name}): errors score {es} (tol {ts}), grad {eg} (tol {tg}), hess "
+                                 f"{eh} (tol {th})")
+    return len(cases)
+
+
 WINDOW_CAP = 8192  # K2's edge cases: lanes a scan
 WINDOW_CASE_NAMES = ("length 1", "length 16", "rows past the chunk clipped", "every row invalid",
                      "moved past the yz clip range")
@@ -950,7 +1198,7 @@ def check_kernels(torch, scans, gt, dev):
     from lv_slam_tpu_torch import kitti_flagship_config
     from lv_slam_tpu_torch.core.cloud import PointCloud
     from lv_slam_tpu_torch.ops import ndt_hash, prefilter, voxel_map
-    from lv_slam_tpu_torch.ops.ndt import make_gauss_params
+    from lv_slam_tpu_torch.ops.ndt import N_TERMS, NewtonState, make_gauss_params
 
     cfg = kitti_flagship_config()
     pf, ndt = cfg.prefilter, cfg.odometry.ndt
@@ -1076,9 +1324,26 @@ def check_kernels(torch, scans, gt, dev):
             f"errors score {es:.3g} (tol {1e-4 * abs(float(s2)):.3g}), grad {eg:.3g} (tol {tg:.3g}), "
             f"hess {eh:.3g} (tol {th:.3g})")
     n_src = int(src.mask.sum())
-    # the whole table is an input; ~330 operations per lane and offset (DIRECT1)
+    # bytes: the points, the mask, the table's sectors that the probes need
+    # (each once) and the 43 outputs; ~330 operations per lane and offset
+    # (DIRECT1)
+    d1 = voxel_map.neighborhood_offsets("DIRECT1", dev)
+    sectors = probe_sectors(torch, hm, xs[None], src.mask[None], rel[None], d1)
     measure(torch, records, "ndt_derivatives_hash", *fns["DIRECT1"], err4,
-            nbytes(hm.table, xs, src.mask) + 43 * 4, 330 * n_src)
+            nbytes(xs, src.mask) + sectors["needed_bytes"] + 43 * 4, 330 * n_src)
+    # the Newton loop's gated pass at the same shape: one launch, no
+    # synchronizing call, no device work but its own; the L2 sectors its
+    # probes fetch beside the bound's bytes
+    state = NewtonState(rel[None])
+    loop_pass = ndt_hash.hash_pass(hm, xs, src.mask.contiguous(), gauss, d1, True)
+    state.partials = torch.empty((loop_pass.n_blocks * N_TERMS,), dtype=torch.float32, device=dev)
+    records["ndt_derivatives_hash"].update(loop_pass_checks(torch, "ndt_derivatives_hash", lambda: loop_pass.launch(state)))
+    same_twice(torch, "ndt_partials (K6)", lambda: loop_pass.launch(state), state.partials)
+    records["ndt_derivatives_hash"]["l2_sectors"] = sectors
+    log_sectors("ndt_partials (K6)", records["ndt_derivatives_hash"])
+    n_cases = check_probe_cases(torch, dev)
+    log(f"  ndt_partials: the {n_cases} probe_cases against the plain pass on the card, one launch and no "
+        f"synchronizing call each, finished candidates' rows untouched")
     return records
 
 
@@ -1581,7 +1846,7 @@ def check_backend_kernels(torch, scans, gt, dev):
     from lv_slam_tpu_torch.core import se3
     from lv_slam_tpu_torch.graph import pose_graph
     from lv_slam_tpu_torch.ops import ndt_hash, nn, prefilter, voxel_map
-    from lv_slam_tpu_torch.ops.ndt import make_gauss_params
+    from lv_slam_tpu_torch.ops.ndt import N_TERMS, NewtonState, make_gauss_params
     from lv_slam_tpu_torch.pipeline import window
 
     pf = kitti_flagship_config().prefilter
@@ -1714,9 +1979,19 @@ def check_backend_kernels(torch, scans, gt, dev):
         log(f"  _fused_verify_fn (batched K6, DIRECT7) at {r} m: {len(cands)} x {xs.shape[2]} lanes, "
             f"errors score {es:.3g} (tol {ts:.3g}), grad {eg:.3g} (tol {tg:.3g}), hess {eh:.3g} (tol {th:.3g})")
     n_lanes = int(mask.sum())
-    # the table is an input; per lane 7 probes (~40 operations) and ~330 per hit
-    measure(torch, records, "_fused_verify_fn", k13, p13, err13, nbytes(hm.table, xs, mask, guesses),
-            (7 * 40 + 330) * n_lanes)
+    # bytes: the points, masks and guesses and the table's sectors that the
+    # probes need (each once); per lane 7 probes (~40 operations) and ~330
+    # per hit
+    sectors = probe_sectors(torch, hm, xs, mask, guesses, offsets)
+    measure(torch, records, "_fused_verify_fn", k13, p13, err13,
+            nbytes(xs, mask, guesses) + sectors["needed_bytes"] + 8 * 43 * 4, (7 * 40 + 330) * n_lanes)
+    state = NewtonState(guesses, batched=True)
+    loop_pass = ndt_hash.hash_pass(hm, xs, mask, make_gauss_params(1.0), offsets, False)
+    state.partials = torch.empty((len(cands) * loop_pass.n_blocks * N_TERMS,), dtype=torch.float32, device=dev)
+    records["_fused_verify_fn"].update(loop_pass_checks(torch, "_fused_verify_fn", lambda: loop_pass.launch(state)))
+    same_twice(torch, "ndt_partials (K13, 1 m)", lambda: loop_pass.launch(state), state.partials)
+    records["_fused_verify_fn"]["l2_sectors"] = sectors
+    log_sectors("ndt_partials (K13, 1 m)", records["_fused_verify_fn"])
 
     # kernel 14: the keyframe cloud's 0.25 m grid, then the 8 candidates'
     # fitness at their guesses
@@ -2669,6 +2944,11 @@ def log_kernels(top) -> None:
     for rank, (t, key, count) in enumerate(top, 1):
         if is_hand_kernel(key):
             log(f"    {t / 1e3:9.3f} ms  {count:6d} x  {t / 1e3 / max(count, 1):.4f} ms  #{rank}  {key[:80]}")
+    for fn in ("newton_step", "ndt_partials"):  # the Newton pair (ndt_partials over its two instances)
+        rows = [(t, count) for t, key, count in top if _is_function(key, fn)]
+        if rows:
+            t, count = sum(r[0] for r in rows), sum(r[1] for r in rows)
+            log(f"    {fn}: {t / 1e3:.3f} ms over {count} launches ({t / 1e3 / count:.4f} ms a launch)")
 
 
 def is_hand_kernel(key: str) -> bool:
@@ -4173,7 +4453,9 @@ def newton_steps(torch, ndt, state, pass_, sums_at, p):
     step a copy takes `newton_step_ref` with the same derivative sums
     (`sums_at(candidates)`: the pass and `ndt_finish`, the order
     `newton_step` sums in). Per lane the iteration count, the accepted
-    transform, score, gradient, Hessian and cap must be identical; `done`
+    transform, score, gradient, Hessian and cap must be identical (a lane
+    with a NaN start may hold its NaN score, where the twin holds one too);
+    `done`
     and `bad` too, except where alpha lies within the solves' rounding of
     eps or eps / 2 (counted); a running lane's step length alpha within
     1e-5 (relative) of the step solved in float64 (`_alpha64`), and its
@@ -4198,8 +4480,13 @@ def newton_steps(torch, ndt, state, pass_, sums_at, p):
         if not torch.equal(state.s[:, ndt.S_IT], twin.s[:, ndt.S_IT]):
             raise AssertionError(f"newton_step: iteration counts {state.s[:, ndt.S_IT].tolist()} vs the twin's "
                                  f"{twin.s[:, ndt.S_IT].tolist()}")
+        # a NaN start: the lane is done at iteration 0 with its NaN score in both
+        nan_start = (torch.isnan(state.f[:, ndt.F_SCORE]) & torch.isnan(twin.f[:, ndt.F_SCORE])
+                     & (state.s[:, ndt.S_IT] == 0) & (state.s[:, ndt.S_DONE] == 1) & (twin.s[:, ndt.S_DONE] == 1))
+        got_f, want_f = state.f.clone(), twin.f.clone()
+        got_f[nan_start, ndt.F_SCORE] = want_f[nan_start, ndt.F_SCORE] = 0.0
         for lo, hi in same_cols:
-            if not torch.equal(state.f[:, lo:hi], twin.f[:, lo:hi]):
+            if not torch.equal(got_f[:, lo:hi], want_f[:, lo:hi]):
                 raise AssertionError(f"newton_step: state columns {lo}:{hi} differ from the twin's")
         for c in range(state.k):
             if not running[c]:
@@ -4294,6 +4581,171 @@ def check_sums_cases(torch, dev):
             raise AssertionError(f"newton_sums ({name}): the lanes' sums differ from the plain version")
         if bool(got[[1, 5]].any()) or not bool(got[2, 7].isnan()) or float(got[3, 0]) != float("inf"):
             raise AssertionError(f"newton_sums ({name}): finished lanes, the NaN or the infinity not as the adds give")
+    return len(cases)
+
+
+# K7's edge cases (`newton_cases`): a canned quadratic score over the
+# candidate's pose coordinates x(T) = (T03, T13, T23, T21, T02, T10): score
+# c + (x - x*)^T H (x - x*) / 2, gradient H (x - x*), Hessian H, split on
+# the card into n_blocks seeded partial rows a lane
+NEWTON_CASE_NAMES = ("zero pivot", "row swaps", "NaN start", "ground dof", "x, y and yaw dof", "step_min",
+                     "steps at the cap", "max_iterations", "1 row", "2049 rows", "4 lanes, one NaN start")
+# a diagonal whose trace (5.722040176391602) is exact in any order of the
+# adds, with H00 = -ridge(trace) = -2^-20: the system's first column is then
+# exactly zero, a zero pivot (LAPACK's info 1)
+ZERO_PIVOT_DIAG = (-2.0 ** -20, -1.7220392227172852, -1.0, -1.0, -1.0, -1.0)
+GROUND_DOF = (False, False, True, True, True, False)  # ops/ndt_ground.GROUND_DOF: tz, roll, pitch
+
+
+class NewtonCase(NamedTuple):
+    """A canned Newton loop: Hessian `hess` (6, 6), maxima `x_star` (k, 6),
+    NaN start scores `nan` (k,), guesses' translations `t0` (k, 3) (no
+    rotation), the loop's max_iterations and dof_mask, and the partial rows
+    a lane of its pass on the card."""
+
+    name: str
+    hess: np.ndarray
+    x_star: np.ndarray
+    nan: np.ndarray
+    t0: np.ndarray
+    max_iterations: int = 64
+    dof_mask: Optional[tuple] = None
+    n_blocks: int = 256
+    exact_rows: bool = False  # the derivatives in the first row, zeros after: the sums are exactly them
+
+    def guesses(self) -> np.ndarray:
+        g = np.tile(np.eye(4, dtype=np.float32), (len(self.t0), 1, 1))
+        g[:, :3, 3] = self.t0
+        return g
+
+
+def newton_case_specs():
+    """`NEWTON_CASE_NAMES`' canned loops, as numpy arrays (the CPU tests
+    drive JAX's loop with the same)."""
+    f32 = lambda a: np.asarray(a, np.float32)  # noqa: E731
+    one = lambda *x: f32([x])  # noqa: E731
+    swaps = -np.eye(6)
+    swaps[:3, :3] = -np.array([[1.0, 5.0, 0.5], [5.0, 100.0, 3.0], [0.5, 3.0, 10.0]])  # |a10| > |a00|: a row swap
+    swaps[3:, 3:] = -np.diag([1.0, 2.0, 3.0])
+    coupled = -np.diag([2.0, 2.0, 4.0, 3.0, 3.0, 2.0])
+    for i, j in ((0, 2), (2, 3), (1, 4)):
+        coupled[i, j] = coupled[j, i] = -0.3
+    no = np.zeros(1, bool)
+    at0 = f32([[0.0, 0.0, 0.0]])
+    far = one(0.45, -0.2, 0.1, 0.0, 0.0, 0.02)
+    out = [
+        NewtonCase("zero pivot", f32(np.diag(ZERO_PIVOT_DIAG)), one(0.05, 0.02, -0.01, 0, 0, 0), no, at0,
+                   exact_rows=True),
+        NewtonCase("row swaps", f32(swaps), one(0.06, -0.03, 0.02, 0.01, 0.0, 0.005), no, at0),
+        NewtonCase("NaN start", f32(-np.eye(6)), one(0.1, 0, 0, 0, 0, 0), np.ones(1, bool), at0, n_blocks=128),
+        NewtonCase("ground dof", f32(coupled), one(0.2, 0.1, 0.04, 0.02, -0.01, 0.05), no, at0, dof_mask=GROUND_DOF),
+        NewtonCase("x, y and yaw dof", f32(coupled), one(0.2, 0.1, 0.04, 0.02, -0.01, 0.05), no, at0,
+                   dof_mask=(True, True, False, False, False, True), n_blocks=512),
+        NewtonCase("step_min", f32(-4.0 * np.eye(6)), one(0.003, 0, 0, 0, 0, 0), no, at0),
+        NewtonCase("steps at the cap", f32(-2.0 * np.eye(6)), far, no, at0),
+        NewtonCase("max_iterations", f32(-2.0 * np.eye(6)), far, no, at0, max_iterations=2),
+        NewtonCase("1 row", f32(swaps), one(0.06, -0.03, 0.02, 0.01, 0.0, 0.005), no, at0, n_blocks=1),
+        NewtonCase("2049 rows", f32(coupled), one(0.12, -0.05, 0.02, 0.0, 0.01, -0.02), no, f32([[0.02, 0.0, 0.0]]),
+                   n_blocks=2049),
+        NewtonCase("4 lanes, one NaN start", f32(-np.diag([1.0, 2.0, 3.0, 1.0, 1.0, 1.0])),
+                   f32([[0.3, 0, 0, 0, 0, 0], [0.05, 0.05, 0, 0, 0, 0.01], [0.1, 0, 0, 0, 0, 0],
+                        [0.0, -0.15, 0.02, 0.0, 0.0, 0.0]]),
+                   np.array([False, False, True, False]), np.zeros((4, 3), np.float32), n_blocks=512),
+    ]
+    assert tuple(c.name for c in out) == NEWTON_CASE_NAMES
+    return out
+
+
+def canned_derivatives(torch, case: NewtonCase, dev):
+    """The case's derivatives as torch ops: (score (k,), grad (k, 6), hess
+    (k, 6, 6)) at transforms (k, 4, 4)."""
+    hess = torch.from_numpy(case.hess).to(dev)
+    x_star = torch.from_numpy(case.x_star).to(dev)
+    nan = torch.from_numpy(case.nan).to(dev)
+
+    def derivs(transforms):
+        t = transforms
+        x = torch.stack([t[:, 0, 3], t[:, 1, 3], t[:, 2, 3], t[:, 2, 1], t[:, 0, 2], t[:, 1, 0]], dim=1)
+        d = x - x_star
+        grad = torch.sum(hess[None] * d[:, None, :], dim=2)
+        score = torch.where(nan, float("nan"), 0.5 * torch.sum(d * grad, dim=1))
+        return score, grad, hess.expand(len(t), 6, 6)
+
+    return derivs
+
+
+def newton_cases(torch, ndt, dev, seed: int = SEED):
+    """K7's edge cases on `dev`: (name, state, pass, loop params, sums_at)
+    per `newton_case_specs` entry. The pass writes each lane's canned
+    derivatives at its candidate as n_blocks partial rows (seeded positive
+    weights of the row summing to about 1: the rows' float32 sums in block
+    order round otherwise than the derivatives themselves; the zero pivot's
+    in the first row, so its sums are exactly the singular system);
+    `sums_at(cands)` is those sums, the plain block-by-block adds the step
+    takes."""
+    rng = np.random.default_rng(seed)
+    out = []
+    for case in newton_case_specs():
+        derivs = canned_derivatives(torch, case, dev)
+        w = rng.uniform(0.5, 1.5, case.n_blocks)
+        w = np.eye(1, case.n_blocks)[0] if case.exact_rows else w / w.sum()
+        weights = torch.from_numpy(w.astype(np.float32)).to(dev)
+        k, n = len(case.t0), case.n_blocks
+
+        def rows_at(cands, derivs=derivs, weights=weights):
+            score, grad, hess = derivs(cands)
+            terms = torch.cat([score[:, None], grad, hess.reshape(len(cands), 36)], dim=1)
+            return terms[:, None, :] * weights[None, :, None]
+
+        def sums_at(cands, rows_at=rows_at, n=n):
+            rows = rows_at(cands)
+            sums = torch.zeros_like(rows[:, 0])
+            for b in range(n):
+                sums = sums + rows[:, b]
+            return sums[:, 0], sums[:, 1:7], sums[:, 7:].reshape(len(cands), 6, 6)
+
+        def launch(state, rows_at=rows_at, n=n):
+            cands = state.f[:, ndt.F_CAND:ndt.F_CAND + 16].reshape(state.k, 4, 4)
+            state.partials[:state.k * n * ndt.N_TERMS] = rows_at(cands).reshape(-1)
+
+        state = ndt.NewtonState(torch.from_numpy(case.guesses()).to(dev), batched=k > 1)
+        state.partials = torch.empty((k * n * ndt.N_TERMS,), dtype=torch.float32, device=dev)
+        p = ndt.loop_params(np.float32(0.01), 0.1, case.max_iterations, case.dof_mask, dev)
+        out.append((case.name, state, ndt.DerivativePass(None, launch, n), p, sums_at))
+    return out
+
+
+def check_newton_cases(torch, dev):
+    """K7 (`newton_step`) on every case of `newton_cases`, step by step to
+    done against its twin from identical states by `newton_steps`' rules,
+    one launch and no synchronizing call a step; returns the number of
+    cases."""
+    from lv_slam_tpu_torch.kernels import KERNELS
+    from lv_slam_tpu_torch.ops import ndt
+
+    cases = newton_cases(torch, ndt, dev)
+    for name, state, pass_, p, sums_at in cases:
+        probe = state.clone()
+        probe.f, probe.s = state.f.clone(), state.s.clone()
+        pass_.launch(probe)
+        before = KERNELS["newton_step"].launches
+        syncs = count_syncs(torch, lambda: ndt.newton_step(probe, pass_.n_blocks, p))
+        if KERNELS["newton_step"].launches != before + 1 or syncs:
+            raise AssertionError(f"newton_step ({name}): {KERNELS['newton_step'].launches - before} launches, "
+                                 f"{syncs} synchronizing calls")
+        try:
+            steps, _, _, _ = newton_steps(torch, ndt, state, pass_, sums_at, p)
+        except AssertionError as err:
+            raise AssertionError(f"newton_cases ({name}): {err}") from err
+        want_it = {"NaN start": [0], "max_iterations": [3], "zero pivot": [1], "step_min": [1],
+                   "4 lanes, one NaN start": None}.get(name)
+        got_it = state.s[:, ndt.S_IT].tolist()
+        if (want_it is not None and got_it != want_it) or steps < 1:
+            raise AssertionError(f"newton_step ({name}): iterations {got_it} (expected {want_it}), {steps} steps")
+        if name == "zero pivot" and state.s[0].tolist() != [1, 1, 1, 1]:
+            raise AssertionError(f"newton_step (zero pivot): state flags {state.s[0].tolist()}, not done and bad")
+        if name == "4 lanes, one NaN start" and (int(state.s[2, ndt.S_IT]) != 0 or len(set(got_it)) < 2):
+            raise AssertionError(f"newton_step ({name}): iterations {got_it}")
     return len(cases)
 
 
@@ -4482,6 +4934,12 @@ def check_loop_kernels(torch, scans, gt, dev, prior):
     n_cases = check_sums_cases(torch, dev)
     log(f"  newton_sums: {n_cases} edge cases (8 lanes x {SUMS_BLOCKS} blocks, lanes 1 and 5 finished, a NaN row and "
         f"an infinite one) identical to the plain version, one launch each")
+    n_cases = check_newton_cases(torch, dev)
+    log(f"  newton_step: the {n_cases} newton_cases ({', '.join(NEWTON_CASE_NAMES)}) step by step to done against "
+        f"the twin by newton_steps' rules, one launch and no synchronizing call a step")
+    step_state = sums_state.clone()
+    records["newton_step"].update(loop_pass_checks(
+        torch, "newton_step", lambda: ndt.newton_step(step_state, bpass.n_blocks, bp)))
     # bytes: the running lanes' partial rows, a done flag per lane, the sums;
     # one add per running lane's partial float
     n_running = int((sums_state.s[:, ndt.S_DONE] == 0).sum())
@@ -4768,11 +5226,10 @@ def run_dlo_branches(torch, scans, gt, dev, card):
 
 def loop_ms(torch, fn, reps: int = 5):
     """(device ms, wall ms) per call of a host loop `fn` (one that reads the
-    host inside its loop): the device work summed over a torch.profiler
-    trace of `reps` calls, and the median host-clock wall of as many
-    unprofiled calls, each ending in a synchronize."""
-    from torch.profiler import ProfilerActivity, profile as torch_profile
-
+    host inside its loop): the median device work of the whole calls among
+    `reps` in a torch.profiler trace (`device_ms`: a trace that lost records
+    of a call leaves that call out), and the median host-clock wall of as
+    many unprofiled calls, each ending in a synchronize."""
     fn()
     torch.cuda.synchronize()
     walls = []
@@ -4781,14 +5238,10 @@ def loop_ms(torch, fn, reps: int = 5):
         fn()
         torch.cuda.synchronize()
         walls.append((time.perf_counter() - t0) * 1e3)
-    with torch_profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    busy = sum(e.time_range.elapsed_us() for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA)
-    if busy <= 0:
+    _, busy_ms, _ = device_ms(torch, fn, reps=reps)
+    if busy_ms <= 0:
         raise AssertionError("the profiler saw no device time")
-    return busy / 1e3 / reps, float(np.median(walls))
+    return busy_ms, float(np.median(walls))
 
 
 # ----------------------------------------------------------------- phase 11
@@ -5033,10 +5486,14 @@ def main() -> int:
     built = f"nvcc build {LIBRARY.build_seconds:.1f} s" if LIBRARY.build_seconds else "reused build"
     log(f"  kernels: {built} ({time.perf_counter() - t0:.1f} s to load) -> {LIBRARY.path.name}")
     build_log = LIBRARY.path.parent / "build.log"
+    usage = {}
     if build_log.exists():
         for line in build_log.read_text().splitlines():
             if "Used" in line or "spill" in line:
                 log(f"    ptxas: {line.strip()}")
+        usage = ptxas_usage(build_log.read_text())
+        for fn, u in sorted(usage.items()):
+            log(f"  ptxas -v: {fn}: {u['registers']} registers, {u['spills']} bytes of spills, {u['stack']} of stack")
     if set(KERNELS) != set(DEVICE_FUNCTIONS):
         raise AssertionError(f"kernel registry {sorted(KERNELS)} != {sorted(DEVICE_FUNCTIONS)}")
 
@@ -5065,6 +5522,9 @@ def main() -> int:
     records.update(check_registration_kernels(torch, scans_all, gt_all, dev))
     log("phase 2i: the device-side loops (K7's newton_step over K6L and K13's pass, the LM's kernels around K15)")
     records.update(check_loop_kernels(torch, scans_all, gt_all, dev, records))
+    for name, fn in (("newton_step", "newton_step"), ("ndt_derivatives_hash", "ndt_partials"),
+                     ("_fused_verify_fn", "ndt_partials")):
+        records[name]["ptxas"] = {k: v for k, v in usage.items() if fn in k}
     log("phase 2j: the 8-cell k-NN of a cell table (K9n) and the fits' KnnGrid branch (K10g)")
     cell_records, cell_launches = check_cell_knn_kernels(torch, scans_all, gt_all, dev)
     records.update(cell_records)

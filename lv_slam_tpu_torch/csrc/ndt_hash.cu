@@ -22,17 +22,38 @@
 // Kernel 4 replaces lv_slam_tpu/ops/ndt_hash.py:132 `ndt_derivatives_hash`
 // with lv_slam_tpu/ops/ndt_soa.py:59 `accumulate_ndt_terms` as its body.
 //   Bound on the card: per call it reads N points (12 B each, N = 65536 or
-//   32768 on the coarse phase) and one random 128-byte table row per point
-//   and offset; the table (16 MB) stays in the 50 MB L2 across the Newton
-//   iterations. About 300 flops per hit, so the kernel is bound by the
-//   dependent row load and by the 43-wide reduction, not by arithmetic.
-//   Design: one thread per point loops over the K offsets and keeps the 43
-//   sums (score, gradient 6, Hessian 36: the T2 block is not symmetric, so no
-//   triangle is mirrored) in registers; lanes that miss or fail the gate are
-//   skipped, never multiplied by 0 (a sentinel lane's terms can be inf). Warp
-//   shuffles and shared memory reduce each block to one partial row; a second
-//   one-block kernel sums the partial rows in a fixed order, so the result is
-//   deterministic run to run.
+//   32768 on the coarse phase) and the table's sectors that its probes need,
+//   each once (a probe's slot-0 key sector, slot 1's where slot 0 misses,
+//   and the hit slot's tail sector; at most the 16 MB table, which stays in
+//   the 50 MB L2 across the Newton iterations); about 330 flops per hit.
+//   What it fetches from L2, repeats included: the earlier kernel loaded
+//   both slots' first 48 bytes, four 32-byte sectors a probe, hit or miss;
+//   this one both key sectors a probe and a tail sector a hit.
+//   `chip_smoke.probe_sectors` counts all three.
+//   Design: one thread per point (the point -> thread map, the offset order
+//   and the reduction's order are the earlier kernel's, so the partial rows
+//   are its bits; `scripts/newton_parent.py` holds them to it). For each
+//   group of up to 7 offsets (DIRECT7 is one group) a thread first computes
+//   every probe's key and bucket and issues both slots' key words at once
+//   (sectors 0 and 2 of the row), then takes the hits in offset order: the
+//   matching slot's head, covariance (its key's sector) and tail (one more
+//   sector), and the 43 terms (score, gradient 6, Hessian 36: the T2 block
+//   is not symmetric, so no triangle is mirrored) kept in registers. Lanes
+//   that miss or fail the gate are skipped, never multiplied by 0 (a
+//   sentinel lane's terms can be inf). Each block then sums its rows into
+//   one partial row by `lvs::block_partials` (ndt_terms.cuh: the warp's 43
+//   values halved over the lane pairs of a shuffle-down tree, 48 shuffles a
+//   warp, the tree's bits); `ndt_finish` sums the partial rows in block
+//   order, so the result does not change from run to run.
+//   What bounds it: at K13's 8 x 131072 lanes the 215 shuffles a warp of the
+//   earlier shuffle-down reduction took a quarter of the pass (0.0623 ms
+//   with it, 0.0473 halved; H100, PERF.md), and the probes' gathers the
+//   rest; at K6's 65536 lanes (256 blocks, one wave) the latency of one
+//   point's loads. 80 registers (`__launch_bounds__(256, 3)`: three blocks
+//   an SM; the DIRECT7 instance spills 128 bytes and still runs 3% faster
+//   than at two).
+//   Tried and dropped, with their times in PERF.md: the earlier whole-row
+//   loads for DIRECT1, two and one blocks an SM, the shuffle-down reduction.
 //
 // Kernel 13's derivative pass (lv_slam_tpu/graph/loop_detector.py:69
 // `_fused_verify_fn`, the vmapped `ndt_align_hash_table` over the loop
@@ -129,7 +150,15 @@ __global__ void hash_rows(const float* __restrict__ means, const float* __restri
 
 // ---------------------------------------------------------------- kernel 4
 
-__global__ void __launch_bounds__(lvs::kThreads)
+constexpr int kProbeGroup = 7;  // DIRECT7's offsets: a group's key loads are in flight together
+
+constexpr int kPassMinBlocks = 3;  // blocks an SM: 80 registers
+
+// The pass over KP offsets a group (1 or kProbeGroup): each probe first
+// loads the two slots' key words, and a hit then loads its slot's head,
+// covariance and tail.
+template <int KP>
+__global__ void __launch_bounds__(lvs::kThreads, kPassMinBlocks)
 ndt_partials(const float* __restrict__ table, int b_bits, const int* __restrict__ origin,
              float inv_res, int e, const float* __restrict__ xs, int n,
              const bool* __restrict__ mask, const float* __restrict__ T, int t_stride, const int* __restrict__ done,
@@ -155,28 +184,71 @@ ndt_partials(const float* __restrict__ table, int b_bits, const int* __restrict_
     int cell[3];
 #pragma unroll
     for (int r = 0; r < 3; ++r) cell[r] = static_cast<int>(floorf(y[r] * inv_res)) - origin[r];
-    for (int o = 0; o < k; ++o) {
-      int r0 = cell[0] + offsets[3 * o + 0];
-      int r1 = cell[1] + offsets[3 * o + 1];
-      int r2 = cell[2] + offsets[3 * o + 2];
-      if (r0 < 0 || r0 >= e || r1 < 0 || r1 >= e || r2 < 0 || r2 >= e) continue;
-      int key = flat_key(r0, r1, r2, e);
-      const float* row = table + 32 * static_cast<long long>(bucket_of(key, b_bits));
-      // columns 0-11 of both slots, all inside one 128-byte row; the slot is
-      // chosen by value so everything stays in registers
-      const float4* row4 = reinterpret_cast<const float4*>(row);
-      float4 a0 = __ldg(row4 + 0), b0 = __ldg(row4 + 1), c0 = __ldg(row4 + 2);
-      float4 a1 = __ldg(row4 + 4), b1 = __ldg(row4 + 5), c1 = __ldg(row4 + 6);
-      bool m0 = __float_as_int(a0.x) == key;
-      if (!m0 && __float_as_int(a1.x) != key) continue;
-      float4 head = m0 ? a0 : a1;  // key, mu0, mu1, mu2
-      float4 cov = m0 ? b0 : b1;   // c00, c01, c02, c11
-      float4 tail = m0 ? c0 : c1;  // c12, c22, w, pad
-      lvs::ndt_point_terms(y, head.y, head.z, head.w, cov.x, cov.y, cov.z, cov.w, tail.x, tail.y, tail.z,
-                           d1, d2, weighted, acc);
+    const int* words = reinterpret_cast<const int*>(table);
+    for (int o0 = 0; o0 < k; o0 += KP) {
+      // every probe of the group: its cell's key and bucket, then both
+      // slots' key words (sectors 0 and 2 of the row) in flight together
+      int key[KP], bucket[KP];
+      unsigned live = 0;  // the probes whose cell lies inside [0, e)^3
+#pragma unroll
+      for (int p = 0; p < KP; ++p) {
+        const int o = o0 + p;
+        key[p] = 0;
+        if (o < k) {
+          const int r0 = cell[0] + offsets[3 * o + 0];
+          const int r1 = cell[1] + offsets[3 * o + 1];
+          const int r2 = cell[2] + offsets[3 * o + 2];
+          if (r0 >= 0 && r0 < e && r1 >= 0 && r1 < e && r2 >= 0 && r2 < e) {
+            key[p] = flat_key(r0, r1, r2, e);
+            live |= 1u << p;
+          }
+        }
+        bucket[p] = bucket_of(key[p], b_bits);
+      }
+      int k0[KP], k1[KP];
+#pragma unroll
+      for (int p = 0; p < KP; ++p) {
+        k0[p] = k1[p] = 0;
+        if (live >> p & 1) {
+          const int* row = words + 32 * static_cast<long long>(bucket[p]);
+          k0[p] = __ldg(row);
+          k1[p] = __ldg(row + 16);
+        }
+      }
+      // the hits in offset order: the matching slot's 48 bytes (its head
+      // and covariance share the key's sector), then its terms
+#pragma unroll
+      for (int p = 0; p < KP; ++p) {
+        if (!(live >> p & 1)) continue;
+        const bool m0 = k0[p] == key[p];
+        if (!m0 && k1[p] != key[p]) continue;
+        const float4* slot = reinterpret_cast<const float4*>(table + 32 * static_cast<long long>(bucket[p])) +
+                             (m0 ? 0 : 4);
+        const float4 head = __ldg(slot), cov = __ldg(slot + 1), tail = __ldg(slot + 2);
+        lvs::ndt_point_terms(y, head.y, head.z, head.w, cov.x, cov.y, cov.z, cov.w, tail.x, tail.y, tail.z,
+                             d1, d2, weighted, acc);
+      }
     }
   }
   lvs::block_partials(acc, partials + kTerms * blockIdx.x);
+}
+
+// Launches the pass over grid (n_blocks, n_cand) with the group size for k
+// offsets; the gate `done` may be null.
+int launch_partials(const float* table, int b_bits, const int* origin, float inv_res, int e, const float* xs, int n,
+                    const bool* mask, const float* T, int t_stride, const int* done, int done_stride, int n_cand,
+                    float d1, float d2, const int* offsets, int k, int weighted, float* partials, int n_blocks,
+                    cudaStream_t stream) {
+  const dim3 grid(n_blocks, n_cand);
+  if (k == 1)
+    ndt_partials<1><<<grid, lvs::kThreads, 0, stream>>>(
+        table, b_bits, origin, inv_res, e, xs, n, mask, T, t_stride, done, done_stride, d1, d2, offsets, k,
+        weighted, partials);
+  else
+    ndt_partials<kProbeGroup><<<grid, lvs::kThreads, 0, stream>>>(
+        table, b_bits, origin, inv_res, e, xs, n, mask, T, t_stride, done, done_stride, d1, d2, offsets, k,
+        weighted, partials);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
@@ -206,9 +278,9 @@ extern "C" int lvs_ndt_hash_derivatives(const float* table, int b_bits, const in
                                         const bool* mask, const float* T, float d1, float d2,
                                         const int* offsets, int k, int weighted, float* partials,
                                         int n_blocks, float* out, cudaStream_t stream) {
-  ndt_partials<<<n_blocks, lvs::kThreads, 0, stream>>>(table, b_bits, origin, inv_res, e, xs, n,
-                                                       mask, T, 16, nullptr, 0, d1, d2, offsets, k,
-                                                       weighted, partials);
+  const int err = launch_partials(table, b_bits, origin, inv_res, e, xs, n, mask, T, 16, nullptr, 0, 1, d1, d2,
+                                  offsets, k, weighted, partials, n_blocks, stream);
+  if (err) return err;
   ndt_finish<<<1, 64, 0, stream>>>(partials, n_blocks, out);
   LVS_RETURN_LAST_ERROR();
 }
@@ -222,9 +294,9 @@ extern "C" int lvs_ndt_hash_derivatives_batched(const float* table, int b_bits, 
                                                 int weighted, float* partials, int n_blocks,
                                                 float* out, cudaStream_t stream) {
   if (n_cand > 0) {
-    ndt_partials<<<dim3(n_blocks, n_cand), lvs::kThreads, 0, stream>>>(
-        table, b_bits, origin, inv_res, e, xs, n, mask, T, 16, nullptr, 0, d1, d2, offsets, k, weighted,
-        partials);
+    const int err = launch_partials(table, b_bits, origin, inv_res, e, xs, n, mask, T, 16, nullptr, 0, n_cand, d1,
+                                    d2, offsets, k, weighted, partials, n_blocks, stream);
+    if (err) return err;
     ndt_finish<<<n_cand, 64, 0, stream>>>(partials, n_blocks, out);
   }
   LVS_RETURN_LAST_ERROR();
@@ -240,8 +312,7 @@ extern "C" int lvs_ndt_hash_partials(const float* table, int b_bits, const int* 
                                      const int* offsets, int k, int weighted, float* partials, int n_blocks,
                                      cudaStream_t stream) {
   if (n_cand > 0)
-    ndt_partials<<<dim3(n_blocks, n_cand), lvs::kThreads, 0, stream>>>(
-        table, b_bits, origin, inv_res, e, xs, n, mask, T, t_stride, done, done_stride, d1, d2, offsets, k,
-        weighted, partials);
+    return launch_partials(table, b_bits, origin, inv_res, e, xs, n, mask, T, t_stride, done, done_stride, n_cand, d1,
+                           d2, offsets, k, weighted, partials, n_blocks, stream);
   LVS_RETURN_LAST_ERROR();
 }

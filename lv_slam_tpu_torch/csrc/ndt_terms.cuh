@@ -83,15 +83,40 @@ __device__ __forceinline__ void ndt_point_terms(const float y[3], float mu0, flo
   }
 }
 
-// Sums the block's acc rows (warp shuffles, then the warps in order) into its
-// partial row partials[0..42]. Every thread of the block must call it.
-__device__ __forceinline__ void block_partials(const float acc[kNdtTerms], float* __restrict__ partials) {
-  __shared__ float smem[kNdtWarps][kNdtTerms];
-  int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+// One halving step of `block_partials`: lane l keeps half of its 2N values
+// (the upper half where l & mask) and adds its partner's (l ^ mask) for them.
+template <int N>
+__device__ __forceinline__ void halve(const float (&in)[2 * N], float (&out)[N], int lane, int mask) {
+  const bool upper = lane & mask;
 #pragma unroll
-  for (int v = 0; v < kNdtTerms; ++v) {
-    float s = warp_sum(acc[v]);
-    if (lane == 0) smem[warp][v] = s;
+  for (int k = 0; k < N; ++k) {
+    const float keep = upper ? in[k + N] : in[k], give = upper ? in[k] : in[k + N];
+    out[k] = keep + __shfl_xor_sync(0xffffffffu, give, mask);
+  }
+}
+
+// Sums the block's acc rows into its partial row partials[0..42]: each
+// warp's 43 sums (padded to 48) are halved over the lane pairs (l, l ^ 16),
+// (l, l ^ 8), (l, l ^ 4), (l, l ^ 2), then the pair (l, l ^ 1) finishes its
+// 3 values. Those are the pairs, and so the trees, of `warp_sum`'s
+// shuffle-downs (a + b == b + a, so each sum has their bits) at 48 shuffles
+// a warp in place of 215; the warps' sums then go through shared memory in
+// warp order. Every thread of the block must call it.
+__device__ __forceinline__ void block_partials(const float (&acc)[kNdtTerms], float* __restrict__ partials) {
+  __shared__ float smem[kNdtWarps][kNdtTerms];
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  float v48[48], v24[24], v12[12], v6[6], v3[3];
+#pragma unroll
+  for (int k = 0; k < 48; ++k) v48[k] = k < kNdtTerms ? acc[k] : 0.0f;
+  halve<24>(v48, v24, lane, 16);
+  halve<12>(v24, v12, lane, 8);
+  halve<6>(v12, v6, lane, 4);
+  halve<3>(v6, v3, lane, 2);
+  const int j0 = (lane & 16 ? 24 : 0) + (lane & 8 ? 12 : 0) + (lane & 4 ? 6 : 0) + (lane & 2 ? 3 : 0);
+#pragma unroll
+  for (int t = 0; t < 3; ++t) {
+    const float sum = v3[t] + __shfl_xor_sync(0xffffffffu, v3[t], 1);
+    if (!(lane & 1) && j0 + t < kNdtTerms) smem[warp][j0 + t] = sum;
   }
   __syncthreads();
   if (threadIdx.x < kNdtTerms) {
@@ -106,14 +131,35 @@ __device__ __forceinline__ void block_partials(const float acc[kNdtTerms], float
 namespace {
 
 // The partial rows of candidate blockIdx.x summed in block order: the result
-// does not change from run to run.
+// does not change from run to run. Thread v < 43 runs column v's chain; the
+// next 32 rows' loads are in flight while this 32's adds run (one 64-thread
+// block a candidate, so the loads, not the adds, set its time).
 __global__ void ndt_finish(const float* __restrict__ partials, int n_blocks, float* __restrict__ out) {
+  constexpr int kAhead = 32;
   int v = threadIdx.x;
   if (v >= lvs::kNdtTerms) return;
-  partials += static_cast<long long>(lvs::kNdtTerms) * n_blocks * blockIdx.x;
+  partials += static_cast<long long>(lvs::kNdtTerms) * n_blocks * blockIdx.x + v;
   out += lvs::kNdtTerms * blockIdx.x;
   float s = 0.0f;
-  for (int b = 0; b < n_blocks; ++b) s += partials[lvs::kNdtTerms * b + v];
+  int b = 0;
+  if (n_blocks >= kAhead) {
+    float x[kAhead];
+#pragma unroll
+    for (int u = 0; u < kAhead; ++u) x[u] = __ldg(partials + lvs::kNdtTerms * u);
+    for (b = kAhead; b + kAhead <= n_blocks; b += kAhead) {
+      float nx[kAhead];
+#pragma unroll
+      for (int u = 0; u < kAhead; ++u) nx[u] = __ldg(partials + lvs::kNdtTerms * (b + u));
+#pragma unroll
+      for (int u = 0; u < kAhead; ++u) {
+        s += x[u];
+        x[u] = nx[u];
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < kAhead; ++u) s += x[u];
+  }
+  for (; b < n_blocks; ++b) s += partials[lvs::kNdtTerms * b];
   out[v] = s;
 }
 

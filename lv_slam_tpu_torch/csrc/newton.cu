@@ -12,22 +12,56 @@
 // read of `done` per group (`ops/ndt.py:_newton_loop`).
 //
 // Bound on the card: per lane it reads the pass's partial rows (n_blocks x
-// 43 floats, 44 KB at 65536 points) and its 80-float state, and solves one
-// 6x6 system: under a microsecond of memory traffic and a few thousand
-// operations. What shows is the launch latency and one thread's dependent
-// arithmetic.
+// 43 floats, 44 KB at 256 blocks, 88 KB at K13's 512) and its 80-float
+// state, and solves one 6x6 system: under a microsecond of memory traffic
+// and a few thousand operations. What bounds it is latency: the sums' order
+// is the contract (column v is ((0 + r0) + r1) + ... in block order,
+// `ndt_finish`'s and `newton_sums`' order), a chain of n_blocks dependent
+// float adds (~5 cycles each) that no split may shorten; then the step's
+// float64 LU, 12 dependent divisions of ~113 cycles on its critical path,
+// and one thread's float32 exp_se3 and 4x4 product.
 //
-// Design: one block per lane. Its first 43 threads sum the partial rows in
-// `ndt_finish`'s fixed order (the result does not change from run to run);
-// thread 0 then runs the reference's body: on the first call it takes the
-// sums as score0 and sets done = isnan(score0); otherwise the accept test,
-// the cap halving or reset, the iteration count and the stopping tests; and,
-// if not done, proposes the next candidate: the ridge, the `dof` projection
-// (the ground NDT), the 6x6 solve (LU with partial pivoting in float64,
-// rounded once to float32; a zero pivot is LAPACK's info != 0), the norm and
-// the `bad` test, the ascent flip, the clamp to [eps/2, cap] and
-// exp_se3(alpha * direction) @ transform. A lane whose `done` is set returns
-// at once, so a launch after done is an exact no-op.
+// Design: a cluster of 8 blocks of 256 threads per lane (blockIdx.x / 8);
+// a finished lane's blocks return at once, before any other load or store,
+// so a launch after done is an exact no-op. Block g sums the 6 columns from
+// 6g (the last block 1): every thread issues its ~12 loads of the slice at
+// once into shared memory (row-major, a stride of 6), then thread v < 6 runs
+// column v's chain from there, the next 16 rows' reads in flight ahead of
+// its adds. Blocks 1-7 send their sums into block 0's shared memory with
+// async stores (`st.async`) that complete an mbarrier there, one message
+// each and no fence. Block 0 staged the state row meanwhile; its warp 0
+// then runs the step: every lane takes the accept test, the cap rule and
+// the stopping tests on the staged state (the reference's body), the copies
+// spread over the lanes; the ridge, the `dof` projection (the ground NDT)
+// and the float64 system over the lanes, lane r < 6 holding row r; the LU
+// with partial pivoting (the first row with the strictly larger |a|, a zero
+// pivot returning LAPACK's info) a column at a time, its entries and the
+// pivot row reaching the lanes by shuffles and lane r > c computing
+// l = a[r][c] / a[c][c] and a[r][j] -= l * a[c][j], one thread's loop's
+// operations (--fmad=false), so the same bits; then lane 0 the 6-step
+// back-substitution (row r subtracts x[r + 1] first: a chain), the norm and
+// `bad` test, the ascent flip, the clamp to [eps/2, cap] and
+// exp_se3(alpha * direction) @ transform. The warp writes the state row
+// back. Every value is the earlier kernel's to the bit
+// (`scripts/newton_parent.py` holds it to that kernel on the card).
+//
+// What was hard: everything is a dependent chain, so each phase's latency
+// shows (clock stamps of block 0 at 1 lane x 256 rows on an H100, PERF.md:
+// the gate ~480 cycles, the rows landed ~1500 after
+// it, the chains ~1600, the sums' exchange ~350, the accept test ~550, the
+// solve ~3700, the rest of the step ~1750). The earlier kernel (threads
+// 0-42 walking `column_sum` down global memory, then thread 0 alone with
+// its 6x6 system in local memory, the pivot's row swap indexed at run time)
+// put a load's latency on every add: 0.0088 ms a step. One block a lane
+// gathers its 44-88 KB into one SM at ~6 bytes a cycle (~7200 cycles for
+// 44 KB); split over the cluster, each block's ~6 KB land in one load's
+// latency. Tried and dropped (times in PERF.md): one block of 512 or 1024
+// threads a lane,
+// clusters of 2 and 4, 128 and 512 threads, the rows signalled to the
+// chains in chunks on named barriers (the loads land together anyway), a
+// cluster barrier for the exchange (slower than one async message), the
+// solve with a lane an element over shared memory (its round trips and warp barriers
+// cost ~1.4 us more) and on one thread in registers (~0.3 us more).
 //
 // K7s, `newton_sums` (replaces the per-shard sums before the `psum` of
 // lv_slam_tpu/parallel/mesh.py:118): the point-sharded align needs the
@@ -80,132 +114,339 @@ constexpr int F_T = 0, F_SCORE = 16, F_GRAD = 17, F_HESS = 23, F_CAND = 59, F_CA
 constexpr int kS = 4;
 constexpr int S_DONE = 0, S_IT = 1, S_STARTED = 2, S_BAD = 3;
 
-// A x = b for a 6x6 A by LU with partial pivoting in float64; b becomes x.
-// Returns 0, or (as LAPACK's getrf) the 1-based column of the first exactly
-// zero pivot, in which case x is not computed.
-__device__ int solve6(double A[6][6], double b[6]) {
+constexpr int kTerms = lvs::kNdtTerms;
+constexpr int kStepRows = 512;  // rows staged in shared memory a round
+
+// the two halves of a cluster barrier: arrive (relaxed: it only says the
+// block runs), wait (acquire)
+__device__ __forceinline__ void cluster_arrive_relaxed() {
+  asm volatile("barrier.cluster.arrive.relaxed.aligned;" ::: "memory");
+}
+
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait.acquire.aligned;" ::: "memory");
+}
+
+__device__ __forceinline__ uint32_t shared_address(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// `address` (this block's shared memory) in block `rank` of the cluster
+__device__ __forceinline__ uint32_t in_rank(uint32_t address, int rank) {
+  uint32_t out;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;" : "=r"(out) : "r"(address), "r"(rank));
+  return out;
+}
+
+// v stored into rank 0's shared memory by the async store that also counts
+// its 4 bytes off rank 0's mbarrier (`st.async`: one message, no fence)
+__device__ __forceinline__ void store_to_rank0(uint32_t sum_address, uint32_t barrier_address, float v) {
+  asm volatile("st.async.shared::cluster.mbarrier::complete_tx::bytes.f32 [%0], %1, [%2];" ::"r"(sum_address), "f"(v),
+               "r"(barrier_address)
+               : "memory");
+}
+
+__device__ __forceinline__ void wait_phase0(uint32_t barrier_address) {
+  uint32_t done = 0;
+  while (!done)
+    asm volatile(
+        "{ .reg .pred p; mbarrier.try_wait.parity.acquire.cluster.shared::cta.b64 p, [%1], 0; selp.u32 %0, 1, 0, p; }"
+        : "=r"(done)
+        : "r"(barrier_address)
+        : "memory");
+}
+
+constexpr int kStepCluster = 8;                                        // blocks a lane
+constexpr int kStepThreads = 256;                                      // threads a block
+constexpr int kWidth = (kTerms + kStepCluster - 1) / kStepCluster;     // columns a block sums
+constexpr int kLoads = (kStepRows * kWidth + kStepThreads - 1) / kStepThreads;  // loads a thread a round
+
+template <int W>
+__device__ __forceinline__ void load16(float (&q)[16], const float* p) {
+#pragma unroll
+  for (int u = 0; u < 16; ++u) q[u] = p[u * W];
+}
+
+__device__ __forceinline__ float add16(float acc, const float (&q)[16]) {
+#pragma unroll
+  for (int u = 0; u < 16; ++u) acc = acc + q[u];
+  return acc;
+}
+
+// acc + col[0] + col[W] + ... + col[(n - 1) * W], in that order: the next
+// 16 rows' reads (constant offsets from one pointer) are in flight while
+// this 16's adds run, so each add waits only on the one before
+template <int W>
+__device__ __forceinline__ float row_chain(const float* col, int n, float acc) {
+  const float* p = col;
+  if (n >= 16) {
+    float q[16], r[16];
+    load16<W>(q, p);
+    p += 16 * W;
+    n -= 16;
+    for (; n >= 32; n -= 32, p += 32 * W) {
+      load16<W>(r, p);
+      acc = add16(acc, q);
+      load16<W>(q, p + 16 * W);
+      acc = add16(acc, r);
+    }
+    if (n >= 16) {
+      load16<W>(r, p);
+      acc = add16(acc, q);
+      acc = add16(acc, r);
+      p += 16 * W;
+      n -= 16;
+    } else {
+      acc = add16(acc, q);
+    }
+  }
+  for (; n > 0; --n, p += W) acc = acc + *p;
+  return acc;
+}
+
+// A x = b for a 6x6 A by LU with partial pivoting in float64 over one warp,
+// lane r < 6 holding row r (A's row in row[0..5], b's entry in row[6]);
+// returns, on every lane, 0 or (as LAPACK's getrf) the 1-based column of
+// the first exactly zero pivot, in which case x is not computed; else lane
+// 0 ends with x in x[0..5]. Each column: its entries reach every lane by
+// shuffles and every lane picks the same pivot (the first row with the
+// strictly larger |a|), lanes c and p trade rows, and lane r > c computes
+// l = a[r][c] / a[c][c] and a[r][j] -= l * a[c][j]: one thread's loop's
+// operations, so the same bits (--fmad=false). The 6-step back-substitution
+// is a chain (row r subtracts x[r + 1] first), so lane 0 runs it.
+__device__ __forceinline__ int solve6_rows(double (&row)[7], double (&x)[6], int lane) {
+#pragma unroll
   for (int c = 0; c < 6; ++c) {
+    double col[6];
+#pragma unroll
+    for (int r = c; r < 6; ++r) col[r] = __shfl_sync(0xffffffffu, row[c], r);
     int p = c;
-    double best = fabs(A[c][c]);
+    double best = fabs(col[c]);
+#pragma unroll
     for (int r = c + 1; r < 6; ++r)
-      if (fabs(A[r][c]) > best) {
-        best = fabs(A[r][c]);
+      if (fabs(col[r]) > best) {
+        best = fabs(col[r]);
         p = r;
       }
-    if (p != c) {
-      for (int j = 0; j < 6; ++j) {
-        double t = A[c][j];
-        A[c][j] = A[p][j];
-        A[p][j] = t;
+    double pivot[7];
+#pragma unroll
+    for (int j = c; j < 7; ++j) pivot[j] = __shfl_sync(0xffffffffu, row[j], p);
+    if (p != c) {  // lane p takes row c, lane c the pivot row
+#pragma unroll
+      for (int j = c; j < 7; ++j) {
+        const double rc = __shfl_sync(0xffffffffu, row[j], c);
+        row[j] = lane == c ? pivot[j] : (lane == p ? rc : row[j]);
       }
-      double t = b[c];
-      b[c] = b[p];
-      b[p] = t;
     }
-    if (A[c][c] == 0.0) return c + 1;
-    for (int r = c + 1; r < 6; ++r) {
-      double l = A[r][c] / A[c][c];
-      for (int j = c + 1; j < 6; ++j) A[r][j] -= l * A[c][j];
-      b[r] -= l * b[c];
+    if (pivot[c] == 0.0) return c + 1;
+    if (lane > c && lane < 6) {
+      const double l = row[c] / pivot[c];
+#pragma unroll
+      for (int j = c + 1; j < 7; ++j) row[j] -= l * pivot[j];
     }
   }
-  for (int r = 5; r >= 0; --r) {
-    double s = b[r];
-    for (int j = r + 1; j < 6; ++j) s -= A[r][j] * b[j];
-    b[r] = s / A[r][r];
-  }
+  double u[6][7];  // the upper triangle and the eliminated b, on every lane
+#pragma unroll
+  for (int r = 0; r < 6; ++r)
+#pragma unroll
+    for (int j = r; j < 7; ++j) u[r][j] = __shfl_sync(0xffffffffu, row[j], r);
+  if (lane == 0)
+#pragma unroll
+    for (int r = 5; r >= 0; --r) {
+      double s = u[r][6];
+#pragma unroll
+      for (int j = r + 1; j < 6; ++j) s -= u[r][j] * x[j];
+      x[r] = s / u[r][r];
+    }
   return 0;
 }
 
 // The next candidate from the lane's accepted state (the top of the
-// reference's loop body). dof_bits < 0: every dimension free.
-__device__ void propose(float* st, int* si, float step_min, int dof_bits) {
+// reference's loop body), by warp 0 on the state staged in shared memory:
+// the ridge, the `dof` projection (the ground NDT; dof_bits < 0: every
+// dimension free) and the system over the lanes, the solve, then lane 0 the
+// step.
+__device__ void propose(float* st, int* si, float step_min, int dof_bits, int lane) {
   float* g = st + F_GRAD;
   float* h = st + F_HESS;
-  float tr = 0.0f;
+  float tr = 0.0f;  // every lane, in the same order
   for (int i = 0; i < 6; ++i) tr += fabsf(h[7 * i]);
   const float ridge = 1e-6f * tr / 6.0f + 1e-12f;
   if (dof_bits >= 0) {  // freeze the masked dims, pin their diagonal
-    float m[6];
-    for (int i = 0; i < 6; ++i) m[i] = (dof_bits >> i) & 1 ? 1.0f : 0.0f;
-    for (int i = 0; i < 6; ++i) {
-      g[i] = g[i] * m[i];
-      for (int j = 0; j < 6; ++j) h[6 * i + j] = (h[6 * i + j] * m[i]) * m[j] - (1.0f - m[j]) * (i == j ? 1.0f : 0.0f);
+    __syncwarp();       // every lane has read the diagonal
+    for (int e = lane; e < 36; e += 32) {
+      const int i = e / 6, j = e % 6;
+      const float mi = (dof_bits >> i) & 1 ? 1.0f : 0.0f, mj = (dof_bits >> j) & 1 ? 1.0f : 0.0f;
+      h[e] = (h[e] * mi) * mj - (1.0f - mj) * (i == j ? 1.0f : 0.0f);
     }
+    if (lane < 6) g[lane] = g[lane] * ((dof_bits >> lane) & 1 ? 1.0f : 0.0f);
+    __syncwarp();
   }
-  double A[6][6], x[6];
+  double row[7] = {}, x[6];  // lane r < 6: row r of H + ridge I, and -g[r]
+  if (lane < 6) {
+#pragma unroll
+    for (int j = 0; j < 6; ++j) row[j] = static_cast<double>(h[6 * lane + j] + (lane == j ? ridge : 0.0f));
+    row[6] = -static_cast<double>(g[lane]);
+  }
+  const int info = solve6_rows(row, x, lane);
+  if (lane != 0) return;
+  float delta[6], gv[6];
+#pragma unroll
   for (int i = 0; i < 6; ++i) {
-    for (int j = 0; j < 6; ++j) A[i][j] = static_cast<double>(h[6 * i + j] + (i == j ? ridge : 0.0f));
-    x[i] = -static_cast<double>(g[i]);
+    delta[i] = info ? 0.0f : static_cast<float>(x[i]);
+    gv[i] = g[i];
   }
-  const int info = solve6(A, x);
-  float delta[6];
-  for (int i = 0; i < 6; ++i) delta[i] = info ? 0.0f : static_cast<float>(x[i]);
   float sq = 0.0f;
+#pragma unroll
   for (int i = 0; i < 6; ++i) sq += delta[i] * delta[i];
   const float norm = sqrtf(sq);
   const bool bad = norm == 0.0f || !isfinite(norm) || info != 0;
   const float den = bad ? 1.0f : norm;
   float dir[6];
+#pragma unroll
   for (int i = 0; i < 6; ++i) dir[i] = delta[i] / den;
   float dphi0 = 0.0f;
-  for (int i = 0; i < 6; ++i) dphi0 += g[i] * dir[i];
+#pragma unroll
+  for (int i = 0; i < 6; ++i) dphi0 += gv[i] * dir[i];
   if (-dphi0 > 0.0f)
+#pragma unroll
     for (int i = 0; i < 6; ++i) dir[i] = -dir[i];
   // clamp(norm, min=step_min) then minimum with cap, NaN-propagating as torch's
   const float lo = norm < step_min ? step_min : norm;
   const float cap = st[F_CAP];
   const float alpha = cap < lo ? cap : lo;
-  float xi[6], e[16];
+  float xi[6], e[16], t[16], cand[16];
+#pragma unroll
   for (int i = 0; i < 6; ++i) xi[i] = alpha * dir[i];
+#pragma unroll
+  for (int i = 0; i < 16; ++i) t[i] = st[F_T + i];
   lvs::exp_se3(xi, e);
-  lvs::matmul44(e, st + F_T, st + F_CAND);
+  lvs::matmul44(e, t, cand);
+#pragma unroll
+  for (int i = 0; i < 16; ++i) st[F_CAND + i] = cand[i];
   st[F_ALPHA] = alpha;
   si[S_BAD] = bad;
 }
 
-// One Newton iteration per lane (blockIdx.x): partials (n_lanes, n_blocks,
-// 43) from the derivative pass at the lane's candidate; state f (n_lanes,
-// 80), s (n_lanes, 4).
-__global__ void newton_step(const float* __restrict__ partials, int n_blocks, float* __restrict__ f,
-                            int* __restrict__ s, float eps, float step_min, float step_max, int max_iterations,
-                            int dof_bits) {
-  const int c = blockIdx.x;
-  float* st = f + kF * c;
-  int* si = s + kS * c;
-  if (si[S_DONE]) return;  // the gate: the whole block returns, nothing is written
-  __shared__ float sums[lvs::kNdtTerms];
-  if (threadIdx.x < lvs::kNdtTerms)
-    sums[threadIdx.x] = lvs::column_sum(partials + static_cast<long long>(lvs::kNdtTerms) * n_blocks * c, n_blocks,
-                                        lvs::kNdtTerms, threadIdx.x);
-  __syncthreads();
-  if (threadIdx.x != 0) return;
-
-  const float new_score = sums[0];
-  bool done;
-  if (!si[S_STARTED]) {  // the derivatives at the guess: score0, grad0, hess0
-    for (int v = 0; v < lvs::kNdtTerms; ++v) st[F_SCORE + v] = sums[v];
-    st[F_CAP] = step_max;
-    si[S_IT] = 0;
-    si[S_STARTED] = 1;
-    done = isnan(new_score);
-  } else {
-    const bool bad = si[S_BAD] != 0;
-    const float alpha = st[F_ALPHA];
-    const bool accept = !bad && new_score >= st[F_SCORE];
-    if (accept) {
-      for (int v = 0; v < 16; ++v) st[F_T + v] = st[F_CAND + v];
-      for (int v = 0; v < lvs::kNdtTerms; ++v) st[F_SCORE + v] = sums[v];
-    }
-    const float halved = st[F_CAP] * 0.5f;
-    st[F_CAP] = accept ? step_max : (halved < step_min ? step_min : halved);
-    const int it = si[S_IT] + 1;
-    si[S_IT] = it;
-    const bool shrunk_out = !accept && alpha <= step_min;
-    done = bad || it > max_iterations || (accept && alpha < eps) || shrunk_out;
+// One Newton iteration per lane: partials (n_lanes, n_blocks, 43) from the
+// derivative pass at the lane's candidate; state f (n_lanes, 80), s
+// (n_lanes, 4). A cluster of kStepCluster blocks a lane: block g sums
+// columns [g * kWidth, ...) and stores them into rank 0's shared memory
+// with async stores that complete rank 0's mbarrier, and rank 0 runs the
+// step; dynamic shared memory for min(n_blocks, kStepRows) rows of the
+// slice.
+__global__ void __launch_bounds__(kStepThreads)
+newton_step(const float* __restrict__ partials, int n_blocks, float* __restrict__ f, int* __restrict__ s, float eps,
+            float step_min, float step_max, int max_iterations, int dof_bits) {
+  static_assert(kWidth <= kStepThreads && kF <= kStepThreads, "a thread per column of the slice and per state float");
+  const int c = blockIdx.x / kStepCluster, rank = blockIdx.x % kStepCluster, tid = threadIdx.x;
+  const int c0 = rank * kWidth, w = min(kWidth, kTerms - c0);  // this block's columns
+  float* f_row = f + kF * c;
+  int* s_row = s + kS * c;
+  if (s_row[S_DONE]) return;  // the gate: the lane's blocks return, nothing is written
+  extern __shared__ float rows[];  // a round's rows of the slice, row-major
+  __shared__ float sums[kTerms];
+  __shared__ float st[kF];
+  __shared__ int si[kS];
+  __shared__ __align__(8) unsigned long long sums_landed;  // rank 0: the other blocks' sums
+  if (rank == 0 && tid == 0) {  // one arrival, and the other blocks' 4 (43 - kWidth) bytes
+    const uint32_t bar = shared_address(&sums_landed);
+    asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;" ::"r"(bar));
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+    asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(bar), "r"(4 * (kTerms - kWidth))
+                 : "memory");
   }
-  si[S_DONE] = done;
-  if (!done) propose(st, si, step_min, dof_bits);
+  cluster_arrive_relaxed();  // this block runs (rank 0: its mbarrier is set); each waits before a remote store
+  const float* lane_rows = partials + static_cast<long long>(kTerms) * n_blocks * c + c0;
+  float acc = 0.0f;
+  for (int r0 = 0; r0 < n_blocks; r0 += kStepRows) {
+    // every thread's loads of the round issued together, then stored
+    const int nr = min(kStepRows, n_blocks - r0), n_el = nr * kWidth;
+    const float* src = lane_rows + static_cast<long long>(r0) * kTerms;
+    float v[kLoads];
+#pragma unroll
+    for (int u = 0; u < kLoads; ++u) {
+      const int x = tid + u * kStepThreads, col = x % kWidth;
+      v[u] = x < n_el && col < w ? __ldg(src + (x / kWidth) * kTerms + col) : 0.0f;
+    }
+    if (r0 == 0 && rank == 0) {  // the state row, while the rows load
+      if (tid < kF) st[tid] = f_row[tid];
+      if (tid < kS) si[tid] = s_row[tid];
+    }
+#pragma unroll
+    for (int u = 0; u < kLoads; ++u) {
+      const int x = tid + u * kStepThreads;
+      if (x < n_el) rows[x] = v[u];
+    }
+    __syncthreads();
+    if (tid < w) acc = row_chain<kWidth>(rows + tid, nr, acc);
+    __syncthreads();  // the chains have read this round before the next overwrites it
+  }
+  cluster_wait();  // every block of the cluster runs
+  if (tid < w) {
+    if (rank == 0)
+      sums[tid] = acc;
+    else
+      store_to_rank0(in_rank(shared_address(sums + c0 + tid), 0), in_rank(shared_address(&sums_landed), 0), acc);
+  }
+  if (rank != 0) return;  // a block of the cluster past rank 0 has sent its sums
+  __syncthreads();        // rank 0's own sums and the staged state
+  if (tid >= 32) return;
+  wait_phase0(shared_address(&sums_landed));  // and the other blocks' sums
+
+  // every lane: the accept test and the stopping tests on the staged state
+  // (the same reads give the same answers), then the copies spread over the
+  // lanes and lane 0's scalar updates
+  const int lane = tid;
+  const float new_score = sums[0];
+  const bool started = si[S_STARTED] != 0, bad = si[S_BAD] != 0;
+  const float alpha = st[F_ALPHA], halved = st[F_CAP] * 0.5f;
+  const bool accept = started && !bad && new_score >= st[F_SCORE];
+  const int it = si[S_IT] + 1;
+  // the derivatives at the guess (score0, grad0, hess0), or the accepted candidate's
+  const bool done = started ? bad || it > max_iterations || (accept && alpha < eps) || (!accept && alpha <= step_min)
+                            : isnan(new_score);
+  __syncwarp();  // every lane has read the state
+  if (!started || accept)
+    for (int v = lane; v < kTerms; v += 32) st[F_SCORE + v] = sums[v];
+  if (accept && lane < 16) st[F_T + lane] = st[F_CAND + lane];
+  if (lane == 0) {
+    st[F_CAP] = !started || accept ? step_max : (halved < step_min ? step_min : halved);
+    si[S_IT] = started ? it : 0;
+    si[S_STARTED] = 1;
+    si[S_DONE] = done;
+  }
+  __syncwarp();
+  if (!done) propose(st, si, step_min, dof_bits, lane);
+  __syncwarp();
+  for (int v = lane; v < kF; v += 32) f_row[v] = st[v];
+  if (lane < kS) s_row[lane] = si[lane];
+}
+
+// Launches newton_step over n_lanes lanes (0 or a CUDA error).
+int launch_step(const float* partials, int n_blocks, float* f, int* s, int n_lanes, float eps, float step_min,
+                float step_max, int max_iterations, int dof_bits, cudaStream_t stream) {
+  if (n_lanes <= 0) return 0;
+  const int smem = min(max(n_blocks, 1), kStepRows) * kWidth * static_cast<int>(sizeof(float));
+  if (smem > 48 * 1024) {
+    cudaError_t err = cudaFuncSetAttribute(newton_step, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  cudaLaunchAttribute cluster = {};
+  cluster.id = cudaLaunchAttributeClusterDimension;
+  cluster.val.clusterDim.x = kStepCluster;
+  cluster.val.clusterDim.y = 1;
+  cluster.val.clusterDim.z = 1;
+  cudaLaunchConfig_t config = {};
+  config.gridDim = dim3(n_lanes * kStepCluster);
+  config.blockDim = dim3(kStepThreads);
+  config.dynamicSmemBytes = smem;
+  config.stream = stream;
+  config.attrs = &cluster;
+  config.numAttrs = 1;
+  const cudaError_t err = cudaLaunchKernelEx(&config, newton_step, partials, n_blocks, f, s, eps, step_min, step_max,
+                                             max_iterations, dof_bits);
+  return err != cudaSuccess ? static_cast<int>(err) : static_cast<int>(cudaGetLastError());
 }
 
 constexpr int kSumCols = 4;  // columns a block sums
@@ -283,8 +524,5 @@ extern "C" int lvs_newton_sums(const float* partials, int n_blocks, const int* s
 extern "C" int lvs_newton_step(const float* partials, int n_blocks, float* f, int* s, int n_lanes, float eps,
                                float step_min, float step_max, int max_iterations, int dof_bits,
                                cudaStream_t stream) {
-  if (n_lanes > 0)
-    newton_step<<<n_lanes, 64, 0, stream>>>(partials, n_blocks, f, s, eps, step_min, step_max, max_iterations,
-                                            dof_bits);
-  LVS_RETURN_LAST_ERROR();
+  return launch_step(partials, n_blocks, f, s, n_lanes, eps, step_min, step_max, max_iterations, dof_bits, stream);
 }

@@ -1123,6 +1123,30 @@ def test_newton_sums_edge_cases_on_the_card(cuda):
 
 
 @pytest.mark.gpu
+def test_newton_cases_on_the_card(cuda):
+    """K7 on chip_smoke's newton_cases, step by step to done against its twin
+    from identical states by chip_smoke.newton_steps' rules, one launch and
+    no synchronizing call a step: a zero pivot (done and bad after one
+    iteration), row swaps, a NaN start, the ground NDT's dof mask and its
+    complement, steps at step_min and at the cap, max_iterations reached,
+    1 and 2049 rows a lane, 4 lanes with a NaN start among them."""
+    cs = _chip_smoke()
+    assert cs.check_newton_cases(torch, cuda) == len(cs.NEWTON_CASE_NAMES)
+
+
+@pytest.mark.gpu
+def test_probe_cases_on_the_card(cuda):
+    """The hash pass (`ndt_partials`) on chip_smoke's probe_cases, one launch
+    and no synchronizing call a case: slot-1 keys and keys in neither slot
+    (one bucket a leaf), cells past an extent of 16, masked, sentinel and
+    gate-rejected lanes, 1000 lanes and three candidates with the second
+    finished (its rows untouched); the others' rows summed in block order
+    against the plain pass on the card at phase 2's tolerances."""
+    cs = _chip_smoke()
+    assert cs.check_probe_cases(torch, cuda) == len(cs.PROBE_CASE_NAMES)
+
+
+@pytest.mark.gpu
 def test_batched_newton_step_keeps_finished_lanes(cuda, scans):
     """K13's loop on the card: four candidates that stop at different
     iterations, stepped by the kernels; each lane's state, once done, stays

@@ -264,3 +264,47 @@ def test_align_dof_mask(setup):
     assert got.iterations > 1
     assert abs(t[2, 3]) < 1e-6 and abs(t[2, 2] - 1.0) < 1e-6 and np.abs(t[2, :2]).max() < 1e-6
     np.testing.assert_allclose(t, np.asarray(want.transform), rtol=0, atol=1e-3)
+
+
+def _chip_smoke():
+    """chip_smoke.py as a module (it imports numpy only at the top)."""
+    import importlib.util
+    from pathlib import Path
+
+    spec = importlib.util.spec_from_file_location("_chip_smoke", Path(__file__).resolve().parents[1] / "chip_smoke.py")
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+CS = _chip_smoke()
+
+
+@pytest.mark.parametrize("name", CS.PROBE_CASE_NAMES)
+def test_probe_cases_against_jax(name):
+    """chip_smoke's `probe_cases` (the hash pass's edge cases on the card:
+    slot-1 keys and keys in neither slot, cells past the extent, masked,
+    sentinel and gate-rejected lanes, 1000 lanes, a finished candidate)
+    through the port's plain pass and JAX's `ndt_derivatives_hash` on the
+    same table, candidate by candidate (the finished one skipped, as the
+    kernel skips it): score rtol 1e-4, gradient and Hessian atol 2e-5 of
+    their max entry (test_derivatives' tolerances)."""
+    case = {c["name"]: c for c in CS.probe_cases()}[name]
+    hm, xs, mask, trans, gauss, offsets, weighted, done = CS.probe_case_inputs(torch, case, "cpu")
+    jmap = jh.HashVoxelMap(table=jnp.asarray(hm.table.numpy()), origin_cell=jnp.asarray(hm.origin_cell.numpy()),
+                           resolution=jnp.float32(hm.resolution), extent=hm.extent,
+                           n_dropped=jnp.asarray(hm.n_dropped.numpy()))
+    jgauss = j_gauss(hm.resolution) if case["gauss"] is None else type(j_gauss(1.0))(
+        *(jnp.float32(v) for v in (*case["gauss"], 0.0)))
+    derivs = jax.jit(lambda xs_, mask_, t: jh.ndt_derivatives_hash(
+        jmap, xs_, mask_, t, jgauss, j_offsets(case["neighborhood"]), weighted))
+    for c in range(xs.shape[0]):
+        if bool(done[c]):
+            continue
+        s1, g1, h1 = derivs(jnp.asarray(case["xs"][c]), jnp.asarray(case["mask"][c]), jnp.asarray(case["transforms"][c]))
+        s2, g2, h2 = th.ndt_derivatives_hash_ref(hm, xs[c], mask[c], trans[c], gauss, offsets, weighted)
+        assert float(s1) > 0.0  # real hits
+        np.testing.assert_allclose(float(s2), float(s1), rtol=1e-4)
+        g1, h1 = np.asarray(g1), np.asarray(h1)
+        np.testing.assert_allclose(g2.numpy(), g1, rtol=0, atol=2e-5 * np.abs(g1).max())
+        np.testing.assert_allclose(h2.numpy(), h1, rtol=0, atol=2e-5 * np.abs(h1).max())

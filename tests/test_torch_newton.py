@@ -364,3 +364,89 @@ def test_newton_sums_twin_adds_in_block_order(n_blocks):
     np.testing.assert_array_equal(got.view(np.int32), want.view(np.int32))
     if n_blocks > 1:  # the order shows: another order of the same adds gives other bits
         assert not np.array_equal(np.sum(rows[:, ::-1], axis=1, dtype=np.float32)[0], want[0])
+
+
+# ------------------------------------------------------------ (c) chip_smoke's newton_cases against JAX
+
+
+def _chip_smoke():
+    """chip_smoke.py as a module (it imports numpy only at the top)."""
+    import importlib.util
+    from pathlib import Path
+
+    spec = importlib.util.spec_from_file_location("_chip_smoke", Path(__file__).resolve().parents[1] / "chip_smoke.py")
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+CS = _chip_smoke()
+
+
+def _jax_derivs(hess, x_star, nan):
+    """The case's canned quadratic (chip_smoke.canned_derivatives) in JAX,
+    for one lane: (score, grad (6,), hess (6, 6)) at a (4, 4) transform."""
+    hess, x_star = jnp.asarray(hess), jnp.asarray(x_star)
+
+    def derivs(t):
+        x = jnp.stack([t[0, 3], t[1, 3], t[2, 3], t[2, 1], t[0, 2], t[1, 0]])
+        d = x - x_star
+        grad = jnp.sum(hess * d[None, :], axis=1)
+        score = jnp.where(nan, jnp.float32(jnp.nan), 0.5 * jnp.sum(d * grad))
+        return score, grad, hess
+
+    return derivs
+
+
+def _port_loop(case):
+    """The port's twin loop (`ops/ndt._newton_loop` on the CPU) on the case's
+    canned derivatives: (transforms, iterations, done) per lane."""
+    derivs = CS.canned_derivatives(torch, case, "cpu")
+    k = len(case.t0)
+    state = tn.NewtonState(torch.from_numpy(case.guesses()), batched=k > 1)
+
+    def plain(transforms, active):
+        score, grad, hess = derivs(transforms)
+        return (score, grad, hess) if k > 1 else (score[0], grad[0], hess[0])
+
+    tn._newton_loop(tn.DerivativePass(plain, None, 0), state, np.float32(0.01), 0.1, case.max_iterations,
+                    dof_mask=case.dof_mask)
+    return state.transforms.numpy(), state.iterations.numpy(), (state.s[:, tn.S_DONE] != 0).numpy()
+
+
+def _jax_loop(case, monkeypatch):
+    """JAX's loop on the same derivatives: `ndt_soa._newton_loop` (vmapped
+    over the lanes), or with a `dof_mask` `ndt.ndt_align`'s loop, whose
+    pass is the canned function in place of `ndt_derivatives`."""
+    eps, step_max = jnp.float32(0.01), jnp.float32(0.1)
+    guesses = jnp.asarray(case.guesses())
+    if case.dof_mask is None:
+        def one(guess, x_star, nan):
+            return js._newton_loop(_jax_derivs(case.hess, x_star, nan), guess, eps, step_max, case.max_iterations)
+
+        transform, _, _, _, _, it, done = jax.vmap(one)(guesses, jnp.asarray(case.x_star), jnp.asarray(case.nan))
+        return np.asarray(transform), np.asarray(it), np.asarray(done)
+    derivs = _jax_derivs(case.hess, case.x_star[0], case.nan[0])
+    monkeypatch.setattr(jn, "ndt_derivatives", lambda vmap_, xyz, mask, t, *rest: derivs(t))
+    cloud = JCloud.from_numpy(np.zeros((8, 4), np.float32), cap=8)
+    got = jn.ndt_align(None, cloud, guesses[0], resolution=1.0, transformation_epsilon=0.01, step_size=0.1,
+                       max_iterations=case.max_iterations, dof_mask=case.dof_mask)
+    return np.asarray(got.transform)[None], np.asarray(got.iterations)[None], np.asarray(got.converged)[None]
+
+
+@pytest.mark.parametrize("name", CS.NEWTON_CASE_NAMES)
+def test_newton_cases_against_jax(name, monkeypatch):
+    """chip_smoke's `newton_cases` (the kernel's edge cases on the card: a
+    zero pivot, row swaps, a NaN start, the ground NDT's dof masks, steps at
+    step_min and at the cap, max_iterations, 1 and 2049 rows, a batch with a
+    NaN start) through the port's twin loop and JAX's loop on the same
+    canned quadratic: the transforms to 1e-4, iterations and converged flags
+    equal (the tolerance of the aligns against JAX above)."""
+    case = {c.name: c for c in CS.newton_case_specs()}[name]
+    got_t, got_it, got_done = _port_loop(case)
+    want_t, want_it, want_done = _jax_loop(case, monkeypatch)
+    np.testing.assert_allclose(got_t, want_t, rtol=0, atol=1e-4)
+    assert got_it.tolist() == want_it.tolist()
+    assert got_done.tolist() == want_done.tolist()
+    if name == "zero pivot":  # the exact zero pivot ends the loop as `bad` after one iteration, at the guess
+        assert got_it.tolist() == [1] and np.array_equal(got_t[0], case.guesses()[0])
