@@ -216,11 +216,16 @@ bit for bit against the plain block-by-block adds, and on `sums_cases`
 (1 to 2049 blocks, finished lanes, NaN and infinite rows), then whole
 aligns and the rung, timed device and wall against the twins' loop, with
 their host reads counted (at most ceil((iterations + 1) / NEWTON_GROUP)
-per align, none per rung, none in a whole `dispatch_one`); and the LM's
-kernels (`lm_damp`, `lm_update`, `lm_accept` around K15 and the library
-Cholesky) on 2c's and 2g's graphs: one iteration from identical states,
-whole optimizes against the twin's loop on the card, the reads of `done`
-and the wasted solves (iterations launched after done) per optimize. Phase
+per align, none per rung, none in a whole `dispatch_one`); and the LM
+(an iteration is two hand launches around the library Cholesky: K15's
+damped system, then `lm_step`) on 2c's and 2g's graphs: one iteration from
+identical states, whole optimizes against the twin's loop on the card, the
+reads of `done` and the wasted solves (iterations launched after done) per
+optimize, then `lm_cases` (a failed Cholesky, a NaN step, done in the
+middle of a group, node 0 with fixed nodes and a fixed plane, empty and
+invalid families, more variables than the cluster's warps, one
+iteration), K15's three modes one launch each and the hand launches an
+iteration takes, counted from a trace. Phase
 2j holds K9n (`knn_cell`, the k nearest of a cell table's 8-cell probe) on
 the flagship LFA's world maps with scan 4's sharp and flat features, and
 K10g (the line / plane fits' KnnGrid branch) on scan 3's grids with the
@@ -339,7 +344,7 @@ DEVICE_FUNCTIONS = {
     "_fused_verify_fn": ("ndt_partials", "ndt_finish"),
     "build_centroid_grid": ("grid_mark", "grid_reduce"),
     "nn_sq_dists": ("grid_query", "grid_finish"),
-    "_chi2_and_normal": ("se3_edges", "priors", "se3_planes", "plane_edges", "assemble", "chi2_sum"),
+    "_chi2_and_normal": ("normal_cluster",),
     "_detect_pyramid_batch": ("orb_level0", "orb_halve", "orb_pixels", "orb_keys", "orb_select", "orb_describe"),
     "match_scores_batch": ("match_cluster",),
     "build_grid": ("knn_grid_init", "knn_grid_cells", "knn_grid_keys", "knn_grid_gather"),
@@ -359,7 +364,7 @@ DEVICE_FUNCTIONS = {
     "filter_ground_leaves": ("ground_filter",),
     "newton_step": ("newton_step",),
     "newton_sums": ("newton_sums",),
-    "optimize_pose_graph": ("lm_damp", "lm_update", "lm_accept"),
+    "optimize_pose_graph": ("lm_damp", "lm_step", "lm_accept"),
     "knn_cell": ("knn_cell_query",),
     "grid_fits": ("grid_lines", "grid_planes"),
 }
@@ -2944,7 +2949,7 @@ def log_kernels(top) -> None:
     for rank, (t, key, count) in enumerate(top, 1):
         if is_hand_kernel(key):
             log(f"    {t / 1e3:9.3f} ms  {count:6d} x  {t / 1e3 / max(count, 1):.4f} ms  #{rank}  {key[:80]}")
-    for fn in ("newton_step", "ndt_partials"):  # the Newton pair (ndt_partials over its two instances)
+    for fn in ("newton_step", "ndt_partials", "normal_cluster", "lm_step"):  # the Newton pair, K15 and the LM
         rows = [(t, count) for t, key, count in top if _is_function(key, fn)]
         if rows:
             t, count = sum(r[0] for r in rows), sum(r[1] for r in rows)
@@ -2956,6 +2961,31 @@ def is_hand_kernel(key: str) -> bool:
     top-level anonymous namespaces or in lvs::, PyTorch's under at:: or c10::."""
     name = key[5:] if key.startswith("void ") else key
     return name.startswith(("(anonymous namespace)::", "lvs::"))
+
+
+def hand_launches(torch, fn, functions=None, reps: int = 5) -> list:
+    """The hand kernels (`functions`, by default the device functions of
+    DEVICE_FUNCTIONS; names demangled or not) that one call of `fn`
+    launches on the card, in launch order: the shape most of `reps` calls
+    take in a torch.profiler trace, a marker between calls (`whole_calls`:
+    a trace may lack records)."""
+    from torch.profiler import ProfilerActivity, profile as torch_profile
+
+    functions = sorted(functions or {f for fs in DEVICE_FUNCTIONS.values() for f in fs})
+    fn()
+    torch.cuda.synchronize()
+    with torch_profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            torch.cuda._sleep(1000)
+            fn()
+        torch.cuda._sleep(1000)
+        torch.cuda.synchronize()
+    names = [e.name for e in sorted((e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA),
+                                    key=lambda e: e.time_range.start)]
+    calls = whole_calls(names)
+    if not calls:
+        raise AssertionError("hand_launches: no whole call in the trace")
+    return [f for i in calls[0] for f in functions if _is_function(names[i], f)]
 
 
 # ----------------------------------------------------------------- phase 4
@@ -3138,20 +3168,15 @@ def keyframe_errors(graph, gt):
     return [float(np.linalg.norm(k.estimate[:3, 3] - gt_rel[k.seq][:3, 3])) for k in graph.keyframes]
 
 
-def run_full_path(torch, scans, gt, dev, card):
-    """Phase 5: the full pure-lidar path over the whole circle."""
-    from torch.profiler import ProfilerActivity, profile as torch_profile
+SOLVES = CACHE / "phase5_solves.npz"  # phase 5's LM solves, for scripts/pose_graph_parent.py
 
+
+def recorded_solves(run):
+    """(run's result, [(graph, num_iterations, result)] of each LM solve the
+    backend made in it): `optimize_pose_graph` wrapped while `run()` runs."""
     import lv_slam_tpu_torch.pipeline.backend as backend_module
-    from lv_slam_tpu_torch import kitti_flagship_config
     from lv_slam_tpu_torch.graph import pose_graph
-    from lv_slam_tpu_torch.kernels import KERNELS, reset_launches
 
-    cfg = kitti_flagship_config()
-    xyz, mask, stamps, inten = stack_scans(torch, scans, cfg.prefilter.raw_cap, dev)
-    n = len(scans)
-
-    # record each LM's input graph and result, to re-solve the last one on the CPU
     solves, solve = [], backend_module.pg.optimize_pose_graph
 
     def recording(graph, num_iterations, device):
@@ -3162,12 +3187,55 @@ def run_full_path(torch, scans, gt, dev, card):
 
     backend_module.pg.optimize_pose_graph = recording
     try:
-        torch.cuda.reset_peak_memory_stats()
-        reset_launches()
-        est, graph = run_full(torch, xyz, mask, stamps, inten, cfg, make_backend(dev, asynchronous=True))
-        torch.cuda.synchronize()
+        out = run()
     finally:
         backend_module.pg.optimize_pose_graph = solve
+    return out, solves
+
+
+def save_solves(solves) -> None:
+    """The solves' graphs and iteration limits into SOLVES."""
+    arrays = {f"{i}_{field}": value for i, (graph, _, _) in enumerate(solves)
+              for field, value in graph._asdict().items()}
+    arrays.update({f"{i}_num_iterations": np.int64(it) for i, (_, it, _) in enumerate(solves)})
+    CACHE.mkdir(parents=True, exist_ok=True)
+    tmp = SOLVES.with_suffix(f".{os.getpid()}.npz")
+    np.savez(tmp, **arrays)
+    os.replace(tmp, SOLVES)
+
+
+def load_solves():
+    """[(graph, num_iterations)] from SOLVES."""
+    from lv_slam_tpu_torch.graph import pose_graph
+
+    with np.load(SOLVES) as z:
+        count = len([k for k in z.files if k.endswith("_num_iterations")])
+        return [(pose_graph.PoseGraph(*(z[f"{i}_{field}"] for field in pose_graph.PoseGraph._fields)),
+                 int(z[f"{i}_num_iterations"])) for i in range(count)]
+
+
+def run_full_path(torch, scans, gt, dev, card):
+    """Phase 5: the full pure-lidar path over the whole circle."""
+    from torch.profiler import ProfilerActivity, profile as torch_profile
+
+    from lv_slam_tpu_torch import kitti_flagship_config
+    from lv_slam_tpu_torch.graph import pose_graph
+    from lv_slam_tpu_torch.kernels import KERNELS, reset_launches
+
+    cfg = kitti_flagship_config()
+    xyz, mask, stamps, inten = stack_scans(torch, scans, cfg.prefilter.raw_cap, dev)
+    n = len(scans)
+
+    # record each LM's input graph and result, to re-solve the last one on the CPU
+    def first_pass():
+        torch.cuda.reset_peak_memory_stats()
+        reset_launches()
+        out = run_full(torch, xyz, mask, stamps, inten, cfg, make_backend(dev, asynchronous=True))
+        torch.cuda.synchronize()
+        return out
+
+    (est, graph), solves = recorded_solves(first_pass)
+    save_solves(solves)
     peak = torch.cuda.max_memory_allocated()
     launches = {name: k.launches for name, k in KERNELS.items()}
     log(f"  launches on the full path ({n} scans): {launches}")
@@ -3208,6 +3276,16 @@ def run_full_path(torch, scans, gt, dev, card):
         f"{int(result.iterations)} / {int(ref.iterations)}")
     if d_graph > 1e-4:
         raise AssertionError("the card's pose graph departs from the plain path's")
+    dg = pose_graph.to_device(frozen, dev)
+    damped, rhs = pose_graph._damped_system(dg, dg.poses, dg.planes, 1e-4)
+
+    def solve():
+        chol, _ = torch.linalg.cholesky_ex(damped)
+        return torch.cholesky_solve(rhs[:, None], chol)
+
+    _, solve_ms, _ = device_ms(torch, solve)
+    log(f"  the LM's library solve (cholesky_ex + cholesky_solve) on the last solve's {damped.shape[0]} x "
+        f"{damped.shape[0]} system: {solve_ms:.4f} ms device-only")
 
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -3248,7 +3326,8 @@ def run_full_path(torch, scans, gt, dev, card):
         scans_per_s=n / elapsed, devkit_t_err=t_err, drift_m=drift, keyframes=len(graph.keyframes),
         n_loops=len(loops), loops=loops, loop_rejections=stats, backend_phase_ms_per_scan=phase_ms,
         syncs_per_scan=syncs / n, idle_share=idle, peak_mib=peak / 2**20, busy_ms=busy_us / 1e3,
-        cub_sort_launches=cub,
+        cub_sort_launches=cub, lm_solve_ms=solve_ms, lm_solve_dofs=int(damped.shape[0]),
+        lm_iterations=[int(r.iterations) for _, _, r in solves],
     )
     return summary, launches
 
@@ -4749,6 +4828,215 @@ def check_newton_cases(torch, dev):
     return len(cases)
 
 
+LM_CASE_NAMES = ("a Cholesky that fails", "a NaN delta", "done in the middle of a group",
+                 "node 0, fixed nodes and a fixed plane", "no prior, SE3-plane or plane-plane slots",
+                 "invalid prior, SE3-plane and plane slots (phase 5's bucket)", "more variables than warps",
+                 "num_iterations = 1")
+
+
+def _lm_case_graph(torch, rng, n_nodes: int, n_chain: int, caps, loops, step: float = 1.0, noise: float = 0.03):
+    """A chain of `n_chain` keyframes (`step` m and 0.1 rad a step, each node
+    moved by `noise` m / rad) in an empty graph of `n_nodes` node slots and
+    (edge, prior, plane, SE3-plane, plane-plane) caps, odometry edges (info
+    10, Huber 1) and loop edges between the pairs `loops`."""
+    from lv_slam_tpu_torch.core import se3
+    from lv_slam_tpu_torch.graph import pose_graph
+
+    def exp(v):
+        return se3.exp_se3(torch.tensor(v, dtype=torch.float32)).double().numpy()
+
+    g = pose_graph.empty_graph(n_nodes, *caps)
+    poses = [np.eye(4)]
+    for _ in range(n_chain - 1):
+        poses.append(poses[-1] @ exp(np.r_[step, 0.0, 0.0, 0.0, 0.0, 0.1] + rng.normal(0, 0.01, 6)))
+    for i, pose in enumerate(poses):
+        pose_graph.add_node(g, i, pose @ exp(rng.normal(0, noise, 6)) if noise else pose)
+    e = 0
+    for i in range(1, n_chain):
+        pose_graph.add_se3_edge(g, e, i, i - 1, np.linalg.inv(poses[i]) @ poses[i - 1], np.eye(6) * 10, huber=1.0)
+        e += 1
+    for i, j in loops:
+        pose_graph.add_se3_edge(g, e, i, j, np.linalg.inv(poses[i]) @ poses[j] @ exp(rng.normal(0, noise / 3, 6)),
+                                np.eye(6) * 10, huber=1.0)
+        e += 1
+    return g, poses, e
+
+
+def lm_cases(torch, seed: int = SEED):
+    """The LM's edge cases as host graphs: (name, graph, num_iterations).
+    A Cholesky that fails (an edge of information -1000 makes the damped
+    system indefinite: info != 0, the step is zero and `small` stops the
+    loop); a NaN delta with info == 0 (an XYZ prior 1e30 m away, information
+    1e10, no Huber: H finite, b not); done set in the middle of a group (a
+    chain that its measurements fit to rounding, 5 cm a step: the first step
+    is below 1e-6 and stops the loop, the group's three other iterations are
+    launched and gated); node 0, a fixed node, a
+    valid node that no factor reaches, an invalid node slot and a fixed
+    floor plane among three free ones, with SE3-plane, plane-prior and
+    plane-plane factors that their true values fit; families with no slots
+    at all; the backend's bucket on the main path (prior, SE3-plane and
+    plane slots, all invalid); 160 nodes and 8 planes (more variables than
+    the cluster's 64 warps); num_iterations = 1."""
+    from lv_slam_tpu_torch.graph import factors, pose_graph
+
+    rng = np.random.default_rng(seed)
+    out = []
+    g, _, _ = _lm_case_graph(torch, rng, 16, 12, (32, 8, 8, 8, 16), ((11, 0),))
+    g.e_info[5] = -1000.0 * np.eye(6, dtype=np.float32)
+    out.append((LM_CASE_NAMES[0], g, 16))
+    g, poses, _ = _lm_case_graph(torch, rng, 16, 12, (32, 8, 8, 8, 16), ((11, 0),))
+    pose_graph.add_prior(g, 0, 4, pose_graph.PRIOR_XYZ, [1e30, 0.0, 0.0], np.eye(3) * 1e10)
+    out.append((LM_CASE_NAMES[1], g, 16))
+    g, _, _ = _lm_case_graph(torch, rng, 16, 12, (32, 8, 8, 8, 16), ((11, 0),), step=0.05, noise=0.0)
+    out.append((LM_CASE_NAMES[2], g, 64))
+    g, poses, _ = _lm_case_graph(torch, rng, 16, 12, (32, 16, 4, 16, 8), ((11, 0), (9, 2)))
+    pose_graph.set_node_fixed(g, 5)
+    g.node_valid[14] = True  # a valid node that no factor reaches, and an invalid slot (15) past it
+    # the planes' true coefficients (unit normals), each node's measurement of
+    # them in its own frame, their starting estimates 0.05 off
+    true_planes = [np.array(p) / np.linalg.norm(p[:3]) for p in
+                   ([0.0, 0.0, 1.0, 0.0], [0.05, 0.02, 1.0, -2.0], [1.0, 0.3, 0.02, 5.0], [0.05, 0.02, 1.0, -3.5])]
+    pose_graph.add_plane_node(g, 0, true_planes[0], fixed=True)
+    for q in range(1, 4):
+        pose_graph.add_plane_node(g, q, true_planes[q] + rng.normal(0, 0.05, 4))
+    for i in range(12):
+        local = factors.plane_transform(torch.from_numpy(poses[i]), torch.from_numpy(true_planes[i % 3]))
+        pose_graph.add_se3_plane_edge(g, i, i, i % 3, local.numpy(), np.eye(3) * 10, huber=1.0)
+    for slot, (kind, i, j, meas) in enumerate((
+            (pose_graph.PLANE_PRIOR_NORMAL, 1, 1, true_planes[1][:3]),
+            (pose_graph.PLANE_PRIOR_DISTANCE, 2, 2, true_planes[2][3:]),
+            (pose_graph.PLANE_PERPENDICULAR, 1, 2, np.zeros(1)),
+            (pose_graph.PLANE_PARALLEL, 3, 1, np.zeros(3)))):
+        pose_graph.add_plane_edge(g, slot, i, j, kind, meas, np.eye(len(meas)) * 2, huber=1.0)
+    pose_graph.add_prior(g, 0, 3, pose_graph.PRIOR_XYZ, poses[3][:3, 3] + 0.1, np.eye(3), huber=1.0)
+    out.append((LM_CASE_NAMES[3], g, 64))
+    g, _, _ = _lm_case_graph(torch, rng, 16, 12, (32, 0, 0, 0, 0), ((11, 0),))
+    out.append((LM_CASE_NAMES[4], g, 64))
+    g, _, _ = _lm_case_graph(torch, rng, 32, 19, (32, 8, 8, 8, 16), ((18, 0),))
+    out.append((LM_CASE_NAMES[5], g, 64))
+    g, _, _ = _lm_case_graph(torch, rng, 160, 160, (256, 8, 8, 8, 16), ((159, 0), (120, 40)))
+    pose_graph.add_plane_node(g, 0, [0.0, 0.0, 1.0, 0.0], fixed=True)
+    out.append((LM_CASE_NAMES[6], g, 64))
+    g, _, _ = _lm_case_graph(torch, rng, 16, 12, (32, 8, 8, 8, 16), ((11, 0),))
+    out.append((LM_CASE_NAMES[7], g, 1))
+    assert tuple(name for name, _, _ in out) == LM_CASE_NAMES
+    return out
+
+
+def agree(torch, a, b, tol: float):
+    """Whether two tensors hold their non-finite entries at the same places
+    with the same values and their finite ones within `tol`."""
+    a, b = torch.as_tensor(a).double(), torch.as_tensor(b).double()
+    fa, fb = torch.isfinite(a), torch.isfinite(b)
+    if not torch.equal(fa, fb) or not torch.equal(torch.nan_to_num(a[~fa], nan=0.0), torch.nan_to_num(b[~fb], nan=0.0)):
+        return False
+    return not bool(fa.any()) or float((a[fa] - b[fb]).abs().max()) <= tol
+
+
+def same_bits(torch, a, b) -> bool:
+    """Equal float bits (NaN's too), or equal integers."""
+    if a.dtype == torch.float32:
+        a, b = a.view(torch.int32), b.view(torch.int32)
+    return torch.equal(a, b)
+
+
+def k15_mode_checks(torch, g):
+    """K15's modes on the device graph `g` at its own poses: the chi2 mode's
+    sum equal to the raw build's bit for bit, the damped system and rhs
+    equal to the raw build through `lm_damp` bit for bit (the sharded LM's
+    route), a second raw build the same bits; each call one launch of one
+    device kernel. Returns the raw build (chi2, H, b)."""
+    from lv_slam_tpu_torch.graph import pose_graph
+    from lv_slam_tpu_torch.kernels import KERNELS
+
+    k15 = KERNELS["_chi2_and_normal"]
+    before = k15.launches
+    chi2, h, b = pose_graph._chi2_and_normal(g, g.poses, True)
+    chi2_only, _, _ = pose_graph._chi2_and_normal(g, g.poses, False)
+    damped, rhs = pose_graph._damped_system(g, g.poses, g.planes, 1e-4)
+    if k15.launches != before + 3:
+        raise AssertionError(f"_chi2_and_normal: {k15.launches - before} launches for three calls")
+    again = pose_graph._chi2_and_normal(g, g.poses, True)
+    st = pose_graph.LMState(g, chi2_only, sharded=True)
+    st.h.copy_(h)
+    st.b.copy_(b)
+    pose_graph.LM_KERNEL.call("lvs_lm_damp", pose_graph.ptr(st.h), pose_graph.ptr(st.b), pose_graph.ptr(g.node_valid),
+                              pose_graph.ptr(g.node_fixed), pose_graph.ptr(g.plane_valid),
+                              pose_graph.ptr(g.plane_fixed), g.node_cap, pose_graph._n_dofs(g), pose_graph.ptr(st.lmf),
+                              pose_graph.ptr(st.lmi), pose_graph.ptr(st.damped), pose_graph.ptr(st.rhs))
+    failed = [what for what, ok in (
+        ("the chi2 mode's sum", same_bits(torch, chi2_only, chi2)),
+        ("the damped system", same_bits(torch, damped, st.damped) and same_bits(torch, rhs, st.rhs[:, 0])),
+        ("a second raw build", all(same_bits(torch, x, y) for x, y in zip((chi2, h, b), again)))) if not ok]
+    if failed:
+        raise AssertionError(f"_chi2_and_normal: {failed} not bit-identical")
+    return chi2, h, b
+
+
+def check_lm_cases(torch, dev):
+    """The LM on every case of `lm_cases` on the card against its twin on
+    the card: K15's modes (`k15_mode_checks`), one iteration from identical
+    states (poses and planes within 1e-5, the flags equal), then whole
+    optimizes: the iterations launched (whole groups of LM_GROUP, at most
+    num_iterations), the reads of `done` (one per group), and the result
+    against the twin's loop within LM_TOL (non-finite entries equal); the
+    cases with a known stop hold it (a failed Cholesky and a NaN delta:
+    not ok, small, one iteration; the fitted chain: small at the first
+    iteration, a whole group launched; num_iterations 1: one).
+    Returns {case: record}."""
+    from lv_slam_tpu_torch.graph import pose_graph
+    from lv_slam_tpu_torch.kernels import KERNELS, reset_launches
+
+    out = {}
+    for name, graph, num_iterations in lm_cases(torch):
+        g = pose_graph.to_device(graph, dev)
+        k15_mode_checks(torch, g)
+        chi2_0, _, _ = pose_graph._chi2_and_normal(g, g.poses, False, g.planes)
+        a = pose_graph.LMState(g, chi2_0)
+        b = a.clone()
+        pose_graph._lm_iteration(g, a, num_iterations)
+        pose_graph._lm_iteration_ref(g, b, num_iterations)
+        if not (agree(torch, a.poses, b.poses, 1e-5) and agree(torch, a.planes, b.planes, 1e-5)
+                and torch.equal(a.lmi, b.lmi)):
+            raise AssertionError(f"lm_cases ({name}): the first iteration departs from the twin's: flags "
+                                 f"{a.lmi.tolist()} vs {b.lmi.tolist()}")
+        copies = count_syncs(torch, lambda: pose_graph.to_device(graph, dev))
+        runs = []
+        reset_launches()
+        reads = count_syncs(torch, lambda: runs.append(pose_graph.optimize_pose_graph(graph, num_iterations,
+                                                                                       device=dev))) - copies
+        got, launched = runs[0], KERNELS["optimize_pose_graph"].launches
+        saved = pose_graph._lm_iteration
+        pose_graph._lm_iteration = pose_graph._lm_iteration_ref
+        try:
+            want = pose_graph.optimize_pose_graph(graph, num_iterations, device=dev)
+        finally:
+            pose_graph._lm_iteration = saved
+        it = int(got.iterations)
+        group = pose_graph.LM_GROUP
+        want_launched = min(max(num_iterations, 1), -(-it // group) * group)
+        rel_chi2 = abs(float(want.chi2_after)) if bool(torch.isfinite(want.chi2_after)) else 1.0
+        if not (agree(torch, got.poses, want.poses, LM_TOL[0]) and agree(torch, got.planes, want.planes, LM_TOL[1])
+                and agree(torch, got.chi2_after, want.chi2_after, LM_TOL[2] * max(rel_chi2, 1e-12))):
+            raise AssertionError(
+                f"lm_cases ({name}): the optimize departs from the twin's loop beyond {LM_TOL}: poses "
+                f"{float((got.poses - want.poses).abs().max())}, planes {float((got.planes - want.planes).abs().max())}, "
+                f"chi2 {float(got.chi2_after)} / {float(want.chi2_after)}, iterations {it} / {int(want.iterations)}")
+        if launched != want_launched or reads > -(-it // group):
+            raise AssertionError(f"lm_cases ({name}): {launched} iterations launched for {it} (expected "
+                                 f"{want_launched}), {reads} reads")
+        stop = {LM_CASE_NAMES[0]: 1, LM_CASE_NAMES[1]: 1, LM_CASE_NAMES[2]: 1, LM_CASE_NAMES[7]: 1}.get(name)
+        if stop is not None and (it != stop or int(want.iterations) != stop):
+            raise AssertionError(f"lm_cases ({name}): {it} iterations (the twin {int(want.iterations)}), expected "
+                                 f"{stop}")
+        if name in LM_CASE_NAMES[:2] and a.lmi.tolist()[1:] != [1, 0, 1]:
+            raise AssertionError(f"lm_cases ({name}): flags [done, it, ok, small] {a.lmi.tolist()}, expected a "
+                                 f"rejected step stopped by small")
+        out[name] = dict(iterations=it, twin_iterations=int(want.iterations), launched=launched, reads=reads,
+                         chi2_after=float(got.chi2_after))
+    return out
+
+
 def check_loop_kernels(torch, scans, gt, dev, prior):
     """Phase 2i: the device-side loops against their twins at the main
     path's shapes. K7 (`newton_step`, with the derivative passes gated on
@@ -4759,12 +5047,13 @@ def check_loop_kernels(torch, scans, gt, dev, prior):
     the twins' loop on the card, with their host reads counted; K13's batch
     of 8 candidates x 131072 lanes at the 1 m rung (phase 2c's) step by step
     and whole, and the whole `dispatch_one` of that batch (no synchronizing
-    call). The LM (`optimize_pose_graph`: `lm_damp`, `lm_update`,
-    `lm_accept` around K15 and the Cholesky) on phase 2c's 64-keyframe graph
-    and 2g's with priors: one iteration from identical states, whole
-    optimizes against the twin's on the card, reads and wasted solves
-    counted. `prior`: the records of phases 2c and 2f (K6L's, K13's and
-    K15's bounds, the Cholesky's time)."""
+    call). The LM (`optimize_pose_graph`: K15's damped system, the
+    Cholesky, `lm_step`) on phase 2c's 64-keyframe graph and 2g's with
+    priors: one iteration from identical states, whole optimizes against
+    the twin's on the card, reads and wasted solves counted; `lm_cases`;
+    the hand launches of an iteration and of each K15 mode. `prior`: the
+    records of phases 2c and 2f (K6L's, K13's and K15's bounds, the
+    Cholesky's time)."""
     import lv_slam_tpu_torch.graph.pose_graph as pose_graph
     from lv_slam_tpu_torch import kitti_flagship_config
     from lv_slam_tpu_torch.config import LoopDetectorConfig
@@ -5047,6 +5336,13 @@ def check_loop_kernels(torch, scans, gt, dev, prior):
             f"device {dev_ms:.3f} ms, wall {wall_ms:.3f} ms per optimize; the twin's "
             f"loop device {plain_dev:.3f} ms, wall {plain_wall:.3f} ms")
 
+    # the LM's edge cases against the twin
+    case_records = check_lm_cases(torch, dev)
+    log(f"  lm_cases: {len(case_records)} cases ({', '.join(LM_CASE_NAMES)}) against the twin on the card: K15's "
+        f"chi2 mode equal to its raw build, the damped system to the raw build through lm_damp, bit for bit, one "
+        f"launch each; the first iteration within 1e-5, flags equal; whole optimizes within {LM_TOL}, iterations "
+        f"{ {k: (r['iterations'], r['twin_iterations']) for k, r in case_records.items()} } (card, twin)")
+
     # the LM kernels' time per iteration on 2c's graph, from one fixed state
     graph, n_edges = backend_graph(torch, rel_all, False)
     g = pose_graph.to_device(graph, dev)
@@ -5056,7 +5352,8 @@ def check_loop_kernels(torch, scans, gt, dev, prior):
 
     def restore(dst):
         for key, v in st0.__dict__.items():
-            getattr(dst, key).copy_(v)
+            if key != "args":  # the graph's pointers, shared
+                getattr(dst, key).copy_(v)
 
     def klm():
         restore(st)
@@ -5066,21 +5363,50 @@ def check_loop_kernels(torch, scans, gt, dev, prior):
         restore(st_twin)
         pose_graph._lm_iteration_ref(g, st_twin, 1024)
 
+    # the hand kernels an iteration and each K15 mode launch on the card
+    restore(st)
+    per_iteration = hand_launches(torch, lambda: pose_graph._lm_iteration(g, st, 1024))
+    per_mode = {mode: hand_launches(torch, fn) for mode, fn in (
+        ("raw", lambda: pose_graph._chi2_and_normal(g, g.poses, True)),
+        ("chi2", lambda: pose_graph._chi2_and_normal(g, g.poses, False)),
+        ("damped", lambda: pose_graph._damped_system(g, g.poses, g.planes, 1e-4)))}
+    if len(per_iteration) != 2 or any(len(names) != 1 for names in per_mode.values()):
+        raise AssertionError(f"hand launches: {per_iteration} per LM iteration (expected 2), {per_mode} per K15 mode "
+                             f"(expected 1 each)")
+    log(f"  hand launches per LM iteration: {len(per_iteration)} ({', '.join(per_iteration)}) around the library "
+        f"solve (the earlier kernels: 13); _chi2_and_normal: one launch in each mode "
+        f"({', '.join(f'{m} {len(v)}' for m, v in per_mode.items())})")
+
     n, k = pose_graph._n_dofs(g), g.node_cap
-    # bytes: H read and cleared, the damped system written, b, rhs and the
-    # solve read, the poses and planes read and their candidates written and
-    # read once more; operations: the damping, ~300 per node
+    # the work an iteration needs, whatever implements it: the graph's arrays
+    # read once, the damped system written once, rhs, the poses and planes
+    # read and written; operations: each factor's evaluation twice (~3000 an
+    # edge), the damping, ~300 per node for the candidate
+    lm_bytes = nbytes(*g) + 4 * (n * n + n) + 2 * nbytes(g.poses, g.planes)
+    lm_ops = 2 * 3000 * n_edges + n * n + 300 * k
     measure(torch, records, "optimize_pose_graph", klm, plm, max(r["max_abs_err"] for r in lm_records.values()),
-            4 * (3 * n * n + 4 * n) + 3 * nbytes(g.poses, g.planes), n * n + 300 * k)
-    records["optimize_pose_graph"]["library_ms"] = prior["_chi2_and_normal"]["cholesky_ms"]
-    records["optimize_pose_graph"]["optimize"] = lm_records
-    per_it = records["optimize_pose_graph"]["bound_ms"] + 2 * prior["_chi2_and_normal"]["bound_ms"] + bound(
-        0, n ** 3 / 3 + 2 * n * n)[0]
+            lm_bytes, lm_ops)
+    rec = records["optimize_pose_graph"]
+    rec["lm_step_ms"] = rec["ms"]
+    rec["ms"], _, _ = device_ms(torch, klm, DEVICE_FUNCTIONS["_chi2_and_normal"] + ("lm_step",))
+    rec["hand_launches_per_iteration"] = len(per_iteration)
+    rec["library_ms"] = prior["_chi2_and_normal"]["cholesky_ms"]
+    rec["optimize"] = lm_records
+    rec["lm_cases"] = case_records
+    # the earlier count: H read and cleared, the damped system written, b,
+    # rhs and the solve read, the poses and planes read, their candidates
+    # written and read once more, plus K15's bound twice
+    old_bound = bound(4 * (3 * n * n + 4 * n) + 3 * nbytes(g.poses, g.planes), n * n + 300 * k)[0] + 2 * prior[
+        "_chi2_and_normal"]["bound_ms"]
+    rec["bound_earlier_count_ms"] = old_bound
+    per_it = rec["bound_ms"] + bound(0, n ** 3 / 3 + 2 * n * n)[0]
     for r in lm_records.values():
         r["bound_ms"] = r["iterations"] * per_it + prior["_chi2_and_normal"]["bound_ms"]
-    log(f"    per iteration: the LM kernels {records['optimize_pose_graph']['ms']:.4f} ms, the whole iteration "
-        f"{records['optimize_pose_graph']['wrapper_device_ms']:.4f} ms device (K15 twice, the Cholesky "
-        f"{prior['_chi2_and_normal']['cholesky_ms']:.4f} ms); bound per optimize (2c) "
+    log(f"    per iteration: the hand kernels (K15 damped + lm_step) {rec['ms']:.4f} ms (lm_step "
+        f"{rec['lm_step_ms']:.4f}), "
+        f"the whole iteration {rec['wrapper_device_ms']:.4f} ms device (the Cholesky "
+        f"{prior['_chi2_and_normal']['cholesky_ms']:.4f} ms); bound {rec['bound_ms']:.5f} ms ({rec['bound_by']}; the "
+        f"earlier count, H's read and clear and K15 twice: {old_bound:.5f} ms); bound per optimize (2c) "
         f"{lm_records['2c']['bound_ms']:.5f} ms")
     return records
 
@@ -5634,7 +5960,8 @@ def main() -> int:
             launches=launches[name], launch_phase=launch_phase[name], **{key: records[name][key] for key in keys},
             **{extra: records[name][extra]
                for extra in ("cholesky_ms", "with_sensor_factors", "launches_by_phase", "over_cap", "standalone",
-                             "torch_sort_ms", "torch_topk_ms", "rung_4m")
+                             "torch_sort_ms", "torch_topk_ms", "rung_4m", "lm_step_ms", "hand_launches_per_iteration",
+                             "bound_earlier_count_ms")
                if extra in records[name]},
         )
         for name, k in KERNELS.items()

@@ -4,39 +4,44 @@
 // `optimize_pose_graph`'s `lax.while_loop` (:380-421) around kernel 15
 // (`csrc/pose_graph.cu`) and the dense factorization, which stays a library
 // call (`torch.linalg.cholesky_ex` + `cholesky_solve`, as the reference leaves
-// it to `jax.scipy.linalg.solve`). An iteration is: K15's normal equations
-// at the current poses and planes, `lm_damp`, the Cholesky factor and solve,
-// `lm_update`, K15's chi2 at the candidate, `lm_accept`. Every launch but the
-// two library calls is gated on the loop's `done` flag; the host launches
-// iterations in groups with one read of `done` per group
-// (`graph/pose_graph.py:optimize_pose_graph`).
+// it to `jax.scipy.linalg.solve`). An iteration is two hand launches around
+// the library solve: K15 in its damped mode (the normal equations, the gauge
+// and the damping, written as the damped system and its right-hand side),
+// then `lm_step`, one cluster that tests the solve, forms the candidate,
+// evaluates its chi2 with K15's factor code and takes the accept decision.
+// Both are gated on the loop's `done` flag; the host launches iterations in
+// groups with one read of `done` per group
+// (`graph/pose_graph.py:optimize_pose_graph`). The sharded LM
+// (`parallel/mesh.py`) sums raw H and b and the candidate's chi2 across its
+// ranks between these steps, so it runs K15 raw, `lm_damp`, the solve,
+// `lm_step` stopped before the decision, and `lm_accept`.
 //
-// Bound on the card: at the flagship graph (64 nodes, 8 planes: n = 408) an
-// iteration moves the dense H twice (666 KB: `lm_damp` reads it and writes
-// the damped copy) and does a few thousand operations per node in
-// `lm_update`: microseconds. What shows is the launches' latency and the
-// library factorization (n^3 / 3 operations).
+// Bound on the card: the work an iteration needs is the graph's arrays read
+// once, the damped system written once and read by the solve, rhs, and the
+// poses and planes read and written: at phase 5's 216-dof system ~0.2 MB,
+// well under a microsecond of HBM time. What shows is latency: the factors'
+// dependent chains, the cluster barriers and the launches, and the library
+// factorization (n^3 / 3 operations).
 //
-// Design: `lm_damp` is elementwise over H and b (one thread per entry): the
-// gauge of `_apply_gauge` (node 0, fixed and invalid nodes and planes), the
-// damping h + lam * max(diag h, 1e-6) on the diagonal, rhs = -b, and it
-// clears H and b for the next build (K15's `assemble` adds into them).
-// `lm_update` and `lm_accept` are one block each: `lm_update` tests the solve
-// (the factor's info and every entry finite), zeroes a failed step, takes
-// max |delta| for the `small` test, and moves each node by exp_se3 of its
-// 6 dofs (left-multiplied) and each plane by `plane_oplus`, one thread per
-// node or plane; `lm_accept` takes the candidate when its chi2 does not
-// exceed the current one, then the lambda schedule, the iteration count and
-// the stopping tests (it >= num_iterations, small, relative chi2 change).
-// Each is written as the plain twin (`_lm_iteration_ref`) computes it.
-#include "common.cuh"
+// Design: `lm_step` is one cluster of 8 x 256 threads: every block tests the
+// solve (the factor's info and every entry finite: a failed step is zero);
+// a thread per node forms exp_se3(delta) T (left-multiplied), a thread per
+// plane `plane_oplus`; after a cluster barrier a thread per factor slot
+// evaluates the candidate's chi2 term (`factor_rho`, the code K15's chi2
+// mode runs); after a second, block 0 takes max |delta| for the `small`
+// test (reduced before the barrier), sums the terms in K15's fixed order,
+// and runs `lm_accept`'s logic:
+// the candidate is taken when its chi2 does not exceed the current one,
+// then the lambda schedule, the iteration count and the stopping tests (it
+// >= num_iterations, small, relative chi2 change). `lm_damp` (sharded only)
+// is elementwise over H and b: the gauge of `_apply_gauge` (node 0, fixed
+// and invalid nodes and planes), the damping h + lam * max(diag h, 1e-6),
+// rhs = -b, and it clears H and b for the next build. Each is written as
+// the plain twin (`_lm_iteration_ref`) computes it.
+#include "pose_graph.cuh"
 #include "se3.cuh"
 
 namespace {
-
-// the loop's scalars (graph/pose_graph.py LMState)
-constexpr int F_LAM = 0, F_CHI2 = 1, F_NEW_CHI2 = 2;
-constexpr int S_DONE = 0, S_IT = 1, S_OK = 2, S_SMALL = 3;
 
 // whether dof d is free (`_apply_gauge`'s `freed`)
 __device__ __forceinline__ bool freed(int d, int n_nodes, const bool* node_valid, const bool* node_fixed,
@@ -88,70 +93,38 @@ __device__ __forceinline__ float norm3f(const float* v) {
   return sqrtf(s);
 }
 
-// factors.plane_oplus(p, d): the normal moved in its tangent basis, then the distance
+// factors.plane_oplus(p, d): the normal moved in its tangent basis, then the
+// distance (`div0`: a zero entry over its norm without the division's slow path)
 __device__ void plane_oplus(const float* p_in, const float* d, float* out) {
   float p[4];
   const float pn = clamp_min(norm3f(p_in), 1e-9f);
-  for (int c = 0; c < 4; ++c) p[c] = p_in[c] / pn;
+  for (int c = 0; c < 4; ++c) p[c] = div0(p_in[c], pn);
   float b1[3] = {1.0f - p[0] * p[0], 0.0f - p[1] * p[0], 0.0f - p[2] * p[0]};
   const float bn = clamp_min(norm3f(b1), 1e-9f);
-  for (int c = 0; c < 3; ++c) b1[c] = b1[c] / bn;
+  for (int c = 0; c < 3; ++c) b1[c] = div0(b1[c], bn);
   const float b2[3] = {p[1] * b1[2] - p[2] * b1[1], p[2] * b1[0] - p[0] * b1[2], p[0] * b1[1] - p[1] * b1[0]};
   float nn[3];
   for (int c = 0; c < 3; ++c) nn[c] = (p[c] + d[0] * b1[c]) + d[1] * b2[c];
   const float nnn = clamp_min(norm3f(nn), 1e-9f);
-  for (int c = 0; c < 3; ++c) out[c] = nn[c] / nnn;
+  for (int c = 0; c < 3; ++c) out[c] = div0(nn[c], nnn);
   out[3] = p[3] + d[2];
 }
 
-// one block: the step's test, the candidate poses and planes
-__global__ void lm_update(const float* __restrict__ delta, const int* __restrict__ chol_info,
-                          const float* __restrict__ poses, const float* __restrict__ planes,
-                          float* __restrict__ cand_poses, float* __restrict__ cand_planes, int n_nodes,
-                          int n_planes, int n, int* __restrict__ lmi) {
-  if (lmi[S_DONE]) return;
-  __shared__ float s_max[lvs::kThreads];
-  bool finite = true;
-  for (int d = threadIdx.x; d < n; d += blockDim.x) finite = finite && isfinite(delta[d]);
-  const bool ok = __syncthreads_and(finite) && *chol_info == 0;
-  float m = 0.0f;
-  if (ok)
-    for (int d = threadIdx.x; d < n; d += blockDim.x) m = fmaxf(m, fabsf(delta[d]));
-  s_max[threadIdx.x] = m;
-  for (int i = threadIdx.x; i < n_nodes; i += blockDim.x) {
-    float xi[6], e[16];
-    for (int c = 0; c < 6; ++c) xi[c] = ok ? delta[6 * i + c] : 0.0f;
-    lvs::exp_se3(xi, e);
-    lvs::matmul44(e, poses + 16 * i, cand_poses + 16 * i);
-  }
-  for (int q = threadIdx.x; q < n_planes; q += blockDim.x) {
-    float d[3];
-    for (int c = 0; c < 3; ++c) d[c] = ok ? delta[6 * n_nodes + 3 * q + c] : 0.0f;
-    plane_oplus(planes + 4 * q, d, cand_planes + 4 * q);
-  }
-  __syncthreads();
-  for (int half = blockDim.x / 2; half > 0; half >>= 1) {
-    if (threadIdx.x < half) s_max[threadIdx.x] = fmaxf(s_max[threadIdx.x], s_max[threadIdx.x + half]);
-    __syncthreads();
-  }
-  if (threadIdx.x == 0) {
-    lmi[S_OK] = ok;
-    lmi[S_SMALL] = s_max[0] < 1e-6f;
-  }
-}
-
-// one block: accept or reject the candidate, the lambda schedule, the stopping tests
-__global__ void lm_accept(float* __restrict__ poses, float* __restrict__ planes, const float* __restrict__ cand_poses,
-                          const float* __restrict__ cand_planes, int n_nodes, int n_planes, float* __restrict__ lmf,
-                          int* __restrict__ lmi, int num_iterations) {
-  if (lmi[S_DONE]) return;
-  const float chi2 = lmf[F_CHI2], new_chi2 = lmf[F_NEW_CHI2];
-  const bool accept = lmi[S_OK] && new_chi2 <= chi2;
+// lm_accept's decision (block 0 of `lm_step`, or its own launch in the
+// sharded LM): take the candidate when its chi2 does not exceed the current
+// one, then the lambda schedule, the iteration count and the stopping tests.
+// Every thread of the block must have read `done` before it is called.
+__device__ void accept_step(float* __restrict__ poses, float* __restrict__ planes,
+                            const float* __restrict__ cand_poses, const float* __restrict__ cand_planes, int n_nodes,
+                            int n_planes, float* __restrict__ lmf, int* __restrict__ lmi, int num_iterations, bool ok,
+                            bool small, float new_chi2) {
+  const float chi2 = lmf[F_CHI2];
+  const bool accept = ok && new_chi2 <= chi2;
   if (accept) {
-    for (int e = threadIdx.x; e < 16 * n_nodes; e += blockDim.x) poses[e] = cand_poses[e];
-    for (int e = threadIdx.x; e < 4 * n_planes; e += blockDim.x) planes[e] = cand_planes[e];
+    for (int e = threadIdx.x; e < 16 * n_nodes; e += blockDim.x) poses[e] = __ldcg(cand_poses + e);
+    for (int e = threadIdx.x; e < 4 * n_planes; e += blockDim.x) planes[e] = __ldcg(cand_planes + e);
   }
-  __syncthreads();  // every thread has read `done` before thread 0 writes it
+  __syncthreads();  // every thread has read the scalars before thread 0 writes them
   if (threadIdx.x != 0) return;
   const float next = accept ? new_chi2 : chi2;
   const float lam = lmf[F_LAM];
@@ -161,7 +134,86 @@ __global__ void lm_accept(float* __restrict__ poses, float* __restrict__ planes,
   lmi[S_IT] = it;
   const bool rel_ok = accept && (chi2 - next) < 1e-8f * (chi2 + 1e-12f);
   lmf[F_CHI2] = next;
-  lmi[S_DONE] = it >= num_iterations || lmi[S_SMALL] || rel_ok;
+  lmi[S_DONE] = it >= num_iterations || small || rel_ok;
+}
+
+// One cluster: the step's test, the candidate poses and planes, the
+// candidate's chi2 terms and their ordered sum, then (with `decide`) the
+// accept decision. Without it, block 0 leaves the sum in lmf[2] and ok /
+// small in lmi[2:4] for `lm_accept`.
+__global__ void __cluster_dims__(kCluster, 1, 1) __launch_bounds__(lvs::kThreads)
+    lm_step(const GraphArgs g, const float* __restrict__ delta, const int* __restrict__ chol_info,
+            float* __restrict__ poses, float* __restrict__ planes, float* __restrict__ cand_poses,
+            float* __restrict__ cand_planes, float* __restrict__ rho, float* __restrict__ lmf, int* __restrict__ lmi,
+            int n, int num_iterations, int decide) {
+  if (lmi[S_DONE]) return;  // uniform over the cluster: block 0 writes it after the last cluster barrier
+  extern __shared__ unsigned vars[];  // every factor slot's staged variables
+  const int rank = cluster_rank();
+  const int stride = kCluster * lvs::kThreads;
+  const int i0 = rank * lvs::kThreads + threadIdx.x;  // this thread's first node
+  float xi0[6], t0[16];  // its step and pose, loaded before the step's test
+  if (i0 < g.n_nodes) {
+#pragma unroll
+    for (int c = 0; c < 6; ++c) xi0[c] = delta[6 * i0 + c];
+#pragma unroll
+    for (int c = 0; c < 16; ++c) t0[c] = poses[16 * i0 + c];
+  }
+  stage_vars(g, vars);
+  bool finite = true;
+  float m = 0.0f;  // max |delta|, read only when every entry is finite
+  for (int d = threadIdx.x; d < n; d += blockDim.x) {
+    const float x = delta[d];
+    finite = finite && isfinite(x);
+    m = fmaxf(m, fabsf(x));
+  }
+  const bool ok = __syncthreads_and(finite) && *chol_info == 0;
+  for (int i = i0; i < g.n_nodes; i += stride) {
+    float xi[6], e[16], t[16];
+#pragma unroll
+    for (int c = 0; c < 6; ++c) xi[c] = ok ? (i == i0 ? xi0[c] : delta[6 * i + c]) : 0.0f;
+#pragma unroll
+    for (int c = 0; c < 16; ++c) t[c] = i == i0 ? t0[c] : poses[16 * i + c];
+    lvs::exp_se3(xi, e);
+    lvs::matmul44(e, t, cand_poses + 16 * i);
+  }
+  for (int q = i0; q < g.n_planes; q += stride) {
+    float d[3];
+    for (int c = 0; c < 3; ++c) d[c] = ok ? delta[6 * g.n_nodes + 3 * q + c] : 0.0f;
+    plane_oplus(planes + 4 * q, d, cand_planes + 4 * q);
+  }
+  __shared__ float s_max[kWarps];
+  if (rank == 0) {  // the `small` test's max |delta| (exact in any order; a failed step's is 0)
+    for (int off = 16; off > 0; off >>= 1) m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, off));
+    if ((threadIdx.x & 31) == 0) s_max[threadIdx.x >> 5] = ok ? m : 0.0f;
+  }
+  cluster_sync();  // the candidate is visible to the cluster
+  const int total = n_terms(g);
+  for (int t = i0; t < total; t += stride) rho[t] = factor_rho(g, cand_poses, cand_planes, t, vars[t]);
+  cluster_sync();  // every chi2 term is visible to block 0
+  if (rank != 0) return;
+
+  const float new_chi2 = ordered_sum(rho, total);  // its barriers also publish s_max
+  float top = s_max[0];
+  for (int w = 1; w < kWarps; ++w) top = fmaxf(top, s_max[w]);
+  const bool small = top < 1e-6f;
+  if (threadIdx.x == 0) {  // no thread of the block reads these below
+    lmf[F_NEW_CHI2] = new_chi2;
+    lmi[S_OK] = ok;
+    lmi[S_SMALL] = small;
+  }
+  if (!decide) return;
+  accept_step(poses, planes, cand_poses, cand_planes, g.n_nodes, g.n_planes, lmf, lmi, num_iterations, ok, small,
+              new_chi2);
+}
+
+// one block: the sharded LM's decision once the ranks have summed the
+// candidate's chi2 into lmf[2]
+__global__ void lm_accept(float* __restrict__ poses, float* __restrict__ planes, const float* __restrict__ cand_poses,
+                          const float* __restrict__ cand_planes, int n_nodes, int n_planes, float* __restrict__ lmf,
+                          int* __restrict__ lmi, int num_iterations) {
+  if (lmi[S_DONE]) return;
+  accept_step(poses, planes, cand_poses, cand_planes, n_nodes, n_planes, lmf, lmi, num_iterations, lmi[S_OK] != 0,
+              lmi[S_SMALL] != 0, lmf[F_NEW_CHI2]);
 }
 
 }  // namespace
@@ -175,11 +227,22 @@ extern "C" int lvs_lm_damp(float* H, float* b, const bool* node_valid, const boo
   LVS_RETURN_LAST_ERROR();
 }
 
-extern "C" int lvs_lm_update(const float* delta, const int* chol_info, const float* poses, const float* planes,
-                             float* cand_poses, float* cand_planes, int n_nodes, int n_planes, int n, int* lmi,
-                             cudaStream_t stream) {
-  lm_update<<<1, lvs::kThreads, 0, stream>>>(delta, chol_info, poses, planes, cand_poses, cand_planes, n_nodes,
-                                             n_planes, n, lmi);
+// One LM step after the solve (delta (n,), the Cholesky's info) on the
+// graph `*g` (a host struct): the candidate into cand_poses / cand_planes,
+// its chi2 terms into `rho`, then with `decide` the accept decision on
+// poses, planes, lmf and lmi; without it the sum and the flags for
+// `lvs_lm_accept`
+extern "C" int lvs_lm_step(const lvs::GraphArgs* g, const float* delta, const int* chol_info, float* poses,
+                           float* planes, float* cand_poses, float* cand_planes, float* rho, float* lmf, int* lmi,
+                           int n, int num_iterations, int decide, cudaStream_t stream) {
+  const long long smem = 4LL * n_terms(*g);
+  if (smem > 48 * 1024) {
+    const cudaError_t err =
+        cudaFuncSetAttribute(lm_step, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  lm_step<<<kCluster, lvs::kThreads, smem, stream>>>(*g, delta, chol_info, poses, planes, cand_poses, cand_planes, rho,
+                                                     lmf, lmi, n, num_iterations, decide);
   LVS_RETURN_LAST_ERROR();
 }
 

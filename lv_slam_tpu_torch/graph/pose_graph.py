@@ -12,13 +12,15 @@ their Huber weights).
 
 The graph is built on the host (numpy arrays, one write per factor, as in
 the reference); `optimize_pose_graph` moves it to the device. chi2, H and b
-of every factor family are kernel 15 (`csrc/pose_graph.cu`) on CUDA and
+of every factor family are kernel 15 (`csrc/pose_graph.cu`, one cluster
+launch: raw, chi2-only, or the LM's damped system) on CUDA and
 `_chi2_and_normal_ref` (`torch.func.jvp`, as the reference's `jax.jacfwd`)
 on CPU. The dense solve is `torch.linalg.cholesky_ex` + `cholesky_solve`, a
 library call, as the reference leaves it to `jax.scipy.linalg.solve`. The
-LM loop keeps its state on the device (`LMState`); on CUDA its body around
-kernel 15 and the solve is `csrc/lm.cu`, every launch gated on the loop's
-`done` flag, which the host reads once per `LM_GROUP` iterations.
+LM loop keeps its state on the device (`LMState`); on CUDA an iteration is
+kernel 15's damped mode, the solve and `lm_step` (`csrc/lm.cu`: the
+candidate, its chi2 and the accept decision), every launch gated on the
+loop's `done` flag, which the host reads once per `LM_GROUP` iterations.
 """
 
 from __future__ import annotations
@@ -37,15 +39,7 @@ KERNEL = Kernel(
     "_chi2_and_normal",
     source="lv_slam_tpu_torch/csrc/pose_graph.cu",
     replaces="lv_slam_tpu/graph/pose_graph.py:240",
-    entries={
-        "lvs_pose_graph_edges": [PTR, PTR, PTR, PTR, PTR, PTR, PTR, I32, I32, PTR, PTR, PTR],
-        "lvs_pose_graph_priors": [PTR, PTR, PTR, PTR, PTR, PTR, PTR, I32, I32, PTR, PTR, PTR],
-        "lvs_pose_graph_se3_planes": [PTR, PTR, PTR, PTR, PTR, PTR, PTR, PTR, I32, I32, PTR, PTR, PTR],
-        "lvs_pose_graph_plane_edges": [PTR, PTR, PTR, PTR, PTR, PTR, PTR, PTR, I32, I32, PTR, PTR, PTR],
-        "lvs_pose_graph_assemble": [PTR, PTR, PTR, PTR, I32, PTR, PTR, PTR, I32, PTR, PTR, PTR, PTR, I32, PTR, PTR,
-                                    PTR, PTR, I32, I32, I32, I32, PTR, PTR, PTR],
-        "lvs_pose_graph_chi2": [PTR, I32, PTR, PTR],
-    },
+    entries={"lvs_pose_graph": [PTR, PTR, PTR, I32, PTR, PTR, PTR, PTR, PTR, PTR, PTR]},
 )
 LM_KERNEL = Kernel(
     "optimize_pose_graph",
@@ -53,10 +47,13 @@ LM_KERNEL = Kernel(
     replaces="lv_slam_tpu/graph/pose_graph.py:381",
     entries={
         "lvs_lm_damp": [PTR, PTR, PTR, PTR, PTR, PTR, I32, I32, PTR, PTR, PTR, PTR],
-        "lvs_lm_update": [PTR, PTR, PTR, PTR, PTR, PTR, I32, I32, I32, PTR],
+        "lvs_lm_step": [PTR, PTR, PTR, PTR, PTR, PTR, PTR, PTR, PTR, PTR, I32, I32, I32],
         "lvs_lm_accept": [PTR, PTR, PTR, PTR, I32, I32, PTR, PTR, I32],
     },
 )
+
+# kernel 15's modes (csrc/pose_graph.cu)
+MODE_RAW, MODE_CHI2, MODE_DAMPED = range(3)
 
 
 class PoseGraph(NamedTuple):
@@ -273,35 +270,42 @@ def _check_graph(g: PoseGraph, poses: torch.Tensor, planes: torch.Tensor) -> Non
         ("sp_valid", torch.bool, (n_s,)), ("q_i", torch.int32, (n_r,)), ("q_j", torch.int32, (n_r,)),
         ("q_type", torch.int32, (n_r,)), ("q_meas", torch.float32, (n_r, 4)), ("q_info", torch.float32, (n_r, 4, 4)),
         ("q_huber", torch.float32, (n_r,)), ("q_valid", torch.bool, (n_r,)),
+        ("node_valid", torch.bool, (k,)), ("node_fixed", torch.bool, (k,)), ("plane_valid", torch.bool, (q,)),
+        ("plane_fixed", torch.bool, (q,)),
     ):
         check_dtype(name, getattr(g, field), dtype, shape)
 
 
-def _k15(g: PoseGraph, poses, planes, build: bool, rho, blk, h, b, chi2, done) -> None:
-    """Kernel 15's launches on checked arguments: every factor family's
-    rho terms (and, with `build`, its blocks into the scratch `blk`, then
-    their ordered sum into H and b), then the rho terms' sum into the
-    pointer `chi2` unless it is None. `done`: the LM loop's gate (None
-    outside it)."""
-    n_e, n_p, n_s, n_r = _family_sizes(g)
-    rho_p, rho_s, rho_r = rho[n_e:], rho[n_e + n_p:], rho[n_e + n_p + n_s:]
-    blk_e, blk_p, blk_s, blk_r = ([ctypes.c_void_p(blk.data_ptr() + 4 * o) for o in _block_offsets(g)[:4]]
-                                  if build else [None] * 4)
-    KERNEL.call("lvs_pose_graph_edges", ptr(poses), ptr(g.e_i), ptr(g.e_j), ptr(g.e_meas), ptr(g.e_info),
-                ptr(g.e_huber), ptr(g.e_valid), n_e, int(build), ptr(rho), blk_e, done)
-    KERNEL.call("lvs_pose_graph_priors", ptr(poses), ptr(g.p_node), ptr(g.p_type), ptr(g.p_meas), ptr(g.p_info),
-                ptr(g.p_huber), ptr(g.p_valid), n_p, int(build), ptr(rho_p), blk_p, done)
-    KERNEL.call("lvs_pose_graph_se3_planes", ptr(poses), ptr(planes), ptr(g.sp_i), ptr(g.sp_plane), ptr(g.sp_meas),
-                ptr(g.sp_info), ptr(g.sp_huber), ptr(g.sp_valid), n_s, int(build), ptr(rho_s), blk_s, done)
-    KERNEL.call("lvs_pose_graph_plane_edges", ptr(planes), ptr(g.q_i), ptr(g.q_j), ptr(g.q_type), ptr(g.q_meas),
-                ptr(g.q_info), ptr(g.q_huber), ptr(g.q_valid), n_r, int(build), ptr(rho_r), blk_r, done)
-    if build:
-        KERNEL.call("lvs_pose_graph_assemble", ptr(g.e_i), ptr(g.e_j), ptr(g.e_valid), blk_e, n_e, ptr(g.p_node),
-                    ptr(g.p_valid), blk_p, n_p, ptr(g.sp_i), ptr(g.sp_plane), ptr(g.sp_valid), blk_s, n_s,
-                    ptr(g.q_i), ptr(g.q_j), ptr(g.q_valid), blk_r, n_r, g.node_cap, g.plane_cap, _n_dofs(g), ptr(h),
-                    ptr(b), done)
-    if chi2 is not None:
-        KERNEL.call("lvs_pose_graph_chi2", ptr(rho), rho.shape[0], chi2, done)
+class _GraphArgs(ctypes.Structure):
+    """`GraphArgs` of csrc/pose_graph.cuh: the graph's device pointers and
+    sizes, passed to kernel 15 and `lm_step` by one host pointer."""
+
+    _fields_ = [(name, ctypes.c_void_p) for name in (
+        "e_i", "e_j", "e_meas", "e_info", "e_huber", "e_valid", "p_node", "p_type", "p_meas", "p_info", "p_huber",
+        "p_valid", "sp_i", "sp_plane", "sp_meas", "sp_info", "sp_huber", "sp_valid", "q_i", "q_j", "q_type",
+        "q_meas", "q_info", "q_huber", "q_valid", "node_valid", "node_fixed", "plane_valid", "plane_fixed")] + [
+        (name, ctypes.c_int) for name in ("n_e", "n_p", "n_s", "n_q", "n_nodes", "n_planes")]
+
+
+def _graph_args(g: PoseGraph) -> _GraphArgs:
+    """The struct of a checked device graph (the graph's tensors must outlive it)."""
+    fields = g._asdict()
+    ptrs = {name: fields[name].data_ptr() for name, kind in _GraphArgs._fields_ if kind is ctypes.c_void_p}
+    return _GraphArgs(**ptrs, n_e=g.edge_cap, n_p=g.p_node.shape[0], n_s=g.sp_i.shape[0], n_q=g.q_i.shape[0],
+                      n_nodes=g.node_cap, n_planes=g.plane_cap)
+
+
+def _k15(args: _GraphArgs, poses, planes, mode: int, rho, blk=None, h=None, b=None, chi2=None, lmf=None,
+         done=None) -> None:
+    """Kernel 15's one launch on checked arguments (`args`: `_graph_args`):
+    every factor's chi2 term into `rho`; raw: the blocks into the scratch
+    `blk`, their ordered sums written as H and b into `h` and `b`, and the
+    terms' sum into the pointer `chi2` unless it is None; chi2: that sum
+    only; damped: the damped system into `h` and rhs = -b into `b` at lambda
+    lmf[0]. `done`: the LM loop's gate (None outside it)."""
+    KERNEL.call("lvs_pose_graph", ctypes.c_void_p(ctypes.addressof(args)), ptr(poses), ptr(planes), mode, ptr(rho),
+                None if blk is None else ptr(blk), None if h is None else ptr(h), None if b is None else ptr(b), chi2,
+                None if lmf is None else ptr(lmf), done)
     KERNEL.launches += 1
 
 
@@ -335,7 +339,8 @@ def _block_scratch(g: PoseGraph, device) -> torch.Tensor:
 def _chi2_and_normal(graph: PoseGraph, poses: torch.Tensor, build: bool, planes: Optional[torch.Tensor] = None):
     """chi2 (+ the dense H (n, n) and b (n,) when `build`) of every factor
     at `poses` and `planes` (default: the graph's), over the state [6K se(3)
-    dofs | 3Q plane dofs]. Kernel 15 on CUDA, the plain version on CPU."""
+    dofs | 3Q plane dofs]. Kernel 15 on CUDA (one launch, raw or chi2-only),
+    the plain version on CPU."""
     planes = graph.planes if planes is None else planes
     if poses.device.type == "cpu":
         return _chi2_and_normal_ref(graph, poses, build, planes)
@@ -345,10 +350,32 @@ def _chi2_and_normal(graph: PoseGraph, poses: torch.Tensor, build: bool, planes:
     dev = poses.device
     rho = torch.empty((_n_terms(graph),), dtype=torch.float32, device=dev)
     chi2 = torch.empty((), dtype=torch.float32, device=dev)
-    h = torch.zeros((n, n) if build else (1, 1), dtype=torch.float32, device=dev)
-    b = torch.zeros((n,) if build else (1,), dtype=torch.float32, device=dev)
-    _k15(graph, poses, planes, build, rho, _block_scratch(graph, dev) if build else None, h, b, ptr(chi2), None)
-    return (chi2, h, b) if build else (chi2, None, None)
+    if not build:
+        _k15(_graph_args(graph), poses, planes, MODE_CHI2, rho, chi2=ptr(chi2))
+        return chi2, None, None
+    h = torch.empty((n, n), dtype=torch.float32, device=dev)
+    b = torch.empty((n,), dtype=torch.float32, device=dev)
+    _k15(_graph_args(graph), poses, planes, MODE_RAW, rho, _block_scratch(graph, dev), h, b, ptr(chi2))
+    return chi2, h, b
+
+
+def _damped_system(graph: PoseGraph, poses: torch.Tensor, planes: torch.Tensor, lam: float):
+    """The LM's damped system (n, n) and right-hand side (n,) at `poses` and
+    `planes`: H and b through `_apply_gauge`, then H + lam diag(max(diag H,
+    1e-6)) and -b. Kernel 15's damped mode on CUDA (one launch), the plain
+    version on CPU."""
+    if poses.device.type == "cpu":
+        return _damped_system_ref(graph, poses, planes, lam)
+    n = _n_dofs(graph)
+    poses, planes = poses.contiguous(), planes.contiguous()
+    _check_graph(graph, poses, planes)
+    dev = poses.device
+    lmf = torch.full((4,), lam, dtype=torch.float32, device=dev)
+    rho = torch.empty((_n_terms(graph),), dtype=torch.float32, device=dev)
+    damped = torch.empty((n, n), dtype=torch.float32, device=dev)
+    rhs = torch.empty((n,), dtype=torch.float32, device=dev)
+    _k15(_graph_args(graph), poses, planes, MODE_DAMPED, rho, _block_scratch(graph, dev), damped, rhs, lmf=lmf)
+    return damped, rhs
 
 
 def _weigh(r, info, huber, robust_chi2: bool):
@@ -422,6 +449,20 @@ def _apply_gauge(h: torch.Tensor, b: torch.Tensor, graph: PoseGraph):
     return h, b
 
 
+def _damp(h: torch.Tensor, b: torch.Tensor, graph: PoseGraph, lam):
+    """The LM's damped system and right-hand side from raw H and b: the
+    gauge, then h + lam diag(max(diag h, 1e-6)), and -b."""
+    h, b = _apply_gauge(h, b, graph)
+    return h + lam * torch.diag(torch.clamp(torch.diagonal(h), min=1e-6)), -b
+
+
+def _damped_system_ref(graph: PoseGraph, poses: torch.Tensor, planes: torch.Tensor, lam):
+    """Plain PyTorch version of `_damped_system`: the twin's H and b through
+    `_damp`, as `_lm_iteration_ref` forms them."""
+    _, h, b = _chi2_and_normal_ref(graph, poses, True, planes)
+    return _damp(h, b, graph, lam)
+
+
 class OptimizeResult(NamedTuple):
     poses: torch.Tensor
     chi2_before: torch.Tensor
@@ -446,11 +487,11 @@ class LMState:
     """The LM loop's state on the graph's device: the current and candidate
     poses and planes, `lmf` float32 [lam, chi2, candidate chi2, pad] and
     `lmi` int32 [done, it, ok, small]; on CUDA also the kernels' buffers
-    (K15's factor blocks, H and b, which K15 adds the blocks into and
-    `lm_damp` clears, the damped system and its right-hand side, the
-    factors' chi2 terms)."""
+    (the graph's struct of pointers, K15's factor blocks, the damped system
+    and its right-hand side, the factors' chi2 terms) and, for the sharded
+    LM (`sharded`), the raw H and b that K15 writes and the ranks sum."""
 
-    def __init__(self, g: PoseGraph, chi2_0: torch.Tensor):
+    def __init__(self, g: PoseGraph, chi2_0: torch.Tensor, sharded: bool = False):
         dev = g.poses.device
         self.poses, self.planes = g.poses.clone(), g.planes.clone()
         self.cand_poses, self.cand_planes = torch.empty_like(self.poses), torch.empty_like(self.planes)
@@ -459,17 +500,20 @@ class LMState:
         self.lmi = torch.zeros((4,), dtype=torch.int32, device=dev)
         if dev.type == "cuda":
             n = _n_dofs(g)
-            self.h = torch.zeros((n, n), dtype=torch.float32, device=dev)
-            self.b = torch.zeros((n,), dtype=torch.float32, device=dev)
+            self.args = _graph_args(g)
             self.damped = torch.empty((n, n), dtype=torch.float32, device=dev)
             self.rhs = torch.empty((n, 1), dtype=torch.float32, device=dev)
             self.rho = torch.empty((_n_terms(g),), dtype=torch.float32, device=dev)
             self.blk = _block_scratch(g, dev)
+            if sharded:
+                self.h = torch.empty((n, n), dtype=torch.float32, device=dev)
+                self.b = torch.empty((n,), dtype=torch.float32, device=dev)
 
     def clone(self) -> "LMState":
-        """A copy with its own buffers."""
+        """A copy with its own buffers (the graph's struct is shared: it
+        names the graph's tensors, not the state's)."""
         out = LMState.__new__(LMState)
-        out.__dict__.update({key: v.clone() for key, v in self.__dict__.items()})
+        out.__dict__.update({key: v if key == "args" else v.clone() for key, v in self.__dict__.items()})
         return out
 
     def done_ptr(self):
@@ -480,22 +524,23 @@ def optimize_pose_graph(graph: PoseGraph, num_iterations: int = 128, device="cud
                         reduce: Optional[Callable] = None) -> OptimizeResult:
     """The reference's LM loop (accept/reject, lambda schedule, convergence
     tests); returns re-anchored poses and the planes, left on the device.
-    On CUDA an iteration is kernel 15, `lm_damp`, the Cholesky factor and
-    solve, `lm_update`, kernel 15's chi2 and `lm_accept`, every launch but
-    the factorization gated on `done`; iterations go in groups of `LM_GROUP`
-    with one host read of `done` after each group but the last. On CPU the
-    twin (`_lm_iteration_ref`) runs in the same loop.
+    On CUDA an iteration is two hand launches around the library solve:
+    kernel 15's damped system, the Cholesky factor and solve, and `lm_step`
+    (the candidate, its chi2 and the decision), all but the factorization
+    gated on `done`; iterations go in groups of `LM_GROUP` with one host
+    read of `done` after each group but the last. On CPU the twin
+    (`_lm_iteration_ref`) runs in the same loop.
 
     `reduce(t)`, when given, sums a tensor in place across the ranks that
     hold the graph's other factors (the sharded LM, `parallel/mesh.py`):
-    chi2 at the start, H and b after kernel 15's build (before the gauge),
-    and the candidate's chi2. Every rank then takes the same step and reads
-    the same `done`, so all make the same collectives."""
+    chi2 at the start, H and b after kernel 15's raw build (before the
+    gauge), and the candidate's chi2. Every rank then takes the same step
+    and reads the same `done`, so all make the same collectives."""
     g = to_device(graph, device)
     chi2_0, _, _ = _chi2_and_normal(g, g.poses, False, g.planes)  # checks K15's arguments once
     if reduce is not None:
         reduce(chi2_0.view(1))
-    st = LMState(g, chi2_0)
+    st = LMState(g, chi2_0, sharded=reduce is not None)
     step = _lm_iteration if g.poses.device.type == "cuda" else _lm_iteration_ref
     bound = max(num_iterations, 1)  # the reference's loop body runs at least once
     launched = 0
@@ -512,26 +557,32 @@ def optimize_pose_graph(graph: PoseGraph, num_iterations: int = 128, device="cud
 
 
 def _lm_iteration(g: PoseGraph, st: LMState, num_iterations: int, reduce: Optional[Callable] = None) -> None:
-    """One gated LM iteration on the card (csrc/lm.cu around kernel 15); a
-    finished loop's H and b stay cleared, so its collectives reduce zeros."""
+    """One gated LM iteration on the card: kernel 15's damped system, the
+    library solve, `lm_step` (2 hand launches). Sharded (`reduce`): kernel
+    15 raw, H and b reduced, `lm_damp`, the solve, `lm_step` without the
+    decision, the candidate's chi2 reduced, `lm_accept`; a finished loop's H
+    and b stay cleared, so its collectives reduce zeros."""
     k, q, n = g.node_cap, g.plane_cap, _n_dofs(g)
     done = st.done_ptr()
-    _k15(g, st.poses, st.planes, True, st.rho, st.blk, st.h, st.b, None, done)
-    if reduce is not None:
+    args = ctypes.c_void_p(ctypes.addressof(st.args))
+    if reduce is None:
+        _k15(st.args, st.poses, st.planes, MODE_DAMPED, st.rho, st.blk, st.damped, st.rhs, lmf=st.lmf, done=done)
+    else:
+        _k15(st.args, st.poses, st.planes, MODE_RAW, st.rho, st.blk, st.h, st.b, done=done)
         reduce(st.h)
         reduce(st.b)
-    LM_KERNEL.call("lvs_lm_damp", ptr(st.h), ptr(st.b), ptr(g.node_valid), ptr(g.node_fixed), ptr(g.plane_valid),
-                   ptr(g.plane_fixed), k, n, ptr(st.lmf), ptr(st.lmi), ptr(st.damped), ptr(st.rhs))
+        LM_KERNEL.call("lvs_lm_damp", ptr(st.h), ptr(st.b), ptr(g.node_valid), ptr(g.node_fixed),
+                       ptr(g.plane_valid), ptr(g.plane_fixed), k, n, ptr(st.lmf), ptr(st.lmi), ptr(st.damped),
+                       ptr(st.rhs))
     chol, info = torch.linalg.cholesky_ex(st.damped)
     delta = torch.cholesky_solve(st.rhs, chol)
-    LM_KERNEL.call("lvs_lm_update", ptr(delta), ptr(info), ptr(st.poses), ptr(st.planes), ptr(st.cand_poses),
-                   ptr(st.cand_planes), k, q, n, ptr(st.lmi))
-    _k15(g, st.cand_poses, st.cand_planes, False, st.rho, st.blk, st.h, st.b,
-         ctypes.c_void_p(st.lmf.data_ptr() + 4 * L_NEW_CHI2), done)
+    LM_KERNEL.call("lvs_lm_step", args, ptr(delta), ptr(info), ptr(st.poses), ptr(st.planes), ptr(st.cand_poses),
+                   ptr(st.cand_planes), ptr(st.rho), ptr(st.lmf), ptr(st.lmi), n, num_iterations,
+                   int(reduce is None))
     if reduce is not None:
         reduce(st.lmf[L_NEW_CHI2:L_NEW_CHI2 + 1])
-    LM_KERNEL.call("lvs_lm_accept", ptr(st.poses), ptr(st.planes), ptr(st.cand_poses), ptr(st.cand_planes), k, q,
-                   ptr(st.lmf), ptr(st.lmi), num_iterations)
+        LM_KERNEL.call("lvs_lm_accept", ptr(st.poses), ptr(st.planes), ptr(st.cand_poses), ptr(st.cand_planes), k,
+                       q, ptr(st.lmf), ptr(st.lmi), num_iterations)
     LM_KERNEL.launches += 1
 
 
@@ -548,10 +599,9 @@ def _lm_iteration_ref(g: PoseGraph, st: LMState, num_iterations: int, reduce: Op
     if reduce is not None:
         reduce(h)
         reduce(b)
-    h, b = _apply_gauge(h, b, g)
-    damped = h + lam * torch.diag(torch.clamp(torch.diagonal(h), min=1e-6))
+    damped, rhs = _damp(h, b, g, lam)
     chol, info = torch.linalg.cholesky_ex(damped)
-    delta = torch.cholesky_solve(-b[:, None], chol)[:, 0]
+    delta = torch.cholesky_solve(rhs[:, None], chol)[:, 0]
     ok = (info == 0) & torch.all(torch.isfinite(delta))
     delta = torch.where(ok, delta, 0.0)
     new_poses = se3.exp_se3(delta[: 6 * k].reshape(k, 6)) @ poses

@@ -1320,6 +1320,59 @@ def test_lm_kernels_match_their_twin_on_the_card(cuda):
 
 
 @pytest.mark.gpu
+def test_pose_graph_modes_on_the_card(cuda):
+    """K15 in each of its modes, one launch each (chip_smoke's
+    `k15_mode_checks`: the chi2 mode's sum equal to the raw build's, the
+    damped system equal to the raw build through `lm_damp`, bit for bit), on
+    this file's LM graph and every `lm_cases` graph; where the graph's terms
+    are finite, the raw H and b and the damped system against the twin's on
+    the card to 1e-4 of their scale (the sums run in other orders: float32
+    rounding alone moves b by ~3e-5 of its scale), chi2 to 1e-4 relative or
+    1e-6 (the chain that its measurements fit has chi2 ~1e-13)."""
+    cs = _chip_smoke()
+    graphs = [("chain", _lm_graph())] + [(name, graph) for name, graph, _ in cs.lm_cases(torch)]
+    for name, graph in graphs:
+        g = pose_graph.to_device(graph, cuda)
+        chi2, h, b = cs.k15_mode_checks(torch, g)
+        if not bool(torch.isfinite(chi2)):
+            continue
+        c_ref, h_ref, b_ref = pose_graph._chi2_and_normal_ref(g, g.poses, True)
+        damped, rhs = pose_graph._damped_system(g, g.poses, g.planes, 1e-4)
+        d_ref, r_ref = pose_graph._damped_system_ref(g, g.poses, g.planes, 1e-4)
+        for got, want in ((h, h_ref), (b, b_ref), (damped, d_ref), (rhs, r_ref)):
+            torch.testing.assert_close(got, want, rtol=0, atol=1e-4 * max(1.0, float(want.abs().max())), msg=name)
+        torch.testing.assert_close(chi2, c_ref, rtol=1e-4, atol=1e-6, msg=name)  # a fitted graph's is rounding
+
+
+@pytest.mark.gpu
+def test_lm_iteration_launches_on_the_card(cuda):
+    """An unsharded LM iteration launches two hand kernels around the library
+    solve (K15's damped system, then `lm_step`), where the earlier kernels
+    launched 13; `_chi2_and_normal` is one launch in each mode."""
+    cs = _chip_smoke()
+    g = pose_graph.to_device(_lm_graph(), cuda)
+    chi2_0, _, _ = pose_graph._chi2_and_normal(g, g.poses, False, g.planes)
+    st = pose_graph.LMState(g, chi2_0)
+    assert cs.hand_launches(torch, lambda: pose_graph._lm_iteration(g, st, 64)) == ["normal_cluster", "lm_step"]
+    for fn in (lambda: pose_graph._chi2_and_normal(g, g.poses, True),
+               lambda: pose_graph._chi2_and_normal(g, g.poses, False),
+               lambda: pose_graph._damped_system(g, g.poses, g.planes, 1e-4)):
+        assert cs.hand_launches(torch, fn) == ["normal_cluster"]
+
+
+@pytest.mark.gpu
+def test_lm_cases_on_the_card(cuda):
+    """chip_smoke's `lm_cases` (a failed Cholesky, a NaN delta, done in the
+    middle of a group, node 0 with fixed nodes and a fixed plane, empty and
+    invalid families, more variables than the cluster's warps,
+    num_iterations 1) against the twin on the card, as phase 2i runs them."""
+    cs = _chip_smoke()
+    records = cs.check_lm_cases(torch, cuda)
+    assert tuple(records) == cs.LM_CASE_NAMES
+    print({name: (r["iterations"], r["twin_iterations"]) for name, r in records.items()})
+
+
+@pytest.mark.gpu
 def test_mesh_of_one_rank_equals_the_unsharded_port_on_the_card(cuda, scans, tmp_path):
     """An NCCL world of one rank, mesh (1, 1): the sharded align of three
     guesses (the coarse phase on, K6L and K7 with the all-reduce between)

@@ -441,3 +441,80 @@ def test_lm_device_loop_equals_the_host_loop(monkeypatch, which, num_iterations)
     np.testing.assert_allclose(float(got.chi2_after), float(want.chi2_after), rtol=1e-3, atol=1e-6)
     np.testing.assert_allclose(got.poses.numpy()[:n], np.asarray(want.poses)[:n], rtol=0, atol=1e-3)
     np.testing.assert_allclose(got.planes.numpy(), np.asarray(want.planes), rtol=0, atol=1e-4)
+
+
+# ------------------------------------------------------------ the LM's damped system
+
+
+def _bucketed_graph(seed: int = 4):
+    """The graph as the backend's `_active_graph` slices it on the flagship
+    circle: 32 node slots with 19 keyframes on a noisy chain (Huber on, one
+    loop), 32 edge slots, and 8 prior, 8 SE3-plane and 16 plane-plane slots,
+    all invalid, beside 8 invalid plane slots."""
+    rng = np.random.default_rng(seed)
+    n = 19
+    gt = [np.eye(4)]
+    for _ in range(1, n):
+        gt.append(gt[-1] @ _exp(np.r_[rng.normal(0, 2.0, 3), rng.normal(0, 0.1, 3)]))
+    g = jpg.empty_graph(32, 32, 8, 8, 8, 16)
+    info = np.diag([2.0] * 3 + [10.0] * 3).astype(np.float32)
+    for i in range(n):
+        jpg.add_node(g, i, gt[i] @ _exp(rng.normal(0, 0.05, 6)))
+    for i in range(1, n):
+        meas = np.linalg.inv(gt[i]) @ gt[i - 1] @ _exp(rng.normal(0, 0.02, 6))
+        jpg.add_se3_edge(g, i - 1, i, i - 1, meas, info, huber=1.0)
+    jpg.add_se3_edge(g, n - 1, n - 1, 0, np.linalg.inv(gt[n - 1]) @ gt[0] @ _exp(rng.normal(0, 0.05, 6)), info,
+                     huber=1.0)
+    return g
+
+
+@pytest.mark.parametrize("which", ["bucketed", "every_factor"])
+def test_damped_system_against_jax(which):
+    """The twin's damped system and right-hand side (`_damped_system`, which
+    routes a CPU graph to `_damped_system_ref`) against JAX's
+    `_chi2_and_normal`, `_apply_gauge` and the LM loop's damping
+    (`lv_slam_tpu/graph/pose_graph.py:240`, `:360`, `:394`), at lambda 1e-4
+    and 3: the backend's bucketed graph (invalid prior, SE3-plane and plane
+    slots) and a graph holding every family with a fixed floor plane, to
+    1e-5 of their scale as `test_chi2_and_normal` holds H and b."""
+    g = _bucketed_graph() if which == "bucketed" else _every_factor_graph()
+    jg = jax.tree_util.tree_map(jnp.asarray, g)
+    _, h, b = jax.jit(lambda g: jpg._chi2_and_normal(g, g.poses, g.planes, True))(jg)
+    h, b = jpg._apply_gauge(h, b, jg)
+    tg = pose_graph_from_numpy(g, "cpu")
+    for lam in (1e-4, 3.0):
+        want = np.asarray(h + jnp.float32(lam) * jnp.diag(jnp.maximum(jnp.diag(h), 1e-6)))
+        damped, rhs = tpg._damped_system(tg, tg.poses, tg.planes, lam)
+        assert damped.shape == want.shape == (tpg._n_dofs(tg),) * 2
+        np.testing.assert_allclose(damped.numpy(), want, rtol=1e-5, atol=1e-5 * np.abs(want).max())
+        np.testing.assert_allclose(rhs.numpy(), -np.asarray(b), rtol=1e-5, atol=1e-5 * np.abs(np.asarray(b)).max())
+
+
+@pytest.mark.parametrize("which", ["bucketed", "every_factor", "chain"])
+def test_damped_system_ref_is_the_twins_gauge_and_damping(which):
+    """`_damped_system_ref` is bit for bit the twin's H and b through
+    `_apply_gauge` and the damping as `_lm_iteration_ref` forms them
+    (h + lam diag(clamp(diag h, 1e-6)), -b), at the graph's own poses and at
+    moved ones, for a float and a tensor lambda."""
+    g = {"bucketed": _bucketed_graph, "every_factor": _every_factor_graph, "chain": _graph}[which]()
+    tg = pose_graph_from_numpy(g, "cpu")
+    moved = tse3.exp_se3(torch.full((tg.node_cap, 6), 0.01)) @ tg.poses
+    for poses in (tg.poses, moved):
+        for lam in (1e-4, torch.tensor(0.25)):
+            _, h, b = tpg._chi2_and_normal_ref(tg, poses, True, tg.planes)
+            h, b = tpg._apply_gauge(h, b, tg)
+            want = h + lam * torch.diag(torch.clamp(torch.diagonal(h), min=1e-6))
+            damped, rhs = tpg._damped_system_ref(tg, poses, tg.planes, lam)
+            assert torch.equal(damped.view(torch.int32), want.view(torch.int32))
+            assert torch.equal(rhs.view(torch.int32), (-b).view(torch.int32))
+
+
+def test_optimize_the_bucketed_graph():
+    """The backend's bucketed graph through both LMs: poses to 1e-3, chi2 to
+    1e-3 relative, as `test_optimize_with_priors_and_planes` holds them."""
+    g = _bucketed_graph()
+    want = jax.jit(jpg.optimize_pose_graph, static_argnums=(1,))(jax.tree_util.tree_map(jnp.asarray, g), 64)
+    got = tpg.optimize_pose_graph(tpg.PoseGraph(*g), 64, device="cpu")
+    np.testing.assert_allclose(float(got.chi2_before), float(want.chi2_before), rtol=1e-5)
+    np.testing.assert_allclose(float(got.chi2_after), float(want.chi2_after), rtol=1e-3, atol=1e-6)
+    np.testing.assert_allclose(got.poses.numpy()[:19], np.asarray(want.poses)[:19], rtol=0, atol=1e-3)
