@@ -185,10 +185,17 @@ Phases, each of which raises on failure:
    within 1e-2 and `dryrun_multichip(1)`.
 
 Phase 2 holds every kernel, those of the backend too (2c: the window dedup
-K1b/K2, the batched NDT pass K13, the centroid grid K14 and the pose-graph
-normal equations K15; 2d: ORB K12 on four keyframe images of the circle,
-one C call with no synchronizing call and no device work but its own (no
-torch.topk), bit for bit against its twin on the card and on a CPU copy,
+K1b/K2, the batched NDT pass K13, the centroid grid K14, one C call with
+no synchronizing call and no device work but its own, `torch.sort` of the
+twin's keys timed beside it, and on `grid_cases` (an empty and an
+all-masked cloud, leaf_cap below the runs, points an ulp either side of
+cell faces, cells at the 1024 extent's edges, one cell holding every
+point, sentinel lanes among real points) with its column probe's queries
+bit for bit, and the pose-graph normal equations K15; 2b: the LFA's
+kernels, K9b's crop of both tables in one launch (gate open, closed and
+absent, and `crop_cases`) among them; 2d: ORB K12 on four keyframe images
+of the circle, one C call with no synchronizing call and no device work
+but its own (no torch.topk), bit for bit against its twin on the card and on a CPU copy,
 there and on `orb_cases` (ties at the cut, a blank image, noise, a plateau
 of equal scores past the select's shared memory, batches of 1 and 32, an
 image whose k nears h x w), `torch.topk` of the twin's keys timed beside
@@ -335,14 +342,14 @@ DEVICE_FUNCTIONS = {
     "ndt_derivatives_hash": ("ndt_partials", "ndt_finish"),
     "extract_features": ("fill_best", "project", "select_sector"),
     "insert_cell_table": ("insert_cluster", "insert_keys", "insert_keep", "insert_place"),
-    "crop_cell_table": ("crop",),
+    "crop_cell_table": ("crop_tables",),
     "lines_from_fit": ("lines",),
     "planes_from_fit": ("planes",),
     "gn_solve": ("gn_cluster",),
     "voxel_dedup_first": ("voxel_ranges", "voxel_keys", "key_sort_pass", "dedup_runs"),
     "window_group_filtered_fn": ("window_ranges", "voxel_keys", "key_sort_pass", "dedup_runs"),
     "_fused_verify_fn": ("ndt_partials", "ndt_finish"),
-    "build_centroid_grid": ("grid_mark", "grid_reduce"),
+    "build_centroid_grid": ("grid_ranges", "grid_keys", "key_sort_pass", "grid_runs"),
     "nn_sq_dists": ("grid_query", "grid_finish"),
     "_chi2_and_normal": ("normal_cluster",),
     "_detect_pyramid_batch": ("orb_level0", "orb_halve", "orb_pixels", "orb_keys", "orb_select", "orb_describe"),
@@ -576,14 +583,16 @@ def on_cpu(cloud):
     return PointCloud(cloud.xyz.cpu(), cloud.intensity.cpu(), cloud.mask.cpu())
 
 
-def on_copies(table, fn):
+def on_copies(tables, fn):
     """A `device_ms` callable that runs `fn` on its own copy of the cell
-    table `table` at each call, so every timed call does the same work. The
-    copies are made here, before the timing."""
+    table `tables` (or of each of a tuple of them) at each call, so every
+    timed call does the same work. The copies, enough for `device_ms`'s five
+    traces, are made here, before the timing."""
     from lv_slam_tpu_torch.ops.knn import CellTable
 
-    copies = iter([CellTable(table.table.clone(), table.cell_size) for _ in range(WARM + REPS)])
-    return lambda: fn(next(copies))
+    tables = (tables,) if isinstance(tables, CellTable) else tables
+    copies = iter([[CellTable(t.table.clone(), t.cell_size) for t in tables] for _ in range(WARM + 5 * REPS)])
+    return lambda: fn(*next(copies))
 
 
 def timed(torch, name, kernel_fn, plain_fn, err, n_bytes, n_ops, what=""):
@@ -842,6 +851,189 @@ def check_map_cases(torch, dev):
         got = voxel_map.VoxelMap(*(t.cpu() if isinstance(t, torch.Tensor) else t for t in got[0]))
         map_agrees(torch, f"build_voxel_map ({name}, CPU twin)", got, voxel_map.build_voxel_map_ref(cpu, res, **kw),
                    voxel_map.leaf_eigen_ratio(cpu, res, leaf_cap, e))
+    return len(cases)
+
+
+GRID_LANES = 1 << 14  # K14's edge cases
+GRID_RES = 0.25       # the fitness grid's cells
+GRID_CASE_NAMES = ("empty cloud (every lane the sentinel)", "every lane masked", "leaf_cap below the runs",
+                   "one ulp either side of cell faces", "cells at the 1024 extent's edges", "one cell holding every point",
+                   "sentinel lanes among real points")
+
+
+def _extent_edges(rng, n: int, res: float) -> tuple:
+    """(points, queries): lanes in cells whose coordinates relative to the
+    masked minimum are 0, 1, 1022, 1023 on every axis (and a few at 1024, out
+    of the extent), so that the flat keys of (x, y, 1023) and (x, y + 1, 0)
+    are neighbours; queries in and around those cells."""
+    origin = np.array([-300, 37, -5])
+    edge = np.array([0, 1, 1022, 1023])
+    cells = np.stack(np.meshgrid(edge, edge, edge, indexing="ij"), -1).reshape(-1, 3)
+    cells = np.concatenate([cells, [[1024, 5, 5], [5, 1024, 5], [5, 5, 1024], [512, 512, 512]]])
+    pick = cells[rng.integers(0, len(cells), n)]
+    pick[: len(cells)] = cells  # every cell holds at least one lane
+    pts = ((origin + pick) + rng.uniform(0.1, 0.9, (n, 3))) * res
+    near = cells[rng.integers(0, len(cells), n)] + rng.integers(-1, 2, (n, 3))
+    queries = ((origin + near) + rng.uniform(0.05, 0.95, (n, 3))) * res
+    return pts.astype(np.float32), queries.astype(np.float32)
+
+
+def grid_cases(seed: int = SEED):
+    """Kernel 14's edge cases as numpy arrays: (name, points (n, 3), mask
+    (n,), leaf_cap, queries (n, 3), query mask (n,)) on the 0.25 m grid. An
+    empty cloud (every lane masked at the sentinel) and real points all
+    masked (origin 0, no leaf); ~15000 cells into a leaf_cap of 2048; points
+    on the cell faces and one ulp either side (not at 0, where XLA's CPU code
+    flushes subnormals); cells at 0, 1, 1022 and 1023 of the 1024 extent on
+    each axis and at 1024 (dropped), queried in and around them, so that
+    column searches meet z = 0 and z = 1023; one cell holding all 16384
+    lanes (one run across 16 tiles); half the lanes masked at the sentinel
+    among real points, which must not move the origin. Queries are the
+    cloud's points moved by ~0.15 m, and a scene's for the empty grids."""
+    rng = np.random.default_rng(seed)
+    n, res = GRID_LANES, GRID_RES
+    scene = _blobs(rng, n, 40.0, spread=0.6)
+    jitter = (scene + rng.normal(0.0, 0.15, (n, 3))).astype(np.float32)
+    every = np.ones(n, bool)
+    sentinel = np.full((n, 3), SENTINEL_XYZ, np.float32)
+    out = [("empty cloud (every lane the sentinel)", sentinel, np.zeros(n, bool), 4096, jitter, every),
+           ("every lane masked", scene, np.zeros(n, bool), 4096, jitter, every),
+           ("leaf_cap below the runs", scene, every, 2048, jitter, rng.random(n) >= 0.1)]
+    base = scene[rng.choice(n, n // 4, replace=False)]
+    faces = (np.round(base / res) * res).astype(np.float32)
+    faces = np.where(faces == 0, np.float32(res), faces)
+    ulps = np.concatenate([faces, np.nextafter(faces, np.float32(np.inf)), np.nextafter(faces, np.float32(-np.inf)),
+                           scene[: n - 3 * len(faces)]])
+    out.append(("one ulp either side of cell faces", ulps, every, 8192, ulps[rng.permutation(n)], every))
+    edges, near = _extent_edges(rng, n, res)
+    out.append(("cells at the 1024 extent's edges", edges, every, 4096, near, every))
+    one = ((np.array([-41, 7, 3]) + rng.uniform(0.02, 0.98, (n, 3))) * res).astype(np.float32)
+    out.append(("one cell holding every point", one, every, 16, (one + rng.normal(0.0, 0.2, (n, 3))).astype(np.float32),
+                every))
+    half = rng.random(n) >= 0.5
+    mixed = np.where(half[:, None], scene, sentinel).astype(np.float32)
+    out.append(("sentinel lanes among real points", mixed, half, 8192, jitter, every))
+    assert tuple(name for name, *_ in out) == GRID_CASE_NAMES
+    return out
+
+
+def grid_agrees(torch, what: str, got, want) -> float:
+    """Kernel 14's grid `got` against a twin's `want`: keys, counts and
+    origin identical, centroids of occupied leaves within 1e-6 relative (the
+    twin's segment sums may run in another order), the rest identical.
+    Returns the centroids' largest relative error."""
+    for field in ("keys", "counts", "origin_cell"):
+        if not torch.equal(getattr(got, field), getattr(want, field)):
+            raise AssertionError(f"{what}: {field} differs")
+    v = want.counts > 0
+    if not torch.equal(got.centroids[~v], want.centroids[~v]):
+        raise AssertionError(f"{what}: the padding leaves' centroids differ")
+    if not bool(v.any()):
+        return 0.0
+    err = float(((got.centroids[v] - want.centroids[v]).abs() / want.centroids[v].abs().clamp(min=1.0)).max())
+    if err > 1e-6:
+        raise AssertionError(f"{what}: centroid error {err} > 1e-6")
+    return err
+
+
+def check_grid_cases(torch, dev):
+    """K14 (`build_centroid_grid`) on every case of `grid_cases`, one launch
+    and no synchronizing call each, against its twin on the card and run on
+    a CPU copy (`grid_agrees`); then on the kernel's grid the query kernels
+    against their twins on the card: `nn_sq_dists` (hit set and d2
+    bit-identical), `nn_points` (d2, match and validity bit-identical), and
+    K18's radius removal of the case's cloud (mask identical). Returns the
+    number of cases."""
+    from lv_slam_tpu_torch.core.cloud import PointCloud
+    from lv_slam_tpu_torch.kernels import KERNELS
+    from lv_slam_tpu_torch.ops import nn
+
+    def bits(t):
+        return t.view(torch.int32) if t.dtype == torch.float32 else t
+
+    cases = grid_cases()
+    for name, pts, mask, leaf_cap, queries, qmask in cases:
+        cpu = PointCloud(torch.from_numpy(pts), torch.zeros(len(pts)), torch.from_numpy(mask))
+        card = PointCloud(cpu.xyz.to(dev), cpu.intensity.to(dev), cpu.mask.to(dev))
+        before = KERNELS["build_centroid_grid"].launches
+        got = []
+        syncs = count_syncs(torch, lambda: got.append(nn.build_centroid_grid(card, GRID_RES, leaf_cap)))
+        torch.cuda.synchronize()
+        if KERNELS["build_centroid_grid"].launches != before + 1 or syncs:
+            raise AssertionError(f"build_centroid_grid ({name}): {KERNELS['build_centroid_grid'].launches - before} "
+                                 f"launches, {syncs} synchronizing calls")
+        grid = got[0]
+        grid_agrees(torch, f"build_centroid_grid ({name})", grid, nn.build_centroid_grid_ref(card, GRID_RES, leaf_cap))
+        grid_agrees(torch, f"build_centroid_grid ({name}, CPU twin)",
+                    nn.CentroidGrid(*(t.cpu() if isinstance(t, torch.Tensor) else t for t in grid)),
+                    nn.build_centroid_grid_ref(cpu, GRID_RES, leaf_cap))
+        q = PointCloud(torch.from_numpy(queries).to(dev), torch.zeros(len(queries), device=dev),
+                       torch.from_numpy(qmask).to(dev))
+        y, m = q.masked_xyz(), q.mask
+        d2, d2_ref = nn.nn_sq_dists(grid, y, m), nn.nn_sq_dists_ref(grid, y, m)
+        if not torch.equal(bits(d2), bits(d2_ref)):
+            raise AssertionError(f"nn_sq_dists ({name}): d2 or the hit set differs from the plain version")
+        for a, b in zip(nn.nn_points(grid, y, m), nn.nn_points_ref(grid, y, m)):
+            if not torch.equal(bits(a), bits(b)):
+                raise AssertionError(f"nn_points ({name}): distances, matches or validity differ")
+        kept = nn.radius_outlier_removal(card, GRID_RES, 3)
+        if not torch.equal(kept.mask, nn.radius_outlier_removal_ref(card, GRID_RES, 3).mask):
+            raise AssertionError(f"radius_outlier_removal ({name}): the mask differs from the plain version")
+    return len(cases)
+
+
+def crop_cases():
+    """Kernel 9b's two-table crop cases: (name, center, last center or
+    None, interval, radius) on `crop_tables`' seeded tables (an edge table
+    of 2^12 x 6 and a surf table of 2^13 x 6 slots, ~60% valid, points
+    within +-60 m, flags 0 or 1): the gate open (moved past the interval),
+    closed (not moved far enough) and absent (`crop_interval` 0), and a
+    radius past every point."""
+    c = np.array([3.0, -2.0, 0.5], np.float32)
+    return [("gate open", c, c + np.float32(40.0), 10.0, 25.0),
+            ("gate closed", c, c + np.float32(4.0), 10.0, 25.0),
+            ("no gate (crop_interval 0)", c, None, 0.0, 25.0),
+            ("radius past every point", c, c + np.float32(40.0), 10.0, 500.0)]
+
+
+def crop_tables(torch, dev, seed: int = SEED):
+    """(edge, surf) seeded cell tables for `crop_cases` on `dev`."""
+    from lv_slam_tpu_torch.ops import knn
+
+    rng = np.random.default_rng(seed)
+    out = []
+    for buckets in (1 << 12, 1 << 13):
+        slots = rng.uniform(-60.0, 60.0, (buckets * 6, 4)).astype(np.float32)
+        slots[:, 3] = (rng.random(buckets * 6) < 0.6).astype(np.float32)
+        out.append(knn.CellTable(torch.from_numpy(slots.reshape(buckets, 24)).to(dev), 2.0))
+    return out
+
+
+def check_crop_cases(torch, dev):
+    """K9b's two-table crop (`crop_cell_tables_`, one launch) on every case
+    of `crop_cases`, both tables and the returned center bit-identical to
+    the twin's two single-table crops; returns the number of cases."""
+    from lv_slam_tpu_torch.kernels import KERNELS
+    from lv_slam_tpu_torch.ops import knn
+
+    edge, surf = crop_tables(torch, dev)
+    cases = crop_cases()
+    for name, center, last, interval, radius in cases:
+        c = torch.from_numpy(center).to(dev)
+        lc = torch.from_numpy(last).to(dev) if last is not None else None
+        got = [knn.CellTable(t.table.clone(), t.cell_size) for t in (edge, surf)]
+        want = [knn.CellTable(t.table.clone(), t.cell_size) for t in (edge, surf)]
+        before = KERNELS["crop_cell_table"].launches
+        out = []
+        syncs = count_syncs(torch, lambda: out.append(knn.crop_cell_tables_(*got, c, radius, lc, interval)))
+        ref = knn.crop_cell_tables_ref_(*want, c, radius, lc, interval)
+        torch.cuda.synchronize()
+        if KERNELS["crop_cell_table"].launches != before + 1 or syncs:
+            raise AssertionError(f"crop_cell_tables_ ({name}): {KERNELS['crop_cell_table'].launches - before} "
+                                 f"launches, {syncs} synchronizing calls")
+        for a, b in [(out[0], ref)] + [(g.table, w.table) for g, w in zip(got, want)]:
+            if not torch.equal(a.view(torch.int32), b.view(torch.int32)):
+                raise AssertionError(f"crop_cell_tables_ ({name}): a table or the crop center differs")
     return len(cases)
 
 
@@ -1701,24 +1893,48 @@ def check_lfa_kernels(torch, scans, gt, dev):
         what=f" over the cap ({pts45.shape[0]} rows)",
     )
 
-    # kernel 9b: crop the surf map around scan 4's pose, gate open
+    # kernel 9b: crop both maps around scan 4's pose in one launch, as the
+    # LFA step does: gate open (moved past the interval), closed, absent
     center = poses[4][:3, 3].contiguous()
     last = center + 1e6
-    crop_k = knn.CellTable(surf.table.clone(), surf.cell_size)
-    crop_p = knn.CellTable(surf.table.clone(), surf.cell_size)
-    ck = knn.crop_cell_table_(crop_k, center, cfg.crop_radius, last, cfg.crop_interval)
-    cp = knn.crop_cell_table_ref_(crop_p, center, cfg.crop_radius, last, cfg.crop_interval)
-    if not identical((ck, crop_k.table), (cp, crop_p.table)):
-        raise AssertionError("crop_cell_table: table or crop center differs from the plain version")
-    n_dropped = n_stored[1] - stored(crop_k)
-    log(f"  crop_cell_table: {stored(crop_k)} of {n_stored[1]} surf points within {cfg.crop_radius} m, "
-        f"table and crop center bit-identical")
-    # bytes it must move: one read of the table and the centers, one 4-byte
-    # flag per slot it frees, the new crop center
-    k9b = on_copies(surf, lambda t: knn.crop_cell_table_(t, center, cfg.crop_radius, last, cfg.crop_interval))
-    p9b = on_copies(surf, lambda t: knn.crop_cell_table_ref_(t, center, cfg.crop_radius, last, cfg.crop_interval))
+    for what, lc, interval in (("gate open", last, cfg.crop_interval), ("gate closed", center + 0.5 * cfg.crop_interval,
+                                                                      cfg.crop_interval), ("no gate", None, 0.0)):
+        got_t = [knn.CellTable(t.table.clone(), t.cell_size) for t in (edge, surf)]
+        want_t = [knn.CellTable(t.table.clone(), t.cell_size) for t in (edge, surf)]
+        ck = knn.crop_cell_tables_(*got_t, center, cfg.crop_radius, lc, interval)
+        cp = knn.crop_cell_tables_ref_(*want_t, center, cfg.crop_radius, lc, interval)
+        if not identical((ck, got_t[0].table, got_t[1].table), (cp, want_t[0].table, want_t[1].table)):
+            raise AssertionError(f"crop_cell_tables_ ({what}): a table or the crop center differs from the plain "
+                                 f"version")
+        if what == "gate open":
+            n_dropped = [n - stored(t) for n, t in zip(n_stored, got_t)]
+            log(f"  crop_cell_tables_ ({what}): {stored(got_t[0])} of {n_stored[0]} edge and {stored(got_t[1])} of "
+                f"{n_stored[1]} surf points within {cfg.crop_radius} m, both tables and the crop center bit-identical")
+        else:
+            log(f"  crop_cell_tables_ ({what}): both tables and the crop center bit-identical")
+    n_cases = check_crop_cases(torch, dev)
+    log(f"  crop_cell_tables_: the {n_cases} crop_cases bit-identical to the twin, one launch each")
+    # bytes it must move: one read of both tables and the centers, one 4-byte
+    # flag per slot it frees, the new crop center; gate closed, the centers
+    k9b = on_copies((edge, surf), lambda e, s: knn.crop_cell_tables_(e, s, center, cfg.crop_radius, last,
+                                                                      cfg.crop_interval))
+    p9b = on_copies((edge, surf), lambda e, s: knn.crop_cell_tables_ref_(e, s, center, cfg.crop_radius, last,
+                                                                          cfg.crop_interval))
     measure(torch, records, "crop_cell_table", k9b, p9b, 0.0,
-            nbytes(surf.table, center, last) + 4 * n_dropped + 12, 10 * surf.table.numel() // 4)
+            nbytes(edge.table, surf.table, center, last) + 4 * sum(n_dropped) + 12,
+            10 * (edge.table.numel() + surf.table.numel()) // 4)
+    near = center + 0.5 * cfg.crop_interval
+    records["crop_cell_table"]["gate_closed"] = timed(
+        torch, "crop_cell_table",
+        lambda: knn.crop_cell_tables_(edge, surf, center, cfg.crop_radius, near, cfg.crop_interval),
+        lambda: knn.crop_cell_tables_ref_(edge, surf, center, cfg.crop_radius, near, cfg.crop_interval), 0.0,
+        nbytes(center, near) + 12, 10, what=" (both tables, gate closed)")
+    records["crop_cell_table"]["surf_only"] = timed(
+        torch, "crop_cell_table",
+        on_copies(surf, lambda t: knn.crop_cell_table_(t, center, cfg.crop_radius, last, cfg.crop_interval)),
+        on_copies(surf, lambda t: knn.crop_cell_table_ref_(t, center, cfg.crop_radius, last, cfg.crop_interval)), 0.0,
+        nbytes(surf.table, center, last) + 4 * n_dropped[1] + 12, 10 * surf.table.numel() // 4,
+        what=" (the surf table alone, gate open)")
 
     # kernel 10: scan 4's features at its true pose against the maps
     f4 = feats[4]
@@ -2003,16 +2219,21 @@ def check_backend_kernels(torch, scans, gt, dev):
     k14 = lambda: nn.build_centroid_grid(keyframe, 0.25)  # noqa: E731
     p14 = lambda: nn.build_centroid_grid_ref(keyframe, 0.25)  # noqa: E731
     grid, want = k14(), p14()
-    if not (torch.equal(grid.keys, want.keys) and torch.equal(grid.counts, want.counts)):
-        raise AssertionError("build_centroid_grid: keys or counts differ from the plain version")
+    err = grid_agrees(torch, "build_centroid_grid", grid, want)
     v = want.counts > 0
-    err = float(((grid.centroids[v] - want.centroids[v]).abs() / want.centroids[v].abs().clamp(min=1.0)).max())
-    if err > 1e-6:
-        raise AssertionError(f"build_centroid_grid: centroid error {err} > 1e-6")
-    log(f"  build_centroid_grid: {n_kept} points -> {int(v.sum())} of {grid.keys.shape[0]} leaves, keys and "
-        f"counts identical, centroids within {err:.3g} (tol 1e-6 relative)")
+    n_launches = one_call("build_centroid_grid", k14)
+    n_cases = check_grid_cases(torch, dev)
+    log(f"  build_centroid_grid: {n_kept} points -> {int(v.sum())} of {grid.keys.shape[0]} leaves, keys, counts and "
+        f"origin identical, centroids within {err:.3g} (tol 1e-6 relative); {n_launches} launches of its own, no "
+        f"other device work, no synchronizing call; the {n_cases} grid_cases agree with the card's twin and the CPU "
+        f"twin, one launch each, their queries (nn_sq_dists, nn_points, the radius removal) bit for bit")
     measure(torch, records, "build_centroid_grid", k14, p14, err,
             nbytes(keyframe.xyz, keyframe.mask, grid.keys, grid.centroids, grid.counts), 4 * n_kept)
+    # the glue the kernel's own sort replaced: torch.sort of the twin's int32 flat keys
+    key14, _, _ = nn._grid_keys(keyframe, 0.25)
+    _, sort14_ms, _ = device_ms(torch, lambda: torch.sort(key14, stable=True))
+    records["build_centroid_grid"]["torch_sort_ms"] = sort14_ms
+    log(f"    torch.sort(stable=True) of the twin's {key14.numel()} int32 keys: {sort14_ms:.4f} ms device-only")
 
     batch = PointCloud(torch.stack([c.xyz for c in cands]), torch.stack([c.intensity for c in cands]),
                        torch.stack([c.mask for c in cands]))
@@ -2033,8 +2254,11 @@ def check_backend_kernels(torch, scans, gt, dev):
         f"{err_d2:.3g} (tol 1e-6 relative); fitness of {len(cands)} candidates {fit.tolist()} within "
         f"{err_fit:.3g} (tol 1e-5 relative)")
     n_q = int(batch.mask.sum())
+    # operations per masked-in lane: 9 column searches (3 a step), 27 hit
+    # tests and distances (10 each), the move (~30)
+    steps = int(np.ceil(np.log2(grid.keys.shape[0] + 1)))
     measure(torch, records, "nn_sq_dists", kq, pq, err_fit,
-            nbytes(batch.xyz, batch.mask, guesses, grid.keys, grid.centroids, fit), 27 * 60 * n_q)
+            nbytes(batch.xyz, batch.mask, guesses, grid.keys, grid.centroids, fit), n_q * (9 * 3 * steps + 27 * 10 + 30))
 
     # kernel 15: 64 keyframes (every other pose of the circle, 0.05 m / 0.01
     # rad of noise), 63 odometry edges and loops from the last 16 to the first
@@ -2956,6 +3180,54 @@ def log_kernels(top) -> None:
             log(f"    {fn}: {t / 1e3:.3f} ms over {count} launches ({t / 1e3 / count:.4f} ms a launch)")
 
 
+# the device functions of K14's build and query, K17, K18 and K9b as a
+# trace names them; the build's `key_sort_pass` launches are shared with
+# K1, K1b, K2 and K3 and are not attributed
+TRACED_FAMILY = {
+    "K14 build": ("grid_ranges", "grid_keys", "grid_runs"), "K14 query": ("grid_query", "grid_finish"),
+    "K17": ("nn_points_kernel", "icp_match", "icp_means", "icp_cov", "icp_update"), "K18 radius": ("outlier_radius",),
+    "K18 statistical": ("stat_dist", "stat_mean", "stat_var", "stat_thresh", "stat_keep"), "K9b": ("crop_tables",),
+}
+
+
+def device_rows(torch, events) -> list:
+    """A profile's (device us, name, launches) rows, largest first."""
+    attr = "self_device_time_total" if hasattr(torch.autograd.profiler_util.FunctionEventAvg(),
+                                               "self_device_time_total") else "self_cuda_time_total"
+    return sorted(((getattr(e, attr), e.key, e.count) for e in events
+                   if e.device_type == torch.autograd.DeviceType.CUDA), reverse=True)
+
+
+def trace_rows(torch, fn) -> list:
+    """`device_rows` of one traced call of `fn`."""
+    from torch.profiler import ProfilerActivity, profile as torch_profile
+
+    with torch_profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return device_rows(torch, prof.key_averages())
+
+
+def traced_family(rows) -> dict:
+    """{kernel: {ms, launches}} of TRACED_FAMILY's device functions in a
+    profile's rows (device launches: a K14 build is three, its four passes
+    aside), and the library's onesweep launches."""
+    out = {}
+    for name, fns in TRACED_FAMILY.items():
+        hit = [(t, c) for t, key, c in rows if any(_is_function(key, f) for f in fns)]
+        if hit:
+            out[name] = dict(ms=sum(t for t, _ in hit) / 1e3, launches=sum(c for _, c in hit))
+    out["onesweep_launches"] = sum(c for _, key, c in rows if "DeviceRadixSortOnesweepKernel" in key)
+    return out
+
+
+def log_family(what: str, family: dict) -> None:
+    parts = [f"{k} {v['ms']:.4f} ms over {v['launches']} device launches" for k, v in family.items()
+             if isinstance(v, dict)]
+    log(f"  traced {what}: {'; '.join(parts) or 'no K14 / K17 / K18 / K9b launch'}; library onesweep launches "
+        f"{family['onesweep_launches']}")
+
+
 def is_hand_kernel(key: str) -> bool:
     """Whether a profiler kernel name is one of csrc/'s: their kernels sit in
     top-level anonymous namespaces or in lvs::, PyTorch's under at:: or c10::."""
@@ -2968,24 +3240,26 @@ def hand_launches(torch, fn, functions=None, reps: int = 5) -> list:
     DEVICE_FUNCTIONS; names demangled or not) that one call of `fn`
     launches on the card, in launch order: the shape most of `reps` calls
     take in a torch.profiler trace, a marker between calls (`whole_calls`:
-    a trace may lack records)."""
+    a trace may lack records); a trace with no whole call is taken again,
+    five times at most."""
     from torch.profiler import ProfilerActivity, profile as torch_profile
 
     functions = sorted(functions or {f for fs in DEVICE_FUNCTIONS.values() for f in fs})
     fn()
     torch.cuda.synchronize()
-    with torch_profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
+    for _ in range(5):
+        with torch_profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                torch.cuda._sleep(1000)
+                fn()
             torch.cuda._sleep(1000)
-            fn()
-        torch.cuda._sleep(1000)
-        torch.cuda.synchronize()
-    names = [e.name for e in sorted((e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA),
-                                    key=lambda e: e.time_range.start)]
-    calls = whole_calls(names)
-    if not calls:
-        raise AssertionError("hand_launches: no whole call in the trace")
-    return [f for i in calls[0] for f in functions if _is_function(names[i], f)]
+            torch.cuda.synchronize()
+        names = [e.name for e in sorted((e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA),
+                                        key=lambda e: e.time_range.start)]
+        calls = whole_calls(names)
+        if calls:
+            return [f for i in calls[0] for f in functions if _is_function(names[i], f)]
+    raise AssertionError("hand_launches: five traces held no whole call")
 
 
 # ----------------------------------------------------------------- phase 4
@@ -3306,10 +3580,8 @@ def run_full_path(torch, scans, gt, dev, card):
         run_full(torch, xyz, mask, stamps, inten, cfg, make_backend(dev, asynchronous=True))
         torch.cuda.synchronize()
     events = prof.key_averages()
-    attr = "self_device_time_total" if hasattr(torch.autograd.profiler_util.FunctionEventAvg(),
-                                               "self_device_time_total") else "self_cuda_time_total"
-    kernels = sorted(((getattr(e, attr), e.key, e.count) for e in events
-                      if e.device_type == torch.autograd.DeviceType.CUDA), reverse=True)
+    attr = "self_device_time_total" if hasattr(events[0], "self_device_time_total") else "self_cuda_time_total"
+    kernels = device_rows(torch, events)
     busy_us = sum(t for t, _, _ in kernels)
     CACHE.mkdir(parents=True, exist_ok=True)
     (CACHE / "profile_full.txt").write_text(events.table(sort_by=attr, row_limit=200))
@@ -3322,11 +3594,13 @@ def run_full_path(torch, scans, gt, dev, card):
            for kind in ("Onesweep", "Histogram", "ExclusiveSum")}
     log(f"  library radix-sort launches on the {n}-scan pass: onesweep {cub['Onesweep']}, histogram "
         f"{cub['Histogram']}, exclusive sum {cub['ExclusiveSum']}")
+    family = traced_family(kernels)
+    log_family(f"on the {n}-scan pass", family)
     summary = dict(
         scans_per_s=n / elapsed, devkit_t_err=t_err, drift_m=drift, keyframes=len(graph.keyframes),
         n_loops=len(loops), loops=loops, loop_rejections=stats, backend_phase_ms_per_scan=phase_ms,
         syncs_per_scan=syncs / n, idle_share=idle, peak_mib=peak / 2**20, busy_ms=busy_us / 1e3,
-        cub_sort_launches=cub, lm_solve_ms=solve_ms, lm_solve_dofs=int(damped.shape[0]),
+        cub_sort_launches=cub, traced_k14_k17_k18_k9b=family, lm_solve_ms=solve_ms, lm_solve_dofs=int(damped.shape[0]),
         lm_iterations=[int(r.iterations) for _, _, r in solves],
     )
     return summary, launches
@@ -4419,10 +4693,10 @@ def check_registration_kernels(torch, scans, gt, dev):
         raise AssertionError("the ICP iteration departs from its plain version")
     # bytes: the mask of every lane, the masked-in source points, each touched
     # leaf's key and centroid, the transforms; operations per masked-in lane:
-    # 27 binary searches (3 per step), 10 per probe's hit test and distance,
+    # 9 column searches (3 per step), 10 per cell's hit test and distance,
     # ~60 for the move, the sums and the centred second pass
     measure(torch, records, "nn_points", k17, p17, err, nbytes(mask, guess) + 12 * n_src + 16 * n_touched + 64,
-            n_src * (27 * 3 * steps + 27 * 10 + 60))
+            n_src * (9 * 3 * steps + 27 * 10 + 60))
 
     # kernel 18: both removals on the filtered target, one leaf per lane
     for name, args, ops in (("radius_outlier_removal", (pf.radius_radius, pf.radius_min_neighbors), 10),
@@ -4438,7 +4712,7 @@ def check_registration_kernels(torch, scans, gt, dev):
         # grid per masked-in point, the cloud out
         measure(torch, records, name, lambda k=kernel, a=args: k(target, *a), lambda p=plain, a=args: p(target, *a),
                 0.0, nbytes(target.mask, got.xyz, got.mask) + 20 * n_in,
-                n_in * (27 * 3 * int(np.ceil(np.log2(target.cap + 1))) + 27 * 3 + ops))
+                n_in * (9 * 3 * int(np.ceil(np.log2(target.cap + 1))) + 27 * 3 + ops))
 
     # kernel 0a: the calibration of the raw scan
     raw = PointCloud.from_numpy(scans[PAIR[0]], cap=pf.raw_cap, device=dev)
@@ -5447,8 +5721,10 @@ def run_factory(torch, scans, gt, dev, card):
             raise AssertionError(f"{method} misses tests/test_registrations.py's gates at KITTI density")
         if dev_twin > FACTORY_TOL[method]:
             raise AssertionError(f"{method}: the card's transform departs from the plain path's")
+        family = traced_family(trace_rows(torch, lambda: reg(target, source, guess)))
+        log_family(f"{method} align", family)
         summary[method] = dict(t_err_m=t_err, fitness=fitness, ms_per_align=float(np.median(walls)) * 1e3,
-                               vs_plain=dev_twin)
+                               vs_plain=dev_twin, traced=family)
     if launches["ICP"].get("nn_points", 0) != 41:
         raise AssertionError(f"ICP must launch K17 41 times (40 iterations and the fitness): {launches['ICP']}")
     if launches["GICP"].get("gicp_align", 0) != 20 or launches["GICP"].get("_plane_covariances", 0) != 21:
@@ -5488,6 +5764,9 @@ def run_ground_ndt(torch, scans, gt, dev, card):
     first_poses_vs_cpu(got[None].astype(np.float64), twin[None].astype(np.float64), "ground-NDT transform",
                        "on the card")
     return dict(t=got[:3, 3].tolist(), iterations=int(res.iterations), ms=elapsed * 1e3), launches
+
+
+TRACED_SCANS = 20  # phase 10c's traced prefilter calls
 
 
 def run_dlo_branches(torch, scans, gt, dev, card):
@@ -5545,8 +5824,11 @@ def run_dlo_branches(torch, scans, gt, dev, card):
         log(f"  {name}: keyframes {odo.stats.keyframe_count}, retries {odo.stats.retries}; lanes the removal dropped "
             f"per scan: mean {dropped.mean():.1f}, min {dropped.min()}, max {dropped.max()}; timed "
             f"{n - WARM_SCANS} scans in {elapsed:.3f} s = {(n - WARM_SCANS) / elapsed:.2f} scans/s ({card})")
+        family = traced_family(trace_rows(torch, lambda: [prefilter(cloud(i), pf) for i in range(TRACED_SCANS)]))
+        log_family(f"{name}: the prefilter of {TRACED_SCANS} scans", family)
         summary[name] = dict(scans_per_s=(n - WARM_SCANS) / elapsed, devkit_t_err=t_err, drift_m=drift,
-                             keyframes=odo.stats.keyframe_count, dropped_per_scan=float(dropped.mean()))
+                             keyframes=odo.stats.keyframe_count, dropped_per_scan=float(dropped.mean()),
+                             traced=family)
     return summary, launches
 
 
@@ -5961,7 +6243,7 @@ def main() -> int:
             **{extra: records[name][extra]
                for extra in ("cholesky_ms", "with_sensor_factors", "launches_by_phase", "over_cap", "standalone",
                              "torch_sort_ms", "torch_topk_ms", "rung_4m", "lm_step_ms", "hand_launches_per_iteration",
-                             "bound_earlier_count_ms")
+                             "bound_earlier_count_ms", "gate_closed", "surf_only")
                if extra in records[name]},
         )
         for name, k in KERNELS.items()

@@ -3,7 +3,8 @@
 // (9n).
 //
 // Replaces: lv_slam_tpu/ops/knn.py:139 `insert_cell_table`, :218
-// `crop_cell_table`, :93 `build_cell_table` and :264 `knn_cell`. A table is (B, S*4) float32:
+// `crop_cell_table` (both LFA tables in one launch), :93 `build_cell_table`
+// and :264 `knn_cell`. A table is (B, S*4) float32:
 // S slots of [x, y, z, valid]
 // per bucket; a 2 m cell hashes to bucket ((c0*H1) ^ (c1*H2) ^ (c2*H3)) mod B
 // in uint32 arithmetic (the reference's wrapping int32 products, taken as
@@ -11,9 +12,9 @@
 //
 // What bounds it on the card: latency. An insert touches one 96-byte bucket
 // row per batch point (4096 edge / 8064 surf points per scan, under 1 MB,
-// ~0.00005 ms of HBM time); the crop is one pass over the table (1.5 MB
+// ~0.00005 ms of HBM time); the crop is one pass over both tables (1.5 MB
 // edge, 3 MB surf at the flagship capacities, ~1.4 us of HBM time at
-// 3.35 TB/s). The insert of at most 8192 rows is bound by its chain of
+// 3.35 TB/s), and nothing when its gate is closed. The insert of at most 8192 rows is bound by its chain of
 // block-wide steps and five cluster barriers, not by the bytes.
 //
 // Insert design, a batch of at most 8192 rows (`insert_cluster`):
@@ -63,11 +64,18 @@
 // write (3 MB for the surf map's 2^15 x 6 slots, ~1 us of HBM time) and the
 // 65536-row sort; the binary searches stay in L2.
 //
-// Crop design: one elementwise pass over the slots, in place. With a last
-// crop center it first decides the crop_interval gate itself, from device
-// memory (moved^2 > interval^2), and returns at once when it is closed, so
-// the LFA step reads nothing back to the host; one thread writes the new crop
-// center.
+// Crop design (`crop_tables`): one launch crops the LFA step's two tables
+// (or one), in place, a thread eight slots. With a last crop
+// center every block first decides the crop_interval gate itself, from
+// device memory (moved^2 > interval^2), and exits at once when it is
+// closed, so the LFA step reads nothing back to the host; block 0's first
+// thread writes the new crop center. Open, the grid covers both tables'
+// slots as one range in one round, eight 16-byte slot loads in flight a
+// thread, and stores a slot's valid flag only where its bits change (a
+// valid slot that leaves the radius: the flag turns 0). Most launches find
+// the gate closed, and then their time is the grid's: eight slots a thread
+// (144 blocks at the flagship's tables) keep it small
+// (`scripts/k14_variants.py` times one, four and eight).
 //
 // k-NN design (9n): one warp per query. Lanes 0-7 hash the 2x2x2 cell block
 // around (q - cs/2) / cs (`candidates_cell`'s probe) and mark a probe whose
@@ -88,6 +96,8 @@
 
 #include <cooperative_groups.h>
 #include <math.h>
+
+#include <algorithm>
 
 namespace {
 
@@ -654,26 +664,45 @@ insert_cluster(const float* __restrict__ xyz, const bool* __restrict__ mask, int
   cluster.sync();  // no block leaves while another reads its shared memory
 }
 
-__global__ void crop(float* __restrict__ table, int n_slots, const float* __restrict__ center,
-                     const float* __restrict__ last_center, float interval2, float radius2,
-                     float* __restrict__ center_out) {
-  float c0 = center[0], c1 = center[1], c2 = center[2];
+constexpr int kCropUnroll = 8;  // slots a thread loads at once: one round covers the tables
+
+// The slots of table a (n_a of them) then those of table b (n_b) as one
+// range; each slot a float4 [x, y, z, valid].
+__global__ void __launch_bounds__(lvs::kThreads)
+crop_tables(float4* __restrict__ a, long long n_a, float4* __restrict__ b, long long n_b,
+            const float* __restrict__ center, const float* __restrict__ last_center, float interval2, float radius2,
+            float* __restrict__ center_out) {
+  const float c0 = center[0], c1 = center[1], c2 = center[2];
   bool go = true;
   if (last_center != nullptr) {
-    float d0 = c0 - last_center[0], d1 = c1 - last_center[1], d2 = c2 - last_center[2];
+    const float d0 = c0 - last_center[0], d1 = c1 - last_center[1], d2 = c2 - last_center[2];
     go = ((d0 * d0 + d1 * d1) + d2 * d2) > interval2;
   }
-  int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i == 0 && center_out != nullptr) {
+  if (blockIdx.x == 0 && threadIdx.x == 0 && center_out != nullptr) {
     center_out[0] = go ? c0 : last_center[0];
     center_out[1] = go ? c1 : last_center[1];
     center_out[2] = go ? c2 : last_center[2];
   }
-  if (!go || i >= n_slots) return;
-  float* p = table + 4 * static_cast<long long>(i);
-  float dx = p[0] - c0, dy = p[1] - c1, dz = p[2] - c2;
-  bool valid = p[3] > 0.5f && ((dx * dx + dy * dy) + dz * dz) < radius2;
-  p[3] = valid ? 1.0f : 0.0f;
+  if (!go) return;  // the whole grid: the gate reads the same words everywhere
+  const long long n = n_a + n_b, stride = static_cast<long long>(gridDim.x) * blockDim.x;
+  for (long long i = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x; i < n;
+       i += kCropUnroll * stride) {
+    float4 p[kCropUnroll];
+#pragma unroll
+    for (int u = 0; u < kCropUnroll; ++u) {
+      const long long j = i + u * stride;
+      if (j < n) p[u] = j < n_a ? a[j] : b[j - n_a];
+    }
+#pragma unroll
+    for (int u = 0; u < kCropUnroll; ++u) {
+      const long long j = i + u * stride;
+      if (j >= n) continue;
+      const float dx = p[u].x - c0, dy = p[u].y - c1, dz = p[u].z - c2;
+      const bool valid = p[u].w > 0.5f && ((dx * dx + dy * dy) + dz * dz) < radius2;
+      const float flag = valid ? 1.0f : 0.0f;
+      if (__float_as_uint(flag) != __float_as_uint(p[u].w)) (j < n_a ? a[j] : b[j - n_a]).w = flag;
+    }
+  }
 }
 
 __global__ void table_keys(const float* __restrict__ xyz, const bool* __restrict__ mask, int n,
@@ -822,12 +851,16 @@ extern "C" int lvs_insert_cell_table(const float* xyz, const bool* mask, int n, 
   LVS_RETURN_LAST_ERROR();
 }
 
-extern "C" int lvs_crop_cell_table(float* table, int n_slots, const float* center,
-                                   const float* last_center, float interval2, float radius2,
-                                   float* center_out, cudaStream_t stream) {
-  int threads = n_slots > 1 ? n_slots : 1;
-  crop<<<lvs::blocks_for(threads), lvs::kThreads, 0, stream>>>(table, n_slots, center, last_center,
-                                                               interval2, radius2, center_out);
+// Crops tables a (n_a slots) and b (n_b; 0 for one table) in one launch;
+// the tables are 16-byte aligned. last_center null: no gate.
+extern "C" int lvs_crop_cell_tables(float* a, int n_a, float* b, int n_b, const float* center,
+                                    const float* last_center, float interval2, float radius2, float* center_out,
+                                    cudaStream_t stream) {
+  if (n_a < 0 || n_b < 0) return static_cast<int>(cudaErrorInvalidValue);
+  const long long n = static_cast<long long>(n_a) + n_b;
+  const int blocks = std::max(1, lvs::blocks_for((n + kCropUnroll - 1) / kCropUnroll));
+  crop_tables<<<blocks, lvs::kThreads, 0, stream>>>(reinterpret_cast<float4*>(a), n_a, reinterpret_cast<float4*>(b),
+                                                   n_b, center, last_center, interval2, radius2, center_out);
   LVS_RETURN_LAST_ERROR();
 }
 

@@ -8,28 +8,60 @@
 // `icp_align`; K18: :151 `radius_outlier_removal` and :174
 // `statistical_outlier_removal`.
 //
-// What bounds it on the card: the build reads one sorted run of 131072
-// points and writes 65536 leaves, a few MB: memory latency. The query does
-// 27 binary searches of ~17 steps over 256 KB of keys per point; the keys
-// and centroids stay in L2, so the dependent loads bound it, not HBM.
+// What bounds it on the card: the build reads 131072 points and writes
+// 65536 leaves, a few MB: its launches' latency (the sort's look-backs) and
+// the longest run's chain. The query reads each point once; the keys (256
+// KB) and centroids stay in L2, so its dependent loads bound it, not HBM.
 //
-// Design: the wrapper computes the flat int32 cell keys and sorts them
-// stably (torch glue, as for kernel 1). `grid_mark` flags run starts,
-// a prefix sum numbers the runs, and `grid_reduce` runs one thread per run
-// start that walks its run in sorted order (the reference's in-order
-// segment sum), so leaf r is run r: keys come out ascending, runs past
-// `leaf_cap` are dropped as the reference drops them, and the result is
-// deterministic. `grid_query` runs one thread per (candidate, point): it
+// Build design (`lvs_centroid_grid`, one C call of 7 launches, no host read
+// and no torch op between them; kernel 3's flat-key front end, run walk,
+// partial rows and scratch layout from csrc/voxel_keys.cuh, its passes from
+// csrc/key_sort.cuh):
+// 1. `grid_ranges`: each block's masked minimum, maximum and unmasked count
+//    of the cells floor(x * (1/res)) to its partial row (`flat_ranges`); the
+//    same launch zeroes the sort's words and pads every leaf (INT32_MAX, the
+//    sentinel, count 0): the run pass overwrites the leaves that runs reach.
+// 2. `grid_keys` (`flat_keys`, e = 1024): the origin is the masked minimum
+//    cell, 0 where no lane is unmasked; an in-extent lane's (rel0, rel1,
+//    rel2) packed into the fewest bits (the flat key's order), others
+//    dropped; the digits counted for the sort.
+// 3. Four launches of `key_sort_pass` (30 bits at most; a pass past the
+//    key's width returns on the device word): stable, so a cell's points
+//    keep their input order.
+// 4. `grid_runs` (`run_leaves`): run starts numbered by decoupled look-back
+//    give the leaf; the run's thread walks its points in sorted order (the
+//    reference's in-order segment sum), so leaf r is run r, keys come out
+//    ascending and runs past `leaf_cap` are dropped, as the reference drops
+//    them. The sums and the division are those of the design this replaced
+//    (`grid_reduce` after torch.sort), so the grid is bit for bit its grid
+//    (`scripts/k14_parent.py` holds it so on the card).
+//
+// Query design (`probe27`, shared by `grid_query`, K17's `nn_probe` and
+// K18's `neighbour_count`): the flat key (r0 * e + r1) * e + r2 has z
+// innermost, so the 27 cells are 9 (x, y) columns of three consecutive
+// keys. One lower bound a column, for its lowest in-extent z key, finds all
+// three: keys are unique and ascending, so the next at most three keys
+// decide the column's cells. The 9 searches run side by side, branch-free,
+// their first ~10 steps over a sample of the sorted keys staged in shared
+// memory (every ceil(leaf_cap / 1024)-th, at most 4 KB), the last ~6 over
+// the keys themselves. A column whose x or y is out of the extent misses
+// whole; a z out of it misses only its cell. Cells are visited in `_OFF27`
+// order, so the hit set, `fminf`, `nn_probe`'s first minimum and K18's count
+// sums are those of the 27 binary searches this replaced (the reference's
+// `searchsorted`).
+//
+// `grid_query` runs one thread per (candidate, point), on a grid that fills
+// the card once (a block stages the sample, then takes 256-point tiles): it
 // moves the point by the candidate's transform (the fma chain XLA makes of
-// `transform_points` on the CPU), looks each of the 27 neighbour cells up by
-// binary search over the sorted keys (the reference's `searchsorted`, so
-// the hit sets are identical), keeps the least squared distance to a hit
+// `transform_points` on the CPU), keeps the least squared distance to a hit
 // centroid (+inf on a miss), and reduces (sum of finite d2 within range,
-// their count) per block; `grid_finish` adds a candidate's block partials
-// in a fixed order and writes its mean, +inf when nothing was in range.
+// their count) per tile; `grid_finish`, a block per candidate, stages its
+// tile partials in shared memory and adds them in tile order
+// (`staged_column_sum`, which the ICP and statistical reductions share: one
+// thread's ordered adds no longer wait on a global load each), and writes
+// its mean, +inf when nothing was in range.
 //
-// K17 and K18 reuse that probe (`probe_cell`: the same cells, the same binary
-// search, so the hit sets are identical). `nn_probe` keeps the argmin
+// K17 and K18 take the same probe. `nn_probe` keeps the argmin
 // centroid (the first in `_OFF27` order, as `jnp.argmin`; leaf 0's centroid
 // on a miss, as the reference's `where(hit, idx, 0)` gather), its squared
 // distance the fma chain XLA makes of `jnp.sum(d ** 2, -1)` on the CPU.
@@ -53,156 +85,277 @@
 // plain twin's float64 sums give the same threshold. Only masked-in lanes
 // are probed; dropped lanes take the sentinel; nothing is compacted.
 #include "common.cuh"
+#include "key_sort.cuh"
+#include "voxel_keys.cuh"
 
 namespace {
 
 constexpr int kKeyMax = 2147483647;  // INT32_MAX: cells out of the extent
 constexpr int kWarps = lvs::kThreads / 32;
 
-__global__ void grid_mark(const int* __restrict__ skey, int n, int* __restrict__ flag) {
-  int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= n) return;
-  int k = skey[i];
-  flag[i] = ((i == 0 || k != skey[i - 1]) && k != kKeyMax) ? 1 : 0;
+constexpr int kExtent = 1024;   // cells per axis: 1024^3 flat keys fit int32
+constexpr int kGridPasses = 4;  // digit passes of a 30-bit packed key
+
+__global__ void __launch_bounds__(lvs::kThreads)
+grid_ranges(const float* __restrict__ xyz, const bool* __restrict__ mask, int n, float inv, int* __restrict__ part,
+            unsigned* __restrict__ zero, long long n_zero, int leaf_cap, int* __restrict__ keys,
+            float* __restrict__ centroids, float* __restrict__ counts, int* __restrict__ origin) {
+  flat_ranges(xyz, 3, mask, 1, n, inv, part, zero, n_zero);
+  const long long stride = static_cast<long long>(gridDim.x) * blockDim.x;
+  const long long first = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
+  for (long long i = first; i < 3ll * leaf_cap; i += stride) centroids[i] = lvs::kSentinel;
+  for (long long i = first; i < leaf_cap; i += stride) {
+    keys[i] = kKeyMax;
+    counts[i] = 0.0f;
+  }
+  if (first == 0) origin[0] = origin[1] = origin[2] = 0;  // for n = 0, where no keys pass runs
 }
 
-__global__ void grid_reduce(const int* __restrict__ skey, const long long* __restrict__ order,
-                            const int* __restrict__ flag, const int* __restrict__ cum, int n,
-                            const float* __restrict__ xyz, int leaf_cap, int* __restrict__ keys,
-                            float* __restrict__ centroids, float* __restrict__ counts) {
-  int t = blockIdx.x * blockDim.x + threadIdx.x;
-  int n_runs = n > 0 ? cum[n - 1] : 0;
-  if (t < leaf_cap && t >= n_runs) {  // leaves past the last occupied cell
-    keys[t] = kKeyMax;
-    centroids[3 * t + 0] = lvs::kSentinel;
-    centroids[3 * t + 1] = lvs::kSentinel;
-    centroids[3 * t + 2] = lvs::kSentinel;
-    counts[t] = 0.0f;
-  }
-  if (t >= n || !flag[t]) return;
-  int row = cum[t] - 1;
-  if (row >= leaf_cap) return;
-  int key = skey[t];
+__global__ void __launch_bounds__(lvs::kThreads)
+grid_keys(const float* __restrict__ xyz, const bool* __restrict__ mask, int n, float inv,
+          const int* __restrict__ part, int n_part, FlatControl* fc, int* __restrict__ origin_cell,
+          unsigned long long* __restrict__ keys) {
+  flat_keys(xyz, 3, mask, 1, n, inv, kExtent, part, n_part, fc, origin_cell, keys);
+}
+
+// One cell's sums, point by point in sorted order.
+struct GridSums {
   float sx = 0.0f, sy = 0.0f, sz = 0.0f, cnt = 0.0f;
-  for (int j = t; j < n && skey[j] == key; ++j) {
-    long long src = order[j];
-    sx += xyz[3 * src + 0];
-    sy += xyz[3 * src + 1];
-    sz += xyz[3 * src + 2];
-    cnt += 1.0f;
-  }
-  keys[row] = key;
-  centroids[3 * row + 0] = sx / cnt;
-  centroids[3 * row + 1] = sy / cnt;
-  centroids[3 * row + 2] = sz / cnt;
-  counts[row] = cnt;
+};
+
+__global__ void __launch_bounds__(ks::kThreads)
+grid_runs(const unsigned long long* __restrict__ keys_a, const unsigned* __restrict__ vals_a,
+          const unsigned long long* __restrict__ keys_b, const unsigned* __restrict__ vals_b, FlatControl* fc,
+          unsigned* run_status, const float* __restrict__ xyz, int leaf_cap, int* __restrict__ keys,
+          float* __restrict__ centroids, float* __restrict__ counts) {
+  const auto add = [](GridSums& s, const float4& p) {
+    s.sx += p.x;
+    s.sy += p.y;
+    s.sz += p.z;
+    s.cnt += 1.0f;
+  };
+  const auto write = [&](const GridSums& s, unsigned row, unsigned long long key) -> unsigned {
+    keys[row] = flat_key(key, fc->b1, fc->b2, kExtent);
+    centroids[3 * row + 0] = s.sx / s.cnt;
+    centroids[3 * row + 1] = s.sy / s.cnt;
+    centroids[3 * row + 2] = s.sz / s.cnt;
+    counts[row] = s.cnt;
+    return 1u;
+  };
+  unsigned mine;
+  run_leaves<GridSums>(keys_a, vals_a, keys_b, vals_b, &fc->sort, &fc->sort.tickets[ks::kMaxPasses], run_status, xyz,
+                       3, leaf_cap, add, write, mine);
 }
 
-// first index of `keys` (ascending, length m) holding a value >= q
-__device__ __forceinline__ int lower_bound(const int* __restrict__ keys, int m, int q) {
-  int lo = 0, hi = m;
-  while (lo < hi) {
-    int mid = (lo + hi) >> 1;
-    if (__ldg(keys + mid) < q) lo = mid + 1; else hi = mid;
+constexpr int kSamples = 1024;  // sorted keys a block stages in shared memory
+
+// Every stride-th key (at most kSamples of them) in shared memory, where a
+// search takes its first steps.
+struct KeySample {
+  const int* at;  // shared memory: keys[j * stride], j < count
+  int stride, count;
+};
+
+// The whole block; ends with a barrier.
+__device__ __forceinline__ KeySample stage_sample(const int* __restrict__ keys, int m, int* sample) {
+  KeySample s;
+  s.at = sample;
+  s.stride = max(1, (m + kSamples - 1) / kSamples);
+  s.count = m > 0 ? (m + s.stride - 1) / s.stride : 0;
+  for (int j = threadIdx.x; j < s.count; j += blockDim.x) sample[j] = __ldg(keys + static_cast<long long>(j) * s.stride);
+  __syncthreads();
+  return s;
+}
+
+// keys[i], INT32_MAX past the last leaf (above every query)
+__device__ __forceinline__ int key_at(const int* __restrict__ keys, int m, int i) {
+  return i < m ? __ldg(keys + i) : kKeyMax;
+}
+
+constexpr int kColumns = 9;  // the (x, y) columns of the 27 cells
+
+// a + b in int32, wrapping as the reference's int32 cell offsets
+__device__ __forceinline__ int wrap_add(int a, int b) {
+  return static_cast<int>(static_cast<unsigned>(a) + static_cast<unsigned>(b));
+}
+constexpr int kDead = -2147483647 - 1;  // a dead column's search key: below every key, its search stays at 0
+
+// The hit leaves of the 27 cells around `cell` (relative to the grid's
+// origin), `visit(leaf)` for each in `_OFF27` order: one lower bound a
+// column (module comment), the 9 side by side.
+template <typename Visit>
+__device__ __forceinline__ void probe27(const int* __restrict__ keys, int m, const KeySample& s, int e,
+                                        const int cell[3], Visit visit) {
+  int z0 = 3, n_z = 0;  // the first in-extent z offset and the in-extent z cells, alike in every column
+#pragma unroll
+  for (int d = 2; d >= 0; --d) {
+    const int r2 = wrap_add(cell[2], d - 1);
+    const bool in = r2 >= 0 && r2 < e;
+    z0 = in ? d : z0;
+    n_z += in;
   }
-  return lo;
+  int q[kColumns], nz[kColumns], pos[kColumns];
+#pragma unroll
+  for (int c = 0; c < kColumns; ++c) {
+    const int r0 = wrap_add(cell[0], c / 3 - 1), r1 = wrap_add(cell[1], c % 3 - 1);
+    const bool live = r0 >= 0 && r0 < e && r1 >= 0 && r1 < e && n_z > 0 && m > 0;
+    nz[c] = live ? n_z : 0;
+    q[c] = live ? (r0 * e + r1) * e + cell[2] + z0 - 1 : kDead;
+    pos[c] = 0;
+  }
+  // the samples below q (the same steps for every column)
+  for (int len = s.count; len > 1;) {
+    const int half = len >> 1;
+#pragma unroll
+    for (int c = 0; c < kColumns; ++c) pos[c] = s.at[pos[c] + half] < q[c] ? pos[c] + half : pos[c];
+    len -= half;
+  }
+#pragma unroll
+  for (int c = 0; c < kColumns; ++c) {
+    const int j = pos[c] + (s.count > 0 && s.at[pos[c]] < q[c]);
+    pos[c] = j == 0 ? 0 : (j - 1) * s.stride + 1;  // the lower bound lies in [pos, pos + stride - 1]
+  }
+  for (int len = s.stride - 1; len > 1;) {
+    const int half = len >> 1;
+#pragma unroll
+    for (int c = 0; c < kColumns; ++c) pos[c] = key_at(keys, m, pos[c] + half) < q[c] ? pos[c] + half : pos[c];
+    len -= half;
+  }
+  if (s.stride > 1) {
+#pragma unroll
+    for (int c = 0; c < kColumns; ++c) pos[c] += key_at(keys, m, pos[c]) < q[c];
+  }
+  // a column's cells: the next at most three keys, read together
+  int k[kColumns][3];
+#pragma unroll
+  for (int c = 0; c < kColumns; ++c) {
+#pragma unroll
+    for (int t = 0; t < 3; ++t) k[c][t] = t < nz[c] ? key_at(keys, m, pos[c] + t) : kKeyMax;
+  }
+#pragma unroll
+  for (int c = 0; c < kColumns; ++c) {
+    int p = 0;  // keys taken by the column's earlier cells
+#pragma unroll
+    for (int t = 0; t < 3; ++t) {
+      const int want = q[c] + t;
+      const bool hit = t < nz[c] && ((p == 0 && k[c][0] == want) || (p == 1 && k[c][1] == want) ||
+                                     (p == 2 && k[c][2] == want));
+      if (hit) {
+        visit(pos[c] + p);
+        ++p;
+      }
+    }
+  }
 }
 
 using lvs::warp_sum;
-
-// Index of the leaf holding the cell (r0, r1, r2) relative to the grid's
-// origin, -1 when the cell is out of the extent or empty: the reference's
-// `searchsorted` over the sorted keys, clamped to the last leaf.
-__device__ __forceinline__ int probe_cell(const int* __restrict__ keys, int leaf_cap, int e, int r0, int r1,
-                                          int r2) {
-  if (r0 < 0 || r0 >= e || r1 < 0 || r1 >= e || r2 < 0 || r2 >= e) return -1;
-  int q = (r0 * e + r1) * e + r2;
-  int idx = lower_bound(keys, leaf_cap, q);
-  if (idx >= leaf_cap) idx = leaf_cap - 1;
-  return __ldg(keys + idx) == q ? idx : -1;
-}
 
 __device__ __forceinline__ void cell_of(const float* y, float inv_res, const int* __restrict__ origin, int cell[3]) {
 #pragma unroll
   for (int r = 0; r < 3; ++r) cell[r] = static_cast<int>(floorf(y[r] * inv_res)) - origin[r];
 }
 
-// grid (n_blocks, k): block b of candidate c covers its points b*256 ..
+// Tile b of candidate c covers its points b*256 ..; a block stages the
+// sample once and takes tiles (c, b) = divmod(t, n_blocks) for t =
+// blockIdx.x, blockIdx.x + gridDim.x, ...: each tile's partials are those
+// of a block per tile.
 __global__ void __launch_bounds__(lvs::kThreads)
 grid_query(const int* __restrict__ keys, const float* __restrict__ centroids, int leaf_cap,
            const int* __restrict__ origin, float inv_res, int e, const float* __restrict__ pts,
-           const bool* __restrict__ mask, int n, const float* __restrict__ transforms, float max_d2,
-           float* __restrict__ d2_out, float* __restrict__ partials) {
+           const bool* __restrict__ mask, int n, int k, int n_blocks, const float* __restrict__ transforms,
+           float max_d2, float* __restrict__ d2_out, float* __restrict__ partials) {
   __shared__ float smem[2][kWarps];
-  int c = blockIdx.y;
-  int i = blockIdx.x * blockDim.x + threadIdx.x;
-  float best = INFINITY;
-  if (i < n && mask[static_cast<long long>(c) * n + i]) {
-    const float* p = pts + 3 * (static_cast<long long>(c) * n + i);
-    float y[3] = {p[0], p[1], p[2]};
-    if (transforms != nullptr) {
-      const float* T = transforms + 16 * c;
+  __shared__ int sample[kSamples];
+  const KeySample sampled = stage_sample(keys, leaf_cap, sample);
+  for (long long tile = blockIdx.x; tile < static_cast<long long>(k) * n_blocks; tile += gridDim.x) {
+    const int c = static_cast<int>(tile / n_blocks), b = static_cast<int>(tile % n_blocks);
+    int i = b * blockDim.x + threadIdx.x;
+    float best = INFINITY;
+    if (i < n && mask[static_cast<long long>(c) * n + i]) {
+      const float* p = pts + 3 * (static_cast<long long>(c) * n + i);
+      float y[3] = {p[0], p[1], p[2]};
+      if (transforms != nullptr) {
+        const float* T = transforms + 16 * c;
 #pragma unroll
-      for (int r = 0; r < 3; ++r) {
-        float acc = p[0] * T[4 * r + 0];
-        acc = fmaf(p[1], T[4 * r + 1], acc);
-        acc = fmaf(p[2], T[4 * r + 2], acc);
-        y[r] = acc + T[4 * r + 3];
+        for (int r = 0; r < 3; ++r) {
+          float acc = p[0] * T[4 * r + 0];
+          acc = fmaf(p[1], T[4 * r + 1], acc);
+          acc = fmaf(p[2], T[4 * r + 2], acc);
+          y[r] = acc + T[4 * r + 3];
+        }
       }
+      int cell[3];
+      cell_of(y, inv_res, origin, cell);
+      probe27(keys, leaf_cap, sampled, e, cell, [&](int idx) {
+        float dx = y[0] - centroids[3 * idx + 0];
+        float dy = y[1] - centroids[3 * idx + 1];
+        float dz = y[2] - centroids[3 * idx + 2];
+        float d2 = dx * dx + dy * dy + dz * dz;
+        best = fminf(best, d2);
+      });
     }
-    int cell[3];
-    cell_of(y, inv_res, origin, cell);
-    for (int o = 0; o < 27; ++o) {
-      int idx = probe_cell(keys, leaf_cap, e, cell[0] + o / 9 - 1, cell[1] + (o / 3) % 3 - 1, cell[2] + o % 3 - 1);
-      if (idx < 0) continue;
-      float dx = y[0] - centroids[3 * idx + 0];
-      float dy = y[1] - centroids[3 * idx + 1];
-      float dz = y[2] - centroids[3 * idx + 2];
-      float d2 = dx * dx + dy * dy + dz * dz;
-      best = fminf(best, d2);
+    if (d2_out != nullptr && i < n) d2_out[static_cast<long long>(c) * n + i] = best;
+    bool ok = isfinite(best) && best <= max_d2;
+    float s = warp_sum(ok ? best : 0.0f), m = warp_sum(ok ? 1.0f : 0.0f);
+    int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+    if (lane == 0) {
+      smem[0][warp] = s;
+      smem[1][warp] = m;
     }
-  }
-  if (d2_out != nullptr && i < n) d2_out[static_cast<long long>(c) * n + i] = best;
-  bool ok = isfinite(best) && best <= max_d2;
-  float s = warp_sum(ok ? best : 0.0f), m = warp_sum(ok ? 1.0f : 0.0f);
-  int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  if (lane == 0) {
-    smem[0][warp] = s;
-    smem[1][warp] = m;
-  }
-  __syncthreads();
-  if (threadIdx.x < 2) {
-    float v = 0.0f;
-    for (int w = 0; w < kWarps; ++w) v += smem[threadIdx.x][w];
-    partials[2 * (static_cast<long long>(c) * gridDim.x + blockIdx.x) + threadIdx.x] = v;
+    __syncthreads();
+    if (threadIdx.x < 2) {
+      float v = 0.0f;
+      for (int w = 0; w < kWarps; ++w) v += smem[threadIdx.x][w];
+      partials[2 * (static_cast<long long>(c) * n_blocks + b) + threadIdx.x] = v;
+    }
+    __syncthreads();  // smem is the next tile's
   }
 }
 
-// one thread per candidate: its block partials in order -> the masked mean
-__global__ void grid_finish(const float* __restrict__ partials, int n_blocks, int k,
-                            float* __restrict__ out) {
-  int c = blockIdx.x * blockDim.x + threadIdx.x;
-  if (c >= k) return;
-  float total = 0.0f, cnt = 0.0f;
-  for (int b = 0; b < n_blocks; ++b) {
-    total += partials[2 * (static_cast<long long>(c) * n_blocks + b) + 0];
-    cnt += partials[2 * (static_cast<long long>(c) * n_blocks + b) + 1];
+constexpr int kStageRows = 512;  // partial rows a block stages in shared memory at a time
+
+// Thread t < M's sum of column t of `partials` (n_rows rows of M values) in
+// row order, as `lvs::column_sum` adds it: the block stages kStageRows rows
+// at a time in shared memory with coalesced loads, and each column's thread
+// adds from there, not a global load's latency an add. Every thread of the
+// block calls it; the others get 0.
+template <int M, typename T>
+__device__ __forceinline__ T staged_column_sum(const T* __restrict__ partials, int n_rows) {
+  __shared__ T stage[kStageRows * M];
+  T sum = 0;
+  for (int r0 = 0; r0 < n_rows; r0 += kStageRows) {
+    const int rows = min(kStageRows, n_rows - r0);
+    for (int i = threadIdx.x; i < rows * M; i += blockDim.x) stage[i] = partials[static_cast<long long>(r0) * M + i];
+    __syncthreads();
+    if (threadIdx.x < M) {
+#pragma unroll 8
+      for (int r = 0; r < rows; ++r) sum += stage[r * M + threadIdx.x];
+    }
+    __syncthreads();
   }
-  out[c] = cnt > 0.0f ? total / cnt : INFINITY;
+  return sum;
+}
+
+// a block per candidate: its block partials in order -> the masked mean
+__global__ void __launch_bounds__(lvs::kThreads)
+grid_finish(const float* __restrict__ partials, int n_blocks, float* __restrict__ out) {
+  __shared__ float s[2];
+  const float v = staged_column_sum<2>(partials + 2 * static_cast<long long>(blockIdx.x) * n_blocks, n_blocks);
+  if (threadIdx.x < 2) s[threadIdx.x] = v;
+  __syncthreads();
+  if (threadIdx.x == 0) out[blockIdx.x] = s[1] > 0.0f ? s[0] / s[1] : INFINITY;
 }
 
 // The nearest hit centroid of y among the 27 cells: its squared distance
 // (+inf on a miss) and its leaf (0 on a miss, the reference's gather).
 __device__ __forceinline__ float nn_probe(const int* __restrict__ keys, const float* __restrict__ centroids,
-                                          int leaf_cap, const int* __restrict__ origin, float inv_res, int e,
-                                          const float* y, int* leaf) {
+                                          int leaf_cap, const KeySample& sample, const int* __restrict__ origin,
+                                          float inv_res, int e, const float* y, int* leaf) {
   int cell[3];
   cell_of(y, inv_res, origin, cell);
   float best = INFINITY;
   int best_idx = 0;
-  for (int o = 0; o < 27; ++o) {
-    int idx = probe_cell(keys, leaf_cap, e, cell[0] + o / 9 - 1, cell[1] + (o / 3) % 3 - 1, cell[2] + o % 3 - 1);
-    if (idx < 0) continue;
+  probe27(keys, leaf_cap, sample, e, cell, [&](int idx) {
     float dx = y[0] - centroids[3 * idx + 0];
     float dy = y[1] - centroids[3 * idx + 1];
     float dz = y[2] - centroids[3 * idx + 2];
@@ -211,7 +364,7 @@ __device__ __forceinline__ float nn_probe(const int* __restrict__ keys, const fl
       best = d2;
       best_idx = idx;
     }
-  }
+  });
   *leaf = best_idx;
   return best;
 }
@@ -221,11 +374,13 @@ nn_points_kernel(const int* __restrict__ keys, const float* __restrict__ centroi
                  const int* __restrict__ origin, float inv_res, int e, const float* __restrict__ pts,
                  const bool* __restrict__ mask, int n, float* __restrict__ d2_out, float* __restrict__ nn_out,
                  bool* __restrict__ valid_out) {
+  __shared__ int sample[kSamples];
+  const KeySample sampled = stage_sample(keys, leaf_cap, sample);
   int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= n) return;
   float y[3] = {pts[3 * i + 0], pts[3 * i + 1], pts[3 * i + 2]};
   int leaf;
-  float d2 = nn_probe(keys, centroids, leaf_cap, origin, inv_res, e, y, &leaf);
+  float d2 = nn_probe(keys, centroids, leaf_cap, sampled, origin, inv_res, e, y, &leaf);
   bool valid = mask[i] && isfinite(d2);
   d2_out[i] = valid ? d2 : INFINITY;
   valid_out[i] = valid;
@@ -239,6 +394,8 @@ icp_match(const int* __restrict__ keys, const float* __restrict__ centroids, int
           const int* __restrict__ origin, float inv_res, int e, const float* __restrict__ src,
           const bool* __restrict__ mask, int n, const float* __restrict__ T, float max_d2, float* __restrict__ y_out,
           float* __restrict__ nn_out, float* __restrict__ w_out, float* __restrict__ partials) {
+  __shared__ int sample[kSamples];
+  const KeySample sampled = stage_sample(keys, leaf_cap, sample);
   int i = blockIdx.x * blockDim.x + threadIdx.x;
   float v[8] = {0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f};
   if (i < n) {
@@ -248,7 +405,7 @@ icp_match(const int* __restrict__ keys, const float* __restrict__ centroids, int
     for (int r = 0; r < 3; ++r)
       y[r] = lvs::fma64(p[2], T[4 * r + 2], lvs::fma64(p[1], T[4 * r + 1], p[0] * T[4 * r + 0])) + T[4 * r + 3];
     int leaf;
-    float d2 = nn_probe(keys, centroids, leaf_cap, origin, inv_res, e, y, &leaf);
+    float d2 = nn_probe(keys, centroids, leaf_cap, sampled, origin, inv_res, e, y, &leaf);
     float nn[3] = {centroids[3 * leaf + 0], centroids[3 * leaf + 1], centroids[3 * leaf + 2]};
     bool w = mask[i] && isfinite(d2) && d2 < max_d2;
     for (int r = 0; r < 3; ++r) {
@@ -270,9 +427,11 @@ icp_match(const int* __restrict__ keys, const float* __restrict__ centroids, int
 
 // stats = [count, mu_y (3), mu_n (3), fitness]: the reference's
 // max(sum w, 1) divisions
-__global__ void icp_means(const float* __restrict__ partials, int n_blocks, float* __restrict__ stats) {
+__global__ void __launch_bounds__(lvs::kThreads)
+icp_means(const float* __restrict__ partials, int n_blocks, float* __restrict__ stats) {
   __shared__ float s[8];
-  if (threadIdx.x < 8) s[threadIdx.x] = lvs::column_sum(partials, n_blocks, 8, threadIdx.x);
+  const float v = staged_column_sum<8>(partials, n_blocks);
+  if (threadIdx.x < 8) s[threadIdx.x] = v;
   __syncthreads();
   if (threadIdx.x == 0) {
     float wsum = fmaxf(s[0], 1.0f);
@@ -333,10 +492,12 @@ __device__ void jacobi3(double a[3][3], double v[3][3]) {
 
 // The Kabsch step: cov from its partials, R from its SVD (float64), t =
 // mu_n - R mu_y, and T_out = [R t] T (float32, as the reference composes)
-__global__ void icp_update(const float* __restrict__ partials, int n_blocks, const float* __restrict__ stats,
-                           const float* __restrict__ T, float* __restrict__ T_out) {
+__global__ void __launch_bounds__(lvs::kThreads)
+icp_update(const float* __restrict__ partials, int n_blocks, const float* __restrict__ stats,
+           const float* __restrict__ T, float* __restrict__ T_out) {
   __shared__ float cov[9];
-  if (threadIdx.x < 9) cov[threadIdx.x] = lvs::column_sum(partials, n_blocks, 9, threadIdx.x);
+  const float col = staged_column_sum<9>(partials, n_blocks);
+  if (threadIdx.x < 9) cov[threadIdx.x] = col;
   __syncthreads();
   if (threadIdx.x != 0) return;
   double c[3][3], ctc[3][3], v[3][3];
@@ -394,15 +555,13 @@ __global__ void icp_update(const float* __restrict__ partials, int n_blocks, con
 // Sum of the counts of the hit cells around each lane's cell (0 for
 // masked lanes, whose sentinel cells are out of the extent)
 __device__ __forceinline__ float neighbour_count(const int* __restrict__ keys, const float* __restrict__ counts,
-                                                 int leaf_cap, const int* __restrict__ origin, float inv_res, int e,
+                                                 int leaf_cap, const KeySample& sample,
+                                                 const int* __restrict__ origin, float inv_res, int e,
                                                  const float* y) {
   int cell[3];
   cell_of(y, inv_res, origin, cell);
   float sum = 0.0f;
-  for (int o = 0; o < 27; ++o) {
-    int idx = probe_cell(keys, leaf_cap, e, cell[0] + o / 9 - 1, cell[1] + (o / 3) % 3 - 1, cell[2] + o % 3 - 1);
-    if (idx >= 0) sum += counts[idx];
-  }
+  probe27(keys, leaf_cap, sample, e, cell, [&](int idx) { sum += counts[idx]; });
   return sum;
 }
 
@@ -417,12 +576,14 @@ outlier_radius(const int* __restrict__ keys, const float* __restrict__ counts, i
                const int* __restrict__ origin, float inv_res, int e, const float* __restrict__ xyz,
                const bool* __restrict__ mask, int n, float min_neighbors, float* __restrict__ out_xyz,
                bool* __restrict__ out_mask) {
+  __shared__ int sample[kSamples];
+  const KeySample sampled = stage_sample(keys, leaf_cap, sample);
   int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= n) return;
   bool keep = mask[i];  // a masked-out lane is dropped without its probe
   if (keep) {
     const float y[3] = {xyz[3 * i + 0], xyz[3 * i + 1], xyz[3 * i + 2]};
-    keep = neighbour_count(keys, counts, leaf_cap, origin, inv_res, e, y) - 1.0f >= min_neighbors;
+    keep = neighbour_count(keys, counts, leaf_cap, sampled, origin, inv_res, e, y) - 1.0f >= min_neighbors;
   }
   write_kept(xyz, i, keep, out_xyz, out_mask);
 }
@@ -431,11 +592,13 @@ __global__ void __launch_bounds__(lvs::kThreads)
 stat_dist(const int* __restrict__ keys, const float* __restrict__ counts, int leaf_cap,
           const int* __restrict__ origin, float inv_res, int e, const float* __restrict__ xyz,
           const bool* __restrict__ mask, int n, float k_vol, float* __restrict__ dist, double* __restrict__ partials) {
+  __shared__ int sample[kSamples];
+  const KeySample sampled = stage_sample(keys, leaf_cap, sample);
   int i = blockIdx.x * blockDim.x + threadIdx.x;
   double v[2] = {0.0, 0.0};
   if (i < n && mask[i]) {  // stat_var and stat_keep read dist only where masked in
     const float y[3] = {xyz[3 * i + 0], xyz[3 * i + 1], xyz[3 * i + 2]};
-    float density = neighbour_count(keys, counts, leaf_cap, origin, inv_res, e, y);
+    float density = neighbour_count(keys, counts, leaf_cap, sampled, origin, inv_res, e, y);
     float d = __double2float_rn(pow(static_cast<double>(k_vol / fmaxf(density, 1.0f)), 1.0 / 3.0));
     dist[i] = d;
     v[0] = d;
@@ -445,9 +608,11 @@ stat_dist(const int* __restrict__ keys, const float* __restrict__ counts, int le
 }
 
 // stats = [mean, n]; the sums are float64, rounded to float32 once
-__global__ void stat_mean(const double* __restrict__ partials, int n_blocks, float* __restrict__ stats) {
+__global__ void __launch_bounds__(lvs::kThreads)
+stat_mean(const double* __restrict__ partials, int n_blocks, float* __restrict__ stats) {
   __shared__ double s[2];
-  if (threadIdx.x < 2) s[threadIdx.x] = lvs::column_sum(partials, n_blocks, 2, threadIdx.x);
+  const double v = staged_column_sum<2>(partials, n_blocks);
+  if (threadIdx.x < 2) s[threadIdx.x] = v;
   __syncthreads();
   if (threadIdx.x == 0) {
     float cnt = fmaxf(__double2float_rn(s[1]), 1.0f);
@@ -469,10 +634,11 @@ stat_var(const float* __restrict__ dist, const bool* __restrict__ mask, int n, c
 }
 
 // stats[2] = mean + stddev_mult * sqrt(var)
-__global__ void stat_thresh(const double* __restrict__ partials, int n_blocks, float stddev_mult,
-                            float* __restrict__ stats) {
+__global__ void __launch_bounds__(lvs::kThreads)
+stat_thresh(const double* __restrict__ partials, int n_blocks, float stddev_mult, float* __restrict__ stats) {
+  const double sum = staged_column_sum<1>(partials, n_blocks);
   if (threadIdx.x == 0) {
-    float var = __double2float_rn(lvs::column_sum(partials, n_blocks, 1, 0)) / stats[1];
+    float var = __double2float_rn(sum) / stats[1];
     stats[2] = stats[0] + stddev_mult * sqrtf(var);
   }
 }
@@ -487,18 +653,35 @@ stat_keep(const float* __restrict__ xyz, const bool* __restrict__ mask, const fl
 
 }  // namespace
 
-extern "C" int lvs_grid_mark(const int* skey, int n, int* flag, cudaStream_t stream) {
-  if (n > 0) grid_mark<<<lvs::blocks_for(n), lvs::kThreads, 0, stream>>>(skey, n, flag);
-  LVS_RETURN_LAST_ERROR();
+Layout grid_layout(int n) { return layout(n, sizeof(FlatControl)); }
+
+extern "C" long long lvs_centroid_grid_scratch_bytes(int n) {
+  return static_cast<long long>(grid_layout(n).total);
 }
 
-extern "C" int lvs_grid_reduce(const int* skey, const long long* order, const int* flag, const int* cum,
-                               int n, const float* xyz, int leaf_cap, int* keys, float* centroids,
-                               float* counts, cudaStream_t stream) {
-  int threads = n > leaf_cap ? n : leaf_cap;
-  if (threads > 0)
-    grid_reduce<<<lvs::blocks_for(threads), lvs::kThreads, 0, stream>>>(
-        skey, order, flag, cum, n, xyz, leaf_cap, keys, centroids, counts);
+// xyz (n, 3) and mask (n,) of the cloud; outputs leaf_cap keys, centroids
+// (leaf_cap, 3), counts and origin (3,); scratch of
+// lvs_centroid_grid_scratch_bytes(n) bytes.
+extern "C" int lvs_centroid_grid(const float* xyz, const bool* mask, int n, float inv_res, int leaf_cap,
+                                 void* scratch, long long scratch_bytes, int* keys, float* centroids, float* counts,
+                                 int* origin, cudaStream_t stream) {
+  if (n < 0 || n > ks::kMaxKeys || leaf_cap < 0) return static_cast<int>(cudaErrorInvalidValue);
+  const Layout l = grid_layout(n);
+  if (scratch_bytes < static_cast<long long>(l.total)) return static_cast<int>(cudaErrorInvalidValue);
+  const Scratch s = scratch_at(scratch, l);
+  auto* fc = reinterpret_cast<FlatControl*>(s.base);
+  const int range_blocks = range_blocks_for(n, 3ll * leaf_cap, s.n_zero);
+  grid_ranges<<<range_blocks, lvs::kThreads, 0, stream>>>(xyz, mask, n, inv_res, s.part,
+                                                          reinterpret_cast<unsigned*>(s.base), s.n_zero, leaf_cap,
+                                                          keys, centroids, counts, origin);
+  if (n == 0) LVS_RETURN_LAST_ERROR();
+  grid_keys<<<std::min(lvs::blocks_for(n), kKeyBlocks), lvs::kThreads, 0, stream>>>(xyz, mask, n, inv_res, s.part,
+                                                                                     range_blocks, fc, origin,
+                                                                                     s.keys_b);
+  ks::launch_passes(n, s.keys_a, s.vals_a, s.keys_b, s.vals_b, &fc->sort, s.status, stream, kGridPasses);
+  grid_runs<<<(n + kRunTile - 1) / kRunTile, ks::kThreads, 0, stream>>>(s.keys_a, s.vals_a, s.keys_b, s.vals_b, fc,
+                                                                        s.run_status, xyz, leaf_cap, keys,
+                                                                        centroids, counts);
   LVS_RETURN_LAST_ERROR();
 }
 
@@ -507,10 +690,16 @@ extern "C" int lvs_grid_query(const int* keys, const float* centroids, int leaf_
                               const float* transforms, float max_d2, float* d2_out, float* partials,
                               int n_blocks, float* out, cudaStream_t stream) {
   if (k > 0 && n_blocks > 0) {
-    grid_query<<<dim3(n_blocks, k), lvs::kThreads, 0, stream>>>(
-        keys, centroids, leaf_cap, origin, inv_res, e, pts, mask, n, transforms, max_d2, d2_out,
-        partials);
-    grid_finish<<<lvs::blocks_for(k), lvs::kThreads, 0, stream>>>(partials, n_blocks, k, out);
+    int device = 0, sms = 0, per_sm = 0;
+    cudaError_t err = cudaGetDevice(&device);
+    if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+    if (err == cudaSuccess) err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, grid_query, lvs::kThreads, 0);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    const long long tiles = static_cast<long long>(k) * n_blocks;
+    const int blocks = static_cast<int>(std::max(1ll, std::min(tiles, static_cast<long long>(per_sm) * sms)));
+    grid_query<<<blocks, lvs::kThreads, 0, stream>>>(keys, centroids, leaf_cap, origin, inv_res, e, pts, mask, n, k,
+                                                     n_blocks, transforms, max_d2, d2_out, partials);
+    grid_finish<<<k, lvs::kThreads, 0, stream>>>(partials, n_blocks, out);
   }
   LVS_RETURN_LAST_ERROR();
 }
@@ -532,7 +721,7 @@ extern "C" int lvs_icp_match(const int* keys, const float* centroids, int leaf_c
   if (n_blocks < 1) return static_cast<int>(cudaErrorInvalidValue);
   icp_match<<<n_blocks, lvs::kThreads, 0, stream>>>(keys, centroids, leaf_cap, origin, inv_res, e, src, mask, n, T,
                                                     max_d2, y, nn, w, partials);
-  icp_means<<<1, 32, 0, stream>>>(partials, n_blocks, stats);
+  icp_means<<<1, lvs::kThreads, 0, stream>>>(partials, n_blocks, stats);
   LVS_RETURN_LAST_ERROR();
 }
 
@@ -541,7 +730,7 @@ extern "C" int lvs_icp_update(const float* y, const float* nn, const float* w, i
                               float* partials, int n_blocks, const float* T, float* T_out, cudaStream_t stream) {
   if (n_blocks < 1) return static_cast<int>(cudaErrorInvalidValue);
   icp_cov<<<n_blocks, lvs::kThreads, 0, stream>>>(y, nn, w, n, stats, partials);
-  icp_update<<<1, 32, 0, stream>>>(partials, n_blocks, stats, T, T_out);
+  icp_update<<<1, lvs::kThreads, 0, stream>>>(partials, n_blocks, stats, T, T_out);
   LVS_RETURN_LAST_ERROR();
 }
 
@@ -562,9 +751,9 @@ extern "C" int lvs_outlier_statistical(const int* keys, const float* counts, int
   if (n_blocks < 1) return static_cast<int>(cudaErrorInvalidValue);
   stat_dist<<<n_blocks, lvs::kThreads, 0, stream>>>(keys, counts, leaf_cap, origin, inv_res, e, xyz, mask, n, k_vol,
                                                     dist, partials);
-  stat_mean<<<1, 32, 0, stream>>>(partials, n_blocks, stats);
+  stat_mean<<<1, lvs::kThreads, 0, stream>>>(partials, n_blocks, stats);
   stat_var<<<n_blocks, lvs::kThreads, 0, stream>>>(dist, mask, n, stats, partials);
-  stat_thresh<<<1, 32, 0, stream>>>(partials, n_blocks, stddev_mult, stats);
+  stat_thresh<<<1, lvs::kThreads, 0, stream>>>(partials, n_blocks, stddev_mult, stats);
   stat_keep<<<n_blocks, lvs::kThreads, 0, stream>>>(xyz, mask, dist, n, stats, out_xyz, out_mask);
   LVS_RETURN_LAST_ERROR();
 }

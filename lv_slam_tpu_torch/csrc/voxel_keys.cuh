@@ -1,7 +1,9 @@
 // Kernel 1's front end, shared by the callers that sort lanes by voxel:
 // kernel 1 (`csrc/voxel_downsample.cu`), kernels 1b and 2
 // (`csrc/voxel_dedup.cu`), and, for its partial rows, scratch layout and
-// run numbering, kernel 3 (`csrc/voxel_map.cu`).
+// run numbering, kernels 3 (`csrc/voxel_map.cu`) and 14
+// (`csrc/centroid_grid.cu`), which also share the flat-key front end and the
+// run walk at the end of this file.
 //
 // `voxel_ranges` (a grid of at most kRangeBlocks blocks, each thread a
 // stride of lanes) takes the voxel coordinates of each valid lane exactly
@@ -344,6 +346,262 @@ inline void launch_keys_and_sort(const float* xyz, const bool* mask, int n, floa
   voxel_keys<<<std::min(lvs::blocks_for(n), kKeyBlocks), lvs::kThreads, 0, stream>>>(xyz, mask, n, inv, s.part,
                                                                                       range_blocks, vc, s.keys_b);
   ks::launch_passes(n, s.keys_a, s.vals_a, s.keys_b, s.vals_b, &vc->sort, s.status, stream);
+}
+
+
+// ------------------------------------------------- kernels 3 and 14's front end
+//
+// A flat cell key is (rel0 * e + rel1) * e + rel2 with rel = floor(x *
+// (1/res)) - origin, the origin the masked minimum cell (masked lanes fold
+// in 2^30, the twins' `where(mask, coords, BIG).amin`; 0 on an axis where it
+// is 2^30). `flat_ranges` (the ranges pass) writes each block's minima,
+// maxima and unmasked count to its partial row; `flat_keys` (the keys pass)
+// reduces the partial rows in every block, and an in-extent lane (unmasked,
+// 0 <= rel < e on each axis) gets (rel0, rel1, rel2) packed most significant
+// first, each field min(max - origin, e - 1) wide in bits: the flat key's
+// order in the fewest digit passes. Other lanes get kInvalidKey and are
+// dropped (in the twins they sort behind every leaf and make none).
+
+struct FlatControl {
+  ks::Control sort;
+  int origin[3];  // origin_cell
+  int b1, b2;     // bit widths of the rel1 and rel2 fields
+};
+
+// Lane i's point at xyz + xs * i and its flag at mask + ms * i. Also zeroes
+// n_zero words from `zero`.
+__device__ __forceinline__ void flat_ranges(const float* __restrict__ xyz, int xs, const bool* __restrict__ mask,
+                                            int ms, int n, float inv, int* __restrict__ part,
+                                            unsigned* __restrict__ zero, long long n_zero) {
+  __shared__ int row[kParts];
+  const long long stride = static_cast<long long>(gridDim.x) * blockDim.x;
+  const long long first = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
+  int v[kParts];
+  empty_ranges(v);
+#pragma unroll 4
+  for (long long i = first; i < n; i += stride) {
+    if (!mask[ms * i]) {
+      v[0] = min(v[0], kBigX);
+      v[2] = min(v[2], kBigX);
+      v[4] = min(v[4], kBigX);
+      continue;
+    }
+    const float* p = xyz + xs * i;
+    add_range(v, static_cast<int>(floorf(p[0] * inv)), static_cast<int>(floorf(p[1] * inv)),
+              static_cast<int>(floorf(p[2] * inv)));
+  }
+  block_ranges(v, row);
+  if (threadIdx.x < kParts) part[blockIdx.x * kParts + threadIdx.x] = row[threadIdx.x];
+  for (long long i = first; i < n_zero; i += stride) zero[i] = 0u;
+}
+
+// The keys pass after `flat_ranges`: block 0 writes the origin (to `fc` and
+// `origin_cell`), the pass count and the field widths; every block counts
+// its keys' digits and adds its in-extent lanes to the sort's count.
+__device__ __forceinline__ void flat_keys(const float* __restrict__ xyz, int xs, const bool* __restrict__ mask, int ms,
+                                          int n, float inv, int e, const int* __restrict__ part, int n_part,
+                                          FlatControl* fc, int* __restrict__ origin_cell,
+                                          unsigned long long* __restrict__ keys) {
+  __shared__ unsigned counts[ks::kMaxPasses][ks::kRadix];
+  __shared__ int range[kParts];
+  __shared__ unsigned block_valid;
+  if (threadIdx.x == 0) block_valid = 0u;
+  reduce_parts(part, n_part, counts, range);  // ends with a barrier
+  int o[3], w[3];
+#pragma unroll
+  for (int k = 0; k < 3; ++k) {
+    o[k] = range[2 * k] == kBigX ? 0 : range[2 * k];
+    const long long span = min(max(static_cast<long long>(range[2 * k + 1]) - o[k], 0ll),
+                               static_cast<long long>(e - 1));
+    w[k] = range[6] ? bit_width(static_cast<unsigned>(span)) : 0;
+  }
+  const int n_passes = max(1, (w[0] + w[1] + w[2] + ks::kDigitBits - 1) / ks::kDigitBits);
+  if (blockIdx.x == 0 && threadIdx.x == 0) {
+    fc->sort.n_passes = n_passes;
+    fc->b1 = w[1];
+    fc->b2 = w[2];
+#pragma unroll
+    for (int k = 0; k < 3; ++k) fc->origin[k] = origin_cell[k] = o[k];
+  }
+  unsigned mine = 0;
+  const long long stride = static_cast<long long>(gridDim.x) * blockDim.x;
+  for (long long i = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x; i < n; i += stride) {
+    unsigned long long key = ks::kInvalidKey;
+    if (mask[ms * i]) {
+      int rel[3];
+      bool in = true;
+#pragma unroll
+      for (int k = 0; k < 3; ++k) {  // int32 differences, wrapping as the twin's
+        rel[k] = static_cast<int>(static_cast<unsigned>(static_cast<int>(floorf(xyz[xs * i + k] * inv))) -
+                                  static_cast<unsigned>(o[k]));
+        in = in && rel[k] >= 0 && rel[k] < e;
+      }
+      if (in) {
+        key = (static_cast<unsigned long long>(rel[0]) << (w[1] + w[2])) |
+              (static_cast<unsigned long long>(rel[1]) << w[2]) | static_cast<unsigned long long>(rel[2]);
+        ks::count_digits(counts, key, n_passes);
+        ++mine;
+      }
+    }
+    keys[i] = key;
+  }
+  mine = lvs::warp_sum(mine);
+  if ((threadIdx.x & 31) == 0 && mine) atomicAdd(&block_valid, mine);
+  __syncthreads();
+  ks::flush_digits(counts, n_passes, &fc->sort);
+  if (threadIdx.x == 0 && block_valid) atomicAdd(reinterpret_cast<unsigned*>(&fc->sort.n_valid), block_valid);
+}
+
+// The flat key (rel0 * e + rel1) * e + rel2 of a packed key whose rel1 and
+// rel2 fields are b1 and b2 bits wide.
+__device__ __forceinline__ int flat_key(unsigned long long key, int b1, int b2, int e) {
+  const int rel0 = static_cast<int>(key >> (b1 + b2));
+  const int rel1 = static_cast<int>((key >> b2) & ((1ull << b1) - 1));
+  const int rel2 = static_cast<int>(key & ((1ull << b2) - 1));
+  return (rel0 * e + rel1) * e + rel2;
+}
+
+constexpr int kWalk = 4;  // positions a walk step adds at once
+
+// Adds the run of `key` to `mo` (`add(mo, point)`) from staged position m on,
+// in sorted order, while positions below `end` hold it; returns the position
+// past the run's last. Staged positions are consecutive sorted ones and a
+// run's positions are contiguous, so where the kWalk-th position ahead holds
+// the key, every one before it does: those steps add kWalk points in order
+// (each sum's order is the run's), with the next step's key and points read
+// first. The last steps go one position at a time, each reading the next
+// position before it adds its own.
+template <typename Acc, typename Add>
+__device__ __forceinline__ int walk(const unsigned long long* tile_key, const float4* tile_point, int m, int end,
+                                    unsigned long long key, Acc& mo, Add add) {
+  if (m + kWalk <= end && tile_key[m + kWalk - 1] == key) {
+    float4 p[kWalk];
+#pragma unroll
+    for (int q = 0; q < kWalk; ++q) p[q] = tile_point[m + q];
+    for (;;) {  // the next step's key and points are read before this step's adds
+      const int next = m + kWalk;
+      const bool more = next + kWalk <= end && tile_key[min(next + kWalk, end) - 1] == key;
+      float4 np[kWalk];
+#pragma unroll
+      for (int q = 0; q < kWalk; ++q) np[q] = tile_point[min(next + q, end - 1)];
+#pragma unroll
+      for (int q = 0; q < kWalk; ++q) add(mo, p[q]);
+      m = next;
+      if (!more) break;
+#pragma unroll
+      for (int q = 0; q < kWalk; ++q) p[q] = np[q];
+    }
+  }
+  if (m >= end) return m;
+  unsigned long long k = tile_key[m];
+  float4 p = tile_point[m];
+  while (k == key) {
+    const int next = m + 1 < end ? m + 1 : m;
+    const unsigned long long next_key = tile_key[next];
+    const float4 next_p = tile_point[next];
+    add(mo, p);
+    ++m;
+    k = m < end ? next_key : ~key;
+    p = next_p;
+  }
+  return m;
+}
+
+// A run pass after the sort: one tile of the sorted keys a block, kRunItems
+// consecutive positions a thread; run r's sums (an `Acc`, each point added
+// by `add` in sorted order) go to `write(acc, r, packed key)` when r <
+// leaf_cap, and `mine` sums what `write` returns. The tile's points are
+// gathered into shared memory at once, and each run start's thread walks its
+// run there. The tile's last run may go on past the tile (a cell of more
+// points than a tile holds, or one that straddles two): then the block
+// stages the following positions kRunTile at a time (every thread's loads at
+// once) and that run's thread walks each staging in turn. Returns false for
+// a block past the last key (the whole block).
+template <typename Acc, typename Add, typename Write>
+__device__ __forceinline__ bool run_leaves(const unsigned long long* __restrict__ keys_a,
+                                           const unsigned* __restrict__ vals_a,
+                                           const unsigned long long* __restrict__ keys_b,
+                                           const unsigned* __restrict__ vals_b, const ks::Control* sort,
+                                           unsigned* ticket, unsigned* run_status, const float* __restrict__ xyz,
+                                           int xs, int leaf_cap, Add add, Write write, unsigned& mine) {
+  __shared__ unsigned long long tile_key[kRunTile];
+  __shared__ float4 tile_point[kRunTile];
+  __shared__ unsigned long long carry_key;  // the key of the run that goes on past the tile
+  __shared__ int carry;                     // 0: none, 1: the block stages for it, 2: it has ended
+  const int n = sort->n_valid;
+  const bool in_a = (sort->n_passes & 1) != 0;
+  const unsigned long long* __restrict__ skeys = in_a ? keys_a : keys_b;
+  const unsigned* __restrict__ vals = in_a ? vals_a : vals_b;
+  mine = 0;
+  RunTile t;
+  if (!load_run_tile(skeys, n, ticket, t)) return false;
+  if (threadIdx.x == 0) carry = 0;
+  unsigned src[kRunItems];
+#pragma unroll
+  for (int j = 0; j < kRunItems; ++j) src[j] = t.in[j] ? vals[t.first + t.mine0 + j] : 0u;
+#pragma unroll
+  for (int j = 0; j < kRunItems; ++j) {
+    if (t.in[j]) {
+      tile_key[t.mine0 + j] = t.key[j];
+      const float* p = xyz + static_cast<long long>(xs) * src[j];
+      tile_point[t.mine0 + j] = make_float4(p[0], p[1], p[2], 0.0f);
+    }
+  }
+  number_runs(t, run_status);  // ends with a barrier
+  unsigned r = t.r;
+  bool carrier = false;  // this thread's last run goes on past the tile
+  Acc carried;
+  unsigned carried_row = 0;
+  unsigned long long carried_key = 0;
+
+#pragma unroll
+  for (int j = 0; j < kRunItems; ++j) {
+    if (!t.start[j]) continue;
+    const unsigned row = r++;
+    if (row >= static_cast<unsigned>(leaf_cap)) continue;
+    Acc mo;
+    const int m = walk(tile_key, tile_point, t.mine0 + j, t.n, t.key[j], mo, add);
+    if (m == kRunTile && t.first + kRunTile < n) {
+      carrier = true;
+      carried = mo;
+      carried_row = row;
+      carried_key = t.key[j];
+      carry_key = t.key[j];
+      carry = 1;
+      continue;
+    }
+    mine += write(mo, row, t.key[j]);
+  }
+  __syncthreads();
+  if (carry == 1) {  // the whole block: every thread read carry after the barrier
+    const unsigned long long key = carry_key;
+    for (long long base = t.first + kRunTile;; base += kRunTile) {
+      const int count = static_cast<int>(min(static_cast<long long>(kRunTile), n - base));
+      unsigned long long k[kRunItems];
+      unsigned at[kRunItems];
+#pragma unroll
+      for (int j = 0; j < kRunItems; ++j) k[j] = t.mine0 + j < count ? skeys[base + t.mine0 + j] : ~key;
+#pragma unroll
+      for (int j = 0; j < kRunItems; ++j) at[j] = k[j] == key ? vals[base + t.mine0 + j] : 0u;
+#pragma unroll
+      for (int j = 0; j < kRunItems; ++j) {
+        tile_key[t.mine0 + j] = k[j];
+        if (k[j] == key) {
+          const float* p = xyz + static_cast<long long>(xs) * at[j];
+          tile_point[t.mine0 + j] = make_float4(p[0], p[1], p[2], 0.0f);
+        }
+      }
+      __syncthreads();
+      if (carrier) {
+        const int m = walk(tile_key, tile_point, 0, count, key, carried, add);
+        if (m < count || base + kRunTile >= n) carry = 2;
+      }
+      __syncthreads();
+      if (carry == 2) break;
+    }
+    if (carrier) mine += write(carried, carried_row, carried_key);
+  }
+  return true;
 }
 
 }  // namespace

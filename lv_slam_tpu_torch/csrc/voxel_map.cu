@@ -15,8 +15,9 @@
 //
 // Design (`lvs_voxel_map`, one C call of 6 launches at e = 256, no host
 // read and no torch op between them; the shape of kernel 1's, with its
-// partial rows, scratch layout and run numbering from csrc/voxel_keys.cuh
-// and its passes from csrc/key_sort.cuh):
+// partial rows, scratch layout, run numbering, flat-key front end and run
+// walk from csrc/voxel_keys.cuh, shared with kernel 14, and its passes from
+// csrc/key_sort.cuh):
 // 1. `leaf_ranges` (at most 132 blocks, each thread a stride of lanes):
 //    the cell coordinates floor(x * (1/res)) of the unmasked lanes, as
 //    `ops/cells.cell_coords` takes them, each block's minima (masked lanes
@@ -79,38 +80,15 @@ __device__ __forceinline__ float jmax(float a, float b) {
   return (isnan(a) || isnan(b)) ? nanf("") : fmaxf(a, b);
 }
 
-struct MapControl {
-  ks::Control sort;
-  int origin[3];  // origin_cell
-  int b1, b2;     // bit widths of the rel1 and rel2 fields
-};
-
 __global__ void __launch_bounds__(lvs::kThreads) leaf_ranges(
     const float* __restrict__ xyz, int xs, const bool* __restrict__ mask, int ms, int n, float inv,
     int* __restrict__ part,
     unsigned* __restrict__ zero, long long n_zero, int leaf_cap, float* __restrict__ means,
     float* __restrict__ icovs, float* __restrict__ weights, float* __restrict__ normals, bool* __restrict__ valid,
     int* __restrict__ keys, int* __restrict__ origin, int* __restrict__ n_leaves) {
-  __shared__ int row[kParts];
+  flat_ranges(xyz, xs, mask, ms, n, inv, part, zero, n_zero);
   const long long stride = static_cast<long long>(gridDim.x) * blockDim.x;
   const long long first = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
-  int v[kParts];
-  empty_ranges(v);
-#pragma unroll 4
-  for (long long i = first; i < n; i += stride) {
-    if (!mask[ms * i]) {
-      v[0] = min(v[0], kBigX);
-      v[2] = min(v[2], kBigX);
-      v[4] = min(v[4], kBigX);
-      continue;
-    }
-    const float* p = xyz + xs * i;
-    add_range(v, static_cast<int>(floorf(p[0] * inv)), static_cast<int>(floorf(p[1] * inv)),
-              static_cast<int>(floorf(p[2] * inv)));
-  }
-  block_ranges(v, row);
-  if (threadIdx.x < kParts) part[blockIdx.x * kParts + threadIdx.x] = row[threadIdx.x];
-  for (long long i = first; i < n_zero; i += stride) zero[i] = 0u;
   for (long long i = first; i < 9ll * leaf_cap; i += stride) icovs[i] = 0.0f;
   for (long long i = first; i < 3ll * leaf_cap; i += stride) {
     means[i] = 0.0f;
@@ -129,56 +107,9 @@ __global__ void __launch_bounds__(lvs::kThreads) leaf_ranges(
 
 __global__ void __launch_bounds__(lvs::kThreads) leaf_keys(
     const float* __restrict__ xyz, int xs, const bool* __restrict__ mask, int ms, int n, float inv, int e,
-    const int* __restrict__ part, int n_part, MapControl* mc, int* __restrict__ origin_cell,
+    const int* __restrict__ part, int n_part, FlatControl* mc, int* __restrict__ origin_cell,
     unsigned long long* __restrict__ keys) {
-  __shared__ unsigned counts[ks::kMaxPasses][ks::kRadix];
-  __shared__ int range[kParts];
-  __shared__ unsigned block_valid;
-  if (threadIdx.x == 0) block_valid = 0u;
-  reduce_parts(part, n_part, counts, range);  // ends with a barrier
-  int o[3], w[3];
-#pragma unroll
-  for (int k = 0; k < 3; ++k) {
-    o[k] = range[2 * k] == kBigX ? 0 : range[2 * k];
-    const long long span = min(max(static_cast<long long>(range[2 * k + 1]) - o[k], 0ll),
-                               static_cast<long long>(e - 1));
-    w[k] = range[6] ? bit_width(static_cast<unsigned>(span)) : 0;
-  }
-  const int n_passes = max(1, (w[0] + w[1] + w[2] + ks::kDigitBits - 1) / ks::kDigitBits);
-  if (blockIdx.x == 0 && threadIdx.x == 0) {
-    mc->sort.n_passes = n_passes;
-    mc->b1 = w[1];
-    mc->b2 = w[2];
-#pragma unroll
-    for (int k = 0; k < 3; ++k) mc->origin[k] = origin_cell[k] = o[k];
-  }
-  unsigned mine = 0;
-  const long long stride = static_cast<long long>(gridDim.x) * blockDim.x;
-  for (long long i = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x; i < n; i += stride) {
-    unsigned long long key = ks::kInvalidKey;
-    if (mask[ms * i]) {
-      int rel[3];
-      bool in = true;
-#pragma unroll
-      for (int k = 0; k < 3; ++k) {  // int32 differences, wrapping as the twin's
-        rel[k] = static_cast<int>(static_cast<unsigned>(static_cast<int>(floorf(xyz[xs * i + k] * inv))) -
-                                  static_cast<unsigned>(o[k]));
-        in = in && rel[k] >= 0 && rel[k] < e;
-      }
-      if (in) {
-        key = (static_cast<unsigned long long>(rel[0]) << (w[1] + w[2])) |
-              (static_cast<unsigned long long>(rel[1]) << w[2]) | static_cast<unsigned long long>(rel[2]);
-        ks::count_digits(counts, key, n_passes);
-        ++mine;
-      }
-    }
-    keys[i] = key;
-  }
-  mine = lvs::warp_sum(mine);
-  if ((threadIdx.x & 31) == 0 && mine) atomicAdd(&block_valid, mine);
-  __syncthreads();
-  ks::flush_digits(counts, n_passes, &mc->sort);
-  if (threadIdx.x == 0 && block_valid) atomicAdd(reinterpret_cast<unsigned*>(&mc->sort.n_valid), block_valid);
+  flat_keys(xyz, xs, mask, ms, n, inv, e, part, n_part, mc, origin_cell, keys);
 }
 
 // One voxel's sums, point by point in sorted order: moments centred on each
@@ -287,159 +218,27 @@ __device__ __noinline__ bool write_leaf(Sums mo, int leaf, int key, const int* o
   return true;
 }
 
-// The flat key (rel0 * e + rel1) * e + rel2 of a packed key whose rel1 and
-// rel2 fields are b1 and b2 bits wide.
-__device__ __forceinline__ int flat_key(unsigned long long key, int b1, int b2, int e) {
-  const int rel0 = static_cast<int>(key >> (b1 + b2));
-  const int rel1 = static_cast<int>((key >> b2) & ((1ull << b1) - 1));
-  const int rel2 = static_cast<int>(key & ((1ull << b2) - 1));
-  return (rel0 * e + rel1) * e + rel2;
-}
-
-constexpr int kWalk = 4;  // positions a walk step adds at once
-
-// Adds the run of `key` to `mo` from staged position m on, in sorted order,
-// while positions below `end` hold it; returns the position past the run's
-// last. Staged positions are consecutive sorted ones and a run's positions
-// are contiguous, so where the kWalk-th position ahead holds the key, every
-// one before it does: those steps move kWalk points to the centred frame
-// independently, then add them in order (each sum's order is the run's),
-// with the next step's key and points read first. The last steps go one
-// position at a time, each reading the next position before it adds its
-// own.
-__device__ __forceinline__ int walk(const unsigned long long* tile_key, const float4* tile_point, int m, int end,
-                                    unsigned long long key, Sums& mo, float res, float inv_res) {
-  if (m + kWalk <= end && tile_key[m + kWalk - 1] == key) {
-    float4 p[kWalk];
-#pragma unroll
-    for (int q = 0; q < kWalk; ++q) p[q] = tile_point[m + q];
-    for (;;) {  // the next step's key and points are read before this step's adds
-      const int next = m + kWalk;
-      const bool more = next + kWalk <= end && tile_key[min(next + kWalk, end) - 1] == key;
-      float4 np[kWalk];
-#pragma unroll
-      for (int q = 0; q < kWalk; ++q) np[q] = tile_point[min(next + q, end - 1)];
-#pragma unroll
-      for (int q = 0; q < kWalk; ++q) mo.add(p[q].x, p[q].y, p[q].z, res, inv_res);
-      m = next;
-      if (!more) break;
-#pragma unroll
-      for (int q = 0; q < kWalk; ++q) p[q] = np[q];
-    }
-  }
-  if (m >= end) return m;
-  unsigned long long k = tile_key[m];
-  float4 p = tile_point[m];
-  while (k == key) {
-    const int next = m + 1 < end ? m + 1 : m;
-    const unsigned long long next_key = tile_key[next];
-    const float4 next_p = tile_point[next];
-    mo.add(p.x, p.y, p.z, res, inv_res);
-    ++m;
-    k = m < end ? next_key : ~key;
-    p = next_p;
-  }
-  return m;
-}
-
-// One tile of the sorted keys a block, kRunItems consecutive positions a
-// thread: run r's leaf into row r when r < leaf_cap. The tile's points are
-// gathered into shared memory at once, and each run start's thread walks
-// its run there. The tile's last run may go on past the tile (a voxel of
-// more points than a tile holds, or one that straddles two): then the block
-// stages the following positions kRunTile at a time (every thread's loads
-// at once) and that run's thread walks each staging in turn.
+// `run_leaves` (csrc/voxel_keys.cuh): run r's leaf into row r when r <
+// leaf_cap, its sums walked in sorted order; the block adds its valid
+// leaves to n_leaves.
 __global__ void __launch_bounds__(ks::kThreads) leaf_runs(
     const unsigned long long* __restrict__ keys_a, const unsigned* __restrict__ vals_a,
-    const unsigned long long* __restrict__ keys_b, const unsigned* __restrict__ vals_b, MapControl* mc,
+    const unsigned long long* __restrict__ keys_b, const unsigned* __restrict__ vals_b, FlatControl* mc,
     unsigned* run_status, const float* __restrict__ xyz, int xs, float res, float inv_res, int e, int leaf_cap,
     int min_points, float eig_mult, int weighted, float* __restrict__ means, float* __restrict__ icovs,
     float* __restrict__ weights, float* __restrict__ normals, bool* __restrict__ valid, int* __restrict__ keys,
     int* __restrict__ n_leaves) {
-  __shared__ unsigned long long tile_key[kRunTile];
-  __shared__ float4 tile_point[kRunTile];
   __shared__ unsigned block_leaves;
-  __shared__ unsigned long long carry_key;  // the key of the run that goes on past the tile
-  __shared__ int carry;                     // 0: none, 1: the block stages for it, 2: it has ended
-  const int n = mc->sort.n_valid;
-  const bool in_a = (mc->sort.n_passes & 1) != 0;
-  const unsigned long long* __restrict__ skeys = in_a ? keys_a : keys_b;
-  const unsigned* __restrict__ vals = in_a ? vals_a : vals_b;
-  RunTile t;
-  if (!load_run_tile(skeys, n, &mc->sort.tickets[ks::kMaxPasses], t)) return;  // whole block
-  if (threadIdx.x == 0) {
-    block_leaves = 0u;
-    carry = 0;
-  }
-  unsigned src[kRunItems];
-#pragma unroll
-  for (int j = 0; j < kRunItems; ++j) src[j] = t.in[j] ? vals[t.first + t.mine0 + j] : 0u;
-#pragma unroll
-  for (int j = 0; j < kRunItems; ++j) {
-    if (t.in[j]) {
-      tile_key[t.mine0 + j] = t.key[j];
-      const float* p = xyz + static_cast<long long>(xs) * src[j];
-      tile_point[t.mine0 + j] = make_float4(p[0], p[1], p[2], 0.0f);
-    }
-  }
-  number_runs(t, run_status);  // ends with a barrier
-  unsigned r = t.r, mine = 0;
-  const int b1 = mc->b1, b2 = mc->b2;
-  bool carrier = false;  // this thread's last run goes on past the tile
-  Sums carried;
-  unsigned carried_row = 0;
-  unsigned long long carried_key = 0;
-
-#pragma unroll
-  for (int j = 0; j < kRunItems; ++j) {
-    if (!t.start[j]) continue;
-    const unsigned row = r++;
-    if (row >= static_cast<unsigned>(leaf_cap)) continue;
-    Sums mo;
-    const int m = walk(tile_key, tile_point, t.mine0 + j, t.n, t.key[j], mo, res, inv_res);
-    if (m == kRunTile && t.first + kRunTile < n) {
-      carrier = true;
-      carried = mo;
-      carried_row = row;
-      carried_key = t.key[j];
-      carry_key = t.key[j];
-      carry = 1;
-      continue;
-    }
-    mine += write_leaf(mo, static_cast<int>(row), flat_key(t.key[j], b1, b2, e), mc->origin, res, e, min_points,
-                       eig_mult, weighted, means, icovs, weights, normals, valid, keys);
-  }
-  __syncthreads();
-  if (carry == 1) {  // the whole block: every thread read carry after the barrier
-    const unsigned long long key = carry_key;
-    for (long long base = t.first + kRunTile;; base += kRunTile) {
-      const int count = static_cast<int>(min(static_cast<long long>(kRunTile), n - base));
-      unsigned long long k[kRunItems];
-      unsigned at[kRunItems];
-#pragma unroll
-      for (int j = 0; j < kRunItems; ++j) k[j] = t.mine0 + j < count ? skeys[base + t.mine0 + j] : ~key;
-#pragma unroll
-      for (int j = 0; j < kRunItems; ++j) at[j] = k[j] == key ? vals[base + t.mine0 + j] : 0u;
-#pragma unroll
-      for (int j = 0; j < kRunItems; ++j) {
-        tile_key[t.mine0 + j] = k[j];
-        if (k[j] == key) {
-          const float* p = xyz + static_cast<long long>(xs) * at[j];
-          tile_point[t.mine0 + j] = make_float4(p[0], p[1], p[2], 0.0f);
-        }
-      }
-      __syncthreads();
-      if (carrier) {
-        const int m = walk(tile_key, tile_point, 0, count, key, carried, res, inv_res);
-        if (m < count || base + kRunTile >= n) carry = 2;
-      }
-      __syncthreads();
-      if (carry == 2) break;
-    }
-    if (carrier)
-      mine += write_leaf(carried, static_cast<int>(carried_row), flat_key(carried_key, b1, b2, e), mc->origin, res,
-                         e, min_points, eig_mult, weighted, means, icovs, weights, normals, valid, keys);
-  }
+  if (threadIdx.x == 0) block_leaves = 0u;
+  const auto add = [=](Sums& mo, const float4& p) { mo.add(p.x, p.y, p.z, res, inv_res); };
+  const auto write = [&](const Sums& mo, unsigned row, unsigned long long key) -> unsigned {
+    return write_leaf(mo, static_cast<int>(row), flat_key(key, mc->b1, mc->b2, e), mc->origin, res, e, min_points,
+                      eig_mult, weighted, means, icovs, weights, normals, valid, keys);
+  };
+  unsigned mine;
+  if (!run_leaves<Sums>(keys_a, vals_a, keys_b, vals_b, &mc->sort, &mc->sort.tickets[ks::kMaxPasses], run_status,
+                        xyz, xs, leaf_cap, add, write, mine))
+    return;  // whole block
   mine = lvs::warp_sum(mine);
   if ((threadIdx.x & 31) == 0 && mine) atomicAdd(&block_leaves, mine);
   __syncthreads();
@@ -465,7 +264,7 @@ __global__ void lut_scatter(const int* __restrict__ keys, const bool* __restrict
 
 }  // namespace
 
-Layout map_layout(int n) { return layout(n, sizeof(MapControl)); }
+Layout map_layout(int n) { return layout(n, sizeof(FlatControl)); }
 
 extern "C" long long lvs_voxel_map_scratch_bytes(int n) { return static_cast<long long>(map_layout(n).total); }
 
@@ -484,7 +283,7 @@ extern "C" int lvs_voxel_map(const float* xyz, int xs, const bool* mask, int ms,
   const Layout l = map_layout(n);
   if (scratch_bytes < static_cast<long long>(l.total)) return static_cast<int>(cudaErrorInvalidValue);
   const Scratch s = scratch_at(scratch, l);
-  auto* mc = reinterpret_cast<MapControl*>(s.base);
+  auto* mc = reinterpret_cast<FlatControl*>(s.base);
   const int range_blocks = range_blocks_for(n, 9ll * leaf_cap, s.n_zero);
   leaf_ranges<<<range_blocks, lvs::kThreads, 0, stream>>>(xyz, xs, mask, ms, n, inv_res, s.part,
                                                           reinterpret_cast<unsigned*>(s.base), s.n_zero, leaf_cap,

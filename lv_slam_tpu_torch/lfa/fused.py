@@ -34,7 +34,7 @@ from lv_slam_tpu_torch.lfa.odometry import _GRID_CELL, feature_grids, odom_step
 from lv_slam_tpu_torch.ops.knn import (
     CellTable,
     KnnGrid,
-    crop_cell_table_,
+    crop_cell_tables_,
     empty_cell_table,
     insert_cell_table_,
 )
@@ -90,12 +90,9 @@ def make_lfa_fused(cfg: LfaConfig, external_odom: bool = True, crop_radius: Opti
         )
         center = pose[:3, 3].contiguous()
         if cfg.crop_interval <= 0.0:
-            crop_cell_table_(edge, center, crop_radius)
-            crop_cell_table_(surf, center, crop_radius)
+            crop_cell_tables_(edge, surf, center, crop_radius)
             return center
-        new_center = crop_cell_table_(edge, center, crop_radius, crop_center, cfg.crop_interval)
-        crop_cell_table_(surf, center, crop_radius, crop_center, cfg.crop_interval)
-        return new_center
+        return crop_cell_tables_(edge, surf, center, crop_radius, crop_center, cfg.crop_interval)
 
     def _refine(state: LfaFusedState, feats: FeatureClouds, guess: torch.Tensor) -> torch.Tensor:
         t = guess

@@ -34,7 +34,8 @@ tables from its map buffers every scan (`build_cell_table`).
   between two kernels.
 - `crop_cell_table_` is kernel 9b (same file) on CUDA tensors and
   `crop_cell_table_ref_` on CPU tensors. It can gate itself on the LFA's
-  `crop_interval` without a host read.
+  `crop_interval` without a host read. `crop_cell_tables_` crops the LFA
+  step's two tables in one launch on the same gate.
 - `build_cell_table` is kernel 9c (same file) on CUDA tensors and
   `build_cell_table_ref` on CPU tensors: bucket keys, a stable `torch.sort`
   as glue, each bucket run's first S rows written to their slots.
@@ -125,7 +126,9 @@ CROP_KERNEL = Kernel(
     "crop_cell_table",
     source="lv_slam_tpu_torch/csrc/cell_table.cu",
     replaces="lv_slam_tpu/ops/knn.py:218",
-    entries={"lvs_crop_cell_table": [PTR, I32, PTR, PTR, F32, F32, PTR]},
+    # table a, its slots, table b (or null), its slots, center, last center (or null), interval^2, radius^2
+    # -> center of the last crop
+    entries={"lvs_crop_cell_tables": [PTR, I32, PTR, I32, PTR, PTR, F32, F32, PTR]},
 )
 
 
@@ -323,13 +326,39 @@ def crop_cell_table_(
     plain version on CPU."""
     if table.table.device.type == "cpu":
         return crop_cell_table_ref_(table, center, radius, last_center, interval)
+    return _crop((table,), center, radius, last_center, interval)
+
+
+def crop_cell_tables_(
+    edge: CellTable,
+    surf: CellTable,
+    center: torch.Tensor,
+    radius: float,
+    last_center: Optional[torch.Tensor] = None,
+    interval: float = 0.0,
+) -> torch.Tensor:
+    """`crop_cell_table_` of both LFA tables on one gate, in one kernel 9b
+    launch on CUDA; the plain version on CPU. Returns the center of the last
+    crop."""
+    if edge.table.device.type == "cpu":
+        return crop_cell_tables_ref_(edge, surf, center, radius, last_center, interval)
+    return _crop((edge, surf), center, radius, last_center, interval)
+
+
+def _crop(tables, center, radius, last_center, interval) -> torch.Tensor:
+    """Kernel 9b's launch over one or two tables."""
     center = center.contiguous()
-    tensors = (table.table, center) + ((last_center,) if last_center is not None else ())
+    tensors = tuple(t.table for t in tables) + (center,) + ((last_center,) if last_center is not None else ())
     check_cuda("crop_cell_table", *tensors)
     check_dtype("crop_cell_table", center, torch.float32, (3,))
+    for t in tables:
+        if t.table.dtype != torch.float32 or t.table.data_ptr() % 16:
+            raise ValueError("crop_cell_table: expected 16-byte aligned float32 tables")
     out = torch.empty((3,), dtype=torch.float32, device=center.device)
+    a, b = tables if len(tables) == 2 else (tables[0], None)
     CROP_KERNEL.call(
-        "lvs_crop_cell_table", ptr(table.table), table.table.numel() // 4, ptr(center),
+        "lvs_crop_cell_tables", ptr(a.table), a.table.numel() // 4, ptr(b.table) if b is not None else None,
+        b.table.numel() // 4 if b is not None else 0, ptr(center),
         ptr(last_center) if last_center is not None else None, _sq(interval), _sq(radius), ptr(out),
     )
     CROP_KERNEL.launches += 1
@@ -362,6 +391,21 @@ def crop_cell_table_ref_(
     go = m[0] + m[1] + m[2] > _sq(interval)
     rows[..., 3] = torch.where(go, new, rows[..., 3])
     return torch.where(go, center, last_center)
+
+
+def crop_cell_tables_ref_(
+    edge: CellTable,
+    surf: CellTable,
+    center: torch.Tensor,
+    radius: float,
+    last_center: Optional[torch.Tensor] = None,
+    interval: float = 0.0,
+) -> torch.Tensor:
+    """Plain PyTorch version of `crop_cell_tables_`: the two single-table
+    crops on the same (center, last_center) gate."""
+    out = crop_cell_table_ref_(edge, center, radius, last_center, interval)
+    crop_cell_table_ref_(surf, center, radius, last_center, interval)
+    return out
 
 
 def probe_buckets(table: CellTable, queries: torch.Tensor) -> torch.Tensor:

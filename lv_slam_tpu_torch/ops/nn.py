@@ -7,11 +7,12 @@ The reference scores a loop alignment with the mean squared distance of
 the moved candidate cloud to the new keyframe's cloud; the nearest point is
 approximated by the nearest centroid among the 27 cells (0.25 m) around the
 query, found by binary search over the sorted cell keys. Kernel 14
-(`csrc/centroid_grid.cu`) builds the grid and answers the queries on CUDA
-tensors; `*_ref` are the plain twins, which CPU tensors take. The same
-probe serves kernel 17 (`nn_points`: the matched centroid itself, ICP's
-correspondences) and kernel 18 (the outlier removals: the sum of the point
-counts of the 27 cells, on a grid at the removal's radius).
+(`csrc/centroid_grid.cu`) builds the grid (one C call over the repo's own
+key sort) and answers the queries (one search per (x, y) column of three
+cells) on CUDA tensors; `*_ref` are the plain twins, which CPU tensors
+take. The same probe serves kernel 17 (`nn_points`: the matched centroid
+itself, ICP's correspondences) and kernel 18 (the outlier removals: the sum
+of the point counts of the 27 cells, on a grid at the removal's radius).
 """
 
 from __future__ import annotations
@@ -23,7 +24,9 @@ import numpy as np
 import torch
 
 from lv_slam_tpu_torch.core.cloud import SENTINEL, PointCloud
-from lv_slam_tpu_torch.kernels._build import F32, I32, PTR, Kernel, check_cuda, check_dtype, ptr
+from lv_slam_tpu_torch.kernels._build import (
+    F32, I32, MAX_SORT_LANES, PTR, Kernel, check_cuda, check_dtype, ptr, scratch_bytes,
+)
 from lv_slam_tpu_torch.ops.linalg3 import dot3_fma, sqrt32
 from lv_slam_tpu_torch.ops.cells import cell_coords, inv_resolution
 
@@ -36,10 +39,8 @@ BUILD_KERNEL = Kernel(
     "build_centroid_grid",
     source="lv_slam_tpu_torch/csrc/centroid_grid.cu",
     replaces="lv_slam_tpu/ops/nn.py:42",
-    entries={
-        "lvs_grid_mark": [PTR, I32, PTR],
-        "lvs_grid_reduce": [PTR, PTR, PTR, PTR, I32, PTR, I32, PTR, PTR, PTR],
-    },
+    # xyz, mask, n, 1/res, leaf_cap, scratch, its bytes -> keys, centroids, counts, origin
+    entries={"lvs_centroid_grid": [PTR, PTR, I32, F32, I32, PTR, ctypes.c_longlong, PTR, PTR, PTR, PTR]},
 )
 QUERY_KERNEL = Kernel(
     "nn_sq_dists",
@@ -103,27 +104,30 @@ def _grid_keys(cloud: PointCloud, resolution: float):
 
 def build_centroid_grid(cloud: PointCloud, resolution: float, leaf_cap: int = 65536) -> CentroidGrid:
     """Cell centroids of a cloud, leaves in ascending key order; cells past
-    the first `leaf_cap` in key order are dropped. Kernel 14 on CUDA, the
+    the first `leaf_cap` in key order are dropped. Kernel 14 on CUDA (one C
+    call: keys, the repo's stable key sort, the runs' in-order sums), the
     plain version on CPU."""
     if cloud.xyz.device.type == "cpu":
         return build_centroid_grid_ref(cloud, resolution, leaf_cap)
-    keys, origin, xyz = _grid_keys(cloud, resolution)
-    skeys, order = torch.sort(keys, stable=True)
-    check_cuda("build_centroid_grid", skeys, order, xyz)
-    n = keys.shape[0]
+    xyz, mask = cloud.xyz.contiguous(), cloud.mask.contiguous()
+    n = cloud.cap
+    if n > MAX_SORT_LANES:
+        raise ValueError(f"build_centroid_grid: {n} lanes exceed the key sort's {MAX_SORT_LANES}")
+    check_cuda("build_centroid_grid", xyz, mask)
+    check_dtype("build_centroid_grid", xyz, torch.float32, (n, 3))
+    check_dtype("build_centroid_grid", mask, torch.bool, (n,))
     dev = xyz.device
-    flag = torch.empty((n,), dtype=torch.int32, device=dev)
-    out_keys = torch.empty((leaf_cap,), dtype=torch.int32, device=dev)
+    scratch = torch.empty((scratch_bytes("lvs_centroid_grid_scratch_bytes", n),), dtype=torch.uint8, device=dev)
+    keys = torch.empty((leaf_cap,), dtype=torch.int32, device=dev)
     centroids = torch.empty((leaf_cap, 3), dtype=torch.float32, device=dev)
     counts = torch.empty((leaf_cap,), dtype=torch.float32, device=dev)
-    BUILD_KERNEL.call("lvs_grid_mark", ptr(skeys), n, ptr(flag))
-    cum = torch.cumsum(flag, dim=0, dtype=torch.int32)  # leaf index + 1 at each run start
+    origin = torch.empty((3,), dtype=torch.int32, device=dev)
     BUILD_KERNEL.call(
-        "lvs_grid_reduce", ptr(skeys), ptr(order), ptr(flag), ptr(cum), n, ptr(xyz), leaf_cap,
-        ptr(out_keys), ptr(centroids), ptr(counts),
+        "lvs_centroid_grid", ptr(xyz), ptr(mask), n, inv_resolution(resolution), leaf_cap, ptr(scratch),
+        scratch.numel(), ptr(keys), ptr(centroids), ptr(counts), ptr(origin),
     )
     BUILD_KERNEL.launches += 1
-    return CentroidGrid(out_keys, centroids, counts, origin, float(resolution))
+    return CentroidGrid(keys, centroids, counts, origin, float(resolution))
 
 
 def build_centroid_grid_ref(cloud: PointCloud, resolution: float, leaf_cap: int = 65536) -> CentroidGrid:

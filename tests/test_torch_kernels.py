@@ -775,6 +775,48 @@ def test_voxel_map_and_dedup_read_nothing_on_the_card(cuda, scans):
 
 
 @pytest.mark.gpu
+def test_centroid_grid_cases_on_the_card(cuda):
+    """K14's build on chip_smoke's grid_cases, one launch and no
+    synchronizing call a call, keys, counts and origin identical to its twin
+    on the card and run on a CPU copy (centroids to 1e-6); on its grid the
+    column probe of K14's query, K17 and K18 bit for bit against their twins
+    (an empty and an all-masked cloud, leaf_cap below the runs, points an
+    ulp either side of cell faces, cells at the 1024 extent's edges, one
+    cell holding every point, sentinel lanes among real points)."""
+    cs = _chip_smoke()
+    assert cs.check_grid_cases(torch, cuda) == len(cs.GRID_CASE_NAMES)
+
+
+@pytest.mark.gpu
+def test_crop_both_tables_on_the_card(cuda):
+    """K9b's two-table crop on chip_smoke's crop_cases, one launch and no
+    synchronizing call a call, both tables and the crop center bit-identical
+    to the twin's two single-table crops (gate open, closed, absent)."""
+    cs = _chip_smoke()
+    assert cs.check_crop_cases(torch, cuda) == len(cs.crop_cases())
+
+
+@pytest.mark.gpu
+def test_centroid_grid_and_crop_read_nothing_on_the_card(cuda, scans):
+    """K14's build and K9b's two-table crop are each one C call: no
+    synchronizing call and no device work but their own kernels (no
+    torch.sort, no torch glue)."""
+    cs = _chip_smoke()
+    (s0, _), _ = scans
+    cloud = PointCloud.from_numpy(s0, cap=16384, device=cuda)
+    edge, surf = cs.crop_tables(torch, cuda)
+    center = torch.tensor([3.0, -2.0, 0.5], device=cuda)
+    last = center + 40.0
+    for name, fn in (("build_centroid_grid", lambda: nn.build_centroid_grid(cloud, 0.25)),
+                     ("crop_cell_table", lambda: knn.crop_cell_tables_(edge, surf, center, 25.0, last, 10.0))):
+        fn()
+        torch.cuda.synchronize()
+        _, syncs = _count_syncs(fn)
+        glue, _ = cs.foreign_functions(torch, fn, cs.DEVICE_FUNCTIONS[name])
+        assert syncs == 0 and not glue, (name, syncs, glue)
+
+
+@pytest.mark.gpu
 def test_to_hash_edge_cases_on_the_card(cuda):
     """K5 on chip_smoke's hash_cases, one launch and no synchronizing call a
     call, its table and n_dropped bit-identical to its twin on the card and

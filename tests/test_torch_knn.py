@@ -90,6 +90,31 @@ def test_crop_matches(batches):
     assert (got.reshape(-1, 4)[:, 3] > 0.5).sum() > 0
 
 
+@pytest.mark.parametrize("gate", ["open", "closed", "crop_interval 0"])
+def test_crop_both_tables_matches(batches, gate):
+    """The two-table crop (one kernel 9b launch on the card; here its twin,
+    the two single-table crops on one gate) against JAX's
+    `crop_cell_table` of each table: cropped where the gate is open or
+    absent, unchanged where it is closed; the returned center is the crop's
+    or the last one."""
+    _, jedge, tedge = _insert_both(batches[0], 4096, 0.4, 0)
+    _, jsurf, tsurf = _insert_both(batches[0], 4096, 0.8, 2)
+    center = batches[1][4][:3, 3].copy()
+    last = {"open": center + 30.0, "closed": center + 3.0, "crop_interval 0": None}[gate]
+    interval = 0.0 if last is None else 10.0
+    edge, surf = _copy(tedge), _copy(tsurf)
+    lc = torch.from_numpy(last.astype(np.float32)) if last is not None else None
+    out = tk.crop_cell_tables_(edge, surf, torch.from_numpy(center), 12.0, lc, interval)
+    for got, jt, before in ((edge, jedge, tedge), (surf, jsurf, tsurf)):
+        want = np.asarray(jk.crop_cell_table(jt, jnp.asarray(center), 12.0).table) if gate != "closed" else \
+            before.table.numpy()
+        np.testing.assert_array_equal(got.table.numpy().view(np.int32), want.view(np.int32))
+        if gate != "closed":
+            assert (got.table.numpy().reshape(-1, 4)[:, 3] > 0.5).sum() < (before.table.numpy().reshape(-1, 4)[:, 3]
+                                                                            > 0.5).sum()
+    np.testing.assert_array_equal(out.numpy(), last if gate == "closed" else center)
+
+
 def test_cell_table_points_match(batches):
     _, jt, tt = _insert_both(batches[0], 4096, 0.8, 2)
     pj, mj = (np.asarray(a) for a in jk.cell_table_points(jt))

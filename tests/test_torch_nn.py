@@ -186,3 +186,66 @@ def test_outlier_removal(scans, method, kw):
         same = got.mask.numpy() == keep
         np.testing.assert_array_equal(got.xyz.numpy()[same], np.asarray(want.xyz)[same])
         assert 1000 < keep.sum() < len(pts) - 500  # the removal dropped lanes
+
+
+def _chip_smoke():
+    """chip_smoke.py as a module (it imports numpy only at the top): the
+    edge cases that the card's checks run."""
+    import importlib.util
+    from pathlib import Path
+
+    spec = importlib.util.spec_from_file_location("_chip_smoke", Path(__file__).resolve().parents[1] / "chip_smoke.py")
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+CHIP_SMOKE = _chip_smoke()
+
+
+@pytest.fixture(scope="module")
+def grid_cases():
+    return {name: case for name, *case in CHIP_SMOKE.grid_cases()}
+
+
+@pytest.mark.parametrize("name", CHIP_SMOKE.GRID_CASE_NAMES)
+def test_grid_edge_cases(grid_cases, name):
+    """Kernel 14's twins on `chip_smoke.grid_cases` (which the card holds the
+    kernels to against these twins) against JAX's `build_centroid_grid` and
+    `nn_sq_dists`: keys, counts and origin identical, centroids to 1e-6
+    relative; the hit set identical, d2 to 1e-6 relative."""
+    pts, mask, leaf_cap, queries, qmask = grid_cases[name]
+    res = CHIP_SMOKE.GRID_RES
+    want = jax.jit(functools.partial(jnn.build_centroid_grid, resolution=res, leaf_cap=leaf_cap))(
+        JCloud(pts, np.zeros(len(pts), np.float32), mask))
+    got = tnn.build_centroid_grid(TCloud(torch.from_numpy(pts), torch.zeros(len(pts)), torch.from_numpy(mask)),
+                                  res, leaf_cap)
+    for field in ("keys", "counts", "origin_cell"):
+        np.testing.assert_array_equal(getattr(got, field).numpy(), np.asarray(getattr(want, field)), err_msg=field)
+    valid = got.counts.numpy() > 0
+    c_j = np.asarray(want.centroids)
+    np.testing.assert_allclose(got.centroids.numpy()[valid], c_j[valid], rtol=1e-6, atol=0)
+    np.testing.assert_array_equal(got.centroids.numpy()[~valid], c_j[~valid])
+    jq = JCloud(queries, np.zeros(len(queries), np.float32), qmask)
+    d2_j = np.asarray(jax.jit(jnn.nn_sq_dists)(want, jq.masked_xyz(), jq.mask))
+    tq = TCloud(torch.from_numpy(queries), torch.zeros(len(queries)), torch.from_numpy(qmask))
+    d2_t = tnn.nn_sq_dists(got, tq.masked_xyz(), tq.mask).numpy()
+    hit = np.isfinite(d2_j)
+    np.testing.assert_array_equal(np.isfinite(d2_t), hit)
+    np.testing.assert_allclose(d2_t[hit], d2_j[hit], rtol=1e-6, atol=1e-12)
+    n_leaves = int(valid.sum())
+    if name in ("empty cloud (every lane the sentinel)", "every lane masked"):
+        assert n_leaves == 0 and got.origin_cell.tolist() == [0, 0, 0] and not hit.any()
+    elif name == "leaf_cap below the runs":
+        assert n_leaves == leaf_cap
+    elif name == "one cell holding every point":
+        assert n_leaves == 1 and int(got.counts[0]) == len(pts) and hit.sum() > len(pts) // 2
+    elif name == "cells at the 1024 extent's edges":
+        rel = np.floor(pts * np.float32(1.0 / res)).astype(np.int64) - got.origin_cell.numpy()
+        assert rel.min() == 0 and rel.max() == 1024  # lanes past the extent, dropped
+        keys = got.keys.numpy()[valid]
+        assert (keys % 1024 == 0).any() and (keys % 1024 == 1023).any()
+        assert n_leaves == int((np.unique(rel[(rel < 1024).all(1)], axis=0)).shape[0])
+        assert len(queries) > hit.sum() > 0.3 * len(queries)
+    else:
+        assert hit.sum() > len(queries) // 3
