@@ -90,7 +90,8 @@ Phases, each of which raises on failure:
    32 carried by `init_state`; gates: the accuracy gates, the first four
    poses equal to the plain path's on the CPU to 1e-4, K9g and K9k launched,
    no host sync inside a step; a warm pass is timed, the idle share and
-   peak memory measured. 7b: the per-scan orchestrator
+   peak memory measured, and a traced pass of the whole run prints K9k's
+   device total. 7b: the per-scan orchestrator
    `LvSlam(kitti_flagship_config(), use_dlo=False, vocabulary=<the port's
    asset>)`, each scan with its camera image, then `finalize()`; gates: the
    LFA poses' accuracy, the reference record's 19 keyframes, a loop, K9c
@@ -135,7 +136,10 @@ Phases, each of which raises on failure:
    LM equal to the plain path's re-solve on the CPU to 1e-4, and that graph
    re-solved on the CPU with exact GPS and without the floor edges within
    0.1 m of phase 8b's largest keyframe error (with exact GPS and the floor,
-   and with noisy GPS without it, printed beside). 9c:
+   and with noisy GPS without it, printed beside); after the timed pass,
+   the clouds it handed K16 are rebuilt (the DLO's prefilter of each scan),
+   K16 gives the pass's results on them again, and its 170 detections are
+   traced. 9c:
    9b's backend dumped, resumed by `load_dump` (its chi2 at the dumped
    estimates within 1e-4 of the dumped graph's), re-optimized (poses within
    1e-3 of the dumped estimates and of the dumped graph solved once more),
@@ -203,12 +207,15 @@ it, and the descriptor matching K12b of one keyframe against eight, then K12b bi
 for bit on `match_cases` (caps 1 to 1000, 1 to 32 candidates, masks with
 holes, ties, pairs at max_dist, all-masked sets, cap 4096); 2e: standalone
 LFA's grid build K9g, its 2-point lines / 3-point planes K9k and the host
-mapping's table build K9c; 2f: the dense LUT K3L, the LUT/SoA derivative
+mapping's table build K9c, then K9k's three entries on `knn_cases`, bit for
+bit their twins; 2f: the dense LUT K3L, the LUT/SoA derivative
 pass K6L and the generic one K6G on the host DLO's 32768-leaf keyframe map
 and 65536-lane subsample, at the true pose and one 0.3 m off; 2g: the raw
 window group K2r at 16 x 131072 raw lanes, K15 with 192 priors, 64
 SE3-plane edges and a fixed floor plane, and floor detection K16 on a
-filtered scan; 2h: K17's nearest centroids and one ICP iteration, K19a's
+filtered scan and on `floor_cases`, its coefficients also bit for bit the
+parent kernel's (`FLOOR_PARENT_COEFFS`); 2h: K17's nearest centroids and one ICP iteration, K9k's
+`knn` at GICP's three calls (a thread a query over a sample of the keys), K19a's
 covariances and K19b's normal equations on scan 41's 131072 lanes against
 scan 40 at phase 10's guess, K18's two removals and K20 on scan 40, K0a on
 raw scan 40), against its plain version at the shapes phases 5-10 give it.
@@ -361,7 +368,7 @@ DEVICE_FUNCTIONS = {
     "ndt_derivatives_soa": ("ndt_lut_partials", "ndt_finish"),
     "ndt_derivatives": ("ndt_generic_partials", "ndt_finish"),
     "window_group_fn": ("window_raw_keys", "mark_runs", "reduce_runs"),
-    "detect_floor": ("floor_hypotheses", "floor_count", "floor_finish"),
+    "detect_floor": ("floor_count", "floor_finish"),
     "nn_points": ("nn_points_kernel", "icp_match", "icp_means", "icp_cov", "icp_update"),
     "radius_outlier_removal": ("outlier_radius",),
     "statistical_outlier_removal": ("stat_dist", "stat_mean", "stat_var", "stat_thresh", "stat_keep"),
@@ -2404,23 +2411,19 @@ def check_graph_input_kernels(torch, scans, gt, dev):
     k16 = lambda: floor.detect_floor(cloud)  # noqa: E731
     p16 = lambda: floor.detect_floor_ref(cloud)  # noqa: E731
     got, want = k16(), p16()
-    same = (bool(got.found) == bool(want.found) and int(got.best) == int(want.best)
-            and int(got.n_inliers) == int(want.n_inliers))
-    err = float((got.coeffs - want.coeffs).abs().max())
-    if not (same and bool(want.found)) or err > 1e-5:
-        raise AssertionError(f"detect_floor: found {bool(got.found)}/{bool(want.found)}, best {int(got.best)}/"
-                             f"{int(want.best)}, inliers {int(got.n_inliers)}/{int(want.n_inliers)}, coeffs "
-                             f"error {err} (tol 1e-5)")
+    err = floor_agrees(torch, "scan 0", got, want, expect_found=True)
     n_pts = int(cloud.mask.sum())
     # the z band `detect_floor_ref` tests (the default sensor height and clip)
     n_band = int((cloud.mask & ((cloud.xyz[:, 2] + 1.73).abs() < 1.0)).sum())
     log(f"  detect_floor: {n_pts} filtered points in {cloud.cap} lanes ({n_band} in the z band), 256 hypotheses: "
         f"found, best {int(got.best)}, "
-        f"{int(got.n_inliers)} inliers (equal to the plain version), coeffs {got.coeffs.tolist()} within {err:.3g} "
-        f"(tol 1e-5)")
+        f"{int(got.n_inliers)} inliers (equal to the plain version), coeffs {got.coeffs.tolist()} (bits "
+        f"{floor_bits(torch, got.coeffs)}) within {err:.3g} (tol 1e-5)"
+        + (", bit for bit the parent kernel's" if "scan 0" in FLOOR_PARENT_COEFFS else ""))
     # what this scan needs: each valid point read once (12 bytes), one mask
     # byte per lane; 7 operations per band point and hypothesis
     measure(torch, records, "detect_floor", k16, p16, err, 12 * n_pts + cloud.cap, 7 * 256 * n_band)
+    check_floor_cases(torch, dev)
     return records
 
 
@@ -2694,15 +2697,301 @@ def check_orb_kernels(torch, gt, dev):
     return records
 
 
+# ----------------------------------------------------------------- K9k's and K16's edge cases
+
+KNN_CELL = 2.0  # standalone LFA's grid cell (lfa/fused._GRID_CELL)
+KNN_CASE_KS = (1, 8)  # the knn entry's k on every case (the lines' 2 and the planes' 3 besides)
+KNN_THREAD_QUERIES = 16384  # csrc/knn_grid.cu kThreadQueries: from this batch on, a thread a query
+KNN_CASE_NAMES = ("points mirrored about a query", "duplicated points", "a cell holding more than 8 points",
+                  "the extent's first and last cells", "masked tail rows", "empty grid",
+                  "sampled search (22000 lanes)", "the gates at d0^2 = 25 and norm = 1e-3",
+                  "16384 queries, a thread each", "16384 queries on the sampled grid")
+
+
+def _five_metres_off(p: np.ndarray) -> np.ndarray:
+    """A query whose squared distance to `p`, as the kernels round it (an fma
+    chain; ops.linalg3.dot3_fma), gives a nearest distance d0 with d0 * d0
+    exactly 25 in float32: p + (3, 3.2, 2.4), its last digits searched."""
+    p = p.astype(np.float32)
+    base = (p + np.array([3.0, 3.2, 2.4], np.float32)).astype(np.float32)
+    for dy in range(-8, 9):
+        for dz in range(-8, 9):
+            q = base.copy()
+            q[1] = np.float32(q[1] + np.float32(dy) * np.spacing(q[1]))
+            q[2] = np.float32(q[2] + np.float32(dz) * np.spacing(q[2]))
+            d = (q - p).astype(np.float32)
+            inner = np.float32(d[0] * d[0])
+            inner = np.float32(np.float64(d[1]) * np.float64(d[1]) + np.float64(inner))
+            d2 = np.float32(np.float64(d[2]) * np.float64(d[2]) + np.float64(inner))
+            d0 = np.float32(np.sqrt(d2, dtype=np.float32))
+            if np.float32(d0 * d0) == np.float32(25.0):
+                return q
+    raise AssertionError("no query 5 m off")
+
+
+def knn_cases(seed: int = SEED):
+    """Kernel 9k's edge cases as numpy arrays: (name, grid points (n, 3),
+    grid mask (n,), queries (q, 3), query mask (q,)) on the 2 m grid. Each
+    case runs the knn entry at every k of KNN_CASE_KS and the lines and
+    planes entries. Exact 1/64 m coordinates mirrored about each query
+    (equal squared distances: ties to the lower candidate index); each point
+    three times; 40 points in one cell (its slots overflow) beside one point
+    alone in the highest cell (its run ends at the last row, whose clamped
+    slots repeat it); cells at 0, 1, 1022 and 1023 of the 1024 extent on
+    each axis and at 1024 (out of it), queried in and around them; 100
+    masked rows after 300 (INT32_MAX keys at the tail), with queries out of
+    the extent and at the sentinel; every lane masked; 20000 points and 2000
+    masked rows (past 8192 keys the search bisects a sample of the keys,
+    then the keys themselves); the gates: a nearest point exactly 5 m off
+    (d0 * d0 = 25, not below it) and 2 mm further in, two points 1 mm apart
+    (the line's norm 1e-3, not above it) and a third 1 m off square to them
+    (the plane's cross product 1e-3 long); and batches of 16384 queries,
+    which take a thread a query, on a 6000-lane grid and a 22000-lane one
+    (sampled), masked lanes among the rows."""
+    rng = np.random.default_rng(seed)
+    out = []
+
+    q = rng.integers(64, 18 * 64, (16, 3)) / 64.0
+    v = rng.integers(-90, 91, (16, 4, 3)) / 64.0
+    pts = np.concatenate([(q[:, None] + v).reshape(-1, 3), (q[:, None] - v).reshape(-1, 3),
+                          rng.integers(0, 20 * 64, (200, 3)) / 64.0])
+    out.append((pts, np.ones(len(pts), bool), q))
+
+    base = rng.uniform(0.0, 16.0, (60, 3))
+    pts = np.concatenate([base, base[::-1], base])
+    out.append((pts, np.ones(len(pts), bool), np.concatenate([base[:20], base[20:] + rng.normal(0, 0.3, (40, 3))])))
+
+    crowd = (np.array([3, 3, 3]) + rng.uniform(0.05, 0.95, (40, 3))) * KNN_CELL
+    lone = (np.array([[9, 9, 9]]) + 0.5) * KNN_CELL
+    pts = np.concatenate([crowd, rng.uniform(0.0, 16.0, (100, 3)), lone])
+    near = np.concatenate([(np.array([3, 3, 3]) + rng.integers(-1, 2, (12, 3)) + rng.uniform(0.1, 0.9, (12, 3))),
+                           (np.array([9, 9, 9]) + rng.integers(-1, 2, (6, 3)) + rng.uniform(0.1, 0.9, (6, 3)))])
+    out.append((pts, np.ones(len(pts), bool), np.concatenate([near * KNN_CELL, lone, rng.uniform(0, 16, (10, 3))])))
+
+    edges, around = _extent_edges(rng, 400, KNN_CELL)
+    out.append((edges, np.ones(len(edges), bool), around[:120]))
+
+    pts = rng.uniform(0.0, 30.0, (400, 3))
+    mask = np.arange(400) < 300
+    far = np.array([[5000.0, 0.0, 0.0], [SENTINEL_XYZ] * 3, [-3000.0, 10.0, 10.0]])
+    out.append((pts, mask, np.concatenate([rng.uniform(0.0, 30.0, (50, 3)), far])))
+
+    pts = rng.uniform(0.0, 30.0, (64, 3))
+    out.append((pts, np.zeros(64, bool), rng.uniform(0.0, 30.0, (20, 3))))
+
+    pts = np.concatenate([_blobs(rng, 20000, 60.0, spread=1.5), rng.uniform(0.0, 60.0, (2000, 3))])
+    mask = np.arange(len(pts)) < 20000
+    out.append((pts, mask, np.concatenate([pts[rng.choice(20000, 250, replace=False)] + rng.normal(0, 0.5, (250, 3)),
+                                           rng.uniform(-5.0, 65.0, (50, 3))])))
+
+    p3 = np.array([10.0, 10.0, 10.0], np.float32)
+    q5 = _five_metres_off(p3)
+    pts = np.array([[0.0, 0.0, 0.0], [0.001, 0.0, 0.0], [0.0, 1.0, 0.0], p3, [15.99, 15.99, 15.99],
+                    [15.99, 10.0, 15.99], [40.0, 40.0, 40.0]], np.float32)  # the last keeps the others' slots unclamped
+    inside = (q5 - np.float32(0.002) * (q5 - p3) / np.float32(5.0)).astype(np.float32)
+    queries = np.array([q5, inside, [0.0005, 0.0, 0.0], [0.0, 0.0001, 0.0]], np.float32)
+    out.append((pts, np.ones(len(pts), bool), queries))
+
+    # a batch of KNN_THREAD_QUERIES queries takes a thread a query: near
+    # points, far off and at the sentinel; on a grid staged whole, then a
+    # sampled one
+    for n_grid in (6000, 22000):
+        pts = np.concatenate([_blobs(rng, n_grid - 500, 40.0, spread=1.0), rng.uniform(-40.0, 40.0, (500, 3))])
+        mask = rng.random(n_grid) >= 0.05
+        near = pts[rng.choice(n_grid, KNN_THREAD_QUERIES - 1000)] + rng.normal(0, 0.4, (KNN_THREAD_QUERIES - 1000, 3))
+        out.append((pts, mask, np.concatenate([near, rng.uniform(-45.0, 45.0, (900, 3)),
+                                               np.full((100, 3), SENTINEL_XYZ)])))
+
+    cases = []
+    for name, (pts, mask, queries) in zip(KNN_CASE_NAMES, out):
+        queries = np.asarray(queries, np.float32)
+        qmask = np.ones(len(queries), bool)
+        qmask[6::7] = False  # the lines' and planes' query mask gates too
+        cases.append((name, np.asarray(pts, np.float32), mask, queries, qmask))
+    return cases
+
+
+def knn_case_inputs(torch, pts, mask, queries, qmask, dev) -> tuple:
+    """One `knn_cases` entry's arrays as tensors on `dev`."""
+    return tuple(torch.from_numpy(a).to(dev) for a in (pts, mask, queries, qmask))
+
+
+def knn_case_outputs(torch, inputs, plain: bool):
+    """(grid, [knn at each k of KNN_CASE_KS], lines, planes) of one
+    `knn_cases` entry's `knn_case_inputs`, by the kernels or (`plain`) their
+    twins."""
+    from lv_slam_tpu_torch.lfa import registration
+    from lv_slam_tpu_torch.ops import knn
+
+    x, m, y, ym = inputs
+    build = knn.build_grid_ref if plain else knn.build_grid
+    grid = build(x, m, KNN_CELL)
+    if plain:
+        return (grid, [knn.knn_ref(grid, y, k) for k in KNN_CASE_KS], registration.lines_from_2nn_ref(y, ym, grid),
+                registration.planes_from_3nn_ref(y, ym, grid))
+    return (grid, [knn.knn(grid, y, k) for k in KNN_CASE_KS], registration.lines_from_2nn(y, ym, grid),
+            registration.planes_from_3nn(y, ym, grid))
+
+
+def knn_flat(torch, outputs) -> list:
+    """The tensors of `knn_case_outputs`, in one list, floats as their bits."""
+    grid, nns, lines, planes = outputs
+    flat = [grid.keys, grid.xyz, grid.origin_cell, *(t for nn in nns for t in nn), *lines, *planes]
+    return [t.cpu().view(torch.int32) if t.dtype == torch.float32 else t.cpu() for t in flat]
+
+
+def check_knn_cases(torch, dev):
+    """K9k's three entries (and the grid K9g builds for them) on every
+    `knn_cases` entry, each call one launch with no synchronizing call,
+    bit for bit against the twins on the card and run on a CPU copy.
+    Returns the number of cases."""
+    from lv_slam_tpu_torch.kernels import KERNELS
+    from lv_slam_tpu_torch.lfa import registration
+    from lv_slam_tpu_torch.ops import knn
+
+    cases = knn_cases()
+    for name, *arrays in cases:
+        card, cpu = knn_case_inputs(torch, *arrays, dev), knn_case_inputs(torch, *arrays, "cpu")
+        grid = knn.build_grid(*card[:2], KNN_CELL)
+        y, ym = card[2:]
+        calls = [lambda k=k: knn.knn(grid, y, k) for k in KNN_CASE_KS]
+        calls += [lambda: registration.lines_from_2nn(y, ym, grid), lambda: registration.planes_from_3nn(y, ym, grid)]
+        for call in calls:
+            before = KERNELS["knn"].launches
+            syncs = count_syncs(torch, call)
+            torch.cuda.synchronize()
+            if KERNELS["knn"].launches != before + 1 or syncs:
+                raise AssertionError(f"knn ({name}): {KERNELS['knn'].launches - before} launches a call, {syncs} "
+                                     f"synchronizing calls")
+        got = knn_flat(torch, knn_case_outputs(torch, card, False))
+        for where, want in (("on the card", knn_case_outputs(torch, card, True)),
+                            ("on the CPU", knn_case_outputs(torch, cpu, True))):
+            bad = [i for i, (a, b) in enumerate(zip(got, knn_flat(torch, want))) if not torch.equal(a, b)]
+            if bad:
+                raise AssertionError(f"knn ({name}): outputs {bad} differ from the twins {where}")
+    log(f"  knn_cases: {len(cases)} cases, knn at k = {KNN_CASE_KS}, lines_from_2nn and planes_from_3nn, each one "
+        f"launch and no synchronizing call, bit for bit the twins on the card and on the CPU")
+    return len(cases)
+
+
+FLOOR_CASE_NAMES = ("two identical best hypotheses", "no valid hypothesis", "an empty band", "one hypothesis",
+                    "1024 hypotheses", "5000 lanes, masked among them", "140000 lanes, the finish in two stages")
+# K16's coefficients (float32 bits, hex) of the parent tree's kernel (00aa305) on
+# phase 2g's scan 0 and on `floor_cases`, as scripts/knn_floor_parent.py
+# printed them on an NVIDIA H100 80GB HBM3 (700 W): the redesign keeps them
+# bit for bit
+FLOOR_PARENT_COEFFS = {
+    "scan 0": ["b794a8ce", "37de8c16", "3f800000", "3fdd3d99"],
+    "two identical best hypotheses": ["00000000", "00000000", "3f800000", "3fdd70a4"],
+    "no valid hypothesis": ["3f800000", "00000000", "00000000", "c0a00000"],
+    "an empty band": ["3f800000", "00000000", "00000000", "80000000"],
+    "one hypothesis": ["bc23eef3", "3ba401da", "3f7ffbe7", "3fdd71ed"],
+    "1024 hypotheses": ["bc234b65", "3ba367a2", "3f7ffbef", "3fdd6ee4"],
+    "5000 lanes, masked among them": ["bc24ee90", "3ba4100e", "3f7ffbdc", "3fdd753f"],
+    "140000 lanes, the finish in two stages": ["bc23e05e", "3ba3b41a", "3f7ffbe7", "3fdd6cdc"],
+}
+
+
+def _floor_scene(rng, n_floor: int, n_clutter: int, noise: float) -> np.ndarray:
+    """A floor 1.73 m below the sensor, tilted a little, with `noise`, and clutter above it."""
+    xy = rng.uniform(-20.0, 20.0, (n_floor, 2))
+    z = -1.73 + 0.01 * xy[:, 0] - 0.005 * xy[:, 1] + rng.normal(0.0, noise, n_floor)
+    clutter = np.c_[rng.uniform(-20.0, 20.0, (n_clutter, 2)), rng.uniform(-1.2, 3.0, n_clutter)]
+    return np.concatenate([np.c_[xy, z], clutter])
+
+
+def floor_cases(seed: int = SEED):
+    """Kernel 16's edge cases as numpy arrays: (name, points (n, 3), mask
+    (n,), n_hypotheses). A floor exactly flat at z = -1.73 (every floor
+    hypothesis counts every floor point: the best count is many
+    hypotheses', and the first wins); walls only inside the z band (every
+    hypothesis fails the normal gate: found is false); every point above
+    the band; one hypothesis on a noisy floor, 1024 on one with clutter; 5000
+    lanes (not a multiple of 32 or 1024) with a fifth of them masked among
+    the others; 140000 lanes in random order, a tenth of them masked (past
+    the 131072 lanes that the finish stages at once: it stages them twice)."""
+    rng = np.random.default_rng(seed)
+    flat = np.c_[rng.uniform(-20.0, 20.0, (6000, 2)), np.full(6000, -1.73)]
+    flat = np.concatenate([flat, np.c_[rng.uniform(-20.0, 20.0, (2192, 2)), rng.uniform(0.5, 3.0, 2192)]])
+    wall = np.c_[np.full(4000, 5.0), rng.uniform(-20.0, 20.0, 4000), rng.uniform(-2.6, -0.9, 4000)]
+    wall = np.concatenate([wall, np.c_[rng.uniform(-20.0, 20.0, (96, 2)), rng.uniform(1.0, 3.0, 96)]])
+    above = np.c_[rng.uniform(-20.0, 20.0, (4096, 2)), rng.uniform(1.0, 5.0, 4096)]
+    scene = _floor_scene(rng, 6000, 2192, 0.02)
+    bare = _floor_scene(rng, 8192, 0, 0.02)  # the one hypothesis's triple lies on the floor
+    ragged = _floor_scene(rng, 3500, 1500, 0.02)
+    out = [(flat, np.ones(len(flat), bool), 256), (wall, np.ones(len(wall), bool), 256),
+           (above, np.ones(len(above), bool), 256), (bare, np.ones(len(bare), bool), 1),
+           (scene, np.ones(len(scene), bool), 1024), (ragged, rng.random(len(ragged)) >= 0.2, 256)]
+    wide = _floor_scene(rng, 100000, 40000, 0.02)[rng.permutation(140000)]
+    out.append((wide, rng.random(len(wide)) >= 0.1, 256))
+    return [(name, np.asarray(p, np.float32), m, h) for name, (p, m, h) in zip(FLOOR_CASE_NAMES, out)]
+
+
+def check_floor_cases(torch, dev):
+    """K16 on every `floor_cases` entry, one launch and no synchronizing
+    call each: found, the best index and its inlier count identical to the
+    twin run on a CPU copy, the coefficients within 1e-5 of it and bit for
+    bit the parent tree's (`FLOOR_PARENT_COEFFS`). Returns the number of
+    cases."""
+    from lv_slam_tpu_torch.core.cloud import PointCloud
+    from lv_slam_tpu_torch.kernels import KERNELS
+    from lv_slam_tpu_torch.ops import floor
+
+    cases = floor_cases()
+    missing = [name for name, *_ in cases if name not in FLOOR_PARENT_COEFFS]
+    if missing:
+        raise AssertionError(f"floor_cases {missing}: no parent coefficients to hold them to")
+    for name, pts, mask, n_hyp in cases:
+        cpu = PointCloud(torch.from_numpy(pts), torch.zeros(len(pts)), torch.from_numpy(mask))
+        card = PointCloud(cpu.xyz.to(dev), cpu.intensity.to(dev), cpu.mask.to(dev))
+        floor.detect_floor(card, n_hypotheses=n_hyp)  # uploads the case's triples once
+        torch.cuda.synchronize()
+        before = KERNELS["detect_floor"].launches
+        got = []
+        syncs = count_syncs(torch, lambda: got.append(floor.detect_floor(card, n_hypotheses=n_hyp)))
+        torch.cuda.synchronize()
+        if KERNELS["detect_floor"].launches != before + 1 or syncs:
+            raise AssertionError(f"detect_floor ({name}): {KERNELS['detect_floor'].launches - before} launches, "
+                                 f"{syncs} synchronizing calls (the triples uploaded before)")
+        floor_agrees(torch, name, got[0], floor.detect_floor_ref(cpu, n_hypotheses=n_hyp))
+    log(f"  floor_cases: {len(cases)} cases, each one launch and no synchronizing call; found, best and inliers "
+        f"identical to the CPU twin, coeffs within 1e-5 of it and bit for bit the parent kernel's")
+    return len(cases)
+
+
+def floor_bits(torch, coeffs) -> list:
+    """The coefficients' float32 bits as hex strings."""
+    return [f"{int(b) & 0xFFFFFFFF:08x}" for b in coeffs.detach().cpu().contiguous().view(torch.int32).tolist()]
+
+
+def floor_agrees(torch, name: str, got, want, expect_found=None) -> float:
+    """K16's result `got` against the twin's `want`: found, best and the
+    inlier count identical, coeffs within 1e-5, and the coeffs' bits those of
+    the parent kernel where FLOOR_PARENT_COEFFS holds them. Returns the coeffs'
+    largest difference."""
+    same = (bool(got.found) == bool(want.found) and int(got.best) == int(want.best)
+            and int(got.n_inliers) == int(want.n_inliers))
+    err = float((got.coeffs.cpu() - want.coeffs.cpu()).abs().max())
+    if not same or err > 1e-5 or (expect_found is not None and bool(want.found) != expect_found):
+        raise AssertionError(f"detect_floor ({name}): found {bool(got.found)}/{bool(want.found)}, best "
+                             f"{int(got.best)}/{int(want.best)}, inliers {int(got.n_inliers)}/{int(want.n_inliers)}, "
+                             f"coeffs error {err} (tol 1e-5)")
+    parent = FLOOR_PARENT_COEFFS.get(name)
+    if parent is not None and floor_bits(torch, got.coeffs) != parent:
+        raise AssertionError(f"detect_floor ({name}): coeffs {floor_bits(torch, got.coeffs)} are not the parent "
+                             f"kernel's {parent}")
+    return err
+
+
 def check_standalone_kernels(torch, scans, dev):
     """Phase 2e: standalone LFA's kernels vs their plain versions at the
     shapes phase 7 gives them: K9g on scan 0's less-sharp (4096 lanes) and
     less-flat (8064) features; K9k's line and plane entries with scan 1's
     sharp (768) and flat (1536) features at the scan-to-scan solve's first
     guess (the identity: scan 0 leaves no motion to warm-start from) as
-    queries against those grids, and its k-NN entry on the flat ones; K9c on
-    the host mapping's edge and surf buffers (32768 and 65536 rows) after
-    scans 0-3 of the host pipeline."""
+    queries against those grids, and its k-NN entry on the flat ones, then
+    all three on `knn_cases`; K9c on the host mapping's edge and surf
+    buffers (32768 and 65536 rows) after scans 0-3 of the host pipeline."""
     from lv_slam_tpu_torch import kitti_flagship_config
     from lv_slam_tpu_torch.core import se3
     from lv_slam_tpu_torch.core.cloud import PointCloud
@@ -2762,6 +3051,7 @@ def check_standalone_kernels(torch, scans, dev):
     measure(torch, records, "knn", k9k, p9k, 0.0,
             nbytes(*grids["edge"][:3], *grids["surf"][:3], ye, f1.sharp_mask, ys, f1.flat_mask, *lines, *planes),
             n_ops)
+    check_knn_cases(torch, dev)
 
     # kernel 9c: the host mapping's tables, rebuilt from its buffers each scan
     pipe = LfaPipeline(cfg, device=dev)
@@ -3180,13 +3470,15 @@ def log_kernels(top) -> None:
             log(f"    {fn}: {t / 1e3:.3f} ms over {count} launches ({t / 1e3 / count:.4f} ms a launch)")
 
 
-# the device functions of K14's build and query, K17, K18 and K9b as a
-# trace names them; the build's `key_sort_pass` launches are shared with
-# K1, K1b, K2 and K3 and are not attributed
+# the device functions of K14's build and query, K17, K18, K9b, K9k (its
+# three entries: knn, lines, planes) and K16 as a trace names them; the
+# build's `key_sort_pass` launches are shared with K1, K1b, K2 and K3 and
+# are not attributed
 TRACED_FAMILY = {
     "K14 build": ("grid_ranges", "grid_keys", "grid_runs"), "K14 query": ("grid_query", "grid_finish"),
     "K17": ("nn_points_kernel", "icp_match", "icp_means", "icp_cov", "icp_update"), "K18 radius": ("outlier_radius",),
     "K18 statistical": ("stat_dist", "stat_mean", "stat_var", "stat_thresh", "stat_keep"), "K9b": ("crop_tables",),
+    "K9k": DEVICE_FUNCTIONS["knn"], "K16": DEVICE_FUNCTIONS["detect_floor"],
 }
 
 
@@ -3224,7 +3516,7 @@ def traced_family(rows) -> dict:
 def log_family(what: str, family: dict) -> None:
     parts = [f"{k} {v['ms']:.4f} ms over {v['launches']} device launches" for k, v in family.items()
              if isinstance(v, dict)]
-    log(f"  traced {what}: {'; '.join(parts) or 'no K14 / K17 / K18 / K9b launch'}; library onesweep launches "
+    log(f"  traced {what}: {'; '.join(parts) or 'no K14 / K17 / K18 / K9b / K9k / K16 launch'}; library onesweep launches "
         f"{family['onesweep_launches']}")
 
 
@@ -3796,9 +4088,11 @@ def run_standalone_lfa(torch, scans, gt, dev, card):
 
     idle = profile(torch, lambda: run_sequence_lfa(xyz[:8], mask[:8], cfg, device=dev), "lfa")
     log(f"  peak device memory of the chunked run: {peak / 2**20:.1f} MiB")
+    family = traced_family(trace_rows(torch, lambda: run_lfa_chunks(torch, xyz, mask, cfg)))
+    log_family(f"over the whole {n}-scan run (K9k: its lines and planes)", family)
     summary = dict(scans_per_s=n / elapsed, devkit_t_err=t_err, drift_m=drift, worst_step_m=float(steps.max()),
                    syncs_per_step=syncs / CHUNK, idle_share=idle, peak_mib=peak / 2**20,
-                   jax_record=JAX_FUSED_LFA)
+                   jax_record=JAX_FUSED_LFA, traced=family)
     return summary, launches
 
 
@@ -4348,9 +4642,12 @@ def run_lvslam_sensors(torch, scans, gt, dev, card, images, default_err):
     import dataclasses
 
     from lv_slam_tpu_torch import kitti_flagship_config
+    from lv_slam_tpu_torch.core.cloud import PointCloud
     from lv_slam_tpu_torch.graph import pose_graph
     from lv_slam_tpu_torch.graph.bow import VOCABULARY_ASSET, Vocabulary
     from lv_slam_tpu_torch.kernels import KERNELS, reset_launches
+    from lv_slam_tpu_torch.ops import floor as floor_ops
+    from lv_slam_tpu_torch.ops import prefilter
     from lv_slam_tpu_torch.pipeline.slam import LvSlam
 
     n = len(scans)
@@ -4391,6 +4688,16 @@ def run_lvslam_sensors(torch, scans, gt, dev, card, images, default_err):
         f"{-sp_heights.min():.4f} m, on nodes {sorted(g.sp_i[sp].tolist())}), priors {backend._n_priors}")
     log(f"  keyframes {keyframes} ({len(keyframes)}), loops {loops}, optimized keyframe error max {max(kf_err):.4f} m; "
         f"one pass {n / elapsed:.2f} scans/s ({card}); K16 launches {launches['detect_floor']}")
+    # the clouds the pass handed K16 (the DLO's prefilter of each scan),
+    # rebuilt after the timed pass, the same results again, then traced
+    clouds = [prefilter.prefilter(PointCloud.from_numpy(scan, cap=cfg.prefilter.raw_cap, device=dev), cfg.prefilter)
+              for scan in scans]
+    again = [floor_ops.detect_floor(c) for c in clouds]
+    if not all(floor_bits(torch, a.coeffs) == floor_bits(torch, b.coeffs) and bool(a.found) == bool(b.found)
+               and int(a.best) == int(b.best) and int(a.n_inliers) == int(b.n_inliers) for a, b in zip(again, floors)):
+        raise AssertionError("K16 on the rebuilt clouds departs from the pass's results")
+    family = traced_family(trace_rows(torch, lambda: [floor_ops.detect_floor(c) for c in clouds]))
+    log_family(f"K16 over the {len(clouds)} clouds the pass handed it, rebuilt and called again", family)
     if not all(found) or np.abs(heights + 1.73).max() > 0.1:
         raise AssertionError("the floor must be found on every scan, 1.73 m below the sensor")
     if backend._n_planes != 1 or backend.floor_plane_node_id != 0 or plane != [0.0, 0.0, 1.0, 0.0]:
@@ -4431,7 +4738,7 @@ def run_lvslam_sensors(torch, scans, gt, dev, card, images, default_err):
     summary = dict(scans_per_s=n / elapsed, floor_found=sum(found), floor_height_m=[heights.min(), heights.max()],
                    keyframes=keyframes, loops=loops, max_keyframe_err_m=max(kf_err), lm_vs_cpu=d_graph,
                    max_keyframe_err_split_m=split, sp_edges=backend._n_sp_edges, priors=backend._n_priors,
-                   detect_floor_launches=launches["detect_floor"])
+                   detect_floor_launches=launches["detect_floor"], traced=family)
     return summary, launches, slam
 
 
@@ -4652,8 +4959,9 @@ def registration_pair(torch, scans, gt, dev):
 
 def check_registration_kernels(torch, scans, gt, dev):
     """Phase 2h: kernels 17-20 and 0a vs their plain versions at phase 10's
-    shapes: K17 (nn_points, one ICP iteration) and K19a / K19b (the source's
-    covariances, one GICP normal-equation pass) on scan 41's 131072 lanes
+    shapes: K17 (nn_points, one ICP iteration), K9k's `knn` at GICP's three
+    calls (bit for bit, timed as the `gicp` entry of K9k's record) and K19a /
+    K19b (the source's covariances, one GICP normal-equation pass) on scan 41's 131072 lanes
     against scan 40 at the guess, K18 (both removals) and K20 on scan 40
     (filtered; its 10 m map with a 64^3 LUT), K0a on raw scan 40."""
     from lv_slam_tpu_torch import kitti_flagship_config
@@ -4729,8 +5037,39 @@ def check_registration_kernels(torch, scans, gt, dev):
     measure(torch, records, "vertical_angle_calibration", k0, p0, err, nbytes(raw.mask, got.xyz) + 12 * n_raw,
             80 * n_raw)
 
+    # kernel 9k at GICP's shapes, a thread a query over a 1024-key sample of
+    # each 131072-lane grid's keys (phase 2e reaches that path only on
+    # smaller grids): the source's covariance neighbours (k = 8), the
+    # matches at the guess (k = 1) and the matches' neighbourhoods (k = 8),
+    # every output bit for bit the twin's on the card
+    src_grid = knn.build_grid(src, mask, 1.0)
+    tgt_grid = knn.build_grid(target.masked_xyz(), target.mask, 1.0)
+    matched = knn.knn(tgt_grid, y, 1)[1][:, 0].contiguous()
+    gicp_knn = (("the source's covariances", src_grid, src, 8), ("the matches", tgt_grid, y, 1),
+                ("the matches' neighbourhoods", tgt_grid, matched, 8))
+    k9k = lambda: [knn.knn(g, q, k) for _, g, q, k in gicp_knn]  # noqa: E731
+    p9k = lambda: [knn.knn_ref(g, q, k) for _, g, q, k in gicp_knn]  # noqa: E731
+    got_knn, want_knn = k9k(), p9k()
+    torch.cuda.synchronize()
+    n_bytes, n_ops = 0, 0
+    for (what, g, q, k), got, want in zip(gicp_knn, got_knn, want_knn):
+        if not all(torch.equal(a.view(torch.int32) if a.dtype == torch.float32 else a,
+                               b.view(torch.int32) if b.dtype == torch.float32 else b) for a, b in zip(got, want)):
+            raise AssertionError(f"knn at GICP's shapes ({what}, k = {k}): dists, points or valid differ from the "
+                                 f"plain version")
+        # operations this data needs, as phase 2e counts them: per query 27
+        # binary searches (3 per step), 2 per candidate slot, 9 per hit's
+        # squared distance
+        steps = int(np.ceil(np.log2(g.keys.shape[0] + 1)))
+        n_hits = int(knn.knn_candidates(g, q)[1].sum())
+        n_ops += q.shape[0] * (27 * 3 * steps + 27 * 8 * 2) + 9 * n_hits
+        n_bytes += nbytes(*g[:3], q, *got)
+        log(f"  knn at GICP's shapes ({what}, k = {k}, {q.shape[0]} queries on {g.keys.shape[0]} lanes): valid "
+            f"{int(got[2].sum())} of {got[2].numel()}; dists' bits, points and valid identical to the plain version")
+    records["_knn_gicp"] = timed(torch, "knn", k9k, p9k, 0.0, n_bytes, n_ops, " at GICP's shapes (the three calls)")
+
     # kernel 19a: the source's covariances from its 8 grid neighbours
-    _, pts, valid = knn.knn(knn.build_grid(src, mask, 1.0), src, 8)
+    _, pts, valid = got_knn[0]
     k19a = lambda: gicp.regularized_covariances(pts, valid, mask)  # noqa: E731
     p19a = lambda: gicp.regularized_covariances_ref(pts, valid, mask)  # noqa: E731
     (cov_k, ok_k), (cov_p, ok_p) = k19a(), p19a()
@@ -4751,9 +5090,8 @@ def check_registration_kernels(torch, scans, gt, dev):
             nbytes(mask, cov_k, ok_k) + 8 * n_src + 12 * n_nbrs, 600 * n_src)
 
     # kernel 19b: one normal-equation pass at the guess, the target's matches
-    tgt_grid = knn.build_grid(target.masked_xyz(), target.mask, 1.0)
-    dists, nn_pts, nn_valid = knn.knn(tgt_grid, y, 1)
-    _, nbrs, nbr_valid = knn.knn(tgt_grid, nn_pts[:, 0], 8)
+    dists, nn_pts, nn_valid = got_knn[1]
+    _, nbrs, nbr_valid = got_knn[2]
     cov_b, _ = gicp.regularized_covariances(nbrs, nbr_valid)
     args = (src, mask & ok_k, cov_k, guess, nn_pts[:, 0].contiguous(), dists[:, 0].contiguous(),
             nn_valid[:, 0].contiguous(), cov_b, 2.0)
@@ -6128,6 +6466,7 @@ def main() -> int:
     records.update(graph_records)
     log("phase 2h: the registrations' and the prefilter branches' kernels (K17-K20, K0a)")
     records.update(check_registration_kernels(torch, scans_all, gt_all, dev))
+    records["knn"]["gicp"] = records.pop("_knn_gicp")
     log("phase 2i: the device-side loops (K7's newton_step over K6L and K13's pass, the LM's kernels around K15)")
     records.update(check_loop_kernels(torch, scans_all, gt_all, dev, records))
     for name, fn in (("newton_step", "newton_step"), ("ndt_derivatives_hash", "ndt_partials"),
@@ -6243,7 +6582,7 @@ def main() -> int:
             **{extra: records[name][extra]
                for extra in ("cholesky_ms", "with_sensor_factors", "launches_by_phase", "over_cap", "standalone",
                              "torch_sort_ms", "torch_topk_ms", "rung_4m", "lm_step_ms", "hand_launches_per_iteration",
-                             "bound_earlier_count_ms", "gate_closed", "surf_only")
+                             "bound_earlier_count_ms", "gate_closed", "surf_only", "gicp")
                if extra in records[name]},
         )
         for name, k in KERNELS.items()

@@ -12,8 +12,8 @@
 // scan: ~9 MB of row reads that mostly hit L2) and does ~600 flops plus one
 // 3x3 eigh; at 12k queries that is under 10 MFLOP, so the latency of the
 // row reads, of the ordered sums and of the eigh is what shows. Kernel
-// 10g's query runs K9k's 27 dependent binary searches before its fit
-// (knn_search.cuh): latency again.
+// 10g's query runs 27 binary searches, one after another, before its fit:
+// latency again.
 //
 // Kernel 10's design, in two phases per block of 256 threads:
 // 1. Staging, kGroup = 8 lanes per query: lane o takes probe o of the
@@ -46,10 +46,12 @@
 // planes need n_use >= k, every participant within 0.2 m of the fit, and a
 // finite fit.
 //
-// Kernel 10g: one thread per query runs the grid search
-// (`lvs::k_nearest`) and takes its k nearest, each gated on its correctly
-// rounded distance, then the same fit in one thread (`fit`, `line_of`,
-// `plane_of`), summing in candidate order.
+// Kernel 10g: the block stages the grid's keys, then one thread per query
+// runs kernel 9k's search (`lvs::k_nearest` of knn_search.cuh, a thread a
+// query, its 8 best kept: the first k of them are the k nearest) and takes
+// its k nearest, each gated on its correctly rounded distance, then the
+// same fit in one thread (`fit`, `line_of`, `plane_of`), summing in
+// candidate order.
 #include "common.cuh"
 #include "knn_search.cuh"
 #include "linalg3.cuh"
@@ -65,7 +67,8 @@ constexpr int kMaxSlots = 32;
 constexpr int kGroup = 8;  // lanes per query
 constexpr int kChunk = 8;  // slots of a probe row read at once
 
-// The k nearest of a sorted-grid query (kernel 10g, K9k's search): the
+// The k nearest of a sorted-grid query (kernel 10g, K9k's search; d2 and
+// row hold its 8 best, the first k used): the
 // reference's `knn(grid, y, k)` then `valid & (dists < 1.0)`, a gate on the
 // distance (the twin's sqrt32(clamp(d2, 0)), correctly rounded as sqrtf).
 struct GridCandidates {
@@ -366,35 +369,35 @@ int launch_fit(void (*kernel)(A...), int threads, int q, int slots, cudaStream_t
 
 // ----------------------------------------------------------- kernel 10g
 
-__device__ __forceinline__ void grid_search(const int* __restrict__ keys, const float* __restrict__ xyz, int n,
-                                            const int* __restrict__ origin, float cell,
-                                            const float* __restrict__ y, int i, GridCandidates* cand) {
-  cand->xyz = xyz;
-  lvs::k_nearest(keys, xyz, n, origin, cell, y[3 * i + 0], y[3 * i + 1], y[3 * i + 2], cand->k, 8, cand->d2,
-                 cand->row);
-}
-
-__global__ void grid_lines(const int* __restrict__ keys, const float* __restrict__ xyz, int n,
-                           const int* __restrict__ origin, float cell, const float* __restrict__ y,
-                           const bool* __restrict__ mask, int q, int k, float* __restrict__ mu,
-                           float* __restrict__ v, bool* __restrict__ valid) {
+__global__ void __launch_bounds__(lvs::kThreads)
+grid_lines(const int* __restrict__ keys, const float* __restrict__ xyz, int n, const int* __restrict__ origin,
+           float cell, const float* __restrict__ y, const bool* __restrict__ mask, int q, int k,
+           float* __restrict__ mu, float* __restrict__ v, bool* __restrict__ valid) {
+  __shared__ int staged[lvs::kStageAll];
+  const lvs::Grid g = lvs::grid_of(keys, xyz, n, origin, cell, 8, staged);
   int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= q) return;
   GridCandidates cand;
+  cand.xyz = xyz;
   cand.k = k;
-  grid_search(keys, xyz, n, origin, cell, y, i, &cand);
+  const float yi[3] = {y[3 * i + 0], y[3 * i + 1], y[3 * i + 2]};
+  lvs::k_nearest<lvs::kMaxK, 1>(g, yi, cand.d2, cand.row);  // its first k are the k nearest
   line_of(cand, i, mask[i], k, mu, v, valid);
 }
 
-__global__ void grid_planes(const int* __restrict__ keys, const float* __restrict__ xyz, int n,
-                            const int* __restrict__ origin, float cell, const float* __restrict__ y,
-                            const bool* __restrict__ mask, int q, int k, float* __restrict__ normal,
-                            float* __restrict__ offset, bool* __restrict__ valid) {
+__global__ void __launch_bounds__(lvs::kThreads)
+grid_planes(const int* __restrict__ keys, const float* __restrict__ xyz, int n, const int* __restrict__ origin,
+            float cell, const float* __restrict__ y, const bool* __restrict__ mask, int q, int k,
+            float* __restrict__ normal, float* __restrict__ offset, bool* __restrict__ valid) {
+  __shared__ int staged[lvs::kStageAll];
+  const lvs::Grid g = lvs::grid_of(keys, xyz, n, origin, cell, 8, staged);
   int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= q) return;
   GridCandidates cand;
+  cand.xyz = xyz;
   cand.k = k;
-  grid_search(keys, xyz, n, origin, cell, y, i, &cand);
+  const float yi[3] = {y[3 * i + 0], y[3 * i + 1], y[3 * i + 2]};
+  lvs::k_nearest<lvs::kMaxK, 1>(g, yi, cand.d2, cand.row);
   plane_of(cand, i, mask[i], k, normal, offset, valid);
 }
 

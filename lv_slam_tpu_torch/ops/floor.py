@@ -24,7 +24,7 @@ import numpy as np
 import torch
 
 from lv_slam_tpu_torch.core.cloud import PointCloud
-from lv_slam_tpu_torch.kernels._build import F32, I32, PTR, Kernel, check_cuda, ptr
+from lv_slam_tpu_torch.kernels._build import F32, I32, PTR, Kernel, check_cuda, ptr, scratch_bytes
 from lv_slam_tpu_torch.lfa.registration import _cross_fma
 from lv_slam_tpu_torch.ops.linalg3 import dot3_fma, eigh3x3, fma32, sqrt32
 
@@ -33,7 +33,8 @@ KERNEL = Kernel(
     source="lv_slam_tpu_torch/csrc/floor.cu",
     replaces="lv_slam_tpu/ops/floor.py:27",
     entries={
-        "lvs_floor": [PTR, PTR, I32, PTR, I32, F32, F32, F32, F32, F32, PTR, PTR, PTR, PTR, PTR],
+        # xyz, mask, n, triples, H, height, clip, thresh, cos, fraction -> planes, counts, scratch, coeffs, stats, found
+        "lvs_floor": [PTR, PTR, I32, PTR, I32, F32, F32, F32, F32, F32, PTR, PTR, PTR, PTR, PTR, PTR],
     },
 )
 
@@ -128,13 +129,17 @@ def detect_floor(
     seed: int = 0,
 ) -> FloorResult:
     """RANSAC floor fit on the points within +-height_clip of the expected
-    floor (z = -sensor_height). Kernel 16 on CUDA, the plain version on CPU."""
+    floor (z = -sensor_height). Kernel 16 on CUDA, the plain version on CPU.
+    An empty cloud has no triple to draw (the reference's gather fails on
+    it): it raises on either device."""
+    n = cloud.cap
+    if n == 0:
+        raise ValueError("detect_floor: empty cloud")
     if cloud.xyz.device.type == "cpu":
         return detect_floor_ref(cloud, sensor_height, height_clip, distance_thresh, normal_thresh_deg,
                                 n_hypotheses, min_inlier_fraction, seed)
     if not 0 < n_hypotheses <= 1024:
         raise ValueError(f"detect_floor: n_hypotheses must be in 1..1024, got {n_hypotheses}")
-    n = cloud.cap
     xyz, mask = cloud.xyz.contiguous(), cloud.mask.contiguous()
     idx = _triples(seed, n, n_hypotheses, xyz.device)
     check_cuda("detect_floor", xyz, mask, idx)
@@ -146,10 +151,11 @@ def detect_floor(
     coeffs = torch.empty((4,), dtype=torch.float32, device=dev)
     stats = torch.empty((2,), dtype=torch.int32, device=dev)  # n_inliers, best
     found = torch.empty((), dtype=torch.bool, device=dev)
+    scratch = torch.empty((scratch_bytes("lvs_floor_scratch_bytes", n, n_hypotheses),), dtype=torch.uint8, device=dev)
     KERNEL.call(
         "lvs_floor", ptr(xyz), ptr(mask), n, ptr(idx), n_hypotheses, float(sensor_height), float(height_clip),
         float(distance_thresh), _cos_thresh(normal_thresh_deg), float(min_inlier_fraction), ptr(planes),
-        ptr(counts), ptr(coeffs), ptr(stats), ptr(found),
+        ptr(counts), ptr(scratch), ptr(coeffs), ptr(stats), ptr(found),
     )
     KERNEL.launches += 1
     return FloorResult(coeffs, stats[0], found, stats[1])

@@ -13,7 +13,9 @@ as candidates (`knn`; the 2-point lines and 3-point planes of
   over valid lanes, a stable `torch.sort` of the keys as glue, a gather.
 - `knn` is kernel 9k (same file) on CUDA tensors and `knn_ref` on CPU
   tensors: the k nearest of the 27 x 8 candidates, ties to the lower
-  candidate index, as `lax.top_k` orders them.
+  candidate index, as `lax.top_k` orders them; a warp a query (a lane a
+  neighbour cell) below 16384 queries, a thread a query from there on
+  (GICP's batches), the keys staged in shared memory.
 
 A `CellTable` stores the first S points of each 2 m cell directly in a
 hashed (B, S*4) table of [x, y, z, valid] slots, so a query batch reads the
@@ -641,6 +643,8 @@ def knn(
         return knn_ref(grid, queries, k, slots_per_cell)
     if not 1 <= k <= MAX_K:
         raise ValueError(f"knn: k must be in [1, {MAX_K}], got {k}")
+    if slots_per_cell < 1:
+        raise ValueError(f"knn: slots_per_cell must be at least 1, got {slots_per_cell}")
     q = queries.shape[0]
     queries = queries.contiguous()
     check_grid("knn", grid, queries)

@@ -23,6 +23,7 @@ from lv_slam_tpu.core.cloud import PointCloud as JCloud  # noqa: E402
 from lv_slam_tpu.ops.floor import detect_floor as jdetect  # noqa: E402
 from lv_slam_tpu_torch.core.cloud import PointCloud as TCloud  # noqa: E402
 from lv_slam_tpu_torch.ops import floor  # noqa: E402
+from test_torch_kernels import load_chip_smoke  # noqa: E402
 
 
 @pytest.mark.parametrize("seed", [0, 1, 7, 12345, 2**31 - 1])
@@ -33,12 +34,12 @@ def test_randint_triples_match_jax(seed):
             np.testing.assert_array_equal(floor.randint_triples(seed, n, h), want, err_msg=f"n={n} H={h}")
 
 
-def _reference_best(cloud: JCloud, seed: int = 0) -> int:
+def _reference_best(cloud: JCloud, seed: int = 0, n_hypotheses: int = 256) -> int:
     """The reference's hypothesis counts and argmax (`ops/floor.py:40-64`,
     its default parameters), as its own expressions compute them."""
     xyz = cloud.masked_xyz()
     band = cloud.mask & (jnp.abs(xyz[:, 2] + 1.73) < 1.0)
-    idx = jax.random.randint(jax.random.PRNGKey(seed), (256, 3), 0, xyz.shape[0])
+    idx = jax.random.randint(jax.random.PRNGKey(seed), (n_hypotheses, 3), 0, xyz.shape[0])
     p = xyz[idx]
     norm_vec = jnp.cross(p[:, 1] - p[:, 0], p[:, 2] - p[:, 0])
     nn = jnp.linalg.norm(norm_vec, axis=1)
@@ -75,3 +76,43 @@ def test_detect_floor_matches_jax(small_sequence, which):
     assert int(got.n_inliers) == int(want.n_inliers) > 0
     assert int(got.best) == _reference_best(jc)
     np.testing.assert_allclose(got.coeffs.numpy(), np.asarray(want.coeffs), rtol=0, atol=1e-5)
+
+
+CS = load_chip_smoke()  # the case lists that chip_smoke.py also runs on the card
+
+
+@pytest.mark.parametrize("case", CS.FLOOR_CASE_NAMES)
+def test_floor_cases_against_jax(case):
+    """Kernel 16's edge cases (chip_smoke.floor_cases, which the card runs
+    against this twin): found, the inlier count and the best index equal to
+    the reference's, the coefficients within 1e-5. A floor flat to the bit
+    ties every floor hypothesis's count (the first wins), walls fail every
+    hypothesis and a band with no point leaves none (found false), and 1 and
+    1024 hypotheses, 5000 lanes with masked lanes among them and 140000
+    lanes (two stages of the card's finish) run as the default does."""
+    name, pts, mask, n_hyp = next(c for c in CS.floor_cases() if c[0] == case)
+    jc = JCloud(jnp.asarray(pts), jnp.zeros(len(pts), jnp.float32), jnp.asarray(mask))
+    want = jax.jit(jdetect, static_argnames="n_hypotheses")(jc, n_hypotheses=n_hyp)
+    got = floor.detect_floor(TCloud(torch.from_numpy(pts), torch.zeros(len(pts)), torch.from_numpy(mask)),
+                             n_hypotheses=n_hyp)
+    print(f"{case}: found {bool(got.found)}, best {int(got.best)}, inliers {int(got.n_inliers)}, coeffs "
+          f"{got.coeffs.numpy()}, JAX {np.asarray(want.coeffs)}")
+    assert bool(got.found) == bool(want.found)
+    assert int(got.n_inliers) == int(want.n_inliers)
+    assert int(got.best) == _reference_best(jc, n_hypotheses=n_hyp)
+    np.testing.assert_allclose(got.coeffs.numpy(), np.asarray(want.coeffs), rtol=0, atol=1e-5)
+    expect_found = {"two identical best hypotheses": True, "no valid hypothesis": False, "an empty band": False,
+                    "140000 lanes, the finish in two stages": True}
+    if case in expect_found:
+        assert bool(got.found) == expect_found[case]
+    if case == "two identical best hypotheses":  # many hypotheses count every floor point: the first of them wins
+        assert int(got.n_inliers) == int((np.abs(pts[:, 2] + 1.73) < 0.1).sum())
+
+
+def test_empty_cloud_raises():
+    """An empty cloud has no triple to draw: the reference's gather fails on
+    it, and the port refuses it (on the card as on the CPU) before drawing."""
+    with pytest.raises(TypeError):
+        jdetect(JCloud(jnp.zeros((0, 3), jnp.float32), jnp.zeros(0, jnp.float32), jnp.zeros(0, bool)))
+    with pytest.raises(ValueError, match="empty cloud"):
+        floor.detect_floor(TCloud(torch.zeros((0, 3)), torch.zeros(0), torch.zeros(0, dtype=torch.bool)))

@@ -336,8 +336,9 @@ INLINE_BLOCKS = {"build_lut": "# Dense LUT scatter", "newton_step": "def _newton
                  "grid_fits": "knn(grid, y, k=k)", "newton_sums": "def derivs(T):"}
 
 
-def _chip_smoke():
-    """chip_smoke.py as a module (it imports numpy only at the top)."""
+def load_chip_smoke():
+    """chip_smoke.py as a module (it imports numpy only at the top); the
+    other test modules that run its case lists load it through this too."""
     import importlib.util
 
     spec = importlib.util.spec_from_file_location("_chip_smoke", REPO / "chip_smoke.py")
@@ -367,7 +368,7 @@ def test_registry_names_sources_and_replaced_functions():
             assert re.match(rf"def {name}\(", text), (k.replaces, text)
     # the device functions chip_smoke.py times for each kernel are kernels of
     # its source (K9a's one-block insert and its over-cap route, K11's cluster)
-    functions = _chip_smoke().DEVICE_FUNCTIONS
+    functions = load_chip_smoke().DEVICE_FUNCTIONS
     assert set(functions) == set(KERNELS)
     assert functions["insert_cell_table"] == ("insert_cluster", "insert_keys", "insert_keep", "insert_place")
     assert functions["gn_solve"] == ("gn_cluster",)
@@ -657,7 +658,7 @@ def test_match_scores_edge_cases_on_the_card(cuda):
     in both masks, copied rows (both argmins tie), pairs at exactly
     max_dist and one bit past it, all-masked candidates; an all-masked
     query, prefix masks, four distinct descriptors, max_dist 1e9, cap 4096."""
-    cs = _chip_smoke()
+    cs = load_chip_smoke()
     assert cs.check_match_cases(torch, cuda) == len(cs.MATCH_CAPS) * len(cs.MATCH_KS) + 5
 
 
@@ -668,7 +669,7 @@ def test_voxel_downsample_edge_cases_on_the_card(cuda):
     every lane masked, one voxel holding 131072 points, the whole clip range
     with both signs of kx (8 digit passes) and NaN in masked lanes, out_cap
     below the runs and above the lanes, APPROX_VOXELGRID, 1025 lanes."""
-    cs = _chip_smoke()
+    cs = load_chip_smoke()
     assert cs.check_sort_cases(torch, cuda) == len(cs.SORT_CASE_NAMES)
 
 
@@ -677,7 +678,7 @@ def test_extract_features_edge_cases_on_the_card(cuda):
     """K8 bit for bit against its twin run on a CPU copy, one launch a call,
     on chip_smoke's feature_cases: every cell valid, tied scores, fewer than
     k good picks, an empty scan, VLP-16's less-flat k of 85."""
-    cs = _chip_smoke()
+    cs = load_chip_smoke()
     assert cs.check_feature_cases(torch, cuda) == len(cs.FEATURE_CASE_NAMES)
 
 
@@ -690,7 +691,7 @@ def test_lfa_fits_edge_cases_on_the_card(cuda):
     k - 1 and k participants, 1, 1025 and 0 queries, 1 and 32 slots.
     Decisions identical, the lines' means bit-identical, the other floats
     finite and within 1e-5 on accepted queries."""
-    cs = _chip_smoke()
+    cs = load_chip_smoke()
     assert cs.check_fit_cases(torch, cuda) == len(cs.FIT_CASE_NAMES)
 
 
@@ -739,7 +740,7 @@ def test_voxel_map_edge_cases_on_the_card(cuda):
     extent, more runs than leaf_cap, voxels of min_points and one fewer,
     collinear and coplanar voxels, NaN on masked lanes, weighted and
     unweighted, 1025 lanes, e = 64)."""
-    cs = _chip_smoke()
+    cs = load_chip_smoke()
     assert cs.check_map_cases(torch, cuda) == len(cs.MAP_CASE_NAMES)
 
 
@@ -748,7 +749,7 @@ def test_window_and_dedup_edge_cases_on_the_card(cuda):
     """K2 on chip_smoke's window_cases and K1b on its sort_cases, bit for bit
     against their twins run on a CPU copy (masks, lane order, float bits),
     one launch and no synchronizing call a call."""
-    cs = _chip_smoke()
+    cs = load_chip_smoke()
     assert cs.check_window_cases(torch, cuda) == len(cs.WINDOW_CASE_NAMES)
     assert cs.check_dedup_cases(torch, cuda) == len(cs.SORT_CASE_NAMES)
 
@@ -757,7 +758,7 @@ def test_window_and_dedup_edge_cases_on_the_card(cuda):
 def test_voxel_map_and_dedup_read_nothing_on_the_card(cuda, scans):
     """K3, K1b and K2 are each one C call: no synchronizing call and no
     device work but their own kernels (no torch.sort, no torch glue)."""
-    cs = _chip_smoke()
+    cs = load_chip_smoke()
     (s0, s1), rel = scans
     c0, c1 = (PointCloud.from_numpy(s, cap=16384, device=cuda) for s in (s0, s1))
     t = torch.from_numpy(rel.astype(np.float32)).to(cuda)
@@ -783,7 +784,7 @@ def test_centroid_grid_cases_on_the_card(cuda):
     (an empty and an all-masked cloud, leaf_cap below the runs, points an
     ulp either side of cell faces, cells at the 1024 extent's edges, one
     cell holding every point, sentinel lanes among real points)."""
-    cs = _chip_smoke()
+    cs = load_chip_smoke()
     assert cs.check_grid_cases(torch, cuda) == len(cs.GRID_CASE_NAMES)
 
 
@@ -792,7 +793,7 @@ def test_crop_both_tables_on_the_card(cuda):
     """K9b's two-table crop on chip_smoke's crop_cases, one launch and no
     synchronizing call a call, both tables and the crop center bit-identical
     to the twin's two single-table crops (gate open, closed, absent)."""
-    cs = _chip_smoke()
+    cs = load_chip_smoke()
     assert cs.check_crop_cases(torch, cuda) == len(cs.crop_cases())
 
 
@@ -801,7 +802,7 @@ def test_centroid_grid_and_crop_read_nothing_on_the_card(cuda, scans):
     """K14's build and K9b's two-table crop are each one C call: no
     synchronizing call and no device work but their own kernels (no
     torch.sort, no torch glue)."""
-    cs = _chip_smoke()
+    cs = load_chip_smoke()
     (s0, _), _ = scans
     cloud = PointCloud.from_numpy(s0, cap=16384, device=cuda)
     edge, surf = cs.crop_tables(torch, cuda)
@@ -817,13 +818,62 @@ def test_centroid_grid_and_crop_read_nothing_on_the_card(cuda, scans):
 
 
 @pytest.mark.gpu
+def test_knn_cases_on_the_card(cuda):
+    """K9k's three entries on chip_smoke's knn_cases, one launch and no
+    synchronizing call a call, bit for bit against their twins on the card
+    and run on a CPU copy (points mirrored about a query, duplicated points,
+    a cell holding more than 8 points, the extent's first and last cells,
+    masked tail rows, an empty grid, a sampled search past 8192 keys, the
+    gates at d0^2 = 25 and norm = 1e-3; knn at k = 1 and 8)."""
+    cs = load_chip_smoke()
+    assert cs.check_knn_cases(torch, cuda) == len(cs.KNN_CASE_NAMES)
+
+
+@pytest.mark.gpu
+def test_floor_cases_on_the_card(cuda):
+    """K16 on chip_smoke's floor_cases, one launch and no synchronizing call
+    a call: found, best and the inlier count identical to the CPU twin, the
+    coefficients within 1e-5 of it and bit for bit the parent kernel's
+    (two identical best hypotheses, no valid one, an empty band, 1 and 1024
+    hypotheses, 5000 lanes with masked lanes among them, 140000 lanes: the
+    finish in two stages). An empty cloud raises, as on the CPU."""
+    cs = load_chip_smoke()
+    assert cs.check_floor_cases(torch, cuda) == len(cs.FLOOR_CASE_NAMES)
+    empty = PointCloud(torch.zeros((0, 3), device=cuda), torch.zeros(0, device=cuda),
+                       torch.zeros(0, dtype=torch.bool, device=cuda))
+    with pytest.raises(ValueError, match="empty cloud"):
+        floor.detect_floor(empty)
+
+
+@pytest.mark.gpu
+def test_knn_and_floor_read_nothing_on_the_card(cuda, scans):
+    """K9k's entries and K16 are each one C call: no synchronizing call and
+    no device work but their own kernels."""
+    cs = load_chip_smoke()
+    (s0, s1), _ = scans
+    cloud = PointCloud.from_numpy(s0, cap=16384, device=cuda)
+    query = PointCloud.from_numpy(s1, cap=16384, device=cuda)
+    grid = knn.build_grid(cloud.masked_xyz().contiguous(), cloud.mask, 2.0)
+    y = query.masked_xyz().contiguous()
+    for name, fn in (("knn", lambda: knn.knn(grid, y, 5)),
+                     ("knn", lambda: registration.lines_from_2nn(y, query.mask, grid)),
+                     ("knn", lambda: registration.planes_from_3nn(y, query.mask, grid)),
+                     ("detect_floor", lambda: floor.detect_floor(cloud))):
+        fn()
+        torch.cuda.synchronize()
+        _, syncs = _count_syncs(fn)
+        glue, _ = cs.foreign_functions(torch, fn, cs.DEVICE_FUNCTIONS[name])
+        assert syncs == 0 and not glue, (name, syncs, glue)
+
+
+@pytest.mark.gpu
 def test_to_hash_edge_cases_on_the_card(cuda):
     """K5 on chip_smoke's hash_cases, one launch and no synchronizing call a
     call, its table and n_dropped bit-identical to its twin on the card and
     run on a CPU copy (no valid leaf, every leaf in one bucket, invalid
     leaves interleaved, leaf_cap 3000, 1 and 8 buckets a leaf, the 4 m
     rung's map, extent 1288)."""
-    cs = _chip_smoke()
+    cs = load_chip_smoke()
     assert cs.check_hash_cases(torch, cuda) == len(cs.HASH_CASE_NAMES)
 
 
@@ -834,7 +884,7 @@ def test_detect_pyramid_batch_edge_cases_on_the_card(cuda):
     CPU copy (ties at the cut, a blank image, noise, a plateau of equal keys
     past the select's shared memory, batches of 1 and 32, a 33 x 35 image
     whose k nears h x w)."""
-    cs = _chip_smoke()
+    cs = load_chip_smoke()
     assert cs.check_orb_cases(torch, cuda) == len(cs.ORB_CASE_NAMES)
 
 
@@ -842,7 +892,7 @@ def test_detect_pyramid_batch_edge_cases_on_the_card(cuda):
 def test_to_hash_and_orb_read_nothing_on_the_card(cuda, scans):
     """K5 and K12 are each one C call: no synchronizing call and no device
     work but their own kernels (no torch.topk, no torch glue)."""
-    cs = _chip_smoke()
+    cs = load_chip_smoke()
     (s0, _), _ = scans
     cloud = PointCloud.from_numpy(s0, cap=16384, device=cuda)
     vm = voxel_map.build_voxel_map(cloud, 1.0, leaf_cap=8192, weighted=True)
@@ -1160,7 +1210,7 @@ def test_newton_sums_edge_cases_on_the_card(cuda):
     8 lanes at n_blocks 1, 5, 256, 512, 700 and 2049 (one row past the
     kernel's round of 2048 in shared memory), lanes 1 and 5 finished, a NaN
     row and an infinite one."""
-    cs = _chip_smoke()
+    cs = load_chip_smoke()
     assert cs.check_sums_cases(torch, cuda) == len(cs.SUMS_BLOCKS)
 
 
@@ -1172,7 +1222,7 @@ def test_newton_cases_on_the_card(cuda):
     iteration), row swaps, a NaN start, the ground NDT's dof mask and its
     complement, steps at step_min and at the cap, max_iterations reached,
     1 and 2049 rows a lane, 4 lanes with a NaN start among them."""
-    cs = _chip_smoke()
+    cs = load_chip_smoke()
     assert cs.check_newton_cases(torch, cuda) == len(cs.NEWTON_CASE_NAMES)
 
 
@@ -1184,7 +1234,7 @@ def test_probe_cases_on_the_card(cuda):
     gate-rejected lanes, 1000 lanes and three candidates with the second
     finished (its rows untouched); the others' rows summed in block order
     against the plain pass on the card at phase 2's tolerances."""
-    cs = _chip_smoke()
+    cs = load_chip_smoke()
     assert cs.check_probe_cases(torch, cuda) == len(cs.PROBE_CASE_NAMES)
 
 
@@ -1371,7 +1421,7 @@ def test_pose_graph_modes_on_the_card(cuda):
     the card to 1e-4 of their scale (the sums run in other orders: float32
     rounding alone moves b by ~3e-5 of its scale), chi2 to 1e-4 relative or
     1e-6 (the chain that its measurements fit has chi2 ~1e-13)."""
-    cs = _chip_smoke()
+    cs = load_chip_smoke()
     graphs = [("chain", _lm_graph())] + [(name, graph) for name, graph, _ in cs.lm_cases(torch)]
     for name, graph in graphs:
         g = pose_graph.to_device(graph, cuda)
@@ -1391,7 +1441,7 @@ def test_lm_iteration_launches_on_the_card(cuda):
     """An unsharded LM iteration launches two hand kernels around the library
     solve (K15's damped system, then `lm_step`), where the earlier kernels
     launched 13; `_chi2_and_normal` is one launch in each mode."""
-    cs = _chip_smoke()
+    cs = load_chip_smoke()
     g = pose_graph.to_device(_lm_graph(), cuda)
     chi2_0, _, _ = pose_graph._chi2_and_normal(g, g.poses, False, g.planes)
     st = pose_graph.LMState(g, chi2_0)
@@ -1408,7 +1458,7 @@ def test_lm_cases_on_the_card(cuda):
     middle of a group, node 0 with fixed nodes and a fixed plane, empty and
     invalid families, more variables than the cluster's warps,
     num_iterations 1) against the twin on the card, as phase 2i runs them."""
-    cs = _chip_smoke()
+    cs = load_chip_smoke()
     records = cs.check_lm_cases(torch, cuda)
     assert tuple(records) == cs.LM_CASE_NAMES
     print({name: (r["iterations"], r["twin_iterations"]) for name, r in records.items()})

@@ -31,6 +31,7 @@ from lv_slam_tpu.core.cloud import PointCloud as JCloud  # noqa: E402
 from lv_slam_tpu.lfa.features import extract_features  # noqa: E402
 from lv_slam_tpu.ops import knn as jk  # noqa: E402
 from lv_slam_tpu_torch.ops import knn as tk  # noqa: E402
+from test_torch_kernels import load_chip_smoke  # noqa: E402
 
 KW = dict(scan_line=32, edge_cap=2048, planar_cap=4096, map_edge_cap=8192, map_planar_cap=16384)
 
@@ -362,3 +363,42 @@ def test_knn_cell_constructed_cases():
     assert not valid[-1].any() and np.isinf(dists[-1]).all()
     with pytest.raises(ValueError):
         tk.knn_cell(tt, torch.from_numpy(q), 49)
+
+
+CS = load_chip_smoke()  # the case lists that chip_smoke.py also runs on the card
+
+
+@functools.lru_cache(maxsize=1)
+def _knn_cases():
+    return {name: rest for name, *rest in CS.knn_cases()}
+
+
+@pytest.mark.parametrize("case", CS.KNN_CASE_NAMES)
+def test_knn_cases_against_jax(case):
+    """Kernel 9k's edge cases (chip_smoke.knn_cases, which the card runs
+    against these twins): the grid, `knn` at k = 1 and 8, the 2-point lines
+    and the 3-point planes identical to the reference's, gates included
+    (ties of equal distances, duplicated points, overflowing cells, the
+    clamp at the last row, the extent's edges, masked tail rows, an empty
+    grid, a sampled search past 8192 keys, d0^2 = 25 and norm = 1e-3)."""
+    from lv_slam_tpu.lfa import registration as jr
+    from lv_slam_tpu_torch.lfa import registration as tr
+
+    pts, mask, q, qm = _knn_cases()[case]
+    jgrid = _jit_build_grid(pts, mask)
+    grid = tk.build_grid(torch.from_numpy(pts), torch.from_numpy(mask), 2.0)
+    _same(grid, jgrid, case)
+    for k in CS.KNN_CASE_KS:
+        want = [np.asarray(a) for a in jax.jit(jk.knn, static_argnums=2)(jgrid, jnp.asarray(q), k)]
+        got = [a.numpy() for a in tk.knn(grid, torch.from_numpy(q), k)]
+        for name, a, b in zip(("dists", "points", "valid"), got, want):
+            np.testing.assert_array_equal(a, b, err_msg=f"{case}: knn k={k} {name}")
+    for kind in ("lines_from_2nn", "planes_from_3nn"):
+        want = [np.asarray(a) for a in jax.jit(getattr(jr, kind))(jnp.asarray(q), jnp.asarray(qm), jgrid)]
+        got = [a.numpy() for a in getattr(tr, kind)(torch.from_numpy(q), torch.from_numpy(qm), grid)]
+        for a, b in zip(got, want):
+            np.testing.assert_array_equal(a, b, err_msg=f"{case}: {kind}")
+    if case.startswith("the gates"):  # the 5 m neighbour is turned away, 2 mm closer it is taken; 1e-3 norms fail
+        lines = tr.lines_from_2nn(torch.from_numpy(q), torch.from_numpy(qm), grid)
+        planes = tr.planes_from_3nn(torch.from_numpy(q), torch.from_numpy(qm), grid)
+        assert lines.valid.tolist() == planes.valid.tolist() == [False, True, False, False]
