@@ -91,11 +91,14 @@ Phases, each of which raises on failure:
    poses equal to the plain path's on the CPU to 1e-4, K9g and K9k launched,
    no host sync inside a step; a warm pass is timed, the idle share and
    peak memory measured, and a traced pass of the whole run prints K9k's
-   device total. 7b: the per-scan orchestrator
+   and K9g's device totals and the library's onesweep launches (none: K9g
+   sorts with its own kernels). 7b: the per-scan orchestrator
    `LvSlam(kitti_flagship_config(), use_dlo=False, vocabulary=<the port's
    asset>)`, each scan with its camera image, then `finalize()`; gates: the
    LFA poses' accuracy, the reference record's 19 keyframes, a loop, K9c
-   launched. Both print the JAX reference's CPU records of the same runs
+   launched; a second whole pass records the mapping's 338 table builds,
+   and their replay in a trace prints K9c's device total (its passes
+   included). Both print the JAX reference's CPU records of the same runs
    beside their results.
 8. The LUT paths, the reference's default odometry (`LvSlam`'s host DLO).
    8a: `DirectLidarOdometry(kitti_flagship_config().odometry, .prefilter)`
@@ -207,14 +210,20 @@ it, and the descriptor matching K12b of one keyframe against eight, then K12b bi
 for bit on `match_cases` (caps 1 to 1000, 1 to 32 candidates, masks with
 holes, ties, pairs at max_dist, all-masked sets, cap 4096); 2e: standalone
 LFA's grid build K9g, its 2-point lines / 3-point planes K9k and the host
-mapping's table build K9c, then K9k's three entries on `knn_cases`, bit for
-bit their twins; 2f: the dense LUT K3L, the LUT/SoA derivative
+mapping's table build K9c (both builds one C call with no synchronizing
+call and no device work but their own, `torch.sort` of the twins' keys
+timed beside them, K9c at both maps' shapes), then K9k's three entries with
+K9g's grid on `knn_cases` (K9g's tail of masked and out-of-extent lanes
+among 131072, three fields of 16 bits, a span past 2^31 cells among them)
+and K9c on `table_cases` (every row masked, 40 rows in one cell, 256
+buckets, 5001 rows, 2^15 and 2^18 buckets), bit for bit their twins; 2f: the dense LUT K3L, the LUT/SoA derivative
 pass K6L and the generic one K6G on the host DLO's 32768-leaf keyframe map
 and 65536-lane subsample, at the true pose and one 0.3 m off; 2g: the raw
 window group K2r at 16 x 131072 raw lanes, K15 with 192 priors, 64
 SE3-plane edges and a fixed floor plane, and floor detection K16 on a
 filtered scan and on `floor_cases`, its coefficients also bit for bit the
-parent kernel's (`FLOOR_PARENT_COEFFS`); 2h: K17's nearest centroids and one ICP iteration, K9k's
+parent kernel's (`FLOOR_PARENT_COEFFS`); 2h: K17's nearest centroids and one ICP iteration, K9g's
+two 131072-lane grids at 1 m (its key sort's route; the target's timed), K9k's
 `knn` at GICP's three calls (a thread a query over a sample of the keys), K19a's
 covariances and K19b's normal equations on scan 41's 131072 lanes against
 scan 40 at phase 10's guess, K18's two removals and K20 on scan 40, K0a on
@@ -361,9 +370,9 @@ DEVICE_FUNCTIONS = {
     "_chi2_and_normal": ("normal_cluster",),
     "_detect_pyramid_batch": ("orb_level0", "orb_halve", "orb_pixels", "orb_keys", "orb_select", "orb_describe"),
     "match_scores_batch": ("match_cluster",),
-    "build_grid": ("knn_grid_init", "knn_grid_cells", "knn_grid_keys", "knn_grid_gather"),
+    "build_grid": ("knn_grid_cluster", "knn_grid_ranges", "knn_grid_pack", "key_sort_pass", "knn_grid_place"),
     "knn": ("knn_query", "knn_lines", "knn_planes"),
-    "build_cell_table": ("table_keys", "table_zero", "table_place"),
+    "build_cell_table": ("table_clear", "table_count", "key_sort_pass", "table_fill"),
     "build_lut": ("lut_fill", "lut_scatter"),
     "ndt_derivatives_soa": ("ndt_lut_partials", "ndt_finish"),
     "ndt_derivatives": ("ndt_generic_partials", "ndt_finish"),
@@ -490,6 +499,16 @@ def foreign_functions(torch, fn, functions, reps: int = 5):
     others = {names[i] for call in calls for i in call if not any(_is_function(names[i], f) for f in functions)}
     return sorted(others), len(calls[0])
 
+
+
+def one_call(torch, name: str, fn) -> int:
+    """(launches of a call of `fn`): one C call, no synchronizing call, no
+    device work but the kernel's own."""
+    syncs = count_syncs(torch, fn)
+    glue, n_launches = foreign_functions(torch, fn, DEVICE_FUNCTIONS[name])
+    if syncs or glue:
+        raise AssertionError(f"{name}: {syncs} synchronizing calls, device work besides its own: {glue}")
+    return n_launches
 
 
 def loop_pass_checks(torch, name: str, fn, functions=None) -> dict:
@@ -2099,15 +2118,6 @@ def check_backend_kernels(torch, scans, gt, dev):
         rels = torch.from_numpy(rel[first:first + length]).to(dev)
         return (*chunk, 0, rels, torch.ones(length, dtype=torch.bool, device=dev), res, kf_cap)
 
-    def one_call(name, fn):
-        """(launches of a call of `fn`): one C call, no synchronizing call,
-        no device work but the kernel's own."""
-        syncs = count_syncs(torch, fn)
-        glue, n_launches = foreign_functions(torch, fn, DEVICE_FUNCTIONS[name])
-        if syncs or glue:
-            raise AssertionError(f"{name}: {syncs} synchronizing calls, device work besides its own: {glue}")
-        return n_launches
-
     def sort_ms(name, cloud):
         """torch.sort of the twin's int64 voxel keys of `cloud`, the glue the kernel's own sort replaced."""
         key, _ = prefilter._voxel_key(cloud, res)
@@ -2125,7 +2135,7 @@ def check_backend_kernels(torch, scans, gt, dev):
     cpu_args = [a.cpu() if isinstance(a, torch.Tensor) else a for a in g16]
     if not identical_clouds(torch, on_cpu(keyframe), window.window_group_filtered_ref(*cpu_args)):
         raise AssertionError("window_group_filtered_fn: not bit-identical to the plain version run on a CPU copy")
-    n_launches = one_call("window_group_filtered_fn", k2)
+    n_launches = one_call(torch, "window_group_filtered_fn", k2)
     n_cases = check_window_cases(torch, dev)
     n_in, n_kept = int(g16[2].sum()), int(keyframe.mask.sum())
     log(f"  window_group_filtered_fn: 16 x {g16[0].shape[2]} rows, {n_in} valid -> {n_kept} voxels "
@@ -2150,7 +2160,7 @@ def check_backend_kernels(torch, scans, gt, dev):
         raise AssertionError("voxel_dedup_first: kept lanes differ from the plain version")
     if not identical_clouds(torch, on_cpu(got), prefilter.voxel_dedup_first_ref(on_cpu(both), res, kf_cap)):
         raise AssertionError("voxel_dedup_first: not bit-identical to the plain version run on a CPU copy")
-    n_launches = one_call("voxel_dedup_first", k1b)
+    n_launches = one_call(torch, "voxel_dedup_first", k1b)
     n_cases = check_dedup_cases(torch, dev)
     log(f"  voxel_dedup_first: {both.cap} rows, {int(both.mask.sum())} valid -> {int(got.mask.sum())} voxels, "
         f"identical to the plain version on the card and on a CPU copy; {n_launches} launches of its own, no other "
@@ -2228,7 +2238,7 @@ def check_backend_kernels(torch, scans, gt, dev):
     grid, want = k14(), p14()
     err = grid_agrees(torch, "build_centroid_grid", grid, want)
     v = want.counts > 0
-    n_launches = one_call("build_centroid_grid", k14)
+    n_launches = one_call(torch, "build_centroid_grid", k14)
     n_cases = check_grid_cases(torch, dev)
     log(f"  build_centroid_grid: {n_kept} points -> {int(v.sum())} of {grid.keys.shape[0]} leaves, keys, counts and "
         f"origin identical, centroids within {err:.3g} (tol 1e-6 relative); {n_launches} launches of its own, no "
@@ -2705,7 +2715,10 @@ KNN_THREAD_QUERIES = 16384  # csrc/knn_grid.cu kThreadQueries: from this batch o
 KNN_CASE_NAMES = ("points mirrored about a query", "duplicated points", "a cell holding more than 8 points",
                   "the extent's first and last cells", "masked tail rows", "empty grid",
                   "sampled search (22000 lanes)", "the gates at d0^2 = 25 and norm = 1e-3",
-                  "16384 queries, a thread each", "16384 queries on the sampled grid")
+                  "16384 queries, a thread each", "16384 queries on the sampled grid",
+                  "131072 lanes, masked and out-of-extent lanes among valid ones", "three fields of 16 bits",
+                  "a span past 2^31 cells")
+GRID_SORT_LANES = 1 << 17  # K9g's largest knn_cases grid: GICP's lane count, the key sort's route
 
 
 def _five_metres_off(p: np.ndarray) -> np.ndarray:
@@ -2747,7 +2760,14 @@ def knn_cases(seed: int = SEED):
     (the line's norm 1e-3, not above it) and a third 1 m off square to them
     (the plane's cross product 1e-3 long); and batches of 16384 queries,
     which take a thread a query, on a 6000-lane grid and a 22000-lane one
-    (sampled), masked lanes among the rows."""
+    (sampled), masked lanes among the rows. Then K9g's build: 131072 lanes
+    (its key sort's route, many tiles), a third masked among the valid ones
+    and 4000 valid lanes past the 2 km extent, whose INT32_MAX tail keeps
+    lane order, with 320 queries; cells spanning exactly 64 x 32 x 32 (the
+    packed key's three fields 6 + 5 + 5 = 16 bits: two digit passes, the
+    edge of the pass count); and lanes 3e9 m either side of 0 (cells
+    1.5e9 either side of the origin's: a span past 2^31 - 1 cells, whose
+    offset wraps negative in int32 and leaves the extent as in int64)."""
     rng = np.random.default_rng(seed)
     out = []
 
@@ -2801,6 +2821,28 @@ def knn_cases(seed: int = SEED):
         near = pts[rng.choice(n_grid, KNN_THREAD_QUERIES - 1000)] + rng.normal(0, 0.4, (KNN_THREAD_QUERIES - 1000, 3))
         out.append((pts, mask, np.concatenate([near, rng.uniform(-45.0, 45.0, (900, 3)),
                                                np.full((100, 3), SENTINEL_XYZ)])))
+
+    # K9g's edge cases: the key sort's route with a tail among the tiles, the
+    # pass count's edge, a span past 2^31 cells
+    n = GRID_SORT_LANES
+    pts = np.concatenate([_blobs(rng, n - 14000, 60.0, spread=1.5), rng.uniform(-60.0, 60.0, (10000, 3)),
+                          rng.uniform(0.0, 60.0, (4000, 3)) + np.array([2100.0, 0.0, 0.0])])
+    order = rng.permutation(n)
+    pts, past = pts[order], order >= n - 4000
+    mask = (rng.random(n) >= 0.33) | past  # the lanes past the extent stay valid
+    mask[rng.choice(np.flatnonzero(past), 200, replace=False)] = False
+    pts[~mask & (rng.random(n) < 0.5)] = SENTINEL_XYZ
+    near = pts[rng.choice(np.flatnonzero(mask & ~past), 280, replace=False)] + rng.normal(0, 0.5, (280, 3))
+    out.append((pts, mask, np.concatenate([near, pts[np.flatnonzero(past)[:20]], rng.uniform(-70.0, 70.0, (20, 3))])))
+
+    cells = np.concatenate([rng.integers(0, [64, 32, 32], (1900, 3)), [[0, 0, 0], [63, 31, 31]]])
+    pts = (cells + rng.uniform(0.05, 0.95, cells.shape)) * KNN_CELL + np.array([-40.0, 10.0, -30.0])
+    out.append((pts, np.ones(len(pts), bool), pts[rng.choice(len(pts), 150, replace=False)] +
+                rng.normal(0, 0.6, (150, 3))))
+
+    wide = np.concatenate([np.c_[np.full(60, -3.0e9), rng.uniform(0.0, 40.0, (60, 2))],
+                           np.c_[np.full(60, 3.0e9), rng.uniform(0.0, 40.0, (60, 2))]])[rng.permutation(120)]
+    out.append((wide, np.ones(120, bool), np.c_[np.full(40, -3.0e9), rng.uniform(-2.0, 42.0, (40, 2))]))
 
     cases = []
     for name, (pts, mask, queries) in zip(KNN_CASE_NAMES, out):
@@ -2871,6 +2913,61 @@ def check_knn_cases(torch, dev):
                 raise AssertionError(f"knn ({name}): outputs {bad} differ from the twins {where}")
     log(f"  knn_cases: {len(cases)} cases, knn at k = {KNN_CASE_KS}, lines_from_2nn and planes_from_3nn, each one "
         f"launch and no synchronizing call, bit for bit the twins on the card and on the CPU")
+    return len(cases)
+
+
+# ----------------------------------------------------------------- K9c's edge cases
+
+TABLE_CASE_NAMES = ("every row masked", "40 rows in one cell", "hash collisions, 256 buckets (one pass)",
+                    "5001 rows (not a multiple of 1024), 1024 buckets", "65536 rows, 2^15 buckets",
+                    "100000 rows, 2^18 buckets (three passes)")
+
+
+def table_cases(seed: int = SEED):
+    """Kernel 9c's edge cases as numpy arrays: (name, points (n, 3), mask
+    (n,), n_buckets, slots) on the 2 m cells. Every row masked; 40 rows in
+    one cell among 2000 others (its bucket overflows its 6 slots, and input
+    order decides which stay); 20000 rows in 256 buckets, 8 slots (every
+    bucket shared by many cells and overflowing; one digit pass); 5001 rows
+    into 1024 buckets (a tile of the sort cut short); the surf map's 2^15 x 6
+    at 65536 rows, a third masked among them; 100000 rows into 2^18 buckets
+    (the flagship's largest table: three digit passes)."""
+    rng = np.random.default_rng(seed)
+    scene = lambda n: rng.uniform(-80.0, 80.0, (n, 3))  # noqa: E731
+    crowd = (np.array([3, -2, 1]) + rng.uniform(0.05, 0.95, (40, 3))) * KNN_CELL
+    rows = np.concatenate([scene(2000), crowd])[rng.permutation(2040)]
+    out = [(scene(5000), np.zeros(5000, bool), 1024, 6), (rows, np.ones(2040, bool), 4096, 6),
+           (_blobs(rng, 20000, 60.0, spread=1.0), rng.random(20000) >= 0.1, 256, 8),
+           (scene(5001), rng.random(5001) >= 0.2, 1024, 6),
+           (_blobs(rng, 65536, 70.0, spread=1.5), rng.random(65536) >= 0.33, 1 << 15, 6),
+           (scene(100000), rng.random(100000) >= 0.2, 1 << 18, 6)]
+    return [(name, np.asarray(p, np.float32), m, b, s) for name, (p, m, b, s) in zip(TABLE_CASE_NAMES, out)]
+
+
+def check_table_cases(torch, dev):
+    """K9c (`build_cell_table`) on every `table_cases` entry, one launch and
+    no synchronizing call each, the table bit for bit its twin's on the card
+    and run on a CPU copy. Returns the number of cases."""
+    from lv_slam_tpu_torch.kernels import KERNELS
+    from lv_slam_tpu_torch.ops import knn
+
+    cases = table_cases()
+    for name, pts, mask, n_buckets, slots in cases:
+        x, m = torch.from_numpy(pts).to(dev), torch.from_numpy(mask).to(dev)
+        before = KERNELS["build_cell_table"].launches
+        got = []
+        syncs = count_syncs(torch, lambda: got.append(knn.build_cell_table(x, m, KNN_CELL, n_buckets, slots)))
+        torch.cuda.synchronize()
+        if KERNELS["build_cell_table"].launches != before + 1 or syncs:
+            raise AssertionError(f"build_cell_table ({name}): {KERNELS['build_cell_table'].launches - before} "
+                                 f"launches, {syncs} synchronizing calls")
+        table = got[0].table.view(torch.int32)
+        for where, want in (("on the card", knn.build_cell_table_ref(x, m, KNN_CELL, n_buckets, slots)),
+                            ("on the CPU", knn.build_cell_table_ref(x.cpu(), m.cpu(), KNN_CELL, n_buckets, slots))):
+            if not torch.equal(table.cpu(), want.table.view(torch.int32).cpu()):
+                raise AssertionError(f"build_cell_table ({name}): the table differs from the twin's {where}")
+    log(f"  table_cases: {len(cases)} cases, each one launch and no synchronizing call, bit for bit the twin's "
+        f"table on the card and on the CPU")
     return len(cases)
 
 
@@ -3020,9 +3117,16 @@ def check_standalone_kernels(torch, scans, dev):
             f"{got.origin_cell.tolist()}, {int(torch.unique(got.keys).numel()) - 1} occupied cells; keys, "
             f"point order and origin identical to the plain version")
     pts, m, grid = f0.less_flat, f0.less_flat_mask, grids["surf"]
-    measure(torch, records, "build_grid", lambda: knn.build_grid(pts, m, _GRID_CELL),
-            lambda: knn.build_grid_ref(pts, m, _GRID_CELL), 0.0,
+    k9g = lambda: knn.build_grid(pts, m, _GRID_CELL)  # noqa: E731
+    n_launches = one_call(torch, "build_grid", k9g)
+    log(f"  build_grid: {n_launches} launch(es) of its own a call, no other device work, no synchronizing call")
+    measure(torch, records, "build_grid", k9g, lambda: knn.build_grid_ref(pts, m, _GRID_CELL), 0.0,
             nbytes(pts, m, grid.keys, grid.xyz, grid.origin_cell), 15 * pts.shape[0])
+    # the glue the kernel's own sort replaced: torch.sort of the twin's int32 flat keys
+    key9g, _ = knn._grid_keys_ref(pts, m, _GRID_CELL)
+    _, sort9g_ms, _ = device_ms(torch, lambda: torch.sort(key9g, stable=True))
+    records["build_grid"]["torch_sort_ms"] = sort9g_ms
+    log(f"    torch.sort(stable=True) of the twin's {key9g.numel()} int32 keys: {sort9g_ms:.4f} ms device-only")
 
     # kernel 9k: one scan-to-scan round's lines and planes, and the k-NN entry
     guess = torch.eye(4, dtype=torch.float32, device=dev)
@@ -3058,6 +3162,7 @@ def check_standalone_kernels(torch, scans, dev):
     for c in raw:
         pipe.process(c)
     mapping = pipe.mapping
+    timings = {}
     for name, xyz, m, cap in (("edge", mapping._edge_map, mapping._edge_mask, cfg.map_edge_cap),
                               ("surf", mapping._surf_map, mapping._surf_mask, cfg.map_planar_cap)):
         nb = _n_buckets(cfg, cap)
@@ -3068,10 +3173,25 @@ def check_standalone_kernels(torch, scans, dev):
             raise AssertionError(f"build_cell_table: the {name} table differs from the plain version")
         stored = int((got.table.view(-1, 4)[:, 3] > 0.5).sum())
         log(f"  build_cell_table: {name} map {int(m.sum())} of {m.numel()} rows -> table {tuple(got.table.shape)} "
-            f"holding {stored}; bit-identical to the plain version, slot for slot")
-    k9c = lambda: knn.build_cell_table(xyz, m, _GRID_CELL, nb, cfg.knn_slots)  # noqa: E731
-    p9c = lambda: knn.build_cell_table_ref(xyz, m, _GRID_CELL, nb, cfg.knn_slots)  # noqa: E731
-    measure(torch, records, "build_cell_table", k9c, p9c, 0.0, nbytes(xyz, m, got.table), 20 * xyz.shape[0])
+            f"holding {stored} ({knn.table_passes(nb)} digit passes); bit-identical to the plain version, slot for "
+            f"slot")
+        k9c = lambda: knn.build_cell_table(xyz, m, _GRID_CELL, nb, cfg.knn_slots)  # noqa: E731
+        p9c = lambda: knn.build_cell_table_ref(xyz, m, _GRID_CELL, nb, cfg.knn_slots)  # noqa: E731
+        if name == "surf":
+            n_launches = one_call(torch, "build_cell_table", k9c)
+            log(f"  build_cell_table: {n_launches} launches of its own a call, no other device work, no "
+                f"synchronizing call")
+        # bytes: the rows and mask read once, the table written once; ~20
+        # operations a row (its cell, hash and digits)
+        timings[name] = timed(torch, "build_cell_table", k9c, p9c, 0.0, nbytes(xyz, m, got.table), 20 * xyz.shape[0],
+                              f" ({name} map, {nb} x {cfg.knn_slots})")
+        # the glue the kernel's own sort replaced: torch.sort of the twin's int32 bucket keys
+        key9c = knn._table_keys_ref(xyz, m, _GRID_CELL, nb)
+        _, timings[name]["torch_sort_ms"], _ = device_ms(torch, lambda: torch.sort(key9c, stable=True))
+        log(f"    torch.sort(stable=True) of the twin's {key9c.numel()} int32 keys: "
+            f"{timings[name]['torch_sort_ms']:.4f} ms device-only")
+    records["build_cell_table"] = dict(timings["surf"], edge=timings["edge"])
+    check_table_cases(torch, dev)
     return records
 
 
@@ -3471,14 +3591,18 @@ def log_kernels(top) -> None:
 
 
 # the device functions of K14's build and query, K17, K18, K9b, K9k (its
-# three entries: knn, lines, planes) and K16 as a trace names them; the
-# build's `key_sort_pass` launches are shared with K1, K1b, K2 and K3 and
-# are not attributed
+# three entries: knn, lines, planes), K16, K9g's build and K9c's as a trace
+# names them; the builds' `key_sort_pass` launches (K14's, K9g's past 8192
+# lanes, K9c's) are shared with K1, K1b, K2 and K3: "key sort" sums every
+# caller's passes
 TRACED_FAMILY = {
     "K14 build": ("grid_ranges", "grid_keys", "grid_runs"), "K14 query": ("grid_query", "grid_finish"),
     "K17": ("nn_points_kernel", "icp_match", "icp_means", "icp_cov", "icp_update"), "K18 radius": ("outlier_radius",),
     "K18 statistical": ("stat_dist", "stat_mean", "stat_var", "stat_thresh", "stat_keep"), "K9b": ("crop_tables",),
     "K9k": DEVICE_FUNCTIONS["knn"], "K16": DEVICE_FUNCTIONS["detect_floor"],
+    "K9g": tuple(f for f in DEVICE_FUNCTIONS["build_grid"] if f != "key_sort_pass"),
+    "K9c": tuple(f for f in DEVICE_FUNCTIONS["build_cell_table"] if f != "key_sort_pass"),
+    "key sort": ("key_sort_pass",),
 }
 
 
@@ -3490,11 +3614,21 @@ def device_rows(torch, events) -> list:
                    if e.device_type == torch.autograd.DeviceType.CUDA), reverse=True)
 
 
+TRACE_LEAD_IN = 32  # marker kernels a trace starts with, ahead of the traced call
+
+
 def trace_rows(torch, fn) -> list:
-    """`device_rows` of one traced call of `fn`."""
+    """`device_rows` of one traced call of `fn`. The trace opens with
+    TRACE_LEAD_IN marker kernels and a synchronization: traces on the card
+    lost their first kernels' records (phase 10a's GICP align, its two grid
+    builds; 7b's first scan's), so the markers stand where a lost record
+    would be."""
     from torch.profiler import ProfilerActivity, profile as torch_profile
 
     with torch_profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(TRACE_LEAD_IN):
+            torch.cuda._sleep(1000)
+        torch.cuda.synchronize()
         fn()
         torch.cuda.synchronize()
     return device_rows(torch, prof.key_averages())
@@ -3516,7 +3650,7 @@ def traced_family(rows) -> dict:
 def log_family(what: str, family: dict) -> None:
     parts = [f"{k} {v['ms']:.4f} ms over {v['launches']} device launches" for k, v in family.items()
              if isinstance(v, dict)]
-    log(f"  traced {what}: {'; '.join(parts) or 'no K14 / K17 / K18 / K9b / K9k / K16 launch'}; library onesweep launches "
+    log(f"  traced {what}: {'; '.join(parts) or 'no launch of ' + ' / '.join(TRACED_FAMILY)}; library onesweep launches "
         f"{family['onesweep_launches']}")
 
 
@@ -4104,15 +4238,20 @@ def run_lvslam(torch, scans, gt, dev, card, images):
     from lv_slam_tpu_torch.pipeline.slam import LvSlam
 
     n = len(scans)
+    vocabulary = Vocabulary.load(str(VOCABULARY_ASSET))
+
+    def one_pass():
+        slam = LvSlam(kitti_flagship_config(), use_dlo=False, vocabulary=vocabulary, device=dev)
+        for i, scan in enumerate(scans):
+            slam.process(scan, 0.1 * i, image=images[i])
+        slam.finalize()
+        return slam
+
     torch.cuda.reset_peak_memory_stats()
     reset_launches()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    slam = LvSlam(kitti_flagship_config(), use_dlo=False, vocabulary=Vocabulary.load(str(VOCABULARY_ASSET)),
-                  device=dev)
-    for i, scan in enumerate(scans):
-        slam.process(scan, 0.1 * i, image=images[i])
-    slam.finalize()
+    slam = one_pass()
     torch.cuda.synchronize()
     elapsed = time.perf_counter() - t0
     peak = torch.cuda.max_memory_allocated()
@@ -4139,9 +4278,29 @@ def run_lvslam(torch, scans, gt, dev, card, images):
         f"{peak / 2**20:.1f} MiB")
     if len(keyframes) != REFERENCE_KEYFRAMES or not loops:
         raise AssertionError("LvSlam(use_dlo=False) must give the reference's 19 keyframes and close a loop")
+    # a second whole pass with the mapping's table builds recorded, then
+    # those builds replayed in a trace: K9c alone, its passes included
+    # (`key sort` there is K9c's own)
+    from lv_slam_tpu_torch.lfa import mapping as lfa_mapping
+    from lv_slam_tpu_torch.ops import knn
+
+    recorded = []
+
+    def recording(xyz, mask, *args):
+        recorded.append((xyz.clone(), mask.clone(), args))
+        return knn.build_cell_table(xyz, mask, *args)
+
+    lfa_mapping.build_cell_table = recording
+    try:
+        one_pass()
+    finally:
+        lfa_mapping.build_cell_table = knn.build_cell_table
+    family = traced_family(trace_rows(torch, lambda: [knn.build_cell_table(x, m, *a) for x, m, a in recorded]))
+    family["builds"] = len(recorded)
+    log_family(f"K9c's {len(recorded)} table builds of a second pass, replayed", family)
     summary = dict(scans_per_s=n / elapsed, devkit_t_err=t_err, drift_m=drift, keyframes=keyframes, loops=loops,
                    max_keyframe_err_m=max(kf_err), last_keyframe_err_m=kf_err[-1], peak_mib=peak / 2**20,
-                   jax_record=JAX_LVSLAM)
+                   jax_record=JAX_LVSLAM, traced=family)
     return summary, launches
 
 
@@ -4959,8 +5118,10 @@ def registration_pair(torch, scans, gt, dev):
 
 def check_registration_kernels(torch, scans, gt, dev):
     """Phase 2h: kernels 17-20 and 0a vs their plain versions at phase 10's
-    shapes: K17 (nn_points, one ICP iteration), K9k's `knn` at GICP's three
-    calls (bit for bit, timed as the `gicp` entry of K9k's record) and K19a /
+    shapes: K17 (nn_points, one ICP iteration), K9g's two grids (bit for
+    bit, the target's timed as the `gicp` entry of K9g's record), K9k's
+    `knn` at GICP's three calls (bit for bit, timed as the `gicp` entry of
+    K9k's record) and K19a /
     K19b (the source's covariances, one GICP normal-equation pass) on scan 41's 131072 lanes
     against scan 40 at the guess, K18 (both removals) and K20 on scan 40
     (filtered; its 10 m map with a 64^3 LUT), K0a on raw scan 40."""
@@ -5043,7 +5204,25 @@ def check_registration_kernels(torch, scans, gt, dev):
     # matches at the guess (k = 1) and the matches' neighbourhoods (k = 8),
     # every output bit for bit the twin's on the card
     src_grid = knn.build_grid(src, mask, 1.0)
-    tgt_grid = knn.build_grid(target.masked_xyz(), target.mask, 1.0)
+    tgt_xyz, tgt_mask = target.masked_xyz(), target.mask
+    tgt_grid = knn.build_grid(tgt_xyz, tgt_mask, 1.0)
+    # kernel 9g at GICP's shapes (131072 lanes at 1 m: the key sort's route),
+    # both grids bit for bit the twin's, the target's timed
+    for what, g, x, m in (("source", src_grid, src, mask), ("target", tgt_grid, tgt_xyz, tgt_mask)):
+        want = knn.build_grid_ref(x, m, 1.0)
+        if not all(torch.equal(a.view(torch.int32), b.view(torch.int32)) for a, b in zip(g[:3], want[:3])):
+            raise AssertionError(f"build_grid at GICP's shapes ({what}): keys, points' bits or origin differ from the "
+                                 f"plain version")
+        log(f"  build_grid at GICP's shapes ({what}: {int(m.sum())} valid of {m.numel()} lanes at 1 m): keys, point "
+            f"order and origin identical to the plain version")
+    k9g = lambda: knn.build_grid(tgt_xyz, tgt_mask, 1.0)  # noqa: E731
+    records["_grid_gicp"] = timed(torch, "build_grid", k9g, lambda: knn.build_grid_ref(tgt_xyz, tgt_mask, 1.0), 0.0,
+                                  nbytes(tgt_xyz, tgt_mask, *tgt_grid[:3]), 15 * tgt_xyz.shape[0],
+                                  " at GICP's shapes (the target)")
+    key9g, _ = knn._grid_keys_ref(tgt_xyz, tgt_mask, 1.0)
+    _, records["_grid_gicp"]["torch_sort_ms"], _ = device_ms(torch, lambda: torch.sort(key9g, stable=True))
+    log(f"    torch.sort(stable=True) of the twin's {key9g.numel()} int32 keys: "
+        f"{records['_grid_gicp']['torch_sort_ms']:.4f} ms device-only")
     matched = knn.knn(tgt_grid, y, 1)[1][:, 0].contiguous()
     gicp_knn = (("the source's covariances", src_grid, src, 8), ("the matches", tgt_grid, y, 1),
                 ("the matches' neighbourhoods", tgt_grid, matched, 8))
@@ -6467,6 +6646,7 @@ def main() -> int:
     log("phase 2h: the registrations' and the prefilter branches' kernels (K17-K20, K0a)")
     records.update(check_registration_kernels(torch, scans_all, gt_all, dev))
     records["knn"]["gicp"] = records.pop("_knn_gicp")
+    records["build_grid"]["gicp"] = records.pop("_grid_gicp")
     log("phase 2i: the device-side loops (K7's newton_step over K6L and K13's pass, the LM's kernels around K15)")
     records.update(check_loop_kernels(torch, scans_all, gt_all, dev, records))
     for name, fn in (("newton_step", "newton_step"), ("ndt_derivatives_hash", "ndt_partials"),
@@ -6582,7 +6762,7 @@ def main() -> int:
             **{extra: records[name][extra]
                for extra in ("cholesky_ms", "with_sensor_factors", "launches_by_phase", "over_cap", "standalone",
                              "torch_sort_ms", "torch_topk_ms", "rung_4m", "lm_step_ms", "hand_launches_per_iteration",
-                             "bound_earlier_count_ms", "gate_closed", "surf_only", "gicp")
+                             "bound_earlier_count_ms", "gate_closed", "surf_only", "gicp", "edge")
                if extra in records[name]},
         )
         for name, k in KERNELS.items()

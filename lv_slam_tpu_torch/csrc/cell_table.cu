@@ -53,16 +53,31 @@
 // of 8192 keys runs on one SM, and the cluster spreads every per-row step
 // over 8.
 //
-// Build design (9c): `table_keys` writes each row's bucket (its cell is
-// floor(x * (1/cell)), as XLA compiles the reference's division by a
-// constant), B for masked rows; the wrapper sorts the buckets stably (torch
-// glue), so each bucket's rows form one run in input order. `table_zero`
-// clears the table, then `table_place` runs one thread per sorted row: a
-// binary search finds the start of its bucket run, and the row is written
-// to slot rank = row - start when rank < S. Slots are distinct, so the table
-// is deterministic slot for slot. What bounds it: the table's clear and
-// write (3 MB for the surf map's 2^15 x 6 slots, ~1 us of HBM time) and the
-// 65536-row sort; the binary searches stay in L2.
+// Build design (9c, `lvs_build_cell_table`: one C call of 3 launches and
+// the key sort's passes, no host read and no torch op between them):
+// 1. `table_clear` zeroes the sort's words, the per-bucket counts and the
+//    fill's tile words.
+// 2. `table_count`: each unmasked row's bucket (its cell is floor(x *
+//    (1/cell)), as XLA compiles the reference's division by a constant) is
+//    its sort key, masked rows take none (the sort drops them); the digits
+//    counted for the sort, the bucket's count by an integer atomic (the
+//    totals do not depend on the order), the valid rows into the sort's
+//    count.
+// 3. The passes of csrc/key_sort.cuh, as many as B - 1 has digits (the host
+//    knows B: 2 for the flagship's 2^14 and 2^15 buckets, 3 up to 2^24, 1 up
+//    to 256): stable, so each bucket's rows form one run in input order.
+// 4. `table_fill`, a thread a sorted position and a table slot: the row at
+//    sorted position i is the rank-th of its bucket's run, rank the equal
+//    keys just before it (at most S read), and fills slot (bucket, rank)
+//    with flag 1.0 when rank < S; slot (b, s) of a bucket counted at most s
+//    rows is zeroed (+0.0). Every slot is written once, in a 16-byte store,
+//    and has one writer, so the table is deterministic; it is bit for bit
+//    the twin's (a stable sort, each row's rank in its run, one scatter of
+//    ranks below S into a zeroed table) and the earlier route's (a
+//    torch.sort between two launches, a clear of the whole table, then a
+//    binary search a row; `scripts/grid_table_parent.py` holds it so on the
+//    card). What bounds it: the table's write (3 MB for the surf map's 2^15
+//    x 6 slots, ~1 us of HBM time) and the 65536-row sort's launches.
 //
 // Crop design (`crop_tables`): one launch crops the LFA step's two tables
 // (or one), in place, a thread eight slots. With a last crop
@@ -92,7 +107,9 @@
 // as the reference returns it) and whether the distance is finite. Ranks are
 // distinct, so every slot has one writer. What bounds it: latency (8 row
 // reads of 96 bytes per query and (8 S)^2 comparisons in shared memory).
+#include "cluster_sort.cuh"
 #include "common.cuh"
+#include "key_sort.cuh"
 
 #include <cooperative_groups.h>
 #include <math.h>
@@ -197,82 +214,10 @@ __global__ void insert_place(const long long* __restrict__ skhi, const long long
 
 // ---- 9a up to 8192 rows: keys, sort, keep, rank and place in one cluster launch ----
 
-constexpr int kInsCtas = 8;          // one thread-block cluster, the portable size
-constexpr int kInsThreads = 1024;    // per block, one row a thread
+constexpr int kInsCtas = kSortCtas;        // one thread-block cluster, the portable size
+constexpr int kInsThreads = kSortThreads;  // per block, one row a thread
 constexpr int kInsWarps = kInsThreads / 32;
 constexpr int kInsMaxRows = kInsCtas * kInsThreads;  // 8192
-
-typedef unsigned long long u64;
-
-// The sort key of a row. Narrow: the packed (bucket, vx, cy, cz, row)
-// fields of `ops/knn.py` `insert_sort_keys`, offset by the batch's minima,
-// in one word; wide: (bucket << 32 | vx ^ 2^31, vyz << 32 | row). Rows are
-// distinct keys, so any sort of them is the reference's stable sort.
-struct Narrow {
-  u64 k;
-};
-struct Wide {
-  u64 hi, lo;
-};
-
-__device__ __forceinline__ bool key_lt(const Narrow& a, const Narrow& b) { return a.k < b.k; }
-__device__ __forceinline__ bool key_lt(const Wide& a, const Wide& b) {
-  return a.hi < b.hi || (a.hi == b.hi && a.lo < b.lo);
-}
-
-// The sorted keys in shared memory: narrow keys one word each, wide keys
-// two arrays of words.
-__device__ __forceinline__ Narrow key_at(const u64* sm, int, int p, Narrow) { return {sm[p]}; }
-__device__ __forceinline__ Wide key_at(const u64* sm, int n_pad, int p, Wide) { return {sm[p], sm[n_pad + p]}; }
-__device__ __forceinline__ void put_key(u64* sm, int, int p, const Narrow& a) { sm[p] = a.k; }
-__device__ __forceinline__ void put_key(u64* sm, int n_pad, int p, const Wide& a) {
-  sm[p] = a.hi;
-  sm[n_pad + p] = a.lo;
-}
-
-// Ascending bitonic sort of a warp's 32 one-word keys, one a lane, over
-// shuffles: stage (ks, s) pairs lane l with l ^ 2^s, ascending where bit ks
-// of l is 0 (every warp ascending at the last size).
-__device__ __forceinline__ u64 warp_sort(u64 v) {
-  const int lane = threadIdx.x & 31;
-#pragma unroll
-  for (int ks = 1; ks <= 5; ++ks) {
-#pragma unroll
-    for (int s = ks - 1; s >= 0; --s) {
-      const int j = 1 << s, k = ks == 5 ? 0 : 1 << ks;
-      const u64 o = __shfl_xor_sync(0xffffffffu, v, j);
-      const bool take_min = ((lane & j) == 0) == ((lane & k) == 0);  // lower half where ascending
-      v = ((o < v) == take_min) ? o : v;
-    }
-  }
-  return v;
-}
-
-// Merges a block's 32 warp-sorted runs of 32 keys (at sm[0 .. 1024)) in
-// five rounds of pairwise merges; thread t writes output t, taken at the
-// split that a binary search along its diagonal finds (merge path), ties to
-// the first run. The sorted keys end at sm[1024 .. 2048).
-__device__ void merge_runs(u64* sm) {
-  u64 *src = sm, *dst = sm + kInsThreads;
-  const int pos = threadIdx.x;
-#pragma unroll 1
-  for (int r = 32; r < kInsThreads; r <<= 1) {
-    const int base = pos & ~(2 * r - 1), d = pos - base;
-    int lo = max(0, d - r), hi = min(d, r);
-    while (lo < hi) {
-      const int mid = (lo + hi) >> 1;
-      if (src[base + mid] <= src[base + r + d - 1 - mid]) lo = mid + 1;
-      else hi = mid;
-    }
-    const int i = lo, j = d - lo;
-    const u64 a = i < r ? src[base + i] : 0, b = j < r ? src[base + r + j] : 0;
-    dst[pos] = i < r && (j >= r || a <= b) ? a : b;
-    __syncthreads();
-    u64* t = src;
-    src = dst;
-    dst = t;
-  }
-}
 
 // Ascending bitonic sort of n_pad two-word keys in shared memory (hi words
 // at sm, lo words at sm + n_pad): the rare batch whose fields pass 63 bits.
@@ -383,45 +328,6 @@ struct InsertShared {
   int warp_f[kInsWarps], warp_v[kInsWarps];
   int block_f, block_v;        // the block's scan aggregate, read by the later blocks
 };
-
-// The cluster's sort from each block's locally sorted keys (at `local`):
-// a key's position is its rank in its block plus, for every other block,
-// the number of that block's keys before it (keys ordered, ties to the
-// lower block), found by ten-step binary searches over distributed shared
-// memory, all blocks' in lockstep. Each key goes to the block that owns
-// its position (positions rank * 1024 .. rank * 1024 + 1023).
-template <typename K>
-__device__ void cluster_scatter(const u64* local, u64* sorted, int rank) {
-  namespace cg = cooperative_groups;
-  cg::cluster_group cluster = cg::this_cluster();
-  const int tid = threadIdx.x;
-  const K mine = key_at(local, kInsThreads, tid, K{});
-  const u64* other[kInsCtas];
-  int count[kInsCtas];
-#pragma unroll
-  for (int c = 0; c < kInsCtas; ++c) {
-    other[c] = cluster.map_shared_rank(local, c);
-    count[c] = 0;
-  }
-#pragma unroll
-  for (int step = kInsThreads / 2; step >= 1; step >>= 1) {
-#pragma unroll
-    for (int c = 0; c < kInsCtas; ++c) {
-      if (c == rank) continue;
-      const K key = key_at(other[c], kInsThreads, count[c] + step - 1, K{});
-      if (c < rank ? !key_lt(mine, key) : key_lt(key, mine)) count[c] += step;
-    }
-  }
-  int g = tid;
-#pragma unroll
-  for (int c = 0; c < kInsCtas; ++c) {
-    if (c == rank) continue;
-    const K key = key_at(other[c], kInsThreads, count[c], K{});  // the last probe: counts of 1024
-    g += count[c] + (count[c] == kInsThreads - 1 && (c < rank ? !key_lt(mine, key) : key_lt(key, mine)));
-  }
-  u64* dst = cluster.map_shared_rank(sorted, g / kInsThreads);
-  put_key(dst, kInsThreads, g % kInsThreads, mine);
-}
 
 // Keep, rank and place over the cluster's sorted keys: thread t of block
 // `rank` owns position rank * 1024 + t.
@@ -705,41 +611,99 @@ crop_tables(float4* __restrict__ a, long long n_a, float4* __restrict__ b, long 
   }
 }
 
-__global__ void table_keys(const float* __restrict__ xyz, const bool* __restrict__ mask, int n,
-                           int n_buckets, float inv_cell, int* __restrict__ bucket) {
-  int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= n) return;
-  bucket[i] = mask[i] ? bucket_of(static_cast<int>(floorf(xyz[3 * i + 0] * inv_cell)),
-                                  static_cast<int>(floorf(xyz[3 * i + 1] * inv_cell)),
-                                  static_cast<int>(floorf(xyz[3 * i + 2] * inv_cell)), n_buckets)
-                      : n_buckets;
+// ---------------------------------------------------------------- kernel 9c
+
+namespace ks = lvs::keysort;
+
+constexpr int kClearBlocks = 528;  // the clear's grid cap: 4 blocks an SM
+constexpr int kCountBlocks = 132;  // the count's grid cap, a block an SM: fewer blocks' digit counts to add
+
+// The scratch of one build, in bytes from its start: the words that the
+// clear zeroes (the sort's control and tile status words, the bucket
+// counts), then two key and two value buffers.
+struct TableLayout {
+  size_t status, counts, zero_end, keys_a, keys_b, vals_a, vals_b, total;
+};
+
+inline size_t up256(size_t x) { return (x + 255) / 256 * 256; }
+
+TableLayout table_layout(int n, int n_buckets) {
+  const size_t tiles = n > 0 ? (static_cast<size_t>(n) + ks::kTile - 1) / ks::kTile : 1;
+  TableLayout l;
+  l.status = up256(sizeof(ks::Control));
+  l.counts = up256(l.status + tiles * ks::kRadix * sizeof(unsigned));
+  l.zero_end = up256(l.counts + static_cast<size_t>(n_buckets) * sizeof(unsigned));
+  l.keys_a = l.zero_end;
+  l.keys_b = up256(l.keys_a + n * sizeof(unsigned long long));
+  l.vals_a = up256(l.keys_b + n * sizeof(unsigned long long));
+  l.vals_b = up256(l.vals_a + n * sizeof(unsigned));
+  l.total = up256(l.vals_b + n * sizeof(unsigned));
+  return l;
 }
 
-__global__ void table_zero(float4* __restrict__ table, long long n_slots) {
-  long long i = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
-  if (i < n_slots) table[i] = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+__global__ void __launch_bounds__(lvs::kThreads) table_clear(uint4* __restrict__ words, long long n_words) {
+  const long long stride = static_cast<long long>(gridDim.x) * blockDim.x;
+  for (long long i = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x; i < n_words; i += stride)
+    words[i] = make_uint4(0u, 0u, 0u, 0u);
 }
 
-__global__ void table_place(const int* __restrict__ sb, const long long* __restrict__ order,
-                            const float* __restrict__ xyz, int n, int n_buckets, int slots,
-                            float* __restrict__ table) {
-  int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= n) return;
-  int b = sb[i];
-  if (b >= n_buckets) return;
-  int lo = 0, hi = i;  // the first row of b's run: a lower bound in [0, i]
-  while (lo < hi) {
-    int mid = (lo + hi) >> 1;
-    if (sb[mid] < b) lo = mid + 1; else hi = mid;
+__global__ void __launch_bounds__(lvs::kThreads)
+table_count(const float* __restrict__ xyz, const bool* __restrict__ mask, int n, int n_buckets, float inv_cell,
+            int n_passes, ks::Control* ctl, unsigned* __restrict__ counts, unsigned long long* __restrict__ keys) {
+  __shared__ unsigned digits[ks::kMaxPasses][ks::kRadix];
+  __shared__ unsigned block_valid;
+  for (int i = threadIdx.x; i < ks::kMaxPasses * ks::kRadix; i += blockDim.x) (&digits[0][0])[i] = 0u;
+  if (threadIdx.x == 0) block_valid = 0u;
+  if (blockIdx.x == 0 && threadIdx.x == 0) ctl->n_passes = n_passes;
+  __syncthreads();
+  unsigned mine = 0;
+  const long long stride = static_cast<long long>(gridDim.x) * blockDim.x;
+#pragma unroll 2
+  for (long long i = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x; i < n; i += stride) {
+    unsigned long long key = ks::kInvalidKey;
+    const float x = xyz[3 * i + 0], y = xyz[3 * i + 1], z = xyz[3 * i + 2];  // read with the mask, not after it
+    if (mask[i]) {
+      const int b = bucket_of(static_cast<int>(floorf(x * inv_cell)), static_cast<int>(floorf(y * inv_cell)),
+                              static_cast<int>(floorf(z * inv_cell)), n_buckets);
+      key = static_cast<unsigned long long>(b);
+      ks::count_digits(digits, key, n_passes);
+      atomicAdd(counts + b, 1u);
+      ++mine;
+    }
+    keys[i] = key;
   }
-  int rank = i - lo;
-  if (rank >= slots) return;
-  long long src = order[i];
-  float* dst = table + (static_cast<long long>(b) * slots + rank) * 4;
-  dst[0] = xyz[3 * src + 0];
-  dst[1] = xyz[3 * src + 1];
-  dst[2] = xyz[3 * src + 2];
-  dst[3] = 1.0f;
+  mine = lvs::warp_sum(mine);
+  if ((threadIdx.x & 31) == 0 && mine) atomicAdd(&block_valid, mine);
+  __syncthreads();
+  ks::flush_digits(digits, n_passes, ctl);
+  if (threadIdx.x == 0 && block_valid) atomicAdd(reinterpret_cast<unsigned*>(&ctl->n_valid), block_valid);
+}
+
+// One thread a sorted position and a table slot, on a grid over the larger
+// count: the row at sorted position i, the rank-th of its bucket's run
+// (rank < S: fewer than S equal keys before it), fills slot (bucket, rank);
+// slot (b, s) of a bucket holding at most s rows is zeroed. Each slot has
+// one writer.
+__global__ void __launch_bounds__(lvs::kThreads)
+table_fill(const unsigned long long* __restrict__ skeys, const unsigned* __restrict__ svals,
+           const unsigned* __restrict__ counts, const ks::Control* ctl, const float* __restrict__ xyz,
+           int n_buckets, int slots, float4* __restrict__ table) {
+  const long long i = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
+  const long long n_slots = static_cast<long long>(n_buckets) * slots;
+  if (i < n_slots) {
+    const long long b = i / slots;
+    if (i - b * slots >= counts[b]) table[i] = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+  }
+  if (i < ctl->n_valid) {
+    const unsigned long long key = skeys[i];
+    int rank = 0;
+    while (rank < slots && rank < i && skeys[i - rank - 1] == key) ++rank;
+    if (rank < slots) {
+      const long long row = svals[i];
+      table[static_cast<long long>(key) * slots + rank] =
+          make_float4(xyz[3 * row + 0], xyz[3 * row + 1], xyz[3 * row + 2], 1.0f);
+    }
+  }
 }
 
 constexpr int kWarps = lvs::kThreads / 32;  // queries per block of knn_cell_query
@@ -801,20 +765,41 @@ knn_cell_query(const float* __restrict__ table, int n_buckets, int slots, float 
 
 }  // namespace
 
-extern "C" int lvs_table_keys(const float* xyz, const bool* mask, int n, int n_buckets, float inv_cell,
-                              int* bucket, cudaStream_t stream) {
-  if (n > 0)
-    table_keys<<<lvs::blocks_for(n), lvs::kThreads, 0, stream>>>(xyz, mask, n, n_buckets, inv_cell, bucket);
-  LVS_RETURN_LAST_ERROR();
+extern "C" long long lvs_cell_table_scratch_bytes(int n, int n_buckets) {
+  return static_cast<long long>(table_layout(n, n_buckets).total);
 }
 
-extern "C" int lvs_table_build(const int* sb, const long long* order, const float* xyz, int n, int n_buckets,
-                               int slots, float* table, cudaStream_t stream) {
-  long long n_slots = static_cast<long long>(n_buckets) * slots;
-  if (n_slots > 0)
-    table_zero<<<lvs::blocks_for(n_slots), lvs::kThreads, 0, stream>>>(reinterpret_cast<float4*>(table), n_slots);
-  if (n > 0)
-    table_place<<<lvs::blocks_for(n), lvs::kThreads, 0, stream>>>(sb, order, xyz, n, n_buckets, slots, table);
+// xyz (n, 3) and mask (n,) -> table (n_buckets, slots * 4); n_passes digit
+// passes, enough for the bucket B - 1; scratch of
+// lvs_cell_table_scratch_bytes(n, n_buckets) bytes.
+extern "C" int lvs_build_cell_table(const float* xyz, const bool* mask, int n, int n_buckets, int slots,
+                                    float inv_cell, int n_passes, void* scratch, long long scratch_bytes,
+                                    float* table, cudaStream_t stream) {
+  if (n < 0 || n > ks::kMaxKeys || n_buckets < 1 || slots < 1 || n_passes < 1 || n_passes > ks::kMaxPasses ||
+      (static_cast<unsigned long long>(n_buckets - 1) >> (ks::kDigitBits * n_passes)) != 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const TableLayout l = table_layout(n, n_buckets);
+  if (scratch_bytes < static_cast<long long>(l.total)) return static_cast<int>(cudaErrorInvalidValue);
+  char* base = static_cast<char*>(scratch);
+  auto* ctl = reinterpret_cast<ks::Control*>(base);
+  auto* counts = reinterpret_cast<unsigned*>(base + l.counts);
+  auto* keys_a = reinterpret_cast<unsigned long long*>(base + l.keys_a);
+  auto* keys_b = reinterpret_cast<unsigned long long*>(base + l.keys_b);
+  auto* vals_a = reinterpret_cast<unsigned*>(base + l.vals_a);
+  auto* vals_b = reinterpret_cast<unsigned*>(base + l.vals_b);
+  const long long n_words = static_cast<long long>(l.zero_end / sizeof(uint4));
+  table_clear<<<std::max(1, std::min(lvs::blocks_for(n_words), kClearBlocks)), lvs::kThreads, 0, stream>>>(
+      reinterpret_cast<uint4*>(base), n_words);
+  if (n > 0) {
+    table_count<<<std::min(lvs::blocks_for(n), kCountBlocks), lvs::kThreads, 0, stream>>>(
+        xyz, mask, n, n_buckets, inv_cell, n_passes, ctl, counts, keys_b);
+    ks::launch_passes(n, keys_a, vals_a, keys_b, vals_b, ctl, reinterpret_cast<unsigned*>(base + l.status), stream,
+                      n_passes);
+  }
+  const bool in_a = (n_passes & 1) != 0;
+  table_fill<<<lvs::blocks_for(std::max(static_cast<long long>(n_buckets) * slots, static_cast<long long>(n))),
+               lvs::kThreads, 0, stream>>>(in_a ? keys_a : keys_b, in_a ? vals_a : vals_b, counts, ctl, xyz,
+                                           n_buckets, slots, reinterpret_cast<float4*>(table));
   LVS_RETURN_LAST_ERROR();
 }
 

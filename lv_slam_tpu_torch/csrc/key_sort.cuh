@@ -5,13 +5,13 @@
 //
 // Used by kernel 1 (csrc/voxel_downsample.cu), whose keys are the voxel
 // coordinates rebased into the fewest bits, by kernels 1b and 2 over kernel
-// 1's keys (csrc/voxel_dedup.cu, through csrc/voxel_keys.cuh), by kernels 3
-// and 14, whose keys are the flat cell keys packed into the fewest bits
-// (csrc/voxel_map.cu, csrc/centroid_grid.cu), and by kernel 8's placement
-// of its picks (csrc/lfa_features.cu, the look-back only). Of the voxel
-// routes, K2r's raw window group (csrc/voxel_dedup.cu `window_raw_keys`) is
-// the last with torch.sort glue; off them, K9g's grid, K9c's table and K9a
-// past its cluster's cap sort with it too.
+// 1's keys (csrc/voxel_dedup.cu, through csrc/voxel_keys.cuh), by kernels
+// 3, 14 and 9g, whose keys are the flat cell keys packed into the fewest
+// bits (csrc/voxel_map.cu, csrc/centroid_grid.cu, csrc/knn_grid.cu), by
+// kernel 9c, whose keys are the hashed buckets (csrc/cell_table.cu), and by
+// kernel 8's placement of its picks (csrc/lfa_features.cu, the look-back
+// only). K2r's raw window group (csrc/voxel_dedup.cu `window_raw_keys`) and
+// K9a past its cluster's cap still sort with torch.sort glue.
 //
 // What a caller provides: a `Control` block and the tile status words,
 // zeroed by an earlier launch on the same stream; the global count of each

@@ -1,9 +1,9 @@
 // Kernel 1's front end, shared by the callers that sort lanes by voxel:
 // kernel 1 (`csrc/voxel_downsample.cu`), kernels 1b and 2
 // (`csrc/voxel_dedup.cu`), and, for its partial rows, scratch layout and
-// run numbering, kernels 3 (`csrc/voxel_map.cu`) and 14
-// (`csrc/centroid_grid.cu`), which also share the flat-key front end and the
-// run walk at the end of this file.
+// run numbering, kernels 3 (`csrc/voxel_map.cu`), 14
+// (`csrc/centroid_grid.cu`) and 9g (`csrc/knn_grid.cu`), which also share
+// the flat-key front end at the end of this file (3 and 14 its run walk).
 //
 // `voxel_ranges` (a grid of at most kRangeBlocks blocks, each thread a
 // stride of lanes) takes the voxel coordinates of each valid lane exactly
@@ -349,7 +349,7 @@ inline void launch_keys_and_sort(const float* xyz, const bool* mask, int n, floa
 }
 
 
-// ------------------------------------------------- kernels 3 and 14's front end
+// ------------------------------------------- kernels 3, 14 and 9g's front end
 //
 // A flat cell key is (rel0 * e + rel1) * e + rel2 with rel = floor(x *
 // (1/res)) - origin, the origin the masked minimum cell (masked lanes fold
@@ -395,6 +395,23 @@ __device__ __forceinline__ void flat_ranges(const float* __restrict__ xyz, int x
   for (long long i = first; i < n_zero; i += stride) zero[i] = 0u;
 }
 
+// Lane i's cell offsets from the origin `o`, in int32 differences that
+// wrap as the twin's; whether the lane is unmasked and in the extent (0 <=
+// rel < e on each axis). `flat_keys` keys these lanes, and kernel 9g's
+// output pass (csrc/knn_grid.cu) places the others by the same test.
+__device__ __forceinline__ bool flat_rel(const float* __restrict__ xyz, int xs, const bool* __restrict__ mask, int ms,
+                                         long long i, float inv, const int (&o)[3], int e, int (&rel)[3]) {
+  if (!mask[ms * i]) return false;
+  bool in = true;
+#pragma unroll
+  for (int k = 0; k < 3; ++k) {
+    rel[k] = static_cast<int>(static_cast<unsigned>(static_cast<int>(floorf(xyz[xs * i + k] * inv))) -
+                              static_cast<unsigned>(o[k]));
+    in = in && rel[k] >= 0 && rel[k] < e;
+  }
+  return in;
+}
+
 // The keys pass after `flat_ranges`: block 0 writes the origin (to `fc` and
 // `origin_cell`), the pass count and the field widths; every block counts
 // its keys' digits and adds its in-extent lanes to the sort's count.
@@ -427,21 +444,12 @@ __device__ __forceinline__ void flat_keys(const float* __restrict__ xyz, int xs,
   const long long stride = static_cast<long long>(gridDim.x) * blockDim.x;
   for (long long i = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x; i < n; i += stride) {
     unsigned long long key = ks::kInvalidKey;
-    if (mask[ms * i]) {
-      int rel[3];
-      bool in = true;
-#pragma unroll
-      for (int k = 0; k < 3; ++k) {  // int32 differences, wrapping as the twin's
-        rel[k] = static_cast<int>(static_cast<unsigned>(static_cast<int>(floorf(xyz[xs * i + k] * inv))) -
-                                  static_cast<unsigned>(o[k]));
-        in = in && rel[k] >= 0 && rel[k] < e;
-      }
-      if (in) {
-        key = (static_cast<unsigned long long>(rel[0]) << (w[1] + w[2])) |
-              (static_cast<unsigned long long>(rel[1]) << w[2]) | static_cast<unsigned long long>(rel[2]);
-        ks::count_digits(counts, key, n_passes);
-        ++mine;
-      }
+    int rel[3];
+    if (flat_rel(xyz, xs, mask, ms, i, inv, o, e, rel)) {
+      key = (static_cast<unsigned long long>(rel[0]) << (w[1] + w[2])) |
+            (static_cast<unsigned long long>(rel[1]) << w[2]) | static_cast<unsigned long long>(rel[2]);
+      ks::count_digits(counts, key, n_passes);
+      ++mine;
     }
     keys[i] = key;
   }

@@ -10,7 +10,10 @@ as candidates (`knn`; the 2-point lines and 3-point planes of
 
 - `build_grid` is kernel 9g (`csrc/knn_grid.cu`) on CUDA tensors and
   `build_grid_ref` on CPU tensors: cell keys, the per-axis minimum origin
-  over valid lanes, a stable `torch.sort` of the keys as glue, a gather.
+  over valid lanes, a stable sort of the keys, a gather. On the card one C
+  call: kernel 14's flat-key front end, the repo's key sort
+  (`csrc/key_sort.cuh`), one pass that writes the sorted lanes and, after
+  them in lane order, the masked and out-of-extent ones.
 - `knn` is kernel 9k (same file) on CUDA tensors and `knn_ref` on CPU
   tensors: the k nearest of the 27 x 8 candidates, ties to the lower
   candidate index, as `lax.top_k` orders them; a warp a query (a lane a
@@ -39,8 +42,11 @@ tables from its map buffers every scan (`build_cell_table`).
   `crop_interval` without a host read. `crop_cell_tables_` crops the LFA
   step's two tables in one launch on the same gate.
 - `build_cell_table` is kernel 9c (same file) on CUDA tensors and
-  `build_cell_table_ref` on CPU tensors: bucket keys, a stable `torch.sort`
-  as glue, each bucket run's first S rows written to their slots.
+  `build_cell_table_ref` on CPU tensors: bucket keys, a stable sort, each
+  bucket run's first S rows written to their slots. On the card one C call:
+  the keys and per-bucket counts, the repo's key sort in as many digit
+  passes as B - 1 has (`table_passes`), one pass that writes every slot
+  once.
 - `knn_cell` (the k nearest of the 8-cell probe, duplicate probe buckets
   dropped) is kernel 9n (same file) on CUDA tensors and `knn_cell_ref` on
   CPU tensors; `lax.top_k`'s order, ties and misses included. Neither
@@ -55,12 +61,15 @@ Squared distances are the fma chain XLA makes of the reference's
 
 from __future__ import annotations
 
+import ctypes
 from typing import NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
 
-from lv_slam_tpu_torch.kernels._build import F32, I32, PTR, Kernel, check_cuda, check_dtype, ptr
+from lv_slam_tpu_torch.kernels._build import (
+    F32, I32, MAX_SORT_LANES, PTR, Kernel, check_cuda, check_dtype, ptr, scratch_bytes,
+)
 from lv_slam_tpu_torch.ops.linalg3 import _div, dot3_fma, sqrt32
 from lv_slam_tpu_torch.ops.cells import cell_coords, inv_resolution
 from lv_slam_tpu_torch.ops.prefilter import _pack_yz, _unpack_yz
@@ -76,10 +85,8 @@ GRID_KERNEL = Kernel(
     "build_grid",
     source="lv_slam_tpu_torch/csrc/knn_grid.cu",
     replaces="lv_slam_tpu/ops/knn.py:39",
-    entries={
-        "lvs_knn_grid_keys": [PTR, PTR, I32, F32, PTR, PTR, PTR],
-        "lvs_knn_grid_gather": [PTR, PTR, I32, PTR],
-    },
+    # xyz, mask, n, 1/cell, scratch, its bytes -> keys, xyz in key order, origin
+    entries={"lvs_knn_grid": [PTR, PTR, I32, F32, PTR, ctypes.c_longlong, PTR, PTR, PTR]},
 )
 KNN_KERNEL = Kernel(
     "knn",
@@ -98,10 +105,8 @@ BUILD_TABLE_KERNEL = Kernel(
     "build_cell_table",
     source="lv_slam_tpu_torch/csrc/cell_table.cu",
     replaces="lv_slam_tpu/ops/knn.py:93",
-    entries={
-        "lvs_table_keys": [PTR, PTR, I32, I32, F32, PTR],
-        "lvs_table_build": [PTR, PTR, PTR, I32, I32, I32, PTR],
-    },
+    # xyz, mask, n, buckets, slots, 1/cell, digit passes, scratch, its bytes -> table
+    entries={"lvs_build_cell_table": [PTR, PTR, I32, I32, I32, F32, I32, PTR, ctypes.c_longlong, PTR]},
 )
 
 INSERT_KERNEL = Kernel(
@@ -506,28 +511,41 @@ def build_cell_table_ref(
     return CellTable(table=table.view(n_buckets, slots * 4), cell_size=float(np.float32(cell_size)))
 
 
+def table_passes(n_buckets: int) -> int:
+    """Digit passes of kernel 9c's key sort: the 8-bit digits of the largest
+    bucket, B - 1 (at least one)."""
+    if n_buckets < 1:
+        raise ValueError(f"build_cell_table: n_buckets must be at least 1, got {n_buckets}")
+    return max(1, -(-(n_buckets - 1).bit_length() // 8))
+
+
 def build_cell_table(
     xyz: torch.Tensor, mask: torch.Tensor, cell_size: float, n_buckets: Optional[int] = None, slots: int = 8
 ) -> CellTable:
     """xyz (N,3), mask (N,) -> a hashed (B, S*4) table holding the first
     `slots` points of each bucket in input order. `n_buckets` defaults to
-    ~2N. Kernel 9c on CUDA, the plain version on CPU."""
+    ~2N. Kernel 9c on CUDA (one C call: the bucket keys and counts, the
+    repo's key sort, one pass over the table), the plain version on CPU."""
     if xyz.device.type == "cpu":
         return build_cell_table_ref(xyz, mask, cell_size, n_buckets, slots)
     n = xyz.shape[0]
     n_buckets = n_buckets or _default_buckets(n)
+    if n > MAX_SORT_LANES:
+        raise ValueError(f"build_cell_table: {n} rows exceed the key sort's {MAX_SORT_LANES}")
+    if slots < 1:
+        raise ValueError(f"build_cell_table: slots must be at least 1, got {slots}")
+    passes = table_passes(n_buckets)
     xyz, mask = xyz.contiguous(), mask.contiguous()
     check_cuda("build_cell_table", xyz, mask)
     check_dtype("build_cell_table", xyz, torch.float32, (n, 3))
     check_dtype("build_cell_table", mask, torch.bool, (n,))
-    b = torch.empty((n,), dtype=torch.int32, device=xyz.device)
+    dev = xyz.device
+    scratch = torch.empty((scratch_bytes("lvs_cell_table_scratch_bytes", n, n_buckets),), dtype=torch.uint8,
+                          device=dev)
+    table = torch.empty((n_buckets, slots * 4), dtype=torch.float32, device=dev)
     BUILD_TABLE_KERNEL.call(
-        "lvs_table_keys", ptr(xyz), ptr(mask), n, n_buckets, inv_resolution(cell_size), ptr(b)
-    )
-    sb, order = torch.sort(b, stable=True)
-    table = torch.empty((n_buckets, slots * 4), dtype=torch.float32, device=xyz.device)
-    BUILD_TABLE_KERNEL.call(
-        "lvs_table_build", ptr(sb), ptr(order), ptr(xyz), n, n_buckets, slots, ptr(table)
+        "lvs_build_cell_table", ptr(xyz), ptr(mask), n, n_buckets, slots, inv_resolution(cell_size), passes,
+        ptr(scratch), scratch.numel(), ptr(table),
     )
     BUILD_TABLE_KERNEL.launches += 1
     return CellTable(table=table, cell_size=float(np.float32(cell_size)))
@@ -565,26 +583,29 @@ def build_grid_ref(xyz: torch.Tensor, mask: torch.Tensor, cell_size: float) -> K
 
 def build_grid(xyz: torch.Tensor, mask: torch.Tensor, cell_size: float) -> KnnGrid:
     """xyz (N,3), mask (N,) -> the points sorted by cell key; equal keys keep
-    input order. Kernel 9g on CUDA, the plain version on CPU."""
+    input order, masked and out-of-extent lanes follow in lane order. Kernel
+    9g on CUDA (one C call: the keys, the repo's key sort, one output pass),
+    the plain version on CPU."""
     if xyz.device.type == "cpu":
         return build_grid_ref(xyz, mask, cell_size)
     n = xyz.shape[0]
+    if n > MAX_SORT_LANES:
+        raise ValueError(f"build_grid: {n} lanes exceed the key sort's {MAX_SORT_LANES}")
     xyz, mask = xyz.contiguous(), mask.contiguous()
     check_cuda("build_grid", xyz, mask)
     check_dtype("build_grid", xyz, torch.float32, (n, 3))
     check_dtype("build_grid", mask, torch.bool, (n,))
     dev = xyz.device
+    scratch = torch.empty((scratch_bytes("lvs_knn_grid_scratch_bytes", n),), dtype=torch.uint8, device=dev)
     keys = torch.empty((n,), dtype=torch.int32, device=dev)
-    low = torch.empty((3,), dtype=torch.int32, device=dev)  # scratch: the atomicMin target
+    out = torch.empty((n, 3), dtype=torch.float32, device=dev)
     origin = torch.empty((3,), dtype=torch.int32, device=dev)
     GRID_KERNEL.call(
-        "lvs_knn_grid_keys", ptr(xyz), ptr(mask), n, inv_resolution(cell_size), ptr(low), ptr(origin), ptr(keys)
+        "lvs_knn_grid", ptr(xyz), ptr(mask), n, inv_resolution(cell_size), ptr(scratch), scratch.numel(), ptr(keys),
+        ptr(out), ptr(origin),
     )
-    skeys, order = torch.sort(keys, stable=True)
-    out = torch.empty((n, 3), dtype=torch.float32, device=dev)
-    GRID_KERNEL.call("lvs_knn_grid_gather", ptr(order), ptr(xyz), n, ptr(out))
     GRID_KERNEL.launches += 1
-    return KnnGrid(keys=skeys, xyz=out, origin_cell=origin, cell_size=float(np.float32(cell_size)))
+    return KnnGrid(keys=keys, xyz=out, origin_cell=origin, cell_size=float(np.float32(cell_size)))
 
 
 def _off27(device) -> torch.Tensor:

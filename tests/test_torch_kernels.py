@@ -867,6 +867,36 @@ def test_knn_and_floor_read_nothing_on_the_card(cuda, scans):
 
 
 @pytest.mark.gpu
+def test_cell_table_cases_on_the_card(cuda):
+    """K9c's build on chip_smoke's table_cases, one launch and no
+    synchronizing call a call, the table bit for bit its twin's on the card
+    and run on a CPU copy (every row masked, 40 rows in one cell, 256
+    buckets shared by many cells, 5001 rows, 2^15 and 2^18 buckets)."""
+    cs = load_chip_smoke()
+    assert cs.check_table_cases(torch, cuda) == len(cs.TABLE_CASE_NAMES)
+
+
+@pytest.mark.gpu
+def test_grid_and_table_builds_read_nothing_on_the_card(cuda, scans):
+    """K9g (its one-launch cluster route up to 8192 lanes and its key sort's
+    route past them) and K9c are each one C call: no synchronizing call and
+    no device work but their own kernels (no torch.sort)."""
+    cs = load_chip_smoke()
+    (s0, _), _ = scans
+    small = PointCloud.from_numpy(s0, cap=8192, device=cuda)
+    large = PointCloud.from_numpy(s0, cap=32768, device=cuda)
+    xs, xl = small.masked_xyz().contiguous(), large.masked_xyz().contiguous()
+    for name, fn in (("build_grid", lambda: knn.build_grid(xs, small.mask, 2.0)),
+                     ("build_grid", lambda: knn.build_grid(xl, large.mask, 2.0)),
+                     ("build_cell_table", lambda: knn.build_cell_table(large.xyz, large.mask, 2.0, 1 << 14, 6))):
+        fn()
+        torch.cuda.synchronize()
+        _, syncs = _count_syncs(fn)
+        glue, _ = cs.foreign_functions(torch, fn, cs.DEVICE_FUNCTIONS[name])
+        assert syncs == 0 and not glue, (name, syncs, glue)
+
+
+@pytest.mark.gpu
 def test_to_hash_edge_cases_on_the_card(cuda):
     """K5 on chip_smoke's hash_cases, one launch and no synchronizing call a
     call, its table and n_dropped bit-identical to its twin on the card and

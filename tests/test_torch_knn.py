@@ -34,6 +34,7 @@ from lv_slam_tpu_torch.ops import knn as tk  # noqa: E402
 from test_torch_kernels import load_chip_smoke  # noqa: E402
 
 KW = dict(scan_line=32, edge_cap=2048, planar_cap=4096, map_edge_cap=8192, map_planar_cap=16384)
+CS = load_chip_smoke()  # the case lists that chip_smoke.py also runs on the card
 
 
 @pytest.fixture(scope="module")
@@ -235,12 +236,28 @@ def _jit_build_grid(xyz, mask):
 
 def _grid_inputs(batches, case):
     """(xyz, mask) of scan 0's world-frame less-sharp features: as extracted
-    (padded lanes at the end), only the valid lanes, or all lanes masked."""
+    (padded lanes at the end), only the valid lanes, or all lanes masked;
+    "scattered": the valid lanes shuffled among masked ones, every fifth
+    moved 2.1 km out along x (valid lanes past the 1024-cell extent, which
+    key INT32_MAX and follow the sorted lanes in lane order, as the masked
+    ones do); "span_past_2^31": the same shuffled lanes with 3e9 m added to
+    or taken from x (cells 1.5e9 either side of the origin's: the span
+    passes 2^31 - 1 cells, whose offset wraps negative in int32 and leaves
+    the extent as in int64)."""
     xyz, mask = batches[0][0][0], batches[0][0][1]
     if case == "all_valid":
         return xyz[mask].copy(), np.ones(int(mask.sum()), bool)
     if case == "all_invalid":
         return xyz, np.zeros_like(mask)
+    if case in ("scattered", "span_past_2^31"):
+        rng = np.random.default_rng(7)
+        order = rng.permutation(len(mask))
+        xyz, mask = xyz[order].copy(), mask[order].copy()
+        if case == "scattered":
+            xyz[::5, 0] += np.float32(2100.0)
+        else:
+            xyz[:, 0] = np.where(np.arange(len(mask)) % 2 == 0, np.float32(-3.0e9), np.float32(3.0e9))
+        return xyz, mask
     return xyz, mask
 
 
@@ -249,20 +266,25 @@ def _same(got, want, name):
         np.testing.assert_array_equal(a.numpy(), np.asarray(b), err_msg=f"{name}.{field}")
 
 
-@pytest.mark.parametrize("case", ["padded", "all_valid", "all_invalid"])
+@pytest.mark.parametrize("case", ["padded", "all_valid", "all_invalid", "scattered", "span_past_2^31"])
 def test_build_grid_matches(batches, case):
     """Keys, point order and origin identical: the origin is the minimum
-    cell over valid lanes (0 with none), masked lanes key INT32_MAX and sort
-    last, equal keys keep input order."""
+    cell over valid lanes (0 with none), masked and out-of-extent lanes key
+    INT32_MAX and sort last in lane order, equal keys keep input order."""
     xyz, mask = _grid_inputs(batches, case)
     want = _jit_build_grid(xyz, mask)
     got = tk.build_grid(torch.from_numpy(xyz), torch.from_numpy(mask), 2.0)
     _same(got, want, case)
     assert got.cell_size == float(want.cell_size) == 2.0
-    n_valid = int(mask.sum())
-    assert (got.keys.numpy()[n_valid:] == 2**31 - 1).all()
+    keys = got.keys.numpy()
+    n_in = int((keys != 2**31 - 1).sum())
+    assert n_in <= int(mask.sum()) and (keys[n_in:] == 2**31 - 1).all()
     if case == "all_invalid":
         assert (got.origin_cell.numpy() == 0).all()
+    if case in ("scattered", "span_past_2^31"):  # the tail: every dropped lane, in lane order
+        lanes = np.flatnonzero(~mask | (np.floor(xyz[:, 0] / 2.0) - got.origin_cell.numpy()[0] >= 1024))
+        assert len(lanes) == len(keys) - n_in > 0 and n_in > 0
+        np.testing.assert_array_equal(got.xyz.numpy()[n_in:], xyz[lanes])
 
 
 def _queries(batches, grid_xyz):
@@ -292,20 +314,42 @@ def test_knn_matches(batches, k):
     assert valid[-1, :2].all() and (dists[-1, :2] == 0).all() and (points[-1, 0] == points[-1, 1]).all()
 
 
-@pytest.mark.parametrize("n_buckets", [None, 1024])
-def test_build_cell_table_matches_slot_for_slot(batches, n_buckets):
+@functools.lru_cache(maxsize=1)
+def _table_cases():
+    return {name: rest for name, *rest in CS.table_cases()}
+
+
+@pytest.mark.parametrize("case", [None, 1024, *CS.TABLE_CASE_NAMES])
+def test_build_cell_table_matches_slot_for_slot(batches, case):
     """The world-frame surf features of scans 0-3 stacked as one map buffer
-    with its padded lanes; at 1024 buckets many overflow their 6 slots."""
-    xyz = np.concatenate([b[2] for b in batches[0][:4]])
-    mask = np.concatenate([b[3] for b in batches[0][:4]])
-    build = functools.partial(jk.build_cell_table, cell_size=2.0, n_buckets=n_buckets, slots=6)
+    with its padded lanes, at the default buckets and at 1024 (many
+    overflow their 6 slots); then kernel 9c's edge cases
+    (chip_smoke.table_cases, which the card runs against these twins): every
+    row masked, 40 rows in one cell, 256 buckets (one digit pass) shared by
+    many cells, 5001 rows, 2^15 and 2^18 buckets (three passes)."""
+    if case is None or case == 1024:
+        xyz = np.concatenate([b[2] for b in batches[0][:4]])
+        mask = np.concatenate([b[3] for b in batches[0][:4]])
+        n_buckets, slots = case, 6
+    else:
+        xyz, mask, n_buckets, slots = _table_cases()[case]
+    build = functools.partial(jk.build_cell_table, cell_size=2.0, n_buckets=n_buckets, slots=slots)
     want = np.asarray(jax.jit(build)(jnp.asarray(xyz), jnp.asarray(mask)).table)
-    got = tk.build_cell_table(torch.from_numpy(xyz), torch.from_numpy(mask), 2.0, n_buckets, 6)
+    got = tk.build_cell_table(torch.from_numpy(xyz), torch.from_numpy(mask), 2.0, n_buckets, slots)
     np.testing.assert_array_equal(got.table.numpy().view(np.int32), want.view(np.int32))
     stored = int((got.table.numpy().reshape(-1, 4)[:, 3] > 0.5).sum())
+    if case == "every row masked":
+        assert stored == 0 and not got.table.numpy().any()
+        return
     assert 100 < stored <= int(mask.sum())
-    if n_buckets == 1024:
+    if case in (1024, "40 rows in one cell", CS.TABLE_CASE_NAMES[2]):
         assert stored < int(mask.sum())  # full buckets dropped rows
+
+
+@pytest.mark.parametrize("n_buckets,passes", [(1, 1), (256, 1), (257, 2), (1 << 16, 2), (1 << 18, 3)])
+def test_table_passes(n_buckets, passes):
+    """Kernel 9c's digit passes: the 8-bit digits of the largest bucket, B - 1, at least one."""
+    assert tk.table_passes(n_buckets) == passes
 
 
 def _same_knn(got, want, err_msg=""):
@@ -363,9 +407,6 @@ def test_knn_cell_constructed_cases():
     assert not valid[-1].any() and np.isinf(dists[-1]).all()
     with pytest.raises(ValueError):
         tk.knn_cell(tt, torch.from_numpy(q), 49)
-
-
-CS = load_chip_smoke()  # the case lists that chip_smoke.py also runs on the card
 
 
 @functools.lru_cache(maxsize=1)
