@@ -105,11 +105,13 @@ Phases, each of which raises on failure:
    per scan over the 170 scans as `bench.py`'s host cell drives it (3 warm
    scans, then timed, one upload per scan); gates: the accuracy gates, the
    JAX record's 34 keyframes (0, 5, ..., 165), no retry kept on a
-   warm-started scan, K3L and K6L launched, the first four poses equal to
-   those with K3L's, K6L's and K6G's twins on the card to 1e-4 and within the
-   reference's own spread (1e-2) of the CPU plain path's (the two devices'
-   plain map builds differ in a few rounding-noise leaves); scans/s, host
-   syncs per scan, idle share. 8b: `LvSlam(kitti_flagship_config(),
+   warm-started scan, K3L and K6L launched, K21 (`uniform_subsample`) once
+   per scan, the first four poses equal to those with K3L's, K6L's, K6G's
+   and K21's twins on the card to 1e-4 and within the reference's own
+   spread (1e-2) of the CPU plain path's (the two devices' plain map builds
+   differ in a few rounding-noise leaves); scans/s, host syncs per scan,
+   idle share; then a fresh pass's 170 subsamples replayed by K21 and by its
+   plain twin, each in one trace (their device totals and launches). 8b: `LvSlam(kitti_flagship_config(),
    vocabulary=<the port's asset>)` per scan with camera images, then
    `finalize()`; gates: both pose
    sets' accuracy, the record's 34 DLO keyframes, 19 backend keyframes (0,
@@ -131,7 +133,12 @@ Phases, each of which raises on failure:
    priors per keyframe, the last LM equal to the plain path's re-solve on
    the CPU to 1e-4, and, run again with exact GPS, the largest optimized
    keyframe error within 0.1 m of phase 6's; scans/s, idle share, peak
-   memory, K2r's launches. 9b: `LvSlam()` with images, `detect_floor=True`
+   memory, K2r's launches; the profiled pass's library onesweep launches
+   beside the port's calls of torch's sorts by caller (`sort_callers`: none
+   may come from the window group, and any onesweep launch needs a
+   caller); and the first pass's window groups replayed by K2r in one trace
+   (its whole device time and launches, no onesweep launch, no device work
+   but its own). 9b: `LvSlam()` with images, `detect_floor=True`
    on every scan and the same readings on its keyframes' scans; gates: the
    floor found on every scan 1.73 m (within 0.1 m) below the sensor, one
    shared fixed floor plane that stays where it is, one floor edge and
@@ -218,8 +225,18 @@ among 131072, three fields of 16 bits, a span past 2^31 cells among them)
 and K9c on `table_cases` (every row masked, 40 rows in one cell, 256
 buckets, 5001 rows, 2^15 and 2^18 buckets), bit for bit their twins; 2f: the dense LUT K3L, the LUT/SoA derivative
 pass K6L and the generic one K6G on the host DLO's 32768-leaf keyframe map
-and 65536-lane subsample, at the true pose and one 0.3 m off; 2g: the raw
-window group K2r at 16 x 131072 raw lanes, K15 with 192 priors, 64
+and 65536-lane subsample, at the true pose and one 0.3 m off, and the
+subsample K21 (one launch with no synchronizing call and no device work
+but its own) of scan 1's filtered cloud (45881 points into 65536 lanes)
+and on `subsample_cases` (no point set, fewer points than out_cap, exactly
+out_cap, KITTI density's 100000 into 65536, a holey mask, out_cap at the
+lanes, a ragged tail) bit for bit its twin on a CPU copy; 2g: the raw
+window group K2r at 16 x 131072 raw lanes (one C call with no
+synchronizing call and no device work but its own, bit for bit its twin on
+a CPU copy, there and on `raw_window_cases`: a group of 1 into more rows
+than lanes, of 16, out_cap below the voxels, rows clipped to the chunk,
+every row invalid, a move past the yz clip, points within 4 ulps of both
+band edges), K15 with 192 priors, 64
 SE3-plane edges and a fixed floor plane, and floor detection K16 on a
 filtered scan and on `floor_cases`, its coefficients also bit for bit the
 parent kernel's (`FLOOR_PARENT_COEFFS`); 2h: K17's nearest centroids and one ICP iteration, K9g's
@@ -228,8 +245,7 @@ two 131072-lane grids at 1 m (its key sort's route; the target's timed), K9k's
 covariances and K19b's normal equations on scan 41's 131072 lanes against
 scan 40 at phase 10's guess, K18's two removals and K20 on scan 40, K0a on
 raw scan 40), against its plain version at the shapes phases 5-10 give it.
-Phase 2f also times `uniform_subsample` (plain torch), printed as the
-"plain torch" line. Phase 2i holds the device-side loops against their
+Phase 2i holds the device-side loops against their
 twins: K7's `newton_step` (the Newton step of every align, with the
 derivative passes gated on the loop's `done` flag) step by step from
 identical states, on 2f's map and 65536-lane subsample from three starts
@@ -260,7 +276,7 @@ The last lines are the kernels' JSON record (each kernel's launches are
 counted on the run of the path that drives it: phase 5 for the lidar
 kernels and the LM's, 3 for K7's `newton_step` (with its launches on 8a,
 on 5 over K13's pass and on 10b under `launches_by_phase`), 6 for K12, 6b
-for K12b, 7a for K9g and K9k, 7b for K9c, 8a for K3L and K6L, 8d for K6G,
+for K12b, 7a for K9g and K9k, 7b for K9c, 8a for K3L, K6L and K21, 8d for K6G,
 9a for K2r, 9b for K16, 10a for K17, K19a and K19b, 10b for K20, 10c for
 K18 and K0a, 11b for `newton_sums` (the sharded align's), and 2j's own
 checks for K9n and K10g, which no path calls,
@@ -376,7 +392,8 @@ DEVICE_FUNCTIONS = {
     "build_lut": ("lut_fill", "lut_scatter"),
     "ndt_derivatives_soa": ("ndt_lut_partials", "ndt_finish"),
     "ndt_derivatives": ("ndt_generic_partials", "ndt_finish"),
-    "window_group_fn": ("window_raw_keys", "mark_runs", "reduce_runs"),
+    "window_group_fn": ("window_raw_ranges", "voxel_keys", "key_sort_pass", "voxel_runs"),
+    "uniform_subsample": ("subsample_cluster",),
     "detect_floor": ("floor_count", "floor_finish"),
     "nn_points": ("nn_points_kernel", "icp_match", "icp_means", "icp_cov", "icp_update"),
     "radius_outlier_removal": ("outlier_radius",),
@@ -1416,6 +1433,155 @@ def check_window_cases(torch, dev):
     return len(cases)
 
 
+RAW_WINDOW_CASE_NAMES = ("length 1, out_cap above the lanes", "length 16", "out_cap below the voxels",
+                         "rows past the chunk clipped", "every row invalid", "moved past the yz clip range",
+                         "points within ulps of the band edges")
+RAW_NEAR, RAW_FAR = 0.5, 100.0  # the flagship prefilter's distance band
+
+
+def _band_shell(rng, n: int, radius: float) -> np.ndarray:
+    """(n, 3) float32 points at `radius`, each coordinate then moved by -4 to
+    +4 ulps: |p| lies within a few ulps of a band edge."""
+    d = rng.normal(size=(n, 3))
+    p = (d / np.linalg.norm(d, axis=1, keepdims=True) * radius).astype(np.float32)
+    steps = rng.integers(-4, 5, p.shape)
+    for k in range(4):
+        p = np.where(steps > k, np.nextafter(p, np.float32(np.inf)), p)
+        p = np.where(steps < -k, np.nextafter(p, np.float32(-np.inf)), p)
+    return p.astype(np.float32)
+
+
+def raw_window_cases(seed: int = SEED):
+    """Kernel 2r's edge cases as numpy arrays: (name, chunk xyz (C, cap, 3),
+    intensity (C, cap), mask (C, cap), start, rels (L, 4, 4), valid (L,),
+    near, far, resolution, out_cap), raw scans of WINDOW_CAP lanes as the
+    sensor gives them (masked lanes at the sentinel, about 5 % of them)
+    with clusters inside 0.1 m cells, points on cell faces, and points past
+    the far edge. A group of one row into more rows than it has lanes; of
+    16; out_cap below the voxels (the output truncated); rows past the
+    chunk's end (clipped to its last row) with a padding row; every row
+    invalid; a transform that moves points 2 km in y and -3 km in z, past the
+    key's [-16384, 16383] cell clip, beside one that does not; and a chunk
+    whose lanes are a quarter within 4 ulps of the near edge, a quarter of the
+    far edge, masked lanes holding NaN."""
+    rng = np.random.default_rng(seed)
+    cap = WINDOW_CAP
+
+    def chunk(rows, edges=False):
+        xyz = np.empty((rows, cap, 3), np.float32)
+        mask = rng.random((rows, cap)) >= 0.05
+        q = cap // 4 if edges else cap // 64
+        for r in range(rows):
+            pts = np.concatenate([_band_shell(rng, q, RAW_NEAR), _band_shell(rng, q, RAW_FAR),
+                                  _voxel_scene(rng, cap - 2 * q)[:, :3]])[rng.permutation(cap)]
+            xyz[r] = np.where(mask[r][:, None], pts, np.nan if edges else 1.0e6)
+        return xyz, rng.uniform(0.0, 1.0, (rows, cap)).astype(np.float32), mask
+
+    band = (RAW_NEAR, RAW_FAR, 0.1)
+    out = []
+    out.append(("length 1, out_cap above the lanes", *chunk(4), 2, window_rels(rng, 1), np.ones(1, bool), *band,
+                2 * cap))
+    out.append(("length 16", *chunk(16), 0, window_rels(rng, 16), np.ones(16, bool), *band, 65536))
+    out.append(("out_cap below the voxels", *chunk(4), 0, window_rels(rng, 4), np.ones(4, bool), *band, 1024))
+    out.append(("rows past the chunk clipped", *chunk(6), 3, window_rels(rng, 8), np.arange(8) < 7, *band, 32768))
+    out.append(("every row invalid", *chunk(4), 0, window_rels(rng, 4), np.zeros(4, bool), *band, 32768))
+    far = window_rels(rng, 2)
+    far[0, :3, 3] = [0.0, 2000.0, -3000.0]
+    out.append(("moved past the yz clip range", *chunk(2), 0, far, np.ones(2, bool), *band, 16384))
+    out.append(("points within ulps of the band edges", *chunk(4, edges=True), 0, window_rels(rng, 4),
+                np.ones(4, bool), *band, 32768))
+    assert tuple(name for name, *_ in out) == RAW_WINDOW_CASE_NAMES
+    return out
+
+
+def check_raw_window_cases(torch, dev):
+    """K2r (`window_group`) against its twin run on a CPU copy, bit for bit,
+    on every case of `raw_window_cases`, one launch and no synchronizing call
+    each; returns the number of cases."""
+    from lv_slam_tpu_torch.core.cloud import PointCloud
+    from lv_slam_tpu_torch.kernels import KERNELS
+    from lv_slam_tpu_torch.pipeline import window
+
+    cases = raw_window_cases()
+    for name, xyz, inten, mask, start, rels, valid, near, far, res, out_cap in cases:
+        cpu = [torch.from_numpy(a) for a in (xyz, inten, mask)]
+        extra = [torch.from_numpy(rels), torch.from_numpy(valid)]
+        card = [a.to(dev) for a in cpu]
+        extra_card = [a.to(dev) for a in extra]
+        before = KERNELS["window_group_fn"].launches
+        got = []
+        syncs = count_syncs(torch, lambda: got.append(window.window_group(
+            *card, start, *extra_card, near, far, res, out_cap)))
+        torch.cuda.synchronize()
+        if KERNELS["window_group_fn"].launches != before + 1 or syncs:
+            raise AssertionError(f"window_group_fn ({name}): {KERNELS['window_group_fn'].launches - before} launches, "
+                                 f"{syncs} synchronizing calls")
+        want = window.window_group_ref(*cpu, start, *extra, near, far, res, out_cap)
+        if not identical_clouds(torch, on_cpu(PointCloud(*got[0])), want):
+            raise AssertionError(f"window_group_fn ({name}): {int(got[0].mask.sum())} voxels against the CPU twin's "
+                                 f"{int(want.mask.sum())}, not bit-identical")
+    return len(cases)
+
+
+SUBSAMPLE_CASE_NAMES = ("count 0", "count below out_cap", "count equal to out_cap", "KITTI density",
+                        "holey mask", "out_cap at the lanes", "odd sizes")
+
+
+def subsample_cases(seed: int = SEED):
+    """Kernel 21's edge cases as numpy arrays: (name, points (n, 4) xyz and
+    intensity, mask (n,), out_cap), front-compacted clouds as the prefilter
+    returns them (masked lanes at the sentinel). No point set; fewer points
+    than out_cap (the rows past them padding); exactly out_cap; 100000 of
+    131072 lanes into 65536 (i * count overflows int32 there, the case of
+    tests/test_dlo.py; a stride of 1.526 rounds in float32); a mask with
+    holes, which the count takes whole; out_cap equal to the lanes (the
+    cloud itself, no launch); and 12347 lanes, 9001 set, into 1001 rows (a
+    ragged last group of rows, an unaligned tail of mask bytes)."""
+    rng = np.random.default_rng(seed)
+
+    def cloud(n, n_set, holes=False):
+        pts = np.concatenate([rng.uniform(-50.0, 50.0, (n, 3)), rng.uniform(0.0, 1.0, (n, 1))], axis=1)
+        mask = rng.random(n) >= 0.3 if holes else np.arange(n) < n_set
+        pts[~mask, :3] = 1.0e6
+        pts[~mask, 3] = 0.0
+        return pts.astype(np.float32), mask
+
+    out = [("count 0", *cloud(32768, 0), 8192), ("count below out_cap", *cloud(32768, 5000), 8192),
+           ("count equal to out_cap", *cloud(32768, 8192), 8192), ("KITTI density", *cloud(131072, 100000), 65536),
+           ("holey mask", *cloud(32768, 0, holes=True), 8192), ("out_cap at the lanes", *cloud(8192, 6000), 8192),
+           ("odd sizes", *cloud(12347, 9001), 1001)]
+    assert tuple(name for name, *_ in out) == SUBSAMPLE_CASE_NAMES
+    return out
+
+
+def check_subsample_cases(torch, dev):
+    """K21 (`uniform_subsample`) against its twin run on a CPU copy, bit for
+    bit, on every case of `subsample_cases`, one launch (none where out_cap
+    reaches the lanes) and no synchronizing call each; returns the number of
+    cases."""
+    from lv_slam_tpu_torch.core.cloud import PointCloud
+    from lv_slam_tpu_torch.kernels import KERNELS
+    from lv_slam_tpu_torch.ops import prefilter
+
+    cases = subsample_cases()
+    for name, pts, mask, out_cap in cases:
+        cpu = PointCloud(torch.from_numpy(pts[:, :3].copy()), torch.from_numpy(pts[:, 3].copy()),
+                         torch.from_numpy(mask))
+        card = PointCloud(cpu.xyz.to(dev), cpu.intensity.to(dev), cpu.mask.to(dev))
+        before = KERNELS["uniform_subsample"].launches
+        got = []
+        syncs = count_syncs(torch, lambda: got.append(prefilter.uniform_subsample(card, out_cap)))
+        torch.cuda.synchronize()
+        launches = KERNELS["uniform_subsample"].launches - before
+        if launches != (out_cap < len(pts)) or syncs:
+            raise AssertionError(f"uniform_subsample ({name}): {launches} launches, {syncs} synchronizing calls")
+        want = prefilter.uniform_subsample_ref(cpu, out_cap)
+        if not identical_clouds(torch, on_cpu(got[0]), want):
+            raise AssertionError(f"uniform_subsample ({name}): {int(got[0].mask.sum())} rows set against the CPU "
+                                 f"twin's {int(want.mask.sum())}, not bit-identical")
+    return len(cases)
+
+
 def check_kernels(torch, scans, gt, dev):
     """Phase 2a: the odometry's kernels vs their plain versions at main-path shapes."""
     from lv_slam_tpu_torch import kitti_flagship_config
@@ -2348,8 +2514,8 @@ def check_graph_input_kernels(torch, scans, gt, dev):
     records = {}
     rel = np.einsum("ij,njk->nik", np.linalg.inv(gt[0]), gt).astype(np.float32)
 
-    # K2r: identical voxels in identical order; the centroids as K1's (the
-    # plain twin's `index_add_` sums with atomics on the card)
+    # K2r: one C call (no synchronizing call, no device work but its own),
+    # bit for bit its twin run on a CPU copy, here and on `raw_window_cases`
     raw = [PointCloud.from_numpy(scans[i], cap=pf.raw_cap, device=dev) for i in range(16)]
     group = (torch.stack([c.xyz for c in raw]), torch.stack([c.intensity for c in raw]),
              torch.stack([c.mask for c in raw]), 0, torch.from_numpy(rel[:16].copy()).to(dev),
@@ -2357,20 +2523,21 @@ def check_graph_input_kernels(torch, scans, gt, dev):
              kf_cap)
     k2r = lambda: window.window_group(*group)  # noqa: E731
     p2r = lambda: window.window_group_ref(*group)  # noqa: E731
-    got, want = k2r(), p2r()
-    if not torch.equal(got.mask, want.mask):
-        raise AssertionError("window_group_fn: the kept voxels or their order differ from the plain version")
-    err = max(float((got.xyz - want.xyz).abs().max()), float((got.intensity - want.intensity).abs().max()))
-    tol = 1e-5 + 1e-6 * float(want.xyz[want.mask].abs().max())
-    if err > tol:
-        raise AssertionError(f"window_group_fn: centroid error {err} > {tol}")
+    n_launches = one_call(torch, "window_group_fn", k2r)
+    got = on_cpu(k2r())
+    want = window.window_group_ref(*[a.cpu() if isinstance(a, torch.Tensor) else a for a in group])
+    if not identical_clouds(torch, got, want):
+        raise AssertionError(f"window_group_fn: {int(got.mask.sum())} voxels against the CPU twin's "
+                             f"{int(want.mask.sum())}, not bit-identical")
+    n_cases = check_raw_window_cases(torch, dev)
     n_in = int(group[2].sum())
     log(f"  window_group_fn: 16 x {pf.raw_cap} raw lanes, {n_in} valid -> {int(got.mask.sum())} voxels in "
-        f"{got.cap} lanes, identical voxels and order, centroids within {err:.3g} (tol {tol:.3g})")
+        f"{got.cap} lanes, bit for bit the CPU twin's; one C call of {n_launches} launches of its own, no other "
+        f"device work, no synchronizing call; the {n_cases} raw_window_cases bit for bit too")
     # what this group's data needs: each valid point read once (12 + 4 bytes),
     # one mask byte per lane, the poses, each output lane written once (17
     # bytes); ~30 operations per valid point
-    measure(torch, records, "window_group_fn", k2r, p2r, err,
+    measure(torch, records, "window_group_fn", k2r, p2r, 0.0,
             16 * n_in + nbytes(group[2], group[4], group[5]) + 17 * got.cap, 30 * n_in)
 
     # K15 with the sensor factors, against the float64 plain version as in 2c
@@ -3385,16 +3552,24 @@ def check_lut_kernels(torch, scans, gt, dev):
         measure(torch, records, name, k6, p6, errs[name], pts + 4 * n_probed + row_bytes * n_leaves + 43 * 4,
                 ops * hits)
 
-    # the host DLO's plain-torch work around them: `uniform_subsample` (one
-    # count, one gather; phase 2i takes K7 on this map)
+    # K21: the host DLO's subsample of scan 1's filtered cloud, one launch
+    # with no synchronizing call and no device work but its own, bit for bit
+    # its twin run on a CPU copy, here and on `subsample_cases`
     filtered = prefilter.prefilter(PointCloud.from_numpy(scans[1], cap=pf.raw_cap, device=dev), pf)
     k = cfg.odometry.scan_matching_cap
-    _, sub_ms, _ = device_ms(torch, lambda: prefilter.uniform_subsample(filtered, k))
+    k21 = lambda: prefilter.uniform_subsample(filtered, k)  # noqa: E731
+    p21 = lambda: prefilter.uniform_subsample_ref(filtered, k)  # noqa: E731
+    n_launches = one_call(torch, "uniform_subsample", k21)
+    got, want = on_cpu(k21()), prefilter.uniform_subsample_ref(on_cpu(filtered), k)
+    if not identical_clouds(torch, got, want):
+        raise AssertionError(f"uniform_subsample: {int(got.mask.sum())} rows set against the CPU twin's "
+                             f"{int(want.mask.sum())}, not bit-identical")
+    n_cases = check_subsample_cases(torch, dev)
+    log(f"  uniform_subsample: {int(filtered.mask.sum())} points in {filtered.cap} lanes -> {k} lanes, bit for bit "
+        f"the CPU twin's; {n_launches} launch of its own, no other device work, no synchronizing call; the "
+        f"{n_cases} subsample_cases bit for bit too")
     # bytes: the mask read once, the chosen rows (17 bytes) read and written once
-    sub_bound, sub_by = bound(filtered.cap + 2 * 17 * k, 0)
-    records["_uniform_subsample"] = dict(ms=sub_ms, bound_ms=sub_bound, bound_by=sub_by)
-    log(f"    uniform_subsample: {int(filtered.mask.sum())} points -> {k} lanes, {sub_ms:.4f} ms device-only, bound "
-        f"{sub_bound:.5f} ms ({sub_by})")
+    measure(torch, records, "uniform_subsample", k21, p21, 0.0, filtered.cap + 2 * 17 * k, 0)
     return records
 
 
@@ -3654,6 +3829,52 @@ def log_family(what: str, family: dict) -> None:
         f"{family['onesweep_launches']}")
 
 
+class sort_callers:
+    """Within the block, the port's calls of torch's sorts on CUDA tensors
+    (the library's radix sort, whose onesweep launches a trace counts), by
+    the innermost frame of `lv_slam_tpu_torch` that made them: `calls` maps
+    "file:line" to a count. The functions are swapped on `torch` and
+    `torch.Tensor` (every thread sees them, the backend's worker too)."""
+
+    SORTS = ("sort", "argsort", "msort", "topk", "kthvalue", "unique", "unique_consecutive")
+
+    def __enter__(self):
+        import inspect
+        import threading
+
+        import torch
+
+        calls = self.calls = {}
+        lock = threading.Lock()
+
+        def counted(fn):
+            def call(*args, **kwargs):
+                if any(isinstance(a, torch.Tensor) and a.is_cuda for a in args):
+                    frame = inspect.currentframe().f_back
+                    while frame is not None and "lv_slam_tpu_torch" not in frame.f_code.co_filename:
+                        frame = frame.f_back
+                    where = ("(outside the port)" if frame is None else
+                             f"{frame.f_code.co_filename.split('lv_slam_tpu_torch/')[-1]}:{frame.f_lineno}")
+                    with lock:
+                        calls[where] = calls.get(where, 0) + 1
+                return fn(*args, **kwargs)
+            return call
+
+        self.saved = [(owner, name, getattr(owner, name), name in vars(owner)) for owner in (torch, torch.Tensor)
+                      for name in self.SORTS if hasattr(owner, name)]
+        for owner, name, fn, _ in self.saved:
+            setattr(owner, name, counted(fn))
+        return self
+
+    def __exit__(self, *exc):
+        for owner, name, fn, own in self.saved:
+            if own:
+                setattr(owner, name, fn)
+            else:  # a method torch.Tensor inherits
+                delattr(owner, name)
+        return False
+
+
 def is_hand_kernel(key: str) -> bool:
     """Whether a profiler kernel name is one of csrc/'s: their kernels sit in
     top-level anonymous namespaces or in lvs::, PyTorch's under at:: or c10::."""
@@ -3783,7 +4004,8 @@ def run_main_path(torch, scans, gt, dev, card, odometry_poses, odometry_syncs):
 REFERENCE_KEYFRAMES = 19  # the reference's CPU accuracy records of this circle (BENCH_r05_cpu_accuracy_*.json)
 CAMERA_KERNELS = ("_detect_pyramid_batch", "match_scores_batch")  # ORB (K12) and matching (K12b)
 STANDALONE_KERNELS = ("build_grid", "knn", "build_cell_table")  # K9g, K9k, K9c: standalone LFA only
-LUT_KERNELS = ("build_lut", "ndt_derivatives_soa", "ndt_derivatives")  # K3L, K6L, K6G: the LUT paths (phase 8)
+# K3L, K6L, K6G, K21: the LUT paths and the host DLO's subsample (phase 8)
+LUT_KERNELS = ("build_lut", "ndt_derivatives_soa", "ndt_derivatives", "uniform_subsample")
 INPUT_KERNELS = ("window_group_fn", "detect_floor")  # K2r, K16: the raw feed and floor detection (phase 9)
 # K17, K19a, K19b, K20 (the registrations), K18 and K0a (the prefilter's
 # last branches): phase 10
@@ -3947,7 +4169,7 @@ def run_full_path(torch, scans, gt, dev, card):
         raise AssertionError(f"kernels never launched on the full path: {missing}")
     log(f"  exempt from the launch check here: {list(CAMERA_KERNELS)} (no images in this configuration; "
         f"phases 6 and 6b drive them), {list(STANDALONE_KERNELS)} (standalone LFA; phase 7 drives them), "
-        f"{list(LUT_KERNELS)} (the LUT paths; phase 8 drives them), {list(INPUT_KERNELS)} (the raw feed and "
+        f"{list(LUT_KERNELS)} (the LUT paths and the host DLO; phase 8 drives them), {list(INPUT_KERNELS)} (the raw feed and "
         f"floor detection; phase 9 drives them), {list(OFF_PATH_KERNELS)} (the registrations and the prefilter's "
         f"last branches; phase 10 drives them), {list(CELL_KNN_KERNELS)} (no path calls them; phase 2j checks them), "
         f"{list(MESH_KERNELS)} (the sharded align; phase 11b drives it)")
@@ -4336,7 +4558,7 @@ def first_poses_vs_cpu(est: np.ndarray, ref: np.ndarray, what: str, where: str =
 
 
 # The card's LUT paths are held to the plain path run on the card with this
-# slice's kernels (K3L, K6L, K6G) swapped for their twins (`plain_twins`) to
+# slice's kernels (K3L, K6L, K6G, K21) swapped for their twins (`plain_twins`) to
 # 1e-4: the kernels before them (K1, K3) are deterministic and held to their
 # twins in phase 2, while their twins are not all deterministic on the card
 # (K1's sums in `index_add_` order), and the host DLO's first align (scan 1,
@@ -4363,8 +4585,8 @@ NDT_LOOP_TOL = 1e-3
 
 
 class plain_twins:
-    """Within the block, the LUT paths call K3L's, K6L's and K6G's plain
-    twins on the card and run the Newton loop (K7) with `newton_step_ref`,
+    """Within the block, the LUT paths call K3L's, K6L's, K6G's and K21's
+    plain twins on the card and run the Newton loop (K7) with `newton_step_ref`,
     and the registrations and the prefilter's branches call those of
     K17-K20 and K0a (the harness swaps the functions in; no wrapper falls
     back)."""
@@ -4377,6 +4599,8 @@ class plain_twins:
             (dlo, "build_lut", voxel_map.build_lut_ref),
             (voxel_map, "build_lut", voxel_map.build_lut_ref),
             (dlo, "ndt_derivatives", ndt.ndt_derivatives_ref),
+            (dlo, "_subsample_cache", lambda out_cap: lambda cloud: prefilter.uniform_subsample_ref(cloud, out_cap)),
+            (prefilter, "uniform_subsample", prefilter.uniform_subsample_ref),
             (ndt_soa, "ndt_derivatives_soa", ndt_soa.ndt_derivatives_soa_ref),
             (ndt, "ndt_derivatives", ndt.ndt_derivatives_ref),
             (icp, "icp_step", icp.icp_step_ref),
@@ -4453,6 +4677,8 @@ def run_host_dlo(torch, scans, gt, dev, card):
                                  "newton_step") if launches[name] == 0]
     if missing:
         raise AssertionError(f"kernels never launched on the host DLO: {missing}")
+    if launches["uniform_subsample"] != n:
+        raise AssertionError(f"the host DLO launched K21 {launches['uniform_subsample']} times, not once per scan")
     est = np.stack(odo.poses)
     t_err, drift = accuracy(est, gt, f"host DLO poses, {n} scans", n)
     steps = step_errors(est, gt)
@@ -4494,12 +4720,42 @@ def run_host_dlo(torch, scans, gt, dev, card):
             process(fresh, i)
 
     idle = profile(torch, window, "host_dlo")
+    subsample = subsample_replay(torch, process, cfg, dev, n)
     summary = dict(scans_per_s=(n - WARM_SCANS) / elapsed, devkit_t_err=t_err, drift_m=drift,
                    keyframes=stats.keyframe_count, retries=stats.retries, newton_iterations=stats.total_iterations,
                    aligns=len(aligns),
                    worst_step_m=float(steps.max()), syncs_per_scan=syncs / CHUNK, idle_share=idle,
-                   peak_mib=peak / 2**20, jax_record=JAX_HOST_DLO)
+                   peak_mib=peak / 2**20, jax_record=JAX_HOST_DLO, uniform_subsample_traced=subsample)
     return summary, launches
+
+
+def subsample_replay(torch, process, cfg, dev, n: int) -> dict:
+    """K21 over a whole host-DLO pass: a fresh `DirectLidarOdometry` over the
+    n scans hands its subsample n prefiltered clouds, which K21 and its plain
+    twin then replay, each in one trace (`trace_rows`): their device totals,
+    launches and K21's launches of its own."""
+    from lv_slam_tpu_torch.odometry.dlo import DirectLidarOdometry
+    from lv_slam_tpu_torch.ops import prefilter
+
+    odo = DirectLidarOdometry(cfg.odometry, cfg.prefilter, device=dev)
+    clouds, sub = [], odo._subsample
+    odo._subsample = lambda cloud: clouds.append(cloud) or sub(cloud)
+    for i in range(n):
+        process(odo, i)
+    k = cfg.odometry.scan_matching_cap
+    out = dict(calls=len(clouds))
+    for key, fn in (("kernel", prefilter.uniform_subsample), ("plain", prefilter.uniform_subsample_ref)):
+        rows = [r for r in trace_rows(torch, lambda fn=fn: [fn(c, k) for c in clouds]) if MARKER not in r[1]]
+        out[f"{key}_ms"] = sum(t for t, _, _ in rows) / 1e3
+        out[f"{key}_launches"] = sum(c for _, _, c in rows)
+        if key == "kernel":
+            out["own_launches"] = sum(c for _, name, c in rows if _is_function(name, "subsample_cluster"))
+    log(f"  traced K21 over the {len(clouds)} subsamples of a {n}-scan pass, replayed: {out['kernel_ms']:.4f} ms over "
+        f"{out['kernel_launches']} device launches ({out['own_launches']} of subsample_cluster); the plain version "
+        f"{out['plain_ms']:.4f} ms over {out['plain_launches']}")
+    if not out["own_launches"] or out["kernel_launches"] != out["own_launches"]:
+        raise AssertionError("K21's replay launched no subsample_cluster, or device work besides it")
+    return out
 
 
 def run_lvslam_default(torch, scans, gt, dev, card, images):
@@ -4524,8 +4780,8 @@ def run_lvslam_default(torch, scans, gt, dev, card, images):
     peak = torch.cuda.max_memory_allocated()
     launches = {name: k.launches for name, k in KERNELS.items()}
     log(f"  launches on LvSlam() ({n} scans): {launches}")
-    missing = [name for name in ("build_lut", "ndt_derivatives_soa", "build_cell_table", "_detect_pyramid_batch")
-               if launches[name] == 0]
+    missing = [name for name in ("build_lut", "ndt_derivatives_soa", "uniform_subsample", "build_cell_table",
+                                 "_detect_pyramid_batch") if launches[name] == 0]
     if missing:
         raise AssertionError(f"kernels never launched by LvSlam(): {missing}")
     dlo_t, dlo_drift = accuracy(np.stack(slam.dlo_poses), gt, f"LvSlam's DLO poses, {n} scans", n)
@@ -4711,6 +4967,7 @@ def run_raw_path(torch, scans, gt, dev, card, images, camera):
     from lv_slam_tpu_torch import kitti_flagship_config
     from lv_slam_tpu_torch.graph.bow import VOCABULARY_ASSET, Vocabulary
     from lv_slam_tpu_torch.kernels import KERNELS, reset_launches
+    from lv_slam_tpu_torch.pipeline import backend as backend_module, window
 
     cfg = kitti_flagship_config()
     xyz, mask, stamps, inten = stack_scans(torch, scans, cfg.prefilter.raw_cap, dev)
@@ -4724,7 +4981,14 @@ def run_raw_path(torch, scans, gt, dev, card, images, camera):
 
     torch.cuda.reset_peak_memory_stats()
     reset_launches()
-    est, graph = run_full(torch, xyz, mask, stamps, inten, cfg, backend(), image_chunks, raw=True, sensors=sensors)
+    groups = []  # K2r's calls of this pass, for the replay below
+    feed = backend_module.window_group
+    backend_module.window_group = lambda *a: groups.append(a) or feed(*a)
+    try:
+        est, graph = run_full(torch, xyz, mask, stamps, inten, cfg, backend(), image_chunks, raw=True,
+                              sensors=sensors)
+    finally:
+        backend_module.window_group = feed
     torch.cuda.synchronize()
     peak = torch.cuda.max_memory_allocated()
     launches = {name: k.launches for name, k in KERNELS.items()}
@@ -4768,25 +5032,44 @@ def run_raw_path(torch, scans, gt, dev, card, images, camera):
     phase_ms = {k: (v if k == "opt_cycles" else v / n * 1e3) for k, v in sorted(graph2.timings.items())}
     log(f"  warm pass: {n} scans in {elapsed:.3f} s = {n / elapsed:.2f} scans/s ({card}); "
         f"backend_phase_ms_per_scan {json.dumps(phase_ms)}")
-    with torch_profile(activities=[ProfilerActivity.CUDA]) as prof:
+    with torch_profile(activities=[ProfilerActivity.CUDA]) as prof, sort_callers() as sorts:
         run_full(torch, xyz, mask, stamps, inten, cfg, backend(), image_chunks, raw=True, sensors=sensors)
         torch.cuda.synchronize()
     events = prof.key_averages()
     attr = "self_device_time_total" if hasattr(torch.autograd.profiler_util.FunctionEventAvg(),
                                                "self_device_time_total") else "self_cuda_time_total"
-    kernels = [(getattr(e, attr), e.key) for e in events if e.device_type == torch.autograd.DeviceType.CUDA]
-    busy_us = sum(t for t, _ in kernels)
-    k2r_us = sum(t for t, key in kernels if any(_is_function(key, f) for f in DEVICE_FUNCTIONS["window_group_fn"]))
+    kernels = [(getattr(e, attr), e.key, e.count) for e in events if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy_us = sum(t for t, _, _ in kernels)
+    onesweep = sum(c for _, key, c in kernels if "DeviceRadixSortOnesweepKernel" in key)
     CACHE.mkdir(parents=True, exist_ok=True)
     (CACHE / "profile_raw.txt").write_text(events.table(sort_by=attr, row_limit=200))
     idle = 1 - busy_us / 1e6 / elapsed
-    log(f"  device busy {busy_us / 1e3:.1f} ms over the {n}-scan pass (profiled; K2r's own kernels and K1's run "
-        f"reduction {k2r_us / 1e3:.3f} ms), against the warm pass's {elapsed * 1e3:.1f} ms wall: idle share "
-        f"{idle:.3f}; peak device memory {peak / 2**20:.1f} MiB; K2r launches {launches['window_group_fn']}")
+    log(f"  device busy {busy_us / 1e3:.1f} ms over the {n}-scan pass (profiled), against the warm pass's "
+        f"{elapsed * 1e3:.1f} ms wall: idle share {idle:.3f}; peak device memory {peak / 2**20:.1f} MiB; K2r launches "
+        f"{launches['window_group_fn']}")
+    log(f"  library onesweep launches over the profiled pass: {onesweep}; the port's calls of torch's sorts on the "
+        f"card there, by caller: {sorts.calls or 'none'}")
+    if [where for where in sorts.calls if "pipeline/window.py" in where]:
+        raise AssertionError("the raw window group called torch's sort")
+    if onesweep and not sorts.calls:
+        raise AssertionError("onesweep launches on the raw-chunk path with no caller in the port")
+    # K2r's whole device time: the first pass's window groups replayed in one trace
+    rows = [r for r in trace_rows(torch, lambda: [window.window_group(*a) for a in groups]) if MARKER not in r[1]]
+    k2r = dict(calls=len(groups), ms=sum(t for t, _, _ in rows) / 1e3, launches=sum(c for _, _, c in rows),
+               onesweep_launches=sum(c for _, key, c in rows if "DeviceRadixSortOnesweepKernel" in key),
+               by_function={f: sum(c for _, key, c in rows if _is_function(key, f))
+                            for f in DEVICE_FUNCTIONS["window_group_fn"]})
+    log(f"  traced K2r over the pass's {len(groups)} window groups, replayed: {k2r['ms']:.4f} ms over "
+        f"{k2r['launches']} device launches {k2r['by_function']}, onesweep {k2r['onesweep_launches']}")
+    foreign = [key for _, key, _ in rows if not any(_is_function(key, f) for f in DEVICE_FUNCTIONS["window_group_fn"])]
+    if k2r["onesweep_launches"] or foreign or len(groups) != launches["window_group_fn"]:
+        raise AssertionError(f"K2r's replay: device work besides its own {foreign}, or {len(groups)} groups against "
+                             f"{launches['window_group_fn']} launches")
     summary = dict(scans_per_s=n / elapsed, keyframes=seqs, loops=loops, priors=priors, max_keyframe_err_m=max(kf_err),
                    exact_gps_max_keyframe_err_m=max(exact_err),
                    lm_vs_cpu=d_graph, backend_phase_ms_per_scan=phase_ms, idle_share=idle, peak_mib=peak / 2**20,
-                   window_group_launches=launches["window_group_fn"])
+                   window_group_launches=launches["window_group_fn"], onesweep_launches=onesweep,
+                   sort_callers=sorts.calls, window_group_traced=k2r)
     return summary, launches
 
 
@@ -6704,8 +6987,9 @@ def main() -> int:
     summary, align_launches = run_generic_align(torch, scans_all, gt_all, dev, card)
     log(f"  summary ({card}): {json.dumps(summary)}")
     launches.update(build_lut=dlo_launches["build_lut"], ndt_derivatives_soa=dlo_launches["ndt_derivatives_soa"],
+                    uniform_subsample=dlo_launches["uniform_subsample"],
                     ndt_derivatives=align_launches["ndt_derivatives"])
-    launch_phase.update(build_lut="8a", ndt_derivatives_soa="8a", ndt_derivatives="8d")
+    launch_phase.update(build_lut="8a", ndt_derivatives_soa="8a", uniform_subsample="8a", ndt_derivatives="8d")
 
     log("phase 9a: the main path with the backend's default raw-chunk feed, camera images and GPS / IMU priors")
     summary, raw_launches = run_raw_path(torch, scans_all, gt_all, dev, card, images, camera_summary)
@@ -6752,7 +7036,6 @@ def main() -> int:
     log(f"  summary ({card}): {json.dumps(summary)}")
     launches["newton_sums"] = summary["nccl_world_1"]["launches"]["newton_sums"]
     launch_phase["newton_sums"] = "11b"
-    log(f"  plain torch ({card}): {json.dumps({'_uniform_subsample': records.pop('_uniform_subsample')})}")
 
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     kernels = [

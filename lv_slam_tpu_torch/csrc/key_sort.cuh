@@ -10,8 +10,8 @@
 // bits (csrc/voxel_map.cu, csrc/centroid_grid.cu, csrc/knn_grid.cu), by
 // kernel 9c, whose keys are the hashed buckets (csrc/cell_table.cu), and by
 // kernel 8's placement of its picks (csrc/lfa_features.cu, the look-back
-// only). K2r's raw window group (csrc/voxel_dedup.cu `window_raw_keys`) and
-// K9a past its cluster's cap still sort with torch.sort glue.
+// only), and by kernel 2r over kernel 1's keys. K9a past its cluster's cap
+// still sorts with torch.sort glue.
 //
 // What a caller provides: a `Control` block and the tile status words,
 // zeroed by an earlier launch on the same stream; the global count of each
@@ -24,20 +24,26 @@
 // wrote. A caller launches kMaxPasses passes with no host read between:
 // a pass past `n_passes` returns at once, on the device value.
 //
-// One pass (`key_sort_pass`): a block takes the next tile of kTile keys
-// from a ticket counter, so every earlier tile belongs to a block that is
-// already running and the look-back cannot wait on a block that has not
-// started. The look-back reads kWindow earlier tiles a round trip. Warp w
-// holds tile positions [w * 128, (w + 1) * 128), item i of
-// lane l at w * 128 + i * 32 + l (coalesced loads). A key's rank among the
+// One pass (`key_sort_pass`): a block takes the next tile of kThreads *
+// Items keys (kItems, or kStagedItems in a staged pass, below) from a
+// ticket counter, so every earlier tile belongs to a block that is already
+// running and the look-back cannot wait on a block that has not started.
+// The look-back reads kWindow earlier tiles a round trip. Warp w holds tile
+// positions [w * 32 Items, (w + 1) * 32 Items), item i of lane l at
+// w * 32 Items + i * 32 + l (coalesced loads). A key's rank among the
 // keys of its digit is stable in three levels: within an item round by
 // __match_any_sync (the lanes below it with the same digit), within the
 // warp by the warp's running count of the digit over the earlier rounds,
 // within the tile by the counts of the earlier warps. Thread d then owns
 // digit d: it publishes the tile's count of d, sums the counts of the
 // earlier tiles by decoupled look-back, and adds the digit's global base
-// (the exclusive scan of the digit counts). Equal keys keep their input
-// order, which the run reduction's summation order depends on.
+// (the exclusive scan of the digit counts). From kStagedLanes lanes up, a
+// tile holds 2048 keys, which go to shared memory in digit order first,
+// then out in tile order, so neighbouring threads store one digit's keys to
+// neighbouring places (a tile's keys fall in up to 256 digits: stored from
+// registers, nearly every key takes its own 32-byte sector). Equal keys
+// keep their input order, which the run reduction's summation order
+// depends on.
 #pragma once
 
 #include "common.cuh"
@@ -50,7 +56,6 @@ constexpr int kDigitBits = 8;
 constexpr int kRadix = 1 << kDigitBits;  // 256 digits: thread d of a pass owns digit d
 constexpr int kThreads = kRadix;
 constexpr int kItems = 4;
-constexpr int kWarpItems = 32 * kItems;
 constexpr int kTile = kThreads * kItems;  // 1024 keys a block
 constexpr int kMaxPasses = 64 / kDigitBits;
 constexpr unsigned long long kInvalidKey = ~0ull;
@@ -60,6 +65,13 @@ constexpr unsigned kTagShift = 28;
 constexpr unsigned kInclusive = 1u << 27;
 constexpr unsigned kCountMask = kInclusive - 1;  // counts below 2^27
 constexpr int kMaxKeys = (1 << 27) - 1;
+// Sorts of at least this many lanes take tiles of kStagedItems keys a thread
+// and stage each tile's stores in shared memory (fewer blocks and store
+// sectors; below it the staging's barrier and scan cost more than they
+// save, and 16 keys a thread pass the 48 KB of static shared memory:
+// scripts/sort_breakdown.py).
+constexpr int kStagedLanes = 1 << 18;
+constexpr int kStagedItems = 8;
 
 // Device words of one sort; the caller's first launch zeroes them.
 struct Control {
@@ -188,7 +200,9 @@ __device__ __forceinline__ void flush_digits(unsigned (*counts)[kRadix], int n_p
 
 // One digit pass. `n_lanes` is the number of pass-0 keys (lanes); later
 // passes sort the n_valid keys pass 0 kept. Launch with ceil(n_lanes /
-// kTile) blocks of kThreads.
+// (kThreads * Items)) blocks of kThreads. Staged: the tile's keys go out
+// through shared memory in digit order.
+template <bool Staged, int Items>
 __global__ void __launch_bounds__(kThreads) key_sort_pass(int pass, int n_lanes,
                                                           const unsigned long long* __restrict__ keys_in,
                                                           const unsigned* __restrict__ vals_in,
@@ -205,19 +219,19 @@ __global__ void __launch_bounds__(kThreads) key_sort_pass(int pass, int n_lanes,
   for (int i = threadIdx.x; i < (kThreads / 32) * kRadix; i += kThreads) (&warp_count[0][0])[i] = 0;
   __syncthreads();
   const int tile = tile_id;
-  const long long first = static_cast<long long>(tile) * kTile;
+  const long long first = static_cast<long long>(tile) * (kThreads * Items);
   if (first >= count) return;  // whole block: no later tile holds keys either
 
   const unsigned digit_total = ctl->hist[pass][threadIdx.x];  // read early: it is not needed until the scan
   const int shift = pass * kDigitBits;
   const unsigned lt = (1u << lane) - 1u;
-  unsigned long long key[kItems];
-  unsigned val[kItems];
-  int digit[kItems];
-  unsigned rank[kItems];
+  unsigned long long key[Items];
+  unsigned val[Items];
+  int digit[Items];
+  unsigned rank[Items];
 #pragma unroll
-  for (int i = 0; i < kItems; ++i) {
-    const long long pos = first + warp * kWarpItems + i * 32 + lane;
+  for (int i = 0; i < Items; ++i) {
+    const long long pos = first + warp * (32 * Items) + i * 32 + lane;
     const bool in = pos < count;
     key[i] = in ? keys_in[pos] : kInvalidKey;
     val[i] = pass == 0 ? static_cast<unsigned>(pos) : (in ? vals_in[pos] : 0u);
@@ -225,7 +239,7 @@ __global__ void __launch_bounds__(kThreads) key_sort_pass(int pass, int n_lanes,
     digit[i] = take ? static_cast<int>((key[i] >> shift) & (kRadix - 1)) : kRadix;
   }
 #pragma unroll
-  for (int i = 0; i < kItems; ++i) {
+  for (int i = 0; i < Items; ++i) {
     const unsigned peers = __match_any_sync(0xffffffffu, digit[i]);
     const unsigned below = __popc(peers & lt);
     const bool take = digit[i] < kRadix;
@@ -237,8 +251,7 @@ __global__ void __launch_bounds__(kThreads) key_sort_pass(int pass, int n_lanes,
   }
   __syncthreads();
 
-  // thread d: the earlier warps' counts of digit d, the tile's count, its
-  // place after the earlier tiles' and after the smaller digits'
+  // thread d: the earlier warps' counts of digit d, the tile's count
   const int d = threadIdx.x;
   unsigned in_tile = 0;
 #pragma unroll
@@ -249,15 +262,47 @@ __global__ void __launch_bounds__(kThreads) key_sort_pass(int pass, int n_lanes,
   }
   unsigned n_all;
   const unsigned global = block_exclusive_scan(digit_total, &n_all);
-  const unsigned earlier = lookback(status + d, kRadix, tile, static_cast<unsigned>(pass + 1), in_tile);
-  digit_base[d] = global + earlier;
-  __syncthreads();
+  if constexpr (Staged) {
+    __shared__ unsigned tile_start[kRadix];
+    __shared__ unsigned long long staged_key[kThreads * Items];
+    __shared__ unsigned staged_val[kThreads * Items];
+    unsigned n_tile;
+    const unsigned start = block_exclusive_scan(in_tile, &n_tile);  // ends with a barrier: warp_count is read below
+    tile_start[d] = start;
+    __syncthreads();
+    // the tile's keys in digit order in shared memory, so that the stores
+    // below write each digit's keys as one run of neighbouring threads
 #pragma unroll
-  for (int i = 0; i < kItems; ++i) {
-    if (digit[i] < kRadix) {
-      const unsigned at = digit_base[digit[i]] + warp_count[warp][digit[i]] + rank[i];
-      keys_out[at] = key[i];
-      vals_out[at] = val[i];
+    for (int i = 0; i < Items; ++i) {
+      if (digit[i] < kRadix) {
+        const unsigned local = tile_start[digit[i]] + warp_count[warp][digit[i]] + rank[i];
+        staged_key[local] = key[i];
+        staged_val[local] = val[i];
+      }
+    }
+    // its place after the earlier tiles' and the smaller digits': tile
+    // position j of digit d goes to digit_base[d] + j (unsigned wrap-around)
+    const unsigned earlier = lookback(status + d, kRadix, tile, static_cast<unsigned>(pass + 1), in_tile);
+    digit_base[d] = global + earlier - start;
+    __syncthreads();
+    for (int j = threadIdx.x; j < static_cast<int>(n_tile); j += kThreads) {
+      const unsigned long long k = staged_key[j];
+      const unsigned at = digit_base[(k >> shift) & (kRadix - 1)] + j;
+      keys_out[at] = k;
+      vals_out[at] = staged_val[j];
+    }
+  } else {
+    // its place after the earlier tiles' and after the smaller digits'
+    const unsigned earlier = lookback(status + d, kRadix, tile, static_cast<unsigned>(pass + 1), in_tile);
+    digit_base[d] = global + earlier;
+    __syncthreads();
+#pragma unroll
+    for (int i = 0; i < Items; ++i) {
+      if (digit[i] < kRadix) {
+        const unsigned at = digit_base[digit[i]] + warp_count[warp][digit[i]] + rank[i];
+        keys_out[at] = key[i];
+        vals_out[at] = val[i];
+      }
     }
   }
 }
@@ -270,11 +315,14 @@ __global__ void __launch_bounds__(kThreads) key_sort_pass(int pass, int n_lanes,
 inline void launch_passes(int n_lanes, unsigned long long* keys_a, unsigned* vals_a, unsigned long long* keys_b,
                           unsigned* vals_b, Control* ctl, unsigned* status, cudaStream_t stream,
                           int max_passes = kMaxPasses) {
-  const int tiles = (n_lanes + kTile - 1) / kTile;
+  const bool staged = n_lanes >= kStagedLanes;
+  const int tile = kThreads * (staged ? kStagedItems : kItems);
+  const int tiles = (n_lanes + tile - 1) / tile;
+  auto* pass_fn = staged ? key_sort_pass<true, kStagedItems> : key_sort_pass<false, kItems>;
   for (int p = 0; p < max_passes; ++p) {
     const bool to_a = (p & 1) == 0;
-    key_sort_pass<<<tiles, kThreads, 0, stream>>>(p, n_lanes, to_a ? keys_b : keys_a, to_a ? vals_b : vals_a,
-                                                  to_a ? keys_a : keys_b, to_a ? vals_a : vals_b, ctl, status);
+    pass_fn<<<tiles, kThreads, 0, stream>>>(p, n_lanes, to_a ? keys_b : keys_a, to_a ? vals_b : vals_a,
+                                            to_a ? keys_a : keys_b, to_a ? vals_a : vals_b, ctl, status);
   }
 }
 

@@ -1,6 +1,7 @@
 // Kernel 1's front end, shared by the callers that sort lanes by voxel:
-// kernel 1 (`csrc/voxel_downsample.cu`), kernels 1b and 2
-// (`csrc/voxel_dedup.cu`), and, for its partial rows, scratch layout and
+// kernel 1 (`csrc/voxel_downsample.cu`), kernels 1b, 2 and 2r
+// (`csrc/voxel_dedup.cu`; kernels 1 and 2r also share the centroid pass
+// `voxel_runs`), and, for its partial rows, scratch layout and
 // run numbering, kernels 3 (`csrc/voxel_map.cu`), 14
 // (`csrc/centroid_grid.cu`) and 9g (`csrc/knn_grid.cu`), which also share
 // the flat-key front end at the end of this file (3 and 14 its run walk).
@@ -25,7 +26,8 @@
 // and widths.
 //
 // Then a caller launches the kMaxPasses passes of `csrc/key_sort.cuh` and a
-// kernel of its own over the sorted tiles. Everything here sits in an
+// run pass over the sorted tiles: its own, or `voxel_runs` (below), the
+// centroids of kernels 1 and 2r. Everything here sits in an
 // anonymous namespace: each source that includes the file has its own copy.
 #pragma once
 
@@ -65,9 +67,11 @@ __device__ __forceinline__ void voxel_coords(float x, float y, float z, float in
   cz = clampi(static_cast<int>(floorf(z * inv)) + kYZOff, 0, kYZLim);
 }
 
+// lane i's point at xyz + S * i (S = 4: packed with its intensity)
+template <int S = 3>
 __device__ __forceinline__ void voxel_coords(const float* __restrict__ xyz, long long i, float inv, int& kx,
                                              int& cy, int& cz) {
-  voxel_coords(xyz[3 * i + 0], xyz[3 * i + 1], xyz[3 * i + 2], inv, kx, cy, cz);
+  voxel_coords(xyz[S * i + 0], xyz[S * i + 1], xyz[S * i + 2], inv, kx, cy, cz);
 }
 
 // The block's reduction of a partial row (minima at 0, 2, 4, maxima at 1, 3,
@@ -182,6 +186,7 @@ __device__ __forceinline__ void reduce_parts(const int* __restrict__ part, int n
   block_ranges(v, range);
 }
 
+template <int S = 3>
 __global__ void __launch_bounds__(lvs::kThreads) voxel_keys(
     const float* __restrict__ xyz, const bool* __restrict__ mask, int n, float inv, const int* __restrict__ part,
     int n_part, VoxelControl* vc, unsigned long long* __restrict__ keys) {
@@ -207,7 +212,7 @@ __global__ void __launch_bounds__(lvs::kThreads) voxel_keys(
   for (long long i = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x; i < n; i += stride) {
     unsigned long long key = ks::kInvalidKey;
     int kx, cy, cz;
-    if (mask[i] && (voxel_coords(xyz, i, inv, kx, cy, cz), kx < kBigX)) {
+    if (mask[i] && (voxel_coords<S>(xyz, i, inv, kx, cy, cz), kx < kBigX)) {
       key = (static_cast<unsigned long long>(static_cast<unsigned>(static_cast<long long>(kx) - kx_min))
              << (by + bz)) |
             (static_cast<unsigned long long>(cy - cy_min) << bz) | static_cast<unsigned long long>(cz - cz_min);
@@ -223,7 +228,8 @@ __global__ void __launch_bounds__(lvs::kThreads) voxel_keys(
 // of the sorted keys, and which of them start a run (`load_run_tile`); then
 // `number_runs` gives `r`, the run index of the thread's first start (its
 // place after every earlier tile's runs, by decoupled look-back on
-// run_status). A caller issues its own loads for the tile between the two.
+// run_status), and `base`, the tile's. A caller issues its own loads for
+// the tile between the two.
 struct RunTile {
   int tile;
   long long first;  // the tile's first sorted position
@@ -234,6 +240,7 @@ struct RunTile {
   bool start[kRunItems];
   unsigned starts;
   unsigned r;
+  unsigned base;  // the run index of the tile's first start
 };
 
 // `ticket` is the Control word the pass takes its tiles from. Returns false
@@ -272,6 +279,7 @@ __device__ __forceinline__ void number_runs(RunTile& t, unsigned* run_status) {
     if (threadIdx.x == 0) tile_base = b;
   }
   __syncthreads();
+  t.base = tile_base;
   t.r += tile_base;
 }
 
@@ -339,15 +347,123 @@ inline int range_blocks_for(int n, long long out_rows, long long n_zero, int cap
 
 // `voxel_keys` and the sort passes after a ranges pass of `range_blocks`
 // blocks: the sorted keys and lanes end in (keys_a, vals_a) when the pass
-// count is odd, else in (keys_b, vals_b).
+// count is odd, else in (keys_b, vals_b). Lane i's point is at xyz + S * i.
+template <int S = 3>
 inline void launch_keys_and_sort(const float* xyz, const bool* mask, int n, float inv, int range_blocks,
                                  const Scratch& s, cudaStream_t stream) {
   auto* vc = reinterpret_cast<VoxelControl*>(s.base);
-  voxel_keys<<<std::min(lvs::blocks_for(n), kKeyBlocks), lvs::kThreads, 0, stream>>>(xyz, mask, n, inv, s.part,
+  voxel_keys<S><<<std::min(lvs::blocks_for(n), kKeyBlocks), lvs::kThreads, 0, stream>>>(xyz, mask, n, inv, s.part,
                                                                                       range_blocks, vc, s.keys_b);
   ks::launch_passes(n, s.keys_a, s.vals_a, s.keys_b, s.vals_b, &vc->sort, s.status, stream);
 }
 
+// Lane `at`'s point and intensity (S as `voxel_runs`).
+template <int S>
+__device__ __forceinline__ float4 point_at(const float* __restrict__ xyz, const float* __restrict__ inten,
+                                           long long at) {
+  if constexpr (S == 4) {
+    return reinterpret_cast<const float4*>(xyz)[at];
+  } else {
+    return make_float4(xyz[3 * at + 0], xyz[3 * at + 1], xyz[3 * at + 2], inten[at]);
+  }
+}
+
+// One tile of the sorted keys a block, kRunItems consecutive positions a
+// thread: run r's centroid (or cell center) into row r. Each thread gathers
+// its positions' points at once into shared memory; a run start sums its
+// run in sorted order from there, and from memory past the tile's end. A
+// tile at or past position out_cap may hold no run below out_cap (a window
+// group's 2 M lanes hold many more voxels than its rows): it numbers its
+// runs first and gathers nothing when its first run has no row. S = 3:
+// lane i's point at xyz + 3 i and its intensity at inten[i]; S = 4: both
+// at xyz + 4 i (one 16-byte load a lane; `inten` unread).
+template <int S = 3>
+__global__ void __launch_bounds__(ks::kThreads) voxel_runs(
+    const unsigned long long* __restrict__ keys_a, const unsigned* __restrict__ vals_a,
+    const unsigned long long* __restrict__ keys_b, const unsigned* __restrict__ vals_b, VoxelControl* vc,
+    unsigned* run_status, const float* __restrict__ xyz, const float* __restrict__ inten, float res, int approx,
+    int out_cap, float* __restrict__ out_xyz, float* __restrict__ out_int, bool* __restrict__ out_mask) {
+  __shared__ unsigned long long tile_key[kRunTile];
+  __shared__ float4 tile_point[kRunTile];  // x, y, z, intensity
+  const int n = vc->sort.n_valid;
+  const bool in_a = (vc->sort.n_passes & 1) != 0;
+  const unsigned long long* __restrict__ keys = in_a ? keys_a : keys_b;
+  const unsigned* __restrict__ vals = in_a ? vals_a : vals_b;
+  RunTile t;
+  if (!load_run_tile(keys, n, &vc->sort.tickets[ks::kMaxPasses], t)) return;  // whole block
+  const bool late = t.first >= out_cap;
+  if (late) {
+    number_runs(t, run_status);                            // ends with a barrier
+    if (t.base >= static_cast<unsigned>(out_cap)) return;  // whole block: no run of the tile has a row
+  }
+  unsigned src[kRunItems];
+#pragma unroll
+  for (int j = 0; j < kRunItems; ++j) src[j] = t.in[j] ? vals[t.first + t.mine0 + j] : 0u;
+#pragma unroll
+  for (int j = 0; j < kRunItems; ++j) {
+    if (t.in[j]) {
+      tile_key[t.mine0 + j] = t.key[j];
+      tile_point[t.mine0 + j] = point_at<S>(xyz, inten, src[j]);
+    }
+  }
+  if (late)
+    __syncthreads();
+  else
+    number_runs(t, run_status);  // ends with a barrier
+  unsigned r = t.r;
+  const int by = vc->by, bz = vc->bz;
+#pragma unroll
+  for (int j = 0; j < kRunItems; ++j) {
+    if (!t.start[j]) continue;
+    const unsigned row = r++;
+    if (row >= static_cast<unsigned>(out_cap)) continue;
+    float sx = 0.0f, sy = 0.0f, sz = 0.0f, si = 0.0f, cnt = 0.0f;
+    int m = t.mine0 + j;
+    for (; m < t.n && tile_key[m] == t.key[j]; ++m) {
+      const float4 p = tile_point[m];
+      sx += p.x;
+      sy += p.y;
+      sz += p.z;
+      si += p.w;
+      cnt += 1.0f;
+    }
+    if (m == kRunTile) {  // the run may go on past the tile
+      for (long long i = t.first + m; i < n && keys[i] == t.key[j]; ++i) {
+        const float4 p = point_at<S>(xyz, inten, vals[i]);
+        sx += p.x;
+        sy += p.y;
+        sz += p.z;
+        si += p.w;
+        cnt += 1.0f;
+      }
+    }
+    if (approx) {
+      const int cx = static_cast<int>(static_cast<long long>(t.key[j] >> (by + bz)) + vc->kx_min);
+      const int cy = static_cast<int>((t.key[j] >> bz) & ((1ull << by) - 1)) + vc->cy_min - kYZOff;
+      const int cz = static_cast<int>(t.key[j] & ((1ull << bz) - 1)) + vc->cz_min - kYZOff;
+      out_xyz[3 * row + 0] = (static_cast<float>(cx) + 0.5f) * res;
+      out_xyz[3 * row + 1] = (static_cast<float>(cy) + 0.5f) * res;
+      out_xyz[3 * row + 2] = (static_cast<float>(cz) + 0.5f) * res;
+    } else {
+      out_xyz[3 * row + 0] = sx / cnt;
+      out_xyz[3 * row + 1] = sy / cnt;
+      out_xyz[3 * row + 2] = sz / cnt;
+    }
+    out_int[row] = si / cnt;
+    out_mask[row] = true;
+  }
+}
+
+// `voxel_runs` after `launch_keys_and_sort` over n lanes: run r's centroid
+// (or, with `approx`, cell center at `res`) of xyz and inten (S as
+// `voxel_runs`) into row r.
+template <int S = 3>
+inline void launch_voxel_runs(int n, const Scratch& s, const float* xyz, const float* inten, float res, int approx,
+                              int out_cap, float* out_xyz, float* out_int, bool* out_mask, cudaStream_t stream) {
+  voxel_runs<S><<<(n + kRunTile - 1) / kRunTile, ks::kThreads, 0, stream>>>(
+      s.keys_a, s.vals_a, s.keys_b, s.vals_b, reinterpret_cast<VoxelControl*>(s.base), s.run_status, xyz, inten, res,
+      approx, out_cap, out_xyz, out_int, out_mask);
+}
 
 // ------------------------------------------- kernels 3, 14 and 9g's front end
 //

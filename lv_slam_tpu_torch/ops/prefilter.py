@@ -12,8 +12,10 @@ launches.
 front end and sort) and `voxel_dedup_first_ref` likewise: the same key and
 sort, then the first lane of each voxel, compacted in key order.
 `vertical_angle_calibration` is kernel 0a (`csrc/angle_calibration.cu`) and
-`vertical_angle_calibration_ref` likewise. The outlier removals are
-`ops.nn`'s kernel 18.
+`vertical_angle_calibration_ref` likewise; `uniform_subsample` is kernel 21
+(`csrc/subsample.cu`, one launch: the mask's count and the gather) and
+`uniform_subsample_ref` likewise. The outlier removals are `ops.nn`'s
+kernel 18.
 """
 
 from __future__ import annotations
@@ -189,29 +191,6 @@ def voxel_downsample(
     return PointCloud(out_xyz, out_int, out_mask)
 
 
-def reduce_runs(kernel: Kernel, skey: torch.Tensor, order: torch.Tensor, xyz: torch.Tensor, inten: torch.Tensor,
-                out_cap: int) -> PointCloud:
-    """The centroid reduction after a torch.sort of int64 voxel keys
-    (`csrc/voxel_downsample.cu` `mark_runs` / `reduce_runs`): run starts,
-    their prefix sum (torch glue) and one centroid per run into `out_cap`
-    lanes in key order, launched for `kernel` (K2r, after its gather + band
-    + transform pass)."""
-    n = skey.shape[0]
-    dev = skey.device
-    flag = torch.empty((n,), dtype=torch.int32, device=dev)
-    out_xyz = torch.empty((out_cap, 3), dtype=torch.float32, device=dev)
-    out_int = torch.empty((out_cap,), dtype=torch.float32, device=dev)
-    out_mask = torch.empty((out_cap,), dtype=torch.bool, device=dev)
-    kernel.call("lvs_voxel_mark_runs", ptr(skey), n, ptr(flag))
-    cum = torch.cumsum(flag, dim=0, dtype=torch.int32)  # run index + 1 at each run start
-    kernel.call(
-        "lvs_voxel_reduce_runs",
-        ptr(skey), ptr(order), ptr(flag), ptr(cum), n, ptr(xyz), ptr(inten), out_cap,
-        ptr(out_xyz), ptr(out_int), ptr(out_mask),
-    )
-    return PointCloud(out_xyz, out_int, out_mask)
-
-
 def voxel_downsample_ref(
     cloud: PointCloud, resolution: float, out_cap: int, method: str = "VOXELGRID"
 ) -> PointCloud:
@@ -323,10 +302,44 @@ def stride_subsample(cloud: PointCloud, out_cap: int) -> PointCloud:
     return PointCloud(cloud.xyz[::k], cloud.intensity[::k], cloud.mask[::k])
 
 
+SUBSAMPLE_KERNEL = Kernel(
+    "uniform_subsample",
+    source="lv_slam_tpu_torch/csrc/subsample.cu",
+    replaces="lv_slam_tpu/ops/prefilter.py:254",
+    entries={"lvs_uniform_subsample": [PTR, PTR, PTR, I32, I32, PTR, PTR, PTR]},
+)
+
+
 def uniform_subsample(cloud: PointCloud, out_cap: int) -> PointCloud:
     """Evenly-strided subsample of a front-compacted cloud to `out_cap` lanes
     (`OdometryConfig.subsample_method="gather"`); the stride is float32 as
-    in the reference, since `i * count` overflows int32 at KITTI density."""
+    in the reference, since `i * count` overflows int32 at KITTI density.
+    `out_cap >= cap` returns the cloud itself. Kernel 21 on CUDA, the plain
+    version on CPU."""
+    n = cloud.cap
+    if out_cap >= n:
+        return cloud
+    if cloud.xyz.device.type == "cpu":
+        return uniform_subsample_ref(cloud, out_cap)
+    if cloud.xyz.dtype != torch.float32 or cloud.intensity.dtype != torch.float32 or cloud.mask.dtype != torch.bool:
+        raise ValueError("uniform_subsample: expected float32 xyz and intensity and a bool mask")
+    xyz, inten, mask = cloud.xyz.contiguous(), cloud.intensity.contiguous(), cloud.mask.contiguous()
+    check_cuda("uniform_subsample", xyz, inten, mask)
+    dev = xyz.device
+    out_xyz = torch.empty((out_cap, 3), dtype=torch.float32, device=dev)
+    out_int = torch.empty((out_cap,), dtype=torch.float32, device=dev)
+    out_mask = torch.empty((out_cap,), dtype=torch.bool, device=dev)
+    SUBSAMPLE_KERNEL.call(
+        "lvs_uniform_subsample", ptr(xyz), ptr(inten), ptr(mask), n, out_cap, ptr(out_xyz), ptr(out_int),
+        ptr(out_mask),
+    )
+    SUBSAMPLE_KERNEL.launches += 1
+    return PointCloud(out_xyz, out_int, out_mask)
+
+
+def uniform_subsample_ref(cloud: PointCloud, out_cap: int) -> PointCloud:
+    """Plain PyTorch version of `uniform_subsample`, line for line with the
+    reference: the count of set mask lanes, the float32 stride, the gather."""
     n = cloud.cap
     if out_cap >= n:
         return cloud

@@ -11,8 +11,9 @@ run compaction, in one C call); the flush does the same over a list of
 scans, and the merge is kernel 1b over the concatenation of a window's
 partials. A raw window group (kernel 2r) takes
 up to 16 raw scans, applies the prefilter's distance band, moves them and
-reduces the union to voxel centroids (kernel 1's reduction). CPU tensors
-take the plain twins.
+reduces the union to voxel centroids (`csrc/voxel_dedup.cu`: the banded
+move, then kernel 1's key sort and centroid pass, in one C call). CPU
+tensors take the plain twins.
 """
 
 from __future__ import annotations
@@ -29,12 +30,7 @@ from lv_slam_tpu_torch.kernels._build import (
 )
 from lv_slam_tpu_torch.ops.cells import inv_resolution
 from lv_slam_tpu_torch.ops.linalg3 import dot3_fma, sqrt32
-from lv_slam_tpu_torch.ops.prefilter import (
-    reduce_runs,
-    voxel_dedup_first,
-    voxel_dedup_first_ref,
-    voxel_downsample_ref,
-)
+from lv_slam_tpu_torch.ops.prefilter import voxel_dedup_first, voxel_dedup_first_ref, voxel_downsample_ref
 
 KERNEL = Kernel(
     "window_group_filtered_fn",
@@ -53,9 +49,9 @@ RAW_KERNEL = Kernel(
     source="lv_slam_tpu_torch/csrc/voxel_dedup.cu",
     replaces="lv_slam_tpu/utils/jit_cache.py:78",
     entries={
-        "lvs_window_raw_keys": [PTR, PTR, PTR, I32, I32, I32, I32, PTR, PTR, F32, F32, F32, PTR, PTR, PTR],
-        "lvs_voxel_mark_runs": [PTR, I32, PTR],
-        "lvs_voxel_reduce_runs": [PTR, PTR, PTR, PTR, I32, PTR, PTR, I32, PTR, PTR, PTR],
+        "lvs_window_raw": [
+            PTR, PTR, PTR, I32, I32, I32, I32, PTR, PTR, F32, F32, F32, I32, PTR, ctypes.c_longlong, PTR, PTR, PTR,
+        ],
     },
 )
 
@@ -88,18 +84,20 @@ def window_group(
     check_dtype("window_group", rels, torch.float32, (length, 4, 4))
     check_dtype("window_group", valid, torch.bool, (length,))
     n = length * cap
+    if n > MAX_SORT_LANES:
+        raise ValueError(f"window_group: {n} lanes exceed the key sort's {MAX_SORT_LANES}")
     dev = chunk_xyz.device
-    xyz = torch.empty((n, 3), dtype=torch.float32, device=dev)
-    inten = torch.empty((n,), dtype=torch.float32, device=dev)
-    key = torch.empty((n,), dtype=torch.int64, device=dev)
+    scratch = torch.empty((scratch_bytes("lvs_window_scratch_bytes", n),), dtype=torch.uint8, device=dev)
+    out_xyz = torch.empty((out_cap, 3), dtype=torch.float32, device=dev)
+    out_int = torch.empty((out_cap,), dtype=torch.float32, device=dev)
+    out_mask = torch.empty((out_cap,), dtype=torch.bool, device=dev)
     RAW_KERNEL.call(
-        "lvs_window_raw_keys", ptr(chunk_xyz), ptr(chunk_inten), ptr(chunk_mask), n_rows, cap, int(start), length,
-        ptr(rels), ptr(valid), float(near), float(far), inv_resolution(resolution), ptr(xyz), ptr(inten), ptr(key),
+        "lvs_window_raw", ptr(chunk_xyz), ptr(chunk_inten), ptr(chunk_mask), n_rows, cap, int(start), length,
+        ptr(rels), ptr(valid), float(near), float(far), inv_resolution(resolution), out_cap, ptr(scratch),
+        scratch.numel(), ptr(out_xyz), ptr(out_int), ptr(out_mask),
     )
-    skey, order = torch.sort(key, stable=True)
-    out = reduce_runs(RAW_KERNEL, skey, order, xyz, inten, out_cap)
     RAW_KERNEL.launches += 1
-    return out
+    return PointCloud(out_xyz, out_int, out_mask)
 
 
 def window_group_ref(chunk_xyz, chunk_inten, chunk_mask, start, rels, valid, near, far, resolution,

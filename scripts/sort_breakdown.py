@@ -1,8 +1,8 @@
 #!/usr/bin/env python3
 """Splits the device time of the port's key-sort users into their kernels on
 one NVIDIA GPU: K1 (`voxel_downsample`), K1b (`voxel_dedup_first`), K2
-(`window_group_filtered`) and K3 (`build_voxel_map`), at chip_smoke.py's
-shapes.
+(`window_group_filtered`), K2r (`window_group`) and K3 (`build_voxel_map`),
+at chip_smoke.py's shapes.
 
     python scripts/sort_breakdown.py [--out FILE]
 
@@ -12,7 +12,9 @@ chip_smoke.py's scan cache), filters them through the flagship prefilter
 the flagship NDT map (phase 2's shape), at the loop detector's 4 m and 1 m
 rungs over the 16-scan keyframe cloud, and over one 1 m voxel holding
 16384 lanes (one run, the longest chain); K2 on scans 0-15 (16 x 131072
-rows); K1b on that keyframe cloud beside scans 16-23's (262144 rows). Each
+rows); K2r on raw scans 0-15 (16 x 131072 raw lanes into 131072
+centroids, phase 2g's flagship group; the group's voxel count is printed);
+K1b on that keyframe cloud beside scans 16-23's (262144 rows). Each
 is timed as chip_smoke.py times a kernel (`device_ms`: the median over the
 whole calls among 20 in a torch.profiler trace), and split per device
 function with torch.profiler's `key_averages()` over 20 more calls (us a
@@ -111,6 +113,13 @@ def main() -> int:
     one = PointCloud(torch.rand(16384, 3, device=dev, generator=gen) * 0.9 + 12.05, torch.zeros(16384, device=dev),
                      torch.ones(16384, dtype=torch.bool, device=dev))
     b0 = band(0)
+    raw = [PointCloud.from_numpy(scans[i], cap=pf.raw_cap, device=dev) for i in range(16)]
+    g16r = [torch.stack([c.xyz for c in raw]), torch.stack([c.intensity for c in raw]),
+            torch.stack([c.mask for c in raw]), 0, torch.from_numpy(rel[:16]).to(dev),
+            torch.ones(16, dtype=torch.bool, device=dev), pf.distance_near_thresh, pf.distance_far_thresh,
+            pf.downsample_resolution, 131072]
+    every = window.window_group(*g16r[:-1], 16 * pf.raw_cap)
+    print(f"K2r's flagship group: {int(g16r[2].sum())} valid lanes, {int(every.mask.sum())} voxels", flush=True)
     shapes = [
         ("K3 phase 2: 65536 lanes, the flagship map", "build_voxel_map",
          lambda: voxel_map.build_voxel_map(scan, ndt.resolution, **kw)),
@@ -121,6 +130,7 @@ def main() -> int:
         ("K3 one 1 m voxel holding 16384 lanes", "build_voxel_map",
          lambda: voxel_map.build_voxel_map(one, 1.0, leaf_cap=16, lut_extent=256)),
         ("K2 16 x 131072 rows", "window_group_filtered_fn", lambda: window.window_group_filtered(*g16)),
+        ("K2r 16 x 131072 raw lanes", "window_group_fn", lambda: window.window_group(*g16r)),
         ("K1b 262144 rows", "voxel_dedup_first", lambda: prefilter.voxel_dedup_first(both, 0.1, 131072)),
         ("K1 131072 lanes", "voxel_downsample",
          lambda: prefilter.voxel_downsample(b0, pf.downsample_resolution, pf.out_cap)),

@@ -123,7 +123,7 @@ def _lfa_calls(device, scans):
 
 
 def _backend_calls(device, scans):
-    """K1b, K2, K2r, K13's batched pass, K14 (build, query), K15 and K16
+    """K1b, K2, K2r, K21 (the subsample), K13's batched pass, K14 (build, query), K15 and K16
     once each: scans 0 and 1 as a window (filtered, and raw with the
     distance band), two loop candidates against scan 0's map, a 3-node graph
     with priors of every type, a floor plane, SE3-plane and plane-plane
@@ -145,6 +145,7 @@ def _backend_calls(device, scans):
     ))
     raw = (torch.stack([c0.xyz, c1.xyz]), *chunk[1:], 0, *group[4:6], 0.5, 100.0, 0.1, 32768)
     out.append(("window_group_fn", window.window_group(*raw), window.window_group_ref(*raw)))
+    out.append(("uniform_subsample", prefilter.uniform_subsample(c0, 4096), prefilter.uniform_subsample_ref(c0, 4096)))
     hm = ndt_hash.to_hash_ref(voxel_map.build_voxel_map_ref(c0, 1.0, leaf_cap=8192))
     t2 = t.clone()
     t2[0, 3] += 0.3
@@ -356,7 +357,7 @@ def test_registry_names_sources_and_replaced_functions():
         "build_grid", "knn", "build_cell_table", "build_lut", "ndt_derivatives_soa", "ndt_derivatives",
         "window_group_fn", "detect_floor", "nn_points", "radius_outlier_removal", "statistical_outlier_removal",
         "vertical_angle_calibration", "_plane_covariances", "gicp_align", "filter_ground_leaves",
-        "newton_step", "optimize_pose_graph", "knn_cell", "grid_fits", "newton_sums",
+        "newton_step", "optimize_pose_graph", "knn_cell", "grid_fits", "newton_sums", "uniform_subsample",
     }
     for name, k in KERNELS.items():
         assert (REPO / k.source).is_file(), k.source
@@ -595,9 +596,10 @@ def test_backend_kernels_match_plain_versions_on_the_card(cuda, scans):
     torch.cuda.synchronize()
     assert {name: k.launches for name, k in KERNELS.items() if k.launches} == dict.fromkeys(results, 1)
 
-    # K1b, K2: the kept lanes, their order and their points identical (the
-    # window's fma chain rounds as the plain twin's float64 emulation)
-    for name in ("voxel_dedup_first", "window_group_filtered_fn"):
+    # K1b, K2, K21: the kept lanes, their order and their points identical
+    # (the window's fma chain rounds as the plain twin's float64 emulation;
+    # K21 rounds its one division and product as the twin)
+    for name in ("voxel_dedup_first", "window_group_filtered_fn", "uniform_subsample"):
         got, want = results[name]
         for a, b in zip(got, want):
             assert torch.equal(a, b), name
@@ -746,18 +748,22 @@ def test_voxel_map_edge_cases_on_the_card(cuda):
 
 @pytest.mark.gpu
 def test_window_and_dedup_edge_cases_on_the_card(cuda):
-    """K2 on chip_smoke's window_cases and K1b on its sort_cases, bit for bit
-    against their twins run on a CPU copy (masks, lane order, float bits),
-    one launch and no synchronizing call a call."""
+    """K2 on chip_smoke's window_cases, K1b on its sort_cases, K2r on its
+    raw_window_cases and K21 on its subsample_cases, bit for bit against
+    their twins run on a CPU copy (masks, lane order, float bits), one
+    launch and no synchronizing call a call."""
     cs = load_chip_smoke()
     assert cs.check_window_cases(torch, cuda) == len(cs.WINDOW_CASE_NAMES)
     assert cs.check_dedup_cases(torch, cuda) == len(cs.SORT_CASE_NAMES)
+    assert cs.check_raw_window_cases(torch, cuda) == len(cs.RAW_WINDOW_CASE_NAMES)
+    assert cs.check_subsample_cases(torch, cuda) == len(cs.SUBSAMPLE_CASE_NAMES)
 
 
 @pytest.mark.gpu
 def test_voxel_map_and_dedup_read_nothing_on_the_card(cuda, scans):
-    """K3, K1b and K2 are each one C call: no synchronizing call and no
-    device work but their own kernels (no torch.sort, no torch glue)."""
+    """K3, K1b, K2, K2r and K21 are each one C call: no synchronizing call
+    and no device work but their own kernels (no torch.sort, no torch
+    glue)."""
     cs = load_chip_smoke()
     (s0, s1), rel = scans
     c0, c1 = (PointCloud.from_numpy(s, cap=16384, device=cuda) for s in (s0, s1))
@@ -765,9 +771,12 @@ def test_voxel_map_and_dedup_read_nothing_on_the_card(cuda, scans):
     group = (torch.stack([c0.xyz.T, c1.xyz.T]).contiguous(), torch.stack([c0.intensity, c1.intensity]),
              torch.stack([c0.mask, c1.mask]), 0, torch.stack([torch.eye(4, device=cuda), t]),
              torch.ones(2, dtype=torch.bool, device=cuda), 0.1, 32768)
+    raw = (torch.stack([c0.xyz, c1.xyz]), *group[1:4], *group[4:6], 0.5, 100.0, 0.1, 32768)
     for name, fn in (("build_voxel_map", lambda: voxel_map.build_voxel_map(c0, 1.0, leaf_cap=8192, weighted=True)),
                      ("voxel_dedup_first", lambda: prefilter.voxel_dedup_first(c0, 0.1, 8192)),
-                     ("window_group_filtered_fn", lambda: window.window_group_filtered(*group))):
+                     ("window_group_filtered_fn", lambda: window.window_group_filtered(*group)),
+                     ("window_group_fn", lambda: window.window_group(*raw)),
+                     ("uniform_subsample", lambda: prefilter.uniform_subsample(c0, 4096))):
         fn()
         torch.cuda.synchronize()
         _, syncs = _count_syncs(fn)

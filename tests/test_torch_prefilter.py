@@ -80,15 +80,6 @@ def test_distance_filter_and_stride_subsample():
         tpf.stride_subsample(t, 10000)
 
 
-def test_uniform_subsample():
-    pts = _scan_points(seed=9)
-    j = JCloud.from_numpy(pts, cap=32768).compact()
-    t = TCloud.from_numpy(pts, cap=32768, device="cpu").compact()
-    js, ts = jpf.uniform_subsample(j, 8192), tpf.uniform_subsample(t, 8192)
-    for a, b in ((ts.xyz, js.xyz), (ts.intensity, js.intensity), (ts.mask, js.mask)):
-        np.testing.assert_array_equal(a.numpy(), np.asarray(b))
-
-
 def _band_edge_points(radius: float, n: int, seed: int) -> np.ndarray:
     """Random directions at `radius`, each coordinate then moved by -4 to +4
     ulps: |p| lies within a few ulps of the band edge."""
@@ -267,6 +258,11 @@ def sort_cases():
     return {name: case for name, *case in CHIP_SMOKE.sort_cases()}
 
 
+@pytest.fixture(scope="module")
+def subsample_cases():
+    return {name: case for name, *case in CHIP_SMOKE.subsample_cases()}
+
+
 @pytest.mark.parametrize("name", CHIP_SMOKE.SORT_CASE_NAMES)
 def test_voxel_downsample_edge_cases(sort_cases, name):
     """Kernel 1's edge cases (`chip_smoke.sort_cases`, which the card holds
@@ -287,3 +283,24 @@ def test_voxel_downsample_edge_cases(sort_cases, name):
     expected = {"every lane masked": 0, "one voxel holding every point": 1, "out_cap below the runs": out_cap}
     if name in expected:
         assert n_voxels == expected[name]
+
+
+@pytest.mark.parametrize("name", CHIP_SMOKE.SUBSAMPLE_CASE_NAMES)
+def test_uniform_subsample(subsample_cases, name):
+    """Kernel 21's twin on `chip_smoke.subsample_cases` (which the card holds
+    the kernel to bit for bit against this twin): equal to JAX bit for bit
+    with no point set, fewer points than out_cap, exactly out_cap, KITTI
+    density (100000 of 131072 lanes into 65536, where i * count overflows
+    int32), a holey mask, out_cap at the lanes (the cloud itself) and a
+    ragged tail."""
+    pts, mask, out_cap = subsample_cases[name]
+    j = JCloud(pts[:, :3], pts[:, 3], mask)
+    t = TCloud(torch.from_numpy(pts[:, :3].copy()), torch.from_numpy(pts[:, 3].copy()), torch.from_numpy(mask))
+    js, ts = jpf.uniform_subsample(j, out_cap), tpf.uniform_subsample(t, out_cap)
+    assert ts.cap == min(out_cap, len(pts))
+    for a, b in ((ts.xyz, js.xyz), (ts.intensity, js.intensity), (ts.mask, js.mask)):
+        np.testing.assert_array_equal(a.numpy().view(np.uint8), np.ascontiguousarray(b).view(np.uint8))
+    expected = {"count 0": 0, "count below out_cap": 5000, "count equal to out_cap": out_cap,
+                "KITTI density": out_cap}
+    if name in expected:
+        assert int(ts.mask.sum()) == expected[name]

@@ -106,6 +106,11 @@ def window_cases():
     return {name: case for name, *case in CHIP_SMOKE.window_cases()}
 
 
+@pytest.fixture(scope="module")
+def raw_window_cases():
+    return {name: case for name, *case in CHIP_SMOKE.raw_window_cases()}
+
+
 @pytest.mark.parametrize("cap,out_cap", [(32768, 32768), (32768, 8192), (16384, 65536)])
 def test_voxel_dedup_first(cap, out_cap):
     """First point per voxel in key order, ties to the lower input index;
@@ -249,3 +254,27 @@ def test_window_group(length, start, n_valid):
     assert got.cap == 32768
     _assert_identical(got, want)
     assert 0 < int(got.mask.sum()) < int(mask.sum())
+
+
+@pytest.mark.parametrize("name", CHIP_SMOKE.RAW_WINDOW_CASE_NAMES)
+def test_window_group_edge_cases(raw_window_cases, name):
+    """Kernel 2r's twin on `chip_smoke.raw_window_cases` (which the card
+    holds the kernel to bit for bit against this twin): equal to JAX's
+    `window_group_fn` bit for bit, for a group of one row into more rows
+    than it has lanes and of 16, out_cap below the voxels (truncated), rows
+    clipped to the chunk, every row invalid, points moved past the key's yz
+    clip range, and lanes within 4 ulps of both band edges (masked lanes
+    holding NaN)."""
+    xyz, inten, mask, start, rels, valid, near, far, res, out_cap = raw_window_cases[name]
+    want = jit_cache.window_group_fn(near, far, res, out_cap, len(rels))(
+        jnp.asarray(xyz), jnp.asarray(inten), jnp.asarray(mask), jnp.int32(start), jnp.asarray(rels),
+        jnp.asarray(valid))
+    got = window.window_group(*(torch.from_numpy(a) for a in (xyz, inten, mask)), start, torch.from_numpy(rels),
+                              torch.from_numpy(valid), near, far, res, out_cap)
+    assert got.cap == out_cap
+    _assert_bits(got, want)
+    n_kept = int(got.mask.sum())
+    assert bool(got.mask[:n_kept].all())  # front-compacted
+    assert (n_kept == 0) == (name == "every row invalid")
+    if name == "out_cap below the voxels":
+        assert n_kept == out_cap
