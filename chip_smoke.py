@@ -111,7 +111,9 @@ Phases, each of which raises on failure:
    spread (1e-2) of the CPU plain path's (the two devices' plain map builds
    differ in a few rounding-noise leaves); scans/s, host syncs per scan,
    idle share; then a fresh pass's 170 subsamples replayed by K21 and by its
-   plain twin, each in one trace (their device totals and launches). 8b: `LvSlam(kitti_flagship_config(),
+   plain twin, each in one trace (their device totals and launches), and its
+   aligns replayed in one trace (`align_replay`: the device totals and
+   launches of K6L's gated pass and of `newton_step`). 8b: `LvSlam(kitti_flagship_config(),
    vocabulary=<the port's asset>)` per scan with camera images, then
    `finalize()`; gates: both pose
    sets' accuracy, the record's 34 DLO keyframes, 19 backend keyframes (0,
@@ -225,7 +227,17 @@ among 131072, three fields of 16 bits, a span past 2^31 cells among them)
 and K9c on `table_cases` (every row masked, 40 rows in one cell, 256
 buckets, 5001 rows, 2^15 and 2^18 buckets), bit for bit their twins; 2f: the dense LUT K3L, the LUT/SoA derivative
 pass K6L and the generic one K6G on the host DLO's 32768-leaf keyframe map
-and 65536-lane subsample, at the true pose and one 0.3 m off, and the
+and 65536-lane subsample, at the true pose and one 0.3 m off (each
+standalone call one launch of `lut_pass`, no other device work, no
+synchronizing call; K6L's gated Newton-loop pass one launch, its rows the
+standalone sums in row order and the same bits twice; the gated pass alone,
+DIRECT7 and `newton_step` over the pass's rows timed beside their bounds),
+and on `lut_cases` (points within an ulp of a cell face, cells at and past
+the extent for each DIRECT7 offset, an all-masked cloud, 1001 lanes, valid
+lanes ending mid-row, masked, sentinel and gate-rejected lanes, a finished
+candidate, DIRECT26, 131073 lanes: each standalone call one launch, no
+synchronizing call, against the twin; each gated pass's rows the standalone
+sums, a finished candidate's untouched), and the
 subsample K21 (one launch with no synchronizing call and no device work
 but its own) of scan 1's filtered cloud (45881 points into 65536 lanes)
 and on `subsample_cases` (no point set, fewer points than out_cap, exactly
@@ -390,8 +402,8 @@ DEVICE_FUNCTIONS = {
     "knn": ("knn_query", "knn_lines", "knn_planes"),
     "build_cell_table": ("table_clear", "table_count", "key_sort_pass", "table_fill"),
     "build_lut": ("lut_fill", "lut_scatter"),
-    "ndt_derivatives_soa": ("ndt_lut_partials", "ndt_finish"),
-    "ndt_derivatives": ("ndt_generic_partials", "ndt_finish"),
+    "ndt_derivatives_soa": ("lut_pass",),
+    "ndt_derivatives": ("lut_pass",),
     "window_group_fn": ("window_raw_ranges", "voxel_keys", "key_sort_pass", "voxel_runs"),
     "uniform_subsample": ("subsample_cluster",),
     "detect_floor": ("floor_count", "floor_finish"),
@@ -556,7 +568,8 @@ def same_twice(torch, name: str, launch, out) -> None:
 
 # the kernel each Newton-loop wrapper launches: the gated passes, the step
 LOOP_FUNCTIONS = {"ndt_derivatives_hash": ("ndt_partials",), "_fused_verify_fn": ("ndt_partials",),
-                  "newton_step": ("newton_step",)}
+                  "newton_step": ("newton_step",), "ndt_derivatives_soa": ("lut_pass",),
+                  "ndt_derivatives": ("lut_pass",)}
 
 
 def probe_sectors(torch, hm, xs, mask, transforms, offsets) -> dict:
@@ -603,8 +616,7 @@ def log_sectors(name: str, rec: dict) -> None:
         f"{sec['parent_bytes'] / 1e6:.2f} MB)")
 
 
-def ptxas_usage(text: str, names=("newton_step", "newton_sums", "ndt_partials", "ndt_lut_partials",
-                                   "ndt_generic_partials")) -> dict:
+def ptxas_usage(text: str, names=("newton_step", "newton_sums", "ndt_partials", "lut_pass")) -> dict:
     """{mangled kernel: {registers, spills (store + load bytes), stack}} of
     the kernels whose names hold one of `names`, from ptxas -v's lines."""
     out, current = {}, None
@@ -1351,6 +1363,212 @@ def check_probe_cases(torch, dev):
         if not bool(torch.isfinite(got).all()) or es > ts or eg > tg or eh > th:
             raise AssertionError(f"ndt_partials ({name}): errors score {es} (tol {ts}), grad {eg} (tol {tg}), hess "
                                  f"{eh} (tol {th})")
+    return len(cases)
+
+
+# The LUT passes' edge cases (`lut_cases`, K6L's and K6G's `lut_pass`)
+LUT_CASE_NAMES = ("points within an ulp of a cell face, DIRECT1, weighted",
+                  "cells at and past the extent for each DIRECT7 offset",
+                  "every lane masked, DIRECT7", "1001 lanes, DIRECT1, unweighted",
+                  "valid lanes ending mid-row, DIRECT7, weighted",
+                  "masked, sentinel and gate-rejected lanes, DIRECT1, weighted",
+                  "a finished candidate (done), DIRECT7", "DIRECT26, weighted",
+                  "131073 lanes, more rows than resident blocks, DIRECT7")
+
+
+def _lut_of(means: np.ndarray, valid: np.ndarray, res: float, origin: np.ndarray, e: int) -> np.ndarray:
+    """The dense (e^3,) LUT of leaves one to a cell: -1, the leaf's row at
+    its cell's flat key (the cells of the valid leaves must differ)."""
+    cells = (np.floor(means / np.float32(res)).astype(np.int64) - origin)[valid]
+    assert ((cells >= 0) & (cells < e)).all() and len(np.unique(cells, axis=0)) == len(cells)
+    lut = np.full(e ** 3, -1, np.int32)
+    lut[(cells[:, 0] * e + cells[:, 1]) * e + cells[:, 2]] = np.flatnonzero(valid).astype(np.int32)
+    return lut
+
+
+def lut_cases(seed: int = SEED):
+    """The LUT passes' edge cases as dicts of numpy arrays: `leaves` (means,
+    icovs, weights, valid, origin_cell, resolution, extent), `lut` (e^3,),
+    points `xs` (3, n), `mask` (n,), `transform` (4, 4), `neighborhood`,
+    `weighted`, `gauss` ((d1, d2) or None for the resolution's), `done`
+    (the Newton loop's gate). Points within an ulp of a cell face at a
+    resolution of 0.7 (true division and a reciprocal part there), under
+    the identity so each lands where it was put (the face through 0 too:
+    one ulp below it is a negative denormal, in cell -1 on the card and in
+    the twins, in cell 0 in the reference, which flushes it to 0: the CPU
+    tests pin that); an extent of 16 with leaves
+    on its faces and points in the cells at and one past them, so each
+    DIRECT7 offset probes cells at and past the extent; every lane masked;
+    1001 lanes (not a multiple of a 256-lane row); valid lanes ending in the
+    middle of a row (K21's front-compacted mask: the rows after it hold no
+    valid lane); masked lanes, lanes at the sentinel (masked and not) and
+    lanes the gate rejects (d2 = 1.5); a finished candidate; DIRECT26; and
+    131073 lanes, more rows than the card holds blocks of the pass at once."""
+    rng = np.random.default_rng(seed + 24)
+    e, origin = 64, np.array([-32, -32, -32], np.int32)
+
+    def cells(n, lo, hi):
+        flat = rng.choice((hi - lo) ** 3, size=n, replace=False)
+        return np.stack([flat // (hi - lo) ** 2, (flat // (hi - lo)) % (hi - lo), flat % (hi - lo)], 1) + lo - origin
+
+    def moved():
+        t = np.eye(4, dtype=np.float32)
+        c, s = np.cos(0.03), np.sin(0.03)
+        t[:2, :2] = [[c, -s], [s, c]]
+        t[:3, 3] = rng.uniform(-0.15, 0.15, 3)
+        return t
+
+    def case(name, means, icovs, weights, valid, res, org, ext, pts, mask, transform, hood, weighted, gauss=None,
+             done=False):
+        return dict(name=name, leaves=(means, icovs, weights, valid, org, res, ext),
+                    lut=_lut_of(means, valid, res, org, ext), xs=np.ascontiguousarray(pts.T.astype(np.float32)),
+                    mask=mask, transform=transform, neighborhood=hood, weighted=weighted, gauss=gauss, done=done)
+
+    out = []
+    # faces: points at k * 0.7 and one ulp either side along each axis, under the identity
+    res = 0.7
+    means, icovs, weights = _pd_leaves(rng, cells(3000, -14, 14), res, origin)
+    base = _near(rng, means, 4096, 0.3)
+    axis = rng.integers(0, 3, 4096)
+    k = np.round(base[np.arange(4096), axis] / np.float32(res))
+    face = np.float32(k * np.float32(res))
+    face = np.where(rng.random(4096) < 0.5, np.nextafter(face, np.float32(np.inf)),
+                    np.where(rng.random(4096) < 0.5, np.nextafter(face, np.float32(-np.inf)), face))
+    base[np.arange(4096), axis] = face
+    out.append(case(LUT_CASE_NAMES[0], means, icovs, weights, rng.random(3000) < 0.95, res, origin, e, base,
+                    np.ones(4096, bool), np.eye(4, dtype=np.float32), "DIRECT1", True))
+    # extent 16 from the origin: leaves on the faces, points in cells -1, 0, 15 and 16 along an axis
+    small, ext = np.zeros(3, np.int32), 16
+    face = rng.integers(0, ext, (700, 3))
+    face[np.arange(700), rng.integers(0, 3, 700)] = rng.choice([0, ext - 1], 700)
+    face = np.unique(face, axis=0)
+    means, icovs, weights = _pd_leaves(rng, face, 1.0, small)
+    pts = rng.uniform(0.0, float(ext), (4096, 3)).astype(np.float32)
+    edge = rng.integers(0, 3, 4096)
+    pts[np.arange(4096), edge] = (rng.choice([-1, 0, ext - 1, ext], 4096) + rng.uniform(0.05, 0.95, 4096)).astype(
+        np.float32)
+    out.append(case(LUT_CASE_NAMES[1], means, icovs, weights, np.ones(len(face), bool), 1.0, small, ext, pts,
+                    np.ones(4096, bool), np.eye(4, dtype=np.float32), "DIRECT7", False))
+    # every lane masked
+    means, icovs, weights = _pd_leaves(rng, cells(2048, -12, 12), 1.0, origin)
+    valid = np.ones(2048, bool)
+    out.append(case(LUT_CASE_NAMES[2], means, icovs, weights, valid, 1.0, origin, e, _near(rng, means, 2048, 0.3),
+                    np.zeros(2048, bool), moved(), "DIRECT7", True))
+    # 1001 lanes
+    out.append(case(LUT_CASE_NAMES[3], means, icovs, weights, valid, 1.0, origin, e, _near(rng, means, 1001, 0.3),
+                    rng.random(1001) > 0.1, moved(), "DIRECT1", False))
+    # valid lanes first, ending at lane 600 of 2048 (rows 3-7 hold none)
+    pts = _near(rng, means, 2048, 0.3)
+    mask = np.arange(2048) < 600
+    pts[~mask] = SENTINEL_XYZ
+    out.append(case(LUT_CASE_NAMES[4], means, icovs, weights, valid, 1.0, origin, e, pts, mask, moved(), "DIRECT7",
+                    True))
+    # masked, sentinel (masked and not) and gate-rejected lanes
+    pts = _near(rng, means, 4096, 0.3)
+    sentinel = rng.random(4096) < 0.15
+    pts[sentinel] = SENTINEL_XYZ
+    out.append(case(LUT_CASE_NAMES[5], means, icovs, weights, valid, 1.0, origin, e, pts, rng.random(4096) > 0.3,
+                    moved(), "DIRECT1", True, gauss=(-1.0, 1.5)))
+    # a finished candidate: the gated pass writes nothing, the standalone call sums as ever
+    out.append(case(LUT_CASE_NAMES[6], means, icovs, weights, valid, 1.0, origin, e, _near(rng, means, 3000, 0.3),
+                    np.ones(3000, bool), moved(), "DIRECT7", False, done=True))
+    # DIRECT26
+    means, icovs, weights = _pd_leaves(rng, cells(4000, -10, 10), 1.0, origin)
+    valid = rng.random(4000) < 0.9
+    out.append(case(LUT_CASE_NAMES[7], means, icovs, weights, valid, 1.0, origin, e, _near(rng, means, 3000, 0.4),
+                    rng.random(3000) > 0.05, moved(), "DIRECT26", True))
+    # 131073 lanes: 513 rows of 256
+    out.append(case(LUT_CASE_NAMES[8], means, icovs, weights, valid, 1.0, origin, e, _near(rng, means, 131073, 0.4),
+                    rng.random(131073) > 0.2, moved(), "DIRECT7", False))
+    assert tuple(c["name"] for c in out) == LUT_CASE_NAMES
+    return out
+
+
+def lut_case_inputs(torch, case, dev):
+    """A `lut_cases` entry on `dev`: (VoxelMap, lut, VoxelMapSOA, xs (3, n),
+    xyz (n, 3), mask, transform, GaussParams, offsets, weighted, done)."""
+    from lv_slam_tpu_torch.ops import ndt, ndt_soa, voxel_map
+
+    means, icovs, weights, valid, origin, res, e = case["leaves"]
+    t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)  # noqa: E731
+    vm = voxel_map.VoxelMap(means=t(means), icovs=t(icovs), weights=t(weights), normals=torch.zeros_like(t(means)),
+                            valid=t(valid), keys=torch.full((len(valid),), -1, dtype=torch.int32, device=dev),
+                            origin_cell=t(origin), resolution=res, n_leaves=t(np.array(valid.sum(), np.int32)),
+                            extent=e)
+    lut = t(case["lut"])
+    xs = t(case["xs"])
+    gauss = ndt.make_gauss_params(res) if case["gauss"] is None else ndt.GaussParams(*case["gauss"], 0.0)
+    return (vm, lut, ndt_soa.to_soa(vm, lut), xs, xs.T.contiguous(), t(case["mask"]), t(case["transform"]), gauss,
+            voxel_map.neighborhood_offsets(case["neighborhood"], dev), case["weighted"], case["done"])
+
+
+def derivative_errors(torch, got, want) -> tuple:
+    """(score, gradient, Hessian) errors of two (score, grad, hess) triples
+    and their tolerances: 1e-4 of the score, 2e-5 of the largest gradient
+    and Hessian entry (phase 2's, and test_derivatives')."""
+    (s1, g1, h1), (s2, g2, h2) = got, want
+    errs = (abs(float(s1) - float(s2)), float((g1 - g2).abs().max()), float((h1 - h2).abs().max()))
+    tols = (1e-4 * abs(float(s2)), 2e-5 * float(g2.abs().max()), 2e-5 * float(h2.abs().max()))
+    return errs, tols
+
+
+def check_lut_cases(torch, dev):
+    """K6L and K6G (`lut_pass`) on every case of `lut_cases`: each
+    standalone call one launch and no synchronizing call, against its plain
+    twin on the card at phase 2's tolerances (an all-masked cloud's sums
+    exactly 0); the Newton loop's gated pass at the same transform: a
+    finished candidate's rows untouched, else its rows, summed in row order,
+    the standalone call's sums bit for bit. Returns the number of cases."""
+    from lv_slam_tpu_torch.ops import ndt, ndt_soa
+
+    cases = lut_cases()
+    for case in cases:
+        name = case["name"]
+        vm, lut, soa, xs, xyz, mask, trans, gauss, offsets, weighted, done = lut_case_inputs(torch, case, dev)
+        passes = {
+            "ndt_derivatives_soa": (ndt_soa.KERNEL, lambda: ndt_soa.ndt_derivatives_soa(
+                soa, xs, mask, trans, gauss, offsets, weighted), lambda: ndt_soa.ndt_derivatives_soa_ref(
+                soa, xs, mask, trans, gauss, offsets, weighted), ndt_soa.soa_pass(soa, xs, mask, gauss, offsets,
+                                                                                 weighted)),
+            "ndt_derivatives": (ndt.KERNEL, lambda: ndt.ndt_derivatives(
+                vm, lut, xyz, mask, trans, gauss, offsets, weighted), lambda: ndt.ndt_derivatives_ref(
+                vm, lut, xyz, mask, trans, gauss, offsets, weighted), ndt.generic_pass(vm, lut, xyz, mask, gauss,
+                                                                                        offsets, weighted)),
+        }
+        for kname, (kernel, call, plain, pass_) in passes.items():
+            got = []
+            before = kernel.launches
+            syncs = count_syncs(torch, lambda: got.append(call()))
+            torch.cuda.synchronize()
+            if kernel.launches != before + 1 or syncs:
+                raise AssertionError(f"{kname} ({name}): {kernel.launches - before} launches, {syncs} synchronizing "
+                                     f"calls")
+            (s1, g1, h1), want = got[0], plain()
+            (es, eg, eh), (ts, tg, th) = derivative_errors(torch, (s1, g1, h1), want)
+            if not (bool(torch.isfinite(s1)) and bool(torch.isfinite(g1).all()) and bool(torch.isfinite(h1).all())) \
+                    or es > ts or eg > tg or eh > th:
+                raise AssertionError(f"{kname} ({name}): errors score {es} (tol {ts}), grad {eg} (tol {tg}), hess "
+                                     f"{eh} (tol {th})")
+            state = ndt.NewtonState(trans[None])
+            state.s[0, ndt.S_DONE] = int(done)
+            state.partials = torch.full((pass_.n_blocks * ndt.N_TERMS,), float("nan"), dtype=torch.float32,
+                                        device=dev)
+            before = kernel.launches
+            syncs = count_syncs(torch, lambda: pass_.launch(state))
+            torch.cuda.synchronize()
+            if kernel.launches != before + 1 or syncs:
+                raise AssertionError(f"{kname}'s gated pass ({name}): {kernel.launches - before} launches, {syncs} "
+                                     f"synchronizing calls")
+            rows = state.partials.view(1, pass_.n_blocks, ndt.N_TERMS)
+            if done:
+                if not bool(torch.isnan(rows).all()):
+                    raise AssertionError(f"{kname}'s gated pass ({name}): a finished candidate's rows were written")
+                continue
+            sums = probe_sums(torch, rows)[0]
+            standalone = torch.cat([s1.reshape(1), g1.reshape(6), h1.reshape(36)])
+            if not torch.equal(sums.view(torch.int32), standalone.view(torch.int32)):
+                raise AssertionError(f"{kname}'s gated pass ({name}): its rows summed in row order are not the "
+                                     f"standalone call's sums bit for bit")
     return len(cases)
 
 
@@ -3472,7 +3690,10 @@ def check_lut_kernels(torch, scans, gt, dev):
     from scan 0's prefiltered, 65536-lane uniform subsample, then K6L
     (DIRECT1 weighted: the align; DIRECT7 weighted: the retry) and K6G
     (DIRECT1 weighted: the retry's arbiter) of scan 1's subsample against
-    it, at the true relative pose and at one 0.3 m and 0.02 rad off."""
+    it, at the true relative pose and at one 0.3 m and 0.02 rad off; each
+    standalone call one launch; K6L's gated Newton-loop pass (one launch,
+    its rows the standalone sums), timed alone, then `newton_step` over its
+    rows and K6L's DIRECT7 call; `lut_cases`; K21."""
     from lv_slam_tpu_torch import kitti_flagship_config
     from lv_slam_tpu_torch.core import se3
     from lv_slam_tpu_torch.core.cloud import PointCloud
@@ -3546,11 +3767,83 @@ def check_lut_kernels(torch, scans, gt, dev):
     n_probed, n_leaves = int(torch.unique(flat).numel()), int(torch.unique(leaves[leaves >= 0]).numel())
     log(f"    DIRECT1 at the true pose: {int(mask.sum())} points, {hits} hits, {n_probed} distinct LUT entries, "
         f"{n_leaves} distinct leaves")
+    pts = nbytes(xs, mask)
     for name, row_bytes, ops in (("ndt_derivatives_soa", 64, 300), ("ndt_derivatives", 52, 400)):
         k6, p6, args = fns[name]
-        pts = nbytes(xs, mask)
+        n_launches = one_call(torch, name, k6)
+        if n_launches != 1:
+            raise AssertionError(f"{name}: a standalone call made {n_launches} device launches, not one")
+        log(f"  {name}: a standalone call is {n_launches} launch of lut_pass (its last block sums the rows), no other "
+            f"device work, no synchronizing call")
         measure(torch, records, name, k6, p6, errs[name], pts + 4 * n_probed + row_bytes * n_leaves + 43 * 4,
                 ops * hits)
+
+    # the Newton loop's gated K6L pass alone (DIRECT1, the align's), its rows
+    # written at the true pose; then `newton_step` over its rows
+    d1 = voxel_map.neighborhood_offsets("DIRECT1", dev)
+    pass_ = ndt_soa.soa_pass(soa, xs, mask, gauss, d1, ndt_cfg.weighted)
+    state = ndt.NewtonState(rel[None])
+    state.partials = torch.empty((pass_.n_blocks * ndt.N_TERMS,), dtype=torch.float32, device=dev)
+    rec = records["ndt_derivatives_soa"]
+    rec.update(loop_pass_checks(torch, "ndt_derivatives_soa", lambda: pass_.launch(state)))
+    same_twice(torch, "ndt_derivatives_soa's gated pass", lambda: pass_.launch(state), state.partials)
+    rows = state.partials.view(1, pass_.n_blocks, ndt.N_TERMS)
+    s1, g1, h1 = ndt_soa.ndt_derivatives_soa(soa, xs, mask, rel, gauss, d1, ndt_cfg.weighted)
+    if not torch.equal(probe_sums(torch, rows)[0].view(torch.int32),
+                       torch.cat([s1.reshape(1), g1.reshape(6), h1.reshape(36)]).view(torch.int32)):
+        raise AssertionError("ndt_derivatives_soa: the gated pass's rows, summed in row order, are not the standalone "
+                             "call's sums")
+    rec["gated_pass"] = timed(
+        torch, "ndt_derivatives_soa", lambda: pass_.launch(state), fns["ndt_derivatives_soa"][1], errs[
+            "ndt_derivatives_soa"], pts + 4 * n_probed + 64 * n_leaves + 4 * ndt.N_TERMS * pass_.n_blocks, 300 * hits,
+        f": the Newton loop's gated pass alone ({pass_.n_blocks} rows)")
+    p = ndt.loop_params(np.float32(ndt_cfg.transformation_epsilon), ndt_cfg.step_size, ndt_cfg.max_iterations)
+    f0, s0 = state.f.clone(), state.s.clone()
+    twin = state.clone()
+
+    def k7():
+        state.f.copy_(f0)
+        state.s.copy_(s0)
+        ndt.newton_step(state, pass_.n_blocks, p)
+
+    def p7():
+        twin.f.copy_(f0)
+        twin.s.copy_(s0)
+        ndt.newton_step_ref(twin, s1, g1, h1, p)
+
+    # one step over the gated pass's rows against the twin's over the
+    # standalone sums (the same bits, checked above), held as phase 2i holds it
+    running = (state.s[:, ndt.S_DONE] == 0).tolist()
+    k7()
+    p7()
+    flips, et, e64 = compare_step(torch, ndt, state, twin, running, p)
+    log(f"  newton_step over the gated pass's {pass_.n_blocks} rows: iteration count, accepted transform, score, "
+        f"gradient, Hessian and cap bit for bit the twin's, {flips} done / bad flags decided by rounding, candidate "
+        f"within {et:.3g} of the twin's and alpha within {e64:.3g} of float64's (tol 1e-5)")
+    # as phase 2i bounds it: the rows and the state row read once, the state written once
+    rec["newton_step_rows"] = dict(rows=pass_.n_blocks, **timed(
+        torch, "newton_step", k7, p7, et, 4 * pass_.n_blocks * ndt.N_TERMS + 2 * (4 * ndt.F_WIDTH + 4 * ndt.S_WIDTH),
+        pass_.n_blocks * ndt.N_TERMS + 400, f" over the gated pass's {pass_.n_blocks} rows"))
+
+    # DIRECT7 (the retry's align), standalone: the probes' distinct LUT entries and leaves
+    d7 = voxel_map.neighborhood_offsets("DIRECT7", dev)
+    cells7 = (cells[:, None, :] + d7[None]).reshape(-1, 3)
+    inside7 = torch.all((cells7 >= 0) & (cells7 < e), dim=1) & mask.repeat_interleave(d7.shape[0])
+    flat7 = ((cells7[:, 0] * e + cells7[:, 1]) * e + cells7[:, 2])[inside7].to(torch.int64)
+    leaves7 = lut[flat7]
+    hits7 = int((leaves7 >= 0).sum())
+    n_probed7, n_leaves7 = int(torch.unique(flat7).numel()), int(torch.unique(leaves7[leaves7 >= 0]).numel())
+    log(f"    DIRECT7 at the true pose: {hits7} hits, {n_probed7} distinct LUT entries, {n_leaves7} distinct leaves")
+    rec["direct7"] = timed(
+        torch, "ndt_derivatives_soa",
+        lambda: ndt_soa.ndt_derivatives_soa(soa, xs, mask, rel, gauss, d7, ndt_cfg.weighted),
+        lambda: ndt_soa.ndt_derivatives_soa_ref(soa, xs, mask, rel, gauss, d7, ndt_cfg.weighted),
+        errs["ndt_derivatives_soa"], pts + 4 * n_probed7 + 64 * n_leaves7 + 43 * 4, 300 * hits7, " DIRECT7")
+
+    n_cases = check_lut_cases(torch, dev)
+    log(f"  lut_pass (K6L, K6G): the {n_cases} lut_cases against the plain passes on the card, each standalone "
+        f"call one launch with no synchronizing call, each gated pass's rows the standalone sums bit for bit (a "
+        f"finished candidate's untouched)")
 
     # K21: the host DLO's subsample of scan 1's filtered cloud, one launch
     # with no synchronizing call and no device work but its own, bit for bit
@@ -4720,28 +5013,73 @@ def run_host_dlo(torch, scans, gt, dev, card):
             process(fresh, i)
 
     idle = profile(torch, window, "host_dlo")
-    subsample = subsample_replay(torch, process, cfg, dev, n)
+    clouds, recorded = host_dlo_pass(process, cfg, dev, n)
+    subsample = subsample_replay(torch, clouds, cfg)
+    lut_traced = align_replay(torch, recorded)
     summary = dict(scans_per_s=(n - WARM_SCANS) / elapsed, devkit_t_err=t_err, drift_m=drift,
                    keyframes=stats.keyframe_count, retries=stats.retries, newton_iterations=stats.total_iterations,
                    aligns=len(aligns),
                    worst_step_m=float(steps.max()), syncs_per_scan=syncs / CHUNK, idle_share=idle,
-                   peak_mib=peak / 2**20, jax_record=JAX_HOST_DLO, uniform_subsample_traced=subsample)
+                   peak_mib=peak / 2**20, jax_record=JAX_HOST_DLO, uniform_subsample_traced=subsample,
+                   lut_traced=lut_traced)
     return summary, launches
 
 
-def subsample_replay(torch, process, cfg, dev, n: int) -> dict:
-    """K21 over a whole host-DLO pass: a fresh `DirectLidarOdometry` over the
-    n scans hands its subsample n prefiltered clouds, which K21 and its plain
-    twin then replay, each in one trace (`trace_rows`): their device totals,
-    launches and K21's launches of its own."""
+def record_aligns(odo) -> list:
+    """Wraps the host DLO `odo`'s aligns (and its retry's) so that each
+    call's (function, arguments, keywords) is kept; returns the list."""
+    calls = []
+    for attr in ("_align", "_align_retry"):
+        fn = getattr(odo, attr)
+        if fn is not None:
+            setattr(odo, attr, lambda *a, fn=fn, **kw: calls.append((fn, a, kw)) or fn(*a, **kw))
+    return calls
+
+
+def host_dlo_pass(process, cfg, dev, n: int):
+    """A fresh `DirectLidarOdometry` over the n scans: (the prefiltered
+    clouds its subsample was handed, its aligns as `record_aligns` keeps
+    them)."""
     from lv_slam_tpu_torch.odometry.dlo import DirectLidarOdometry
-    from lv_slam_tpu_torch.ops import prefilter
 
     odo = DirectLidarOdometry(cfg.odometry, cfg.prefilter, device=dev)
     clouds, sub = [], odo._subsample
     odo._subsample = lambda cloud: clouds.append(cloud) or sub(cloud)
+    aligns = record_aligns(odo)
     for i in range(n):
         process(odo, i)
+    return clouds, aligns
+
+
+def align_replay(torch, aligns, what: str = "K6L", pass_fn: str = "lut_pass", results=None) -> dict:
+    """A host-DLO pass's aligns (`host_dlo_pass`) replayed in one trace
+    (`trace_rows`): the device totals and launches of the LUT pass (device
+    function `pass_fn`: K6L gated in the Newton loop) and of `newton_step`.
+    `results`, where given, receives each align's result."""
+    results = [] if results is None else results
+    rows = [r for r in trace_rows(torch, lambda: results.extend(fn(*a, **kw) for fn, a, kw in aligns))
+            if MARKER not in r[1]]
+    out = dict(aligns=len(aligns))
+    for key, fn in (("pass", pass_fn), ("newton_step", "newton_step")):
+        hit = [(t, c) for t, name, c in rows if _is_function(name, fn)]
+        out[f"{key}_ms"] = sum(t for t, _ in hit) / 1e3
+        out[f"{key}_launches"] = sum(c for _, c in hit)
+    out["total_ms"] = out["pass_ms"] + out["newton_step_ms"]
+    log(f"  traced {what} over the {len(aligns)} aligns of a host-DLO pass, replayed: {pass_fn} {out['pass_ms']:.4f} "
+        f"ms over {out['pass_launches']} launches, newton_step {out['newton_step_ms']:.4f} ms over "
+        f"{out['newton_step_launches']}; together {out['total_ms']:.4f} ms")
+    if not out["pass_launches"] or out["pass_launches"] != out["newton_step_launches"]:
+        raise AssertionError(f"the aligns' replay must launch {pass_fn} and newton_step once per Newton step each")
+    return out
+
+
+def subsample_replay(torch, clouds, cfg) -> dict:
+    """K21 over a whole host-DLO pass: the prefiltered clouds that a fresh
+    `DirectLidarOdometry` handed its subsample (`host_dlo_pass`), replayed by
+    K21 and by its plain twin, each in one trace (`trace_rows`): their
+    device totals, launches and K21's launches of its own."""
+    from lv_slam_tpu_torch.ops import prefilter
+
     k = cfg.odometry.scan_matching_cap
     out = dict(calls=len(clouds))
     for key, fn in (("kernel", prefilter.uniform_subsample), ("plain", prefilter.uniform_subsample_ref)):
@@ -4750,7 +5088,7 @@ def subsample_replay(torch, process, cfg, dev, n: int) -> dict:
         out[f"{key}_launches"] = sum(c for _, _, c in rows)
         if key == "kernel":
             out["own_launches"] = sum(c for _, name, c in rows if _is_function(name, "subsample_cluster"))
-    log(f"  traced K21 over the {len(clouds)} subsamples of a {n}-scan pass, replayed: {out['kernel_ms']:.4f} ms over "
+    log(f"  traced K21 over the {len(clouds)} subsamples of a host-DLO pass, replayed: {out['kernel_ms']:.4f} ms over "
         f"{out['kernel_launches']} device launches ({out['own_launches']} of subsample_cluster); the plain version "
         f"{out['plain_ms']:.4f} ms over {out['plain_launches']}")
     if not out["own_launches"] or out["kernel_launches"] != out["own_launches"]:
@@ -5601,6 +5939,50 @@ def _alpha64(ndt, state, lane: int, step_min: float):
     return min(max(norm, step_min), float(f[ndt.F_CAP])), float(np.linalg.cond(a))
 
 
+def compare_step(torch, ndt, state, twin, running, p):
+    """One `newton_step` (`state`) against `newton_step_ref` (`twin`) from
+    identical states with the same sums, held as `newton_steps` says;
+    `running` the lanes not done before the step. Returns (flag flips,
+    largest candidate difference to the twin, largest relative alpha
+    difference to float64)."""
+    flips = 0
+    worst_twin = worst64 = 0.0
+    same_cols = ((ndt.F_T, ndt.F_T + 16), (ndt.F_SCORE, ndt.F_HESS + 36), (ndt.F_CAP, ndt.F_CAP + 1))
+    if not torch.equal(state.s[:, ndt.S_IT], twin.s[:, ndt.S_IT]):
+        raise AssertionError(f"newton_step: iteration counts {state.s[:, ndt.S_IT].tolist()} vs the twin's "
+                             f"{twin.s[:, ndt.S_IT].tolist()}")
+    # a NaN start: the lane is done at iteration 0 with its NaN score in both
+    nan_start = (torch.isnan(state.f[:, ndt.F_SCORE]) & torch.isnan(twin.f[:, ndt.F_SCORE])
+                 & (state.s[:, ndt.S_IT] == 0) & (state.s[:, ndt.S_DONE] == 1) & (twin.s[:, ndt.S_DONE] == 1))
+    got_f, want_f = state.f.clone(), twin.f.clone()
+    got_f[nan_start, ndt.F_SCORE] = want_f[nan_start, ndt.F_SCORE] = 0.0
+    for lo, hi in same_cols:
+        if not torch.equal(got_f[:, lo:hi], want_f[:, lo:hi]):
+            raise AssertionError(f"newton_step: state columns {lo}:{hi} differ from the twin's")
+    for c in range(state.k):
+        if not running[c]:
+            continue
+        flags, twin_flags = state.s[c, [ndt.S_DONE, ndt.S_BAD]].tolist(), twin.s[c, [ndt.S_DONE, ndt.S_BAD]].tolist()
+        alpha = float(state.f[c, ndt.F_ALPHA])
+        if flags != twin_flags:
+            near = min(abs(alpha - p.eps) / p.eps, abs(alpha - p.step_min) / p.step_min)
+            if near > 1e-5:
+                raise AssertionError(f"newton_step: done / bad {flags} vs the twin's {twin_flags}, alpha {alpha}")
+            flips += 1
+            continue
+        if any(flags):
+            continue
+        cand = state.f[c, ndt.F_CAND:ndt.F_CAND + 16]
+        twin_cand = twin.f[c, ndt.F_CAND:ndt.F_CAND + 16]
+        alpha64, cond = _alpha64(ndt, state, c, p.step_min)
+        e64, et = abs(alpha - alpha64) / alpha64, float((cand - twin_cand).abs().max())
+        if e64 > 1e-5 or et > 1e-6 + 2.0**-23 * cond * alpha64:
+            raise AssertionError(f"newton_step: alpha {e64} from float64's (tol 1e-5), candidate {et} from the "
+                                 f"twin's (condition number {cond:.3g})")
+        worst64, worst_twin = max(worst64, e64), max(worst_twin, et)
+    return flips, worst_twin, worst64
+
+
 def newton_steps(torch, ndt, state, pass_, sums_at, p):
     """Steps `state` to done one kernel iteration at a time; before each
     step a copy takes `newton_step_ref` with the same derivative sums
@@ -5621,7 +6003,6 @@ def newton_steps(torch, ndt, state, pass_, sums_at, p):
     difference to float64)."""
     steps = flips = 0
     worst_twin = worst64 = 0.0
-    same_cols = ((ndt.F_T, ndt.F_T + 16), (ndt.F_SCORE, ndt.F_HESS + 36), (ndt.F_CAP, ndt.F_CAP + 1))
     while not state.all_done():
         twin = state.clone()
         running = (state.s[:, ndt.S_DONE] == 0).tolist()
@@ -5630,38 +6011,8 @@ def newton_steps(torch, ndt, state, pass_, sums_at, p):
         ndt.newton_step(state, pass_.n_blocks, p)
         ndt.newton_step_ref(twin, *sums, p)
         steps += 1
-        if not torch.equal(state.s[:, ndt.S_IT], twin.s[:, ndt.S_IT]):
-            raise AssertionError(f"newton_step: iteration counts {state.s[:, ndt.S_IT].tolist()} vs the twin's "
-                                 f"{twin.s[:, ndt.S_IT].tolist()}")
-        # a NaN start: the lane is done at iteration 0 with its NaN score in both
-        nan_start = (torch.isnan(state.f[:, ndt.F_SCORE]) & torch.isnan(twin.f[:, ndt.F_SCORE])
-                     & (state.s[:, ndt.S_IT] == 0) & (state.s[:, ndt.S_DONE] == 1) & (twin.s[:, ndt.S_DONE] == 1))
-        got_f, want_f = state.f.clone(), twin.f.clone()
-        got_f[nan_start, ndt.F_SCORE] = want_f[nan_start, ndt.F_SCORE] = 0.0
-        for lo, hi in same_cols:
-            if not torch.equal(got_f[:, lo:hi], want_f[:, lo:hi]):
-                raise AssertionError(f"newton_step: state columns {lo}:{hi} differ from the twin's")
-        for c in range(state.k):
-            if not running[c]:
-                continue
-            flags, twin_flags = state.s[c, [ndt.S_DONE, ndt.S_BAD]].tolist(), twin.s[c, [ndt.S_DONE, ndt.S_BAD]].tolist()
-            alpha = float(state.f[c, ndt.F_ALPHA])
-            if flags != twin_flags:
-                near = min(abs(alpha - p.eps) / p.eps, abs(alpha - p.step_min) / p.step_min)
-                if near > 1e-5:
-                    raise AssertionError(f"newton_step: done / bad {flags} vs the twin's {twin_flags}, alpha {alpha}")
-                flips += 1
-                continue
-            if any(flags):
-                continue
-            cand = state.f[c, ndt.F_CAND:ndt.F_CAND + 16]
-            twin_cand = twin.f[c, ndt.F_CAND:ndt.F_CAND + 16]
-            alpha64, cond = _alpha64(ndt, state, c, p.step_min)
-            e64, et = abs(alpha - alpha64) / alpha64, float((cand - twin_cand).abs().max())
-            if e64 > 1e-5 or et > 1e-6 + 2.0**-23 * cond * alpha64:
-                raise AssertionError(f"newton_step: alpha {e64} from float64's (tol 1e-5), candidate {et} from the "
-                                     f"twin's (condition number {cond:.3g})")
-            worst64, worst_twin = max(worst64, e64), max(worst_twin, et)
+        f, et, e64 = compare_step(torch, ndt, state, twin, running, p)
+        flips, worst_twin, worst64 = flips + f, max(worst_twin, et), max(worst64, e64)
     return steps, flips, worst_twin, worst64
 
 
@@ -6933,7 +7284,8 @@ def main() -> int:
     log("phase 2i: the device-side loops (K7's newton_step over K6L and K13's pass, the LM's kernels around K15)")
     records.update(check_loop_kernels(torch, scans_all, gt_all, dev, records))
     for name, fn in (("newton_step", "newton_step"), ("ndt_derivatives_hash", "ndt_partials"),
-                     ("_fused_verify_fn", "ndt_partials")):
+                     ("_fused_verify_fn", "ndt_partials"), ("ndt_derivatives_soa", "lut_pass"),
+                     ("ndt_derivatives", "lut_pass")):
         records[name]["ptxas"] = {k: v for k, v in usage.items() if fn in k}
     log("phase 2j: the 8-cell k-NN of a cell table (K9n) and the fits' KnnGrid branch (K10g)")
     cell_records, cell_launches = check_cell_knn_kernels(torch, scans_all, gt_all, dev)
@@ -6975,6 +7327,7 @@ def main() -> int:
 
     log("phase 8a: the host DLO frontend (DirectLidarOdometry per scan), end to end")
     summary, dlo_launches = run_host_dlo(torch, scans_all, gt_all, dev, card)
+    dlo_summary = summary
     log(f"  summary ({card}): {json.dumps(summary)}")
     log("phase 8b: LvSlam() at its default, host DLO -> LFA -> ggo with camera images, end to end")
     summary, _ = run_lvslam_default(torch, scans_all, gt_all, dev, card, images)
@@ -6986,6 +7339,7 @@ def main() -> int:
     log("phase 8d: the generic ndt_align (DIRECT7) at full width")
     summary, align_launches = run_generic_align(torch, scans_all, gt_all, dev, card)
     log(f"  summary ({card}): {json.dumps(summary)}")
+    records["ndt_derivatives_soa"]["traced_8a"] = dlo_summary["lut_traced"]
     launches.update(build_lut=dlo_launches["build_lut"], ndt_derivatives_soa=dlo_launches["ndt_derivatives_soa"],
                     uniform_subsample=dlo_launches["uniform_subsample"],
                     ndt_derivatives=align_launches["ndt_derivatives"])
@@ -7045,7 +7399,8 @@ def main() -> int:
             **{extra: records[name][extra]
                for extra in ("cholesky_ms", "with_sensor_factors", "launches_by_phase", "over_cap", "standalone",
                              "torch_sort_ms", "torch_topk_ms", "rung_4m", "lm_step_ms", "hand_launches_per_iteration",
-                             "bound_earlier_count_ms", "gate_closed", "surf_only", "gicp", "edge")
+                             "bound_earlier_count_ms", "gate_closed", "surf_only", "gicp", "edge", "gated_pass",
+                             "direct7", "newton_step_rows", "traced_8a")
                if extra in records[name]},
         )
         for name, k in KERNELS.items()

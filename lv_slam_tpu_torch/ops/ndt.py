@@ -25,7 +25,7 @@ from __future__ import annotations
 import ctypes
 import functools
 import math
-from typing import Callable, NamedTuple, Optional, Tuple
+from typing import Callable, Dict, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -45,7 +45,7 @@ KERNEL = Kernel(
     replaces="lv_slam_tpu/ops/ndt.py:59",
     entries={
         "lvs_ndt_generic_derivatives": [
-            PTR, PTR, PTR, PTR, PTR, F32, I32, PTR, I32, PTR, PTR, F32, F32, PTR, I32, I32, PTR, I32, PTR,
+            PTR, PTR, PTR, PTR, PTR, F32, I32, PTR, I32, PTR, PTR, F32, F32, PTR, I32, I32, PTR, I32, PTR, PTR,
         ],
         "lvs_ndt_generic_partials": [
             PTR, PTR, PTR, PTR, PTR, F32, I32, PTR, I32, PTR, PTR, PTR, F32, F32, PTR, I32, I32, PTR, I32,
@@ -80,6 +80,30 @@ NEWTON_GROUP = 2
 F_WIDTH, F_T, F_SCORE, F_GRAD, F_HESS, F_CAND, F_CAP, F_ALPHA = 80, 0, 16, 17, 23, 59, 75, 76
 # ... and ints
 S_WIDTH, S_DONE, S_IT, S_STARTED, S_BAD = 4, 0, 1, 2, 3
+
+
+# offsets a LUT pass takes (csrc/ndt_lut.cu kMaxOffsets): DIRECT26's 27 cells
+MAX_OFFSETS = 27
+
+_FINISH_COUNTERS: Dict[Tuple[int, int], torch.Tensor] = {}
+
+
+def finish_counter(device: torch.device) -> torch.Tensor:
+    """The standalone LUT passes' device counter (K6L, K6G) on the current
+    stream of `device`: one int32 that is 0 between calls. The pass's blocks
+    count themselves on it, and the last one, having summed the rows, sets it
+    back to 0, so a call needs no launch to clear it; a stream has its own,
+    so calls on two streams never share one. Made (zeroed) at first use."""
+    key = (device.index, torch.cuda.current_stream(device).cuda_stream)
+    counter = _FINISH_COUNTERS.get(key)
+    if counter is None:
+        counter = _FINISH_COUNTERS[key] = torch.zeros((1,), dtype=torch.int32, device=device)
+    return counter
+
+
+def check_offsets(name: str, offsets: torch.Tensor) -> None:
+    if not 1 <= offsets.shape[0] <= MAX_OFFSETS:
+        raise ValueError(f"{name}: {offsets.shape[0]} offsets; the LUT pass takes 1 to {MAX_OFFSETS}")
 
 
 class GaussParams(NamedTuple):
@@ -127,6 +151,7 @@ def _generic_args(vmap_: VoxelMap, lut, src_xyz, src_mask, gauss: GaussParams, o
     check_dtype(name, src_xyz, torch.float32, (n, 3))
     check_dtype(name, src_mask, torch.bool, (n,))
     check_dtype(name, offsets, torch.int32, (k, 3))
+    check_offsets(name, offsets)
     head = (ptr(vmap_.means), ptr(vmap_.icovs), ptr(vmap_.weights), ptr(lut), ptr(vmap_.origin_cell),
             float(np.float32(vmap_.resolution)), vmap_.extent, ptr(src_xyz), n, ptr(src_mask))
     tail = (float(np.float32(gauss.d1)), float(np.float32(gauss.d2)), ptr(offsets), k, int(weighted))
@@ -144,7 +169,8 @@ def ndt_derivatives(
     weighted: bool,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Score, gradient (6,) and Hessian (6, 6) of the points against the map
-    by the generic formulas. Kernel K6G on CUDA, the plain version on CPU."""
+    by the generic formulas. Kernel K6G on CUDA (one launch: its last block
+    sums the rows), the plain version on CPU."""
     if src_xyz.device.type == "cpu":
         return ndt_derivatives_ref(vmap_, lut, src_xyz, src_mask, transform, gauss, offsets, weighted)
     head, tail, n_blocks = _generic_args(vmap_, lut, src_xyz, src_mask, gauss, offsets, weighted)
@@ -152,7 +178,8 @@ def ndt_derivatives(
     check_dtype("ndt_derivatives", transform, torch.float32, (4, 4))
     partials = torch.empty((n_blocks, N_TERMS), dtype=torch.float32, device=src_xyz.device)
     out = torch.empty((N_TERMS,), dtype=torch.float32, device=src_xyz.device)
-    KERNEL.call("lvs_ndt_generic_derivatives", *head, ptr(transform), *tail, ptr(partials), n_blocks, ptr(out))
+    KERNEL.call("lvs_ndt_generic_derivatives", *head, ptr(transform), *tail, ptr(partials), n_blocks,
+                ptr(finish_counter(src_xyz.device)), ptr(out))
     KERNEL.launches += 1
     return out[0], out[1:7], out[7:].view(6, 6)
 

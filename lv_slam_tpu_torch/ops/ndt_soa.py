@@ -23,7 +23,8 @@ from lv_slam_tpu_torch.core import se3
 from lv_slam_tpu_torch.core.cloud import PointCloud
 from lv_slam_tpu_torch.kernels._build import F32, I32, PTR, Kernel, check_cuda, check_dtype, ptr
 from lv_slam_tpu_torch.ops.ndt import (
-    BLOCK, N_TERMS, DerivativePass, GaussParams, NDTResult, NewtonState, _newton_loop, make_gauss_params,
+    BLOCK, N_TERMS, DerivativePass, GaussParams, NDTResult, NewtonState, _newton_loop, check_offsets, finish_counter,
+    make_gauss_params,
 )
 from lv_slam_tpu_torch.ops.voxel_map import VoxelMap, neighborhood_offsets, probe_cells
 
@@ -33,7 +34,7 @@ KERNEL = Kernel(
     replaces="lv_slam_tpu/ops/ndt_soa.py:134",
     entries={
         "lvs_ndt_lut_derivatives": [
-            PTR, PTR, PTR, F32, I32, PTR, I32, PTR, PTR, F32, F32, PTR, I32, I32, PTR, I32, PTR,
+            PTR, PTR, PTR, F32, I32, PTR, I32, PTR, PTR, F32, F32, PTR, I32, I32, PTR, I32, PTR, PTR,
         ],
         "lvs_ndt_lut_partials": [PTR, PTR, PTR, F32, I32, PTR, I32, PTR, PTR, PTR, F32, F32, PTR, I32, I32, PTR, I32],
     },
@@ -154,6 +155,7 @@ def _soa_args(soa: VoxelMapSOA, xs, mask, gauss: GaussParams, offsets, weighted:
     check_dtype(name, xs, torch.float32, (3, n))
     check_dtype(name, mask, torch.bool, (n,))
     check_dtype(name, offsets, torch.int32, (k, 3))
+    check_offsets(name, offsets)
     head = (ptr(soa.packed), ptr(soa.lut), ptr(soa.origin_cell), float(np.float32(soa.resolution)), soa.extent,
             ptr(xs), n, ptr(mask))
     tail = (float(np.float32(gauss.d1)), float(np.float32(gauss.d2)), ptr(offsets), k, int(weighted))
@@ -170,8 +172,8 @@ def ndt_derivatives_soa(
     weighted: bool,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Fused score / gradient / Hessian over every point and DIRECT offset,
-    one LUT probe and one packed row per hit. Kernel K6L on CUDA, the plain
-    version on CPU."""
+    one LUT probe and one packed row per hit. Kernel K6L on CUDA (one
+    launch: its last block sums the rows), the plain version on CPU."""
     if xs.device.type == "cpu":
         return ndt_derivatives_soa_ref(soa, xs, mask, transform, gauss, offsets, weighted)
     head, tail, n_blocks = _soa_args(soa, xs, mask, gauss, offsets, weighted)
@@ -179,7 +181,8 @@ def ndt_derivatives_soa(
     check_dtype("ndt_derivatives_soa", transform, torch.float32, (4, 4))
     partials = torch.empty((n_blocks, N_TERMS), dtype=torch.float32, device=xs.device)
     out = torch.empty((N_TERMS,), dtype=torch.float32, device=xs.device)
-    KERNEL.call("lvs_ndt_lut_derivatives", *head, ptr(transform), *tail, ptr(partials), n_blocks, ptr(out))
+    KERNEL.call("lvs_ndt_lut_derivatives", *head, ptr(transform), *tail, ptr(partials), n_blocks,
+                ptr(finish_counter(xs.device)), ptr(out))
     KERNEL.launches += 1
     return out[0], out[1:7], out[7:].view(6, 6)
 

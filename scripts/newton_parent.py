@@ -35,9 +35,10 @@ Checks, every one bit for bit (float bits, NaN's too):
   a batch with a finished lane) and `probe_cases` (slot-1 keys, keys in
   neither slot, sentinel and masked lanes, cells past the extent, lanes the
   gate rejects, 1000 lanes, candidates done);
-- the LUT passes K6L and K6G (`csrc/ndt_lut.cu`, unchanged, over the block
-  reduction `lvs::block_partials` that they share with `ndt_partials`) at
-  the flagship pair, DIRECT1 and DIRECT7.
+- the LUT passes K6L and K6G (`csrc/ndt_lut.cu`, over the block reduction
+  `lvs::block_partials` that they share with `ndt_partials`; one launch
+  each since their redesign, against the earlier partial rows and
+  `ndt_finish`) at the flagship pair, DIRECT1 and DIRECT7.
 
 Each kernel is timed as chip_smoke.py times a kernel (the median over the
 whole calls among 20 in a torch.profiler trace, its own device functions):
@@ -70,6 +71,10 @@ SOURCES = ("newton.cu", "ndt_hash.cu", "ndt_lut.cu", "common.cuh", "ndt_terms.cu
 N_SCANS = 18  # scans 0-17: the flagship pair and K13's window and candidates
 STEP_ARGS = [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_float,
              ctypes.c_float, ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+# the earlier tree's standalone LUT passes (partial rows, then `ndt_finish`: no counter), the stream last
+P_, I_, F_ = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+LUT_DERIVATIVES_ARGS = [P_, P_, P_, F_, I_, P_, I_, P_, P_, F_, F_, P_, I_, I_, P_, I_, P_, P_]
+GENERIC_DERIVATIVES_ARGS = [P_, P_, P_, P_, P_, F_, I_, P_, I_, P_, P_, F_, F_, P_, I_, I_, P_, I_, P_, P_]
 PASS_ARGS = [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_float, ctypes.c_int, ctypes.c_void_p,
              ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_int,
              ctypes.c_int, ctypes.c_float, ctypes.c_float, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
@@ -123,13 +128,9 @@ class Parent:
     """The earlier tree's `newton_step` and `lvs_ndt_hash_partials` over its library."""
 
     def __init__(self, torch, lib):
-        from lv_slam_tpu_torch.ops import ndt, ndt_soa
-
         self.torch = torch
-        self.lut_fn = bind(lib, "lvs_ndt_lut_derivatives", ndt_soa.KERNEL._argtypes["lvs_ndt_lut_derivatives"] +
-                           [ctypes.c_void_p])
-        self.generic_fn = bind(lib, "lvs_ndt_generic_derivatives",
-                               ndt.KERNEL._argtypes["lvs_ndt_generic_derivatives"] + [ctypes.c_void_p])
+        self.lut_fn = bind(lib, "lvs_ndt_lut_derivatives", LUT_DERIVATIVES_ARGS)
+        self.generic_fn = bind(lib, "lvs_ndt_generic_derivatives", GENERIC_DERIVATIVES_ARGS)
         self.step_fn = bind(lib, "lvs_newton_step", STEP_ARGS)
         self.pass_fn = bind(lib, "lvs_ndt_hash_partials", PASS_ARGS)
         head = PASS_ARGS[:8]

@@ -68,7 +68,7 @@ import numpy as np
 ROOT = Path(__file__).resolve().parents[1]
 sys.path.insert(0, str(ROOT))
 
-from _parent import build, differ, fetch_parent  # noqa: E402  (scripts/_parent.py)
+from _parent import build, differ, fetch_parent, span_ms  # noqa: E402  (scripts/_parent.py)
 
 COMMIT = "c5bd611"  # the tree before the redesign
 SOURCES = ("voxel_dedup.cu", "voxel_downsample.cu", "voxel_keys.cuh", "key_sort.cuh", "common.cuh")
@@ -178,32 +178,6 @@ class Variants:
         if err:
             raise RuntimeError(f"variant failed with CUDA error {err}")
         return PointCloud(*outs)
-
-
-def span_ms(torch, cs, fn, reps: int = 20) -> float:
-    """The median over the whole calls among `reps` of a call's device span,
-    from its first kernel's start to its last kernel's end (gaps between
-    launches included), in a torch.profiler trace with a marker before each
-    call (`chip_smoke.whole_calls`)."""
-    from torch.profiler import ProfilerActivity, profile as torch_profile
-
-    for _ in range(cs.WARM):
-        fn()
-    torch.cuda.synchronize()
-    for _ in range(5):  # a trace with whole calls for at most half of `reps` is taken again
-        with torch_profile(activities=[ProfilerActivity.CUDA]) as prof:
-            for _ in range(reps):
-                torch.cuda._sleep(1000)
-                fn()
-            torch.cuda._sleep(1000)
-            torch.cuda.synchronize()
-        events = sorted((e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA),
-                        key=lambda e: e.time_range.start)
-        calls = [call for call in cs.whole_calls([e.name for e in events]) if call]
-        if 2 * len(calls) > reps:
-            return float(np.median([events[c[-1]].time_range.end - events[c[0]].time_range.start
-                                    for c in calls])) / 1e3
-    raise AssertionError(f"five traces held whole device work for at most {reps // 2} of {reps} calls")
 
 
 VARIANTS = ([(f"{g} cluster{'s' if g > 1 else ''} of 8 blocks", dict(clusters=g)) for g in (1, 2, 4, 8, 16)]

@@ -1278,6 +1278,20 @@ def test_probe_cases_on_the_card(cuda):
 
 
 @pytest.mark.gpu
+def test_lut_cases_on_the_card(cuda):
+    """The LUT passes K6L and K6G (`lut_pass`) on chip_smoke's lut_cases:
+    points within an ulp of a cell face, cells at and past the extent for
+    each DIRECT7 offset, an all-masked cloud, 1001 lanes, valid lanes ending
+    mid-row, masked, sentinel and gate-rejected lanes, a finished candidate,
+    DIRECT26, 131073 lanes. Each standalone call one launch with no
+    synchronizing call, against its plain twin on the card at phase 2's
+    tolerances; each gated pass's rows, summed in row order, the standalone
+    sums bit for bit, a finished candidate's rows untouched."""
+    cs = load_chip_smoke()
+    assert cs.check_lut_cases(torch, cuda) == len(cs.LUT_CASE_NAMES)
+
+
+@pytest.mark.gpu
 def test_batched_newton_step_keeps_finished_lanes(cuda, scans):
     """K13's loop on the card: four candidates that stop at different
     iterations, stepped by the kernels; each lane's state, once done, stays

@@ -18,7 +18,8 @@ from lv_slam_tpu.core.cloud import PointCloud as JCloud  # noqa: E402
 from lv_slam_tpu.io import synthetic  # noqa: E402
 from lv_slam_tpu.ops import ndt as jn, ndt_hash as jh, ndt_soa as js  # noqa: E402
 from lv_slam_tpu.ops.ndt import make_gauss_params as j_gauss  # noqa: E402
-from lv_slam_tpu.ops.voxel_map import build_voxel_map, neighborhood_offsets as j_offsets  # noqa: E402
+from lv_slam_tpu.ops.voxel_map import VoxelMap as JVoxelMap, build_voxel_map  # noqa: E402
+from lv_slam_tpu.ops.voxel_map import neighborhood_offsets as j_offsets  # noqa: E402
 from lv_slam_tpu_torch.convert import voxel_map_from_numpy  # noqa: E402
 from lv_slam_tpu_torch.core import se3 as tse3  # noqa: E402
 from lv_slam_tpu_torch.core.cloud import PointCloud as TCloud  # noqa: E402
@@ -308,3 +309,80 @@ def test_probe_cases_against_jax(name):
         g1, h1 = np.asarray(g1), np.asarray(h1)
         np.testing.assert_allclose(g2.numpy(), g1, rtol=0, atol=2e-5 * np.abs(g1).max())
         np.testing.assert_allclose(h2.numpy(), h1, rtol=0, atol=2e-5 * np.abs(h1).max())
+
+
+def _negative_denormal(x):
+    return (x < 0) & (x > -np.finfo(np.float32).tiny)
+
+
+def test_lut_face_through_zero_diverges_from_jax():
+    """The one place the LUT passes' cells differ from the reference's:
+    a point one ulp below the face through 0 is a negative denormal, which
+    the port keeps (on the card and in the twins: cell -1) and XLA's CPU
+    flushes to 0 (cell 0; the TPU flushes too). On `lut_cases`' face case,
+    under the identity, the port's cells (`probe_cells`) and the
+    reference's (`floor(points / resolution)`, as `lookup_leaves` takes
+    them) differ by exactly -1 on each axis holding a negative denormal,
+    and nowhere else."""
+    from lv_slam_tpu_torch.ops.voxel_map import probe_cells
+
+    case = CS.lut_cases()[0]
+    assert case["name"] == CS.LUT_CASE_NAMES[0]
+    np.testing.assert_array_equal(case["transform"], np.eye(4, dtype=np.float32))
+    xyz = np.ascontiguousarray(case["xs"].T)
+    _, _, _, _, origin, res, _ = case["leaves"]
+    neg = _negative_denormal(xyz)
+    assert neg.sum() > 0
+    got = probe_cells(torch.from_numpy(xyz), torch.from_numpy(origin), res).numpy() + origin
+    # the resolution an argument, as the map's array is (a constant divisor becomes a reciprocal's product)
+    want = np.asarray(jax.jit(lambda p, r: jnp.floor(p / r).astype(jnp.int32))(jnp.asarray(xyz), jnp.float32(res)))
+    np.testing.assert_array_equal(got - want, np.where(neg, -1, 0))
+
+
+@pytest.mark.parametrize("which", ["soa", "generic"])
+@pytest.mark.parametrize("name", CS.LUT_CASE_NAMES)
+def test_lut_cases_against_jax(name, which):
+    """chip_smoke's `lut_cases` (the LUT passes' edge cases on the card:
+    points within an ulp of a cell face, cells at and past the extent for
+    each DIRECT7 offset, an all-masked cloud, 1001 lanes, valid lanes ending
+    mid-row, masked, sentinel and gate-rejected lanes, a finished candidate,
+    DIRECT26, 131073 lanes) through the port's twins (`ndt_derivatives_soa`,
+    K6L's; `ndt_derivatives`, K6G's) and JAX's on the same map and LUT:
+    score rtol 1e-4, gradient and Hessian atol 2e-5 of their max entry
+    (test_probe_cases_against_jax's tolerances); an all-masked cloud's sums
+    are 0 on both sides."""
+    case = {c["name"]: c for c in CS.lut_cases()}[name]
+    vm, lut, soa, xs, xyz, mask, trans, gauss, offsets, weighted, _ = CS.lut_case_inputs(torch, case, "cpu")
+    # the port is given the points as XLA's CPU reads them: negative
+    # denormals flushed to -0 (the face case's, whose cells differ:
+    # test_lut_face_through_zero_diverges_from_jax); no other case holds one
+    neg = _negative_denormal(xs)
+    assert bool(neg.any()) == (name == CS.LUT_CASE_NAMES[0])
+    xs = torch.where(neg, torch.tensor(-0.0), xs)
+    xyz = xs.T.contiguous()
+    means, icovs, weights, valid, origin, res, _ = case["leaves"]
+    jvm = JVoxelMap(means=jnp.asarray(means), icovs=jnp.asarray(icovs), weights=jnp.asarray(weights),
+                    normals=jnp.zeros_like(jnp.asarray(means)), valid=jnp.asarray(valid),
+                    lut=jnp.asarray(case["lut"]), origin_cell=jnp.asarray(origin), resolution=jnp.float32(res),
+                    n_leaves=jnp.int32(valid.sum()))
+    jgauss = j_gauss(res) if case["gauss"] is None else type(j_gauss(1.0))(
+        *(jnp.float32(v) for v in (*case["gauss"], 0.0)))
+    joff = j_offsets(case["neighborhood"])
+    # the map goes into the trace as an argument, as the reference's aligns take it
+    if which == "soa":
+        jsoa = js.to_soa(jvm)
+        want = jax.jit(lambda packed, jlut, org, r, x, m, t: js.ndt_derivatives_soa(
+            js.VoxelMapSOA(packed, jlut, org, r, jsoa.extent), x, m, t, jgauss, joff, weighted))(
+            jsoa.packed, jsoa.lut, jsoa.origin_cell, jsoa.resolution, jnp.asarray(case["xs"]),
+            jnp.asarray(case["mask"]), jnp.asarray(case["transform"]))
+        got = ts.ndt_derivatives_soa(soa, xs, mask, trans, gauss, offsets, weighted)
+    else:
+        want = jax.jit(lambda vm_, x, m, t: jn.ndt_derivatives(vm_, x, m, t, jgauss, joff, weighted))(
+            jvm, jnp.asarray(case["xs"].T), jnp.asarray(case["mask"]), jnp.asarray(case["transform"]))
+        got = tn.ndt_derivatives(vm, lut, xyz, mask, trans, gauss, offsets, weighted)
+    (s1, g1, h1), (s2, g2, h2) = [np.asarray(x) for x in want], [x.numpy() for x in got]
+    if case["mask"].any():
+        assert float(s1) != 0.0  # real hits
+    np.testing.assert_allclose(float(s2), float(s1), rtol=1e-4)
+    np.testing.assert_allclose(g2, g1, rtol=0, atol=2e-5 * np.abs(g1).max())
+    np.testing.assert_allclose(h2, h1, rtol=0, atol=2e-5 * np.abs(h1).max())
