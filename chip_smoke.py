@@ -254,9 +254,15 @@ filtered scan and on `floor_cases`, its coefficients also bit for bit the
 parent kernel's (`FLOOR_PARENT_COEFFS`); 2h: K17's nearest centroids and one ICP iteration, K9g's
 two 131072-lane grids at 1 m (its key sort's route; the target's timed), K9k's
 `knn` at GICP's three calls (a thread a query over a sample of the keys), K19a's
-covariances and K19b's normal equations on scan 41's 131072 lanes against
-scan 40 at phase 10's guess, K18's two removals and K20 on scan 40, K0a on
-raw scan 40), against its plain version at the shapes phases 5-10 give it.
+covariances (the source's, and the target's on K19b's lanes, timed beside
+the same call on every lane) and K19b's normal equations on scan 41's 131072
+lanes against scan 40 at phase 10's guess, K18's two removals and K20 on
+scan 40, K0a's prefilter front (the calibration of raw scan 40, the main
+path's band on raw scan 0, both in one pass; bit for bit their twins there
+and on `front_cases`; the band's torch chain timed beside it), against its plain version at the shapes phases 5-10 give
+it. Phase 1 fails unless ptxas gives K19a's k = 8 instance no stack frame;
+phases 3-5 and 8a fail unless the band's kernel launched once per
+prefiltered scan, 10c unless K0a's calibration carried the band.
 Phase 2i holds the device-side loops against their
 twins: K7's `newton_step` (the Newton step of every align, with the
 derivative passes gated on the loop's `done` flag) step by step from
@@ -410,7 +416,8 @@ DEVICE_FUNCTIONS = {
     "nn_points": ("nn_points_kernel", "icp_match", "icp_means", "icp_cov", "icp_update"),
     "radius_outlier_removal": ("outlier_radius",),
     "statistical_outlier_removal": ("stat_dist", "stat_mean", "stat_var", "stat_thresh", "stat_keep"),
-    "vertical_angle_calibration": ("angle_calibration",),
+    "vertical_angle_calibration": ("prefilter_front",),
+    "distance_filter": ("prefilter_front",),
     "_plane_covariances": ("plane_cov",),
     "gicp_align": ("gicp_normal", "gicp_finish"),
     "filter_ground_leaves": ("ground_filter",),
@@ -3868,10 +3875,22 @@ def check_lut_kernels(torch, scans, gt, dev):
 
 # ----------------------------------------------------------------- phase 3
 
-ODOMETRY_KERNELS = ("voxel_downsample", "build_voxel_map", "to_hash", "ndt_derivatives_hash", "newton_step")
+ODOMETRY_KERNELS = ("distance_filter", "voxel_downsample", "build_voxel_map", "to_hash", "ndt_derivatives_hash",
+                    "newton_step")
 CHAIN_KERNELS = ODOMETRY_KERNELS + (
     "extract_features", "insert_cell_table", "crop_cell_table", "lines_from_fit", "planes_from_fit", "gn_solve",
 )
+
+
+def band_gate(launches: dict, where: str) -> None:
+    """Each prefilter of a scan on the fused paths (`odometry/fused._prefilter_mid`:
+    one per odometry step, and scan 0's map and filtered product) launches
+    the band's kernel once, beside K1: no torch band remains."""
+    if launches["distance_filter"] != launches["voxel_downsample"] or launches["vertical_angle_calibration"]:
+        raise AssertionError(f"{where}: the band launched {launches['distance_filter']} times for "
+                             f"{launches['voxel_downsample']} prefiltered scans (K0a's calibration "
+                             f"{launches['vertical_angle_calibration']})")
+    log(f"  {where}: the band's kernel launched once per prefiltered scan ({launches['distance_filter']})")
 
 
 def run_chunks(torch, run, xyz, mask, stamps, inten, cfg):
@@ -3950,6 +3969,7 @@ def run_slice(torch, scans, gt, dev, card):
     missing = [name for name in ODOMETRY_KERNELS if launches[name] == 0]
     if missing:
         raise AssertionError(f"kernels never launched on the odometry path: {missing}")
+    band_gate(launches, "the odometry path")
 
     est = poses.cpu().numpy().astype(np.float64)
     n = len(scans)
@@ -4033,7 +4053,8 @@ def profile(torch, run, what: str, span: str = "8 scans") -> float:
         log("  profile: no device time recorded (device split not measured)")
         return float("nan")
     log(f"  profile of {span} ({what}): wall {wall_us / 1e3:.2f} ms unprofiled ({profiled_us / 1e3:.2f} ms "
-        f"profiled), device busy {busy / 1e3:.2f} ms, idle share {1 - busy / wall_us:.3f}")
+        f"profiled), device busy {busy / 1e3:.2f} ms over {sum(c for _, _, c in dev_time)} device launches, idle "
+        f"share {1 - busy / wall_us:.3f}")
     log_kernels(sorted(dev_time, reverse=True))
     return 1 - busy / wall_us
 
@@ -4240,6 +4261,7 @@ def run_main_path(torch, scans, gt, dev, card, odometry_poses, odometry_syncs):
     missing = [name for name in CHAIN_KERNELS if launches[name] == 0]
     if missing:
         raise AssertionError(f"kernels never launched on the dlo -> LFA chain: {missing}")
+    band_gate(launches, "the dlo -> LFA chain")
     if tuple(filt[0].shape) != (n, 3, cfg.prefilter.out_cap):
         raise AssertionError(f"filtered product shape {tuple(filt[0].shape)}")
 
@@ -4460,6 +4482,7 @@ def run_full_path(torch, scans, gt, dev, card):
                + CELL_KNN_KERNELS + MESH_KERNELS]
     if missing:
         raise AssertionError(f"kernels never launched on the full path: {missing}")
+    band_gate(launches, "the full path")
     log(f"  exempt from the launch check here: {list(CAMERA_KERNELS)} (no images in this configuration; "
         f"phases 6 and 6b drive them), {list(STANDALONE_KERNELS)} (standalone LFA; phase 7 drives them), "
         f"{list(LUT_KERNELS)} (the LUT paths and the host DLO; phase 8 drives them), {list(INPUT_KERNELS)} (the raw feed and "
@@ -4880,12 +4903,12 @@ NDT_LOOP_TOL = 1e-3
 class plain_twins:
     """Within the block, the LUT paths call K3L's, K6L's, K6G's and K21's
     plain twins on the card and run the Newton loop (K7) with `newton_step_ref`,
-    and the registrations and the prefilter's branches call those of
-    K17-K20 and K0a (the harness swaps the functions in; no wrapper falls
+    and the registrations and the prefilter's front and branches call those
+    of K17-K20 and K0a (the harness swaps the functions in; no wrapper falls
     back)."""
 
     def __enter__(self):
-        from lv_slam_tpu_torch.odometry import dlo
+        from lv_slam_tpu_torch.odometry import dlo, fused
         from lv_slam_tpu_torch.ops import gicp, icp, ndt, ndt_ground, ndt_soa, nn, prefilter, voxel_map
 
         self.saved = [
@@ -4904,6 +4927,9 @@ class plain_twins:
             (nn, "radius_outlier_removal", nn.radius_outlier_removal_ref),
             (nn, "statistical_outlier_removal", nn.statistical_outlier_removal_ref),
             (prefilter, "vertical_angle_calibration", prefilter.vertical_angle_calibration_ref),
+            (prefilter, "distance_filter", prefilter.distance_filter_ref),
+            (prefilter, "calibrated_band", prefilter.calibrated_band_ref),
+            (fused, "distance_filter", prefilter.distance_filter_ref),
             (ndt, "_newton_loop", ndt._newton_loop_plain),
             (ndt_soa, "_newton_loop", ndt._newton_loop_plain),
         ]
@@ -4972,6 +4998,9 @@ def run_host_dlo(torch, scans, gt, dev, card):
         raise AssertionError(f"kernels never launched on the host DLO: {missing}")
     if launches["uniform_subsample"] != n:
         raise AssertionError(f"the host DLO launched K21 {launches['uniform_subsample']} times, not once per scan")
+    if launches["distance_filter"] != n or launches["vertical_angle_calibration"]:
+        raise AssertionError(f"the host DLO launched the band's kernel {launches['distance_filter']} times, not once "
+                             f"per scan")
     est = np.stack(odo.poses)
     t_err, drift = accuracy(est, gt, f"host DLO poses, {n} scans", n)
     steps = step_errors(est, gt)
@@ -5719,6 +5748,76 @@ REGISTRATION_KERNELS = ("nn_points", "_plane_covariances", "gicp_align")  # K17,
 BRANCH_KERNELS = ("radius_outlier_removal", "statistical_outlier_removal", "vertical_angle_calibration")  # 10c
 
 
+def _band_edge(rng, radius: float, n: int) -> np.ndarray:
+    """n points at `radius` in random directions, each coordinate then moved
+    by -4 to +4 ulps: |p| lies within a few ulps of the band edge."""
+    d = rng.normal(size=(n, 3))
+    p = (d / np.linalg.norm(d, axis=1, keepdims=True) * radius).astype(np.float32)
+    steps = rng.integers(-4, 5, p.shape)
+    for k in range(4):
+        p = np.where(steps > k, np.nextafter(p, np.float32(np.inf)), p)
+        p = np.where(steps < -k, np.nextafter(p, np.float32(-np.inf)), p)
+    return p.astype(np.float32)
+
+
+FRONT_ANGLES = (0.11, 1.7)  # degrees: the reference's calibration and a larger one
+
+
+def front_cases(seed: int = SEED):
+    """[(name, points (n, 3) float32, cap)] for the prefilter's front (K0a:
+    the calibration, the band, both): lidar-range points with points on and
+    near the z axis (no rotation axis: the full form of R), x and y of 1e-30
+    (products that underflow), zeros of both signs and a NaN row (masked by
+    `PointCloud.from_numpy`); clouds whose calibrated |p| lies within ulps of
+    the band's edges; odd capacities; every lane masked; 3 lanes."""
+    rng = np.random.default_rng(seed)
+    lidar = np.concatenate([
+        rng.uniform(-60.0, 60.0, (20000, 3)),
+        rng.normal(0.0, 1.0, (500, 3)) * [0.0, 0.0, 1.0],
+        rng.uniform(-1.0, 1.0, (500, 3)) * 1e-3,
+        np.concatenate([rng.uniform(-1.0, 1.0, (200, 2)) * 1e-30, rng.uniform(1.0, 50.0, (200, 1))], 1),
+        [[0.0, 0.0, 5.0], [-0.0, 0.0, 5.0], [0.0, -0.0, -5.0], [-0.0, -0.0, 0.0], [3.0, -0.0, 1.0], [-0.0, 7.0, 1.0]],
+        [[np.nan, 1.0, 2.0]],
+    ]).astype(np.float32)
+    lidar = lidar[rng.permutation(len(lidar))]
+    return [
+        ("lidar range, the z axis, near it, underflowing x and y, signed zeros, a NaN row", lidar, len(lidar) + 3),
+        ("|p| within ulps of 0.5 m", _band_edge(rng, 0.5, 20000), 20001),
+        ("|p| within ulps of 100 m", _band_edge(rng, 100.0, 20000), 20002),
+        ("every lane masked", np.zeros((0, 3), np.float32), 1027),
+        ("3 lanes", rng.uniform(-60.0, 60.0, (3, 3)).astype(np.float32), 3),
+    ]
+
+
+def check_front_cases(torch, dev) -> int:
+    """Every `front_cases` entry through each form of the prefilter's front
+    (the calibration at FRONT_ANGLES, the band, both), bit for bit its twins
+    on the card; so is a slice of a cloud one lane off the 16-byte boundary
+    (the main path passes `xyz[i]` slices of a chunk). Returns the number of
+    cases."""
+    from lv_slam_tpu_torch.core.cloud import PointCloud
+    from lv_slam_tpu_torch.ops import prefilter
+
+    near, far = 0.5, 100.0
+    forms = [(f"calibration at {a} degrees", lambda c, a=a: prefilter.vertical_angle_calibration(c, a),
+              lambda c, a=a: prefilter.vertical_angle_calibration_ref(c, a)) for a in FRONT_ANGLES]
+    forms.append(("band", lambda c: prefilter.distance_filter(c, near, far),
+                  lambda c: prefilter.distance_filter_ref(c, near, far)))
+    forms += [(f"calibration at {a} degrees and band", lambda c, a=a: prefilter.calibrated_band(c, a, near, far),
+               lambda c, a=a: prefilter.calibrated_band_ref(c, a, near, far)) for a in FRONT_ANGLES]
+    cases = front_cases()
+    pts, cap = cases[0][1], cases[0][2]
+    wide = PointCloud.from_numpy(pts, cap=cap + 1, device=dev)
+    clouds = [(name, PointCloud.from_numpy(pts, cap=cap, device=dev)) for name, pts, cap in cases]
+    clouds.append((f"{cases[0][0]}, one lane off the 16-byte boundary",
+                   PointCloud(wide.xyz[1:], wide.intensity[1:], wide.mask[1:])))
+    for name, cloud in clouds:
+        for form, kernel, plain in forms:
+            if not identical_clouds(torch, kernel(cloud), plain(cloud)):
+                raise AssertionError(f"prefilter front ({form}) on front_cases {name!r}: not bit for bit its twins")
+    return len(cases)
+
+
 def registration_pair(torch, scans, gt, dev):
     """Phase 10's pair on `dev`: scans 40 and 41 through the flagship
     prefilter (131072 lanes), their true relative pose and
@@ -5742,10 +5841,14 @@ def check_registration_kernels(torch, scans, gt, dev):
     shapes: K17 (nn_points, one ICP iteration), K9g's two grids (bit for
     bit, the target's timed as the `gicp` entry of K9g's record), K9k's
     `knn` at GICP's three calls (bit for bit, timed as the `gicp` entry of
-    K9k's record) and K19a /
-    K19b (the source's covariances, one GICP normal-equation pass) on scan 41's 131072 lanes
-    against scan 40 at the guess, K18 (both removals) and K20 on scan 40
-    (filtered; its 10 m map with a 64^3 LUT), K0a on raw scan 40."""
+    K9k's record), K19a (the source's covariances, and the target's at the
+    matches on K19b's lanes, timed beside the same call on every lane) and
+    K19b (one GICP normal-equation pass) on scan 41's 131072 lanes against
+    scan 40 at the guess, K18 (both removals) and K20 on scan 40 (filtered;
+    its 10 m map with a 64^3 LUT), K0a's three forms (the calibration of raw
+    scan 40, the band of raw scan 0, both in one pass on raw scan 40; the
+    band's torch chain timed and its launches counted), bit for bit their
+    twins there and on `front_cases`."""
     from lv_slam_tpu_torch import kitti_flagship_config
     from lv_slam_tpu_torch.core import se3
     from lv_slam_tpu_torch.core.cloud import PointCloud
@@ -5804,20 +5907,43 @@ def check_registration_kernels(torch, scans, gt, dev):
                 0.0, nbytes(target.mask, got.xyz, got.mask) + 20 * n_in,
                 n_in * (9 * 3 * int(np.ceil(np.log2(target.cap + 1))) + 27 * 3 + ops))
 
-    # kernel 0a: the calibration of the raw scan
+    # kernel 0a, the prefilter's front: the calibration, the band (the main
+    # path's, at phase 3's raw shape) and the two in one pass, each bit for
+    # bit its twins on the raw scans and on `front_cases`, and timed
     raw = PointCloud.from_numpy(scans[PAIR[0]], cap=pf.raw_cap, device=dev)
-    k0 = lambda: prefilter.vertical_angle_calibration(raw, pf.angle_base)  # noqa: E731
-    p0 = lambda: prefilter.vertical_angle_calibration_ref(raw, pf.angle_base)  # noqa: E731
-    got, want = k0(), p0()
-    err = float((got.xyz - want.xyz).abs().max())
-    n_diff = int((got.xyz != want.xyz).sum())
-    log(f"  vertical_angle_calibration: {int(raw.mask.sum())} raw points at {pf.angle_base} degrees, {n_diff} "
-        f"coordinates differ from the plain version, by at most {err:.3g} (tol 1e-5)")
-    if err > 1e-5 or not torch.equal(got.mask, want.mask):
-        raise AssertionError("vertical_angle_calibration departs from its plain version")
-    n_raw = int(raw.mask.sum())  # bytes: the mask of every lane, the masked-in points, the points out
-    measure(torch, records, "vertical_angle_calibration", k0, p0, err, nbytes(raw.mask, got.xyz) + 12 * n_raw,
-            80 * n_raw)
+    n_raw = int(raw.mask.sum())
+    near, far, angle = pf.distance_near_thresh, pf.distance_far_thresh, pf.angle_base
+    raw3 = PointCloud.from_numpy(scans[0], cap=pf.raw_cap, device=dev)
+    fronts = (("vertical_angle_calibration", raw, lambda c: prefilter.vertical_angle_calibration(c, angle),
+               lambda c: prefilter.vertical_angle_calibration_ref(c, angle)),
+              ("distance_filter", raw3, lambda c: prefilter.distance_filter(c, near, far),
+               lambda c: prefilter.distance_filter_ref(c, near, far)),
+              ("calibrated_band", raw, lambda c: prefilter.calibrated_band(c, angle, near, far),
+               lambda c: prefilter.calibrated_band_ref(c, angle, near, far)))
+    out0, out1, out2 = (kernel(cloud) for _, cloud, kernel, _ in fronts)
+    for (name, cloud, _, plain), got in zip(fronts, (out0, out1, out2)):
+        if not identical_clouds(torch, got, plain(cloud)):
+            raise AssertionError(f"{name}: not bit for bit its twins on the card")
+    n_cases = check_front_cases(torch, dev)
+    kept = int(out2.mask.sum())
+    log(f"  the prefilter's front (K0a): the calibration of raw scan {PAIR[0]} ({n_raw} points at {angle} degrees), "
+        f"the band of raw scan 0 ({int(raw3.mask.sum())} points) and both in one pass ({kept} kept) bit for bit their "
+        f"twins on the card; the {n_cases} front_cases too")
+    # bytes: the mask of every lane and the point of each masked-in lane read,
+    # the point (and the keep flag) of every lane written; operations per
+    # masked-in lane: ~70 for the calibration (its float64 fmas and their
+    # conversions), 7 for |p|
+    n_raw3 = int(raw3.mask.sum())
+    measure(torch, records, "vertical_angle_calibration", lambda: fronts[0][2](raw), lambda: fronts[0][3](raw), 0.0,
+            nbytes(raw.mask, out0.xyz) + 12 * n_raw, 70 * n_raw)
+    measure(torch, records, "distance_filter", lambda: fronts[1][2](raw3), lambda: fronts[1][3](raw3), 0.0,
+            nbytes(raw3.mask, out1.xyz, out1.mask) + 12 * n_raw3, 7 * n_raw3)
+    _, records["distance_filter"]["plain_launches"] = foreign_functions(torch, lambda: fronts[1][3](raw3), ())
+    records["vertical_angle_calibration"]["with_band"] = timed(
+        torch, "vertical_angle_calibration", lambda: fronts[2][2](raw), lambda: fronts[2][3](raw), 0.0,
+        nbytes(raw.mask, out2.xyz, out2.mask) + 12 * n_raw, 77 * n_raw, " with the band (one pass)")
+    log(f"    the band's torch chain (distance_filter_ref): {records['distance_filter']['plain_launches']} device "
+        f"launches a call")
 
     # kernel 9k at GICP's shapes, a thread a query over a 1024-key sample of
     # each 131072-lane grid's keys (phase 2e reaches that path only on
@@ -5889,10 +6015,42 @@ def check_registration_kernels(torch, scans, gt, dev):
     measure(torch, records, "_plane_covariances", k19a, p19a, err,
             nbytes(mask, cov_k, ok_k) + 8 * n_src + 12 * n_nbrs, 600 * n_src)
 
-    # kernel 19b: one normal-equation pass at the guess, the target's matches
+    # kernel 19a's target call, as gicp_align makes it: the covariances at
+    # the matches' neighbourhoods on the lanes that K19b reads (its lane
+    # test), the identity elsewhere; bit for bit the every-lane call there
     dists, nn_pts, nn_valid = got_knn[1]
     _, nbrs, nbr_valid = got_knn[2]
-    cov_b, _ = gicp.regularized_covariances(nbrs, nbr_valid)
+    need = gicp.LaneTest(mask & ok_k, nn_valid[:, 0].contiguous(), dists[:, 0].contiguous(), 2.0)
+    k19t = lambda: gicp.regularized_covariances(nbrs, nbr_valid, need=need)  # noqa: E731
+    p19t = lambda: gicp.regularized_covariances_ref(nbrs, nbr_valid, need=need)  # noqa: E731
+    every = lambda: gicp.regularized_covariances(nbrs, nbr_valid)  # noqa: E731
+    (cov_b, _), (cov_t, _), (cov_e, _) = k19t(), p19t(), every()
+    lanes = need.lanes()
+    n_need = int(lanes.sum())
+    if not (torch.equal(cov_b[lanes].view(torch.int32), cov_e[lanes].view(torch.int32))
+            and bool((cov_b[~lanes] == torch.eye(3, device=dev)).all())):
+        raise AssertionError("_plane_covariances' target call: not the every-lane call's bits on its lanes, or not "
+                             "the identity elsewhere")
+    e = gicp.plane_covariance_error(cov_b, cov_t, nbrs, nbr_valid, lanes)
+    log(f"  _plane_covariances' target call: {n_need} of {n_src} lanes pass K19b's test; there bit for bit the "
+        f"every-lane call, the identity elsewhere; against the plain version {e.n_identical} of {e.n_gap} gapped lanes "
+        f"identical, largest difference times the gap {e.envelope:.3g} (tol {gicp.PLANE_ENVELOPE}), {e.n_repeated} "
+        f"repeated-pair lanes keep the plane shape to {e.shape_err:.3g}")
+    if not e.ok:
+        raise AssertionError("_plane_covariances' target call departs from its plain version")
+    # bytes: src_ok of every lane, nn_valid where it is set, nn_dist where
+    # both are, the 8 flags and the valid neighbours of a needed lane, the
+    # covariances out
+    n_src_ok, n_nn = int(need.src_ok.sum()), int((need.src_ok & need.nn_valid).sum())
+    n_nbrs = int(nbr_valid[lanes].sum())
+    target_rec = timed(torch, "_plane_covariances", k19t, p19t, e.max_diff,
+                   lanes.numel() + n_src_ok + 4 * n_nn + 8 * n_need + 12 * n_nbrs + nbytes(cov_b), 600 * n_need,
+                   " the target call (K19b's lanes)")
+    target_rec["every_lane_ms"], _, _ = device_ms(torch, every, DEVICE_FUNCTIONS["_plane_covariances"])
+    log(f"    the same call on every lane (the earlier target route): {target_rec['every_lane_ms']:.4f} ms")
+    records["_plane_covariances"]["target_call"] = target_rec
+
+    # kernel 19b: one normal-equation pass at the guess, the target's matches
     args = (src, mask & ok_k, cov_k, guess, nn_pts[:, 0].contiguous(), dists[:, 0].contiguous(),
             nn_valid[:, 0].contiguous(), cov_b, 2.0)
     k19b = lambda: gicp.gicp_normal_equations(*args)  # noqa: E731
@@ -6956,9 +7114,12 @@ def run_dlo_branches(torch, scans, gt, dev, card):
         torch.cuda.synchronize()
         elapsed = time.perf_counter() - t0
         counts = {k: KERNELS[k].launches for k in kernels}
-        log(f"  {name}: launches {counts} on {n} scans (one per scan)")
+        band = KERNELS["distance_filter"].launches
+        log(f"  {name}: launches {counts} on {n} scans (one per scan); the band alone {band}")
         if any(c != n for c in counts.values()):
             raise AssertionError(f"{name}: each branch kernel must launch once per scan")
+        if band != (0 if pf.use_angle_calibration else n):  # with the calibration, K0a's pass holds the band
+            raise AssertionError(f"{name}: the band alone launched {band} times")
         launches.update(counts)
         est = np.stack(odo.poses)
         t_err, drift = accuracy(est, gt, f"host DLO poses with {name}, {n} scans", n)
@@ -7253,6 +7414,12 @@ def main() -> int:
         usage = ptxas_usage(build_log.read_text())
         for fn, u in sorted(usage.items()):
             log(f"  ptxas -v: {fn}: {u['registers']} registers, {u['spills']} bytes of spills, {u['stack']} of stack")
+        front = ptxas_usage(build_log.read_text(), ("plane_cov", "prefilter_front"))
+        for fn, u in sorted(front.items()):
+            log(f"  ptxas -v: {fn}: {u['registers']} registers, {u['spills']} bytes of spills, {u['stack']} of stack")
+        k8 = [u for fn, u in front.items() if "plane_covILi8E" in fn]
+        if not k8 or k8[0]["stack"] or k8[0]["spills"]:
+            raise AssertionError(f"K19a's k = 8 instance must keep its sums in registers (no stack frame): {k8}")
     if set(KERNELS) != set(DEVICE_FUNCTIONS):
         raise AssertionError(f"kernel registry {sorted(KERNELS)} != {sorted(DEVICE_FUNCTIONS)}")
 
@@ -7400,7 +7567,8 @@ def main() -> int:
                for extra in ("cholesky_ms", "with_sensor_factors", "launches_by_phase", "over_cap", "standalone",
                              "torch_sort_ms", "torch_topk_ms", "rung_4m", "lm_step_ms", "hand_launches_per_iteration",
                              "bound_earlier_count_ms", "gate_closed", "surf_only", "gicp", "edge", "gated_pass",
-                             "direct7", "newton_step_rows", "traced_8a")
+                             "direct7", "newton_step_rows", "traced_8a", "with_band", "plain_launches",
+                             "target_call")
                if extra in records[name]},
         )
         for name, k in KERNELS.items()

@@ -5,7 +5,8 @@ GICP_OMP options (port of `lv_slam_tpu.ops.gicp`, the reference's
 Each point's covariance comes from its k = 8 grid neighbours (K9g's build,
 K9k's k-NN), regularized to the plane shape (1e-3, 1, 1) along its
 eigenvectors: kernel 19a (`csrc/gicp.cu`), for the source once and for the
-target's matches in every iteration. Each Gauss-Newton iteration matches
+target's matches in every iteration (there only on the lanes that the
+normal equations read: `LaneTest`). Each Gauss-Newton iteration matches
 the moved source to the target (K9k, k = 1) and reduces the Mahalanobis
 normal equations sum J^T (C_b + R C_a R^T)^-1 J and sum J^T (...)^-1 d
 (kernel 19b); the 6x6 solve with its ridge and the non-finite guard stay
@@ -34,7 +35,7 @@ COV_KERNEL = Kernel(
     "_plane_covariances",
     source="lv_slam_tpu_torch/csrc/gicp.cu",
     replaces="lv_slam_tpu/ops/gicp.py:31",
-    entries={"lvs_plane_cov": [PTR, PTR, I32, I32, PTR, PTR, PTR]},
+    entries={"lvs_plane_cov": [PTR, PTR, I32, I32, I32, PTR, PTR, PTR, PTR, F32, PTR, PTR]},
 )
 NORMAL_KERNEL = Kernel(
     "gicp_align",
@@ -50,35 +51,61 @@ class GICPResult(NamedTuple):
     n_matches: torch.Tensor  # () int32
 
 
+_EVERY, _MASK, _NEED = 0, 1, 2  # csrc/gicp.cu's CovMode
+
+
+class LaneTest(NamedTuple):
+    """K19b's lane test, need = src_ok & nn_valid & (nn_dist < max_dist):
+    the lanes whose target covariance the normal equations read."""
+
+    src_ok: torch.Tensor    # (N,) bool
+    nn_valid: torch.Tensor  # (N,) bool
+    nn_dist: torch.Tensor   # (N,) float32
+    max_dist: float
+
+    def lanes(self) -> torch.Tensor:
+        # csrc/gicp.cu's `lane_needed`, which K19a's lane-test call and K19b share
+        return self.src_ok & self.nn_valid & (self.nn_dist < np.float32(self.max_dist))
+
+
 def regularized_covariances(
-    pts: torch.Tensor, valid: torch.Tensor, mask: Optional[torch.Tensor] = None
+    pts: torch.Tensor, valid: torch.Tensor, mask: Optional[torch.Tensor] = None, need: Optional[LaneTest] = None,
 ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
     """From each lane's k neighbours (pts (N, k, 3), valid (N, k)): the
     covariance of the valid ones, + 1e-9 I, with its eigenvalues replaced by
     (1e-3, 1, 1): (N, 3, 3). With `mask`, also ok = mask & (k valid >= 3)
-    and the identity where not ok. Kernel 19a on CUDA, the plain version on CPU."""
+    and the identity where not ok. With `need` (K19b's lane test), the
+    matrix on the lanes it passes (no count test) and the identity on the
+    others. Kernel 19a on CUDA, the plain version on CPU."""
+    if mask is not None and need is not None:
+        raise ValueError("regularized_covariances: give a mask or a lane test, not both")
     if pts.device.type == "cpu":
-        return regularized_covariances_ref(pts, valid, mask)
+        return regularized_covariances_ref(pts, valid, mask, need)
     n, k = valid.shape
     pts, valid = pts.contiguous(), valid.contiguous()
-    tensors = (pts, valid) + (() if mask is None else (mask.contiguous(),))
-    check_cuda("_plane_covariances", *tensors)
+    flags = () if mask is None else (mask.contiguous(),)
+    if need is not None:
+        flags = (need.src_ok.contiguous(), need.nn_valid.contiguous(), need.nn_dist.contiguous())
+    check_cuda("_plane_covariances", pts, valid, *flags)
     check_dtype("_plane_covariances", pts, torch.float32, (n, k, 3))
     check_dtype("_plane_covariances", valid, torch.bool, (n, k))
+    for t, dtype in zip(flags, (torch.bool, torch.bool, torch.float32)):
+        check_dtype("_plane_covariances", t, dtype, (n,))
     cov = torch.empty((n, 3, 3), dtype=torch.float32, device=pts.device)
-    ok = None
-    if mask is not None:
-        check_dtype("_plane_covariances", tensors[2], torch.bool, (n,))
-        ok = torch.empty((n,), dtype=torch.bool, device=pts.device)
+    ok = None if mask is None else torch.empty((n,), dtype=torch.bool, device=pts.device)
+    mode = _EVERY if not flags else _MASK if mask is not None else _NEED
+    mask_ptr = ptr(flags[0]) if mode == _MASK else None
+    need_ptrs = [ptr(t) for t in flags] if mode == _NEED else [None, None, None]
+    max_dist = float(np.float32(need.max_dist)) if need is not None else 0.0
     COV_KERNEL.call(
-        "lvs_plane_cov", ptr(pts), ptr(valid), n, k, None if mask is None else ptr(tensors[2]), ptr(cov),
+        "lvs_plane_cov", ptr(pts), ptr(valid), n, k, mode, mask_ptr, *need_ptrs, max_dist, ptr(cov),
         None if ok is None else ptr(ok),
     )
     COV_KERNEL.launches += 1
     return cov, ok
 
 
-def regularized_covariances_ref(pts, valid, mask=None):
+def regularized_covariances_ref(pts, valid, mask=None, need: Optional[LaneTest] = None):
     """Plain PyTorch version of `regularized_covariances`: the reference's
     formulas, each sum over the neighbours in order, as the kernel adds them."""
     def neighbour_sum(x):  # sum over the k axis in order
@@ -98,6 +125,8 @@ def regularized_covariances_ref(pts, valid, mask=None):
     vg = [v[..., j] * g for j, g in enumerate(_GICP_EVALS)]  # columns, scaled
     reg = (vg[0][:, :, None] * v[:, None, :, 0] + vg[1][:, :, None] * v[:, None, :, 1]) \
         + vg[2][:, :, None] * v[:, None, :, 2]
+    if need is not None:
+        return torch.where(need.lanes()[:, None, None], reg, eye), None
     if mask is None:
         return reg, None
     ok = mask & (wsum >= 3)
@@ -260,7 +289,9 @@ def gicp_align(
         nn = pts[:, 0]
         # the target covariance fresh from the match's own neighbourhood
         _, nn_nbrs, nn_valid = knn(tgt_grid, nn, k=k_covariance)
-        cov_b, _ = regularized_covariances(nn_nbrs, nn_valid)
+        # (K19b's lanes only: it reads no other lane of them)
+        cov_b, _ = regularized_covariances(
+            nn_nbrs, nn_valid, need=LaneTest(src_ok, valid[:, 0], dists[:, 0], max_correspondence_distance))
         h, g = gicp_normal_equations(src_xyz, src_ok, cov_src, transform, nn, dists[:, 0], valid[:, 0], cov_b,
                                      max_correspondence_distance)
         ridge = 1e-6 * torch.trace(h) / 6.0 + 1e-9

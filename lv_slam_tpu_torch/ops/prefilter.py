@@ -11,8 +11,12 @@ launches.
 `voxel_dedup_first` is kernel 1b (`csrc/voxel_dedup.cu`, over kernel 1's key
 front end and sort) and `voxel_dedup_first_ref` likewise: the same key and
 sort, then the first lane of each voxel, compacted in key order.
-`vertical_angle_calibration` is kernel 0a (`csrc/angle_calibration.cu`) and
-`vertical_angle_calibration_ref` likewise; `uniform_subsample` is kernel 21
+`vertical_angle_calibration` is kernel 0a (`csrc/angle_calibration.cu`,
+`prefilter_front`) and `vertical_angle_calibration_ref` likewise; the same
+kernel is the distance band (`distance_filter` / `distance_filter_ref`) and
+the two in one pass (`calibrated_band`, which `prefilter` calls when both
+stages are on, and `calibrated_band_ref`, the twins composed);
+`uniform_subsample` is kernel 21
 (`csrc/subsample.cu`, one launch: the mask's count and the gather) and
 `uniform_subsample_ref` likewise. The outlier removals are `ops.nn`'s
 kernel 18.
@@ -21,7 +25,7 @@ kernel 18.
 from __future__ import annotations
 
 import ctypes
-from typing import Tuple
+from typing import Optional, Tuple
 
 import numpy as np
 import torch
@@ -47,17 +51,44 @@ KERNEL = Kernel(
 )
 
 
+_FRONT_ENTRY = {"lvs_prefilter_front": [PTR, PTR, I32, I32, F32, I32, F32, F32, PTR, PTR]}
 CALIBRATION_KERNEL = Kernel(
     "vertical_angle_calibration",
     source="lv_slam_tpu_torch/csrc/angle_calibration.cu",
     replaces="lv_slam_tpu/ops/prefilter.py:33",
-    entries={"lvs_angle_calibration": [PTR, PTR, I32, F32, PTR]},
+    entries=_FRONT_ENTRY,
+)
+BAND_KERNEL = Kernel(
+    "distance_filter",
+    source="lv_slam_tpu_torch/csrc/angle_calibration.cu",
+    replaces="lv_slam_tpu/ops/prefilter.py:26",
+    entries=_FRONT_ENTRY,
 )
 
 
 def _deg2rad32(angle_deg: float) -> float:
     """float32(angle) * float32(pi / 180), as `jnp.deg2rad` rounds it."""
     return float(np.float32(angle_deg) * np.float32(np.pi / 180.0))
+
+
+def _front(kernel: Kernel, name: str, cloud: PointCloud, angle_deg: Optional[float],
+           band: Optional[Tuple[float, float]]) -> PointCloud:
+    """One launch of `prefilter_front` on a CUDA cloud: the calibration by
+    `angle_deg` and / or the band (near, far)."""
+    if cloud.xyz.dtype != torch.float32 or cloud.mask.dtype != torch.bool:
+        raise ValueError(f"{name}: expected float32 xyz and a bool mask")
+    xyz, mask = cloud.xyz.contiguous(), cloud.mask.contiguous()
+    check_cuda(name, xyz, mask)
+    out = torch.empty_like(xyz)
+    keep = None if band is None else torch.empty_like(mask)
+    near, far = (float(np.float32(v)) for v in band) if band is not None else (0.0, 0.0)
+    kernel.call(
+        "lvs_prefilter_front", ptr(xyz), ptr(mask), cloud.cap, int(angle_deg is not None),
+        0.0 if angle_deg is None else _deg2rad32(angle_deg), int(band is not None), near, far, ptr(out),
+        None if keep is None else ptr(keep),
+    )
+    kernel.launches += 1
+    return PointCloud(out, cloud.intensity, cloud.mask if keep is None else keep)
 
 
 def vertical_angle_calibration(cloud: PointCloud, angle_base_deg: float) -> PointCloud:
@@ -67,14 +98,7 @@ def vertical_angle_calibration(cloud: PointCloud, angle_base_deg: float) -> Poin
     Kernel 0a on CUDA, the plain version on CPU."""
     if cloud.xyz.device.type == "cpu":
         return vertical_angle_calibration_ref(cloud, angle_base_deg)
-    xyz, mask = cloud.xyz.contiguous(), cloud.mask.contiguous()
-    check_cuda("vertical_angle_calibration", xyz, mask)
-    out = torch.empty_like(xyz)
-    CALIBRATION_KERNEL.call(
-        "lvs_angle_calibration", ptr(xyz), ptr(mask), cloud.cap, _deg2rad32(angle_base_deg), ptr(out)
-    )
-    CALIBRATION_KERNEL.launches += 1
-    return PointCloud(out, cloud.intensity, cloud.mask)
+    return _front(CALIBRATION_KERNEL, "vertical_angle_calibration", cloud, angle_base_deg, None)
 
 
 def vertical_angle_calibration_ref(cloud: PointCloud, angle_base_deg: float) -> PointCloud:
@@ -105,14 +129,38 @@ def vertical_angle_calibration_ref(cloud: PointCloud, angle_base_deg: float) -> 
 
 
 def distance_filter(cloud: PointCloud, near: float, far: float) -> PointCloud:
-    """Keep `near < |p| < far`. |p| rounds as the reference's compiled
-    `jnp.linalg.norm` on the CPU: the fma chain fma(z, z, fma(y, y, x * x))
-    under a correctly rounded root (a separately rounded sum, or torch's CPU
-    float32 `sqrt`, flips lanes within an ulp of either band edge)."""
+    """Keep `near < |p| < far`; the other lanes take the sentinel. |p|
+    rounds as the reference's compiled `jnp.linalg.norm` on the CPU (see
+    `distance_filter_ref`). Kernel 0a's band on CUDA (one launch), the plain
+    version on CPU."""
+    if cloud.xyz.device.type == "cpu":
+        return distance_filter_ref(cloud, near, far)
+    return _front(BAND_KERNEL, "distance_filter", cloud, None, (near, far))
+
+
+def distance_filter_ref(cloud: PointCloud, near: float, far: float) -> PointCloud:
+    """Plain PyTorch version of `distance_filter`. |p| is the fma chain
+    fma(z, z, fma(y, y, x * x)) under a correctly rounded root (a separately
+    rounded sum, or torch's CPU float32 `sqrt`, flips lanes within an ulp of
+    either band edge)."""
     dist = sqrt32(dot3_fma(cloud.xyz, cloud.xyz))
     keep = cloud.mask & (dist > near) & (dist < far)
     xyz = torch.where(keep[:, None], cloud.xyz, SENTINEL)
     return PointCloud(xyz, cloud.intensity, keep)
+
+
+def calibrated_band(cloud: PointCloud, angle_base_deg: float, near: float, far: float) -> PointCloud:
+    """`distance_filter(vertical_angle_calibration(cloud, angle_base_deg),
+    near, far)` in one launch of kernel 0a on CUDA (the band tests the
+    calibrated point in registers), the twins composed on CPU."""
+    if cloud.xyz.device.type == "cpu":
+        return calibrated_band_ref(cloud, angle_base_deg, near, far)
+    return _front(CALIBRATION_KERNEL, "vertical_angle_calibration", cloud, angle_base_deg, (near, far))
+
+
+def calibrated_band_ref(cloud: PointCloud, angle_base_deg: float, near: float, far: float) -> PointCloud:
+    """Plain PyTorch version of `calibrated_band`: the two twins composed."""
+    return distance_filter_ref(vertical_angle_calibration_ref(cloud, angle_base_deg), near, far)
 
 
 def _pack_yz(cy: torch.Tensor, cz: torch.Tensor) -> torch.Tensor:
@@ -359,8 +407,8 @@ def uniform_subsample_ref(cloud: PointCloud, out_cap: int) -> PointCloud:
 
 def prefilter(cloud: PointCloud, cfg: PrefilterConfig) -> PointCloud:
     """The prefiltering chain (`prefiltering_nodelet.cpp:92-135`), in the
-    reference's order: the vertical-angle calibration (kernel 0a), the
-    distance band, then VOXELGRID / APPROX_VOXELGRID (kernel 1), DEDUP
+    reference's order: the vertical-angle calibration and the distance band
+    (kernel 0a: one launch for the two), then VOXELGRID / APPROX_VOXELGRID (kernel 1), DEDUP
     (kernel 1b) or, for NONE, a front compaction to `out_cap` lanes, then
     the STATISTICAL or RADIUS outlier removal (kernel 18), which clears mask
     bits without compacting. `voxel_reduce` picks between two TPU
@@ -369,9 +417,11 @@ def prefilter(cloud: PointCloud, cfg: PrefilterConfig) -> PointCloud:
     if cfg.voxel_reduce not in ("scatter", "scan"):
         raise ValueError(f"voxel_reduce must be 'scatter' or 'scan', got {cfg.voxel_reduce!r}")
     out = cloud
-    if cfg.use_angle_calibration:
+    if cfg.use_angle_calibration and cfg.use_distance_filter:
+        out = calibrated_band(out, cfg.angle_base, cfg.distance_near_thresh, cfg.distance_far_thresh)
+    elif cfg.use_angle_calibration:
         out = vertical_angle_calibration(out, cfg.angle_base)
-    if cfg.use_distance_filter:
+    elif cfg.use_distance_filter:
         out = distance_filter(out, cfg.distance_near_thresh, cfg.distance_far_thresh)
     method = cfg.downsample_method.upper()
     if method in ("VOXELGRID", "APPROX_VOXELGRID"):

@@ -60,10 +60,11 @@ def _loop_calls(device):
 
 
 def _odometry_calls(device, scans):
-    """K1, K3, K5, K6 once each."""
+    """K0a's band, K1, K3, K5, K6 once each."""
     (s0, s1), rel = scans
-    cloud = prefilter.distance_filter(PointCloud.from_numpy(s0, cap=16384, device=device), 0.5, 100.0)
-    out = [(
+    raw = PointCloud.from_numpy(s0, cap=16384, device=device)
+    cloud = prefilter.distance_filter(raw, 0.5, 100.0)
+    out = [("distance_filter", cloud, prefilter.distance_filter_ref(raw, 0.5, 100.0)), (
         "voxel_downsample",
         prefilter.voxel_downsample(cloud, 0.1, 16384),
         prefilter.voxel_downsample_ref(cloud, 0.1, 16384),
@@ -191,7 +192,7 @@ def _backend_calls(device, scans):
         pose_graph._chi2_and_normal(dg, dg.poses, True),
         pose_graph._chi2_and_normal_ref(dg, dg.poses, True),
     ))
-    band = prefilter.distance_filter(c0, 0.5, 100.0)
+    band = prefilter.distance_filter_ref(c0, 0.5, 100.0)
     out.append(("detect_floor", floor.detect_floor(band), floor.detect_floor_ref(band)))
     return out
 
@@ -300,7 +301,7 @@ def _registration_calls(device, scans):
     args = (grid, c1.masked_xyz(), c1.mask, t, 4.0)
     out.append(("nn_points", (icp.icp_step(*args), *icp.icp_fitness(*args)),
                 (icp.icp_step_ref(*args), *icp.icp_fitness_ref(*args))))
-    band = prefilter.distance_filter(c0, 0.5, 100.0)
+    band = prefilter.distance_filter_ref(c0, 0.5, 100.0)
     out.append(("radius_outlier_removal", nn.radius_outlier_removal(band, 0.5, 5),
                 nn.radius_outlier_removal_ref(band, 0.5, 5)))
     for mean_k in (30, 300):  # the threshold's variance far from 1 in one of them: std and variance differ
@@ -358,6 +359,7 @@ def test_registry_names_sources_and_replaced_functions():
         "window_group_fn", "detect_floor", "nn_points", "radius_outlier_removal", "statistical_outlier_removal",
         "vertical_angle_calibration", "_plane_covariances", "gicp_align", "filter_ground_leaves",
         "newton_step", "optimize_pose_graph", "knn_cell", "grid_fits", "newton_sums", "uniform_subsample",
+        "distance_filter",
     }
     for name, k in KERNELS.items():
         assert (REPO / k.source).is_file(), k.source
@@ -405,6 +407,10 @@ def test_kernels_match_plain_versions_on_the_card(cuda, scans):
     results = {name: (got, want) for name, got, want in _odometry_calls(cuda, scans)}
     torch.cuda.synchronize()
     assert {name: k.launches for name, k in KERNELS.items() if k.launches} == dict.fromkeys(results, 1)
+
+    got, want = results["distance_filter"]  # the same fma chain and root: every bit
+    assert torch.equal(got.mask, want.mask) and torch.equal(got.xyz.view(torch.int32), want.xyz.view(torch.int32))
+    assert 0 < int(got.mask.sum()) < int(PointCloud.from_numpy(scans[0][0], cap=16384).mask.sum())
 
     got, want = results["voxel_downsample"]
     assert torch.equal(got.mask, want.mask)  # lane order and mask identical
@@ -1053,10 +1059,10 @@ def _check_removal(pairs, scans):
 
 
 def _check_calibration(pairs, scans):
-    """K0a: the same fma chain and float32 sin / cos on both sides."""
+    """K0a: the same fma chain and float32 sin / cos on both sides: every bit."""
     ((got, want),) = pairs
     assert torch.equal(got.mask, want.mask)
-    torch.testing.assert_close(got.xyz, want.xyz, rtol=0, atol=1e-5)
+    assert torch.equal(got.xyz.view(torch.int32), want.xyz.view(torch.int32))
 
 
 def _check_plane_covariances(pairs, scans):
@@ -1103,6 +1109,74 @@ def test_registration_kernels_match_plain_versions_on_the_card(registration_resu
     by_name, launches = registration_results
     assert launches == REGISTRATION_LAUNCHES
     REGISTRATION_CHECKS[name](by_name[name], scans)
+
+
+@pytest.mark.gpu
+def test_prefilter_front_cases_on_the_card(cuda):
+    """K0a's three forms (the calibration, the band, both in one pass) bit
+    for bit their twins on `front_cases` (the band's edges, the z axis,
+    underflow, signed zeros, odd capacities) and on a slice one lane off the
+    16-byte boundary."""
+    cs = load_chip_smoke()
+    assert cs.check_front_cases(torch, cuda) == len(cs.front_cases())
+
+
+@pytest.mark.gpu
+def test_cos_reduced_is_cosf_on_the_card(cuda, tmp_path):
+    """Kernel 4's `lvs::cos_reduced` (csrc/linalg3.cuh: `cosf` without its
+    large-argument path) is `cosf` bit for bit on every float of |x| <=
+    105615 under the port's nvcc flags (`scripts/cos_reduced_check.cu`)."""
+    import ctypes
+    import subprocess
+
+    from lv_slam_tpu_torch.kernels._build import NVCC_FLAGS, _nvcc_path
+
+    lib = tmp_path / "libcos_reduced_check.so"
+    subprocess.run([_nvcc_path(), *NVCC_FLAGS, "-shared", "-I", str(REPO / "lv_slam_tpu_torch" / "csrc"), "-o",
+                    str(lib), str(REPO / "scripts" / "cos_reduced_check.cu")], check=True, capture_output=True)
+    fn = ctypes.CDLL(str(lib)).cos_reduced_mismatches
+    fn.argtypes, fn.restype = [ctypes.c_uint, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p], ctypes.c_int
+    bad = torch.zeros(1, dtype=torch.int64, device=cuda)
+    first = torch.zeros(16, dtype=torch.int32, device=cuda)
+    hi = int(np.float32(105615.0).view(np.uint32))
+    assert fn(hi, bad.data_ptr(), first.data_ptr(), torch.cuda.current_stream().cuda_stream) == 0
+    n = int(bad.item())
+    assert n == 0, f"{n} floats differ, first {first[:min(n, 16)].cpu().numpy().view(np.float32)}"
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("k", [8, 5])
+def test_plane_covariances_lane_test_on_the_card(cuda, k):
+    """K19a's lane-test call (`need`, K19b's test) bit for bit the every-lane
+    call on every needed lane and the identity elsewhere; the mask call's
+    ok flags and the lane-test call against their twins, as
+    `_check_plane_covariances` holds them."""
+    rng = np.random.default_rng(k)
+    n = 5000
+    centres = rng.uniform(-20.0, 20.0, (n, 1, 3))
+    flat = rng.normal(size=(n, k, 3)) * [1.0, 1.0, 0.02]
+    pts = torch.from_numpy((centres + flat).astype(np.float32)).to(cuda)
+    valid = torch.from_numpy(rng.random((n, k)) < 0.6).to(cuda)
+    src_ok, nn_valid = (torch.from_numpy(rng.random(n) < 0.7).to(cuda) for _ in range(2))
+    nn_dist = torch.from_numpy(rng.uniform(0.0, 3.0, n).astype(np.float32)).to(cuda)
+    need = gicp.LaneTest(src_ok, nn_valid, nn_dist, 2.0)
+    reset_launches()
+    got, ok = gicp.regularized_covariances(pts, valid, need=need)
+    every, _ = gicp.regularized_covariances(pts, valid)
+    masked, masked_ok = gicp.regularized_covariances(pts, valid, src_ok)
+    torch.cuda.synchronize()
+    assert ok is None and KERNELS["_plane_covariances"].launches == 3
+    lanes = need.lanes()
+    assert 0 < int(lanes.sum()) < n
+    assert torch.equal(got[lanes].view(torch.int32), every[lanes].view(torch.int32))
+    assert bool((got[~lanes] == torch.eye(3, device=cuda)).all())
+    want, _ = gicp.regularized_covariances_ref(pts, valid, need=need)
+    e = gicp.plane_covariance_error(got, want, pts, valid, lanes)
+    assert e.ok and e.n_gap > 0, e
+    want_masked, want_ok = gicp.regularized_covariances_ref(pts, valid, src_ok)
+    assert torch.equal(masked_ok, want_ok) and 0 < int(want_ok.sum()) < int(src_ok.sum())
+    assert gicp.plane_covariance_error(masked, want_masked, pts, valid, want_ok).ok
+    assert torch.equal(masked[want_ok].view(torch.int32), every[want_ok].view(torch.int32))
 
 
 # ------------------------------------------------------------ the device-side loops (K7, the LM)

@@ -182,6 +182,30 @@ def test_vertical_angle_calibration(angle):
     assert int((~got.mask).sum()) == 101
 
 
+@pytest.mark.parametrize("angle", [0.11, 1.7])
+def test_calibrated_band(angle):
+    """The prefilter's front with both stages on (`calibrated_band`: on the
+    card one launch of kernel 0a, here the twins composed) against JAX's
+    `distance_filter(vertical_angle_calibration(c, a), 0.5, 100)`, bit for
+    bit in xyz and mask, where the calibrated |p| lies within ulps of either
+    band edge, on and near the z axis, on padding and on a NaN row."""
+    pts = np.concatenate([_calibration_points(seed=12, n=20000), _band_edge_points(0.5, 20000, 3),
+                          _band_edge_points(100.0, 20000, 4)])
+    cap = len(pts) + 100
+    want = jax.jit(lambda c: jpf.distance_filter(jpf.vertical_angle_calibration(c, angle), 0.5, 100.0))(
+        JCloud.from_numpy(pts, cap=cap))
+    got = tpf.calibrated_band(TCloud.from_numpy(pts, cap=cap, device="cpu"), angle, 0.5, 100.0)
+    np.testing.assert_array_equal(got.mask.numpy(), np.asarray(want.mask))
+    np.testing.assert_array_equal(got.xyz.numpy(), np.asarray(want.xyz))
+    np.testing.assert_array_equal(got.intensity.numpy(), np.asarray(want.intensity))
+    for edge in (slice(-40000, -20000), slice(-20000, None)):  # both edges split their clouds
+        assert 0 < int(got.mask[:len(pts)][edge].sum()) < 20000
+    cfg = tc.PrefilterConfig(use_angle_calibration=True, angle_base=angle, downsample_method="NONE", raw_cap=cap,
+                             out_cap=cap)
+    chain = tpf.prefilter(TCloud.from_numpy(pts, cap=cap, device="cpu"), cfg)
+    np.testing.assert_array_equal(chain.mask.numpy(), got.compact(cap).mask.numpy())
+
+
 def test_angle_calibration_rotates_up():
     """`tests/test_io.py:69` on the port: range kept, elevation up 0.11 degrees."""
     pts = np.array([[10.0, 0.0, 0.0], [0.0, 10.0, -1.0]], np.float32)

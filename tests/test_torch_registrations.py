@@ -256,3 +256,48 @@ def test_plane_covariances_match_jax(reg_pair):
     assert e.ok and e.n_gap > 10000, e
     np.testing.assert_array_equal(got.numpy()[~want_ok], np.broadcast_to(np.eye(3, dtype=np.float32),
                                                                           ((~want_ok).sum(), 3, 3)))
+
+
+def _jax_target_covariances(nn_nbrs, nn_valid):
+    """The reference's target covariances from the matches' neighbourhoods:
+    the lines of `lv_slam_tpu/ops/gicp.py:71-83`, which it computes inside its
+    loop body on every lane."""
+    wn = nn_valid.astype(jnp.float32)
+    cntn = jnp.maximum(jnp.sum(wn, 1), 1.0)
+    mun = jnp.sum(nn_nbrs * wn[..., None], 1) / cntn[:, None]
+    cn = (nn_nbrs - mun[:, None, :]) * wn[..., None]
+    covn = jnp.einsum("nki,nkj->nij", cn, cn) / cntn[:, None, None]
+    _, evecs = jeigh(covn + 1e-9 * jnp.eye(3))
+    return jnp.einsum("nij,j,nkj->nik", evecs, jnp.array([1e-3, 1.0, 1.0], jnp.float32), evecs)
+
+
+@pytest.mark.parametrize("max_dist", [2.0, 0.3])
+def test_target_covariances_on_the_needed_lanes(reg_pair, max_dist):
+    """Kernel 19a's lane-test call (`need`, as `gicp_align` makes it for the
+    target's covariances at the matches of the moved source) against the
+    reference's target formulas on the same neighbourhoods: on the lanes
+    that pass K19b's test, within the reference's one-ulp envelope as
+    `test_plane_covariances_match_jax` holds them; the identity elsewhere."""
+    _, (tt, ts) = _clouds(reg_pair)
+    src, mask = ts.masked_xyz(), ts.mask
+    _, src_ok = gicp._plane_covariances(src, mask, knn.build_grid(src, mask, 1.0), 8)
+    tgt_grid = knn.build_grid(tt.masked_xyz(), tt.mask, 1.0)
+    y = se3.transform_points_fma(torch.from_numpy(reg_pair[3]), src)
+    dists, pts, valid = knn.knn(tgt_grid, y, 1)
+    _, nbrs, nbr_valid = knn.knn(tgt_grid, pts[:, 0].contiguous(), 8)
+    need = gicp.LaneTest(mask & src_ok, valid[:, 0], dists[:, 0], max_dist)
+    got, ok = gicp.regularized_covariances(nbrs, nbr_valid, need=need)
+    assert ok is None
+    want = torch.from_numpy(np.asarray(jax.jit(_jax_target_covariances)(jnp.asarray(nbrs.numpy()),
+                                                                          jnp.asarray(nbr_valid.numpy()))))
+    lanes = need.lanes()
+    assert 1000 < int(lanes.sum()) < int((mask & src_ok).sum())
+    e = gicp.plane_covariance_error(got, want, nbrs, nbr_valid, lanes)
+    assert e.ok and e.n_gap > 1000, e
+    np.testing.assert_array_equal(got[~lanes].numpy(), np.broadcast_to(np.eye(3, dtype=np.float32),
+                                                                       (int((~lanes).sum()), 3, 3)))
+    # the needed lanes are the unmasked call's, bit for bit
+    every, _ = gicp.regularized_covariances(nbrs, nbr_valid)
+    np.testing.assert_array_equal(got[lanes].numpy(), every[lanes].numpy())
+    with pytest.raises(ValueError):
+        gicp.regularized_covariances(nbrs, nbr_valid, mask, need)
