@@ -256,7 +256,9 @@ two 131072-lane grids at 1 m (its key sort's route; the target's timed), K9k's
 `knn` at GICP's three calls (a thread a query over a sample of the keys), K19a's
 covariances (the source's, and the target's on K19b's lanes, timed beside
 the same call on every lane) and K19b's normal equations on scan 41's 131072
-lanes against scan 40 at phase 10's guess, K18's two removals and K20 on
+lanes against scan 40 at phase 10's guess (then `gicp_cases`: one lane, a
+partial tile, no lane matched, 257 and 1172 tiles, each one launch and the
+same bits twice), K18's two removals and K20 on
 scan 40, K0a's prefilter front (the calibration of raw scan 40, the main
 path's band on raw scan 0, both in one pass; bit for bit their twins there
 and on `front_cases`; the band's torch chain timed beside it), against its plain version at the shapes phases 5-10 give
@@ -286,9 +288,15 @@ iteration takes, counted from a trace. Phase
 2j holds K9n (`knn_cell`, the k nearest of a cell table's 8-cell probe) on
 the flagship LFA's world maps with scan 4's sharp and flat features, and
 K10g (the line / plane fits' KnnGrid branch) on scan 3's grids with the
-same queries, against their plain versions: K9n identical, K10g's
-decisions identical and its fitted floats judged as `ops/gicp.py` judges
-plane covariances (`registration.grid_fit_error`).
+same queries (a warp a query) and with 16384 and more copies of them moved
+by a few cm (a thread a query), against their plain versions: K9n
+identical, K10g's decisions identical and its fitted floats judged as
+`ops/gicp.py` judges plane covariances (`registration.grid_fit_error`).
+The case lists of K1 / K1b, K3, K14, K6L / K6G and K9g / K9k each end with
+a case of coordinates that the reference flushes (`TINY`: subnormals of
+both signs and -2e-38, whose product with a reciprocal below 1 is
+subnormal), held bit for bit to the twins, which follow the reference's
+cell rule (`ops/cells.py`).
 
 The last lines are the kernels' JSON record (each kernel's launches are
 counted on the run of the path that drives it: phase 5 for the lidar
@@ -419,13 +427,13 @@ DEVICE_FUNCTIONS = {
     "vertical_angle_calibration": ("prefilter_front",),
     "distance_filter": ("prefilter_front",),
     "_plane_covariances": ("plane_cov",),
-    "gicp_align": ("gicp_normal", "gicp_finish"),
+    "gicp_align": ("gicp_normal",),
     "filter_ground_leaves": ("ground_filter",),
     "newton_step": ("newton_step",),
     "newton_sums": ("newton_sums",),
     "optimize_pose_graph": ("lm_damp", "lm_step", "lm_accept"),
     "knn_cell": ("knn_cell_query",),
-    "grid_fits": ("grid_lines", "grid_planes"),
+    "grid_fits": ("grid_fit",),
 }
 
 
@@ -678,7 +686,41 @@ def measure(torch, records, name, kernel_fn, plain_fn, err, n_bytes, n_ops):
 
 SORT_LANES = 1 << 17  # K1's edge cases: phase 2's lane count
 SORT_CASE_NAMES = ("every lane masked", "one voxel holding every point", "clip range, both signs of kx",
-                   "out_cap below the runs", "APPROX_VOXELGRID", "out_cap above the lanes", "1025 lanes")
+                   "out_cap below the runs", "APPROX_VOXELGRID", "out_cap above the lanes", "1025 lanes",
+                   "subnormal coordinates at 2 m")
+
+
+# Coordinates that the reference's compiled programs flush to zero (XLA's CPU
+# code and the TPU): negative and positive subnormals, the least ones, and
+# normal values whose product with a reciprocal below 1 is subnormal
+# (-2e-38 at 2 m: -1e-38; at 4 m: -5e-39), with -0. The port's cell rule
+# (`ops/cells.py`, `lvs::cell_floor`) puts them in cell 0, as the reference.
+TINY = np.array([-1e-40, 1e-40, -1.4e-45, 1.4e-45, -1.1e-38, -2e-38, 2e-38, -0.0], np.float32)
+
+
+def _tiny_scene(rng, n: int, res: float, span: int = 3, gap: int = 1, companions: int = 3) -> np.ndarray:
+    """(n, 3) points in cells -span..span - 1 of `res` on each axis, where
+    groups of points hold a point with one coordinate from TINY and
+    `companions` points beside it in the same cell but for that axis's
+    coordinate, a normal one in cell 0. So each cell that holds a tiny
+    coordinate holds normal ones on that axis too: the reference's sums
+    flush a subnormal addend (the port's do not), and a cell of subnormal
+    coordinates alone would average to a subnormal in the port and to 0 in
+    the reference. The groups of one axis lie `gap` cells apart on the other
+    two, so no two of their tiny points meet (the reference flushes their
+    difference too); up to a quarter of the points are in groups."""
+    lattice = np.arange(-span, span, gap)
+    plane = np.stack(np.meshgrid(lattice, lattice, indexing="ij"), -1).reshape(-1, 2)
+    orders = [rng.permutation(len(plane)) for _ in range(3)]  # each axis's groups over the plane's cells
+    pts = rng.uniform(-span * res, span * res, (n, 3))
+    for g in range(min(n // (4 * (companions + 1)), 3 * len(plane))):
+        axis = g % 3
+        cell = np.insert(plane[orders[axis][g // 3]], axis, 0)
+        group = (cell + rng.uniform(0.2, 0.8, 3)) * res + rng.normal(0.0, 0.05 * res, (companions + 1, 3))
+        group[0, axis] = TINY[g % len(TINY)]
+        group[1:, axis] = rng.uniform(0.1, 0.9, companions) * res
+        pts[g * (companions + 1):(g + 1) * (companions + 1)] = group
+    return pts.astype(np.float32)
 
 
 def _voxel_scene(rng, n: int) -> np.ndarray:
@@ -700,7 +742,9 @@ def sort_cases(seed: int = SEED):
     ~61-bit key moves, 8 passes), with masked lanes holding NaN and
     unmasked lanes at kx >= 2^30, which the twin's key counts as masked;
     out_cap below the number of runs; APPROX_VOXELGRID; out_cap above the
-    lane count; a few lanes past a tile (1025)."""
+    lane count; a few lanes past a tile (1025); coordinates the reference
+    flushes (`TINY`: subnormal ones, and -2e-38, whose product with 1/2 m is
+    subnormal) in 2 m voxels about the origin."""
     rng = np.random.default_rng(seed)
     n = SORT_LANES
     out = [("every lane masked", _voxel_scene(rng, n), np.zeros(n, bool), 0.1, n, "VOXELGRID")]
@@ -722,6 +766,8 @@ def sort_cases(seed: int = SEED):
     out.append(("out_cap above the lanes", _voxel_scene(rng, 16384), np.ones(16384, bool), 0.1, 32768,
                 "VOXELGRID"))
     out.append(("1025 lanes", _voxel_scene(rng, 1025), np.ones(1025, bool), 0.05, 1025, "APPROX_VOXELGRID"))
+    tiny = np.concatenate([_tiny_scene(rng, 1 << 14, 2.0), rng.uniform(0.0, 1.0, (1 << 14, 1))], 1).astype(np.float32)
+    out.append(("subnormal coordinates at 2 m", tiny, rng.random(1 << 14) >= 0.05, 2.0, 1 << 14, "VOXELGRID"))
     assert tuple(name for name, *_ in out) == SORT_CASE_NAMES
     return out
 
@@ -787,7 +833,8 @@ def check_dedup_cases(torch, dev):
 MAP_LANES = 1 << 14  # K3's edge cases
 MAP_CASE_NAMES = ("every lane masked", "one voxel holding every lane", "lanes out of extent",
                   "more runs than leaf_cap", "min_points and min_points - 1", "collinear and coplanar voxels",
-                  "NaN on masked lanes", "weighted", "unweighted", "1025 lanes", "e = 64")
+                  "NaN on masked lanes", "weighted", "unweighted", "1025 lanes", "e = 64",
+                  "subnormal coordinates at 4 m")
 
 
 def _blobs(rng, n: int, span: float, spread: float = 0.12) -> np.ndarray:
@@ -809,7 +856,8 @@ def map_cases(seed: int = SEED):
     exactly 6 and 5 points; points exactly on lines and on planes (a
     degenerate pair and a zero eigenvalue, floored by the inflation);
     masked lanes holding NaN; a weighted and an unweighted scene; 1025
-    lanes at 0.5 m; the 64-cell extent of `entry.py`'s maps."""
+    lanes at 0.5 m; the 64-cell extent of `entry.py`'s maps; coordinates
+    the reference flushes (`TINY`) among 4 m voxels about the origin."""
     rng = np.random.default_rng(seed)
     n = MAP_LANES
     scene = _blobs(rng, n, 60.0)
@@ -842,6 +890,7 @@ def map_cases(seed: int = SEED):
     out.append(("unweighted", scene, np.ones(n, bool), 1.0, 4096, 256, False))
     out.append(("1025 lanes", _blobs(rng, 1025, 20.0, spread=0.06), np.ones(1025, bool), 0.5, 512, 256, True))
     out.append(("e = 64", _blobs(rng, n, 50.0), np.ones(n, bool), 1.0, 4096, 64, True))
+    out.append(("subnormal coordinates at 4 m", _tiny_scene(rng, n, 4.0), np.ones(n, bool), 4.0, 4096, 256, True))
     assert tuple(name for name, *_ in out) == MAP_CASE_NAMES
     return out
 
@@ -920,7 +969,7 @@ GRID_LANES = 1 << 14  # K14's edge cases
 GRID_RES = 0.25       # the fitness grid's cells
 GRID_CASE_NAMES = ("empty cloud (every lane the sentinel)", "every lane masked", "leaf_cap below the runs",
                    "one ulp either side of cell faces", "cells at the 1024 extent's edges", "one cell holding every point",
-                   "sentinel lanes among real points")
+                   "sentinel lanes among real points", "subnormal coordinates")
 
 
 def _extent_edges(rng, n: int, res: float) -> tuple:
@@ -950,8 +999,10 @@ def grid_cases(seed: int = SEED):
     each axis and at 1024 (dropped), queried in and around them, so that
     column searches meet z = 0 and z = 1023; one cell holding all 16384
     lanes (one run across 16 tiles); half the lanes masked at the sentinel
-    among real points, which must not move the origin. Queries are the
-    cloud's points moved by ~0.15 m, and a scene's for the empty grids."""
+    among real points, which must not move the origin; coordinates the
+    reference flushes (`TINY`) in cells about the origin, queried at such
+    coordinates too. Queries are the cloud's points moved by ~0.15 m, and a
+    scene's for the empty grids."""
     rng = np.random.default_rng(seed)
     n, res = GRID_LANES, GRID_RES
     scene = _blobs(rng, n, 40.0, spread=0.6)
@@ -975,6 +1026,11 @@ def grid_cases(seed: int = SEED):
     half = rng.random(n) >= 0.5
     mixed = np.where(half[:, None], scene, sentinel).astype(np.float32)
     out.append(("sentinel lanes among real points", mixed, half, 8192, jitter, every))
+    tiny = _tiny_scene(rng, n, res, span=12, gap=3)
+    near = (tiny + rng.normal(0.0, 0.1, (n, 3))).astype(np.float32)
+    at = rng.random((n, 3)) < 0.1
+    near[at] = rng.choice(TINY, int(at.sum()))  # queries at flushed coordinates
+    out.append(("subnormal coordinates", tiny, every, 8192, near, every))
     assert tuple(name for name, *_ in out) == GRID_CASE_NAMES
     return out
 
@@ -1380,7 +1436,8 @@ LUT_CASE_NAMES = ("points within an ulp of a cell face, DIRECT1, weighted",
                   "valid lanes ending mid-row, DIRECT7, weighted",
                   "masked, sentinel and gate-rejected lanes, DIRECT1, weighted",
                   "a finished candidate (done), DIRECT7", "DIRECT26, weighted",
-                  "131073 lanes, more rows than resident blocks, DIRECT7")
+                  "131073 lanes, more rows than resident blocks, DIRECT7",
+                  "subnormal coordinates at 4 m, DIRECT7, weighted")
 
 
 def _lut_of(means: np.ndarray, valid: np.ndarray, res: float, origin: np.ndarray, e: int) -> np.ndarray:
@@ -1410,7 +1467,9 @@ def lut_cases(seed: int = SEED):
     middle of a row (K21's front-compacted mask: the rows after it hold no
     valid lane); masked lanes, lanes at the sentinel (masked and not) and
     lanes the gate rejects (d2 = 1.5); a finished candidate; DIRECT26; and
-    131073 lanes, more rows than the card holds blocks of the pass at once."""
+    131073 lanes, more rows than the card holds blocks of the pass at once;
+    coordinates the reference flushes (`TINY`) about the origin of a 4 m
+    map, under the identity, with leaves in the cells either side of 0."""
     rng = np.random.default_rng(seed + 24)
     e, origin = 64, np.array([-32, -32, -32], np.int32)
 
@@ -1487,6 +1546,13 @@ def lut_cases(seed: int = SEED):
     # 131073 lanes: 513 rows of 256
     out.append(case(LUT_CASE_NAMES[8], means, icovs, weights, valid, 1.0, origin, e, _near(rng, means, 131073, 0.4),
                     rng.random(131073) > 0.2, moved(), "DIRECT7", False))
+    # the cell rule's flushes: at 4 m, -2e-38 / 4 is subnormal too
+    means, icovs, weights = _pd_leaves(rng, cells(200, -3, 3), 4.0, origin)
+    pts = _near(rng, means, 4096, 1.0)
+    at = rng.random(pts.shape) < 0.3
+    pts[at] = rng.choice(TINY, int(at.sum()))
+    out.append(case(LUT_CASE_NAMES[9], means, icovs, weights, np.ones(200, bool), 4.0, origin, e, pts,
+                    np.ones(4096, bool), np.eye(4, dtype=np.float32), "DIRECT7", True))
     assert tuple(c["name"] for c in out) == LUT_CASE_NAMES
     return out
 
@@ -3109,7 +3175,7 @@ KNN_CASE_NAMES = ("points mirrored about a query", "duplicated points", "a cell 
                   "sampled search (22000 lanes)", "the gates at d0^2 = 25 and norm = 1e-3",
                   "16384 queries, a thread each", "16384 queries on the sampled grid",
                   "131072 lanes, masked and out-of-extent lanes among valid ones", "three fields of 16 bits",
-                  "a span past 2^31 cells")
+                  "a span past 2^31 cells", "subnormal coordinates")
 GRID_SORT_LANES = 1 << 17  # K9g's largest knn_cases grid: GICP's lane count, the key sort's route
 
 
@@ -3159,7 +3225,10 @@ def knn_cases(seed: int = SEED):
     packed key's three fields 6 + 5 + 5 = 16 bits: two digit passes, the
     edge of the pass count); and lanes 3e9 m either side of 0 (cells
     1.5e9 either side of the origin's: a span past 2^31 - 1 cells, whose
-    offset wraps negative in int32 and leaves the extent as in int64)."""
+    offset wraps negative in int32 and leaves the extent as in int64);
+    coordinates the reference flushes (`TINY`) in cells about the origin,
+    in the grid (each beside normal points of its cell, groups apart) and
+    in the queries."""
     rng = np.random.default_rng(seed)
     out = []
 
@@ -3235,6 +3304,17 @@ def knn_cases(seed: int = SEED):
     wide = np.concatenate([np.c_[np.full(60, -3.0e9), rng.uniform(0.0, 40.0, (60, 2))],
                            np.c_[np.full(60, 3.0e9), rng.uniform(0.0, 40.0, (60, 2))]])[rng.permutation(120)]
     out.append((wide, np.ones(120, bool), np.c_[np.full(40, -3.0e9), rng.uniform(-2.0, 42.0, (40, 2))]))
+
+    # queries at a group's flushed point, on its axis at another flushed
+    # coordinate (its nearest: that point and normal ones; two flushed
+    # coordinates of one axis never meet in a line's or plane's difference,
+    # which the reference flushes too), and near other points
+    pts = _tiny_scene(rng, 2400, KNN_CELL, span=6, gap=3)
+    heads = np.arange(64) * 4
+    queries = pts[heads] + rng.normal(0.0, 0.3, (64, 3))
+    queries[np.arange(64), np.arange(64) % 3] = rng.choice(TINY, 64)
+    queries = np.concatenate([queries, pts[rng.choice(len(pts), 236, replace=False)] + rng.normal(0.0, 0.3, (236, 3))])
+    out.append((pts, np.ones(len(pts), bool), queries))
 
     cases = []
     for name, (pts, mask, queries) in zip(KNN_CASE_NAMES, out):
@@ -3658,6 +3738,27 @@ def check_cell_knn_kernels(torch, scans, gt, dev):
         if envelope > PLANE_ENVELOPE:
             raise AssertionError(f"grid fits ({name}): difference x gap {envelope} > {PLANE_ENVELOPE}")
         fits[name] = (got, diff)
+    # the thread-a-query route: past KNN_THREAD_QUERIES queries, the same
+    # queries over again, each copy moved by a few cm
+    reps = -(-(KNN_THREAD_QUERIES + 1) // ye.shape[0])
+    for name, fn, ref, y, m, grid in (
+        ("lines", registration.lines_from_fit, registration.lines_from_fit_ref, ye, f4.sharp_mask, grids["edge"]),
+        ("planes", registration.planes_from_fit, registration.planes_from_fit_ref, ys, f4.flat_mask, grids["surf"]),
+    ):
+        gen = torch.Generator(device=dev).manual_seed(SEED)
+        yb = (y.repeat(reps, 1) + 0.03 * torch.randn((reps * y.shape[0], 3), generator=gen, device=dev)).contiguous()
+        mb = m.repeat(reps).contiguous()
+        got, want = fn(yb, mb, grid, k), ref(yb, mb, grid, k)
+        torch.cuda.synchronize()
+        if not torch.equal(got.valid, want.valid):
+            raise AssertionError(f"grid fits ({name}, {yb.shape[0]} queries): "
+                                 f"{int((got.valid != want.valid).sum())} decisions differ")
+        diff, envelope, n, _ = registration.grid_fit_error(got, want, yb, grid, k)
+        log(f"  grid fits, {name}, {yb.shape[0]} queries (a thread a query): {int(got.valid.sum())} accepted, "
+            f"decisions identical; max diff {diff:.3g}, times the gap {envelope:.3g} over {n} (tol {PLANE_ENVELOPE})")
+        if envelope > PLANE_ENVELOPE or not all(bool(torch.isfinite(a).all()) for a in got[:2]):
+            raise AssertionError(f"grid fits ({name}, {yb.shape[0]} queries): difference x gap {envelope} > "
+                                 f"{PLANE_ENVELOPE}, or non-finite fitted floats")
     launches = {name: KERNELS[name].launches for name in ("knn_cell", "grid_fits")}
     log(f"  launches of the checks: {launches}")
 
@@ -5789,6 +5890,74 @@ def front_cases(seed: int = SEED):
     ]
 
 
+GICP_CASE_NAMES = ("one lane", "257 lanes (a partial tile)", "no lane matched", "every lane matched, 65537 lanes",
+                   "a third matched, 300000 lanes (1172 tiles, the finish's five rounds)")
+
+
+def gicp_cases(seed: int = SEED):
+    """K19b's edge cases as numpy arrays: (name, src (n, 3), src_ok (n,),
+    cov_a (n, 3, 3), nn (n, 3), nn_dist (n,), nn_valid (n,), cov_b
+    (n, 3, 3), transform (4, 4)) with max_dist 2: one lane; a partial last
+    tile; no lane within the distance (every tile dead: zero sums); every
+    lane matched over 257 tiles (more than the finishing block stages at
+    once); a third matched over 300000 lanes, spread over every tile. The
+    covariances are plane-shaped (eigenvalues 1e-3, 1, 1, random frames),
+    as K19a makes them."""
+    rng = np.random.default_rng(seed + 26)
+
+    def planes(n):
+        q, _ = np.linalg.qr(rng.normal(size=(n, 3, 3)))
+        return (q * np.float32([1e-3, 1.0, 1.0])[None, None]) @ q.transpose(0, 2, 1)
+
+    def case(name, n, share):  # `share` of the lanes matched within the distance; 1.0: every lane ok too
+        src = rng.uniform(-40.0, 40.0, (n, 3))
+        nn = src + rng.normal(0.0, 0.3, (n, 3))
+        dist = np.where(rng.random(n) < share, rng.uniform(0.0, 1.9, n), rng.uniform(2.0, 9.0, n))
+        ok = np.ones(n, bool) if share == 1.0 else rng.random(n) < 0.95
+        valid = np.ones(n, bool) if share == 1.0 else rng.random(n) < 0.97
+        t = np.eye(4)
+        c, s = np.cos(0.02), np.sin(0.02)
+        t[:2, :2] = [[c, -s], [s, c]]
+        t[:3, 3] = [0.3, -0.2, 0.05]
+        f32 = lambda a: a.astype(np.float32)  # noqa: E731
+        return name, f32(src), ok, f32(planes(n)), f32(nn), f32(dist), valid, f32(planes(n)), f32(t)
+
+    out = [case(GICP_CASE_NAMES[0], 1, 1.0), case(GICP_CASE_NAMES[1], 257, 0.5), case(GICP_CASE_NAMES[2], 4096, 0.0),
+           case(GICP_CASE_NAMES[3], 65537, 1.0), case(GICP_CASE_NAMES[4], 300000, 0.33)]
+    assert tuple(c[0] for c in out) == GICP_CASE_NAMES
+    return out
+
+
+def check_gicp_cases(torch, dev) -> int:
+    """K19b (`gicp_normal_equations`) on every `gicp_cases` entry: one
+    launch and no synchronizing call or other device work a call, a second
+    call the same bits, H and g within 1e-5 of their scale of the twin's on
+    the card and on a CPU copy (exact zeros where no lane is matched).
+    Returns the number of cases."""
+    from lv_slam_tpu_torch.ops import gicp
+
+    cases = gicp_cases()
+    for name, *arrays in cases:
+        cpu = [torch.from_numpy(a) for a in arrays]
+        card = [a.to(dev) for a in cpu]
+        fn = lambda: gicp.gicp_normal_equations(*card[:3], card[7], *card[3:7], 2.0)  # noqa: E731
+        n_launches = one_call(torch, "gicp_align", fn)
+        (h, g), (h2, g2) = fn(), fn()
+        if n_launches != 1 or not all(torch.equal(a.view(torch.int32), b.view(torch.int32))
+                                      for a, b in ((h, h2), (g, g2))):
+            raise AssertionError(f"gicp_align ({name}): {n_launches} launches a call, or a second call's other bits")
+        for where, args in (("on the card", card), ("on the CPU", cpu)):
+            hw, gw = gicp.gicp_normal_equations_ref(*args[:3], args[7], *args[3:7], 2.0)
+            for what, a, b in (("H", h, hw), ("g", g, gw)):
+                a, b = a.cpu(), b.cpu()
+                scale = float(b.abs().max())
+                err = float((a - b).abs().max())
+                if (scale == 0.0 and err != 0.0) or err > 1e-5 * scale:
+                    raise AssertionError(f"gicp_align ({name}): {what} {err} from the twin {where} (scale {scale})")
+    log(f"  gicp_cases: {len(cases)} cases, each one launch, the same bits twice, within 1e-5 of the twins")
+    return len(cases)
+
+
 def check_front_cases(torch, dev) -> int:
     """Every `front_cases` entry through each form of the prefilter's front
     (the calibration at FRONT_ANGLES, the band, both), bit for bit its twins
@@ -6064,6 +6233,7 @@ def check_registration_kernels(torch, scans, gt, dev):
         f"scale (tol 1e-5)")
     if eh > 1e-5 or eg > 1e-5:
         raise AssertionError("gicp_align's normal equations depart from the plain version")
+    check_gicp_cases(torch, dev)
     # bytes: the ok flag of every lane, the match's flag where ok and its
     # distance where matched, 96 bytes of a lane within the distance (its
     # point, its match, both covariances), the transform's 3x4, H and g out

@@ -142,13 +142,13 @@ __global__ void insert_keys(const float* __restrict__ xyz, const bool* __restric
   int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= n) return;
   float x = xyz[3 * i + 0], y = xyz[3 * i + 1], z = xyz[3 * i + 2];
-  int vx = static_cast<int>(floorf(x * inv_res));
-  int vy = static_cast<int>(floorf(y * inv_res));
-  int vz = static_cast<int>(floorf(z * inv_res));
+  int vx = lvs::cell_floor(x, inv_res);
+  int vy = lvs::cell_floor(y, inv_res);
+  int vz = lvs::cell_floor(z, inv_res);
   int b = n_buckets;
   if (mask[i]) {
-    b = bucket_of(static_cast<int>(floorf(x / cell_size)), static_cast<int>(floorf(y / cell_size)),
-                  static_cast<int>(floorf(z / cell_size)), n_buckets);
+    b = bucket_of(lvs::cell_floor_div(x, cell_size), lvs::cell_floor_div(y, cell_size),
+                  lvs::cell_floor_div(z, cell_size), n_buckets);
   } else {
     vx = 1 << 30;
   }
@@ -176,9 +176,8 @@ __global__ void insert_keep(const long long* __restrict__ skhi, const long long*
     bool dup = false;
     for (int s = 0; s < slots; ++s) {
       if (row[4 * s + 3] > 0.5f) {
-        dup |= static_cast<int>(floorf(row[4 * s + 0] * inv_res)) == vx &&
-               static_cast<int>(floorf(row[4 * s + 1] * inv_res)) == vy &&
-               static_cast<int>(floorf(row[4 * s + 2] * inv_res)) == vz;
+        dup |= lvs::cell_floor(row[4 * s + 0], inv_res) == vx && lvs::cell_floor(row[4 * s + 1], inv_res) == vy &&
+               lvs::cell_floor(row[4 * s + 2], inv_res) == vz;
       } else {
         free_bits |= 1 << s;
       }
@@ -388,9 +387,8 @@ __device__ void keep_and_place(const float* __restrict__ xyz, int n, int n_bucke
     for (int u = 0; u < 4; ++u) {
       const int i = first_row + u * per_pass + g;
       const bool act = i < n_need && slot < slots, occupied = act && s[u].w > 0.5f;
-      const bool same = occupied && static_cast<int>(floorf(s[u].x * inv_res)) == c[u].y &&
-                        static_cast<int>(floorf(s[u].y * inv_res)) == c[u].z &&
-                        static_cast<int>(floorf(s[u].z * inv_res)) == c[u].w;
+      const bool same = occupied && lvs::cell_floor(s[u].x, inv_res) == c[u].y &&
+                        lvs::cell_floor(s[u].y, inv_res) == c[u].z && lvs::cell_floor(s[u].z, inv_res) == c[u].w;
       const unsigned dups = __ballot_sync(0xffffffffu, same), frees = __ballot_sync(0xffffffffu, act && !occupied);
       if (slot == 0 && i < n_need) {
         sh.check_dup[warp][i] = (dups >> (g * group) & group_bits) != 0;
@@ -487,13 +485,13 @@ insert_cluster(const float* __restrict__ xyz, const bool* __restrict__ mask, int
         (__float_as_uint(cell_size) & 0x807fffffu) == 0 && cell_size >= 1.17549435e-38f && isfinite(cell_size);
     const float inv_cell = 1.0f / cell_size;
     const auto cell = [&](float a) {
-      return static_cast<unsigned>(static_cast<int>(floorf(cell_pow2 ? a * inv_cell : a / cell_size)));
+      return static_cast<unsigned>(cell_pow2 ? lvs::cell_floor(a, inv_cell) : lvs::cell_floor_div(a, cell_size));
     };
     const float x = xyz[3 * p + 0], y = xyz[3 * p + 1], z = xyz[3 * p + 2];
     valid = mask[p];
-    vx = valid ? static_cast<int>(floorf(x * inv_res)) : 1 << 30;
-    cy = min(max(static_cast<int>(floorf(y * inv_res)) + kYZOff, 0), kYZLim);
-    cz = min(max(static_cast<int>(floorf(z * inv_res)) + kYZOff, 0), kYZLim);
+    vx = valid ? lvs::cell_floor(x, inv_res) : 1 << 30;
+    cy = min(max(lvs::cell_floor(y, inv_res) + kYZOff, 0), kYZLim);
+    cz = min(max(lvs::cell_floor(z, inv_res) + kYZOff, 0), kYZLim);
     if (valid) {
       const unsigned h = (cell(x) * kH1) ^ (cell(y) * kH2) ^ (cell(z) * kH3);  // bucket_of
       const u64 mod_m = ~0ull / static_cast<unsigned>(n_buckets) + 1;
@@ -663,8 +661,8 @@ table_count(const float* __restrict__ xyz, const bool* __restrict__ mask, int n,
     unsigned long long key = ks::kInvalidKey;
     const float x = xyz[3 * i + 0], y = xyz[3 * i + 1], z = xyz[3 * i + 2];  // read with the mask, not after it
     if (mask[i]) {
-      const int b = bucket_of(static_cast<int>(floorf(x * inv_cell)), static_cast<int>(floorf(y * inv_cell)),
-                              static_cast<int>(floorf(z * inv_cell)), n_buckets);
+      const int b = bucket_of(lvs::cell_floor(x, inv_cell), lvs::cell_floor(y, inv_cell), lvs::cell_floor(z, inv_cell),
+                              n_buckets);
       key = static_cast<unsigned long long>(b);
       ks::count_digits(digits, key, n_passes);
       atomicAdd(counts + b, 1u);
@@ -721,9 +719,9 @@ knn_cell_query(const float* __restrict__ table, int n_buckets, int slots, float 
   const float qx = queries[3 * t + 0], qy = queries[3 * t + 1], qz = queries[3 * t + 2];
   if (lane < 8) {
     const float half = cs / 2.0f;
-    s_bucket[warp][lane] = bucket_of(static_cast<int>(floorf((qx - half) / cs)) + (lane >> 2),
-                                     static_cast<int>(floorf((qy - half) / cs)) + ((lane >> 1) & 1),
-                                     static_cast<int>(floorf((qz - half) / cs)) + (lane & 1), n_buckets);
+    s_bucket[warp][lane] = bucket_of(lvs::cell_floor_div(qx - half, cs) + (lane >> 2),
+                                     lvs::cell_floor_div(qy - half, cs) + ((lane >> 1) & 1),
+                                     lvs::cell_floor_div(qz - half, cs) + (lane & 1), n_buckets);
   }
   __syncwarp();
   if (lane < 8) {

@@ -252,7 +252,7 @@ using lvs::warp_sum;
 
 __device__ __forceinline__ void cell_of(const float* y, float inv_res, const int* __restrict__ origin, int cell[3]) {
 #pragma unroll
-  for (int r = 0; r < 3; ++r) cell[r] = static_cast<int>(floorf(y[r] * inv_res)) - origin[r];
+  for (int r = 0; r < 3; ++r) cell[r] = lvs::cell_floor(y[r], inv_res) - origin[r];
 }
 
 // Tile b of candidate c covers its points b*256 ..; a block stages the

@@ -4,6 +4,7 @@
 #pragma once
 
 #include <cuda_runtime.h>
+#include <float.h>
 #include <stdint.h>
 
 namespace lvs {
@@ -25,6 +26,23 @@ __device__ __forceinline__ float fma64(float a, float b, float c) {
 // fma(a2, b2, fma(a1, b1, a0 * b0)): XLA's CPU form of a 3-term dot
 __device__ __forceinline__ float dot3_fma(float a0, float a1, float a2, float b0, float b1, float b2) {
   return fma64(a2, b2, fma64(a1, b1, __fmul_rn(a0, b0)));
+}
+
+// v as the reference's compiled programs see it: a subnormal (|v| <
+// FLT_MIN) flushed to +0, as XLA's CPU code and the TPU flush it. NaN and
+// the infinities pass.
+__device__ __forceinline__ float ftz(float v) { return fabsf(v) < FLT_MIN ? 0.0f : v; }
+
+// The cell rule (`ops/cells.py`): floor(ftz(ftz(x) * inv)) where the
+// reference multiplies by a folded reciprocal, floor(ftz(ftz(x) / d)) where
+// it divides truly. Flushing the product too puts a normal x whose product
+// is subnormal (inv < 1: -2e-38 at 4 m) in cell 0, as the reference does.
+// On inputs without subnormals both are the plain floor's bits. No global
+// flush-to-zero flag: it would move other bits.
+__device__ __forceinline__ float floor_cell(float x, float inv) { return floorf(ftz(__fmul_rn(ftz(x), inv))); }
+__device__ __forceinline__ int cell_floor(float x, float inv) { return static_cast<int>(floor_cell(x, inv)); }
+__device__ __forceinline__ int cell_floor_div(float x, float d) {
+  return static_cast<int>(floorf(ftz(__fdiv_rn(ftz(x), d))));
 }
 
 template <typename T>
@@ -51,14 +69,6 @@ __device__ __forceinline__ void block_sums(T (&v)[M], T* __restrict__ out) {
     for (int w = 0; w < kThreads / 32; ++w) s += smem[threadIdx.x][w];
     out[threadIdx.x] = s;
   }
-}
-
-// Column c of `partials` (n_blocks rows of m) summed over the rows in order.
-template <typename T>
-__device__ __forceinline__ T column_sum(const T* __restrict__ partials, int n_blocks, int m, int c) {
-  T s = 0;
-  for (int b = 0; b < n_blocks; ++b) s += partials[static_cast<long long>(b) * m + c];
-  return s;
 }
 
 }  // namespace lvs

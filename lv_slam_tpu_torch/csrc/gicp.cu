@@ -12,8 +12,8 @@
 // sums and the closed-form eigh), so HBM, not arithmetic. 19b reads the ok
 // flag of every lane, the match's flag and distance where it is ok, and
 // the source point, its match and two 3x3 covariances (96 bytes) of each
-// matched lane, with ~350 operations per matched lane; its 42 block
-// partials are a few hundred KB.
+// matched lane, with ~350 operations per matched lane; its tiles' 42-float
+// rows (86 KB at 131072 lanes) stay in L2.
 //
 // 19a design (`plane_cov<k>`): one thread per lane, from K9k's k neighbours
 // and their valid flags, k a template argument (1..8 behind a switch), so
@@ -29,15 +29,25 @@
 // src_ok & nn_valid & nn_dist < max_dist (the target's covariances at the
 // matches: K19b reads no other lane of them).
 //
-// 19b design (`gicp_normal`): one thread per lane moves the source point by
-// the transform (XLA's CPU fma chain, as the plain twin's
+// 19b design (`gicp_normal`, one launch): blocks walk the 256-lane tiles
+// of the parent's blocks (as many blocks as the card holds at once, or one
+// a tile where fewer). A thread a lane moves the source point by the
+// transform (XLA's CPU fma chain, as the plain twin's
 // `se3.transform_points_fma`), forms M = C_b + R C_a R^T + 1e-6 I, inverts
-// it by cofactors, and for the lanes that are ok (source masked in, source
-// covariance ok, a match within the correspondence distance) adds J^T W J
-// and J^T W d with J = [I, -[y]x] (the exact forward-mode Jacobian of
-// exp_se3(delta) T at delta = 0, tangent (rho, phi)) and d = y - nn. The 36 +
-// 6 sums go to block partials (warp shuffles, then the warps in order) and
-// `gicp_finish` adds the blocks in order: deterministic.
+// it by cofactors (nine IEEE divisions by det, as the twin divides), and
+// for the lanes that are ok (source masked in, source covariance ok, a
+// match within the correspondence distance) forms J^T W J and J^T W d with
+// J = [I, -[y]x] (the exact forward-mode Jacobian of exp_se3(delta) T at
+// delta = 0, tangent (rho, phi)) and d = y - nn. A warp's 42 sums come by
+// the shuffle-down tree's pairs, traded so that each level moves half of a
+// lane's values (43 shuffles a warp, not 210; a warp with no ok lane trades
+// nothing), the warps in order give the tile's row; the tiles where some
+// lane is ok write it and a live flag. The last block to count itself on
+// the device counter stages the live rows in shared memory and adds them
+// in tile order. Every sum keeps the order of the earlier two launches
+// (`gicp_normal`'s block sums, `gicp_finish`'s column walk over every
+// block), so the bits: deterministic, and no float atomics (their order
+// flipped the LM's accept test).
 #include "common.cuh"
 #include "linalg3.cuh"
 
@@ -45,6 +55,7 @@ namespace {
 
 constexpr int kMaxK = 8;
 constexpr int kTerms = 42;  // H (6x6 row-major), then g (6)
+constexpr int kRow = 44;    // a tile's partial row: the 42 sums and 2 unused floats, 16-byte aligned
 
 // A lane's k neighbours' flags, k bytes from `src`, as the widest loads that
 // their alignment allows (one 8-byte load at k = 8)
@@ -87,9 +98,12 @@ enum CovMode { kEvery = 0, kMask = 1, kNeed = 2 };
 // K19b's lane test: the lanes whose normal-equation terms `gicp_normal` sums,
 // and so the lanes of the target's covariances that it reads (`plane_cov`'s
 // kNeed mode); `ops/gicp.LaneTest.lanes` is its plain form
+// (the three loads issued together, not one behind another's test)
 __device__ __forceinline__ bool lane_needed(const bool* __restrict__ src_ok, const bool* __restrict__ nn_valid,
                                             const float* __restrict__ nn_dist, float max_dist, long long i) {
-  return src_ok[i] && nn_valid[i] && nn_dist[i] < max_dist;
+  const bool ok = src_ok[i], valid = nn_valid[i];
+  const float dist = nn_dist[i];
+  return ok & valid & (dist < max_dist);
 }
 
 // mode kEvery: the regularized matrix on every lane (the reference's body).
@@ -177,64 +191,215 @@ void launch_plane_cov(const float* pts, const bool* valid, int n, int mode, cons
                                                                  nn_dist, max_dist, cov, ok);
 }
 
+// The warp's sums of M per-lane values, each by `lvs::warp_sum`'s tree
+// (lane l with lane l + 16, then + 8, + 4, + 2, + 1), so each has that
+// tree's bits (a pair's sum commutes), in about M shuffles in all instead
+// of 5 M: at each level a lane keeps half of its values and trades the
+// other half with its partner (an odd one out is traded whole and both
+// keep the sum). Sum id[j] ends on every lane that holds it, which writes
+// it to out[id[j] * stride] (equal bits where two lanes write one).
+template <int C, int kOff>
+__device__ __forceinline__ void warp_sums_to(const float (&v)[C], const int (&id)[C], float* out, int stride) {
+  constexpr int kPairs = C / 2, kNext = (C + 1) / 2;
+  const bool hi = (threadIdx.x & kOff) != 0;
+  float w[kNext];
+  int wid[kNext];
+#pragma unroll
+  for (int j = 0; j < kPairs; ++j) {
+    const float keep = hi ? v[2 * j + 1] : v[2 * j], send = hi ? v[2 * j] : v[2 * j + 1];
+    w[j] = keep + __shfl_xor_sync(0xffffffffu, send, kOff);
+    wid[j] = hi ? id[2 * j + 1] : id[2 * j];
+  }
+  if constexpr (C % 2 == 1) {
+    w[kPairs] = v[C - 1] + __shfl_xor_sync(0xffffffffu, v[C - 1], kOff);
+    wid[kPairs] = id[C - 1];
+  }
+  if constexpr (kOff == 1) {
+#pragma unroll
+    for (int j = 0; j < kNext; ++j) out[wid[j] * stride] = w[j];
+  } else {
+    warp_sums_to<kNext, kOff / 2>(w, wid, out, stride);
+  }
+}
+
+constexpr int kWarps = lvs::kThreads / 32;
+constexpr int kFinishTiles = 256;  // tiles' partial rows staged at once by the finishing block
+constexpr int kChainBatch = 16;   // staged values a column's chain loads together
+
+// The finishing block: the live tiles' partial rows (a dead tile's row is
+// +0 throughout, and adding +0 to a sum that starts at +0 leaves its bits)
+// in tile order, kFinishTiles at a time: their flags (the next round's
+// loaded during this one's work) compacted to indices, their rows copied
+// into shared memory by 16-byte cp.async copies (L2 to shared memory, every
+// copy of the round in flight at once), then a chain of adds a column, from
+// +0 in tile order, as the earlier `gicp_finish` added every block's row:
+// two batches of kChainBatch values loaded, then their adds.
+__device__ __forceinline__ void finish_tiles(const float* __restrict__ partials, const unsigned char* __restrict__ live,
+                                             int n_tiles, float* __restrict__ out) {
+  __shared__ __align__(16) float staged[kFinishTiles * kRow];
+  __shared__ int tiles[kFinishTiles];
+  __shared__ int warp_count[2][kWarps];  // by round parity: a dead round has one barrier
+  constexpr int kChunks = kRow / 4;  // 16-byte copies a row
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  float s = 0.0f;
+  unsigned char next = tid < n_tiles ? __ldcg(live + tid) : 0;  // flags other blocks wrote: L2, not L1
+  for (int base = 0; base < n_tiles; base += kFinishTiles) {
+    const bool on = next != 0;
+    const int ahead = base + kFinishTiles + tid;
+    next = ahead < n_tiles ? __ldcg(live + ahead) : 0;
+    const unsigned ballot = __ballot_sync(0xffffffffu, on);
+    int* counts = warp_count[(base / kFinishTiles) & 1];
+    if (lane == 0) counts[warp] = __popc(ballot);
+    __syncthreads();  // the last round's chains have read `staged`; the counts are in
+    int before = 0, count = 0;
+#pragma unroll
+    for (int w = 0; w < kWarps; ++w) {
+      before += w < warp ? counts[w] : 0;
+      count += counts[w];
+    }
+    if (count == 0) continue;  // a round of dead tiles adds nothing
+    if (on) tiles[before + __popc(ballot & ((1u << lane) - 1u))] = base + tid;
+    __syncthreads();
+    for (int e = tid; e < count * kChunks; e += lvs::kThreads) {
+      const int j = e / kChunks, q = e - j * kChunks;
+      const float* src = partials + static_cast<long long>(tiles[j]) * kRow + 4 * q;
+      const unsigned dst = static_cast<unsigned>(__cvta_generic_to_shared(staged + j * kRow + 4 * q));
+      asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(dst), "l"(src) : "memory");
+    }
+    asm volatile("cp.async.wait_all;\n" ::: "memory");
+    __syncthreads();
+    if (tid < kTerms) {
+      const float* col = staged + tid;
+      int j = 0;
+      for (; j + 2 * kChainBatch <= count; j += 2 * kChainBatch) {
+        float a[kChainBatch], b[kChainBatch];
+#pragma unroll
+        for (int u = 0; u < kChainBatch; ++u) a[u] = col[(j + u) * kRow];
+#pragma unroll
+        for (int u = 0; u < kChainBatch; ++u) b[u] = col[(j + kChainBatch + u) * kRow];
+#pragma unroll
+        for (int u = 0; u < kChainBatch; ++u) s += a[u];
+#pragma unroll
+        for (int u = 0; u < kChainBatch; ++u) s += b[u];
+      }
+      for (; j < count; ++j) s += col[j * kRow];
+    }
+  }
+  if (tid < kTerms) out[tid] = s;
+}
+
+// One launch: blocks walk the 256-lane tiles (tile t, t + gridDim.x, ...).
+// A tile's matched lanes form their 42 terms; each warp's sums come by
+// `warp_sums_to`'s tree (a warp with no matched lane writes zeros and
+// trades nothing), the warps' sums in warp order give the tile's partial
+// row, written with the tile's live flag where any lane matched. Each
+// block then counts itself on the device counter (an acq_rel atomic after a
+// block barrier); the last one adds the live rows (`finish_tiles`) and sets
+// the counter back to 0 for the next call. Every sum keeps the earlier
+// two-launch kernel's order, so its bits.
 __global__ void __launch_bounds__(lvs::kThreads)
 gicp_normal(const float* __restrict__ src, const bool* __restrict__ src_ok, const float* __restrict__ cov_a,
             const float* __restrict__ T, const float* __restrict__ nn, const float* __restrict__ nn_dist,
-            const bool* __restrict__ nn_valid, const float* __restrict__ cov_b, int n, float max_dist,
-            float* __restrict__ partials) {
-  int i = blockIdx.x * blockDim.x + threadIdx.x;
-  float acc[kTerms];
+            const bool* __restrict__ nn_valid, const float* __restrict__ cov_b, int n, float max_dist, int n_tiles,
+            float* __restrict__ partials, unsigned char* __restrict__ live, int* __restrict__ counter,
+            float* __restrict__ out) {
+  __shared__ float warp_sums[kTerms * kWarps];
+  __shared__ bool last;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  for (int t = blockIdx.x; t < n_tiles; t += gridDim.x) {
+    const long long i = static_cast<long long>(t) * lvs::kThreads + tid;
+    const bool need = i < n && lane_needed(src_ok, nn_valid, nn_dist, max_dist, i);
+    float acc[kTerms];
 #pragma unroll
-  for (int m = 0; m < kTerms; ++m) acc[m] = 0.0f;
-  if (i < n && lane_needed(src_ok, nn_valid, nn_dist, max_dist, i)) {
-    float y[3];
-    for (int r = 0; r < 3; ++r)
-      y[r] = lvs::fma64(src[3 * i + 2], T[4 * r + 2],
-                        lvs::fma64(src[3 * i + 1], T[4 * r + 1], src[3 * i + 0] * T[4 * r + 0])) +
-             T[4 * r + 3];
-    const float* ca = cov_a + 9 * static_cast<long long>(i);
-    const float* cb = cov_b + 9 * static_cast<long long>(i);
-    float rc[3][3], m[3][3];
-    for (int a = 0; a < 3; ++a)  // R C_a
-      for (int b = 0; b < 3; ++b) rc[a][b] = (T[4 * a + 0] * ca[b] + T[4 * a + 1] * ca[3 + b]) + T[4 * a + 2] * ca[6 + b];
-    for (int a = 0; a < 3; ++a)  // C_b + (R C_a) R^T + 1e-6 I
-      for (int b = 0; b < 3; ++b)
-        m[a][b] = (cb[3 * a + b] + ((rc[a][0] * T[4 * b + 0] + rc[a][1] * T[4 * b + 1]) + rc[a][2] * T[4 * b + 2])) +
-                  (a == b ? 1e-6f : 0.0f);
-    float cof[3][3];  // cofactors: inverse = cof^T / det
-    cof[0][0] = m[1][1] * m[2][2] - m[1][2] * m[2][1];
-    cof[0][1] = m[1][2] * m[2][0] - m[1][0] * m[2][2];
-    cof[0][2] = m[1][0] * m[2][1] - m[1][1] * m[2][0];
-    cof[1][0] = m[0][2] * m[2][1] - m[0][1] * m[2][2];
-    cof[1][1] = m[0][0] * m[2][2] - m[0][2] * m[2][0];
-    cof[1][2] = m[0][1] * m[2][0] - m[0][0] * m[2][1];
-    cof[2][0] = m[0][1] * m[1][2] - m[0][2] * m[1][1];
-    cof[2][1] = m[0][2] * m[1][0] - m[0][0] * m[1][2];
-    cof[2][2] = m[0][0] * m[1][1] - m[0][1] * m[1][0];
-    float det = (m[0][0] * cof[0][0] + m[0][1] * cof[0][1]) + m[0][2] * cof[0][2];
-    float wm[3][3];
-    for (int a = 0; a < 3; ++a)
-      for (int b = 0; b < 3; ++b) wm[a][b] = cof[b][a] / det;
-    float d[3] = {y[0] - nn[3 * i + 0], y[1] - nn[3 * i + 1], y[2] - nn[3 * i + 2]};
-    // J (3x6) = [I, -[y]x]
-    float jac[3][6] = {{1.0f, 0.0f, 0.0f, 0.0f, y[2], -y[1]},
-                       {0.0f, 1.0f, 0.0f, -y[2], 0.0f, y[0]},
-                       {0.0f, 0.0f, 1.0f, y[1], -y[0], 0.0f}};
-    float wj[3][6], wd[3];
-    for (int a = 0; a < 3; ++a) {
-      for (int b = 0; b < 6; ++b) wj[a][b] = (wm[a][0] * jac[0][b] + wm[a][1] * jac[1][b]) + wm[a][2] * jac[2][b];
-      wd[a] = (wm[a][0] * d[0] + wm[a][1] * d[1]) + wm[a][2] * d[2];
+    for (int m = 0; m < kTerms; ++m) acc[m] = 0.0f;
+    if (need) {
+      float y[3];
+#pragma unroll
+      for (int r = 0; r < 3; ++r)
+        y[r] = lvs::fma64(src[3 * i + 2], T[4 * r + 2],
+                          lvs::fma64(src[3 * i + 1], T[4 * r + 1], src[3 * i + 0] * T[4 * r + 0])) +
+               T[4 * r + 3];
+      const float* ca = cov_a + 9 * i;
+      const float* cb = cov_b + 9 * i;
+      float rc[3][3], m[3][3];
+#pragma unroll
+      for (int a = 0; a < 3; ++a)  // R C_a
+#pragma unroll
+        for (int b = 0; b < 3; ++b)
+          rc[a][b] = (T[4 * a + 0] * ca[b] + T[4 * a + 1] * ca[3 + b]) + T[4 * a + 2] * ca[6 + b];
+#pragma unroll
+      for (int a = 0; a < 3; ++a)  // C_b + (R C_a) R^T + 1e-6 I
+#pragma unroll
+        for (int b = 0; b < 3; ++b)
+          m[a][b] = (cb[3 * a + b] + ((rc[a][0] * T[4 * b + 0] + rc[a][1] * T[4 * b + 1]) + rc[a][2] * T[4 * b + 2])) +
+                    (a == b ? 1e-6f : 0.0f);
+      float cof[3][3];  // cofactors: inverse = cof^T / det
+      cof[0][0] = m[1][1] * m[2][2] - m[1][2] * m[2][1];
+      cof[0][1] = m[1][2] * m[2][0] - m[1][0] * m[2][2];
+      cof[0][2] = m[1][0] * m[2][1] - m[1][1] * m[2][0];
+      cof[1][0] = m[0][2] * m[2][1] - m[0][1] * m[2][2];
+      cof[1][1] = m[0][0] * m[2][2] - m[0][2] * m[2][0];
+      cof[1][2] = m[0][1] * m[2][0] - m[0][0] * m[2][1];
+      cof[2][0] = m[0][1] * m[1][2] - m[0][2] * m[1][1];
+      cof[2][1] = m[0][2] * m[1][0] - m[0][0] * m[1][2];
+      cof[2][2] = m[0][0] * m[1][1] - m[0][1] * m[1][0];
+      const float det = (m[0][0] * cof[0][0] + m[0][1] * cof[0][1]) + m[0][2] * cof[0][2];
+      float wm[3][3];
+#pragma unroll
+      for (int a = 0; a < 3; ++a)
+#pragma unroll
+        for (int b = 0; b < 3; ++b) wm[a][b] = cof[b][a] / det;
+      const float d[3] = {y[0] - nn[3 * i + 0], y[1] - nn[3 * i + 1], y[2] - nn[3 * i + 2]};
+      // J (3x6) = [I, -[y]x]
+      const float jac[3][6] = {{1.0f, 0.0f, 0.0f, 0.0f, y[2], -y[1]},
+                               {0.0f, 1.0f, 0.0f, -y[2], 0.0f, y[0]},
+                               {0.0f, 0.0f, 1.0f, y[1], -y[0], 0.0f}};
+      float wj[3][6], wd[3];
+#pragma unroll
+      for (int a = 0; a < 3; ++a) {
+#pragma unroll
+        for (int b = 0; b < 6; ++b) wj[a][b] = (wm[a][0] * jac[0][b] + wm[a][1] * jac[1][b]) + wm[a][2] * jac[2][b];
+        wd[a] = (wm[a][0] * d[0] + wm[a][1] * d[1]) + wm[a][2] * d[2];
+      }
+#pragma unroll
+      for (int a = 0; a < 6; ++a) {
+#pragma unroll
+        for (int b = 0; b < 6; ++b)
+          acc[6 * a + b] = (jac[0][a] * wj[0][b] + jac[1][a] * wj[1][b]) + jac[2][a] * wj[2][b];
+        acc[36 + a] = (jac[0][a] * wd[0] + jac[1][a] * wd[1]) + jac[2][a] * wd[2];
+      }
     }
-    for (int a = 0; a < 6; ++a) {
-      for (int b = 0; b < 6; ++b) acc[6 * a + b] = (jac[0][a] * wj[0][b] + jac[1][a] * wj[1][b]) + jac[2][a] * wj[2][b];
-      acc[36 + a] = (jac[0][a] * wd[0] + jac[1][a] * wd[1]) + jac[2][a] * wd[2];
+    if (__ballot_sync(0xffffffffu, need) != 0) {
+      int id[kTerms];
+#pragma unroll
+      for (int m = 0; m < kTerms; ++m) id[m] = m;
+      warp_sums_to<kTerms, 16>(acc, id, warp_sums + warp, kWarps);
+    } else {
+      for (int m = lane; m < kTerms; m += 32) warp_sums[m * kWarps + warp] = 0.0f;
     }
+    const bool any = __syncthreads_or(need);
+    if (any && tid < kTerms) {
+      float s = 0.0f;
+#pragma unroll
+      for (int w = 0; w < kWarps; ++w) s += warp_sums[tid * kWarps + w];
+      partials[static_cast<long long>(t) * kRow + tid] = s;
+    }
+    if (tid == 0) live[t] = any;
+    __syncthreads();  // the row is read before the next tile's warps write
   }
-  lvs::block_sums<kTerms>(acc, partials + kTerms * static_cast<long long>(blockIdx.x));
-}
-
-__global__ void gicp_finish(const float* __restrict__ partials, int n_blocks, float* __restrict__ out) {
-  if (threadIdx.x < kTerms) out[threadIdx.x] = lvs::column_sum(partials, n_blocks, kTerms, threadIdx.x);
+  // the count: a release of this block's rows and flags (ordered before it
+  // by the barrier) and, for the last block, an acquire of everyone's
+  __syncthreads();
+  if (tid == 0) {
+    int before;
+    asm volatile("atom.add.acq_rel.gpu.s32 %0, [%1], 1;" : "=r"(before) : "l"(counter) : "memory");
+    last = before == static_cast<int>(gridDim.x) - 1;
+  }
+  __syncthreads();
+  if (last) {
+    finish_tiles(partials, live, n_tiles, out);
+    if (tid == 0) *counter = 0;  // ready for the next call on the stream
+  }
 }
 
 }  // namespace
@@ -265,14 +430,30 @@ extern "C" int lvs_plane_cov(const float* pts, const bool* valid, int n, int k, 
   LVS_RETURN_LAST_ERROR();
 }
 
-// out (42) = [H (6x6 row-major), g (6)]; partials (n_blocks * 42) is scratch
+// out (42) = [H (6x6 row-major), g (6)]; scratch (16-byte aligned) holds lvs_gicp_normal_scratch_bytes(n)
+// bytes (the tiles' partial rows and live flags); counter is one int32 that is 0 between calls on the stream.
+extern "C" long long lvs_gicp_normal_scratch_bytes(int n) {
+  const long long tiles = n > 0 ? (static_cast<long long>(n) + lvs::kThreads - 1) / lvs::kThreads : 1;
+  return tiles * kRow * static_cast<long long>(sizeof(float)) + tiles;
+}
+
 extern "C" int lvs_gicp_normal(const float* src, const bool* src_ok, const float* cov_a, const float* T,
                                const float* nn, const float* nn_dist, const bool* nn_valid, const float* cov_b,
-                               int n, float max_dist, float* partials, int n_blocks, float* out,
+                               int n, float max_dist, void* scratch, long long scratch_bytes, int* counter, float* out,
                                cudaStream_t stream) {
-  if (n_blocks < 1) return static_cast<int>(cudaErrorInvalidValue);
-  gicp_normal<<<n_blocks, lvs::kThreads, 0, stream>>>(src, src_ok, cov_a, T, nn, nn_dist, nn_valid, cov_b, n,
-                                                      max_dist, partials);
-  gicp_finish<<<1, 64, 0, stream>>>(partials, n_blocks, out);
+  if (n < 0 || counter == nullptr || scratch_bytes < lvs_gicp_normal_scratch_bytes(n))
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (reinterpret_cast<uintptr_t>(scratch) % 16) return static_cast<int>(cudaErrorMisalignedAddress);
+  const int n_tiles = n > 0 ? lvs::blocks_for(n) : 1;
+  int device = 0, sms = 0, per_sm = 0;
+  cudaError_t err = cudaGetDevice(&device);
+  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+  if (err == cudaSuccess) err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, gicp_normal, lvs::kThreads, 0);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int most = sms * (per_sm > 0 ? per_sm : 1);
+  auto* partials = static_cast<float*>(scratch);
+  auto* live = reinterpret_cast<unsigned char*>(partials + static_cast<long long>(n_tiles) * kRow);
+  gicp_normal<<<n_tiles < most ? n_tiles : most, lvs::kThreads, 0, stream>>>(
+      src, src_ok, cov_a, T, nn, nn_dist, nn_valid, cov_b, n, max_dist, n_tiles, partials, live, counter, out);
   LVS_RETURN_LAST_ERROR();
 }

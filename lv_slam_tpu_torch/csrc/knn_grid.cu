@@ -122,9 +122,10 @@ using lvs::k_nearest;
 using lvs::kExtent;
 using lvs::kKeyMax;
 using lvs::kMaxK;
+using lvs::kQueryThreads;
 using lvs::kStageAll;
-
-constexpr int kQueryThreads = 256;
+using lvs::kThreadQueries;
+using lvs::launch_query;
 
 // ----------------------------------------------------------- kernel 9g
 
@@ -253,7 +254,7 @@ knn_grid_cluster(const float* __restrict__ xyz, const bool* __restrict__ mask, i
 #pragma unroll
   for (int k = 0; k < 3; ++k) {
     const int m = __reduce_min_sync(
-        0xffffffffu, on ? static_cast<int>(floorf(xyz[3 * i + k] * inv)) : (live ? kBigX : INT_MAX));
+        0xffffffffu, on ? lvs::cell_floor(xyz[3 * i + k], inv) : (live ? kBigX : INT_MAX));
     if (lane == 0) warp_min[warp][k] = m;
   }
   __syncthreads();
@@ -396,26 +397,6 @@ knn_planes(const int* __restrict__ keys, const float* __restrict__ xyz, int n, c
     offset[t] = -dot3_fma(nh[0], nh[1], nh[2], a[0], a[1], a[2]);
   }
 }
-
-// Launches `kernel` over q queries, G lanes each: persistent blocks, as
-// many as the card holds at once, or fewer where the queries need fewer.
-template <int G, class... A, class... B>
-int launch_query(void (*kernel)(A...), int q, cudaStream_t stream, B... args) {
-  if (q <= 0) LVS_RETURN_LAST_ERROR();
-  int device = 0, sms = 0, per_sm = 0;
-  cudaError_t err = cudaGetDevice(&device);
-  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
-  if (err == cudaSuccess) err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, kQueryThreads, 0);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  constexpr int kPerBlock = kQueryThreads / G;
-  const long long wanted = (static_cast<long long>(q) + kPerBlock - 1) / kPerBlock;
-  const long long most = static_cast<long long>(sms) * (per_sm > 0 ? per_sm : 1);
-  kernel<<<static_cast<int>(wanted < most ? wanted : most), kQueryThreads, 0, stream>>>(args...);
-  LVS_RETURN_LAST_ERROR();
-}
-
-// A batch this large fills the card a thread a query; a smaller one takes a warp a query.
-constexpr int kThreadQueries = 16384;
 
 template <int K>
 int launch_knn(const int* keys, const float* xyz, int n, const int* origin, float cell, const float* queries, int q,

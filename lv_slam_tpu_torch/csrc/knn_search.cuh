@@ -142,8 +142,7 @@ __device__ __forceinline__ void warp_k_nearest(const Grid& g, const float (&q)[3
   for (int j = 0; j < K; ++j) best[j] = kNone;
   int start = 0;
   if (lane < 27) {
-    const int c[3] = {static_cast<int>(floorf(q[0] / g.cell)), static_cast<int>(floorf(q[1] / g.cell)),
-                      static_cast<int>(floorf(q[2] / g.cell))};
+    const int c[3] = {cell_floor_div(q[0], g.cell), cell_floor_div(q[1], g.cell), cell_floor_div(q[2], g.cell)};
     bool in_extent;
     const int key = neighbour_key(c, g.o, lane, &in_extent);
     start = in_extent ? g.keys.lower_bound(key) : g.miss_start;
@@ -194,8 +193,7 @@ __device__ __forceinline__ void thread_k_nearest(const Grid& g, const float (&q)
     best[j] = kNone;
     row[j] = 0;
   }
-  const int c[3] = {static_cast<int>(floorf(q[0] / g.cell)), static_cast<int>(floorf(q[1] / g.cell)),
-                    static_cast<int>(floorf(q[2] / g.cell))};
+  const int c[3] = {cell_floor_div(q[0], g.cell), cell_floor_div(q[1], g.cell), cell_floor_div(q[2], g.cell)};
   for (int cell27 = 0; cell27 < 27; ++cell27) {
     bool in_extent;
     const int key = neighbour_key(c, g.o, cell27, &in_extent);
@@ -233,6 +231,28 @@ __device__ __forceinline__ void k_nearest(const Grid& g, const float (&q)[3], fl
   else
     thread_k_nearest<K>(g, q, d2, row);
 }
+
+constexpr int kQueryThreads = 256;  // a query kernel's block
+
+// Launches `kernel` over q queries, G lanes each: persistent blocks, as
+// many as the card holds at once, or fewer where the queries need fewer.
+template <int G, class... A, class... B>
+int launch_query(void (*kernel)(A...), int q, cudaStream_t stream, B... args) {
+  if (q <= 0) LVS_RETURN_LAST_ERROR();
+  int device = 0, sms = 0, per_sm = 0;
+  cudaError_t err = cudaGetDevice(&device);
+  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+  if (err == cudaSuccess) err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, kQueryThreads, 0);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  constexpr int kPerBlock = kQueryThreads / G;
+  const long long wanted = (static_cast<long long>(q) + kPerBlock - 1) / kPerBlock;
+  const long long most = static_cast<long long>(sms) * (per_sm > 0 ? per_sm : 1);
+  kernel<<<static_cast<int>(wanted < most ? wanted : most), kQueryThreads, 0, stream>>>(args...);
+  LVS_RETURN_LAST_ERROR();
+}
+
+// A batch this large fills the card a thread a query; a smaller one takes a warp a query.
+constexpr int kThreadQueries = 16384;
 
 // Every thread of the block: the grid context, the keys staged.
 __device__ __forceinline__ Grid grid_of(const int* __restrict__ keys, const float* __restrict__ xyz, int n,

@@ -12,8 +12,8 @@
 // scan: ~9 MB of row reads that mostly hit L2) and does ~600 flops plus one
 // 3x3 eigh; at 12k queries that is under 10 MFLOP, so the latency of the
 // row reads, of the ordered sums and of the eigh is what shows. Kernel
-// 10g's query runs 27 binary searches, one after another, before its fit:
-// latency again.
+// 10g's query runs 27 binary searches (side by side on a warp's lanes in
+// its small batches) and a merge before its fit: latency again.
 //
 // Kernel 10's design, in two phases per block of 256 threads:
 // 1. Staging, kGroup = 8 lanes per query: lane o takes probe o of the
@@ -46,12 +46,17 @@
 // planes need n_use >= k, every participant within 0.2 m of the fit, and a
 // finite fit.
 //
-// Kernel 10g: the block stages the grid's keys, then one thread per query
-// runs kernel 9k's search (`lvs::k_nearest` of knn_search.cuh, a thread a
-// query, its 8 best kept: the first k of them are the k nearest) and takes
-// its k nearest, each gated on its correctly rounded distance, then the
-// same fit in one thread (`fit`, `line_of`, `plane_of`), summing in
-// candidate order.
+// Kernel 10g: the block stages the grid's keys, then kernel 9k's search
+// (`lvs::k_nearest` of knn_search.cuh) finds each query's K best: below
+// 16384 queries (standalone LFA's 768 sharp and 1536 flat ones) a warp a
+// query, a lane a neighbour cell searching and testing its slots side by
+// side and the warp's merge of (d2, index) words taking the K best in
+// order (K = 5 where k <= 5); above them a thread a query, the 27 cells in
+// turn (K = 8), where a warp's merge would only add instructions. One lane
+// then takes the k nearest, each gated on its correctly rounded distance,
+// and runs the same fit (`fit`, `line_of`, `plane_of`), summing in
+// candidate order: the first k of a sorted list are the k nearest either
+// way, so both routes give the earlier thread-a-query kernel's bits.
 #include "common.cuh"
 #include "knn_search.cuh"
 #include "linalg3.cuh"
@@ -68,14 +73,16 @@ constexpr int kGroup = 8;  // lanes per query
 constexpr int kChunk = 8;  // slots of a probe row read at once
 
 // The k nearest of a sorted-grid query (kernel 10g, K9k's search; d2 and
-// row hold its 8 best, the first k used): the
+// row hold its K best, K >= k, the first k used): the
 // reference's `knn(grid, y, k)` then `valid & (dists < 1.0)`, a gate on the
 // distance (the twin's sqrt32(clamp(d2, 0)), correctly rounded as sqrtf).
+template <int K>
 struct GridCandidates {
+  static constexpr int kMax = K;  // candidates at most: the loops over them unroll, d2 and row stay in registers
   const float* xyz;
   int k;
-  float d2[lvs::kMaxK];
-  int row[lvs::kMaxK];
+  float d2[K];
+  int row[K];
 
   __device__ int count() const { return k; }
 
@@ -100,7 +107,9 @@ __device__ Fit fit(const C& cand) {
   Fit f;
   float s0 = 0.0f, s1 = 0.0f, s2 = 0.0f, n = 0.0f;
   const int m = cand.count();
-  for (int c = 0; c < m; ++c) {
+#pragma unroll
+  for (int c = 0; c < C::kMax; ++c) {
+    if (c >= m) break;
     float x = 0.0f, y = 0.0f, z = 0.0f;
     bool use = cand.get(c, &x, &y, &z);
     if (!use) x = y = z = 0.0f;
@@ -115,7 +124,9 @@ __device__ Fit fit(const C& cand) {
   f.mu[1] = s1 / cnt;
   f.mu[2] = s2 / cnt;
   float c6[6] = {0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f};
-  for (int c = 0; c < m; ++c) {
+#pragma unroll
+  for (int c = 0; c < C::kMax; ++c) {
+    if (c >= m) break;
     float x = 0.0f, y = 0.0f, z = 0.0f;
     bool use = cand.get(c, &x, &y, &z);
     if (!use) x = y = z = 0.0f;
@@ -191,7 +202,9 @@ __device__ void plane_of(const C& cand, int i, bool masked_in, int k, float* __r
   plane_frame(f, &n, &d);
   bool flat = true;
   const int m = cand.count();
-  for (int c = 0; c < m; ++c) {
+#pragma unroll
+  for (int c = 0; c < C::kMax; ++c) {
+    if (c >= m) break;
     float x, y, z;
     if (cand.get(c, &x, &y, &z)) flat &= near_plane(x, y, z, n, d);
   }
@@ -218,9 +231,9 @@ __device__ __forceinline__ void stage_candidates(float4* __restrict__ stage, con
   constexpr int P = 8 / G;
   const int lane = threadIdx.x & 31, gl = lane % G, base = lane - gl;
   const float half = cs / 2.0f;
-  const int b0 = static_cast<int>(floorf((qx - half) / cs));
-  const int b1 = static_cast<int>(floorf((qy - half) / cs));
-  const int b2 = static_cast<int>(floorf((qz - half) / cs));
+  const int b0 = lvs::cell_floor_div(qx - half, cs);
+  const int b1 = lvs::cell_floor_div(qy - half, cs);
+  const int b2 = lvs::cell_floor_div(qz - half, cs);
   int bucket[P];
 #pragma unroll
   for (int p = 0; p < P; ++p) {
@@ -369,36 +382,49 @@ int launch_fit(void (*kernel)(A...), int threads, int q, int slots, cudaStream_t
 
 // ----------------------------------------------------------- kernel 10g
 
-__global__ void __launch_bounds__(lvs::kThreads)
-grid_lines(const int* __restrict__ keys, const float* __restrict__ xyz, int n, const int* __restrict__ origin,
-           float cell, const float* __restrict__ y, const bool* __restrict__ mask, int q, int k,
-           float* __restrict__ mu, float* __restrict__ v, bool* __restrict__ valid) {
+// A query's K best by K9k's search, G lanes a query (a warp: a lane a
+// neighbour cell, the warp's merge; a thread: the cells in turn), then one
+// lane runs the fit over the first k, every add in candidate order, as the
+// earlier thread-a-query kernel did: the same candidates, the same bits.
+template <int K, int G, bool kPlanes>
+__global__ void __launch_bounds__(lvs::kQueryThreads)
+grid_fit(const int* __restrict__ keys, const float* __restrict__ xyz, int n, const int* __restrict__ origin,
+         float cell, const float* __restrict__ y, const bool* __restrict__ mask, int q, int k, float* __restrict__ a,
+         float* __restrict__ b, bool* __restrict__ valid) {
   __shared__ int staged[lvs::kStageAll];
   const lvs::Grid g = lvs::grid_of(keys, xyz, n, origin, cell, 8, staged);
-  int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= q) return;
-  GridCandidates cand;
-  cand.xyz = xyz;
-  cand.k = k;
-  const float yi[3] = {y[3 * i + 0], y[3 * i + 1], y[3 * i + 2]};
-  lvs::k_nearest<lvs::kMaxK, 1>(g, yi, cand.d2, cand.row);  // its first k are the k nearest
-  line_of(cand, i, mask[i], k, mu, v, valid);
+  constexpr int kPerBlock = lvs::kQueryThreads / G;
+  for (long long t = static_cast<long long>(blockIdx.x) * kPerBlock + threadIdx.x / G; t < q;
+       t += static_cast<long long>(gridDim.x) * kPerBlock) {
+    GridCandidates<K> cand;
+    cand.xyz = xyz;
+    cand.k = k;
+    const float yi[3] = {y[3 * t + 0], y[3 * t + 1], y[3 * t + 2]};
+    lvs::k_nearest<K, G>(g, yi, cand.d2, cand.row);
+    if (G == 32 && (threadIdx.x & 31) != 0) continue;
+    const int i = static_cast<int>(t);
+    if constexpr (kPlanes)
+      plane_of(cand, i, mask[i], k, a, b, valid);  // a: the normals, b: the offsets
+    else
+      line_of(cand, i, mask[i], k, a, b, valid);   // a: the means, b: the directions
+  }
 }
 
-__global__ void __launch_bounds__(lvs::kThreads)
-grid_planes(const int* __restrict__ keys, const float* __restrict__ xyz, int n, const int* __restrict__ origin,
-            float cell, const float* __restrict__ y, const bool* __restrict__ mask, int q, int k,
-            float* __restrict__ normal, float* __restrict__ offset, bool* __restrict__ valid) {
-  __shared__ int staged[lvs::kStageAll];
-  const lvs::Grid g = lvs::grid_of(keys, xyz, n, origin, cell, 8, staged);
-  int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= q) return;
-  GridCandidates cand;
-  cand.xyz = xyz;
-  cand.k = k;
-  const float yi[3] = {y[3 * i + 0], y[3 * i + 1], y[3 * i + 2]};
-  lvs::k_nearest<lvs::kMaxK, 1>(g, yi, cand.d2, cand.row);
-  plane_of(cand, i, mask[i], k, normal, offset, valid);
+// Kernel 10g over q queries: a warp a query below lvs::kThreadQueries
+// queries (K = 5 where k <= 5: the merge takes no more rounds than it
+// keeps), a thread a query above (K = 8), as kernel 9k's searches.
+template <bool kPlanes>
+int launch_grid_fit(const int* keys, const float* xyz, int n, const int* origin, float cell, const float* y,
+                    const bool* mask, int q, int k, float* a, float* b, bool* valid, cudaStream_t stream) {
+  if (k < 1 || k > lvs::kMaxK || n < 1) return static_cast<int>(cudaErrorInvalidValue);
+  if (q >= lvs::kThreadQueries)
+    return lvs::launch_query<1>(grid_fit<lvs::kMaxK, 1, kPlanes>, q, stream, keys, xyz, n, origin, cell, y, mask, q,
+                                k, a, b, valid);
+  if (k <= 5)
+    return lvs::launch_query<32>(grid_fit<5, 32, kPlanes>, q, stream, keys, xyz, n, origin, cell, y, mask, q, k, a,
+                                 b, valid);
+  return lvs::launch_query<32>(grid_fit<lvs::kMaxK, 32, kPlanes>, q, stream, keys, xyz, n, origin, cell, y, mask, q,
+                               k, a, b, valid);
 }
 
 // The table entries' argument checks: slots within kMaxSlots, rows 16-byte aligned.
@@ -430,19 +456,11 @@ extern "C" int lvs_planes_from_fit(const float* y, const bool* mask, int q, cons
 extern "C" int lvs_grid_lines_from_fit(const int* keys, const float* xyz, int n, const int* origin, float cell,
                                        const float* y, const bool* mask, int q, int k, float* mu, float* v,
                                        bool* valid, cudaStream_t stream) {
-  if (k < 1 || k > lvs::kMaxK || n < 1) return static_cast<int>(cudaErrorInvalidValue);
-  if (q > 0)
-    grid_lines<<<lvs::blocks_for(q), lvs::kThreads, 0, stream>>>(keys, xyz, n, origin, cell, y, mask, q, k, mu, v,
-                                                                 valid);
-  LVS_RETURN_LAST_ERROR();
+  return launch_grid_fit<false>(keys, xyz, n, origin, cell, y, mask, q, k, mu, v, valid, stream);
 }
 
 extern "C" int lvs_grid_planes_from_fit(const int* keys, const float* xyz, int n, const int* origin, float cell,
                                         const float* y, const bool* mask, int q, int k, float* normal,
                                         float* offset, bool* valid, cudaStream_t stream) {
-  if (k < 1 || k > lvs::kMaxK || n < 1) return static_cast<int>(cudaErrorInvalidValue);
-  if (q > 0)
-    grid_planes<<<lvs::blocks_for(q), lvs::kThreads, 0, stream>>>(keys, xyz, n, origin, cell, y, mask, q, k,
-                                                                  normal, offset, valid);
-  LVS_RETURN_LAST_ERROR();
+  return launch_grid_fit<true>(keys, xyz, n, origin, cell, y, mask, q, k, normal, offset, valid, stream);
 }

@@ -84,9 +84,9 @@ __global__ void hash_init(int n_buckets, int sentinel, int2* heads, int* n_dropp
 
 __device__ __forceinline__ int leaf_key(const float* means, const int* origin, float inv_res, int e,
                                         int l) {
-  int c0 = static_cast<int>(floorf(means[3 * l + 0] * inv_res)) - origin[0];
-  int c1 = static_cast<int>(floorf(means[3 * l + 1] * inv_res)) - origin[1];
-  int c2 = static_cast<int>(floorf(means[3 * l + 2] * inv_res)) - origin[2];
+  int c0 = lvs::cell_floor(means[3 * l + 0], inv_res) - origin[0];
+  int c1 = lvs::cell_floor(means[3 * l + 1], inv_res) - origin[1];
+  int c2 = lvs::cell_floor(means[3 * l + 2], inv_res) - origin[2];
   return flat_key(c0, c1, c2, e);
 }
 
@@ -183,7 +183,7 @@ ndt_partials(const float* __restrict__ table, int b_bits, const int* __restrict_
     for (int r = 0; r < 3; ++r) y[r] = T[4 * r + 0] * x0 + T[4 * r + 1] * x1 + T[4 * r + 2] * x2 + T[4 * r + 3];
     int cell[3];
 #pragma unroll
-    for (int r = 0; r < 3; ++r) cell[r] = static_cast<int>(floorf(y[r] * inv_res)) - origin[r];
+    for (int r = 0; r < 3; ++r) cell[r] = lvs::cell_floor(y[r], inv_res) - origin[r];
     const int* words = reinterpret_cast<const int*>(table);
     for (int o0 = 0; o0 < k; o0 += KP) {
       // every probe of the group: its cell's key and bucket, then both

@@ -267,7 +267,7 @@ __device__ __forceinline__ void accumulate(const Map& map, const PassArgs& a, co
 #pragma unroll
   for (int r = 0; r < 3; ++r) {
     y[r] = fma64(x[2], u.T(4 * r + 2), fma64(x[1], u.T(4 * r + 1), x[0] * u.T(4 * r + 0))) + u.T(4 * r + 3);
-    cell[r] = valid ? static_cast<int>(floorf(__fdiv_rn(y[r], a.res))) - u.origin(r) : 0;
+    cell[r] = valid ? lvs::cell_floor_div(y[r], a.res) - u.origin(r) : 0;
   }
   const int e = a.e;
   for (int o0 = 0; o0 < a.k; o0 += KP) {

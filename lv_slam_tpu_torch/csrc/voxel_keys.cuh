@@ -62,9 +62,9 @@ __device__ __forceinline__ int clampi(int v, int lo, int hi) { return v < lo ? l
 // floor(x * (1/res)) as `cell_coords` takes it; cy and cz shifted and
 // clipped as `_pack_yz` packs them
 __device__ __forceinline__ void voxel_coords(float x, float y, float z, float inv, int& kx, int& cy, int& cz) {
-  kx = static_cast<int>(floorf(x * inv));
-  cy = clampi(static_cast<int>(floorf(y * inv)) + kYZOff, 0, kYZLim);
-  cz = clampi(static_cast<int>(floorf(z * inv)) + kYZOff, 0, kYZLim);
+  kx = lvs::cell_floor(x, inv);
+  cy = clampi(lvs::cell_floor(y, inv) + kYZOff, 0, kYZLim);
+  cz = clampi(lvs::cell_floor(z, inv) + kYZOff, 0, kYZLim);
 }
 
 // lane i's point at xyz + S * i (S = 4: packed with its intensity)
@@ -503,8 +503,7 @@ __device__ __forceinline__ void flat_ranges(const float* __restrict__ xyz, int x
       continue;
     }
     const float* p = xyz + xs * i;
-    add_range(v, static_cast<int>(floorf(p[0] * inv)), static_cast<int>(floorf(p[1] * inv)),
-              static_cast<int>(floorf(p[2] * inv)));
+    add_range(v, lvs::cell_floor(p[0], inv), lvs::cell_floor(p[1], inv), lvs::cell_floor(p[2], inv));
   }
   block_ranges(v, row);
   if (threadIdx.x < kParts) part[blockIdx.x * kParts + threadIdx.x] = row[threadIdx.x];
@@ -521,7 +520,7 @@ __device__ __forceinline__ bool flat_rel(const float* __restrict__ xyz, int xs, 
   bool in = true;
 #pragma unroll
   for (int k = 0; k < 3; ++k) {
-    rel[k] = static_cast<int>(static_cast<unsigned>(static_cast<int>(floorf(xyz[xs * i + k] * inv))) -
+    rel[k] = static_cast<int>(static_cast<unsigned>(lvs::cell_floor(xyz[xs * i + k], inv)) -
                               static_cast<unsigned>(o[k]));
     in = in && rel[k] >= 0 && rel[k] < e;
   }

@@ -114,16 +114,23 @@ __global__ void __launch_bounds__(lvs::kThreads) leaf_keys(
 
 // One voxel's sums, point by point in sorted order: moments centred on each
 // point's cell centre (|c| <= res/2 keeps the float32 second moments free
-// of cancellation).
+// of cancellation). A run's points share their cell (its key is made of
+// the same `lvs::cell_floor`), so the centre is taken once, at its first
+// point, off the walk's chain of adds: the same value for every point.
 struct Sums {
   float cnt = 0.0f, s0 = 0.0f, s1 = 0.0f, s2 = 0.0f;
   float s00 = 0.0f, s01 = 0.0f, s02 = 0.0f, s11 = 0.0f, s12 = 0.0f, s22 = 0.0f;
+  float centre[3] = {0.0f, 0.0f, 0.0f};
 
   __device__ __forceinline__ void add(float px, float py, float pz, float res, float inv_res) {
     const float p[3] = {px, py, pz};
+    if (cnt == 0.0f) {
+#pragma unroll
+      for (int a = 0; a < 3; ++a) centre[a] = (lvs::floor_cell(p[a], inv_res) + 0.5f) * res;
+    }
     float c[3];
 #pragma unroll
-    for (int a = 0; a < 3; ++a) c[a] = p[a] - (floorf(p[a] * inv_res) + 0.5f) * res;
+    for (int a = 0; a < 3; ++a) c[a] = p[a] - centre[a];
     cnt += 1.0f;
     s0 += c[0]; s1 += c[1]; s2 += c[2];
     s00 += c[0] * c[0]; s01 += c[0] * c[1]; s02 += c[0] * c[2];

@@ -16,6 +16,7 @@ torch on the device, so the fixed-trip loop never reads the host.
 
 from __future__ import annotations
 
+import ctypes
 from typing import NamedTuple, Optional, Tuple
 
 import numpy as np
@@ -23,11 +24,11 @@ import torch
 
 from lv_slam_tpu_torch.core import se3
 from lv_slam_tpu_torch.core.cloud import PointCloud
-from lv_slam_tpu_torch.kernels._build import F32, I32, PTR, Kernel, check_cuda, check_dtype, ptr
+from lv_slam_tpu_torch.kernels._build import F32, I32, PTR, Kernel, check_cuda, check_dtype, ptr, scratch_bytes
 from lv_slam_tpu_torch.ops.knn import KnnGrid, build_grid, knn
 from lv_slam_tpu_torch.ops.linalg3 import eigh3x3
+from lv_slam_tpu_torch.ops.ndt import finish_counter
 
-_BLOCK = 256
 _N_TERMS = 42  # H (36), g (6)
 _GICP_EVALS = (1e-3, 1.0, 1.0)  # the reference's gicp_epsilon shape
 
@@ -41,7 +42,7 @@ NORMAL_KERNEL = Kernel(
     "gicp_align",
     source="lv_slam_tpu_torch/csrc/gicp.cu",
     replaces="lv_slam_tpu/ops/gicp.py:48",
-    entries={"lvs_gicp_normal": [PTR, PTR, PTR, PTR, PTR, PTR, PTR, PTR, I32, F32, PTR, I32, PTR]},
+    entries={"lvs_gicp_normal": [PTR, PTR, PTR, PTR, PTR, PTR, PTR, PTR, I32, F32, PTR, ctypes.c_longlong, PTR, PTR]},
 )
 
 
@@ -212,11 +213,12 @@ def gicp_normal_equations(
                                       torch.float32, torch.bool, torch.float32),
                                ((n, 3), (n,), (n, 3, 3), (4, 4), (n, 3), (n,), (n,), (n, 3, 3))):
         check_dtype("gicp_align", t, dtype, shape)
-    n_blocks = max(1, -(-n // _BLOCK))
-    partials = torch.empty((n_blocks, _N_TERMS), dtype=torch.float32, device=src.device)
+    # the tiles' partial rows and live flags; the last block's counter (0 between calls)
+    scratch = torch.empty((scratch_bytes("lvs_gicp_normal_scratch_bytes", n),), dtype=torch.uint8, device=src.device)
     out = torch.empty((_N_TERMS,), dtype=torch.float32, device=src.device)
     NORMAL_KERNEL.call(
-        "lvs_gicp_normal", *(ptr(t) for t in args), n, float(np.float32(max_dist)), ptr(partials), n_blocks, ptr(out)
+        "lvs_gicp_normal", *(ptr(t) for t in args), n, float(np.float32(max_dist)), ptr(scratch), scratch.numel(),
+        ptr(finish_counter(src.device)), ptr(out),
     )
     NORMAL_KERNEL.launches += 1
     return out[:36].view(6, 6), out[36:]

@@ -54,7 +54,8 @@ tables from its map buffers every scan (`build_cell_table`).
 
 Rounding: a cell coordinate of a build is `floor(x * (1/cell))`, as XLA
 compiles the reference's division by a constant; a query's is a true
-division by the grid's carried cell size (both exact for the 2 m cell).
+division by the grid's carried cell size (both exact for the 2 m cell),
+each with `ops/cells`' flushes of subnormal coordinates and quotients.
 Squared distances are the fma chain XLA makes of the reference's
 `jnp.sum(d ** 2, -1)` on the CPU (`ops.linalg3.dot3_fma`).
 """
@@ -70,8 +71,8 @@ import torch
 from lv_slam_tpu_torch.kernels._build import (
     F32, I32, MAX_SORT_LANES, PTR, Kernel, check_cuda, check_dtype, ptr, scratch_bytes,
 )
-from lv_slam_tpu_torch.ops.linalg3 import _div, dot3_fma, sqrt32
-from lv_slam_tpu_torch.ops.cells import cell_coords, inv_resolution
+from lv_slam_tpu_torch.ops.linalg3 import dot3_fma, sqrt32
+from lv_slam_tpu_torch.ops.cells import cell_coords, floor_cells_div, inv_resolution
 from lv_slam_tpu_torch.ops.prefilter import _pack_yz, _unpack_yz
 
 _H1, _H2, _H3 = 73856093, 19349669, 83492791  # classic spatial-hash primes
@@ -175,7 +176,7 @@ def _insert_keys_ref(xyz, mask, n_buckets, resolution, cell_size):
     the cell size (a carried value in the reference's scan step); the voxel
     multiplies by the reciprocal resolution (a compiled-in constant)."""
     vox = cell_coords(xyz, resolution)
-    cell = torch.floor(_div(xyz, cell_size)).to(torch.int32)
+    cell = floor_cells_div(xyz, cell_size).to(torch.int32)
     b = torch.where(mask, _bucket(cell, n_buckets), n_buckets)
     vx = torch.where(mask, vox[:, 0], _BIG).to(torch.int64)
     khi = b * (1 << 32) + (vx + (1 << 31))
@@ -419,7 +420,7 @@ def probe_buckets(table: CellTable, queries: torch.Tensor) -> torch.Tensor:
     """The buckets (Q,8) of the 2x2x2 cells around each query, offsets (i,
     j, k) with i outermost, as int64."""
     cs = table.cell_size
-    base = torch.floor(_div(queries - float(np.float32(cs / 2.0)), cs)).to(torch.int32)
+    base = floor_cells_div(queries - float(np.float32(cs / 2.0)), cs).to(torch.int32)
     p = torch.arange(8, dtype=torch.int32, device=queries.device)
     off = torch.stack([p >> 2, (p >> 1) & 1, p & 1], dim=1)
     return _bucket(base[:, None, :] + off[None], table.table.shape[0])
@@ -620,7 +621,7 @@ def knn_candidates(grid: KnnGrid, queries: torch.Tensor, slots_per_cell: int = 8
     in the reference's order (cell-major, `_OFF27` order). A candidate hits
     when its row holds that cell; cells out of the extent never hit."""
     e = _EXTENT
-    coords = torch.floor(_div(queries, grid.cell_size)).to(torch.int32).to(torch.int64)
+    coords = floor_cells_div(queries, grid.cell_size).to(torch.int32).to(torch.int64)
     rel = coords[:, None, :] - grid.origin_cell.to(torch.int64) + _off27(queries.device)
     in_extent = torch.all((rel >= 0) & (rel < e), dim=-1)
     flat = (rel[..., 0] * e + rel[..., 1]) * e + rel[..., 2]

@@ -89,8 +89,9 @@ _FINISH_COUNTERS: Dict[Tuple[int, int], torch.Tensor] = {}
 
 
 def finish_counter(device: torch.device) -> torch.Tensor:
-    """The standalone LUT passes' device counter (K6L, K6G) on the current
-    stream of `device`: one int32 that is 0 between calls. The pass's blocks
+    """The device counter of the one-launch reductions (the standalone LUT
+    passes, K6L and K6G; GICP's normal equations, K19b) on the current
+    stream of `device`: one int32 that is 0 between calls. A call's blocks
     count themselves on it, and the last one, having summed the rows, sets it
     back to 0, so a call needs no launch to clear it; a stream has its own,
     so calls on two streams never share one. Made (zeroed) at first use."""

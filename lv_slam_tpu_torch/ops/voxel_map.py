@@ -31,7 +31,7 @@ from lv_slam_tpu_torch.kernels._build import (
     F32, I32, MAX_SORT_LANES, PTR, Kernel, check_cuda, check_dtype, ptr, scratch_bytes,
 )
 from lv_slam_tpu_torch.ops.linalg3 import eigh3x3
-from lv_slam_tpu_torch.ops.cells import cell_coords, inv_resolution
+from lv_slam_tpu_torch.ops.cells import cell_coords, floor_cells, floor_cells_div, inv_resolution
 
 _BIG = 1 << 30
 _MAX_EXTENT = 1290  # the kernel's flat key (rel0 * e + rel1) * e + rel2 is an int32
@@ -200,7 +200,7 @@ def build_voxel_map_ref(
     sxyz = xyz[order]
     res = torch.full((1,), resolution, dtype=torch.float32, device=dev)
     inv = torch.full((1,), inv_resolution(resolution), dtype=torch.float32, device=dev)
-    cell_center = (torch.floor(sxyz * inv) + 0.5) * res
+    cell_center = (floor_cells(sxyz, inv) + 0.5) * res
     centered = torch.where(svalid[:, None], sxyz - cell_center, 0.0)
     outer = centered[:, :, None] * centered[:, None, :]
     seg_in = torch.cat([svalid.to(torch.float32)[:, None], centered, outer.reshape(n, 9)], dim=1)
@@ -303,9 +303,9 @@ def probe_cells(points: torch.Tensor, origin_cell: torch.Tensor, resolution: flo
     reference's LUT probes compute them: `floor(points / res)` by a true
     float32 division, since the resolution is an array there (the map build
     multiplies by the reciprocal; at a non-power-of-two resolution the two
-    differ within an ulp of a cell face)."""
-    res = torch.full((), resolution, dtype=torch.float32, device=points.device)
-    return torch.floor(points / res).to(torch.int32) - origin_cell
+    differ within an ulp of a cell face), subnormals flushed as `ops/cells`
+    sets out."""
+    return floor_cells_div(points, resolution).to(torch.int32) - origin_cell
 
 
 def lookup_leaves(vmap_: VoxelMap, lut: torch.Tensor, points: torch.Tensor, offsets: torch.Tensor):

@@ -1624,3 +1624,39 @@ def test_mesh_of_one_rank_equals_the_unsharded_port_on_the_card(cuda, scans, tmp
             assert torch.equal(getattr(got, f), getattr(want, f)), f
     finally:
         dist.destroy_process_group()
+
+
+@pytest.mark.gpu
+def test_gicp_normal_equations_cases_on_the_card(cuda):
+    """K19b on chip_smoke's `gicp_cases` (one lane, a partial tile, no lane
+    matched, 257 and 1172 tiles): one launch a call, the same bits twice,
+    within 1e-5 of the twins' scale."""
+    cs = load_chip_smoke()
+    assert cs.check_gicp_cases(torch, cuda) == len(cs.GICP_CASE_NAMES)
+
+
+@pytest.mark.gpu
+def test_grid_fits_thread_route_on_the_card(cuda, scans):
+    """K10g past 16384 queries (a thread a query; the fits' own batch takes
+    a warp a query, `test_cell_knn_and_grid_fits_match_plain_versions_on_the_card`):
+    copies of scan 1's sharp / flat features moved by a few cm, accept
+    decisions identical to the twins', fitted floats finite and within
+    `ops.gicp.PLANE_ENVELOPE` once multiplied by the gap
+    (`registration.grid_fit_error`)."""
+    from lv_slam_tpu_torch.ops.gicp import PLANE_ENVELOPE
+
+    _, (ye, edge), (ys, surf) = _cell_knn_calls(cuda, scans)
+    (_, s1), _ = scans
+    f1 = features.extract_features_ref(PointCloud.from_numpy(s1, cap=16384, device=cuda), LFA)
+    thread_queries = load_chip_smoke().KNN_THREAD_QUERIES
+    gen = torch.Generator(device=cuda).manual_seed(26)
+    for fn, ref, y, m, grid in ((registration.lines_from_fit, registration.lines_from_fit_ref, ye, f1.sharp_mask, edge),
+                                (registration.planes_from_fit, registration.planes_from_fit_ref, ys, f1.flat_mask,
+                                 surf)):
+        copies = -(-(thread_queries + 1) // y.shape[0])
+        y = (y.repeat(copies, 1) + 0.03 * torch.randn((copies * y.shape[0], 3), generator=gen, device=cuda))
+        y, m = y.contiguous(), m.repeat(copies).contiguous()
+        got, want = fn(y, m, grid), ref(y, m, grid)
+        assert torch.equal(got.valid, want.valid) and int(want.valid.sum()) > 0
+        assert all(bool(torch.isfinite(a).all()) for a in got[:2])
+        assert registration.grid_fit_error(got, want, y, grid, 5)[1] <= PLANE_ENVELOPE

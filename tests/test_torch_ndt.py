@@ -316,14 +316,13 @@ def _negative_denormal(x):
 
 
 def test_lut_face_through_zero_diverges_from_jax():
-    """The one place the LUT passes' cells differ from the reference's:
-    a point one ulp below the face through 0 is a negative denormal, which
-    the port keeps (on the card and in the twins: cell -1) and XLA's CPU
-    flushes to 0 (cell 0; the TPU flushes too). On `lut_cases`' face case,
-    under the identity, the port's cells (`probe_cells`) and the
+    """The LUT passes' cells through the face through 0: a point one ulp
+    below it is a negative denormal, which XLA's CPU code flushes to 0
+    (cell 0; the TPU flushes too), and so does the port's cell rule
+    (`ops/cells.py`; the kernels' `lvs::cell_floor`). On `lut_cases`' face
+    case, under the identity, the port's cells (`probe_cells`) equal the
     reference's (`floor(points / resolution)`, as `lookup_leaves` takes
-    them) differ by exactly -1 on each axis holding a negative denormal,
-    and nowhere else."""
+    them) on every lane, the negative denormals' too."""
     from lv_slam_tpu_torch.ops.voxel_map import probe_cells
 
     case = CS.lut_cases()[0]
@@ -331,12 +330,11 @@ def test_lut_face_through_zero_diverges_from_jax():
     np.testing.assert_array_equal(case["transform"], np.eye(4, dtype=np.float32))
     xyz = np.ascontiguousarray(case["xs"].T)
     _, _, _, _, origin, res, _ = case["leaves"]
-    neg = _negative_denormal(xyz)
-    assert neg.sum() > 0
+    assert _negative_denormal(xyz).sum() > 0
     got = probe_cells(torch.from_numpy(xyz), torch.from_numpy(origin), res).numpy() + origin
     # the resolution an argument, as the map's array is (a constant divisor becomes a reciprocal's product)
     want = np.asarray(jax.jit(lambda p, r: jnp.floor(p / r).astype(jnp.int32))(jnp.asarray(xyz), jnp.float32(res)))
-    np.testing.assert_array_equal(got - want, np.where(neg, -1, 0))
+    np.testing.assert_array_equal(got, want)
 
 
 @pytest.mark.parametrize("which", ["soa", "generic"])
@@ -353,13 +351,6 @@ def test_lut_cases_against_jax(name, which):
     are 0 on both sides."""
     case = {c["name"]: c for c in CS.lut_cases()}[name]
     vm, lut, soa, xs, xyz, mask, trans, gauss, offsets, weighted, _ = CS.lut_case_inputs(torch, case, "cpu")
-    # the port is given the points as XLA's CPU reads them: negative
-    # denormals flushed to -0 (the face case's, whose cells differ:
-    # test_lut_face_through_zero_diverges_from_jax); no other case holds one
-    neg = _negative_denormal(xs)
-    assert bool(neg.any()) == (name == CS.LUT_CASE_NAMES[0])
-    xs = torch.where(neg, torch.tensor(-0.0), xs)
-    xyz = xs.T.contiguous()
     means, icovs, weights, valid, origin, res, _ = case["leaves"]
     jvm = JVoxelMap(means=jnp.asarray(means), icovs=jnp.asarray(icovs), weights=jnp.asarray(weights),
                     normals=jnp.zeros_like(jnp.asarray(means)), valid=jnp.asarray(valid),

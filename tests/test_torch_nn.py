@@ -121,12 +121,12 @@ def test_calc_information_matrix(scans, const):
 def _with_faces(pts: np.ndarray, cell: float, seed: int, n: int = 3000) -> np.ndarray:
     """`pts` with points on cell faces appended: n of its points with every
     coordinate moved to the nearest multiple of `cell`, and the same points
-    one ulp either side (but 0, whose neighbours are subnormal: XLA's CPU
-    code flushes those to 0, a case real returns never reach)."""
+    one ulp either side (at 0 a subnormal, which XLA's CPU code flushes to
+    0, and so does the port's cell rule)."""
     rng = np.random.default_rng(seed)
     base = pts[rng.choice(len(pts), n, replace=False), :3]
     faces = (np.round(base / cell) * cell).astype(np.float32)
-    up, down = (np.where(faces == 0, faces, np.nextafter(faces, np.float32(d))) for d in (np.inf, -np.inf))
+    up, down = (np.nextafter(faces, np.float32(d)) for d in (np.inf, -np.inf))
     extra = np.concatenate([faces, up, down])
     extra = np.concatenate([extra, np.zeros((len(extra), pts.shape[1] - 3), np.float32)], axis=1)
     return np.concatenate([pts, extra]).astype(np.float32)
